@@ -6,6 +6,12 @@ and :func:`library` loads it with ``ctypes``.  No PyTorch headers are
 involved, so a build takes seconds.  The library's name carries a hash of
 the sources and flags, so an edited source is rebuilt at first use.
 
+A *generated* source (the spec kernels of ``backends/cuda_backend.py``) is
+written under the same directory and compiled, with the same flags and
+``csrc/`` on the include path, into a library of its own, named by the hash
+of the source, the headers and the flags (:func:`compile_generated`,
+:func:`generated_library`).
+
 Nothing here runs at import: the CPU tests import every module, and a
 CPU-only install has no ``nvcc``.
 """
@@ -62,8 +68,10 @@ def _sources() -> list[pathlib.Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest() -> str:
+def _digest(*texts: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for text in texts:
+        h.update(text.encode())
     for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -85,19 +93,18 @@ def _nvcc() -> str:
     raise BuildError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
-def compile_library() -> dict:
-    """Compile the sources now, whether or not a library is cached.
+def _compile(sources: list[pathlib.Path], out: pathlib.Path) -> dict:
+    """nvcc ``sources`` into the library ``out``.
 
     Returns ``{"path", "seconds", "log"}``; ``log`` is nvcc's output,
     ``-Xptxas -v`` lines (registers, spills, shared memory) included.  The
     library is written to a temporary name and renamed, so a concurrent
     build never loads a half-written file.
     """
-    out = library_path()
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *map(str, sources)]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -115,20 +122,58 @@ def compile_library() -> dict:
     return {"path": str(out), "seconds": seconds, "log": log}
 
 
+def compile_library() -> dict:
+    """Compile ``csrc/*.cu`` now, whether or not a library is cached (see
+    :func:`_compile` for what it returns)."""
+    return _compile(_sources(), library_path())
+
+
+def generated_path(stem: str, source: str) -> pathlib.Path:
+    return BUILD_DIR / f"lib{stem}_{_digest(source)}.so"
+
+
+def compile_generated(stem: str, source: str) -> dict:
+    """Write a generated source beside its library and compile it now (see
+    :func:`_compile` for what it returns)."""
+    out = generated_path(stem, source)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    src = out.with_suffix(".cu")
+    fd, tmp = tempfile.mkstemp(suffix=".cu", dir=out.parent)
+    with os.fdopen(fd, "w") as f:
+        f.write(source)
+    os.replace(tmp, src)
+    return _compile([src], out)
+
+
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built at first use if not cached)."""
-    path = library_path()
+def generated_library(stem: str, source: str, signatures: tuple) -> ctypes.CDLL:
+    """The loaded library of a generated source (built at first use if not
+    cached); ``signatures`` is ``((symbol, argtypes), ...)``, each symbol
+    returning a CUDA error code."""
+    path = generated_path(stem, source)
     if not path.exists():
-        compile_library()
+        compile_generated(stem, source)
+    return _load(path, signatures)
+
+
+def _load(path: pathlib.Path, signatures) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
+    for name, argtypes in signatures:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     lib.exahype_cuda_error_string.argtypes = [ctypes.c_int]
     lib.exahype_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use if not cached)."""
+    path = library_path()
+    if not path.exists():
+        compile_library()
+    return _load(path, _SIGNATURES.items())
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

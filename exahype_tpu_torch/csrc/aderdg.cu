@@ -35,9 +35,12 @@
 // cell's low-face flux from the neighbour's face data rather than receiving
 // it, so there are no races and no float atomics: the step is bitwise
 // deterministic run to run.  Offsets are 64-bit.  IEEE division and square
-// root (no fast math).
+// root (no fast math).  The Euler physics is csrc/euler.cuh, shared with the
+// generated spec kernels.
 
 #include <cuda_runtime.h>
+
+#include "euler.cuh"
 
 namespace {
 
@@ -61,45 +64,6 @@ struct Params {
   long long g[kDim];  // cell grid
   long long ncell;
 };
-
-__device__ __forceinline__ float dabs(float x) { return fabsf(x); }
-__device__ __forceinline__ double dabs(double x) { return fabs(x); }
-__device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
-__device__ __forceinline__ float dmax(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ double dmax(double a, double b) { return fmax(a, b); }
-
-// Euler physics, operation order of exahype_tpu/models/euler.py
-// (_pressure_tpu, flux_tpu, max_eigenvalue_tpu).
-template <typename T>
-__device__ __forceinline__ T pressure(const T* q, T gm1) {
-  const T inv_rho = T(1) / q[0];
-  T kinetic = q[1] * q[1] + q[2] * q[2];
-  kinetic = kinetic + q[3] * q[3];
-  return gm1 * (q[4] - T(0.5) * inv_rho * kinetic);
-}
-
-// Flux along axis n (n must be a compile-time constant after unrolling).
-template <typename T>
-__device__ __forceinline__ void flux(const T* q, int n, T gm1, T* f) {
-  const T inv_rho = T(1) / q[0];
-  const T p = pressure(q, gm1);
-  const T coeff = inv_rho * q[n + 1];
-#pragma unroll
-  for (int k = 0; k < kDim + 1; ++k) f[k] = coeff * q[k];
-  f[n + 1] = f[n + 1] + p;
-  f[kDim + 1] = coeff * q[kDim + 1] + coeff * p;
-}
-
-// Largest |wave speed| along the axis whose momentum is q_n.
-template <typename T>
-__device__ __forceinline__ T max_eigenvalue(const T* q, T q_n, T gm1, T gamma) {
-  const T inv_rho = T(1) / dabs(q[0]);
-  const T p = pressure(q, gm1);
-  const T c = dsqrt(gamma * dabs(p) * inv_rho);
-  const T u_n = q_n * inv_rho;
-  return dmax(dabs(u_n - c), dabs(u_n + c));
-}
 
 template <typename T>
 __device__ __forceinline__ T momentum(const T* q, int d) {
@@ -199,7 +163,7 @@ aderdg_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
 #pragma unroll
       for (int d = 0; d < kDim; ++d) {
         T f[V];
-        flux(q[s], d, P.gm1, f);
+        euler_flux<T, kDim, kVars>(q[s], d, P.gm1, f);
 #pragma unroll
         for (int v = 0; v < V; ++v) sF[iF(d, v, node, c)] = f[v];
       }
@@ -244,7 +208,7 @@ aderdg_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
 #pragma unroll
     for (int d = 0; d < kDim; ++d) {
       T f[V];
-      flux(q[s], d, P.gm1, f);
+      euler_flux<T, kDim, kVars>(q[s], d, P.gm1, f);
 #pragma unroll
       for (int v = 0; v < V; ++v) fbar[d][v] = s == 0 ? w * f[v] : fbar[d][v] + w * f[v];
     }
@@ -314,8 +278,8 @@ template <typename T>
 __device__ __forceinline__ void rusanov(const T* qa, const T* qb, const T* fa,
                                         const T* fb, int d, T gm1, T gamma,
                                         T* fhat) {
-  const T s = dmax(max_eigenvalue(qa, momentum(qa, d), gm1, gamma),
-                   max_eigenvalue(qb, momentum(qb, d), gm1, gamma));
+  const T s = dmax(euler_max_eigenvalue<T, kDim>(qa, momentum(qa, d), gm1, gamma),
+                   euler_max_eigenvalue<T, kDim>(qb, momentum(qb, d), gm1, gamma));
 #pragma unroll
   for (int v = 0; v < kVars; ++v) {
     fhat[v] = T(0.5) * (fa[v] + fb[v]) - T(0.5) * s * (qb[v] - qa[v]);

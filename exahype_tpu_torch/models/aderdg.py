@@ -30,6 +30,7 @@ from torch import nn
 
 from exahype_tpu_torch.models import euler
 from exahype_tpu_torch.models.dg import DGOperators
+from exahype_tpu_torch.utils.device import resolve_device
 from exahype_tpu_torch.utils.errors import SemanticError
 
 
@@ -100,7 +101,9 @@ class ADERDGSolver(nn.Module):
     """ADER-DG on a periodic Cartesian grid of cells (SoA-P layout).
 
     The DG operators are float64 NumPy at construction
-    (:class:`DGOperators`) and live as buffers in ``dtype`` on ``device``;
+    (:class:`DGOperators`) and live as buffers in ``dtype`` on ``device``
+    (the CUDA card when ``device`` is None: ``device="cpu"`` asks for the
+    CPU);
     they are cast to the state's dtype where applied, as the JAX package
     casts them.  The keyword options of the JAX solver that are not ported
     are accepted so a configuration carries over by name, and raise
@@ -161,6 +164,7 @@ class ADERDGSolver(nn.Module):
             self._dxs = tuple(float(v) for v in dx)
         else:
             self._dxs = (float(dx),) * dim
+        device = resolve_device(device)
         ops = self.ops
         for name, arr in (
             ("D", ops.D),

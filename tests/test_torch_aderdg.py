@@ -77,7 +77,7 @@ CONFIGS = {
 def both(name, dtype=torch.float64, basis="legendre"):
     dim, order, grid, make = CONFIGS[name]
     js = jax_euler_solver(dim, order, grid, basis=basis)
-    ts = aderdg_from_jax(js, gamma=GAMMA, dtype=dtype)
+    ts = aderdg_from_jax(js, gamma=GAMMA, device="cpu", dtype=dtype)
     return js, ts, make(js)
 
 
@@ -85,7 +85,7 @@ def both(name, dtype=torch.float64, basis="legendre"):
 def test_predictor_parity(name):
     js, ts, Q = both(name)
     qbar_j, fbar_j = js.predictor(jnp.asarray(Q), 2e-3)
-    qbar_t, fbar_t = ts.predictor(state_from_numpy(Q), 2e-3)
+    qbar_t, fbar_t = ts.predictor(state_from_numpy(Q, device="cpu"), 2e-3)
     np.testing.assert_allclose(
         state_to_numpy(qbar_t), np.asarray(qbar_j), rtol=0, atol=1e-12
     )
@@ -102,7 +102,7 @@ def test_predictor_parity(name):
 def test_step_parity_f64(name, basis):
     js, ts, Q = both(name, basis=basis)
     ref = np.asarray(js.step(jnp.asarray(Q), 2e-3))
-    got = state_to_numpy(ts.step(state_from_numpy(Q), 2e-3))
+    got = state_to_numpy(ts.step(state_from_numpy(Q, device="cpu"), 2e-3))
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
     assert np.abs(ref - Q).max() > 1e-4  # the step did something
 
@@ -111,15 +111,15 @@ def test_step_parity_f64(name, basis):
 def test_step_parity_f32(name):
     js, ts, Q = both(name, dtype=torch.float32)
     ref = np.asarray(js.step(jnp.asarray(Q), 2e-3))  # f64 reference
-    got = ts.step(state_from_numpy(Q, dtype=torch.float32), 2e-3)
+    got = ts.step(state_from_numpy(Q, device="cpu", dtype=torch.float32), 2e-3)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(state_to_numpy(got), ref, rtol=0, atol=2e-5)
 
 
 def test_step_with_device_scalar_dt():
     js, ts, Q = both("3d_p3")
-    a = ts.step(state_from_numpy(Q), 2e-3)
-    b = ts.step(state_from_numpy(Q), torch.tensor(2e-3, dtype=torch.float64))
+    a = ts.step(state_from_numpy(Q, device="cpu"), 2e-3)
+    b = ts.step(state_from_numpy(Q, device="cpu"), torch.tensor(2e-3, dtype=torch.float64))
     np.testing.assert_allclose(state_to_numpy(b), state_to_numpy(a), rtol=0, atol=1e-15)
 
 
@@ -127,17 +127,17 @@ def test_step_with_device_scalar_dt():
 def test_run_cfl_and_mass(name):
     js, ts, Q = both(name)
     dt_j = float(js.cfl_dt(jnp.asarray(Q)))
-    dt_t = ts.cfl_dt(state_from_numpy(Q))
+    dt_t = ts.cfl_dt(state_from_numpy(Q, device="cpu"))
     assert dt_t.dim() == 0
     np.testing.assert_allclose(float(dt_t), dt_j, rtol=1e-14, atol=0)
     np.testing.assert_allclose(
-        float(ts.cfl_dt(state_from_numpy(Q), cfl=0.1)),
+        float(ts.cfl_dt(state_from_numpy(Q, device="cpu"), cfl=0.1)),
         float(js.cfl_dt(jnp.asarray(Q), cfl=0.1)), rtol=1e-14, atol=0,
     )
     ref = np.asarray(js.run(jnp.asarray(Q), 5, dt_j))
-    u = ts.run(state_from_numpy(Q), 5, dt_j)
+    u = ts.run(state_from_numpy(Q, device="cpu"), 5, dt_j)
     np.testing.assert_allclose(state_to_numpy(u), ref, rtol=0, atol=1e-12)
-    m0 = ts.total_mass(state_from_numpy(Q))
+    m0 = ts.total_mass(state_from_numpy(Q, device="cpu"))
     np.testing.assert_allclose(
         state_to_numpy(m0), np.asarray(js.total_mass(jnp.asarray(Q))),
         rtol=0, atol=1e-12,
@@ -162,7 +162,7 @@ def test_kernel_halves_compose_to_step():
     """The plain versions of the two kernels, chained, are the step, and
     the face tensor holds the JAX package's face projections."""
     js, ts, Q = both("3d_p3")
-    u = state_from_numpy(Q)
+    u = state_from_numpy(Q, device="cpu")
     new, faces = ts.predictor_volume(u, 2e-3)
     assert faces.shape == ts.face_shape
     out = ts.face_surface(new, faces, 2e-3)
@@ -181,7 +181,7 @@ def test_kernel_halves_compose_to_step():
 
 def test_step_does_not_mutate_input():
     _, ts, Q = both("3d_p3")
-    u = state_from_numpy(Q)
+    u = state_from_numpy(Q, device="cpu")
     u0 = u.clone()
     ts.step(u, 2e-3)
     assert torch.equal(u, u0)
@@ -206,7 +206,7 @@ def test_step_does_not_mutate_input():
 def test_unported_options_raise(option, value):
     flux, eig = euler_physics(3)
     with pytest.raises(SemanticError, match="ROADMAP.md"):
-        ADERDGSolver(3, 3, 5, (2, 2, 2), flux, eig, **{option: value})
+        ADERDGSolver(3, 3, 5, (2, 2, 2), flux, eig, device="cpu", **{option: value})
 
 
 def test_convert_rejects_unported_jax_options():
@@ -216,19 +216,19 @@ def test_convert_rejects_unported_jax_options():
         max_eigenvalue_fn=eig, source_fn=lambda q, va: 0.0 * q,
     )
     with pytest.raises(SemanticError, match="source_fn"):
-        aderdg_from_jax(js, gamma=GAMMA)
+        aderdg_from_jax(js, gamma=GAMMA, device="cpu")
 
 
 def test_solver_config_errors():
     flux, eig = euler_physics(3)
     with pytest.raises(SemanticError):
-        ADERDGSolver(4, 3, 5, (2, 2, 2, 2), flux, eig)
+        ADERDGSolver(4, 3, 5, (2, 2, 2, 2), flux, eig, device="cpu")
     with pytest.raises(SemanticError):
-        ADERDGSolver(3, 3, 5, (2, 2), flux, eig)
+        ADERDGSolver(3, 3, 5, (2, 2), flux, eig, device="cpu")
     with pytest.raises(SemanticError):
-        ADERDGSolver(3, 3, 5, (2, 2, 2), flux, eig, basis="chebyshev")
+        ADERDGSolver(3, 3, 5, (2, 2, 2), flux, eig, device="cpu", basis="chebyshev")
     with pytest.raises(TypeError):
-        ADERDGSolver(3, 3, 5, (2, 2, 2), flux, eig, tile0=4)
+        ADERDGSolver(3, 3, 5, (2, 2, 2), flux, eig, device="cpu", tile0=4)
 
 
 # ----------------------------------------------------------- CudaADERDG
@@ -237,7 +237,7 @@ def test_solver_config_errors():
 def test_cuda_wrapper_takes_plain_path_on_cpu():
     js, ts, Q = both("3d_p3")
     cu = CudaADERDG(ts)
-    u = state_from_numpy(Q)
+    u = state_from_numpy(Q, device="cpu")
     out = cu.step(u, 2e-3)
     np.testing.assert_array_equal(state_to_numpy(out), state_to_numpy(ts.step(u, 2e-3)))
     run = cu.run(u, 2, 2e-3)
@@ -262,15 +262,15 @@ def test_cuda_wrapper_rejects_what_the_kernels_do_not_take():
         return Q.abs().amax(dim=var_axis)
 
     with pytest.raises(LoweringError, match="Euler"):
-        CudaADERDG(ADERDGSolver(3, 3, 5, (2, 2, 2), flux, eig))
+        CudaADERDG(ADERDGSolver(3, 3, 5, (2, 2, 2), flux, eig, device="cpu"))
     f3, e3 = euler_physics(3)
     f2, e2 = euler_physics(2, n_real=4)
     with pytest.raises(LoweringError, match="Euler"):
-        CudaADERDG(ADERDGSolver(3, 3, 5, (2, 2, 2), f3, e2))
+        CudaADERDG(ADERDGSolver(3, 3, 5, (2, 2, 2), f3, e2, device="cpu"))
     with pytest.raises(LoweringError, match="order=2"):
-        CudaADERDG(ADERDGSolver(3, 2, 5, (2, 2, 2), f3, e3))
+        CudaADERDG(ADERDGSolver(3, 2, 5, (2, 2, 2), f3, e3, device="cpu"))
     with pytest.raises(LoweringError, match="dim=2"):
-        CudaADERDG(ADERDGSolver(2, 3, 4, (2, 2), f2, e2))
+        CudaADERDG(ADERDGSolver(2, 3, 4, (2, 2), f2, e2, device="cpu"))
     f6, e6 = euler_physics(3, n_real=6)
     with pytest.raises(LoweringError, match="n_vars=6"):
-        CudaADERDG(ADERDGSolver(3, 3, 6, (2, 2, 2), f6, e6))
+        CudaADERDG(ADERDGSolver(3, 3, 6, (2, 2, 2), f6, e6, device="cpu"))

@@ -53,8 +53,8 @@ def bench_config(grid):
 
 def test_slice_three_steps_match_jax():
     js, Q = bench_config((4, 2, 8))
-    port = CudaADERDG(aderdg_from_jax(js, gamma=1.4))
-    u = state_from_numpy(Q)
+    port = CudaADERDG(aderdg_from_jax(js, gamma=1.4, device="cpu"))
+    u = state_from_numpy(Q, device="cpu")
     ref = jnp.asarray(Q)
     for k in range(3):
         ref = js.step(ref, DT)
@@ -81,8 +81,8 @@ def test_slice_step_matches_pallas_interpret():
     fused = PallasADERDG(js, interpret=True, tile0=2, boundary_faces_only=True)
     ref = np.asarray(fused.step(jnp.asarray(Q), DT))
     assert fused.boundary_faces_only
-    port = CudaADERDG(aderdg_from_jax(js, gamma=1.4))
-    got = state_to_numpy(port.step(state_from_numpy(Q), DT))
+    port = CudaADERDG(aderdg_from_jax(js, gamma=1.4, device="cpu"))
+    got = state_to_numpy(port.step(state_from_numpy(Q, device="cpu"), DT))
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
 
 
@@ -98,9 +98,9 @@ def test_bench_dt_blows_up_in_both_packages():
     is perturbed by one unit in the last place — checked while that
     self-difference is below 1e-3 of the state (rounding regime)."""
     js, Q = bench_config((4, 2, 8))
-    port = aderdg_from_jax(js, gamma=1.4)
+    port = aderdg_from_jax(js, gamma=1.4, device="cpu")
     noise = np.random.default_rng(1).choice([-1.0, 1.0], Q.shape)
-    u = state_from_numpy(Q)
+    u = state_from_numpy(Q, device="cpu")
     ref = jnp.asarray(Q)
     pert = jnp.asarray(Q * (1 + 2.0**-52 * noise))
     first_nonfinite = {}
@@ -132,32 +132,66 @@ def _clean_env():
     return env
 
 
-def test_port_imports_no_jax():
-    pkg = REPO / "exahype_tpu_torch"
-    modules = sorted(
-        "exahype_tpu_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
-        for p in pkg.rglob("*.py")
-        if p.name != "__init__.py"
-    )
-    assert "exahype_tpu_torch.models.aderdg_cuda" in modules
+PKG = REPO / "exahype_tpu_torch"
+#: Every module of the port, and the package itself (its lazy exports).
+PORT_MODULES = ["exahype_tpu_torch"] + sorted(
+    "exahype_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
+    for p in PKG.rglob("*.py")
+    if p.name != "__init__.py"
+)
+#: The ADER-DG slice loads no SymPy; the spec-DSL front end is built on it.
+SYMPY_FREE = (
+    "exahype_tpu_torch.models.aderdg",
+    "exahype_tpu_torch.models.dg",
+    "exahype_tpu_torch.models.euler",
+    "exahype_tpu_torch.convert",
+    "exahype_tpu_torch._build",
+    "exahype_tpu_torch.utils.device",
+    "exahype_tpu_torch.utils.errors",
+)
+
+
+def _import_alone(module: str):
+    """Import ``module`` in a fresh interpreter; the roots it loaded."""
     code = (
         "import importlib, sys\n"
-        "import exahype_tpu_torch as p\n"
-        f"for m in {modules!r}:\n"
-        "    importlib.import_module(m)\n"
-        "for name in p.__all__:\n"
-        "    getattr(p, name)\n"
+        f"m = importlib.import_module({module!r})\n"
+        "for name in getattr(m, '__all__', ()) if m.__name__ == 'exahype_tpu_torch' else ():\n"
+        "    if name != '__version__': getattr(m, name)\n"
         "roots = ('jax', 'jaxlib', 'exahype_tpu', 'sympy')\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
-        "assert not bad, bad\n"
-        "print('ok', len(sys.modules))\n"
+        "print(' '.join(sorted({n.split('.')[0] for n in sys.modules} & set(roots))))\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=_clean_env(),
         capture_output=True, text=True, timeout=120,
     )
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.startswith("ok")
+    return proc.returncode, proc.stdout.split(), proc.stderr
+
+
+@pytest.fixture(scope="module")
+def imported_roots():
+    """Every port module imported alone, three interpreters at a time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        return dict(zip(PORT_MODULES, pool.map(_import_alone, PORT_MODULES)))
+
+
+@pytest.mark.parametrize("module", PORT_MODULES)
+def test_port_imports_no_jax(module, imported_roots):
+    rc, roots, err = imported_roots[module]
+    assert rc == 0, err
+    assert not {"jax", "jaxlib", "exahype_tpu"} & set(roots), roots
+    if module.startswith(SYMPY_FREE):
+        assert "sympy" not in roots, roots
+
+
+def test_port_module_list_covers_both_slices():
+    assert "exahype_tpu_torch.models.aderdg_cuda" in PORT_MODULES
+    assert "exahype_tpu_torch.backends.cuda_backend" in PORT_MODULES
+    assert "exahype_tpu_torch.models.aderdg_cuda" in [
+        m for m in PORT_MODULES if m.startswith(SYMPY_FREE)
+    ]
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
