@@ -17,6 +17,15 @@ read just after:
   (``tests/test_torch_slice.py::test_bench_dt_blows_up_in_both_packages``);
   the script records the step at which the port overflows at the bench
   grid.
+- **limited**: ``bench.py::bench_limited``'s production step — the same
+  solver, grid and dtype, ``LimitedADERDG(admissible=euler_admissible(3),
+  troubled_capacity=128, troubled_granularity="row", dmp_delta0=5e-4,
+  accelerator=CudaADERDG(solver), subcell_cuda=True)`` with the "means"
+  overflow policy and the post-step guard, from the bench's Sod shock along
+  axis 0 at the bench's dt = 1.5e-4 (``bench.py:326-356``): 5 warm-up steps
+  (the bench's first chunk), then 10 checked ones.  Its kernels are the two
+  of ``csrc/aderdg.cu`` (the face kernel also writes the face fluxes) and
+  the subcell sweep (K3) of ``csrc/subcell.cu``, three launches a step.
 - **FV**: the spec-DSL Rusanov patch update of ``__graft_entry__.py`` —
   ``build_fv_rusanov_kernel`` (3-D Euler, patch 4, halo 1, 5 vars) →
   ``TpuPatchGrid`` → ``GridSolver(kernel_dt="lambda")`` with ``compute_dt``
@@ -28,17 +37,24 @@ read just after:
 Phases:
 
 1. card: name, and ``nvidia-smi``'s name and power limit;
-2. build: ``csrc/aderdg.cu`` and the K4 sources of the ``fv`` and the
-   canonical ``rusanov`` spec, one ``nvcc`` each, all started together
-   (time, source hash, and ptxas's registers/shared memory/spills);
+2. build: ``csrc/aderdg.cu``, ``csrc/subcell.cu`` and the K4 sources of
+   the ``fv`` and the canonical ``rusanov`` spec, one ``nvcc`` each, all
+   started together (time, source hash, and ptxas's registers/shared
+   memory/spills);
 3. each kernel against its plain PyTorch version on the card: float64 at
-   atol=1e-12 (ADER-DG ``(8, 4, 32)``; K4 ``(2, 2, 2)``, both specs),
-   float32 at each path's full shape at the bound stated in ``F32_ULPS``;
+   atol=1e-12 (ADER-DG and its face fluxes ``(8, 4, 32)``; K3 a batch of
+   ``K=8, L=16`` rows per direction; K4 ``(2, 2, 2)``, both specs), float32
+   at each path's full shape (K3 on the gathered batch of the limited path
+   after its warm-up) at the bound stated in ``F32_ULPS``, K3 bitwise
+   repeatable;
 4. each main path: 10 steps, with the launch counters, finiteness, mass
-   drift, bitwise repeatability and the plain path's 10 steps as checks;
+   drift, bitwise repeatability and the plain path as checks (the limited
+   path also: admissibility, the rows demanded against the capacity, and
+   one step's troubled mask against the plain path's);
 5. times: step ms over 3 host-clock windows, DOF-updates/s, per-kernel (and
-   for FV ``halo_fill`` / ``compute_dt``) times with CUDA events, device
-   idle share, the plain path beside them;
+   for FV ``halo_fill`` / ``compute_dt``, for the limited step the rest of
+   the step) times with CUDA events, device idle share, host
+   synchronisations per limited step, the plain path beside them;
 6. a reading, not a check: the step at which ``bench.py``'s dt = 1e-4
    makes the ADER-DG state non-finite, on both paths.
 
@@ -81,6 +97,12 @@ F64_ATOL = 1e-12
 #: steps.  The periodic flux form conserves them exactly; float32 rounding
 #: of each update (≤ 2⁻²⁴ relative, 10 steps) bounds the drift by ~1e-6.
 MASS_RTOL = 1e-5
+
+#: The limited path (``bench.py:326-356``).
+LIMITED_DT = 1.5e-4
+CAPACITY = 128
+DMP_DELTA0 = 5e-4
+WARMUP = 5
 
 #: The FV path (``__graft_entry__.py:16-36``): 3-D Euler, patch 4, halo 1.
 FV_WIDTH = dict(dim=3, patch_size=4, halo_size=1, n_real=5, n_aux=0)
@@ -235,6 +257,31 @@ def face_surface_ops(order: int, ncell: int, dim=3, nvar=5) -> float:
     return ncell * (dim * n ** (dim - 1) * 2 * rusanov + n**dim * nvar * dim * 5)
 
 
+def face_fhat_bytes(face_bytes: int, state_bytes: int, fhat_bytes: int) -> int:
+    """Bytes of ``aderdg_face_surface`` with the face-flux output: the faces
+    and the state read, the state and the face fluxes written."""
+    return face_bytes + 2 * state_bytes + fhat_bytes
+
+
+def sweep_bytes(n_pencils: int, itemsize: int, n_sub=7, nvar=5) -> int:
+    """Bytes one K3 sweep needs: every pencil's ``n_sub`` subcells and two
+    ghosts read, its ``n_sub`` subcells written, and each (k, l) cell's two
+    transverse-mean edge fluxes written (``n_pencils / n_sub^2`` cells)."""
+    cells = n_pencils // n_sub**2
+    return (2 * n_sub + 2) * nvar * itemsize * n_pencils + 2 * nvar * itemsize * cells
+
+
+def sweep_ops(n_pencils: int, n_sub=7, nvar=5) -> float:
+    """Flops of one K3 sweep (``csrc/subcell.cu``): per pencil, a flux and
+    a wave speed of its ``n_sub + 2`` states, ``n_sub + 1`` Rusanov faces
+    (6 flops per variable and a max), the update of ``n_sub`` subcells (3
+    per variable), and its share of the two transverse means (1 add per
+    variable each)."""
+    per_pencil = ((n_sub + 2) * (FLUX_OPS + EIG_OPS) + (n_sub + 1) * (6 * nvar + 1)
+                  + n_sub * 3 * nvar + 2 * nvar)
+    return per_pencil * n_pencils
+
+
 def fv_ops(n_patches: int, dim=3, patch=4, halo=1, nvar=5) -> float:
     """Flops the ``fv`` spec's output needs: per axis a flux and a wave
     speed on the cells its face stencil reaches (the interior and the two
@@ -271,6 +318,340 @@ def fv_state(torch, grid, device, dtype, seed=0):
 def interior_mass(torch, u):
     """Sum of each conserved variable over the patch interiors (float64)."""
     return u[1:5, 1:5, 1:5].double().sum(dim=(0, 1, 2, 4, 5, 6))
+
+
+def sod_state(solver, torch, device, dtype):
+    """``bench.py:348-356``: the Sod shock along axis 0, at rest."""
+    import numpy as np
+
+    grid = solver.grid_shape
+    x = np.arange(grid[0]).reshape(-1, 1, 1) / grid[0]
+    left = np.broadcast_to(x < 0.5, grid)
+    va = solver.var_axis
+    no_var = solver.state_shape[:va] + solver.state_shape[va + 1:]
+    rho = np.broadcast_to(np.where(left, 1.0, 0.125), no_var).astype(np.float32)
+    p = np.broadcast_to(np.where(left, 1.0, 0.1), no_var).astype(np.float32)
+    zeros = np.zeros(no_var, np.float32)
+    q = np.stack([rho, zeros, zeros, zeros, p / 0.4], axis=va)
+    return torch.from_numpy(q).to(device=device, dtype=dtype).contiguous()
+
+
+def limited_path(torch, dev, card) -> list[dict]:
+    """The limited form of the main path; returns the kernel JSON lines of
+    the face kernel with its face-flux output and of K3."""
+    import numpy as np
+
+    from exahype_tpu_torch.models import subcell_cuda
+    from exahype_tpu_torch.models.aderdg import ADERDGSolver, euler_physics
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.limiter import LimitedADERDG, euler_admissible
+
+    flux, eig = euler_physics(3, n_real=5)
+    adm = euler_admissible(3)
+
+    def make(grid, dtype, dx=DX):
+        sol = ADERDGSolver(3, ORDER, 5, grid, flux, eig, dx=dx, device=dev, dtype=dtype)
+        cu = CudaADERDG(sol)
+        opts = dict(troubled_capacity=CAPACITY, troubled_granularity="row",
+                    dmp_delta0=DMP_DELTA0, device=dev)
+        kernel = LimitedADERDG(sol, adm, accelerator=cu, subcell_cuda=True, **opts)
+        plain = LimitedADERDG(sol, adm, **opts)
+        return sol, cu, kernel, plain
+
+    # --------------------------------- face kernel's face fluxes vs plain
+    fhat_err = 0.0
+    for grid, dtype in (((8, 4, 32), torch.float64), (GRID, torch.float32)):
+        sol, cu, _, _ = make(grid, dtype)
+        u = bench_state(sol, torch, dev, dtype) if dtype == torch.float64 else (
+            sod_state(sol, torch, dev, dtype))
+        new, faces = sol.predictor_volume(u, LIMITED_DT)
+        out_k, fl_k = cu.face_surface(new.clone(), faces, LIMITED_DT, return_face_fluxes=True)
+        out_p, fl_p = sol.face_surface(new, faces, LIMITED_DT, return_face_fluxes=True)
+        torch.cuda.synchronize()
+        f64 = dtype == torch.float64
+        for what, got, ref in [("new", out_k, out_p)] + [
+                (f"fhat[{d}]", a, b) for d, (a, b) in enumerate(zip(fl_k, fl_p))]:
+            err = max_err(torch, got, ref)
+            limit = F64_ATOL if f64 else f32_bound(torch, ref)
+            say(f"[parity] aderdg_face_surface with face fluxes ({what}) "
+                f"{str(dtype)[6:]} {grid}: max_abs_err {err:.3e} limit {limit:.3e}")
+            if not err <= limit:
+                fail(f"the face kernel's {what} disagrees with its plain version")
+            if not f64:
+                fhat_err = max(fhat_err, err)
+        del sol, cu, u, new, faces, out_k, fl_k, out_p, fl_p
+
+    # --------------------------------- K3 vs plain, float64, small batch
+    _, _, lim64, _ = make((4, 2, 8), torch.float64)
+    rng = np.random.default_rng(0)
+
+    def pencils(shape):
+        lead = shape[:3] + shape[4:]
+        q = np.stack([1.0 + 0.3 * rng.random(lead)]
+                     + [0.4 * rng.standard_normal(lead) for _ in range(3)]
+                     + [2.5 + rng.random(lead)], axis=3)
+        return torch.from_numpy(q).to(dev).contiguous()
+
+    for d in range(3):
+        gshape = [7, 7, 7, 5, 8, 16]
+        gshape[d] = 1
+        s, lo, hi = pencils((7, 7, 7, 5, 8, 16)), pencils(tuple(gshape)), pencils(tuple(gshape))
+        got = subcell_cuda.row_sweep_call(lim64, d, s, lo, hi, LIMITED_DT)
+        again = subcell_cuda.row_sweep_call(lim64, d, s, lo, hi, LIMITED_DT)
+        ref = lim64._row_sweep_math(s, lo, hi, d, LIMITED_DT)
+        torch.cuda.synchronize()
+        for what, a, b, c in zip(("s_new", "g_lo", "g_hi"), got, again, ref):
+            err = max_err(torch, a, c)
+            say(f"[parity] subcell_row_sweep d={d} ({what}) float64 K=8 L=16: max_abs_err "
+                f"{err:.3e} limit {F64_ATOL:.1e}; repeat bitwise {torch.equal(a, b)}")
+            if not (err <= F64_ATOL and torch.equal(a, b)):
+                fail(f"K3 (d={d}, {what}, float64) disagrees with its plain version")
+    del lim64, s, lo, hi, got, again, ref
+
+    # --------------------------------- the limited main path
+    sol, cu, lim, plain = make(GRID, torch.float32)
+    u0 = sod_state(sol, torch, dev, torch.float32)
+    say(f"[limited] dt = {LIMITED_DT!r} (bench.py:356); cfl_dt(initial state) = "
+        f"{float(sol.cfl_dt(u0))!r}; capacity {CAPACITY} rows of {GRID[-1]} cells, "
+        f"dmp_delta0 {DMP_DELTA0}")
+    u5 = lim.run(u0, WARMUP, LIMITED_DT)
+    torch.cuda.synchronize()
+    if not torch.isfinite(u5).all():
+        fail("the limited state is not finite after the warm-up")
+
+    # K3 on the gathered batch of this state, float32: record the sweeps'
+    # inputs of one plain step.
+    candidate = cu.step(u5, LIMITED_DT)
+    tables = plain._gather_tables_row(plain.troubled_mask(u5, candidate))
+    n_active = int(tables["active"].sum())
+    recorded = []
+
+    def record(s_, lo_, hi_, d_, dt_):
+        recorded.append((d_, s_, lo_, hi_))
+        return LimitedADERDG._row_sweep_math(plain, s_, lo_, hi_, d_, dt_)
+
+    plain._row_sweep_math = record
+    try:
+        plain._gathered_subcell_step_row(u5, LIMITED_DT, tables)
+    finally:
+        del plain._row_sweep_math
+    del candidate
+    k3_err, k3_ms, k3_plain_ms = 0.0, {}, {}
+    for d, s, lo, hi in recorded:
+        got = subcell_cuda.row_sweep_call(lim, d, s, lo, hi, LIMITED_DT)
+        again = subcell_cuda.row_sweep_call(lim, d, s, lo, hi, LIMITED_DT)
+        ref = plain._row_sweep_math(s, lo, hi, d, LIMITED_DT)
+        torch.cuda.synchronize()
+        for what, a, b, c in zip(("s_new", "g_lo", "g_hi"), got, again, ref):
+            err, limit = max_err(torch, a, c), f32_bound(torch, c)
+            say(f"[parity] subcell_row_sweep d={d} ({what}) float32 {tuple(s.shape)} "
+                f"(gathered batch after {WARMUP} steps, {n_active} active rows): "
+                f"max_abs_err {err:.3e} limit {limit:.3e}; repeat bitwise {torch.equal(a, b)}")
+            if not (err <= limit and torch.equal(a, b)):
+                fail(f"K3 (d={d}, {what}, float32) disagrees with its plain version")
+            k3_err = max(k3_err, err)
+        k3_ms[d] = event_ms(torch, lambda: subcell_cuda.row_sweep_call(
+            lim, d, s, lo, hi, LIMITED_DT), 20)
+        k3_plain_ms[d] = event_ms(torch, lambda: plain._row_sweep_math(
+            s, lo, hi, d, LIMITED_DT), 3)
+        del got, again, ref
+    sweep_shape = tuple(recorded[0][1].shape)
+    del recorded, s, lo, hi
+
+    gib = 2.0**-30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cu.reset_launches()
+    subcell_cuda.reset_launches()
+    u = lim.run(u5, STEPS, LIMITED_DT)
+    torch.cuda.synchronize()
+    launches = {**cu.launches, **subcell_cuda.launches}
+    say(f"[limited main] {STEPS} steps of {GRID} f32 through LimitedADERDG after "
+        f"{WARMUP} warm-up steps: launches {launches}; peak "
+        f"{torch.cuda.max_memory_allocated() * gib:.4f} GiB allocated ({card})")
+    want = {"aderdg_predictor_volume": STEPS, "aderdg_face_surface": STEPS,
+            "subcell_row_sweep": 3 * STEPS}
+    if launches != want:
+        fail(f"limited main path launches {launches}, expected {want}")
+    finite = bool(torch.isfinite(u).all())
+    admissible = bool(adm(u, sol.var_axis).all())
+    rho_min = u.select(sol.var_axis, 0).min().item()
+    say(f"[limited main] full state finite {finite}, admissible {admissible}, "
+        f"rho_min {rho_min!r}")
+    if tuple(u.shape) != sol.state_shape or not (finite and admissible):
+        fail("the limited main-path state is not finite and admissible")
+
+    # Rows demanded at each checked step, from a second run from the same
+    # state (which must give the same bits).
+    demand, v = [], u5
+    for _ in range(STEPS):
+        demand.append(int(lim.capacity_usage(v, LIMITED_DT)[0]))
+        v = lim.step(v, LIMITED_DT)
+    overflow = max(demand) > CAPACITY
+    say(f"[limited main] troubled rows demanded per step {demand} against capacity "
+        f"{CAPACITY}: overflow engaged {overflow}")
+    if not torch.equal(u, v):
+        fail("two limited runs from the same state differ")
+    say("[limited main] two runs from the same state: bitwise equal")
+    del v
+    m0, m1 = sol.total_mass(u5.double()), sol.total_mass(u.double())
+    rel = ((m1 - m0).abs() / m0.abs()).tolist()
+    say(f"[limited main] relative drift over {STEPS} steps: mass {rel[0]:.3e}, energy "
+        f"{rel[4]:.3e}; momenta absolute {[(m1 - m0)[k].item() for k in (1, 2, 3)]} "
+        f"(limit {MASS_RTOL:.1e} on the mass when no overflow engaged)")
+    if not overflow and not rel[0] <= MASS_RTOL:
+        fail("limited mass drift beyond its bound")
+
+    # One step of the kernel path against the plain path from this state.
+    mask_k = lim.troubled_mask(u, cu.step(u, LIMITED_DT))
+    mask_p = plain.troubled_mask(u, sol.step(u, LIMITED_DT))
+    step_k, step_p = lim.step(u, LIMITED_DT), plain.step(u, LIMITED_DT)
+    torch.cuda.synchronize()
+    err, limit = max_err(torch, step_k, step_p), f32_bound(torch, step_p)
+    say(f"[limited main] one step, kernel path vs plain path: troubled cells "
+        f"{int(mask_k.sum())} (kernel candidate) / {int(mask_p.sum())} (plain), masks "
+        f"equal {torch.equal(mask_k, mask_p)}; state max_abs_err {err:.3e} limit {limit:.3e}")
+    if not (torch.equal(mask_k, mask_p) and err <= limit):
+        fail("the limited kernel path disagrees with the plain path")
+    del mask_k, mask_p, step_k, step_p
+
+    # ------------------------------------------------ times
+    dofs = sol.dofs()
+    k_win = windows(torch, lim, u5, LIMITED_DT, steps=STEPS)
+    p_win = windows(torch, plain, u5, LIMITED_DT, steps=2, n_windows=1)
+    for label, win in (("kernel path", k_win), ("plain path", p_win)):
+        ms = [1e3 * w for w in win]
+        say(f"[limited time] {label}: step ms per window {ms!r}; median "
+            f"{statistics.median(ms)!r} ms, {dofs / statistics.median(win)!r} "
+            f"DOF-updates/s ({dofs} DOF per step; {card})")
+    new, faces = cu.predictor_volume(u5, LIMITED_DT)
+    parts = {
+        "aderdg_predictor_volume": event_ms(
+            torch, lambda: cu.predictor_volume(u5, LIMITED_DT), 10),
+        "aderdg_face_surface (no face fluxes)": event_ms(
+            torch, lambda: cu.face_surface(new, faces, LIMITED_DT), 10),
+        "aderdg_face_surface (face fluxes)": event_ms(
+            torch, lambda: cu.face_surface(new, faces, LIMITED_DT, True), 10),
+        **{f"subcell_row_sweep d={d}": k3_ms[d] for d in range(3)},
+    }
+    face_plain_ms = event_ms(torch, lambda: sol.face_surface(new, faces, LIMITED_DT, True), 3)
+    step_ms = event_ms(torch, lambda: lim.step(u5, LIMITED_DT), 10)
+    rest = step_ms - sum(v for k, v in parts.items() if "no face" not in k)
+    say(f"[limited time] per call (CUDA events): " + ", ".join(
+        f"{k} {v!r} ms" for k, v in parts.items()) + f"; whole step {step_ms!r} ms, "
+        f"of which the rest of the step (detection, tables, gathers, projections, "
+        f"ghosts, scatters, matching, guard) {rest!r} ms ({card})")
+    say(f"[limited time] plain versions (CUDA events): face_surface with face fluxes "
+        f"{face_plain_ms!r} ms; sweeps " + ", ".join(
+            f"d={d} {k3_plain_ms[d]!r} ms" for d in range(3)) + f" ({card})")
+    del new, faces
+
+    # The step's stages one by one on this state (CUDA events); the
+    # fallback scatter is idempotent, so it is timed in place.
+    cand, dg_fl = cu.step(u5, LIMITED_DT, return_face_fluxes=True)
+    raw = lim.troubled_mask(u5, cand)
+    tab = lim._gather_tables_row(raw)
+    R, g = lim._gathered_subcell_step_row(u5, LIMITED_DT, tab)
+    fv = lim._scatter_face_fluxes_row(g, tab, u5.dtype)
+    matched = lim._match_interface_fluxes(cand, dg_fl, fv, tab["mask"], LIMITED_DT)
+    stages = {
+        "troubled_mask": lambda: lim.troubled_mask(u5, cand),
+        "_gather_tables_row": lambda: lim._gather_tables_row(raw),
+        "_gathered_subcell_step_row (3 sweeps included)":
+            lambda: lim._gathered_subcell_step_row(u5, LIMITED_DT, tab),
+        "_scatter_face_fluxes_row": lambda: lim._scatter_face_fluxes_row(g, tab, u5.dtype),
+        "_match_interface_fluxes": lambda: lim._match_interface_fluxes(
+            cand, dg_fl, fv, tab["mask"], LIMITED_DT),
+        "_scatter_fallback_row": lambda: lim._scatter_fallback_row(
+            matched, R, tab, tab["mask"]),
+        "overflow flag": lambda: bool((raw & ~tab["mask"]).any()),
+        "_admissibility_scale": lambda: lim._admissibility_scale(matched),
+    }
+    stage_ms = {k: event_ms(torch, fn, 5) for k, fn in stages.items()}
+    say(f"[limited time] the step's stages alone (CUDA events, 5 calls each): " + ", ".join(
+        f"{k} {v!r} ms" for k, v in stage_ms.items()) + f"; sweeps {sum(k3_ms.values())!r} "
+        f"ms of the gathered step ({card})")
+    del cand, dg_fl, raw, tab, R, g, fv, matched
+
+    # Host synchronisations of one step, and where the port's code makes
+    # them (torch.cuda's sync debug mode warns at each; switching it on
+    # warns once itself, which is not counted).
+    import traceback
+    import warnings
+
+    sites = []
+
+    def where_synced(message, *args, **kwargs):
+        if "synchroniz" in str(message):
+            ours = [f for f in traceback.extract_stack()[:-1]
+                    if pathlib.Path(f.filename).resolve().is_relative_to(HERE)]
+            sites.append(f"{pathlib.Path(ours[-1].filename).resolve().relative_to(HERE)}:"
+                         f"{ours[-1].lineno}" if ours else "no frame of this repository")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = where_synced
+        torch.cuda.set_sync_debug_mode("warn")
+        sites.clear()
+        try:
+            lim.step(u5, LIMITED_DT)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for label, solver, n in (("kernel path", lim, STEPS), ("plain path", plain, 2)):
+        idle, busy, wall = idle_share(torch, lambda: solver.run(u5, n, LIMITED_DT))
+        say(f"[limited idle] {label}, {n} steps under torch.profiler: device busy "
+            f"{busy!r} ms of wall {wall!r} ms; idle share {idle!r} ({card})")
+    say(f"[limited time] host synchronisations per kernel-path step "
+        f"(torch.cuda sync debug mode): {len(sites)}, at {sites}")
+
+    # ------------------------------------------------ bounds
+    itemsize = u5.element_size()
+    ncell = math.prod(GRID)
+    face_bytes = torch.empty(sol.face_shape, dtype=u5.dtype, device="meta").nbytes
+    fhat_bytes = 3 * sol.n_nodes**2 * sol.n_vars * ncell * itemsize
+    face_bnd = bound(face_fhat_bytes(face_bytes, u5.nbytes, fhat_bytes),
+                     face_surface_ops(ORDER, ncell))
+    pencils_needed = 49 * n_active * GRID[-1]
+    pencils_run = 49 * sweep_shape[4] * sweep_shape[5]
+    k3_bnd = bound(sweep_bytes(pencils_needed, itemsize), sweep_ops(pencils_needed))
+    k3_bnd_full = bound(sweep_bytes(pencils_run, itemsize), sweep_ops(pencils_run))
+    say(f"[bound] aderdg_face_surface with face fluxes {GRID} f32: bound "
+        f"{face_bnd['bound_ms']!r} ms by {face_bnd['bound_by']} (face fluxes "
+        f"{fhat_bytes} B of it); kernel {parts['aderdg_face_surface (face fluxes)']!r} ms "
+        f"({card})")
+    say(f"[bound] subcell_row_sweep f32, one sweep: bound {k3_bnd['bound_ms']!r} ms by "
+        f"{k3_bnd['bound_by']} for the {n_active} active rows "
+        f"({sweep_bytes(pencils_needed, itemsize)} B, {sweep_ops(pencils_needed)!r} "
+        f"flops); {k3_bnd_full['bound_ms']!r} ms for all {sweep_shape[4]} slots "
+        f"({sweep_bytes(pencils_run, itemsize)} B); kernel mean "
+        f"{statistics.mean(k3_ms.values())!r} ms ({card})")
+    return [
+        {
+            "name": "aderdg_face_surface (with face fluxes, limited path)",
+            "route": "cuda",
+            "source": "exahype_tpu_torch/csrc/aderdg.cu",
+            "replaces": "exahype_tpu/models/aderdg_pallas.py:156",
+            "launches": launches["aderdg_face_surface"],
+            "max_abs_err": fhat_err,
+            "ms": parts["aderdg_face_surface (face fluxes)"],
+            "plain_ms": face_plain_ms,
+            **face_bnd,
+            "library_ms": None,  # no single PyTorch call computes it
+        },
+        {
+            "name": "subcell_row_sweep",
+            "route": "cuda",
+            "source": "exahype_tpu_torch/csrc/subcell.cu",
+            "replaces": "exahype_tpu/models/subcell_pallas.py:47",
+            "launches": launches["subcell_row_sweep"],
+            "max_abs_err": k3_err,
+            "ms": statistics.mean(k3_ms.values()),
+            "plain_ms": statistics.mean(k3_plain_ms.values()),
+            **k3_bnd,
+            "library_ms": None,  # no single PyTorch call computes it
+        },
+    ]
 
 
 def fv_path(torch, dev, card, spec_printers) -> dict:
@@ -455,7 +836,7 @@ def main():
         for name, build in (("fv", build_fv_rusanov_kernel),
                             ("rusanov", build_rusanov_kernel))
     }
-    jobs = {"csrc/aderdg.cu": _build.compile_library}
+    jobs = {"csrc/*.cu (one library)": _build.compile_library}
     jobs.update({f"K4 {name} spec (generated)": pr.compile
                  for name, pr in spec_printers.items()})
     t0 = time.perf_counter()
@@ -467,7 +848,8 @@ def main():
     for what, info in builds.items():
         say(f"[build] {what}: {info['seconds']:.2f} s -> "
             f"{pathlib.Path(info['path']).relative_to(HERE)} (name carries the "
-            "source hash)")
+            "source hash); nvcc seconds per source " + ", ".join(
+                f"{name} {sec:.2f}" for name, sec in info["sources"].items()))
         for line in info["log"].splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 say(f"[build]   {line.strip()}")
@@ -653,6 +1035,8 @@ def main():
     del cu, sol, u0, u
     torch.cuda.empty_cache()
 
+    kernels.extend(limited_path(torch, dev, card))
+    torch.cuda.empty_cache()
     kernels.append(fv_path(torch, dev, card, spec_printers))
     print(json.dumps({"kernels": kernels}))
     print(card)

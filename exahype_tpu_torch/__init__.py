@@ -1,11 +1,14 @@
 """exahype_tpu_torch — the PyTorch/CUDA port of ``exahype_tpu``.
 
-Two paths of the JAX package run here, on an NVIDIA H100 through CUDA
+Three paths of the JAX package run here, on an NVIDIA H100 through CUDA
 kernels written for it, and on the CPU through their plain PyTorch
 versions, which match the JAX package:
 
 - the ADER-DG order-3 step of 3-D compressible Euler (``bench.py``'s path),
   through the hand-written kernels of ``csrc/aderdg.cu``;
+- the limited production step of the same scheme (``bench.py``'s second
+  metric): ``LimitedADERDG`` with the gathered-row subcell FV fallback,
+  its sweeps through the kernel of ``csrc/subcell.cu``;
 - the spec-DSL FV Rusanov patch update (``__graft_entry__.py``'s path):
   ``KernelBuilder`` → ``CudaPrinter``, which generates one CUDA kernel from
   the statement list → ``TpuPatchGrid`` halo exchange → ``GridSolver``.
@@ -24,6 +27,8 @@ _EXPORTS = {
     "ADERDGSolver": "exahype_tpu_torch.models.aderdg",
     "euler_physics": "exahype_tpu_torch.models.aderdg",
     "CudaADERDG": "exahype_tpu_torch.models.aderdg_cuda",
+    "LimitedADERDG": "exahype_tpu_torch.models.limiter",
+    "euler_admissible": "exahype_tpu_torch.models.limiter",
     "DGOperators": "exahype_tpu_torch.models.dg",
     "KernelBuilder": "exahype_tpu_torch.frontend.kernel_builder",
     "build_rusanov_kernel": "exahype_tpu_torch.models.rusanov",
@@ -33,6 +38,7 @@ _EXPORTS = {
     "TpuPatchGrid": "exahype_tpu_torch.parallel.grid",
     "GridSolver": "exahype_tpu_torch.parallel.solver",
     "aderdg_from_jax": "exahype_tpu_torch.convert",
+    "limited_from_jax": "exahype_tpu_torch.convert",
     "grid_solver_from_jax": "exahype_tpu_torch.convert",
     "state_from_numpy": "exahype_tpu_torch.convert",
     "state_to_numpy": "exahype_tpu_torch.convert",

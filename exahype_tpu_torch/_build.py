@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources have a plain ``extern "C"`` interface: ``nvcc`` compiles them
-into one shared library under ``build/exahype_tpu_torch/`` in the checkout,
-and :func:`library` loads it with ``ctypes``.  No PyTorch headers are
+The sources have a plain ``extern "C"`` interface: ``nvcc`` compiles each
+into an object file, one process per source, all started together, and
+links them into one shared library under ``build/exahype_tpu_torch/`` in the
+checkout; :func:`library` loads it with ``ctypes``.  No PyTorch headers are
 involved, so a build takes seconds.  The library's name carries a hash of
 the sources and flags, so an edited source is rebuilt at first use.
 
@@ -27,6 +28,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "exahype_tpu_torch"
@@ -34,7 +36,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "exahype_
 #: ``-O3`` without ``--use_fast_math``: division and sqrt stay IEEE.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -45,16 +47,25 @@ _PREDICTOR_VOLUME = (
     _P, _P, _P, _P, ctypes.c_double, _P, _P, ctypes.c_int, ctypes.c_int,
     ctypes.c_double, _LL, _LL, _LL, _P,
 )
-# state, faces, dt_ptr, dt_val, ops, dx, order, gamma, g0, g1, g2, stream
+# state, faces, fhat, dt_ptr, dt_val, ops, dx, order, gamma, g0, g1, g2,
+# stream
 _FACE_SURFACE = (
-    _P, _P, _P, ctypes.c_double, _P, _P, ctypes.c_int, ctypes.c_double,
+    _P, _P, _P, _P, ctypes.c_double, _P, _P, ctypes.c_int, ctypes.c_double,
     _LL, _LL, _LL, _P,
 )
+# s, ghost_lo, ghost_hi, s_new, g_lo, g_hi, dt_ptr, dt_val, h, gamma, dim,
+# n_sub, n_vars, d, n_kl, stream
+_ROW_SWEEP = (
+    _P, _P, _P, _P, _P, _P, _P, ctypes.c_double, ctypes.c_double,
+    ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    _LL, _P,
+)
 _SIGNATURES = {
-    f"exahype_aderdg_{kernel}_{suffix}": argtypes
+    f"exahype_{kernel}_{suffix}": argtypes
     for kernel, argtypes in (
-        ("predictor_volume", _PREDICTOR_VOLUME),
-        ("face_surface", _FACE_SURFACE),
+        ("aderdg_predictor_volume", _PREDICTOR_VOLUME),
+        ("aderdg_face_surface", _FACE_SURFACE),
+        ("subcell_row_sweep", _ROW_SWEEP),
     )
     for suffix in ("f32", "f64")
 }
@@ -93,33 +104,46 @@ def _nvcc() -> str:
     raise BuildError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
-def _compile(sources: list[pathlib.Path], out: pathlib.Path) -> dict:
-    """nvcc ``sources`` into the library ``out``.
+def _run(cmd: list[str]) -> tuple[str, float]:
+    """Run one nvcc command; its output and seconds, or raise."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise BuildError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr, time.perf_counter() - t0
 
-    Returns ``{"path", "seconds", "log"}``; ``log`` is nvcc's output,
-    ``-Xptxas -v`` lines (registers, spills, shared memory) included.  The
-    library is written to a temporary name and renamed, so a concurrent
-    build never loads a half-written file.
+
+def _compile(sources: list[pathlib.Path], out: pathlib.Path) -> dict:
+    """nvcc ``sources`` into the library ``out``: one object per source,
+    compiled in parallel, then one link.
+
+    Returns ``{"path", "seconds", "log", "sources"}``; ``log`` is nvcc's
+    output, ``-Xptxas -v`` lines (registers, spills, shared memory)
+    included, and ``sources`` maps each source's name to its compile
+    seconds.  The library is written to a temporary name and renamed, so a
+    concurrent build never loads a half-written file.
     """
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *map(str, sources)]
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise BuildError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objects = [pathlib.Path(tmpdir) / f"{i}_{src.stem}.o" for i, src in enumerate(sources)]
+        cmds = [
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objects)
+        ]
+        with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+            compiled = list(pool.map(_run, cmds))
+        tmp = pathlib.Path(tmpdir) / out.name
+        link_log, _ = _run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)])
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
+    log = "".join(text for text, _ in compiled) + link_log
     out.with_suffix(".log").write_text(log)
-    return {"path": str(out), "seconds": seconds, "log": log}
+    return {
+        "path": str(out),
+        "seconds": time.perf_counter() - t0,
+        "log": log,
+        "sources": {src.name: sec for src, (_, sec) in zip(sources, compiled)},
+    }
 
 
 def compile_library() -> dict:

@@ -110,7 +110,7 @@ class CudaPrinter(CodePrinter):
     # ----------------------------------------------------------------- build
 
     def compile(self) -> dict:
-        """Compile the source now (``{"path", "seconds", "log"}``)."""
+        """Compile the source now (``{"path", "seconds", "log", "sources"}``)."""
         return _build.compile_generated(self.symbol, self.code)
 
     def library(self) -> ctypes.CDLL:

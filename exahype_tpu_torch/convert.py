@@ -51,6 +51,47 @@ def aderdg_from_jax(jax_solver, *, gamma: float, device=None,
     )
 
 
+def limited_from_jax(jax_limited, *, gamma: float, device=None,
+                     dtype: torch.dtype = torch.float64):
+    """The port's :class:`LimitedADERDG` for a JAX ``LimitedADERDG``.
+
+    Builds the base solver through :func:`aderdg_from_jax` and reads the
+    limiter's numbers and options (``dmp_delta0``, ``dmp_eps``,
+    ``fallback``, ``fallback_order``, ``troubled_capacity``,
+    ``troubled_granularity``, ``overflow_fallback``, ``post_step_guard``).
+    The JAX ``admissible`` callback is opaque: where it is set, the port's
+    :func:`euler_admissible` with ``gamma`` takes its place.  A JAX
+    ``PallasADERDG`` accelerator maps to :class:`CudaADERDG`, and
+    ``subcell_pallas=True`` to ``subcell_cuda=True``.  An option outside
+    the ported configuration raises ``SemanticError``.
+    """
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.limiter import LimitedADERDG, euler_admissible
+
+    solver = aderdg_from_jax(jax_limited.solver, gamma=gamma, device=device, dtype=dtype)
+    admissible = None
+    if jax_limited.admissible is not None:
+        admissible = euler_admissible(solver.dim, gamma=gamma)
+    accelerator = None
+    if jax_limited.accelerator is not None:
+        accelerator = CudaADERDG(solver)
+    return LimitedADERDG(
+        solver,
+        admissible,
+        dmp_delta0=jax_limited.dmp_delta0,
+        dmp_eps=jax_limited.dmp_eps,
+        fallback=jax_limited.fallback,
+        fallback_order=jax_limited.fallback_order,
+        accelerator=accelerator,
+        troubled_capacity=jax_limited.troubled_capacity,
+        troubled_granularity=jax_limited.troubled_granularity,
+        subcell_cuda=jax_limited.subcell_pallas,
+        overflow_fallback=jax_limited.overflow_fallback,
+        post_step_guard=jax_limited.post_step_guard,
+        device=solver.weights.device,
+    )
+
+
 def grid_solver_from_jax(jax_solver, *, spec: str, gamma: float, device=None,
                          dtype: torch.dtype = torch.float64):
     """The port's Euler FV :class:`GridSolver` for a JAX ``GridSolver``.

@@ -14,7 +14,10 @@
 //                            axis.
 //   aderdg_face_surface      per cell and axis: the Rusanov flux of its high
 //                            face and of its low face, then the surface
-//                            update of `new`, in place.
+//                            update of `new`, in place; optionally each
+//                            cell's high-face fluxes of every axis, which the
+//                            limiter's interface matching reads (the TPU
+//                            kernel's emit_fused_fhat outputs).
 //
 // What bounds it on the H100.  The predictor is compute-bound: ~3e5 flops
 // per cell per step (4 Picard iterations of flux evaluations and 4-point
@@ -289,8 +292,8 @@ __device__ __forceinline__ void rusanov(const T* qa, const T* qb, const T* fa,
 template <typename T, int NN, int CB>
 __global__ void __launch_bounds__(CB * NN * NN * NN)
 aderdg_face_surface(T* __restrict__ state, const T* __restrict__ faces,
-                    const T* __restrict__ dt_ptr, T dt_val,
-                    const Params<T, NN> P) {
+                    T* __restrict__ fhat_out, const T* __restrict__ dt_ptr,
+                    T dt_val, const Params<T, NN> P) {
   constexpr int NF = NN * NN;
   constexpr int V = kVars;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -331,6 +334,13 @@ aderdg_face_surface(T* __restrict__ state, const T* __restrict__ faces,
     rusanov(qa, qb, fa, fb, d, P.gm1, P.gamma, fhat);
 #pragma unroll
     for (int v = 0; v < V; ++v) sH[iH(d, 0, v, m, c)] = fhat[v];
+    // fhat_out[d][m][v][cell], the layout of the face tensor's entries.
+    if (fhat_out != nullptr && valid) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        fhat_out[(static_cast<long long>(d * NF + m) * V + v) * ncell + cell] = fhat[v];
+      }
+    }
     // My low face: minus neighbour (q_hi, f_hi) | me (q_lo, f_lo) — the
     // same operands in the same order as the neighbour's own high face.
     load(1, minus, qa);
@@ -427,10 +437,10 @@ cudaError_t launch_predictor_volume(const T* u, T* out, T* faces, const T* dt_pt
 }
 
 template <typename T>
-cudaError_t launch_face_surface(T* state, const T* faces, const T* dt_ptr, double dt_val,
-                                const double* ops, const double* dx, int order,
-                                double gamma, long long g0, long long g1, long long g2,
-                                void* stream) {
+cudaError_t launch_face_surface(T* state, const T* faces, T* fhat, const T* dt_ptr,
+                                double dt_val, const double* ops, const double* dx,
+                                int order, double gamma, long long g0, long long g1,
+                                long long g2, void* stream) {
   constexpr int NN = 4;
   constexpr int CB = cells_per_block<T>();
   if (order != NN - 1 || g0 <= 0 || g1 <= 0 || g2 <= 0) return cudaErrorInvalidValue;
@@ -440,7 +450,7 @@ cudaError_t launch_face_surface(T* state, const T* faces, const T* dt_ptr, doubl
   const size_t smem = static_cast<size_t>(kDim * 2 * kVars * NN * NN * CB) * sizeof(T);
   aderdg_face_surface<T, NN, CB>
       <<<static_cast<unsigned>(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(
-          state, faces, dt_ptr, static_cast<T>(dt_val), P);
+          state, faces, fhat, dt_ptr, static_cast<T>(dt_val), P);
   return cudaGetLastError();
 }
 
@@ -450,7 +460,9 @@ extern "C" {
 
 // Each launcher enqueues one kernel on `stream` and returns the launch's
 // cudaError_t (0 = cudaSuccess).  dt_ptr: a device scalar of the state's
-// dtype, or null to use dt_val.  Only order 3 is instantiated.
+// dtype, or null to use dt_val.  fhat: [dim, n^(dim-1), n_vars, *grid] for
+// the high-face fluxes, or null to skip them.  Only order 3 is
+// instantiated.
 
 int exahype_aderdg_predictor_volume_f32(const float* u, float* out, float* faces,
                                         const float* dt_ptr, double dt_val,
@@ -470,21 +482,20 @@ int exahype_aderdg_predictor_volume_f64(const double* u, double* out, double* fa
                                          picard_iters, gamma, g0, g1, g2, stream);
 }
 
-int exahype_aderdg_face_surface_f32(float* state, const float* faces, const float* dt_ptr,
-                                    double dt_val, const double* ops, const double* dx,
-                                    int order, double gamma, long long g0, long long g1,
-                                    long long g2, void* stream) {
-  return launch_face_surface<float>(state, faces, dt_ptr, dt_val, ops, dx, order, gamma,
-                                    g0, g1, g2, stream);
+int exahype_aderdg_face_surface_f32(float* state, const float* faces, float* fhat,
+                                    const float* dt_ptr, double dt_val, const double* ops,
+                                    const double* dx, int order, double gamma, long long g0,
+                                    long long g1, long long g2, void* stream) {
+  return launch_face_surface<float>(state, faces, fhat, dt_ptr, dt_val, ops, dx, order,
+                                    gamma, g0, g1, g2, stream);
 }
 
-int exahype_aderdg_face_surface_f64(double* state, const double* faces,
-                                    const double* dt_ptr, double dt_val,
-                                    const double* ops, const double* dx, int order,
-                                    double gamma, long long g0, long long g1, long long g2,
-                                    void* stream) {
-  return launch_face_surface<double>(state, faces, dt_ptr, dt_val, ops, dx, order, gamma,
-                                     g0, g1, g2, stream);
+int exahype_aderdg_face_surface_f64(double* state, const double* faces, double* fhat,
+                                    const double* dt_ptr, double dt_val, const double* ops,
+                                    const double* dx, int order, double gamma, long long g0,
+                                    long long g1, long long g2, void* stream) {
+  return launch_face_surface<double>(state, faces, fhat, dt_ptr, dt_val, ops, dx, order,
+                                     gamma, g0, g1, g2, stream);
 }
 
 const char* exahype_cuda_error_string(int err) {

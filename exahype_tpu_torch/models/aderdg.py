@@ -199,6 +199,12 @@ class ADERDGSolver(nn.Module):
             self.grid_shape
         )
 
+    @property
+    def face_flux_shape(self) -> tuple[int, ...]:
+        """Shape of one axis's face data and high-face fluxes: the node axes
+        other than the face normal, then ``n_vars`` and the cell grid."""
+        return (self.n_nodes,) * (self.dim - 1) + (self.n_vars,) + self.grid_shape
+
     def node_axis(self, d: int) -> int:
         return d
 
@@ -265,35 +271,43 @@ class ADERDGSolver(nn.Module):
             ]))
         return new, torch.stack(faces).reshape(self.face_shape)
 
-    def face_surface(self, new, faces, dt):
+    def face_surface(self, new, faces, dt, return_face_fluxes: bool = False):
         """Neighbour half of the step (the plain version of the
         ``aderdg_face_surface`` kernel): the Rusanov flux of every face and
         the surface update, axis by axis.  Returns the updated state (a new
-        tensor; ``new`` is not modified)."""
-        fshape = (
-            (self.n_nodes,) * (self.dim - 1) + (self.n_vars,) + self.grid_shape
-        )
+        tensor; ``new`` is not modified), and with ``return_face_fluxes``
+        also each axis's high-face fluxes (see :meth:`face_update`)."""
+        fshape = self.face_flux_shape
+        fluxes = []
         for d in range(self.dim):
             q_lo, q_hi, f_lo, f_hi = (
                 faces[d, k].reshape(fshape) for k in range(4)
             )
-            new = self.face_update(new, q_lo, q_hi, f_lo, f_hi, d, dt)
+            new, fhat_hi = self.face_update(new, q_lo, q_hi, f_lo, f_hi, d, dt)
+            fluxes.append(fhat_hi)
+        if return_face_fluxes:
+            return new, fluxes
         return new
 
-    def step(self, u, dt):
+    def step(self, u, dt, return_face_fluxes: bool = False):
         """One ADER-DG time step (predictor + volume + Riemann + corrector).
+
+        ``return_face_fluxes=True`` also returns the per-direction high-face
+        Rusanov fluxes ``fhat_hi`` (:attr:`face_flux_shape` each), as the
+        JAX solver does, for the limiter's interface matching.
 
         The JAX solver interleaves each axis's volume and surface terms;
         here all volume terms come first, as in the kernels, which moves
         the sum's rounding only."""
         new, faces = self.predictor_volume(u, dt)
-        return self.face_surface(new, faces, dt)
+        return self.face_surface(new, faces, dt, return_face_fluxes)
 
     def face_update(self, new, q_lo, q_hi, f_lo, f_hi, d, dt):
         """Riemann solve + surface corrector update for direction ``d``
         from face-extrapolated time-averaged state/flux (periodic
-        neighbours).  Returns the updated state (the JAX solver also
-        returns ``fhat_hi``, for the limiter, which is not ported)."""
+        neighbours).  Returns ``(new, fhat_hi)``: the updated state and the
+        Rusanov flux through each cell's high face, nodal over the
+        transverse node axes (:attr:`face_flux_shape`)."""
         lam = dt / self._dxs[d]
         node_ax = self.node_axis(d)
         face_grid_ax = self.grid_axis(d) - 1
@@ -321,7 +335,7 @@ class ADERDGSolver(nn.Module):
             phi1_w * fhat_hi.unsqueeze(node_ax)
             - phi0_w * fhat_lo.unsqueeze(node_ax)
         )
-        return new
+        return new, fhat_hi
 
     # ------------------------------------------------------------- time loop
 

@@ -7,7 +7,9 @@ kernels from ``csrc/aderdg.cu`` (see the note there for the design):
 - ``aderdg_predictor_volume``: predictor, time averages, volume integral
   and the face projections of every axis;
 - ``aderdg_face_surface``: the Rusanov flux of each cell's two faces per
-  axis and the surface update of ``new``, in place (on the CPU too).
+  axis and the surface update of ``new``, in place (on the CPU too); on
+  request it also writes each cell's high-face fluxes, the limiter's input
+  (the Pallas kernel's ``emit_fused_fhat`` outputs).
 
 Each wrapper takes its plain PyTorch version
 (``ADERDGSolver.predictor_volume`` / ``face_surface``) for a tensor on the
@@ -115,37 +117,52 @@ class CudaADERDG:
         self.launches["aderdg_predictor_volume"] += 1
         return new, faces
 
-    def face_surface(self, new, faces, dt):
+    def face_surface(self, new, faces, dt, return_face_fluxes: bool = False):
         """Surface update of ``new`` from ``faces``, in place on either
-        device; returns ``new``."""
-        if not new.is_cuda:
-            return new.copy_(self.solver.face_surface(new, faces, dt))
+        device; returns ``new``, and with ``return_face_fluxes`` also the
+        per-axis high-face fluxes (``solver.face_flux_shape`` each)."""
         sol = self.solver
+        if not new.is_cuda:
+            out = sol.face_surface(new, faces, dt, return_face_fluxes)
+            if return_face_fluxes:
+                return new.copy_(out[0]), out[1]
+            return new.copy_(out)
         self._check(new, sol.state_shape, "new")
         self._check(faces, sol.face_shape, "faces")
         if faces.dtype != new.dtype or faces.device != new.device:
             raise LoweringError("faces must match new's dtype and device")
+        fhat = None
+        if return_face_fluxes:
+            fhat = torch.empty(
+                (sol.dim, sol.n_nodes ** (sol.dim - 1), sol.n_vars) + sol.grid_shape,
+                dtype=new.dtype, device=new.device,
+            )
         dt_dev, dt_ptr, dt_val = self._dt_args(dt, new)
         lib = _build.library()
         with torch.cuda.device(new.device):
             stream = torch.cuda.current_stream(new.device).cuda_stream
             err = getattr(lib, f"exahype_aderdg_face_surface_{_SUFFIX[new.dtype]}")(
-                new.data_ptr(), faces.data_ptr(), dt_ptr, dt_val,
+                new.data_ptr(), faces.data_ptr(),
+                None if fhat is None else fhat.data_ptr(), dt_ptr, dt_val,
                 self._ops.ctypes.data, self._dx.ctypes.data, sol.order,
                 self.gamma, *sol.grid_shape, stream,
             )
         _build.check(lib, err, "aderdg_face_surface")
         self.launches["aderdg_face_surface"] += 1
+        if return_face_fluxes:
+            return new, [fhat[d].view(sol.face_flux_shape) for d in range(sol.dim)]
         return new
 
     # ------------------------------------------------------- solver protocol
 
-    def step(self, u, dt):
-        """One step; a fresh tensor (``u`` is not modified)."""
+    def step(self, u, dt, return_face_fluxes: bool = False):
+        """One step; a fresh tensor (``u`` is not modified).  With
+        ``return_face_fluxes``, ``(new, [fhat_hi per axis])`` as
+        :meth:`ADERDGSolver.step` returns them."""
         if not u.is_cuda:
-            return self.solver.step(u, dt)
+            return self.solver.step(u, dt, return_face_fluxes)
         new, faces = self.predictor_volume(u, dt)
-        return self.face_surface(new, faces, dt)
+        return self.face_surface(new, faces, dt, return_face_fluxes)
 
     def run(self, u, n_steps: int, dt):
         for _ in range(n_steps):

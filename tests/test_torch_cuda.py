@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-two ADER-DG kernels of ``csrc/aderdg.cu`` and the spec kernel (K4) that
-``CudaPrinter`` generates, alone and under ``GridSolver``.
+two ADER-DG kernels of ``csrc/aderdg.cu`` (with the face kernel's face-flux
+output), the limiter's subcell sweep (K3, ``csrc/subcell.cu``) alone and
+under ``LimitedADERDG``, and the spec kernel (K4) that ``CudaPrinter``
+generates, alone and under ``GridSolver``.
 
 Every test here is marked ``cuda`` and skips without a card (the decision
 is made inside each test, never at import).  This file imports no JAX, so
@@ -43,10 +45,10 @@ def _err(a, b):
     return (a.double() - b.double()).abs().max().item()
 
 
-def _setup(grid, dtype):
+def _setup(grid, dtype, dx=DX):
     dev = _card()
     flux, eig = euler_physics(3)
-    sol = ADERDGSolver(3, 3, 5, grid, flux, eig, dx=DX, device=dev, dtype=dtype)
+    sol = ADERDGSolver(3, 3, 5, grid, flux, eig, dx=dx, device=dev, dtype=dtype)
     rng = np.random.default_rng(0)
     rho = 1.0 + 0.2 * rng.random((4, 4, 4) + grid)
     q = np.stack([rho, rho, 0.5 * rho, 0.25 * rho, 5.0 + 0.5 * rho * 1.3125], axis=3)
@@ -100,6 +102,125 @@ def test_step_kernels_match_plain_and_repeat_bitwise(dtype, grid):
     assert torch.equal(by_value, by_pointer)
     assert torch.equal(cu.run(u, 3, DT), cu.run(u, 3, DT))
     assert cu.launches == {"aderdg_predictor_volume": 8, "aderdg_face_surface": 8}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", CASES)
+def test_face_kernel_face_fluxes_match_plain(dtype, grid):
+    sol, cu, u = _setup(grid, dtype)
+    new, faces = sol.predictor_volume(u, DT)
+    out_k, fl_k = cu.face_surface(new.clone(), faces, DT, return_face_fluxes=True)
+    out_p, fl_p = sol.face_surface(new, faces, DT, return_face_fluxes=True)
+    plain_only = cu.face_surface(new.clone(), faces, DT)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, plain_only)
+    assert _err(out_k, out_p) <= _bound(out_p, dtype)
+    for a, b in zip(fl_k, fl_p):
+        assert a.shape == b.shape == sol.face_flux_shape
+        assert _err(a, b) <= _bound(b, dtype)
+    step_k, step_fl = cu.step(u, DT, return_face_fluxes=True)
+    assert torch.equal(step_k, cu.step(u, DT))
+    assert cu.launches["aderdg_face_surface"] == 4
+
+
+# ------------------------------------------------ K3: the subcell row sweep
+
+
+def _limiter(grid, dtype, dx=DX, kernels=False):
+    """The bench's limiter over a fresh solver, capacity 8 rows; with
+    ``kernels`` the candidate and the sweeps go through the kernels."""
+    from exahype_tpu_torch.models.limiter import LimitedADERDG, euler_admissible
+
+    sol, cu, _ = _setup(grid, dtype, dx)
+    return LimitedADERDG(sol, euler_admissible(3), troubled_capacity=8,
+                         troubled_granularity="row", dmp_delta0=5e-4,
+                         accelerator=cu if kernels else None, subcell_cuda=kernels,
+                         device=sol.weights.device), cu
+
+
+def _sweep_inputs(d, K, L, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def state(shape):
+        lead = shape[:3] + shape[4:]
+        rho = 1.0 + 0.3 * rng.random(lead)
+        mom = [0.4 * rng.standard_normal(lead) for _ in range(3)]
+        E = 2.5 + rng.random(lead)
+        return torch.from_numpy(np.stack([rho, *mom, E], axis=3)).to(dev, dtype).contiguous()
+
+    shape = (7, 7, 7, 5, K, L)
+    gshape = list(shape)
+    gshape[d] = 1
+    return state(shape), state(tuple(gshape)), state(tuple(gshape))
+
+
+SWEEP_CASES = [
+    (d, dtype, K, L)
+    for d in (0, 1, 2)
+    for dtype, K, L in ((torch.float64, 8, 16), (torch.float32, 4, 33))
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype,K,L", SWEEP_CASES)
+def test_subcell_sweep_kernel_matches_plain(d, dtype, K, L):
+    from exahype_tpu_torch.models import subcell_cuda
+
+    lim, _ = _limiter((4, 2, 8), dtype)
+    s, lo, hi = _sweep_inputs(d, K, L, dtype, lim.P.device)
+    s0 = s.clone()
+    subcell_cuda.reset_launches()
+    got = subcell_cuda.row_sweep_call(lim, d, s, lo, hi, DT)
+    again = subcell_cuda.row_sweep_call(lim, d, s, lo, hi,
+                                        torch.tensor(DT, dtype=dtype, device=s.device))
+    ref = lim._row_sweep_math(s, lo, hi, d, DT)
+    torch.cuda.synchronize()
+    assert torch.equal(s, s0)
+    for a, b, c in zip(got, again, ref):
+        assert a.shape == c.shape
+        assert _err(a, c) <= _bound(c, dtype)
+        assert torch.equal(a, b)  # bitwise repeatable, dt by value == by pointer
+    assert subcell_cuda.launches["subcell_row_sweep"] == 2
+
+
+@pytest.mark.cuda
+def test_subcell_sweep_kernel_refuses_what_it_is_not_built_for():
+    from exahype_tpu_torch.models import subcell_cuda
+    from exahype_tpu_torch.utils.errors import LoweringError
+
+    lim, _ = _limiter((4, 2, 8), torch.float64)
+    s, lo, hi = _sweep_inputs(0, 2, 8, torch.float64, lim.P.device)
+    with pytest.raises(LoweringError, match="shape"):
+        subcell_cuda.row_sweep_call(lim, 0, s, hi[:, :, :, :, :1].contiguous(), hi, DT)
+    with pytest.raises(LoweringError, match="contiguous"):
+        subcell_cuda.row_sweep_call(lim, 0, s.transpose(4, 5), lo, hi, DT)
+
+
+@pytest.mark.cuda
+def test_limited_step_kernels_match_plain():
+    """The limited step with the candidate and sweeps on the kernels
+    against the plain path on the card: the Sod shock, capacity 8 rows, two
+    steps (the first flags rows); masks equal and states at 1e-12."""
+    from exahype_tpu_torch.models import subcell_cuda
+
+    grid = (8, 2, 16)
+    lim_k, cu = _limiter(grid, torch.float64, dx=1.0 / 8, kernels=True)
+    lim_p, _ = _limiter(grid, torch.float64, dx=1.0 / 8)
+    left = np.broadcast_to(np.arange(grid[0]).reshape(-1, 1, 1) < grid[0] // 2, grid)
+    rho = np.broadcast_to(np.where(left, 1.0, 0.125), (4, 4, 4) + grid)
+    p = np.broadcast_to(np.where(left, 1.0, 0.1), (4, 4, 4) + grid)
+    zero = np.zeros_like(rho)
+    q = np.stack([rho, zero, zero, zero, p / 0.4], axis=3)
+    u = torch.from_numpy(q).to(lim_k.P.device).contiguous()
+    subcell_cuda.reset_launches()
+    a = b = u
+    for _ in range(2):
+        a, b = lim_k.step(a, 4.8e-3), lim_p.step(b, 4.8e-3)
+    torch.cuda.synchronize()
+    assert _err(a, b) <= 1e-12
+    assert cu.launches == {"aderdg_predictor_volume": 2, "aderdg_face_surface": 2}
+    assert subcell_cuda.launches["subcell_row_sweep"] == 6
+    assert torch.equal(lim_k.run(u, 2, 4.8e-3), a)
 
 
 # ------------------------------------------------ K4: the generated spec kernel
