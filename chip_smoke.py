@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one card, nvcc
 
-The main path has two forms, each driven through ``exahype_tpu_torch``'s
-entry points with its kernels' launch counters set to 0 just before and
-read just after:
+It drives four paths, each through ``exahype_tpu_torch``'s entry points
+with its kernels' launch counters set to 0 just before and read just
+after (the two forms of the main path, ADER-DG and FV, and the limited
+and CK slices), in this order:
 
 - **ADER-DG**: ``bench.py::main``'s step — order 3, 3-D compressible
   Euler, a ``(256, 8, 128)`` periodic cell grid in float32, ``bench.py``'s
@@ -26,6 +27,17 @@ read just after:
   (the bench's first chunk), then 10 checked ones.  Its kernels are the two
   of ``csrc/aderdg.cu`` (the face kernel also writes the face fluxes) and
   the subcell sweep (K3) of ``csrc/subcell.cu``, three launches a step.
+- **CK**: ``bench.py::bench_ck``'s step — order 3, 3-D heterogeneous
+  elasticity (12 variables: velocity–stress and frozen per-node ρ, λ, μ),
+  ``predictor_mode="ck"``, ``ck_material_slots=(9, 10, 11)``,
+  ``dissipation_mask=(1,)*9 + (0, 0, 0)``, dx = 1/g0, the plane P wave in a
+  two-layer medium (``bench.py:167-204``), float32 — through ``CudaADERDG``
+  (the CK predictor K2 and the face kernel of ``csrc/aderdg.cu``), two
+  launches a step.  Two grids: the bench's ``(64, 4, 32)`` at its dt = 2e-4
+  over its window (5 warm-up steps, then 40) with its integrity checks
+  (finite, slots 9–11 bitwise frozen, seismic energy ratio below 1.02),
+  and ``(256, 8, 128)``, the same problem at 4x the resolution, 10 steps at
+  ``cfl_dt`` (2e-4 is over the CFL limit at dx = 1/256).
 - **FV**: the spec-DSL Rusanov patch update of ``__graft_entry__.py`` —
   ``build_fv_rusanov_kernel`` (3-D Euler, patch 4, halo 1, 5 vars) →
   ``TpuPatchGrid`` → ``GridSolver(kernel_dt="lambda")`` with ``compute_dt``
@@ -42,15 +54,18 @@ Phases:
    started together (time, source hash, and ptxas's registers/shared
    memory/spills);
 3. each kernel against its plain PyTorch version on the card: float64 at
-   atol=1e-12 (ADER-DG and its face fluxes ``(8, 4, 32)``; K3 a batch of
-   ``K=8, L=16`` rows per direction; K4 ``(2, 2, 2)``, both specs), float32
-   at each path's full shape (K3 on the gathered batch of the limited path
-   after its warm-up) at the bound stated in ``F32_ULPS``, K3 bitwise
-   repeatable;
-4. each main path: 10 steps, with the launch counters, finiteness, mass
-   drift, bitwise repeatability and the plain path as checks (the limited
-   path also: admissibility, the rows demanded against the capacity, and
-   one step's troubled mask against the plain path's);
+   atol=1e-12 (ADER-DG, its face fluxes and the CK kernels ``(8, 4, 32)``;
+   K3 a batch of ``K=8, L=16`` rows per direction; K4 ``(2, 2, 2)``, both
+   specs), float32 at each path's full shape (K3 on the gathered batch of
+   the limited path after its warm-up; CK at both grids, the evolved and
+   the material rows each against their own largest value) at the bound
+   stated in ``F32_ULPS``, K3 bitwise repeatable;
+4. each main path: 10 steps (CK: the bench's window at its grid), with the
+   launch counters, finiteness, mass drift (CK: materials bitwise frozen
+   and the seismic energy ratio, also per half of the window), bitwise
+   repeatability and the plain path as checks (the limited path also:
+   admissibility, the rows demanded against the capacity, and one step's
+   troubled mask against the plain path's);
 5. times: step ms over 3 host-clock windows, DOF-updates/s, per-kernel (and
    for FV ``halo_fill`` / ``compute_dt``, for the limited step the rest of
    the step) times with CUDA events, device idle share, host
@@ -109,6 +124,14 @@ FV_WIDTH = dict(dim=3, patch_size=4, halo_size=1, n_real=5, n_aux=0)
 FV_GRIDS = ((8, 8, 128), (32, 16, 128))
 FV_CFL = 0.45
 
+#: The CK path (``bench.py:151-294``).
+CK_GRIDS = ((64, 4, 32), (256, 8, 128))
+CK_DT = 2e-4           # bench.py:204, at the bench's grid
+CK_WARMUP = 5          # the bench's first chunk
+CK_WINDOW = 40         # its 8 chunks of 5 steps
+CK_ENERGY_GATE = 1.02  # bench.py:280
+CK_EVOLVED = 9
+
 #: H100 SXM data-sheet peaks at 700 W:
 #: HBM bytes/s, and float32 flop/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
@@ -119,6 +142,12 @@ PEAK_F32 = 67e12
 #: absolute values, max) in ``csrc/euler.cuh``.
 FLUX_OPS = 20
 EIG_OPS = 17
+#: Flops of one elastic flux of the 9 evolved rows (3 velocity products, 5
+#: for the normal stress, 2 for the other normal stresses, 2 shear products
+#: and their 3 "+ 0" terms; rounded up) and of one P-wave speed (product,
+#: sum, division, root) in ``csrc/elastic.cuh``.
+ELASTIC_FLUX_OPS = 16
+ELASTIC_EIG_OPS = 4
 
 
 def fail(msg: str):
@@ -248,12 +277,36 @@ def predictor_ops(order: int, picard_iters: int, ncell: int, dim=3, nvar=5) -> f
     return per_node * n**dim * ncell
 
 
-def face_surface_ops(order: int, ncell: int, dim=3, nvar=5) -> float:
-    """Flops of ``aderdg_face_surface``: two Rusanov fluxes (two wave
-    speeds, 6 flops per variable) per face node and axis of each cell, and
-    the surface update (5 flops per node, variable and axis)."""
+def ck_predictor_ops(order: int, ncell: int, dim=3, nvar=12, evolved=CK_EVOLVED) -> float:
+    """Flops of ``aderdg_ck_predictor_volume`` (``csrc/aderdg.cu``), per
+    (cell, node): 1/ρ once; each of the N levels evaluates ``dim`` elastic
+    fluxes and, per evolved variable, ``dim`` D contractions (2n-1 flops)
+    with their λ_d product and sum, the division by k and the q̄ update (2);
+    then F̄_d = F_d(q̄), the volume integral and the face projections, as
+    in :func:`predictor_ops`."""
     n = order + 1
-    rusanov = 2 * EIG_OPS + 6 * nvar
+    contr = 2 * n - 1
+    level = dim * ELASTIC_FLUX_OPS + evolved * (dim * (contr + 2) + 3)
+    volume = nvar * dim * (contr + 2)
+    faces = dim * n ** (dim - 1) / n**dim * nvar * 4 * contr
+    per_node = 1 + order * level + dim * ELASTIC_FLUX_OPS + volume + faces
+    return per_node * n**dim * ncell
+
+
+def ck_bytes(state_bytes: int, face_bytes: int) -> int:
+    """Bytes of the CK predictor: the state read, the new state and the
+    face tensor written."""
+    return 2 * state_bytes + face_bytes
+
+
+def face_surface_ops(order: int, ncell: int, dim=3, nvar=5, eig_ops=EIG_OPS,
+                     masked=False) -> float:
+    """Flops of ``aderdg_face_surface``: two Rusanov fluxes (two wave
+    speeds, 6 flops per variable, 7 with a dissipation mask) per face node
+    and axis of each cell, and the surface update (5 flops per node,
+    variable and axis)."""
+    n = order + 1
+    rusanov = 2 * eig_ops + (7 if masked else 6) * nvar
     return ncell * (dim * n ** (dim - 1) * 2 * rusanov + n**dim * nvar * dim * 5)
 
 
@@ -654,6 +707,217 @@ def limited_path(torch, dev, card) -> list[dict]:
     ]
 
 
+def ck_path(torch, dev, card) -> list[dict]:
+    """The CK form of the main path; returns the kernel JSON lines of K2 and
+    of the face kernel's elastic variant (at ``(256, 8, 128)``)."""
+    import numpy as np
+
+    from exahype_tpu_torch.models.aderdg import ADERDGSolver
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.elastic import (
+        DISSIPATION_MASK,
+        MATERIAL_SLOTS,
+        N_VARS_3D_HET,
+        elastic3d_heterogeneous,
+        seismic_energy,
+        two_layer_state,
+    )
+
+    flux, eig = elastic3d_heterogeneous()
+    E = CK_EVOLVED
+
+    def make(grid, dtype):
+        sol = ADERDGSolver(3, ORDER, N_VARS_3D_HET, grid, flux, eig, dx=1.0 / grid[0],
+                           device=dev, dtype=dtype, predictor_mode="ck",
+                           ck_material_slots=MATERIAL_SLOTS,
+                           dissipation_mask=DISSIPATION_MASK)
+        return sol, CudaADERDG(sol)
+
+    def initial(sol, dtype):
+        q, mat = two_layer_state(sol)
+        return (torch.from_numpy(q).to(dev, dtype).contiguous(),
+                torch.from_numpy(np.ascontiguousarray(mat)).to(dev, dtype))
+
+    def mats(q, va=3):
+        return q.narrow(va, E, N_VARS_3D_HET - E)
+
+    def frozen(q, mat):
+        return torch.equal(mats(q), mat)  # values: -0.0 == 0.0
+
+    # Dynamic shared memory per block, as the launchers size it (ptxas
+    # reports static shared memory only): K2's epilogue holds q̄ and F̄_d of
+    # 12 rows, the face kernel both faces' fluxes, for 32 bytes of cells.
+    nodes = (ORDER + 1) ** 3
+    say("[build] dynamic shared memory per block (csrc/aderdg.cu launchers): "
+        f"aderdg_ck_predictor_volume {4 * N_VARS_3D_HET * nodes * 32} B, "
+        f"aderdg_face_surface (elastic) {3 * 2 * N_VARS_3D_HET * nodes // (ORDER + 1) * 32} "
+        "B, in f32 and f64 alike (opt-in above 49152 B)")
+
+    # ------------------------------- K2 and the elastic face kernel vs plain
+    errs = {"aderdg_ck_predictor_volume": 0.0, "aderdg_face_surface": 0.0}
+    for grid, dtype in (((8, 4, 32), torch.float64),) + tuple(
+            (g, torch.float32) for g in CK_GRIDS):
+        sol, cu = make(grid, dtype)
+        u, mat = initial(sol, dtype)
+        dt = CK_DT if grid[0] <= 64 else float(sol.cfl_dt(u))
+        u_in = u.clone()
+        new_k, faces_k = cu.predictor_volume(u, dt)
+        new_p, faces_p = sol.predictor_volume(u, dt)
+        surf_k = cu.face_surface(new_p.clone(), faces_p, dt)
+        surf_p = sol.face_surface(new_p, faces_p, dt)
+        step_k = cu.step(u, dt)
+        step_p = sol.step(u, dt)
+        torch.cuda.synchronize()
+        if not torch.equal(u, u_in):
+            fail("the CK step modified its input")
+        f64 = dtype == torch.float64
+        for name, what, got, ref in (
+            ("aderdg_ck_predictor_volume", "new", new_k, new_p),
+            ("aderdg_ck_predictor_volume", "faces", faces_k, faces_p),
+            ("aderdg_face_surface", "new", surf_k, surf_p),
+            ("step", "new", step_k, step_p),
+        ):
+            # The evolved rows against the bound of their own largest value,
+            # the material rows against theirs (the wave is ~1e-3, the
+            # materials up to 3).
+            for rows, lo, n in (("evolved", 0, E), ("material", E, N_VARS_3D_HET - E)):
+                g, r = got.narrow(3, lo, n), ref.narrow(3, lo, n)
+                err = max_err(torch, g, r)
+                limit = F64_ATOL if f64 else f32_bound(torch, r)
+                ok = err <= limit
+                say(f"[ck parity] {name} ({what}, {rows} rows) {str(dtype)[6:]} {grid}: "
+                    f"max_abs_err {err:.3e} limit {limit:.3e} "
+                    f"({'atol' if f64 else f'{F32_ULPS} f32 spacings of max|plain|'}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"CK {name} ({what}, {rows} rows) disagrees with its plain "
+                         f"version ({dtype}, {grid})")
+                if name in errs and not f64 and grid == CK_GRIDS[-1]:
+                    errs[name] = max(errs[name], err)
+        exact = {
+            "predictor new": frozen(new_k, mat), "face-surface new": frozen(surf_k, mat),
+            "step": frozen(step_k, mat),
+            "material flux rows of the faces zero": not bool(mats(faces_k[:, 2:], 3).any()),
+        }
+        say(f"[ck parity] kernel materials {str(dtype)[6:]} {grid}: {exact}")
+        if not all(exact.values()):
+            fail(f"the CK kernels moved the material slots ({dtype}, {grid})")
+        del sol, cu, u, u_in, mat, new_k, faces_k, new_p, faces_p, surf_k, surf_p
+        del step_k, step_p, got, ref, g, r
+        torch.cuda.empty_cache()
+
+    # ------------------------------- the main path at both grids
+    lines = None
+    for grid in CK_GRIDS:
+        sol, cu = make(grid, torch.float32)
+        u0, mat = initial(sol, torch.float32)
+        e = lambda q: float(seismic_energy(q.double(), 3, mat.double()))  # noqa: E731
+        bench_grid = grid == CK_GRIDS[0]
+        cfl = float(sol.cfl_dt(u0))
+        dt = CK_DT if bench_grid else cfl
+        warm, steps = (CK_WARMUP, CK_WINDOW) if bench_grid else (0, STEPS)
+        say(f"[ck] {grid}: dt = {dt!r} ({'bench.py:204' if bench_grid else 'cfl_dt'}); "
+            f"cfl_dt(initial state) = {cfl!r}; {warm} warm-up steps, then {steps}")
+        ustart = cu.run(u0, warm, dt)
+        torch.cuda.synchronize()
+        half = steps // 2
+        cu.reset_launches()
+        mid = cu.run(ustart, half, dt)
+        u = cu.run(mid, steps - half, dt)
+        torch.cuda.synchronize()
+        launches = dict(cu.launches)
+        say(f"[ck main] {steps} steps of {grid} f32 through CudaADERDG: launches {launches}")
+        want = {"aderdg_ck_predictor_volume": steps, "aderdg_face_surface": steps}
+        if launches != want:
+            fail(f"CK main path launches {launches}, expected {want}")
+        finite, is_frozen = bool(torch.isfinite(u).all()), frozen(u, mat)
+        e0, em, e1 = e(ustart), e(mid), e(u)
+        say(f"[ck main] full state finite {finite}; slots 9-11 bitwise equal to the "
+            f"initial materials {is_frozen}; seismic energy ratio {e1 / e0!r} over the "
+            f"{steps} steps (first half {em / e0!r}, second half {e1 / em!r}); gate "
+            f"{CK_ENERGY_GATE} (bench.py:280){' applied' if bench_grid else ', read only'}")
+        if tuple(u.shape) != sol.state_shape or not (finite and is_frozen):
+            fail("the CK main-path state is not finite or its materials moved")
+        if bench_grid and not e1 / e0 < CK_ENERGY_GATE:
+            fail(f"the CK seismic energy grew by {e1 / e0} over the bench's window")
+        again = cu.run(ustart, steps, dt)
+        if not torch.equal(u, again):
+            fail("two CK runs from the same state differ")
+        say("[ck main] two runs from the same state: bitwise equal")
+        del again, mid
+        plain_u = sol.run(ustart, steps, dt)
+        run_err = max_err(torch, u.narrow(3, 0, E), plain_u.narrow(3, 0, E))
+        run_bound = steps * f32_bound(torch, plain_u.narrow(3, 0, E))
+        plain_frozen = frozen(plain_u, mat)
+        say(f"[ck main] {steps}-step kernel path vs plain path (evolved rows): max_abs_err "
+            f"{run_err:.3e} limit {run_bound:.3e}; plain path's materials frozen "
+            f"{plain_frozen}; plain energy ratio {e(plain_u) / e0!r}")
+        if not (run_err <= run_bound and plain_frozen):
+            fail("the CK main path disagrees with the plain path")
+        del plain_u
+
+        # ------------------------------------------------ times
+        ncell = math.prod(grid)
+        evolved_dofs = ncell * sol.n_nodes**3 * E
+        k_win = windows(torch, cu, ustart, dt, steps=20)
+        p_win = windows(torch, sol, ustart, dt, steps=2, n_windows=1)
+        for label, win in (("kernel path", k_win), ("plain path", p_win)):
+            ms = [1e3 * w for w in win]
+            say(f"[ck time] {grid} {label}: step ms per window {ms!r}; median "
+                f"{statistics.median(ms)!r} ms, {evolved_dofs / statistics.median(win)!r} "
+                f"evolved-DOF-updates/s ({evolved_dofs} evolved DOF per step; {card})")
+        new, faces = cu.predictor_volume(ustart, dt)
+        times = {
+            "aderdg_ck_predictor_volume": (
+                event_ms(torch, lambda: cu.predictor_volume(ustart, dt), 20),
+                event_ms(torch, lambda: sol.predictor_volume(ustart, dt), 3),
+            ),
+            "aderdg_face_surface": (
+                event_ms(torch, lambda: cu.face_surface(new, faces, dt), 20),
+                event_ms(torch, lambda: sol.face_surface(new, faces, dt), 3),
+            ),
+        }
+        for name, (ms, plain_ms) in times.items():
+            say(f"[ck time] {grid} {name}: kernel {ms!r} ms, plain {plain_ms!r} ms "
+                f"(CUDA events; {card})")
+        for label, solver, n in (("kernel path", cu, 20), ("plain path", sol, 2)):
+            idle, busy, wall = idle_share(torch, lambda: solver.run(ustart, n, dt))
+            say(f"[ck idle] {grid} {label}, {n} steps under torch.profiler: device busy "
+                f"{busy!r} ms of wall {wall!r} ms; idle share {idle!r} ({card})")
+        state_bytes = ustart.nbytes
+        face_bytes = faces.nbytes
+        bounds = {
+            "aderdg_ck_predictor_volume": bound(ck_bytes(state_bytes, face_bytes),
+                                                ck_predictor_ops(ORDER, ncell)),
+            "aderdg_face_surface": bound(face_bytes + 2 * state_bytes, face_surface_ops(
+                ORDER, ncell, nvar=N_VARS_3D_HET, eig_ops=ELASTIC_EIG_OPS, masked=True)),
+        }
+        for name, bnd in bounds.items():
+            say(f"[bound] {name} (CK, elastic) {grid} f32: bound {bnd['bound_ms']!r} ms by "
+                f"{bnd['bound_by']} (state {state_bytes} B, faces {face_bytes} B); kernel "
+                f"{times[name][0]!r} ms ({card})")
+        if grid != CK_GRIDS[-1]:
+            continue
+        lines = [  # the kernels at the grid where the card is the limit
+            {
+                "name": "aderdg_ck_predictor_volume" if name.startswith("aderdg_ck")
+                else "aderdg_face_surface (12-var elastic, dissipation mask, CK path)",
+                "route": "cuda",
+                "source": "exahype_tpu_torch/csrc/aderdg.cu",
+                "replaces": "exahype_tpu/models/aderdg_pallas.py:358"
+                if name.startswith("aderdg_ck") else "exahype_tpu/models/aderdg_pallas.py:156",
+                "launches": launches[name],
+                "max_abs_err": errs[name],
+                "ms": times[name][0],
+                "plain_ms": times[name][1],
+                **bounds[name],
+                "library_ms": None,  # no single PyTorch call computes it
+            }
+            for name in cu.kernels
+        ]
+    return lines
+
+
 def fv_path(torch, dev, card, spec_printers) -> dict:
     """The FV form of the main path; returns K4's line of the kernel JSON."""
     from exahype_tpu_torch.models import euler
@@ -787,75 +1051,11 @@ def fv_path(torch, dev, card, spec_printers) -> dict:
     return record
 
 
-def main():
-    import torch
-
-    # ---------------------------------------------------------- 1. card
-    if not torch.cuda.is_available():
-        fail("no CUDA card: torch.cuda.is_available() is False (this script "
-             "runs the port's kernels on one NVIDIA GPU)")
-    if not (HERE / "exahype_tpu_torch" / "__init__.py").is_file():
-        fail(f"exahype_tpu_torch/ not found beside {__file__}; run the script "
-             "from a checkout of the repository")
-    sys.path.insert(0, str(HERE))
-    import exahype_tpu_torch
-
-    if pathlib.Path(exahype_tpu_torch.__file__).resolve().parent.parent != HERE:
-        fail(f"imported exahype_tpu_torch from {exahype_tpu_torch.__file__}, "
-             f"not from {HERE}")
-    from exahype_tpu_torch import _build
+def aderdg_path(torch, dev, card) -> list[dict]:
+    """The ADER-DG form of the main path; returns the kernel JSON lines of
+    its two kernels."""
     from exahype_tpu_torch.models.aderdg import ADERDGSolver, euler_physics
     from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
-
-    torch.backends.cuda.matmul.allow_tf32 = False  # plain path: full f32
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0].strip()
-    import sympy
-
-    say(f"[card] torch.cuda.get_device_name(0) = {kind}; "
-        f"device_count = {torch.cuda.device_count()}; torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, sympy {sympy.__version__}")
-    say(f"[card] nvidia-smi name, power.limit: {card}")
-
-    # --------------------------------------------------------- 2. build
-    from exahype_tpu_torch.backends.cuda_backend import CudaPrinter
-    from exahype_tpu_torch.models.fv import build_fv_rusanov_kernel
-    from exahype_tpu_torch.models.rusanov import build_rusanov_kernel
-
-    # The K4 source depends on the spec's widths, not on its patch count.
-    spec_printers = {
-        name: CudaPrinter(build(**FV_WIDTH, n_patches=1))
-        for name, build in (("fv", build_fv_rusanov_kernel),
-                            ("rusanov", build_rusanov_kernel))
-    }
-    jobs = {"csrc/*.cu (one library)": _build.compile_library}
-    jobs.update({f"K4 {name} spec (generated)": pr.compile
-                 for name, pr in spec_printers.items()})
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-        futures = {what: pool.submit(job) for what, job in jobs.items()}
-        builds = {what: f.result() for what, f in futures.items()}
-    say(f"[build] {len(jobs)} nvcc builds in parallel: {time.perf_counter() - t0:.2f} s "
-        f"wall; flags {' '.join(_build.NVCC_FLAGS)}")
-    for what, info in builds.items():
-        say(f"[build] {what}: {info['seconds']:.2f} s -> "
-            f"{pathlib.Path(info['path']).relative_to(HERE)} (name carries the "
-            "source hash); nvcc seconds per source " + ", ".join(
-                f"{name} {sec:.2f}" for name, sec in info["sources"].items()))
-        for line in info["log"].splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
-                say(f"[build]   {line.strip()}")
-    _build.library()
-    for pr in spec_printers.values():
-        pr.library()
 
     flux, eig = euler_physics(3, n_real=5)
 
@@ -1027,15 +1227,88 @@ def main():
             **bounds[name],
             "library_ms": None,  # no single PyTorch call computes it
         }
-        for name in CudaADERDG.KERNELS
+        for name in cu.kernels
     ]
     for k in kernels:
         say(f"[bound] {k['name']} {GRID} f32: bound {k['bound_ms']!r} ms by "
             f"{k['bound_by']}; kernel {k['ms']!r} ms ({card})")
     del cu, sol, u0, u
     torch.cuda.empty_cache()
+    return kernels
 
+
+def main():
+    import torch
+
+    # ---------------------------------------------------------- 1. card
+    if not torch.cuda.is_available():
+        fail("no CUDA card: torch.cuda.is_available() is False (this script "
+             "runs the port's kernels on one NVIDIA GPU)")
+    if not (HERE / "exahype_tpu_torch" / "__init__.py").is_file():
+        fail(f"exahype_tpu_torch/ not found beside {__file__}; run the script "
+             "from a checkout of the repository")
+    sys.path.insert(0, str(HERE))
+    import exahype_tpu_torch
+
+    if pathlib.Path(exahype_tpu_torch.__file__).resolve().parent.parent != HERE:
+        fail(f"imported exahype_tpu_torch from {exahype_tpu_torch.__file__}, "
+             f"not from {HERE}")
+    from exahype_tpu_torch import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain path: full f32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0].strip()
+    import sympy
+
+    say(f"[card] torch.cuda.get_device_name(0) = {kind}; "
+        f"device_count = {torch.cuda.device_count()}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, sympy {sympy.__version__}")
+    say(f"[card] nvidia-smi name, power.limit: {card}")
+
+    # --------------------------------------------------------- 2. build
+    from exahype_tpu_torch.backends.cuda_backend import CudaPrinter
+    from exahype_tpu_torch.models.fv import build_fv_rusanov_kernel
+    from exahype_tpu_torch.models.rusanov import build_rusanov_kernel
+
+    # The K4 source depends on the spec's widths, not on its patch count.
+    spec_printers = {
+        name: CudaPrinter(build(**FV_WIDTH, n_patches=1))
+        for name, build in (("fv", build_fv_rusanov_kernel),
+                            ("rusanov", build_rusanov_kernel))
+    }
+    jobs = {"csrc/*.cu (one library)": _build.compile_library}
+    jobs.update({f"K4 {name} spec (generated)": pr.compile
+                 for name, pr in spec_printers.items()})
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        futures = {what: pool.submit(job) for what, job in jobs.items()}
+        builds = {what: f.result() for what, f in futures.items()}
+    say(f"[build] {len(jobs)} nvcc builds in parallel: {time.perf_counter() - t0:.2f} s "
+        f"wall; flags {' '.join(_build.NVCC_FLAGS)}")
+    for what, info in builds.items():
+        say(f"[build] {what}: {info['seconds']:.2f} s -> "
+            f"{pathlib.Path(info['path']).relative_to(HERE)} (name carries the "
+            "source hash); nvcc seconds per source " + ", ".join(
+                f"{name} {sec:.2f}" for name, sec in info["sources"].items()))
+        for line in info["log"].splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                say(f"[build]   {line.strip()}")
+    _build.library()
+    for pr in spec_printers.values():
+        pr.library()
+
+    kernels = aderdg_path(torch, dev, card)
     kernels.extend(limited_path(torch, dev, card))
+    torch.cuda.empty_cache()
+    kernels.extend(ck_path(torch, dev, card))
     torch.cuda.empty_cache()
     kernels.append(fv_path(torch, dev, card, spec_printers))
     print(json.dumps({"kernels": kernels}))

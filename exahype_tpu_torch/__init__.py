@@ -1,6 +1,6 @@
 """exahype_tpu_torch — the PyTorch/CUDA port of ``exahype_tpu``.
 
-Three paths of the JAX package run here, on an NVIDIA H100 through CUDA
+Four paths of the JAX package run here, on an NVIDIA H100 through CUDA
 kernels written for it, and on the CPU through their plain PyTorch
 versions, which match the JAX package:
 
@@ -9,6 +9,9 @@ versions, which match the JAX package:
 - the limited production step of the same scheme (``bench.py``'s second
   metric): ``LimitedADERDG`` with the gathered-row subcell FV fallback,
   its sweeps through the kernel of ``csrc/subcell.cu``;
+- the Cauchy–Kovalewski step of 3-D heterogeneous elasticity
+  (``bench.py``'s third metric): ``ADERDGSolver(predictor_mode="ck")`` on
+  ``elastic3d_heterogeneous``, through the CK kernel of ``csrc/aderdg.cu``;
 - the spec-DSL FV Rusanov patch update (``__graft_entry__.py``'s path):
   ``KernelBuilder`` → ``CudaPrinter``, which generates one CUDA kernel from
   the statement list → ``TpuPatchGrid`` halo exchange → ``GridSolver``.
@@ -26,6 +29,7 @@ __version__ = "0.2.0"
 _EXPORTS = {
     "ADERDGSolver": "exahype_tpu_torch.models.aderdg",
     "euler_physics": "exahype_tpu_torch.models.aderdg",
+    "elastic3d_heterogeneous": "exahype_tpu_torch.models.elastic",
     "CudaADERDG": "exahype_tpu_torch.models.aderdg_cuda",
     "LimitedADERDG": "exahype_tpu_torch.models.limiter",
     "euler_admissible": "exahype_tpu_torch.models.limiter",

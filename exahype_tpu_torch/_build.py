@@ -41,17 +41,22 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
-# u, out, faces, dt_ptr, dt_val, ops, dx, order, picard_iters, gamma,
-# g0, g1, g2, stream
+_INT = ctypes.c_int
+# u, out, faces, dt_ptr, dt_val, ops, dx, order, picard_iters, physics,
+# params, g0, g1, g2, stream
 _PREDICTOR_VOLUME = (
-    _P, _P, _P, _P, ctypes.c_double, _P, _P, ctypes.c_int, ctypes.c_int,
-    ctypes.c_double, _LL, _LL, _LL, _P,
-)
-# state, faces, fhat, dt_ptr, dt_val, ops, dx, order, gamma, g0, g1, g2,
-# stream
-_FACE_SURFACE = (
-    _P, _P, _P, _P, ctypes.c_double, _P, _P, ctypes.c_int, ctypes.c_double,
+    _P, _P, _P, _P, ctypes.c_double, _P, _P, _INT, _INT, _INT, _P,
     _LL, _LL, _LL, _P,
+)
+# u, out, faces, dt_ptr, dt_val, ops, dx, order, physics, params, g0, g1,
+# g2, stream
+_CK_PREDICTOR_VOLUME = (
+    _P, _P, _P, _P, ctypes.c_double, _P, _P, _INT, _INT, _P, _LL, _LL, _LL, _P,
+)
+# state, faces, fhat, dt_ptr, dt_val, ops, dx, order, physics, params, g0,
+# g1, g2, stream
+_FACE_SURFACE = (
+    _P, _P, _P, _P, ctypes.c_double, _P, _P, _INT, _INT, _P, _LL, _LL, _LL, _P,
 )
 # s, ghost_lo, ghost_hi, s_new, g_lo, g_hi, dt_ptr, dt_val, h, gamma, dim,
 # n_sub, n_vars, d, n_kl, stream
@@ -64,6 +69,7 @@ _SIGNATURES = {
     f"exahype_{kernel}_{suffix}": argtypes
     for kernel, argtypes in (
         ("aderdg_predictor_volume", _PREDICTOR_VOLUME),
+        ("aderdg_ck_predictor_volume", _CK_PREDICTOR_VOLUME),
         ("aderdg_face_surface", _FACE_SURFACE),
         ("subcell_row_sweep", _ROW_SWEEP),
     )

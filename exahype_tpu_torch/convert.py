@@ -13,28 +13,54 @@ import numpy as np
 import torch
 
 from exahype_tpu_torch.models.aderdg import (
+    PORTED_OPTIONS,
     UNPORTED_OPTIONS,
     ADERDGSolver,
     euler_physics,
 )
+from exahype_tpu_torch.models.elastic import elastic3d_heterogeneous
 from exahype_tpu_torch.utils.device import resolve_device
 from exahype_tpu_torch.utils.errors import SemanticError
 
 
-def aderdg_from_jax(jax_solver, *, gamma: float, device=None,
+def _physics_pair(physics, gamma, dim: int, n_vars: int):
+    """The port's (flux_fn, max_eigenvalue_fn) named by ``physics``."""
+    if physics == "euler":
+        if gamma is None:
+            raise SemanticError("physics='euler' needs gamma")
+        return euler_physics(dim, n_real=n_vars, gamma=gamma)
+    if gamma is not None:
+        raise SemanticError("gamma applies to physics='euler' only")
+    if isinstance(physics, tuple):
+        return physics
+    if physics == "elastic3d_het":
+        return elastic3d_heterogeneous()
+    raise SemanticError(
+        "physics must be 'euler', 'elastic3d_het' or a (flux_fn, "
+        f"max_eigenvalue_fn) pair, got {physics!r}"
+    )
+
+
+def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
+                    physics="euler", device=None,
                     dtype: torch.dtype = torch.float64) -> ADERDGSolver:
-    """The port's Euler :class:`ADERDGSolver` for a JAX ``ADERDGSolver``.
+    """The port's :class:`ADERDGSolver` for a JAX ``ADERDGSolver``.
 
     Reads the JAX solver's numeric fields (``dim``, ``order``, ``n_vars``,
     ``grid_shape``, ``dx``, ``basis``, ``picard_iters``) and its option
-    fields; an option the port does not carry yet raises ``SemanticError``.
-    The JAX physics callbacks are opaque, so the caller names γ and the
-    port builds its own tagged Euler pair.
+    fields (``predictor_mode``, ``ck_material_slots`` and
+    ``dissipation_mask`` carry over; an option the port does not carry yet
+    raises ``SemanticError``).  The JAX physics callbacks are opaque, so the
+    caller names the physics: ``"euler"`` with ``gamma`` (the default),
+    ``"elastic3d_het"`` (:func:`~exahype_tpu_torch.models.elastic.
+    elastic3d_heterogeneous`), or a (flux_fn, max_eigenvalue_fn) pair of
+    the port's.
     """
-    flux, eig = euler_physics(
-        jax_solver.dim, n_real=jax_solver.n_vars, gamma=gamma
-    )
-    options = {name: getattr(jax_solver, name) for name in UNPORTED_OPTIONS}
+    flux, eig = _physics_pair(physics, gamma, jax_solver.dim, jax_solver.n_vars)
+    options = {
+        name: getattr(jax_solver, name)
+        for name in (*UNPORTED_OPTIONS, *PORTED_OPTIONS)
+    }
     return ADERDGSolver(
         dim=jax_solver.dim,
         order=jax_solver.order,

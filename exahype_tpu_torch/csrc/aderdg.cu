@@ -1,17 +1,24 @@
-// ADER-DG step of 3-D compressible Euler for Hopper (sm_90a): two kernels.
+// ADER-DG step on a periodic 3-D grid for Hopper (sm_90a): three kernels,
+// templated on the physics (3-D compressible Euler, 3-D heterogeneous
+// elasticity).
 //
 // Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
 // PallasADERDG.build (its pallas_call and the XLA face epilogue around it)
-// on the periodic, flux-form Picard path.  The numbers to match are those of
+// on the periodic, flux-form path: the Picard branch of its body (K1) and
+// its predictor_mode == "ck" branch (K2).  The numbers to match are those of
 // exahype_tpu/models/aderdg.py::ADERDGSolver.step; the plain PyTorch version
 // is exahype_tpu_torch/models/aderdg.py::ADERDGSolver.{predictor_volume,
 // face_surface}.
 //
-//   aderdg_predictor_volume  cell-local: Picard space-time predictor,
-//                            time averages q̄ and F̄_d, volume integral
-//                            new = u + Σ_d λ_d Kvol F̄_d, and the face
-//                            projections (q_lo, q_hi, f_lo, f_hi) of every
-//                            axis.
+//   aderdg_predictor_volume  cell-local (Euler): Picard space-time
+//                            predictor, time averages q̄ and F̄_d, volume
+//                            integral new = u + Σ_d λ_d Kvol F̄_d, and the
+//                            face projections (q_lo, q_hi, f_lo, f_hi) of
+//                            every axis.
+//   aderdg_ck_predictor_volume  cell-local (elasticity): the Cauchy–
+//                            Kovalewski Taylor recursion, q̄ = Σ_k q_k/(k+1),
+//                            F̄_d = F_d(q̄), then the same volume integral and
+//                            face projections.
 //   aderdg_face_surface      per cell and axis: the Rusanov flux of its high
 //                            face and of its low face, then the surface
 //                            update of `new`, in place; optionally each
@@ -39,18 +46,93 @@
 // it, so there are no races and no float atomics: the step is bitwise
 // deterministic run to run.  Offsets are 64-bit.  IEEE division and square
 // root (no fast math).  The Euler physics is csrc/euler.cuh, shared with the
-// generated spec kernels.
+// generated spec kernels; the elastic physics is csrc/elastic.cuh.
+//
+// K2, the CK predictor (elasticity, 12 variables).  Its work is smaller than
+// one Picard iteration: N = 3 applications of the spatial operator on the
+// spatial nodal array, no space-time array.  So it is memory-bound: ~1e5
+// flops per cell against 15.4 KB per cell in f32 (the state read and
+// written, 3 KB each, and 9.2 KB of faces written), ~7 flops per byte,
+// under the f32 ridge; so is the face kernel's 12-variable variant, with
+// the same bytes and fewer flops.  It keeps the Picard kernel's
+// layout, one thread per (cell, node) and CB cells per block.  A thread
+// loads its node's 12 values once and keeps 1/ρ, λ and μ in registers for
+// the whole step: the materials are frozen, so the injection of the
+// reference (a where-select per level) is the use of those registers, and
+// the zeroing of the material rows is that the kernel holds only the 9
+// evolved rows of q_k and q̄ (q_k's material rows are zero, q̄'s are u's).
+// Each level writes F_d(q_k) of the 9 evolved rows to shared memory, syncs,
+// contracts each axis with its D row and forms r = −Σ_d λ_d (D F_d),
+// q_k = r / k, q̄ += q_k / (k + 1): the Pallas branch's order (λ_d = dt/dx_d
+// inside, /k after); the plain version follows XLA's (dt/k)·L, the same up
+// to rounding.  The material rows' volume term and face fluxes come from
+// exact zeros (zero flux rows, and the face kernel multiplies their jump by
+// the mask's 0), so slots 9-11 leave the step bitwise unchanged.  Shared
+// memory: the epilogue holds q̄ and F̄_d of all 12 rows for CB cells, 96 KB
+// in f32 and f64, so the launcher opts in above the 48 KB default.
 
 #include <cuda_runtime.h>
 
+#include "elastic.cuh"
 #include "euler.cuh"
 
 namespace {
 
 constexpr int kDim = 3;
-constexpr int kVars = kDim + 2;
 
-template <typename T, int NN>
+// Physics ids of the C interface.
+enum PhysicsId : int { kEuler = 0, kElasticHet = 1 };
+
+template <typename T>
+__device__ __forceinline__ T momentum(const T* q, int d) {
+  return d == 0 ? q[1] : (d == 1 ? q[2] : q[3]);
+}
+
+// Each physics: V variables, flux(q, d, f) of all V rows,
+// max_eigenvalue(q, d), and the dissipation weight of each row in the
+// Rusanov jump term (kMasked: whether any weight is not 1).
+template <typename T>
+struct EulerPhysics {
+  static constexpr int V = kDim + 2;
+  static constexpr bool kMasked = false;
+  T gm1;  // gamma - 1
+  T gamma;
+  static EulerPhysics make(const double* params) {
+    return {static_cast<T>(params[0] - 1.0), static_cast<T>(params[0])};
+  }
+  __device__ __forceinline__ void flux(const T* q, int d, T* f) const {
+    euler_flux<T, kDim, V>(q, d, gm1, f);
+  }
+  __device__ __forceinline__ T max_eigenvalue(const T* q, int d) const {
+    return euler_max_eigenvalue<T, kDim>(q, momentum(q, d), gm1, gamma);
+  }
+  static __device__ __forceinline__ T dissipation(int) { return T(1); }
+};
+
+// The 12-variable heterogeneous elasticity of csrc/elastic.cuh with its CK
+// configuration compiled in: materials in slots 9-11 (kRho..kMu), the
+// dissipation mask (1,)*9 + (0, 0, 0).
+template <typename T>
+struct ElasticHetPhysics {
+  static constexpr int V = 12;
+  static constexpr int kEvolved = 9;
+  static constexpr int kRho = 9, kLam = 10, kMu = 11;
+  static constexpr bool kMasked = true;
+  static ElasticHetPhysics make(const double*) { return {}; }
+  __device__ __forceinline__ void flux(const T* q, int d, T* f) const {
+    elastic3d_het_flux<T>(q, T(1) / q[kRho], q[kLam], q[kMu], d, f);
+#pragma unroll
+    for (int v = kEvolved; v < V; ++v) f[v] = T(0);
+  }
+  __device__ __forceinline__ T max_eigenvalue(const T* q, int) const {
+    return elastic3d_het_eigenvalue<T>(q[kRho], q[kLam], q[kMu]);
+  }
+  static __device__ __forceinline__ T dissipation(int v) {
+    return v < kEvolved ? T(1) : T(0);
+  }
+};
+
+template <typename T, int NN, typename Phys>
 struct Params {
   T D[NN][NN];
   T K1inv[NN][NN];
@@ -61,17 +143,11 @@ struct Params {
   T PHI0W[NN];
   T PHI1W[NN];
   T dx[kDim];
-  T gm1;    // gamma - 1
-  T gamma;
+  Phys phys;
   int picard_iters;
   long long g[kDim];  // cell grid
   long long ncell;
 };
-
-template <typename T>
-__device__ __forceinline__ T momentum(const T* q, int d) {
-  return d == 0 ? q[1] : (d == 1 ? q[2] : q[3]);
-}
 
 // Stride of node axis d in the flat node index (i0 * NN + i1) * NN + i2.
 template <int NN>
@@ -111,111 +187,29 @@ __device__ __forceinline__ T select(const T (&vec)[NN], int r) {
   return out;
 }
 
-template <typename T, int NN, int CB>
-__global__ void __launch_bounds__(CB * NN * NN * NN)
-aderdg_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
-                        T* __restrict__ faces, const T* __restrict__ dt_ptr,
-                        T dt_val, const Params<T, NN> P) {
+// Index of (axis d, variable v, node, cell c) in the shared flux array
+// sF[d][v][node][c].
+template <int V, int NODES, int CB>
+__device__ __forceinline__ int flux_index(int d, int v, int node, int c) {
+  return ((d * V + v) * NODES + node) * CB + c;
+}
+
+// The end of both predictors, from a node's u, q̄ and F̄_d in registers:
+// q̄ and F̄_d to shared memory, the volume integral of this node into `out`,
+// and the face projections (q_lo, q_hi, f_lo, f_hi) of every axis into
+// `faces`.  sF holds kDim * V * NN^3 * CB values, sQ V * NN^3 * CB.  Every
+// thread of the block calls it (it syncs).
+template <typename T, int NN, int CB, int V, typename Prm>
+__device__ __forceinline__ void volume_and_faces(
+    const T (&uu)[V], const T (&qbar)[V], const T (&fbar)[kDim][V], const Prm& P,
+    T* sF, T* sQ, int node, int c, const int (&ix)[kDim], const int (&base)[kDim],
+    const T (&lam)[kDim], bool valid, long long cell, long long ncell,
+    T* __restrict__ out, T* __restrict__ faces) {
   constexpr int NF = NN * NN;
   constexpr int NODES = NN * NF;
-  constexpr int V = kVars;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // sF[d][v][node][c]: one flux array per axis; sQ[v][node][c]: q̄.
-  T* sF = reinterpret_cast<T*>(smem_raw);
-  T* sQ = sF + kDim * V * NODES * CB;
   auto iF = [](int d, int v, int node, int c) {
-    return ((d * V + v) * NODES + node) * CB + c;
+    return flux_index<V, NODES, CB>(d, v, node, c);
   };
-
-  const int c = threadIdx.x % CB;
-  const int node = threadIdx.x / CB;
-  const int ix[kDim] = {node / NF, (node / NN) % NN, node % NN};
-  const long long ncell = P.ncell;
-  const long long cell_raw = static_cast<long long>(blockIdx.x) * CB + c;
-  const bool valid = cell_raw < ncell;
-  const long long cell = valid ? cell_raw : ncell - 1;  // ragged tail: clamp
-
-  const T dtv = dt_ptr != nullptr ? *dt_ptr : dt_val;
-  T lam[kDim];
-  T Drow[kDim][NN];
-  int base[kDim];
-#pragma unroll
-  for (int d = 0; d < kDim; ++d) {
-    lam[d] = dtv / P.dx[d];
-    select_row<T, NN>(P.D, ix[d], Drow[d]);
-    base[d] = node - ix[d] * node_stride<NN>(d);
-  }
-
-  T uu[V];
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    uu[v] = u[static_cast<long long>(node * V + v) * ncell + cell];
-  }
-  T q[NN][V];
-#pragma unroll
-  for (int s = 0; s < NN; ++s) {
-#pragma unroll
-    for (int v = 0; v < V; ++v) q[s][v] = uu[v];
-  }
-
-  // Picard: q <- K1inv (θ(0) u − Σ_d λ_d w ∂_ξd F_d(q)), time slice by slice.
-  for (int it = 0; it < P.picard_iters; ++it) {
-    T rhs[NN][V];
-#pragma unroll
-    for (int s = 0; s < NN; ++s) {
-#pragma unroll
-      for (int d = 0; d < kDim; ++d) {
-        T f[V];
-        euler_flux<T, kDim, kVars>(q[s], d, P.gm1, f);
-#pragma unroll
-        for (int v = 0; v < V; ++v) sF[iF(d, v, node, c)] = f[v];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        T r = P.PHI0[s] * uu[v];
-#pragma unroll
-        for (int d = 0; d < kDim; ++d) {
-          const int st = node_stride<NN>(d);
-          T dF = Drow[d][0] * sF[iF(d, v, base[d], c)];
-#pragma unroll
-          for (int j = 1; j < NN; ++j) {
-            dF = dF + Drow[d][j] * sF[iF(d, v, base[d] + j * st, c)];
-          }
-          r = r - (lam[d] * P.W[s]) * dF;
-        }
-        rhs[s][v] = r;
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int s = 0; s < NN; ++s) {
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        T acc = P.K1inv[s][0] * rhs[0][v];
-#pragma unroll
-        for (int t = 1; t < NN; ++t) acc = acc + P.K1inv[s][t] * rhs[t][v];
-        q[s][v] = acc;
-      }
-    }
-  }
-
-  // Time averages of the final q and of its fluxes.
-  T qbar[V];
-  T fbar[kDim][V];
-#pragma unroll
-  for (int s = 0; s < NN; ++s) {
-    const T w = P.W[s];
-#pragma unroll
-    for (int v = 0; v < V; ++v) qbar[v] = s == 0 ? w * q[s][v] : qbar[v] + w * q[s][v];
-#pragma unroll
-    for (int d = 0; d < kDim; ++d) {
-      T f[V];
-      euler_flux<T, kDim, kVars>(q[s], d, P.gm1, f);
-#pragma unroll
-      for (int v = 0; v < V; ++v) fbar[d][v] = s == 0 ? w * f[v] : fbar[d][v] + w * f[v];
-    }
-  }
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     sQ[(v * NODES + node) * CB + c] = qbar[v];
@@ -275,27 +269,235 @@ aderdg_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
   }
 }
 
-// Rusanov flux between left state (qa, fa) and right state (qb, fb) on an
-// axis-d face: ½(fa + fb) − ½ s (qb − qa), s the larger wave speed.
-template <typename T>
-__device__ __forceinline__ void rusanov(const T* qa, const T* qb, const T* fa,
-                                        const T* fb, int d, T gm1, T gamma,
-                                        T* fhat) {
-  const T s = dmax(euler_max_eigenvalue<T, kDim>(qa, momentum(qa, d), gm1, gamma),
-                   euler_max_eigenvalue<T, kDim>(qb, momentum(qb, d), gm1, gamma));
+template <typename T, int NN, int CB, typename Phys>
+__global__ void __launch_bounds__(CB * NN * NN * NN)
+aderdg_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
+                        T* __restrict__ faces, const T* __restrict__ dt_ptr,
+                        T dt_val, const Params<T, NN, Phys> P) {
+  constexpr int NF = NN * NN;
+  constexpr int NODES = NN * NF;
+  constexpr int V = Phys::V;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // sF[d][v][node][c]: one flux array per axis; sQ[v][node][c]: q̄.
+  T* sF = reinterpret_cast<T*>(smem_raw);
+  T* sQ = sF + kDim * V * NODES * CB;
+  auto iF = [](int d, int v, int node, int c) {
+    return flux_index<V, NODES, CB>(d, v, node, c);
+  };
+
+  const int c = threadIdx.x % CB;
+  const int node = threadIdx.x / CB;
+  const int ix[kDim] = {node / NF, (node / NN) % NN, node % NN};
+  const long long ncell = P.ncell;
+  const long long cell_raw = static_cast<long long>(blockIdx.x) * CB + c;
+  const bool valid = cell_raw < ncell;
+  const long long cell = valid ? cell_raw : ncell - 1;  // ragged tail: clamp
+
+  const T dtv = dt_ptr != nullptr ? *dt_ptr : dt_val;
+  T lam[kDim];
+  T Drow[kDim][NN];
+  int base[kDim];
 #pragma unroll
-  for (int v = 0; v < kVars; ++v) {
-    fhat[v] = T(0.5) * (fa[v] + fb[v]) - T(0.5) * s * (qb[v] - qa[v]);
+  for (int d = 0; d < kDim; ++d) {
+    lam[d] = dtv / P.dx[d];
+    select_row<T, NN>(P.D, ix[d], Drow[d]);
+    base[d] = node - ix[d] * node_stride<NN>(d);
+  }
+
+  T uu[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    uu[v] = u[static_cast<long long>(node * V + v) * ncell + cell];
+  }
+  T q[NN][V];
+#pragma unroll
+  for (int s = 0; s < NN; ++s) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) q[s][v] = uu[v];
+  }
+
+  // Picard: q <- K1inv (θ(0) u − Σ_d λ_d w ∂_ξd F_d(q)), time slice by slice.
+  for (int it = 0; it < P.picard_iters; ++it) {
+    T rhs[NN][V];
+#pragma unroll
+    for (int s = 0; s < NN; ++s) {
+#pragma unroll
+      for (int d = 0; d < kDim; ++d) {
+        T f[V];
+        P.phys.flux(q[s], d, f);
+#pragma unroll
+        for (int v = 0; v < V; ++v) sF[iF(d, v, node, c)] = f[v];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        T r = P.PHI0[s] * uu[v];
+#pragma unroll
+        for (int d = 0; d < kDim; ++d) {
+          const int st = node_stride<NN>(d);
+          T dF = Drow[d][0] * sF[iF(d, v, base[d], c)];
+#pragma unroll
+          for (int j = 1; j < NN; ++j) {
+            dF = dF + Drow[d][j] * sF[iF(d, v, base[d] + j * st, c)];
+          }
+          r = r - (lam[d] * P.W[s]) * dF;
+        }
+        rhs[s][v] = r;
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int s = 0; s < NN; ++s) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        T acc = P.K1inv[s][0] * rhs[0][v];
+#pragma unroll
+        for (int t = 1; t < NN; ++t) acc = acc + P.K1inv[s][t] * rhs[t][v];
+        q[s][v] = acc;
+      }
+    }
+  }
+
+  // Time averages of the final q and of its fluxes.
+  T qbar[V];
+  T fbar[kDim][V];
+#pragma unroll
+  for (int s = 0; s < NN; ++s) {
+    const T w = P.W[s];
+#pragma unroll
+    for (int v = 0; v < V; ++v) qbar[v] = s == 0 ? w * q[s][v] : qbar[v] + w * q[s][v];
+#pragma unroll
+    for (int d = 0; d < kDim; ++d) {
+      T f[V];
+      P.phys.flux(q[s], d, f);
+#pragma unroll
+      for (int v = 0; v < V; ++v) fbar[d][v] = s == 0 ? w * f[v] : fbar[d][v] + w * f[v];
+    }
+  }
+  volume_and_faces<T, NN, CB, V>(uu, qbar, fbar, P, sF, sQ, node, c, ix, base, lam,
+                                 valid, cell, ncell, out, faces);
+}
+
+// K2: the Cauchy–Kovalewski predictor of the heterogeneous elasticity (see
+// the note at the top), then the shared epilogue.
+template <typename T, int NN, int CB>
+__global__ void __launch_bounds__(CB * NN * NN * NN)
+aderdg_ck_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
+                           T* __restrict__ faces, const T* __restrict__ dt_ptr,
+                           T dt_val, const Params<T, NN, ElasticHetPhysics<T>> P) {
+  using Phys = ElasticHetPhysics<T>;
+  constexpr int NF = NN * NN;
+  constexpr int NODES = NN * NF;
+  constexpr int V = Phys::V;
+  constexpr int E = Phys::kEvolved;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // sF[d][v][node][c] (the recursion uses rows v < E), then sQ[v][node][c].
+  T* sF = reinterpret_cast<T*>(smem_raw);
+  T* sQ = sF + kDim * V * NODES * CB;
+  auto iF = [](int d, int v, int node, int c) {
+    return flux_index<V, NODES, CB>(d, v, node, c);
+  };
+
+  const int c = threadIdx.x % CB;
+  const int node = threadIdx.x / CB;
+  const int ix[kDim] = {node / NF, (node / NN) % NN, node % NN};
+  const long long ncell = P.ncell;
+  const long long cell_raw = static_cast<long long>(blockIdx.x) * CB + c;
+  const bool valid = cell_raw < ncell;
+  const long long cell = valid ? cell_raw : ncell - 1;  // ragged tail: clamp
+
+  const T dtv = dt_ptr != nullptr ? *dt_ptr : dt_val;
+  T lam[kDim];
+  T Drow[kDim][NN];
+  int base[kDim];
+#pragma unroll
+  for (int d = 0; d < kDim; ++d) {
+    lam[d] = dtv / P.dx[d];
+    select_row<T, NN>(P.D, ix[d], Drow[d]);
+    base[d] = node - ix[d] * node_stride<NN>(d);
+  }
+
+  T uu[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    uu[v] = u[static_cast<long long>(node * V + v) * ncell + cell];
+  }
+  // This node's materials, for every level (the reference injects u's).
+  const T inv_rho = T(1) / uu[Phys::kRho];
+  const T lame = uu[Phys::kLam];
+  const T mu = uu[Phys::kMu];
+  T qk[E], qb[E];
+#pragma unroll
+  for (int v = 0; v < E; ++v) {
+    qk[v] = uu[v];
+    qb[v] = uu[v];
+  }
+
+#pragma unroll
+  for (int k = 1; k < NN; ++k) {
+#pragma unroll
+    for (int d = 0; d < kDim; ++d) {
+      T f[E];
+      elastic3d_het_flux<T>(qk, inv_rho, lame, mu, d, f);
+#pragma unroll
+      for (int v = 0; v < E; ++v) sF[iF(d, v, node, c)] = f[v];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int v = 0; v < E; ++v) {
+      T r = T(0);
+#pragma unroll
+      for (int d = 0; d < kDim; ++d) {
+        const int st = node_stride<NN>(d);
+        T dF = Drow[d][0] * sF[iF(d, v, base[d], c)];
+#pragma unroll
+        for (int j = 1; j < NN; ++j) {
+          dF = dF + Drow[d][j] * sF[iF(d, v, base[d] + j * st, c)];
+        }
+        const T term = lam[d] * dF;
+        r = d == 0 ? -term : r - term;
+      }
+      qk[v] = r / T(k);
+      qb[v] = qb[v] + qk[v] / T(k + 1);
+    }
+    __syncthreads();
+  }
+
+  // q̄ of all rows (the materials are u's) and F̄_d = F_d(q̄).
+  T qbar[V];
+  T fbar[kDim][V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) qbar[v] = v < E ? qb[v] : uu[v];
+#pragma unroll
+  for (int d = 0; d < kDim; ++d) P.phys.flux(qbar, d, fbar[d]);
+  volume_and_faces<T, NN, CB, V>(uu, qbar, fbar, P, sF, sQ, node, c, ix, base, lam,
+                                 valid, cell, ncell, out, faces);
+}
+
+// Rusanov flux between left state (qa, fa) and right state (qb, fb) on an
+// axis-d face: ½(fa + fb) − ½ s (m (qb − qa)), s the larger wave speed of
+// the two states, m the physics' dissipation weight of each row (applied
+// only where the physics has a mask, so Euler computes what it always did).
+template <typename T, typename Phys>
+__device__ __forceinline__ void rusanov(const T* qa, const T* qb, const T* fa,
+                                        const T* fb, int d, const Phys& phys,
+                                        T* fhat) {
+  const T s = dmax(phys.max_eigenvalue(qa, d), phys.max_eigenvalue(qb, d));
+#pragma unroll
+  for (int v = 0; v < Phys::V; ++v) {
+    T dq = qb[v] - qa[v];
+    if constexpr (Phys::kMasked) dq = dq * Phys::dissipation(v);
+    fhat[v] = T(0.5) * (fa[v] + fb[v]) - T(0.5) * s * dq;
   }
 }
 
-template <typename T, int NN, int CB>
+template <typename T, int NN, int CB, typename Phys>
 __global__ void __launch_bounds__(CB * NN * NN * NN)
 aderdg_face_surface(T* __restrict__ state, const T* __restrict__ faces,
                     T* __restrict__ fhat_out, const T* __restrict__ dt_ptr,
-                    T dt_val, const Params<T, NN> P) {
+                    T dt_val, const Params<T, NN, Phys> P) {
   constexpr int NF = NN * NN;
-  constexpr int V = kVars;
+  constexpr int V = Phys::V;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // sH[d][side][v][m][c]: side 0 = high face, 1 = low face.
   T* sH = reinterpret_cast<T*>(smem_raw);
@@ -331,7 +533,7 @@ aderdg_face_surface(T* __restrict__ state, const T* __restrict__ faces,
     load(0, plus, qb);
     load(3, cell, fa);
     load(2, plus, fb);
-    rusanov(qa, qb, fa, fb, d, P.gm1, P.gamma, fhat);
+    rusanov(qa, qb, fa, fb, d, P.phys, fhat);
 #pragma unroll
     for (int v = 0; v < V; ++v) sH[iH(d, 0, v, m, c)] = fhat[v];
     // fhat_out[d][m][v][cell], the layout of the face tensor's entries.
@@ -347,7 +549,7 @@ aderdg_face_surface(T* __restrict__ state, const T* __restrict__ faces,
     load(0, cell, qb);
     load(3, minus, fa);
     load(2, cell, fb);
-    rusanov(qa, qb, fa, fb, d, P.gm1, P.gamma, fhat);
+    rusanov(qa, qb, fa, fb, d, P.phys, fhat);
 #pragma unroll
     for (int v = 0; v < V; ++v) sH[iH(d, 1, v, m, c)] = fhat[v];
   }
@@ -380,11 +582,13 @@ aderdg_face_surface(T* __restrict__ state, const T* __restrict__ faces,
 // Host side ---------------------------------------------------------------
 
 // ops: D, K1inv, Kvol (NN*NN each, row-major), W, PHI0, PHI1, PHI0W, PHI1W
-// (NN each), float64, as DGOperators builds them.
-template <typename T, int NN>
-Params<T, NN> make_params(const double* ops, const double* dx, int picard_iters,
-                          double gamma, long long g0, long long g1, long long g2) {
-  Params<T, NN> P;
+// (NN each), float64, as DGOperators builds them.  params: the physics'
+// parameters (Euler: gamma; elasticity: none).
+template <typename T, int NN, typename Phys>
+Params<T, NN, Phys> make_params(const double* ops, const double* dx, int picard_iters,
+                                const double* params, long long g0, long long g1,
+                                long long g2) {
+  Params<T, NN, Phys> P;
   const double* o = ops;
   for (int i = 0; i < NN; ++i)
     for (int j = 0; j < NN; ++j) P.D[i][j] = static_cast<T>(o[i * NN + j]);
@@ -401,8 +605,7 @@ Params<T, NN> make_params(const double* ops, const double* dx, int picard_iters,
     o += NN;
   }
   for (int d = 0; d < kDim; ++d) P.dx[d] = static_cast<T>(dx[d]);
-  P.gm1 = static_cast<T>(gamma - 1.0);
-  P.gamma = static_cast<T>(gamma);
+  P.phys = Phys::make(params);
   P.picard_iters = picard_iters;
   P.g[0] = g0;
   P.g[1] = g1;
@@ -415,43 +618,119 @@ Params<T, NN> make_params(const double* ops, const double* dx, int picard_iters,
 template <typename T>
 constexpr int cells_per_block() { return 32 / static_cast<int>(sizeof(T)); }
 
-template <typename T>
+// Let `kernel` take `smem` bytes of dynamic shared memory: the opt-in
+// above the 48 KB default (a host call of about a microsecond, made at every
+// launch so that it holds on whichever card is current).
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+constexpr int kNN = 4;  // order 3
+
+bool bad_grid(int order, long long g0, long long g1, long long g2) {
+  return order != kNN - 1 || g0 <= 0 || g1 <= 0 || g2 <= 0;
+}
+
+template <typename T, typename Phys>
 cudaError_t launch_predictor_volume(const T* u, T* out, T* faces, const T* dt_ptr,
                                     double dt_val, const double* ops, const double* dx,
-                                    int order, int picard_iters, double gamma,
+                                    int order, int picard_iters, const double* params,
                                     long long g0, long long g1, long long g2,
                                     void* stream) {
-  constexpr int NN = 4;
+  constexpr int NN = kNN;
   constexpr int CB = cells_per_block<T>();
-  if (order != NN - 1 || g0 <= 0 || g1 <= 0 || g2 <= 0 || picard_iters < 0) {
-    return cudaErrorInvalidValue;
-  }
-  const Params<T, NN> P = make_params<T, NN>(ops, dx, picard_iters, gamma, g0, g1, g2);
+  if (bad_grid(order, g0, g1, g2) || picard_iters < 0) return cudaErrorInvalidValue;
+  const auto P = make_params<T, NN, Phys>(ops, dx, picard_iters, params, g0, g1, g2);
+  const size_t smem = static_cast<size_t>((kDim + 1) * Phys::V * NN * NN * NN * CB) * sizeof(T);
+  const cudaError_t attr = allow_smem(aderdg_predictor_volume<T, NN, CB, Phys>, smem);
+  if (attr != cudaSuccess) return attr;
   const long long blocks = (P.ncell + CB - 1) / CB;
-  const int threads = CB * NN * NN * NN;
-  const size_t smem = static_cast<size_t>((kDim + 1) * kVars * NN * NN * NN * CB) * sizeof(T);
-  aderdg_predictor_volume<T, NN, CB>
-      <<<static_cast<unsigned>(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(
-          u, out, faces, dt_ptr, static_cast<T>(dt_val), P);
+  aderdg_predictor_volume<T, NN, CB, Phys>
+      <<<static_cast<unsigned>(blocks), CB * NN * NN * NN, smem,
+         static_cast<cudaStream_t>(stream)>>>(u, out, faces, dt_ptr, static_cast<T>(dt_val), P);
   return cudaGetLastError();
 }
 
 template <typename T>
+cudaError_t launch_ck_predictor_volume(const T* u, T* out, T* faces, const T* dt_ptr,
+                                       double dt_val, const double* ops, const double* dx,
+                                       int order, const double* params, long long g0,
+                                       long long g1, long long g2, void* stream) {
+  using Phys = ElasticHetPhysics<T>;
+  constexpr int NN = kNN;
+  constexpr int CB = cells_per_block<T>();
+  if (bad_grid(order, g0, g1, g2)) return cudaErrorInvalidValue;
+  const auto P = make_params<T, NN, Phys>(ops, dx, 0, params, g0, g1, g2);
+  const size_t smem = static_cast<size_t>((kDim + 1) * Phys::V * NN * NN * NN * CB) * sizeof(T);
+  const cudaError_t attr = allow_smem(aderdg_ck_predictor_volume<T, NN, CB>, smem);
+  if (attr != cudaSuccess) return attr;
+  const long long blocks = (P.ncell + CB - 1) / CB;
+  aderdg_ck_predictor_volume<T, NN, CB>
+      <<<static_cast<unsigned>(blocks), CB * NN * NN * NN, smem,
+         static_cast<cudaStream_t>(stream)>>>(u, out, faces, dt_ptr, static_cast<T>(dt_val), P);
+  return cudaGetLastError();
+}
+
+template <typename T, typename Phys>
 cudaError_t launch_face_surface(T* state, const T* faces, T* fhat, const T* dt_ptr,
                                 double dt_val, const double* ops, const double* dx,
-                                int order, double gamma, long long g0, long long g1,
-                                long long g2, void* stream) {
-  constexpr int NN = 4;
+                                int order, const double* params, long long g0,
+                                long long g1, long long g2, void* stream) {
+  constexpr int NN = kNN;
   constexpr int CB = cells_per_block<T>();
-  if (order != NN - 1 || g0 <= 0 || g1 <= 0 || g2 <= 0) return cudaErrorInvalidValue;
-  const Params<T, NN> P = make_params<T, NN>(ops, dx, 0, gamma, g0, g1, g2);
+  if (bad_grid(order, g0, g1, g2)) return cudaErrorInvalidValue;
+  const auto P = make_params<T, NN, Phys>(ops, dx, 0, params, g0, g1, g2);
+  const size_t smem = static_cast<size_t>(kDim * 2 * Phys::V * NN * NN * CB) * sizeof(T);
+  const cudaError_t attr = allow_smem(aderdg_face_surface<T, NN, CB, Phys>, smem);
+  if (attr != cudaSuccess) return attr;
   const long long blocks = (P.ncell + CB - 1) / CB;
-  const int threads = CB * NN * NN * NN;
-  const size_t smem = static_cast<size_t>(kDim * 2 * kVars * NN * NN * CB) * sizeof(T);
-  aderdg_face_surface<T, NN, CB>
-      <<<static_cast<unsigned>(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(
-          state, faces, fhat, dt_ptr, static_cast<T>(dt_val), P);
+  aderdg_face_surface<T, NN, CB, Phys>
+      <<<static_cast<unsigned>(blocks), CB * NN * NN * NN, smem,
+         static_cast<cudaStream_t>(stream)>>>(state, faces, fhat, dt_ptr,
+                                              static_cast<T>(dt_val), P);
   return cudaGetLastError();
+}
+
+template <typename T>
+int predictor_volume(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
+                     const double* ops, const double* dx, int order, int picard_iters,
+                     int physics, const double* params, long long g0, long long g1,
+                     long long g2, void* stream) {
+  if (physics != kEuler) return cudaErrorInvalidValue;
+  return launch_predictor_volume<T, EulerPhysics<T>>(u, out, faces, dt_ptr, dt_val, ops, dx,
+                                                     order, picard_iters, params, g0, g1,
+                                                     g2, stream);
+}
+
+template <typename T>
+int ck_predictor_volume(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
+                        const double* ops, const double* dx, int order, int physics,
+                        const double* params, long long g0, long long g1, long long g2,
+                        void* stream) {
+  if (physics != kElasticHet) return cudaErrorInvalidValue;
+  return launch_ck_predictor_volume<T>(u, out, faces, dt_ptr, dt_val, ops, dx, order, params,
+                                       g0, g1, g2, stream);
+}
+
+template <typename T>
+int face_surface(T* state, const T* faces, T* fhat, const T* dt_ptr, double dt_val,
+                 const double* ops, const double* dx, int order, int physics,
+                 const double* params, long long g0, long long g1, long long g2,
+                 void* stream) {
+  switch (physics) {
+    case kEuler:
+      return launch_face_surface<T, EulerPhysics<T>>(state, faces, fhat, dt_ptr, dt_val, ops,
+                                                     dx, order, params, g0, g1, g2, stream);
+    case kElasticHet:
+      return launch_face_surface<T, ElasticHetPhysics<T>>(state, faces, fhat, dt_ptr, dt_val,
+                                                          ops, dx, order, params, g0, g1, g2,
+                                                          stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -460,42 +739,67 @@ extern "C" {
 
 // Each launcher enqueues one kernel on `stream` and returns the launch's
 // cudaError_t (0 = cudaSuccess).  dt_ptr: a device scalar of the state's
-// dtype, or null to use dt_val.  fhat: [dim, n^(dim-1), n_vars, *grid] for
-// the high-face fluxes, or null to skip them.  Only order 3 is
+// dtype, or null to use dt_val.  physics: 0 = 3-D Euler (params = {gamma}),
+// 1 = 3-D heterogeneous elasticity with its CK configuration (no params);
+// the Picard predictor is instantiated for Euler, the CK predictor for the
+// elasticity, the face kernel for both.  fhat: [dim, n^(dim-1), n_vars,
+// *grid] for the high-face fluxes, or null to skip them.  Only order 3 is
 // instantiated.
 
 int exahype_aderdg_predictor_volume_f32(const float* u, float* out, float* faces,
                                         const float* dt_ptr, double dt_val,
                                         const double* ops, const double* dx, int order,
-                                        int picard_iters, double gamma, long long g0,
-                                        long long g1, long long g2, void* stream) {
-  return launch_predictor_volume<float>(u, out, faces, dt_ptr, dt_val, ops, dx, order,
-                                        picard_iters, gamma, g0, g1, g2, stream);
+                                        int picard_iters, int physics, const double* params,
+                                        long long g0, long long g1, long long g2,
+                                        void* stream) {
+  return predictor_volume<float>(u, out, faces, dt_ptr, dt_val, ops, dx, order, picard_iters,
+                                 physics, params, g0, g1, g2, stream);
 }
 
 int exahype_aderdg_predictor_volume_f64(const double* u, double* out, double* faces,
                                         const double* dt_ptr, double dt_val,
                                         const double* ops, const double* dx, int order,
-                                        int picard_iters, double gamma, long long g0,
-                                        long long g1, long long g2, void* stream) {
-  return launch_predictor_volume<double>(u, out, faces, dt_ptr, dt_val, ops, dx, order,
-                                         picard_iters, gamma, g0, g1, g2, stream);
+                                        int picard_iters, int physics, const double* params,
+                                        long long g0, long long g1, long long g2,
+                                        void* stream) {
+  return predictor_volume<double>(u, out, faces, dt_ptr, dt_val, ops, dx, order, picard_iters,
+                                  physics, params, g0, g1, g2, stream);
+}
+
+int exahype_aderdg_ck_predictor_volume_f32(const float* u, float* out, float* faces,
+                                           const float* dt_ptr, double dt_val,
+                                           const double* ops, const double* dx, int order,
+                                           int physics, const double* params, long long g0,
+                                           long long g1, long long g2, void* stream) {
+  return ck_predictor_volume<float>(u, out, faces, dt_ptr, dt_val, ops, dx, order, physics,
+                                    params, g0, g1, g2, stream);
+}
+
+int exahype_aderdg_ck_predictor_volume_f64(const double* u, double* out, double* faces,
+                                           const double* dt_ptr, double dt_val,
+                                           const double* ops, const double* dx, int order,
+                                           int physics, const double* params, long long g0,
+                                           long long g1, long long g2, void* stream) {
+  return ck_predictor_volume<double>(u, out, faces, dt_ptr, dt_val, ops, dx, order, physics,
+                                     params, g0, g1, g2, stream);
 }
 
 int exahype_aderdg_face_surface_f32(float* state, const float* faces, float* fhat,
                                     const float* dt_ptr, double dt_val, const double* ops,
-                                    const double* dx, int order, double gamma, long long g0,
-                                    long long g1, long long g2, void* stream) {
-  return launch_face_surface<float>(state, faces, fhat, dt_ptr, dt_val, ops, dx, order,
-                                    gamma, g0, g1, g2, stream);
+                                    const double* dx, int order, int physics,
+                                    const double* params, long long g0, long long g1,
+                                    long long g2, void* stream) {
+  return face_surface<float>(state, faces, fhat, dt_ptr, dt_val, ops, dx, order, physics,
+                             params, g0, g1, g2, stream);
 }
 
 int exahype_aderdg_face_surface_f64(double* state, const double* faces, double* fhat,
                                     const double* dt_ptr, double dt_val, const double* ops,
-                                    const double* dx, int order, double gamma, long long g0,
-                                    long long g1, long long g2, void* stream) {
-  return launch_face_surface<double>(state, faces, fhat, dt_ptr, dt_val, ops, dx, order,
-                                     gamma, g0, g1, g2, stream);
+                                    const double* dx, int order, int physics,
+                                    const double* params, long long g0, long long g1,
+                                    long long g2, void* stream) {
+  return face_surface<double>(state, faces, fhat, dt_ptr, dt_val, ops, dx, order, physics,
+                              params, g0, g1, g2, stream);
 }
 
 const char* exahype_cuda_error_string(int err) {

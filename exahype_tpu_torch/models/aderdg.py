@@ -1,10 +1,13 @@
-"""ADER-DG solver, periodic flux-form Picard path (PyTorch, eager).
+"""ADER-DG solver, periodic flux-form path (PyTorch, eager).
 
-Port of ``exahype_tpu/models/aderdg.py::ADERDGSolver`` on the path the
-benchmark takes: space-time Picard predictor, time-averaged volume
-integral, Rusanov face solve and corrector on a periodic Cartesian grid.
-It is the plain version of the CUDA kernel path
-(``models/aderdg_cuda.py``) and the path every CPU tensor takes.
+Port of ``exahype_tpu/models/aderdg.py::ADERDGSolver`` on the paths the
+benchmarks take: the space-time Picard predictor (``bench.py::main``) or
+the Cauchy–Kovalewski predictor with frozen material slots
+(``predictor_mode="ck"``, ``bench.py::bench_ck``), the time-averaged
+volume integral, the Rusanov face solve (with an optional
+``dissipation_mask``) and the corrector on a periodic Cartesian grid.  It is
+the plain version of the CUDA kernel path (``models/aderdg_cuda.py``) and
+the path every CPU tensor takes.
 
 Layout (SoA-P, the JAX package's): state ``[n_1..n_d (node axes), n_vars,
 g_1..g_d (cell-grid axes)]``, so states pass between the two packages
@@ -16,7 +19,8 @@ between them is one tensor ``[dim, 4, n^(dim-1), n_vars, *grid]`` holding
 layout.
 
 Options of the JAX solver that are not ported yet raise
-:class:`SemanticError` (see ``ROADMAP.md``, Queue 1 item 2).
+:class:`SemanticError` (see ``ROADMAP.md``, Queue 1 item 2); so does any CK
+combination with them (sources, non-conservative products, walls).
 """
 
 from __future__ import annotations
@@ -48,12 +52,21 @@ def _project(vec, x, axis):
 @dataclasses.dataclass(frozen=True)
 class PhysicsTag:
     """What a physics callback computes, so a kernel wrapper can recognise
-    the pair it has compiled in (``models/aderdg_cuda.py``)."""
+    the pair it has compiled in (``models/aderdg_cuda.py``): a name, the
+    dimension, the variable count and the physics' parameters (Euler's
+    ``(gamma,)``; none for ``elastic3d_het``)."""
 
     name: str
     dim: int
     n_real: int
-    gamma: float
+    params: tuple = ()
+
+    @property
+    def gamma(self) -> float:
+        """Euler's adiabatic index."""
+        if self.name != "euler":
+            raise AttributeError(f"{self.name} physics has no gamma")
+        return self.params[0]
 
 
 def euler_physics(dim: int, n_real: int = 5, gamma: float = euler.GAMMA):
@@ -70,7 +83,7 @@ def euler_physics(dim: int, n_real: int = 5, gamma: float = euler.GAMMA):
             Q, axis, dim=dim, gamma=gamma, var_axis=var_axis
         )
 
-    tag = PhysicsTag("euler", int(dim), int(n_real), float(gamma))
+    tag = PhysicsTag("euler", int(dim), int(n_real), (float(gamma),))
     flux.physics = tag
     eig.physics = tag
     return flux, eig
@@ -85,16 +98,15 @@ UNPORTED_OPTIONS = {
     "reflect_fn": None,
     "reflect_flux_fn": None,
     "wall_axes": None,
-    "dissipation_mask": None,
     "source_fn": None,
     "ncp_fn": None,
     "rhs_all_fn": None,
     "visc_flux_fn": None,
     "visc_eigenvalue_fn": None,
     "reuse_last_flux": False,
-    "predictor_mode": "picard",
-    "ck_material_slots": None,
 }
+#: Options of the JAX ``ADERDGSolver`` the port carries, by name.
+PORTED_OPTIONS = ("predictor_mode", "ck_material_slots", "dissipation_mask")
 
 
 class ADERDGSolver(nn.Module):
@@ -108,6 +120,11 @@ class ADERDGSolver(nn.Module):
     casts them.  The keyword options of the JAX solver that are not ported
     are accepted so a configuration carries over by name, and raise
     :class:`SemanticError` unless they hold their "off" value.
+
+    ``predictor_mode="ck"`` takes the Cauchy–Kovalewski predictor, for
+    linear systems; ``ck_material_slots`` names variables that are frozen
+    in time (injected from the state, zero time derivative);
+    ``dissipation_mask`` weighs the Rusanov jump term per variable.
     """
 
     def __init__(
@@ -124,6 +141,9 @@ class ADERDGSolver(nn.Module):
         *,
         device=None,
         dtype: torch.dtype = torch.float64,
+        predictor_mode: str = "picard",
+        ck_material_slots: tuple | None = None,
+        dissipation_mask: tuple | None = None,
         **options,
     ):
         super().__init__()
@@ -134,8 +154,29 @@ class ADERDGSolver(nn.Module):
             if value is not None if off is None else value != off:
                 raise SemanticError(
                     f"{name}={value!r} is not ported to exahype_tpu_torch yet "
-                    "(only the periodic flux-form Picard path is); see "
-                    "ROADMAP.md, Queue 1 item 2"
+                    "(only the periodic flux-form Picard and CK paths are); "
+                    "see ROADMAP.md, Queue 1 item 2"
+                )
+        if predictor_mode not in ("picard", "ck"):
+            raise SemanticError(
+                f"predictor_mode must be 'picard' or 'ck', got {predictor_mode!r}"
+            )
+        if ck_material_slots is not None:
+            if predictor_mode != "ck":
+                raise SemanticError(
+                    "ck_material_slots only applies to predictor_mode='ck'"
+                )
+            ck_material_slots = tuple(int(k) for k in ck_material_slots)
+            if any(k < 0 or k >= n_vars for k in ck_material_slots):
+                raise SemanticError(
+                    f"ck_material_slots must be variable indices in [0, {n_vars})"
+                )
+        if dissipation_mask is not None:
+            dissipation_mask = tuple(float(m) for m in dissipation_mask)
+            if len(dissipation_mask) != n_vars:
+                raise SemanticError(
+                    f"dissipation_mask needs one entry per variable ({n_vars}), "
+                    f"got {len(dissipation_mask)}"
                 )
         if dim not in (2, 3):
             raise SemanticError(f"dim must be 2 or 3, got {dim}")
@@ -154,6 +195,9 @@ class ADERDGSolver(nn.Module):
         self.max_eigenvalue_fn = max_eigenvalue_fn
         self.dx = dx
         self.basis = basis
+        self.predictor_mode = predictor_mode
+        self.ck_material_slots = ck_material_slots
+        self.dissipation_mask = dissipation_mask
         self.ops = DGOperators(self.order, basis=basis)
         self.picard_iters = (
             self.order + 1 if picard_iters is None else int(picard_iters)
@@ -179,6 +223,24 @@ class ADERDGSolver(nn.Module):
             self.register_buffer(
                 name, torch.as_tensor(arr, dtype=dtype, device=device)
             )
+        # The var-axis masks of the CK material slots (bool) and of the
+        # dissipation (float64), shaped to broadcast over a state
+        # (material) and over a face array (dissipation).
+        ck_mask = dmask = None
+        if ck_material_slots is not None:
+            ck_mask = np.zeros(n_vars, bool)
+            ck_mask[list(ck_material_slots)] = True
+            shape = [1] * (2 * self.dim + 1)
+            shape[self.var_axis] = n_vars
+            ck_mask = torch.as_tensor(ck_mask, device=device).reshape(shape)
+        if dissipation_mask is not None:
+            shape = [1] * (2 * self.dim)
+            shape[self.var_axis - 1] = n_vars
+            dmask = torch.as_tensor(
+                dissipation_mask, dtype=torch.float64, device=device
+            ).reshape(shape)
+        self.register_buffer("ck_mask", ck_mask)
+        self.register_buffer("dmask", dmask)
 
     # ------------------------------------------------------------ structure
 
@@ -221,6 +283,45 @@ class ADERDGSolver(nn.Module):
     # ------------------------------------------------------------- predictor
 
     def predictor(self, u, dt):
+        """The time-averaged state ``qbar`` and time-averaged fluxes
+        ``fbar[d]``: the Picard iteration, or the Cauchy–Kovalewski
+        recursion with ``predictor_mode="ck"``."""
+        if self.predictor_mode == "ck":
+            return self._predictor_ck(u, dt)
+        return self._predictor_picard(u, dt)
+
+    def _predictor_ck(self, u, dt):
+        """Cauchy–Kovalewski predictor (the JAX ``_predictor_ck``, in its
+        operation order): the Taylor terms ``q_k = (dt/k)·L(q_{k-1})`` of N
+        applications of the spatial operator ``L(v) = −Σ_d D·F_d(v)/dx_d``
+        on the spatial nodal array, with the material slots injected from
+        ``u`` before and zeroed after each application; by linearity
+        ``q̄ = Σ_k q_k/(k+1)`` and ``F̄_d = F_d(q̄)``."""
+        va = self.var_axis
+        mat = self.ck_mask
+
+        def L(v):
+            if mat is not None:
+                v = torch.where(mat, u, v)
+            rhs = None
+            for d in range(self.dim):
+                F = self.flux_fn(v, d, va)
+                term = -_apply(self.D, F, axis=self.node_axis(d)) / self._dxs[d]
+                rhs = term if rhs is None else rhs + term
+            if mat is not None:
+                # d/dt of a frozen material slot is identically zero.
+                rhs = torch.where(mat, 0.0, rhs)
+            return rhs
+
+        qk = u
+        qbar = u  # k = 0 term of Σ q_k/(k+1)
+        for k in range(1, self.n_nodes):
+            qk = (dt / k) * L(qk)
+            qbar = qbar + qk / (k + 1)
+        fbar = [self.flux_fn(qbar, d, va) for d in range(self.dim)]
+        return qbar, fbar
+
+    def _predictor_picard(self, u, dt):
         """Picard iteration; returns the time-averaged state ``qbar`` and
         time-averaged fluxes ``fbar[d]``.  Space-time arrays carry a
         leading time-node axis (all state axes shift by one)."""
@@ -322,6 +423,8 @@ class ADERDGSolver(nn.Module):
             self.max_eigenvalue_fn(q_plus, d, face_va),
         ).unsqueeze(face_va)
         dq = q_plus - q_hi
+        if self.dmask is not None:
+            dq = dq * self.dmask.to(dq.dtype)
         fhat_hi = 0.5 * (f_hi + f_plus) - 0.5 * s_hi * dq
         # Face between my -d neighbour and me: that neighbour's fhat_hi.
         fhat_lo = torch.roll(fhat_hi, 1, face_grid_ax)

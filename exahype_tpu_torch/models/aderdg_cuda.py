@@ -1,15 +1,20 @@
 """ADER-DG step through hand-written CUDA kernels (Hopper, ``sm_90a``).
 
 Port of ``exahype_tpu/models/aderdg_pallas.py::PallasADERDG`` on the
-periodic, flux-form Picard path of 3-D Euler at order 3.  The step is two
-kernels from ``csrc/aderdg.cu`` (see the note there for the design):
+periodic, flux-form path at order 3 in 3-D, for two physics: compressible
+Euler on the Picard predictor (``bench.py::main``) and heterogeneous
+elasticity on the Cauchy–Kovalewski predictor with its materials frozen
+(``bench.py::bench_ck``).  The step is two kernels from ``csrc/aderdg.cu``
+(see the note there for the design):
 
-- ``aderdg_predictor_volume``: predictor, time averages, volume integral
-  and the face projections of every axis;
+- ``aderdg_predictor_volume`` (Picard) or ``aderdg_ck_predictor_volume``
+  (CK): predictor, time averages, volume integral and the face projections
+  of every axis;
 - ``aderdg_face_surface``: the Rusanov flux of each cell's two faces per
-  axis and the surface update of ``new``, in place (on the CPU too); on
-  request it also writes each cell's high-face fluxes, the limiter's input
-  (the Pallas kernel's ``emit_fused_fhat`` outputs).
+  axis (with the physics' dissipation mask) and the surface update of
+  ``new``, in place (on the CPU too); on request it also writes each cell's
+  high-face fluxes, the limiter's input (the Pallas kernel's
+  ``emit_fused_fhat`` outputs).
 
 Each wrapper takes its plain PyTorch version
 (``ADERDGSolver.predictor_volume`` / ``face_surface``) for a tensor on the
@@ -25,12 +30,33 @@ import numpy as np
 import torch
 
 from exahype_tpu_torch import _build
+from exahype_tpu_torch.models import elastic
 from exahype_tpu_torch.models.aderdg import ADERDGSolver
 from exahype_tpu_torch.utils.errors import LoweringError
 
-#: (dim, order) pairs the kernels are instantiated for.
-INSTANTIATED = ((3, 3),)
+#: (physics, dim, order) -> the predictor mode the kernels are instantiated
+#: for with that physics.
+INSTANTIATED = {
+    ("euler", 3, 3): "picard",
+    ("elastic3d_het", 3, 3): "ck",
+}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _n_vars(name: str, dim: int) -> int:
+    return dim + 2 if name == "euler" else elastic.N_VARS_3D_HET
+
+
+#: What each physics compiles into the kernels: its id in the C interface,
+#: and the CK material slots and dissipation mask a solver must carry.
+_PHYSICS = {
+    "euler": {"id": 0, "ck_material_slots": None, "dissipation_mask": None},
+    "elastic3d_het": {
+        "id": 1,
+        "ck_material_slots": elastic.MATERIAL_SLOTS,
+        "dissipation_mask": elastic.DISSIPATION_MASK,
+    },
+}
 
 
 class CudaADERDG:
@@ -38,7 +64,9 @@ class CudaADERDG:
     ``dofs``) over an :class:`ADERDGSolver`, with the step on CUDA kernels.
     """
 
-    KERNELS = ("aderdg_predictor_volume", "aderdg_face_surface")
+    KERNELS = (
+        "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_surface",
+    )
 
     def __init__(self, solver: ADERDGSolver):
         tags = {
@@ -46,25 +74,47 @@ class CudaADERDG:
             getattr(solver.max_eigenvalue_fn, "physics", None),
         }
         tag = tags.pop() if len(tags) == 1 else None
-        if tag is None or tag.name != "euler" or tag.dim != solver.dim:
+        if tag is None or tag.name not in _PHYSICS or tag.dim != solver.dim:
             raise LoweringError(
-                "the CUDA kernels compile in Euler physics: build the solver "
-                "with exahype_tpu_torch.models.aderdg.euler_physics"
+                "the CUDA kernels compile in Euler or heterogeneous-elastic "
+                "physics: build the solver with exahype_tpu_torch.models."
+                "aderdg.euler_physics or models.elastic.elastic3d_heterogeneous"
             )
-        if tag.n_real != solver.n_vars or solver.n_vars != solver.dim + 2:
+        n_vars = _n_vars(tag.name, solver.dim)
+        if tag.n_real != solver.n_vars or solver.n_vars != n_vars:
             raise LoweringError(
-                f"the CUDA kernels take the {solver.dim + 2} Euler variables "
+                f"the CUDA kernels take the {n_vars} {tag.name} variables "
                 f"only, got n_vars={solver.n_vars}"
             )
-        if (solver.dim, solver.order) not in INSTANTIATED:
+        key = (tag.name, solver.dim, solver.order)
+        if key not in INSTANTIATED:
             raise LoweringError(
-                f"no CUDA kernel instantiated for dim={solver.dim}, "
-                f"order={solver.order} (have {INSTANTIATED})"
+                f"no CUDA kernel instantiated for {tag.name}, dim={solver.dim}, "
+                f"order={solver.order} (have {sorted(INSTANTIATED)})"
             )
+        mode = INSTANTIATED[key]
+        if solver.predictor_mode != mode:
+            raise LoweringError(
+                f"the {tag.name} kernels are instantiated for predictor_mode="
+                f"{mode!r}, got {solver.predictor_mode!r}"
+            )
+        physics = _PHYSICS[tag.name]
+        for option in ("ck_material_slots", "dissipation_mask"):
+            if getattr(solver, option) != physics[option]:
+                raise LoweringError(
+                    f"the {tag.name} kernels compile in {option}="
+                    f"{physics[option]!r}, got {getattr(solver, option)!r}"
+                )
         self.solver = solver
-        self.gamma = tag.gamma
+        self._physics_id = physics["id"]
+        self._params = np.ascontiguousarray(tag.params or (0.0,), dtype=np.float64)
+        #: The kernels of this solver's step: its predictor and the face kernel.
+        self.kernels = (
+            "aderdg_ck_predictor_volume" if mode == "ck" else "aderdg_predictor_volume",
+            "aderdg_face_surface",
+        )
         #: Launches per kernel since construction (or the last reset).
-        self.launches = {name: 0 for name in self.KERNELS}
+        self.launches = {name: 0 for name in self.kernels}
         ops = solver.ops
         self._ops = np.ascontiguousarray(np.concatenate([
             ops.D.ravel(), ops.K1inv.ravel(), ops.Kvol.ravel(), ops.weights,
@@ -105,16 +155,19 @@ class CudaADERDG:
         new = torch.empty_like(u)
         faces = torch.empty(sol.face_shape, dtype=u.dtype, device=u.device)
         dt_dev, dt_ptr, dt_val = self._dt_args(dt, u)
+        name = self.kernels[0]
+        # The Picard launcher takes the iteration count; the CK one has none.
+        iters = () if name == "aderdg_ck_predictor_volume" else (sol.picard_iters,)
         lib = _build.library()
         with torch.cuda.device(u.device):
             stream = torch.cuda.current_stream(u.device).cuda_stream
-            err = getattr(lib, f"exahype_aderdg_predictor_volume_{_SUFFIX[u.dtype]}")(
+            err = getattr(lib, f"exahype_{name}_{_SUFFIX[u.dtype]}")(
                 u.data_ptr(), new.data_ptr(), faces.data_ptr(), dt_ptr, dt_val,
-                self._ops.ctypes.data, self._dx.ctypes.data, sol.order,
-                sol.picard_iters, self.gamma, *sol.grid_shape, stream,
+                self._ops.ctypes.data, self._dx.ctypes.data, sol.order, *iters,
+                self._physics_id, self._params.ctypes.data, *sol.grid_shape, stream,
             )
-        _build.check(lib, err, "aderdg_predictor_volume")
-        self.launches["aderdg_predictor_volume"] += 1
+        _build.check(lib, err, name)
+        self.launches[name] += 1
         return new, faces
 
     def face_surface(self, new, faces, dt, return_face_fluxes: bool = False):
@@ -145,7 +198,7 @@ class CudaADERDG:
                 new.data_ptr(), faces.data_ptr(),
                 None if fhat is None else fhat.data_ptr(), dt_ptr, dt_val,
                 self._ops.ctypes.data, self._dx.ctypes.data, sol.order,
-                self.gamma, *sol.grid_shape, stream,
+                self._physics_id, self._params.ctypes.data, *sol.grid_shape, stream,
             )
         _build.check(lib, err, "aderdg_face_surface")
         self.launches["aderdg_face_surface"] += 1

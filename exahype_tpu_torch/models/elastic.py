@@ -1,0 +1,151 @@
+"""3-D heterogeneous linear elasticity in the SoA-P layout (PyTorch).
+
+Port of the 12-variable system of ``exahype_tpu/models/elastic.py``
+(``_SIG``/``_sig_idx``, ``N_VARS_3D_HET``, ``elastic3d_het_flux``,
+``elastic3d_het_eigenvalue``, ``elastic3d_heterogeneous``), the production
+ExaSeis shape: ``Q = [v_x, v_y, v_z, σ_xx, σ_yy, σ_zz, σ_yz, σ_xz, σ_xy, ρ,
+λ, μ]`` (Voigt stress ordering) with per-cell materials as frozen variables.
+The JAX pair is var-last and reaches the solver through ``wrap_var_last``;
+here the pair takes ``(Q, axis, var_axis)`` directly, as
+:func:`~exahype_tpu_torch.models.aderdg.euler_physics` does.  The operation
+order is the JAX package's, ``-0.0`` included: the stress rows that do not
+involve the normal are ``-z`` for a zero ``z``.  The CUDA kernels'
+``__device__`` version is ``csrc/elastic.cuh``.
+
+Also a NumPy copy of ``plane_p_wave_3d`` and ``_speeds`` (the JAX module
+loads JAX), and the initial state of ``bench.py::bench_ck``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from exahype_tpu_torch.models.aderdg import PhysicsTag
+
+N_VARS_3D_HET = 12
+#: The frozen material slots (ρ, λ, μ) and the dissipation mask the CK
+#: configuration of ``bench.py::bench_ck`` gives this system.
+MATERIAL_SLOTS = (9, 10, 11)
+DISSIPATION_MASK = (1.0,) * 9 + (0.0,) * 3
+
+# σ_ij's Voigt index for (i, j), i <= j.
+_SIG = {
+    (0, 0): 3, (1, 1): 4, (2, 2): 5, (1, 2): 6, (0, 2): 7, (0, 1): 8,
+}
+
+
+def _sig_idx(i, j):
+    return _SIG[(min(i, j), max(i, j))]
+
+
+def _speeds(rho: float, lam: float, mu: float) -> tuple[float, float]:
+    return math.sqrt((lam + 2 * mu) / rho), math.sqrt(mu / rho)
+
+
+def _v(Q, k: int, va: int):
+    return Q[(slice(None),) * va + (k,)]
+
+
+def elastic3d_het_flux(Q, normal, var_axis):
+    """Flux along ``normal``, stacked on the var axis; the material rows
+    are zero."""
+    n = int(normal)
+    va = var_axis
+    v = [_v(Q, i, va) for i in range(3)]
+    rho, lam, mu = _v(Q, 9, va), _v(Q, 10, va), _v(Q, 11, va)
+    inv_rho = 1.0 / rho
+    z = torch.zeros_like(v[0])
+    comps = [None] * N_VARS_3D_HET
+    for i in range(3):
+        comps[i] = -_v(Q, _sig_idx(i, n), va) * inv_rho
+    for i in range(3):
+        for j in range(i, 3):
+            val = lam * v[n] if i == j else z
+            if i == n:
+                val = val + mu * v[j] + (mu * v[j] if j == n else 0.0)
+            elif j == n:
+                val = val + mu * v[i]
+            comps[_sig_idx(i, j)] = -val
+    comps[9] = comps[10] = comps[11] = z
+    return torch.stack(comps, dim=va)
+
+
+def elastic3d_het_eigenvalue(Q, normal, var_axis):
+    """The P-wave speed √((λ + 2μ)/ρ) (the var axis is reduced away)."""
+    rho, lam, mu = _v(Q, 9, var_axis), _v(Q, 10, var_axis), _v(Q, 11, var_axis)
+    return torch.sqrt((lam + 2 * mu) / rho)
+
+
+def elastic3d_heterogeneous():
+    """(flux_fn, max_eigenvalue_fn) for 3-D elasticity with per-cell
+    materials, each tagged ``.physics = PhysicsTag("elastic3d_het", 3,
+    12)``."""
+
+    def flux(Q, axis, var_axis):
+        return elastic3d_het_flux(Q, axis, var_axis)
+
+    def eig(Q, axis, var_axis):
+        return elastic3d_het_eigenvalue(Q, axis, var_axis)
+
+    tag = PhysicsTag("elastic3d_het", 3, N_VARS_3D_HET)
+    flux.physics = tag
+    eig.physics = tag
+    return flux, eig
+
+
+def plane_p_wave_3d(x, t, *, rho: float = 1.0, lam: float = 2.0,
+                    mu: float = 1.0, k: float = 2 * np.pi,
+                    amplitude: float = 1e-3):
+    """Exact P wave travelling in +x; the 9-variable state on the
+    coordinate array ``x`` (variable axis last, float64 NumPy)."""
+    cp, _ = _speeds(rho, lam, mu)
+    vx = amplitude * np.sin(k * (x - cp * t))
+    z = np.zeros_like(vx)
+    return np.stack(
+        [vx, z, z,
+         -(lam + 2 * mu) / cp * vx, -lam / cp * vx, -lam / cp * vx,
+         z, z, z],
+        axis=-1,
+    )
+
+
+def two_layer_state(solver):
+    """``bench.py::bench_ck``'s initial state (``bench.py:176-200``) on
+    ``solver``'s nodes, float64 NumPy in the SoA-P layout: the plane P wave
+    at t = 0 in slots 0–8, and a two-layer medium in slots 9–11 — ρ, λ, μ =
+    1.2, 3.0, 1.5 below ``z = g2/(2·g0)`` and 1.0, 2.0, 1.0 above it.
+    Returns ``(state, materials)``; ``materials`` is slots 9–11 alone."""
+    va = solver.var_axis
+    no_var = solver.state_shape[:va] + solver.state_shape[va + 1:]
+    coords = solver.nodes_meshgrid()
+    X = np.broadcast_to(np.squeeze(coords[0], va), no_var)
+    Z = np.broadcast_to(np.squeeze(coords[2], va), no_var)
+    wave = np.moveaxis(plane_p_wave_3d(X, 0.0), -1, va)
+    grid = solver.grid_shape
+    lower = Z < 0.5 * grid[2] / grid[0]
+    mat = np.stack([
+        np.where(lower, 1.2, 1.0),
+        np.where(lower, 3.0, 2.0),
+        np.where(lower, 1.5, 1.0),
+    ], axis=va)
+    return np.concatenate([wave, mat], axis=va), mat
+
+
+def seismic_energy(Q, var_axis, materials=None):
+    """Twice the seismic energy of ``Q`` summed over all nodes (the
+    integrity reading of ``bench.py:224-250``): ρ|v|² + σ:S:σ with the
+    isotropic compliance, σ:S:σ = [σ:σ − λ/(3λ+2μ)·(tr σ)²]/(2μ), from
+    ``materials`` (slots 9–11 of the initial state) or ``Q``'s own.  A 0-d
+    tensor in ``Q``'s dtype."""
+    va = var_axis
+    mats = Q.narrow(va, 9, 3) if materials is None else materials
+    rho, lam, mu = (mats.select(va, k) for k in range(3))
+    vel, diag, off = Q.narrow(va, 0, 3), Q.narrow(va, 3, 3), Q.narrow(va, 6, 3)
+    v2 = torch.sum(rho.unsqueeze(va) * vel**2, dim=va)
+    s_dd = torch.sum(diag**2, dim=va) + 2.0 * torch.sum(off**2, dim=va)
+    trs = torch.sum(diag, dim=va)
+    strain2 = (s_dd - lam / (3 * lam + 2 * mu) * trs**2) / (2.0 * mu)
+    return torch.sum(v2 + strain2)

@@ -141,6 +141,11 @@ class LimitedADERDG(nn.Module):
                 "ported to exahype_tpu_torch yet; see ROADMAP.md, Queue 1 "
                 "item 5"
             )
+        if solver.predictor_mode != "picard" or solver.dissipation_mask is not None:
+            raise SemanticError(
+                "the limiter over a CK or dissipation-masked solver is not "
+                "ported to exahype_tpu_torch yet; see ROADMAP.md, Queue 1 item 5"
+            )
         if accelerator is not None and accelerator.solver is not solver:
             raise ValueError("accelerator must wrap the limiter's own base solver")
         device = resolve_device(device)

@@ -205,8 +205,19 @@ def test_step_does_not_mutate_input():
 )
 def test_unported_options_raise(option, value):
     flux, eig = euler_physics(3)
+    if option in CARRIED_BY_THE_PLAIN_SOLVER:
+        solver = ADERDGSolver(3, 3, 5, (2, 2, 2), flux, eig, device="cpu", **{option: value})
+        assert getattr(solver, option) is not None
+        with pytest.raises(LoweringError, match=option):
+            CudaADERDG(solver)
+        return
     with pytest.raises(SemanticError, match="ROADMAP.md"):
         ADERDGSolver(3, 3, 5, (2, 2, 2), flux, eig, device="cpu", **{option: value})
+
+
+#: Options the plain solver carries since the CK slice
+#: (``tests/test_torch_ck.py``); the Euler kernels do not, and refuse them.
+CARRIED_BY_THE_PLAIN_SOLVER = ("dissipation_mask", "predictor_mode")
 
 
 def test_convert_rejects_unported_jax_options():

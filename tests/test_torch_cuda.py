@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 two ADER-DG kernels of ``csrc/aderdg.cu`` (with the face kernel's face-flux
-output), the limiter's subcell sweep (K3, ``csrc/subcell.cu``) alone and
-under ``LimitedADERDG``, and the spec kernel (K4) that ``CudaPrinter``
+output), the CK predictor (K2) and the face kernel's elastic variant, the
+limiter's subcell sweep (K3, ``csrc/subcell.cu``) alone and under
+``LimitedADERDG``, and the spec kernel (K4) that ``CudaPrinter``
 generates, alone and under ``GridSolver``.
 
 Every test here is marked ``cuda`` and skips without a card (the decision
@@ -121,6 +122,93 @@ def test_face_kernel_face_fluxes_match_plain(dtype, grid):
     step_k, step_fl = cu.step(u, DT, return_face_fluxes=True)
     assert torch.equal(step_k, cu.step(u, DT))
     assert cu.launches["aderdg_face_surface"] == 4
+
+
+# ------------------------------------------------ K2: the CK predictor
+
+
+def _ck_setup(grid, dtype):
+    """``bench.py::bench_ck``'s solver and initial state at ``grid``."""
+    from exahype_tpu_torch.models.elastic import (
+        DISSIPATION_MASK,
+        MATERIAL_SLOTS,
+        elastic3d_heterogeneous,
+        two_layer_state,
+    )
+
+    dev = _card()
+    flux, eig = elastic3d_heterogeneous()
+    sol = ADERDGSolver(3, 3, 12, grid, flux, eig, dx=1.0 / grid[0], device=dev, dtype=dtype,
+                       predictor_mode="ck", ck_material_slots=MATERIAL_SLOTS,
+                       dissipation_mask=DISSIPATION_MASK)
+    q, _ = two_layer_state(sol)
+    return sol, CudaADERDG(sol), torch.from_numpy(q).to(dev, dtype).contiguous()
+
+
+def _ck_err(got, ref, dtype):
+    """Evolved and material rows (var axis 3) each within the bound of their
+    own largest value: the wave is ~1e-3, the materials up to 3."""
+    for lo, n in ((0, 9), (9, 3)):
+        g, r = got.narrow(3, lo, n), ref.narrow(3, lo, n)
+        assert _err(g, r) <= _bound(r, dtype), (lo, _err(g, r))
+
+
+CK_CASES = [
+    (torch.float64, (8, 4, 32)),
+    (torch.float64, (3, 5, 7)),  # ragged last block, odd wraps
+    (torch.float32, (8, 4, 32)),
+]
+CK_DT = 2e-4  # bench.py's dt, under the CFL limit at dx = 1/g0 <= 1/8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", CK_CASES)
+def test_ck_predictor_kernel_matches_plain(dtype, grid):
+    sol, cu, u = _ck_setup(grid, dtype)
+    u0 = u.clone()
+    new_k, faces_k = cu.predictor_volume(u, CK_DT)
+    new_p, faces_p = sol.predictor_volume(u, CK_DT)
+    torch.cuda.synchronize()
+    assert torch.equal(u, u0)
+    _ck_err(new_k, new_p, dtype)
+    _ck_err(faces_k, faces_p, dtype)
+    assert torch.equal(new_k[:, :, :, 9:], u[:, :, :, 9:])  # materials untouched
+    assert not faces_k[:, 2:, :, 9:].any()  # zero material flux rows
+    assert cu.launches == {"aderdg_ck_predictor_volume": 1, "aderdg_face_surface": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", CK_CASES)
+def test_elastic_face_kernel_matches_plain(dtype, grid):
+    sol, cu, u = _ck_setup(grid, dtype)
+    new, faces = sol.predictor_volume(u, CK_DT)
+    out_k, fl_k = cu.face_surface(new.clone(), faces, CK_DT, return_face_fluxes=True)
+    out_p, fl_p = sol.face_surface(new, faces, CK_DT, return_face_fluxes=True)
+    torch.cuda.synchronize()
+    _ck_err(out_k, out_p, dtype)
+    assert torch.equal(out_k[:, :, :, 9:], u[:, :, :, 9:])
+    for a, b in zip(fl_k, fl_p):
+        assert a.shape == b.shape == sol.face_flux_shape
+        assert _err(a, b) <= _bound(b, dtype)
+        assert not a[:, :, 9:].any()  # masked jump, zero flux: no material flux
+    assert cu.launches["aderdg_face_surface"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", CK_CASES)
+def test_ck_step_kernels_match_plain_and_repeat_bitwise(dtype, grid):
+    sol, cu, u = _ck_setup(grid, dtype)
+    ref = sol.run(u, 3, CK_DT)
+    by_value = cu.run(u, 3, CK_DT)
+    by_pointer = cu.run(u, 3, torch.tensor(CK_DT, dtype=dtype, device=u.device))
+    torch.cuda.synchronize()
+    rounds = 1 if dtype == torch.float64 else 3  # f32: three steps' rounding
+    for lo, n in ((0, 9), (9, 3)):
+        g, r = by_value.narrow(3, lo, n), ref.narrow(3, lo, n)
+        assert _err(g, r) <= rounds * _bound(r, dtype)
+    assert torch.equal(by_value, by_pointer)
+    assert torch.equal(by_value[:, :, :, 9:], u[:, :, :, 9:])  # bitwise frozen
+    assert cu.launches == {"aderdg_ck_predictor_volume": 6, "aderdg_face_surface": 6}
 
 
 # ------------------------------------------------ K3: the subcell row sweep

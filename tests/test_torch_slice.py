@@ -139,10 +139,11 @@ PORT_MODULES = ["exahype_tpu_torch"] + sorted(
     for p in PKG.rglob("*.py")
     if p.name != "__init__.py"
 )
-#: The ADER-DG and limited slices load no SymPy; the spec-DSL front end is
-#: built on it.
+#: The ADER-DG, limited and CK slices load no SymPy; the spec-DSL front end
+#: is built on it.
 SYMPY_FREE = (
     "exahype_tpu_torch.models.aderdg",
+    "exahype_tpu_torch.models.elastic",
     "exahype_tpu_torch.models.limiter",
     "exahype_tpu_torch.models.subcell_cuda",
     "exahype_tpu_torch.models.dg",
@@ -193,7 +194,7 @@ def test_port_module_list_covers_both_slices():
     assert "exahype_tpu_torch.models.aderdg_cuda" in PORT_MODULES
     assert "exahype_tpu_torch.backends.cuda_backend" in PORT_MODULES
     sympy_free = [m for m in PORT_MODULES if m.startswith(SYMPY_FREE)]
-    for module in ("aderdg_cuda", "limiter", "subcell_cuda"):
+    for module in ("aderdg_cuda", "limiter", "subcell_cuda", "elastic"):
         assert f"exahype_tpu_torch.models.{module}" in sympy_free
 
 
