@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one card, nvcc
 
-It drives four paths, each through ``exahype_tpu_torch``'s entry points
+It drives five paths, each through ``exahype_tpu_torch``'s entry points
 with its kernels' launch counters set to 0 just before and read just
-after (the two forms of the main path, ADER-DG and FV, and the limited
-and CK slices), in this order:
+after (the two forms of the main path, ADER-DG and FV, and the limited,
+CK and dynamic-GR slices), in this order:
 
 - **ADER-DG**: ``bench.py::main``'s step — order 3, 3-D compressible
   Euler, a ``(256, 8, 128)`` periodic cell grid in float32, ``bench.py``'s
@@ -45,31 +45,47 @@ and CK slices), in this order:
   JAX package's own FV measurement size) and ``(32, 16, 128)`` patches,
   from ``__graft_entry__._example_state``'s recipe.  Its kernel (K4) is
   generated from the spec's statement list (``backends/cuda_backend.py``).
+- **Z4**: ``scripts/z4_probe.py --large --pallas``'s step — the 38-variable
+  vacuum Z4 system, order 2, 3-D, ``make_z4_solver(impl="soa",
+  fused_rhs="soa")`` (harmonic slicing f = 1, m = 2, κ₁ = κ₂ = 0) on a
+  ``(16, 16, 128)`` grid at dx = 1/128, the exact gauge wave of amplitude
+  0.1, float32, dt = 1e-4 (0.18x ``cfl_dt``) — through ``with_cuda_rhs``,
+  which puts the fused right-hand side on K5 (``csrc/rhs.cu``): 3 Picard
+  and 2 corrector launches a step; the source and the face NCP
+  evaluations stay eager PyTorch, as the JAX solver keeps them in XLA.
 
 Phases:
 
 1. card: name, and ``nvidia-smi``'s name and power limit;
-2. build: ``csrc/aderdg.cu``, ``csrc/subcell.cu`` and the K4 sources of
-   the ``fv`` and the canonical ``rusanov`` spec, one ``nvcc`` each, all
-   started together (time, source hash, and ptxas's registers/shared
-   memory/spills);
+2. build: ``csrc/aderdg.cu``, ``csrc/subcell.cu``, ``csrc/rhs.cu`` and the
+   K4 sources of the ``fv`` and the canonical ``rusanov`` spec, one
+   ``nvcc`` each, all started together (time, source hash, nvcc seconds
+   per source, and ptxas's registers/shared memory/spills);
 3. each kernel against its plain PyTorch version on the card: float64 at
    atol=1e-12 (ADER-DG, its face fluxes and the CK kernels ``(8, 4, 32)``;
    K3 a batch of ``K=8, L=16`` rows per direction; K4 ``(2, 2, 2)``, both
    specs), float32 at each path's full shape (K3 on the gathered batch of
    the limited path after its warm-up; CK at both grids, the evolved and
-   the material rows each against their own largest value) at the bound
-   stated in ``F32_ULPS``, K3 bitwise repeatable;
+   the material rows each against their own largest value; K5 on the
+   first Picard call and the corrector's, also against the float64 plain
+   result) at the bound stated in ``F32_ULPS``, K3 bitwise repeatable; K5
+   in float64 on every call of one step at ``(8, 4, 16)``, at 1e-12 of
+   the largest value (``Z4_F64_RTOL``), with the path's parameters and
+   with those of the kernel's other branches (``Z4_PARAMS``);
 4. each main path: 10 steps (CK: the bench's window at its grid), with the
    launch counters, finiteness, mass drift (CK: materials bitwise frozen
    and the seismic energy ratio, also per half of the window), bitwise
    repeatability and the plain path as checks (the limited path also:
    admissibility, the rows demanded against the capacity, and one step's
-   troubled mask against the plain path's);
+   troubled mask against the plain path's; Z4: K5's launches, (picard_iters
+   + 2) a step, and the plain path after 1 and 10 steps, with the error
+   against the exact gauge wave and the ADM constraints of both paths as
+   readings);
 5. times: step ms over 3 host-clock windows, DOF-updates/s, per-kernel (and
    for FV ``halo_fill`` / ``compute_dt``, for the limited step the rest of
-   the step) times with CUDA events, device idle share, host
-   synchronisations per limited step, the plain path beside them;
+   the step, for Z4 the eager stages) times with CUDA events, device idle
+   share, peak memory, host synchronisations per limited step, the plain
+   path beside them, and the seconds each path took;
 6. a reading, not a check: the step at which ``bench.py``'s dt = 1e-4
    makes the ADER-DG state non-finite, on both paths.
 
@@ -131,6 +147,38 @@ CK_WARMUP = 5          # the bench's first chunk
 CK_WINDOW = 40         # its 8 chunks of 5 steps
 CK_ENERGY_GATE = 1.02  # bench.py:280
 CK_EVOLVED = 9
+
+#: The Z4 path (``scripts/z4_probe.py --large --pallas``: ``:53-57, 81-82,
+#: 198-202, 225-229``): the 38-variable vacuum Z4 system, order 2, 3-D,
+#: harmonic slicing f = 1, m = 2, κ₁ = κ₂ = 0, the gauge wave of amplitude
+#: 0.1 along axis 0, dt = 1e-4.
+Z4_GRID = (16, 16, 128)
+Z4_DX = 1.0 / 128
+Z4_ORDER = 2
+Z4_DT = 1e-4
+Z4_AMPLITUDE = 0.1
+#: The f64 kernel-vs-plain grid (same dx and amplitude).
+Z4_CUT = (8, 4, 16)
+#: The parameters of K5's f64 checks: the path's own, then the kernel's
+#: other branches, 1+log slicing (g = 2/α, d(αg)/dα = 0) and harmonic
+#: slicing with f ≠ 1, each with m ≠ 2 and both κ damping terms.
+Z4_PARAMS = (
+    {},
+    dict(slicing="1+log", f=0.7, m=1.5, kappa1=0.1, kappa2=0.3),
+    dict(f=0.7, m=1.5, kappa1=0.1, kappa2=0.3),
+)
+#: f64 K5 bound, relative to max(1, max|plain|): the right-hand side reaches
+#: ~580 on the cut grid (its wavelength is 8 cells), so an absolute 1e-12 is
+#: too tight for two evaluation orders of a ~3,900-operation algebra (fused
+#: multiply-adds on the card's side only); they differ by a few float64
+#: spacings of the largest intermediate, far below 1e-12 of it.
+Z4_F64_RTOL = 1e-12
+#: K5's float32 bound is ``F32_ULPS`` spacings of max|plain|, as for the
+#: other kernels: on this state the plain float32 evaluation of each of a
+#: step's five calls is within 1.2-2.3 spacings of max|plain| of the float64
+#: one (measured on a CPU at (16, 2, 2), dx = 1/128, where the values are
+#: those of the full grid), and the kernel's fused multiply-adds change
+#: rounding, not its size.  A wrong term moves values by whole units.
 
 #: H100 SXM data-sheet peaks at 700 W:
 #: HBM bytes/s, and float32 flop/s outside the tensor cores.
@@ -1237,6 +1285,277 @@ def aderdg_path(torch, dev, card) -> list[dict]:
     return kernels
 
 
+def z4_point_ops(torch, rhs_all) -> dict:
+    """The arithmetic of K5's plain version at one point, by kind: the plain
+    algebra run once on one-point float64 CPU tensors under a dispatch mode
+    that tallies every elementwise arithmetic op (+, −, ×, ÷, negation,
+    reciprocal, √).  The algebra has no branch, so the count holds for
+    every point."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    arith = {"add", "sub", "rsub", "mul", "div", "neg", "reciprocal", "sqrt"}
+    counts = {}
+
+    class Tally(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in arith:
+                counts[name] = counts.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    q = torch.zeros(38, 1, dtype=torch.float64)
+    q[[0, 1, 4, 6]] = 1.0  # flat space: α = 1, γ = identity
+    grads = tuple(torch.zeros(38, 1, dtype=torch.float64) for _ in range(3))
+    with Tally():
+        rhs_all(q, grads, 0)
+    return counts
+
+
+def z4_slots_read(torch, rhs_all) -> tuple[int, int]:
+    """``(state slots, gradient slots of the three directions together)``
+    that K5's plain version reads: one evaluation of the plain algebra on
+    float64 CPU points of flat space, point p holding NaN in one input slot
+    (state slot p, then each direction's 38 gradient slots).  A slot is
+    read when its NaN reaches the output: the algebra has no branch, and
+    NaN·0 is NaN."""
+    n = 38
+    q = torch.zeros(n, 4 * n, dtype=torch.float64)
+    q[[0, 1, 4, 6]] = 1.0  # α = 1, γ = identity
+    grads = tuple(torch.zeros(n, 4 * n, dtype=torch.float64) for _ in range(3))
+    for slot in range(n):
+        q[slot, slot] = math.nan
+        for k, gq in enumerate(grads):
+            gq[slot, (k + 1) * n + slot] = math.nan
+    reached = torch.isnan(rhs_all(q, grads, 0)).any(dim=0)
+    return int(reached[:n].sum()), int(reached[n:].sum())
+
+
+def z4_path(torch, dev, card) -> dict:
+    """The dynamic-GR form of the main path; returns K5's line of the
+    kernel JSON."""
+    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+    from exahype_tpu_torch.models.z4 import (
+        gauge_wave_state,
+        make_z4_solver,
+        solver_constraints,
+    )
+
+    def make(grid, dtype, **params):
+        plain = make_z4_solver(3, Z4_ORDER, grid, dx=Z4_DX, impl="soa", fused_rhs="soa",
+                               device=dev, dtype=dtype, **params)
+        return plain, with_cuda_rhs(plain)
+
+    def k5_inputs(sol, u):
+        """The inputs of each ``rhs_all_fn`` call of one plain step from
+        ``u``: the Picard iterations' and the corrector's two."""
+        calls = []
+        rec = copy.copy(sol)
+
+        def record(Q, grads, va):
+            calls.append((Q, tuple(grads), va))
+            return sol.rhs_all_fn(Q, grads, va)
+
+        rec.rhs_all_fn = record
+        rec.step(u, Z4_DT)
+        return calls
+
+    def call_name(i, iters):
+        return (f"Picard iteration {i + 1}" if i < iters
+                else ("corrector rhs_all(q̄, ∇q̄)" if i == iters else "corrector rhs_all(q̄, 0)"))
+
+    # ------------------------------------------- K5 vs plain, float64, cut grid
+    for params in Z4_PARAMS:
+        plain64, kern64 = make(Z4_CUT, torch.float64, **params)
+        k5_64 = kern64.rhs_all_fn
+        which = f"{k5_64.inner.physics.params}"
+        u = gauge_wave_state(plain64, amplitude=Z4_AMPLITUDE)
+        for i, (Q, grads, va) in enumerate(k5_inputs(plain64, u)):
+            got, again = k5_64(Q, grads, va), k5_64(Q, grads, va)
+            ref = plain64.rhs_all_fn(Q, grads, va)
+            torch.cuda.synchronize()
+            err = max_err(torch, got, ref)
+            limit = Z4_F64_RTOL * max(1.0, ref.abs().max().item())
+            ok = err <= limit and torch.equal(got, again)
+            say(f"[z4 parity] rhs_all_z4 float64 {Z4_CUT} (slicing, f, m, κ₁, κ₂) = {which} "
+                f"{call_name(i, plain64.picard_iters)} {tuple(Q.shape)}: max_abs_err "
+                f"{err:.3e} limit {limit:.3e} ({Z4_F64_RTOL:.0e} x max(1, max|plain| = "
+                f"{ref.abs().max().item():.4g})); repeat bitwise {torch.equal(got, again)} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"K5 (float64, {which}, {call_name(i, plain64.picard_iters)}) disagrees "
+                     "with its plain version")
+        if not params:  # the path's own parameters: a whole step too
+            step_k, step_p = kern64.step(u, Z4_DT), plain64.step(u, Z4_DT)
+            err = max_err(torch, step_k, step_p)
+            limit = Z4_F64_RTOL * max(1.0, step_p.abs().max().item())
+            say(f"[z4 parity] one float64 step {Z4_CUT}, kernel path vs plain path: "
+                f"max_abs_err {err:.3e} limit {limit:.3e}; K5 launches {k5_64.launches}")
+            if not err <= limit:
+                fail("the float64 Z4 step through K5 disagrees with the plain step")
+            del step_k, step_p
+        del plain64, kern64, k5_64, u, got, again, ref
+
+    # ------------------------------------------- K5 vs plain, float32, full width
+    plain, kern = make(Z4_GRID, torch.float32)
+    k5 = kern.rhs_all_fn
+    iters = plain.picard_iters
+    u0 = gauge_wave_state(plain, amplitude=Z4_AMPLITUDE)
+    ncell = math.prod(Z4_GRID)
+    dofs = plain.dofs()
+    cfl = float(plain.cfl_dt(u0))
+    say(f"[z4] {Z4_GRID} cells, order {Z4_ORDER}, 38 vars: {dofs} DOF, state {u0.nbytes} B "
+        f"f32; dt = {Z4_DT!r} (scripts/z4_probe.py:57); cfl_dt(initial state) = {cfl!r} "
+        f"(dt = {Z4_DT / cfl:.3f} x cfl_dt); picard_iters {iters}")
+    calls = k5_inputs(plain, u0)
+    k5_err = 0.0
+    for i in (0, iters):  # the first Picard call, the corrector's ∇q̄ call
+        Q, grads, va = calls[i]
+        got = k5(Q, grads, va)
+        ref = plain.rhs_all_fn(Q, grads, va)
+        ref64 = plain.rhs_all_fn(Q.double(), tuple(g.double() for g in grads), va)
+        torch.cuda.synchronize()
+        err, limit = max_err(torch, got, ref), f32_bound(torch, ref)
+        to64_k, to64_p = max_err(torch, got, ref64), max_err(torch, ref, ref64)
+        ok = err <= limit
+        say(f"[z4 parity] rhs_all_z4 float32 {Z4_GRID} {call_name(i, iters)} {tuple(Q.shape)}: "
+            f"max_abs_err {err:.3e} limit {limit:.3e} ({F32_ULPS} f32 spacings of max|plain| = "
+            f"{ref.abs().max().item():.4g}) {'ok' if ok else 'FAIL'}; against the float64 "
+            f"plain result: kernel {to64_k:.3e}, plain float32 {to64_p:.3e}"
+            f"{' (the kernel is farther)' if to64_k > to64_p else ''}")
+        if not ok:
+            fail(f"K5 (float32, {call_name(i, iters)}) disagrees with its plain version")
+        k5_err = max(k5_err, err)
+        del got, ref, ref64
+    pic, cor = calls[0], calls[iters]
+    del calls
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- the main path
+    gib = 2.0**-30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    k5.reset_launches()
+    u = kern.run(u0, STEPS, Z4_DT)
+    torch.cuda.synchronize()
+    launches = k5.launches
+    peak = torch.cuda.max_memory_allocated()
+    want = (iters + 2) * STEPS
+    say(f"[z4 main] {STEPS} steps of {Z4_GRID} f32 through make_z4_solver + with_cuda_rhs: "
+        f"K5 launches {launches} (expected (picard_iters + 2) x steps = {want}); peak "
+        f"{peak * gib:.4f} GiB allocated ({held * gib:.4f} GiB held before: the first "
+        f"Picard and corrector inputs, the initial state, operators) ({card})")
+    if launches != want:
+        fail(f"K5 launched {launches} times in {STEPS} Z4 main-path steps, expected {want}")
+    if tuple(u.shape) != plain.state_shape or not torch.isfinite(u).all():
+        fail("the Z4 main-path state is not finite or has the wrong shape")
+    again = kern.run(u0, STEPS, Z4_DT)
+    if not torch.equal(u, again):
+        fail("two Z4 runs from the same state differ")
+    say("[z4 main] two runs from the same state: bitwise equal")
+    del again
+    k1, p1 = kern.step(u0, Z4_DT), plain.step(u0, Z4_DT)
+    torch.cuda.reset_peak_memory_stats()
+    p10 = plain.run(u0, STEPS, Z4_DT)
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated()
+    for n, a, b in ((1, k1, p1), (STEPS, u, p10)):
+        err, limit = max_err(torch, a, b), n * f32_bound(torch, b)
+        say(f"[z4 main] {n} step(s), kernel path vs plain path: max_abs_err {err:.3e} "
+            f"limit {limit:.3e}")
+        if not err <= limit:
+            fail(f"the Z4 kernel path disagrees with the plain path after {n} step(s)")
+    del k1, p1
+
+    # Readings: the error against the exact gauge wave, the ADM constraints
+    # (in float64, from a float64 solver's operators).
+    sol64, _ = make(Z4_GRID, torch.float64)
+    exact = gauge_wave_state(sol64, t=STEPS * Z4_DT, amplitude=Z4_AMPLITUDE)
+    for label, x, ex in (("initial state", u0, gauge_wave_state(sol64, amplitude=Z4_AMPLITUDE)),
+                         ("kernel path", u, exact), ("plain path", p10, exact)):
+        diff = x.double() - ex
+        H, M = solver_constraints(sol64, x.double())
+        say(f"[z4 reading] {label} at t = {0 if x is u0 else STEPS * Z4_DT!r}: error against "
+            f"the exact gauge wave: L2 (nodal RMS over all DOF) {diff.pow(2).mean().sqrt().item()!r}"
+            f", max {diff.abs().max().item()!r}; ADM constraints max|H| "
+            f"{H.abs().max().item()!r}, max|M| {M.abs().max().item()!r}")
+        del diff, H, M
+    del sol64, exact, p10, u
+
+    # ------------------------------------------- times
+    k_win = windows(torch, kern, u0, Z4_DT, steps=5)
+    p_win = windows(torch, plain, u0, Z4_DT, steps=1, n_windows=1)
+    for label, win in (("kernel path", k_win), ("plain path", p_win)):
+        ms = [1e3 * w for w in win]
+        say(f"[z4 time] {label}: step ms per window {ms!r}; median {statistics.median(ms)!r} "
+            f"ms, {dofs / statistics.median(win)!r} DOF-updates/s ({dofs} DOF per step; {card})")
+    new, faces = kern.predictor_volume(u0, Z4_DT)
+    q_st = pic[0]
+    k5_ms = {
+        "Picard": event_ms(torch, lambda: k5(*pic), 20),
+        "corrector": event_ms(torch, lambda: k5(*cor), 20),
+    }
+    k5_plain_ms = {
+        "Picard": event_ms(torch, lambda: plain.rhs_all_fn(*pic), 2),
+        "corrector": event_ms(torch, lambda: plain.rhs_all_fn(*cor), 2),
+    }
+    parts = {
+        "step": event_ms(torch, lambda: kern.step(u0, Z4_DT), 2),
+        "predictor_volume": event_ms(torch, lambda: kern.predictor_volume(u0, Z4_DT), 2),
+        "face_surface (6 ncp_fn evaluations, 6 wave speeds)": event_ms(
+            torch, lambda: kern.face_surface(new, faces, Z4_DT), 2),
+        "source_fn on the space-time array (s̄)": event_ms(
+            torch, lambda: kern.source_fn(q_st, pic[2]), 2),
+        "one Picard gradient triple (tensordot, /dx, contiguous)": event_ms(
+            torch, lambda: kern._grads(q_st, 1), 3),
+    }
+    k5_in_step = iters * k5_ms["Picard"] + 2 * k5_ms["corrector"]
+    say(f"[z4 time] K5 per launch (CUDA events, 20 launches): Picard shape "
+        f"{tuple(pic[0].shape)} {k5_ms['Picard']!r} ms, corrector shape {tuple(cor[0].shape)} "
+        f"{k5_ms['corrector']!r} ms; plain rhs_all_fn {k5_plain_ms['Picard']!r} / "
+        f"{k5_plain_ms['corrector']!r} ms ({card})")
+    say(f"[z4 time] per call (CUDA events; the device timeline of eager work, gaps "
+        f"included): " + ", ".join(f"{k} {v!r} ms" for k, v in parts.items())
+        + f"; K5's {iters + 2} launches {k5_in_step!r} ms of the step, the rest "
+        f"{parts['step'] - k5_in_step!r} ms ({card})")
+    del new, faces
+    idle, busy, wall = idle_share(torch, lambda: kern.step(u0, Z4_DT))
+    say(f"[z4 idle] kernel path, 1 step under torch.profiler: device busy {busy!r} ms of "
+        f"wall {wall!r} ms; idle share {idle!r} ({card})")
+    say(f"[z4 mem] peak allocated over {STEPS} steps: kernel path {peak * gib:.4f} GiB, "
+        f"plain path {plain_peak * gib:.4f} GiB ({card})")
+
+    # ------------------------------------------- bound
+    counts = z4_point_ops(torch, plain.rhs_all_fn)
+    per_point = sum(counts.values())
+    q_slots, grad_slots = z4_slots_read(torch, plain.rhs_all_fn)
+    bounds = {}
+    for name, (Q, _, va) in (("Picard", pic), ("corrector", cor)):
+        points = Q.numel() // Q.shape[va]
+        n_bytes = Q.element_size() * points * (q_slots + grad_slots + Q.shape[va])
+        bounds[name] = bound(n_bytes, per_point * points)
+        say(f"[bound] rhs_all_z4 {name} shape {tuple(Q.shape)} f32: {per_point} operations a "
+            f"point ({counts}, counted on the plain algebra), {points} points, "
+            f"{n_bytes} B ({q_slots} state slots and {grad_slots} gradient slots read, as "
+            f"the plain algebra reads them, {Q.shape[va]} written): bound "
+            f"{bounds[name]['bound_ms']!r} ms by {bounds[name]['bound_by']}; kernel "
+            f"{k5_ms[name]!r} ms ({card})")
+    del kern, plain, u0, pic, cor, q_st
+    torch.cuda.empty_cache()
+    return {
+        "name": "rhs_all_z4",
+        "route": "cuda",
+        "source": "exahype_tpu_torch/csrc/rhs.cu",
+        "replaces": "exahype_tpu/models/rhs_pallas.py:104",
+        "launches": launches,
+        "max_abs_err": k5_err,
+        "ms": k5_ms["Picard"],
+        "plain_ms": k5_plain_ms["Picard"],
+        **bounds["Picard"],
+        "library_ms": None,  # no single PyTorch call computes it
+    }
+
+
 def main():
     import torch
 
@@ -1305,12 +1624,21 @@ def main():
     for pr in spec_printers.values():
         pr.library()
 
-    kernels = aderdg_path(torch, dev, card)
-    kernels.extend(limited_path(torch, dev, card))
-    torch.cuda.empty_cache()
-    kernels.extend(ck_path(torch, dev, card))
-    torch.cuda.empty_cache()
-    kernels.append(fv_path(torch, dev, card, spec_printers))
+    paths = {
+        "ADER-DG": lambda: aderdg_path(torch, dev, card),
+        "limited": lambda: limited_path(torch, dev, card),
+        "CK": lambda: ck_path(torch, dev, card),
+        "FV": lambda: [fv_path(torch, dev, card, spec_printers)],
+        "Z4": lambda: [z4_path(torch, dev, card)],
+    }
+    kernels, seconds = [], {"build": time.perf_counter() - t0}
+    for name, run in paths.items():
+        t1 = time.perf_counter()
+        kernels.extend(run())
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t1
+    say("[paths] seconds per phase (host clock): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -1,6 +1,6 @@
 """exahype_tpu_torch — the PyTorch/CUDA port of ``exahype_tpu``.
 
-Four paths of the JAX package run here, on an NVIDIA H100 through CUDA
+Five paths of the JAX package run here, on an NVIDIA H100 through CUDA
 kernels written for it, and on the CPU through their plain PyTorch
 versions, which match the JAX package:
 
@@ -14,7 +14,11 @@ versions, which match the JAX package:
   ``elastic3d_heterogeneous``, through the CK kernel of ``csrc/aderdg.cu``;
 - the spec-DSL FV Rusanov patch update (``__graft_entry__.py``'s path):
   ``KernelBuilder`` → ``CudaPrinter``, which generates one CUDA kernel from
-  the statement list → ``TpuPatchGrid`` halo exchange → ``GridSolver``.
+  the statement list → ``TpuPatchGrid`` halo exchange → ``GridSolver``;
+- the dynamic-GR step of the 38-variable vacuum Z4 system at order 2 in 3-D
+  (``scripts/z4_probe.py``'s production path): ``make_z4_solver(...,
+  impl="soa", fused_rhs="soa")`` → ``with_cuda_rhs``, its fused
+  right-hand side through the kernel of ``csrc/rhs.cu``.
 
 It imports ``torch``, NumPy and (for the spec DSL) SymPy, never JAX.
 States use the JAX package's SoA-P layouts, so they pass between the
@@ -30,6 +34,10 @@ _EXPORTS = {
     "ADERDGSolver": "exahype_tpu_torch.models.aderdg",
     "euler_physics": "exahype_tpu_torch.models.aderdg",
     "elastic3d_heterogeneous": "exahype_tpu_torch.models.elastic",
+    "make_z4_solver": "exahype_tpu_torch.models.z4",
+    "gauge_wave_state": "exahype_tpu_torch.models.z4",
+    "CudaRHS": "exahype_tpu_torch.models.rhs_cuda",
+    "with_cuda_rhs": "exahype_tpu_torch.models.rhs_cuda",
     "CudaADERDG": "exahype_tpu_torch.models.aderdg_cuda",
     "LimitedADERDG": "exahype_tpu_torch.models.limiter",
     "euler_admissible": "exahype_tpu_torch.models.limiter",
@@ -44,6 +52,7 @@ _EXPORTS = {
     "aderdg_from_jax": "exahype_tpu_torch.convert",
     "limited_from_jax": "exahype_tpu_torch.convert",
     "grid_solver_from_jax": "exahype_tpu_torch.convert",
+    "z4_solver_from_jax": "exahype_tpu_torch.convert",
     "state_from_numpy": "exahype_tpu_torch.convert",
     "state_to_numpy": "exahype_tpu_torch.convert",
     "SemanticError": "exahype_tpu_torch.utils.errors",

@@ -65,6 +65,12 @@ _ROW_SWEEP = (
     ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     _LL, _P,
 )
+# q, g0, g1, g2, out, n_lead, n_vars, n_grid, slicing, f, m, kappa1, kappa2,
+# stream
+_RHS_ALL = (
+    _P, _P, _P, _P, _P, _LL, _INT, _LL, _INT, ctypes.c_double, ctypes.c_double,
+    ctypes.c_double, ctypes.c_double, _P,
+)
 _SIGNATURES = {
     f"exahype_{kernel}_{suffix}": argtypes
     for kernel, argtypes in (
@@ -72,6 +78,7 @@ _SIGNATURES = {
         ("aderdg_ck_predictor_volume", _CK_PREDICTOR_VOLUME),
         ("aderdg_face_surface", _FACE_SURFACE),
         ("subcell_row_sweep", _ROW_SWEEP),
+        ("rhs_all_z4", _RHS_ALL),
     )
     for suffix in ("f32", "f64")
 }

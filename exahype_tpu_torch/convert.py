@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from exahype_tpu_torch.models.aderdg import (
+    CALLBACK_OPTIONS,
     PORTED_OPTIONS,
     UNPORTED_OPTIONS,
     ADERDGSolver,
@@ -54,12 +55,21 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
     caller names the physics: ``"euler"`` with ``gamma`` (the default),
     ``"elastic3d_het"`` (:func:`~exahype_tpu_torch.models.elastic.
     elastic3d_heterogeneous`), or a (flux_fn, max_eigenvalue_fn) pair of
-    the port's.
+    the port's.  A JAX solver with ``source_fn``, ``ncp_fn`` or
+    ``rhs_all_fn`` set raises ``SemanticError`` (those are JAX functions;
+    the Z4 system crosses through :func:`z4_solver_from_jax`).
     """
     flux, eig = _physics_pair(physics, gamma, jax_solver.dim, jax_solver.n_vars)
+    for name in CALLBACK_OPTIONS:
+        if getattr(jax_solver, name) is not None:
+            raise SemanticError(
+                f"the JAX solver's {name} is a JAX function the port cannot "
+                "call; for the Z4 system use z4_solver_from_jax"
+            )
     options = {
         name: getattr(jax_solver, name)
         for name in (*UNPORTED_OPTIONS, *PORTED_OPTIONS)
+        if name not in CALLBACK_OPTIONS
     }
     return ADERDGSolver(
         dim=jax_solver.dim,
@@ -168,6 +178,56 @@ def grid_solver_from_jax(jax_solver, *, spec: str, gamma: float, device=None,
         eigenvalue_fn=eigenvalue_fn, kernel_dt=jax_solver.kernel_dt,
         device=device, dtype=dtype,
     )
+
+
+def z4_solver_from_jax(jax_solver, *, slicing: str = "harmonic", f: float = 1.0,
+                       m: float = 2.0, kappa1: float = 0.0, kappa2: float = 0.0,
+                       device=None, dtype: torch.dtype = torch.float64):
+    """The port's vacuum Z4 solver for a JAX ``make_z4_solver`` solver.
+
+    Reads the numeric fields as :func:`aderdg_from_jax` does and the
+    options (an option the port does not carry yet raises
+    ``SemanticError``).  The JAX Z4 callbacks are closures, so the caller
+    names the system's parameters (``slicing``, ``f``, ``m``, ``kappa1``,
+    ``kappa2``).  The hooks cross as they are set: a JAX solver with
+    ``rhs_all_fn`` gets the port's ``fused_rhs="soa"`` hook, one without it
+    the per-axis NCP; the port's callbacks are the ``impl="soa"`` ones.  A
+    ``PallasRHS`` hook (``with_pallas_rhs``) maps to
+    :func:`~exahype_tpu_torch.models.rhs_cuda.with_cuda_rhs`.  States cross
+    through :func:`state_from_numpy`.
+    """
+    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+    from exahype_tpu_torch.models.z4 import N_VARS, make_z4_solver
+
+    if jax_solver.n_vars != N_VARS or jax_solver.ncp_fn is None or (
+            jax_solver.source_fn is None):
+        raise SemanticError(
+            f"not a vacuum Z4 solver: it needs {N_VARS} variables, ncp_fn and "
+            f"source_fn (got n_vars={jax_solver.n_vars})"
+        )
+    options = {
+        name: getattr(jax_solver, name)
+        for name in (*UNPORTED_OPTIONS, *PORTED_OPTIONS)
+        if name not in CALLBACK_OPTIONS
+    }
+    rhs = jax_solver.rhs_all_fn
+    solver = make_z4_solver(
+        dim=jax_solver.dim,
+        order=jax_solver.order,
+        grid_shape=tuple(jax_solver.grid_shape),
+        dx=jax_solver.dx,
+        slicing=slicing, f=f, m=m, kappa1=kappa1, kappa2=kappa2,
+        fused_rhs="soa" if rhs is not None else False,
+        impl="soa",
+        picard_iters=jax_solver.picard_iters,
+        basis=jax_solver.basis,
+        device=device,
+        dtype=dtype,
+        **options,
+    )
+    if type(rhs).__name__ == "PallasRHS":
+        solver = with_cuda_rhs(solver)
+    return solver
 
 
 def state_from_numpy(arr, *, device=None, dtype: torch.dtype | None = None):

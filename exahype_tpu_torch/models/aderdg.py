@@ -5,7 +5,11 @@ benchmarks take: the space-time Picard predictor (``bench.py::main``) or
 the Cauchy–Kovalewski predictor with frozen material slots
 (``predictor_mode="ck"``, ``bench.py::bench_ck``), the time-averaged
 volume integral, the Rusanov face solve (with an optional
-``dissipation_mask``) and the corrector on a periodic Cartesian grid.  It is
+``dissipation_mask``) and the corrector on a periodic Cartesian grid.  On
+the Picard path it also carries the algebraic source ``source_fn``, the
+non-conservative product ``ncp_fn`` (strong-form volume term,
+path-conservative face fluctuations) and the fused right-hand side
+``rhs_all_fn`` of big NCP systems (the Z4 step, ``models/z4.py``).  It is
 the plain version of the CUDA kernel path (``models/aderdg_cuda.py``) and
 the path every CPU tensor takes.
 
@@ -20,7 +24,7 @@ layout.
 
 Options of the JAX solver that are not ported yet raise
 :class:`SemanticError` (see ``ROADMAP.md``, Queue 1 item 2); so does any CK
-combination with them (sources, non-conservative products, walls).
+combination with sources, non-conservative products or walls.
 """
 
 from __future__ import annotations
@@ -98,15 +102,18 @@ UNPORTED_OPTIONS = {
     "reflect_fn": None,
     "reflect_flux_fn": None,
     "wall_axes": None,
-    "source_fn": None,
-    "ncp_fn": None,
-    "rhs_all_fn": None,
     "visc_flux_fn": None,
     "visc_eigenvalue_fn": None,
     "reuse_last_flux": False,
 }
 #: Options of the JAX ``ADERDGSolver`` the port carries, by name.
-PORTED_OPTIONS = ("predictor_mode", "ck_material_slots", "dissipation_mask")
+PORTED_OPTIONS = (
+    "predictor_mode", "ck_material_slots", "dissipation_mask",
+    "source_fn", "ncp_fn", "rhs_all_fn",
+)
+#: The ported options that are physics callbacks (a JAX solver's are JAX
+#: functions, which the port cannot call).
+CALLBACK_OPTIONS = ("source_fn", "ncp_fn", "rhs_all_fn")
 
 
 class ADERDGSolver(nn.Module):
@@ -125,6 +132,16 @@ class ADERDGSolver(nn.Module):
     linear systems; ``ck_material_slots`` names variables that are frozen
     in time (injected from the state, zero time derivative);
     ``dissipation_mask`` weighs the Rusanov jump term per variable.
+
+    ``source_fn(Q, var_axis)``, ``ncp_fn(Q, gradQ_d, axis, var_axis)`` and
+    ``rhs_all_fn(Q, grads, var_axis)`` keep the JAX solver's contract
+    (periodic Picard path only): the source enters every Picard node and
+    the corrector as ``dt·s̄``; the NCP enters the predictor per axis, the
+    corrector as the strong-form volume term and the faces as the
+    path-conservative half-fluctuations ``½·B(q̃)·Δq``; ``rhs_all_fn``
+    (``S − Σ_d B_d·∂_d Q`` from the physical gradients) replaces the source
+    and per-axis NCP evaluations of the predictor and, with ``ncp_fn``, the
+    corrector's volume term.  It receives contiguous tensors.
     """
 
     def __init__(
@@ -144,6 +161,9 @@ class ADERDGSolver(nn.Module):
         predictor_mode: str = "picard",
         ck_material_slots: tuple | None = None,
         dissipation_mask: tuple | None = None,
+        source_fn: Callable | None = None,
+        ncp_fn: Callable | None = None,
+        rhs_all_fn: Callable | None = None,
         **options,
     ):
         super().__init__()
@@ -161,6 +181,14 @@ class ADERDGSolver(nn.Module):
             raise SemanticError(
                 f"predictor_mode must be 'picard' or 'ck', got {predictor_mode!r}"
             )
+        hooks = {"source_fn": source_fn, "ncp_fn": ncp_fn, "rhs_all_fn": rhs_all_fn}
+        for name, fn in hooks.items():
+            if fn is not None and predictor_mode == "ck":
+                raise SemanticError(
+                    f"{name} with predictor_mode='ck' is not ported to "
+                    "exahype_tpu_torch yet (only the Picard path carries it); "
+                    "see ROADMAP.md, Queue 1 item 6"
+                )
         if ck_material_slots is not None:
             if predictor_mode != "ck":
                 raise SemanticError(
@@ -198,6 +226,9 @@ class ADERDGSolver(nn.Module):
         self.predictor_mode = predictor_mode
         self.ck_material_slots = ck_material_slots
         self.dissipation_mask = dissipation_mask
+        self.source_fn = source_fn
+        self.ncp_fn = ncp_fn
+        self.rhs_all_fn = rhs_all_fn
         self.ops = DGOperators(self.order, basis=basis)
         self.picard_iters = (
             self.order + 1 if picard_iters is None else int(picard_iters)
@@ -284,8 +315,10 @@ class ADERDGSolver(nn.Module):
 
     def predictor(self, u, dt):
         """The time-averaged state ``qbar`` and time-averaged fluxes
-        ``fbar[d]``: the Picard iteration, or the Cauchy–Kovalewski
-        recursion with ``predictor_mode="ck"``."""
+        ``fbar[d]`` — and, with ``source_fn``, the time-averaged source
+        ``sbar`` as a third element, as the JAX solver returns them: the
+        Picard iteration, or the Cauchy–Kovalewski recursion with
+        ``predictor_mode="ck"``."""
         if self.predictor_mode == "ck":
             return self._predictor_ck(u, dt)
         return self._predictor_picard(u, dt)
@@ -321,10 +354,20 @@ class ADERDGSolver(nn.Module):
         fbar = [self.flux_fn(qbar, d, va) for d in range(self.dim)]
         return qbar, fbar
 
+    def _grads(self, x, base_axis: int):
+        """Physical gradients ``(∂x/∂x_e)_e`` of the DG polynomial ``x``
+        (node axes from ``base_axis``), each contiguous: the layout the
+        ``rhs_all_fn`` kernel reads."""
+        return tuple(
+            (_apply(self.D, x, axis=base_axis + self.node_axis(e)) / self._dxs[e]).contiguous()
+            for e in range(self.dim)
+        )
+
     def _predictor_picard(self, u, dt):
-        """Picard iteration; returns the time-averaged state ``qbar`` and
-        time-averaged fluxes ``fbar[d]``.  Space-time arrays carry a
-        leading time-node axis (all state axes shift by one)."""
+        """Picard iteration; returns the time-averaged state ``qbar``,
+        time-averaged fluxes ``fbar[d]`` and, with ``source_fn``, source
+        ``sbar``.  Space-time arrays carry a leading time-node axis (all
+        state axes shift by one)."""
         nn_ = self.n_nodes
         va = 1 + self.var_axis  # var axis inside space-time arrays
         tshape = (nn_,) + (1,) * u.dim()
@@ -333,6 +376,7 @@ class ADERDGSolver(nn.Module):
         f0u = self.phi0.to(u.dtype).reshape(tshape) * u.unsqueeze(0)
         w_t = self.weights.to(u.dtype).reshape(tshape)
         K1inv = self.K1inv.to(u.dtype)
+        per_axis_ncp = self.ncp_fn is not None and self.rhs_all_fn is None
         for _ in range(self.picard_iters):
             rhs = f0u
             for d in range(self.dim):
@@ -340,30 +384,54 @@ class ADERDGSolver(nn.Module):
                 F = self.flux_fn(q, d, va)
                 dF = _apply(self.D, F, axis=1 + self.node_axis(d))
                 rhs = rhs - lam * w_t * dF
+                if per_axis_ncp:
+                    dq = _apply(self.D, q, axis=1 + self.node_axis(d))
+                    rhs = rhs - lam * w_t * self.ncp_fn(q, dq, d, va)
+            if self.rhs_all_fn is not None:
+                # One fused evaluation replaces the source and the dim NCP
+                # products (q of the first iteration is a broadcast view).
+                rhs = rhs + dt * w_t * self.rhs_all_fn(q.contiguous(), self._grads(q, 1), va)
+            elif self.source_fn is not None:
+                rhs = rhs + dt * w_t * self.source_fn(q, va)
             q = torch.tensordot(K1inv, rhs, dims=([1], [0]))
         qbar = _project(self.weights, q, 0)
         fbar = [
             _project(self.weights, self.flux_fn(q, d, va), 0)
             for d in range(self.dim)
         ]
+        if self.source_fn is not None:
+            return qbar, fbar, _project(self.weights, self.source_fn(q, va), 0)
         return qbar, fbar
 
     # ------------------------------------------------------------- corrector
 
     def predictor_volume(self, u, dt):
         """Cell-local half of the step (the plain version of the
-        ``aderdg_predictor_volume`` kernel): predictor, volume integral
-        ``new = u + Σ_d λ_d·Kvol·F̄_d``, and the face projections of q̄ and
-        F̄_d for every axis.  Returns ``(new, faces)`` (see
-        :attr:`face_shape`)."""
-        qbar, fbar = self.predictor(u, dt)
-        new = u
+        ``aderdg_predictor_volume`` kernel): predictor, volume terms
+        ``new = u + dt·s̄ + Σ_d λ_d·Kvol·F̄_d`` (and the NCP's strong-form
+        volume term), and the face projections of q̄ and F̄_d for every
+        axis.  Returns ``(new, faces)`` (see :attr:`face_shape`)."""
+        pred = self.predictor(u, dt)
+        qbar, fbar = pred[:2]
+        new = u + dt * pred[2] if self.source_fn is not None else u
+        va = self.var_axis
+        if self.ncp_fn is not None and self.rhs_all_fn is not None:
+            # Strong-form NCP volume term, fused: −dt·Σ_d B_d(q̄)·∂_d q̄ =
+            # dt·[rhs_all(q̄, ∇q̄) − rhs_all(q̄, 0)].
+            zeros = (torch.zeros_like(qbar),) * self.dim
+            new = new + dt * (
+                self.rhs_all_fn(qbar, self._grads(qbar, 0), va)
+                - self.rhs_all_fn(qbar, zeros, va)
+            )
         faces = []
         for d in range(self.dim):
             lam = dt / self._dxs[d]
             na = self.node_axis(d)
             # Volume integral: (λ/w_i) Σ_j w_j D[j,i] F̄_j along axis d.
             new = new + lam * _apply(self.Kvol, fbar[d], axis=na)
+            if self.ncp_fn is not None and self.rhs_all_fn is None:
+                # Strong-form NCP volume term −λ·B(q̄)·∂_d q̄.
+                new = new - lam * self.ncp_fn(qbar, _apply(self.D, qbar, axis=na), d, va)
             faces.append(torch.stack([
                 _project(self.phi0, qbar, na),
                 _project(self.phi1, qbar, na),
@@ -404,11 +472,11 @@ class ADERDGSolver(nn.Module):
         return self.face_surface(new, faces, dt, return_face_fluxes)
 
     def face_update(self, new, q_lo, q_hi, f_lo, f_hi, d, dt):
-        """Riemann solve + surface corrector update for direction ``d``
-        from face-extrapolated time-averaged state/flux (periodic
-        neighbours).  Returns ``(new, fhat_hi)``: the updated state and the
-        Rusanov flux through each cell's high face, nodal over the
-        transverse node axes (:attr:`face_flux_shape`)."""
+        """Riemann solve + surface (and NCP-fluctuation) corrector update
+        for direction ``d`` from face-extrapolated time-averaged state/flux
+        (periodic neighbours).  Returns ``(new, fhat_hi)``: the updated
+        state and the Rusanov flux through each cell's high face, nodal
+        over the transverse node axes (:attr:`face_flux_shape`)."""
         lam = dt / self._dxs[d]
         node_ax = self.node_axis(d)
         face_grid_ax = self.grid_axis(d) - 1
@@ -438,6 +506,17 @@ class ADERDGSolver(nn.Module):
             phi1_w * fhat_hi.unsqueeze(node_ax)
             - phi0_w * fhat_lo.unsqueeze(node_ax)
         )
+        if self.ncp_fn is not None:
+            # Path-conservative face fluctuations: the central parts
+            # ½·B(q̃)·Δq at the segment midpoint q̃ go one to each side (the
+            # ±½sΔq dissipation is already in the Rusanov f̂ above).
+            mid = 0.5 * (q_hi + q_plus)
+            half = 0.5 * self.ncp_fn(mid, q_plus - q_hi, d, face_va)
+            half_lo = torch.roll(half, 1, face_grid_ax)
+            new = new - lam * (
+                phi1_w * half.unsqueeze(node_ax)
+                + phi0_w * half_lo.unsqueeze(node_ax)
+            )
         return new, fhat_hi
 
     # ------------------------------------------------------------- time loop

@@ -31,7 +31,7 @@ import torch
 
 from exahype_tpu_torch import _build
 from exahype_tpu_torch.models import elastic
-from exahype_tpu_torch.models.aderdg import ADERDGSolver
+from exahype_tpu_torch.models.aderdg import CALLBACK_OPTIONS, ADERDGSolver
 from exahype_tpu_torch.utils.errors import LoweringError
 
 #: (physics, dim, order) -> the predictor mode the kernels are instantiated
@@ -69,6 +69,13 @@ class CudaADERDG:
     )
 
     def __init__(self, solver: ADERDGSolver):
+        for option in CALLBACK_OPTIONS:
+            if getattr(solver, option) is not None:
+                raise LoweringError(
+                    f"the CUDA step kernels take flux-form physics only, and "
+                    f"{option} is set (a fused rhs_all_fn runs on the card "
+                    "through models.rhs_cuda.with_cuda_rhs)"
+                )
         tags = {
             getattr(solver.flux_fn, "physics", None),
             getattr(solver.max_eigenvalue_fn, "physics", None),

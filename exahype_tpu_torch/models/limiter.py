@@ -50,7 +50,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from exahype_tpu_torch.models.aderdg import ADERDGSolver, _apply, _project
+from exahype_tpu_torch.models.aderdg import (
+    CALLBACK_OPTIONS,
+    ADERDGSolver,
+    _apply,
+    _project,
+)
 from exahype_tpu_torch.models.dg import subcell_projection, subcell_reconstruction
 from exahype_tpu_torch.utils.device import resolve_device
 from exahype_tpu_torch.utils.errors import SemanticError
@@ -141,10 +146,12 @@ class LimitedADERDG(nn.Module):
                 "ported to exahype_tpu_torch yet; see ROADMAP.md, Queue 1 "
                 "item 5"
             )
-        if solver.predictor_mode != "picard" or solver.dissipation_mask is not None:
+        if (solver.predictor_mode != "picard" or solver.dissipation_mask is not None
+                or any(getattr(solver, name) is not None for name in CALLBACK_OPTIONS)):
             raise SemanticError(
-                "the limiter over a CK or dissipation-masked solver is not "
-                "ported to exahype_tpu_torch yet; see ROADMAP.md, Queue 1 item 5"
+                "the limiter over a CK, dissipation-masked, source or NCP solver "
+                "is not ported to exahype_tpu_torch yet; see ROADMAP.md, Queue 1 "
+                "item 5"
             )
         if accelerator is not None and accelerator.solver is not solver:
             raise ValueError("accelerator must wrap the limiter's own base solver")

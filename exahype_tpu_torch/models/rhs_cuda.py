@@ -1,0 +1,126 @@
+"""The fused Z4 right-hand side through a hand-written CUDA kernel (K5).
+
+Port of ``exahype_tpu/models/rhs_pallas.py`` (``PallasRHS``,
+``with_pallas_rhs``) for its 38-variable vacuum Z4 instance: the solver's
+``rhs_all_fn(Q, grads, var_axis)`` — the pointwise algebra
+S(Q) − Σ_d B_d(Q)·∂_d Q given Q and the three physical gradients, which the
+Picard predictor calls once per iteration and the corrector twice — runs as
+kernel ``rhs_all_z4`` of ``csrc/rhs.cu`` (algebra in ``csrc/z4.cuh``; see the
+note there for the design).
+
+:class:`CudaRHS` wraps a tagged Z4 ``rhs_all_fn`` (``make_z4_solver(...,
+impl="soa", fused_rhs="soa")``).  For tensors on the CPU it calls the wrapped
+plain version; for CUDA tensors it launches the kernel or raises
+:class:`LoweringError`.  On both devices it checks every gradient's shape,
+dtype and device against Q's (the Pallas wrapper reshapes them silently).
+The kernel reads contiguous ``[B, V, G]`` tensors (everything before the
+variable axis, the variables, everything after): the solver hands them over
+contiguous (``ADERDGSolver._grads``), and the wrapper refuses any other.
+The Pallas kernel's TPU knobs (``rows_per_block``, ``vmem_limit_bytes``,
+``interpret``) have no counterpart.  Usage::
+
+    solver = make_z4_solver(3, 2, grid, dx, impl="soa", fused_rhs="soa")
+    solver = with_cuda_rhs(solver)        # a copy; rhs_all_fn now K5
+    u = solver.step(u, dt)                # solver.rhs_all_fn.launches
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+
+import torch
+
+from exahype_tpu_torch import _build
+from exahype_tpu_torch.models.z4 import N_VARS, SLICINGS
+from exahype_tpu_torch.utils.errors import LoweringError
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+class CudaRHS:
+    """``rhs_all_fn(Q, grads, var_axis)`` through K5 for CUDA tensors.
+
+    Built for one solver's ``dim`` and ``n_vars``; the wrapped function
+    must carry the ``PhysicsTag("z4", 3, 38, (slicing, f, m, kappa1,
+    kappa2))`` that :func:`~exahype_tpu_torch.models.z4.make_z4_solver`
+    gives it, whose parameters become the kernel's arguments.  ``launches``
+    counts the kernel's launches."""
+
+    KERNEL = "rhs_all_z4"
+
+    def __init__(self, rhs_all_fn, dim: int, n_vars: int):
+        tag = getattr(rhs_all_fn, "physics", None)
+        if tag is None or tag.name != "z4" or tag.n_real != N_VARS:
+            raise LoweringError(
+                "K5 is compiled for the 38-variable vacuum Z4 right-hand side: "
+                "build the solver with exahype_tpu_torch.models.z4.make_z4_solver"
+                f"(..., impl='soa', fused_rhs='soa'); got an rhs_all_fn tagged {tag!r}"
+            )
+        if dim != 3 or n_vars != N_VARS:
+            raise LoweringError(
+                f"K5 takes 3 gradient arrays of the {N_VARS} Z4 variables, got "
+                f"dim={dim}, n_vars={n_vars}"
+            )
+        slicing, f, m, kappa1, kappa2 = tag.params
+        self.inner = rhs_all_fn
+        self.dim = dim
+        self.n_vars = n_vars
+        self._args = (SLICINGS[slicing], f, m, kappa1, kappa2)
+        #: Launches of ``rhs_all_z4`` since construction (or the last reset).
+        self.launches = 0
+
+    def reset_launches(self):
+        self.launches = 0
+
+    def _check(self, Q, grads, va):
+        if len(grads) != self.dim:
+            raise LoweringError(f"expected {self.dim} gradient arrays, got {len(grads)}")
+        if Q.shape[va] != self.n_vars:
+            raise LoweringError(
+                f"var axis {va} of Q's shape {tuple(Q.shape)} is not n_vars={self.n_vars}"
+            )
+        for e, gq in enumerate(grads):
+            if gq.shape != Q.shape or gq.dtype != Q.dtype or gq.device != Q.device:
+                raise LoweringError(
+                    f"grads[{e}] is {tuple(gq.shape)} {gq.dtype} on {gq.device}; it must "
+                    f"match Q: {tuple(Q.shape)} {Q.dtype} on {Q.device}"
+                )
+
+    def __call__(self, Q, grads, var_axis):
+        grads = tuple(grads)
+        va = var_axis % Q.dim()
+        self._check(Q, grads, va)
+        if not Q.is_cuda:
+            return self.inner(Q, grads, var_axis)
+        if Q.dtype not in _SUFFIX:
+            raise LoweringError(f"Q: dtype {Q.dtype} not float32/float64")
+        for name, x in (("Q", Q), *((f"grads[{e}]", g) for e, g in enumerate(grads))):
+            if not x.is_contiguous():
+                raise LoweringError(f"{name} must be contiguous")
+        out = torch.empty_like(Q)
+        lib = _build.library()
+        with torch.cuda.device(Q.device):
+            stream = torch.cuda.current_stream(Q.device).cuda_stream
+            err = getattr(lib, f"exahype_rhs_all_z4_{_SUFFIX[Q.dtype]}")(
+                Q.data_ptr(), *(g.data_ptr() for g in grads), out.data_ptr(),
+                math.prod(Q.shape[:va]), self.n_vars, math.prod(Q.shape[va + 1:]),
+                *self._args, stream,
+            )
+        _build.check(lib, err, self.KERNEL)
+        self.launches += 1
+        return out
+
+
+def with_cuda_rhs(solver):
+    """A copy of ``solver`` whose ``rhs_all_fn`` runs through K5
+    (:class:`CudaRHS`); it shares the solver's operator buffers.  The solver
+    must carry a fused Z4 hook (``make_z4_solver(..., fused_rhs="soa")``)."""
+    if solver.rhs_all_fn is None:
+        raise LoweringError(
+            "with_cuda_rhs requires a solver with rhs_all_fn set "
+            "(make_z4_solver(..., impl='soa', fused_rhs='soa'))"
+        )
+    out = copy.copy(solver)
+    out.rhs_all_fn = CudaRHS(solver.rhs_all_fn, solver.dim, solver.n_vars)
+    return out

@@ -216,8 +216,12 @@ def test_unported_options_raise(option, value):
 
 
 #: Options the plain solver carries since the CK slice
-#: (``tests/test_torch_ck.py``); the Euler kernels do not, and refuse them.
-CARRIED_BY_THE_PLAIN_SOLVER = ("dissipation_mask", "predictor_mode")
+#: (``tests/test_torch_ck.py``) and the Z4 slice (the source, NCP and fused
+#: right-hand-side hooks, ``tests/test_torch_z4_slice.py``); the Euler
+#: kernels do not, and refuse them.
+CARRIED_BY_THE_PLAIN_SOLVER = (
+    "dissipation_mask", "predictor_mode", "source_fn", "ncp_fn", "rhs_all_fn",
+)
 
 
 def test_convert_rejects_unported_jax_options():

@@ -2,8 +2,9 @@
 two ADER-DG kernels of ``csrc/aderdg.cu`` (with the face kernel's face-flux
 output), the CK predictor (K2) and the face kernel's elastic variant, the
 limiter's subcell sweep (K3, ``csrc/subcell.cu``) alone and under
-``LimitedADERDG``, and the spec kernel (K4) that ``CudaPrinter``
-generates, alone and under ``GridSolver``.
+``LimitedADERDG``, the spec kernel (K4) that ``CudaPrinter`` generates,
+alone and under ``GridSolver``, and the fused Z4 right-hand side (K5,
+``csrc/rhs.cu``) alone and under the Z4 step.
 
 Every test here is marked ``cuda`` and skips without a card (the decision
 is made inside each test, never at import).  This file imports no JAX, so
@@ -11,10 +12,12 @@ it also runs on a GPU machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: f64 at rtol=0, atol=1e-12; f32 at 64 float32 spacings (2⁻²³
-relative) of the largest compared value — two f32 evaluation orders of a
-computation a few hundred operations deep, fused multiply-adds on the
-card's side only (``chip_smoke.py`` states the same bound).
+Tolerances: f64 at rtol=0, atol=1e-12 (K5: 1e-12 of max(1, the largest
+value), which reaches ~420 at these resolutions); f32 at 64 float32
+spacings (2⁻²³ relative) of the largest compared value — two f32
+evaluation orders of a computation a few hundred (K5: ~3,900) operations
+deep, fused multiply-adds on the card's side only (``chip_smoke.py`` states
+the same bounds).
 """
 
 import numpy as np
@@ -391,3 +394,107 @@ def test_fv_grid_solver_on_the_card():
     assert torch.equal(u, again)
     assert _err(u, ref) <= 1e-12
     assert abs(float(t) - float(t_ref)) <= 1e-15
+
+
+# ------------------------------------------------ K5: the fused Z4 right-hand side
+
+
+def _z4_setup(grid, dtype, **params):
+    """``scripts/z4_probe.py``'s production Z4 solver at ``grid`` (p2, dx =
+    1/128; ``params`` overrides the slicing, f, m, κ₁, κ₂), plain and
+    through K5, and the gauge wave of amplitude 0.1."""
+    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+    from exahype_tpu_torch.models.z4 import gauge_wave_state, make_z4_solver
+
+    dev = _card()
+    plain = make_z4_solver(3, 2, grid, dx=1.0 / 128, impl="soa", fused_rhs="soa",
+                           device=dev, dtype=dtype, **params)
+    return plain, with_cuda_rhs(plain), gauge_wave_state(plain, amplitude=0.1)
+
+
+def _z4_bound(ref, dtype):
+    if dtype == torch.float64:
+        return 1e-12 * max(1.0, ref.abs().max().item())
+    return _bound(ref, dtype)
+
+
+def _rhs_calls(plain, u, dt=1e-4):
+    """The inputs of every ``rhs_all_fn`` call of one plain step."""
+    import copy
+
+    calls = []
+    rec = copy.copy(plain)
+
+    def record(Q, grads, va):
+        calls.append((Q, tuple(grads), va))
+        return plain.rhs_all_fn(Q, grads, va)
+
+    rec.rhs_all_fn = record
+    rec.step(u, dt)
+    return calls
+
+
+Z4_CASES = [
+    (torch.float64, (8, 4, 16)),
+    (torch.float64, (3, 5, 7)),  # a ragged last block
+    (torch.float32, (8, 4, 16)),
+    (torch.float32, (5, 3, 7)),
+]
+#: The kernel's other branches: 1+log slicing (g = 2/α, d(αg)/dα = 0) and
+#: harmonic slicing with f ≠ 1, each with m ≠ 2 and both κ damping terms.
+Z4_PARAMS = [
+    dict(),
+    dict(slicing="1+log", f=0.7, m=1.5, kappa1=0.1, kappa2=0.3),
+    dict(f=0.7, m=1.5, kappa1=0.1, kappa2=0.3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", Z4_PARAMS, ids=["harmonic", "1+log_damped", "f_m_damped"])
+@pytest.mark.parametrize("dtype,grid", Z4_CASES)
+def test_rhs_kernel_matches_plain(dtype, grid, params):
+    """Every call of one step, Picard- and corrector-shaped."""
+    plain, kern, u = _z4_setup(grid, dtype, **params)
+    k5 = kern.rhs_all_fn
+    calls = _rhs_calls(plain, u)
+    assert len(calls) == plain.picard_iters + 2
+    for Q, grads, va in calls:
+        Q0 = Q.clone()
+        got = k5(Q, grads, va)
+        ref = plain.rhs_all_fn(Q, grads, va)
+        torch.cuda.synchronize()
+        assert torch.equal(Q, Q0)
+        assert got.shape == ref.shape
+        assert _err(got, ref) <= _z4_bound(ref, dtype)
+        assert torch.equal(got, k5(Q, grads, va))  # bitwise repeatable
+    assert k5.launches == 2 * len(calls)
+
+
+@pytest.mark.cuda
+def test_rhs_kernel_refuses_what_it_cannot_read():
+    from exahype_tpu_torch.utils.errors import LoweringError
+
+    plain, kern, u = _z4_setup((4, 2, 8), torch.float64)
+    Q, grads, va = _rhs_calls(plain, u)[0]
+    k5 = kern.rhs_all_fn
+    with pytest.raises(LoweringError, match="contiguous"):
+        k5(Q, (grads[0].transpose(-1, -2).contiguous().transpose(-1, -2), *grads[1:]), va)
+    with pytest.raises(LoweringError, match="contiguous"):
+        k5(Q.transpose(-1, -2).contiguous().transpose(-1, -2), grads, va)
+    with pytest.raises(LoweringError, match=r"grads\[1\]"):
+        k5(Q, (grads[0], grads[1].float(), grads[2]), va)
+    with pytest.raises(LoweringError, match="dtype"):
+        k5(Q.half(), tuple(g.half() for g in grads), va)
+    assert k5.launches == 0
+
+
+@pytest.mark.cuda
+def test_z4_step_through_the_kernel_counts_its_launches():
+    plain, kern, u = _z4_setup((4, 2, 8), torch.float64)
+    a = kern.run(u, 2, 1e-4)
+    b = plain.run(u, 2, 1e-4)
+    torch.cuda.synchronize()
+    assert kern.rhs_all_fn.launches == 2 * (kern.picard_iters + 2)
+    assert _err(a, b) <= _z4_bound(b, torch.float64)
+    assert torch.equal(a, kern.run(u, 2, 1e-4))
+    assert not hasattr(plain.rhs_all_fn, "launches")  # the plain solver stays plain

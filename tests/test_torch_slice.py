@@ -139,11 +139,13 @@ PORT_MODULES = ["exahype_tpu_torch"] + sorted(
     for p in PKG.rglob("*.py")
     if p.name != "__init__.py"
 )
-#: The ADER-DG, limited and CK slices load no SymPy; the spec-DSL front end
-#: is built on it.
+#: The ADER-DG, limited, CK and Z4 slices load no SymPy; the spec-DSL front
+#: end is built on it.
 SYMPY_FREE = (
     "exahype_tpu_torch.models.aderdg",
     "exahype_tpu_torch.models.elastic",
+    "exahype_tpu_torch.models.z4",
+    "exahype_tpu_torch.models.rhs_cuda",
     "exahype_tpu_torch.models.limiter",
     "exahype_tpu_torch.models.subcell_cuda",
     "exahype_tpu_torch.models.dg",
@@ -194,8 +196,9 @@ def test_port_module_list_covers_both_slices():
     assert "exahype_tpu_torch.models.aderdg_cuda" in PORT_MODULES
     assert "exahype_tpu_torch.backends.cuda_backend" in PORT_MODULES
     sympy_free = [m for m in PORT_MODULES if m.startswith(SYMPY_FREE)]
-    for module in ("aderdg_cuda", "limiter", "subcell_cuda", "elastic"):
+    for module in ("aderdg_cuda", "limiter", "subcell_cuda", "elastic", "z4", "rhs_cuda"):
         assert f"exahype_tpu_torch.models.{module}" in sympy_free
+    assert "exahype_tpu_torch.convert" in sympy_free
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
