@@ -24,16 +24,17 @@ CK and dynamic-GR slices), in this order:
   accelerator=CudaADERDG(solver), subcell_cuda=True)`` with the "means"
   overflow policy and the post-step guard, from the bench's Sod shock along
   axis 0 at the bench's dt = 1.5e-4 (``bench.py:326-356``): 5 warm-up steps
-  (the bench's first chunk), then 10 checked ones.  Its kernels are the two
-  of ``csrc/aderdg.cu`` (the face kernel also writes the face fluxes) and
-  the subcell sweep (K3) of ``csrc/subcell.cu``, three launches a step.
+  (the bench's first chunk), then 10 checked ones.  Its kernels are three
+  of ``csrc/aderdg.cu`` (the predictor and the face stage's two launches,
+  which also return the face fluxes) and the subcell sweep (K3) of
+  ``csrc/subcell.cu``, six launches a step.
 - **CK**: ``bench.py::bench_ck``'s step — order 3, 3-D heterogeneous
   elasticity (12 variables: velocity–stress and frozen per-node ρ, λ, μ),
   ``predictor_mode="ck"``, ``ck_material_slots=(9, 10, 11)``,
   ``dissipation_mask=(1,)*9 + (0, 0, 0)``, dx = 1/g0, the plane P wave in a
   two-layer medium (``bench.py:167-204``), float32 — through ``CudaADERDG``
-  (the CK predictor K2 and the face kernel of ``csrc/aderdg.cu``), two
-  launches a step.  Two grids: the bench's ``(64, 4, 32)`` at its dt = 2e-4
+  (the CK predictor K2 and the face stage's two kernels of
+  ``csrc/aderdg.cu``), three launches a step.  Two grids: the bench's ``(64, 4, 32)`` at its dt = 2e-4
   over its window (5 warm-up steps, then 40) with its integrity checks
   (finite, slots 9–11 bitwise frozen, seismic energy ratio below 1.02),
   and ``(256, 8, 128)``, the same problem at 4x the resolution, 10 steps at
@@ -85,7 +86,11 @@ Phases:
    for FV ``halo_fill`` / ``compute_dt``, for the limited step the rest of
    the step, for Z4 the eager stages) times with CUDA events, device idle
    share, peak memory, host synchronisations per limited step, the plain
-   path beside them, and the seconds each path took;
+   path beside them, and the seconds each path took; for each kernel of
+   ``csrc/aderdg.cu`` a path launches, a ``[kernel]`` line with its
+   registers and resident blocks per SM (the library's occupancy query) and
+   its achieved TB/s and TFLOP/s beside its bound (the face stage's pair of
+   launches also as one, against the stage's bound);
 6. a reading, not a check: the step at which ``bench.py``'s dt = 1e-4
    makes the ADER-DG state non-finite, on both paths.
 
@@ -349,19 +354,113 @@ def ck_bytes(state_bytes: int, face_bytes: int) -> int:
 
 def face_surface_ops(order: int, ncell: int, dim=3, nvar=5, eig_ops=EIG_OPS,
                      masked=False) -> float:
-    """Flops of ``aderdg_face_surface``: two Rusanov fluxes (two wave
-    speeds, 6 flops per variable, 7 with a dissipation mask) per face node
-    and axis of each cell, and the surface update (5 flops per node,
-    variable and axis)."""
+    """Flops of the face stage: one Rusanov flux (two wave speeds, 6 flops
+    per variable, 7 with a dissipation mask) per interface, that is per face
+    node and axis of each cell (:func:`face_flux_ops`), and the surface
+    update (:func:`surface_update_ops`)."""
+    return (face_flux_ops(order, ncell, dim, nvar, eig_ops, masked)
+            + surface_update_ops(order, ncell, dim, nvar))
+
+
+def face_flux_ops(order: int, ncell: int, dim=3, nvar=5, eig_ops=EIG_OPS,
+                  masked=False) -> float:
+    """Flops of ``aderdg_face_flux``: one Rusanov flux per interface."""
     n = order + 1
-    rusanov = 2 * eig_ops + (7 if masked else 6) * nvar
-    return ncell * (dim * n ** (dim - 1) * 2 * rusanov + n**dim * nvar * dim * 5)
+    return ncell * dim * n ** (dim - 1) * (2 * eig_ops + (7 if masked else 6) * nvar)
+
+
+def surface_update_ops(order: int, ncell: int, dim=3, nvar=5) -> float:
+    """Flops of ``aderdg_surface_update``: 5 per node, variable and axis."""
+    n = order + 1
+    return ncell * n**dim * nvar * dim * 5
+
+
+def face_stage_bytes(order: int, ncell: int, itemsize: int, dim=3, nvar=5, rows=5) -> int:
+    """Bytes of the face stage (the pair of launches, F̂ intermediate): per
+    face node of each axis, both faces' state (all ``nvar`` rows, which the
+    wave speeds read) and flux (the ``rows`` that can be nonzero) read; the
+    ``rows`` that move of the state read and written.  For Euler (``rows ==
+    nvar``) that is the whole face tensor and the state read and written."""
+    n = order + 1
+    faces = dim * n ** (dim - 1) * 2 * (nvar + rows)
+    return ncell * itemsize * (faces + 2 * rows * n**dim)
 
 
 def face_fhat_bytes(face_bytes: int, state_bytes: int, fhat_bytes: int) -> int:
-    """Bytes of ``aderdg_face_surface`` with the face-flux output: the faces
-    and the state read, the state and the face fluxes written."""
+    """Bytes of the face stage with the face-flux output: the faces and the
+    state read, the state and the face fluxes written."""
     return face_bytes + 2 * state_bytes + fhat_bytes
+
+
+def face_flux_bytes(order: int, ncell: int, itemsize: int, dim=3, nvar=5, rows=5) -> int:
+    """Bytes of ``aderdg_face_flux``: per interface, both sides' face state
+    (all ``nvar`` rows, which the wave speeds read) and face flux (the
+    ``rows`` that can be nonzero) read, the ``rows`` of F̂ written."""
+    faces = dim * (order + 1) ** (dim - 1) * ncell
+    return faces * itemsize * (2 * nvar + 3 * rows)
+
+
+def surface_update_bytes(order: int, ncell: int, itemsize: int, dim=3, rows=5) -> int:
+    """Bytes of ``aderdg_surface_update``: the ``rows`` that move of the
+    state read and written, and F̂ (each interface once) read."""
+    n = order + 1
+    return ncell * itemsize * rows * (2 * n**dim + dim * n ** (dim - 1))
+
+
+def kernel_report(cu, name: str, dtype, where: str, ms: float, n_bytes: float,
+                  n_ops: float, card: str) -> dict:
+    """Print a ``[kernel]`` line for one kernel of ``csrc/aderdg.cu``: how
+    it launches (registers, resident blocks per SM, from the library's
+    occupancy query; ``cu=None`` for the face stage's pair), its time, the
+    rates it achieved and its bound.  Returns the bound."""
+    bnd = bound(n_bytes, n_ops)
+    shape = "the pair of launches"
+    if cu is not None:
+        info = cu.kernel_info(name, dtype)
+        shape = (f"{info['registers']} registers, {info['blocks_per_sm']} resident blocks of "
+                 f"{info['threads']} threads per SM "
+                 f"({info['blocks_per_sm'] * info['threads'] // 32} of 64 warps), "
+                 f"{info['smem']} B dynamic shared memory, {info['local']} B local memory "
+                 "a thread")
+    say(f"[kernel] {name} {where}: {shape}; {ms!r} ms, achieved {n_bytes / ms / 1e9!r} TB/s "
+        f"(of {PEAK_BYTES / 1e12}) and {n_ops / ms / 1e9!r} TFLOP/s (of {PEAK_F32 / 1e12}); "
+        f"bound {bnd['bound_ms']!r} ms by {bnd['bound_by']} ({n_bytes} B, {n_ops!r} flops), "
+        f"{ms / bnd['bound_ms']:.2f}x it ({card})")
+    return bnd
+
+
+def plain_face_flux(torch, sol, faces):
+    """The plain version of ``aderdg_face_flux``: ``interface_flux`` of
+    every axis, in the kernel's layout ``[dim, n^(dim-1), n_vars, *grid]``."""
+    fshape = sol.face_flux_shape
+    return torch.stack([
+        sol.interface_flux(*(faces[d, k].reshape(fshape) for k in range(4)), d)
+        for d in range(sol.dim)
+    ]).reshape((sol.dim, -1) + tuple(fshape[-4:]))
+
+
+def plain_surface_update(sol, new, fhat, dt):
+    """The plain version of ``aderdg_surface_update`` (a new tensor)."""
+    for d in range(sol.dim):
+        new = sol.surface_term(new, fhat[d].view(sol.face_flux_shape), d, dt)
+    return new
+
+
+def kernel_line(name: str, replaces: str, launches: int, err: float, ms: float,
+                plain_ms: float, bnd: dict) -> dict:
+    """One entry of the kernels JSON for a kernel of ``csrc/aderdg.cu``."""
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "exahype_tpu_torch/csrc/aderdg.cu",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        **bnd,
+        "library_ms": None,  # no single PyTorch call computes it
+    }
 
 
 def sweep_bytes(n_pencils: int, itemsize: int, n_sub=7, nvar=5) -> int:
@@ -439,7 +538,7 @@ def sod_state(solver, torch, device, dtype):
 
 def limited_path(torch, dev, card) -> list[dict]:
     """The limited form of the main path; returns the kernel JSON lines of
-    the face kernel with its face-flux output and of K3."""
+    the face stage with its face-flux output and of K3."""
     import numpy as np
 
     from exahype_tpu_torch.models import subcell_cuda
@@ -459,7 +558,7 @@ def limited_path(torch, dev, card) -> list[dict]:
         plain = LimitedADERDG(sol, adm, **opts)
         return sol, cu, kernel, plain
 
-    # --------------------------------- face kernel's face fluxes vs plain
+    # --------------------------------- the face stage's face fluxes vs plain
     fhat_err = 0.0
     for grid, dtype in (((8, 4, 32), torch.float64), (GRID, torch.float32)):
         sol, cu, _, _ = make(grid, dtype)
@@ -474,10 +573,10 @@ def limited_path(torch, dev, card) -> list[dict]:
                 (f"fhat[{d}]", a, b) for d, (a, b) in enumerate(zip(fl_k, fl_p))]:
             err = max_err(torch, got, ref)
             limit = F64_ATOL if f64 else f32_bound(torch, ref)
-            say(f"[parity] aderdg_face_surface with face fluxes ({what}) "
+            say(f"[parity] face stage with face fluxes ({what}) "
                 f"{str(dtype)[6:]} {grid}: max_abs_err {err:.3e} limit {limit:.3e}")
             if not err <= limit:
-                fail(f"the face kernel's {what} disagrees with its plain version")
+                fail(f"the face stage's {what} disagrees with its plain version")
             if not f64:
                 fhat_err = max(fhat_err, err)
         del sol, cu, u, new, faces, out_k, fl_k, out_p, fl_p
@@ -570,8 +669,7 @@ def limited_path(torch, dev, card) -> list[dict]:
     say(f"[limited main] {STEPS} steps of {GRID} f32 through LimitedADERDG after "
         f"{WARMUP} warm-up steps: launches {launches}; peak "
         f"{torch.cuda.max_memory_allocated() * gib:.4f} GiB allocated ({card})")
-    want = {"aderdg_predictor_volume": STEPS, "aderdg_face_surface": STEPS,
-            "subcell_row_sweep": 3 * STEPS}
+    want = {**{name: STEPS for name in cu.kernels}, "subcell_row_sweep": 3 * STEPS}
     if launches != want:
         fail(f"limited main path launches {launches}, expected {want}")
     finite = bool(torch.isfinite(u).all())
@@ -626,14 +724,22 @@ def limited_path(torch, dev, card) -> list[dict]:
             f"{statistics.median(ms)!r} ms, {dofs / statistics.median(win)!r} "
             f"DOF-updates/s ({dofs} DOF per step; {card})")
     new, faces = cu.predictor_volume(u5, LIMITED_DT)
+    fhat = cu.face_flux(faces)
     parts = {
         "aderdg_predictor_volume": event_ms(
             torch, lambda: cu.predictor_volume(u5, LIMITED_DT), 10),
-        "aderdg_face_surface (no face fluxes)": event_ms(
+        "face stage (no face fluxes)": event_ms(
             torch, lambda: cu.face_surface(new, faces, LIMITED_DT), 10),
-        "aderdg_face_surface (face fluxes)": event_ms(
+        "face stage (face fluxes)": event_ms(
             torch, lambda: cu.face_surface(new, faces, LIMITED_DT, True), 10),
         **{f"subcell_row_sweep d={d}": k3_ms[d] for d in range(3)},
+    }
+    # The face stage's launches alone, as the limited step makes them.
+    launch_ms = {
+        "aderdg_predictor_volume": parts["aderdg_predictor_volume"],
+        "aderdg_face_flux": event_ms(torch, lambda: cu.face_flux(faces), 10),
+        "aderdg_surface_update": event_ms(
+            torch, lambda: cu.surface_update(new, fhat, LIMITED_DT), 10),
     }
     face_plain_ms = event_ms(torch, lambda: sol.face_surface(new, faces, LIMITED_DT, True), 3)
     step_ms = event_ms(torch, lambda: lim.step(u5, LIMITED_DT), 10)
@@ -645,7 +751,7 @@ def limited_path(torch, dev, card) -> list[dict]:
     say(f"[limited time] plain versions (CUDA events): face_surface with face fluxes "
         f"{face_plain_ms!r} ms; sweeps " + ", ".join(
             f"d={d} {k3_plain_ms[d]!r} ms" for d in range(3)) + f" ({card})")
-    del new, faces
+    del new, faces, fhat
 
     # The step's stages one by one on this state (CUDA events); the
     # fallback scatter is idempotent, so it is timed in place.
@@ -711,16 +817,26 @@ def limited_path(torch, dev, card) -> list[dict]:
     ncell = math.prod(GRID)
     face_bytes = torch.empty(sol.face_shape, dtype=u5.dtype, device="meta").nbytes
     fhat_bytes = 3 * sol.n_nodes**2 * sol.n_vars * ncell * itemsize
-    face_bnd = bound(face_fhat_bytes(face_bytes, u5.nbytes, fhat_bytes),
-                     face_surface_ops(ORDER, ncell))
+    state_bytes = u5.nbytes
+    work = {
+        "aderdg_predictor_volume": (2 * state_bytes + face_bytes,
+                                    predictor_ops(ORDER, sol.picard_iters, ncell)),
+        "aderdg_face_flux": (face_flux_bytes(ORDER, ncell, itemsize),
+                             face_flux_ops(ORDER, ncell)),
+        "aderdg_surface_update": (surface_update_bytes(ORDER, ncell, itemsize),
+                                  surface_update_ops(ORDER, ncell)),
+    }
+    for name in cu.kernels:
+        kernel_report(cu, name, torch.float32, f"(Euler, limited path) {GRID} f32",
+                      launch_ms[name], *work[name], card)
+    face_bnd = kernel_report(
+        None, "face stage with face fluxes", torch.float32, f"(Euler, limited path) {GRID} f32",
+        parts["face stage (face fluxes)"], face_fhat_bytes(face_bytes, u5.nbytes, fhat_bytes),
+        face_surface_ops(ORDER, ncell), card)
     pencils_needed = 49 * n_active * GRID[-1]
     pencils_run = 49 * sweep_shape[4] * sweep_shape[5]
     k3_bnd = bound(sweep_bytes(pencils_needed, itemsize), sweep_ops(pencils_needed))
     k3_bnd_full = bound(sweep_bytes(pencils_run, itemsize), sweep_ops(pencils_run))
-    say(f"[bound] aderdg_face_surface with face fluxes {GRID} f32: bound "
-        f"{face_bnd['bound_ms']!r} ms by {face_bnd['bound_by']} (face fluxes "
-        f"{fhat_bytes} B of it); kernel {parts['aderdg_face_surface (face fluxes)']!r} ms "
-        f"({card})")
     say(f"[bound] subcell_row_sweep f32, one sweep: bound {k3_bnd['bound_ms']!r} ms by "
         f"{k3_bnd['bound_by']} for the {n_active} active rows "
         f"({sweep_bytes(pencils_needed, itemsize)} B, {sweep_ops(pencils_needed)!r} "
@@ -728,18 +844,10 @@ def limited_path(torch, dev, card) -> list[dict]:
         f"({sweep_bytes(pencils_run, itemsize)} B); kernel mean "
         f"{statistics.mean(k3_ms.values())!r} ms ({card})")
     return [
-        {
-            "name": "aderdg_face_surface (with face fluxes, limited path)",
-            "route": "cuda",
-            "source": "exahype_tpu_torch/csrc/aderdg.cu",
-            "replaces": "exahype_tpu/models/aderdg_pallas.py:156",
-            "launches": launches["aderdg_face_surface"],
-            "max_abs_err": fhat_err,
-            "ms": parts["aderdg_face_surface (face fluxes)"],
-            "plain_ms": face_plain_ms,
-            **face_bnd,
-            "library_ms": None,  # no single PyTorch call computes it
-        },
+        kernel_line("aderdg_face_flux + aderdg_surface_update (face stage with face fluxes, "
+                    "limited path)", "exahype_tpu/models/aderdg_pallas.py:156",
+                    launches["aderdg_surface_update"], fhat_err,
+                    parts["face stage (face fluxes)"], face_plain_ms, face_bnd),
         {
             "name": "subcell_row_sweep",
             "route": "cuda",
@@ -756,8 +864,9 @@ def limited_path(torch, dev, card) -> list[dict]:
 
 
 def ck_path(torch, dev, card) -> list[dict]:
-    """The CK form of the main path; returns the kernel JSON lines of K2 and
-    of the face kernel's elastic variant (at ``(256, 8, 128)``)."""
+    """The CK form of the main path; returns the kernel JSON lines of K2,
+    of the face stage's elastic variant and of its two kernels (at
+    ``(256, 8, 128)``)."""
     import numpy as np
 
     from exahype_tpu_torch.models.aderdg import ADERDGSolver
@@ -792,17 +901,9 @@ def ck_path(torch, dev, card) -> list[dict]:
     def frozen(q, mat):
         return torch.equal(mats(q), mat)  # values: -0.0 == 0.0
 
-    # Dynamic shared memory per block, as the launchers size it (ptxas
-    # reports static shared memory only): K2's epilogue holds q̄ and F̄_d of
-    # 12 rows, the face kernel both faces' fluxes, for 32 bytes of cells.
-    nodes = (ORDER + 1) ** 3
-    say("[build] dynamic shared memory per block (csrc/aderdg.cu launchers): "
-        f"aderdg_ck_predictor_volume {4 * N_VARS_3D_HET * nodes * 32} B, "
-        f"aderdg_face_surface (elastic) {3 * 2 * N_VARS_3D_HET * nodes // (ORDER + 1) * 32} "
-        "B, in f32 and f64 alike (opt-in above 49152 B)")
-
-    # ------------------------------- K2 and the elastic face kernel vs plain
-    errs = {"aderdg_ck_predictor_volume": 0.0, "aderdg_face_surface": 0.0}
+    # ------------------------------- K2 and the elastic face stage vs plain
+    errs = {name: 0.0 for name in ("aderdg_ck_predictor_volume", "face stage",
+                                   "aderdg_face_flux", "aderdg_surface_update")}
     for grid, dtype in (((8, 4, 32), torch.float64),) + tuple(
             (g, torch.float32) for g in CK_GRIDS):
         sol, cu = make(grid, dtype)
@@ -813,23 +914,32 @@ def ck_path(torch, dev, card) -> list[dict]:
         new_p, faces_p = sol.predictor_volume(u, dt)
         surf_k = cu.face_surface(new_p.clone(), faces_p, dt)
         surf_p = sol.face_surface(new_p, faces_p, dt)
+        # F̂ as the face stage returns it: aderdg_face_flux leaves the
+        # material rows unwritten, and the wrapper zeroes them.
+        surf_f, fl_k = cu.face_surface(new_p.clone(), faces_p, dt, return_face_fluxes=True)
+        fhat_p = plain_face_flux(torch, sol, faces_p)
+        fhat_k = torch.stack(fl_k).view(fhat_p.shape)
+        upd_k = cu.surface_update(new_p.clone(), fhat_p, dt)
+        upd_p = plain_surface_update(sol, new_p, fhat_p, dt)
         step_k = cu.step(u, dt)
         step_p = sol.step(u, dt)
         torch.cuda.synchronize()
         if not torch.equal(u, u_in):
             fail("the CK step modified its input")
         f64 = dtype == torch.float64
-        for name, what, got, ref in (
-            ("aderdg_ck_predictor_volume", "new", new_k, new_p),
-            ("aderdg_ck_predictor_volume", "faces", faces_k, faces_p),
-            ("aderdg_face_surface", "new", surf_k, surf_p),
-            ("step", "new", step_k, step_p),
+        for name, what, got, ref, va in (
+            ("aderdg_ck_predictor_volume", "new", new_k, new_p, 3),
+            ("aderdg_ck_predictor_volume", "faces", faces_k, faces_p, 3),
+            ("face stage", "new", surf_k, surf_p, 3),
+            ("aderdg_face_flux", "fhat", fhat_k, fhat_p, 2),
+            ("aderdg_surface_update", "new", upd_k, upd_p, 3),
+            ("step", "new", step_k, step_p, 3),
         ):
             # The evolved rows against the bound of their own largest value,
             # the material rows against theirs (the wave is ~1e-3, the
-            # materials up to 3).
+            # materials up to 3; their face fluxes are zero).
             for rows, lo, n in (("evolved", 0, E), ("material", E, N_VARS_3D_HET - E)):
-                g, r = got.narrow(3, lo, n), ref.narrow(3, lo, n)
+                g, r = got.narrow(va, lo, n), ref.narrow(va, lo, n)
                 err = max_err(torch, g, r)
                 limit = F64_ATOL if f64 else f32_bound(torch, r)
                 ok = err <= limit
@@ -843,15 +953,18 @@ def ck_path(torch, dev, card) -> list[dict]:
                 if name in errs and not f64 and grid == CK_GRIDS[-1]:
                     errs[name] = max(errs[name], err)
         exact = {
-            "predictor new": frozen(new_k, mat), "face-surface new": frozen(surf_k, mat),
-            "step": frozen(step_k, mat),
+            "predictor new": frozen(new_k, mat), "face-stage new": frozen(surf_k, mat),
+            "surface-update new": frozen(upd_k, mat), "step": frozen(step_k, mat),
             "material flux rows of the faces zero": not bool(mats(faces_k[:, 2:], 3).any()),
+            "material rows of the returned face fluxes zero": not bool(mats(fhat_k, 2).any()),
+            "face-stage new with face fluxes bitwise equal": torch.equal(surf_f, surf_k),
         }
         say(f"[ck parity] kernel materials {str(dtype)[6:]} {grid}: {exact}")
         if not all(exact.values()):
-            fail(f"the CK kernels moved the material slots ({dtype}, {grid})")
+            fail(f"the CK kernels moved the material slots, wrote nonzero material fluxes or "
+                 f"changed bits with the face-flux output ({dtype}, {grid})")
         del sol, cu, u, u_in, mat, new_k, faces_k, new_p, faces_p, surf_k, surf_p
-        del step_k, step_p, got, ref, g, r
+        del surf_f, fl_k, fhat_k, fhat_p, upd_k, upd_p, step_k, step_p, got, ref, g, r
         torch.cuda.empty_cache()
 
     # ------------------------------- the main path at both grids
@@ -875,7 +988,7 @@ def ck_path(torch, dev, card) -> list[dict]:
         torch.cuda.synchronize()
         launches = dict(cu.launches)
         say(f"[ck main] {steps} steps of {grid} f32 through CudaADERDG: launches {launches}")
-        want = {"aderdg_ck_predictor_volume": steps, "aderdg_face_surface": steps}
+        want = {name: steps for name in cu.kernels}
         if launches != want:
             fail(f"CK main path launches {launches}, expected {want}")
         finite, is_frozen = bool(torch.isfinite(u).all()), frozen(u, mat)
@@ -915,54 +1028,72 @@ def ck_path(torch, dev, card) -> list[dict]:
                 f"{statistics.median(ms)!r} ms, {evolved_dofs / statistics.median(win)!r} "
                 f"evolved-DOF-updates/s ({evolved_dofs} evolved DOF per step; {card})")
         new, faces = cu.predictor_volume(ustart, dt)
+        fhat = cu.face_flux(faces)
         times = {
             "aderdg_ck_predictor_volume": (
                 event_ms(torch, lambda: cu.predictor_volume(ustart, dt), 20),
                 event_ms(torch, lambda: sol.predictor_volume(ustart, dt), 3),
             ),
-            "aderdg_face_surface": (
+            "face stage": (
                 event_ms(torch, lambda: cu.face_surface(new, faces, dt), 20),
                 event_ms(torch, lambda: sol.face_surface(new, faces, dt), 3),
+            ),
+            "aderdg_face_flux": (
+                event_ms(torch, lambda: cu.face_flux(faces), 20),
+                event_ms(torch, lambda: plain_face_flux(torch, sol, faces), 3),
+            ),
+            "aderdg_surface_update": (
+                event_ms(torch, lambda: cu.surface_update(new, fhat, dt), 20),
+                event_ms(torch, lambda: plain_surface_update(sol, new, fhat, dt), 3),
             ),
         }
         for name, (ms, plain_ms) in times.items():
             say(f"[ck time] {grid} {name}: kernel {ms!r} ms, plain {plain_ms!r} ms "
                 f"(CUDA events; {card})")
+        del new, fhat
         for label, solver, n in (("kernel path", cu, 20), ("plain path", sol, 2)):
             idle, busy, wall = idle_share(torch, lambda: solver.run(ustart, n, dt))
             say(f"[ck idle] {grid} {label}, {n} steps under torch.profiler: device busy "
                 f"{busy!r} ms of wall {wall!r} ms; idle share {idle!r} ({card})")
+        # The face stage's bound is the pair's; it and its kernels' count
+        # only the rows their work needs (no flux and no update of the
+        # frozen materials).
         state_bytes = ustart.nbytes
         face_bytes = faces.nbytes
-        bounds = {
-            "aderdg_ck_predictor_volume": bound(ck_bytes(state_bytes, face_bytes),
-                                                ck_predictor_ops(ORDER, ncell)),
-            "aderdg_face_surface": bound(face_bytes + 2 * state_bytes, face_surface_ops(
-                ORDER, ncell, nvar=N_VARS_3D_HET, eig_ops=ELASTIC_EIG_OPS, masked=True)),
+        itemsize = ustart.element_size()
+        elastic = dict(nvar=N_VARS_3D_HET, eig_ops=ELASTIC_EIG_OPS, masked=True)
+        work = {
+            "aderdg_ck_predictor_volume": (ck_bytes(state_bytes, face_bytes),
+                                           ck_predictor_ops(ORDER, ncell)),
+            "aderdg_face_flux": (
+                face_flux_bytes(ORDER, ncell, itemsize, nvar=N_VARS_3D_HET, rows=E),
+                face_flux_ops(ORDER, ncell, **elastic)),
+            "aderdg_surface_update": (surface_update_bytes(ORDER, ncell, itemsize, rows=E),
+                                      surface_update_ops(ORDER, ncell, nvar=E)),
+            "face stage": (
+                face_stage_bytes(ORDER, ncell, itemsize, nvar=N_VARS_3D_HET, rows=E),
+                face_surface_ops(ORDER, ncell, **elastic)),
         }
-        for name, bnd in bounds.items():
-            say(f"[bound] {name} (CK, elastic) {grid} f32: bound {bnd['bound_ms']!r} ms by "
-                f"{bnd['bound_by']} (state {state_bytes} B, faces {face_bytes} B); kernel "
-                f"{times[name][0]!r} ms ({card})")
+        del faces
+        bounds = {
+            name: kernel_report(None if name == "face stage" else cu, name, torch.float32,
+                                f"(CK, elastic) {grid} f32", times[name][0], *work[name], card)
+            for name in (*cu.kernels, "face stage")
+        }
         if grid != CK_GRIDS[-1]:
             continue
-        lines = [  # the kernels at the grid where the card is the limit
-            {
-                "name": "aderdg_ck_predictor_volume" if name.startswith("aderdg_ck")
-                else "aderdg_face_surface (12-var elastic, dissipation mask, CK path)",
-                "route": "cuda",
-                "source": "exahype_tpu_torch/csrc/aderdg.cu",
-                "replaces": "exahype_tpu/models/aderdg_pallas.py:358"
-                if name.startswith("aderdg_ck") else "exahype_tpu/models/aderdg_pallas.py:156",
-                "launches": launches[name],
-                "max_abs_err": errs[name],
-                "ms": times[name][0],
-                "plain_ms": times[name][1],
-                **bounds[name],
-                "library_ms": None,  # no single PyTorch call computes it
-            }
+        # The kernels at the grid where the card is the limit.
+        replaces = {"aderdg_ck_predictor_volume": "exahype_tpu/models/aderdg_pallas.py:358"}
+        lines = [
+            kernel_line(name, replaces.get(name, "exahype_tpu/models/aderdg_pallas.py:156"),
+                        launches[name], errs[name], *times[name], bounds[name])
             for name in cu.kernels
         ]
+        lines.append(kernel_line(
+            "aderdg_face_flux + aderdg_surface_update (face stage, 12-var elastic, "
+            "dissipation mask, CK path)", "exahype_tpu/models/aderdg_pallas.py:156",
+            launches["aderdg_surface_update"], errs["face stage"], *times["face stage"],
+            bounds["face stage"]))
     return lines
 
 
@@ -1101,7 +1232,7 @@ def fv_path(torch, dev, card, spec_printers) -> dict:
 
 def aderdg_path(torch, dev, card) -> list[dict]:
     """The ADER-DG form of the main path; returns the kernel JSON lines of
-    its two kernels."""
+    its three kernels and of the face stage (the pair of launches)."""
     from exahype_tpu_torch.models.aderdg import ADERDGSolver, euler_physics
     from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
 
@@ -1128,6 +1259,9 @@ def aderdg_path(torch, dev, card) -> list[dict]:
         new_p, faces_p = psol.predictor_volume(u, dt)
         surf_k = pcu.face_surface(new_p.clone(), faces_p, dt)
         surf_p = psol.face_surface(new_p, faces_p, dt)
+        fhat_k, fhat_p = pcu.face_flux(faces_p), plain_face_flux(torch, psol, faces_p)
+        upd_k = pcu.surface_update(new_p.clone(), fhat_p, dt)
+        upd_p = plain_surface_update(psol, new_p, fhat_p, dt)
         step_k = pcu.step(u, dt)
         step_p = psol.step(u, dt)
         torch.cuda.synchronize()
@@ -1138,7 +1272,9 @@ def aderdg_path(torch, dev, card) -> list[dict]:
         for name, what, got, ref in (
             ("aderdg_predictor_volume", "new", new_k, new_p),
             ("aderdg_predictor_volume", "faces", faces_k, faces_p),
-            ("aderdg_face_surface", "new", surf_k, surf_p),
+            ("face stage", "new", surf_k, surf_p),
+            ("aderdg_face_flux", "fhat", fhat_k, fhat_p),
+            ("aderdg_surface_update", "new", upd_k, upd_p),
             ("step", "new", step_k, step_p),
         ):
             err = max_err(torch, got, ref)
@@ -1160,7 +1296,7 @@ def aderdg_path(torch, dev, card) -> list[dict]:
                 f"{max_err(torch, step_p, ref64):.3e}")
             del sol64, ref64
         del psol, pcu, u, u_in, new_k, faces_k, new_p, faces_p, surf_k, surf_p
-        del step_k, step_p, got, ref
+        del fhat_k, fhat_p, upd_k, upd_p, step_k, step_p, got, ref
 
     # --------------------------------------------------- 4. main path
     gib = 2.0**-30
@@ -1220,20 +1356,29 @@ def aderdg_path(torch, dev, card) -> list[dict]:
             f"{dofs / statistics.median(win)!r} DOF-updates/s "
             f"({card})")
     new, faces = cu.predictor_volume(u0, dt)
+    fhat = cu.face_flux(faces)
     times = {
         "aderdg_predictor_volume": (
             event_ms(torch, lambda: cu.predictor_volume(u0, dt), 20),
             event_ms(torch, lambda: sol.predictor_volume(u0, dt), 3),
         ),
-        "aderdg_face_surface": (
+        "face stage": (
             event_ms(torch, lambda: cu.face_surface(new, faces, dt), 20),
             event_ms(torch, lambda: sol.face_surface(new, faces, dt), 3),
+        ),
+        "aderdg_face_flux": (
+            event_ms(torch, lambda: cu.face_flux(faces), 20),
+            event_ms(torch, lambda: plain_face_flux(torch, sol, faces), 3),
+        ),
+        "aderdg_surface_update": (
+            event_ms(torch, lambda: cu.surface_update(new, fhat, dt), 20),
+            event_ms(torch, lambda: plain_surface_update(sol, new, fhat, dt), 3),
         ),
     }
     for name, (ms, plain_ms) in times.items():
         say(f"[time] {name}: kernel {ms!r} ms, plain {plain_ms!r} ms "
             f"(CUDA events; {card})")
-    del new, faces
+    del new, faces, fhat
     for label, solver, steps in (("kernel path", cu, 20), ("plain path", sol, 3)):
         idle, busy, wall = idle_share(torch, lambda: solver.run(u0, steps, dt))
         say(f"[idle] {label}, {steps} steps under torch.profiler: device busy "
@@ -1249,37 +1394,36 @@ def aderdg_path(torch, dev, card) -> list[dict]:
 
     # Least times of each kernel's work at the bench shape (this run's
     # tensors): the bytes it must move (inputs read once, outputs written
-    # once) and the flops of its arithmetic (analytic count).
+    # once) and the flops of its arithmetic (analytic count).  The face
+    # stage's bound is the pair's: the faces and the state read, the state
+    # written (F̂ is an intermediate; :func:`face_stage_bytes`).
     ncell = sol.dofs() // (sol.n_nodes**3 * sol.n_vars)
     face_bytes = torch.empty(sol.face_shape, dtype=u0.dtype, device="meta").nbytes
     state_bytes = u0.nbytes
-    bounds = {
-        "aderdg_predictor_volume": bound(
-            2 * state_bytes + face_bytes,
-            predictor_ops(ORDER, sol.picard_iters, ncell),
-        ),
-        "aderdg_face_surface": bound(
-            face_bytes + 2 * state_bytes, face_surface_ops(ORDER, ncell),
-        ),
+    itemsize = u0.element_size()
+    work = {
+        "aderdg_predictor_volume": (2 * state_bytes + face_bytes,
+                                    predictor_ops(ORDER, sol.picard_iters, ncell)),
+        "aderdg_face_flux": (face_flux_bytes(ORDER, ncell, itemsize),
+                             face_flux_ops(ORDER, ncell)),
+        "aderdg_surface_update": (surface_update_bytes(ORDER, ncell, itemsize),
+                                  surface_update_ops(ORDER, ncell)),
+        "face stage": (face_stage_bytes(ORDER, ncell, itemsize), face_surface_ops(ORDER, ncell)),
     }
+    bounds = {
+        name: kernel_report(None if name == "face stage" else cu, name, torch.float32,
+                            f"(Euler) {GRID} f32", times[name][0], *work[name], card)
+        for name in (*cu.kernels, "face stage")
+    }
+    replaces = "exahype_tpu/models/aderdg_pallas.py:156"
     kernels = [
-        {
-            "name": name,
-            "route": "cuda",
-            "source": "exahype_tpu_torch/csrc/aderdg.cu",
-            "replaces": "exahype_tpu/models/aderdg_pallas.py:156",
-            "launches": launches[name],
-            "max_abs_err": errs[name],
-            "ms": times[name][0],
-            "plain_ms": times[name][1],
-            **bounds[name],
-            "library_ms": None,  # no single PyTorch call computes it
-        }
+        kernel_line(name, replaces, launches[name], errs[name], *times[name], bounds[name])
         for name in cu.kernels
     ]
-    for k in kernels:
-        say(f"[bound] {k['name']} {GRID} f32: bound {k['bound_ms']!r} ms by "
-            f"{k['bound_by']}; kernel {k['ms']!r} ms ({card})")
+    kernels.append(kernel_line(
+        "aderdg_face_flux + aderdg_surface_update (face stage, Euler)", replaces,
+        launches["aderdg_surface_update"], errs["face stage"], *times["face stage"],
+        bounds["face stage"]))
     del cu, sol, u0, u
     torch.cuda.empty_cache()
     return kernels

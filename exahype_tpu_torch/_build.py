@@ -53,11 +53,15 @@ _PREDICTOR_VOLUME = (
 _CK_PREDICTOR_VOLUME = (
     _P, _P, _P, _P, ctypes.c_double, _P, _P, _INT, _INT, _P, _LL, _LL, _LL, _P,
 )
-# state, faces, fhat, dt_ptr, dt_val, ops, dx, order, physics, params, g0,
-# g1, g2, stream
-_FACE_SURFACE = (
-    _P, _P, _P, _P, ctypes.c_double, _P, _P, _INT, _INT, _P, _LL, _LL, _LL, _P,
+# faces, fhat, ops, dx, order, physics, params, g0, g1, g2, stream
+_FACE_FLUX = (_P, _P, _P, _P, _INT, _INT, _P, _LL, _LL, _LL, _P)
+# state, fhat, dt_ptr, dt_val, ops, dx, order, physics, params, g0, g1, g2,
+# stream
+_SURFACE_UPDATE = (
+    _P, _P, _P, ctypes.c_double, _P, _P, _INT, _INT, _P, _LL, _LL, _LL, _P,
 )
+# kernel, f64, physics, out (5 ints)
+_KERNEL_INFO = (_INT, _INT, _INT, _P)
 # s, ghost_lo, ghost_hi, s_new, g_lo, g_hi, dt_ptr, dt_val, h, gamma, dim,
 # n_sub, n_vars, d, n_kl, stream
 _ROW_SWEEP = (
@@ -76,12 +80,14 @@ _SIGNATURES = {
     for kernel, argtypes in (
         ("aderdg_predictor_volume", _PREDICTOR_VOLUME),
         ("aderdg_ck_predictor_volume", _CK_PREDICTOR_VOLUME),
-        ("aderdg_face_surface", _FACE_SURFACE),
+        ("aderdg_face_flux", _FACE_FLUX),
+        ("aderdg_surface_update", _SURFACE_UPDATE),
         ("subcell_row_sweep", _ROW_SWEEP),
         ("rhs_all_z4", _RHS_ALL),
     )
     for suffix in ("f32", "f64")
 }
+_SIGNATURES["exahype_aderdg_kernel_info"] = _KERNEL_INFO
 
 
 class BuildError(RuntimeError):

@@ -10,20 +10,25 @@
 
 #include "device_math.cuh"
 
+// The pressure from the state and its 1/rho.
 template <typename T, int DIM>
-__device__ __forceinline__ T euler_pressure(const T* q, T gm1) {
-  const T inv_rho = T(1) / q[0];
+__device__ __forceinline__ T euler_pressure_from(const T* q, T inv_rho, T gm1) {
   T kinetic = q[1] * q[1] + q[2] * q[2];
   if constexpr (DIM == 3) kinetic = kinetic + q[3] * q[3];
   return gm1 * (q[DIM + 1] - T(0.5) * inv_rho * kinetic);
 }
 
-// Flux along axis n (a compile-time constant once inlined): NREAL
-// components, zero beyond the DIM + 2 of Euler.
+template <typename T, int DIM>
+__device__ __forceinline__ T euler_pressure(const T* q, T gm1) {
+  return euler_pressure_from<T, DIM>(q, T(1) / q[0], gm1);
+}
+
+// Flux along axis n (a compile-time constant once inlined) from the state,
+// its 1/rho and its pressure: NREAL components, zero beyond the DIM + 2 of
+// Euler.  A caller that needs the flux along every axis computes 1/rho and
+// the pressure once (one division per node, not one per axis).
 template <typename T, int DIM, int NREAL>
-__device__ __forceinline__ void euler_flux(const T* q, int n, T gm1, T* f) {
-  const T inv_rho = T(1) / q[0];
-  const T p = euler_pressure<T, DIM>(q, gm1);
+__device__ __forceinline__ void euler_flux_from(const T* q, int n, T inv_rho, T p, T* f) {
   const T coeff = inv_rho * q[n + 1];
   T c[DIM + 2];
 #pragma unroll
@@ -38,6 +43,12 @@ __device__ __forceinline__ void euler_flux(const T* q, int n, T gm1, T* f) {
       f[k] = T(0);
     }
   }
+}
+
+template <typename T, int DIM, int NREAL>
+__device__ __forceinline__ void euler_flux(const T* q, int n, T gm1, T* f) {
+  const T inv_rho = T(1) / q[0];
+  euler_flux_from<T, DIM, NREAL>(q, n, inv_rho, euler_pressure_from<T, DIM>(q, inv_rho, gm1), f);
 }
 
 // Largest |wave speed| along the axis whose momentum is q_n.

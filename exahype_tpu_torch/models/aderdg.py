@@ -441,11 +441,12 @@ class ADERDGSolver(nn.Module):
         return new, torch.stack(faces).reshape(self.face_shape)
 
     def face_surface(self, new, faces, dt, return_face_fluxes: bool = False):
-        """Neighbour half of the step (the plain version of the
-        ``aderdg_face_surface`` kernel): the Rusanov flux of every face and
-        the surface update, axis by axis.  Returns the updated state (a new
-        tensor; ``new`` is not modified), and with ``return_face_fluxes``
-        also each axis's high-face fluxes (see :meth:`face_update`)."""
+        """Neighbour half of the step (the plain version of the face stage,
+        ``aderdg_face_flux`` + ``aderdg_surface_update``): the Rusanov flux
+        of every face and the surface update, axis by axis.  Returns the
+        updated state (a new tensor; ``new`` is not modified), and with
+        ``return_face_fluxes`` also each axis's high-face fluxes (see
+        :meth:`face_update`)."""
         fshape = self.face_flux_shape
         fluxes = []
         for d in range(self.dim):
@@ -477,13 +478,33 @@ class ADERDGSolver(nn.Module):
         (periodic neighbours).  Returns ``(new, fhat_hi)``: the updated
         state and the Rusanov flux through each cell's high face, nodal
         over the transverse node axes (:attr:`face_flux_shape`)."""
-        lam = dt / self._dxs[d]
-        node_ax = self.node_axis(d)
+        fhat_hi = self.interface_flux(q_lo, q_hi, f_lo, f_hi, d)
+        new = self.surface_term(new, fhat_hi, d, dt)
+        if self.ncp_fn is not None:
+            # Path-conservative face fluctuations: the central parts
+            # ½·B(q̃)·Δq at the segment midpoint q̃ go one to each side (the
+            # ±½sΔq dissipation is already in the Rusanov f̂).
+            lam = dt / self._dxs[d]
+            node_ax = self.node_axis(d)
+            face_grid_ax = self.grid_axis(d) - 1
+            phi1_w, phi0_w = self._surface_weights(new, d)
+            q_plus = torch.roll(q_lo, -1, face_grid_ax)
+            mid = 0.5 * (q_hi + q_plus)
+            half = 0.5 * self.ncp_fn(mid, q_plus - q_hi, d, self.var_axis - 1)
+            half_lo = torch.roll(half, 1, face_grid_ax)
+            new = new - lam * (
+                phi1_w * half.unsqueeze(node_ax)
+                + phi0_w * half_lo.unsqueeze(node_ax)
+            )
+        return new, fhat_hi
+
+    def interface_flux(self, q_lo, q_hi, f_lo, f_hi, d):
+        """The Rusanov flux through each cell's high face along ``d``
+        (:attr:`face_flux_shape`; the plain version of the
+        ``aderdg_face_flux`` kernel, one axis): left state my high face,
+        right state the +d neighbour's low face."""
         face_grid_ax = self.grid_axis(d) - 1
         face_va = self.var_axis - 1
-
-        # Face between me and my +d neighbour: left state = my high face,
-        # right state = the neighbour's low face.
         q_plus = torch.roll(q_lo, -1, face_grid_ax)
         f_plus = torch.roll(f_lo, -1, face_grid_ax)
         s_hi = torch.maximum(
@@ -493,31 +514,28 @@ class ADERDGSolver(nn.Module):
         dq = q_plus - q_hi
         if self.dmask is not None:
             dq = dq * self.dmask.to(dq.dtype)
-        fhat_hi = 0.5 * (f_hi + f_plus) - 0.5 * s_hi * dq
-        # Face between my -d neighbour and me: that neighbour's fhat_hi.
-        fhat_lo = torch.roll(fhat_hi, 1, face_grid_ax)
+        return 0.5 * (f_hi + f_plus) - 0.5 * s_hi * dq
 
-        # Surface contribution: −(λ/w_i)(ℓ_i(1) F̂_hi − ℓ_i(0) F̂_lo).
-        shape_i = [1] * new.dim()
-        shape_i[node_ax] = self.n_nodes
-        phi1_w = self.phi1_w.to(new.dtype).reshape(shape_i)
-        phi0_w = self.phi0_w.to(new.dtype).reshape(shape_i)
-        new = new - lam * (
+    def surface_term(self, new, fhat_hi, d, dt):
+        """``new − (λ/w_i)(ℓ_i(1) F̂_hi − ℓ_i(0) F̂_lo)`` along ``d``, F̂_lo
+        being the −d neighbour's F̂_hi (the plain version of the
+        ``aderdg_surface_update`` kernel, one axis)."""
+        lam = dt / self._dxs[d]
+        node_ax = self.node_axis(d)
+        fhat_lo = torch.roll(fhat_hi, 1, self.grid_axis(d) - 1)
+        phi1_w, phi0_w = self._surface_weights(new, d)
+        return new - lam * (
             phi1_w * fhat_hi.unsqueeze(node_ax)
             - phi0_w * fhat_lo.unsqueeze(node_ax)
         )
-        if self.ncp_fn is not None:
-            # Path-conservative face fluctuations: the central parts
-            # ½·B(q̃)·Δq at the segment midpoint q̃ go one to each side (the
-            # ±½sΔq dissipation is already in the Rusanov f̂ above).
-            mid = 0.5 * (q_hi + q_plus)
-            half = 0.5 * self.ncp_fn(mid, q_plus - q_hi, d, face_va)
-            half_lo = torch.roll(half, 1, face_grid_ax)
-            new = new - lam * (
-                phi1_w * half.unsqueeze(node_ax)
-                + phi0_w * half_lo.unsqueeze(node_ax)
-            )
-        return new, fhat_hi
+
+    def _surface_weights(self, new, d):
+        """ℓ_i(1)/w_i and ℓ_i(0)/w_i along node axis ``d``, broadcastable
+        against the state."""
+        shape_i = [1] * new.dim()
+        shape_i[self.node_axis(d)] = self.n_nodes
+        return (self.phi1_w.to(new.dtype).reshape(shape_i),
+                self.phi0_w.to(new.dtype).reshape(shape_i))
 
     # ------------------------------------------------------------- time loop
 

@@ -4,27 +4,30 @@ Port of ``exahype_tpu/models/aderdg_pallas.py::PallasADERDG`` on the
 periodic, flux-form path at order 3 in 3-D, for two physics: compressible
 Euler on the Picard predictor (``bench.py::main``) and heterogeneous
 elasticity on the Cauchy–Kovalewski predictor with its materials frozen
-(``bench.py::bench_ck``).  The step is two kernels from ``csrc/aderdg.cu``
-(see the note there for the design):
+(``bench.py::bench_ck``).  The step is three launches of kernels from
+``csrc/aderdg.cu`` (see the note there for the design):
 
 - ``aderdg_predictor_volume`` (Picard) or ``aderdg_ck_predictor_volume``
   (CK): predictor, time averages, volume integral and the face projections
   of every axis;
-- ``aderdg_face_surface``: the Rusanov flux of each cell's two faces per
-  axis (with the physics' dissipation mask) and the surface update of
-  ``new``, in place (on the CPU too); on request it also writes each cell's
-  high-face fluxes, the limiter's input (the Pallas kernel's
-  ``emit_fused_fhat`` outputs).
+- the face stage, two launches: ``aderdg_face_flux`` solves every interface
+  once (the Rusanov flux, with the physics' dissipation mask) into a
+  face-flux tensor, each cell's high-face fluxes of every axis, which is
+  also the limiter's input (the Pallas kernel's ``emit_fused_fhat``
+  outputs); ``aderdg_surface_update`` then updates ``new`` in place (on the
+  CPU too) from each cell's own and its lower neighbours' entries.
 
 Each wrapper takes its plain PyTorch version
 (``ADERDGSolver.predictor_volume`` / ``face_surface``) for a tensor on the
-CPU, and launches its kernel — or raises — for a CUDA tensor.  It counts its
-launches in :attr:`CudaADERDG.launches`.  The Pallas kernel's TPU knobs
+CPU, and launches its kernels — or raises — for a CUDA tensor.  It counts
+each kernel's launches in :attr:`CudaADERDG.launches`.  The Pallas kernel's TPU knobs
 (``tile0``, ``vmem_limit_bytes``, ``boundary_faces_only``, ``picard_loop``,
 ``slice_loop``, ``interpret``) have no counterpart here.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -65,7 +68,8 @@ class CudaADERDG:
     """
 
     KERNELS = (
-        "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_surface",
+        "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
+        "aderdg_surface_update",
     )
 
     def __init__(self, solver: ADERDGSolver):
@@ -114,11 +118,14 @@ class CudaADERDG:
                 )
         self.solver = solver
         self._physics_id = physics["id"]
+        # The rows whose face flux can be nonzero: all but the frozen
+        # materials, the last rows (the kernels' Phys::kFluxRows).
+        self._flux_rows = min(physics["ck_material_slots"] or (n_vars,))
         self._params = np.ascontiguousarray(tag.params or (0.0,), dtype=np.float64)
-        #: The kernels of this solver's step: its predictor and the face kernel.
+        #: The kernels of this solver's step: its predictor and the face stage.
         self.kernels = (
             "aderdg_ck_predictor_volume" if mode == "ck" else "aderdg_predictor_volume",
-            "aderdg_face_surface",
+            "aderdg_face_flux", "aderdg_surface_update",
         )
         #: Launches per kernel since construction (or the last reset).
         self.launches = {name: 0 for name in self.kernels}
@@ -187,31 +194,76 @@ class CudaADERDG:
             if return_face_fluxes:
                 return new.copy_(out[0]), out[1]
             return new.copy_(out)
-        self._check(new, sol.state_shape, "new")
-        self._check(faces, sol.face_shape, "faces")
-        if faces.dtype != new.dtype or faces.device != new.device:
-            raise LoweringError("faces must match new's dtype and device")
-        fhat = None
+        fhat = self.face_flux(faces)
+        self.surface_update(new, fhat, dt)
         if return_face_fluxes:
-            fhat = torch.empty(
-                (sol.dim, sol.n_nodes ** (sol.dim - 1), sol.n_vars) + sol.grid_shape,
-                dtype=new.dtype, device=new.device,
+            fhat[:, :, self._flux_rows:].zero_()  # the unwritten rows; none for Euler
+            return new, [fhat[d].view(sol.face_flux_shape) for d in range(sol.dim)]
+        return new
+
+    def face_flux(self, faces):
+        """The face stage's first launch (CUDA tensors only): every
+        interface's Rusanov flux, ``[dim, n^(dim-1), n_vars, *grid]``, each
+        cell's high-face fluxes.  The rows that are zero by construction
+        (the elasticity's frozen materials, from its first material slot
+        on) are not written: :meth:`surface_update` never reads them, and
+        :meth:`face_surface` zeroes them when it returns the fluxes."""
+        sol = self.solver
+        if not faces.is_cuda:
+            raise LoweringError("face_flux launches a CUDA kernel: faces must be on the card")
+        self._check(faces, sol.face_shape, "faces")
+        fhat = torch.empty(
+            (sol.dim, sol.n_nodes ** (sol.dim - 1), sol.n_vars) + sol.grid_shape,
+            dtype=faces.dtype, device=faces.device,
+        )
+        lib = _build.library()
+        with torch.cuda.device(faces.device):
+            stream = torch.cuda.current_stream(faces.device).cuda_stream
+            err = getattr(lib, f"exahype_aderdg_face_flux_{_SUFFIX[faces.dtype]}")(
+                faces.data_ptr(), fhat.data_ptr(), self._ops.ctypes.data,
+                self._dx.ctypes.data, sol.order, self._physics_id,
+                self._params.ctypes.data, *sol.grid_shape, stream,
             )
+        _build.check(lib, err, "aderdg_face_flux")
+        self.launches["aderdg_face_flux"] += 1
+        return fhat
+
+    def surface_update(self, new, fhat, dt):
+        """The face stage's second launch (CUDA tensors only): the surface
+        update of ``new`` from :meth:`face_flux`'s ``fhat``, in place;
+        returns ``new``."""
+        sol = self.solver
+        if not new.is_cuda:
+            raise LoweringError("surface_update launches a CUDA kernel: new must be on the card")
+        self._check(new, sol.state_shape, "new")
+        self._check(fhat, (sol.dim, sol.n_nodes ** (sol.dim - 1), sol.n_vars) + sol.grid_shape,
+                    "fhat")
+        if fhat.dtype != new.dtype or fhat.device != new.device:
+            raise LoweringError("faces must match new's dtype and device")
         dt_dev, dt_ptr, dt_val = self._dt_args(dt, new)
         lib = _build.library()
         with torch.cuda.device(new.device):
             stream = torch.cuda.current_stream(new.device).cuda_stream
-            err = getattr(lib, f"exahype_aderdg_face_surface_{_SUFFIX[new.dtype]}")(
-                new.data_ptr(), faces.data_ptr(),
-                None if fhat is None else fhat.data_ptr(), dt_ptr, dt_val,
-                self._ops.ctypes.data, self._dx.ctypes.data, sol.order,
-                self._physics_id, self._params.ctypes.data, *sol.grid_shape, stream,
+            err = getattr(lib, f"exahype_aderdg_surface_update_{_SUFFIX[new.dtype]}")(
+                new.data_ptr(), fhat.data_ptr(), dt_ptr, dt_val, self._ops.ctypes.data,
+                self._dx.ctypes.data, sol.order, self._physics_id,
+                self._params.ctypes.data, *sol.grid_shape, stream,
             )
-        _build.check(lib, err, "aderdg_face_surface")
-        self.launches["aderdg_face_surface"] += 1
-        if return_face_fluxes:
-            return new, [fhat[d].view(sol.face_flux_shape) for d in range(sol.dim)]
+        _build.check(lib, err, "aderdg_surface_update")
+        self.launches["aderdg_surface_update"] += 1
         return new
+
+    def kernel_info(self, name: str, dtype) -> dict:
+        """How ``name`` (one of :attr:`kernels`) launches for this solver's
+        physics in ``dtype`` on the current card: ``registers`` per thread,
+        resident ``blocks_per_sm``, ``threads`` per block, dynamic ``smem``
+        bytes and ``local`` (spill) bytes per thread."""
+        out = (ctypes.c_int * 5)()
+        lib = _build.library()
+        err = lib.exahype_aderdg_kernel_info(
+            self.KERNELS.index(name), int(dtype == torch.float64), self._physics_id, out)
+        _build.check(lib, err, f"kernel_info({name})")
+        return dict(zip(("registers", "blocks_per_sm", "threads", "smem", "local"), out))
 
     # ------------------------------------------------------- solver protocol
 

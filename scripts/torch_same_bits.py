@@ -8,7 +8,7 @@ and of ``OTHER_CHECKOUT`` (each in a process of its own, importing the port
 from its own root and building its own ``csrc/``) on the same inputs —
 ``bench.py``'s state recipe at ``(8, 4, 32)`` in float64 and float32 and at
 ``(256, 8, 128)`` in float32, dt under the CFL limit — and compares
-``aderdg_predictor_volume``'s ``new`` and ``faces``, ``aderdg_face_surface``'s
+``aderdg_predictor_volume``'s ``new`` and ``faces``, the face stage's
 ``new`` with its face fluxes, and three chained steps, bit for bit.  Prints
 one line per output and exits non-zero if any differs.  Needs a CUDA card;
 imports no JAX.

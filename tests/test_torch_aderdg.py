@@ -261,7 +261,8 @@ def test_cuda_wrapper_takes_plain_path_on_cpu():
     # The same contract as the kernel: ``new`` is updated in place.
     assert cu.face_surface(new, faces, 2e-3) is new
     np.testing.assert_array_equal(state_to_numpy(new), state_to_numpy(out))
-    assert cu.launches == {"aderdg_predictor_volume": 0, "aderdg_face_surface": 0}
+    assert cu.launches == {"aderdg_predictor_volume": 0, "aderdg_face_flux": 0,
+                           "aderdg_surface_update": 0}
     assert cu.dofs() == ts.dofs()
     np.testing.assert_array_equal(
         state_to_numpy(cu.total_mass(u)), state_to_numpy(ts.total_mass(u))

@@ -166,7 +166,8 @@ def test_slice_bench_ck_five_steps_match_jax():
     e_jax = float(elastic.seismic_energy(state_from_numpy(ref, device="cpu"), 3)) / e0
     np.testing.assert_allclose(e_port, e_jax, rtol=1e-12, atol=0)
     assert 1.0 <= e_port < 1.02  # bench.py's gate
-    assert port.launches == {"aderdg_ck_predictor_volume": 0, "aderdg_face_surface": 0}
+    assert port.launches == {"aderdg_ck_predictor_volume": 0, "aderdg_face_flux": 0,
+                             "aderdg_surface_update": 0}
 
 
 def test_cuda_wrapper_takes_plain_ck_path_on_cpu():
@@ -179,8 +180,10 @@ def test_cuda_wrapper_takes_plain_ck_path_on_cpu():
     assert faces.shape == ts.face_shape == (3, 4, 16, 12, 4, 2, 4)
     assert cu.face_surface(new, faces, DT) is new  # in place, as the kernel
     assert torch.equal(new, out)
-    assert cu.kernels == ("aderdg_ck_predictor_volume", "aderdg_face_surface")
-    assert cu.launches == {"aderdg_ck_predictor_volume": 0, "aderdg_face_surface": 0}
+    assert cu.kernels == ("aderdg_ck_predictor_volume", "aderdg_face_flux",
+                          "aderdg_surface_update")
+    assert cu.launches == {"aderdg_ck_predictor_volume": 0, "aderdg_face_flux": 0,
+                           "aderdg_surface_update": 0}
 
 
 # ------------------------------------------------------------- refusals

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-two ADER-DG kernels of ``csrc/aderdg.cu`` (with the face kernel's face-flux
-output), the CK predictor (K2) and the face kernel's elastic variant, the
+Picard predictor and the two-launch face stage of ``csrc/aderdg.cu`` (with
+its face-flux output), the CK predictor (K2) and the face stage's elastic
+variant, both at the edges of their tilings, the
 limiter's subcell sweep (K3, ``csrc/subcell.cu``) alone and under
 ``LimitedADERDG``, the spec kernel (K4) that ``CudaPrinter`` generates,
 alone and under ``GridSolver``, and the fused Z4 right-hand side (K5,
@@ -91,7 +92,7 @@ def test_face_surface_kernel_matches_plain(dtype, grid):
     torch.cuda.synchronize()
     assert out_k is new_k
     assert _err(out_k, out_p) <= _bound(out_p, dtype)
-    assert cu.launches["aderdg_face_surface"] == 1
+    assert cu.launches["aderdg_face_flux"] == cu.launches["aderdg_surface_update"] == 1
 
 
 @pytest.mark.cuda
@@ -105,7 +106,8 @@ def test_step_kernels_match_plain_and_repeat_bitwise(dtype, grid):
     assert _err(by_value, ref) <= _bound(ref, dtype)
     assert torch.equal(by_value, by_pointer)
     assert torch.equal(cu.run(u, 3, DT), cu.run(u, 3, DT))
-    assert cu.launches == {"aderdg_predictor_volume": 8, "aderdg_face_surface": 8}
+    assert cu.launches == {"aderdg_predictor_volume": 8, "aderdg_face_flux": 8,
+                           "aderdg_surface_update": 8}
 
 
 @pytest.mark.cuda
@@ -124,7 +126,7 @@ def test_face_kernel_face_fluxes_match_plain(dtype, grid):
         assert _err(a, b) <= _bound(b, dtype)
     step_k, step_fl = cu.step(u, DT, return_face_fluxes=True)
     assert torch.equal(step_k, cu.step(u, DT))
-    assert cu.launches["aderdg_face_surface"] == 4
+    assert cu.launches["aderdg_face_flux"] == cu.launches["aderdg_surface_update"] == 4
 
 
 # ------------------------------------------------ K2: the CK predictor
@@ -177,7 +179,8 @@ def test_ck_predictor_kernel_matches_plain(dtype, grid):
     _ck_err(faces_k, faces_p, dtype)
     assert torch.equal(new_k[:, :, :, 9:], u[:, :, :, 9:])  # materials untouched
     assert not faces_k[:, 2:, :, 9:].any()  # zero material flux rows
-    assert cu.launches == {"aderdg_ck_predictor_volume": 1, "aderdg_face_surface": 0}
+    assert cu.launches == {"aderdg_ck_predictor_volume": 1, "aderdg_face_flux": 0,
+                           "aderdg_surface_update": 0}
 
 
 @pytest.mark.cuda
@@ -194,7 +197,7 @@ def test_elastic_face_kernel_matches_plain(dtype, grid):
         assert a.shape == b.shape == sol.face_flux_shape
         assert _err(a, b) <= _bound(b, dtype)
         assert not a[:, :, 9:].any()  # masked jump, zero flux: no material flux
-    assert cu.launches["aderdg_face_surface"] == 1
+    assert cu.launches["aderdg_face_flux"] == cu.launches["aderdg_surface_update"] == 1
 
 
 @pytest.mark.cuda
@@ -211,7 +214,63 @@ def test_ck_step_kernels_match_plain_and_repeat_bitwise(dtype, grid):
         assert _err(g, r) <= rounds * _bound(r, dtype)
     assert torch.equal(by_value, by_pointer)
     assert torch.equal(by_value[:, :, :, 9:], u[:, :, :, 9:])  # bitwise frozen
-    assert cu.launches == {"aderdg_ck_predictor_volume": 6, "aderdg_face_surface": 6}
+    assert cu.launches == {"aderdg_ck_predictor_volume": 6, "aderdg_face_flux": 6,
+                           "aderdg_surface_update": 6}
+
+
+# ------------------------------------------------ the kernels' tiling at its edges
+
+#: A last axis that is not a multiple of the face stage's 32-cell tile, a
+#: grid smaller than one tile (the axis-0 neighbour is the cell itself), and
+#: more tiles than resident blocks (1,024 tiles of 32 cells).
+EDGE_GRIDS = [(2, 3, 40), (1, 2, 5), (32, 16, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics", ["euler", "elastic"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("grid", EDGE_GRIDS)
+def test_kernels_at_tile_edges_match_plain(grid, dtype, physics):
+    """The predictor and the face stage, with and without face fluxes."""
+    euler = physics == "euler"
+    sol, cu, u = _setup(grid, dtype) if euler else _ck_setup(grid, dtype)
+    dt = DT if euler else CK_DT
+
+    def close(got, ref):
+        if euler:
+            assert _err(got, ref) <= _bound(ref, dtype)
+        else:
+            _ck_err(got, ref, dtype)
+
+    new_k, faces_k = cu.predictor_volume(u, dt)
+    new_p, faces_p = sol.predictor_volume(u, dt)
+    out_k = cu.face_surface(new_p.clone(), faces_p, dt)
+    out_kf, fl_k = cu.face_surface(new_p.clone(), faces_p, dt, return_face_fluxes=True)
+    out_p, fl_p = sol.face_surface(new_p, faces_p, dt, return_face_fluxes=True)
+    torch.cuda.synchronize()
+    close(new_k, new_p)
+    close(faces_k, faces_p)
+    close(out_k, out_p)
+    assert torch.equal(out_k, out_kf)
+    for a, b in zip(fl_k, fl_p):
+        assert a.shape == b.shape == sol.face_flux_shape
+        assert _err(a, b) <= _bound(b, dtype)
+    if not euler:
+        assert torch.equal(out_k[:, :, :, 9:], u[:, :, :, 9:])  # materials frozen
+        assert not any(a[:, :, 9:].any() for a in fl_k)
+    assert torch.equal(cu.step(u, dt), cu.step(u, dt))
+    assert cu.launches == {cu.kernels[0]: 3, "aderdg_face_flux": 4, "aderdg_surface_update": 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics", ["euler", "elastic"])
+def test_kernel_info_reports_each_launch_shape(physics):
+    for dtype in (torch.float32, torch.float64):
+        _, cu, _ = (_setup if physics == "euler" else _ck_setup)((2, 2, 4), dtype)
+        for name in cu.kernels:
+            info = cu.kernel_info(name, dtype)
+            assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, (name, info)
+            assert info["threads"] % 32 == 0, (name, info)
 
 
 # ------------------------------------------------ K3: the subcell row sweep
@@ -309,7 +368,8 @@ def test_limited_step_kernels_match_plain():
         a, b = lim_k.step(a, 4.8e-3), lim_p.step(b, 4.8e-3)
     torch.cuda.synchronize()
     assert _err(a, b) <= 1e-12
-    assert cu.launches == {"aderdg_predictor_volume": 2, "aderdg_face_surface": 2}
+    assert cu.launches == {"aderdg_predictor_volume": 2, "aderdg_face_flux": 2,
+                           "aderdg_surface_update": 2}
     assert subcell_cuda.launches["subcell_row_sweep"] == 6
     assert torch.equal(lim_k.run(u, 2, 4.8e-3), a)
 

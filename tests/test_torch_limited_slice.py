@@ -108,7 +108,8 @@ def test_limited_step_matches_pallas_interpret():
     got = state_to_numpy(port.step(state_from_numpy(Q, device="cpu"), DT))
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
     assert port.accelerator.launches == {"aderdg_predictor_volume": 0,
-                                         "aderdg_face_surface": 0}
+                                         "aderdg_face_flux": 0,
+                                         "aderdg_surface_update": 0}
     assert subcell_cuda.launches["subcell_row_sweep"] == before
 
 

@@ -63,7 +63,8 @@ def test_slice_three_steps_match_jax():
             state_to_numpy(u), np.asarray(ref), rtol=0, atol=1e-11,
             err_msg=f"step {k + 1}",
         )
-    assert port.launches == {"aderdg_predictor_volume": 0, "aderdg_face_surface": 0}
+    assert port.launches == {"aderdg_predictor_volume": 0, "aderdg_face_flux": 0,
+                             "aderdg_surface_update": 0}
     out = state_to_numpy(u)
     assert out.shape == js.state_shape and np.isfinite(out).all()
     np.testing.assert_allclose(
