@@ -69,7 +69,10 @@ Phases:
    the limited path after its warm-up; CK at both grids, the evolved and
    the material rows each against their own largest value; K5 on the
    first Picard call and the corrector's, also against the float64 plain
-   result) at the bound stated in ``F32_ULPS``, K3 bitwise repeatable; K5
+   result) at the bound stated in ``F32_ULPS``, K3 bitwise repeatable; K4
+   with ``SENTINEL`` in every state value outside its printer's read set
+   (the output on the write set bitwise the clean run's, every value
+   outside the write set its input); K5
    in float64 on every call of one step at ``(8, 4, 16)``, at 1e-12 of
    the largest value (``Z4_F64_RTOL``), with the path's parameters and
    with those of the kernel's other branches (``Z4_PARAMS``);
@@ -90,7 +93,8 @@ Phases:
    ``csrc/aderdg.cu`` a path launches, a ``[kernel]`` line with its
    registers and resident blocks per SM (the library's occupancy query) and
    its achieved TB/s and TFLOP/s beside its bound (the face stage's pair of
-   launches also as one, against the stage's bound);
+   launches also as one, against the stage's bound), and the same for K4
+   with the bytes it moves (its read and write sets) beside those it needs;
 6. a reading, not a check: the step at which ``bench.py``'s dt = 1e-4
    makes the ADER-DG state non-finite, on both paths.
 
@@ -128,6 +132,7 @@ STEPS = 10
 #: state on a CPU.  64 spacings leaves a wide margin over that and stays
 #: far below any real fault (a wrong coefficient moves values by ≥1e-3).
 F32_ULPS = 64
+SENTINEL = 1e30        # K4's sentinel outside its read set
 F64_ATOL = 1e-12
 #: Relative bound on the change of each conserved integral over the 10
 #: steps.  The periodic flux form conserves them exactly; float32 rounding
@@ -408,15 +413,18 @@ def surface_update_bytes(order: int, ncell: int, itemsize: int, dim=3, rows=5) -
 
 
 def kernel_report(cu, name: str, dtype, where: str, ms: float, n_bytes: float,
-                  n_ops: float, card: str) -> dict:
-    """Print a ``[kernel]`` line for one kernel of ``csrc/aderdg.cu``: how
-    it launches (registers, resident blocks per SM, from the library's
-    occupancy query; ``cu=None`` for the face stage's pair), its time, the
-    rates it achieved and its bound.  Returns the bound."""
+                  n_ops: float, card: str, info: dict | None = None) -> dict:
+    """Print a ``[kernel]`` line for one kernel: how it launches
+    (registers, resident blocks per SM, from its library's occupancy query:
+    ``cu.kernel_info(name, dtype)`` for a kernel of ``csrc/aderdg.cu``, or
+    ``info`` as given; ``cu=None`` and no ``info`` for the face stage's
+    pair), its time, the rates it achieved and its bound.  Returns the
+    bound."""
     bnd = bound(n_bytes, n_ops)
     shape = "the pair of launches"
-    if cu is not None:
+    if info is None and cu is not None:
         info = cu.kernel_info(name, dtype)
+    if info is not None:
         shape = (f"{info['registers']} registers, {info['blocks_per_sm']} resident blocks of "
                  f"{info['threads']} threads per SM "
                  f"({info['blocks_per_sm'] * info['threads'] // 32} of 64 warps), "
@@ -496,8 +504,7 @@ def fv_bytes(n_patches: int, itemsize: int, dim=3, patch=4, halo=1, nvar=5) -> i
     """Bytes the ``fv`` spec's output needs: the state on the cells its
     face stencils reach (the interior and the 2·dim face halos) read once,
     and the interior written once.  The edge and corner halos feed nothing,
-    and the halos are not written.  (The kernel itself reads and writes the
-    whole padded state.)"""
+    and the halos are not written."""
     reached = patch**dim + 2 * dim * halo * patch ** (dim - 1)
     return (reached + patch**dim) * nvar * itemsize * n_patches
 
@@ -513,6 +520,15 @@ def fv_state(torch, grid, device, dtype, seed=0):
     q[:, :, :, 0] += 1.0
     q[:, :, :, 4] += 5.0
     return torch.from_numpy(q).to(device=device, dtype=dtype).contiguous()
+
+
+def spec_mask(torch, q, cells):
+    """A boolean ``[*extent, n_vars]`` mask of a K4 printer's ``(cell,
+    var)`` set, on ``q``'s device."""
+    mask = torch.zeros(q.shape[:4], dtype=torch.bool, device=q.device)
+    for cell, v in cells:
+        mask[cell + (v,)] = True
+    return mask
 
 
 def interior_mass(torch, u):
@@ -1140,9 +1156,28 @@ def fv_path(torch, dev, card, spec_printers) -> dict:
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"K4 ({name} spec, {dtype}, {grid}) disagrees with its plain version")
+        # The sentinel check: 1e30 in every state value outside the printer's
+        # read set; the output on the write set must be the clean run's, bit
+        # for bit, and every value outside the write set its input.
+        pr = spec_printers[name]
+        read, write = (spec_mask(torch, q, cells) for cells in (pr.read_cells, pr.write_cells))
+        probed = q.clone()
+        probed[~read] = SENTINEL
+        out = fn(probed.clone(), lam)
+        torch.cuda.synchronize()
+        checks = {
+            "write set equal to the clean run's": torch.equal(out[write], got[write]),
+            "outside the write set unchanged": torch.equal(out[~write], probed[~write]),
+            "clean run outside the write set unchanged": torch.equal(got[~write], q[~write]),
+        }
+        say(f"[parity] K4 {name} spec {str(dtype)[6:]} {grid} sentinel {SENTINEL:g} outside "
+            f"the read set ({len(pr.read_cells)} of {read.numel()} values a patch read, "
+            f"{len(pr.write_cells)} written): {checks}")
+        if not all(checks.values()):
+            fail(f"K4 ({name} spec, {dtype}, {grid}) reads or writes outside its sets")
         if grid == big:
             k4_err = err
-        del q, got, by_ptr, ref
+        del q, got, by_ptr, ref, probed, out, read, write
 
     # ------------------------------------------------ main path, both sizes
     record = None
@@ -1206,12 +1241,15 @@ def fv_path(torch, dev, card, spec_printers) -> dict:
             say(f"[fv idle] {grid} {label}, {n} steps under torch.profiler: device "
                 f"busy {busy!r} ms of wall {wall!r} ms; idle share {idle!r} ({card})")
         needed = fv_bytes(n_patches, u0.element_size())
-        bnd = bound(needed, fv_ops(n_patches))
+        moved = sv.kernel_fn.printer.moved_bytes(n_patches, u0.dtype)
+        bnd = kernel_report(None, "spec_kernel (fv)", torch.float32, f"(FV) {grid} f32",
+                            parts["K4 kernel"], needed, fv_ops(n_patches), card,
+                            info=sv.kernel_fn.kernel_info(torch.float32))
         say(f"[bound] K4 fv {grid} f32: bound {bnd['bound_ms']!r} ms by "
             f"{bnd['bound_by']} ({needed} B needed, {fv_ops(n_patches)!r} flops); "
-            f"kernel {parts['K4 kernel']!r} ms, moving {2 * u0.nbytes} B (the whole "
-            f"padded state read and written: {1e3 * 2 * u0.nbytes / PEAK_BYTES!r} ms "
-            f"at the memory rate) ({card})")
+            f"kernel {parts['K4 kernel']!r} ms, moving {moved} B (the read set read and "
+            f"the write set written: {1e3 * moved / PEAK_BYTES!r} ms at the memory rate; "
+            f"the whole padded state read and written would be {2 * u0.nbytes} B) ({card})")
         if grid == big:
             record = {
                 "name": "spec_kernel (fv Rusanov spec, generated)",

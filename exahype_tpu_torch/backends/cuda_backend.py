@@ -9,20 +9,29 @@ semantics (regions, var cut, operation order, refusals) it shares.
 
 Design (the note at the head of the generated source says the same):
 
-- one block owns a tile of ``P_t`` patches; every item of those patches
-  (the state and each temp) lives in dynamic shared memory as
-  ``[item][cell][var][patch-in-tile]``, patch fastest, so that the loads
-  and stores of the patch-contiguous SoA-P state are whole sectors;
-  ``P_t`` is the largest power of two whose items fit the 227 KB a block
-  may use (:meth:`CudaPrinter.tile_patches`);
-- each statement is a loop of the block's threads over its region × vars ×
-  patches, with ``__syncthreads()`` between statements, so read-after-write
-  order is kept exactly; a typed call runs its ``cuda_source`` once per
-  cell on the cell's variable vector;
+- at print time, :mod:`.spec_plan` finds what the output needs: each
+  statement runs only on the elements whose value a later statement or the
+  final state reads, the kernel loads only the state values some statement
+  reads before they are overwritten (:attr:`CudaPrinter.read_cells`) and
+  stores only those some statement writes (:attr:`CudaPrinter.write_cells`);
+- one block owns a tile of ``PT`` patches, 32 bytes of patches a row (8 in
+  float32, 4 in float64) where they fit, else the largest power of two that
+  does (:meth:`CudaPrinter.tile_patches`); every item lives
+  in dynamic shared memory over the bounding box of the cells it touches, as
+  ``[cell][var][patch-in-tile]``, patch fastest, so that the loads and stores
+  of the patch-contiguous SoA-P state are whole sectors;
+- statements run as loops of the block's threads over their demanded
+  elements x patches; statements with no value crossing threads between
+  them share a barrier phase, and statements over the same elements whose
+  values stay in their thread share a loop; a typed call runs its
+  ``cuda_source`` once per cell on the cell's variable vector;
 - expressions are printed in the plain evaluator's order (ordered terms
-  and factors, folded from the left), literals cast to the kernel's type;
-- the state is read once and written once, in place: halos are padding and
-  patches are independent within a step.
+  and factors, folded from the left), literals cast to the kernel's type,
+  so every value the kernel computes is bitwise the plain evaluation's up to
+  the card's contraction of multiply-adds;
+- the state is updated in place: patches are independent within a step,
+  and a value the statement list does not write is neither loaded for
+  nothing nor stored.
 
 The kernel is built at first use (``_build.generated_library``), never at
 import.  The wrapper :class:`CudaSpecKernel` launches it for a CUDA tensor
@@ -40,15 +49,14 @@ import torch
 from sympy.core.function import AppliedUndef
 
 from exahype_tpu_torch import _build
+from exahype_tpu_torch.backends import spec_plan
 from exahype_tpu_torch.backends.base import CodePrinter
 from exahype_tpu_torch.backends.torch_backend import (
     TorchPrinter,
     access_offsets,
     bare_call_parts,
-    check_assignment,
     check_spec,
     item_vars,
-    statement_region,
 )
 from exahype_tpu_torch.frontend.kernel_builder import KernelBuilder
 from exahype_tpu_torch.frontend.statements import StatementKind
@@ -56,16 +64,25 @@ from exahype_tpu_torch.utils.errors import LoweringError
 
 #: Shared memory one block may use on the H100 (sm_90): 227 KB.
 SMEM_PER_BLOCK = 232_448
-#: Threads per block: 16 warps, so one block's loads keep the SM busy.
+#: Shared memory of one SM (sm_90): 228 KB, and what each resident block
+#: reserves of it.
+SMEM_PER_SM = 233_472
+SMEM_RESERVED = 1024
+#: Threads per block: 16 warps.
 THREADS = 512
-#: Largest tile: a warp's width of patches.
-MAX_TILE = 32
+#: Resident blocks an SM the register cap asks for (at most 64 registers a
+#: thread), where shared memory leaves room for them.
+MIN_BLOCKS = 2
+#: Bytes of patches in a row of a tile: one 32-byte sector.
+TILE_BYTES = 32
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # state, n_patches, scalar pointers, scalar values, stream
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p,
 )
+# f64, out (5 ints)
+_INFO_ARGTYPES = (ctypes.c_int, ctypes.c_void_p)
 _SCALAR, _FIELD, _VFIELD = "scalar", "field", "vfield"
 _AXES = ("c0", "c1", "c2")
 
@@ -76,36 +93,56 @@ class CudaPrinter(CodePrinter):
     ``build()`` returns a :class:`CudaSpecKernel`, ``fn(Q, *scalars) -> Q``
     over the SoA-P state ``[*extent, n_vars, *patch_tail]``.  A spec the
     kernel cannot compute raises :class:`LoweringError` here.
+
+    ``read_cells`` and ``write_cells`` are the ``(cell, var)`` pairs of one
+    patch's state that the kernel loads and stores (``cell`` a tuple of
+    padded coordinates); every other value of the state is left as it is.
     """
 
     def __init__(self, kernel: KernelBuilder, function_name: str = "time_step"):
         super().__init__(kernel, function_name=function_name)
         check_spec(kernel)
+        self.plan = spec_plan.plan(kernel)
+        self.read_cells = self.plan.read_cells
+        self.write_cells = self.plan.write_cells
         self.tiles = {dtype: self.tile_patches(dtype) for dtype in _SUFFIX}
+        launch = {dtype: (self.tiles[dtype], self.min_blocks(dtype)) for dtype in _SUFFIX}
         self.symbol = f"exahype_spec_{function_name}"
-        self.code = _Generator(kernel, self.tiles, self.symbol).source()
+        self.code = _Generator(kernel, self.plan, launch, self.symbol).source()
 
     # ----------------------------------------------------------- tile sizing
 
     def bytes_per_patch(self, dtype: torch.dtype) -> int:
-        """Shared memory one patch needs: the state and every temp item."""
-        kb = self._kernel
-        cells = kb.config.extent ** kb.config.dim
-        names = [kb.inputs[0], *kb.temp_items()]
+        """Shared memory one patch needs: every item over its box."""
         itemsize = torch.empty((), dtype=dtype).element_size()
-        return cells * sum(item_vars(kb, n) for n in names) * itemsize
+        return self.plan.values_per_patch(self._kernel) * itemsize
 
     def tile_patches(self, dtype: torch.dtype) -> int:
-        """Patches per block: the largest power of two (at most
-        :data:`MAX_TILE`) whose items fit :data:`SMEM_PER_BLOCK`."""
+        """Patches per block: one 32-byte sector of patches a row (8 in
+        float32, 4 in float64) where their items fit :data:`SMEM_PER_BLOCK`,
+        else the largest power of two that fits (a spec with large patches
+        then reads part sectors rather than being refused)."""
         per_patch = self.bytes_per_patch(dtype)
         if per_patch > SMEM_PER_BLOCK:
             raise LoweringError(
                 f"one patch needs {per_patch} bytes of shared memory in "
                 f"{dtype}, more than the {SMEM_PER_BLOCK} a block may use"
             )
+        sector = TILE_BYTES // torch.empty((), dtype=dtype).element_size()
         fit = SMEM_PER_BLOCK // per_patch
-        return min(MAX_TILE, 1 << (fit.bit_length() - 1))
+        return min(sector, 1 << (fit.bit_length() - 1))
+
+    def min_blocks(self, dtype: torch.dtype) -> int:
+        """Resident blocks an SM the kernel's register cap asks for: up to
+        :data:`MIN_BLOCKS`, as many as the tile's shared memory leaves room
+        for."""
+        need = self.tiles[dtype] * self.bytes_per_patch(dtype) + SMEM_RESERVED
+        return max(1, min(MIN_BLOCKS, SMEM_PER_SM // need))
+
+    def moved_bytes(self, n_patches: int, dtype: torch.dtype) -> int:
+        """Bytes of the state the kernel reads and writes in one launch."""
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        return (len(self.read_cells) + len(self.write_cells)) * itemsize * n_patches
 
     # ----------------------------------------------------------------- build
 
@@ -116,7 +153,7 @@ class CudaPrinter(CodePrinter):
     def library(self) -> ctypes.CDLL:
         signatures = tuple(
             (f"{self.symbol}_{suffix}", _ARGTYPES) for suffix in _SUFFIX.values()
-        )
+        ) + ((f"{self.symbol}_info", _INFO_ARGTYPES),)
         return _build.generated_library(self.symbol, self.code, signatures)
 
     def build(self) -> "CudaSpecKernel":
@@ -128,10 +165,10 @@ class CudaSpecKernel:
 
     A CUDA tensor launches the generated kernel (or raises); a CPU tensor
     takes the plain version (:attr:`plain`).  Updating ``Q`` in place is
-    safe because halos are padding and patches are independent within a
-    step: every block reads and writes only its own patches.  A scalar goes
-    by value as a Python float and by device pointer as a tensor (no
-    ``.item()``).  :attr:`launches` counts the kernel's launches.
+    safe because patches are independent within a step: every block reads
+    and writes only its own patches.  A scalar goes by value as a Python
+    float and by device pointer as a tensor (no ``.item()``).
+    :attr:`launches` counts the kernel's launches.
     """
 
     def __init__(self, printer: CudaPrinter):
@@ -187,6 +224,17 @@ class CudaSpecKernel:
         self.launches += 1
         return Q
 
+    def kernel_info(self, dtype) -> dict:
+        """Registers, resident blocks per SM, threads, dynamic shared memory
+        and local (spill) bytes of the kernel as it launches (on the current
+        card)."""
+        lib = self.printer.library()
+        out = (ctypes.c_int * 5)()
+        err = getattr(lib, f"{self.printer.symbol}_info")(
+            int(dtype == torch.float64), ctypes.addressof(out))
+        _build.check(lib, err, f"{self.printer.symbol}_info")
+        return dict(zip(("registers", "blocks_per_sm", "threads", "smem", "local"), out))
+
 
 # ---------------------------------------------------------------- printing
 
@@ -198,39 +246,82 @@ def _literal(value) -> str:
     return f"T({value!r})"
 
 
-class _Generator:
-    """Prints one spec as a CUDA translation unit."""
+def _plus(lo: int, term: str) -> str:
+    return term if lo == 0 else f"{lo} + {term}"
 
-    def __init__(self, kb: KernelBuilder, tiles: dict, symbol: str):
+
+def _chain(sizes, blocks, indent) -> list[str]:
+    """``blocks`` (lists of lines) chosen by ranges of r of the given
+    sizes: an if-else chain that rebases r to each block's start."""
+    if len(blocks) == 1:
+        return [indent + x for x in blocks[0]]
+    out, start = [], 0
+    for i, (n, block) in enumerate(zip(sizes, blocks)):
+        if i == 0:
+            out.append(f"{indent}if (r < {n}) {{")
+        elif i < len(blocks) - 1:
+            out.append(f"{indent}}} else if (r < {start + n}) {{")
+        else:
+            out.append(f"{indent}}} else {{")
+        if i > 0:
+            out.append(f"{indent}  r -= {start};")
+        out.extend(f"{indent}  {x}" for x in block)
+        start += n
+    out.append(f"{indent}}}")
+    return out
+
+
+def _text(stmt) -> str:
+    return str(stmt.lhs) if stmt.rhs is None else f"{stmt.lhs} = {stmt.rhs}"
+
+
+def _box_text(box) -> str:
+    return " x ".join(f"[{lo},{hi})" for lo, hi in box)
+
+
+class _Generator:
+    """Prints one spec, under its plan, as a CUDA translation unit."""
+
+    def __init__(self, kb: KernelBuilder, plan: spec_plan.Plan, launch: dict, symbol: str):
         self.kb = kb
         self.cfg = kb.config
-        self.tiles = tiles
+        self.plan = plan
+        self.launch = launch  # dtype -> (patches a tile, resident blocks an SM)
         self.symbol = symbol
-        self.cells = self.cfg.extent ** self.cfg.dim
-        # Shared-memory layout: the state first, then the temps.
-        self.items = [kb.inputs[0], *kb.temp_items()]
+        # Shared-memory layout: each item over its box, the state first.
+        state = kb.inputs[0]
+        self.items = [state] + [n for n in kb.temp_items() if n in plan.boxes]
         self.offset = {}
         at = 0
         for name in self.items:
             self.offset[name] = at
-            at += self.cells * item_vars(kb, name)
+            at += spec_plan.box_size(plan.boxes[name]) * item_vars(kb, name)
         self.values_per_patch = at
         self.scalars = {name: f"s_{name}" for name in kb.inputs[1:]}
         self._tmp = 0
+        self._gathers = None  # the shared gathers of the group being printed
 
     # ------------------------------------------------------------ top level
 
     def source(self) -> str:
-        kb, cfg = self.kb, self.cfg
-        body = []
+        kb, cfg, plan = self.kb, self.cfg, self.plan
         env = {name: code for name, code in self.scalars.items()}
         env.update({k: _literal(v) for k, v in kb.literal_values.items()})
-        used = []
+        envs = {}
         for k, stmt in enumerate(kb.statements):
             if stmt.kind is StatementKind.CONST_ASSIGN:
                 env[str(stmt.lhs)] = _literal(stmt.rhs)
+            else:
+                envs[k] = dict(env)
+        # Every statement is printed, run or not, so that the kernel refuses
+        # what the plain version refuses; the phases print those that run.
+        for lp in plan.loops:
+            if not lp.pieces:
+                self._body(lp, envs[lp.index])
+        used = []
+        for stmt in kb.statements:
+            if stmt.kind is StatementKind.CONST_ASSIGN:
                 continue
-            body.append(self._statement(k, stmt, env))
             for call in stmt.lhs.atoms(AppliedUndef) | (
                 stmt.rhs.atoms(AppliedUndef) if stmt.rhs is not None else set()
             ):
@@ -250,6 +341,14 @@ class _Generator:
                     f"spec_{typed.name}"
                 )
             functions.append(typed.cuda_source.rstrip() + "\n")
+        phases = []
+        for n, phase in enumerate(plan.phases):
+            title = [f"  // Phase {n}: one loop over {len(phase)} group(s), then a barrier."]
+            parts = []
+            for group in phase:
+                title += [f"  // [{lp.index}] {_text(lp.stmt)}" for lp in group]
+                parts.append(self._group(group, envs))
+            phases.append(self._loop(title, parts) + "\n  __syncthreads();")
         n_scalars = max(1, len(self.scalars))
         read_scalars = "".join(
             f"  const T {code} = sc.ptr[{i}] != nullptr ? *sc.ptr[{i}] : sc.val[{i}];\n"
@@ -257,51 +356,56 @@ class _Generator:
         )
         pointers = "".join(
             f"  T* const it_{name} = sm + {self.offset[name]} * PT;"
-            f"  // [{self.cells}][{item_vars(kb, name)}][PT]\n"
+            f"  // {_box_text(self.plan.boxes[name])} x {item_vars(kb, name)} vars x PT\n"
             for name in self.items
         )
-        state_values = self.cells * cfg.n_vars
-        temp_values = self.values_per_patch - state_values
-        zero = (
-            f"  for (int e = threadIdx.x; e < {temp_values} * PT; e += kThreads) "
-            f"sm[{state_values} * PT + e] = T(0);\n"
-            if temp_values else ""
+        state = kb.inputs[0]
+        gcell = None
+        for d in range(cfg.dim):
+            gcell = _AXES[d] if gcell is None else f"({gcell} * {cfg.extent} + {_AXES[d]})"
+        glob = f"state[static_cast<long long>({gcell} * {cfg.n_vars} + v) * n_patches + p0 + p]"
+        local = self._index(state, [(0, 0, 0)] * cfg.dim, "v")
+        load = self._loop(["  // Load the read set of the state, asynchronously: every thread",
+                           "  // keeps its copies in flight, none waits on one."],
+                          [(spec_plan.pieces(plan.read_cells), [],
+                            [f"copy_async(&{local}, &{glob});"])])
+        store = self._loop(["  // Store the write set of the state."],
+                           [(spec_plan.pieces(plan.write_cells), [], [f"{glob} = {local};"])])
+        zero = "".join(
+            f"  for (int e = threadIdx.x; e < "
+            f"{spec_plan.box_size(plan.boxes[name]) * item_vars(kb, name)} * PT; "
+            f"e += kThreads) it_{name}[e] = T(0);  // read before it is written\n"
+            for name in plan.zeroed
         )
+        (tile_f32, mb_f32), (tile_f64, mb_f64) = (self.launch[t] for t in _SUFFIX)
         return _TEMPLATE.format(
-            note=_note(kb, self.tiles, self.values_per_patch),
+            note=_note(kb, plan, self.launch, self.values_per_patch),
             functions="\n".join(functions),
             threads=THREADS,
             n_scalars=n_scalars,
             pointers=pointers,
             read_scalars=read_scalars,
-            state_values=state_values,
+            load=load,
             zero=zero,
-            statements="\n".join(body),
+            phases="\n\n".join(phases),
+            store=store,
             values_per_patch=self.values_per_patch,
             symbol=self.symbol,
-            tile_f32=self.tiles[torch.float32],
-            tile_f64=self.tiles[torch.float64],
+            tile_f32=tile_f32,
+            tile_f64=tile_f64,
+            min_blocks_f32=mb_f32,
+            min_blocks_f64=mb_f64,
         )
 
     # ------------------------------------------------------------ statements
 
-    def _statement(self, k, stmt, env) -> str:
-        kb, cfg = self.kb, self.cfg
-        spatial, vb = statement_region(kb, stmt)
+    def _body(self, lp: spec_plan.Loop, env) -> list[str]:
+        """The lines one element of a loop statement runs."""
+        kb, stmt, spatial = self.kb, lp.stmt, lp.spatial
         pre: list[str] = []
-        if isinstance(stmt.lhs, AppliedUndef):
+        if lp.call:
             typed, out_arg, in_args = bare_call_parts(kb, stmt)
             out_name, out_axes, _ = access_offsets(kb, out_arg, spatial)
-            for a in in_args:
-                if (
-                    isinstance(a, sympy.Indexed)
-                    and str(a.base.label) == out_name
-                    and any(off for *_, off in access_offsets(kb, a, spatial)[1])
-                ):
-                    raise LoweringError(
-                        f"call {stmt.lhs} writes {out_name!r} and reads it at a "
-                        "shifted index: one kernel pass cannot keep its order"
-                    )
             n_out = item_vars(kb, out_name)
             args = [self._call_arg(a, spatial, env, pre) for a in in_args]
             args.insert(typed.out_param, "o")
@@ -312,56 +416,92 @@ class _Generator:
                 f"for (int w = 0; w < {n_out}; ++w) "
                 f"{self._index(out_name, out_axes, 'w')} = o[w];"
             )
-            lanes = 1
-        else:
-            check_assignment(kb, stmt, vb)
-            lhs_name, lhs_axes, lhs_vars = access_offsets(kb, stmt.lhs, spatial)
-            lanes = 1 if lhs_vars is None else min(vb, lhs_vars)
-            _, value = self._expr(stmt.rhs, spatial, vb, lanes, env, pre)
-            var = "v" if lhs_vars is not None else None
-            pre.append(f"{self._index(lhs_name, lhs_axes, var)} = {value};")
-        return self._loop(k, stmt, spatial, lanes, pre)
+            return pre
+        lhs_name, lhs_axes, lhs_vars = access_offsets(kb, stmt.lhs, spatial)
+        _, value = self._expr(stmt.rhs, spatial, lp.vb, lp.lanes, env, pre)
+        var = "v" if lhs_vars is not None else None
+        pre.append(f"{self._index(lhs_name, lhs_axes, var)} = {value};")
+        return pre
 
-    def _loop(self, k, stmt, spatial, lanes, lines) -> str:
-        dim = self.cfg.dim
-        sizes = [hi - lo for lo, hi in spatial]
-        region = " ".join(
-            f"{_AXES[d]} in [{lo},{hi})" for d, (lo, hi) in enumerate(spatial)
-        )
-        text = str(stmt.lhs) if stmt.rhs is None else f"{stmt.lhs} = {stmt.rhs}"
-        out = [
-            f"  // [{k}] {text}",
-            f"  //     {region}, var in [0,{lanes})",
-            f"  for (int e = threadIdx.x; e < {math.prod(sizes) * lanes} * PT; "
-            "e += kThreads) {",
+    def _group(self, group, envs):
+        """``(pieces, hoisted, body)`` of a fused group: its statements' lines
+        for one element, and the lines run once per cell before them (and
+        before the loop over the cell's variables): the gathers of call
+        arguments from items the group does not write, one a cell for all
+        the group's calls, and the values that read no variable and no item
+        the group writes."""
+        self._gathers = {"written": {lp.target for lp in group}, "args": {}, "values": {},
+                         "lines": []}
+        body = []
+        for lp in group:
+            body += ["{", *(f"  {x}" for x in self._body(lp, envs[lp.index])), "}"]
+        hoisted = self._gathers["lines"]
+        self._gathers = None
+        return group[0].pieces, hoisted, body
+
+    def _loop(self, title, parts) -> str:
+        """One loop of the block's threads over the cells of ``parts``
+        (``(pieces, hoisted, body)`` each: a statement group) x the tile's
+        patches.  Element e is patch e % PT of cell r = e / PT, which
+        selects a part and decodes, through its pieces, into (c0, c1[, c2]);
+        the body then runs for each variable v of the piece's range, the
+        hoisted lines once before."""
+        out = list(title)
+        sizes = [sum(spec_plan.box_size(box) for box, _ in pieces) for pieces, _, _ in parts]
+        out += [
+            f"  for (int e = threadIdx.x; e < {sum(sizes)} * PT; e += kThreads) {{",
             "    const int p = e % PT;",
+            "    if (p >= np) continue;",
             "    int r = e / PT;",
         ]
-        if lanes > 1:
-            out.append(f"    const int v = r % {lanes};")
-            out.append(f"    r /= {lanes};")
-        elif any(re.search(r"\bv\b", line) for line in lines):
-            out.append("    const int v = 0;")
-        for d in reversed(range(dim)):
-            lo, n = spatial[d][0], sizes[d]
-            if d == 0:
-                out.append(f"    const int {_AXES[d]} = {lo} + r;")
-            else:
-                out.append(f"    const int {_AXES[d]} = {lo} + r % {n};")
-                out.append(f"    r /= {n};")
-        out.append("    if (p >= np) continue;")
-        out.extend(f"    {line}" for line in lines)
+        out += _chain(sizes, [self._part(*part) for part in parts], "    ")
         out.append("  }")
-        out.append("  __syncthreads();")
         return "\n".join(out)
 
+    def _part(self, pieces, hoisted, body) -> list[str]:
+        dim = self.cfg.dim
+        need_v = any(re.search(r"\bv\b", line) for line in body)
+        ranges = {rng for _, rng in pieces}
+
+        def lanes(lo, hi):
+            if not need_v:
+                return list(hoisted) + list(body)
+            if hi - lo == 1:
+                return [f"const int v = {lo};", *hoisted, *body]
+            return [*hoisted, "#pragma unroll", f"for (int v = {lo}; v < {hi}; ++v) {{",
+                    *(f"  {x}" for x in body), "}"]
+
+        decodes = []
+        for box, (lo, hi) in pieces:
+            decode = []
+            for d in reversed(range(dim)):
+                blo, bhi = box[d]
+                n = bhi - blo
+                if d == 0:
+                    decode.append(f"{_AXES[d]} = {_plus(blo, 'r')};")
+                elif n == 1:
+                    decode.append(f"{_AXES[d]} = {blo};")
+                else:
+                    decode.append(f"{_AXES[d]} = {_plus(blo, f'r % {n}')};")
+                    decode.append(f"r /= {n};")
+            if len(ranges) > 1:
+                decode += lanes(lo, hi)
+            decodes.append(decode)
+        sizes = [spec_plan.box_size(box) for box, _ in pieces]
+        head = ["int " + ", ".join(_AXES[:dim]) + ";"]
+        tail = lanes(*ranges.pop()) if len(ranges) == 1 else []
+        return head + _chain(sizes, decodes, "") + tail
+
     def _index(self, name, axes, var) -> str:
-        """``it_name[...]`` of one access; ``var`` is None for a field."""
-        e = self.cfg.extent
+        """``it_name[...]`` of one access over the item's storage box;
+        ``var`` is None for a field."""
+        box = self.plan.boxes[name]
         cell = None
         for d, (_, _, off) in enumerate(axes):
-            c = _AXES[d] if off == 0 else f"({_AXES[d]} {'+' if off > 0 else '-'} {abs(off)})"
-            cell = c if cell is None else f"({cell} * {e} + {c})"
+            k = off - box[d][0]
+            c = _AXES[d] if k == 0 else f"({_AXES[d]} {'+' if k > 0 else '-'} {abs(k)})"
+            size = box[d][1] - box[d][0]
+            cell = c if cell is None else f"({cell} * {size} + {c})"
         if var is None:
             return f"it_{name}[{cell} * PT + p]"
         nv = item_vars(self.kb, name)
@@ -370,7 +510,23 @@ class _Generator:
     # ------------------------------------------------------------ expression
 
     def _expr(self, expr, spatial, vb, lanes, env, pre):
-        """``(kind, code)`` of an expression, in the plain evaluator's order."""
+        """``(kind, code)`` of an expression, in the plain evaluator's order.
+
+        Inside a group, a value that reads items but no variable of them
+        (kind ``_FIELD``) and no item the group writes is the same for every
+        variable of a cell: it is computed once per cell, before the loop
+        over the variables (the same operations on the same values)."""
+        kind, code = self._value(expr, spatial, vb, lanes, env, pre)
+        g = self._gathers
+        if (g is None or kind != _FIELD
+                or {str(a.base.label) for a in expr.atoms(sympy.Indexed)} & g["written"]):
+            return kind, code
+        if code not in g["values"]:
+            g["values"][code] = f"h{len(g['values'])}"
+            g["lines"].append(f"const T {g['values'][code]} = {code};")
+        return kind, g["values"][code]
+
+    def _value(self, expr, spatial, vb, lanes, env, pre):
         if expr is None:
             raise LoweringError("missing RHS")
         if expr.is_Number:
@@ -446,14 +602,19 @@ class _Generator:
             name, axes, nvars = access_offsets(self.kb, a, spatial)
             if nvars is None:
                 return self._index(name, axes, None)
+            source = self._index(name, axes, "w")
+            g = self._gathers
+            shared = g is not None and name not in g["written"]
+            if shared and source in g["args"]:
+                return g["args"][source]  # one gather a cell for the group
             arg = f"a{self._tmp}"
             self._tmp += 1
-            pre.append(f"T {arg}[{nvars}];")
-            pre.append("#pragma unroll")
-            pre.append(
-                f"for (int w = 0; w < {nvars}; ++w) "
-                f"{arg}[w] = {self._index(name, axes, 'w')};"
-            )
+            lines = g["lines"] if shared else pre
+            lines.append(f"T {arg}[{nvars}];")
+            lines.append("#pragma unroll")
+            lines.append(f"for (int w = 0; w < {nvars}; ++w) {arg}[w] = {source};")
+            if shared:
+                g["args"][source] = arg
             return arg
         kind, code = self._expr(a, spatial, 1, 1, env, pre)
         if kind != _SCALAR:
@@ -470,18 +631,21 @@ def _fold(vals, pattern):
     return kind, out
 
 
-def _note(kb, tiles, values_per_patch) -> str:
+def _note(kb, plan, launch, values_per_patch) -> str:
     cfg = kb.config
     state = cfg.extent**cfg.dim * cfg.n_vars
+    run = sum(len(phase) for phase in plan.phases)
     return (
         f"// Spec: dim={cfg.dim}, patch_size={cfg.patch_size}, "
         f"halo_size={cfg.halo_size}, n_real={cfg.n_real}, n_aux={cfg.n_aux}; "
-        f"{len(kb.statements)} statements.\n"
-        f"// State per patch: {state} values, read once and written once.\n"
+        f"{len(kb.statements)} statements, {len(plan.loops)} of them loops,\n"
+        f"// run as {run} loop(s) in {len(plan.phases)} barrier phase(s).\n"
+        f"// State per patch: {state} values; {len(plan.read_cells)} read, "
+        f"{len(plan.write_cells)} written.\n"
         f"// Shared memory per patch: {values_per_patch} values "
         f"({values_per_patch * 4} B in float32, {values_per_patch * 8} B in "
-        f"float64); tiles of\n// {tiles[torch.float32]} (float32) and "
-        f"{tiles[torch.float64]} (float64) patches per block."
+        f"float64); tiles of\n// {launch[torch.float32][0]} (float32) and "
+        f"{launch[torch.float64][0]} (float64) patches per block."
     )
 
 
@@ -494,21 +658,25 @@ _TEMPLATE = """\
 // The plain version is exahype_tpu_torch/backends/torch_backend.py.
 //
 // What bounds it on the H100: bytes.  A statement does a few dozen flops per
-// cell against the state, so the least work is reading the cells its
-// stencils reach (for a face stencil, the interior and the face halos) and
-// writing the interior.  This design reads and writes the whole padded
-// state once and keeps everything else on chip: a block owns a
-// tile of PT patches and holds the state and every temp of those patches in
-// shared memory as [item][cell][var][patch], patch fastest, so the state's
-// loads and stores (patch-contiguous in device memory) are whole sectors and
-// no temp touches device memory.  Each statement is one loop of the block's
-// threads over its region x vars x patches, with __syncthreads() between
-// statements, which keeps the statement list's read-after-write order; a
-// typed call runs once per cell on the cell's variable vector.  The state is
-// updated in place (halos are padding; patches are independent within a
-// step).  Not yet done: overlapping one tile's loads with another's work
-// (one block per SM at this shared-memory size), keeping the directional
-// temps in registers, writing back only the interior.
+// cell against the state, so the least work is reading the state values the
+// output depends on and writing those the statement list changes.  The
+// printer's demand analysis (backends/spec_plan.py) finds both, and which
+// elements of each statement the output needs: the kernel loads only the
+// read set, runs each statement only where its value is used, and stores
+// only the write set; halo values that feed nothing are not loaded, and no
+// value the statement list leaves alone is stored.  A block owns a tile of
+// PT patches (32 bytes of patches a row, whole sectors, where the tile's
+// shared memory fits; else fewer) and holds every item
+// of those patches in shared memory over the bounding box of the cells it
+// touches, as [cell][var][patch], patch fastest; no temp touches device
+// memory.  The read set is loaded with cp.async, so a thread keeps all its
+// copies in flight instead of one load at a time.  Statements run as loops
+// of the block's threads over their demanded elements x patches; a barrier ends each phase of statements
+// between which no value crosses threads, and statements over the same
+// elements whose values stay in their thread share a loop.  A typed call
+// runs once per cell on the cell's variable vector.  The shared memory of
+// a tile leaves room for more than one block an SM where the spec allows,
+// so one block's loads overlap another's statements.
 {note}
 
 #include <cuda_runtime.h>
@@ -522,37 +690,49 @@ constexpr int kThreads = {threads};
 constexpr int kScalars = {n_scalars};
 constexpr int kValuesPerPatch = {values_per_patch};
 
+// One element from device memory to shared memory without a register
+// (cp.async, 4 or 8 bytes), and the wait for this thread's copies.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {{
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\\n" :: "r"(s), "l"(src),
+               "n"(static_cast<int>(sizeof(T))));
+}}
+
+__device__ __forceinline__ void copies_done() {{
+  asm volatile("cp.async.wait_all;\\n" ::: "memory");
+}}
+
 template <typename T>
 struct Scalars {{
   const T* ptr[kScalars];  // a device scalar, or null: use val
   T val[kScalars];
 }};
 
-template <typename T, int PT>
-__global__ void __launch_bounds__(kThreads)
+// PT patches a tile; MB resident blocks an SM for the register cap.
+template <typename T, int PT, int MB>
+__global__ void __launch_bounds__(kThreads, MB)
 spec_kernel(T* __restrict__ state, long long n_patches, const Scalars<T> sc) {{
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);
 {pointers}  const long long p0 = static_cast<long long>(blockIdx.x) * PT;
   const int np = static_cast<int>(n_patches - p0 < PT ? n_patches - p0 : PT);
 {read_scalars}
-  // Load the tile's state; zero every temp.
-  for (int e = threadIdx.x; e < {state_values} * PT; e += kThreads) {{
-    const int p = e % PT;
-    if (p < np) sm[e] = state[static_cast<long long>(e / PT) * n_patches + p0 + p];
-  }}
-{zero}  __syncthreads();
+{load}
+{zero}  copies_done();
+  __syncthreads();
 
-{statements}
+{phases}
 
-  // Store the tile's state.
-  for (int e = threadIdx.x; e < {state_values} * PT; e += kThreads) {{
-    const int p = e % PT;
-    if (p < np) state[static_cast<long long>(e / PT) * n_patches + p0 + p] = sm[e];
-  }}
+{store}
 }}
 
 template <typename T, int PT>
+constexpr size_t smem_bytes() {{
+  return static_cast<size_t>(kValuesPerPatch) * PT * sizeof(T);
+}}
+
+template <typename T, int PT, int MB>
 cudaError_t launch(T* state, long long n_patches, const unsigned long long* ptrs,
                    const double* vals, void* stream) {{
   if (n_patches <= 0) return cudaErrorInvalidValue;
@@ -561,17 +741,40 @@ cudaError_t launch(T* state, long long n_patches, const unsigned long long* ptrs
     sc.ptr[i] = reinterpret_cast<const T*>(ptrs[i]);
     sc.val[i] = static_cast<T>(vals[i]);
   }}
-  const size_t smem = static_cast<size_t>(kValuesPerPatch) * PT * sizeof(T);
+  const size_t smem = smem_bytes<T, PT>();
   // The opt-in above 48 KB of shared memory, once per instantiation (the
   // port launches on one card).
   static const cudaError_t attr = cudaFuncSetAttribute(
-      spec_kernel<T, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      spec_kernel<T, PT, MB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const long long blocks = (n_patches + PT - 1) / PT;
-  spec_kernel<T, PT><<<static_cast<unsigned>(blocks), kThreads, smem,
+  spec_kernel<T, PT, MB><<<static_cast<unsigned>(blocks), kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(state, n_patches, sc);
   return cudaGetLastError();
+}}
+
+// Registers, resident blocks per SM, threads, dynamic shared memory and
+// local (spill) bytes of the kernel as launch() launches it.
+template <typename T, int PT, int MB>
+int info(int* out) {{
+  const size_t smem = smem_bytes<T, PT>();
+  cudaError_t e = cudaFuncSetAttribute(spec_kernel<T, PT, MB>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, spec_kernel<T, PT, MB>);
+  if (e != cudaSuccess) return e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, spec_kernel<T, PT, MB>, kThreads, smem);
+  if (e != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = blocks;
+  out[2] = kThreads;
+  out[3] = static_cast<int>(smem);
+  out[4] = static_cast<int>(a.localSizeBytes);
+  return cudaSuccess;
 }}
 
 }}  // namespace
@@ -583,12 +786,18 @@ extern "C" {{
 // one value per scalar input, in the spec's order.
 int {symbol}_f32(float* state, long long n_patches,
                  const unsigned long long* ptrs, const double* vals, void* stream) {{
-  return launch<float, {tile_f32}>(state, n_patches, ptrs, vals, stream);
+  return launch<float, {tile_f32}, {min_blocks_f32}>(state, n_patches, ptrs, vals, stream);
 }}
 
 int {symbol}_f64(double* state, long long n_patches,
                  const unsigned long long* ptrs, const double* vals, void* stream) {{
-  return launch<double, {tile_f64}>(state, n_patches, ptrs, vals, stream);
+  return launch<double, {tile_f64}, {min_blocks_f64}>(state, n_patches, ptrs, vals, stream);
+}}
+
+// out[0..4] of the float32 (f64 = 0) or float64 (f64 = 1) kernel.
+int {symbol}_info(int f64, int* out) {{
+  return f64 ? info<double, {tile_f64}, {min_blocks_f64}>(out)
+             : info<float, {tile_f32}, {min_blocks_f32}>(out);
 }}
 
 const char* exahype_cuda_error_string(int err) {{

@@ -79,24 +79,35 @@
 // one Picard iteration: N = 3 applications of the spatial operator on the
 // spatial nodal array, no space-time array.  So it is memory-bound: ~1e5
 // flops per cell against 15.4 KB per cell in f32 (the state read and
-// written, 3 KB each, and 9.2 KB of faces written), ~7 flops per byte,
-// under the f32 ridge; so is the face stage's 12-variable variant, with
-// fewer bytes and flops.  Its layout is one thread per (cell, node), CB
-// cells per block (512 threads, one block per SM).  A thread
-// loads its node's 12 values once and keeps 1/ρ, λ and μ in registers for
-// the whole step: the materials are frozen, so the injection of the
-// reference (a where-select per level) is the use of those registers, and
-// the zeroing of the material rows is that the kernel holds only the 9
-// evolved rows of q_k and q̄ (q_k's material rows are zero, q̄'s are u's).
-// Each level writes F_d(q_k) of the 9 evolved rows to shared memory, syncs,
-// contracts each axis with its D row and forms r = −Σ_d λ_d (D F_d),
-// q_k = r / k, q̄ += q_k / (k + 1): the Pallas branch's order (λ_d = dt/dx_d
-// inside, /k after); the plain version follows XLA's (dt/k)·L, the same up
-// to rounding.  The material rows' volume term and face fluxes come from
-// exact zeros (zero flux rows), and the face stage does not touch them
-// (mask 0), so slots 9-11 leave the step bitwise unchanged.  Shared
-// memory: the epilogue holds q̄ and F̄_d of all 12 rows for CB cells, 96 KB
-// in f32 and f64, so the launcher opts in above the 48 KB default.
+// written, 3 KB each, and 9.2 KB of faces written, all of which the
+// contract defines), ~7 flops per byte, under the f32 ridge; so is the
+// face stage's 12-variable variant, with fewer bytes and flops.  What it
+// needs is enough bytes in flight and no idle phase: K2 takes the Picard
+// predictor's thread shape.  A thread holds one pencil of a cell along the
+// last node axis: 4 nodes x 9 evolved rows of q_k in registers and of q̄ in
+// its own words of shared memory, and each node's 1/ρ, λ and μ, frozen for
+// the step (the reference's injection of u's materials at every level is
+// the use of those registers; q_k's material rows are zero and q̄'s are
+// u's, so only the 9 evolved rows are held).  A warp holds the 16 pencils of 2 cells: the axis-2 contraction
+// with D is thread-local, axes 0 and 1 are 3 xor shuffles an output, so
+// the 3 levels use no shared memory and no barrier.  The flux is linear
+// in q but its coefficients vary from node to node, so the contraction is
+// taken on the fluxes, as the reference does.  Each level forms
+// r = −Σ_d λ_d (D F_d), q_k = r / k, q̄ += q_k / (k + 1): the Pallas
+// branch's order (λ_d = dt/dx_d inside, /k after); the plain version
+// follows XLA's (dt/k)·L, the same up to rounding.  The epilogue goes axis
+// by axis: F̄_d = F_d(q̄) and its volume term by the same shuffles, into
+// new's registers; then the face projections of axis d run in the I/O
+// mapping, every thread one face node of CB cells, from q̄ and F̄_d staged
+// in shared memory, and go straight to device memory as 32-byte runs (a
+// transpose of the projections by shuffles cost more instructions than the
+// staging; PERF.md).  Shared memory stages u (it becomes q̄, then new, in
+// place) and one axis's F̄_d, each in a layout that the compute mapping, the
+// I/O mapping and the projections along every axis read free of bank
+// conflicts in f32: 42 KB a block of CB x 16 threads, 5 blocks an SM by
+// shared memory, 3 by the register cap.  The material rows of new are u's
+// bits, their face fluxes exact zeros, and the face stage does not touch them (mask 0), so slots
+// 9-11 leave the step bitwise unchanged.
 
 #include <cuda_runtime.h>
 
@@ -115,9 +126,9 @@ __device__ __forceinline__ T momentum(const T* q, int d) {
   return d == 0 ? q[1] : (d == 1 ? q[2] : q[3]);
 }
 
-// Each physics: V variables, its fluxes of all V rows (Euler: fluxes(q, f)
-// along every axis, for the Picard predictor; elasticity: flux(q, d, f),
-// for K2), max_eigenvalue(q, d), the dissipation weight of each row in the
+// Each physics: V variables (Euler: its fluxes(q, f) of all V rows along
+// every axis, for the Picard predictor; K2 calls csrc/elastic.cuh's flux
+// itself, with the materials it holds), max_eigenvalue(q, d), the dissipation weight of each row in the
 // Rusanov jump term (kMasked: whether any weight is not 1), and kFluxRows:
 // the rows 0..kFluxRows-1 whose face flux can be nonzero (the others have
 // zero flux and a zero weight, so their F̂ is zero and their state never
@@ -156,11 +167,6 @@ struct ElasticHetPhysics {
   static constexpr int kRho = 9, kLam = 10, kMu = 11;
   static constexpr bool kMasked = true;
   static ElasticHetPhysics make(const double*) { return {}; }
-  __device__ __forceinline__ void flux(const T* q, int d, T* f) const {
-    elastic3d_het_flux<T>(q, T(1) / q[kRho], q[kLam], q[kMu], d, f);
-#pragma unroll
-    for (int v = kEvolved; v < V; ++v) f[v] = T(0);
-  }
   __device__ __forceinline__ T max_eigenvalue(const T* q, int) const {
     return elastic3d_het_eigenvalue<T>(q[kRho], q[kLam], q[kMu]);
   }
@@ -186,20 +192,6 @@ struct Params {
   long long ncell;
 };
 
-// Stride of node axis d in the flat node index (i0 * NN + i1) * NN + i2.
-template <int NN>
-__device__ __forceinline__ int node_stride(int d) {
-  return d == 0 ? NN * NN : (d == 1 ? NN : 1);
-}
-
-// Flat node index of face node m (the node axes other than d, in order)
-// with node index 0 on axis d.
-template <int NN>
-__device__ __forceinline__ int face_base(int d, int m) {
-  const int a = m / NN, b = m % NN;
-  return d == 0 ? a * NN + b : (d == 1 ? a * NN * NN + b : a * NN * NN + b * NN);
-}
-
 // row[j] = mat[r][j] for a thread-dependent r, reading the parameter
 // bank at compile-time offsets only (a dynamic index into a kernel
 // parameter can make the compiler copy the struct to local memory).
@@ -224,87 +216,36 @@ __device__ __forceinline__ T select(const T (&vec)[NN], int r) {
   return out;
 }
 
-// Index of (axis d, variable v, node, cell c) in the shared flux array
-// sF[d][v][node][c].
-template <int V, int NODES, int CB>
-__device__ __forceinline__ int flux_index(int d, int v, int node, int c) {
-  return ((d * V + v) * NODES + node) * CB + c;
-}
-
-// The end of both predictors, from a node's u, q̄ and F̄_d in registers:
-// q̄ and F̄_d to shared memory, the volume integral of this node into `out`,
-// and the face projections (q_lo, q_hi, f_lo, f_hi) of every axis into
-// `faces`.  sF holds kDim * V * NN^3 * CB values, sQ V * NN^3 * CB.  Every
-// thread of the block calls it (it syncs).
-template <typename T, int NN, int CB, int V, typename Prm>
-__device__ __forceinline__ void volume_and_faces(
-    const T (&uu)[V], const T (&qbar)[V], const T (&fbar)[kDim][V], const Prm& P,
-    T* sF, T* sQ, int node, int c, const int (&ix)[kDim], const int (&base)[kDim],
-    const T (&lam)[kDim], bool valid, long long cell, long long ncell,
-    T* __restrict__ out, T* __restrict__ faces) {
-  constexpr int NF = NN * NN;
-  constexpr int NODES = NN * NF;
-  auto iF = [](int d, int v, int node, int c) {
-    return flux_index<V, NODES, CB>(d, v, node, c);
-  };
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    sQ[(v * NODES + node) * CB + c] = qbar[v];
-#pragma unroll
-    for (int d = 0; d < kDim; ++d) sF[iF(d, v, node, c)] = fbar[d][v];
+// A cell's nodal rows in shared memory (u; K2 also q̄ and F̄_d), laid out
+// for the two predictors' compute mapping (a warp holds the 16 pencils of 2
+// cells): in each (v, i2) row, lane 2 p + (c % 2) of warp c / 2 finds its
+// word at 2 (p ^ i2) + (c % 2), rotated by 8 (c / 2), of the warp's 32,
+// conflict-free.  The rotation spreads the I/O mapping's accesses at one i2
+// (NF / (32 / CB) pencils x CB cells a warp) over the banks, and the XOR
+// with i2 those of K2's face projections along axes 0 and 1, which read
+// four i2 rows of one pencil at once.  load() stages the block's cells
+// from device memory in the I/O mapping (CB cells fastest, 32-byte runs);
+// at0 is the offset of the thread's pencil's node (j0, j1, 0), variable 0
+// and cell.
+template <int NN, int CB>
+struct PencilStage {
+  static constexpr int kNF = NN * NN;
+  static __device__ __forceinline__ int at(int v, int i2, int pencil, int cc) {
+    return (v * NN + i2) * (kNF * CB) + (cc / 2) * 32 +
+           (((pencil ^ i2) * 2 + (cc % 2) + (cc / 2) * 8) & 31);
   }
-  __syncthreads();
-
-  // Volume integral.
-  T Kvrow[kDim][NN];
+  template <typename T, int V>
+  static __device__ __forceinline__ void load(const T* __restrict__ u, T* s, int p_io, int c_io,
+                                              long long at0, long long ncell) {
 #pragma unroll
-  for (int d = 0; d < kDim; ++d) select_row<T, NN>(P.Kvol, ix[d], Kvrow[d]);
+    for (int i2 = 0; i2 < NN; ++i2) {
 #pragma unroll
-  for (int v = 0; v < V; ++v) {
-    T nv = uu[v];
-#pragma unroll
-    for (int d = 0; d < kDim; ++d) {
-      const int st = node_stride<NN>(d);
-      T kv = Kvrow[d][0] * sF[iF(d, v, base[d], c)];
-#pragma unroll
-      for (int j = 1; j < NN; ++j) kv = kv + Kvrow[d][j] * sF[iF(d, v, base[d] + j * st, c)];
-      nv = nv + lam[d] * kv;
-    }
-    if (valid) out[static_cast<long long>(node * V + v) * ncell + cell] = nv;
-  }
-
-  // Face projections: threads 0..3*NF-1 of each cell own one (axis, face
-  // node) pair and write its q_lo, q_hi, f_lo, f_hi.
-  if (node < kDim * NF && valid) {
-    const int d = node / NF;
-    const int m = node % NF;
-    const int b = face_base<NN>(d, m);
-    const int st = node_stride<NN>(d);
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      T qlo = P.PHI0[0] * sQ[(v * NODES + b) * CB + c];
-      T qhi = P.PHI1[0] * sQ[(v * NODES + b) * CB + c];
-      T flo = P.PHI0[0] * sF[iF(d, v, b, c)];
-      T fhi = P.PHI1[0] * sF[iF(d, v, b, c)];
-#pragma unroll
-      for (int j = 1; j < NN; ++j) {
-        const T qj = sQ[(v * NODES + b + j * st) * CB + c];
-        const T fj = sF[iF(d, v, b + j * st, c)];
-        qlo = qlo + P.PHI0[j] * qj;
-        qhi = qhi + P.PHI1[j] * qj;
-        flo = flo + P.PHI0[j] * fj;
-        fhi = fhi + P.PHI1[j] * fj;
+      for (int v = 0; v < V; ++v) {
+        s[at(v, i2, p_io, c_io)] = u[at0 + static_cast<long long>(i2 * V + v) * ncell];
       }
-      const long long stride_w = static_cast<long long>(NF * V) * ncell;
-      const long long o =
-          (static_cast<long long>(d * 4 * NF + m) * V + v) * ncell + cell;
-      faces[o] = qlo;
-      faces[o + stride_w] = qhi;
-      faces[o + 2 * stride_w] = flo;
-      faces[o + 3 * stride_w] = fhi;
     }
   }
-}
+};
 
 // Shared-memory layout of the Picard predictor's q̄ and F̄_d: per variable,
 // NN slabs of fixed i2, each the NF pencils (i0, i1) x CB cells, padded by
@@ -360,19 +301,8 @@ aderdg_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
   // Global offset of (node (j0, j1, i2), variable v): (node * V + v) * ncell + cell.
   const long long at0 = static_cast<long long>(p_io * NN * V) * ncell + cell;
   auto gat = [&](int i2, int v) { return at0 + static_cast<long long>(i2 * V + v) * ncell; };
-  // u in the compute mapping's order: lane 2 p + (c % 2) of warp c / 2
-  // reads word 2 p + (c % 2), rotated by 8 (c / 2), of the warp's 32 in
-  // each (v, i2) row, conflict-free; the rotation spreads the I/O
-  // mapping's stores (4 pencils x CB cells a warp) over the banks too.
-  auto uat = [](int v, int i2, int pencil, int cc) {
-    return (v * NN + i2) * (NF * CB) + (cc / 2) * 32 +
-           ((pencil * 2 + (cc % 2) + (cc / 2) * 8) & 31);
-  };
-#pragma unroll
-  for (int i2 = 0; i2 < NN; ++i2) {
-#pragma unroll
-    for (int v = 0; v < V; ++v) sU[uat(v, i2, p_io, c_io)] = u[gat(i2, v)];
-  }
+  using U = PencilStage<NN, CB>;
+  U::template load<T, V>(u, sU, p_io, c_io, at0, ncell);
 
   // The compute mapping: a warp holds the 16 pencils of 2 cells, lane =
   // 2 (4 i0 + i1) + cell bit, so the pencils along axes 0 and 1 through my
@@ -403,14 +333,14 @@ aderdg_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
 
   // u is read where it is used, not held: 20 registers fewer leave room
   // for three blocks an SM without spilling.
-  auto U = [&](int i2, int v) { return sU[uat(v, i2, i0 * NN + i1, c)]; };
+  auto Uat = [&](int i2, int v) { return sU[U::at(v, i2, i0 * NN + i1, c)]; };
   T q[NN][NN][V];  // [time slice][i2][v]
 #pragma unroll
   for (int s = 0; s < NN; ++s) {
 #pragma unroll
     for (int i2 = 0; i2 < NN; ++i2) {
 #pragma unroll
-      for (int v = 0; v < V; ++v) q[s][i2][v] = U(i2, v);
+      for (int v = 0; v < V; ++v) q[s][i2][v] = Uat(i2, v);
     }
   }
 
@@ -443,7 +373,7 @@ aderdg_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
             dF0 = dF0 + X0[k] * __shfl_xor_sync(kAll, f[0][v], k << 3);
             dF1 = dF1 + X1[k] * __shfl_xor_sync(kAll, f[1][v], k << 1);
           }
-          T r = P.PHI0[s] * U(i2, v);
+          T r = P.PHI0[s] * Uat(i2, v);
           r = r - lw[0] * dF0;
           q[s][i2][v] = r - lw[1] * dF1;  // q[s][i2]'s fluxes are taken: its rhs goes here
         }
@@ -517,7 +447,7 @@ aderdg_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
         kv1 = kv1 + K1[j] * sFbar[kArr + L::at(v, j0, j, i2, c_io)];
         kv2 = kv2 + P.Kvol[i2][j] * sFbar[2 * kArr + L::at(v, j0, j1, j, c_io)];
       }
-      T nv = sU[uat(v, i2, p_io, c_io)];
+      T nv = sU[U::at(v, i2, p_io, c_io)];
       nv = nv + lam[0] * kv0;
       nv = nv + lam[1] * kv1;
       nv = nv + lam[2] * kv2;
@@ -558,100 +488,244 @@ aderdg_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
   }
 }
 
-// K2: the Cauchy–Kovalewski predictor of the heterogeneous elasticity (see
-// the note at the top), then the shared epilogue.
+// Dynamic shared memory of aderdg_ck_predictor_volume: u (then q̄, then
+// new) in V rows and one axis's F̄_d in E rows, each NN^3 CB values a row.
+template <typename T, int NN, int CB, int V, int E>
+constexpr size_t ck_predictor_smem() {
+  return static_cast<size_t>((V + E) * NN * NN * NN * CB) * sizeof(T);
+}
+
+// K2, the CK predictor (see the note at the top): one thread per (cell,
+// pencil along the last node axis), CB cells x NN^2 pencils per block, the
+// Picard predictor's thread shape; shared memory only stages u in, q̄ and
+// F̄_d for the face projections, and new out.
 template <typename T, int NN, int CB>
-__global__ void __launch_bounds__(CB * NN * NN * NN)
+__global__ void __launch_bounds__(CB * NN * NN, 3)
 aderdg_ck_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
                            T* __restrict__ faces, const T* __restrict__ dt_ptr,
                            T dt_val, const Params<T, NN, ElasticHetPhysics<T>> P) {
+  static_assert(NN * NN * 2 == 32, "a warp holds the 16 pencils of 2 cells");
   using Phys = ElasticHetPhysics<T>;
+  using U = PencilStage<NN, CB>;
   constexpr int NF = NN * NN;
-  constexpr int NODES = NN * NF;
   constexpr int V = Phys::V;
   constexpr int E = Phys::kEvolved;
+  constexpr unsigned kAll = 0xffffffffu;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // sF[d][v][node][c] (the recursion uses rows v < E), then sQ[v][node][c].
-  T* sF = reinterpret_cast<T*>(smem_raw);
-  T* sQ = sF + kDim * V * NODES * CB;
-  auto iF = [](int d, int v, int node, int c) {
-    return flux_index<V, NODES, CB>(d, v, node, c);
-  };
+  T* sA = reinterpret_cast<T*>(smem_raw);  // u, then q̄, then new
+  T* sF = sA + V * NN * NF * CB;           // one axis's F̄_d
 
-  const int c = threadIdx.x % CB;
-  const int node = threadIdx.x / CB;
-  const int ix[kDim] = {node / NF, (node / NN) % NN, node % NN};
+  // The I/O mapping: CB cells fastest (32-byte runs), pencil p_io.
+  const int c_io = threadIdx.x % CB;
+  const int p_io = threadIdx.x / CB;
   const long long ncell = P.ncell;
-  const long long cell_raw = static_cast<long long>(blockIdx.x) * CB + c;
+  const long long cell_raw = static_cast<long long>(blockIdx.x) * CB + c_io;
   const bool valid = cell_raw < ncell;
   const long long cell = valid ? cell_raw : ncell - 1;  // ragged tail: clamp
+  const long long at0 = static_cast<long long>(p_io * NN * V) * ncell + cell;
+  U::template load<T, V>(u, sA, p_io, c_io, at0, ncell);
+
+  // The compute mapping: lane = 2 (4 i0 + i1) + cell bit; the pencils
+  // along axes 0 and 1 through mine are lanes xor k<<3 and xor k<<1.
+  const int lane = threadIdx.x % 32;
+  const int c = (threadIdx.x / 32) * 2 + (lane & 1);
+  const int i0 = lane >> 3, i1 = (lane >> 1) & (NN - 1);
+  const int pencil = i0 * NN + i1;
+  auto A = [&](int i2, int v) -> T& { return sA[U::at(v, i2, pencil, c)]; };
 
   const T dtv = dt_ptr != nullptr ? *dt_ptr : dt_val;
   T lam[kDim];
-  T Drow[kDim][NN];
-  int base[kDim];
 #pragma unroll
-  for (int d = 0; d < kDim; ++d) {
-    lam[d] = dtv / P.dx[d];
-    select_row<T, NN>(P.D, ix[d], Drow[d]);
-    base[d] = node - ix[d] * node_stride<NN>(d);
-  }
-
-  T uu[V];
+  for (int d = 0; d < kDim; ++d) lam[d] = dtv / P.dx[d];
+  // The coefficient of the value the xor-k shuffle brings: D and Kvol
+  // along axes 0 and 1, and the face projections' φ(0), φ(1) (for the
+  // face node whose index on that axis is mine).
+  T D0[NN], D1[NN], K0[NN], K1[NN];
+  {
+    T d0[NN], d1[NN], k0[NN], k1[NN];
+    select_row<T, NN>(P.D, i0, d0);
+    select_row<T, NN>(P.D, i1, d1);
+    select_row<T, NN>(P.Kvol, i0, k0);
+    select_row<T, NN>(P.Kvol, i1, k1);
 #pragma unroll
-  for (int v = 0; v < V; ++v) {
-    uu[v] = u[static_cast<long long>(node * V + v) * ncell + cell];
-  }
-  // This node's materials, for every level (the reference injects u's).
-  const T inv_rho = T(1) / uu[Phys::kRho];
-  const T lame = uu[Phys::kLam];
-  const T mu = uu[Phys::kMu];
-  T qk[E], qb[E];
-#pragma unroll
-  for (int v = 0; v < E; ++v) {
-    qk[v] = uu[v];
-    qb[v] = uu[v];
-  }
-
-#pragma unroll
-  for (int k = 1; k < NN; ++k) {
-#pragma unroll
-    for (int d = 0; d < kDim; ++d) {
-      T f[E];
-      elastic3d_het_flux<T>(qk, inv_rho, lame, mu, d, f);
-#pragma unroll
-      for (int v = 0; v < E; ++v) sF[iF(d, v, node, c)] = f[v];
+    for (int k = 0; k < NN; ++k) {
+      D0[k] = select<T, NN>(d0, i0 ^ k);
+      D1[k] = select<T, NN>(d1, i1 ^ k);
+      K0[k] = select<T, NN>(k0, i0 ^ k);
+      K1[k] = select<T, NN>(k1, i1 ^ k);
     }
-    __syncthreads();
+  }
+  __syncthreads();  // u staged
+
+  // My pencil's materials, frozen for the whole step (the reference injects
+  // u's at every level), and the level-0 Taylor term q_0 = u.
+  T inv_rho[NN], lame[NN], mu[NN];
+  T qk[NN][E];
+  // q̄ accumulates in sF (free until the epilogue), each thread its own
+  // rows: 36 registers fewer than in registers, and no slower (PERF.md).
+  auto QB = [&](int i2, int v) -> T& { return sF[U::at(v, i2, pencil, c)]; };
+#pragma unroll
+  for (int i2 = 0; i2 < NN; ++i2) {
+    inv_rho[i2] = T(1) / A(i2, Phys::kRho);
+    lame[i2] = A(i2, Phys::kLam);
+    mu[i2] = A(i2, Phys::kMu);
 #pragma unroll
     for (int v = 0; v < E; ++v) {
-      T r = T(0);
-#pragma unroll
-      for (int d = 0; d < kDim; ++d) {
-        const int st = node_stride<NN>(d);
-        T dF = Drow[d][0] * sF[iF(d, v, base[d], c)];
-#pragma unroll
-        for (int j = 1; j < NN; ++j) {
-          dF = dF + Drow[d][j] * sF[iF(d, v, base[d] + j * st, c)];
-        }
-        const T term = lam[d] * dF;
-        r = d == 0 ? -term : r - term;
-      }
-      qk[v] = r / T(k);
-      qb[v] = qb[v] + qk[v] / T(k + 1);
+      qk[i2][v] = A(i2, v);
+      QB(i2, v) = qk[i2][v];
     }
-    __syncthreads();
   }
 
-  // q̄ of all rows (the materials are u's) and F̄_d = F_d(q̄).
-  T qbar[V];
-  T fbar[kDim][V];
+  // The Taylor recursion: q_k = −Σ_d λ_d D_d F_d(q_{k−1}) / k, q̄ += q_k /
+  // (k + 1), in registers and shuffles (q̄ in the thread's own words of sF).
 #pragma unroll
-  for (int v = 0; v < V; ++v) qbar[v] = v < E ? qb[v] : uu[v];
+  for (int k = 1; k < NN; ++k) {
+    T dF2[NN][E];
 #pragma unroll
-  for (int d = 0; d < kDim; ++d) P.phys.flux(qbar, d, fbar[d]);
-  volume_and_faces<T, NN, CB, V>(uu, qbar, fbar, P, sF, sQ, node, c, ix, base, lam,
-                                 valid, cell, ncell, out, faces);
+    for (int i2 = 0; i2 < NN; ++i2) {
+      T f[kDim][E];
+#pragma unroll
+      for (int d = 0; d < kDim; ++d) {
+        elastic3d_het_flux<T>(qk[i2], inv_rho[i2], lame[i2], mu[i2], d, f[d]);
+      }
+#pragma unroll
+      for (int n = 0; n < NN; ++n) {
+#pragma unroll
+        for (int v = 0; v < E; ++v) {
+          dF2[n][v] = i2 == 0 ? P.D[n][0] * f[2][v] : dF2[n][v] + P.D[n][i2] * f[2][v];
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < E; ++v) {
+        T dF0 = D0[0] * f[0][v];
+        T dF1 = D1[0] * f[1][v];
+#pragma unroll
+        for (int x = 1; x < NN; ++x) {
+          dF0 = dF0 + D0[x] * __shfl_xor_sync(kAll, f[0][v], x << 3);
+          dF1 = dF1 + D1[x] * __shfl_xor_sync(kAll, f[1][v], x << 1);
+        }
+        // q_{k-1} at this node has given its fluxes: its slot takes r.
+        qk[i2][v] = -(lam[0] * dF0) - lam[1] * dF1;
+      }
+    }
+#pragma unroll
+    for (int i2 = 0; i2 < NN; ++i2) {
+#pragma unroll
+      for (int v = 0; v < E; ++v) {
+        const T r = qk[i2][v] - lam[2] * dF2[i2][v];
+        qk[i2][v] = r / T(k);
+        QB(i2, v) = QB(i2, v) + qk[i2][v] / T(k + 1);
+      }
+    }
+  }
+
+  // new's evolved rows start from u, in the registers of q_k (spent); q̄'s
+  // evolved rows replace u's in sA (its material rows are u's already).
+  T nw[NN][E];
+#pragma unroll
+  for (int i2 = 0; i2 < NN; ++i2) {
+#pragma unroll
+    for (int v = 0; v < E; ++v) {
+      nw[i2][v] = A(i2, v);
+      A(i2, v) = QB(i2, v);
+    }
+  }
+
+  // Axis by axis: F̄_d = F_d(q̄) and its volume term new += λ_d Kvol_d F̄_d
+  // (d in order) in the compute mapping; F̄_d to sF; then the face
+  // projections (q_lo, q_hi, f_lo, f_hi) of axis d in the I/O mapping, one
+  // face node p_io a thread, from q̄ in sA and F̄_d in sF, straight to
+  // device memory as 32-byte runs.
+  const int m_a = p_io / NN, m_b = p_io % NN;  // my face node of each axis
+  const long long stride_w = static_cast<long long>(NF * V) * ncell;
+#pragma unroll
+  for (int d = 0; d < kDim; ++d) {
+    T fb[NN][E];
+#pragma unroll
+    for (int i2 = 0; i2 < NN; ++i2) {
+      T qbar[E];
+#pragma unroll
+      for (int v = 0; v < E; ++v) qbar[v] = A(i2, v);
+      elastic3d_het_flux<T>(qbar, inv_rho[i2], lame[i2], mu[i2], d, fb[i2]);
+    }
+#pragma unroll
+    for (int i2 = 0; i2 < NN; ++i2) {
+#pragma unroll
+      for (int v = 0; v < E; ++v) {
+        T kv;
+        if (d == 2) {
+          kv = P.Kvol[i2][0] * fb[0][v];
+#pragma unroll
+          for (int j = 1; j < NN; ++j) kv = kv + P.Kvol[i2][j] * fb[j][v];
+        } else {
+          const T (&Kx)[NN] = d == 0 ? K0 : K1;
+          const int sh = d == 0 ? 3 : 1;
+          kv = Kx[0] * fb[i2][v];
+#pragma unroll
+          for (int x = 1; x < NN; ++x) kv = kv + Kx[x] * __shfl_xor_sync(kAll, fb[i2][v], x << sh);
+        }
+        nw[i2][v] = nw[i2][v] + lam[d] * kv;
+        sF[U::at(v, i2, pencil, c)] = fb[i2][v];
+      }
+    }
+    __syncthreads();  // q̄ (d = 0) and F̄_d staged
+
+    // Face node p_io of axis d: on axis 2 the pencil (m_a, m_b), nodes
+    // (m_a, m_b, j); on axis 0 the nodes (j, m_a, m_b); on axis 1 (m_a, j,
+    // m_b).  faces[d][which][m][v][cell].
+    auto at = [&](int v, int j) {
+      return d == 2 ? U::at(v, j, p_io, c_io)
+                    : (d == 0 ? U::at(v, m_b, j * NN + m_a, c_io)
+                              : U::at(v, m_b, m_a * NN + j, c_io));
+    };
+    if (valid) {
+      const long long base = static_cast<long long>(d * 4 * NF + p_io) * V * ncell + cell;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        T qlo = P.PHI0[0] * sA[at(v, 0)], qhi = P.PHI1[0] * sA[at(v, 0)];
+        T flo = T(0), fhi = T(0);  // the materials' flux rows are zero
+        if (v < E) {
+          flo = P.PHI0[0] * sF[at(v, 0)];
+          fhi = P.PHI1[0] * sF[at(v, 0)];
+        }
+#pragma unroll
+        for (int j = 1; j < NN; ++j) {
+          const T qj = sA[at(v, j)];
+          qlo = qlo + P.PHI0[j] * qj;
+          qhi = qhi + P.PHI1[j] * qj;
+          if (v < E) {
+            const T fj = sF[at(v, j)];
+            flo = flo + P.PHI0[j] * fj;
+            fhi = fhi + P.PHI1[j] * fj;
+          }
+        }
+        const long long o = base + static_cast<long long>(v) * ncell;
+        faces[o] = qlo;
+        faces[o + stride_w] = qhi;
+        faces[o + 2 * stride_w] = flo;
+        faces[o + 3 * stride_w] = fhi;
+      }
+    }
+    __syncthreads();  // sF (and, after d = 2, sA) free
+  }
+
+  // new: the evolved rows from the registers, the material rows u's bits
+  // (sA's material rows were never written), out in the I/O mapping.
+#pragma unroll
+  for (int i2 = 0; i2 < NN; ++i2) {
+#pragma unroll
+    for (int v = 0; v < E; ++v) A(i2, v) = nw[i2][v];
+  }
+  __syncthreads();
+  if (valid) {
+#pragma unroll
+    for (int i2 = 0; i2 < NN; ++i2) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        out[at0 + static_cast<long long>(i2 * V + v) * ncell] = sA[U::at(v, i2, p_io, c_io)];
+      }
+    }
+  }
 }
 
 // The face stage's tiling: a tile is kTile consecutive cells of one row of
@@ -868,9 +942,9 @@ template <typename T>
 Shape ck_predictor_shape() {
   constexpr int CB = cells_per_block<T>();
   return {reinterpret_cast<const void*>(aderdg_ck_predictor_volume<T, kNN, CB>),
-          dim3(CB * kNN * kNN * kNN),
-          static_cast<size_t>((kDim + 1) * ElasticHetPhysics<T>::V * kNN * kNN * kNN * CB) *
-              sizeof(T)};
+          dim3(CB * kNN * kNN),
+          ck_predictor_smem<T, kNN, CB, ElasticHetPhysics<T>::V,
+                            ElasticHetPhysics<T>::kEvolved>()};
 }
 
 template <typename T, typename Phys>

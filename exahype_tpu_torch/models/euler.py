@@ -86,15 +86,31 @@ def wave_speed_fn(dim: int, gamma: float = GAMMA):
 # float32 kernel rounds them as the float32 tensor path does.
 
 
+def _by_axis(dim: int, call: str) -> str:
+    """A statement per axis, chosen by ``normal``: every call gets its axis
+    as an integer constant, so that an argument vector is indexed at
+    constant offsets only (a ``static_cast`` of ``normal`` as an index can
+    leave the vector in local memory)."""
+    if dim == 1:
+        return f"  {call.format(n=0)}\n"
+    lines = []
+    for n in range(dim):
+        head = "if" if n == 0 else "} else if"
+        test = f"normal == T({n})" if n < dim - 1 else None
+        lines.append(f"  {head} ({test}) {{" if test else "  } else {")
+        lines.append(f"    {call.format(n=n)}")
+    lines.append("  }")
+    return "\n".join(lines) + "\n"
+
+
 def flux_cuda(dim: int, n_real: int = 5, gamma: float = GAMMA) -> str:
     """``spec_Flux(Q, normal, F)``: the flux along ``normal``."""
     return (
         '#include "euler.cuh"\n'
         "template <typename T>\n"
         "__device__ __forceinline__ void spec_Flux(const T* Q, T normal, T* F) {\n"
-        f"  euler_flux<T, {dim}, {n_real}>(Q, static_cast<int>(normal), "
-        f"T({gamma - 1.0!r}), F);\n"
-        "}\n"
+        + _by_axis(dim, f"euler_flux<T, {dim}, {n_real}>(Q, {{n}}, T({gamma - 1.0!r}), F);")
+        + "}\n"
     )
 
 
@@ -104,10 +120,9 @@ def max_eigenvalue_cuda(dim: int, gamma: float = GAMMA) -> str:
         '#include "euler.cuh"\n'
         "template <typename T>\n"
         "__device__ __forceinline__ T spec_maxEigenvalue(const T* Q, T normal) {\n"
-        "  const int n = static_cast<int>(normal);\n"
-        f"  return euler_max_eigenvalue<T, {dim}>(Q, Q[n + 1], "
-        f"T({gamma - 1.0!r}), T({float(gamma)!r}));\n"
-        "}\n"
+        + _by_axis(dim, f"return euler_max_eigenvalue<T, {dim}>(Q, Q[{{n}} + 1], "
+                        f"T({gamma - 1.0!r}), T({float(gamma)!r}));")
+        + "}\n"
     )
 
 

@@ -4,14 +4,16 @@
     python3 scripts/torch_kernel_ab.py LABEL=SOURCE[:FLAG,FLAG...] ... [--out DIR] [--sass]
 
 Each argument names a copy of ``exahype_tpu_torch/csrc/aderdg.cu`` (an
-older version, or the current file built with other ``-D`` flags).  The
-script builds each into a library of its own with the port's nvcc flags
-(``csrc/`` on the include path), prints ptxas's registers and spills of the
-Picard predictor, checks each library's ``aderdg_predictor_volume`` and face
-stage against the plain PyTorch versions (f32 at ``(256, 8, 128)``, f64 at
-``(3, 5, 7)``), and times both with CUDA events, the versions in turns
-(A B ... B A) at ``bench.py::main``'s shape, so that every version sees the
-same card in the same state.  Needs a CUDA card and nvcc; imports no JAX.
+older version, or a file built with other ``-D`` flags).  The script
+builds each into a library of its own with the port's nvcc flags (``csrc/``
+on the include path), prints
+ptxas's registers and spills of the two predictors, checks each library's
+``aderdg_predictor_volume``, Euler face stage and CK predictor
+(``aderdg_ck_predictor_volume``, K2, on ``bench.py::bench_ck``'s problem)
+against the plain PyTorch versions (f32 at ``(256, 8, 128)``, f64 at
+``(3, 5, 7)``), and times the three with CUDA events, the versions in turns
+(A B ... B A) at ``(256, 8, 128)``, so that every version sees the same card
+in the same state.  Needs a CUDA card and nvcc; imports no JAX.
 With ``--sass`` it instead counts, in ``cuobjdump -sass`` of each version,
 the instructions of each f32 kernel of the file by kind (reciprocals,
 square roots, FP32 adds/multiplies/FMAs, shuffles, shared loads and stores,
@@ -26,7 +28,7 @@ Example (the current kernels against a file kept from an earlier commit):
         new=exahype_tpu_torch/csrc/aderdg.cu
 
 A version must export the current C interface of the face stage and the
-predictor (``_build._SIGNATURES``' ``aderdg`` entries).
+two predictors (``_build._SIGNATURES``' ``aderdg`` entries).
 """
 
 from __future__ import annotations
@@ -62,10 +64,11 @@ def _build_one(build, out_dir, item):
     log = (proc.stdout + proc.stderr).splitlines()
     ptxas = []
     for i, line in enumerate(log):
-        if "Compiling entry" in line and "23aderdg_predictor_volume" in line:
-            # The entry's spill line and its "Used N registers" line.
-            info = [x.strip() for x in log[i + 1:i + 5] if "spill" in x or "Used" in x]
-            ptxas.append(("f64" if "IdLi4" in line else "f32", "; ".join(info)))
+        for kernel in ("23aderdg_predictor_volume", "26aderdg_ck_predictor_volume"):
+            if "Compiling entry" in line and kernel in line:
+                # The entry's spill line and its "Used N registers" line.
+                info = [x.strip() for x in log[i + 1:i + 5] if "spill" in x or "Used" in x]
+                ptxas.append((kernel[2:], "f64" if "IdLi4" in line else "f32", "; ".join(info)))
     return label, out, ptxas
 
 
@@ -120,6 +123,12 @@ def main():
     from exahype_tpu_torch import _build
     from exahype_tpu_torch.models.aderdg import ADERDGSolver, euler_physics
     from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.elastic import (
+        DISSIPATION_MASK,
+        MATERIAL_SLOTS,
+        elastic3d_heterogeneous,
+        two_layer_state,
+    )
 
     if not (args.sass or torch.cuda.is_available()):
         sys.exit("torch_kernel_ab: no CUDA card")
@@ -162,6 +171,14 @@ def main():
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / n
 
+    def ck_setup(grid, dtype):
+        ck_flux, ck_eig = elastic3d_heterogeneous()
+        sol = ADERDGSolver(3, 3, 12, grid, ck_flux, ck_eig, dx=1.0 / grid[0], device=dev,
+                           dtype=dtype, predictor_mode="ck", ck_material_slots=MATERIAL_SLOTS,
+                           dissipation_mask=DISSIPATION_MASK)
+        q, _ = two_layer_state(sol)
+        return sol, torch.from_numpy(q).to(dev, dtype).contiguous()
+
     big, u = setup(GRID, torch.float32)
     dt = float(big.cfl_dt(u))
     small, us = setup(SMALL, torch.float64)
@@ -169,6 +186,24 @@ def main():
     ref_surf = big.face_surface(ref[0], ref[1], dt)
     ref64 = small.predictor_volume(us, 5e-5)
     bound32 = 64 * 2.0**-23 * ref[1].abs().max().item()
+    ck_big, ck_u = ck_setup(GRID, torch.float32)
+    ck_dt = float(ck_big.cfl_dt(ck_u))
+    ck_small, ck_us = ck_setup(SMALL, torch.float64)
+    ck_ref = ck_big.predictor_volume(ck_u, ck_dt)
+    ck_ref64 = ck_small.predictor_volume(ck_us, 2e-4)
+
+    def ck_ok(got, want, f64):
+        """The evolved and the material rows (var axis 3) each within the
+        bound of their own largest value (f32), or 1e-12 (f64)."""
+        worst = 0.0
+        for lo, n in ((0, 9), (9, 3)):
+            g, r = got.narrow(3, lo, n), want.narrow(3, lo, n)
+            err = (g.double() - r.double()).abs().max().item()
+            limit = 1e-12 if f64 else 64 * 2.0**-23 * r.abs().max().item()
+            if err > limit:
+                return False, err
+            worst = max(worst, err)
+        return True, worst
 
     def use(label):
         _build.library = lambda lib=libs[label]: lib
@@ -179,32 +214,40 @@ def main():
         new, faces = cu.predictor_volume(u, dt)
         surf = cu.face_surface(ref[0].clone(), ref[1], dt)
         new64, faces64 = cs.predictor_volume(us, 5e-5)
+        ck_got = CudaADERDG(ck_big).predictor_volume(ck_u, ck_dt)
+        ck_got64 = CudaADERDG(ck_small).predictor_volume(ck_us, 2e-4)
         torch.cuda.synchronize()
         errs = [
             (new - ref[0]).abs().max().item(), (faces - ref[1]).abs().max().item(),
             (surf - ref_surf).abs().max().item(),
             (new64 - ref64[0]).abs().max().item(), (faces64 - ref64[1]).abs().max().item(),
         ]
-        ok = max(errs[:3]) <= bound32 and max(errs[3:]) <= 1e-12
+        ck = [ck_ok(g, r, f64) for g, r, f64 in zip((*ck_got, *ck_got64),
+                                                     (*ck_ref, *ck_ref64), (0, 0, 1, 1))]
+        ok = (max(errs[:3]) <= bound32 and max(errs[3:]) <= 1e-12
+              and all(good for good, _ in ck))
         print(f"[ab] {label}: ptxas {ptxas}")
         print(f"[ab] {label}: max_abs_err f32 {GRID} new {errs[0]:.3e} faces {errs[1]:.3e} "
               f"face stage {errs[2]:.3e} (bound {bound32:.3e}); f64 {SMALL} new {errs[3]:.3e} "
-              f"faces {errs[4]:.3e} (bound 1e-12): {'ok' if ok else 'FAIL'}")
+              f"faces {errs[4]:.3e} (bound 1e-12); K2 f32 new, faces, f64 new, faces "
+              f"{[f'{e:.3e}' for _, e in ck]}: {'ok' if ok else 'FAIL'}")
         if not ok:
             sys.exit(f"torch_kernel_ab: {label} disagrees with the plain version")
 
     order = [label for label, _, _ in built]
-    times = {label: {"predictor": [], "face stage": []} for label in order}
+    kinds = ("predictor", "face stage", "K2")
+    times = {label: {k: [] for k in kinds} for label in order}
     for label in order + order[::-1]:
         use(label)
-        cu = CudaADERDG(big)
+        cu, ck = CudaADERDG(big), CudaADERDG(ck_big)
         new, faces = cu.predictor_volume(u, dt)
         times[label]["predictor"].append(event_ms(lambda: cu.predictor_volume(u, dt)))
         times[label]["face stage"].append(event_ms(lambda: cu.face_surface(new, faces, dt)))
+        times[label]["K2"].append(event_ms(lambda: ck.predictor_volume(ck_u, ck_dt)))
     for label in order:
         print(f"[ab] {label}: aderdg_predictor_volume ms {times[label]['predictor']!r}, "
-              f"face stage ms {times[label]['face stage']!r} (CUDA events, 30 launches "
-              f"each, {GRID} f32; {card})")
+              f"face stage ms {times[label]['face stage']!r}, aderdg_ck_predictor_volume ms "
+              f"{times[label]['K2']!r} (CUDA events, 30 launches each, {GRID} f32; {card})")
 
 
 if __name__ == "__main__":

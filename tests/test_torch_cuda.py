@@ -160,8 +160,9 @@ def _ck_err(got, ref, dtype):
 
 CK_CASES = [
     (torch.float64, (8, 4, 32)),
-    (torch.float64, (3, 5, 7)),  # ragged last block, odd wraps
+    (torch.float64, (3, 5, 7)),  # ragged last block (105 cells, 4 a block), odd wraps
     (torch.float32, (8, 4, 32)),
+    (torch.float32, (3, 5, 7)),  # ragged last block (105 cells, 8 a block)
 ]
 CK_DT = 2e-4  # bench.py's dt, under the CFL limit at dx = 1/g0 <= 1/8
 
@@ -377,12 +378,12 @@ def test_limited_step_kernels_match_plain():
 # ------------------------------------------------ K4: the generated spec kernel
 
 
-def _fv_state(grid, dtype, dev, seed=0, n_vars=5):
+def _fv_state(grid, dtype, dev, seed=0, n_vars=5, extent=6):
     """``__graft_entry__._example_state``'s recipe on the SoA-P grid state
     ``[*extent, V, *grid]`` (one spatial axis per grid axis)."""
     dim = len(grid)
     rng = np.random.default_rng(seed)
-    q = rng.uniform(0.1, 1.0, size=(6,) * dim + (n_vars,) + grid)
+    q = rng.uniform(0.1, 1.0, size=(extent,) * dim + (n_vars,) + grid)
     lead = (slice(None),) * dim
     q[lead + (0,)] += 1.0
     q[lead + (dim + 1,)] += 5.0
@@ -390,24 +391,32 @@ def _fv_state(grid, dtype, dev, seed=0, n_vars=5):
 
 
 def _spec(name, grid, n_aux=0):
+    """The spec ``name`` (``fv`` or ``rusanov``, patch 4, or ``fv_p6`` and
+    the like for another patch size) on one patch per grid cell."""
     from exahype_tpu_torch.models.fv import build_fv_rusanov_kernel
     from exahype_tpu_torch.models.rusanov import build_rusanov_kernel
 
+    name, _, patch = name.partition("_p")
     build = {"fv": build_fv_rusanov_kernel, "rusanov": build_rusanov_kernel}[name]
-    return build(dim=len(grid), patch_size=4, halo_size=1, n_real=5, n_aux=n_aux,
-                 n_patches=int(np.prod(grid)))
+    return build(dim=len(grid), patch_size=int(patch or 4), halo_size=1, n_real=5,
+                 n_aux=n_aux, n_patches=int(np.prod(grid)))
 
 
 SPEC_CASES = [
     ("fv", torch.float64, (2, 2, 2), 0),
     ("rusanov", torch.float64, (2, 2, 2), 0),
     ("fv", torch.float64, (3, 1, 5), 0),  # ragged last tile (4 patches per block)
-    ("fv", torch.float32, (8, 4, 33), 0),  # ragged last tile (8 patches per block)
+    ("fv", torch.float32, (8, 4, 33), 0),  # 132 full tiles of 8 patches
+    ("fv", torch.float32, (3, 3, 3), 0),  # ragged last tile (8 patches per block)
     ("rusanov", torch.float32, (4, 4, 8), 0),
     # The reference's 2-D configuration: 10 variables, 5 of them evolved;
-    # tiles of 32 patches, ragged.
+    # ragged last tiles (35 patches in f64, 99 in f32).
     ("rusanov", torch.float64, (5, 7), 5),
     ("fv", torch.float32, (9, 11), 5),
+    # Patches too large for a 32-byte tile: tiles of 4 (f32, 9 patches,
+    # ragged) and of 1 (f64).
+    ("fv_p6", torch.float32, (3, 3, 1), 0),
+    ("fv_p8", torch.float64, (1, 3, 1), 0),
 ]
 
 
@@ -417,8 +426,9 @@ def test_spec_kernel_matches_plain(spec, dtype, grid, n_aux):
     from exahype_tpu_torch.backends.cuda_backend import CudaPrinter
 
     dev = _card()
-    fn = CudaPrinter(_spec(spec, grid, n_aux)).build()
-    q = _fv_state(grid, dtype, dev, n_vars=5 + n_aux)
+    kb = _spec(spec, grid, n_aux)
+    fn = CudaPrinter(kb).build()
+    q = _fv_state(grid, dtype, dev, n_vars=5 + n_aux, extent=kb.config.extent)
     got = q.clone()
     assert fn(got, 0.05) is got  # in place
     by_pointer = fn(q.clone(), torch.tensor(0.05, dtype=dtype, device=dev))
@@ -427,6 +437,38 @@ def test_spec_kernel_matches_plain(spec, dtype, grid, n_aux):
     assert _err(got, ref) <= _bound(ref, dtype)
     assert torch.equal(got, by_pointer)
     assert fn.launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,dtype,grid,n_aux", SPEC_CASES)
+def test_spec_kernel_reads_and_writes_only_its_sets(spec, dtype, grid, n_aux):
+    """With a sentinel in every state value outside the printer's read set,
+    the kernel's output on the write set is bitwise its output from the
+    clean state, and every value outside the write set keeps its input."""
+    from exahype_tpu_torch.backends.cuda_backend import CudaPrinter
+
+    dev = _card()
+    kb = _spec(spec, grid, n_aux)
+    pr = CudaPrinter(kb)
+    fn = pr.build()
+    q = _fv_state(grid, dtype, dev, n_vars=5 + n_aux, extent=kb.config.extent)
+    read = torch.zeros(q.shape[:len(grid) + 1], dtype=torch.bool, device=dev)
+    write = torch.zeros_like(read)
+    for cell, v in pr.read_cells:
+        read[cell + (v,)] = True
+    for cell, v in pr.write_cells:
+        write[cell + (v,)] = True
+    probed = q.clone()
+    probed[~read] = 1e30
+    clean = fn(q.clone(), 0.05)
+    got = fn(probed.clone(), 0.05)
+    torch.cuda.synchronize()
+    assert torch.equal(got[write], clean[write])
+    assert torch.isfinite(got[write]).all()
+    assert torch.equal(got[~write], probed[~write])
+    assert torch.equal(clean[~write], q[~write])
+    info = fn.kernel_info(dtype)
+    assert info["blocks_per_sm"] >= 1 and info["threads"] % 32 == 0, info
 
 
 @pytest.mark.cuda

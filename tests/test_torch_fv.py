@@ -16,6 +16,10 @@ checked: tile sizes, refusals, a deterministic source, and the wrapper's
 plain path.
 """
 
+import itertools
+import math
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +34,9 @@ from exahype_tpu.models.rusanov import build_rusanov_kernel as jax_rusanov
 from exahype_tpu.utils.errors import LoweringError as JaxLoweringError
 from exahype_tpu_torch.backends.cuda_backend import (
     SMEM_PER_BLOCK,
+    SMEM_PER_SM,
+    SMEM_RESERVED,
+    TILE_BYTES,
     CudaPrinter,
 )
 from exahype_tpu_torch.backends.torch_backend import TorchPrinter
@@ -141,20 +148,110 @@ def test_dataflow_refusal_matches_jax():
 
 
 def test_cuda_printer_tile_from_byte_count():
+    """A patch needs shared memory for each item over the box of the cells
+    it touches; a tile is one 32-byte sector of patches a row where it
+    fits, and two tiles of the main-path spec fit one SM."""
     kb = build_fv_rusanov_kernel(dim=3, patch_size=4, halo_size=1, n_real=5,
                                  n_aux=0, n_patches=8)
     pr = CudaPrinter(kb)
-    # Q, Q_copy (5 vars), 3 tmp_flux (5), 3 tmp_eigen (1): 28 values per cell.
-    assert pr.bytes_per_patch(torch.float32) == 6 ** 3 * 28 * 4 == 24192
-    assert pr.bytes_per_patch(torch.float64) == 48384
+    # Q over the padded patch (6^3 cells, 5 vars), Q_copy over the interior
+    # (4^3, 5), each axis's tmp_flux (5 vars) and tmp_eigen (1) over the
+    # interior and the two face halos along it (6 * 4 * 4 cells).
+    values = 6**3 * 5 + 4**3 * 5 + 3 * 6 * 4 * 4 * (5 + 1)
+    assert values == 3128
+    assert pr.bytes_per_patch(torch.float32) == values * 4 == 12512
+    assert pr.bytes_per_patch(torch.float64) == values * 8
     assert pr.tiles == {torch.float32: 8, torch.float64: 4}
     for dtype, tile in pr.tiles.items():
+        assert tile * torch.empty((), dtype=dtype).element_size() == TILE_BYTES
         assert tile * pr.bytes_per_patch(dtype) <= SMEM_PER_BLOCK
-        assert 2 * tile * pr.bytes_per_patch(dtype) > SMEM_PER_BLOCK
+        assert 2 * (tile * pr.bytes_per_patch(dtype) + SMEM_RESERVED) <= SMEM_PER_SM
+    assert {pr.min_blocks(dtype) for dtype in pr.tiles} == {2}
+    assert "__launch_bounds__(kThreads, MB)" in pr.code
+    assert "launch<float, 8, 2>" in pr.code and "launch<double, 4, 2>" in pr.code
     small = CudaPrinter(build_fv_rusanov_kernel(dim=2, patch_size=4, n_patches=4))
-    assert small.tiles == {torch.float32: 32, torch.float64: 32}
+    assert small.tiles == {torch.float32: 8, torch.float64: 4}
     with pytest.raises(LoweringError, match="shared memory"):
         CudaPrinter(build_fv_rusanov_kernel(dim=3, patch_size=12, halo_size=1))
+
+
+@pytest.mark.parametrize("patch,tiles", [(6, (4, 2)), (8, (2, 1))])
+def test_cuda_printer_large_patches_take_smaller_tiles(patch, tiles):
+    """Where a 32-byte tile does not fit, the tile is the largest power of
+    two that does: a spec is refused only if one patch does not fit, and
+    every patch size the whole-patch layout took (each item over the
+    padded patch) still prints."""
+    pr = CudaPrinter(build_fv_rusanov_kernel(dim=3, patch_size=patch, halo_size=1))
+    assert (pr.tiles[torch.float32], pr.tiles[torch.float64]) == tiles
+    for dtype, tile in pr.tiles.items():
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        per_patch = pr.bytes_per_patch(dtype)
+        assert per_patch <= (patch + 2) ** 3 * 28 * itemsize  # the whole-patch layout's
+        assert tile * per_patch <= SMEM_PER_BLOCK < 2 * tile * per_patch
+        assert pr.min_blocks(dtype) == 1
+        assert f"launch<{'float' if itemsize == 4 else 'double'}, {tile}, 1>" in pr.code
+
+
+#: (spec, dim, n_aux) of the demand-analysis tests: both specs, 2-D and 3-D,
+#: without and with auxiliary variables.
+DEMAND_CASES = [(spec, dim, n_aux) for spec in sorted(SPECS) for dim in (2, 3)
+                for n_aux in (0, 5)]
+
+
+def _printer(spec, dim, n_aux, n_patches=1):
+    return CudaPrinter(SPECS[spec][1](dim=dim, patch_size=4, halo_size=1, n_real=5,
+                                      n_aux=n_aux, n_patches=n_patches))
+
+
+@pytest.mark.parametrize("spec,dim,n_aux", DEMAND_CASES)
+def test_demand_read_and_write_sets_match_hand_count(spec, dim, n_aux):
+    """The kernel loads the interior and the 2·dim face halos (every
+    variable, which the flux calls gather) and stores the interior; each
+    axis's flux and wave speed run on the interior and the two face halos
+    along that axis."""
+    p, n_vars = 4, 5 + n_aux
+    pr = _printer(spec, dim, n_aux)
+    interior = set(itertools.product(range(1, p + 1), repeat=dim))
+    faces = {c[:d] + (h,) + c[d + 1:] for c in interior for d in range(dim)
+             for h in (0, p + 1)}
+    assert len(interior | faces) == p**dim + 2 * dim * p ** (dim - 1)
+    assert pr.read_cells == {(c, v) for c in interior | faces for v in range(n_vars)}
+    assert pr.write_cells == {(c, v) for c in interior for v in range(n_vars)}
+    if (spec, dim) == ("fv", 3):
+        assert len({c for c, _ in pr.read_cells}) == 160
+        assert len({c for c, _ in pr.write_cells}) == 64
+    demanded = {lp.target: sum(math.prod(hi - lo for lo, hi in box) for box, _ in lp.pieces)
+                for lp in pr.plan.loops if lp.target.startswith("tmp_")}
+    assert len(demanded) == 2 * dim
+    assert set(demanded.values()) == {(p + 2) * p ** (dim - 1)}
+    assert pr.moved_bytes(10, torch.float32) == 10 * 4 * n_vars * (
+        len(interior | faces) + len(interior))
+
+
+@pytest.mark.parametrize("spec,dim,n_aux", DEMAND_CASES)
+def test_demand_probe_through_the_plain_version(spec, dim, n_aux):
+    """NaN in every state value outside the read set leaves the plain
+    version's output on the write set bitwise equal to the clean run's, and
+    the clean run leaves every value outside the write set as it was."""
+    pr = _printer(spec, dim, n_aux, n_patches=3)
+    jkb = SPECS[spec][0](dim=dim, patch_size=4, halo_size=1, n_real=5, n_aux=n_aux,
+                         n_patches=3)
+    Q = np.asarray(to_tpu_layout(jnp.asarray(euler_state(jkb, seed=dim + n_aux))))
+    read = np.zeros(Q.shape[:-1], dtype=bool)
+    write = np.zeros(Q.shape[:-1], dtype=bool)
+    for cell, v in pr.read_cells:
+        read[cell + (v,)] = True
+    for cell, v in pr.write_cells:
+        write[cell + (v,)] = True
+    plain = TorchPrinter(pr.kernel()).build()
+    clean = plain(torch.from_numpy(Q.copy()), 0.01).numpy()
+    probed = Q.copy()
+    probed[~read] = np.nan
+    got = plain(torch.from_numpy(probed), 0.01).numpy()
+    np.testing.assert_array_equal(got[write], clean[write])
+    assert np.isfinite(got[write]).all()
+    np.testing.assert_array_equal(clean[~write], Q[~write])
+    assert (clean[write] != Q[write]).any()  # the update did something
 
 
 #: The function bodies each package's ``kernel.function`` takes.
@@ -220,12 +317,22 @@ def test_cuda_printer_source_is_deterministic():
     a, b = source(), source()
     assert a == b
     assert "exahype_spec_time_step_f32" in a and "exahype_spec_time_step_f64" in a
-    assert "launch<float, 8>" in a and "launch<double, 4>" in a
+    assert "exahype_spec_time_step_info" in a
+    assert "launch<float, 8, 2>" in a and "launch<double, 4, 2>" in a
     assert "spec_Flux<T>" in a and "spec_maxEigenvalue<T>" in a and "spec_max<T>" in a
     # Literals are cast to the kernel's type: no bare double in a float kernel.
     assert "T(0.5)" in a and " 0.5 " not in a and "(0.5 *" not in a
-    # 20 statements, 6 of them directional constants: 14 loops, 14 barriers
-    # (+1 after the load).
-    assert a.count("__syncthreads();") == 15
+    # 20 statements, 6 of them directional constants, 14 loops; Q_copy = Q
+    # feeds nothing once the flux calls and the first update read Q, so 13
+    # run, in 3 barrier phases (the 6 flux and wave-speed evaluations; the
+    # 6 updates, fused, each element's values in its thread; the write-back),
+    # plus the barrier after the load.
+    assert a.count("__syncthreads();") == 4
+    run = re.findall(r"// \[(\d+)\] ", a)
+    assert len(run) == 13 and "0" not in run
+    # Only the read set is loaded (160 cells) and only the write set stored
+    # (64), a thread a cell and patch, its 5 variables in turn.
+    assert "e < 160 * PT" in a and "e < 64 * PT" in a
+    assert "for (int v = 0; v < 5; ++v)" in a
     canonical = CudaPrinter(build_rusanov_kernel(dim=3, n_aux=0, n_patches=64)).code
     assert canonical != a
