@@ -64,12 +64,15 @@ Phases:
    per source, and ptxas's registers/shared memory/spills);
 3. each kernel against its plain PyTorch version on the card: float64 at
    atol=1e-12 (ADER-DG, its face fluxes and the CK kernels ``(8, 4, 32)``;
-   K3 a batch of ``K=8, L=16`` rows per direction; K4 ``(2, 2, 2)``, both
-   specs), float32 at each path's full shape (K3 on the gathered batch of
-   the limited path after its warm-up; CK at both grids, the evolved and
+   K3 a batch of ``K=8, L=16`` rows per direction with 3 and 8 slots
+   active; K4 ``(2, 2, 2)``, both specs), float32 at each path's full shape
+   (K3 on the gathered batch of the limited path after its warm-up, at its
+   own ``n_active`` and with every slot active; CK at both grids, the evolved and
    the material rows each against their own largest value; K5 on the
    first Picard call and the corrector's, also against the float64 plain
-   result) at the bound stated in ``F32_ULPS``, K3 bitwise repeatable; K4
+   result) at the bound stated in ``F32_ULPS``; K3 in place, its active
+   slots against the plain sweep, its inactive slots bitwise untouched with
+   zero edge fluxes, bitwise repeatable with dt by value and by pointer; K4
    with ``SENTINEL`` in every state value outside its printer's read set
    (the output on the write set bitwise the clean run's, every value
    outside the write set its input); K5
@@ -81,7 +84,9 @@ Phases:
    and the seismic energy ratio, also per half of the window), bitwise
    repeatability and the plain path as checks (the limited path also:
    admissibility, the rows demanded against the capacity, and one step's
-   troubled mask against the plain path's; Z4: K5's launches, (picard_iters
+   troubled mask against the plain path's, and the poison check: one step
+   with NaN in every inactive slot of the gathered batch, its ghosts and
+   its edge fluxes bitwise equal to the ordinary step; Z4: K5's launches, (picard_iters
    + 2) a step, and the plain path after 1 and 10 steps, with the error
    against the exact gauge wave and the ADM constraints of both paths as
    readings);
@@ -93,8 +98,10 @@ Phases:
    ``csrc/aderdg.cu`` a path launches, a ``[kernel]`` line with its
    registers and resident blocks per SM (the library's occupancy query) and
    its achieved TB/s and TFLOP/s beside its bound (the face stage's pair of
-   launches also as one, against the stage's bound), and the same for K4
-   with the bytes it moves (its read and write sets) beside those it needs;
+   launches also as one, against the stage's bound), the same for K3 (at
+   the gathered batch's ``n_active`` and with every slot active, against
+   the bound of the active rows) and for K4 with the bytes it moves (its
+   read and write sets) beside those it needs;
 6. a reading, not a check: the step at which ``bench.py``'s dt = 1e-4
    makes the ADER-DG state non-finite, on both paths.
 
@@ -250,6 +257,30 @@ def event_ms(torch, fn, n: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / n
+
+
+def device_ms(torch, fn, n: int, name: str, per_call: int = 1) -> float:
+    """Device time of the kernel ``name`` per call of ``fn`` (``per_call``
+    launches each) over ``n`` calls after one warm-up: the mean of the
+    kernel's own spans as ``torch.profiler`` records them, times
+    ``per_call``, so host time between launches (a wrapper that the host
+    calls slower than the card runs it) is not counted.  The profiler may
+    drop a span; fewer than half of the launches is a failure."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):  # a process's first window
+        fn()                                            # may record nothing
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    if not n * per_call / 2 <= len(spans) <= n * per_call:
+        fail(f"torch.profiler saw {len(spans)} launches of {name}, expected {n * per_call}")
+    return per_call * sum(spans) / len(spans) / 1e3
 
 
 def idle_share(torch, fn) -> tuple[float, float, float]:
@@ -428,8 +459,10 @@ def kernel_report(cu, name: str, dtype, where: str, ms: float, n_bytes: float,
         shape = (f"{info['registers']} registers, {info['blocks_per_sm']} resident blocks of "
                  f"{info['threads']} threads per SM "
                  f"({info['blocks_per_sm'] * info['threads'] // 32} of 64 warps), "
-                 f"{info['smem']} B dynamic shared memory, {info['local']} B local memory "
+                 f"{info['smem']} B shared memory a block, {info['local']} B local memory "
                  "a thread")
+        if "clusters" in info:
+            shape += f", {info['clusters']} clusters of 7 blocks resident on the card"
     say(f"[kernel] {name} {where}: {shape}; {ms!r} ms, achieved {n_bytes / ms / 1e9!r} TB/s "
         f"(of {PEAK_BYTES / 1e12}) and {n_ops / ms / 1e9!r} TFLOP/s (of {PEAK_F32 / 1e12}); "
         f"bound {bnd['bound_ms']!r} ms by {bnd['bound_by']} ({n_bytes} B, {n_ops!r} flops), "
@@ -471,12 +504,12 @@ def kernel_line(name: str, replaces: str, launches: int, err: float, ms: float,
     }
 
 
-def sweep_bytes(n_pencils: int, itemsize: int, n_sub=7, nvar=5) -> int:
-    """Bytes one K3 sweep needs: every pencil's ``n_sub`` subcells and two
-    ghosts read, its ``n_sub`` subcells written, and each (k, l) cell's two
-    transverse-mean edge fluxes written (``n_pencils / n_sub^2`` cells)."""
-    cells = n_pencils // n_sub**2
-    return (2 * n_sub + 2) * nvar * itemsize * n_pencils + 2 * nvar * itemsize * cells
+def sweep_bytes(n_pencils: int, n_cells: int, itemsize: int, n_sub=7, nvar=5) -> int:
+    """Bytes one K3 sweep needs: every active pencil's ``n_sub`` subcells
+    and two ghosts read and its ``n_sub`` subcells written, and the two
+    transverse-mean edge fluxes of each of the batch's ``n_cells`` (k, l)
+    cells written (0 in the inactive slots)."""
+    return (2 * n_sub + 2) * nvar * itemsize * n_pencils + 2 * nvar * itemsize * n_cells
 
 
 def sweep_ops(n_pencils: int, n_sub=7, nvar=5) -> float:
@@ -488,6 +521,43 @@ def sweep_ops(n_pencils: int, n_sub=7, nvar=5) -> float:
     per_pencil = ((n_sub + 2) * (FLUX_OPS + EIG_OPS) + (n_sub + 1) * (6 * nvar + 1)
                   + n_sub * 3 * nvar + 2 * nvar)
     return per_pencil * n_pencils
+
+
+def k3_check(torch, subcell_cuda, lim, d, s, lo, hi, n: int, ref, label: str) -> float:
+    """K3's in-place contract on a clone of ``s`` with ``n`` active slots,
+    twice (dt by value, then by pointer): the active slots of ``s`` and of
+    the edge fluxes against ``ref`` (the plain sweep of all slots; float64
+    at ``F64_ATOL``, float32 at ``F32_ULPS``), the inactive slots of ``s``
+    bitwise its input and the edge fluxes 0 there, the ghosts unchanged,
+    the two runs bitwise equal.  Prints one line per output and fails on
+    any miss; returns the largest error."""
+    n_active = torch.tensor(n, device=s.device)
+    lo0, hi0 = lo.clone(), hi.clone()
+    s1, s2 = s.clone(), s.clone()
+    got = subcell_cuda.row_sweep_call(lim, d, s1, lo, hi, LIMITED_DT, n_active)
+    again = subcell_cuda.row_sweep_call(
+        lim, d, s2, lo, hi, torch.tensor(LIMITED_DT, dtype=s.dtype, device=s.device),
+        n_active)
+    torch.cuda.synchronize()
+    f64 = s.dtype == torch.float64
+    worst = 0.0
+    for what, a, b, c in zip(("s", "g_lo", "g_hi"), got, again, ref):
+        act = c[..., :n, :]
+        err = max_err(torch, a[..., :n, :], act) if n else 0.0
+        limit = F64_ATOL if f64 else (f32_bound(torch, act) if n else 0.0)
+        rest = a[..., n:, :]
+        untouched = bool(torch.equal(rest, s[..., n:, :]) if what == "s" else not rest.any())
+        repeat = torch.equal(a, b)
+        say(f"[parity] subcell_row_sweep d={d} ({what}) {str(s.dtype)[6:]} {label}, "
+            f"{n} of {s.shape[-2]} slots active: max_abs_err {err:.3e} limit {limit:.3e}; "
+            f"inactive slots {'untouched' if what == 's' else 'zero'} {untouched}; "
+            f"repeat bitwise (dt by value, by pointer) {repeat}")
+        if not (err <= limit and untouched and repeat):
+            fail(f"K3 (d={d}, {what}, {s.dtype}, n_active={n}) breaks its contract")
+        worst = max(worst, err)
+    if not (got[0] is s1 and torch.equal(lo, lo0) and torch.equal(hi, hi0)):
+        fail("K3 did not sweep in place or changed its ghosts")
+    return worst
 
 
 def fv_ops(n_patches: int, dim=3, patch=4, halo=1, nvar=5) -> float:
@@ -595,7 +665,7 @@ def limited_path(torch, dev, card) -> list[dict]:
                 fail(f"the face stage's {what} disagrees with its plain version")
             if not f64:
                 fhat_err = max(fhat_err, err)
-        del sol, cu, u, new, faces, out_k, fl_k, out_p, fl_p
+        del sol, cu, u, new, faces, out_k, fl_k, out_p, fl_p, got, ref
 
     # --------------------------------- K3 vs plain, float64, small batch
     _, _, lim64, _ = make((4, 2, 8), torch.float64)
@@ -612,17 +682,10 @@ def limited_path(torch, dev, card) -> list[dict]:
         gshape = [7, 7, 7, 5, 8, 16]
         gshape[d] = 1
         s, lo, hi = pencils((7, 7, 7, 5, 8, 16)), pencils(tuple(gshape)), pencils(tuple(gshape))
-        got = subcell_cuda.row_sweep_call(lim64, d, s, lo, hi, LIMITED_DT)
-        again = subcell_cuda.row_sweep_call(lim64, d, s, lo, hi, LIMITED_DT)
         ref = lim64._row_sweep_math(s, lo, hi, d, LIMITED_DT)
-        torch.cuda.synchronize()
-        for what, a, b, c in zip(("s_new", "g_lo", "g_hi"), got, again, ref):
-            err = max_err(torch, a, c)
-            say(f"[parity] subcell_row_sweep d={d} ({what}) float64 K=8 L=16: max_abs_err "
-                f"{err:.3e} limit {F64_ATOL:.1e}; repeat bitwise {torch.equal(a, b)}")
-            if not (err <= F64_ATOL and torch.equal(a, b)):
-                fail(f"K3 (d={d}, {what}, float64) disagrees with its plain version")
-    del lim64, s, lo, hi, got, again, ref
+        for n in (3, 8):
+            k3_check(torch, subcell_cuda, lim64, d, s, lo, hi, n, ref, "K=8 L=16")
+    del lim64, s, lo, hi, ref
 
     # --------------------------------- the limited main path
     sol, cu, lim, plain = make(GRID, torch.float32)
@@ -639,7 +702,7 @@ def limited_path(torch, dev, card) -> list[dict]:
     # inputs of one plain step.
     candidate = cu.step(u5, LIMITED_DT)
     tables = plain._gather_tables_row(plain.troubled_mask(u5, candidate))
-    n_active = int(tables["active"].sum())
+    n_active = int(tables["n_active"])
     recorded = []
 
     def record(s_, lo_, hi_, d_, dt_):
@@ -652,25 +715,31 @@ def limited_path(torch, dev, card) -> list[dict]:
     finally:
         del plain._row_sweep_math
     del candidate
-    k3_err, k3_ms, k3_plain_ms = 0.0, {}, {}
+    # The kernel's times in place, on a working copy: at the batch's own
+    # n_active and with every slot active (the overflow's worst case).
+    # Device time from the profiler (a sweep at 16 rows is shorter than the
+    # wrapper's host time, so CUDA events around back-to-back calls would
+    # time the host); the events' per-call time is printed beside it.
+    k3_err, k3_ms, k3_full_ms, k3_call_ms, k3_plain_ms = 0.0, {}, {}, {}, {}
+    n_dev, all_dev = tables["n_active"], torch.tensor(CAPACITY, device=dev)
     for d, s, lo, hi in recorded:
-        got = subcell_cuda.row_sweep_call(lim, d, s, lo, hi, LIMITED_DT)
-        again = subcell_cuda.row_sweep_call(lim, d, s, lo, hi, LIMITED_DT)
         ref = plain._row_sweep_math(s, lo, hi, d, LIMITED_DT)
-        torch.cuda.synchronize()
-        for what, a, b, c in zip(("s_new", "g_lo", "g_hi"), got, again, ref):
-            err, limit = max_err(torch, a, c), f32_bound(torch, c)
-            say(f"[parity] subcell_row_sweep d={d} ({what}) float32 {tuple(s.shape)} "
-                f"(gathered batch after {WARMUP} steps, {n_active} active rows): "
-                f"max_abs_err {err:.3e} limit {limit:.3e}; repeat bitwise {torch.equal(a, b)}")
-            if not (err <= limit and torch.equal(a, b)):
-                fail(f"K3 (d={d}, {what}, float32) disagrees with its plain version")
-            k3_err = max(k3_err, err)
-        k3_ms[d] = event_ms(torch, lambda: subcell_cuda.row_sweep_call(
-            lim, d, s, lo, hi, LIMITED_DT), 20)
+        label = f"{tuple(s.shape)} (gathered batch after {WARMUP} steps)"
+        k3_err = max(k3_err, k3_check(torch, subcell_cuda, lim, d, s, lo, hi, n_active, ref,
+                                      label))
+        k3_check(torch, subcell_cuda, lim, d, s, lo, hi, CAPACITY, ref, label)
+        work = s.clone()
+
+        def sweep(n_):
+            return subcell_cuda.row_sweep_call(lim, d, work, lo, hi, LIMITED_DT, n_)
+
+        k3_ms[d] = device_ms(torch, lambda: sweep(n_dev), 20, "subcell_row_sweep")
+        k3_call_ms[d] = event_ms(torch, lambda: sweep(n_dev), 20)
+        work.copy_(s)
+        k3_full_ms[d] = device_ms(torch, lambda: sweep(all_dev), 20, "subcell_row_sweep")
         k3_plain_ms[d] = event_ms(torch, lambda: plain._row_sweep_math(
             s, lo, hi, d, LIMITED_DT), 3)
-        del got, again, ref
+        del ref, work
     sweep_shape = tuple(recorded[0][1].shape)
     del recorded, s, lo, hi
 
@@ -728,7 +797,35 @@ def limited_path(torch, dev, card) -> list[dict]:
         f"equal {torch.equal(mask_k, mask_p)}; state max_abs_err {err:.3e} limit {limit:.3e}")
     if not (torch.equal(mask_k, mask_p) and err <= limit):
         fail("the limited kernel path disagrees with the plain path")
-    del mask_k, mask_p, step_k, step_p
+
+    # Poison: the same kernel step with every inactive slot of the gathered
+    # batch and its ghosts NaN before each sweep, and of its edge fluxes
+    # after, must give the same bits: nothing reads an inactive slot.
+    real_sweep, seen = subcell_cuda.row_sweep_call, []
+
+    def poisoned(limiter, d, s, lo, hi, dt, n_active):
+        n = int(n_active)
+        seen.append((n, s.shape[-2]))
+        for x in (s, lo, hi):
+            x[..., n:, :] = float("nan")
+        s, g_lo, g_hi = real_sweep(limiter, d, s, lo, hi, dt, n_active)
+        g_lo[:, n:] = float("nan")
+        g_hi[:, n:] = float("nan")
+        return s, g_lo, g_hi
+
+    subcell_cuda.row_sweep_call = poisoned
+    try:
+        step_nan = lim.step(u, LIMITED_DT)
+    finally:
+        subcell_cuda.row_sweep_call = real_sweep
+    torch.cuda.synchronize()
+    same = torch.equal(step_nan, step_k)
+    say(f"[limited main] poison: one kernel step with the inactive slots of the gathered "
+        f"batch, its ghosts and its edge fluxes NaN ((n_active, K) of each sweep: {seen}): "
+        f"bitwise equal to the ordinary step {same}")
+    if not (same and len(seen) == 3 and seen[0][0] < seen[0][1]):
+        fail("the poisoned limited step differs, or poisoned no slot")
+    del mask_k, mask_p, step_k, step_p, step_nan
 
     # ------------------------------------------------ times
     dofs = sol.dofs()
@@ -791,9 +888,11 @@ def limited_path(torch, dev, card) -> list[dict]:
         "_admissibility_scale": lambda: lim._admissibility_scale(matched),
     }
     stage_ms = {k: event_ms(torch, fn, 5) for k, fn in stages.items()}
+    in_step = device_ms(torch, lambda: lim.step(u5, LIMITED_DT), 3, "subcell_row_sweep", 3)
     say(f"[limited time] the step's stages alone (CUDA events, 5 calls each): " + ", ".join(
         f"{k} {v!r} ms" for k, v in stage_ms.items()) + f"; sweeps {sum(k3_ms.values())!r} "
-        f"ms of the gathered step ({card})")
+        f"ms of the gathered step (device time alone), {in_step!r} ms a step inside the "
+        f"step (torch.profiler, 3 steps) ({card})")
     del cand, dg_fl, raw, tab, R, g, fv, matched
 
     # Host synchronisations of one step, and where the port's code makes
@@ -849,16 +948,29 @@ def limited_path(torch, dev, card) -> list[dict]:
         None, "face stage with face fluxes", torch.float32, f"(Euler, limited path) {GRID} f32",
         parts["face stage (face fluxes)"], face_fhat_bytes(face_bytes, u5.nbytes, fhat_bytes),
         face_surface_ops(ORDER, ncell), card)
-    pencils_needed = 49 * n_active * GRID[-1]
-    pencils_run = 49 * sweep_shape[4] * sweep_shape[5]
-    k3_bnd = bound(sweep_bytes(pencils_needed, itemsize), sweep_ops(pencils_needed))
-    k3_bnd_full = bound(sweep_bytes(pencils_run, itemsize), sweep_ops(pencils_run))
-    say(f"[bound] subcell_row_sweep f32, one sweep: bound {k3_bnd['bound_ms']!r} ms by "
-        f"{k3_bnd['bound_by']} for the {n_active} active rows "
-        f"({sweep_bytes(pencils_needed, itemsize)} B, {sweep_ops(pencils_needed)!r} "
-        f"flops); {k3_bnd_full['bound_ms']!r} ms for all {sweep_shape[4]} slots "
-        f"({sweep_bytes(pencils_run, itemsize)} B); kernel mean "
-        f"{statistics.mean(k3_ms.values())!r} ms ({card})")
+    k3_info = subcell_cuda.kernel_info(torch.float32)
+    n_cells = sweep_shape[4] * sweep_shape[5]
+    k3_work = {
+        what: (sweep_bytes(49 * rows * GRID[-1], n_cells, itemsize),
+               sweep_ops(49 * rows * GRID[-1]), statistics.mean(ms.values()))
+        for what, rows, ms in ((f"{n_active} active slots", n_active, k3_ms),
+                               (f"all {CAPACITY} slots active", CAPACITY, k3_full_ms))
+    }
+    k3_bnds = {
+        what: kernel_report(None, "subcell_row_sweep", torch.float32,
+                            f"(limited path, {what}) {sweep_shape} f32, mean of 3 directions",
+                            ms, n_bytes, n_ops, card, info=k3_info)
+        for what, (n_bytes, n_ops, ms) in k3_work.items()
+    }
+    k3_bnd, k3_bnd_full = k3_bnds.values()
+    say(f"[bound] subcell_row_sweep f32, one sweep (device time, torch.profiler): "
+        f"{n_active} active slots: kernel mean {statistics.mean(k3_ms.values())!r} ms (per "
+        f"direction {list(k3_ms.values())!r}) against a bound of {k3_bnd['bound_ms']!r} ms "
+        f"by {k3_bnd['bound_by']}; all {CAPACITY} slots active: kernel mean "
+        f"{statistics.mean(k3_full_ms.values())!r} ms (per direction "
+        f"{list(k3_full_ms.values())!r}) against {k3_bnd_full['bound_ms']!r} ms; per call "
+        f"through the wrapper at {n_active} active slots (CUDA events, back to back) "
+        f"{list(k3_call_ms.values())!r} ms ({card})")
     return [
         kernel_line("aderdg_face_flux + aderdg_surface_update (face stage with face fluxes, "
                     "limited path)", "exahype_tpu/models/aderdg_pallas.py:156",

@@ -62,13 +62,14 @@ _SURFACE_UPDATE = (
 )
 # kernel, f64, physics, out (5 ints)
 _KERNEL_INFO = (_INT, _INT, _INT, _P)
-# s, ghost_lo, ghost_hi, s_new, g_lo, g_hi, dt_ptr, dt_val, h, gamma, dim,
-# n_sub, n_vars, d, n_kl, stream
+# s, s_out, ghost_lo, ghost_hi, g_lo, g_hi, dt_ptr, dt_val, h, gamma, dim,
+# n_sub, n_vars, d, n_active, n_slots, L, stream
 _ROW_SWEEP = (
     _P, _P, _P, _P, _P, _P, _P, ctypes.c_double, ctypes.c_double,
-    ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    _LL, _P,
+    ctypes.c_double, _INT, _INT, _INT, _INT, _P, _LL, _LL, _P,
 )
+# f64, d, out (6 ints)
+_SUBCELL_INFO = (_INT, _INT, _P)
 # q, g0, g1, g2, out, n_lead, n_vars, n_grid, slicing, f, m, kappa1, kappa2,
 # stream
 _RHS_ALL = (
@@ -88,6 +89,7 @@ _SIGNATURES = {
     for suffix in ("f32", "f64")
 }
 _SIGNATURES["exahype_aderdg_kernel_info"] = _KERNEL_INFO
+_SIGNATURES["exahype_subcell_kernel_info"] = _SUBCELL_INFO
 
 
 class BuildError(RuntimeError):

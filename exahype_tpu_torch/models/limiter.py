@@ -262,8 +262,9 @@ class LimitedADERDG(nn.Module):
         """Row tables: one slot per LAST-axis row containing any troubled
         cell, lowest row first, at most ``troubled_capacity``.  Indices run
         over the flattened leading grid axes (``R_n`` rows); ``row`` holds
-        the sentinel ``R_n`` in inactive slots.  All int64, on the mask's
-        device."""
+        the sentinel ``R_n`` in inactive slots.  The active slots are the
+        prefix ``k < n_active``; ``n_active`` is a 0-d tensor, so no host
+        synchronisation reads it.  All int64, on the mask's device."""
         sol = self.solver
         K = self.troubled_capacity
         grid = sol.grid_shape
@@ -308,6 +309,7 @@ class LimitedADERDG(nn.Module):
             "row": row,
             "row_safe": row_safe,
             "active": active,
+            "n_active": torch.clamp(flat.sum(), max=K),
             "nb_slot": torch.stack(nb_slot, dim=1),  # [K, dim-1, 2]
             "nb_row": torch.stack(nb_row, dim=1),  # [K, dim-1, 2]
             "mask": mask,
@@ -364,7 +366,9 @@ class LimitedADERDG(nn.Module):
         if self.subcell_cuda:
             from exahype_tpu_torch.models.subcell_cuda import row_sweep_call
 
-            sweep = lambda d, s_, lo, hi: row_sweep_call(self, d, s_, lo, hi, dt)
+            # In place, on the active slots only (the rest is never read).
+            sweep = lambda d, s_, lo, hi: row_sweep_call(
+                self, d, s_, lo, hi, dt, tables["n_active"])
         else:
             sweep = lambda d, s_, lo, hi: self._row_sweep_math(s_, lo, hi, d, dt)
         g_fluxes = []
@@ -453,7 +457,7 @@ class LimitedADERDG(nn.Module):
         flat = candidate.view(tuple(candidate.shape[:row_ax]) + (-1, L))
         active = tables["active"]
         slots = torch.arange(active.numel(), device=active.device)
-        last = torch.clamp(active.sum() - 1, min=0)
+        last = torch.clamp(tables["n_active"] - 1, min=0)
         src = torch.where(active, slots, last)
         rows = tables["row_safe"][src]
         cand_rows = flat.index_select(row_ax, rows)

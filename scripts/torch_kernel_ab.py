@@ -29,6 +29,31 @@ Example (the current kernels against a file kept from an earlier commit):
 
 A version must export the current C interface of the face stage and the
 two predictors (``_build._SIGNATURES``' ``aderdg`` entries).
+
+With ``--k3`` the versions are copies of ``csrc/subcell.cu`` (the
+limiter's subcell sweep, K3) instead.  The script runs the limited path's
+plain step (``chip_smoke.py``'s: ``(256, 8, 128)`` f32, the Sod shock,
+capacity 128 rows, 5 warm-up steps) and records one step's three sweep
+inputs, then checks each version against the plain sweep (the active slots
+within 64 f32 spacings, the inactive slots untouched and their edge fluxes
+zero) and times it at the batch's ``n_active`` and with every slot active
+(the kernel's device spans from ``torch.profiler``, 30 launches, the
+versions in turns A B ... B A; at ``n_active`` also CUDA events around
+the back-to-back calls, which time the host when the kernel is shorter).  Two
+pseudo-flags say how a version is called: ``first`` for the first kernel's interface
+(``s`` to a new ``s_new``, every slot), ``out`` for a fresh ``s_out`` each
+launch (out of place); without either the sweep runs in place.  The
+levers of the K3 redesign (``scripts/k3_levers/`` holds the versions
+between the first kernel and the current one):
+
+    git show 50bcef4:exahype_tpu_torch/csrc/subcell.cu > build/k3_first.cu
+    L=scripts/k3_levers
+    python3 scripts/torch_kernel_ab.py --k3 a=build/k3_first.cu:first \\
+        b=$L/subcell_first_prefix.cu:out,-DK3_RESTRICT c=$L/subcell_first_prefix.cu \\
+        d=$L/subcell_warp_per_a.cu e=exahype_tpu_torch/csrc/subcell.cu
+
+(the cluster kernel at other resident-block counts: a copy of
+``csrc/subcell.cu`` with another ``min_blocks``).
 """
 
 from __future__ import annotations
@@ -45,6 +70,10 @@ GRID = (256, 8, 128)
 SMALL = (3, 5, 7)
 
 
+#: ``--k3`` pseudo-flags: how a version is called, not nvcc flags.
+K3_MODES = ("first", "out")
+
+
 def _parse(arg: str):
     label, _, rest = arg.partition("=")
     src, _, flags = rest.partition(":")
@@ -55,6 +84,7 @@ def _parse(arg: str):
 
 def _build_one(build, out_dir, item):
     label, src, flags = item
+    flags = [f for f in flags if f not in K3_MODES]
     out = out_dir / f"lib_{label}.so"
     cmd = [build._nvcc(), *build.NVCC_FLAGS, *flags, "-I", str(src.parent), "-I",
            str(build.CSRC), "-shared", "-o", str(out), str(src)]
@@ -64,11 +94,13 @@ def _build_one(build, out_dir, item):
     log = (proc.stdout + proc.stderr).splitlines()
     ptxas = []
     for i, line in enumerate(log):
-        for kernel in ("23aderdg_predictor_volume", "26aderdg_ck_predictor_volume"):
+        for kernel in ("23aderdg_predictor_volume", "26aderdg_ck_predictor_volume",
+                       "17subcell_row_sweep"):
             if "Compiling entry" in line and kernel in line:
                 # The entry's spill line and its "Used N registers" line.
                 info = [x.strip() for x in log[i + 1:i + 5] if "spill" in x or "Used" in x]
-                ptxas.append((kernel[2:], "f64" if "IdLi4" in line else "f32", "; ".join(info)))
+                dtype = "f64" if "IdLi" in line else "f32"
+                ptxas.append((kernel[2:], dtype, "; ".join(info)))
     return label, out, ptxas
 
 
@@ -115,7 +147,10 @@ def main():
     parser.add_argument("versions", nargs="+", help="LABEL=SOURCE[:FLAG,FLAG...]")
     parser.add_argument("--out", type=pathlib.Path, help="where to keep the libraries")
     parser.add_argument("--sass", action="store_true", help="count SASS instructions only")
+    parser.add_argument("--k3", action="store_true", help="versions of csrc/subcell.cu")
     args = parser.parse_args()
+    if args.k3:
+        return k3_main(args)
     sys.path.insert(0, str(HERE))
     import numpy as np
     import torch
@@ -248,6 +283,172 @@ def main():
         print(f"[ab] {label}: aderdg_predictor_volume ms {times[label]['predictor']!r}, "
               f"face stage ms {times[label]['face stage']!r}, aderdg_ck_predictor_volume ms "
               f"{times[label]['K2']!r} (CUDA events, 30 launches each, {GRID} f32; {card})")
+
+
+def k3_main(args):
+    """The ``--k3`` mode (see the module's docstring)."""
+    import ctypes
+    import statistics
+
+    sys.path.insert(0, str(HERE))
+    import numpy as np
+    import torch
+
+    from exahype_tpu_torch import _build
+    from exahype_tpu_torch.models.aderdg import ADERDGSolver, euler_physics
+    from exahype_tpu_torch.models.limiter import LimitedADERDG, euler_admissible
+
+    if not torch.cuda.is_available():
+        sys.exit("torch_kernel_ab: no CUDA card")
+    items = [_parse(a) for a in args.versions]
+    mode = {label: next((f for f in flags if f in K3_MODES), "in place")
+            for label, _, flags in items}
+    P, D, INT, LL = ctypes.c_void_p, ctypes.c_double, ctypes.c_int, ctypes.c_longlong
+    argtypes = {
+        # s, ghost_lo, ghost_hi, s_new, g_lo, g_hi, dt_ptr, dt_val, h, gamma, dim,
+        # n_sub, n_vars, d, n_kl, stream
+        "first": [P] * 7 + [D, D, D, INT, INT, INT, INT, LL, P],
+        # s, s_out, ghost_lo, ghost_hi, g_lo, g_hi, dt_ptr, dt_val, h, gamma, dim,
+        # n_sub, n_vars, d, n_active, n_slots, L, stream
+        "new": [P] * 7 + [D, D, D, INT, INT, INT, INT, P, LL, LL, P],
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = args.out or pathlib.Path(tmp)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        with ThreadPoolExecutor(len(items)) as pool:
+            built = list(pool.map(lambda it: _build_one(_build, out_dir, it), items))
+        fns = {}
+        for label, path, _ in built:
+            fn = ctypes.CDLL(str(path)).exahype_subcell_row_sweep_f32
+            fn.argtypes = argtypes["first" if mode[label] == "first" else "new"]
+            fn.restype = ctypes.c_int
+            fns[label] = fn
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(f"[ab] card: {card}")
+
+    # The limited path's plain step on the Sod shock (chip_smoke.py's).
+    dev, grid, capacity, dt = torch.device("cuda"), (256, 8, 128), 128, 1.5e-4
+    flux, eig = euler_physics(3)
+    sol = ADERDGSolver(3, 3, 5, grid, flux, eig, dx=1 / 256, device=dev, dtype=torch.float32)
+    lim = LimitedADERDG(sol, euler_admissible(3), troubled_capacity=capacity,
+                        troubled_granularity="row", dmp_delta0=5e-4, device=dev)
+    x = np.arange(grid[0]).reshape(-1, 1, 1) / grid[0]
+    left = np.broadcast_to(x < 0.5, grid)
+    shape = (4, 4, 4) + grid
+    rho = np.broadcast_to(np.where(left, 1.0, 0.125), shape)
+    p = np.broadcast_to(np.where(left, 1.0, 0.1), shape)
+    q = np.stack([rho, 0 * rho, 0 * rho, 0 * rho, p / 0.4], axis=3)
+    u = lim.run(torch.from_numpy(q).to(dev, torch.float32).contiguous(), 5, dt)
+    tables = lim._gather_tables_row(lim.troubled_mask(u, sol.step(u, dt)))
+    recorded = []
+
+    def record(s_, lo_, hi_, d_, dt_):
+        recorded.append((d_, s_, lo_, hi_))
+        return LimitedADERDG._row_sweep_math(lim, s_, lo_, hi_, d_, dt_)
+
+    lim._row_sweep_math = record
+    lim._gathered_subcell_step_row(u, dt, tables)
+    del lim._row_sweep_math
+    n_active = int(tables["n_active"])
+    counts = {"active": tables["n_active"], "all": torch.tensor(capacity, device=dev)}
+    K, L = recorded[0][1].shape[-2:]
+
+    def sweep(label, d, s, lo, hi, n_dev):
+        """One launch of ``label``'s kernel; its ``(s_out, g_lo, g_hi)``."""
+        g_lo = torch.empty((5, K, L), device=dev)
+        g_hi = torch.empty_like(g_lo)
+        h = 1 / 256 / 7
+        stream = torch.cuda.current_stream().cuda_stream
+        if mode[label] == "first":
+            s_out = torch.empty_like(s)
+            err = fns[label](s.data_ptr(), lo.data_ptr(), hi.data_ptr(), s_out.data_ptr(),
+                             g_lo.data_ptr(), g_hi.data_ptr(), None, dt, h, 1.4, 3, 7, 5, d,
+                             K * L, stream)
+        else:
+            s_out = torch.empty_like(s) if mode[label] == "out" else s
+            err = fns[label](s.data_ptr(), s_out.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                             g_lo.data_ptr(), g_hi.data_ptr(), None, dt, h, 1.4, 3, 7, 5, d,
+                             n_dev.data_ptr(), K, L, stream)
+        if err:
+            sys.exit(f"torch_kernel_ab: {label} launch failed with CUDA error {err}")
+        return s_out, g_lo, g_hi
+
+    def event_ms(fn, n=30):
+        fn()
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / n
+
+    refs = {d: lim._row_sweep_math(s, lo, hi, d, dt) for d, s, lo, hi in recorded}
+    for label, _, ptxas in built:
+        worst, ok = 0.0, True
+        for d, s, lo, hi in recorded:
+            for which, n in (("active", n_active), ("all", K)):
+                if mode[label] == "first":
+                    n = K  # it sweeps every slot
+                got = sweep(label, d, s.clone(), lo, hi, counts[which])
+                torch.cuda.synchronize()
+                for a, c in zip(got, refs[d]):
+                    err = (a[..., :n, :].double() - c[..., :n, :].double()).abs().max().item()
+                    worst = max(worst, err)
+                    ok &= err <= 64 * 2.0**-23 * c[..., :n, :].abs().max().item()
+                rest = got[0][..., n:, :]
+                ok &= mode[label] == "out" or torch.equal(rest, s[..., n:, :])
+                ok &= not got[1][:, n:].any() and not got[2][:, n:].any()
+        print(f"[ab] {label} ({mode[label]}): ptxas {ptxas}")
+        print(f"[ab] {label}: max_abs_err of the active slots {worst:.3e} (f32 bound 64 "
+              f"spacings), inactive slots untouched and zero edge fluxes: "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            sys.exit(f"torch_kernel_ab: {label} breaks the sweep's contract")
+
+    def device_ms(fn, n=30):
+        """Mean span of the kernel over ``n`` launches (torch.profiler), so
+        host time between launches is not counted; the profiler may drop a
+        span."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]):  # a process's first window
+            fn()                                            # may record nothing
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and "subcell_row_sweep" in e.name]
+        if not n / 2 <= len(spans) <= n:
+            sys.exit(f"torch_kernel_ab: the profiler saw {len(spans)} sweeps, not {n}")
+        return sum(spans) / len(spans) / 1e3
+
+    order = [label for label, _, _ in built]
+    times = {label: {w: [] for w in (*counts, "events")} for label in order}
+    for label in order + order[::-1]:
+        for which, n_dev in counts.items():
+            per_dir, per_call = [], []
+            for d, s, lo, hi in recorded:
+                work = s.clone()
+                per_dir.append(device_ms(lambda: sweep(label, d, work, lo, hi, n_dev)))
+                if which == "active":
+                    per_call.append(event_ms(lambda: sweep(label, d, work, lo, hi, n_dev)))
+                del work
+            times[label][which].append(statistics.mean(per_dir))
+            if per_call:
+                times[label]["events"].append(statistics.mean(per_call))
+    for label in order:
+        print(f"[ab] {label} ({mode[label]}): subcell_row_sweep device ms (torch.profiler), "
+              f"mean of 3 directions, per turn: {n_active} active slots "
+              f"{times[label]['active']!r}, all {K} slots {times[label]['all']!r}; per call "
+              f"at {n_active} active slots (CUDA events, back to back, host time included) "
+              f"{times[label]['events']!r} (30 launches each, {tuple(recorded[0][1].shape)} "
+              f"f32; {card})")
 
 
 if __name__ == "__main__":

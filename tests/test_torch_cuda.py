@@ -315,23 +315,35 @@ SWEEP_CASES = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,dtype,K,L", SWEEP_CASES)
 def test_subcell_sweep_kernel_matches_plain(d, dtype, K, L):
+    """The in-place contract for n_active in {0, 1, K//2, K}: the active
+    slots as the plain sweep gives them, the others bitwise untouched with
+    zero edge fluxes, the ghosts unchanged, bitwise repeatable, dt by value
+    and by pointer alike (L = 33: blocks of 32 cells straddle slots)."""
     from exahype_tpu_torch.models import subcell_cuda
 
     lim, _ = _limiter((4, 2, 8), dtype)
-    s, lo, hi = _sweep_inputs(d, K, L, dtype, lim.P.device)
-    s0 = s.clone()
+    s0, lo, hi = _sweep_inputs(d, K, L, dtype, lim.P.device)
+    lo0, hi0 = lo.clone(), hi.clone()
+    ref = lim._row_sweep_math(s0, lo, hi, d, DT)
     subcell_cuda.reset_launches()
-    got = subcell_cuda.row_sweep_call(lim, d, s, lo, hi, DT)
-    again = subcell_cuda.row_sweep_call(lim, d, s, lo, hi,
-                                        torch.tensor(DT, dtype=dtype, device=s.device))
-    ref = lim._row_sweep_math(s, lo, hi, d, DT)
-    torch.cuda.synchronize()
-    assert torch.equal(s, s0)
-    for a, b, c in zip(got, again, ref):
-        assert a.shape == c.shape
-        assert _err(a, c) <= _bound(c, dtype)
-        assert torch.equal(a, b)  # bitwise repeatable, dt by value == by pointer
-    assert subcell_cuda.launches["subcell_row_sweep"] == 2
+    for n in sorted({0, 1, K // 2, K}):
+        n_active = torch.tensor(n, device=s0.device)
+        s1, s2 = s0.clone(), s0.clone()
+        got = subcell_cuda.row_sweep_call(lim, d, s1, lo, hi, DT, n_active)
+        again = subcell_cuda.row_sweep_call(
+            lim, d, s2, lo, hi, torch.tensor(DT, dtype=dtype, device=s0.device), n_active)
+        torch.cuda.synchronize()
+        assert got[0] is s1 and again[0] is s2
+        for a, b, c in zip(got, again, ref):
+            assert a.shape == c.shape
+            if n:
+                act = c[..., :n, :]
+                assert _err(a[..., :n, :], act) <= _bound(act, dtype), n
+            assert torch.equal(a, b), n  # bitwise repeatable, dt by value == by pointer
+        assert torch.equal(s1[..., n:, :], s0[..., n:, :]), n
+        assert not got[1][:, n:].any() and not got[2][:, n:].any(), n
+        assert torch.equal(lo, lo0) and torch.equal(hi, hi0)
+    assert subcell_cuda.launches["subcell_row_sweep"] == 2 * len({0, 1, K // 2, K})
 
 
 @pytest.mark.cuda
@@ -341,10 +353,27 @@ def test_subcell_sweep_kernel_refuses_what_it_is_not_built_for():
 
     lim, _ = _limiter((4, 2, 8), torch.float64)
     s, lo, hi = _sweep_inputs(0, 2, 8, torch.float64, lim.P.device)
+    n_active = torch.tensor(2, device=s.device)
     with pytest.raises(LoweringError, match="shape"):
-        subcell_cuda.row_sweep_call(lim, 0, s, hi[:, :, :, :, :1].contiguous(), hi, DT)
+        subcell_cuda.row_sweep_call(lim, 0, s, hi[:, :, :, :, :1].contiguous(), hi, DT,
+                                    n_active)
     with pytest.raises(LoweringError, match="contiguous"):
-        subcell_cuda.row_sweep_call(lim, 0, s.transpose(4, 5), lo, hi, DT)
+        subcell_cuda.row_sweep_call(lim, 0, s.transpose(4, 5), lo, hi, DT, n_active)
+    for bad in (torch.tensor(2), n_active.int(), 2):  # the CPU, int32, not a tensor
+        with pytest.raises(LoweringError, match="n_active"):
+            subcell_cuda.row_sweep_call(lim, 0, s, lo, hi, DT, bad)
+
+
+@pytest.mark.cuda
+def test_subcell_sweep_kernel_info():
+    from exahype_tpu_torch.models import subcell_cuda
+
+    _card()
+    for dtype in (torch.float32, torch.float64):
+        for d in range(3):
+            info = subcell_cuda.kernel_info(dtype, d)
+            assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, info
+            assert info["threads"] == 224 and info["clusters"] >= 1, info
 
 
 @pytest.mark.cuda

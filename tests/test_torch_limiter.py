@@ -136,10 +136,27 @@ def test_gather_tables_row_matches_jax(case, kind):
     assert not np.asarray(ref["wall"]).any()  # periodic: no wall flags
 
 
-@pytest.mark.parametrize("d", [0, 1, 2])
-def test_row_sweep_math_matches_jax(case, d):
+@pytest.mark.parametrize("kind", ["sod", "none", "sparse", "overflow", "all"])
+def test_gather_tables_row_n_active_matches_jax(case, kind):
+    """``n_active`` is JAX's count of active slots, a 0-d tensor, and the
+    active slots are the prefix ``k < n_active``."""
+    mask = case["mask"] if kind == "sod" else _masks()[kind]
+    ref = case["jl"]._gather_tables_row(jnp.asarray(mask))
+    got = case["pl"]._gather_tables_row(t(mask))
+    n = got["n_active"]
+    assert n.dim() == 0 and n.dtype == torch.int64
+    assert int(n) == int(np.asarray(ref["active"]).sum())
+    K = case["pl"].troubled_capacity
+    assert torch.equal(got["active"], torch.arange(K) < n)
+
+
+SWEEP_K = 4
+
+
+def _sweep_inputs(d):
+    """A random valid batch ``[7, 7, 7, 5, SWEEP_K, 16]`` and its ghosts."""
     rng = np.random.default_rng(d)
-    shape = (7, 7, 7, 5, 3, 16)
+    shape = (7, 7, 7, 5, SWEEP_K, 16)
     gshape = list(shape)
     gshape[d] = 1
 
@@ -149,17 +166,114 @@ def test_row_sweep_math_matches_jax(case, d):
         E = 2.5 + rng.random(shp[:3] + shp[4:])
         return np.stack([rho, *mom, E], axis=3)
 
-    s, lo, hi = state(shape), state(tuple(gshape)), state(tuple(gshape))
-    ref = case["jl"]._row_sweep_math(jnp.asarray(s), jnp.asarray(lo), jnp.asarray(hi), d, DT)
+    return state(shape), state(tuple(gshape)), state(tuple(gshape))
+
+
+@pytest.fixture(scope="module")
+def sweep_refs(case):
+    """Per direction: the inputs and JAX's ``_row_sweep_math`` of them."""
+    out = {}
+    for d in range(3):
+        s, lo, hi = _sweep_inputs(d)
+        ref = case["jl"]._row_sweep_math(jnp.asarray(s), jnp.asarray(lo), jnp.asarray(hi),
+                                         d, DT)
+        out[d] = (s, lo, hi, [np.asarray(r) for r in ref])
+    return out
+
+
+@pytest.mark.parametrize("d", [0, 1, 2])
+def test_row_sweep_math_matches_jax(case, sweep_refs, d):
+    s, lo, hi, ref = sweep_refs[d]
     got = case["pl"]._row_sweep_math(t(s), t(lo), t(hi), d, DT)
     for g, r in zip(got, ref):
         assert tuple(g.shape) == r.shape
         close(g, r)
     before = subcell_cuda.launches["subcell_row_sweep"]
-    wrapped = subcell_cuda.row_sweep_call(case["pl"], d, t(s), t(lo), t(hi), DT)
+    s_in = t(s)
+    wrapped = subcell_cuda.row_sweep_call(case["pl"], d, s_in, t(lo), t(hi), DT,
+                                          torch.tensor(SWEEP_K))
     assert subcell_cuda.launches["subcell_row_sweep"] == before  # plain on the CPU
+    assert wrapped[0] is s_in  # in place
     for g, w in zip(got, wrapped):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n_active", [0, 1, SWEEP_K // 2, SWEEP_K])
+@pytest.mark.parametrize("d", [0, 1, 2])
+def test_row_sweep_call_sweeps_the_active_slots_in_place(case, sweep_refs, d, n_active):
+    """The wrapper's CPU branch holds the kernel's contract: the active
+    slots as JAX's sweep gives them, the others bitwise untouched with
+    zero edge fluxes, the ghosts unchanged."""
+    s, lo, hi, ref = sweep_refs[d]
+    s_in, lo_in, hi_in = t(s), t(lo), t(hi)
+    out, g_lo, g_hi = subcell_cuda.row_sweep_call(case["pl"], d, s_in, lo_in, hi_in, DT,
+                                                  torch.tensor(n_active))
+    assert out is s_in
+    n = n_active
+    close(out[..., :n, :], ref[0][..., :n, :])
+    close(g_lo[:, :n], ref[1][:, :n])
+    close(g_hi[:, :n], ref[2][:, :n])
+    np.testing.assert_array_equal(out[..., n:, :].numpy(), s[..., n:, :])
+    assert not g_lo[:, n:].any() and not g_hi[:, n:].any()
+    assert g_lo.shape == g_hi.shape == (5, SWEEP_K, 16)
+    np.testing.assert_array_equal(lo_in.numpy(), lo)
+    np.testing.assert_array_equal(hi_in.numpy(), hi)
+
+
+def _poison_inactive(monkeypatch):
+    """Make every sweep see NaN in the inactive slots of the batch and its
+    ghosts, and return NaN edge fluxes there; returns the list of
+    ``(n_active, K)`` of each sweep."""
+    real = subcell_cuda.row_sweep_call
+    seen = []
+
+    def poisoned(limiter, d, s, ghost_lo, ghost_hi, dt, n_active):
+        n = int(n_active)
+        seen.append((n, s.shape[-2]))
+        for x in (s, ghost_lo, ghost_hi):
+            x[..., n:, :] = float("nan")
+        s, g_lo, g_hi = real(limiter, d, s, ghost_lo, ghost_hi, dt, n_active)
+        g_lo[:, n:] = float("nan")
+        g_hi[:, n:] = float("nan")
+        return s, g_lo, g_hi
+
+    monkeypatch.setattr(subcell_cuda, "row_sweep_call", poisoned)
+    return seen
+
+
+@pytest.mark.parametrize("kind", ["sod", "sparse", "overflow"])
+def test_limited_step_reads_no_inactive_slot(case, kind, monkeypatch):
+    """The limited step with the sweep wrapper (``subcell_cuda=True``, its
+    plain branch here) is bitwise the same when every inactive slot of the
+    gathered batch, its ghosts and its edge fluxes is NaN, and within 1e-12
+    of JAX's step.  ``sod``: the step's own detection at capacity 12 (it
+    flags 8 rows); ``sparse`` and ``overflow``: those masks forced at
+    capacity 8 (the overflow fills every slot and runs the means update)."""
+    capacity = 12 if kind == "sod" else 8
+    js = case["js"]
+    jl = JaxLimited(js, admissible=jax_admissible(3, gamma=1.4), troubled_capacity=capacity,
+                    troubled_granularity="row", dmp_delta0=5e-4, subcell_pallas=True,
+                    subcell_interpret=True)
+    pl = limited_from_jax(jl, gamma=1.4, device="cpu")
+    assert pl.subcell_cuda
+    if kind != "sod":
+        mask = _masks()[kind]
+        jl.troubled_mask = lambda u, c: jnp.asarray(mask)
+        pl.troubled_mask = lambda u, c: t(mask)
+    u = t(case["Q"])
+    out, eff = pl.step(u, DT, return_face_fluxes=True)
+    seen = _poison_inactive(monkeypatch)
+    out_p, eff_p = pl.step(u, DT, return_face_fluxes=True)
+    assert len(seen) == 3
+    n, K = seen[0]
+    assert K == capacity and (n < K) == (kind != "overflow")
+    assert torch.equal(out_p, out)
+    for a, b in zip(eff_p, eff):
+        assert torch.equal(a, b)
+    ref, eff_ref = jl.step(jnp.asarray(case["Q"]), DT, return_face_fluxes=True)
+    close(out, ref)
+    for a, b in zip(eff, eff_ref):
+        close(a, b)
 
 
 @pytest.mark.parametrize("kind", ["sod", "overflow"])
