@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one card, nvcc
 
-It drives five paths, each through ``exahype_tpu_torch``'s entry points
+It drives six paths, each through ``exahype_tpu_torch``'s entry points
 with its kernels' launch counters set to 0 just before and read just
 after (the two forms of the main path, ADER-DG and FV, and the limited,
-CK and dynamic-GR slices), in this order:
+CK, walls and dynamic-GR slices), in this order:
 
 - **ADER-DG**: ``bench.py::main``'s step — order 3, 3-D compressible
   Euler, a ``(256, 8, 128)`` periodic cell grid in float32, ``bench.py``'s
@@ -39,6 +39,19 @@ CK and dynamic-GR slices), in this order:
   (finite, slots 9–11 bitwise frozen, seismic energy ratio below 1.02),
   and ``(256, 8, 128)``, the same problem at 4x the resolution, 10 steps at
   ``cfl_dt`` (2e-4 is over the CFL limit at dx = 1/256).
+- **walls**: domain walls on the ADER-DG step — the face stage's wall
+  variant (``aderdg_face_flux_walls`` + ``aderdg_surface_update_walls``)
+  against the plain ``face_update`` in float64 at ``(8, 4, 8)`` in every
+  mode (Euler: a reflective box, outflow and farfield walls on axis 0, a
+  Dirichlet box with rows from ``make_dirichlet_fn``, reflective walls on
+  axes 1 and 2; the CK free surface on axis 2), then at ``(256, 8, 128)``
+  in float32, 10 steps at ``cfl_dt``: ``bench.py``'s Euler state in a
+  reflective box (mass and energy drift under 1e-5, momentum changed,
+  repeatable, the plain path), a uniform supersonic flow equal to the
+  farfield state in a farfield channel on axis 0 (steady within the
+  float32 bound), and ``bench_ck``'s problem with the free surface
+  (materials bitwise frozen, energy ratio below 1.02, the plain path);
+  the walled step timed beside the periodic one.
 - **FV**: the spec-DSL Rusanov patch update of ``__graft_entry__.py`` —
   ``build_fv_rusanov_kernel`` (3-D Euler, patch 4, halo 1, 5 vars) →
   ``TpuPatchGrid`` → ``GridSolver(kernel_dt="lambda")`` with ``compute_dt``
@@ -78,7 +91,10 @@ Phases:
    outside the write set its input); K5
    in float64 on every call of one step at ``(8, 4, 16)``, at 1e-12 of
    the largest value (``Z4_F64_RTOL``), with the path's parameters and
-   with those of the kernel's other branches (``Z4_PARAMS``);
+   with those of the kernel's other branches (``Z4_PARAMS``); the walled
+   face stage launch by launch (its face fluxes, its side tensor of
+   low-wall fluxes, the update), as a stage and in a step, in float64 in
+   every mode and in float32 at full width;
 4. each main path: 10 steps (CK: the bench's window at its grid), with the
    launch counters, finiteness, mass drift (CK: materials bitwise frozen
    and the seismic energy ratio, also per half of the window), bitwise
@@ -164,6 +180,15 @@ CK_WARMUP = 5          # the bench's first chunk
 CK_WINDOW = 40         # its 8 chunks of 5 steps
 CK_ENERGY_GATE = 1.02  # bench.py:280
 CK_EVOLVED = 9
+
+#: The walls path: the float64 cut grid (axis 2 is not a multiple of the
+#: face stage's 32-cell tile, so its ragged tile meets the walls), the
+#: farfield state of tests/test_aderdg.py:404 in 3-D (a uniform flow along
+#: axis 0 at Mach 1.69), and the CK free surface's wall axis (the layered
+#: seismic box's, examples/seismic3d_layered.py:58).
+WALL_CUT = (8, 4, 8)
+FARFIELD = (1.0, 2.0, 0.0, 0.0, 1.0 / 0.4 + 0.5 * 2.0**2)
+FREE_SURFACE_AXES = (2,)
 
 #: The Z4 path (``scripts/z4_probe.py --large --pallas``: ``:53-57, 81-82,
 #: 198-202, 225-229``): the 38-variable vacuum Z4 system, order 2, 3-D,
@@ -480,10 +505,12 @@ def plain_face_flux(torch, sol, faces):
     ]).reshape((sol.dim, -1) + tuple(fshape[-4:]))
 
 
-def plain_surface_update(sol, new, fhat, dt):
-    """The plain version of ``aderdg_surface_update`` (a new tensor)."""
+def plain_surface_update(sol, new, fhat, dt, walls=None):
+    """The plain version of ``aderdg_surface_update`` (a new tensor); with
+    walls, ``walls`` maps each wall axis to its low-wall fluxes."""
     for d in range(sol.dim):
-        new = sol.surface_term(new, fhat[d].view(sol.face_flux_shape), d, dt)
+        new = sol.surface_term(new, fhat[d].view(sol.face_flux_shape), d, dt,
+                               (walls or {}).get(d))
     return new
 
 
@@ -837,7 +864,7 @@ def limited_path(torch, dev, card) -> list[dict]:
             f"{statistics.median(ms)!r} ms, {dofs / statistics.median(win)!r} "
             f"DOF-updates/s ({dofs} DOF per step; {card})")
     new, faces = cu.predictor_volume(u5, LIMITED_DT)
-    fhat = cu.face_flux(faces)
+    fhat, _ = cu.face_flux(faces)
     parts = {
         "aderdg_predictor_volume": event_ms(
             torch, lambda: cu.predictor_volume(u5, LIMITED_DT), 10),
@@ -1156,7 +1183,7 @@ def ck_path(torch, dev, card) -> list[dict]:
                 f"{statistics.median(ms)!r} ms, {evolved_dofs / statistics.median(win)!r} "
                 f"evolved-DOF-updates/s ({evolved_dofs} evolved DOF per step; {card})")
         new, faces = cu.predictor_volume(ustart, dt)
-        fhat = cu.face_flux(faces)
+        fhat, _ = cu.face_flux(faces)
         times = {
             "aderdg_ck_predictor_volume": (
                 event_ms(torch, lambda: cu.predictor_volume(ustart, dt), 20),
@@ -1409,7 +1436,7 @@ def aderdg_path(torch, dev, card) -> list[dict]:
         new_p, faces_p = psol.predictor_volume(u, dt)
         surf_k = pcu.face_surface(new_p.clone(), faces_p, dt)
         surf_p = psol.face_surface(new_p, faces_p, dt)
-        fhat_k, fhat_p = pcu.face_flux(faces_p), plain_face_flux(torch, psol, faces_p)
+        fhat_k, fhat_p = pcu.face_flux(faces_p)[0], plain_face_flux(torch, psol, faces_p)
         upd_k = pcu.surface_update(new_p.clone(), fhat_p, dt)
         upd_p = plain_surface_update(psol, new_p, fhat_p, dt)
         step_k = pcu.step(u, dt)
@@ -1506,7 +1533,7 @@ def aderdg_path(torch, dev, card) -> list[dict]:
             f"{dofs / statistics.median(win)!r} DOF-updates/s "
             f"({card})")
     new, faces = cu.predictor_volume(u0, dt)
-    fhat = cu.face_flux(faces)
+    fhat, _ = cu.face_flux(faces)
     times = {
         "aderdg_predictor_volume": (
             event_ms(torch, lambda: cu.predictor_volume(u0, dt), 20),
@@ -1577,6 +1604,334 @@ def aderdg_path(torch, dev, card) -> list[dict]:
     del cu, sol, u0, u
     torch.cuda.empty_cache()
     return kernels
+
+
+def dirichlet_state(*x):
+    """A smooth Euler state (var last) for the Dirichlet walls, whose rows
+    vary over every face of the cut grid (wavelength 1/8: 32 cells at
+    dx = 1/256)."""
+    import numpy as np
+
+    k = 16 * math.pi
+    rho = 1.0 + 0.2 * np.sin(k * x[0]) * np.cos(k * x[2])
+    vel = [0.3 + 0.1 * np.cos(k * x[d]) for d in range(3)]
+    p = 2.0 + 0.1 * np.sin(k * x[1])
+    e = p / 0.4 + 0.5 * rho * sum(v * v for v in vel)
+    return np.stack([rho] + [rho * v for v in vel] + [e], axis=-1)
+
+
+def euler_walls(name: str, grid) -> dict:
+    """The wall options of each Euler mode of the walls path."""
+    from exahype_tpu_torch.models.aderdg import (
+        euler_reflect,
+        euler_reflect_flux,
+        make_dirichlet_fn,
+    )
+
+    mirror = dict(reflect_fn=euler_reflect(3), reflect_flux_fn=euler_reflect_flux(3))
+    return {
+        "reflective box": dict(boundary="reflective", **mirror),
+        "outflow (0,)": dict(boundary="outflow", wall_axes=(0,)),
+        "farfield (0,)": dict(boundary="farfield", farfield_state=FARFIELD, wall_axes=(0,)),
+        "dirichlet box": dict(boundary="dirichlet", dirichlet_fn=make_dirichlet_fn(
+            dirichlet_state, dim=3, order=ORDER, grid_shape=grid, dx=DX)),
+        "reflective (1, 2)": dict(boundary="reflective", wall_axes=(1, 2), **mirror),
+    }[name]
+
+
+def walls_parity(torch, sol, cu, u, dt, label: str, rows: int, groups) -> dict:
+    """The walled face stage against the plain solver on ``u``: each launch
+    (``aderdg_face_flux_walls``' F̂ and its side tensor of low-wall fluxes,
+    ``aderdg_surface_update_walls`` from the plain F̂ and low-wall fluxes), the
+    stage (both launches) and the step.  ``rows`` are the rows with a flux;
+    ``groups`` the var rows ``(lo, n)`` of a state each held against the
+    bound of its own largest value in float32 (atol 1e-12 in float64).
+    Fails on a disagreement; returns the largest error of each."""
+    f64 = u.dtype == torch.float64
+    rule = "atol" if f64 else f"{F32_ULPS} f32 spacings of max|plain|"
+    fshape = sol.face_flux_shape
+    new, faces = sol.predictor_volume(u, dt)
+    fhat_k, fwall_k = cu.face_flux(faces)
+    fhat_p, wall_p = [], {}
+    for d in range(sol.dim):
+        q_lo, q_hi, f_lo, f_hi = (faces[d, k].reshape(fshape) for k in range(4))
+        fhat_p.append(sol.interface_flux(q_lo, q_hi, f_lo, f_hi, d))
+        if sol.is_wall(d):
+            wall_p[d] = sol.low_wall_flux(q_lo, f_lo, d)
+    fwall_p = torch.cat([wall_p[d].reshape(-1) for d in sorted(wall_p)])
+    upd_k = cu.surface_update(new.clone(), torch.stack(fhat_p).view(fhat_k.shape), dt, fwall_p)
+    upd_p = plain_surface_update(sol, new, torch.stack(fhat_p), dt, wall_p)
+    stage_k = cu.face_surface(new.clone(), faces, dt)
+    stage_p = sol.face_surface(new, faces, dt)
+    step_k, step_p = cu.step(u, dt), sol.step(u, dt)
+    torch.cuda.synchronize()
+    faces_cmp = [(f"fhat[{d}]", fhat_k[d].view(fshape), fhat_p[d]) for d in range(sol.dim)]
+    faces_cmp += [(f"fwall[{d}]", cu.wall_fluxes(fwall_k)[d], wall_p[d]) for d in wall_p]
+    flux_name, update_name = cu.kernels[1:]
+    checks = [(flux_name, what, g.narrow(2, 0, rows), r.narrow(2, 0, rows), 2,
+               [(0, rows)]) for what, g, r in faces_cmp]
+    checks += [(update_name, "new", upd_k, upd_p, 3, groups),
+               ("face stage", "new", stage_k, stage_p, 3, groups),
+               ("step", "new", step_k, step_p, 3, groups)]
+    errs = {}
+    for name, what, got, ref, va, grps in checks:
+        for lo, n in grps:
+            g, r = got.narrow(va, lo, n), ref.narrow(va, lo, n)
+            err = max_err(torch, g, r)
+            limit = F64_ATOL if f64 else f32_bound(torch, r)
+            ok = err <= limit
+            say(f"[walls parity] {label}: {name} ({what}, rows {lo}-{lo + n - 1}) "
+                f"{str(u.dtype)[6:]} {sol.grid_shape}: max_abs_err {err:.3e} limit "
+                f"{limit:.3e} ({rule}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"walled {name} ({what}) disagrees with its plain version ({label}, "
+                     f"{u.dtype}, {sol.grid_shape})")
+            errs[name] = max(errs.get(name, 0.0), err)
+    return errs
+
+
+def walls_path(torch, dev, card) -> list[dict]:
+    """The walls path: the face stage's wall variant against plain in every
+    mode (f64, cut grid), then at full width in f32 the reflective box, the
+    farfield channel and the CK free surface, with their times; returns the
+    kernel JSON lines of the walled face stage (Euler box, CK free
+    surface)."""
+    import numpy as np
+
+    from exahype_tpu_torch.models.aderdg import ADERDGSolver, euler_physics
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.elastic import (
+        DISSIPATION_MASK,
+        MATERIAL_SLOTS,
+        N_VARS_3D_HET,
+        elastic3d_free_surface_het,
+        elastic3d_heterogeneous,
+        seismic_energy,
+        two_layer_state,
+    )
+
+    flux, eig = euler_physics(3, n_real=5)
+    eflux, eeig = elastic3d_heterogeneous()
+    E = CK_EVOLVED
+    euler_groups, ck_groups = [(0, 5)], [(0, E), (E, N_VARS_3D_HET - E)]
+
+    def make_euler(grid, dtype, walls):
+        sol = ADERDGSolver(3, ORDER, 5, grid, flux, eig, dx=DX, device=dev, dtype=dtype,
+                           **walls)
+        return sol, CudaADERDG(sol)
+
+    def make_ck(grid, dtype):
+        refl, refl_flux = elastic3d_free_surface_het()
+        sol = ADERDGSolver(3, ORDER, N_VARS_3D_HET, grid, eflux, eeig, dx=1.0 / grid[0],
+                           device=dev, dtype=dtype, predictor_mode="ck",
+                           ck_material_slots=MATERIAL_SLOTS, dissipation_mask=DISSIPATION_MASK,
+                           boundary="reflective", reflect_fn=refl, reflect_flux_fn=refl_flux,
+                           wall_axes=FREE_SURFACE_AXES)
+        q, mat = two_layer_state(sol)
+        return (sol, CudaADERDG(sol), torch.from_numpy(q).to(dev, dtype).contiguous(),
+                torch.from_numpy(np.ascontiguousarray(mat)).to(dev, dtype))
+
+    def uniform(sol, dtype):
+        """The farfield state everywhere: a uniform supersonic flow."""
+        shape = [1] * len(sol.state_shape)
+        shape[sol.var_axis] = 5
+        st = torch.tensor(FARFIELD, dtype=dtype, device=dev).reshape(shape)
+        return st.expand(sol.state_shape).contiguous()
+
+    # ---------------------------------- 3. f64, every mode, cut grid
+    for name in ("reflective box", "outflow (0,)", "farfield (0,)", "dirichlet box",
+                 "reflective (1, 2)"):
+        walls = euler_walls(name, WALL_CUT)
+        sol, cu = make_euler(WALL_CUT, torch.float64, walls)
+        u = bench_state(sol, torch, dev, torch.float64)
+        if name == "dirichlet box":
+            row = walls["dirichlet_fn"](0, 0)
+            say(f"[walls] dirichlet rows: (0, 0) spans {np.ptp(row, axis=(0, 1, 3, 4, 5))!r} "
+                "by variable over the face")
+        walls_parity(torch, sol, cu, u, float(sol.cfl_dt(u)), f"Euler {name}", 5, euler_groups)
+    sol, cu, u, mat = make_ck(WALL_CUT, torch.float64)
+    errs = walls_parity(torch, sol, cu, u, float(sol.cfl_dt(u)), "CK free surface", E, ck_groups)
+    del sol, cu, u, mat
+
+    lines = []
+    gib = 2.0**-30
+    ncell = math.prod(GRID)
+    n_nodes = ORDER + 1
+
+    def face_work(sol, cu, itemsize, nvar, rows, eig_ops, masked):
+        """Bytes and flops of the walled face stage and its launches:
+        those of the periodic stage, plus the side tensor (written by the
+        flux kernel, read by the update) and any Dirichlet rows read, and
+        one more Rusanov flux a low-wall face node."""
+        side = cu.walls["size"] * itemsize
+        dirichlet = 2 * side if sol.boundary == "dirichlet" else 0
+        low = cu.walls["size"] // nvar
+        extra_ops = low * (2 * eig_ops + (7 if masked else 6) * nvar)
+        em = dict(nvar=nvar, eig_ops=eig_ops, masked=masked)
+        return {
+            cu.kernels[1]: (
+                face_flux_bytes(ORDER, ncell, itemsize, nvar=nvar, rows=rows) + side + dirichlet,
+                face_flux_ops(ORDER, ncell, **em) + extra_ops),
+            cu.kernels[2]: (
+                surface_update_bytes(ORDER, ncell, itemsize, rows=rows) + side,
+                surface_update_ops(ORDER, ncell, nvar=rows)),
+            "face stage": (
+                face_stage_bytes(ORDER, ncell, itemsize, nvar=nvar, rows=rows) + side
+                + dirichlet, face_surface_ops(ORDER, ncell, **em) + extra_ops),
+        }
+
+    def face_times(sol, cu, u, dt):
+        new, faces = cu.predictor_volume(u, dt)
+        fhat, fwall = cu.face_flux(faces)
+        walls = {} if fwall is None else cu.wall_fluxes(fwall)
+        out = {
+            "face stage": (event_ms(torch, lambda: cu.face_surface(new, faces, dt), 20),
+                           event_ms(torch, lambda: sol.face_surface(new, faces, dt), 3)),
+            "flux": (event_ms(torch, lambda: cu.face_flux(faces), 20),
+                     event_ms(torch, lambda: plain_face_flux(torch, sol, faces), 3)),
+            "update": (
+                event_ms(torch, lambda: cu.surface_update(new, fhat, dt, fwall), 20),
+                event_ms(torch, lambda: plain_surface_update(sol, new, fhat, dt, walls), 3)),
+        }
+        return {cu.kernels[1]: out["flux"], cu.kernels[2]: out["update"],
+                "face stage": out["face stage"]}
+
+    # ---------------------------------- 4. the reflective box at full width
+    sol, cu = make_euler(GRID, torch.float32, euler_walls("reflective box", GRID))
+    u0 = bench_state(sol, torch, dev, torch.float32)
+    dt = float(cu.cfl_dt(u0))
+    errs_box = walls_parity(torch, sol, cu, u0, dt, "Euler reflective box", 5, euler_groups)
+    cu.reset_launches()
+    u = cu.run(u0, STEPS, dt)
+    torch.cuda.synchronize()
+    launches = dict(cu.launches)
+    say(f"[walls main] {STEPS} steps of the reflective box {GRID} f32 through CudaADERDG "
+        f"(dt = cfl_dt = {dt!r}): launches {launches}")
+    if launches != {name: STEPS for name in cu.kernels}:
+        fail(f"the walled step launched {launches} in {STEPS} steps, expected 3 a step")
+    if tuple(u.shape) != sol.state_shape or not torch.isfinite(u).all():
+        fail("the reflective box's state is not finite or has the wrong shape")
+    m0, m1 = cu.total_mass(u0.double()), cu.total_mass(u.double())
+    rel = ((m1 - m0).abs() / m0.abs()).tolist()
+    say(f"[walls main] relative change over {STEPS} steps: mass {rel[0]:.3e}, energy "
+        f"{rel[4]:.3e} (limit {MASS_RTOL:.1e}); momentum {rel[1]:.3e}, {rel[2]:.3e}, "
+        f"{rel[3]:.3e} (the walls' pressure acts: must exceed {MASS_RTOL:.1e})")
+    if not (rel[0] <= MASS_RTOL and rel[4] <= MASS_RTOL):
+        fail("the reflective box leaks mass or energy")
+    if not min(rel[1:4]) > MASS_RTOL:
+        fail("the reflective walls did not change the momentum")
+    if not torch.equal(u, cu.run(u0, STEPS, dt)):
+        fail("two runs of the reflective box differ")
+    say("[walls main] two runs from the same state: bitwise equal")
+    plain_u = sol.run(u0, STEPS, dt)
+    run_err, run_bound = max_err(torch, u, plain_u), STEPS * f32_bound(torch, plain_u)
+    say(f"[walls main] {STEPS}-step kernel path vs plain path: max_abs_err {run_err:.3e} "
+        f"limit {run_bound:.3e}")
+    if not run_err <= run_bound:
+        fail("the reflective box disagrees with the plain path")
+    del plain_u, u
+
+    # ---------------------------------- 5. times: walled against periodic
+    psol, pcu = make_euler(GRID, torch.float32, {})
+    dofs = cu.dofs()
+    wins = {}
+    for label, solver in (("periodic", pcu), ("walled", cu), ("walled ", cu),
+                          ("periodic ", pcu)):
+        wins.setdefault(label.strip(), []).extend(windows(torch, solver, u0, dt, steps=20))
+    for label, win in wins.items():
+        ms = [1e3 * w for w in win]
+        say(f"[walls time] {label} step (Euler {GRID} f32): step ms per window {ms!r}; "
+            f"median {statistics.median(ms)!r} ms, {dofs / statistics.median(win)!r} "
+            f"DOF-updates/s ({card})")
+    times = face_times(sol, cu, u0, dt)
+    ptimes = face_times(psol, pcu, u0, dt)
+    for (name, (ms, plain_ms)), periodic in zip(times.items(), ptimes.values()):
+        say(f"[walls time] {name} (Euler reflective box): kernel {ms!r} ms, plain "
+            f"{plain_ms!r} ms; periodic kernel {periodic[0]!r} ms (CUDA events; {card})")
+    idle, busy, wall = idle_share(torch, lambda: cu.run(u0, 20, dt))
+    say(f"[walls idle] reflective box, 20 steps under torch.profiler: device busy {busy!r} "
+        f"ms of wall {wall!r} ms; idle share {idle!r} ({card})")
+    work = face_work(sol, cu, u0.element_size(), 5, 5, EIG_OPS, False)
+    replaces = "exahype_tpu/models/aderdg_pallas.py:156"
+    for name in (*cu.kernels[1:], "face stage"):
+        bnd = kernel_report(None if name == "face stage" else cu, name, torch.float32,
+                            f"(walls, Euler reflective box) {GRID} f32", times[name][0],
+                            *work[name], card)
+        label = (f"{cu.kernels[1]} + {cu.kernels[2]} (face stage, Euler reflective box)"
+                 if name == "face stage" else f"{name} (Euler reflective box)")
+        count = launches[cu.kernels[2] if name == "face stage" else name]
+        lines.append(kernel_line(label, replaces, count, errs_box[name], *times[name], bnd))
+    del psol, pcu, sol, cu, u0
+    torch.cuda.empty_cache()
+
+    # ---------------------------------- 6. the farfield channel at full width
+    sol, cu = make_euler(GRID, torch.float32, euler_walls("farfield (0,)", GRID))
+    u0 = uniform(sol, torch.float32)
+    dt = float(cu.cfl_dt(u0))
+    walls_parity(torch, sol, cu, bench_state(sol, torch, dev, torch.float32), dt,
+                 "Euler farfield (0,)", 5, euler_groups)
+    cu.reset_launches()
+    u = cu.run(u0, STEPS, dt)
+    torch.cuda.synchronize()
+    drift, limit = max_err(torch, u, u0), STEPS * f32_bound(torch, u0)
+    say(f"[walls main] farfield channel {GRID} f32, the uniform supersonic flow equal to the "
+        f"farfield state, {STEPS} steps at cfl_dt = {dt!r}: launches {dict(cu.launches)}; "
+        f"max |u - u0| {drift:.3e} limit {limit:.3e} ({STEPS} x {F32_ULPS} f32 spacings)")
+    if not (torch.isfinite(u).all() and drift <= limit):
+        fail("the farfield channel's uniform flow did not stay steady")
+    del sol, cu, u0, u
+    torch.cuda.empty_cache()
+
+    # ---------------------------------- 7. the CK free surface at full width
+    sol, cu, u0, mat = make_ck(GRID, torch.float32)
+    dt = float(sol.cfl_dt(u0))
+    errs_ck = walls_parity(torch, sol, cu, u0, dt, "CK free surface", E, ck_groups)
+    e = lambda q: float(seismic_energy(q.double(), 3, mat.double()))  # noqa: E731
+    cu.reset_launches()
+    u = cu.run(u0, STEPS, dt)
+    torch.cuda.synchronize()
+    ck_launches = dict(cu.launches)
+    frozen = torch.equal(u.narrow(3, E, N_VARS_3D_HET - E), mat)
+    ratio = e(u) / e(u0)
+    say(f"[walls main] CK free surface {GRID} f32, wall_axes {FREE_SURFACE_AXES}, {STEPS} "
+        f"steps at cfl_dt = {dt!r}: launches {ck_launches}; finite "
+        f"{bool(torch.isfinite(u).all())}; slots 9-11 bitwise frozen {frozen}; energy ratio "
+        f"{ratio!r} (gate {CK_ENERGY_GATE}, bench.py:280)")
+    if ck_launches != {name: STEPS for name in cu.kernels}:
+        fail(f"the CK free surface launched {ck_launches} in {STEPS} steps")
+    if not (torch.isfinite(u).all() and frozen and ratio < CK_ENERGY_GATE):
+        fail("the CK free surface is not finite, moved its materials or gained energy")
+    if not torch.equal(u, cu.run(u0, STEPS, dt)):
+        fail("two runs of the CK free surface differ")
+    plain_u = sol.run(u0, STEPS, dt)
+    run_err = max_err(torch, u.narrow(3, 0, E), plain_u.narrow(3, 0, E))
+    run_bound = STEPS * f32_bound(torch, plain_u.narrow(3, 0, E))
+    say(f"[walls main] CK free surface {STEPS}-step kernel path vs plain path (evolved "
+        f"rows): max_abs_err {run_err:.3e} limit {run_bound:.3e}; two runs bitwise equal")
+    if not run_err <= run_bound:
+        fail("the CK free surface disagrees with the plain path")
+    del plain_u, u
+    k_win = windows(torch, cu, u0, dt, steps=20)
+    ms = [1e3 * w for w in k_win]
+    say(f"[walls time] CK free surface step {GRID} f32: step ms per window {ms!r}; median "
+        f"{statistics.median(ms)!r} ms ({card})")
+    times = face_times(sol, cu, u0, dt)
+    for name, (t, plain_t) in times.items():
+        say(f"[walls time] {name} (CK free surface): kernel {t!r} ms, plain {plain_t!r} ms "
+            f"(CUDA events; {card})")
+    work = face_work(sol, cu, u0.element_size(), N_VARS_3D_HET, E, ELASTIC_EIG_OPS, True)
+    for name in (*cu.kernels[1:], "face stage"):
+        bnd = kernel_report(None if name == "face stage" else cu, name, torch.float32,
+                            f"(walls, CK free surface) {GRID} f32", times[name][0],
+                            *work[name], card)
+        label = (f"{cu.kernels[1]} + {cu.kernels[2]} (face stage, CK free surface)"
+                 if name == "face stage" else f"{name} (CK free surface)")
+        count = ck_launches[cu.kernels[2] if name == "face stage" else name]
+        lines.append(kernel_line(label, replaces, count, errs_ck[name], *times[name], bnd))
+    say(f"[walls mem] peak allocated so far {torch.cuda.max_memory_allocated() * gib:.4f} GiB")
+    del sol, cu, u0, mat
+    torch.cuda.empty_cache()
+    return lines
 
 
 def z4_point_ops(torch, rhs_all) -> dict:
@@ -1922,6 +2277,7 @@ def main():
         "ADER-DG": lambda: aderdg_path(torch, dev, card),
         "limited": lambda: limited_path(torch, dev, card),
         "CK": lambda: ck_path(torch, dev, card),
+        "walls": lambda: walls_path(torch, dev, card),
         "FV": lambda: [fv_path(torch, dev, card, spec_printers)],
         "Z4": lambda: [z4_path(torch, dev, card)],
     }

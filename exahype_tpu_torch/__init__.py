@@ -5,13 +5,16 @@ kernels written for it, and on the CPU through their plain PyTorch
 versions, which match the JAX package:
 
 - the ADER-DG order-3 step of 3-D compressible Euler (``bench.py``'s path),
-  through the hand-written kernels of ``csrc/aderdg.cu``;
+  through the hand-written kernels of ``csrc/aderdg.cu``, periodic or
+  closed by domain walls (reflective, outflow, farfield, dirichlet; the
+  face stage's wall variant on the card);
 - the limited production step of the same scheme (``bench.py``'s second
   metric): ``LimitedADERDG`` with the gathered-row subcell FV fallback,
   its sweeps through the kernel of ``csrc/subcell.cu``;
 - the Cauchy–Kovalewski step of 3-D heterogeneous elasticity
   (``bench.py``'s third metric): ``ADERDGSolver(predictor_mode="ck")`` on
-  ``elastic3d_heterogeneous``, through the CK kernel of ``csrc/aderdg.cu``;
+  ``elastic3d_heterogeneous``, through the CK kernel of ``csrc/aderdg.cu``,
+  with or without the free surface (``elastic3d_free_surface_het``);
 - the spec-DSL FV Rusanov patch update (``__graft_entry__.py``'s path):
   ``KernelBuilder`` → ``CudaPrinter``, which generates one CUDA kernel from
   the statement list → ``TpuPatchGrid`` halo exchange → ``GridSolver``;
@@ -33,6 +36,11 @@ __version__ = "0.2.0"
 _EXPORTS = {
     "ADERDGSolver": "exahype_tpu_torch.models.aderdg",
     "euler_physics": "exahype_tpu_torch.models.aderdg",
+    "euler_reflect": "exahype_tpu_torch.models.aderdg",
+    "euler_reflect_flux": "exahype_tpu_torch.models.aderdg",
+    "make_dirichlet_fn": "exahype_tpu_torch.models.aderdg",
+    "sign_reflect": "exahype_tpu_torch.models.aderdg",
+    "elastic3d_free_surface_het": "exahype_tpu_torch.models.elastic",
     "elastic3d_heterogeneous": "exahype_tpu_torch.models.elastic",
     "make_z4_solver": "exahype_tpu_torch.models.z4",
     "gauge_wave_state": "exahype_tpu_torch.models.z4",

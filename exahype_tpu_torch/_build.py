@@ -60,6 +60,11 @@ _FACE_FLUX = (_P, _P, _P, _P, _INT, _INT, _P, _LL, _LL, _LL, _P)
 _SURFACE_UPDATE = (
     _P, _P, _P, ctypes.c_double, _P, _P, _INT, _INT, _P, _LL, _LL, _LL, _P,
 )
+# The wall variant: the same, then before the stream wall_mask, wall_mode,
+# wall_table, wall_rows, fwall, wall_off, wall_side (face flux) or
+# wall_mask, fwall, wall_off (update).
+_FACE_FLUX_WALLS = _FACE_FLUX[:-1] + (_INT, _INT, _P, _P, _P, _P, _LL, _P)
+_SURFACE_UPDATE_WALLS = _SURFACE_UPDATE[:-1] + (_INT, _P, _P, _P)
 # kernel, f64, physics, out (5 ints)
 _KERNEL_INFO = (_INT, _INT, _INT, _P)
 # s, s_out, ghost_lo, ghost_hi, g_lo, g_hi, dt_ptr, dt_val, h, gamma, dim,
@@ -83,6 +88,8 @@ _SIGNATURES = {
         ("aderdg_ck_predictor_volume", _CK_PREDICTOR_VOLUME),
         ("aderdg_face_flux", _FACE_FLUX),
         ("aderdg_surface_update", _SURFACE_UPDATE),
+        ("aderdg_face_flux_walls", _FACE_FLUX_WALLS),
+        ("aderdg_surface_update_walls", _SURFACE_UPDATE_WALLS),
         ("subcell_row_sweep", _ROW_SWEEP),
         ("rhs_all_z4", _RHS_ALL),
     )

@@ -16,10 +16,16 @@ from exahype_tpu_torch.models.aderdg import (
     CALLBACK_OPTIONS,
     PORTED_OPTIONS,
     UNPORTED_OPTIONS,
+    WALL_HOOKS,
     ADERDGSolver,
     euler_physics,
+    euler_reflect,
+    euler_reflect_flux,
 )
-from exahype_tpu_torch.models.elastic import elastic3d_heterogeneous
+from exahype_tpu_torch.models.elastic import (
+    elastic3d_free_surface_het,
+    elastic3d_heterogeneous,
+)
 from exahype_tpu_torch.utils.device import resolve_device
 from exahype_tpu_torch.utils.errors import SemanticError
 
@@ -42,22 +48,95 @@ def _physics_pair(physics, gamma, dim: int, n_vars: int):
     )
 
 
+def _reflect_pair(walls, n_vars: int, dim: int):
+    """The port's (reflect_fn, reflect_flux_fn) named by ``walls``."""
+    if walls == "euler":
+        return euler_reflect(dim, n_vars), euler_reflect_flux(dim, n_vars)
+    if walls == "elastic3d_het_free_surface":
+        return elastic3d_free_surface_het()
+    if isinstance(walls, tuple) and len(walls) == 2:
+        return walls
+    raise SemanticError(
+        "walls must be 'euler', 'elastic3d_het_free_surface' or a (reflect_fn, "
+        f"reflect_flux_fn) pair of the port's, got {walls!r}"
+    )
+
+
+def _dirichlet_rows(jax_solver):
+    """The JAX solver's Dirichlet ghost rows as data: ``dirichlet_fn(d,
+    side)`` of every wall, taken once as NumPy, behind a port
+    ``dirichlet_fn`` that keeps the JAX function's ``basis`` stamp."""
+    rows = {
+        (d, side): np.asarray(jax_solver.dirichlet_fn(d, side))
+        for d in range(jax_solver.dim) if jax_solver.is_wall(d)
+        for side in (0, 1)
+    }
+
+    def dirichlet_fn(axis, side):
+        return rows[(int(axis), int(side))]
+
+    basis = getattr(jax_solver.dirichlet_fn, "basis", None)
+    if basis is not None:
+        dirichlet_fn.basis = basis
+    return dirichlet_fn
+
+
+def _options_from_jax(jax_solver, walls):
+    """The JAX solver's option fields as the port's keyword options: the
+    callbacks left out (the caller has checked them), the wall hooks
+    replaced by the port's (outflow and farfield install their own; the
+    Dirichlet rows cross as data; the reflect pair is named by ``walls``)."""
+    options = {
+        name: getattr(jax_solver, name)
+        for name in (*UNPORTED_OPTIONS, *PORTED_OPTIONS)
+        if name not in CALLBACK_OPTIONS and name not in WALL_HOOKS
+    }
+    boundary = jax_solver.boundary
+    if walls is not None and boundary != "reflective":
+        raise SemanticError(
+            f"walls= names the reflect hooks of a reflective solver; this one's "
+            f"boundary is {boundary!r}"
+        )
+    if boundary == "reflective":
+        if walls is None:
+            raise SemanticError(
+                "the JAX solver's reflect_fn/reflect_flux_fn are JAX functions the "
+                "port cannot call: name the port's pair with walls='euler', "
+                "'elastic3d_het_free_surface' or (reflect_fn, reflect_flux_fn)"
+            )
+        options["reflect_fn"], options["reflect_flux_fn"] = _reflect_pair(
+            walls, jax_solver.n_vars, jax_solver.dim)
+    if boundary == "dirichlet":
+        options["dirichlet_fn"] = _dirichlet_rows(jax_solver)
+    return options
+
+
 def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
-                    physics="euler", device=None,
+                    physics="euler", walls=None, device=None,
                     dtype: torch.dtype = torch.float64) -> ADERDGSolver:
     """The port's :class:`ADERDGSolver` for a JAX ``ADERDGSolver``.
 
     Reads the JAX solver's numeric fields (``dim``, ``order``, ``n_vars``,
     ``grid_shape``, ``dx``, ``basis``, ``picard_iters``) and its option
-    fields (``predictor_mode``, ``ck_material_slots`` and
-    ``dissipation_mask`` carry over; an option the port does not carry yet
-    raises ``SemanticError``).  The JAX physics callbacks are opaque, so the
-    caller names the physics: ``"euler"`` with ``gamma`` (the default),
-    ``"elastic3d_het"`` (:func:`~exahype_tpu_torch.models.elastic.
-    elastic3d_heterogeneous`), or a (flux_fn, max_eigenvalue_fn) pair of
-    the port's.  A JAX solver with ``source_fn``, ``ncp_fn`` or
-    ``rhs_all_fn`` set raises ``SemanticError`` (those are JAX functions;
-    the Z4 system crosses through :func:`z4_solver_from_jax`).
+    fields (``predictor_mode``, ``ck_material_slots``, ``dissipation_mask``,
+    ``boundary``, ``farfield_state`` and ``wall_axes`` carry over; an
+    option the port does not carry yet raises ``SemanticError``).  The JAX
+    physics callbacks are opaque, so the caller names the physics:
+    ``"euler"`` with ``gamma`` (the default), ``"elastic3d_het"``
+    (:func:`~exahype_tpu_torch.models.elastic.elastic3d_heterogeneous`), or
+    a (flux_fn, max_eigenvalue_fn) pair of the port's.  A JAX solver with
+    ``source_fn``, ``ncp_fn`` or ``rhs_all_fn`` set raises ``SemanticError``
+    (those are JAX functions; the Z4 system crosses through
+    :func:`z4_solver_from_jax`).
+
+    Walls: outflow and farfield need nothing more; a Dirichlet solver's
+    rows cross as data (``dirichlet_fn(d, side)`` of each wall, as NumPy,
+    with its ``basis`` stamp); a reflective solver's hooks are JAX
+    functions, so the caller names them with ``walls``: ``"euler"``
+    (:func:`~exahype_tpu_torch.models.aderdg.euler_reflect` and
+    ``euler_reflect_flux``), ``"elastic3d_het_free_surface"``
+    (:func:`~exahype_tpu_torch.models.elastic.elastic3d_free_surface_het`)
+    or a (reflect_fn, reflect_flux_fn) pair of the port's.
     """
     flux, eig = _physics_pair(physics, gamma, jax_solver.dim, jax_solver.n_vars)
     for name in CALLBACK_OPTIONS:
@@ -66,11 +145,6 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
                 f"the JAX solver's {name} is a JAX function the port cannot "
                 "call; for the Z4 system use z4_solver_from_jax"
             )
-    options = {
-        name: getattr(jax_solver, name)
-        for name in (*UNPORTED_OPTIONS, *PORTED_OPTIONS)
-        if name not in CALLBACK_OPTIONS
-    }
     return ADERDGSolver(
         dim=jax_solver.dim,
         order=jax_solver.order,
@@ -83,7 +157,7 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
         basis=jax_solver.basis,
         device=device,
         dtype=dtype,
-        **options,
+        **_options_from_jax(jax_solver, walls),
     )
 
 
@@ -205,11 +279,7 @@ def z4_solver_from_jax(jax_solver, *, slicing: str = "harmonic", f: float = 1.0,
             f"not a vacuum Z4 solver: it needs {N_VARS} variables, ncp_fn and "
             f"source_fn (got n_vars={jax_solver.n_vars})"
         )
-    options = {
-        name: getattr(jax_solver, name)
-        for name in (*UNPORTED_OPTIONS, *PORTED_OPTIONS)
-        if name not in CALLBACK_OPTIONS
-    }
+    options = _options_from_jax(jax_solver, walls=None)
     rhs = jax_solver.rhs_all_fn
     solver = make_z4_solver(
         dim=jax_solver.dim,

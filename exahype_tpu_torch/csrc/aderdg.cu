@@ -1,6 +1,6 @@
-// ADER-DG step on a periodic 3-D grid for Hopper (sm_90a): four kernels,
-// templated on the physics (3-D compressible Euler, 3-D heterogeneous
-// elasticity).
+// ADER-DG step on a 3-D grid for Hopper (sm_90a), periodic or closed by
+// domain walls: four kernels and the face stage's wall variant, templated
+// on the physics (3-D compressible Euler, 3-D heterogeneous elasticity).
 //
 // Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
 // PallasADERDG.build (its pallas_call and the XLA face epilogue around it)
@@ -27,6 +27,8 @@
 //   aderdg_surface_update    the face stage, second launch: the surface
 //                            update of `new`, in place, from each cell's own
 //                            F̂ and its lower neighbours'.
+//   aderdg_face_flux_walls, aderdg_surface_update_walls
+//                            the face stage on a grid with domain walls.
 //
 // What bounds them on the H100.  The predictor is compute-bound: ~3e5 flops
 // per cell per step (4 Picard iterations of flux evaluations and 4-point
@@ -108,6 +110,29 @@
 // shared memory, 3 by the register cap.  The material rows of new are u's
 // bits, their face fluxes exact zeros, and the face stage does not touch them (mask 0), so slots
 // 9-11 leave the step bitwise unchanged.
+//
+// Walls (the face stage's wall variant: two kernels of their own beside the
+// periodic pair, which is unchanged).  On a wall axis the TPU
+// path turns its in-kernel solves off, emits every axis's face projections
+// (the all-epilogue layout, which the predictors here always write) and
+// runs the base solver's face_update on them
+// (exahype_tpu/models/aderdg.py:823-950).  The ghost of a wall is my own
+// face times a sign table (mirror; outflow is the all-ones table), the
+// constant farfield state, or the Dirichlet row, with the flux F(ghost) for
+// the last two; every hook of the catalog is one of these
+// (models/aderdg_cuda.py reads the tables off the hooks).  A thread of
+// aderdg_face_flux_walls on the last row of a wall axis builds the ghost from its
+// own high face instead of reading the wrapped neighbour, so F̂ there is the
+// high-wall flux; a thread on the first row also solves its low wall
+// (ghost on the left, its own low face on the right, the jump masked as in
+// the interior) into a side tensor fwall, [wall axis][m][v][plane], the
+// grid's plane across the axis (my cell with i_d dropped, row-major), whose
+// blocks sit at off[d].  aderdg_surface_update_walls reads fwall instead of the
+// wrapped neighbour's F̂ where i_d == 0 on a wall axis.  Each interface is
+// still solved once, with no atomics; the side tensor is ~1 % of F̂ at
+// (256, 8, 128), so the walled stage has the periodic one's bound to within
+// that.  The Dirichlet rows come in the same layout as fwall, one block set
+// per side.
 
 #include <cuda_runtime.h>
 
@@ -153,6 +178,16 @@ struct EulerPhysics {
   __device__ __forceinline__ T max_eigenvalue(const T* q, int d) const {
     return euler_max_eigenvalue<T, kDim>(q, momentum(q, d), gm1, gamma);
   }
+  // The flux along axis d (a wall's ghost flux F(ghost)); d is dispatched
+  // to compile-time axes, so q and f stay in registers.
+  __device__ __forceinline__ void flux_along(const T* q, int d, T* f) const {
+    const T inv_rho = T(1) / q[0];
+    const T p = euler_pressure_from<T, kDim>(q, inv_rho, gm1);
+#pragma unroll
+    for (int dd = 0; dd < kDim; ++dd) {
+      if (dd == d) euler_flux_from<T, kDim, V>(q, dd, inv_rho, p, f);
+    }
+  }
   static __device__ __forceinline__ T dissipation(int) { return T(1); }
 };
 
@@ -169,6 +204,14 @@ struct ElasticHetPhysics {
   static ElasticHetPhysics make(const double*) { return {}; }
   __device__ __forceinline__ T max_eigenvalue(const T* q, int) const {
     return elastic3d_het_eigenvalue<T>(q[kRho], q[kLam], q[kMu]);
+  }
+  // The flux of the evolved rows along axis d (a wall's ghost flux).
+  __device__ __forceinline__ void flux_along(const T* q, int d, T* f) const {
+    const T inv_rho = T(1) / q[kRho];
+#pragma unroll
+    for (int dd = 0; dd < kDim; ++dd) {
+      if (dd == d) elastic3d_het_flux<T>(q, inv_rho, q[kLam], q[kMu], dd, f);
+    }
   }
   static __device__ __forceinline__ T dissipation(int v) {
     return v < kEvolved ? T(1) : T(0);
@@ -192,6 +235,26 @@ struct Params {
   long long ncell;
 };
 
+// Wall modes of the C interface: the ghost is my own face times a sign
+// table (mirror; outflow is the all-ones table), the constant farfield
+// state, or the Dirichlet row.
+enum WallMode : int { kMirror = 0, kFarfield = 1, kDirichlet = 2 };
+
+// The face stage's wall description (zero, and unread, in the periodic
+// instantiation).
+template <typename T, int V>
+struct WallParams {
+  int mask;             // bit d: grid axis d carries walls
+  int mode;             // WallMode
+  T sq[kDim][V];        // kMirror: ghost state S_q[d] q
+  T sf[kDim][V];        // kMirror: ghost flux S_f[d] f
+  T far[V];             // kFarfield: the ghost state
+  const T* rows;        // kDirichlet: ghost rows [side][wall axis][m][v][plane]
+  T* fwall;             // low-wall fluxes [wall axis][m][v][plane]
+  long long off[kDim];  // element offset of axis d's block (wall axes)
+  long long side;       // elements of one side of rows
+};
+
 // row[j] = mat[r][j] for a thread-dependent r, reading the parameter
 // bank at compile-time offsets only (a dynamic index into a kernel
 // parameter can make the compiler copy the struct to local memory).
@@ -212,6 +275,17 @@ __device__ __forceinline__ T select(const T (&vec)[NN], int r) {
 #pragma unroll
   for (int i = 1; i < NN; ++i) {
     if (i == r) out = vec[i];
+  }
+  return out;
+}
+
+// tbl[d][v] for a thread-dependent d and a compile-time v (see select_row).
+template <typename T, int V>
+__device__ __forceinline__ T select_col(const T (&tbl)[kDim][V], int d, int v) {
+  T out = tbl[0][v];
+#pragma unroll
+  for (int i = 1; i < kDim; ++i) {
+    if (i == d) out = tbl[i][v];
   }
   return out;
 }
@@ -756,6 +830,23 @@ struct TileCell {
     cell = static_cast<long long>(row) * g[2] + i[2];
   }
 
+  // My index along axis d, the grid's extent along it, and the plane across
+  // it: its size and my index in it (my cell with i_d dropped, row-major).
+  __device__ __forceinline__ int at(int d) const {
+    return d == 0 ? i[0] : (d == 1 ? i[1] : i[2]);
+  }
+  __device__ __forceinline__ int extent(int d) const {
+    return d == 0 ? g[0] : (d == 1 ? g[1] : g[2]);
+  }
+  __device__ __forceinline__ long long plane(int d) const {
+    return d == 0 ? static_cast<long long>(g[1]) * g[2]
+                  : static_cast<long long>(g[0]) * (d == 1 ? g[2] : g[1]);
+  }
+  __device__ __forceinline__ long long plane_index(int d) const {
+    return d == 0 ? static_cast<long long>(i[1]) * g[2] + i[2]
+                  : static_cast<long long>(i[0]) * (d == 1 ? g[2] : g[1]) + (d == 1 ? i[2] : i[1]);
+  }
+
   // The periodic neighbour one cell up (+1) or down (-1) axis d.
   __device__ __forceinline__ long long neighbour(int d, int step) const {
     const long long stride = d == 0 ? static_cast<long long>(g[1]) * g[2] : (d == 1 ? g[2] : 1);
@@ -858,6 +949,163 @@ aderdg_surface_update(T* __restrict__ state, const T* __restrict__ fhat,
   }
 }
 
+// W.off[d] for a thread-dependent d (see select_row).
+template <typename T, int V>
+__device__ __forceinline__ long long wall_offset(const WallParams<T, V>& W, int d) {
+  long long off = W.off[0];
+#pragma unroll
+  for (int i = 1; i < kDim; ++i) {
+    if (i == d) off = W.off[i];
+  }
+  return off;
+}
+
+// The ghost of wall (axis d, side) at face node m, plane index p, from my
+// own face state q and flux f: its state gq (all V rows) and flux gf (rows
+// 0..R-1).  A Dirichlet row is read from W.rows; the farfield and
+// Dirichlet ghost fluxes are the physics' flux of the ghost.
+template <typename T, typename Phys>
+__device__ __forceinline__ void wall_ghost(const WallParams<T, Phys::V>& W, const Phys& phys,
+                                           int d, int side, int m, long long plane,
+                                           long long p, const T* q, const T* f, T* gq,
+                                           T* gf) {
+  constexpr int V = Phys::V;
+  constexpr int R = Phys::kFluxRows;
+  if (W.mode == kMirror) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) gq[v] = select_col<T, V>(W.sq, d, v) * q[v];
+#pragma unroll
+    for (int v = 0; v < R; ++v) gf[v] = select_col<T, V>(W.sf, d, v) * f[v];
+    return;
+  }
+  if (W.mode == kFarfield) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) gq[v] = W.far[v];
+  } else {
+    const T* row = W.rows + side * W.side + wall_offset(W, d) + static_cast<long long>(m) * V * plane + p;
+#pragma unroll
+    for (int v = 0; v < V; ++v) gq[v] = row[v * plane];
+  }
+  phys.flux_along(gq, d, gf);
+}
+
+// The face stage's wall variant, first launch: aderdg_face_flux, except
+// on a wall axis.  There the last row's right state is the wall's ghost of
+// its own high face (so its F̂ is the high-wall flux), and the first row
+// also solves its low wall, ghost on the left and its own low face on the
+// right, ½(g_f + f_lo) − ½ s_w m (q_lo − g_q), into W.fwall.
+template <typename T, int NN, typename Phys>
+__global__ void __launch_bounds__(kTile * kFluxNodes)
+aderdg_face_flux_walls(const T* __restrict__ faces, T* __restrict__ fhat,
+                       const Params<T, NN, Phys> P, const WallParams<T, Phys::V> W) {
+  constexpr int NF = NN * NN;
+  constexpr int V = Phys::V;
+  constexpr int R = Phys::kFluxRows;
+  const TileCell tc(blockIdx.x, P.g);
+  if (!tc.inside) return;  // no barrier here
+  const int d = blockIdx.y / (NF / kFluxNodes);
+  const int m = (blockIdx.y % (NF / kFluxNodes)) * kFluxNodes + threadIdx.y;
+  const long long ncell = P.ncell;
+  const long long cell = tc.cell;
+  const bool wall = (W.mask >> d) & 1;
+  const T* base = faces + static_cast<long long>(d * 4 * NF + m) * V * ncell;
+  const long long wstride = static_cast<long long>(NF * V) * ncell;
+  T qa[V], qb[V], fa[R], fb[R];  // a: my high face, b: the neighbour's low face or my ghost
+#pragma unroll
+  for (int v = 0; v < V; ++v) qa[v] = base[wstride + v * ncell + cell];
+#pragma unroll
+  for (int v = 0; v < R; ++v) fa[v] = base[3 * wstride + v * ncell + cell];
+  if (wall && tc.at(d) == tc.extent(d) - 1) {  // the high wall
+    wall_ghost<T, Phys>(W, P.phys, d, 1, m, tc.plane(d), tc.plane_index(d), qa, fa, qb, fb);
+  } else {
+    const long long plus = tc.neighbour(d, 1);
+#pragma unroll
+    for (int v = 0; v < V; ++v) qb[v] = base[v * ncell + plus];
+#pragma unroll
+    for (int v = 0; v < R; ++v) fb[v] = base[2 * wstride + v * ncell + plus];
+  }
+  if (wall && tc.at(d) == 0) {  // the low wall
+    const long long plane = tc.plane(d);
+    const long long p = tc.plane_index(d);
+    T ql[V], fl[R], gq[V], gf[R];
+#pragma unroll
+    for (int v = 0; v < V; ++v) ql[v] = base[v * ncell + cell];
+#pragma unroll
+    for (int v = 0; v < R; ++v) fl[v] = base[2 * wstride + v * ncell + cell];
+    wall_ghost<T, Phys>(W, P.phys, d, 0, m, plane, p, ql, fl, gq, gf);
+    const T sw = dmax(P.phys.max_eigenvalue(ql, d), P.phys.max_eigenvalue(gq, d));
+    T* w = W.fwall + wall_offset(W, d) + static_cast<long long>(m) * V * plane + p;
+#pragma unroll
+    for (int v = 0; v < R; ++v) {
+      T dq = ql[v] - gq[v];
+      if constexpr (Phys::kMasked) dq = dq * Phys::dissipation(v);
+      w[v * plane] = T(0.5) * (gf[v] + fl[v]) - T(0.5) * sw * dq;
+    }
+  }
+  const T s = dmax(P.phys.max_eigenvalue(qa, d), P.phys.max_eigenvalue(qb, d));
+  T* out = fhat + static_cast<long long>(d * NF + m) * V * ncell + cell;
+#pragma unroll
+  for (int v = 0; v < R; ++v) {
+    T dq = qb[v] - qa[v];
+    if constexpr (Phys::kMasked) dq = dq * Phys::dissipation(v);
+    out[v * ncell] = T(0.5) * (fa[v] + fb[v]) - T(0.5) * s * dq;
+  }
+}
+
+// The face stage's wall variant, second launch: aderdg_surface_update,
+// with F̂_lo read from W.fwall in the first row of a wall axis.  The
+// per-thread choice of F̂_lo's row stride costs registers: the kernel is
+// held to the periodic update's 6 resident blocks of 256 threads an SM.
+template <typename T, int NN, typename Phys>
+__global__ void __launch_bounds__(kTile * kUpdateNodes, 6)
+aderdg_surface_update_walls(T* __restrict__ state, const T* __restrict__ fhat,
+                            const T* __restrict__ dt_ptr, T dt_val,
+                            const Params<T, NN, Phys> P, const WallParams<T, Phys::V> W) {
+  constexpr int NF = NN * NN;
+  constexpr int NG = NN * NF / kUpdateNodes;
+  constexpr int V = Phys::V;
+  constexpr int R = Phys::kFluxRows;
+  const int tile_index = blockIdx.x / NG;
+  const TileCell tc(tile_index, P.g);
+  if (!tc.inside) return;
+  const int node = (blockIdx.x - tile_index * NG) * kUpdateNodes + threadIdx.y;
+  const long long ncell = P.ncell;
+  const long long cell = tc.cell;
+  const T dtv = dt_ptr != nullptr ? *dt_ptr : dt_val;
+  const int ix[kDim] = {node / NF, (node / NN) % NN, node % NN};
+  const int mf[kDim] = {ix[1] * NN + ix[2], ix[0] * NN + ix[2], ix[0] * NN + ix[1]};
+  T lam[kDim], p1w[kDim], p0w[kDim];
+  long long hi[kDim];     // offset of F̂_hi of row 0
+  const T* lo[kDim];      // F̂_lo of row 0, and the stride between rows
+  long long lo_step[kDim];
+#pragma unroll
+  for (int d = 0; d < kDim; ++d) {
+    lam[d] = dtv / P.dx[d];
+    p1w[d] = select<T, NN>(P.PHI1W, ix[d]);
+    p0w[d] = select<T, NN>(P.PHI0W, ix[d]);
+    const long long row0 = static_cast<long long>(d * NF + mf[d]) * V * ncell;
+    hi[d] = row0 + cell;
+    if (((W.mask >> d) & 1) && tc.at(d) == 0) {
+      const long long plane = tc.plane(d);
+      lo[d] = W.fwall + W.off[d] + static_cast<long long>(mf[d]) * V * plane + tc.plane_index(d);
+      lo_step[d] = plane;
+    } else {
+      lo[d] = fhat + row0 + tc.neighbour(d, -1);
+      lo_step[d] = ncell;
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < R; ++v) {
+    const long long o = static_cast<long long>(node * V + v) * ncell + cell;
+    T x = state[o];
+#pragma unroll
+    for (int d = 0; d < kDim; ++d) {
+      x = x - lam[d] * (p1w[d] * fhat[hi[d] + v * ncell] - p0w[d] * lo[d][v * lo_step[d]]);
+    }
+    state[o] = x;
+  }
+}
+
 // Host side ---------------------------------------------------------------
 
 // ops: D, K1inv, Kvol (NN*NN each, row-major), W, PHI0, PHI1, PHI0W, PHI1W
@@ -891,6 +1139,48 @@ Params<T, NN, Phys> make_params(const double* ops, const double* dx, int picard_
   P.g[2] = g2;
   P.ncell = g0 * g1 * g2;
   return P;
+}
+
+// The face stage's wall description from the C interface's arguments (see
+// there); all zero for mask == 0, no ghost tables without `table` (the
+// update reads only the mask, fwall and the offsets).
+template <typename T, int V>
+WallParams<T, V> make_walls(int mask, int mode, const double* table, const T* rows, T* fwall,
+                            const long long* off, long long side) {
+  WallParams<T, V> W{};
+  if (mask == 0) return W;
+  W.mask = mask;
+  W.mode = mode;
+  W.rows = rows;
+  W.fwall = fwall;
+  W.side = side;
+  for (int d = 0; d < kDim; ++d) W.off[d] = off[d];
+  if (table == nullptr) return W;
+  for (int d = 0; d < kDim; ++d) {
+    for (int v = 0; v < V; ++v) {
+      W.sq[d][v] = static_cast<T>(table[d * V + v]);
+      W.sf[d][v] = static_cast<T>(table[(kDim + d) * V + v]);
+    }
+  }
+  for (int v = 0; v < V; ++v) W.far[v] = static_cast<T>(table[2 * kDim * V + v]);
+  return W;
+}
+
+// A wall description the update can use: a mask of the 3 axes, the side
+// tensor and its offsets.
+bool bad_walls(int mask, const void* fwall, const long long* off) {
+  return mask != 0 && (mask < 0 || mask > 7 || fwall == nullptr || off == nullptr);
+}
+
+// The wall entry points take walls only (a mask of 0 is the periodic entry's).
+bool no_walls(int mask) { return mask == 0; }
+
+// ... and the face flux: a known mode, the tables, the rows in Dirichlet mode.
+bool bad_ghosts(int mask, int mode, const double* table, const void* rows) {
+  if (mask == 0) return false;
+  if (table == nullptr || (mode != kMirror && mode != kFarfield && mode != kDirichlet))
+    return true;
+  return mode == kDirichlet && rows == nullptr;
 }
 
 // Cells per block: a full 32-byte sector of cells for every (node, var).
@@ -947,16 +1237,19 @@ Shape ck_predictor_shape() {
                             ElasticHetPhysics<T>::kEvolved>()};
 }
 
-template <typename T, typename Phys>
+template <typename T, typename Phys, bool kWalls>
 Shape face_flux_shape() {
-  return {reinterpret_cast<const void*>(aderdg_face_flux<T, kNN, Phys>), dim3(kTile, kFluxNodes),
-          0};
+  const void* fn = kWalls ? reinterpret_cast<const void*>(aderdg_face_flux_walls<T, kNN, Phys>)
+                          : reinterpret_cast<const void*>(aderdg_face_flux<T, kNN, Phys>);
+  return {fn, dim3(kTile, kFluxNodes), 0};
 }
 
-template <typename T, typename Phys>
+template <typename T, typename Phys, bool kWalls>
 Shape surface_update_shape() {
-  return {reinterpret_cast<const void*>(aderdg_surface_update<T, kNN, Phys>),
-          dim3(kTile, kUpdateNodes), 0};
+  const void* fn = kWalls
+                       ? reinterpret_cast<const void*>(aderdg_surface_update_walls<T, kNN, Phys>)
+                       : reinterpret_cast<const void*>(aderdg_surface_update<T, kNN, Phys>);
+  return {fn, dim3(kTile, kUpdateNodes), 0};
 }
 
 template <typename T, typename Phys>
@@ -997,33 +1290,46 @@ cudaError_t launch_ck_predictor_volume(const T* u, T* out, T* faces, const T* dt
   return cudaGetLastError();
 }
 
-template <typename T, typename Phys>
+template <typename T, typename Phys, bool kWalls>
 cudaError_t launch_face_flux(const T* faces, T* fhat, const double* ops,
                              const double* dx, int order, const double* params, long long g0,
-                             long long g1, long long g2, void* stream) {
+                             long long g1, long long g2, const WallParams<T, Phys::V>& W,
+                             void* stream) {
   const long long tiles = face_tiles(order, g0, g1, g2);
   if (tiles == 0) return cudaErrorInvalidValue;
   const auto P = make_params<T, kNN, Phys>(ops, dx, 0, params, g0, g1, g2);
-  const Shape sh = face_flux_shape<T, Phys>();
+  const Shape sh = face_flux_shape<T, Phys, kWalls>();
   const dim3 grid(static_cast<unsigned>(tiles), kDim * kNN * kNN / kFluxNodes);
-  aderdg_face_flux<T, kNN, Phys><<<grid, sh.block, 0, static_cast<cudaStream_t>(stream)>>>(
-      faces, fhat, P);
+  if constexpr (kWalls) {
+    aderdg_face_flux_walls<T, kNN, Phys>
+        <<<grid, sh.block, 0, static_cast<cudaStream_t>(stream)>>>(faces, fhat, P, W);
+  } else {
+    aderdg_face_flux<T, kNN, Phys><<<grid, sh.block, 0, static_cast<cudaStream_t>(stream)>>>(
+        faces, fhat, P);
+  }
   return cudaGetLastError();
 }
 
-template <typename T, typename Phys>
+template <typename T, typename Phys, bool kWalls>
 cudaError_t launch_surface_update(T* state, const T* fhat, const T* dt_ptr, double dt_val,
                                   const double* ops, const double* dx, int order,
                                   const double* params, long long g0, long long g1,
-                                  long long g2, void* stream) {
+                                  long long g2, const WallParams<T, Phys::V>& W,
+                                  void* stream) {
   const long long tiles = face_tiles(order, g0, g1, g2);
   if (tiles == 0) return cudaErrorInvalidValue;
   const auto P = make_params<T, kNN, Phys>(ops, dx, 0, params, g0, g1, g2);
-  const Shape sh = surface_update_shape<T, Phys>();
+  const Shape sh = surface_update_shape<T, Phys, kWalls>();
   const long long blocks = tiles * (kNN * kNN * kNN / kUpdateNodes);
-  aderdg_surface_update<T, kNN, Phys>
-      <<<static_cast<unsigned>(blocks), sh.block, 0, static_cast<cudaStream_t>(stream)>>>(
-          state, fhat, dt_ptr, static_cast<T>(dt_val), P);
+  if constexpr (kWalls) {
+    aderdg_surface_update_walls<T, kNN, Phys>
+        <<<static_cast<unsigned>(blocks), sh.block, 0, static_cast<cudaStream_t>(stream)>>>(
+            state, fhat, dt_ptr, static_cast<T>(dt_val), P, W);
+  } else {
+    aderdg_surface_update<T, kNN, Phys>
+        <<<static_cast<unsigned>(blocks), sh.block, 0, static_cast<cudaStream_t>(stream)>>>(
+            state, fhat, dt_ptr, static_cast<T>(dt_val), P);
+  }
   return cudaGetLastError();
 }
 
@@ -1048,34 +1354,73 @@ int ck_predictor_volume(const T* u, T* out, T* faces, const T* dt_ptr, double dt
                                        g0, g1, g2, stream);
 }
 
+template <typename T, typename Phys>
+int face_flux_of(const T* faces, T* fhat, const double* ops, const double* dx, int order,
+                 const double* params, long long g0, long long g1, long long g2, int wall_mask,
+                 int wall_mode, const double* wall_table, const T* wall_rows, T* fwall,
+                 const long long* wall_off, long long wall_side, void* stream) {
+  if (bad_walls(wall_mask, fwall, wall_off) ||
+      bad_ghosts(wall_mask, wall_mode, wall_table, wall_rows))
+    return cudaErrorInvalidValue;
+  const auto W = make_walls<T, Phys::V>(wall_mask, wall_mode, wall_table, wall_rows, fwall,
+                                        wall_off, wall_side);
+  if (wall_mask == 0)
+    return launch_face_flux<T, Phys, false>(faces, fhat, ops, dx, order, params, g0, g1, g2, W,
+                                            stream);
+  return launch_face_flux<T, Phys, true>(faces, fhat, ops, dx, order, params, g0, g1, g2, W,
+                                         stream);
+}
+
 template <typename T>
 int face_flux(const T* faces, T* fhat, const double* ops, const double* dx,
               int order, int physics, const double* params, long long g0, long long g1,
-              long long g2, void* stream) {
+              long long g2, int wall_mask, int wall_mode, const double* wall_table,
+              const T* wall_rows, T* fwall, const long long* wall_off, long long wall_side,
+              void* stream) {
   switch (physics) {
     case kEuler:
-      return launch_face_flux<T, EulerPhysics<T>>(faces, fhat, ops, dx, order,
-                                                  params, g0, g1, g2, stream);
+      return face_flux_of<T, EulerPhysics<T>>(faces, fhat, ops, dx, order, params, g0, g1, g2,
+                                              wall_mask, wall_mode, wall_table, wall_rows,
+                                              fwall, wall_off, wall_side, stream);
     case kElasticHet:
-      return launch_face_flux<T, ElasticHetPhysics<T>>(faces, fhat, ops, dx, order,
-                                                       params, g0, g1, g2, stream);
+      return face_flux_of<T, ElasticHetPhysics<T>>(faces, fhat, ops, dx, order, params, g0, g1,
+                                                   g2, wall_mask, wall_mode, wall_table,
+                                                   wall_rows, fwall, wall_off, wall_side,
+                                                   stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <typename T, typename Phys>
+int surface_update_of(T* state, const T* fhat, const T* dt_ptr, double dt_val,
+                      const double* ops, const double* dx, int order, const double* params,
+                      long long g0, long long g1, long long g2, int wall_mask, const T* fwall,
+                      const long long* wall_off, void* stream) {
+  if (bad_walls(wall_mask, fwall, wall_off)) return cudaErrorInvalidValue;
+  const auto W = make_walls<T, Phys::V>(wall_mask, kMirror, nullptr, nullptr,
+                                        const_cast<T*>(fwall), wall_off, 0);
+  if (wall_mask == 0)
+    return launch_surface_update<T, Phys, false>(state, fhat, dt_ptr, dt_val, ops, dx, order,
+                                                 params, g0, g1, g2, W, stream);
+  return launch_surface_update<T, Phys, true>(state, fhat, dt_ptr, dt_val, ops, dx, order,
+                                              params, g0, g1, g2, W, stream);
+}
+
 template <typename T>
 int surface_update(T* state, const T* fhat, const T* dt_ptr, double dt_val, const double* ops,
                    const double* dx, int order, int physics, const double* params,
-                   long long g0, long long g1, long long g2, void* stream) {
+                   long long g0, long long g1, long long g2, int wall_mask, const T* fwall,
+                   const long long* wall_off, void* stream) {
   switch (physics) {
     case kEuler:
-      return launch_surface_update<T, EulerPhysics<T>>(state, fhat, dt_ptr, dt_val, ops, dx,
-                                                       order, params, g0, g1, g2, stream);
+      return surface_update_of<T, EulerPhysics<T>>(state, fhat, dt_ptr, dt_val, ops, dx, order,
+                                                   params, g0, g1, g2, wall_mask, fwall,
+                                                   wall_off, stream);
     case kElasticHet:
-      return launch_surface_update<T, ElasticHetPhysics<T>>(state, fhat, dt_ptr, dt_val, ops,
-                                                            dx, order, params, g0, g1, g2,
-                                                            stream);
+      return surface_update_of<T, ElasticHetPhysics<T>>(state, fhat, dt_ptr, dt_val, ops, dx,
+                                                        order, params, g0, g1, g2, wall_mask,
+                                                        fwall, wall_off, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1108,19 +1453,26 @@ template <typename T>
 int kernel_info(int kernel, int physics, int* out) {
   const bool euler = physics == kEuler;
   if (physics != kEuler && physics != kElasticHet) return cudaErrorInvalidValue;
+  using E = EulerPhysics<T>;
+  using H = ElasticHetPhysics<T>;
   switch (kernel) {
     case 0:
-      return euler ? shape_info(predictor_shape<T, EulerPhysics<T>>(), out)
-                   : cudaErrorInvalidValue;
+      return euler ? shape_info(predictor_shape<T, E>(), out) : cudaErrorInvalidValue;
     case 1:
       return euler ? cudaErrorInvalidValue : shape_info(ck_predictor_shape<T>(), out);
     case 2:
-      return shape_info(euler ? face_flux_shape<T, EulerPhysics<T>>()
-                              : face_flux_shape<T, ElasticHetPhysics<T>>(),
+      return shape_info(euler ? face_flux_shape<T, E, false>() : face_flux_shape<T, H, false>(),
                         out);
     case 3:
-      return shape_info(euler ? surface_update_shape<T, EulerPhysics<T>>()
-                              : surface_update_shape<T, ElasticHetPhysics<T>>(),
+      return shape_info(euler ? surface_update_shape<T, E, false>()
+                              : surface_update_shape<T, H, false>(),
+                        out);
+    case 4:
+      return shape_info(euler ? face_flux_shape<T, E, true>() : face_flux_shape<T, H, true>(),
+                        out);
+    case 5:
+      return shape_info(euler ? surface_update_shape<T, E, true>()
+                              : surface_update_shape<T, H, true>(),
                         out);
     default:
       return cudaErrorInvalidValue;
@@ -1140,6 +1492,18 @@ extern "C" {
 // fhat: [dim, n^(dim-1), n_vars, *grid], the interface fluxes; face_flux
 // leaves the rows that are zero by construction (the elasticity's
 // materials) unwritten.  Only order 3 is instantiated.
+//
+// The face stage's wall variant, face_flux_walls then surface_update_walls
+// (the periodic entries' arguments, then these): bit d of wall_mask (not
+// 0) marks grid axis d as walled;
+// wall_mode 0 = mirror (ghost = sign table times my face), 1 = farfield,
+// 2 = dirichlet; wall_table (float64): S_q [3][n_vars], S_f [3][n_vars],
+// the farfield state [n_vars]; fwall: the low-wall fluxes [wall axis][n²]
+// [n_vars][plane], plane the grid's plane across the axis (my cell with
+// i_d dropped, row-major), axis d's block at element wall_off[d];
+// wall_rows (dirichlet): the ghost rows in fwall's layout, side 1's at
+// element wall_side.  face_flux_walls writes fwall (its zero rows unwritten
+// as in fhat), surface_update_walls reads it.
 
 int exahype_aderdg_predictor_volume_f32(const float* u, float* out, float* faces,
                                         const float* dt_ptr, double dt_val,
@@ -1183,16 +1547,16 @@ int exahype_aderdg_face_flux_f32(const float* faces, float* fhat,
                                  const double* ops, const double* dx, int order, int physics,
                                  const double* params, long long g0, long long g1, long long g2,
                                  void* stream) {
-  return face_flux<float>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2,
-                          stream);
+  return face_flux<float>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, 0, 0,
+                          nullptr, nullptr, nullptr, nullptr, 0, stream);
 }
 
 int exahype_aderdg_face_flux_f64(const double* faces, double* fhat,
                                  const double* ops, const double* dx, int order, int physics,
                                  const double* params, long long g0, long long g1, long long g2,
                                  void* stream) {
-  return face_flux<double>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2,
-                           stream);
+  return face_flux<double>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, 0, 0,
+                           nullptr, nullptr, nullptr, nullptr, 0, stream);
 }
 
 int exahype_aderdg_surface_update_f32(float* state, const float* fhat, const float* dt_ptr,
@@ -1200,7 +1564,7 @@ int exahype_aderdg_surface_update_f32(float* state, const float* fhat, const flo
                                       int order, int physics, const double* params,
                                       long long g0, long long g1, long long g2, void* stream) {
   return surface_update<float>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics, params,
-                               g0, g1, g2, stream);
+                               g0, g1, g2, 0, nullptr, nullptr, stream);
 }
 
 int exahype_aderdg_surface_update_f64(double* state, const double* fhat, const double* dt_ptr,
@@ -1208,13 +1572,62 @@ int exahype_aderdg_surface_update_f64(double* state, const double* fhat, const d
                                       int order, int physics, const double* params,
                                       long long g0, long long g1, long long g2, void* stream) {
   return surface_update<double>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics, params,
-                                g0, g1, g2, stream);
+                                g0, g1, g2, 0, nullptr, nullptr, stream);
+}
+
+int exahype_aderdg_face_flux_walls_f32(const float* faces, float* fhat, const double* ops,
+                                       const double* dx, int order, int physics,
+                                       const double* params, long long g0, long long g1,
+                                       long long g2, int wall_mask, int wall_mode,
+                                       const double* wall_table, const float* wall_rows,
+                                       float* fwall, const long long* wall_off,
+                                       long long wall_side, void* stream) {
+  if (no_walls(wall_mask)) return cudaErrorInvalidValue;
+  return face_flux<float>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, wall_mask,
+                          wall_mode, wall_table, wall_rows, fwall, wall_off, wall_side, stream);
+}
+
+int exahype_aderdg_face_flux_walls_f64(const double* faces, double* fhat, const double* ops,
+                                       const double* dx, int order, int physics,
+                                       const double* params, long long g0, long long g1,
+                                       long long g2, int wall_mask, int wall_mode,
+                                       const double* wall_table, const double* wall_rows,
+                                       double* fwall, const long long* wall_off,
+                                       long long wall_side, void* stream) {
+  if (no_walls(wall_mask)) return cudaErrorInvalidValue;
+  return face_flux<double>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, wall_mask,
+                           wall_mode, wall_table, wall_rows, fwall, wall_off, wall_side, stream);
+}
+
+int exahype_aderdg_surface_update_walls_f32(float* state, const float* fhat,
+                                            const float* dt_ptr, double dt_val,
+                                            const double* ops, const double* dx, int order,
+                                            int physics, const double* params, long long g0,
+                                            long long g1, long long g2, int wall_mask,
+                                            const float* fwall, const long long* wall_off,
+                                            void* stream) {
+  if (no_walls(wall_mask)) return cudaErrorInvalidValue;
+  return surface_update<float>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics, params,
+                               g0, g1, g2, wall_mask, fwall, wall_off, stream);
+}
+
+int exahype_aderdg_surface_update_walls_f64(double* state, const double* fhat,
+                                            const double* dt_ptr, double dt_val,
+                                            const double* ops, const double* dx, int order,
+                                            int physics, const double* params, long long g0,
+                                            long long g1, long long g2, int wall_mask,
+                                            const double* fwall, const long long* wall_off,
+                                            void* stream) {
+  if (no_walls(wall_mask)) return cudaErrorInvalidValue;
+  return surface_update<double>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics, params,
+                                g0, g1, g2, wall_mask, fwall, wall_off, stream);
 }
 
 // out[0..4]: registers per thread, resident blocks per SM, threads per
 // block, dynamic shared memory bytes and local (spill) bytes per thread of
 // one kernel as its launcher launches it: kernel 0 = predictor_volume,
-// 1 = ck_predictor_volume, 2 = face_flux, 3 = surface_update; f64 = 0 or 1.
+// 1 = ck_predictor_volume, 2 = face_flux, 3 = surface_update,
+// 4 = face_flux_walls, 5 = surface_update_walls; f64 = 0 or 1.
 int exahype_aderdg_kernel_info(int kernel, int f64, int physics, int* out) {
   return f64 ? kernel_info<double>(kernel, physics, out)
              : kernel_info<float>(kernel, physics, out);

@@ -1,11 +1,13 @@
-"""ADER-DG solver, periodic flux-form path (PyTorch, eager).
+"""ADER-DG solver, flux-form path (PyTorch, eager).
 
 Port of ``exahype_tpu/models/aderdg.py::ADERDGSolver`` on the paths the
 benchmarks take: the space-time Picard predictor (``bench.py::main``) or
 the Cauchy–Kovalewski predictor with frozen material slots
 (``predictor_mode="ck"``, ``bench.py::bench_ck``), the time-averaged
 volume integral, the Rusanov face solve (with an optional
-``dissipation_mask``) and the corrector on a periodic Cartesian grid.  On
+``dissipation_mask``) and the corrector on a Cartesian grid that is
+periodic or closed by domain walls (``boundary``: reflective, outflow,
+farfield or dirichlet, on every axis or on ``wall_axes``).  On
 the Picard path it also carries the algebraic source ``source_fn``, the
 non-conservative product ``ncp_fn`` (strong-form volume term,
 path-conservative face fluctuations) and the fused right-hand side
@@ -22,9 +24,13 @@ between them is one tensor ``[dim, 4, n^(dim-1), n_vars, *grid]`` holding
 ``(q_lo, q_hi, f_lo, f_hi)`` per axis, each in the JAX package's face
 layout.
 
-Options of the JAX solver that are not ported yet raise
-:class:`SemanticError` (see ``ROADMAP.md``, Queue 1 item 2); so does any CK
-combination with sources, non-conservative products or walls.
+Options of the JAX solver that are not ported yet (the viscous fluxes,
+``reuse_last_flux``) raise :class:`SemanticError` naming ``ROADMAP.md``; so
+does any CK combination with sources or non-conservative products.
+
+Also the port's copies of the JAX wall hooks: :func:`euler_reflect`,
+:func:`euler_reflect_flux` (sign tables, ``.signs``, so the CUDA face stage
+can recognise them) and :func:`make_dirichlet_fn` (NumPy).
 """
 
 from __future__ import annotations
@@ -51,6 +57,14 @@ def _apply(mat, x, axis):
 def _project(vec, x, axis):
     """Contract a vector along ``axis`` (face extrapolation / time average)."""
     return torch.tensordot(vec.to(x.dtype), x, dims=([0], [axis]))
+
+
+def _replace_row(x, row, axis, pos):
+    """``x`` with its index ``pos`` along ``axis`` replaced by ``row`` (a
+    size-1 slice), out of place."""
+    g = x.shape[axis]
+    parts = [x.narrow(axis, 0, pos), row, x.narrow(axis, pos + 1, g - pos - 1)]
+    return torch.cat([t for t in parts if t.shape[axis]], dim=axis)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,31 +107,127 @@ def euler_physics(dim: int, n_real: int = 5, gamma: float = euler.GAMMA):
     return flux, eig
 
 
+def sign_reflect(signs):
+    """A wall hook ``fn(Q, axis, var_axis) -> Q · S[axis]`` that multiplies
+    the var axis by row ``axis`` of the sign table ``signs`` (``[dim,
+    n_vars]``; the JAX ``elastic._sign_reflect``).  The table rides along as
+    ``fn.signs`` (float64 NumPy), which is how the CUDA face stage
+    (``models/aderdg_cuda.py``) recognises a hook it can compile in."""
+    table = np.array(signs, dtype=np.float64)
+    if table.ndim != 2:
+        raise SemanticError(f"a sign table is [dim, n_vars], got shape {table.shape}")
+
+    def reflect(Q, axis, var_axis):
+        shape = [1] * Q.dim()
+        shape[var_axis] = table.shape[1]
+        return Q * torch.as_tensor(table[int(axis)], dtype=Q.dtype,
+                                   device=Q.device).reshape(shape)
+
+    reflect.signs = table
+    return reflect
+
+
+def _euler_signs(dim: int, n_vars: int | None, normal: float, other: float):
+    n_vars = dim + 2 if n_vars is None else int(n_vars)
+    table = np.full((dim, n_vars), other)
+    for d in range(dim):
+        table[d, d + 1] = normal  # the normal momentum slot
+    return table
+
+
+def euler_reflect(dim: int, n_vars: int | None = None):
+    """Mirror ghost STATE for Euler walls: negate the normal momentum (the
+    JAX ``euler_reflect``; ``n_vars`` defaults to ``dim + 2``).  A sign
+    table (:func:`sign_reflect`); multiplying by ±1 is exact, so it gives
+    the JAX hook's bits."""
+    return sign_reflect(_euler_signs(dim, n_vars, -1.0, 1.0))
+
+
+def euler_reflect_flux(dim: int, n_vars: int | None = None):
+    """Mirror ghost FLUX for Euler walls, ``F(reflect(q)) = S·F(q)``: −1
+    everywhere but +1 on the normal momentum (the JAX
+    ``euler_reflect_flux``).  Mirroring the time-averaged face flux keeps
+    the wall fluxes of mass and energy exactly zero."""
+    return sign_reflect(_euler_signs(dim, n_vars, 1.0, -1.0))
+
+
+def make_dirichlet_fn(state_fn: Callable, *, dim: int, order: int,
+                      grid_shape: tuple, dx, wall_axes: tuple | None = None,
+                      basis: str = "legendre"):
+    """``dirichlet_fn(axis, side)`` for ``boundary="dirichlet"`` from a
+    coordinate function ``state_fn(*coords) -> var-last state`` (NumPy,
+    evaluated once per wall at the wall-face node positions), the JAX
+    ``make_dirichlet_fn``.  Each row is in face-row convention: the node
+    axes other than ``axis``, the var axis, the grid with ``axis`` cut to
+    1.  The function carries ``.basis`` so the solver refuses rows made
+    for the other basis."""
+    n_nodes = order + 1
+    nodes = np.asarray(DGOperators(order, basis=basis).nodes)
+    dxs = (tuple(float(v) for v in dx) if isinstance(dx, (tuple, list))
+           else (float(dx),) * dim)
+    axes = tuple(range(dim)) if wall_axes is None else tuple(wall_axes)
+    rows = {}
+    for d in axes:
+        for side in (0, 1):
+            no_var = [n_nodes] * (dim - 1) + [
+                1 if e == d else grid_shape[e] for e in range(dim)
+            ]
+            coords = []
+            for e in range(dim):
+                if e == d:
+                    x = np.full(no_var, side * grid_shape[d] * dxs[e])
+                else:
+                    node_pos = e if e < d else e - 1
+                    grid_pos = (dim - 1) + e
+                    c = (nodes[:, None]
+                         + np.arange(grid_shape[e])[None, :]) * dxs[e]
+                    shape = [1] * len(no_var)
+                    shape[node_pos] = n_nodes
+                    shape[grid_pos] = grid_shape[e]
+                    x = np.broadcast_to(c.reshape(shape), no_var)
+                coords.append(x)
+            row = np.asarray(state_fn(*coords))
+            rows[(d, side)] = np.moveaxis(row, -1, dim - 1)
+
+    def dirichlet_fn(axis, side):
+        return rows[(int(axis), int(side))]
+
+    dirichlet_fn.basis = basis
+    return dirichlet_fn
+
+
 #: Options of the JAX ``ADERDGSolver`` the port does not carry yet, with
-#: the value that means "off".  Any other value raises.
+#: the value that means "off" and where ``ROADMAP.md`` lists them.  Any
+#: other value raises.
 UNPORTED_OPTIONS = {
-    "boundary": "periodic",
-    "farfield_state": None,
-    "dirichlet_fn": None,
-    "reflect_fn": None,
-    "reflect_flux_fn": None,
-    "wall_axes": None,
     "visc_flux_fn": None,
     "visc_eigenvalue_fn": None,
     "reuse_last_flux": False,
 }
+_UNPORTED_WHERE = {
+    "visc_flux_fn": "Queue 1 item 3",
+    "visc_eigenvalue_fn": "Queue 1 item 3",
+    "reuse_last_flux": "Queue 1 (not to be ported: measured as a loss)",
+}
+BOUNDARIES = ("periodic", "reflective", "outflow", "farfield", "dirichlet")
 #: Options of the JAX ``ADERDGSolver`` the port carries, by name.
 PORTED_OPTIONS = (
     "predictor_mode", "ck_material_slots", "dissipation_mask",
     "source_fn", "ncp_fn", "rhs_all_fn",
+    "boundary", "farfield_state", "dirichlet_fn", "reflect_fn",
+    "reflect_flux_fn", "wall_axes",
 )
+#: The wall options that are callbacks (a JAX solver's are JAX functions,
+#: which the port cannot call).
+WALL_HOOKS = ("dirichlet_fn", "reflect_fn", "reflect_flux_fn")
 #: The ported options that are physics callbacks (a JAX solver's are JAX
 #: functions, which the port cannot call).
 CALLBACK_OPTIONS = ("source_fn", "ncp_fn", "rhs_all_fn")
 
 
 class ADERDGSolver(nn.Module):
-    """ADER-DG on a periodic Cartesian grid of cells (SoA-P layout).
+    """ADER-DG on a Cartesian grid of cells (SoA-P layout), periodic or
+    closed by domain walls.
 
     The DG operators are float64 NumPy at construction
     (:class:`DGOperators`) and live as buffers in ``dtype`` on ``device``
@@ -135,13 +245,25 @@ class ADERDGSolver(nn.Module):
 
     ``source_fn(Q, var_axis)``, ``ncp_fn(Q, gradQ_d, axis, var_axis)`` and
     ``rhs_all_fn(Q, grads, var_axis)`` keep the JAX solver's contract
-    (periodic Picard path only): the source enters every Picard node and
+    (Picard path only): the source enters every Picard node and
     the corrector as ``dt·s̄``; the NCP enters the predictor per axis, the
     corrector as the strong-form volume term and the faces as the
     path-conservative half-fluctuations ``½·B(q̃)·Δq``; ``rhs_all_fn``
     (``S − Σ_d B_d·∂_d Q`` from the physical gradients) replaces the source
     and per-axis NCP evaluations of the predictor and, with ``ncp_fn``, the
     corrector's volume term.  It receives contiguous tensors.
+
+    ``boundary`` and its options keep the JAX solver's contract and checks:
+    ``"periodic"`` (default), ``"reflective"`` (needs ``reflect_fn`` and
+    ``reflect_flux_fn``, the mirror ghost state and flux, e.g.
+    :func:`euler_reflect` / :func:`euler_reflect_flux`), ``"outflow"``
+    (the ghost is the cell's own face state and flux), ``"farfield"`` (the
+    ghost is the constant ``farfield_state``, its flux F(ghost)) or
+    ``"dirichlet"`` (``dirichlet_fn(axis, side)`` gives the ghost row, see
+    :func:`make_dirichlet_fn`; its flux F(ghost)).  ``wall_axes`` names
+    the grid axes that carry walls (None: all); the others stay periodic.
+    The predictor is boundary-independent: walls only change the face
+    stage (:meth:`face_update`).
     """
 
     def __init__(
@@ -164,6 +286,12 @@ class ADERDGSolver(nn.Module):
         source_fn: Callable | None = None,
         ncp_fn: Callable | None = None,
         rhs_all_fn: Callable | None = None,
+        boundary: str = "periodic",
+        farfield_state: tuple | None = None,
+        dirichlet_fn: Callable | None = None,
+        reflect_fn: Callable | None = None,
+        reflect_flux_fn: Callable | None = None,
+        wall_axes: tuple | None = None,
         **options,
     ):
         super().__init__()
@@ -173,10 +301,11 @@ class ADERDGSolver(nn.Module):
             off = UNPORTED_OPTIONS[name]
             if value is not None if off is None else value != off:
                 raise SemanticError(
-                    f"{name}={value!r} is not ported to exahype_tpu_torch yet "
-                    "(only the periodic flux-form Picard and CK paths are); "
-                    "see ROADMAP.md, Queue 1 item 2"
+                    f"{name}={value!r} is not ported to exahype_tpu_torch yet; "
+                    f"see ROADMAP.md, {_UNPORTED_WHERE[name]}"
                 )
+        for name, off in UNPORTED_OPTIONS.items():
+            setattr(self, name, off)
         if predictor_mode not in ("picard", "ck"):
             raise SemanticError(
                 f"predictor_mode must be 'picard' or 'ck', got {predictor_mode!r}"
@@ -229,6 +358,8 @@ class ADERDGSolver(nn.Module):
         self.source_fn = source_fn
         self.ncp_fn = ncp_fn
         self.rhs_all_fn = rhs_all_fn
+        self._set_walls(boundary, farfield_state, dirichlet_fn, reflect_fn,
+                        reflect_flux_fn, wall_axes)
         self.ops = DGOperators(self.order, basis=basis)
         self.picard_iters = (
             self.order + 1 if picard_iters is None else int(picard_iters)
@@ -273,6 +404,62 @@ class ADERDGSolver(nn.Module):
         self.register_buffer("ck_mask", ck_mask)
         self.register_buffer("dmask", dmask)
 
+    def _set_walls(self, boundary, farfield_state, dirichlet_fn, reflect_fn,
+                   reflect_flux_fn, wall_axes):
+        """The JAX constructor's boundary checks and hook installation
+        (``exahype_tpu/models/aderdg.py:345-455``)."""
+        if boundary not in BOUNDARIES:
+            raise SemanticError(f"unknown boundary {boundary!r}")
+        if boundary == "dirichlet" and dirichlet_fn is None:
+            raise SemanticError(
+                "boundary='dirichlet' requires dirichlet_fn(axis, side)"
+            )
+        if dirichlet_fn is not None:
+            fn_basis = getattr(dirichlet_fn, "basis", None)
+            if fn_basis is not None and fn_basis != self.basis:
+                raise SemanticError(
+                    f"dirichlet_fn was built for basis {fn_basis!r} but the "
+                    f"solver uses {self.basis!r} — pass basis={self.basis!r} "
+                    "to make_dirichlet_fn so wall rows are evaluated at the "
+                    "solver's node positions"
+                )
+        if boundary == "reflective" and (reflect_fn is None or reflect_flux_fn is None):
+            raise SemanticError(
+                "reflective boundary requires reflect_fn and reflect_flux_fn"
+            )
+        if boundary == "outflow":
+            # Zero-gradient ghosts: the ghost state/flux is the cell's own
+            # face state/flux (an all-ones sign table: exact).
+            ones = np.ones((self.dim, self.n_vars))
+            reflect_fn, reflect_flux_fn = sign_reflect(ones), sign_reflect(ones)
+        if boundary == "farfield":
+            if farfield_state is None or len(farfield_state) != self.n_vars:
+                raise SemanticError(
+                    "boundary='farfield' requires farfield_state with one "
+                    f"entry per variable ({self.n_vars})"
+                )
+            farfield_state = tuple(float(v) for v in farfield_state)
+            reflect_fn = self._farfield_ghost
+            reflect_flux_fn = self._farfield_ghost_flux
+        if wall_axes is not None:
+            if boundary == "periodic":
+                raise SemanticError(
+                    "wall_axes requires a wall boundary ('reflective', "
+                    "'outflow', 'farfield', or 'dirichlet')"
+                )
+            wall_axes = tuple(int(d) for d in wall_axes)
+            if not wall_axes or any(d < 0 or d >= self.dim for d in wall_axes):
+                raise SemanticError(
+                    f"wall_axes must be non-empty axes in [0, {self.dim}), "
+                    f"got {wall_axes}"
+                )
+        self.boundary = boundary
+        self.farfield_state = farfield_state
+        self.dirichlet_fn = dirichlet_fn
+        self.reflect_fn = reflect_fn
+        self.reflect_flux_fn = reflect_flux_fn
+        self.wall_axes = wall_axes
+
     # ------------------------------------------------------------ structure
 
     @property
@@ -308,8 +495,49 @@ class ADERDGSolver(nn.Module):
     def grid_axis(self, d: int) -> int:
         return self.dim + 1 + d
 
+    def is_wall(self, d: int) -> bool:
+        """Whether grid axis ``d`` carries a domain wall (axes outside
+        ``wall_axes`` stay periodic)."""
+        return self.boundary != "periodic" and (
+            self.wall_axes is None or d in self.wall_axes
+        )
+
     def dofs(self) -> int:
         return int(np.prod(self.grid_shape)) * self.n_nodes**self.dim * self.n_vars
+
+    # ----------------------------------------------------------- wall ghosts
+
+    def _farfield_ghost(self, Q, axis, var_axis):
+        """The constant farfield state, broadcast to ``Q``'s shape."""
+        shape = [1] * Q.dim()
+        shape[var_axis] = self.n_vars
+        st = torch.as_tensor(self.farfield_state, dtype=Q.dtype, device=Q.device)
+        return st.reshape(shape).expand(Q.shape)
+
+    def _farfield_ghost_flux(self, F, axis, var_axis):
+        return self.flux_fn(self._farfield_ghost(F, axis, var_axis), axis, var_axis)
+
+    def dirichlet_row(self, d: int, side: int, like):
+        """The Dirichlet ghost row of wall ``(d, side)``, in ``like``'s dtype
+        and device, broadcast to ``like``'s face-row shape."""
+        g = torch.as_tensor(np.asarray(self.dirichlet_fn(d, side)), dtype=like.dtype,
+                            device=like.device)
+        return g.expand(like.shape)
+
+    def _wall_ghost(self, row, d: int, side: int, var_axis: int):
+        """Ghost STATE of the wall Riemann problem at ``(axis d, side)``
+        given the interior face row: the reflect hook, or the Dirichlet
+        row."""
+        if self.boundary == "dirichlet":
+            return self.dirichlet_row(d, side, row)
+        return self.reflect_fn(row, d, var_axis)
+
+    def _wall_ghost_flux(self, frow, d: int, side: int, var_axis: int):
+        """Ghost FLUX at the wall: the reflect flux hook on the interior
+        flux, or the flux of the Dirichlet row."""
+        if self.boundary == "dirichlet":
+            return self.flux_fn(self.dirichlet_row(d, side, frow), d, var_axis)
+        return self.reflect_flux_fn(frow, d, var_axis)
 
     # ------------------------------------------------------------- predictor
 
@@ -475,54 +703,109 @@ class ADERDGSolver(nn.Module):
     def face_update(self, new, q_lo, q_hi, f_lo, f_hi, d, dt):
         """Riemann solve + surface (and NCP-fluctuation) corrector update
         for direction ``d`` from face-extrapolated time-averaged state/flux
-        (periodic neighbours).  Returns ``(new, fhat_hi)``: the updated
-        state and the Rusanov flux through each cell's high face, nodal
-        over the transverse node axes (:attr:`face_flux_shape`)."""
+        (periodic neighbours, or the wall ghosts on a wall axis).  Returns
+        ``(new, fhat_hi)``: the updated state and the Rusanov flux through
+        each cell's high face, nodal over the transverse node axes
+        (:attr:`face_flux_shape`; on a wall axis its last row is the
+        high-wall flux)."""
         fhat_hi = self.interface_flux(q_lo, q_hi, f_lo, f_hi, d)
-        new = self.surface_term(new, fhat_hi, d, dt)
+        fhat_wall = self.low_wall_flux(q_lo, f_lo, d)
+        new = self.surface_term(new, fhat_hi, d, dt, fhat_wall)
         if self.ncp_fn is not None:
             # Path-conservative face fluctuations: the central parts
             # ½·B(q̃)·Δq at the segment midpoint q̃ go one to each side (the
-            # ±½sΔq dissipation is already in the Rusanov f̂).
+            # ±½sΔq dissipation is already in the Rusanov f̂).  At a high
+            # wall q_plus is the ghost; the low wall has its own.
             lam = dt / self._dxs[d]
             node_ax = self.node_axis(d)
             face_grid_ax = self.grid_axis(d) - 1
+            face_va = self.var_axis - 1
             phi1_w, phi0_w = self._surface_weights(new, d)
-            q_plus = torch.roll(q_lo, -1, face_grid_ax)
+            q_plus, _ = self._plus(q_lo, q_hi, f_lo, f_hi, d)
             mid = 0.5 * (q_hi + q_plus)
-            half = 0.5 * self.ncp_fn(mid, q_plus - q_hi, d, self.var_axis - 1)
+            half = 0.5 * self.ncp_fn(mid, q_plus - q_hi, d, face_va)
             half_lo = torch.roll(half, 1, face_grid_ax)
+            if self.is_wall(d):
+                first = q_lo.narrow(face_grid_ax, 0, 1)
+                ghost = self._wall_ghost(first, d, 0, face_va)
+                half_w = 0.5 * self.ncp_fn(0.5 * (ghost + first), first - ghost, d, face_va)
+                half_lo = _replace_row(half_lo, half_w, face_grid_ax, 0)
             new = new - lam * (
                 phi1_w * half.unsqueeze(node_ax)
                 + phi0_w * half_lo.unsqueeze(node_ax)
             )
         return new, fhat_hi
 
+    def _plus(self, q_lo, q_hi, f_lo, f_hi, d):
+        """The right state and flux of each cell's high face: the +d
+        neighbour's low face (periodic), and on a wall axis the high-wall
+        ghost of my own high face in the last row."""
+        face_grid_ax = self.grid_axis(d) - 1
+        q_plus = torch.roll(q_lo, -1, face_grid_ax)
+        f_plus = torch.roll(f_lo, -1, face_grid_ax)
+        if self.is_wall(d):
+            face_va = self.var_axis - 1
+            g = q_hi.shape[face_grid_ax]
+            last = q_hi.narrow(face_grid_ax, g - 1, 1)
+            f_last = f_hi.narrow(face_grid_ax, g - 1, 1)
+            q_plus = _replace_row(q_plus, self._wall_ghost(last, d, 1, face_va),
+                                  face_grid_ax, g - 1)
+            f_plus = _replace_row(f_plus, self._wall_ghost_flux(f_last, d, 1, face_va),
+                                  face_grid_ax, g - 1)
+        return q_plus, f_plus
+
+    def _masked(self, dq):
+        if self.dmask is not None:
+            return dq * self.dmask.to(dq.dtype)
+        return dq
+
     def interface_flux(self, q_lo, q_hi, f_lo, f_hi, d):
         """The Rusanov flux through each cell's high face along ``d``
         (:attr:`face_flux_shape`; the plain version of the
         ``aderdg_face_flux`` kernel, one axis): left state my high face,
-        right state the +d neighbour's low face."""
-        face_grid_ax = self.grid_axis(d) - 1
+        right state the +d neighbour's low face, or the high-wall ghost."""
         face_va = self.var_axis - 1
-        q_plus = torch.roll(q_lo, -1, face_grid_ax)
-        f_plus = torch.roll(f_lo, -1, face_grid_ax)
+        q_plus, f_plus = self._plus(q_lo, q_hi, f_lo, f_hi, d)
         s_hi = torch.maximum(
             self.max_eigenvalue_fn(q_hi, d, face_va),
             self.max_eigenvalue_fn(q_plus, d, face_va),
         ).unsqueeze(face_va)
-        dq = q_plus - q_hi
-        if self.dmask is not None:
-            dq = dq * self.dmask.to(dq.dtype)
+        dq = self._masked(q_plus - q_hi)
         return 0.5 * (f_hi + f_plus) - 0.5 * s_hi * dq
 
-    def surface_term(self, new, fhat_hi, d, dt):
+    def low_wall_flux(self, q_lo, f_lo, d):
+        """The Rusanov flux through the low wall of axis ``d`` (the first
+        row's low faces; ghost on the left, my own low face on the right,
+        the jump masked like the interior's), shaped like one row of
+        :attr:`face_flux_shape` (axis ``d`` of the grid cut to 1): the
+        plain version of the face kernel's side output.  None if ``d``
+        carries no wall."""
+        if not self.is_wall(d):
+            return None
+        face_grid_ax = self.grid_axis(d) - 1
+        face_va = self.var_axis - 1
+        first = q_lo.narrow(face_grid_ax, 0, 1)
+        f_first = f_lo.narrow(face_grid_ax, 0, 1)
+        ghost = self._wall_ghost(first, d, 0, face_va)
+        s_w = torch.maximum(
+            self.max_eigenvalue_fn(first, d, face_va),
+            self.max_eigenvalue_fn(ghost, d, face_va),
+        ).unsqueeze(face_va)
+        dq_w = self._masked(first - ghost)
+        return 0.5 * (self._wall_ghost_flux(f_first, d, 0, face_va) + f_first) - (
+            0.5 * s_w * dq_w)
+
+    def surface_term(self, new, fhat_hi, d, dt, fhat_wall=None):
         """``new − (λ/w_i)(ℓ_i(1) F̂_hi − ℓ_i(0) F̂_lo)`` along ``d``, F̂_lo
-        being the −d neighbour's F̂_hi (the plain version of the
+        being the −d neighbour's F̂_hi, or in the first row ``fhat_wall``
+        (:meth:`low_wall_flux`) where given (the plain version of the
         ``aderdg_surface_update`` kernel, one axis)."""
         lam = dt / self._dxs[d]
         node_ax = self.node_axis(d)
-        fhat_lo = torch.roll(fhat_hi, 1, self.grid_axis(d) - 1)
+        face_grid_ax = self.grid_axis(d) - 1
+        fhat_lo = torch.roll(fhat_hi, 1, face_grid_ax)
+        if fhat_wall is not None:
+            fhat_lo = _replace_row(fhat_lo, fhat_wall, face_grid_ax, 0)
         phi1_w, phi0_w = self._surface_weights(new, d)
         return new - lam * (
             phi1_w * fhat_hi.unsqueeze(node_ax)

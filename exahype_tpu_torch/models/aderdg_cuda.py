@@ -1,11 +1,11 @@
 """ADER-DG step through hand-written CUDA kernels (Hopper, ``sm_90a``).
 
 Port of ``exahype_tpu/models/aderdg_pallas.py::PallasADERDG`` on the
-periodic, flux-form path at order 3 in 3-D, for two physics: compressible
-Euler on the Picard predictor (``bench.py::main``) and heterogeneous
-elasticity on the Cauchy–Kovalewski predictor with its materials frozen
-(``bench.py::bench_ck``).  The step is three launches of kernels from
-``csrc/aderdg.cu`` (see the note there for the design):
+flux-form path at order 3 in 3-D, periodic or with domain walls, for two
+physics: compressible Euler on the Picard predictor (``bench.py::main``)
+and heterogeneous elasticity on the Cauchy–Kovalewski predictor with its
+materials frozen (``bench.py::bench_ck``).  The step is three launches of
+kernels from ``csrc/aderdg.cu`` (see the note there for the design):
 
 - ``aderdg_predictor_volume`` (Picard) or ``aderdg_ck_predictor_volume``
   (CK): predictor, time averages, volume integral and the face projections
@@ -16,6 +16,15 @@ elasticity on the Cauchy–Kovalewski predictor with its materials frozen
   also the limiter's input (the Pallas kernel's ``emit_fused_fhat``
   outputs); ``aderdg_surface_update`` then updates ``new`` in place (on the
   CPU too) from each cell's own and its lower neighbours' entries.
+
+With walls (``solver.boundary`` not periodic) the face stage is its wall
+variant, ``aderdg_face_flux_walls`` + ``aderdg_surface_update_walls``:
+:attr:`CudaADERDG.walls` describes the walls to it (the
+axes, the mode, the sign tables read off the reflect hooks, the farfield
+state, the Dirichlet rows in the kernel's face layout), and the low-wall
+fluxes go through a side tensor (:meth:`CudaADERDG.face_flux`).  A reflect
+hook without a sign table (an arbitrary callback) raises
+:class:`LoweringError`; the plain solver still runs it.
 
 Each wrapper takes its plain PyTorch version
 (``ADERDGSolver.predictor_volume`` / ``face_surface``) for a tensor on the
@@ -34,7 +43,7 @@ import torch
 
 from exahype_tpu_torch import _build
 from exahype_tpu_torch.models import elastic
-from exahype_tpu_torch.models.aderdg import CALLBACK_OPTIONS, ADERDGSolver
+from exahype_tpu_torch.models.aderdg import CALLBACK_OPTIONS, UNPORTED_OPTIONS, ADERDGSolver
 from exahype_tpu_torch.utils.errors import LoweringError
 
 #: (physics, dim, order) -> the predictor mode the kernels are instantiated
@@ -49,6 +58,11 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 def _n_vars(name: str, dim: int) -> int:
     return dim + 2 if name == "euler" else elastic.N_VARS_3D_HET
 
+
+#: The wall modes of the C interface (``csrc/aderdg.cu``): a sign table
+#: times my own face (reflective hooks with ``.signs``; outflow, whose hooks
+#: are the all-ones table), the farfield state, the Dirichlet rows.
+_WALL_MODES = {"reflective": 0, "outflow": 0, "farfield": 1, "dirichlet": 2}
 
 #: What each physics compiles into the kernels: its id in the C interface,
 #: and the CK material slots and dissipation mask a solver must carry.
@@ -69,7 +83,7 @@ class CudaADERDG:
 
     KERNELS = (
         "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
-        "aderdg_surface_update",
+        "aderdg_surface_update", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
     )
 
     def __init__(self, solver: ADERDGSolver):
@@ -79,6 +93,12 @@ class CudaADERDG:
                     f"the CUDA step kernels take flux-form physics only, and "
                     f"{option} is set (a fused rhs_all_fn runs on the card "
                     "through models.rhs_cuda.with_cuda_rhs)"
+                )
+        for option, off in UNPORTED_OPTIONS.items():
+            if getattr(solver, option, off) != off:
+                raise LoweringError(
+                    f"the CUDA kernels carry no viscous terms or reused fluxes, and "
+                    f"{option} is set (see ROADMAP.md, Queue 2 K1 b)"
                 )
         tags = {
             getattr(solver.flux_fn, "physics", None),
@@ -122,10 +142,16 @@ class CudaADERDG:
         # materials, the last rows (the kernels' Phys::kFluxRows).
         self._flux_rows = min(physics["ck_material_slots"] or (n_vars,))
         self._params = np.ascontiguousarray(tag.params or (0.0,), dtype=np.float64)
-        #: The kernels of this solver's step: its predictor and the face stage.
+        #: The walls as the face kernels take them (None: periodic).
+        self.walls = self._wall_description(solver) if any(
+            solver.is_wall(d) for d in range(solver.dim)) else None
+        self._rows = {}  # the Dirichlet rows by dtype
+        #: The kernels of this solver's step: its predictor and the face
+        #: stage (its wall variant on a grid with walls).
+        suffix = "" if self.walls is None else "_walls"
         self.kernels = (
             "aderdg_ck_predictor_volume" if mode == "ck" else "aderdg_predictor_volume",
-            "aderdg_face_flux", "aderdg_surface_update",
+            f"aderdg_face_flux{suffix}", f"aderdg_surface_update{suffix}",
         )
         #: Launches per kernel since construction (or the last reset).
         self.launches = {name: 0 for name in self.kernels}
@@ -135,6 +161,82 @@ class CudaADERDG:
             ops.phi0, ops.phi1, ops.phi0 / ops.weights, ops.phi1 / ops.weights,
         ]), dtype=np.float64)
         self._dx = np.ascontiguousarray(solver._dxs, dtype=np.float64)
+
+    def _wall_description(self, sol) -> dict:
+        """``mask`` (bit d: axis d walled), ``mode``, ``table`` (float64
+        [S_q (3, V), S_f (3, V), farfield (V)]), ``off`` (int64, each wall
+        axis's block in the side tensor), ``size`` (its elements), ``planes``
+        (each axis's face-row shape: the other node axes, V, the grid with
+        the axis cut to 1) and ``rows`` (Dirichlet: both sides' rows, float64, in the side
+        tensor's layout, on the solver's device; else None)."""
+        n_vars, dim = sol.n_vars, sol.dim
+        axes = [d for d in range(dim) if sol.is_wall(d)]
+        sq = sf = np.zeros((dim, n_vars))
+        far = np.zeros(n_vars)
+        if sol.boundary in ("reflective", "outflow"):
+            tables = []
+            for hook in (sol.reflect_fn, sol.reflect_flux_fn):
+                signs = getattr(hook, "signs", None)
+                if signs is None or np.shape(signs) != (dim, n_vars):
+                    raise LoweringError(
+                        "the CUDA face stage compiles in a reflect hook as a sign table "
+                        f"[dim, n_vars] (its .signs, as models.aderdg.sign_reflect makes), "
+                        f"and {getattr(hook, '__name__', hook)!r} has none; the plain "
+                        "solver runs any hook"
+                    )
+                tables.append(np.asarray(signs, dtype=np.float64))
+            sq, sf = tables
+        if sol.boundary == "farfield":
+            far = np.asarray(sol.farfield_state, dtype=np.float64)
+        planes = {
+            d: (sol.n_nodes,) * (dim - 1) + (n_vars,)
+            + tuple(1 if e == d else g for e, g in enumerate(sol.grid_shape))
+            for d in axes
+        }
+        off, size = np.zeros(3, dtype=np.int64), 0
+        for d in axes:
+            off[d] = size
+            size += int(np.prod(planes[d]))
+        rows = None
+        if sol.boundary == "dirichlet":
+            device = sol.weights.device
+            rows = torch.cat([
+                sol.dirichlet_row(d, side, torch.empty(
+                    planes[d], dtype=torch.float64, device=device)).reshape(-1)
+                for side in (0, 1) for d in axes
+            ])
+        return {
+            "mask": sum(1 << d for d in axes),
+            "mode": _WALL_MODES[sol.boundary],
+            "table": np.ascontiguousarray(np.concatenate([sq.ravel(), sf.ravel(), far])),
+            "off": off,
+            "size": size,
+            "planes": planes,
+            "rows": rows,
+        }
+
+    def _wall_args(self, like):
+        """The walled face flux kernel's wall arguments for a launch in
+        ``like``'s dtype: ``(mask, mode, table, rows pointer, off, side
+        stride)``."""
+        w = self.walls
+        rows = None
+        if w["rows"] is not None:
+            if like.dtype not in self._rows:
+                self._rows[like.dtype] = w["rows"].to(device=like.device, dtype=like.dtype)
+            rows = self._rows[like.dtype].data_ptr()
+        return (w["mask"], w["mode"], w["table"].ctypes.data, rows, w["off"].ctypes.data,
+                w["size"])
+
+    def wall_fluxes(self, fwall) -> dict:
+        """Each wall axis's low-wall fluxes in the side tensor ``fwall`` of
+        :meth:`face_flux`, as views shaped like one face row (the plain
+        version is ``ADERDGSolver.low_wall_flux``)."""
+        w = self.walls
+        return {
+            d: fwall[w["off"][d]:w["off"][d] + int(np.prod(shape))].view(shape)
+            for d, shape in w["planes"].items()
+        }
 
     # ---------------------------------------------------------------- checks
 
@@ -187,27 +289,32 @@ class CudaADERDG:
     def face_surface(self, new, faces, dt, return_face_fluxes: bool = False):
         """Surface update of ``new`` from ``faces``, in place on either
         device; returns ``new``, and with ``return_face_fluxes`` also the
-        per-axis high-face fluxes (``solver.face_flux_shape`` each)."""
+        per-axis high-face fluxes (``solver.face_flux_shape`` each; on a
+        wall axis the last row holds the high-wall flux)."""
         sol = self.solver
         if not new.is_cuda:
             out = sol.face_surface(new, faces, dt, return_face_fluxes)
             if return_face_fluxes:
                 return new.copy_(out[0]), out[1]
             return new.copy_(out)
-        fhat = self.face_flux(faces)
-        self.surface_update(new, fhat, dt)
+        fhat, fwall = self.face_flux(faces)
+        self.surface_update(new, fhat, dt, fwall)
         if return_face_fluxes:
             fhat[:, :, self._flux_rows:].zero_()  # the unwritten rows; none for Euler
             return new, [fhat[d].view(sol.face_flux_shape) for d in range(sol.dim)]
         return new
 
     def face_flux(self, faces):
-        """The face stage's first launch (CUDA tensors only): every
-        interface's Rusanov flux, ``[dim, n^(dim-1), n_vars, *grid]``, each
-        cell's high-face fluxes.  The rows that are zero by construction
-        (the elasticity's frozen materials, from its first material slot
-        on) are not written: :meth:`surface_update` never reads them, and
-        :meth:`face_surface` zeroes them when it returns the fluxes."""
+        """The face stage's first launch (CUDA tensors only): ``(fhat,
+        fwall)``.  ``fhat``, ``[dim, n^(dim-1), n_vars, *grid]``, is every
+        interface's Rusanov flux, each cell's high-face fluxes (on a wall
+        axis the last row's is the high-wall flux).  ``fwall`` is None
+        without walls, else the side tensor of the low-wall fluxes
+        (:meth:`wall_fluxes` views it by axis).  The rows that are zero by
+        construction (the elasticity's frozen materials, from its first
+        material slot on) are not written: :meth:`surface_update` never
+        reads them, and :meth:`face_surface` zeroes them when it returns
+        the fluxes (``fwall`` is allocated zeroed for such a physics)."""
         sol = self.solver
         if not faces.is_cuda:
             raise LoweringError("face_flux launches a CUDA kernel: faces must be on the card")
@@ -216,22 +323,28 @@ class CudaADERDG:
             (sol.dim, sol.n_nodes ** (sol.dim - 1), sol.n_vars) + sol.grid_shape,
             dtype=faces.dtype, device=faces.device,
         )
+        args = (faces.data_ptr(), fhat.data_ptr(), self._ops.ctypes.data,
+                self._dx.ctypes.data, sol.order, self._physics_id,
+                self._params.ctypes.data, *sol.grid_shape)
+        fwall = None
+        if self.walls is not None:
+            alloc = torch.zeros if self._flux_rows < sol.n_vars else torch.empty
+            fwall = alloc(self.walls["size"], dtype=faces.dtype, device=faces.device)
+            mask, mode, table, rows, off, side = self._wall_args(faces)
+            args += (mask, mode, table, rows, fwall.data_ptr(), off, side)
+        name = self.kernels[1]
         lib = _build.library()
         with torch.cuda.device(faces.device):
             stream = torch.cuda.current_stream(faces.device).cuda_stream
-            err = getattr(lib, f"exahype_aderdg_face_flux_{_SUFFIX[faces.dtype]}")(
-                faces.data_ptr(), fhat.data_ptr(), self._ops.ctypes.data,
-                self._dx.ctypes.data, sol.order, self._physics_id,
-                self._params.ctypes.data, *sol.grid_shape, stream,
-            )
-        _build.check(lib, err, "aderdg_face_flux")
-        self.launches["aderdg_face_flux"] += 1
-        return fhat
+            err = getattr(lib, f"exahype_{name}_{_SUFFIX[faces.dtype]}")(*args, stream)
+        _build.check(lib, err, name)
+        self.launches[name] += 1
+        return fhat, fwall
 
-    def surface_update(self, new, fhat, dt):
+    def surface_update(self, new, fhat, dt, fwall=None):
         """The face stage's second launch (CUDA tensors only): the surface
-        update of ``new`` from :meth:`face_flux`'s ``fhat``, in place;
-        returns ``new``."""
+        update of ``new`` from :meth:`face_flux`'s ``fhat`` (and, with walls,
+        its ``fwall``), in place; returns ``new``."""
         sol = self.solver
         if not new.is_cuda:
             raise LoweringError("surface_update launches a CUDA kernel: new must be on the card")
@@ -241,16 +354,25 @@ class CudaADERDG:
         if fhat.dtype != new.dtype or fhat.device != new.device:
             raise LoweringError("faces must match new's dtype and device")
         dt_dev, dt_ptr, dt_val = self._dt_args(dt, new)
+        args = (new.data_ptr(), fhat.data_ptr(), dt_ptr, dt_val, self._ops.ctypes.data,
+                self._dx.ctypes.data, sol.order, self._physics_id,
+                self._params.ctypes.data, *sol.grid_shape)
+        if self.walls is not None:
+            if fwall is None:
+                raise LoweringError("a walled solver's update needs face_flux's fwall")
+            self._check(fwall, (self.walls["size"],), "fwall")
+            if fwall.dtype != new.dtype or fwall.device != new.device:
+                raise LoweringError("fwall must match new's dtype and device")
+            args += (self.walls["mask"], fwall.data_ptr(), self.walls["off"].ctypes.data)
+        elif fwall is not None:
+            raise LoweringError("fwall given, but the solver has no walls")
+        name = self.kernels[2]
         lib = _build.library()
         with torch.cuda.device(new.device):
             stream = torch.cuda.current_stream(new.device).cuda_stream
-            err = getattr(lib, f"exahype_aderdg_surface_update_{_SUFFIX[new.dtype]}")(
-                new.data_ptr(), fhat.data_ptr(), dt_ptr, dt_val, self._ops.ctypes.data,
-                self._dx.ctypes.data, sol.order, self._physics_id,
-                self._params.ctypes.data, *sol.grid_shape, stream,
-            )
-        _build.check(lib, err, "aderdg_surface_update")
-        self.launches["aderdg_surface_update"] += 1
+            err = getattr(lib, f"exahype_{name}_{_SUFFIX[new.dtype]}")(*args, stream)
+        _build.check(lib, err, name)
+        self.launches[name] += 1
         return new
 
     def kernel_info(self, name: str, dtype) -> dict:

@@ -2,7 +2,8 @@
 
 Port of the 12-variable system of ``exahype_tpu/models/elastic.py``
 (``_SIG``/``_sig_idx``, ``N_VARS_3D_HET``, ``elastic3d_het_flux``,
-``elastic3d_het_eigenvalue``, ``elastic3d_heterogeneous``), the production
+``elastic3d_het_eigenvalue``, ``elastic3d_heterogeneous``,
+``elastic3d_free_surface_het``), the production
 ExaSeis shape: ``Q = [v_x, v_y, v_z, σ_xx, σ_yy, σ_zz, σ_yz, σ_xz, σ_xy, ρ,
 λ, μ]`` (Voigt stress ordering) with per-cell materials as frozen variables.
 The JAX pair is var-last and reaches the solver through ``wrap_var_last``;
@@ -23,7 +24,7 @@ import math
 import numpy as np
 import torch
 
-from exahype_tpu_torch.models.aderdg import PhysicsTag
+from exahype_tpu_torch.models.aderdg import PhysicsTag, sign_reflect
 
 N_VARS_3D_HET = 12
 #: The frozen material slots (ρ, λ, μ) and the dissipation mask the CK
@@ -94,6 +95,23 @@ def elastic3d_heterogeneous():
     flux.physics = tag
     eig.physics = tag
     return flux, eig
+
+
+def elastic3d_free_surface_het():
+    """Traction-free wall hooks ``(reflect_fn, reflect_flux_fn)`` for the
+    12-variable system (the JAX ``elastic3d_free_surface_het``): per wall
+    axis n the state ghost negates the three σ_in rows, the flux ghost the
+    velocity (traction) rows; the frozen materials mirror evenly.  Sign
+    tables (:func:`~exahype_tpu_torch.models.aderdg.sign_reflect`), which
+    the CUDA face stage compiles in."""
+    state_signs = []
+    for n in range(3):
+        s = [1.0] * N_VARS_3D_HET
+        for i in range(3):
+            s[_sig_idx(i, n)] = -1.0
+        state_signs.append(s)
+    flux_signs = [[-1.0] * 3 + [1.0] * 6 + [1.0] * 3 for _ in range(3)]
+    return sign_reflect(state_signs), sign_reflect(flux_signs)
 
 
 def plane_p_wave_3d(x, t, *, rho: float = 1.0, lam: float = 2.0,

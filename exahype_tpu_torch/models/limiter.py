@@ -153,6 +153,13 @@ class LimitedADERDG(nn.Module):
                 "is not ported to exahype_tpu_torch yet; see ROADMAP.md, Queue 1 "
                 "item 5"
             )
+        if any(solver.is_wall(d) for d in range(solver.dim)):
+            # The subcell fallback's ghosts are periodic: a walled solver
+            # would get a wrong answer, not an error.
+            raise SemanticError(
+                f"the limiter over a walled solver (boundary={solver.boundary!r}) is "
+                "not ported to exahype_tpu_torch yet; see ROADMAP.md, Queue 1 item 9"
+            )
         if accelerator is not None and accelerator.solver is not solver:
             raise ValueError("accelerator must wrap the limiter's own base solver")
         device = resolve_device(device)

@@ -11,6 +11,7 @@ The kernels themselves are held against these plain versions on the card
 in ``tests/test_torch_cuda.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -205,6 +206,11 @@ def test_step_does_not_mutate_input():
 )
 def test_unported_options_raise(option, value):
     flux, eig = euler_physics(3)
+    if option in ("boundary", "wall_axes"):
+        # Ported with the walls: accepted, the JAX step, and the kernels.
+        walls = {option: value} if option == "boundary" else {"boundary": "outflow", option: value}
+        _assert_walls_match_jax(walls)
+        return
     if option in CARRIED_BY_THE_PLAIN_SOLVER:
         solver = ADERDGSolver(3, 3, 5, (2, 2, 2), flux, eig, device="cpu", **{option: value})
         assert getattr(solver, option) is not None
@@ -213,6 +219,27 @@ def test_unported_options_raise(option, value):
         return
     with pytest.raises(SemanticError, match="ROADMAP.md"):
         ADERDGSolver(3, 3, 5, (2, 2, 2), flux, eig, device="cpu", **{option: value})
+
+
+def _assert_walls_match_jax(walls):
+    """A 3-D p3 Euler solver with ``walls`` crosses from JAX, matches its
+    step at 1e-12 and lowers to the CUDA kernels."""
+    from exahype_tpu.models.aderdg import euler_reflect, euler_reflect_flux
+
+    jflux, jeig = jax_euler_physics(dim=3, n_real=5)
+    hooks = {}
+    if walls["boundary"] == "reflective":
+        hooks = dict(reflect_fn=euler_reflect(3), reflect_flux_fn=euler_reflect_flux(3))
+    js = JaxSolver(dim=3, order=3, n_vars=5, grid_shape=(4, 2, 4), flux_fn=jflux,
+                   max_eigenvalue_fn=jeig, dx=0.25, **walls, **hooks)
+    ts = aderdg_from_jax(js, gamma=GAMMA, device="cpu",
+                         walls="euler" if hooks else None)
+    assert [ts.is_wall(d) for d in range(3)] == [js.is_wall(d) for d in range(3)]
+    Q = bench_state(js, seed=5)
+    ref = np.asarray(jax.jit(lambda q: js.step(q, 2e-3))(jnp.asarray(Q)))
+    got = state_to_numpy(ts.step(state_from_numpy(Q, device="cpu"), 2e-3))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+    assert CudaADERDG(ts).walls["mask"] == sum(1 << d for d in range(3) if ts.is_wall(d))
 
 
 #: Options the plain solver carries since the CK slice

@@ -206,8 +206,30 @@ def _noop_source(q, va):
     ids=["source", "ncp", "rhs_all", "reflective", "free_surface_axis", "viscous"],
 )
 def test_unported_ck_combinations_raise(options):
+    if "boundary" in options:
+        # Ported with the walls: the CK free surface (reflective with the
+        # free-surface hooks) and an outflow axis, accepted, the JAX step, and
+        # the kernels.
+        _assert_ck_walls_match_jax(options)
+        return
     with pytest.raises(SemanticError, match="ROADMAP.md"):
         port_ck_solver(3, (2, 2, 2), **options)
+
+
+def _assert_ck_walls_match_jax(walls):
+    hooks, named = {}, None
+    if walls["boundary"] == "reflective":
+        refl, refl_flux = jel.elastic3d_free_surface_het()
+        hooks, named = dict(reflect_fn=refl, reflect_flux_fn=refl_flux), (
+            "elastic3d_het_free_surface")
+    js = jax_ck_solver(3, (4, 2, 4), **walls, **hooks)
+    ts = aderdg_from_jax(js, physics="elastic3d_het", walls=named, device="cpu")
+    Q = random_state(ts, seed=9)
+    ref = np.asarray(js.step(jnp.asarray(Q), DT))
+    got = state_to_numpy(ts.step(state_from_numpy(Q, device="cpu"), DT))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(got[MAT], Q[MAT])
+    assert CudaADERDG(ts).walls is not None
 
 
 @pytest.mark.parametrize(

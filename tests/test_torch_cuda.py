@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 Picard predictor and the two-launch face stage of ``csrc/aderdg.cu`` (with
 its face-flux output), the CK predictor (K2) and the face stage's elastic
-variant, both at the edges of their tilings, the
+variant, both at the edges of their tilings, the face stage's wall variant
+in every mode (Euler) and on the CK free surface, the
 limiter's subcell sweep (K3, ``csrc/subcell.cu``) alone and under
 ``LimitedADERDG``, the spec kernel (K4) that ``CudaPrinter`` generates,
 alone and under ``GridSolver``, and the fused Z4 right-hand side (K5,
@@ -27,6 +28,7 @@ import torch
 
 from exahype_tpu_torch.models.aderdg import ADERDGSolver, euler_physics
 from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+from exahype_tpu_torch.utils.errors import LoweringError
 
 torch.set_num_threads(1)
 
@@ -50,10 +52,10 @@ def _err(a, b):
     return (a.double() - b.double()).abs().max().item()
 
 
-def _setup(grid, dtype, dx=DX):
+def _setup(grid, dtype, dx=DX, **walls):
     dev = _card()
     flux, eig = euler_physics(3)
-    sol = ADERDGSolver(3, 3, 5, grid, flux, eig, dx=dx, device=dev, dtype=dtype)
+    sol = ADERDGSolver(3, 3, 5, grid, flux, eig, dx=dx, device=dev, dtype=dtype, **walls)
     rng = np.random.default_rng(0)
     rho = 1.0 + 0.2 * rng.random((4, 4, 4) + grid)
     q = np.stack([rho, rho, 0.5 * rho, 0.25 * rho, 5.0 + 0.5 * rho * 1.3125], axis=3)
@@ -132,7 +134,7 @@ def test_face_kernel_face_fluxes_match_plain(dtype, grid):
 # ------------------------------------------------ K2: the CK predictor
 
 
-def _ck_setup(grid, dtype):
+def _ck_setup(grid, dtype, **walls):
     """``bench.py::bench_ck``'s solver and initial state at ``grid``."""
     from exahype_tpu_torch.models.elastic import (
         DISSIPATION_MASK,
@@ -145,7 +147,7 @@ def _ck_setup(grid, dtype):
     flux, eig = elastic3d_heterogeneous()
     sol = ADERDGSolver(3, 3, 12, grid, flux, eig, dx=1.0 / grid[0], device=dev, dtype=dtype,
                        predictor_mode="ck", ck_material_slots=MATERIAL_SLOTS,
-                       dissipation_mask=DISSIPATION_MASK)
+                       dissipation_mask=DISSIPATION_MASK, **walls)
     q, _ = two_layer_state(sol)
     return sol, CudaADERDG(sol), torch.from_numpy(q).to(dev, dtype).contiguous()
 
@@ -272,6 +274,137 @@ def test_kernel_info_reports_each_launch_shape(physics):
             info = cu.kernel_info(name, dtype)
             assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, (name, info)
             assert info["threads"] % 32 == 0, (name, info)
+
+
+# ------------------------------------------------ the face stage's walls
+
+
+def _smooth_euler(*x):
+    """A smooth Euler state (var last) for Dirichlet rows that vary on
+    every face."""
+    rho = 1.0 + 0.2 * np.sin(2 * np.pi * x[0]) * np.cos(np.pi * x[2])
+    vel = [0.3 + 0.1 * np.cos(2 * np.pi * x[d]) for d in range(3)]
+    p = 2.0 + 0.1 * np.sin(np.pi * x[1])
+    e = p / 0.4 + 0.5 * rho * sum(v * v for v in vel)
+    return np.stack([rho] + [rho * v for v in vel] + [e], axis=-1)
+
+
+def _euler_walls(name, grid, dx=DX):
+    """The walls of each mode, as ``chip_smoke.py``'s walls path sets them."""
+    from exahype_tpu_torch.models.aderdg import (
+        euler_reflect,
+        euler_reflect_flux,
+        make_dirichlet_fn,
+    )
+
+    mirror = dict(reflect_fn=euler_reflect(3), reflect_flux_fn=euler_reflect_flux(3))
+    farfield = (1.0, 2.0, 0.0, 0.0, 1.0 / 0.4 + 2.0)
+    return {
+        "reflective": dict(boundary="reflective", **mirror),
+        "reflective_12": dict(boundary="reflective", wall_axes=(1, 2), **mirror),
+        "outflow_0": dict(boundary="outflow", wall_axes=(0,)),
+        "farfield_0": dict(boundary="farfield", farfield_state=farfield, wall_axes=(0,)),
+        "dirichlet": dict(boundary="dirichlet", dirichlet_fn=make_dirichlet_fn(
+            _smooth_euler, dim=3, order=3, grid_shape=grid, dx=dx)),
+    }[name]
+
+
+WALL_NAMES = ["reflective", "reflective_12", "outflow_0", "farfield_0", "dirichlet"]
+#: (8, 4, 8): axis 2 is not a multiple of the 32-cell tile, so the ragged
+#: tile's guard meets the walls; (3, 5, 7): odd extents.
+WALL_CASES = [
+    (torch.float64, (8, 4, 8)),
+    (torch.float64, (3, 5, 7)),
+    (torch.float32, (8, 4, 8)),
+]
+
+
+def _walled_face_stage_close(sol, cu, u, dt, dtype, close):
+    """Each launch of the walled face stage and the stage against plain."""
+    new, faces = sol.predictor_volume(u, dt)
+    fhat_k, fwall_k = cu.face_flux(faces)
+    fshape = sol.face_flux_shape
+    rows = cu._flux_rows
+    plain = {}
+    for d in range(3):
+        q_lo, q_hi, f_lo, f_hi = (faces[d, k].reshape(fshape) for k in range(4))
+        close(fhat_k[d].view(fshape)[:, :, :rows], sol.interface_flux(q_lo, q_hi, f_lo, f_hi, d)
+              [:, :, :rows])
+        if sol.is_wall(d):
+            plain[d] = sol.low_wall_flux(q_lo, f_lo, d)
+            close(cu.wall_fluxes(fwall_k)[d], plain[d])
+    assert set(plain) == {d for d in range(3) if sol.is_wall(d)}
+    out_k = cu.surface_update(new.clone(), fhat_k, dt, fwall_k)
+    out_p = sol.face_surface(new, faces, dt)
+    close(out_k, out_p)
+    stage_k, fl_k = cu.face_surface(new.clone(), faces, dt, return_face_fluxes=True)
+    _, fl_p = sol.face_surface(new, faces, dt, return_face_fluxes=True)
+    assert torch.equal(stage_k, out_k)
+    for a, b in zip(fl_k, fl_p):
+        assert a.shape == b.shape == sol.face_flux_shape
+        assert _err(a, b) <= _bound(b, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", WALL_CASES)
+@pytest.mark.parametrize("name", WALL_NAMES)
+def test_walled_face_stage_matches_plain(name, dtype, grid):
+    """The face stage's wall variant, launch by launch and as a step, in
+    every mode (Euler), against the plain solver's ``face_update``."""
+    sol, cu, u = _setup(grid, dtype, **_euler_walls(name, grid))
+
+    def close(got, ref):
+        assert _err(got, ref) <= _bound(ref, dtype)
+
+    _walled_face_stage_close(sol, cu, u, DT, dtype, close)
+    ref = sol.run(u, 3, DT)
+    by_value = cu.run(u, 3, DT)
+    by_pointer = cu.run(u, 3, torch.tensor(DT, dtype=dtype, device=u.device))
+    torch.cuda.synchronize()
+    assert _err(by_value, ref) <= (1 if dtype == torch.float64 else 3) * _bound(ref, dtype)
+    assert torch.equal(by_value, by_pointer)
+    assert cu.launches["aderdg_predictor_volume"] == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", CK_CASES)
+def test_elastic_free_surface_kernels_match_plain(dtype, grid):
+    """The CK free surface (``wall_axes=(2,)``): the walled face stage and 3
+    steps against plain, the materials bitwise frozen."""
+    from exahype_tpu_torch.models.elastic import elastic3d_free_surface_het
+
+    refl, refl_flux = elastic3d_free_surface_het()
+    sol, cu, u = _ck_setup(grid, dtype, boundary="reflective", reflect_fn=refl,
+                           reflect_flux_fn=refl_flux, wall_axes=(2,))
+    def close(got, ref):
+        if got.dim() == 7:  # states
+            _ck_err(got, ref, dtype)
+        else:  # face rows (var axis 2): the evolved rows
+            g, r = got.narrow(2, 0, 9), ref.narrow(2, 0, 9)
+            assert _err(g, r) <= _bound(r, dtype)
+
+    _walled_face_stage_close(sol, cu, u, CK_DT, dtype, close)
+    ref = sol.run(u, 3, CK_DT)
+    got = cu.run(u, 3, CK_DT)
+    torch.cuda.synchronize()
+    rounds = 1 if dtype == torch.float64 else 3
+    for lo, n in ((0, 9), (9, 3)):
+        assert _err(got.narrow(3, lo, n), ref.narrow(3, lo, n)) <= rounds * _bound(
+            ref.narrow(3, lo, n), dtype)
+    assert torch.equal(got[:, :, :, 9:], u[:, :, :, 9:])  # bitwise frozen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", WALL_NAMES)
+def test_walled_kernel_info_and_refusals(name):
+    sol, cu, u = _setup((2, 2, 4), torch.float64, **_euler_walls(name, (2, 2, 4)))
+    for kernel in ("aderdg_face_flux", "aderdg_surface_update"):
+        info = cu.kernel_info(kernel, torch.float64)
+        assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, (kernel, info)
+    new, faces = sol.predictor_volume(u, DT)
+    fhat, fwall = cu.face_flux(faces)
+    with pytest.raises(LoweringError, match="fwall"):
+        cu.surface_update(new, fhat, DT)
 
 
 # ------------------------------------------------ K3: the subcell row sweep
