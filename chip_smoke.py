@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one card, nvcc
 
-It drives six paths, each through ``exahype_tpu_torch``'s entry points
+It drives seven paths, each through ``exahype_tpu_torch``'s entry points
 with its kernels' launch counters set to 0 just before and read just
 after (the two forms of the main path, ADER-DG and FV, and the limited,
-CK, walls and dynamic-GR slices), in this order:
+CK, walls, viscous and dynamic-GR slices), in this order:
 
 - **ADER-DG**: ``bench.py::main``'s step — order 3, 3-D compressible
   Euler, a ``(256, 8, 128)`` periodic cell grid in float32, ``bench.py``'s
@@ -52,6 +52,20 @@ CK, walls and dynamic-GR slices), in this order:
   float32 bound), and ``bench_ck``'s problem with the free surface
   (materials bitwise frozen, energy ratio below 1.02, the plain path);
   the walled step timed beside the periodic one.
+- **viscous**: compressible Navier–Stokes (``models/navier_stokes.py``)
+  on the ADER-DG step through ``CudaADERDG`` — the viscous predictor
+  ``aderdg_predictor_volume_visc`` (``csrc/aderdg_visc.cu``) and the face
+  stage with the Gassner penalty (and on walls the advective/viscous split)
+  against plain in float64 on ``(8, 4, 8)`` (periodic, no-slip and outflow
+  walls on axis 0, μ = 0.02, Pr = 0.7), then the 3-D Taylor–Green vortex
+  at ``(64, 64, 64)`` p3 in float32 (Re = 1600, Mach 0.1, Pr = 0.71 on the
+  unit box), periodic and with no-slip walls on axis 0, against plain at
+  full width and 10 steps at ``cfl_dt`` (finite; mass and, periodic,
+  energy within 1e-5, momentum moved by less than 1e-5 of the mass, the
+  kinetic energy down at every step; walled, no mass through the walls and
+  the kinetic energy down; repeatable; 3 launches a step), both timed, and
+  the decay anchors in float64 (a shear mode at ν(2π)², the no-slip
+  channel mode at νπ², within 2e-2).
 - **FV**: the spec-DSL Rusanov patch update of ``__graft_entry__.py`` —
   ``build_fv_rusanov_kernel`` (3-D Euler, patch 4, halo 1, 5 vars) →
   ``TpuPatchGrid`` → ``GridSolver(kernel_dt="lambda")`` with ``compute_dt``
@@ -71,7 +85,8 @@ CK, walls and dynamic-GR slices), in this order:
 Phases:
 
 1. card: name, and ``nvidia-smi``'s name and power limit;
-2. build: ``csrc/aderdg.cu``, ``csrc/subcell.cu``, ``csrc/rhs.cu`` and the
+2. build: ``csrc/aderdg.cu``, ``csrc/aderdg_visc.cu`` (float32) and
+   ``csrc/aderdg_visc_f64.cu``, ``csrc/subcell.cu``, ``csrc/rhs.cu`` and the
    K4 sources of the ``fv`` and the canonical ``rusanov`` spec, one
    ``nvcc`` each, all started together (time, source hash, nvcc seconds
    per source, and ptxas's registers/shared memory/spills);
@@ -94,7 +109,10 @@ Phases:
    with those of the kernel's other branches (``Z4_PARAMS``); the walled
    face stage launch by launch (its face fluxes, its side tensor of
    low-wall fluxes, the update), as a stage and in a step, in float64 in
-   every mode and in float32 at full width;
+   every mode and in float32 at full width; the viscous predictor (its new
+   state, faces and wall planes) and the Navier–Stokes face stage the same
+   way (the wall planes in float32 held to the scale of the face flux they
+   are part of);
 4. each main path: 10 steps (CK: the bench's window at its grid), with the
    launch counters, finiteness, mass drift (CK: materials bitwise frozen
    and the seismic energy ratio, also per half of the window), bitwise
@@ -190,6 +208,35 @@ WALL_CUT = (8, 4, 8)
 FARFIELD = (1.0, 2.0, 0.0, 0.0, 1.0 / 0.4 + 0.5 * 2.0**2)
 FREE_SURFACE_AXES = (2,)
 
+#: The viscous path: 3-D compressible Navier–Stokes at order 3.  The float64
+#: parity cases take tests/test_navier_stokes.py's μ = 0.02, Pr = 0.7 on a
+#: cut grid (dx = 1/8); the full-width state is the Taylor–Green vortex of
+#: the 1st International Workshop on High-Order CFD Methods as DeBonis
+#: (NASA TM-2013-217850) sets it, on the unit box: V0 = 1, ρ0 = 1, Mach 0.1
+#: (p0 = 1/(γ·0.01)), Re = 1600 with L = 1/(2π), so μ = 1/(2π·1600), and
+#: Pr = 0.71.
+NS_GRID = (64, 64, 64)
+NS_CUT = (8, 4, 8)
+NS_MU, NS_PRANDTL = 0.02, 0.7
+TGV_MACH, TGV_RE, TGV_PRANDTL = 0.1, 1600.0, 0.71
+TGV_L = 1.0 / (2.0 * math.pi)
+TGV_MU = TGV_L / TGV_RE            # ρ0 V0 L / Re
+TGV_P0 = 1.0 / (1.4 * TGV_MACH**2)  # ρ0 V0² / (γ M²)
+NS_WALL_AXES = (0,)                 # the no-slip walls of the walled vortex
+#: The decay anchors (tests/test_navier_stokes.py:149-189 and :405-435 in
+#: 3-D, float64): a shear mode v_z = V sin(2πx) on a periodic (16, 4, 4)
+#: grid decays at ν(2π)², the no-slip channel mode v_y = V sin(πx) at νπ².
+NS_ANCHOR_RTOL = 2e-2
+#: The periodic vortex's kinetic energy over its 10 steps falls by
+#: 1 − exp(−2ν|k|²t), |k|² = 3/L² (the initial rate of a single-wavenumber
+#: divergence-free field; ρ0 = 1, so ν = μ), within the anchors' 2e-2.
+TGV_K2 = 3.0 / TGV_L**2
+#: The float32 wall planes of the viscous split (the viscous-only wall flux,
+#: a small difference of large terms at Mach 0.1) are held against the
+#: plain predictor in float64, to this many times the plain float32 path's
+#: own distance from it.
+FVWALL_F32_FACTOR = 4
+
 #: The Z4 path (``scripts/z4_probe.py --large --pallas``: ``:53-57, 81-82,
 #: 198-202, 225-229``): the 38-variable vacuum Z4 system, order 2, 3-D,
 #: harmonic slicing f = 1, m = 2, κ₁ = κ₂ = 0, the gauge wave of amplitude
@@ -238,6 +285,18 @@ EIG_OPS = 17
 #: sum, division, root) in ``csrc/elastic.cuh``.
 ELASTIC_FLUX_OPS = 16
 ELASTIC_EIG_OPS = 4
+#: Flops of the viscous flux of all three axes at one node, as
+#: ``csrc/navier_stokes.cuh`` shares its terms between the axes (1/ρ 1, the
+#: velocity 3, q² 5, T 4; per gradient axis v·∂m 5, ∂v 9, ∂T 8; ∇·v 2; per
+#: flux axis τ 8, its 3 signs, the energy row 8), and its 12 sums into the
+#: Euler flux.
+VISC_FLUX_OPS = 1 + 3 + 5 + 4 + 3 * (5 + 9 + 8) + 2 + 3 * (8 + 3 + 8) + 12
+#: Flops of one node's physical gradients: 15 four-point contractions (7
+#: each) and 15 divisions by dx.
+GRAD_OPS = 15 * 7 + 15
+#: Flops the Gassner penalty adds to a face solve: two κ = c·(μ/ρ), their
+#: max, the penalty product and the sum.
+NS_PENALTY_OPS = 7
 
 
 def fail(msg: str):
@@ -290,22 +349,28 @@ def device_ms(torch, fn, n: int, name: str, per_call: int = 1) -> float:
     kernel's own spans as ``torch.profiler`` records them, times
     ``per_call``, so host time between launches (a wrapper that the host
     calls slower than the card runs it) is not counted.  The profiler may
-    drop a span; fewer than half of the launches is a failure."""
+    drop spans, once even all but one of a window's: a window
+    that saw fewer than half of the launches is measured again, and a third
+    such window is a failure."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]):  # a process's first window
         fn()                                            # may record nothing
         torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and name in e.name]
-    if not n * per_call / 2 <= len(spans) <= n * per_call:
-        fail(f"torch.profiler saw {len(spans)} launches of {name}, expected {n * per_call}")
-    return per_call * sum(spans) / len(spans) / 1e3
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and name in e.name]
+        if n * per_call / 2 <= len(spans) <= n * per_call:
+            return per_call * sum(spans) / len(spans) / 1e3
+        say(f"[profiler] window {attempt + 1}: torch.profiler saw {len(spans)} launches of "
+            f"{name}, expected {n * per_call}")
+    fail(f"torch.profiler saw {len(spans)} launches of {name}, expected {n * per_call}, in "
+         "three windows")
 
 
 def idle_share(torch, fn) -> tuple[float, float, float]:
@@ -389,6 +454,18 @@ def predictor_ops(order: int, picard_iters: int, ncell: int, dim=3, nvar=5) -> f
     faces = dim * n ** (dim - 1) / n**dim * nvar * 4 * contr
     per_node = picard_iters * picard + averages + volume + faces
     return per_node * n**dim * ncell
+
+
+def visc_predictor_ops(order: int, picard_iters: int, ncell: int, split: bool = False) -> float:
+    """Flops of ``aderdg_predictor_volume_visc`` (``csrc/aderdg_visc.cu``):
+    the Euler predictor's (:func:`predictor_ops`), plus per (cell, node)
+    and time slice of every Picard iteration and of the time averages the
+    gradients and the viscous flux; with the wall split the averages of the
+    viscous-only flux (2 flops each of 12 values a slice)."""
+    n = order + 1
+    visc = GRAD_OPS + VISC_FLUX_OPS
+    per_node = picard_iters * n * visc + n * (visc + (24 if split else 0))
+    return predictor_ops(order, picard_iters, ncell) + per_node * n**3 * ncell
 
 
 def ck_predictor_ops(order: int, ncell: int, dim=3, nvar=12, evolved=CK_EVOLVED) -> float:
@@ -515,12 +592,14 @@ def plain_surface_update(sol, new, fhat, dt, walls=None):
 
 
 def kernel_line(name: str, replaces: str, launches: int, err: float, ms: float,
-                plain_ms: float, bnd: dict) -> dict:
-    """One entry of the kernels JSON for a kernel of ``csrc/aderdg.cu``."""
+                plain_ms: float, bnd: dict,
+                source: str = "exahype_tpu_torch/csrc/aderdg.cu") -> dict:
+    """One entry of the kernels JSON for a kernel of ``csrc/aderdg.cu`` (or
+    of ``source``)."""
     return {
         "name": name,
         "route": "cuda",
-        "source": "exahype_tpu_torch/csrc/aderdg.cu",
+        "source": source,
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": err,
@@ -677,7 +756,7 @@ def limited_path(torch, dev, card) -> list[dict]:
         sol, cu, _, _ = make(grid, dtype)
         u = bench_state(sol, torch, dev, dtype) if dtype == torch.float64 else (
             sod_state(sol, torch, dev, dtype))
-        new, faces = sol.predictor_volume(u, LIMITED_DT)
+        new, faces, _ = sol.predictor_volume(u, LIMITED_DT)
         out_k, fl_k = cu.face_surface(new.clone(), faces, LIMITED_DT, return_face_fluxes=True)
         out_p, fl_p = sol.face_surface(new, faces, LIMITED_DT, return_face_fluxes=True)
         torch.cuda.synchronize()
@@ -863,7 +942,7 @@ def limited_path(torch, dev, card) -> list[dict]:
         say(f"[limited time] {label}: step ms per window {ms!r}; median "
             f"{statistics.median(ms)!r} ms, {dofs / statistics.median(win)!r} "
             f"DOF-updates/s ({dofs} DOF per step; {card})")
-    new, faces = cu.predictor_volume(u5, LIMITED_DT)
+    new, faces, _ = cu.predictor_volume(u5, LIMITED_DT)
     fhat, _ = cu.face_flux(faces)
     parts = {
         "aderdg_predictor_volume": event_ms(
@@ -1065,8 +1144,8 @@ def ck_path(torch, dev, card) -> list[dict]:
         u, mat = initial(sol, dtype)
         dt = CK_DT if grid[0] <= 64 else float(sol.cfl_dt(u))
         u_in = u.clone()
-        new_k, faces_k = cu.predictor_volume(u, dt)
-        new_p, faces_p = sol.predictor_volume(u, dt)
+        new_k, faces_k, _ = cu.predictor_volume(u, dt)
+        new_p, faces_p, _ = sol.predictor_volume(u, dt)
         surf_k = cu.face_surface(new_p.clone(), faces_p, dt)
         surf_p = sol.face_surface(new_p, faces_p, dt)
         # F̂ as the face stage returns it: aderdg_face_flux leaves the
@@ -1182,7 +1261,7 @@ def ck_path(torch, dev, card) -> list[dict]:
             say(f"[ck time] {grid} {label}: step ms per window {ms!r}; median "
                 f"{statistics.median(ms)!r} ms, {evolved_dofs / statistics.median(win)!r} "
                 f"evolved-DOF-updates/s ({evolved_dofs} evolved DOF per step; {card})")
-        new, faces = cu.predictor_volume(ustart, dt)
+        new, faces, _ = cu.predictor_volume(ustart, dt)
         fhat, _ = cu.face_flux(faces)
         times = {
             "aderdg_ck_predictor_volume": (
@@ -1432,8 +1511,8 @@ def aderdg_path(torch, dev, card) -> list[dict]:
         psol, pcu = make(grid, dtype)
         u = bench_state(psol, torch, dev, dtype)
         u_in = u.clone()
-        new_k, faces_k = pcu.predictor_volume(u, dt)
-        new_p, faces_p = psol.predictor_volume(u, dt)
+        new_k, faces_k, _ = pcu.predictor_volume(u, dt)
+        new_p, faces_p, _ = psol.predictor_volume(u, dt)
         surf_k = pcu.face_surface(new_p.clone(), faces_p, dt)
         surf_p = psol.face_surface(new_p, faces_p, dt)
         fhat_k, fhat_p = pcu.face_flux(faces_p)[0], plain_face_flux(torch, psol, faces_p)
@@ -1532,7 +1611,7 @@ def aderdg_path(torch, dev, card) -> list[dict]:
             f"median {statistics.median(ms)!r} ms, "
             f"{dofs / statistics.median(win)!r} DOF-updates/s "
             f"({card})")
-    new, faces = cu.predictor_volume(u0, dt)
+    new, faces, _ = cu.predictor_volume(u0, dt)
     fhat, _ = cu.face_flux(faces)
     times = {
         "aderdg_predictor_volume": (
@@ -1650,7 +1729,7 @@ def walls_parity(torch, sol, cu, u, dt, label: str, rows: int, groups) -> dict:
     f64 = u.dtype == torch.float64
     rule = "atol" if f64 else f"{F32_ULPS} f32 spacings of max|plain|"
     fshape = sol.face_flux_shape
-    new, faces = sol.predictor_volume(u, dt)
+    new, faces, _ = sol.predictor_volume(u, dt)
     fhat_k, fwall_k = cu.face_flux(faces)
     fhat_p, wall_p = [], {}
     for d in range(sol.dim):
@@ -1781,7 +1860,7 @@ def walls_path(torch, dev, card) -> list[dict]:
         }
 
     def face_times(sol, cu, u, dt):
-        new, faces = cu.predictor_volume(u, dt)
+        new, faces, _ = cu.predictor_volume(u, dt)
         fhat, fwall = cu.face_flux(faces)
         walls = {} if fwall is None else cu.wall_fluxes(fwall)
         out = {
@@ -1930,6 +2009,401 @@ def walls_path(torch, dev, card) -> list[dict]:
         lines.append(kernel_line(label, replaces, count, errs_ck[name], *times[name], bnd))
     say(f"[walls mem] peak allocated so far {torch.cuda.max_memory_allocated() * gib:.4f} GiB")
     del sol, cu, u0, mat
+    torch.cuda.empty_cache()
+    return lines
+
+
+def ns_solver(torch, dev, grid, dtype, mu=NS_MU, prandtl=NS_PRANDTL, walls=False, dx=None):
+    """A 3-D p3 Navier–Stokes solver on the unit box (dx_d = 1/g_d unless
+    ``dx`` is given; no-slip walls on ``NS_WALL_AXES``, outflow walls there,
+    or periodic) and its ``CudaADERDG``."""
+    from exahype_tpu_torch.models.aderdg import ADERDGSolver
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.navier_stokes import (
+        navier_stokes,
+        noslip_reflect,
+        noslip_reflect_flux,
+    )
+
+    flux, eig, visc, visc_eig = navier_stokes(3, mu=mu, prandtl=prandtl)
+    kw = {}
+    if walls == "noslip":
+        kw = dict(boundary="reflective", reflect_fn=noslip_reflect(3),
+                  reflect_flux_fn=noslip_reflect_flux(3), wall_axes=NS_WALL_AXES)
+    elif walls == "outflow":
+        kw = dict(boundary="outflow", wall_axes=NS_WALL_AXES)
+    sol = ADERDGSolver(3, ORDER, 5, grid, flux, eig, dx=dx or tuple(1.0 / g for g in grid),
+                       device=dev, dtype=dtype,
+                       visc_flux_fn=visc, visc_eigenvalue_fn=visc_eig, **kw)
+    return sol, CudaADERDG(sol)
+
+
+def ns_state(torch, sol, dtype, fields):
+    """A state from the var-last NumPy fields (ρ, velocity, p) at the nodes."""
+    import numpy as np
+
+    rho, vel, p = fields
+    e = p / 0.4 + 0.5 * rho * sum(v * v for v in vel)
+    q = np.stack([rho] + [rho * v for v in vel] + [e], axis=sol.var_axis)
+    return torch.from_numpy(q).to(device=sol.weights.device, dtype=dtype).contiguous()
+
+
+def node_coords(sol):
+    """The node coordinates, each broadcast to the state shape without its
+    var axis (float64 NumPy)."""
+    import numpy as np
+
+    va = sol.var_axis
+    no_var = sol.state_shape[:va] + sol.state_shape[va + 1:]
+    return [np.broadcast_to(np.squeeze(c, va), no_var) for c in sol.nodes_meshgrid()]
+
+
+def tgv_fields(sol):
+    """The Taylor–Green vortex (DeBonis, NASA TM-2013-217850, eq. 1–4) on
+    the unit box, x/L = 2πx: u = V0 sin cos cos, v = −V0 cos sin cos, w =
+    0, p = p0 + ρ0V0²/16 (cos 2x/L + cos 2y/L)(cos 2z/L + 2), ρ = ρ0 p/p0."""
+    import numpy as np
+
+    x, y, z = (c / TGV_L for c in node_coords(sol))
+    u = np.sin(x) * np.cos(y) * np.cos(z)
+    v = -np.cos(x) * np.sin(y) * np.cos(z)
+    p = TGV_P0 + (np.cos(2 * x) + np.cos(2 * y)) * (np.cos(2 * z) + 2.0) / 16.0
+    return p / TGV_P0, [u, v, np.zeros_like(u)], p
+
+
+def random_ns_fields(sol, seed=0):
+    """Random admissible ρ, velocity and p at every node: every gradient
+    of the state is of order 1/dx."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    no_var = node_coords(sol)[0].shape
+    rho = 1.0 + 0.2 * rng.random(no_var)
+    vel = [0.3 * rng.standard_normal(no_var) for _ in range(3)]
+    return rho, vel, 1.0 + 0.2 * rng.random(no_var)
+
+
+def kinetic_energy(torch, sol, u) -> float:
+    """∫ ½|m|²/ρ over the box by the solver's quadrature, in float64."""
+    q = u.double()
+    ke = 0.5 * (q[:, :, :, 1] ** 2 + q[:, :, :, 2] ** 2 + q[:, :, :, 3] ** 2) / q[:, :, :, 0]
+    return float(sol.total_mass(ke.unsqueeze(3))[0])
+
+
+def plain_visc_fluxes(torch, sol, faces, fvwall):
+    """The plain version of the Navier–Stokes face flux kernel: each axis's
+    F̂ (``interface_flux``) and each wall axis's low-wall fluxes, with the
+    viscous wall split when ``fvwall`` is given."""
+    fshape = sol.face_flux_shape
+    rows = sol.visc_wall_rows(fvwall) if fvwall is not None else {}
+    fhat, low = [], {}
+    for d in range(3):
+        q_lo, q_hi, f_lo, f_hi = (faces[d, k].reshape(fshape) for k in range(4))
+        fv_lo, fv_hi = rows.get(d, (None, None))
+        fhat.append(sol.interface_flux(q_lo, q_hi, f_lo, f_hi, d, fv_hi))
+        if sol.is_wall(d):
+            low[d] = sol.low_wall_flux(q_lo, f_lo, d, fv_lo)
+    return fhat, low
+
+
+def fvwall_f64(torch, sol, u, dt, mu, prandtl, walls) -> dict:
+    """``{d: (fv_lo, fv_hi)}``: the viscous-only wall planes of ``sol`` on
+    ``u`` by the plain predictor in float64.  The predictor is cell-local,
+    so a solver on the two cell rows at axis d's walls (the same dx) gives
+    axis d's planes, at 2/g_d of the whole grid's cost."""
+    rows = {}
+    dx = tuple(1.0 / g for g in sol.grid_shape)
+    for d in sol.wall_planes():
+        g = sol.grid_shape[d]
+        grid = tuple(2 if a == d else n for a, n in enumerate(sol.grid_shape))
+        slab, _ = ns_solver(torch, u.device, grid, torch.float64, mu=mu, prandtl=prandtl,
+                            walls=walls, dx=dx)
+        rows_of = u.index_select(sol.grid_axis(d), torch.tensor([0, g - 1], device=u.device))
+        rows[d] = slab.visc_wall_rows(slab.predictor_volume(rows_of.double(), dt)[2])[d]
+    return rows
+
+
+def fvwall_f32_check(torch, sol, got, ref, fv64) -> tuple[float, float, str]:
+    """The float32 kernel's wall planes ``got`` against ``fv64``
+    (:func:`fvwall_f64`): ``(error, limit, why)``, the limit
+    ``FVWALL_F32_FACTOR`` times the plain float32 planes' (``ref``) own
+    distance from ``fv64``.  Fails when that limit would pass a kernel that
+    wrote no viscous split (a tenth of the planes' largest value)."""
+    k, p = sol.visc_wall_rows(got), sol.visc_wall_rows(ref)
+    pairs = [(k[d][s], p[d][s], fv64[d][s]) for d in fv64 for s in (0, 1)]
+    err = max(max_err(torch, a, c) for a, _, c in pairs)
+    plain = max(max_err(torch, b, c) for _, b, c in pairs)
+    scale = max(c.abs().max().item() for *_, c in pairs)
+    limit = max(FVWALL_F32_FACTOR * plain, F32_ULPS * 2.0**-23 * scale)
+    why = (f"against plain f64; {FVWALL_F32_FACTOR}x plain f32's {plain:.3e}, "
+           f"max|fvwall| {scale:.3e}")
+    if not limit < 0.1 * scale:
+        fail(f"the f32 wall planes' limit {limit:.3e} cannot tell a kernel that drops the "
+             f"viscous split (max|fvwall| {scale:.3e})")
+    return err, limit, why
+
+
+def visc_parity(torch, sol, cu, u, dt, label: str, fv64=None) -> dict:
+    """The viscous kernels against the plain solver on ``u``: the
+    predictor's outputs (new, faces and with walls the viscous-only wall
+    planes), the face flux kernel's F̂ of every axis and low-wall fluxes
+    (from the plain faces), the update, the stage and the step.  atol 1e-12
+    in float64, ``F32_ULPS`` spacings of the largest plain value in float32;
+    the float32 wall planes against ``fv64`` (:func:`fvwall_f32_check`).
+    Fails on a disagreement; returns the largest error of each kernel."""
+    f64 = u.dtype == torch.float64
+    rule = "atol" if f64 else f"{F32_ULPS} f32 spacings of max|plain|"
+    fshape = sol.face_flux_shape
+    got = cu.predictor_volume(u, dt)
+    ref = sol.predictor_volume(u, dt)
+    new, faces, fvwall = ref
+    fhat_k, fwall_k = cu.face_flux(faces, fvwall)
+    fhat_p, wall_p = plain_visc_fluxes(torch, sol, faces, fvwall)
+    fwall_p = torch.cat([wall_p[d].reshape(-1) for d in sorted(wall_p)]) if wall_p else None
+    upd_k = cu.surface_update(new.clone(), torch.stack(fhat_p).view(fhat_k.shape), dt, fwall_p)
+    upd_p = plain_surface_update(sol, new, torch.stack(fhat_p), dt, wall_p)
+    stage_k = cu.face_surface(new.clone(), faces, dt, fvwall=fvwall)
+    stage_p = sol.face_surface(new, faces, dt, fvwall=fvwall)
+    step_k, step_p = cu.step(u, dt), sol.step(u, dt)
+    torch.cuda.synchronize()
+    pred, flux, update = cu.kernels
+    checks = [(pred, what, a, b) for what, a, b in zip(("new", "faces", "fvwall"), got, ref)]
+    checks += [(flux, f"fhat[{d}]", fhat_k[d].view(fshape), fhat_p[d]) for d in range(3)]
+    checks += [(flux, f"fwall[{d}]", cu.wall_fluxes(fwall_k)[d], wall_p[d]) for d in wall_p]
+    checks += [(update, "new", upd_k, upd_p), ("face stage", "new", stage_k, stage_p),
+               ("step", "new", step_k, step_p)]
+    errs = {}
+    for name, what, a, b in checks:
+        if what == "fvwall" and b is None:
+            continue
+        err = max_err(torch, a, b)
+        limit, why = (F64_ATOL, rule) if f64 else (f32_bound(torch, b), rule)
+        if what == "fvwall" and not f64:
+            # The viscous-only flux is a small difference of large terms (the
+            # temperature gradient from E ≈ 180 at Mach 0.1): float32 rounds
+            # it at ~1e-5 of its size on the plain path too.
+            err, limit, why = fvwall_f32_check(torch, sol, a, b, fv64)
+        ok = err <= limit
+        say(f"[visc parity] {label}: {name} ({what}) {str(u.dtype)[6:]} {sol.grid_shape}: "
+            f"max_abs_err {err:.3e} limit {limit:.3e} ({why}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"viscous {name} ({what}) disagrees with its plain version ({label}, "
+                 f"{u.dtype}, {sol.grid_shape})")
+        errs[name] = max(errs.get(name, 0.0), err)
+    return errs
+
+
+def decay_rate(torch, cu, u0, component: int, t_end: float) -> tuple[float, int]:
+    """The measured decay rate of the rms of velocity ``component`` from
+    ``u0`` over ``t_end`` (whole steps at cfl_dt), and the step count."""
+    dt = float(cu.cfl_dt(u0))
+    n = max(1, round(t_end / dt))
+    u = cu.run(u0, n, dt)
+
+    def rms(q):
+        v = q[:, :, :, 1 + component] / q[:, :, :, 0]
+        return float(torch.sqrt((v * v).mean()))
+
+    return math.log(rms(u0) / rms(u)) / (n * dt), n
+
+
+def once_ms(torch, fn) -> float:
+    """Device time of one call of ``fn`` (CUDA events; no warm-up: for the
+    plain path, whose first call here is not its first)."""
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def viscous_path(torch, dev, card) -> list[dict]:
+    """The viscous path: compressible Navier–Stokes through ``CudaADERDG``.
+    The kernels against plain in float64 (periodic, no-slip and outflow
+    walls on the cut grid) and float32 (full width); the Taylor–Green vortex
+    at ``(64, 64, 64)``, periodic and with no-slip walls, 10 steps at
+    ``cfl_dt`` with its checks and times; the decay anchors in float64.
+    Returns the kernel JSON lines of the viscous predictor and the
+    Navier–Stokes face stage, periodic and walled."""
+    import numpy as np
+
+    from exahype_tpu_torch.models.aderdg import ADERDGSolver, euler_physics
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+
+    # ---------------------------------- 3. f64 kernel vs plain, cut grid
+    for walls in (False, "noslip", "outflow"):
+        sol, cu = ns_solver(torch, dev, NS_CUT, torch.float64, walls=walls)
+        u = ns_state(torch, sol, torch.float64, random_ns_fields(sol))
+        visc_parity(torch, sol, cu, u, float(sol.cfl_dt(u)),
+                    f"Navier–Stokes {walls or 'periodic'}")
+    del sol, cu, u
+
+    gib = 2.0**-30
+    lines, replaces = [], "exahype_tpu/models/aderdg_pallas.py:156"
+    visc_src = "exahype_tpu_torch/csrc/aderdg_visc.cu"
+    dofs = math.prod(NS_GRID) * (ORDER + 1) ** 3 * 5
+    ncell = math.prod(NS_GRID)
+    runs = {}
+    for walls in (False, "noslip"):
+        label = "periodic" if not walls else "no-slip walls on axis 0"
+        sol, cu = ns_solver(torch, dev, NS_GRID, torch.float32, mu=TGV_MU,
+                            prandtl=TGV_PRANDTL, walls=walls)
+        u0 = ns_state(torch, sol, torch.float32, tgv_fields(sol))
+        dt = float(cu.cfl_dt(u0))
+        say(f"[visc] Taylor–Green vortex {NS_GRID} f32, {label}: μ = {TGV_MU!r}, Pr = "
+            f"{TGV_PRANDTL}, p0 = {TGV_P0!r}; dt = cfl_dt = {dt!r} (the parabolic term "
+            "included)")
+        # ------------------------------ f32 kernel vs plain, full width
+        fv64 = fvwall_f64(torch, sol, u0, dt, TGV_MU, TGV_PRANDTL, walls) if walls else None
+        errs = visc_parity(torch, sol, cu, u0, dt, f"Taylor–Green {label}", fv64)
+
+        # ------------------------------ 4. the main path, 10 steps
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        cu.reset_launches()
+        u, ke = u0, [kinetic_energy(torch, sol, u0)]
+        for _ in range(STEPS):
+            u = cu.step(u, dt)
+            ke.append(kinetic_energy(torch, sol, u))
+        torch.cuda.synchronize()
+        launches = dict(cu.launches)
+        say(f"[visc mem] kernel path, {STEPS} steps: peak "
+            f"{torch.cuda.max_memory_allocated() * gib:.4f} GiB allocated ({held * gib:.4f} "
+            f"GiB held before) ({card})")
+        say(f"[visc main] {label}: {STEPS} steps through CudaADERDG: launches {launches}")
+        if launches != {name: STEPS for name in cu.kernels}:
+            fail(f"the viscous step launched {launches} in {STEPS} steps, expected 3 a step")
+        if tuple(u.shape) != sol.state_shape or not torch.isfinite(u).all():
+            fail(f"the viscous state ({label}) is not finite or has the wrong shape")
+        m0, m1 = cu.total_mass(u0.double()), cu.total_mass(u.double())
+        rel = ((m1 - m0).abs() / m0.abs()).tolist()
+        moved = ((m1 - m0).abs()[1:4] / m0[0].abs()).tolist()
+        steps_down = all(b < a for a, b in zip(ke, ke[1:]))
+        decay = 1.0 - ke[-1] / ke[0]
+        exact = -math.expm1(-2.0 * TGV_MU * TGV_K2 * STEPS * dt)
+        say(f"[visc main] {label}: relative change over {STEPS} steps: mass {rel[0]:.3e}, "
+            f"energy {rel[4]:.3e} (limit {MASS_RTOL:.1e}); momentum moved by {moved[0]:.3e}, "
+            f"{moved[1]:.3e}, {moved[2]:.3e} of the mass; kinetic energy {ke[0]!r} -> "
+            f"{ke[-1]!r} (decay {decay!r}), down at every step {steps_down}")
+        if not rel[0] <= MASS_RTOL:
+            fail(f"the viscous step ({label}) does not conserve mass")
+        if not walls and not (rel[4] <= MASS_RTOL and max(moved) <= MASS_RTOL and steps_down):
+            fail("the periodic vortex does not conserve energy or momentum, or its kinetic "
+                 "energy did not decrease at every step")
+        if not walls:
+            say(f"[visc main] periodic: kinetic-energy decay {decay!r} against the viscous "
+                f"rate's 1 − exp(−2ν|k|²t) = {exact!r}, relative error "
+                f"{abs(decay - exact) / exact:.3e} (limit {NS_ANCHOR_RTOL})")
+            if not abs(decay - exact) / exact < NS_ANCHOR_RTOL:
+                fail("the periodic vortex's kinetic energy does not decay at 2ν|k|²")
+        if walls and not ke[-1] < ke[0]:
+            fail("the walled vortex's kinetic energy did not decrease")
+        if not torch.equal(u, cu.run(u0, STEPS, dt)):
+            fail(f"two runs of the viscous step ({label}) differ")
+        say(f"[visc main] {label}: two runs from the same state: bitwise equal")
+
+        # ------------------------------ 5. times and readings
+        new, faces, fv = cu.predictor_volume(u0, dt)
+        fhat, fwall = cu.face_flux(faces, fv)
+        walls_of = {} if fwall is None else cu.wall_fluxes(fwall)
+        pred, flux, update = cu.kernels
+        times = {
+            pred: (event_ms(torch, lambda: cu.predictor_volume(u0, dt), 20),
+                   once_ms(torch, lambda: sol.predictor_volume(u0, dt))),
+            "face stage": (event_ms(torch, lambda: cu.face_surface(new, faces, dt, fvwall=fv), 20),
+                           once_ms(torch, lambda: sol.face_surface(new, faces, dt, fvwall=fv))),
+            flux: (event_ms(torch, lambda: cu.face_flux(faces, fv), 20),
+                   once_ms(torch, lambda: plain_visc_fluxes(torch, sol, faces, fv))),
+            update: (event_ms(torch, lambda: cu.surface_update(new, fhat, dt, fwall), 20),
+                     once_ms(torch, lambda: plain_surface_update(sol, new, fhat, dt, walls_of))),
+        }
+        plain_step_ms = once_ms(torch, lambda: sol.step(u0, dt))
+        for name, (ms, plain_ms) in times.items():
+            say(f"[visc time] {name} ({label}): kernel {ms!r} ms, plain {plain_ms!r} ms (CUDA "
+                f"events; {card})")
+        if not walls:
+            # The Euler face stage on the same faces, in the same run.
+            esol = ADERDGSolver(3, ORDER, 5, NS_GRID, *euler_physics(3), dx=1.0 / NS_GRID[0],
+                                device=dev, dtype=torch.float32)
+            ecu = CudaADERDG(esol)
+            euler_ms = event_ms(torch, lambda: ecu.face_surface(new, faces, dt), 20)
+            say(f"[visc time] Euler face stage on the same faces: {euler_ms!r} ms; "
+                f"Navier–Stokes {times['face stage'][0]!r} ms "
+                f"({times['face stage'][0] / euler_ms - 1.0:+.3%}) ({card})")
+            del esol, ecu
+        idle, busy, wall = idle_share(torch, lambda: cu.run(u0, 20, dt))
+        say(f"[visc idle] {label}, 20 steps under torch.profiler: device busy {busy!r} ms of "
+            f"wall {wall!r} ms; idle share {idle!r} ({card})")
+        itemsize = u0.element_size()
+        side = 0 if fv is None else cu.walls["size"] * itemsize
+        low = 0 if fv is None else cu.walls["size"] // 5
+        face_bytes, state_bytes = faces.nbytes, u0.nbytes
+        split = fv is not None
+        pen_ops = ncell * 3 * 16 * NS_PENALTY_OPS + low * (2 * EIG_OPS + 6 * 5 + NS_PENALTY_OPS)
+        work = {
+            pred: (2 * state_bytes + face_bytes + 2 * side,
+                   visc_predictor_ops(ORDER, sol.picard_iters, ncell, split)),
+            flux: (face_flux_bytes(ORDER, ncell, itemsize) + side + 2 * side,
+                   face_flux_ops(ORDER, ncell) + pen_ops),
+            update: (surface_update_bytes(ORDER, ncell, itemsize) + side,
+                     surface_update_ops(ORDER, ncell)),
+            "face stage": (face_stage_bytes(ORDER, ncell, itemsize) + 3 * side,
+                           face_surface_ops(ORDER, ncell) + pen_ops),
+        }
+        tag = "Navier–Stokes" + ("" if not walls else ", no-slip walls")
+        for name in (pred, flux, update, "face stage"):
+            bnd = kernel_report(None if name == "face stage" else cu, name, torch.float32,
+                                f"({tag}) {NS_GRID} f32", times[name][0], *work[name], card)
+            count = launches[update if name == "face stage" else name]
+            title = (f"{flux} + {update} (face stage, {tag})" if name == "face stage"
+                     else f"{name} ({tag})")
+            lines.append(kernel_line(title, replaces, count, errs[name], *times[name], bnd,
+                                     visc_src if name == pred else
+                                     "exahype_tpu_torch/csrc/aderdg.cu"))
+        wins = windows(torch, cu, u0, dt, steps=10)
+        runs[label] = wins
+        ms = [1e3 * w for w in wins]
+        say(f"[visc time] {label} step: step ms per window {ms!r}; median "
+            f"{statistics.median(ms)!r} ms, {dofs / statistics.median(wins)!r} DOF-updates/s; "
+            f"plain step {plain_step_ms!r} ms ({card})")
+        del sol, cu, u0, u, new, faces, fhat, fwall, fv, walls_of
+        torch.cuda.empty_cache()
+    periodic, walled = (statistics.median(w) for w in runs.values())
+    say(f"[visc time] the walled step against the periodic one, same run: {1e3 * walled!r} ms "
+        f"against {1e3 * periodic!r} ms ({walled / periodic - 1.0:+.3%}) ({card})")
+
+    # ---------------------------------- 6. the decay anchors, float64
+    mu_shear, mu_channel, V = 0.02, 0.01, 1e-3
+    sol, cu = ns_solver(torch, dev, (16, 4, 4), torch.float64, mu=mu_shear)
+    x = node_coords(sol)[0]
+    zero = np.zeros_like(x)
+    u0 = ns_state(torch, sol, torch.float64,
+                  (np.ones_like(x), [zero, zero, V * np.sin(2 * np.pi * x)], np.ones_like(x)))
+    rate, n = decay_rate(torch, cu, u0, 2, 0.1)
+    exact = mu_shear * (2 * np.pi) ** 2
+    say(f"[visc anchor] shear mode v_z = {V} sin(2πx), μ = {mu_shear}, (16, 4, 4) p3 f64 through "
+        f"CudaADERDG, {n} steps: decay rate {rate!r}, exact ν(2π)² = {exact!r}, relative "
+        f"error {abs(rate - exact) / exact:.3e} (limit {NS_ANCHOR_RTOL})")
+    if not abs(rate - exact) / exact < NS_ANCHOR_RTOL:
+        fail("the shear mode does not decay at ν(2π)²")
+    sol, cu = ns_solver(torch, dev, (8, 4, 4), torch.float64, mu=mu_channel, walls="noslip")
+    x = node_coords(sol)[0]
+    zero = np.zeros_like(x)
+    u0 = ns_state(torch, sol, torch.float64,
+                  (np.ones_like(x), [zero, V * np.sin(np.pi * x), zero], np.ones_like(x)))
+    rate, n = decay_rate(torch, cu, u0, 1, 1.0)
+    exact = mu_channel * np.pi**2
+    say(f"[visc anchor] no-slip channel mode v_y = {V} sin(πx), μ = {mu_channel}, walls on "
+        f"axis 0, (8, 4, 4) p3 f64 through CudaADERDG, {n} steps: decay rate {rate!r}, exact "
+        f"νπ² = {exact!r}, relative error {abs(rate - exact) / exact:.3e} (limit "
+        f"{NS_ANCHOR_RTOL})")
+    if not abs(rate - exact) / exact < NS_ANCHOR_RTOL:
+        fail("the no-slip channel mode does not decay at νπ²")
+    say(f"[visc mem] peak allocated so far {torch.cuda.max_memory_allocated() * gib:.4f} GiB")
+    del sol, cu, u0
     torch.cuda.empty_cache()
     return lines
 
@@ -2138,7 +2612,7 @@ def z4_path(torch, dev, card) -> dict:
         ms = [1e3 * w for w in win]
         say(f"[z4 time] {label}: step ms per window {ms!r}; median {statistics.median(ms)!r} "
             f"ms, {dofs / statistics.median(win)!r} DOF-updates/s ({dofs} DOF per step; {card})")
-    new, faces = kern.predictor_volume(u0, Z4_DT)
+    new, faces, _ = kern.predictor_volume(u0, Z4_DT)
     q_st = pic[0]
     k5_ms = {
         "Picard": event_ms(torch, lambda: k5(*pic), 20),
@@ -2278,6 +2752,7 @@ def main():
         "limited": lambda: limited_path(torch, dev, card),
         "CK": lambda: ck_path(torch, dev, card),
         "walls": lambda: walls_path(torch, dev, card),
+        "viscous": lambda: viscous_path(torch, dev, card),
         "FV": lambda: [fv_path(torch, dev, card, spec_printers)],
         "Z4": lambda: [z4_path(torch, dev, card)],
     }

@@ -1,6 +1,6 @@
 """exahype_tpu_torch — the PyTorch/CUDA port of ``exahype_tpu``.
 
-Five paths of the JAX package run here, on an NVIDIA H100 through CUDA
+Six paths of the JAX package run here, on an NVIDIA H100 through CUDA
 kernels written for it, and on the CPU through their plain PyTorch
 versions, which match the JAX package:
 
@@ -8,6 +8,11 @@ versions, which match the JAX package:
   through the hand-written kernels of ``csrc/aderdg.cu``, periodic or
   closed by domain walls (reflective, outflow, farfield, dirichlet; the
   face stage's wall variant on the card);
+- the viscous ADER-DG step of 3-D compressible Navier–Stokes
+  (``models/navier_stokes.py``'s callbacks as ``visc_flux_fn`` /
+  ``visc_eigenvalue_fn``), through the viscous predictor of
+  ``csrc/aderdg_visc.cu`` and the face stage with its diffusion penalty,
+  periodic or with walls (no-slip through ``noslip_reflect``);
 - the limited production step of the same scheme (``bench.py``'s second
   metric): ``LimitedADERDG`` with the gathered-row subcell FV fallback,
   its sweeps through the kernel of ``csrc/subcell.cu``;
@@ -42,6 +47,9 @@ _EXPORTS = {
     "sign_reflect": "exahype_tpu_torch.models.aderdg",
     "elastic3d_free_surface_het": "exahype_tpu_torch.models.elastic",
     "elastic3d_heterogeneous": "exahype_tpu_torch.models.elastic",
+    "navier_stokes": "exahype_tpu_torch.models.navier_stokes",
+    "noslip_reflect": "exahype_tpu_torch.models.navier_stokes",
+    "noslip_reflect_flux": "exahype_tpu_torch.models.navier_stokes",
     "make_z4_solver": "exahype_tpu_torch.models.z4",
     "gauge_wave_state": "exahype_tpu_torch.models.z4",
     "CudaRHS": "exahype_tpu_torch.models.rhs_cuda",

@@ -62,8 +62,13 @@ _SURFACE_UPDATE = (
 )
 # The wall variant: the same, then before the stream wall_mask, wall_mode,
 # wall_table, wall_rows, fwall, wall_off, wall_side (face flux) or
-# wall_mask, fwall, wall_off (update).
-_FACE_FLUX_WALLS = _FACE_FLUX[:-1] + (_INT, _INT, _P, _P, _P, _P, _LL, _P)
+# wall_mask, fwall, wall_off (update); the face flux last the viscous-only
+# wall planes of a viscous solver (null for the others).
+_FACE_FLUX_WALLS = _FACE_FLUX[:-1] + (_INT, _INT, _P, _P, _P, _P, _LL, _P, _P)
+# The viscous predictor: the Picard predictor's, then before the stream
+# wall_mask, fv_planes, wall_off, wall_side (the viscous-only wall planes;
+# mask 0 and null pointers without walls).
+_PREDICTOR_VOLUME_VISC = _PREDICTOR_VOLUME[:-1] + (_INT, _P, _P, _LL, _P)
 _SURFACE_UPDATE_WALLS = _SURFACE_UPDATE[:-1] + (_INT, _P, _P, _P)
 # kernel, f64, physics, out (5 ints)
 _KERNEL_INFO = (_INT, _INT, _INT, _P)
@@ -85,6 +90,7 @@ _SIGNATURES = {
     f"exahype_{kernel}_{suffix}": argtypes
     for kernel, argtypes in (
         ("aderdg_predictor_volume", _PREDICTOR_VOLUME),
+        ("aderdg_predictor_volume_visc", _PREDICTOR_VOLUME_VISC),
         ("aderdg_ck_predictor_volume", _CK_PREDICTOR_VOLUME),
         ("aderdg_face_flux", _FACE_FLUX),
         ("aderdg_surface_update", _SURFACE_UPDATE),

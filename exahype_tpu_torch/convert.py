@@ -16,6 +16,7 @@ from exahype_tpu_torch.models.aderdg import (
     CALLBACK_OPTIONS,
     PORTED_OPTIONS,
     UNPORTED_OPTIONS,
+    VISCOUS_OPTIONS,
     WALL_HOOKS,
     ADERDGSolver,
     euler_physics,
@@ -26,25 +27,45 @@ from exahype_tpu_torch.models.elastic import (
     elastic3d_free_surface_het,
     elastic3d_heterogeneous,
 )
+from exahype_tpu_torch.models.navier_stokes import (
+    navier_stokes,
+    noslip_reflect,
+    noslip_reflect_flux,
+)
 from exahype_tpu_torch.utils.device import resolve_device
 from exahype_tpu_torch.utils.errors import SemanticError
 
 
-def _physics_pair(physics, gamma, dim: int, n_vars: int):
-    """The port's (flux_fn, max_eigenvalue_fn) named by ``physics``."""
-    if physics == "euler":
+_CALLBACKS = ("flux_fn", "max_eigenvalue_fn", *VISCOUS_OPTIONS)
+
+
+def _physics_callbacks(physics, gamma, mu, prandtl, dim: int, n_vars: int) -> dict:
+    """The port's physics callbacks named by ``physics``, by option name:
+    the flux and eigenvalue, and for Navier–Stokes (or a 4-tuple) the
+    viscous pair too."""
+    if (mu is not None or prandtl is not None) and physics != "navier_stokes":
+        raise SemanticError("mu and prandtl apply to physics='navier_stokes' only")
+    if physics in ("euler", "navier_stokes"):
         if gamma is None:
-            raise SemanticError("physics='euler' needs gamma")
-        return euler_physics(dim, n_real=n_vars, gamma=gamma)
+            raise SemanticError(f"physics={physics!r} needs gamma")
+        if physics == "euler":
+            return dict(zip(_CALLBACKS, euler_physics(dim, n_real=n_vars, gamma=gamma)))
+        if mu is None or prandtl is None or n_vars != dim + 2:
+            raise SemanticError(
+                "physics='navier_stokes' needs mu and prandtl (the JAX callbacks "
+                f"are opaque) and dim + 2 variables, got n_vars={n_vars}"
+            )
+        return dict(zip(_CALLBACKS, navier_stokes(dim, mu=mu, prandtl=prandtl, gamma=gamma)))
     if gamma is not None:
-        raise SemanticError("gamma applies to physics='euler' only")
-    if isinstance(physics, tuple):
-        return physics
+        raise SemanticError("gamma applies to physics='euler' and 'navier_stokes' only")
+    if isinstance(physics, tuple) and len(physics) in (2, 4):
+        return dict(zip(_CALLBACKS, physics))
     if physics == "elastic3d_het":
-        return elastic3d_heterogeneous()
+        return dict(zip(_CALLBACKS, elastic3d_heterogeneous()))
     raise SemanticError(
-        "physics must be 'euler', 'elastic3d_het' or a (flux_fn, "
-        f"max_eigenvalue_fn) pair, got {physics!r}"
+        "physics must be 'euler', 'navier_stokes', 'elastic3d_het', a (flux_fn, "
+        "max_eigenvalue_fn) pair or a (flux_fn, max_eigenvalue_fn, visc_flux_fn, "
+        f"visc_eigenvalue_fn) 4-tuple, got {physics!r}"
     )
 
 
@@ -54,11 +75,13 @@ def _reflect_pair(walls, n_vars: int, dim: int):
         return euler_reflect(dim, n_vars), euler_reflect_flux(dim, n_vars)
     if walls == "elastic3d_het_free_surface":
         return elastic3d_free_surface_het()
+    if walls == "noslip":
+        return noslip_reflect(dim), noslip_reflect_flux(dim)
     if isinstance(walls, tuple) and len(walls) == 2:
         return walls
     raise SemanticError(
-        "walls must be 'euler', 'elastic3d_het_free_surface' or a (reflect_fn, "
-        f"reflect_flux_fn) pair of the port's, got {walls!r}"
+        "walls must be 'euler', 'elastic3d_het_free_surface', 'noslip' or a "
+        f"(reflect_fn, reflect_flux_fn) pair of the port's, got {walls!r}"
     )
 
 
@@ -89,7 +112,7 @@ def _options_from_jax(jax_solver, walls):
     options = {
         name: getattr(jax_solver, name)
         for name in (*UNPORTED_OPTIONS, *PORTED_OPTIONS)
-        if name not in CALLBACK_OPTIONS and name not in WALL_HOOKS
+        if name not in (*CALLBACK_OPTIONS, *VISCOUS_OPTIONS, *WALL_HOOKS)
     }
     boundary = jax_solver.boundary
     if walls is not None and boundary != "reflective":
@@ -102,7 +125,7 @@ def _options_from_jax(jax_solver, walls):
             raise SemanticError(
                 "the JAX solver's reflect_fn/reflect_flux_fn are JAX functions the "
                 "port cannot call: name the port's pair with walls='euler', "
-                "'elastic3d_het_free_surface' or (reflect_fn, reflect_flux_fn)"
+                "'elastic3d_het_free_surface', 'noslip' or (reflect_fn, reflect_flux_fn)"
             )
         options["reflect_fn"], options["reflect_flux_fn"] = _reflect_pair(
             walls, jax_solver.n_vars, jax_solver.dim)
@@ -112,7 +135,8 @@ def _options_from_jax(jax_solver, walls):
 
 
 def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
-                    physics="euler", walls=None, device=None,
+                    physics="euler", walls=None, mu: float | None = None,
+                    prandtl: float | None = None, device=None,
                     dtype: torch.dtype = torch.float64) -> ADERDGSolver:
     """The port's :class:`ADERDGSolver` for a JAX ``ADERDGSolver``.
 
@@ -122,12 +146,17 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
     ``boundary``, ``farfield_state`` and ``wall_axes`` carry over; an
     option the port does not carry yet raises ``SemanticError``).  The JAX
     physics callbacks are opaque, so the caller names the physics:
-    ``"euler"`` with ``gamma`` (the default), ``"elastic3d_het"``
+    ``"euler"`` with ``gamma`` (the default), ``"navier_stokes"`` with
+    ``gamma``, ``mu`` and ``prandtl``
+    (:func:`~exahype_tpu_torch.models.navier_stokes.navier_stokes`, the four
+    callbacks of a viscous solver), ``"elastic3d_het"``
     (:func:`~exahype_tpu_torch.models.elastic.elastic3d_heterogeneous`), or
-    a (flux_fn, max_eigenvalue_fn) pair of the port's.  A JAX solver with
+    a (flux_fn, max_eigenvalue_fn) pair or (…, visc_flux_fn,
+    visc_eigenvalue_fn) 4-tuple of the port's.  A JAX solver with
     ``source_fn``, ``ncp_fn`` or ``rhs_all_fn`` set raises ``SemanticError``
     (those are JAX functions; the Z4 system crosses through
-    :func:`z4_solver_from_jax`).
+    :func:`z4_solver_from_jax`); so does one whose viscous callbacks the
+    named physics does not replace, or the other way round.
 
     Walls: outflow and farfield need nothing more; a Dirichlet solver's
     rows cross as data (``dirichlet_fn(d, side)`` of each wall, as NumPy,
@@ -135,23 +164,33 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
     functions, so the caller names them with ``walls``: ``"euler"``
     (:func:`~exahype_tpu_torch.models.aderdg.euler_reflect` and
     ``euler_reflect_flux``), ``"elastic3d_het_free_surface"``
-    (:func:`~exahype_tpu_torch.models.elastic.elastic3d_free_surface_het`)
-    or a (reflect_fn, reflect_flux_fn) pair of the port's.
+    (:func:`~exahype_tpu_torch.models.elastic.elastic3d_free_surface_het`),
+    ``"noslip"`` (:func:`~exahype_tpu_torch.models.navier_stokes.noslip_reflect`
+    and ``noslip_reflect_flux``) or a (reflect_fn, reflect_flux_fn) pair of
+    the port's.
     """
-    flux, eig = _physics_pair(physics, gamma, jax_solver.dim, jax_solver.n_vars)
+    callbacks = _physics_callbacks(physics, gamma, mu, prandtl, jax_solver.dim,
+                                   jax_solver.n_vars)
     for name in CALLBACK_OPTIONS:
         if getattr(jax_solver, name) is not None:
             raise SemanticError(
                 f"the JAX solver's {name} is a JAX function the port cannot "
                 "call; for the Z4 system use z4_solver_from_jax"
             )
+    viscous = getattr(jax_solver, "visc_flux_fn", None) is not None
+    if viscous != ("visc_flux_fn" in callbacks):
+        raise SemanticError(
+            "the JAX solver's viscous callbacks are JAX functions the port cannot "
+            "call: a viscous solver crosses with physics='navier_stokes' (and mu, "
+            "prandtl, gamma) or a port 4-tuple, and only a viscous one does (see "
+            "ROADMAP.md, Queue 1 item 3)"
+        )
     return ADERDGSolver(
         dim=jax_solver.dim,
         order=jax_solver.order,
         n_vars=jax_solver.n_vars,
         grid_shape=tuple(jax_solver.grid_shape),
-        flux_fn=flux,
-        max_eigenvalue_fn=eig,
+        **callbacks,
         dx=jax_solver.dx,
         picard_iters=jax_solver.picard_iters,
         basis=jax_solver.basis,

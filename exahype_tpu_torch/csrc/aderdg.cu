@@ -1,6 +1,9 @@
 // ADER-DG step on a 3-D grid for Hopper (sm_90a), periodic or closed by
 // domain walls: four kernels and the face stage's wall variant, templated
-// on the physics (3-D compressible Euler, 3-D heterogeneous elasticity).
+// on the physics (3-D compressible Euler, 3-D heterogeneous elasticity, and
+// for the face stage 3-D compressible Navier–Stokes, whose predictor is
+// csrc/aderdg_visc.cuh's).  The definitions both sources share are in
+// csrc/aderdg_common.cuh.
 //
 // Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
 // PallasADERDG.build (its pallas_call and the XLA face epilogue around it)
@@ -133,63 +136,34 @@
 // (256, 8, 128), so the walled stage has the periodic one's bound to within
 // that.  The Dirichlet rows come in the same layout as fwall, one block set
 // per side.
+//
+// Navier–Stokes (the face stage's viscous instance, NavierStokesPhysics:
+// Euler's flux and wave speed; if constexpr on Phys::kViscous, so the Euler
+// and elastic instances compile to the code they had).  The dissipation
+// speed of every solve gains the Gassner penalty 2(2N+1)/dx_d max(κ_a,
+// κ_b), κ = max(4/3, γ/Pr) μ/ρ (exahype_tpu/models/aderdg.py:865-876,
+// 900-908).  On a wall the ghost flux hook takes the advective part only:
+// S_f (f − fv) + fv with the sign table, F(ghost) + fv with the farfield
+// state or a Dirichlet row, fv the interior one-sided viscous flux of my own
+// face (:833-844, 920-929).  The predictor writes fv on the wall planes only
+// (the first row's low faces, side 0; the last row's high faces, side 1), in
+// the Dirichlet rows' layout, so a thread reads it at the offset it reads a
+// Dirichlet row at.  Its update is the Euler instance's: the update reads no
+// physics.
 
 #include <cuda_runtime.h>
 
+#include "aderdg_common.cuh"
 #include "elastic.cuh"
-#include "euler.cuh"
+
+// The viscous predictor's occupancy (csrc/aderdg_visc.cu and
+// aderdg_visc_f64.cu; weak, so that this file also builds and loads alone):
+// out as shape_info gives it, without (wall_planes = 0) or with the wall
+// planes.
+int visc_predictor_info_f32(int wall_planes, int* out) __attribute__((weak));
+int visc_predictor_info_f64(int wall_planes, int* out) __attribute__((weak));
 
 namespace {
-
-constexpr int kDim = 3;
-
-// Physics ids of the C interface.
-enum PhysicsId : int { kEuler = 0, kElasticHet = 1 };
-
-template <typename T>
-__device__ __forceinline__ T momentum(const T* q, int d) {
-  return d == 0 ? q[1] : (d == 1 ? q[2] : q[3]);
-}
-
-// Each physics: V variables (Euler: its fluxes(q, f) of all V rows along
-// every axis, for the Picard predictor; K2 calls csrc/elastic.cuh's flux
-// itself, with the materials it holds), max_eigenvalue(q, d), the dissipation weight of each row in the
-// Rusanov jump term (kMasked: whether any weight is not 1), and kFluxRows:
-// the rows 0..kFluxRows-1 whose face flux can be nonzero (the others have
-// zero flux and a zero weight, so their F̂ is zero and their state never
-// moves).
-template <typename T>
-struct EulerPhysics {
-  static constexpr int V = kDim + 2;
-  static constexpr int kFluxRows = V;
-  static constexpr bool kMasked = false;
-  T gm1;  // gamma - 1
-  T gamma;
-  static EulerPhysics make(const double* params) {
-    return {static_cast<T>(params[0] - 1.0), static_cast<T>(params[0])};
-  }
-  // The flux along every axis, with one 1/ρ and one pressure for all three.
-  __device__ __forceinline__ void fluxes(const T* q, T (&f)[kDim][V]) const {
-    const T inv_rho = T(1) / q[0];
-    const T p = euler_pressure_from<T, kDim>(q, inv_rho, gm1);
-#pragma unroll
-    for (int d = 0; d < kDim; ++d) euler_flux_from<T, kDim, V>(q, d, inv_rho, p, f[d]);
-  }
-  __device__ __forceinline__ T max_eigenvalue(const T* q, int d) const {
-    return euler_max_eigenvalue<T, kDim>(q, momentum(q, d), gm1, gamma);
-  }
-  // The flux along axis d (a wall's ghost flux F(ghost)); d is dispatched
-  // to compile-time axes, so q and f stay in registers.
-  __device__ __forceinline__ void flux_along(const T* q, int d, T* f) const {
-    const T inv_rho = T(1) / q[0];
-    const T p = euler_pressure_from<T, kDim>(q, inv_rho, gm1);
-#pragma unroll
-    for (int dd = 0; dd < kDim; ++dd) {
-      if (dd == d) euler_flux_from<T, kDim, V>(q, dd, inv_rho, p, f);
-    }
-  }
-  static __device__ __forceinline__ T dissipation(int) { return T(1); }
-};
 
 // The 12-variable heterogeneous elasticity of csrc/elastic.cuh with its CK
 // configuration compiled in: materials in slots 9-11 (kRho..kMu), the
@@ -201,6 +175,7 @@ struct ElasticHetPhysics {
   static constexpr int kFluxRows = kEvolved;
   static constexpr int kRho = 9, kLam = 10, kMu = 11;
   static constexpr bool kMasked = true;
+  static constexpr bool kViscous = false;
   static ElasticHetPhysics make(const double*) { return {}; }
   __device__ __forceinline__ T max_eigenvalue(const T* q, int) const {
     return elastic3d_het_eigenvalue<T>(q[kRho], q[kLam], q[kMu]);
@@ -216,23 +191,6 @@ struct ElasticHetPhysics {
   static __device__ __forceinline__ T dissipation(int v) {
     return v < kEvolved ? T(1) : T(0);
   }
-};
-
-template <typename T, int NN, typename Phys>
-struct Params {
-  T D[NN][NN];
-  T K1inv[NN][NN];
-  T Kvol[NN][NN];
-  T W[NN];
-  T PHI0[NN];
-  T PHI1[NN];
-  T PHI0W[NN];
-  T PHI1W[NN];
-  T dx[kDim];
-  Phys phys;
-  int picard_iters;
-  long long g[kDim];  // cell grid
-  long long ncell;
 };
 
 // Wall modes of the C interface: the ghost is my own face times a sign
@@ -253,31 +211,8 @@ struct WallParams {
   T* fwall;             // low-wall fluxes [wall axis][m][v][plane]
   long long off[kDim];  // element offset of axis d's block (wall axes)
   long long side;       // elements of one side of rows
+  const T* fv;          // viscous physics: the viscous-only wall fluxes, in rows' layout
 };
-
-// row[j] = mat[r][j] for a thread-dependent r, reading the parameter
-// bank at compile-time offsets only (a dynamic index into a kernel
-// parameter can make the compiler copy the struct to local memory).
-template <typename T, int NN>
-__device__ __forceinline__ void select_row(const T (&mat)[NN][NN], int r, T* row) {
-#pragma unroll
-  for (int i = 0; i < NN; ++i) {
-#pragma unroll
-    for (int j = 0; j < NN; ++j) {
-      if (i == r) row[j] = mat[i][j];
-    }
-  }
-}
-
-template <typename T, int NN>
-__device__ __forceinline__ T select(const T (&vec)[NN], int r) {
-  T out = vec[0];
-#pragma unroll
-  for (int i = 1; i < NN; ++i) {
-    if (i == r) out = vec[i];
-  }
-  return out;
-}
 
 // tbl[d][v] for a thread-dependent d and a compile-time v (see select_row).
 template <typename T, int V>
@@ -289,54 +224,6 @@ __device__ __forceinline__ T select_col(const T (&tbl)[kDim][V], int d, int v) {
   }
   return out;
 }
-
-// A cell's nodal rows in shared memory (u; K2 also q̄ and F̄_d), laid out
-// for the two predictors' compute mapping (a warp holds the 16 pencils of 2
-// cells): in each (v, i2) row, lane 2 p + (c % 2) of warp c / 2 finds its
-// word at 2 (p ^ i2) + (c % 2), rotated by 8 (c / 2), of the warp's 32,
-// conflict-free.  The rotation spreads the I/O mapping's accesses at one i2
-// (NF / (32 / CB) pencils x CB cells a warp) over the banks, and the XOR
-// with i2 those of K2's face projections along axes 0 and 1, which read
-// four i2 rows of one pencil at once.  load() stages the block's cells
-// from device memory in the I/O mapping (CB cells fastest, 32-byte runs);
-// at0 is the offset of the thread's pencil's node (j0, j1, 0), variable 0
-// and cell.
-template <int NN, int CB>
-struct PencilStage {
-  static constexpr int kNF = NN * NN;
-  static __device__ __forceinline__ int at(int v, int i2, int pencil, int cc) {
-    return (v * NN + i2) * (kNF * CB) + (cc / 2) * 32 +
-           (((pencil ^ i2) * 2 + (cc % 2) + (cc / 2) * 8) & 31);
-  }
-  template <typename T, int V>
-  static __device__ __forceinline__ void load(const T* __restrict__ u, T* s, int p_io, int c_io,
-                                              long long at0, long long ncell) {
-#pragma unroll
-    for (int i2 = 0; i2 < NN; ++i2) {
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        s[at(v, i2, p_io, c_io)] = u[at0 + static_cast<long long>(i2 * V + v) * ncell];
-      }
-    }
-  }
-};
-
-// Shared-memory layout of the Picard predictor's q̄ and F̄_d: per variable,
-// NN slabs of fixed i2, each the NF pencils (i0, i1) x CB cells, padded by
-// CB values, the cell index XOR-swizzled by 2 i0.  A warp of the I/O
-// mapping (fixed i0; i1 and the cell vary) reads a permutation of
-// contiguous words; the pad puts the four i2 slabs that the axis-1 face
-// projections read in one instruction on different banks; the swizzle
-// spreads the compute mapping's stores (16 pencils x 2 cells a warp) over
-// all 32 banks.
-template <int NN, int CB>
-struct Slabs {
-  static constexpr int kSlab = NN * NN * CB + CB;
-  static constexpr int kVar = NN * kSlab;
-  static __device__ __forceinline__ int at(int v, int i0, int i1, int i2, int c) {
-    return v * kVar + i2 * kSlab + (i0 * NN + i1) * CB + (c ^ ((2 * i0) & (CB - 1)));
-  }
-};
 
 // Dynamic shared memory of aderdg_predictor_volume: u, q̄ and F̄_d of the
 // block's cells.
@@ -893,7 +780,8 @@ aderdg_face_flux(const T* __restrict__ faces, T* __restrict__ fhat,
     fa[v] = base[3 * wstride + v * ncell + cell];
     fb[v] = base[2 * wstride + v * ncell + plus];
   }
-  const T s = dmax(P.phys.max_eigenvalue(qa, d), P.phys.max_eigenvalue(qb, d));
+  T s = dmax(P.phys.max_eigenvalue(qa, d), P.phys.max_eigenvalue(qb, d));
+  if constexpr (Phys::kViscous) s = s + P.phys.penalty(qa, qb, d);
   T* out = fhat + static_cast<long long>(d * NF + m) * V * ncell + cell;
 #pragma unroll
   for (int v = 0; v < R; ++v) {
@@ -963,7 +851,10 @@ __device__ __forceinline__ long long wall_offset(const WallParams<T, V>& W, int 
 // The ghost of wall (axis d, side) at face node m, plane index p, from my
 // own face state q and flux f: its state gq (all V rows) and flux gf (rows
 // 0..R-1).  A Dirichlet row is read from W.rows; the farfield and
-// Dirichlet ghost fluxes are the physics' flux of the ghost.
+// Dirichlet ghost fluxes are the physics' flux of the ghost.  A viscous
+// physics splits the flux: the ghost flux of the advective part f - fv
+// (the mirror's sign table, or F(ghost)), plus the interior one-sided
+// viscous part fv (W.fv, my cell's own projection to the wall).
 template <typename T, typename Phys>
 __device__ __forceinline__ void wall_ghost(const WallParams<T, Phys::V>& W, const Phys& phys,
                                            int d, int side, int m, long long plane,
@@ -974,8 +865,17 @@ __device__ __forceinline__ void wall_ghost(const WallParams<T, Phys::V>& W, cons
   if (W.mode == kMirror) {
 #pragma unroll
     for (int v = 0; v < V; ++v) gq[v] = select_col<T, V>(W.sq, d, v) * q[v];
+    if constexpr (Phys::kViscous) {
+      const T* fv = W.fv + side * W.side + wall_offset(W, d) + static_cast<long long>(m) * V * plane + p;
 #pragma unroll
-    for (int v = 0; v < R; ++v) gf[v] = select_col<T, V>(W.sf, d, v) * f[v];
+      for (int v = 0; v < R; ++v) {
+        const T fvv = fv[v * plane];
+        gf[v] = select_col<T, V>(W.sf, d, v) * (f[v] - fvv) + fvv;
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < R; ++v) gf[v] = select_col<T, V>(W.sf, d, v) * f[v];
+    }
     return;
   }
   if (W.mode == kFarfield) {
@@ -987,6 +887,11 @@ __device__ __forceinline__ void wall_ghost(const WallParams<T, Phys::V>& W, cons
     for (int v = 0; v < V; ++v) gq[v] = row[v * plane];
   }
   phys.flux_along(gq, d, gf);
+  if constexpr (Phys::kViscous) {
+    const T* fv = W.fv + side * W.side + wall_offset(W, d) + static_cast<long long>(m) * V * plane + p;
+#pragma unroll
+    for (int v = 0; v < R; ++v) gf[v] = gf[v] + fv[v * plane];
+  }
 }
 
 // The face stage's wall variant, first launch: aderdg_face_flux, except
@@ -1033,7 +938,8 @@ aderdg_face_flux_walls(const T* __restrict__ faces, T* __restrict__ fhat,
 #pragma unroll
     for (int v = 0; v < R; ++v) fl[v] = base[2 * wstride + v * ncell + cell];
     wall_ghost<T, Phys>(W, P.phys, d, 0, m, plane, p, ql, fl, gq, gf);
-    const T sw = dmax(P.phys.max_eigenvalue(ql, d), P.phys.max_eigenvalue(gq, d));
+    T sw = dmax(P.phys.max_eigenvalue(ql, d), P.phys.max_eigenvalue(gq, d));
+    if constexpr (Phys::kViscous) sw = sw + P.phys.penalty(ql, gq, d);
     T* w = W.fwall + wall_offset(W, d) + static_cast<long long>(m) * V * plane + p;
 #pragma unroll
     for (int v = 0; v < R; ++v) {
@@ -1042,7 +948,8 @@ aderdg_face_flux_walls(const T* __restrict__ faces, T* __restrict__ fhat,
       w[v * plane] = T(0.5) * (gf[v] + fl[v]) - T(0.5) * sw * dq;
     }
   }
-  const T s = dmax(P.phys.max_eigenvalue(qa, d), P.phys.max_eigenvalue(qb, d));
+  T s = dmax(P.phys.max_eigenvalue(qa, d), P.phys.max_eigenvalue(qb, d));
+  if constexpr (Phys::kViscous) s = s + P.phys.penalty(qa, qb, d);
   T* out = fhat + static_cast<long long>(d * NF + m) * V * ncell + cell;
 #pragma unroll
   for (int v = 0; v < R; ++v) {
@@ -1108,50 +1015,18 @@ aderdg_surface_update_walls(T* __restrict__ state, const T* __restrict__ fhat,
 
 // Host side ---------------------------------------------------------------
 
-// ops: D, K1inv, Kvol (NN*NN each, row-major), W, PHI0, PHI1, PHI0W, PHI1W
-// (NN each), float64, as DGOperators builds them.  params: the physics'
-// parameters (Euler: gamma; elasticity: none).
-template <typename T, int NN, typename Phys>
-Params<T, NN, Phys> make_params(const double* ops, const double* dx, int picard_iters,
-                                const double* params, long long g0, long long g1,
-                                long long g2) {
-  Params<T, NN, Phys> P;
-  const double* o = ops;
-  for (int i = 0; i < NN; ++i)
-    for (int j = 0; j < NN; ++j) P.D[i][j] = static_cast<T>(o[i * NN + j]);
-  o += NN * NN;
-  for (int i = 0; i < NN; ++i)
-    for (int j = 0; j < NN; ++j) P.K1inv[i][j] = static_cast<T>(o[i * NN + j]);
-  o += NN * NN;
-  for (int i = 0; i < NN; ++i)
-    for (int j = 0; j < NN; ++j) P.Kvol[i][j] = static_cast<T>(o[i * NN + j]);
-  o += NN * NN;
-  T* vecs[5] = {P.W, P.PHI0, P.PHI1, P.PHI0W, P.PHI1W};
-  for (int k = 0; k < 5; ++k) {
-    for (int i = 0; i < NN; ++i) vecs[k][i] = static_cast<T>(o[i]);
-    o += NN;
-  }
-  for (int d = 0; d < kDim; ++d) P.dx[d] = static_cast<T>(dx[d]);
-  P.phys = Phys::make(params);
-  P.picard_iters = picard_iters;
-  P.g[0] = g0;
-  P.g[1] = g1;
-  P.g[2] = g2;
-  P.ncell = g0 * g1 * g2;
-  return P;
-}
-
 // The face stage's wall description from the C interface's arguments (see
 // there); all zero for mask == 0, no ghost tables without `table` (the
 // update reads only the mask, fwall and the offsets).
 template <typename T, int V>
 WallParams<T, V> make_walls(int mask, int mode, const double* table, const T* rows, T* fwall,
-                            const long long* off, long long side) {
+                            const long long* off, long long side, const T* fv = nullptr) {
   WallParams<T, V> W{};
   if (mask == 0) return W;
   W.mask = mask;
   W.mode = mode;
   W.rows = rows;
+  W.fv = fv;
   W.fwall = fwall;
   W.side = side;
   for (int d = 0; d < kDim; ++d) W.off[d] = off[d];
@@ -1183,26 +1058,6 @@ bool bad_ghosts(int mask, int mode, const double* table, const void* rows) {
   return mode == kDirichlet && rows == nullptr;
 }
 
-// Cells per block: a full 32-byte sector of cells for every (node, var).
-template <typename T>
-constexpr int cells_per_block() { return 32 / static_cast<int>(sizeof(T)); }
-
-// Let `kernel` take `smem` bytes of dynamic shared memory: the opt-in
-// above the 48 KB default (a host call of about a microsecond, made at every
-// launch so that it holds on whichever card is current).
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
-constexpr int kNN = 4;  // order 3
-
-bool bad_grid(int order, long long g0, long long g1, long long g2) {
-  return order != kNN - 1 || g0 <= 0 || g1 <= 0 || g2 <= 0;
-}
-
 // Tiles of the face stage (kTile cells of one row of the last axis), or 0
 // if the update kernel's block index (tiles x its node groups) or a grid
 // coordinate would not fit a 32-bit int.
@@ -1212,14 +1067,6 @@ long long face_tiles(int order, long long g0, long long g1, long long g2) {
   const long long tiles = g0 * g1 * ((g2 + kTile - 1) / kTile);
   return tiles * (kNN * kNN * kNN / kUpdateNodes) > kMax ? 0 : tiles;
 }
-
-// Each kernel's function, block and dynamic shared memory, as its launcher
-// uses them (and the occupancy query reports them).
-struct Shape {
-  const void* fn;
-  dim3 block;
-  size_t smem;
-};
 
 template <typename T, typename Phys>
 Shape predictor_shape() {
@@ -1358,12 +1205,16 @@ template <typename T, typename Phys>
 int face_flux_of(const T* faces, T* fhat, const double* ops, const double* dx, int order,
                  const double* params, long long g0, long long g1, long long g2, int wall_mask,
                  int wall_mode, const double* wall_table, const T* wall_rows, T* fwall,
-                 const long long* wall_off, long long wall_side, void* stream) {
+                 const long long* wall_off, long long wall_side, const T* visc_rows,
+                 void* stream) {
   if (bad_walls(wall_mask, fwall, wall_off) ||
       bad_ghosts(wall_mask, wall_mode, wall_table, wall_rows))
     return cudaErrorInvalidValue;
+  // The viscous wall split: the wall fluxes of a viscous physics with walls,
+  // and only then.
+  if ((visc_rows != nullptr) != (Phys::kViscous && wall_mask != 0)) return cudaErrorInvalidValue;
   const auto W = make_walls<T, Phys::V>(wall_mask, wall_mode, wall_table, wall_rows, fwall,
-                                        wall_off, wall_side);
+                                        wall_off, wall_side, visc_rows);
   if (wall_mask == 0)
     return launch_face_flux<T, Phys, false>(faces, fhat, ops, dx, order, params, g0, g1, g2, W,
                                             stream);
@@ -1376,17 +1227,22 @@ int face_flux(const T* faces, T* fhat, const double* ops, const double* dx,
               int order, int physics, const double* params, long long g0, long long g1,
               long long g2, int wall_mask, int wall_mode, const double* wall_table,
               const T* wall_rows, T* fwall, const long long* wall_off, long long wall_side,
-              void* stream) {
+              const T* visc_rows, void* stream) {
   switch (physics) {
     case kEuler:
       return face_flux_of<T, EulerPhysics<T>>(faces, fhat, ops, dx, order, params, g0, g1, g2,
                                               wall_mask, wall_mode, wall_table, wall_rows,
-                                              fwall, wall_off, wall_side, stream);
+                                              fwall, wall_off, wall_side, visc_rows, stream);
     case kElasticHet:
       return face_flux_of<T, ElasticHetPhysics<T>>(faces, fhat, ops, dx, order, params, g0, g1,
                                                    g2, wall_mask, wall_mode, wall_table,
                                                    wall_rows, fwall, wall_off, wall_side,
-                                                   stream);
+                                                   visc_rows, stream);
+    case kNavierStokes:
+      return face_flux_of<T, NavierStokesPhysics<T>>(faces, fhat, ops, dx, order, params, g0,
+                                                     g1, g2, wall_mask, wall_mode, wall_table,
+                                                     wall_rows, fwall, wall_off, wall_side,
+                                                     visc_rows, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1414,6 +1270,7 @@ int surface_update(T* state, const T* fhat, const T* dt_ptr, double dt_val, cons
                    const long long* wall_off, void* stream) {
   switch (physics) {
     case kEuler:
+    case kNavierStokes:  // the update reads no physics: Euler's instantiation
       return surface_update_of<T, EulerPhysics<T>>(state, fhat, dt_ptr, dt_val, ops, dx, order,
                                                    params, g0, g1, g2, wall_mask, fwall,
                                                    wall_off, stream);
@@ -1426,32 +1283,30 @@ int surface_update(T* state, const T* fhat, const T* dt_ptr, double dt_val, cons
   }
 }
 
-// Registers, resident blocks per SM, threads per block, dynamic shared
-// memory and local (spill) bytes of one kernel, into out[0..4].
-int shape_info(const Shape& sh, int* out) {
-  if (sh.smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sh.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(sh.smem));
-    if (e != cudaSuccess) return e;
-  }
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, sh.fn);
-  if (e != cudaSuccess) return e;
-  const int threads = static_cast<int>(sh.block.x * sh.block.y * sh.block.z);
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sh.fn, threads, sh.smem);
-  if (e != cudaSuccess) return e;
-  out[0] = a.numRegs;
-  out[1] = blocks;
-  out[2] = threads;
-  out[3] = static_cast<int>(sh.smem);
-  out[4] = static_cast<int>(a.localSizeBytes);
-  return cudaSuccess;
-}
-
 template <typename T>
 int kernel_info(int kernel, int physics, int* out) {
   const bool euler = physics == kEuler;
+  if (physics == kNavierStokes) {
+    // The viscous predictor, the face flux's own instantiation; the update
+    // is Euler's.
+    using N = NavierStokesPhysics<T>;
+    switch (kernel) {
+      case 2:
+        return shape_info(face_flux_shape<T, N, false>(), out);
+      case 4:
+        return shape_info(face_flux_shape<T, N, true>(), out);
+      case 3:
+      case 5:
+        return kernel_info<T>(kernel, kEuler, out);
+      case 6:
+      case 7: {
+        auto* info = sizeof(T) == 8 ? visc_predictor_info_f64 : visc_predictor_info_f32;
+        return info ? info(kernel == 7, out) : cudaErrorInvalidValue;
+      }
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
   if (physics != kEuler && physics != kElasticHet) return cudaErrorInvalidValue;
   using E = EulerPhysics<T>;
   using H = ElasticHetPhysics<T>;
@@ -1503,7 +1358,15 @@ extern "C" {
 // i_d dropped, row-major), axis d's block at element wall_off[d];
 // wall_rows (dirichlet): the ghost rows in fwall's layout, side 1's at
 // element wall_side.  face_flux_walls writes fwall (its zero rows unwritten
-// as in fhat), surface_update_walls reads it.
+// as in fhat), surface_update_walls reads it.  visc_rows (physics 2 only,
+// and then required): the viscous-only time-averaged flux of each wall
+// axis's first row's low faces and last row's high faces, in wall_rows'
+// layout (aderdg_predictor_volume_visc writes it); null otherwise.
+//
+// physics 2 = 3-D compressible Navier–Stokes (params: gamma, mu,
+// max(4/3, gamma/Pr), kappa_T, 2(2N+1)/dx_d for each axis): the face flux
+// is its own instantiation (the Gassner penalty, the viscous wall split),
+// the update Euler's; its predictor is csrc/aderdg_visc.cu's.
 
 int exahype_aderdg_predictor_volume_f32(const float* u, float* out, float* faces,
                                         const float* dt_ptr, double dt_val,
@@ -1548,7 +1411,7 @@ int exahype_aderdg_face_flux_f32(const float* faces, float* fhat,
                                  const double* params, long long g0, long long g1, long long g2,
                                  void* stream) {
   return face_flux<float>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, 0, 0,
-                          nullptr, nullptr, nullptr, nullptr, 0, stream);
+                          nullptr, nullptr, nullptr, nullptr, 0, nullptr, stream);
 }
 
 int exahype_aderdg_face_flux_f64(const double* faces, double* fhat,
@@ -1556,7 +1419,7 @@ int exahype_aderdg_face_flux_f64(const double* faces, double* fhat,
                                  const double* params, long long g0, long long g1, long long g2,
                                  void* stream) {
   return face_flux<double>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, 0, 0,
-                           nullptr, nullptr, nullptr, nullptr, 0, stream);
+                           nullptr, nullptr, nullptr, nullptr, 0, nullptr, stream);
 }
 
 int exahype_aderdg_surface_update_f32(float* state, const float* fhat, const float* dt_ptr,
@@ -1581,10 +1444,12 @@ int exahype_aderdg_face_flux_walls_f32(const float* faces, float* fhat, const do
                                        long long g2, int wall_mask, int wall_mode,
                                        const double* wall_table, const float* wall_rows,
                                        float* fwall, const long long* wall_off,
-                                       long long wall_side, void* stream) {
+                                       long long wall_side, const float* visc_rows,
+                                       void* stream) {
   if (no_walls(wall_mask)) return cudaErrorInvalidValue;
   return face_flux<float>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, wall_mask,
-                          wall_mode, wall_table, wall_rows, fwall, wall_off, wall_side, stream);
+                          wall_mode, wall_table, wall_rows, fwall, wall_off, wall_side,
+                          visc_rows, stream);
 }
 
 int exahype_aderdg_face_flux_walls_f64(const double* faces, double* fhat, const double* ops,
@@ -1593,10 +1458,12 @@ int exahype_aderdg_face_flux_walls_f64(const double* faces, double* fhat, const 
                                        long long g2, int wall_mask, int wall_mode,
                                        const double* wall_table, const double* wall_rows,
                                        double* fwall, const long long* wall_off,
-                                       long long wall_side, void* stream) {
+                                       long long wall_side, const double* visc_rows,
+                                       void* stream) {
   if (no_walls(wall_mask)) return cudaErrorInvalidValue;
   return face_flux<double>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, wall_mask,
-                           wall_mode, wall_table, wall_rows, fwall, wall_off, wall_side, stream);
+                           wall_mode, wall_table, wall_rows, fwall, wall_off, wall_side,
+                           visc_rows, stream);
 }
 
 int exahype_aderdg_surface_update_walls_f32(float* state, const float* fhat,
@@ -1627,7 +1494,9 @@ int exahype_aderdg_surface_update_walls_f64(double* state, const double* fhat,
 // block, dynamic shared memory bytes and local (spill) bytes per thread of
 // one kernel as its launcher launches it: kernel 0 = predictor_volume,
 // 1 = ck_predictor_volume, 2 = face_flux, 3 = surface_update,
-// 4 = face_flux_walls, 5 = surface_update_walls; f64 = 0 or 1.
+// 4 = face_flux_walls, 5 = surface_update_walls, 6 and 7 =
+// predictor_volume_visc without and with the wall planes (physics 2: the
+// face stage and 6, 7 only); f64 = 0 or 1.
 int exahype_aderdg_kernel_info(int kernel, int f64, int physics, int* out) {
   return f64 ? kernel_info<double>(kernel, physics, out)
              : kernel_info<float>(kernel, physics, out);

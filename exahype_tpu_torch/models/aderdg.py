@@ -24,9 +24,15 @@ between them is one tensor ``[dim, 4, n^(dim-1), n_vars, *grid]`` holding
 ``(q_lo, q_hi, f_lo, f_hi)`` per axis, each in the JAX package's face
 layout.
 
-Options of the JAX solver that are not ported yet (the viscous fluxes,
-``reuse_last_flux``) raise :class:`SemanticError` naming ``ROADMAP.md``; so
-does any CK combination with sources or non-conservative products.
+The viscous fluxes ``visc_flux_fn`` / ``visc_eigenvalue_fn`` (the
+compressible Navier–Stokes class, ``models/navier_stokes.py``) ride the
+Picard predictor and the time averages on the polynomial's own gradients,
+add the Gassner penalty to the face dissipation speed and the parabolic
+term to ``cfl_dt``; on a walled viscous solver the face stage also takes
+the viscous-only time-averaged flux on the wall planes (a side tensor, see
+:meth:`ADERDGSolver.predictor_volume`).  ``reuse_last_flux`` is not ported
+and raises :class:`SemanticError` naming ``ROADMAP.md``; so does any CK
+combination with sources or non-conservative products.
 
 Also the port's copies of the JAX wall hooks: :func:`euler_reflect`,
 :func:`euler_reflect_flux` (sign tables, ``.signs``, so the CUDA face stage
@@ -200,13 +206,9 @@ def make_dirichlet_fn(state_fn: Callable, *, dim: int, order: int,
 #: the value that means "off" and where ``ROADMAP.md`` lists them.  Any
 #: other value raises.
 UNPORTED_OPTIONS = {
-    "visc_flux_fn": None,
-    "visc_eigenvalue_fn": None,
     "reuse_last_flux": False,
 }
 _UNPORTED_WHERE = {
-    "visc_flux_fn": "Queue 1 item 3",
-    "visc_eigenvalue_fn": "Queue 1 item 3",
     "reuse_last_flux": "Queue 1 (not to be ported: measured as a loss)",
 }
 BOUNDARIES = ("periodic", "reflective", "outflow", "farfield", "dirichlet")
@@ -215,7 +217,7 @@ PORTED_OPTIONS = (
     "predictor_mode", "ck_material_slots", "dissipation_mask",
     "source_fn", "ncp_fn", "rhs_all_fn",
     "boundary", "farfield_state", "dirichlet_fn", "reflect_fn",
-    "reflect_flux_fn", "wall_axes",
+    "reflect_flux_fn", "wall_axes", "visc_flux_fn", "visc_eigenvalue_fn",
 )
 #: The wall options that are callbacks (a JAX solver's are JAX functions,
 #: which the port cannot call).
@@ -223,6 +225,9 @@ WALL_HOOKS = ("dirichlet_fn", "reflect_fn", "reflect_flux_fn")
 #: The ported options that are physics callbacks (a JAX solver's are JAX
 #: functions, which the port cannot call).
 CALLBACK_OPTIONS = ("source_fn", "ncp_fn", "rhs_all_fn")
+#: The viscous callbacks (the kernels carry them for the tagged Navier–Stokes
+#: callbacks only, ``models/aderdg_cuda.py``).
+VISCOUS_OPTIONS = ("visc_flux_fn", "visc_eigenvalue_fn")
 
 
 class ADERDGSolver(nn.Module):
@@ -264,6 +269,15 @@ class ADERDGSolver(nn.Module):
     the grid axes that carry walls (None: all); the others stay periodic.
     The predictor is boundary-independent: walls only change the face
     stage (:meth:`face_update`).
+
+    ``visc_flux_fn(Q, grads, axis, var_axis)`` and ``visc_eigenvalue_fn(Q,
+    axis, var_axis)`` keep the JAX solver's contract and checks (set
+    together; Picard only): the viscous flux, from the physical gradients
+    of the space-time polynomial, joins the flux in every Picard iteration
+    and in the time averages; the face dissipation speed gains the penalty
+    2(2N+1)/dx_d·max(κ⁻, κ⁺); on a wall the ghost flux hook takes the
+    advective part only and the interior one-sided viscous flux is added
+    back; ``cfl_dt`` gains the parabolic term.
     """
 
     def __init__(
@@ -292,6 +306,8 @@ class ADERDGSolver(nn.Module):
         reflect_fn: Callable | None = None,
         reflect_flux_fn: Callable | None = None,
         wall_axes: tuple | None = None,
+        visc_flux_fn: Callable | None = None,
+        visc_eigenvalue_fn: Callable | None = None,
         **options,
     ):
         super().__init__()
@@ -309,6 +325,15 @@ class ADERDGSolver(nn.Module):
         if predictor_mode not in ("picard", "ck"):
             raise SemanticError(
                 f"predictor_mode must be 'picard' or 'ck', got {predictor_mode!r}"
+            )
+        if (visc_flux_fn is None) != (visc_eigenvalue_fn is None):
+            raise SemanticError(
+                "visc_flux_fn and visc_eigenvalue_fn must be set together"
+            )
+        if predictor_mode == "ck" and visc_flux_fn is not None:
+            raise SemanticError(
+                "the Cauchy–Kovalewski (linear) predictor does not support "
+                "viscous fluxes — use predictor_mode='picard'"
             )
         hooks = {"source_fn": source_fn, "ncp_fn": ncp_fn, "rhs_all_fn": rhs_all_fn}
         for name, fn in hooks.items():
@@ -358,6 +383,8 @@ class ADERDGSolver(nn.Module):
         self.source_fn = source_fn
         self.ncp_fn = ncp_fn
         self.rhs_all_fn = rhs_all_fn
+        self.visc_flux_fn = visc_flux_fn
+        self.visc_eigenvalue_fn = visc_eigenvalue_fn
         self._set_walls(boundary, farfield_state, dirichlet_fn, reflect_fn,
                         reflect_flux_fn, wall_axes)
         self.ops = DGOperators(self.order, basis=basis)
@@ -505,6 +532,40 @@ class ADERDGSolver(nn.Module):
     def dofs(self) -> int:
         return int(np.prod(self.grid_shape)) * self.n_nodes**self.dim * self.n_vars
 
+    @property
+    def splits_wall_viscosity(self) -> bool:
+        """Whether the face stage needs the viscous-only wall fluxes (a
+        viscous solver with a wall): then :meth:`predictor_volume` returns
+        them as its ``fvwall`` (else None), and :meth:`face_surface` takes
+        them."""
+        return self.visc_flux_fn is not None and any(
+            self.is_wall(d) for d in range(self.dim))
+
+    def wall_planes(self) -> dict:
+        """Each wall axis's face-row shape (the other node axes, the var
+        axis, the grid with the axis cut to 1), by axis in order."""
+        return {
+            d: (self.n_nodes,) * (self.dim - 1) + (self.n_vars,)
+            + tuple(1 if e == d else g for e, g in enumerate(self.grid_shape))
+            for d in range(self.dim) if self.is_wall(d)
+        }
+
+    def visc_wall_rows(self, fvwall) -> dict:
+        """``{d: (fv_lo, fv_hi)}``: views of the side tensor ``fvwall`` of
+        :meth:`predictor_volume`, each shaped like one face row of wall axis
+        ``d``.  The layout is ``[side][wall axis][face row]``: side 0 holds
+        the first row's low-face projections, side 1 the last row's
+        high-face projections, the wall axes in order within a side."""
+        planes = self.wall_planes()
+        half = sum(int(np.prod(shape)) for shape in planes.values())
+        rows, off = {}, 0
+        for d, shape in planes.items():
+            n = int(np.prod(shape))
+            rows[d] = tuple(fvwall[side * half + off:side * half + off + n].view(shape)
+                            for side in (0, 1))
+            off += n
+        return rows
+
     # ----------------------------------------------------------- wall ghosts
 
     def _farfield_ghost(self, Q, axis, var_axis):
@@ -541,15 +602,20 @@ class ADERDGSolver(nn.Module):
 
     # ------------------------------------------------------------- predictor
 
-    def predictor(self, u, dt):
+    def predictor(self, u, dt, return_visc: bool = False):
         """The time-averaged state ``qbar`` and time-averaged fluxes
         ``fbar[d]`` — and, with ``source_fn``, the time-averaged source
         ``sbar`` as a third element, as the JAX solver returns them: the
         Picard iteration, or the Cauchy–Kovalewski recursion with
-        ``predictor_mode="ck"``."""
+        ``predictor_mode="ck"``.  ``return_visc=True`` (viscous solvers)
+        appends the viscous-only part ``fvbar[d]`` of the time-averaged
+        fluxes."""
         if self.predictor_mode == "ck":
+            # Viscosity is refused with CK at construction.
             return self._predictor_ck(u, dt)
-        return self._predictor_picard(u, dt)
+        if return_visc and self.visc_flux_fn is None:
+            raise SemanticError("return_visc requires visc_flux_fn")
+        return self._predictor_picard(u, dt, return_visc)
 
     def _predictor_ck(self, u, dt):
         """Cauchy–Kovalewski predictor (the JAX ``_predictor_ck``, in its
@@ -591,11 +657,13 @@ class ADERDGSolver(nn.Module):
             for e in range(self.dim)
         )
 
-    def _predictor_picard(self, u, dt):
+    def _predictor_picard(self, u, dt, return_visc: bool = False):
         """Picard iteration; returns the time-averaged state ``qbar``,
-        time-averaged fluxes ``fbar[d]`` and, with ``source_fn``, source
-        ``sbar``.  Space-time arrays carry a leading time-node axis (all
-        state axes shift by one)."""
+        time-averaged fluxes ``fbar[d]``, with ``source_fn`` the source
+        ``sbar`` and with ``return_visc`` the viscous-only fluxes
+        ``fvbar[d]``.  Space-time arrays carry a leading time-node axis (all
+        state axes shift by one).  The viscous flux takes the gradients of
+        the iterate (the time averages: of the final q)."""
         nn_ = self.n_nodes
         va = 1 + self.var_axis  # var axis inside space-time arrays
         tshape = (nn_,) + (1,) * u.dim()
@@ -605,11 +673,15 @@ class ADERDGSolver(nn.Module):
         w_t = self.weights.to(u.dtype).reshape(tshape)
         K1inv = self.K1inv.to(u.dtype)
         per_axis_ncp = self.ncp_fn is not None and self.rhs_all_fn is None
+        visc = self.visc_flux_fn
         for _ in range(self.picard_iters):
             rhs = f0u
+            grads = self._grads(q, 1) if visc is not None else None
             for d in range(self.dim):
                 lam = dt / self._dxs[d]
                 F = self.flux_fn(q, d, va)
+                if grads is not None:
+                    F = F + visc(q, grads, d, va)
                 dF = _apply(self.D, F, axis=1 + self.node_axis(d))
                 rhs = rhs - lam * w_t * dF
                 if per_axis_ncp:
@@ -623,23 +695,38 @@ class ADERDGSolver(nn.Module):
                 rhs = rhs + dt * w_t * self.source_fn(q, va)
             q = torch.tensordot(K1inv, rhs, dims=([1], [0]))
         qbar = _project(self.weights, q, 0)
-        fbar = [
-            _project(self.weights, self.flux_fn(q, d, va), 0)
-            for d in range(self.dim)
-        ]
+        grads = self._grads(q, 1) if visc is not None else None
+        fbar, fvbar = [], []
+        for d in range(self.dim):
+            F = self.flux_fn(q, d, va)
+            if grads is not None:
+                Fv = visc(q, grads, d, va)
+                F = F + Fv
+                if return_visc:
+                    fvbar.append(_project(self.weights, Fv, 0))
+            fbar.append(_project(self.weights, F, 0))
+        out = (qbar, fbar)
         if self.source_fn is not None:
-            return qbar, fbar, _project(self.weights, self.source_fn(q, va), 0)
-        return qbar, fbar
+            out += (_project(self.weights, self.source_fn(q, va), 0),)
+        if return_visc:
+            out += (fvbar,)
+        return out
 
     # ------------------------------------------------------------- corrector
 
     def predictor_volume(self, u, dt):
         """Cell-local half of the step (the plain version of the
-        ``aderdg_predictor_volume`` kernel): predictor, volume terms
+        ``aderdg_predictor_volume`` kernel, and for a viscous solver of
+        ``aderdg_predictor_volume_visc``): predictor, volume terms
         ``new = u + dt·s̄ + Σ_d λ_d·Kvol·F̄_d`` (and the NCP's strong-form
         volume term), and the face projections of q̄ and F̄_d for every
-        axis.  Returns ``(new, faces)`` (see :attr:`face_shape`)."""
-        pred = self.predictor(u, dt)
+        axis.  Returns ``(new, faces, fvwall)`` (see :attr:`face_shape`):
+        ``fvwall`` is None unless :attr:`splits_wall_viscosity`, and then the
+        viscous-only time-averaged flux of each wall axis projected to its
+        wall planes only (the first row's low faces, the last row's high
+        faces; layout :meth:`visc_wall_rows`)."""
+        split = self.splits_wall_viscosity
+        pred = self.predictor(u, dt, return_visc=split)
         qbar, fbar = pred[:2]
         new = u + dt * pred[2] if self.source_fn is not None else u
         va = self.var_axis
@@ -666,22 +753,42 @@ class ADERDGSolver(nn.Module):
                 _project(self.phi0, fbar[d], na),
                 _project(self.phi1, fbar[d], na),
             ]))
-        return new, torch.stack(faces).reshape(self.face_shape)
+        faces = torch.stack(faces).reshape(self.face_shape)
+        if not split:
+            return new, faces, None
+        fvbar, rows = pred[-1], {}
+        for d in self.wall_planes():
+            ga, g = self.grid_axis(d), self.grid_shape[d]
+            rows[d] = (_project(self.phi0, fvbar[d].narrow(ga, 0, 1), self.node_axis(d)),
+                       _project(self.phi1, fvbar[d].narrow(ga, g - 1, 1), self.node_axis(d)))
+        fvwall = torch.cat([rows[d][side].reshape(-1) for side in (0, 1) for d in rows])
+        return new, faces, fvwall
 
-    def face_surface(self, new, faces, dt, return_face_fluxes: bool = False):
+    def face_surface(self, new, faces, dt, return_face_fluxes: bool = False,
+                     fvwall=None):
         """Neighbour half of the step (the plain version of the face stage,
         ``aderdg_face_flux`` + ``aderdg_surface_update``): the Rusanov flux
         of every face and the surface update, axis by axis.  Returns the
         updated state (a new tensor; ``new`` is not modified), and with
         ``return_face_fluxes`` also each axis's high-face fluxes (see
-        :meth:`face_update`)."""
+        :meth:`face_update`).  ``fvwall``: the viscous-only wall fluxes of
+        :meth:`predictor_volume`, which a solver that
+        :attr:`splits_wall_viscosity` needs and no other takes."""
+        if (fvwall is not None) != self.splits_wall_viscosity:
+            raise SemanticError(
+                "fvwall (the viscous-only wall fluxes of predictor_volume) goes "
+                "with a viscous solver with walls, and only with one"
+            )
+        visc_rows = self.visc_wall_rows(fvwall) if fvwall is not None else {}
         fshape = self.face_flux_shape
         fluxes = []
         for d in range(self.dim):
             q_lo, q_hi, f_lo, f_hi = (
                 faces[d, k].reshape(fshape) for k in range(4)
             )
-            new, fhat_hi = self.face_update(new, q_lo, q_hi, f_lo, f_hi, d, dt)
+            fv_lo, fv_hi = visc_rows.get(d, (None, None))
+            new, fhat_hi = self.face_update(new, q_lo, q_hi, f_lo, f_hi, d, dt,
+                                            fv_lo=fv_lo, fv_hi=fv_hi)
             fluxes.append(fhat_hi)
         if return_face_fluxes:
             return new, fluxes
@@ -697,19 +804,21 @@ class ADERDGSolver(nn.Module):
         The JAX solver interleaves each axis's volume and surface terms;
         here all volume terms come first, as in the kernels, which moves
         the sum's rounding only."""
-        new, faces = self.predictor_volume(u, dt)
-        return self.face_surface(new, faces, dt, return_face_fluxes)
+        new, faces, fvwall = self.predictor_volume(u, dt)
+        return self.face_surface(new, faces, dt, return_face_fluxes, fvwall)
 
-    def face_update(self, new, q_lo, q_hi, f_lo, f_hi, d, dt):
+    def face_update(self, new, q_lo, q_hi, f_lo, f_hi, d, dt, fv_lo=None, fv_hi=None):
         """Riemann solve + surface (and NCP-fluctuation) corrector update
         for direction ``d`` from face-extrapolated time-averaged state/flux
         (periodic neighbours, or the wall ghosts on a wall axis).  Returns
         ``(new, fhat_hi)``: the updated state and the Rusanov flux through
         each cell's high face, nodal over the transverse node axes
         (:attr:`face_flux_shape`; on a wall axis its last row is the
-        high-wall flux)."""
-        fhat_hi = self.interface_flux(q_lo, q_hi, f_lo, f_hi, d)
-        fhat_wall = self.low_wall_flux(q_lo, f_lo, d)
+        high-wall flux).  ``fv_lo`` / ``fv_hi`` (a viscous solver's wall
+        axis): the viscous-only flux of the first row's low faces and the
+        last row's high faces, one face row each."""
+        fhat_hi = self.interface_flux(q_lo, q_hi, f_lo, f_hi, d, fv_hi)
+        fhat_wall = self.low_wall_flux(q_lo, f_lo, d, fv_lo)
         new = self.surface_term(new, fhat_hi, d, dt, fhat_wall)
         if self.ncp_fn is not None:
             # Path-conservative face fluctuations: the central parts
@@ -736,10 +845,12 @@ class ADERDGSolver(nn.Module):
             )
         return new, fhat_hi
 
-    def _plus(self, q_lo, q_hi, f_lo, f_hi, d):
+    def _plus(self, q_lo, q_hi, f_lo, f_hi, d, fv_hi=None):
         """The right state and flux of each cell's high face: the +d
         neighbour's low face (periodic), and on a wall axis the high-wall
-        ghost of my own high face in the last row."""
+        ghost of my own high face in the last row (with ``fv_hi``, the
+        ghost flux hook on the advective part only, the viscous part the
+        interior one-sided value)."""
         face_grid_ax = self.grid_axis(d) - 1
         q_plus = torch.roll(q_lo, -1, face_grid_ax)
         f_plus = torch.roll(f_lo, -1, face_grid_ax)
@@ -748,10 +859,13 @@ class ADERDGSolver(nn.Module):
             g = q_hi.shape[face_grid_ax]
             last = q_hi.narrow(face_grid_ax, g - 1, 1)
             f_last = f_hi.narrow(face_grid_ax, g - 1, 1)
+            if fv_hi is not None:
+                wall_f = self._wall_ghost_flux(f_last - fv_hi, d, 1, face_va) + fv_hi
+            else:
+                wall_f = self._wall_ghost_flux(f_last, d, 1, face_va)
             q_plus = _replace_row(q_plus, self._wall_ghost(last, d, 1, face_va),
                                   face_grid_ax, g - 1)
-            f_plus = _replace_row(f_plus, self._wall_ghost_flux(f_last, d, 1, face_va),
-                                  face_grid_ax, g - 1)
+            f_plus = _replace_row(f_plus, wall_f, face_grid_ax, g - 1)
         return q_plus, f_plus
 
     def _masked(self, dq):
@@ -759,27 +873,38 @@ class ADERDGSolver(nn.Module):
             return dq * self.dmask.to(dq.dtype)
         return dq
 
-    def interface_flux(self, q_lo, q_hi, f_lo, f_hi, d):
+    def _speed(self, qa, qb, d):
+        """The Rusanov dissipation speed of a face between ``qa`` and ``qb``
+        (var axis reduced): the larger wave speed, plus with viscosity the
+        Gassner penalty 2(2N+1)/dx_d·max(κ_a, κ_b)."""
+        face_va = self.var_axis - 1
+        s = torch.maximum(self.max_eigenvalue_fn(qa, d, face_va),
+                          self.max_eigenvalue_fn(qb, d, face_va))
+        if self.visc_eigenvalue_fn is not None:
+            kappa = torch.maximum(self.visc_eigenvalue_fn(qa, d, face_va),
+                                  self.visc_eigenvalue_fn(qb, d, face_va))
+            s = s + 2.0 * (2 * self.order + 1) / self._dxs[d] * kappa
+        return s.unsqueeze(face_va)
+
+    def interface_flux(self, q_lo, q_hi, f_lo, f_hi, d, fv_hi=None):
         """The Rusanov flux through each cell's high face along ``d``
         (:attr:`face_flux_shape`; the plain version of the
         ``aderdg_face_flux`` kernel, one axis): left state my high face,
-        right state the +d neighbour's low face, or the high-wall ghost."""
-        face_va = self.var_axis - 1
-        q_plus, f_plus = self._plus(q_lo, q_hi, f_lo, f_hi, d)
-        s_hi = torch.maximum(
-            self.max_eigenvalue_fn(q_hi, d, face_va),
-            self.max_eigenvalue_fn(q_plus, d, face_va),
-        ).unsqueeze(face_va)
+        right state the +d neighbour's low face, or the high-wall ghost
+        (``fv_hi``: see :meth:`_plus`)."""
+        q_plus, f_plus = self._plus(q_lo, q_hi, f_lo, f_hi, d, fv_hi)
+        s_hi = self._speed(q_hi, q_plus, d)
         dq = self._masked(q_plus - q_hi)
         return 0.5 * (f_hi + f_plus) - 0.5 * s_hi * dq
 
-    def low_wall_flux(self, q_lo, f_lo, d):
+    def low_wall_flux(self, q_lo, f_lo, d, fv_lo=None):
         """The Rusanov flux through the low wall of axis ``d`` (the first
         row's low faces; ghost on the left, my own low face on the right,
         the jump masked like the interior's), shaped like one row of
         :attr:`face_flux_shape` (axis ``d`` of the grid cut to 1): the
-        plain version of the face kernel's side output.  None if ``d``
-        carries no wall."""
+        plain version of the face kernel's side output.  ``fv_lo`` (a
+        viscous solver): the first row's viscous-only flux, which the ghost
+        flux hook skips.  None if ``d`` carries no wall."""
         if not self.is_wall(d):
             return None
         face_grid_ax = self.grid_axis(d) - 1
@@ -787,13 +912,13 @@ class ADERDGSolver(nn.Module):
         first = q_lo.narrow(face_grid_ax, 0, 1)
         f_first = f_lo.narrow(face_grid_ax, 0, 1)
         ghost = self._wall_ghost(first, d, 0, face_va)
-        s_w = torch.maximum(
-            self.max_eigenvalue_fn(first, d, face_va),
-            self.max_eigenvalue_fn(ghost, d, face_va),
-        ).unsqueeze(face_va)
+        s_w = self._speed(first, ghost, d)
         dq_w = self._masked(first - ghost)
-        return 0.5 * (self._wall_ghost_flux(f_first, d, 0, face_va) + f_first) - (
-            0.5 * s_w * dq_w)
+        if fv_lo is not None:
+            wall_gf = self._wall_ghost_flux(f_first - fv_lo, d, 0, face_va) + fv_lo
+        else:
+            wall_gf = self._wall_ghost_flux(f_first, d, 0, face_va)
+        return 0.5 * (wall_gf + f_first) - 0.5 * s_w * dq_w
 
     def surface_term(self, new, fhat_hi, d, dt, fhat_wall=None):
         """``new − (λ/w_i)(ℓ_i(1) F̂_hi − ℓ_i(0) F̂_lo)`` along ``d``, F̂_lo
@@ -824,16 +949,23 @@ class ADERDGSolver(nn.Module):
 
     def cfl_dt(self, u, cfl: float | None = None):
         """PNPM-style CFL: dt = cfl · dx / (λ_max · (2N+1)), with the JAX
-        solver's order-aware default ``min(0.4, 1.5/(order+2))``.  Returns a
-        0-d tensor on the state's device."""
+        solver's order-aware default ``min(0.4, 1.5/(order+2))``; with
+        viscosity the parabolic limit joins it, dt = cfl / ((2N+1)·λ/dx +
+        2(2N+1)²·κ/dx²).  Returns a 0-d tensor on the state's device."""
         if cfl is None:
             cfl = min(0.4, 1.5 / (self.order + 2))
-        r = None
+        r = rv = None
         for d in range(self.dim):
             s_d = torch.max(self.max_eigenvalue_fn(u, d, self.var_axis))
             r_d = s_d / self._dxs[d]
             r = r_d if r is None else torch.maximum(r, r_d)
-        return cfl / (r * (2 * self.order + 1))
+            if self.visc_eigenvalue_fn is not None:
+                k_d = torch.max(self.visc_eigenvalue_fn(u, d, self.var_axis))
+                rv_d = k_d / self._dxs[d] ** 2
+                rv = rv_d if rv is None else torch.maximum(rv, rv_d)
+        if rv is None:
+            return cfl / (r * (2 * self.order + 1))
+        return cfl / (r * (2 * self.order + 1) + 2.0 * rv * (2 * self.order + 1) ** 2)
 
     def run(self, u, n_steps: int, dt):
         for _ in range(n_steps):

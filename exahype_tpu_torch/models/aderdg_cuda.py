@@ -1,21 +1,28 @@
 """ADER-DG step through hand-written CUDA kernels (Hopper, ``sm_90a``).
 
 Port of ``exahype_tpu/models/aderdg_pallas.py::PallasADERDG`` on the
-flux-form path at order 3 in 3-D, periodic or with domain walls, for two
-physics: compressible Euler on the Picard predictor (``bench.py::main``)
-and heterogeneous elasticity on the Cauchy–Kovalewski predictor with its
-materials frozen (``bench.py::bench_ck``).  The step is three launches of
-kernels from ``csrc/aderdg.cu`` (see the note there for the design):
+flux-form path at order 3 in 3-D, periodic or with domain walls, for three
+physics: compressible Euler on the Picard predictor (``bench.py::main``),
+compressible Navier–Stokes on the Picard predictor with its viscous terms
+(``models/navier_stokes.py``) and heterogeneous elasticity on the
+Cauchy–Kovalewski predictor with its materials frozen
+(``bench.py::bench_ck``).  The step is three launches of kernels from
+``csrc/aderdg.cu`` and ``csrc/aderdg_visc.cu`` (see the notes there for the
+design):
 
-- ``aderdg_predictor_volume`` (Picard) or ``aderdg_ck_predictor_volume``
-  (CK): predictor, time averages, volume integral and the face projections
-  of every axis;
+- ``aderdg_predictor_volume`` (Picard), ``aderdg_predictor_volume_visc``
+  (Picard with the viscous flux from the polynomial's gradients) or
+  ``aderdg_ck_predictor_volume`` (CK): predictor, time averages, volume
+  integral and the face projections of every axis (the viscous one, on a
+  grid with walls, also the viscous-only flux on the wall planes);
 - the face stage, two launches: ``aderdg_face_flux`` solves every interface
   once (the Rusanov flux, with the physics' dissipation mask) into a
   face-flux tensor, each cell's high-face fluxes of every axis, which is
   also the limiter's input (the Pallas kernel's ``emit_fused_fhat``
   outputs); ``aderdg_surface_update`` then updates ``new`` in place (on the
-  CPU too) from each cell's own and its lower neighbours' entries.
+  CPU too) from each cell's own and its lower neighbours' entries.  For
+  Navier–Stokes the flux kernel adds the Gassner penalty
+  2(2N+1)/dx_d·max(κ⁻, κ⁺) to the dissipation speed.
 
 With walls (``solver.boundary`` not periodic) the face stage is its wall
 variant, ``aderdg_face_flux_walls`` + ``aderdg_surface_update_walls``:
@@ -24,7 +31,11 @@ axes, the mode, the sign tables read off the reflect hooks, the farfield
 state, the Dirichlet rows in the kernel's face layout), and the low-wall
 fluxes go through a side tensor (:meth:`CudaADERDG.face_flux`).  A reflect
 hook without a sign table (an arbitrary callback) raises
-:class:`LoweringError`; the plain solver still runs it.
+:class:`LoweringError`; the plain solver still runs it.  A viscous solver
+with walls hands the viscous-only wall-plane fluxes of the predictor to the
+flux kernel (``fvwall``, in the Dirichlet rows' layout), which applies the
+ghost flux hook to the advective part only.  A viscous callback other than
+the tagged Navier–Stokes four raises :class:`LoweringError`.
 
 Each wrapper takes its plain PyTorch version
 (``ADERDGSolver.predictor_volume`` / ``face_surface``) for a tensor on the
@@ -43,20 +54,21 @@ import torch
 
 from exahype_tpu_torch import _build
 from exahype_tpu_torch.models import elastic
-from exahype_tpu_torch.models.aderdg import CALLBACK_OPTIONS, UNPORTED_OPTIONS, ADERDGSolver
+from exahype_tpu_torch.models.aderdg import CALLBACK_OPTIONS, VISCOUS_OPTIONS, ADERDGSolver
 from exahype_tpu_torch.utils.errors import LoweringError
 
 #: (physics, dim, order) -> the predictor mode the kernels are instantiated
 #: for with that physics.
 INSTANTIATED = {
     ("euler", 3, 3): "picard",
+    ("navier_stokes", 3, 3): "picard",
     ("elastic3d_het", 3, 3): "ck",
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def _n_vars(name: str, dim: int) -> int:
-    return dim + 2 if name == "euler" else elastic.N_VARS_3D_HET
+    return dim + 2 if name in ("euler", "navier_stokes") else elastic.N_VARS_3D_HET
 
 
 #: The wall modes of the C interface (``csrc/aderdg.cu``): a sign table
@@ -73,7 +85,21 @@ _PHYSICS = {
         "ck_material_slots": elastic.MATERIAL_SLOTS,
         "dissipation_mask": elastic.DISSIPATION_MASK,
     },
+    "navier_stokes": {"id": 2, "ck_material_slots": None, "dissipation_mask": None},
 }
+
+
+def _kernel_params(tag, solver) -> tuple:
+    """The physics' parameters as the kernels take them: Euler's (γ,); for
+    Navier–Stokes (γ, μ, max(4/3, γ/Pr), κ_T = μγ/((γ−1)Pr), then the face
+    penalty factor 2(2N+1)/dx_d of each axis), each computed in float64 as
+    the plain solver computes it; none for the elasticity."""
+    if tag.name != "navier_stokes":
+        return tag.params or (0.0,)
+    gamma, mu, prandtl = tag.params
+    return (gamma, mu, max(4.0 / 3.0, gamma / prandtl),
+            mu * gamma / ((gamma - 1.0) * prandtl),
+            *(2.0 * (2 * solver.order + 1) / dx for dx in solver._dxs))
 
 
 class CudaADERDG:
@@ -81,9 +107,14 @@ class CudaADERDG:
     ``dofs``) over an :class:`ADERDGSolver`, with the step on CUDA kernels.
     """
 
+    #: The kernels, by their index in the occupancy query of
+    #: ``csrc/aderdg.cu`` (index 7: the instance of
+    #: ``aderdg_predictor_volume_visc``, ``csrc/aderdg_visc.cu``, with the
+    #: wall planes).
     KERNELS = (
         "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
         "aderdg_surface_update", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
+        "aderdg_predictor_volume_visc",
     )
 
     def __init__(self, solver: ADERDGSolver):
@@ -94,22 +125,30 @@ class CudaADERDG:
                     f"{option} is set (a fused rhs_all_fn runs on the card "
                     "through models.rhs_cuda.with_cuda_rhs)"
                 )
-        for option, off in UNPORTED_OPTIONS.items():
-            if getattr(solver, option, off) != off:
-                raise LoweringError(
-                    f"the CUDA kernels carry no viscous terms or reused fluxes, and "
-                    f"{option} is set (see ROADMAP.md, Queue 2 K1 b)"
-                )
-        tags = {
-            getattr(solver.flux_fn, "physics", None),
-            getattr(solver.max_eigenvalue_fn, "physics", None),
-        }
+        viscous = any(getattr(solver, option) is not None for option in VISCOUS_OPTIONS)
+        names = ("flux_fn", "max_eigenvalue_fn") + (VISCOUS_OPTIONS if viscous else ())
+        tags = {getattr(getattr(solver, name), "physics", None) for name in names}
         tag = tags.pop() if len(tags) == 1 else None
+        if viscous and (tag is None or tag.name != "navier_stokes"):
+            raise LoweringError(
+                "the CUDA kernels carry viscous terms for the compressible "
+                "Navier–Stokes callbacks only: build all four with "
+                "exahype_tpu_torch.models.navier_stokes.navier_stokes (the plain "
+                "solver runs any viscous callback)"
+            )
+        if tag is not None and tag.name == "navier_stokes" and not viscous:
+            raise LoweringError(
+                "the navier_stokes kernels need the solver's visc_flux_fn and "
+                "visc_eigenvalue_fn (models.navier_stokes.navier_stokes gives all "
+                "four callbacks)"
+            )
         if tag is None or tag.name not in _PHYSICS or tag.dim != solver.dim:
             raise LoweringError(
-                "the CUDA kernels compile in Euler or heterogeneous-elastic "
-                "physics: build the solver with exahype_tpu_torch.models."
-                "aderdg.euler_physics or models.elastic.elastic3d_heterogeneous"
+                "the CUDA kernels compile in Euler, Navier–Stokes or "
+                "heterogeneous-elastic physics: build the solver with "
+                "exahype_tpu_torch.models.aderdg.euler_physics, "
+                "models.navier_stokes.navier_stokes or "
+                "models.elastic.elastic3d_heterogeneous"
             )
         n_vars = _n_vars(tag.name, solver.dim)
         if tag.n_real != solver.n_vars or solver.n_vars != n_vars:
@@ -141,7 +180,7 @@ class CudaADERDG:
         # The rows whose face flux can be nonzero: all but the frozen
         # materials, the last rows (the kernels' Phys::kFluxRows).
         self._flux_rows = min(physics["ck_material_slots"] or (n_vars,))
-        self._params = np.ascontiguousarray(tag.params or (0.0,), dtype=np.float64)
+        self._params = np.ascontiguousarray(_kernel_params(tag, solver), dtype=np.float64)
         #: The walls as the face kernels take them (None: periodic).
         self.walls = self._wall_description(solver) if any(
             solver.is_wall(d) for d in range(solver.dim)) else None
@@ -149,8 +188,9 @@ class CudaADERDG:
         #: The kernels of this solver's step: its predictor and the face
         #: stage (its wall variant on a grid with walls).
         suffix = "" if self.walls is None else "_walls"
+        predictor = "aderdg_ck_predictor_volume" if mode == "ck" else "aderdg_predictor_volume"
         self.kernels = (
-            "aderdg_ck_predictor_volume" if mode == "ck" else "aderdg_predictor_volume",
+            predictor + ("_visc" if viscous else ""),
             f"aderdg_face_flux{suffix}", f"aderdg_surface_update{suffix}",
         )
         #: Launches per kernel since construction (or the last reset).
@@ -188,11 +228,7 @@ class CudaADERDG:
             sq, sf = tables
         if sol.boundary == "farfield":
             far = np.asarray(sol.farfield_state, dtype=np.float64)
-        planes = {
-            d: (sol.n_nodes,) * (dim - 1) + (n_vars,)
-            + tuple(1 if e == d else g for e, g in enumerate(sol.grid_shape))
-            for d in axes
-        }
+        planes = sol.wall_planes()
         off, size = np.zeros(3, dtype=np.int64), 0
         for d in axes:
             off[d] = size
@@ -262,8 +298,9 @@ class CudaADERDG:
     # --------------------------------------------------------------- kernels
 
     def predictor_volume(self, u, dt):
-        """``(new, faces)`` of the cell-local half of the step.  ``u`` is
-        not modified."""
+        """``(new, faces, fvwall)`` of the cell-local half of the step
+        (``fvwall`` None but for a viscous solver with walls: the contract
+        of ``ADERDGSolver.predictor_volume``).  ``u`` is not modified."""
         if not u.is_cuda:
             return self.solver.predictor_volume(u, dt)
         sol = self.solver
@@ -272,42 +309,55 @@ class CudaADERDG:
         faces = torch.empty(sol.face_shape, dtype=u.dtype, device=u.device)
         dt_dev, dt_ptr, dt_val = self._dt_args(dt, u)
         name = self.kernels[0]
-        # The Picard launcher takes the iteration count; the CK one has none.
+        # The Picard launchers take the iteration count; the CK one has none.
         iters = () if name == "aderdg_ck_predictor_volume" else (sol.picard_iters,)
+        # The viscous launcher takes the wall planes of the viscous split
+        # (mask 0: none).
+        fvwall, planes = None, ()
+        if name == "aderdg_predictor_volume_visc":
+            if sol.splits_wall_viscosity:
+                w = self.walls
+                fvwall = torch.empty(2 * w["size"], dtype=u.dtype, device=u.device)
+                planes = (w["mask"], fvwall.data_ptr(), w["off"].ctypes.data, w["size"])
+            else:
+                planes = (0, None, None, 0)
         lib = _build.library()
         with torch.cuda.device(u.device):
             stream = torch.cuda.current_stream(u.device).cuda_stream
             err = getattr(lib, f"exahype_{name}_{_SUFFIX[u.dtype]}")(
                 u.data_ptr(), new.data_ptr(), faces.data_ptr(), dt_ptr, dt_val,
                 self._ops.ctypes.data, self._dx.ctypes.data, sol.order, *iters,
-                self._physics_id, self._params.ctypes.data, *sol.grid_shape, stream,
+                self._physics_id, self._params.ctypes.data, *sol.grid_shape, *planes, stream,
             )
         _build.check(lib, err, name)
         self.launches[name] += 1
-        return new, faces
+        return new, faces, fvwall
 
-    def face_surface(self, new, faces, dt, return_face_fluxes: bool = False):
-        """Surface update of ``new`` from ``faces``, in place on either
-        device; returns ``new``, and with ``return_face_fluxes`` also the
-        per-axis high-face fluxes (``solver.face_flux_shape`` each; on a
-        wall axis the last row holds the high-wall flux)."""
+    def face_surface(self, new, faces, dt, return_face_fluxes: bool = False, fvwall=None):
+        """Surface update of ``new`` from ``faces`` (and a viscous walled
+        solver's ``fvwall``), in place on either device; returns ``new``,
+        and with ``return_face_fluxes`` also the per-axis high-face fluxes
+        (``solver.face_flux_shape`` each; on a wall axis the last row holds
+        the high-wall flux)."""
         sol = self.solver
         if not new.is_cuda:
-            out = sol.face_surface(new, faces, dt, return_face_fluxes)
+            out = sol.face_surface(new, faces, dt, return_face_fluxes, fvwall)
             if return_face_fluxes:
                 return new.copy_(out[0]), out[1]
             return new.copy_(out)
-        fhat, fwall = self.face_flux(faces)
+        fhat, fwall = self.face_flux(faces, fvwall)
         self.surface_update(new, fhat, dt, fwall)
         if return_face_fluxes:
             fhat[:, :, self._flux_rows:].zero_()  # the unwritten rows; none for Euler
             return new, [fhat[d].view(sol.face_flux_shape) for d in range(sol.dim)]
         return new
 
-    def face_flux(self, faces):
+    def face_flux(self, faces, fvwall=None):
         """The face stage's first launch (CUDA tensors only): ``(fhat,
-        fwall)``.  ``fhat``, ``[dim, n^(dim-1), n_vars, *grid]``, is every
-        interface's Rusanov flux, each cell's high-face fluxes (on a wall
+        fwall)`` (``fvwall``: the viscous-only wall-plane fluxes of
+        :meth:`predictor_volume`, which a viscous solver with walls needs
+        and no other takes).  ``fhat``, ``[dim, n^(dim-1), n_vars, *grid]``,
+        is every interface's Rusanov flux, each cell's high-face fluxes (on a wall
         axis the last row's is the high-wall flux).  ``fwall`` is None
         without walls, else the side tensor of the low-wall fluxes
         (:meth:`wall_fluxes` views it by axis).  The rows that are zero by
@@ -319,6 +369,14 @@ class CudaADERDG:
         if not faces.is_cuda:
             raise LoweringError("face_flux launches a CUDA kernel: faces must be on the card")
         self._check(faces, sol.face_shape, "faces")
+        if (fvwall is not None) != sol.splits_wall_viscosity:
+            raise LoweringError(
+                "fvwall (the viscous-only wall fluxes of predictor_volume) goes with a "
+                "viscous solver with walls, and only with one")
+        if fvwall is not None:
+            self._check(fvwall, (2 * self.walls["size"],), "fvwall")
+            if fvwall.dtype != faces.dtype or fvwall.device != faces.device:
+                raise LoweringError("fvwall must match faces' dtype and device")
         fhat = torch.empty(
             (sol.dim, sol.n_nodes ** (sol.dim - 1), sol.n_vars) + sol.grid_shape,
             dtype=faces.dtype, device=faces.device,
@@ -331,7 +389,8 @@ class CudaADERDG:
             alloc = torch.zeros if self._flux_rows < sol.n_vars else torch.empty
             fwall = alloc(self.walls["size"], dtype=faces.dtype, device=faces.device)
             mask, mode, table, rows, off, side = self._wall_args(faces)
-            args += (mask, mode, table, rows, fwall.data_ptr(), off, side)
+            args += (mask, mode, table, rows, fwall.data_ptr(), off, side,
+                     None if fvwall is None else fvwall.data_ptr())
         name = self.kernels[1]
         lib = _build.library()
         with torch.cuda.device(faces.device):
@@ -381,9 +440,12 @@ class CudaADERDG:
         resident ``blocks_per_sm``, ``threads`` per block, dynamic ``smem``
         bytes and ``local`` (spill) bytes per thread."""
         out = (ctypes.c_int * 5)()
+        index = self.KERNELS.index(name)
+        if name == "aderdg_predictor_volume_visc" and self.walls is not None:
+            index += 1
         lib = _build.library()
         err = lib.exahype_aderdg_kernel_info(
-            self.KERNELS.index(name), int(dtype == torch.float64), self._physics_id, out)
+            index, int(dtype == torch.float64), self._physics_id, out)
         _build.check(lib, err, f"kernel_info({name})")
         return dict(zip(("registers", "blocks_per_sm", "threads", "smem", "local"), out))
 
@@ -395,8 +457,8 @@ class CudaADERDG:
         :meth:`ADERDGSolver.step` returns them."""
         if not u.is_cuda:
             return self.solver.step(u, dt, return_face_fluxes)
-        new, faces = self.predictor_volume(u, dt)
-        return self.face_surface(new, faces, dt, return_face_fluxes)
+        new, faces, fvwall = self.predictor_volume(u, dt)
+        return self.face_surface(new, faces, dt, return_face_fluxes, fvwall)
 
     def run(self, u, n_steps: int, dt):
         for _ in range(n_steps):

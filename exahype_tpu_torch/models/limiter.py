@@ -153,6 +153,15 @@ class LimitedADERDG(nn.Module):
                 "is not ported to exahype_tpu_torch yet; see ROADMAP.md, Queue 1 "
                 "item 5"
             )
+        if solver.visc_flux_fn is not None:
+            # The fallback has no diffusive face fluxes: a viscous solver
+            # would get a wrong answer, not an error.  JAX carries them on
+            # its whole-grid paths only and refuses the gathered ones.
+            raise SemanticError(
+                "viscous solvers are not supported on the gathered "
+                "(troubled_capacity) fallback paths yet; see ROADMAP.md, Queue 1 "
+                "item 9"
+            )
         if any(solver.is_wall(d) for d in range(solver.dim)):
             # The subcell fallback's ghosts are periodic: a walled solver
             # would get a wrong answer, not an error.

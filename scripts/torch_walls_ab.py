@@ -74,7 +74,7 @@ def main():
             sol, u = make(w)
             cu = CudaADERDG(sol)
             dt = float(sol.cfl_dt(u))
-            new, faces = cu.predictor_volume(u, dt)
+            new, faces, _ = cu.predictor_volume(u, dt)
             fhat, fwall = cu.face_flux(faces)
             versions[name] = (sol, cu, u, dt, new, faces, fhat, fwall)
         times = {name: [] for name in versions}

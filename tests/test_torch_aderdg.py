@@ -164,8 +164,9 @@ def test_kernel_halves_compose_to_step():
     the face tensor holds the JAX package's face projections."""
     js, ts, Q = both("3d_p3")
     u = state_from_numpy(Q, device="cpu")
-    new, faces = ts.predictor_volume(u, 2e-3)
+    new, faces, fvwall = ts.predictor_volume(u, 2e-3)
     assert faces.shape == ts.face_shape
+    assert fvwall is None  # the viscous wall planes of a walled viscous solver only
     out = ts.face_surface(new, faces, 2e-3)
     np.testing.assert_allclose(
         state_to_numpy(out), np.asarray(js.step(jnp.asarray(Q), 2e-3)),
@@ -210,6 +211,17 @@ def test_unported_options_raise(option, value):
         # Ported with the walls: accepted, the JAX step, and the kernels.
         walls = {option: value} if option == "boundary" else {"boundary": "outflow", option: value}
         _assert_walls_match_jax(walls)
+        return
+    if option == "visc_flux_fn":
+        # Ported with the viscous fluxes: alone it is refused as JAX refuses
+        # it; with its eigenvalue the plain solver takes it, and the kernels
+        # refuse a callback that is not the tagged Navier–Stokes one.
+        with pytest.raises(SemanticError, match="must be set together"):
+            ADERDGSolver(3, 3, 5, (2, 2, 2), flux, eig, device="cpu", **{option: value})
+        solver = ADERDGSolver(3, 3, 5, (2, 2, 2), flux, eig, device="cpu", **{option: value},
+                              visc_eigenvalue_fn=lambda q, d, va: 0.0 * q.select(va, 0))
+        with pytest.raises(LoweringError, match="viscous"):
+            CudaADERDG(solver)
         return
     if option in CARRIED_BY_THE_PLAIN_SOLVER:
         solver = ADERDGSolver(3, 3, 5, (2, 2, 2), flux, eig, device="cpu", **{option: value})
@@ -284,7 +296,7 @@ def test_cuda_wrapper_takes_plain_path_on_cpu():
     np.testing.assert_array_equal(state_to_numpy(out), state_to_numpy(ts.step(u, 2e-3)))
     run = cu.run(u, 2, 2e-3)
     np.testing.assert_array_equal(state_to_numpy(run), state_to_numpy(ts.run(u, 2, 2e-3)))
-    new, faces = cu.predictor_volume(u, 2e-3)
+    new, faces, _ = cu.predictor_volume(u, 2e-3)
     # The same contract as the kernel: ``new`` is updated in place.
     assert cu.face_surface(new, faces, 2e-3) is new
     np.testing.assert_array_equal(state_to_numpy(new), state_to_numpy(out))

@@ -2,7 +2,9 @@
 Picard predictor and the two-launch face stage of ``csrc/aderdg.cu`` (with
 its face-flux output), the CK predictor (K2) and the face stage's elastic
 variant, both at the edges of their tilings, the face stage's wall variant
-in every mode (Euler) and on the CK free surface, the
+in every mode (Euler) and on the CK free surface, the viscous predictor
+(``csrc/aderdg_visc.cu``) and the Navier–Stokes face stage, periodic and in
+every wall mode, the
 limiter's subcell sweep (K3, ``csrc/subcell.cu``) alone and under
 ``LimitedADERDG``, the spec kernel (K4) that ``CudaPrinter`` generates,
 alone and under ``GridSolver``, and the fused Z4 right-hand side (K5,
@@ -74,8 +76,8 @@ CASES = [
 def test_predictor_volume_kernel_matches_plain(dtype, grid):
     sol, cu, u = _setup(grid, dtype)
     u0 = u.clone()
-    new_k, faces_k = cu.predictor_volume(u, DT)
-    new_p, faces_p = sol.predictor_volume(u, DT)
+    new_k, faces_k, _ = cu.predictor_volume(u, DT)
+    new_p, faces_p, _ = sol.predictor_volume(u, DT)
     torch.cuda.synchronize()
     assert torch.equal(u, u0)
     assert _err(new_k, new_p) <= _bound(new_p, dtype)
@@ -87,7 +89,7 @@ def test_predictor_volume_kernel_matches_plain(dtype, grid):
 @pytest.mark.parametrize("dtype,grid", CASES)
 def test_face_surface_kernel_matches_plain(dtype, grid):
     sol, cu, u = _setup(grid, dtype)
-    new, faces = sol.predictor_volume(u, DT)
+    new, faces, _ = sol.predictor_volume(u, DT)
     new_k = new.clone()
     out_k = cu.face_surface(new_k, faces, DT)
     out_p = sol.face_surface(new, faces, DT)
@@ -116,7 +118,7 @@ def test_step_kernels_match_plain_and_repeat_bitwise(dtype, grid):
 @pytest.mark.parametrize("dtype,grid", CASES)
 def test_face_kernel_face_fluxes_match_plain(dtype, grid):
     sol, cu, u = _setup(grid, dtype)
-    new, faces = sol.predictor_volume(u, DT)
+    new, faces, _ = sol.predictor_volume(u, DT)
     out_k, fl_k = cu.face_surface(new.clone(), faces, DT, return_face_fluxes=True)
     out_p, fl_p = sol.face_surface(new, faces, DT, return_face_fluxes=True)
     plain_only = cu.face_surface(new.clone(), faces, DT)
@@ -174,8 +176,8 @@ CK_DT = 2e-4  # bench.py's dt, under the CFL limit at dx = 1/g0 <= 1/8
 def test_ck_predictor_kernel_matches_plain(dtype, grid):
     sol, cu, u = _ck_setup(grid, dtype)
     u0 = u.clone()
-    new_k, faces_k = cu.predictor_volume(u, CK_DT)
-    new_p, faces_p = sol.predictor_volume(u, CK_DT)
+    new_k, faces_k, _ = cu.predictor_volume(u, CK_DT)
+    new_p, faces_p, _ = sol.predictor_volume(u, CK_DT)
     torch.cuda.synchronize()
     assert torch.equal(u, u0)
     _ck_err(new_k, new_p, dtype)
@@ -190,7 +192,7 @@ def test_ck_predictor_kernel_matches_plain(dtype, grid):
 @pytest.mark.parametrize("dtype,grid", CK_CASES)
 def test_elastic_face_kernel_matches_plain(dtype, grid):
     sol, cu, u = _ck_setup(grid, dtype)
-    new, faces = sol.predictor_volume(u, CK_DT)
+    new, faces, _ = sol.predictor_volume(u, CK_DT)
     out_k, fl_k = cu.face_surface(new.clone(), faces, CK_DT, return_face_fluxes=True)
     out_p, fl_p = sol.face_surface(new, faces, CK_DT, return_face_fluxes=True)
     torch.cuda.synchronize()
@@ -245,8 +247,8 @@ def test_kernels_at_tile_edges_match_plain(grid, dtype, physics):
         else:
             _ck_err(got, ref, dtype)
 
-    new_k, faces_k = cu.predictor_volume(u, dt)
-    new_p, faces_p = sol.predictor_volume(u, dt)
+    new_k, faces_k, _ = cu.predictor_volume(u, dt)
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
     out_k = cu.face_surface(new_p.clone(), faces_p, dt)
     out_kf, fl_k = cu.face_surface(new_p.clone(), faces_p, dt, return_face_fluxes=True)
     out_p, fl_p = sol.face_surface(new_p, faces_p, dt, return_face_fluxes=True)
@@ -321,7 +323,7 @@ WALL_CASES = [
 
 def _walled_face_stage_close(sol, cu, u, dt, dtype, close):
     """Each launch of the walled face stage and the stage against plain."""
-    new, faces = sol.predictor_volume(u, dt)
+    new, faces, _ = sol.predictor_volume(u, dt)
     fhat_k, fwall_k = cu.face_flux(faces)
     fshape = sol.face_flux_shape
     rows = cu._flux_rows
@@ -401,10 +403,148 @@ def test_walled_kernel_info_and_refusals(name):
     for kernel in ("aderdg_face_flux", "aderdg_surface_update"):
         info = cu.kernel_info(kernel, torch.float64)
         assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, (kernel, info)
-    new, faces = sol.predictor_volume(u, DT)
+    new, faces, _ = sol.predictor_volume(u, DT)
     fhat, fwall = cu.face_flux(faces)
     with pytest.raises(LoweringError, match="fwall"):
         cu.surface_update(new, fhat, DT)
+
+
+# ------------------------------------------------ the viscous step (K1 b)
+
+NS_MU, NS_PRANDTL = 0.02, 0.7
+#: (8, 4, 8): the ragged tile meets the walls; (3, 5, 7): odd extents and a
+#: ragged last predictor block.
+NS_CASES = [
+    (torch.float64, (8, 4, 8)),
+    (torch.float64, (3, 5, 7)),
+    (torch.float32, (8, 4, 8)),
+]
+NS_WALLS = ["periodic", "noslip_0", "noslip_box", "outflow_0", "farfield_0", "dirichlet"]
+
+
+def _ns_walls(name, grid, dx):
+    from exahype_tpu_torch.models.aderdg import make_dirichlet_fn
+    from exahype_tpu_torch.models.navier_stokes import noslip_reflect, noslip_reflect_flux
+
+    noslip = dict(boundary="reflective", reflect_fn=noslip_reflect(3),
+                  reflect_flux_fn=noslip_reflect_flux(3))
+    return {
+        "periodic": {},
+        "noslip_0": dict(noslip, wall_axes=(0,)),
+        "noslip_box": noslip,
+        "outflow_0": dict(boundary="outflow", wall_axes=(0,)),
+        "farfield_0": dict(boundary="farfield", farfield_state=(1.0, 0.3, 0.0, 0.0, 2.6),
+                           wall_axes=(0,)),
+        "dirichlet": dict(boundary="dirichlet", dirichlet_fn=make_dirichlet_fn(
+            _smooth_euler, dim=3, order=3, grid_shape=grid, dx=dx)),
+    }[name]
+
+
+def _ns_setup(grid, dtype, walls="periodic"):
+    """A 3-D p3 Navier–Stokes solver at dx = 1/g0 on a random admissible
+    state (random momenta: every gradient is O(1/dx)); dt = its cfl_dt."""
+    from exahype_tpu_torch.models.navier_stokes import navier_stokes
+
+    dev = _card()
+    dx = 1.0 / grid[0]
+    flux, eig, visc, visc_eig = navier_stokes(3, mu=NS_MU, prandtl=NS_PRANDTL)
+    sol = ADERDGSolver(3, 3, 5, grid, flux, eig, dx=dx, device=dev, dtype=dtype,
+                       visc_flux_fn=visc, visc_eigenvalue_fn=visc_eig,
+                       **_ns_walls(walls, grid, dx))
+    rng = np.random.default_rng(1)
+    no_var = (4, 4, 4) + grid
+    rho = 1.0 + 0.2 * rng.random(no_var)
+    m = [0.3 * rng.standard_normal(no_var) for _ in range(3)]
+    p = 1.0 + 0.2 * rng.random(no_var)
+    e = p / 0.4 + 0.5 * sum(x * x for x in m) / rho
+    u = torch.from_numpy(np.stack([rho] + m + [e], axis=3)).to(dev, dtype).contiguous()
+    return sol, CudaADERDG(sol), u, float(sol.cfl_dt(u))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", NS_CASES)
+@pytest.mark.parametrize("walls", NS_WALLS)
+def test_viscous_predictor_kernel_matches_plain(walls, dtype, grid):
+    """``aderdg_predictor_volume_visc``: the new state, the face tensor and,
+    with walls, the viscous-only wall planes."""
+    sol, cu, u, dt = _ns_setup(grid, dtype, walls)
+    u0 = u.clone()
+    got = cu.predictor_volume(u, dt)
+    ref = sol.predictor_volume(u, dt)
+    torch.cuda.synchronize()
+    assert torch.equal(u, u0)
+    assert len(got) == len(ref) == 3
+    assert (got[2] is None) == (ref[2] is None) == (walls == "periodic")
+    for a, b in zip(got, ref):
+        if b is None:
+            continue
+        assert a.shape == b.shape
+        assert _err(a, b) <= _bound(b, dtype)
+    assert cu.launches["aderdg_predictor_volume_visc"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", NS_CASES)
+@pytest.mark.parametrize("walls", NS_WALLS)
+def test_viscous_face_stage_matches_plain(walls, dtype, grid):
+    """The Navier–Stokes face stage (the Gassner penalty; with walls the
+    advective/viscous split), launch by launch and as a stage."""
+    sol, cu, u, dt = _ns_setup(grid, dtype, walls)
+    new, faces, fvwall = sol.predictor_volume(u, dt)
+    fhat_k, fwall_k = cu.face_flux(faces, fvwall)
+    fshape = sol.face_flux_shape
+    rows = sol.visc_wall_rows(fvwall) if fvwall is not None else {}
+    low = {}
+    for d in range(3):
+        q_lo, q_hi, f_lo, f_hi = (faces[d, k].reshape(fshape) for k in range(4))
+        fv_lo, fv_hi = rows.get(d, (None, None))
+        ref = sol.interface_flux(q_lo, q_hi, f_lo, f_hi, d, fv_hi)
+        assert _err(fhat_k[d].view(fshape), ref) <= _bound(ref, dtype)
+        if sol.is_wall(d):
+            low[d] = sol.low_wall_flux(q_lo, f_lo, d, fv_lo)
+            assert _err(cu.wall_fluxes(fwall_k)[d], low[d]) <= _bound(low[d], dtype)
+    out_k = cu.surface_update(new.clone(), fhat_k, dt, fwall_k)
+    out_p = sol.face_surface(new, faces, dt, fvwall=fvwall)
+    stage_k = cu.face_surface(new.clone(), faces, dt, fvwall=fvwall)
+    torch.cuda.synchronize()
+    assert _err(out_k, out_p) <= _bound(out_p, dtype)
+    assert torch.equal(stage_k, out_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", NS_CASES)
+@pytest.mark.parametrize("walls", NS_WALLS)
+def test_viscous_step_matches_plain_and_repeats_bitwise(walls, dtype, grid):
+    sol, cu, u, dt = _ns_setup(grid, dtype, walls)
+    ref = sol.run(u, 3, dt)
+    by_value = cu.run(u, 3, dt)
+    by_pointer = cu.run(u, 3, torch.tensor(dt, dtype=dtype, device=u.device))
+    torch.cuda.synchronize()
+    assert _err(by_value, ref) <= (1 if dtype == torch.float64 else 3) * _bound(ref, dtype)
+    assert torch.equal(by_value, by_pointer)
+    assert cu.launches == {name: 6 for name in cu.kernels}
+    m0, m1 = cu.total_mass(u.double()), cu.total_mass(by_value.double())
+    if walls == "periodic":  # mass, momentum and energy conserved
+        assert ((m1 - m0).abs() / m0.abs().clamp(min=1.0)).max().item() < (
+            1e-12 if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walls", ["periodic", "noslip_0"])
+def test_viscous_kernel_info_and_refusals(walls):
+    for dtype in (torch.float32, torch.float64):
+        sol, cu, u, dt = _ns_setup((2, 2, 4), dtype, walls)
+        for name in cu.kernels:
+            info = cu.kernel_info(name, dtype)
+            assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, (name, info)
+            assert info["threads"] % 32 == 0, (name, info)
+    new, faces, fvwall = sol.predictor_volume(u, dt)
+    if fvwall is not None:
+        with pytest.raises(LoweringError, match="fvwall"):
+            cu.face_flux(faces)
+    else:
+        with pytest.raises(LoweringError, match="fvwall"):
+            cu.face_flux(faces, torch.zeros(8, dtype=u.dtype, device=u.device))
 
 
 # ------------------------------------------------ K3: the subcell row sweep

@@ -151,6 +151,7 @@ SYMPY_FREE = (
     "exahype_tpu_torch.models.subcell_cuda",
     "exahype_tpu_torch.models.dg",
     "exahype_tpu_torch.models.euler",
+    "exahype_tpu_torch.models.navier_stokes",
     "exahype_tpu_torch.convert",
     "exahype_tpu_torch._build",
     "exahype_tpu_torch.utils.device",
@@ -197,7 +198,8 @@ def test_port_module_list_covers_both_slices():
     assert "exahype_tpu_torch.models.aderdg_cuda" in PORT_MODULES
     assert "exahype_tpu_torch.backends.cuda_backend" in PORT_MODULES
     sympy_free = [m for m in PORT_MODULES if m.startswith(SYMPY_FREE)]
-    for module in ("aderdg_cuda", "limiter", "subcell_cuda", "elastic", "z4", "rhs_cuda"):
+    for module in ("aderdg_cuda", "limiter", "subcell_cuda", "elastic", "z4", "rhs_cuda",
+                   "navier_stokes"):
         assert f"exahype_tpu_torch.models.{module}" in sympy_free
     assert "exahype_tpu_torch.convert" in sympy_free
 

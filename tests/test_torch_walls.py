@@ -220,7 +220,7 @@ def test_euler_walls_3d_match_jax(name):
     js = jax_euler(3, 3, (4, 2, 8), **CASES_3D[name])
     ts = _port(js)
     Q = bench_state(js, seed=5)
-    new, faces = ts.predictor_volume(state_from_numpy(Q, device="cpu"), DT)
+    new, faces, _ = ts.predictor_volume(state_from_numpy(Q, device="cpu"), DT)
     out, fluxes = ts.face_surface(new, faces, DT, return_face_fluxes=True)
     ref, jfluxes = jax.jit(lambda q: js.step(q, DT, return_face_fluxes=True))(jnp.asarray(Q))
     np.testing.assert_allclose(state_to_numpy(out), np.asarray(ref), rtol=0, atol=1e-12)
