@@ -77,16 +77,21 @@ CK, walls, viscous and dynamic-GR slices), in this order:
   vacuum Z4 system, order 2, 3-D, ``make_z4_solver(impl="soa",
   fused_rhs="soa")`` (harmonic slicing f = 1, m = 2, κ₁ = κ₂ = 0) on a
   ``(16, 16, 128)`` grid at dx = 1/128, the exact gauge wave of amplitude
-  0.1, float32, dt = 1e-4 (0.18x ``cfl_dt``) — through ``with_cuda_rhs``,
-  which puts the fused right-hand side on K5 (``csrc/rhs.cu``): 3 Picard
-  and 2 corrector launches a step; the source and the face NCP
-  evaluations stay eager PyTorch, as the JAX solver keeps them in XLA.
+  0.1, float32, dt = 1e-4 (0.18x ``cfl_dt``) — through ``CudaADERDG``, the
+  counterpart of ``PallasADERDG`` over that solver: the Picard predictor
+  with the algebra compiled in (K1 d, ``csrc/aderdg_z4.cu``) and its face
+  stage with the NCP half-fluctuations, 3 launches a step; and, still,
+  through ``with_cuda_rhs``, which puts only the fused right-hand side on
+  K5 (``csrc/rhs.cu``): 3 Picard and 2 corrector launches a step, the
+  source and the face NCP evaluations eager PyTorch, as the JAX solver
+  keeps them in XLA.
 
 Phases:
 
 1. card: name, and ``nvidia-smi``'s name and power limit;
 2. build: ``csrc/aderdg.cu``, ``csrc/aderdg_visc.cu`` (float32) and
-   ``csrc/aderdg_visc_f64.cu``, ``csrc/subcell.cu``, ``csrc/rhs.cu`` and the
+   ``csrc/aderdg_visc_f64.cu``, ``csrc/aderdg_z4.cu`` and
+   ``csrc/aderdg_z4_f64.cu``, ``csrc/subcell.cu``, ``csrc/rhs.cu`` and the
    K4 sources of the ``fv`` and the canonical ``rusanov`` spec, one
    ``nvcc`` each, all started together (time, source hash, nvcc seconds
    per source, and ptxas's registers/shared memory/spills);
@@ -106,7 +111,11 @@ Phases:
    outside the write set its input); K5
    in float64 on every call of one step at ``(8, 4, 16)``, at 1e-12 of
    the largest value (``Z4_F64_RTOL``), with the path's parameters and
-   with those of the kernel's other branches (``Z4_PARAMS``); the walled
+   with those of the kernel's other branches (``Z4_PARAMS``), and the Z4
+   step's three kernels the same way (the predictor's new state and faces,
+   the face flux's F̂ and NCP halves, the update, the stage, a step), and
+   in float32 at full width (the NCP halves, a cancelling difference,
+   against the plain path in float64 as the viscous wall planes); the walled
    face stage launch by launch (its face fluxes, its side tensor of
    low-wall fluxes, the update), as a stage and in a step, in float64 in
    every mode and in float32 at full width; the viscous predictor (its new
@@ -120,10 +129,11 @@ Phases:
    admissibility, the rows demanded against the capacity, and one step's
    troubled mask against the plain path's, and the poison check: one step
    with NaN in every inactive slot of the gathered batch, its ghosts and
-   its edge fluxes bitwise equal to the ordinary step; Z4: K5's launches, (picard_iters
-   + 2) a step, and the plain path after 1 and 10 steps, with the error
-   against the exact gauge wave and the ADM constraints of both paths as
-   readings);
+   its edge fluxes bitwise equal to the ordinary step; Z4: through
+   ``CudaADERDG`` 3 launches a step, through ``with_cuda_rhs`` K5's
+   (picard_iters + 2), both routes bitwise repeatable and against the
+   plain path after 1 and 10 steps, with the error against the exact gauge
+   wave and the ADM constraints of every path as readings);
 5. times: step ms over 3 host-clock windows, DOF-updates/s, per-kernel (and
    for FV ``halo_fill`` / ``compute_dt``, for the limited step the rest of
    the step, for Z4 the eager stages) times with CUDA events, device idle
@@ -2408,30 +2418,43 @@ def viscous_path(torch, dev, card) -> list[dict]:
     return lines
 
 
-def z4_point_ops(torch, rhs_all) -> dict:
-    """The arithmetic of K5's plain version at one point, by kind: the plain
-    algebra run once on one-point float64 CPU tensors under a dispatch mode
-    that tallies every elementwise arithmetic op (+, −, ×, ÷, negation,
-    reciprocal, √).  The algebra has no branch, so the count holds for
-    every point."""
+def z4_tally(torch, rhs_all, q, grads, skip_zero: bool = False) -> dict:
+    """The elementwise arithmetic ops (+, −, ×, ÷, negation, reciprocal, √)
+    of one evaluation of the plain algebra ``rhs_all(q, grads, 0)``, by kind,
+    under a dispatch mode that tallies them; with ``skip_zero`` not the
+    products with an all-zero operand nor the sums with one, which need no
+    work.  The algebra has no branch, so a count holds for every point
+    alike."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     arith = {"add", "sub", "rsub", "mul", "div", "neg", "reciprocal", "sqrt"}
     counts = {}
 
+    def zero(x):
+        return (isinstance(x, torch.Tensor) and not bool(x.any())) or (
+            isinstance(x, (int, float)) and x == 0)
+
     class Tally(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             name = func.overloadpacket.__name__
-            if name in arith:
+            if name in arith and not (skip_zero and name in ("mul", "add", "sub", "rsub")
+                                      and any(zero(a) for a in args[:2])):
                 counts[name] = counts.get(name, 0) + 1
             return func(*args, **(kwargs or {}))
 
-    q = torch.zeros(38, 1, dtype=torch.float64)
-    q[[0, 1, 4, 6]] = 1.0  # flat space: α = 1, γ = identity
-    grads = tuple(torch.zeros(38, 1, dtype=torch.float64) for _ in range(3))
     with Tally():
         rhs_all(q, grads, 0)
     return counts
+
+
+def z4_point_ops(torch, rhs_all) -> dict:
+    """The arithmetic of K5's plain version at one point, by kind
+    (:func:`z4_tally` on one float64 CPU point of flat space, zero
+    gradients, every op counted)."""
+    q = torch.zeros(38, 1, dtype=torch.float64)
+    q[[0, 1, 4, 6]] = 1.0  # flat space: α = 1, γ = identity
+    grads = tuple(torch.zeros(38, 1, dtype=torch.float64) for _ in range(3))
+    return z4_tally(torch, rhs_all, q, grads)
 
 
 def z4_slots_read(torch, rhs_all) -> tuple[int, int]:
@@ -2453,9 +2476,147 @@ def z4_slots_read(torch, rhs_all) -> tuple[int, int]:
     return int(reached[:n].sum()), int(reached[n:].sum())
 
 
-def z4_path(torch, dev, card) -> dict:
-    """The dynamic-GR form of the main path; returns K5's line of the
-    kernel JSON."""
+def z4_value_ops(torch, rhs_all, grad_axes=(0, 1, 2)) -> int:
+    """The arithmetic one evaluation of the algebra needs at a point whose
+    state has no zero slot and whose gradient is nonzero along
+    ``grad_axes`` only: :func:`z4_tally` with ``skip_zero`` (the kernels of
+    ``csrc/aderdg_z4.cuh`` compile the zero gradient rows' terms away where
+    they know them at compile time)."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(0.1 * rng.standard_normal((38, 1)))
+    q[[0, 1, 4, 6]] += 1.0  # α, γ near flat space, no slot exactly zero
+    grads = tuple(torch.from_numpy(rng.standard_normal((38, 1))) if k in grad_axes
+                  else torch.zeros(38, 1, dtype=torch.float64) for k in range(3))
+    return sum(z4_tally(torch, rhs_all, q, grads, skip_zero=True).values())
+
+
+def z4_kernel_work(order: int, picard_iters: int, ncell: int, itemsize: int, full: int,
+                   zero: int, one_axis: int) -> dict:
+    """``{kernel: (bytes, operations)}`` of the Z4 step's three kernels
+    (``csrc/aderdg_z4.cuh``), from the algebra's operations at a point
+    (``full``: every gradient axis; ``zero``: none; ``one_axis``: one,
+    averaged over the axes; :func:`z4_value_ops`).  Per cell, N = 3, 81
+    space-time points and 27 nodes, 38 variables, 31 gradient slots an
+    axis:
+
+    - predictor: ``picard_iters`` x 81 full evaluations, 81 zero ones (s̄),
+      27 full and 27 zero ones (the NCP volume term); per iteration the 93
+      gradients of each point (3-point contraction and a division, 6 ops),
+      its 38 right-hand sides (3) and K1inv (5 a slot, slice and node);
+      q̄, s̄ and new (5 each a node and slot, new 5 more); ∇q̄ (6); the face
+      projections (2 x 5 a face node, slot and axis).  Bytes: u read, new
+      and the face tensor written.
+    - face flux: per face node of each axis (27 a cell), 2 wave speeds (23
+      each, the cofactors, determinant, division, slicing and root), their
+      max, per slot Δq, F̂ (2), q̃ (2) and the half (2), a zero and a
+      one-axis evaluation.  Bytes: both faces' 38 slots read, F̂ and the
+      half written.
+    - update: per node, slot and axis 10 (two λ(φ1/w a ∓ φ0/w b) terms).
+      Bytes: the state read and written, F̂ and the halves read."""
+    n = order + 1
+    pts, nodes, fn, v, gs = n**4, n**3, 3 * n**2, 38, 31
+    pred_ops = (picard_iters * (pts * full + pts * 3 * gs * 6 + pts * v * 3 + nodes * v * n * 5)
+                + pts * zero + nodes * (full + zero) + nodes * v * 20 + nodes * 3 * gs * 6
+                + fn * v * 2 * 5)
+    flux_ops = fn * (2 * 23 + 1 + v * 7 + zero + one_axis)
+    update_ops = nodes * v * 3 * 10
+    return {
+        "aderdg_predictor_volume_z4": (ncell * itemsize * (2 * nodes * v + 4 * fn * v),
+                                       ncell * pred_ops),
+        "aderdg_face_flux_z4": (ncell * itemsize * fn * 4 * v, ncell * flux_ops),
+        "aderdg_surface_update_z4": (ncell * itemsize * (2 * nodes * v + 2 * fn * v),
+                                     ncell * update_ops),
+    }
+
+
+def z4_plain_face_flux(torch, sol, faces):
+    """The plain versions of the Z4 face flux kernel's two outputs, ``fhat``
+    (``interface_flux``) and ``fhalf`` (``ncp_half``), in its layout
+    ``[3, 9, 38, *grid]``."""
+    fs = sol.face_flux_shape
+    parts = [[faces[d, k].reshape(fs) for k in range(4)] for d in range(3)]
+    shape = (3, -1) + tuple(fs[-4:])
+    return (torch.stack([sol.interface_flux(*parts[d], d) for d in range(3)]).reshape(shape),
+            torch.stack([sol.ncp_half(*parts[d], d) for d in range(3)]).reshape(shape))
+
+
+def z4_plain_update(sol, new, fhat, fhalf, dt):
+    """The plain version of the Z4 update kernel (a new tensor): each axis's
+    surface term, then its NCP term."""
+    fs = sol.face_flux_shape
+    for d in range(3):
+        new = sol.surface_term(new, fhat[d].view(fs), d, dt)
+        new = sol.ncp_term(new, fhalf[d].view(fs), d, dt)
+    return new
+
+
+def z4_kernel_parity(torch, sol, cu, u, dt, label: str, sol64=None) -> dict:
+    """The Z4 step's three kernels against their plain versions on ``u``:
+    the predictor's new state and faces; the face flux kernel's F̂ and NCP
+    halves from the plain faces; the update from the plain fluxes; the face
+    stage and the step.  float64: 1e-12 of max(1, max|plain|); float32:
+    ``F32_ULPS`` spacings of max|plain|, but the NCP halves, a difference of
+    two evaluations of the algebra (~25 each) that cancels to ~1e-2, against
+    the plain path in float64 from the same faces (``sol64``, the solver in
+    float64), to
+    ``FVWALL_F32_FACTOR`` times the plain float32 halves' own distance, as
+    the viscous wall planes.  Fails on a disagreement; returns the largest
+    error of each kernel."""
+    f64 = u.dtype == torch.float64
+    pred, flux, update = cu.kernels
+    new_k, faces_k, _ = cu.predictor_volume(u, dt)
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    fhat_k, fhalf_k = cu.face_flux(faces_p)
+    fhat_p, fhalf_p = z4_plain_face_flux(torch, sol, faces_p)
+    upd_k = cu.surface_update(new_p.clone(), fhat_p, dt, fhalf=fhalf_p)
+    upd_p = z4_plain_update(sol, new_p, fhat_p, fhalf_p, dt)
+    stage_k = cu.face_surface(new_p.clone(), faces_p, dt)
+    stage_p = sol.face_surface(new_p, faces_p, dt)
+    step_k, step_p = cu.step(u, dt), sol.step(u, dt)
+    torch.cuda.synchronize()
+    if faces_k[:, 2:].any():
+        fail(f"the Z4 predictor wrote nonzero F̄ rows ({label})")
+    checks = [(pred, "new", new_k, new_p), (pred, "faces", faces_k, faces_p),
+              (flux, "fhat", fhat_k, fhat_p), (flux, "fhalf", fhalf_k, fhalf_p),
+              (update, "new", upd_k, upd_p), ("face stage", "new", stage_k, stage_p),
+              ("step", "new", step_k, step_p)]
+    errs = {}
+    for name, what, a, b in checks:
+        err = max_err(torch, a, b)
+        if f64:
+            limit = Z4_F64_RTOL * max(1.0, b.abs().max().item())
+            why = f"{Z4_F64_RTOL:.0e} x max(1, max|plain| = {b.abs().max().item():.4g})"
+        elif what == "fhalf":
+            ref64 = z4_plain_face_flux(torch, sol64, faces_p.double())[1]
+            err, plain = max_err(torch, a, ref64), max_err(torch, b, ref64)
+            scale = ref64.abs().max().item()
+            limit = max(FVWALL_F32_FACTOR * plain, F32_ULPS * 2.0**-23 * scale)
+            why = (f"against plain f64 from the same faces; {FVWALL_F32_FACTOR}x plain f32's "
+                   f"{plain:.3e}, max|fhalf| {scale:.3e}")
+            if not limit < 0.1 * scale:
+                fail(f"the f32 NCP halves' limit {limit:.3e} cannot tell a kernel that drops "
+                     f"them (max|fhalf| {scale:.3e})")
+            del ref64
+        else:
+            limit = f32_bound(torch, b)
+            why = f"{F32_ULPS} f32 spacings of max|plain| = {b.abs().max().item():.4g}"
+        ok = err <= limit
+        say(f"[z4 parity] {label}: {name} ({what}) {str(u.dtype)[6:]} {sol.grid_shape}: "
+            f"max_abs_err {err:.3e} limit {limit:.3e} ({why}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"Z4 {name} ({what}) disagrees with its plain version ({label}, {u.dtype}, "
+                 f"{sol.grid_shape})")
+        errs[name] = max(errs.get(name, 0.0), err)
+    return errs
+
+
+def z4_path(torch, dev, card) -> list[dict]:
+    """The dynamic-GR form of the main path: the Z4 step through
+    ``CudaADERDG`` (K1 d, ``csrc/aderdg_z4.cu``), and the ``with_cuda_rhs``
+    route (K5); returns their lines of the kernel JSON."""
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
     from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
     from exahype_tpu_torch.models.z4 import (
         gauge_wave_state,
@@ -2486,7 +2647,7 @@ def z4_path(torch, dev, card) -> dict:
         return (f"Picard iteration {i + 1}" if i < iters
                 else ("corrector rhs_all(q̄, ∇q̄)" if i == iters else "corrector rhs_all(q̄, 0)"))
 
-    # ------------------------------------------- K5 vs plain, float64, cut grid
+    # ------------------------------------------- kernels vs plain, float64, cut grid
     for params in Z4_PARAMS:
         plain64, kern64 = make(Z4_CUT, torch.float64, **params)
         k5_64 = kern64.rhs_all_fn
@@ -2516,10 +2677,14 @@ def z4_path(torch, dev, card) -> dict:
             if not err <= limit:
                 fail("the float64 Z4 step through K5 disagrees with the plain step")
             del step_k, step_p
-        del plain64, kern64, k5_64, u, got, again, ref
+        # K1 d, the same solver through CudaADERDG: each kernel, the stage, a step.
+        cu64 = CudaADERDG(plain64)
+        z4_kernel_parity(torch, plain64, cu64, u, Z4_DT, f"K1 d {which}")
+        del plain64, kern64, k5_64, u, got, again, ref, cu64
 
-    # ------------------------------------------- K5 vs plain, float32, full width
+    # ------------------------------------------- kernels vs plain, float32, full width
     plain, kern = make(Z4_GRID, torch.float32)
+    cu = CudaADERDG(plain)
     k5 = kern.rhs_all_fn
     iters = plain.picard_iters
     u0 = gauge_wave_state(plain, amplitude=Z4_AMPLITUDE)
@@ -2551,10 +2716,33 @@ def z4_path(torch, dev, card) -> dict:
         del got, ref, ref64
     pic, cor = calls[0], calls[iters]
     del calls
+    sol64, _ = make(Z4_GRID, torch.float64)
+    k1d_errs = z4_kernel_parity(torch, plain, cu, u0, Z4_DT, "K1 d, the path's own", sol64)
     torch.cuda.empty_cache()
 
-    # ------------------------------------------- the main path
+    # ------------------------------------------- the main path: CudaADERDG
     gib = 2.0**-30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cu.reset_launches()
+    u_d = cu.run(u0, STEPS, Z4_DT)
+    torch.cuda.synchronize()
+    d_launches = dict(cu.launches)
+    d_peak = torch.cuda.max_memory_allocated()
+    say(f"[z4 main] {STEPS} steps of {Z4_GRID} f32 through CudaADERDG(make_z4_solver(..., "
+        f"fused_rhs='soa')): launches {d_launches} (expected {STEPS} of each: 3 a step); peak "
+        f"{d_peak * gib:.4f} GiB allocated ({held * gib:.4f} GiB held before) ({card})")
+    if d_launches != {name: STEPS for name in cu.kernels}:
+        fail(f"the Z4 step through CudaADERDG launched {d_launches} in {STEPS} steps, "
+             "expected 3 a step")
+    if tuple(u_d.shape) != plain.state_shape or not torch.isfinite(u_d).all():
+        fail("the Z4 state through CudaADERDG is not finite or has the wrong shape")
+    if not torch.equal(u_d, cu.run(u0, STEPS, Z4_DT)):
+        fail("two Z4 runs through CudaADERDG from the same state differ")
+    say("[z4 main] CudaADERDG: two runs from the same state: bitwise equal")
+
+    # ------------------------------------------- the with_cuda_rhs route (K5)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -2577,25 +2765,26 @@ def z4_path(torch, dev, card) -> dict:
         fail("two Z4 runs from the same state differ")
     say("[z4 main] two runs from the same state: bitwise equal")
     del again
-    k1, p1 = kern.step(u0, Z4_DT), plain.step(u0, Z4_DT)
+    d1, k1, p1 = cu.step(u0, Z4_DT), kern.step(u0, Z4_DT), plain.step(u0, Z4_DT)
     torch.cuda.reset_peak_memory_stats()
     p10 = plain.run(u0, STEPS, Z4_DT)
     torch.cuda.synchronize()
     plain_peak = torch.cuda.max_memory_allocated()
-    for n, a, b in ((1, k1, p1), (STEPS, u, p10)):
+    for route, n, a, b in (("CudaADERDG", 1, d1, p1), ("CudaADERDG", STEPS, u_d, p10),
+                           ("with_cuda_rhs", 1, k1, p1), ("with_cuda_rhs", STEPS, u, p10)):
         err, limit = max_err(torch, a, b), n * f32_bound(torch, b)
-        say(f"[z4 main] {n} step(s), kernel path vs plain path: max_abs_err {err:.3e} "
-            f"limit {limit:.3e}")
+        say(f"[z4 main] {route}, {n} step(s), kernel path vs plain path: max_abs_err "
+            f"{err:.3e} limit {limit:.3e}")
         if not err <= limit:
-            fail(f"the Z4 kernel path disagrees with the plain path after {n} step(s)")
-    del k1, p1
+            fail(f"the Z4 kernel path ({route}) disagrees with the plain path after {n} step(s)")
+    del d1, k1, p1
 
     # Readings: the error against the exact gauge wave, the ADM constraints
     # (in float64, from a float64 solver's operators).
-    sol64, _ = make(Z4_GRID, torch.float64)
     exact = gauge_wave_state(sol64, t=STEPS * Z4_DT, amplitude=Z4_AMPLITUDE)
     for label, x, ex in (("initial state", u0, gauge_wave_state(sol64, amplitude=Z4_AMPLITUDE)),
-                         ("kernel path", u, exact), ("plain path", p10, exact)):
+                         ("CudaADERDG path", u_d, exact), ("with_cuda_rhs path", u, exact),
+                         ("plain path", p10, exact)):
         diff = x.double() - ex
         H, M = solver_constraints(sol64, x.double())
         say(f"[z4 reading] {label} at t = {0 if x is u0 else STEPS * Z4_DT!r}: error against "
@@ -2603,16 +2792,35 @@ def z4_path(torch, dev, card) -> dict:
             f", max {diff.abs().max().item()!r}; ADM constraints max|H| "
             f"{H.abs().max().item()!r}, max|M| {M.abs().max().item()!r}")
         del diff, H, M
-    del sol64, exact, p10, u
+    del sol64, exact, p10, u, u_d
 
     # ------------------------------------------- times
+    d_win = windows(torch, cu, u0, Z4_DT, steps=10)
     k_win = windows(torch, kern, u0, Z4_DT, steps=5)
     p_win = windows(torch, plain, u0, Z4_DT, steps=1, n_windows=1)
-    for label, win in (("kernel path", k_win), ("plain path", p_win)):
+    for label, win in (("CudaADERDG path", d_win), ("with_cuda_rhs path", k_win),
+                       ("plain path", p_win)):
         ms = [1e3 * w for w in win]
         say(f"[z4 time] {label}: step ms per window {ms!r}; median {statistics.median(ms)!r} "
             f"ms, {dofs / statistics.median(win)!r} DOF-updates/s ({dofs} DOF per step; {card})")
-    new, faces, _ = kern.predictor_volume(u0, Z4_DT)
+    new, faces, _ = cu.predictor_volume(u0, Z4_DT)
+    fhat, fhalf = cu.face_flux(faces)
+    pred, flux, update = cu.kernels
+    d_times = {
+        pred: (event_ms(torch, lambda: cu.predictor_volume(u0, Z4_DT), 20),
+               once_ms(torch, lambda: plain.predictor_volume(u0, Z4_DT))),
+        flux: (event_ms(torch, lambda: cu.face_flux(faces), 20),
+               once_ms(torch, lambda: z4_plain_face_flux(torch, plain, faces))),
+        update: (event_ms(torch, lambda: cu.surface_update(new, fhat, Z4_DT, fhalf=fhalf), 20),
+                 once_ms(torch, lambda: z4_plain_update(plain, new, fhat, fhalf, Z4_DT))),
+        "face stage": (event_ms(torch, lambda: cu.face_surface(new, faces, Z4_DT), 20),
+                       once_ms(torch, lambda: plain.face_surface(new, faces, Z4_DT))),
+        "step": (event_ms(torch, lambda: cu.step(u0, Z4_DT), 20),
+                 once_ms(torch, lambda: plain.step(u0, Z4_DT))),
+    }
+    for name, (ms, plain_ms) in d_times.items():
+        say(f"[z4 time] K1 d {name}: kernel {ms!r} ms, plain {plain_ms!r} ms (CUDA events; "
+            f"{card})")
     q_st = pic[0]
     k5_ms = {
         "Picard": event_ms(torch, lambda: k5(*pic), 20),
@@ -2637,18 +2845,21 @@ def z4_path(torch, dev, card) -> dict:
         f"{tuple(pic[0].shape)} {k5_ms['Picard']!r} ms, corrector shape {tuple(cor[0].shape)} "
         f"{k5_ms['corrector']!r} ms; plain rhs_all_fn {k5_plain_ms['Picard']!r} / "
         f"{k5_plain_ms['corrector']!r} ms ({card})")
-    say(f"[z4 time] per call (CUDA events; the device timeline of eager work, gaps "
-        f"included): " + ", ".join(f"{k} {v!r} ms" for k, v in parts.items())
+    say(f"[z4 time] with_cuda_rhs per call (CUDA events; the device timeline of eager work, "
+        f"gaps included): " + ", ".join(f"{k} {v!r} ms" for k, v in parts.items())
         + f"; K5's {iters + 2} launches {k5_in_step!r} ms of the step, the rest "
         f"{parts['step'] - k5_in_step!r} ms ({card})")
-    del new, faces
-    idle, busy, wall = idle_share(torch, lambda: kern.step(u0, Z4_DT))
-    say(f"[z4 idle] kernel path, 1 step under torch.profiler: device busy {busy!r} ms of "
+    idle, busy, wall = idle_share(torch, lambda: cu.run(u0, 20, Z4_DT))
+    say(f"[z4 idle] CudaADERDG path, 20 steps under torch.profiler: device busy {busy!r} ms of "
         f"wall {wall!r} ms; idle share {idle!r} ({card})")
-    say(f"[z4 mem] peak allocated over {STEPS} steps: kernel path {peak * gib:.4f} GiB, "
-        f"plain path {plain_peak * gib:.4f} GiB ({card})")
+    idle, busy, wall = idle_share(torch, lambda: kern.step(u0, Z4_DT))
+    say(f"[z4 idle] with_cuda_rhs path, 1 step under torch.profiler: device busy {busy!r} ms "
+        f"of wall {wall!r} ms; idle share {idle!r} ({card})")
+    say(f"[z4 mem] peak allocated over {STEPS} steps: CudaADERDG path {d_peak * gib:.4f} GiB, "
+        f"with_cuda_rhs path {peak * gib:.4f} GiB, plain path {plain_peak * gib:.4f} GiB "
+        f"({card})")
 
-    # ------------------------------------------- bound
+    # ------------------------------------------- bounds
     counts = z4_point_ops(torch, plain.rhs_all_fn)
     per_point = sum(counts.values())
     q_slots, grad_slots = z4_slots_read(torch, plain.rhs_all_fn)
@@ -2663,9 +2874,28 @@ def z4_path(torch, dev, card) -> dict:
             f"the plain algebra reads them, {Q.shape[va]} written): bound "
             f"{bounds[name]['bound_ms']!r} ms by {bounds[name]['bound_by']}; kernel "
             f"{k5_ms[name]!r} ms ({card})")
-    del kern, plain, u0, pic, cor, q_st
+    full = z4_value_ops(torch, plain.rhs_all_fn)
+    zero = z4_value_ops(torch, plain.rhs_all_fn, ())
+    axes = [z4_value_ops(torch, plain.rhs_all_fn, (k,)) for k in range(3)]
+    one_axis = sum(axes) / 3
+    say(f"[bound] the algebra's operations at a point with no zero state slot "
+        f"(z4_value_ops): every gradient axis {full}, none {zero}, one {axes} (the products "
+        f"and sums with a zero gradient row need none; the plain count on flat space with "
+        f"zero gradients is {per_point})")
+    work = z4_kernel_work(Z4_ORDER, iters, ncell, u0.element_size(), full, zero, one_axis)
+    work["face stage"] = tuple(a + b for a, b in zip(work[flux], work[update]))
+    lines = []
+    for name in (pred, flux, update, "face stage"):
+        bnd = kernel_report(None if name == "face stage" else cu, name, torch.float32,
+                            f"(vacuum Z4) {Z4_GRID} f32", d_times[name][0], *work[name], card)
+        if name == "face stage":
+            continue
+        lines.append(kernel_line(f"{name} (vacuum Z4, K1 d)", "exahype_tpu/models/aderdg_pallas.py:156",
+                                 d_launches[name], k1d_errs[name], *d_times[name], bnd,
+                                 "exahype_tpu_torch/csrc/aderdg_z4.cuh"))
+    del kern, plain, cu, u0, pic, cor, q_st, new, faces, fhat, fhalf
     torch.cuda.empty_cache()
-    return {
+    return lines + [{
         "name": "rhs_all_z4",
         "route": "cuda",
         "source": "exahype_tpu_torch/csrc/rhs.cu",
@@ -2676,7 +2906,7 @@ def z4_path(torch, dev, card) -> dict:
         "plain_ms": k5_plain_ms["Picard"],
         **bounds["Picard"],
         "library_ms": None,  # no single PyTorch call computes it
-    }
+    }]
 
 
 def main():
@@ -2754,7 +2984,7 @@ def main():
         "walls": lambda: walls_path(torch, dev, card),
         "viscous": lambda: viscous_path(torch, dev, card),
         "FV": lambda: [fv_path(torch, dev, card, spec_printers)],
-        "Z4": lambda: [z4_path(torch, dev, card)],
+        "Z4": lambda: z4_path(torch, dev, card),
     }
     kernels, seconds = [], {"build": time.perf_counter() - t0}
     for name, run in paths.items():

@@ -70,6 +70,10 @@ _FACE_FLUX_WALLS = _FACE_FLUX[:-1] + (_INT, _INT, _P, _P, _P, _P, _LL, _P, _P)
 # mask 0 and null pointers without walls).
 _PREDICTOR_VOLUME_VISC = _PREDICTOR_VOLUME[:-1] + (_INT, _P, _P, _LL, _P)
 _SURFACE_UPDATE_WALLS = _SURFACE_UPDATE[:-1] + (_INT, _P, _P, _P)
+# The Z4 face stage (csrc/aderdg_z4.cu): the periodic entries' arguments
+# with the NCP half-fluctuations fhalf after fhat.
+_FACE_FLUX_Z4 = _FACE_FLUX[:2] + (_P,) + _FACE_FLUX[2:]
+_SURFACE_UPDATE_Z4 = _SURFACE_UPDATE[:2] + (_P,) + _SURFACE_UPDATE[2:]
 # kernel, f64, physics, out (5 ints)
 _KERNEL_INFO = (_INT, _INT, _INT, _P)
 # s, s_out, ghost_lo, ghost_hi, g_lo, g_hi, dt_ptr, dt_val, h, gamma, dim,
@@ -96,6 +100,9 @@ _SIGNATURES = {
         ("aderdg_surface_update", _SURFACE_UPDATE),
         ("aderdg_face_flux_walls", _FACE_FLUX_WALLS),
         ("aderdg_surface_update_walls", _SURFACE_UPDATE_WALLS),
+        ("aderdg_predictor_volume_z4", _PREDICTOR_VOLUME),
+        ("aderdg_face_flux_z4", _FACE_FLUX_Z4),
+        ("aderdg_surface_update_z4", _SURFACE_UPDATE_Z4),
         ("subcell_row_sweep", _ROW_SWEEP),
         ("rhs_all_z4", _RHS_ALL),
     )

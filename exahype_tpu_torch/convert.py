@@ -183,7 +183,7 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
             "the JAX solver's viscous callbacks are JAX functions the port cannot "
             "call: a viscous solver crosses with physics='navier_stokes' (and mu, "
             "prandtl, gamma) or a port 4-tuple, and only a viscous one does (see "
-            "ROADMAP.md, Queue 1 item 3)"
+            "ROADMAP.md, Queue 1, done: item 3, the viscous fluxes)"
         )
     return ADERDGSolver(
         dim=jax_solver.dim,
@@ -306,12 +306,20 @@ def z4_solver_from_jax(jax_solver, *, slicing: str = "harmonic", f: float = 1.0,
     ``rhs_all_fn`` gets the port's ``fused_rhs="soa"`` hook, one without it
     the per-axis NCP; the port's callbacks are the ``impl="soa"`` ones.  A
     ``PallasRHS`` hook (``with_pallas_rhs``) maps to
-    :func:`~exahype_tpu_torch.models.rhs_cuda.with_cuda_rhs`.  States cross
-    through :func:`state_from_numpy`.
+    :func:`~exahype_tpu_torch.models.rhs_cuda.with_cuda_rhs`.  A JAX
+    ``PallasADERDG`` over a fused Z4 solver maps to
+    :class:`~exahype_tpu_torch.models.aderdg_cuda.CudaADERDG` over the port's
+    solver for the one it wraps (its step's kernels compile the algebra in).
+    States cross through :func:`state_from_numpy`.
     """
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
     from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
     from exahype_tpu_torch.models.z4 import N_VARS, make_z4_solver
 
+    if type(jax_solver).__name__ == "PallasADERDG":
+        return CudaADERDG(z4_solver_from_jax(
+            jax_solver.solver, slicing=slicing, f=f, m=m, kappa1=kappa1, kappa2=kappa2,
+            device=device, dtype=dtype))
     if jax_solver.n_vars != N_VARS or jax_solver.ncp_fn is None or (
             jax_solver.source_fn is None):
         raise SemanticError(

@@ -3,7 +3,8 @@
 // on the physics (3-D compressible Euler, 3-D heterogeneous elasticity, and
 // for the face stage 3-D compressible Navier–Stokes, whose predictor is
 // csrc/aderdg_visc.cuh's).  The definitions both sources share are in
-// csrc/aderdg_common.cuh.
+// csrc/aderdg_common.cuh.  The Z4 step (physics 3) has its own three kernels,
+// csrc/aderdg_z4.cuh; this file's occupancy query reports them.
 //
 // Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
 // PallasADERDG.build (its pallas_call and the XLA face epilogue around it)
@@ -162,6 +163,10 @@
 // planes.
 int visc_predictor_info_f32(int wall_planes, int* out) __attribute__((weak));
 int visc_predictor_info_f64(int wall_planes, int* out) __attribute__((weak));
+// The Z4 kernels' occupancy (csrc/aderdg_z4.cu and aderdg_z4_f64.cu; weak
+// too): `which` 0 predictor, 1 face flux, 2 update.
+int z4_kernel_info_f32(int which, int* out) __attribute__((weak));
+int z4_kernel_info_f64(int which, int* out) __attribute__((weak));
 
 namespace {
 
@@ -689,60 +694,11 @@ aderdg_ck_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
   }
 }
 
-// The face stage's tiling: a tile is kTile consecutive cells of one row of
-// the last grid axis (one warp), the row (i0, i1) and the tile come from
-// the block index; blocks of aderdg_face_flux take kFluxNodes face nodes of
-// one axis, blocks of aderdg_surface_update kUpdateNodes space nodes.
-constexpr int kTile = 32;
+// The face stage's tiling (kTile, TileCell: csrc/aderdg_common.cuh):
+// blocks of aderdg_face_flux take kFluxNodes face nodes of one axis, blocks
+// of aderdg_surface_update kUpdateNodes space nodes.
 constexpr int kFluxNodes = 4;
 constexpr int kUpdateNodes = 8;
-
-// A thread's cell of the face stage: its grid coordinates, flat index, and
-// whether it lies inside the grid (the last tile of a row may be ragged).
-struct TileCell {
-  int i[kDim];
-  int g[kDim];
-  long long cell;
-  bool inside;
-
-  __device__ __forceinline__ TileCell(int tile_index, const long long (&grid)[kDim]) {
-#pragma unroll
-    for (int d = 0; d < kDim; ++d) g[d] = static_cast<int>(grid[d]);
-    const int ntile = (g[2] + kTile - 1) / kTile;
-    const int row = tile_index / ntile;
-    i[2] = (tile_index - row * ntile) * kTile + static_cast<int>(threadIdx.x);
-    i[0] = row / g[1];
-    i[1] = row - i[0] * g[1];
-    inside = i[2] < g[2];
-    cell = static_cast<long long>(row) * g[2] + i[2];
-  }
-
-  // My index along axis d, the grid's extent along it, and the plane across
-  // it: its size and my index in it (my cell with i_d dropped, row-major).
-  __device__ __forceinline__ int at(int d) const {
-    return d == 0 ? i[0] : (d == 1 ? i[1] : i[2]);
-  }
-  __device__ __forceinline__ int extent(int d) const {
-    return d == 0 ? g[0] : (d == 1 ? g[1] : g[2]);
-  }
-  __device__ __forceinline__ long long plane(int d) const {
-    return d == 0 ? static_cast<long long>(g[1]) * g[2]
-                  : static_cast<long long>(g[0]) * (d == 1 ? g[2] : g[1]);
-  }
-  __device__ __forceinline__ long long plane_index(int d) const {
-    return d == 0 ? static_cast<long long>(i[1]) * g[2] + i[2]
-                  : static_cast<long long>(i[0]) * (d == 1 ? g[2] : g[1]) + (d == 1 ? i[2] : i[1]);
-  }
-
-  // The periodic neighbour one cell up (+1) or down (-1) axis d.
-  __device__ __forceinline__ long long neighbour(int d, int step) const {
-    const long long stride = d == 0 ? static_cast<long long>(g[1]) * g[2] : (d == 1 ? g[2] : 1);
-    const int id = d == 0 ? i[0] : (d == 1 ? i[1] : i[2]);
-    const int gd = d == 0 ? g[0] : (d == 1 ? g[1] : g[2]);
-    if (step > 0) return id + 1 == gd ? cell - (gd - 1) * stride : cell + stride;
-    return id == 0 ? cell + (gd - 1) * stride : cell - stride;
-  }
-};
 
 // The face stage, first launch: one thread per (cell, axis d, face node m)
 // solves the interface between the cell's high face and its +d
@@ -1286,6 +1242,10 @@ int surface_update(T* state, const T* fhat, const T* dt_ptr, double dt_val, cons
 template <typename T>
 int kernel_info(int kernel, int physics, int* out) {
   const bool euler = physics == kEuler;
+  if (physics == kZ4) {  // the Z4 step's own three kernels, 7-9
+    auto* info = sizeof(T) == 8 ? z4_kernel_info_f64 : z4_kernel_info_f32;
+    return info && kernel >= 7 && kernel <= 9 ? info(kernel - 7, out) : cudaErrorInvalidValue;
+  }
   if (physics == kNavierStokes) {
     // The viscous predictor, the face flux's own instantiation; the update
     // is Euler's.
@@ -1496,7 +1456,9 @@ int exahype_aderdg_surface_update_walls_f64(double* state, const double* fhat,
 // 1 = ck_predictor_volume, 2 = face_flux, 3 = surface_update,
 // 4 = face_flux_walls, 5 = surface_update_walls, 6 and 7 =
 // predictor_volume_visc without and with the wall planes (physics 2: the
-// face stage and 6, 7 only); f64 = 0 or 1.
+// face stage and 6, 7 only); physics 3 (Z4, csrc/aderdg_z4.cu): 7 =
+// predictor_volume_z4, 8 = face_flux_z4, 9 = surface_update_z4; f64 = 0 or
+// 1.
 int exahype_aderdg_kernel_info(int kernel, int f64, int physics, int* out) {
   return f64 ? kernel_info<double>(kernel, physics, out)
              : kernel_info<float>(kernel, physics, out);

@@ -1,9 +1,10 @@
 // Definitions shared by the ADER-DG kernels of csrc/aderdg.cu (the Euler
-// and elastic predictors, the face stage) and csrc/aderdg_visc.cu (the
-// viscous predictor): the physics the Picard predictors and the face stage
-// compile in, the kernels' parameter bank, the predictors' shared-memory
-// layouts, and the host-side helpers of their launchers.  Each source
-// compiles its own copy (an anonymous namespace).
+// and elastic predictors, the face stage), csrc/aderdg_visc.cu (the
+// viscous predictor) and csrc/aderdg_z4.cu (the Z4 step): the physics the
+// Picard predictors and the face stage compile in, the kernels' parameter
+// bank, the predictors' shared-memory layouts, the face stage's tiling,
+// and the host-side helpers of their launchers.  Each source compiles its
+// own copy (an anonymous namespace).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,7 +17,7 @@ namespace {
 constexpr int kDim = 3;
 
 // Physics ids of the C interface.
-enum PhysicsId : int { kEuler = 0, kElasticHet = 1, kNavierStokes = 2 };
+enum PhysicsId : int { kEuler = 0, kElasticHet = 1, kNavierStokes = 2, kZ4 = 3 };
 
 template <typename T>
 __device__ __forceinline__ T momentum(const T* q, int d) {
@@ -188,6 +189,58 @@ struct Slabs {
   static constexpr int kVar = NN * kSlab;
   static __device__ __forceinline__ int at(int v, int i0, int i1, int i2, int c) {
     return v * kVar + i2 * kSlab + (i0 * NN + i1) * CB + (c ^ ((2 * i0) & (CB - 1)));
+  }
+};
+
+// The face stage's tiling: a tile is kTile consecutive cells of one row of
+// the last grid axis (one warp), the row (i0, i1) and the tile come from
+// the block index.
+constexpr int kTile = 32;
+
+// A thread's cell of the face stage: its grid coordinates, flat index, and
+// whether it lies inside the grid (the last tile of a row may be ragged).
+struct TileCell {
+  int i[kDim];
+  int g[kDim];
+  long long cell;
+  bool inside;
+
+  __device__ __forceinline__ TileCell(int tile_index, const long long (&grid)[kDim]) {
+#pragma unroll
+    for (int d = 0; d < kDim; ++d) g[d] = static_cast<int>(grid[d]);
+    const int ntile = (g[2] + kTile - 1) / kTile;
+    const int row = tile_index / ntile;
+    i[2] = (tile_index - row * ntile) * kTile + static_cast<int>(threadIdx.x);
+    i[0] = row / g[1];
+    i[1] = row - i[0] * g[1];
+    inside = i[2] < g[2];
+    cell = static_cast<long long>(row) * g[2] + i[2];
+  }
+
+  // My index along axis d, the grid's extent along it, and the plane across
+  // it: its size and my index in it (my cell with i_d dropped, row-major).
+  __device__ __forceinline__ int at(int d) const {
+    return d == 0 ? i[0] : (d == 1 ? i[1] : i[2]);
+  }
+  __device__ __forceinline__ int extent(int d) const {
+    return d == 0 ? g[0] : (d == 1 ? g[1] : g[2]);
+  }
+  __device__ __forceinline__ long long plane(int d) const {
+    return d == 0 ? static_cast<long long>(g[1]) * g[2]
+                  : static_cast<long long>(g[0]) * (d == 1 ? g[2] : g[1]);
+  }
+  __device__ __forceinline__ long long plane_index(int d) const {
+    return d == 0 ? static_cast<long long>(i[1]) * g[2] + i[2]
+                  : static_cast<long long>(i[0]) * (d == 1 ? g[2] : g[1]) + (d == 1 ? i[2] : i[1]);
+  }
+
+  // The periodic neighbour one cell up (+1) or down (-1) axis d.
+  __device__ __forceinline__ long long neighbour(int d, int step) const {
+    const long long stride = d == 0 ? static_cast<long long>(g[1]) * g[2] : (d == 1 ? g[2] : 1);
+    const int id = d == 0 ? i[0] : (d == 1 ? i[1] : i[2]);
+    const int gd = d == 0 ? g[0] : (d == 1 ? g[1] : g[2]);
+    if (step > 0) return id + 1 == gd ? cell - (gd - 1) * stride : cell + stride;
+    return id == 0 ? cell + (gd - 1) * stride : cell - stride;
   }
 };
 

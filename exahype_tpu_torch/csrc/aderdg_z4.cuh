@@ -1,0 +1,611 @@
+// The ADER-DG step of the 38-variable vacuum Z4 system (csrc/z4.cuh) for
+// Hopper (sm_90a): 3-D, order 2, periodic, the fused right-hand side.  Its
+// float32 instances and C interface are csrc/aderdg_z4.cu, its float64 ones
+// csrc/aderdg_z4_f64.cu: two sources that nvcc compiles in parallel.
+//
+// Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
+// PallasADERDG.build on a pure-NCP solver with the fused rhs_all_fn: its
+// Picard body with rhs_all_fn (:446-463), the source average (:714-719), the
+// fused strong-form NCP volume term in the epilogue (:734-743), and the NCP
+// face half-fluctuations of the Riemann stage (:286-298).  (On the TPU this
+// build never compiled: Mosaic could not take the ~4k-op algebra inside
+// the predictor, so the JAX package ran the same evaluations under XLA
+// around K5.)  The numbers to match are those of exahype_tpu/models/
+// aderdg.py::ADERDGSolver.step on make_z4_solver(..., fused_rhs="soa");
+// the plain PyTorch version is exahype_tpu_torch/models/aderdg.py::
+// ADERDGSolver.{predictor_volume, face_surface} on the port's fused Z4
+// solver (the face stage's halves: interface_flux, ncp_half, surface_term,
+// ncp_term).
+//
+//   aderdg_predictor_volume_z4  cell-local: the Picard predictor with
+//                            rhs_s = φ0_s u + dt w_s rhs(q_s, ∇q_s) (the flux
+//                            is zero, so there is no D·F term and no volume
+//                            integral), q̄ = Σ_s w_s q_s, the source average
+//                            s̄ = Σ_s w_s rhs(q_s, 0) of the final q,
+//                            new = u + dt s̄ + dt [rhs(q̄, ∇q̄) − rhs(q̄, 0)],
+//                            and the face projections (q_lo, q_hi, f_lo,
+//                            f_hi) of every axis, the f rows written as
+//                            zeros (the face tensor keeps its layout, so the
+//                            kernel and plain stages stay interchangeable;
+//                            the zeros go out as full lines, each block a
+//                            run of the slab).
+//   aderdg_face_flux_z4      the face stage, first launch: per (cell, axis
+//                            d, face node) the Rusanov flux with f = 0,
+//                            F̂ = −½ s (q⁺ − q_hi), s the larger wave speed
+//                            α √(max(g(α), 1) γ^dd) of the two states, into
+//                            fhat, and the NCP half-fluctuation
+//                            ½ [rhs(q̃, 0) − rhs(q̃, e_d (q⁺ − q_hi))] at
+//                            q̃ = ½ (q_hi + q⁺), into fhalf.
+//   aderdg_surface_update_z4 the face stage, second launch: per (cell, space
+//                            node), axis by axis, new −= λ (φ1/w F̂_hi −
+//                            φ0/w F̂_lo), then new −= λ (φ1/w h_hi + φ0/w
+//                            h_lo), the _lo values the −d neighbour's
+//                            high-face ones, in place.
+//
+// What bounds them on the H100.  One evaluation of the algebra is ~3,900
+// arithmetic operations (chip_smoke.py::z4_point_ops), and the predictor
+// makes 378 a cell and step (3 Picard iterations x 81 space-time points,
+// 81 for the source average, 54 for the NCP volume term): ~1.5e6
+// operations against ~24 KB of device memory a cell in float32, ~60 per
+// byte, so operations bound it.  The face stage makes 2 evaluations a
+// face node (27 a cell) against ~33 KB a cell, ~3 per byte: bytes bound it.
+//
+// Design of the predictor.  One thread per space-time point (cell, time
+// slice s, space node), CB cells a block (81 CB threads).  The algebra's
+// own live values set the register count (168-255 a thread), so a block is
+// the only one on its SM, and its CB is as large as the shared memory
+// allows: 4 cells (324 threads, 11 warps) in float32, 2 in float64.  A
+// cell's space-time array (81 x 38) cannot live in registers;
+// it lives in shared memory, with u and the physical gradients of the
+// slots the algebra reads (∂α and ∂γ_ij never appear: 31 slots an axis),
+// each row [slot][point] contiguous over the block's points, so the threads
+// of a warp read consecutive words.  A Picard iteration is three phases
+// between barriers: (1) each thread takes the gradients of its point
+// (3-point contractions with D along each axis, scaled by 1/dx_k after the
+// contraction, see z4_gradient), once, instead of the ~440 times the
+// algebra reads them; (2) each thread evaluates the algebra at its
+// point and writes φ0_s u + dt w_s rhs in place of its q (the algebra reads
+// every state slot before it writes one, and no other thread reads that
+// point in this phase); (3) q ← K1inv rhs, one (node, slot) a thread, all
+// three slices in registers.  The epilogue reuses the gradient rows for
+// q̄, ∇q̄ and the two NCP evaluations: the source evaluations rhs(q_s, 0)
+// (their zero gradients compile away) run on every point, rhs(q̄, ∇q̄) on
+// the threads of slice 0 and rhs(q̄, 0) on those of slice 1.  Device memory
+// is read and written in another mapping, the block's cells fastest.  Shared
+// memory: 186,192 B a block in either type.
+//
+// The NCP terms are differences of two evaluations, rhs(q, g) − rhs(q, 0),
+// kept as the reference makes them.  The plain version runs the same
+// operations for both, so their gradient-free terms (~25 in size here)
+// round alike and cancel exactly; two code copies with the zero gradient
+// compiled away in one would round them differently and leave float32
+// noise of that size's rounding in a term of ~1e-2.  So each such pair runs
+// one code copy, the zero gradient given at run time.
+//
+// Design of the face stage.  One thread per (cell, axis, face node), a warp
+// a block over 32 consecutive cells of a row (coalesced loads, the
+// neighbour from the tile's coordinates, csrc/aderdg_common.cuh::TileCell);
+// the axis is dispatched to compile-time axes so that the one-direction
+// gradient's two other rows compile away.  q̃, Δq and rhs(q̃, 0) wait in
+// the thread's own words of shared memory while the second evaluation runs.
+// The update is the Euler update's shape with the NCP term added.
+//
+// IEEE division and square root (no fast math; the gradient's division by
+// dx is a product with its reciprocal, see z4_gradient); nvcc contracts
+// a·b + c into fused multiply-adds, so the kernels differ from the plain
+// version by rounding only.  No atomics: the step is bitwise deterministic.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "aderdg_common.cuh"
+#include "z4.cuh"
+
+namespace {
+
+constexpr int kZ4N = 3;                            // order 2: nodes an axis
+constexpr int kZ4Faces = kZ4N * kZ4N;              // face nodes of an axis
+constexpr int kZ4Nodes = kZ4N * kZ4N * kZ4N;       // space nodes of a cell
+constexpr int kZ4Points = kZ4N * kZ4Nodes;         // space-time points of a cell
+constexpr int kZ4V = z4::kVars;
+// The algebra reads the gradients of slots kK..37 only (31 an axis).
+constexpr int kZ4GradFirst = z4::kK;
+constexpr int kZ4GradSlots = kZ4V - kZ4GradFirst;
+// Face-stage blocks: one tile of kTile cells of one (axis, face node); the
+// update's blocks take kZ4UpdateNodes space nodes of one tile.
+constexpr int kZ4UpdateNodes = 9;
+
+// The Z4 system's parameters as the kernels take them: slicing id, f, m, κ₁,
+// κ₂ (make_params's physics; the wave speed is csrc/z4.cuh::wave_speed).
+template <typename T>
+struct Z4Physics {
+  z4::Params p;
+  static Z4Physics make(const double* params) {
+    return {{static_cast<int>(params[0]), params[1], params[2], params[3], params[4]}};
+  }
+};
+
+template <typename T>
+using Z4Params = Params<T, kZ4N, Z4Physics<T>>;
+
+// Cells a predictor block, the block the only one on its SM: as many as
+// the shared memory admits (46,548 B a cell in float32, 93,096 in float64),
+// 4 and 2.  At 4 (324 threads) ptxas fits the float32 algebra in 168
+// registers without spills, and the kernel ran 6 % faster than at 3 cells
+// and 204 registers (H100 80GB HBM3, 700 W; PERF.md).
+template <typename T>
+constexpr int z4_cells_per_block() { return sizeof(T) == 8 ? 2 : 4; }
+
+// The predictor's shared memory, in values of T: u [slot][node], q (its
+// right-hand sides in place) [slot][point], and the gradient rows
+// [axis][slot - kZ4GradFirst][point], which the epilogue reuses for q̄
+// [slot][node], ∇q̄ [axis][slot][node] and the NCP terms' two evaluations
+// [slot][node] each.
+template <int CB>
+struct Z4Smem {
+  static constexpr int kPts = CB * kZ4Points;
+  static constexpr int kNodes = CB * kZ4Nodes;
+  static constexpr int kU = kZ4V * kNodes;
+  static constexpr int kQ = kZ4V * kPts;
+  static constexpr int kG = kDim * kZ4GradSlots * kPts;
+  static constexpr int kQbar = 0;                                    // offsets in G
+  static constexpr int kGbar = kQbar + kZ4V * kNodes;
+  static constexpr int kNcpA = kGbar + kDim * kZ4GradSlots * kNodes;
+  static constexpr int kNcpB = kNcpA + kZ4V * kNodes;
+  static_assert(kNcpB + kZ4V * kNodes <= kG, "the epilogue fits the gradient rows");
+  static constexpr int kTotal = kU + kQ + kG;
+};
+
+template <typename T>
+constexpr size_t z4_predictor_smem() {
+  return static_cast<size_t>(Z4Smem<z4_cells_per_block<T>()>::kTotal) * sizeof(T);
+}
+
+// The physical gradient along axis k at a node (its digit ik along k) of a
+// row of nodes stride `st` apart, x pointing at the node:
+// (Σ_j D[ik][j] x_j) · (1/dx_k).  The plain version divides by dx_k; the
+// reciprocal moves the rounding by at most one unit in the last place (none
+// where dx is a power of two), and an IEEE division here, taken ~290 times a
+// thread and step, cost 14 % of the predictor on states after a step and 33
+// % on the exact gauge wave, whose zero slots send it down its slow path
+// (H100 80GB HBM3, 700 W; PERF.md, scripts/torch_z4_ab.py).  inv_dx is
+// T(1) / dx_k.
+template <typename T>
+__device__ __forceinline__ T z4_gradient(const T (&drow)[kZ4N], const T* x, int ik, int st,
+                                         T inv_dx) {
+  const T* x0 = x - ik * st;
+  return (drow[0] * x0[0] + drow[1] * x0[st] + drow[2] * x0[2 * st]) * inv_dx;
+}
+
+// The node stride of axis k within a cell's 27 nodes, and the node's digit.
+__device__ __forceinline__ int z4_stride(int k) { return k == 0 ? 9 : (k == 1 ? 3 : 1); }
+__device__ __forceinline__ int z4_digit(int node, int k) {
+  return k == 0 ? node / 9 : (k == 1 ? (node / 3) % 3 : node % 3);
+}
+
+template <typename T, int CB>
+__global__ void __launch_bounds__(CB * kZ4Points, 1)
+aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __restrict__ faces,
+                           const T* __restrict__ dt_ptr, T dt_val, const Z4Params<T> P) {
+  using S = Z4Smem<CB>;
+  constexpr int V = kZ4V;
+  constexpr int NT = CB * kZ4Points;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sU = reinterpret_cast<T*>(smem_raw);
+  T* sQ = sU + S::kU;
+  T* sG = sQ + S::kQ;
+
+  const long long ncell = P.ncell;
+  const long long cell0 = static_cast<long long>(blockIdx.x) * CB;
+  const T dtv = dt_ptr != nullptr ? *dt_ptr : dt_val;
+
+  // u into shared memory, and into q for every time slice (the first
+  // iteration's q is u broadcast over time); the block's cells fastest.  All
+  // of a thread's loads are issued before any is used, so that their
+  // latencies overlap (8 warps an SM hide little of one).
+  {
+    constexpr int kLoads = (S::kU + NT - 1) / NT;
+    T x[kLoads];
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = threadIdx.x + i * NT;
+      if (e < S::kU) {
+        const int c = e % CB, r = e / CB;  // r = node * V + v
+        const long long cell = cell0 + c < ncell ? cell0 + c : ncell - 1;  // ragged tail: clamp
+        x[i] = u[static_cast<long long>(r) * ncell + cell];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = threadIdx.x + i * NT;
+      if (e < S::kU) {
+        const int c = e % CB, r = e / CB;
+        const int node = r / V, v = r - node * V;
+        sU[v * S::kNodes + c * kZ4Nodes + node] = x[i];
+#pragma unroll
+        for (int s = 0; s < kZ4N; ++s) {
+          sQ[v * S::kPts + c * kZ4Points + s * kZ4Nodes + node] = x[i];
+        }
+      }
+    }
+  }
+
+  // My point: cell c, time slice s, space node `node`.
+  const int pt = threadIdx.x;
+  const int c = pt / kZ4Points;
+  const int s = (pt - c * kZ4Points) / kZ4Nodes;
+  const int node = pt - c * kZ4Points - s * kZ4Nodes;
+  const int cn = c * kZ4Nodes + node;  // my node among the block's nodes
+  T drow[kDim][kZ4N];                  // D's row of my digit along each axis
+#pragma unroll
+  for (int k = 0; k < kDim; ++k) select_row<T, kZ4N>(P.D, z4_digit(node, k), drow[k]);
+  T inv_dx[kDim];
+#pragma unroll
+  for (int k = 0; k < kDim; ++k) inv_dx[k] = T(1) / P.dx[k];
+  const T phi0_s = select<T, kZ4N>(P.PHI0, s);
+  const T dtw = dtv * select<T, kZ4N>(P.W, s);
+  const z4::Params zp = P.phys.p;
+  __syncthreads();
+
+  // Picard: q ← K1inv (φ0 u + dt w rhs(q, ∇q)).
+  for (int it = 0; it < P.picard_iters; ++it) {
+    // (1) the gradients of my point.
+#pragma unroll
+    for (int k = 0; k < kDim; ++k) {
+      const int ik = z4_digit(node, k), st = z4_stride(k);
+#pragma unroll 1
+      for (int v = kZ4GradFirst; v < V; ++v) {
+        sG[(k * kZ4GradSlots + v - kZ4GradFirst) * S::kPts + pt] =
+            z4_gradient<T>(drow[k], sQ + v * S::kPts + pt, ik, st, inv_dx[k]);
+      }
+    }
+    __syncthreads();
+    // (2) the right-hand side of my point, in place of its q.
+    {
+      auto load_q = [&](int v) { return sQ[v * S::kPts + pt]; };
+      auto load_dq = [&](int k, int v) {
+        return sG[(k * kZ4GradSlots + v - kZ4GradFirst) * S::kPts + pt];
+      };
+      auto store = [&](int v, T r) {
+        sQ[v * S::kPts + pt] = phi0_s * sU[v * S::kNodes + cn] + dtw * r;
+      };
+      z4::rhs<T>(load_q, load_dq, zp, store);
+    }
+    __syncthreads();
+    // (3) q ← K1inv rhs over the time slices, one (node, slot) a thread.
+    for (int e = threadIdx.x; e < S::kU; e += NT) {
+      const int v = e / S::kNodes, m = e - v * S::kNodes;
+      const int cc = m / kZ4Nodes;
+      T* q = sQ + v * S::kPts + cc * kZ4Points + (m - cc * kZ4Nodes);
+      const T r0 = q[0], r1 = q[kZ4Nodes], r2 = q[2 * kZ4Nodes];
+#pragma unroll
+      for (int t = 0; t < kZ4N; ++t) {
+        q[t * kZ4Nodes] = P.K1inv[t][0] * r0 + P.K1inv[t][1] * r1 + P.K1inv[t][2] * r2;
+      }
+    }
+    __syncthreads();
+  }
+
+  // q̄ = Σ_s w_s q_s, one (node, slot) a thread.
+  T* sQbar = sG + S::kQbar;
+  T* sGbar = sG + S::kGbar;
+  T* sA = sG + S::kNcpA;
+  T* sB = sG + S::kNcpB;
+  for (int e = threadIdx.x; e < S::kU; e += NT) {
+    const int v = e / S::kNodes, m = e - v * S::kNodes;
+    const int cc = m / kZ4Nodes;
+    const T* q = sQ + v * S::kPts + cc * kZ4Points + (m - cc * kZ4Nodes);
+    sQbar[e] = P.W[0] * q[0] + P.W[1] * q[kZ4Nodes] + P.W[2] * q[2 * kZ4Nodes];
+  }
+  __syncthreads();
+  // ∇q̄, one (axis, slot, node) a thread.
+  for (int e = threadIdx.x; e < kDim * kZ4GradSlots * S::kNodes; e += NT) {
+    const int row = e / S::kNodes, m = e - row * S::kNodes;
+    const int k = row / kZ4GradSlots, v = kZ4GradFirst + row - k * kZ4GradSlots;
+    const int nd = m % kZ4Nodes;
+    const int ik = z4_digit(nd, k);
+    T dr[kZ4N];
+    select_row<T, kZ4N>(P.D, ik, dr);
+    const T idx = k == 0 ? inv_dx[0] : (k == 1 ? inv_dx[1] : inv_dx[2]);
+    sGbar[e] = z4_gradient<T>(dr, sQbar + v * S::kNodes + m, ik, z4_stride(k), idx);
+  }
+  __syncthreads();
+
+  // The source terms rhs(q_s, 0) of every point, in place of q (their zero
+  // gradients compile away).
+  {
+    auto load_q = [&](int v) { return sQ[v * S::kPts + pt]; };
+    auto zero = [](int, int) { return T(0); };
+    auto store = [&](int v, T r) { sQ[v * S::kPts + pt] = r; };
+    z4::rhs<T>(load_q, zero, zp, store);
+  }
+  // rhs(q̄, ∇q̄) of my node on the slice-0 threads, rhs(q̄, 0) on the
+  // slice-1 ones: one code copy with the gradient zeroed at run time, so the
+  // two evaluations round their gradient-free terms alike and their
+  // difference cancels them exactly, as the plain version's does.
+  if (s < 2) {
+    const bool grad = s == 0;
+    auto load_q = [&](int v) { return sQbar[v * S::kNodes + cn]; };
+    auto load_dq = [&](int k, int v) {
+      return grad ? sGbar[(k * kZ4GradSlots + v - kZ4GradFirst) * S::kNodes + cn] : T(0);
+    };
+    T* dst = grad ? sA : sB;
+    auto store = [&](int v, T r) { dst[v * S::kNodes + cn] = r; };
+    z4::rhs<T>(load_q, load_dq, zp, store);
+  }
+  __syncthreads();
+
+  // new = u + dt s̄ + dt (rhs(q̄, ∇q̄) − rhs(q̄, 0)), the block's cells fastest.
+  for (int e = threadIdx.x; e < S::kU; e += NT) {
+    const int cc = e % CB, r = e / CB;  // r = node * V + v
+    const int nd = r / V, v = r - nd * V;
+    if (cell0 + cc >= ncell) continue;
+    const int m = cc * kZ4Nodes + nd;
+    const T* src = sQ + v * S::kPts + cc * kZ4Points + nd;
+    const T sbar = P.W[0] * src[0] + P.W[1] * src[kZ4Nodes] + P.W[2] * src[2 * kZ4Nodes];
+    T nv = sU[v * S::kNodes + m] + dtv * sbar;
+    nv = nv + dtv * (sA[v * S::kNodes + m] - sB[v * S::kNodes + m]);
+    out[static_cast<long long>(r) * ncell + cell0 + cc] = nv;
+  }
+
+  // Face projections of q̄: faces[d][w][fm][v][cell], face node fm the two
+  // other node digits in order, w = 0 (q_lo) and 1 (q_hi) here; a block's
+  // rows are CB cells long.
+  const long long wstride = static_cast<long long>(kZ4Faces * V) * ncell;
+  for (int e = threadIdx.x; e < kDim * kZ4Faces * V * CB; e += NT) {
+    const int cc = e % CB, r = e / CB;  // r = (d * 9 + fm) * V + v
+    const int v = r % V, df = r / V;
+    const int d = df / kZ4Faces, fm = df - d * kZ4Faces;
+    if (cell0 + cc >= ncell) continue;
+    const int base = d == 0 ? fm : (d == 1 ? (fm / kZ4N) * 9 + fm % kZ4N : fm * kZ4N);
+    const int st = z4_stride(d);
+    const T* x = sQbar + v * S::kNodes + cc * kZ4Nodes + base;
+    const T q0 = x[0], q1 = x[st], q2 = x[2 * st];
+    const T qlo = P.PHI0[0] * q0 + P.PHI0[1] * q1 + P.PHI0[2] * q2;
+    const T qhi = P.PHI1[0] * q0 + P.PHI1[1] * q1 + P.PHI1[2] * q2;
+    const long long o =
+        (static_cast<long long>(d * 4 * kZ4Faces + fm) * V + v) * ncell + cell0 + cc;
+    faces[o] = qlo;
+    faces[o + wstride] = qhi;
+  }
+  // The f rows (w = 2, 3) are zero for this physics, and adjacent: one slab
+  // of 2 wstride values an axis.  They do not depend on the cell, so the
+  // blocks split each slab into consecutive runs of 2 wstride / ncell x CB
+  // values, the block's share, written as full lines (its own cells' rows
+  // are CB values long).
+  constexpr int kRun = 2 * kZ4Faces * V * CB;
+  const long long lo = static_cast<long long>(blockIdx.x) * kRun;
+  const long long n = 2 * wstride - lo < kRun ? 2 * wstride - lo : kRun;
+#pragma unroll
+  for (int d = 0; d < kDim; ++d) {
+    T* slab = faces + (static_cast<long long>(d) * 4 + 2) * wstride + lo;
+    for (int e = threadIdx.x; e < n; e += NT) slab[e] = T(0);
+  }
+}
+
+// The NCP half-fluctuation ½ (rhs(q̃, 0) − rhs(q̃, e_D Δq)) for the axis D
+// (compile time, so the gradient's two other rows compile away) into
+// fhalf, from q̃ and Δq in the thread's words of shared memory (stride
+// kTile).  Both evaluations run one code copy, the first with Δq zeroed at
+// run time and its result parked in sR: they round their Δq-free terms
+// alike, so the difference cancels them exactly, as the plain version's
+// does (where Δq = 0 the half is exactly 0).
+template <typename T, int D>
+__device__ __forceinline__ void z4_face_half(const z4::Params& zp, const T* sMid, const T* sDq,
+                                             T* sR, T* out, long long ncell) {
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    auto load_q = [&](int v) { return sMid[v * kTile]; };
+    auto load_dq = [&](int k, int v) { return k == D && pass ? sDq[v * kTile] : T(0); };
+    auto store = [&](int v, T r) {
+      if (pass) {
+        out[v * ncell] = T(0.5) * (sR[v * kTile] - r);
+      } else {
+        sR[v * kTile] = r;
+      }
+    };
+    z4::rhs<T>(load_q, load_dq, zp, store);
+  }
+}
+
+// The face stage, first launch: one thread per (cell, axis d, face node fm)
+// solves the interface between the cell's high face and its +d neighbour's
+// low face once: F̂ into fhat[d][fm][v][cell] and the NCP half-fluctuation
+// into fhalf (the same layout).
+template <typename T>
+__global__ void __launch_bounds__(kTile, 8)
+aderdg_face_flux_z4(const T* __restrict__ faces, T* __restrict__ fhat, T* __restrict__ fhalf,
+                    const Z4Params<T> P) {
+  constexpr int V = kZ4V;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sMid = reinterpret_cast<T*>(smem_raw) + threadIdx.x;
+  T* sDq = sMid + V * kTile;
+  T* sR = sDq + V * kTile;
+  const TileCell tc(blockIdx.x, P.g);
+  if (!tc.inside) return;  // no barrier here
+  const int d = blockIdx.y / kZ4Faces;
+  const int fm = blockIdx.y - d * kZ4Faces;
+  const long long ncell = P.ncell;
+  const long long cell = tc.cell;
+  const long long plus = tc.neighbour(d, 1);
+  // faces[d][w][fm][v][cell], w = q_lo, q_hi, f_lo, f_hi (the f rows are
+  // zero for this physics and are not read).
+  const T* base = faces + static_cast<long long>(d * 4 * kZ4Faces + fm) * V * ncell;
+  const long long wstride = static_cast<long long>(kZ4Faces * V) * ncell;
+  T qa[V], qb[V];  // a: my high face, b: the neighbour's low face
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    qa[v] = base[wstride + v * ncell + cell];
+    qb[v] = base[v * ncell + plus];
+  }
+  const T s = dmax(z4::wave_speed<T>(qa, d, P.phys.p), z4::wave_speed<T>(qb, d, P.phys.p));
+  const long long o = static_cast<long long>(d * kZ4Faces + fm) * V * ncell + cell;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const T dq = qb[v] - qa[v];
+    fhat[o + v * ncell] = T(0) - T(0.5) * s * dq;
+    sMid[v * kTile] = T(0.5) * (qa[v] + qb[v]);
+    sDq[v * kTile] = dq;
+  }
+  const z4::Params zp = P.phys.p;
+  if (d == 0) {
+    z4_face_half<T, 0>(zp, sMid, sDq, sR, fhalf + o, ncell);
+  } else if (d == 1) {
+    z4_face_half<T, 1>(zp, sMid, sDq, sR, fhalf + o, ncell);
+  } else {
+    z4_face_half<T, 2>(zp, sMid, sDq, sR, fhalf + o, ncell);
+  }
+}
+
+// The face stage, second launch: one thread per (cell, space node) updates
+// the node's 38 rows of `state` in place, axis by axis: the surface term
+// −λ_d (ℓ_i(1)/w_i F̂_hi − ℓ_i(0)/w_i F̂_lo), then the NCP term
+// −λ_d (ℓ_i(1)/w_i h_hi + ℓ_i(0)/w_i h_lo), the _hi values the cell's own
+// entries of fhat and fhalf, the _lo ones its −d neighbour's.
+template <typename T>
+__global__ void __launch_bounds__(kTile * kZ4UpdateNodes)
+aderdg_surface_update_z4(T* __restrict__ state, const T* __restrict__ fhat,
+                         const T* __restrict__ fhalf, const T* __restrict__ dt_ptr, T dt_val,
+                         const Z4Params<T> P) {
+  constexpr int V = kZ4V;
+  constexpr int NG = kZ4Nodes / kZ4UpdateNodes;
+  const int tile_index = blockIdx.x / NG;
+  const TileCell tc(tile_index, P.g);
+  if (!tc.inside) return;
+  const int node = (blockIdx.x - tile_index * NG) * kZ4UpdateNodes + threadIdx.y;
+  const long long ncell = P.ncell;
+  const long long cell = tc.cell;
+  const T dtv = dt_ptr != nullptr ? *dt_ptr : dt_val;
+  const int ix[kDim] = {node / 9, (node / 3) % 3, node % 3};
+  const int mf[kDim] = {ix[1] * kZ4N + ix[2], ix[0] * kZ4N + ix[2], ix[0] * kZ4N + ix[1]};
+  T lam[kDim], p1w[kDim], p0w[kDim];
+  long long hi[kDim], lo[kDim];  // offsets of the _hi and _lo entries of row 0
+#pragma unroll
+  for (int d = 0; d < kDim; ++d) {
+    lam[d] = dtv / P.dx[d];
+    p1w[d] = select<T, kZ4N>(P.PHI1W, ix[d]);
+    p0w[d] = select<T, kZ4N>(P.PHI0W, ix[d]);
+    const long long row0 = static_cast<long long>(d * kZ4Faces + mf[d]) * V * ncell;
+    hi[d] = row0 + cell;
+    lo[d] = row0 + tc.neighbour(d, -1);
+  }
+#pragma unroll 2
+  for (int v = 0; v < V; ++v) {
+    const long long o = static_cast<long long>(node * V + v) * ncell + cell;
+    T x = state[o];
+#pragma unroll
+    for (int d = 0; d < kDim; ++d) {
+      const long long w = v * ncell;
+      x = x - lam[d] * (p1w[d] * fhat[hi[d] + w] - p0w[d] * fhat[lo[d] + w]);
+      x = x - lam[d] * (p1w[d] * fhalf[hi[d] + w] + p0w[d] * fhalf[lo[d] + w]);
+    }
+    state[o] = x;
+  }
+}
+
+// Host side ---------------------------------------------------------------
+
+// The face stage's shared memory: q̃, Δq and rhs(q̃, 0) of a warp's threads.
+template <typename T>
+constexpr size_t z4_face_smem() {
+  return static_cast<size_t>(3 * kZ4V * kTile) * sizeof(T);
+}
+
+// Tiles of the face stage, or 0 if the order is not 2, the grid is empty or
+// a block index would not fit a 32-bit int.
+long long z4_face_tiles(int order, long long g0, long long g1, long long g2) {
+  constexpr long long kMax = 0x7fffffffLL;
+  if (order != kZ4N - 1 || g0 <= 0 || g1 <= 0 || g2 <= 0 || g0 > kMax || g1 > kMax || g2 > kMax)
+    return 0;
+  const long long tiles = g0 * g1 * ((g2 + kTile - 1) / kTile);
+  return tiles * (kZ4Nodes / kZ4UpdateNodes) > kMax ? 0 : tiles;
+}
+
+bool z4_bad_args(int physics, const double* params) {
+  return physics != kZ4 || params == nullptr || (params[0] != 0.0 && params[0] != 1.0);
+}
+
+template <typename T>
+Shape z4_predictor_shape() {
+  constexpr int CB = z4_cells_per_block<T>();
+  return {reinterpret_cast<const void*>(aderdg_predictor_volume_z4<T, CB>),
+          dim3(CB * kZ4Points), z4_predictor_smem<T>()};
+}
+
+template <typename T>
+Shape z4_face_flux_shape() {
+  return {reinterpret_cast<const void*>(aderdg_face_flux_z4<T>), dim3(kTile), z4_face_smem<T>()};
+}
+
+template <typename T>
+Shape z4_surface_update_shape() {
+  return {reinterpret_cast<const void*>(aderdg_surface_update_z4<T>),
+          dim3(kTile, kZ4UpdateNodes), 0};
+}
+
+template <typename T>
+int z4_predictor_volume(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
+                        const double* ops, const double* dx, int order, int picard_iters,
+                        int physics, const double* params, long long g0, long long g1,
+                        long long g2, void* stream) {
+  constexpr int CB = z4_cells_per_block<T>();
+  if (z4_bad_args(physics, params) || z4_face_tiles(order, g0, g1, g2) == 0 || picard_iters < 0)
+    return cudaErrorInvalidValue;
+  const auto P = make_params<T, kZ4N, Z4Physics<T>>(ops, dx, picard_iters, params, g0, g1, g2);
+  const Shape sh = z4_predictor_shape<T>();
+  const cudaError_t attr = allow_smem(aderdg_predictor_volume_z4<T, CB>, sh.smem);
+  if (attr != cudaSuccess) return attr;
+  const long long blocks = (P.ncell + CB - 1) / CB;
+  aderdg_predictor_volume_z4<T, CB>
+      <<<static_cast<unsigned>(blocks), sh.block, sh.smem, static_cast<cudaStream_t>(stream)>>>(
+          u, out, faces, dt_ptr, static_cast<T>(dt_val), P);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int z4_face_flux(const T* faces, T* fhat, T* fhalf, const double* ops, const double* dx,
+                 int order, int physics, const double* params, long long g0, long long g1,
+                 long long g2, void* stream) {
+  const long long tiles = z4_face_tiles(order, g0, g1, g2);
+  if (z4_bad_args(physics, params) || tiles == 0) return cudaErrorInvalidValue;
+  const auto P = make_params<T, kZ4N, Z4Physics<T>>(ops, dx, 0, params, g0, g1, g2);
+  const Shape sh = z4_face_flux_shape<T>();
+  const dim3 grid(static_cast<unsigned>(tiles), kDim * kZ4Faces);
+  aderdg_face_flux_z4<T><<<grid, sh.block, sh.smem, static_cast<cudaStream_t>(stream)>>>(
+      faces, fhat, fhalf, P);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int z4_surface_update(T* state, const T* fhat, const T* fhalf, const T* dt_ptr, double dt_val,
+                      const double* ops, const double* dx, int order, int physics,
+                      const double* params, long long g0, long long g1, long long g2,
+                      void* stream) {
+  const long long tiles = z4_face_tiles(order, g0, g1, g2);
+  if (z4_bad_args(physics, params) || tiles == 0) return cudaErrorInvalidValue;
+  const auto P = make_params<T, kZ4N, Z4Physics<T>>(ops, dx, 0, params, g0, g1, g2);
+  const Shape sh = z4_surface_update_shape<T>();
+  const long long blocks = tiles * (kZ4Nodes / kZ4UpdateNodes);
+  aderdg_surface_update_z4<T>
+      <<<static_cast<unsigned>(blocks), sh.block, 0, static_cast<cudaStream_t>(stream)>>>(
+          state, fhat, fhalf, dt_ptr, static_cast<T>(dt_val), P);
+  return cudaGetLastError();
+}
+
+// Occupancy of kernel `which` (0 predictor, 1 face flux, 2 update), as
+// shape_info gives it.
+template <typename T>
+int z4_info(int which, int* out) {
+  switch (which) {
+    case 0:
+      return shape_info(z4_predictor_shape<T>(), out);
+    case 1:
+      return shape_info(z4_face_flux_shape<T>(), out);
+    case 2:
+      return shape_info(z4_surface_update_shape<T>(), out);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace

@@ -1,5 +1,5 @@
-// The vacuum Z4 right-hand side (38 variables, zero shift) at one point, as
-// device code templated on the value type.
+// The vacuum Z4 right-hand side (38 variables, zero shift) at one point, and
+// the system's wave speed, as device code templated on the value type.
 //
 // It follows exahype_tpu_torch/models/z4.py::_z4_core_soa (the port's copy
 // of exahype_tpu/models/z4.py::_z4_core_soa) stage by stage: the cofactor
@@ -339,6 +339,28 @@ __device__ __forceinline__ void rhs(const LoadQ& q, const LoadDQ& dq, const Para
         const T rji = -al * A[k] * K[j][i] - al * dK(k, j, i);
         out(kD + 6 * k + sym(i, j), T(0.5) * (rij + rji));
       }
+}
+
+// The Rusanov bound along axis d (models/z4.py::z4_system's eig), the wider
+// of the light and gauge cones: α √(max(g(α), 1) γ^dd), γ^dd the cofactor
+// over the determinant as models/z4.py::inv3 forms them (the adjugate
+// divided by the determinant), g(α) = f (harmonic) or 2/α (1+log).  q holds
+// the 38 slots; d is the axis (0, 1, 2).
+template <typename T>
+__device__ __forceinline__ T wave_speed(const T* q, int d, const Params& p) {
+  const T al = q[kAl];
+  // The symmetric metric: a b c / b e f / c f i.
+  const T a = q[kG + 0], b = q[kG + 1], c = q[kG + 2];
+  const T e = q[kG + 3], f = q[kG + 4], i = q[kG + 5];
+  const T ca = e * i - f * f;
+  const T cb = f * c - b * i;
+  const T cc = b * f - e * c;
+  const T det = a * ca + b * cb + c * cc;
+  const T cof = d == 0 ? ca : (d == 1 ? a * i - c * c : a * e - b * b);
+  const T gdd = cof / det;
+  T gal = p.slicing == 0 ? T(p.f) : T(2) / al;
+  gal = gal < T(1) ? T(1) : gal;  // torch.clamp(min=1): NaN stays NaN
+  return al * dsqrt(gal * gdd);
 }
 
 }  // namespace z4

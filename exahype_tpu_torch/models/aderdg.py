@@ -341,7 +341,7 @@ class ADERDGSolver(nn.Module):
                 raise SemanticError(
                     f"{name} with predictor_mode='ck' is not ported to "
                     "exahype_tpu_torch yet (only the Picard path carries it); "
-                    "see ROADMAP.md, Queue 1 item 6"
+                    "see ROADMAP.md, Queue 1 item 8"
                 )
         if ck_material_slots is not None:
             if predictor_mode != "ck":
@@ -825,25 +825,43 @@ class ADERDGSolver(nn.Module):
             # ½·B(q̃)·Δq at the segment midpoint q̃ go one to each side (the
             # ±½sΔq dissipation is already in the Rusanov f̂).  At a high
             # wall q_plus is the ghost; the low wall has its own.
-            lam = dt / self._dxs[d]
-            node_ax = self.node_axis(d)
-            face_grid_ax = self.grid_axis(d) - 1
-            face_va = self.var_axis - 1
-            phi1_w, phi0_w = self._surface_weights(new, d)
-            q_plus, _ = self._plus(q_lo, q_hi, f_lo, f_hi, d)
-            mid = 0.5 * (q_hi + q_plus)
-            half = 0.5 * self.ncp_fn(mid, q_plus - q_hi, d, face_va)
-            half_lo = torch.roll(half, 1, face_grid_ax)
+            half = self.ncp_half(q_lo, q_hi, f_lo, f_hi, d)
+            half_w = None
             if self.is_wall(d):
+                face_grid_ax = self.grid_axis(d) - 1
+                face_va = self.var_axis - 1
                 first = q_lo.narrow(face_grid_ax, 0, 1)
                 ghost = self._wall_ghost(first, d, 0, face_va)
                 half_w = 0.5 * self.ncp_fn(0.5 * (ghost + first), first - ghost, d, face_va)
-                half_lo = _replace_row(half_lo, half_w, face_grid_ax, 0)
-            new = new - lam * (
-                phi1_w * half.unsqueeze(node_ax)
-                + phi0_w * half_lo.unsqueeze(node_ax)
-            )
+            new = self.ncp_term(new, half, d, dt, half_w)
         return new, fhat_hi
+
+    def ncp_half(self, q_lo, q_hi, f_lo, f_hi, d):
+        """The NCP half-fluctuation ``½·B(q̃)·(q⁺ − q_hi)`` at each cell's
+        high face along ``d``, q̃ = ½(q_hi + q⁺) (:attr:`face_flux_shape`;
+        q⁺ as :meth:`_plus` gives it): the plain version of the Z4 face flux
+        kernel's second output."""
+        face_va = self.var_axis - 1
+        q_plus, _ = self._plus(q_lo, q_hi, f_lo, f_hi, d)
+        mid = 0.5 * (q_hi + q_plus)
+        return 0.5 * self.ncp_fn(mid, q_plus - q_hi, d, face_va)
+
+    def ncp_term(self, new, half, d, dt, half_wall=None):
+        """``new − λ(ℓ_i(1)/w_i h_hi + ℓ_i(0)/w_i h_lo)`` along ``d``, h_hi
+        the high-face ``half`` (:meth:`ncp_half`), h_lo the −d neighbour's,
+        or in the first row ``half_wall`` where given (the plain version of
+        the Z4 update kernel's NCP term, one axis)."""
+        lam = dt / self._dxs[d]
+        node_ax = self.node_axis(d)
+        face_grid_ax = self.grid_axis(d) - 1
+        half_lo = torch.roll(half, 1, face_grid_ax)
+        if half_wall is not None:
+            half_lo = _replace_row(half_lo, half_wall, face_grid_ax, 0)
+        phi1_w, phi0_w = self._surface_weights(new, d)
+        return new - lam * (
+            phi1_w * half.unsqueeze(node_ax)
+            + phi0_w * half_lo.unsqueeze(node_ax)
+        )
 
     def _plus(self, q_lo, q_hi, f_lo, f_hi, d, fv_hi=None):
         """The right state and flux of each cell's high face: the +d

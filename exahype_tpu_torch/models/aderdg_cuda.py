@@ -6,9 +6,12 @@ physics: compressible Euler on the Picard predictor (``bench.py::main``),
 compressible Navier–Stokes on the Picard predictor with its viscous terms
 (``models/navier_stokes.py``) and heterogeneous elasticity on the
 Cauchy–Kovalewski predictor with its materials frozen
-(``bench.py::bench_ck``).  The step is three launches of kernels from
-``csrc/aderdg.cu`` and ``csrc/aderdg_visc.cu`` (see the notes there for the
-design):
+(``bench.py::bench_ck``); and on the pure-NCP path with the fused
+right-hand side at order 2 in 3-D, periodic, for the 38-variable vacuum Z4
+system (``models/z4.py::make_z4_solver(..., impl="soa", fused_rhs="soa")``,
+``scripts/z4_probe.py``).  The step is three launches of kernels from
+``csrc/aderdg.cu``, ``csrc/aderdg_visc.cu`` and ``csrc/aderdg_z4.cu`` (see
+the notes there for the design):
 
 - ``aderdg_predictor_volume`` (Picard), ``aderdg_predictor_volume_visc``
   (Picard with the viscous flux from the polynomial's gradients) or
@@ -23,6 +26,21 @@ design):
   CPU too) from each cell's own and its lower neighbours' entries.  For
   Navier–Stokes the flux kernel adds the Gassner penalty
   2(2N+1)/dx_d·max(κ⁻, κ⁺) to the dissipation speed.
+
+Z4 (``aderdg_predictor_volume_z4``, ``aderdg_face_flux_z4``,
+``aderdg_surface_update_z4``): the predictor evaluates the algebra of
+``csrc/z4.cuh`` in every Picard iteration, for the source average and twice
+for the strong-form NCP volume term; the face flux kernel also writes each
+interface's NCP half-fluctuation into a second tensor, ``fhalf``, which
+:meth:`CudaADERDG.face_flux` returns in place of ``fwall`` and
+:meth:`CudaADERDG.surface_update` takes.  A solver qualifies when its flux,
+wave speed, ``source_fn``, ``ncp_fn`` and ``rhs_all_fn`` all carry one
+``PhysicsTag("z4", ...)``; any other ``source_fn``/``ncp_fn``/``rhs_all_fn``
+raises :class:`LoweringError`, and so do a Z4 solver without the fused hook
+(the per-axis NCP branch), a Z4 solver with walls, and a solver whose
+``rhs_all_fn`` is already on K5 (``models.rhs_cuda.with_cuda_rhs``: these
+kernels compile the algebra in and would bypass it; build ``CudaADERDG`` on
+the plain solver).
 
 With walls (``solver.boundary`` not periodic) the face stage is its wall
 variant, ``aderdg_face_flux_walls`` + ``aderdg_surface_update_walls``:
@@ -55,6 +73,9 @@ import torch
 from exahype_tpu_torch import _build
 from exahype_tpu_torch.models import elastic
 from exahype_tpu_torch.models.aderdg import CALLBACK_OPTIONS, VISCOUS_OPTIONS, ADERDGSolver
+from exahype_tpu_torch.models.rhs_cuda import CudaRHS
+from exahype_tpu_torch.models.z4 import N_VARS as Z4_VARS
+from exahype_tpu_torch.models.z4 import SLICINGS
 from exahype_tpu_torch.utils.errors import LoweringError
 
 #: (physics, dim, order) -> the predictor mode the kernels are instantiated
@@ -63,11 +84,14 @@ INSTANTIATED = {
     ("euler", 3, 3): "picard",
     ("navier_stokes", 3, 3): "picard",
     ("elastic3d_het", 3, 3): "ck",
+    ("z4", 3, 2): "picard",
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def _n_vars(name: str, dim: int) -> int:
+    if name == "z4":
+        return Z4_VARS
     return dim + 2 if name in ("euler", "navier_stokes") else elastic.N_VARS_3D_HET
 
 
@@ -86,6 +110,7 @@ _PHYSICS = {
         "dissipation_mask": elastic.DISSIPATION_MASK,
     },
     "navier_stokes": {"id": 2, "ck_material_slots": None, "dissipation_mask": None},
+    "z4": {"id": 3, "ck_material_slots": None, "dissipation_mask": None},
 }
 
 
@@ -93,7 +118,11 @@ def _kernel_params(tag, solver) -> tuple:
     """The physics' parameters as the kernels take them: Euler's (γ,); for
     Navier–Stokes (γ, μ, max(4/3, γ/Pr), κ_T = μγ/((γ−1)Pr), then the face
     penalty factor 2(2N+1)/dx_d of each axis), each computed in float64 as
-    the plain solver computes it; none for the elasticity."""
+    the plain solver computes it; Z4's (slicing id, f, m, κ₁, κ₂) as K5
+    takes them; none for the elasticity."""
+    if tag.name == "z4":
+        slicing, *rest = tag.params
+        return (SLICINGS[slicing], *rest)
     if tag.name != "navier_stokes":
         return tag.params or (0.0,)
     gamma, mu, prandtl = tag.params
@@ -102,31 +131,64 @@ def _kernel_params(tag, solver) -> tuple:
             *(2.0 * (2 * solver.order + 1) / dx for dx in solver._dxs))
 
 
+def _z4_refusal(solver) -> None:
+    """Raise unless the solver's ``source_fn``/``ncp_fn``/``rhs_all_fn`` are
+    the fused vacuum Z4 system the kernels compile in (called when any is
+    set)."""
+    if isinstance(solver.rhs_all_fn, CudaRHS):
+        raise LoweringError(
+            "the rhs_all_fn is on K5 (models.rhs_cuda.with_cuda_rhs): the CUDA step "
+            "kernels compile the Z4 algebra in and would bypass it; build CudaADERDG on "
+            "the plain make_z4_solver(..., fused_rhs='soa') solver"
+        )
+    names = ("flux_fn", "max_eigenvalue_fn", *CALLBACK_OPTIONS)
+    tags = {getattr(getattr(solver, name), "physics", None)
+            for name in names if getattr(solver, name) is not None}
+    tag = tags.pop() if len(tags) == 1 else None
+    if tag is not None and tag.name == "z4":
+        missing = [name for name in CALLBACK_OPTIONS if getattr(solver, name) is None]
+        if missing:
+            raise LoweringError(
+                f"a Z4 solver without {', '.join(missing)}: the CUDA kernels carry the "
+                "fused right-hand side only (make_z4_solver(..., fused_rhs='soa')); the "
+                "per-axis NCP branch is still to port, see ROADMAP.md, Queue 2 K1 d (the "
+                "plain solver runs it)"
+            )
+        return
+    options = ", ".join(name for name in CALLBACK_OPTIONS if getattr(solver, name) is not None)
+    raise LoweringError(
+        f"the CUDA step kernels carry source_fn, ncp_fn and rhs_all_fn for the fused "
+        f"vacuum Z4 system only (make_z4_solver(..., impl='soa', fused_rhs='soa'): its "
+        f"flux, wave speed and those three callbacks tagged z4 alike); this solver's "
+        f"{options} is set otherwise; see ROADMAP.md, Queue 2 K1 d (the plain solver "
+        "runs any)"
+    )
+
+
 class CudaADERDG:
     """Solver protocol (``step``, ``run``, ``cfl_dt``, ``total_mass``,
     ``dofs``) over an :class:`ADERDGSolver`, with the step on CUDA kernels.
     """
 
     #: The kernels, by their index in the occupancy query of
-    #: ``csrc/aderdg.cu`` (index 7: the instance of
+    #: ``csrc/aderdg.cu`` (index 7 of physics 2: the instance of
     #: ``aderdg_predictor_volume_visc``, ``csrc/aderdg_visc.cu``, with the
-    #: wall planes).
+    #: wall planes; 7-9 of physics 3: the Z4 kernels of
+    #: ``csrc/aderdg_z4.cu``).
     KERNELS = (
         "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
         "aderdg_surface_update", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
-        "aderdg_predictor_volume_visc",
+        "aderdg_predictor_volume_visc", "aderdg_predictor_volume_z4", "aderdg_face_flux_z4",
+        "aderdg_surface_update_z4",
     )
 
     def __init__(self, solver: ADERDGSolver):
-        for option in CALLBACK_OPTIONS:
-            if getattr(solver, option) is not None:
-                raise LoweringError(
-                    f"the CUDA step kernels take flux-form physics only, and "
-                    f"{option} is set (a fused rhs_all_fn runs on the card "
-                    "through models.rhs_cuda.with_cuda_rhs)"
-                )
+        ncp = any(getattr(solver, option) is not None for option in CALLBACK_OPTIONS)
+        if ncp:
+            _z4_refusal(solver)
         viscous = any(getattr(solver, option) is not None for option in VISCOUS_OPTIONS)
-        names = ("flux_fn", "max_eigenvalue_fn") + (VISCOUS_OPTIONS if viscous else ())
+        names = (("flux_fn", "max_eigenvalue_fn") + (VISCOUS_OPTIONS if viscous else ())
+                 + (CALLBACK_OPTIONS if ncp else ()))
         tags = {getattr(getattr(solver, name), "physics", None) for name in names}
         tag = tags.pop() if len(tags) == 1 else None
         if viscous and (tag is None or tag.name != "navier_stokes"):
@@ -142,13 +204,16 @@ class CudaADERDG:
                 "visc_eigenvalue_fn (models.navier_stokes.navier_stokes gives all "
                 "four callbacks)"
             )
-        if tag is None or tag.name not in _PHYSICS or tag.dim != solver.dim:
+        # (The Z4 system is 3-D; on a 2-D grid its tag keeps dim 3, and the
+        # instantiation check below names the missing (dim, order).)
+        if tag is None or tag.name not in _PHYSICS or (
+                tag.dim != solver.dim and tag.name != "z4"):
             raise LoweringError(
-                "the CUDA kernels compile in Euler, Navier–Stokes or "
-                "heterogeneous-elastic physics: build the solver with "
+                "the CUDA kernels compile in Euler, Navier–Stokes, "
+                "heterogeneous-elastic or vacuum Z4 physics: build the solver with "
                 "exahype_tpu_torch.models.aderdg.euler_physics, "
-                "models.navier_stokes.navier_stokes or "
-                "models.elastic.elastic3d_heterogeneous"
+                "models.navier_stokes.navier_stokes, "
+                "models.elastic.elastic3d_heterogeneous or models.z4.make_z4_solver"
             )
         n_vars = _n_vars(tag.name, solver.dim)
         if tag.n_real != solver.n_vars or solver.n_vars != n_vars:
@@ -160,7 +225,8 @@ class CudaADERDG:
         if key not in INSTANTIATED:
             raise LoweringError(
                 f"no CUDA kernel instantiated for {tag.name}, dim={solver.dim}, "
-                f"order={solver.order} (have {sorted(INSTANTIATED)})"
+                f"order={solver.order} (have {sorted(INSTANTIATED)}); see ROADMAP.md, "
+                "Queue 1 item 4"
             )
         mode = INSTANTIATED[key]
         if solver.predictor_mode != mode:
@@ -175,15 +241,24 @@ class CudaADERDG:
                     f"the {tag.name} kernels compile in {option}="
                     f"{physics[option]!r}, got {getattr(solver, option)!r}"
                 )
+        walled = any(solver.is_wall(d) for d in range(solver.dim))
+        if ncp and walled:
+            raise LoweringError(
+                f"the CUDA Z4 face stage is periodic only, and boundary="
+                f"{solver.boundary!r}: NCP walls on the card are still to port, see "
+                "ROADMAP.md, Queue 2 K1 d (the plain solver runs them)"
+            )
         self.solver = solver
+        #: Whether the step carries the fused NCP right-hand side (Z4): the
+        #: face flux kernel then also returns the NCP half-fluctuations.
+        self.ncp = ncp
         self._physics_id = physics["id"]
         # The rows whose face flux can be nonzero: all but the frozen
         # materials, the last rows (the kernels' Phys::kFluxRows).
         self._flux_rows = min(physics["ck_material_slots"] or (n_vars,))
         self._params = np.ascontiguousarray(_kernel_params(tag, solver), dtype=np.float64)
         #: The walls as the face kernels take them (None: periodic).
-        self.walls = self._wall_description(solver) if any(
-            solver.is_wall(d) for d in range(solver.dim)) else None
+        self.walls = self._wall_description(solver) if walled else None
         self._rows = {}  # the Dirichlet rows by dtype
         #: The kernels of this solver's step: its predictor and the face
         #: stage (its wall variant on a grid with walls).
@@ -193,6 +268,8 @@ class CudaADERDG:
             predictor + ("_visc" if viscous else ""),
             f"aderdg_face_flux{suffix}", f"aderdg_surface_update{suffix}",
         )
+        if ncp:
+            self.kernels = tuple(name + "_z4" for name in self.kernels)
         #: Launches per kernel since construction (or the last reset).
         self.launches = {name: 0 for name in self.kernels}
         ops = solver.ops
@@ -345,8 +422,11 @@ class CudaADERDG:
             if return_face_fluxes:
                 return new.copy_(out[0]), out[1]
             return new.copy_(out)
-        fhat, fwall = self.face_flux(faces, fvwall)
-        self.surface_update(new, fhat, dt, fwall)
+        fhat, side = self.face_flux(faces, fvwall)
+        if self.ncp:
+            self.surface_update(new, fhat, dt, fhalf=side)
+        else:
+            self.surface_update(new, fhat, dt, side)
         if return_face_fluxes:
             fhat[:, :, self._flux_rows:].zero_()  # the unwritten rows; none for Euler
             return new, [fhat[d].view(sol.face_flux_shape) for d in range(sol.dim)]
@@ -364,7 +444,10 @@ class CudaADERDG:
         construction (the elasticity's frozen materials, from its first
         material slot on) are not written: :meth:`surface_update` never
         reads them, and :meth:`face_surface` zeroes them when it returns
-        the fluxes (``fwall`` is allocated zeroed for such a physics)."""
+        the fluxes (``fwall`` is allocated zeroed for such a physics).
+        For Z4 (:attr:`ncp`) the second output is ``fhalf``, fhat's shape:
+        each interface's NCP half-fluctuation (the plain version is
+        ``ADERDGSolver.ncp_half``)."""
         sol = self.solver
         if not faces.is_cuda:
             raise LoweringError("face_flux launches a CUDA kernel: faces must be on the card")
@@ -385,6 +468,9 @@ class CudaADERDG:
                 self._dx.ctypes.data, sol.order, self._physics_id,
                 self._params.ctypes.data, *sol.grid_shape)
         fwall = None
+        if self.ncp:
+            fwall = torch.empty_like(fhat)  # fhalf
+            args = args[:2] + (fwall.data_ptr(),) + args[2:]
         if self.walls is not None:
             alloc = torch.zeros if self._flux_rows < sol.n_vars else torch.empty
             fwall = alloc(self.walls["size"], dtype=faces.dtype, device=faces.device)
@@ -400,22 +486,32 @@ class CudaADERDG:
         self.launches[name] += 1
         return fhat, fwall
 
-    def surface_update(self, new, fhat, dt, fwall=None):
+    def surface_update(self, new, fhat, dt, fwall=None, fhalf=None):
         """The face stage's second launch (CUDA tensors only): the surface
         update of ``new`` from :meth:`face_flux`'s ``fhat`` (and, with walls,
-        its ``fwall``), in place; returns ``new``."""
+        its ``fwall``; for Z4 its ``fhalf``, which Z4 needs and no other
+        takes), in place; returns ``new``."""
         sol = self.solver
         if not new.is_cuda:
             raise LoweringError("surface_update launches a CUDA kernel: new must be on the card")
         self._check(new, sol.state_shape, "new")
-        self._check(fhat, (sol.dim, sol.n_nodes ** (sol.dim - 1), sol.n_vars) + sol.grid_shape,
-                    "fhat")
+        fshape = (sol.dim, sol.n_nodes ** (sol.dim - 1), sol.n_vars) + sol.grid_shape
+        self._check(fhat, fshape, "fhat")
         if fhat.dtype != new.dtype or fhat.device != new.device:
             raise LoweringError("faces must match new's dtype and device")
+        if (fhalf is not None) != self.ncp:
+            raise LoweringError(
+                "fhalf (the NCP half-fluctuations of face_flux) goes with a Z4 solver, and "
+                "only with one")
         dt_dev, dt_ptr, dt_val = self._dt_args(dt, new)
         args = (new.data_ptr(), fhat.data_ptr(), dt_ptr, dt_val, self._ops.ctypes.data,
                 self._dx.ctypes.data, sol.order, self._physics_id,
                 self._params.ctypes.data, *sol.grid_shape)
+        if fhalf is not None:
+            self._check(fhalf, fshape, "fhalf")
+            if fhalf.dtype != new.dtype or fhalf.device != new.device:
+                raise LoweringError("fhalf must match new's dtype and device")
+            args = args[:2] + (fhalf.data_ptr(),) + args[2:]
         if self.walls is not None:
             if fwall is None:
                 raise LoweringError("a walled solver's update needs face_flux's fwall")

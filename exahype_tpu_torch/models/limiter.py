@@ -39,7 +39,7 @@ package.  What the translation changes:
   workaround) has no counterpart.
 
 Options outside that configuration raise :class:`SemanticError` (see
-``ROADMAP.md``, Queue 1 item 5).
+``ROADMAP.md``, Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -138,20 +138,20 @@ class LimitedADERDG(nn.Module):
                 raise SemanticError(
                     f"{name}={value!r} is not ported to exahype_tpu_torch yet "
                     "(only the gathered-row subcell fallback with the 'means' "
-                    "overflow policy is); see ROADMAP.md, Queue 1 item 5"
+                    "overflow policy is); see ROADMAP.md, Queue 1 item 9"
                 )
         if troubled_capacity is None:
             raise SemanticError(
                 "troubled_capacity=None (the whole-grid fallback) is not "
                 "ported to exahype_tpu_torch yet; see ROADMAP.md, Queue 1 "
-                "item 5"
+                "item 9"
             )
         if (solver.predictor_mode != "picard" or solver.dissipation_mask is not None
                 or any(getattr(solver, name) is not None for name in CALLBACK_OPTIONS)):
             raise SemanticError(
                 "the limiter over a CK, dissipation-masked, source or NCP solver "
                 "is not ported to exahype_tpu_torch yet; see ROADMAP.md, Queue 1 "
-                "item 5"
+                "item 9"
             )
         if solver.visc_flux_fn is not None:
             # The fallback has no diffusive face fluxes: a viscous solver
@@ -572,7 +572,7 @@ class LimitedADERDG(nn.Module):
         """Not ported: the port has no ``TimeLoopDriver`` yet."""
         raise SemanticError(
             "driver_observables is not ported to exahype_tpu_torch yet (no "
-            "TimeLoopDriver); see ROADMAP.md, Queue 1 items 5 and 10"
+            "TimeLoopDriver); see ROADMAP.md, Queue 1 item 6"
         )
 
     def step(self, u, dt, return_face_fluxes: bool = False, troubled_transform=None):

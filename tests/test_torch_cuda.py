@@ -902,3 +902,150 @@ def test_z4_step_through_the_kernel_counts_its_launches():
     assert _err(a, b) <= _z4_bound(b, torch.float64)
     assert torch.equal(a, kern.run(u, 2, 1e-4))
     assert not hasattr(plain.rhs_all_fn, "launches")  # the plain solver stays plain
+
+
+# ------------------------------------------- K1 d: the Z4 step's own kernels
+
+
+def _z4_step_setup(grid, dtype, **params):
+    """The fused Z4 solver at ``grid`` (p2, dx = 1/128) on the card, its
+    ``CudaADERDG`` (``csrc/aderdg_z4.cu``) and the gauge wave of amplitude
+    0.1 with seeded noise of 1e-3 (so no two cells are alike)."""
+    from exahype_tpu_torch.models.z4 import gauge_wave_state, make_z4_solver
+
+    dev = _card()
+    sol = make_z4_solver(3, 2, grid, dx=1.0 / 128, impl="soa", fused_rhs="soa", device=dev,
+                         dtype=dtype, **params)
+    u = gauge_wave_state(sol, amplitude=0.1)
+    noise = np.random.default_rng(5).standard_normal(u.shape)
+    return sol, CudaADERDG(sol), (u + 1e-3 * torch.from_numpy(noise).to(u)).contiguous()
+
+
+def _z4_plain_halves(sol, faces):
+    """The plain face flux kernel's two outputs in its layout."""
+    fs = sol.face_flux_shape
+    parts = [[faces[d, k].reshape(fs) for k in range(4)] for d in range(3)]
+    shape = (3, 9, 38) + sol.grid_shape
+    fhat = torch.stack([sol.interface_flux(*parts[d], d) for d in range(3)]).reshape(shape)
+    fhalf = torch.stack([sol.ncp_half(*parts[d], d) for d in range(3)]).reshape(shape)
+    return fhat, fhalf
+
+
+def _z4_half_bound(sol, faces, got, ref):
+    """``(error, limit)`` of float32 NCP halves ``got``: a difference of two
+    evaluations of the algebra (~25 each) that cancels to ~1e-2, so they
+    are held against the plain halves in float64 from the same faces, to 4
+    times the plain float32 halves' (``ref``) own distance (the rule
+    ``chip_smoke.py`` holds them to)."""
+    from exahype_tpu_torch.models.z4 import make_z4_solver
+
+    sol64 = make_z4_solver(3, 2, sol.grid_shape, dx=sol._dxs[0], impl="soa", fused_rhs="soa",
+                           device=faces.device, dtype=torch.float64,
+                           **dict(zip(("slicing", "f", "m", "kappa1", "kappa2"),
+                                      sol.rhs_all_fn.physics.params)))
+    ref64 = _z4_plain_halves(sol64, faces.double())[1]
+    limit = max(4 * _err(ref, ref64), _bound(ref64, torch.float32))
+    assert limit < 0.1 * ref64.abs().max().item()  # the rule can tell a missing half
+    return _err(got, ref64), limit
+
+
+def _z4_plain_update(sol, new, fhat, fhalf, dt):
+    fs = sol.face_flux_shape
+    for d in range(3):
+        new = sol.surface_term(new, fhat[d].view(fs), d, dt)
+        new = sol.ncp_term(new, fhalf[d].view(fs), d, dt)
+    return new
+
+
+Z4_STEP_CASES = [
+    (torch.float64, (8, 4, 16)),
+    (torch.float64, (3, 5, 7)),  # a ragged last predictor block and face tile
+    (torch.float32, (8, 4, 16)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", Z4_PARAMS, ids=["harmonic", "1+log_damped", "f_m_damped"])
+@pytest.mark.parametrize("dtype,grid", Z4_STEP_CASES)
+def test_z4_kernels_match_plain(dtype, grid, params):
+    """Each of the three kernels against its plain version, fed the plain
+    inputs; dt by value and by pointer."""
+    sol, cu, u = _z4_step_setup(grid, dtype, **params)
+    dt = 1e-4
+    u0 = u.clone()
+    new_k, faces_k, _ = cu.predictor_volume(u, dt)
+    new_t, faces_t, _ = cu.predictor_volume(u, torch.tensor(dt, dtype=dtype, device=u.device))
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    fhat_k, fhalf_k = cu.face_flux(faces_p)
+    fhat_p, fhalf_p = _z4_plain_halves(sol, faces_p)
+    upd_k = cu.surface_update(new_p.clone(), fhat_p, dt, fhalf=fhalf_p)
+    upd_p = _z4_plain_update(sol, new_p, fhat_p, fhalf_p, dt)
+    torch.cuda.synchronize()
+    assert torch.equal(u, u0)
+    for a, b in ((new_k, new_p), (faces_k, faces_p), (fhat_k, fhat_p), (upd_k, upd_p)):
+        assert _err(a, b) <= _z4_bound(b, dtype)
+    if dtype == torch.float64:
+        assert _err(fhalf_k, fhalf_p) <= _z4_bound(fhalf_p, dtype)
+    else:
+        err, limit = _z4_half_bound(sol, faces_p, fhalf_k, fhalf_p)
+        assert err <= limit
+    assert not faces_k[:, 2:].any()  # the F̄ rows are written as zeros
+    assert torch.equal(new_t, new_k) and torch.equal(faces_t, faces_k)
+    assert cu.launches == {name: n for name, n in zip(cu.kernels, (2, 1, 1))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", Z4_STEP_CASES)
+def test_z4_stages_cross_feed_and_step(dtype, grid):
+    """The kernel predictor into the plain face stage and the plain
+    predictor into the kernel face stage; the step, 3 launches, bitwise
+    repeatable."""
+    sol, cu, u = _z4_step_setup(grid, dtype)
+    dt = 1e-4
+    new_k, faces_k, _ = cu.predictor_volume(u, dt)
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    ref = sol.face_surface(new_p, faces_p, dt)
+    mixed_a = sol.face_surface(new_k, faces_k, dt)
+    mixed_b = cu.face_surface(new_p.clone(), faces_p, dt)
+    cu.reset_launches()
+    step = cu.step(u, dt)
+    assert cu.launches == {name: 1 for name in cu.kernels}
+    again = cu.run(u, 1, dt)
+    out, fluxes = cu.step(u, dt, return_face_fluxes=True)
+    ref_out, ref_fluxes = sol.step(u, dt, return_face_fluxes=True)
+    torch.cuda.synchronize()
+    for a in (mixed_a, mixed_b, step):
+        assert _err(a, ref) <= _z4_bound(ref, dtype)
+    assert torch.equal(step, again) and torch.equal(out, step)
+    # F̂ = −½ s Δq, a difference of face states: from two predictors' faces
+    # it differs by their rounding, on the faces' scale.
+    scale = faces_p[:, :2].abs().max()
+    for a, b in zip(fluxes, ref_fluxes):
+        assert _err(a, b) <= _z4_bound(scale, dtype)
+
+
+@pytest.mark.cuda
+def test_z4_kernel_info_and_refusals():
+    sol, cu, u = _z4_step_setup((4, 2, 8), torch.float64)
+    for dtype in (torch.float32, torch.float64):
+        for name in cu.kernels:
+            info = cu.kernel_info(name, dtype)
+            assert info["blocks_per_sm"] >= 1 and info["registers"] > 0, (name, dtype, info)
+    assert cu.kernel_info(cu.kernels[0], torch.float32)["threads"] == 324
+    assert cu.kernel_info(cu.kernels[0], torch.float64)["threads"] == 162
+    new, faces, _ = cu.predictor_volume(u, 1e-4)
+    fhat, fhalf = cu.face_flux(faces)
+    with pytest.raises(LoweringError, match="fhalf"):
+        cu.surface_update(new, fhat, 1e-4)
+    with pytest.raises(LoweringError, match="shape"):
+        cu.surface_update(new, fhat, 1e-4, fhalf=fhalf[:2])
+    with pytest.raises(LoweringError, match="dtype"):
+        cu.predictor_volume(u.half(), 1e-4)
+    euler = CudaADERDG(ADERDGSolver(3, 3, 5, (4, 2, 8), *euler_physics(3), device=u.device,
+                                    dtype=torch.float64))
+    with pytest.raises(LoweringError, match="fhalf"):
+        euler.surface_update(torch.zeros(euler.solver.state_shape, dtype=torch.float64,
+                                         device=u.device),
+                             torch.zeros((3, 16, 5, 4, 2, 8), dtype=torch.float64,
+                                         device=u.device), 1e-4,
+                             fhalf=torch.zeros(1, device=u.device))
