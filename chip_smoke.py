@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one card, nvcc
 
-It drives seven paths, each through ``exahype_tpu_torch``'s entry points
+It drives eight paths, each through ``exahype_tpu_torch``'s entry points
 with its kernels' launch counters set to 0 just before and read just
 after (the two forms of the main path, ADER-DG and FV, and the limited,
-CK, walls, viscous and dynamic-GR slices), in this order:
+CK, walls, viscous, dynamic-GR and shifted dynamic-GR slices), in this
+order:
 
 - **ADER-DG**: ``bench.py::main``'s step — order 3, 3-D compressible
   Euler, a ``(256, 8, 128)`` periodic cell grid in float32, ``bench.py``'s
@@ -85,13 +86,26 @@ CK, walls, viscous and dynamic-GR slices), in this order:
   K5 (``csrc/rhs.cu``): 3 Picard and 2 corrector launches a step, the
   source and the face NCP evaluations eager PyTorch, as the JAX solver
   keeps them in XLA.
+- **Z4 shifted**: ``scripts/z4_probe.py --shift --large``'s system — the
+  53-variable shifted Z4 system with the Gamma-driver (f_b = 0.75, η = 1;
+  harmonic slicing), ``make_z4_shift_solver(fused_rhs="soa")``, on the
+  same grid from the moving gauge wave (v = 0.2, amplitude 0.1), dt = 1e-4
+  (0.205x ``cfl_dt``), float32 — through ``CudaADERDG`` (K1 d's shifted
+  instance, ``csrc/aderdg_z4_shift.cu``: ``aderdg_*_z4_shift``, 3 launches
+  a step) and through ``with_cuda_rhs`` (K5 c, ``rhs_all_z4_shift``).  Its
+  kernels are held to their plain versions on states with seeded noise
+  on every slot (``Z4S_NOISE``: on the exact moving wave b = B = 0), in
+  float64 at ``(8, 4, 16)`` for the frozen shift and two Gamma-driver
+  families (``Z4S_FAMILIES``) and in float32 at full width; its readings
+  add max|β − v| and max|b| (the Gamma-driver must move both).
 
 Phases:
 
 1. card: name, and ``nvidia-smi``'s name and power limit;
 2. build: ``csrc/aderdg.cu``, ``csrc/aderdg_visc.cu`` (float32) and
    ``csrc/aderdg_visc_f64.cu``, ``csrc/aderdg_z4.cu`` and
-   ``csrc/aderdg_z4_f64.cu``, ``csrc/subcell.cu``, ``csrc/rhs.cu`` and the
+   ``csrc/aderdg_z4_f64.cu``, ``csrc/aderdg_z4_shift.cu`` and
+   ``csrc/aderdg_z4_shift_f64.cu``, ``csrc/subcell.cu``, ``csrc/rhs.cu`` and the
    K4 sources of the ``fv`` and the canonical ``rusanov`` spec, one
    ``nvcc`` each, all started together (time, source hash, nvcc seconds
    per source, and ptxas's registers/shared memory/spills);
@@ -272,6 +286,25 @@ Z4_PARAMS = (
 #: multiply-adds on the card's side only); they differ by a few float64
 #: spacings of the largest intermediate, far below 1e-12 of it.
 Z4_F64_RTOL = 1e-12
+#: The shifted Z4 path (``scripts/z4_probe.py --shift --large``, ``:166-171,
+#: 189-196``, on the solver of ``:53-57``): the 53-variable system, order 2,
+#: 3-D, the Gamma-driver (f_b = 0.75, η = 1; harmonic slicing f = 1, m = 2,
+#: κ₁ = κ₂ = 0) on the fused right-hand side (``fused_rhs="soa"``), the
+#: moving gauge wave (v = 0.2, amplitude 0.1) on ``Z4_GRID``, dt = 1e-4.
+Z4S_PARAMS = dict(shift="gamma_driver", f_b=0.75, eta=1.0)
+Z4S_V = 0.2
+#: The f64 kernel-vs-plain families at ``Z4_CUT``: the frozen shift, the
+#: Gamma-driver with κ₁ damping and η ≠ 1, the Gamma-driver with 1+log
+#: slicing, f_b ≠ 0.75 and m ≠ 2 (``tests/test_z4.py:936-940``).
+Z4S_FAMILIES = (
+    dict(shift="frozen"),
+    dict(shift="gamma_driver", kappa1=0.2, eta=0.7),
+    dict(shift="gamma_driver", slicing="1+log", f_b=0.5, m=1.5),
+)
+#: Seeded noise on every slot of the states that hold the shifted kernels
+#: against their plain versions: on the exact moving wave b = B = 0 and
+#: ∂b = ∂B = 0, so a kernel that dropped those terms would pass there.
+Z4S_NOISE = 1e-4
 #: K5's float32 bound is ``F32_ULPS`` spacings of max|plain|, as for the
 #: other kernels: on this state the plain float32 evaluation of each of a
 #: step's five calls is within 1.2-2.3 spacings of max|plain| of the float64
@@ -2450,10 +2483,12 @@ def z4_tally(torch, rhs_all, q, grads, skip_zero: bool = False) -> dict:
 def z4_point_ops(torch, rhs_all) -> dict:
     """The arithmetic of K5's plain version at one point, by kind
     (:func:`z4_tally` on one float64 CPU point of flat space, zero
-    gradients, every op counted)."""
-    q = torch.zeros(38, 1, dtype=torch.float64)
+    gradients, every op counted); the system's variables from its tag (38,
+    or 53 shifted)."""
+    n = rhs_all.physics.n_real
+    q = torch.zeros(n, 1, dtype=torch.float64)
     q[[0, 1, 4, 6]] = 1.0  # flat space: α = 1, γ = identity
-    grads = tuple(torch.zeros(38, 1, dtype=torch.float64) for _ in range(3))
+    grads = tuple(torch.zeros(n, 1, dtype=torch.float64) for _ in range(3))
     return z4_tally(torch, rhs_all, q, grads)
 
 
@@ -2461,10 +2496,10 @@ def z4_slots_read(torch, rhs_all) -> tuple[int, int]:
     """``(state slots, gradient slots of the three directions together)``
     that K5's plain version reads: one evaluation of the plain algebra on
     float64 CPU points of flat space, point p holding NaN in one input slot
-    (state slot p, then each direction's 38 gradient slots).  A slot is
-    read when its NaN reaches the output: the algebra has no branch, and
-    NaN·0 is NaN."""
-    n = 38
+    (state slot p, then each direction's n gradient slots, n the system's
+    variables).  A slot is read when its NaN reaches the output: the algebra
+    has no branch, and NaN·0 is NaN."""
+    n = rhs_all.physics.n_real
     q = torch.zeros(n, 4 * n, dtype=torch.float64)
     q[[0, 1, 4, 6]] = 1.0  # α = 1, γ = identity
     grads = tuple(torch.zeros(n, 4 * n, dtype=torch.float64) for _ in range(3))
@@ -2484,57 +2519,61 @@ def z4_value_ops(torch, rhs_all, grad_axes=(0, 1, 2)) -> int:
     they know them at compile time)."""
     import numpy as np
 
+    n = rhs_all.physics.n_real
     rng = np.random.default_rng(11)
-    q = torch.from_numpy(0.1 * rng.standard_normal((38, 1)))
+    q = torch.from_numpy(0.1 * rng.standard_normal((n, 1)))
     q[[0, 1, 4, 6]] += 1.0  # α, γ near flat space, no slot exactly zero
-    grads = tuple(torch.from_numpy(rng.standard_normal((38, 1))) if k in grad_axes
-                  else torch.zeros(38, 1, dtype=torch.float64) for k in range(3))
+    grads = tuple(torch.from_numpy(rng.standard_normal((n, 1))) if k in grad_axes
+                  else torch.zeros(n, 1, dtype=torch.float64) for k in range(3))
     return sum(z4_tally(torch, rhs_all, q, grads, skip_zero=True).values())
 
 
 def z4_kernel_work(order: int, picard_iters: int, ncell: int, itemsize: int, full: int,
-                   zero: int, one_axis: int) -> dict:
+                   zero: int, one_axis: int, v: int = 38, gs: int = 31, eig_ops: int = 23,
+                   suffix: str = "z4") -> dict:
     """``{kernel: (bytes, operations)}`` of the Z4 step's three kernels
-    (``csrc/aderdg_z4.cuh``), from the algebra's operations at a point
-    (``full``: every gradient axis; ``zero``: none; ``one_axis``: one,
-    averaged over the axes; :func:`z4_value_ops`).  Per cell, N = 3, 81
-    space-time points and 27 nodes, 38 variables, 31 gradient slots an
-    axis:
+    (``csrc/aderdg_z4.cuh``; ``suffix`` "z4" or "z4_shift"), from the
+    algebra's operations at a point (``full``: every gradient axis;
+    ``zero``: none; ``one_axis``: one, averaged over the axes;
+    :func:`z4_value_ops`), the system's ``v`` variables and the ``gs``
+    slots an axis whose gradients its algebra reads (:func:`z4_slots_read`:
+    38 and 31; shifted, 53 and 43 for the Gamma-driver, 40 frozen).  Per
+    cell, N = 3, 81 space-time points and 27 nodes:
 
     - predictor: ``picard_iters`` x 81 full evaluations, 81 zero ones (s̄),
-      27 full and 27 zero ones (the NCP volume term); per iteration the 93
-      gradients of each point (3-point contraction and a division, 6 ops),
-      its 38 right-hand sides (3) and K1inv (5 a slot, slice and node);
+      27 full and 27 zero ones (the NCP volume term); per iteration the 3 gs
+      gradients of each point (3-point contraction and a product, 6 ops),
+      its v right-hand sides (3) and K1inv (5 a slot, slice and node);
       q̄, s̄ and new (5 each a node and slot, new 5 more); ∇q̄ (6); the face
       projections (2 x 5 a face node, slot and axis).  Bytes: u read, new
       and the face tensor written.
-    - face flux: per face node of each axis (27 a cell), 2 wave speeds (23
-      each, the cofactors, determinant, division, slicing and root), their
-      max, per slot Δq, F̂ (2), q̃ (2) and the half (2), a zero and a
-      one-axis evaluation.  Bytes: both faces' 38 slots read, F̂ and the
-      half written.
+    - face flux: per face node of each axis (27 a cell), 2 wave speeds
+      (``eig_ops`` each: the cofactors, determinant, division, slicing and
+      root, 23; shifted |β^d| and a sum more), their max, per slot Δq, F̂
+      (2), q̃ (2) and the half (2), a zero and a one-axis evaluation.
+      Bytes: both faces' v slots read, F̂ and the half written.
     - update: per node, slot and axis 10 (two λ(φ1/w a ∓ φ0/w b) terms).
       Bytes: the state read and written, F̂ and the halves read."""
     n = order + 1
-    pts, nodes, fn, v, gs = n**4, n**3, 3 * n**2, 38, 31
+    pts, nodes, fn = n**4, n**3, 3 * n**2
     pred_ops = (picard_iters * (pts * full + pts * 3 * gs * 6 + pts * v * 3 + nodes * v * n * 5)
                 + pts * zero + nodes * (full + zero) + nodes * v * 20 + nodes * 3 * gs * 6
                 + fn * v * 2 * 5)
-    flux_ops = fn * (2 * 23 + 1 + v * 7 + zero + one_axis)
+    flux_ops = fn * (2 * eig_ops + 1 + v * 7 + zero + one_axis)
     update_ops = nodes * v * 3 * 10
     return {
-        "aderdg_predictor_volume_z4": (ncell * itemsize * (2 * nodes * v + 4 * fn * v),
-                                       ncell * pred_ops),
-        "aderdg_face_flux_z4": (ncell * itemsize * fn * 4 * v, ncell * flux_ops),
-        "aderdg_surface_update_z4": (ncell * itemsize * (2 * nodes * v + 2 * fn * v),
-                                     ncell * update_ops),
+        f"aderdg_predictor_volume_{suffix}": (ncell * itemsize * (2 * nodes * v + 4 * fn * v),
+                                              ncell * pred_ops),
+        f"aderdg_face_flux_{suffix}": (ncell * itemsize * fn * 4 * v, ncell * flux_ops),
+        f"aderdg_surface_update_{suffix}": (ncell * itemsize * (2 * nodes * v + 2 * fn * v),
+                                            ncell * update_ops),
     }
 
 
 def z4_plain_face_flux(torch, sol, faces):
     """The plain versions of the Z4 face flux kernel's two outputs, ``fhat``
     (``interface_flux``) and ``fhalf`` (``ncp_half``), in its layout
-    ``[3, 9, 38, *grid]``."""
+    ``[3, 9, V, *grid]``."""
     fs = sol.face_flux_shape
     parts = [[faces[d, k].reshape(fs) for k in range(4)] for d in range(3)]
     shape = (3, -1) + tuple(fs[-4:])
@@ -2552,7 +2591,7 @@ def z4_plain_update(sol, new, fhat, fhalf, dt):
     return new
 
 
-def z4_kernel_parity(torch, sol, cu, u, dt, label: str, sol64=None) -> dict:
+def z4_kernel_parity(torch, sol, cu, u, dt, label: str, sol64=None, tag: str = "z4") -> dict:
     """The Z4 step's three kernels against their plain versions on ``u``:
     the predictor's new state and faces; the face flux kernel's F̂ and NCP
     halves from the plain faces; the update from the plain fluxes; the face
@@ -2563,7 +2602,7 @@ def z4_kernel_parity(torch, sol, cu, u, dt, label: str, sol64=None) -> dict:
     float64), to
     ``FVWALL_F32_FACTOR`` times the plain float32 halves' own distance, as
     the viscous wall planes.  Fails on a disagreement; returns the largest
-    error of each kernel."""
+    error of each kernel.  ``tag`` prefixes the printed lines."""
     f64 = u.dtype == torch.float64
     pred, flux, update = cu.kernels
     new_k, faces_k, _ = cu.predictor_volume(u, dt)
@@ -2603,13 +2642,33 @@ def z4_kernel_parity(torch, sol, cu, u, dt, label: str, sol64=None) -> dict:
             limit = f32_bound(torch, b)
             why = f"{F32_ULPS} f32 spacings of max|plain| = {b.abs().max().item():.4g}"
         ok = err <= limit
-        say(f"[z4 parity] {label}: {name} ({what}) {str(u.dtype)[6:]} {sol.grid_shape}: "
+        say(f"[{tag} parity] {label}: {name} ({what}) {str(u.dtype)[6:]} {sol.grid_shape}: "
             f"max_abs_err {err:.3e} limit {limit:.3e} ({why}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"Z4 {name} ({what}) disagrees with its plain version ({label}, {u.dtype}, "
                  f"{sol.grid_shape})")
         errs[name] = max(errs.get(name, 0.0), err)
     return errs
+
+
+def z4_rhs_calls(sol, u, dt) -> list:
+    """The inputs of each ``rhs_all_fn`` call of one plain step of ``sol``
+    from ``u``: the Picard iterations' and the corrector's two."""
+    calls = []
+    rec = copy.copy(sol)
+
+    def record(Q, grads, va):
+        calls.append((Q, tuple(grads), va))
+        return sol.rhs_all_fn(Q, grads, va)
+
+    rec.rhs_all_fn = record
+    rec.step(u, dt)
+    return calls
+
+
+def z4_call_name(i: int, iters: int) -> str:
+    return (f"Picard iteration {i + 1}" if i < iters
+            else ("corrector rhs_all(q̄, ∇q̄)" if i == iters else "corrector rhs_all(q̄, 0)"))
 
 
 def z4_path(torch, dev, card) -> list[dict]:
@@ -2630,22 +2689,9 @@ def z4_path(torch, dev, card) -> list[dict]:
         return plain, with_cuda_rhs(plain)
 
     def k5_inputs(sol, u):
-        """The inputs of each ``rhs_all_fn`` call of one plain step from
-        ``u``: the Picard iterations' and the corrector's two."""
-        calls = []
-        rec = copy.copy(sol)
+        return z4_rhs_calls(sol, u, Z4_DT)
 
-        def record(Q, grads, va):
-            calls.append((Q, tuple(grads), va))
-            return sol.rhs_all_fn(Q, grads, va)
-
-        rec.rhs_all_fn = record
-        rec.step(u, Z4_DT)
-        return calls
-
-    def call_name(i, iters):
-        return (f"Picard iteration {i + 1}" if i < iters
-                else ("corrector rhs_all(q̄, ∇q̄)" if i == iters else "corrector rhs_all(q̄, 0)"))
+    call_name = z4_call_name
 
     # ------------------------------------------- kernels vs plain, float64, cut grid
     for params in Z4_PARAMS:
@@ -2796,7 +2842,7 @@ def z4_path(torch, dev, card) -> list[dict]:
 
     # ------------------------------------------- times
     d_win = windows(torch, cu, u0, Z4_DT, steps=10)
-    k_win = windows(torch, kern, u0, Z4_DT, steps=5)
+    k_win = windows(torch, kern, u0, Z4_DT, steps=2)  # short: ~0.4 s an eager step
     p_win = windows(torch, plain, u0, Z4_DT, steps=1, n_windows=1)
     for label, win in (("CudaADERDG path", d_win), ("with_cuda_rhs path", k_win),
                        ("plain path", p_win)):
@@ -2909,6 +2955,306 @@ def z4_path(torch, dev, card) -> list[dict]:
     }]
 
 
+def z4_shift_path(torch, dev, card) -> list[dict]:
+    """The shifted dynamic-GR path: the 53-variable Gamma-driver step through
+    ``CudaADERDG`` (K1 d's shifted instance, ``csrc/aderdg_z4_shift.cu``),
+    and the ``with_cuda_rhs`` route (K5 c, ``rhs_all_z4_shift``); returns
+    their lines of the kernel JSON."""
+    import numpy as np
+
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+    from exahype_tpu_torch.models.z4 import (
+        make_z4_shift_solver,
+        moving_gauge_wave_state,
+        solver_constraints,
+    )
+
+    def make(grid, dtype, **params):
+        plain = make_z4_shift_solver(3, Z4_ORDER, grid, dx=Z4_DX, fused_rhs="soa", device=dev,
+                                     dtype=dtype, **params)
+        return plain, with_cuda_rhs(plain)
+
+    def noisy(sol, seed=5):
+        u = moving_gauge_wave_state(sol, v=Z4S_V, amplitude=Z4_AMPLITUDE)
+        noise = torch.from_numpy(np.random.default_rng(seed).standard_normal(u.shape))
+        return (u + Z4S_NOISE * noise.to(u)).contiguous()
+
+    t0 = time.perf_counter()
+
+    def phase(what):
+        say(f"[z4s] {what}: {time.perf_counter() - t0:.1f} s into the path (host clock)")
+
+    # ------------------------------------------- kernels vs plain, float64, cut grid
+    for params in Z4S_FAMILIES:
+        plain64, kern64 = make(Z4_CUT, torch.float64, **params)
+        k5_64 = kern64.rhs_all_fn
+        which = f"{k5_64.inner.physics.params}"
+        u = noisy(plain64)
+        for i, (Q, grads, va) in enumerate(z4_rhs_calls(plain64, u, Z4_DT)):
+            got, again = k5_64(Q, grads, va), k5_64(Q, grads, va)
+            ref = plain64.rhs_all_fn(Q, grads, va)
+            torch.cuda.synchronize()
+            err = max_err(torch, got, ref)
+            limit = Z4_F64_RTOL * max(1.0, ref.abs().max().item())
+            ok = err <= limit and torch.equal(got, again)
+            name = z4_call_name(i, plain64.picard_iters)
+            say(f"[z4s parity] rhs_all_z4_shift float64 {Z4_CUT} noisy moving wave (slicing, f, "
+                f"m, κ₁, κ₂, shift, f_b, η) = {which} {name} "
+                f"{tuple(Q.shape)}: max_abs_err {err:.3e} limit {limit:.3e} ({Z4_F64_RTOL:.0e} x "
+                f"max(1, max|plain| = {ref.abs().max().item():.4g})); repeat bitwise "
+                f"{torch.equal(got, again)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"K5 c (float64, {which}, {name}) disagrees with its plain version")
+        step_k, step_p = kern64.step(u, Z4_DT), plain64.step(u, Z4_DT)
+        err = max_err(torch, step_k, step_p)
+        limit = Z4_F64_RTOL * max(1.0, step_p.abs().max().item())
+        say(f"[z4s parity] one float64 step {Z4_CUT} {which} through with_cuda_rhs vs the plain "
+            f"step: max_abs_err {err:.3e} limit {limit:.3e}; K5 c launches {k5_64.launches}")
+        if not err <= limit:
+            fail(f"the float64 shifted Z4 step through K5 c disagrees with the plain step "
+                 f"({which})")
+        z4_kernel_parity(torch, plain64, CudaADERDG(plain64), u, Z4_DT, f"K1 d shifted {which}",
+                         tag="z4s")
+        del plain64, kern64, k5_64, u, got, again, ref, step_k, step_p
+
+    phase("the float64 parity of three families")
+
+    # ------------------------------------------- kernels vs plain, float32, full width
+    plain, kern = make(Z4_GRID, torch.float32, **Z4S_PARAMS)
+    sol64, _ = make(Z4_GRID, torch.float64, **Z4S_PARAMS)
+    cu = CudaADERDG(plain)
+    k5 = kern.rhs_all_fn
+    iters = plain.picard_iters
+    u0 = moving_gauge_wave_state(plain, v=Z4S_V, amplitude=Z4_AMPLITUDE)
+    un = noisy(plain)
+    ncell = math.prod(Z4_GRID)
+    dofs = plain.dofs()
+    cfl = float(plain.cfl_dt(u0))
+    say(f"[z4s] {Z4_GRID} cells, order {Z4_ORDER}, 53 vars, {Z4S_PARAMS}, moving gauge wave v = "
+        f"{Z4S_V} amplitude {Z4_AMPLITUDE}: {dofs} DOF, state {u0.nbytes} B f32; dt = {Z4_DT!r} "
+        f"(scripts/z4_probe.py:56); cfl_dt(initial state) = {cfl!r} (dt / cfl_dt = "
+        f"{Z4_DT / cfl!r}); picard_iters {iters}")
+    if Z4_DT > cfl:
+        fail(f"dt = {Z4_DT} is over the shifted state's CFL limit {cfl}")
+    calls = z4_rhs_calls(plain, un, Z4_DT)
+    k5_err = 0.0
+    for i in (0, iters):  # the Picard shape, the corrector's
+        Q, grads, va = calls[i]
+        got = k5(Q, grads, va)
+        ref = plain.rhs_all_fn(Q, grads, va)
+        ref64 = plain.rhs_all_fn(Q.double(), tuple(g.double() for g in grads), va)
+        torch.cuda.synchronize()
+        err, limit = max_err(torch, got, ref), f32_bound(torch, ref)
+        to64_k, to64_p = max_err(torch, got, ref64), max_err(torch, ref, ref64)
+        ok = err <= limit
+        say(f"[z4s parity] rhs_all_z4_shift float32 {Z4_GRID} noisy moving wave "
+            f"{z4_call_name(i, iters)} {tuple(Q.shape)}: max_abs_err {err:.3e} limit "
+            f"{limit:.3e} ({F32_ULPS} f32 spacings of max|plain| = {ref.abs().max().item():.4g}) "
+            f"{'ok' if ok else 'FAIL'}; against the float64 plain result: kernel {to64_k:.3e}, "
+            f"plain float32 {to64_p:.3e}")
+        if not ok:
+            fail(f"K5 c (float32, {z4_call_name(i, iters)}) disagrees with its plain version")
+        k5_err = max(k5_err, err)
+        del got, ref, ref64
+    pic, cor = calls[0], calls[iters]
+    del calls
+    k1d_errs = z4_kernel_parity(torch, plain, cu, un, Z4_DT, "K1 d shifted, the path's own",
+                                sol64, tag="z4s")
+    del un
+    torch.cuda.empty_cache()
+    phase("the float32 parity at full width")
+
+    # ------------------------------------------- the main path: CudaADERDG
+    gib = 2.0**-30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cu.reset_launches()
+    u_d = cu.run(u0, STEPS, Z4_DT)
+    torch.cuda.synchronize()
+    d_launches = dict(cu.launches)
+    d_peak = torch.cuda.max_memory_allocated()
+    say(f"[z4s main] {STEPS} steps of {Z4_GRID} f32 through CudaADERDG(make_z4_shift_solver(..., "
+        f"fused_rhs='soa')): launches {d_launches} (expected {STEPS} of each: 3 a step); peak "
+        f"{d_peak * gib:.4f} GiB allocated ({held * gib:.4f} GiB held before) ({card})")
+    if d_launches != {name: STEPS for name in cu.kernels}:
+        fail(f"the shifted Z4 step through CudaADERDG launched {d_launches} in {STEPS} steps, "
+             "expected 3 a step")
+    if tuple(u_d.shape) != plain.state_shape or not torch.isfinite(u_d).all():
+        fail("the shifted Z4 state through CudaADERDG is not finite or has the wrong shape")
+    if not torch.equal(u_d, cu.run(u0, STEPS, Z4_DT)):
+        fail("two shifted Z4 runs through CudaADERDG from the same state differ")
+    say("[z4s main] CudaADERDG: two runs from the same state: bitwise equal")
+
+    # ------------------------------------------- the with_cuda_rhs route (K5 c)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k5.reset_launches()
+    u_k = kern.run(u0, STEPS, Z4_DT)
+    torch.cuda.synchronize()
+    launches = k5.launches
+    peak = torch.cuda.max_memory_allocated()
+    want = (iters + 2) * STEPS
+    say(f"[z4s main] {STEPS} steps of {Z4_GRID} f32 through make_z4_shift_solver + "
+        f"with_cuda_rhs: K5 c launches {launches} (expected (picard_iters + 2) x steps = "
+        f"{want}); peak {peak * gib:.4f} GiB allocated ({card})")
+    if launches != want:
+        fail(f"K5 c launched {launches} times in {STEPS} shifted Z4 steps, expected {want}")
+    if tuple(u_k.shape) != plain.state_shape or not torch.isfinite(u_k).all():
+        fail("the shifted Z4 state through with_cuda_rhs is not finite or has the wrong shape")
+    d1, k1, p1 = cu.step(u0, Z4_DT), kern.step(u0, Z4_DT), plain.step(u0, Z4_DT)
+    torch.cuda.reset_peak_memory_stats()
+    p10 = plain.run(u0, STEPS, Z4_DT)
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated()
+    for route, n, a, b in (("CudaADERDG", 1, d1, p1), ("CudaADERDG", STEPS, u_d, p10),
+                           ("with_cuda_rhs", 1, k1, p1), ("with_cuda_rhs", STEPS, u_k, p10)):
+        err, limit = max_err(torch, a, b), n * f32_bound(torch, b)
+        say(f"[z4s main] {route}, {n} step(s), kernel path vs plain path: max_abs_err "
+            f"{err:.3e} limit {limit:.3e}")
+        if not err <= limit:
+            fail(f"the shifted Z4 kernel path ({route}) disagrees with the plain path after "
+                 f"{n} step(s)")
+    del d1, k1, p1
+
+    phase("the main runs and the plain path")
+
+    # Readings: the error against the exact moving gauge wave (every slot,
+    # and slots 0-37: the Gamma-driver's b follows ∂_t Γ, which the wave in
+    # moving coordinates does not hold at 0), the ADM constraints (float64,
+    # from a float64 solver's operators), and how far the Gamma-driver moved β, b.
+    t_end = STEPS * Z4_DT
+    exact = moving_gauge_wave_state(sol64, t=t_end, v=Z4S_V, amplitude=Z4_AMPLITUDE)
+    va = plain.var_axis
+    for label, x, ex in (
+            ("initial state", u0, moving_gauge_wave_state(sol64, v=Z4S_V, amplitude=Z4_AMPLITUDE)),
+            ("CudaADERDG path", u_d, exact), ("with_cuda_rhs path", u_k, exact),
+            ("plain path", p10, exact)):
+        diff = x.double() - ex
+        core = diff.narrow(va, 0, 38)
+        H, M = solver_constraints(sol64, x.double())
+        beta = x.narrow(va, 38, 1).double()
+        b = x.narrow(va, 41, 3).double()
+        say(f"[z4s reading] {label} at t = {0 if x is u0 else t_end!r}: error against the "
+            f"exact moving gauge wave: L2 (nodal RMS over all DOF) "
+            f"{diff.pow(2).mean().sqrt().item()!r}, max {diff.abs().max().item()!r}; over slots "
+            f"0-37 L2 {core.pow(2).mean().sqrt().item()!r}, max {core.abs().max().item()!r}; ADM "
+            f"constraints max|H| {H.abs().max().item()!r}, max|M| {M.abs().max().item()!r}; "
+            f"max|β^x − v| {(beta - Z4S_V).abs().max().item()!r}, max|b| "
+            f"{b.abs().max().item()!r}")
+        if x is not u0 and not (b.abs().max().item() > 0 and (beta - Z4S_V).abs().max() > 0):
+            fail(f"the Gamma-driver did not move β and b ({label})")
+        del diff, core, H, M, beta, b
+    del sol64, exact, p10, u_k, u_d
+    phase("the readings")
+
+    # ------------------------------------------- times
+    d_win = windows(torch, cu, u0, Z4_DT, steps=10)
+    k_win = windows(torch, kern, u0, Z4_DT, steps=1)
+    p_win = windows(torch, plain, u0, Z4_DT, steps=1, n_windows=1)
+    for label, win in (("CudaADERDG path", d_win), ("with_cuda_rhs path", k_win),
+                       ("plain path", p_win)):
+        ms = [1e3 * w for w in win]
+        say(f"[z4s time] {label}: step ms per window {ms!r}; median {statistics.median(ms)!r} "
+            f"ms, {dofs / statistics.median(win)!r} DOF-updates/s ({dofs} DOF per step; {card})")
+    new, faces, _ = cu.predictor_volume(u0, Z4_DT)
+    fhat, fhalf = cu.face_flux(faces)
+    pred, flux, update = cu.kernels
+    d_times = {
+        pred: (event_ms(torch, lambda: cu.predictor_volume(u0, Z4_DT), 20),
+               once_ms(torch, lambda: plain.predictor_volume(u0, Z4_DT))),
+        flux: (event_ms(torch, lambda: cu.face_flux(faces), 20),
+               once_ms(torch, lambda: z4_plain_face_flux(torch, plain, faces))),
+        update: (event_ms(torch, lambda: cu.surface_update(new, fhat, Z4_DT, fhalf=fhalf), 20),
+                 once_ms(torch, lambda: z4_plain_update(plain, new, fhat, fhalf, Z4_DT))),
+        "face stage": (event_ms(torch, lambda: cu.face_surface(new, faces, Z4_DT), 20),
+                       once_ms(torch, lambda: plain.face_surface(new, faces, Z4_DT))),
+        "step": (event_ms(torch, lambda: cu.step(u0, Z4_DT), 20),
+                 once_ms(torch, lambda: plain.step(u0, Z4_DT))),
+    }
+    u1 = cu.step(u0, Z4_DT)
+    stepped = event_ms(torch, lambda: cu.predictor_volume(u1, Z4_DT), 20)
+    for name, (ms, plain_ms) in d_times.items():
+        say(f"[z4s time] K1 d shifted {name}: kernel {ms!r} ms, plain {plain_ms!r} ms (CUDA "
+            f"events; {card})")
+    say(f"[z4s time] K1 d shifted {pred} on the state after one step: {stepped!r} ms ({card})")
+    k5_ms = {
+        "Picard": event_ms(torch, lambda: k5(*pic), 20),
+        "corrector": event_ms(torch, lambda: k5(*cor), 20),
+    }
+    k5_plain_ms = {
+        "Picard": event_ms(torch, lambda: plain.rhs_all_fn(*pic), 2),
+        "corrector": event_ms(torch, lambda: plain.rhs_all_fn(*cor), 2),
+    }
+    say(f"[z4s time] K5 c per launch (CUDA events, 20 launches): Picard shape "
+        f"{tuple(pic[0].shape)} {k5_ms['Picard']!r} ms, corrector shape {tuple(cor[0].shape)} "
+        f"{k5_ms['corrector']!r} ms; plain rhs_all_fn {k5_plain_ms['Picard']!r} / "
+        f"{k5_plain_ms['corrector']!r} ms ({card})")
+    idle, busy, wall = idle_share(torch, lambda: cu.run(u0, 20, Z4_DT))
+    say(f"[z4s idle] CudaADERDG path, 20 steps under torch.profiler: device busy {busy!r} ms of "
+        f"wall {wall!r} ms; idle share {idle!r} ({card})")
+    idle, busy, wall = idle_share(torch, lambda: kern.step(u0, Z4_DT))
+    say(f"[z4s idle] with_cuda_rhs path, 1 step under torch.profiler: device busy {busy!r} ms "
+        f"of wall {wall!r} ms; idle share {idle!r} ({card})")
+    say(f"[z4s mem] peak allocated over {STEPS} steps: CudaADERDG path {d_peak * gib:.4f} GiB, "
+        f"with_cuda_rhs path {peak * gib:.4f} GiB, plain path {plain_peak * gib:.4f} GiB "
+        f"({card})")
+
+    phase("the times")
+
+    # ------------------------------------------- bounds
+    counts = z4_point_ops(torch, plain.rhs_all_fn)
+    per_point = sum(counts.values())
+    q_slots, grad_slots = z4_slots_read(torch, plain.rhs_all_fn)
+    bounds = {}
+    for name, (Q, _, va_) in (("Picard", pic), ("corrector", cor)):
+        points = Q.numel() // Q.shape[va_]
+        n_bytes = Q.element_size() * points * (q_slots + grad_slots + Q.shape[va_])
+        bounds[name] = bound(n_bytes, per_point * points)
+        say(f"[bound] rhs_all_z4_shift {name} shape {tuple(Q.shape)} f32: {per_point} operations "
+            f"a point ({counts}, counted on the plain algebra), {points} points, {n_bytes} B "
+            f"({q_slots} state slots and {grad_slots} gradient slots read, as the plain "
+            f"algebra reads them, {Q.shape[va_]} written): bound "
+            f"{bounds[name]['bound_ms']!r} ms by {bounds[name]['bound_by']}; kernel "
+            f"{k5_ms[name]!r} ms ({card})")
+    full = z4_value_ops(torch, plain.rhs_all_fn)
+    zero = z4_value_ops(torch, plain.rhs_all_fn, ())
+    axes = [z4_value_ops(torch, plain.rhs_all_fn, (k,)) for k in range(3)]
+    say(f"[bound] the shifted algebra's operations at a point with no zero state slot "
+        f"(z4_value_ops): every gradient axis {full}, none {zero}, one {axes}; gradient slots "
+        f"read {grad_slots // 3} an axis (the plain count on flat space with zero gradients "
+        f"is {per_point})")
+    work = z4_kernel_work(Z4_ORDER, iters, ncell, u0.element_size(), full, zero,
+                          sum(axes) / 3, v=plain.n_vars, gs=grad_slots // 3, eig_ops=25,
+                          suffix="z4_shift")
+    work["face stage"] = tuple(a + b for a, b in zip(work[flux], work[update]))
+    lines = []
+    for name in (pred, flux, update, "face stage"):
+        bnd = kernel_report(None if name == "face stage" else cu, name, torch.float32,
+                            f"(shifted Z4) {Z4_GRID} f32", d_times[name][0], *work[name], card)
+        if name == "face stage":
+            continue
+        lines.append(kernel_line(f"{name} (shifted Z4, K1 d)",
+                                 "exahype_tpu/models/aderdg_pallas.py:156", d_launches[name],
+                                 k1d_errs[name], *d_times[name], bnd,
+                                 "exahype_tpu_torch/csrc/aderdg_z4.cuh"))
+    del kern, plain, cu, u0, u1, pic, cor, new, faces, fhat, fhalf
+    torch.cuda.empty_cache()
+    return lines + [{
+        "name": "rhs_all_z4_shift",
+        "route": "cuda",
+        "source": "exahype_tpu_torch/csrc/rhs.cu",
+        "replaces": "exahype_tpu/models/rhs_pallas.py:104",
+        "launches": launches,
+        "max_abs_err": k5_err,
+        "ms": k5_ms["Picard"],
+        "plain_ms": k5_plain_ms["Picard"],
+        **bounds["Picard"],
+        "library_ms": None,  # no single PyTorch call computes it
+    }]
+
+
 def main():
     import torch
 
@@ -2985,6 +3331,7 @@ def main():
         "viscous": lambda: viscous_path(torch, dev, card),
         "FV": lambda: [fv_path(torch, dev, card, spec_printers)],
         "Z4": lambda: z4_path(torch, dev, card),
+        "Z4 shifted": lambda: z4_shift_path(torch, dev, card),
     }
     kernels, seconds = [], {"build": time.perf_counter() - t0}
     for name, run in paths.items():

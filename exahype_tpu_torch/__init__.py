@@ -1,6 +1,6 @@
 """exahype_tpu_torch — the PyTorch/CUDA port of ``exahype_tpu``.
 
-Six paths of the JAX package run here, on an NVIDIA H100 through CUDA
+Seven paths of the JAX package run here, on an NVIDIA H100 through CUDA
 kernels written for it, and on the CPU through their plain PyTorch
 versions, which match the JAX package:
 
@@ -25,8 +25,12 @@ versions, which match the JAX package:
   the statement list → ``TpuPatchGrid`` halo exchange → ``GridSolver``;
 - the dynamic-GR step of the 38-variable vacuum Z4 system at order 2 in 3-D
   (``scripts/z4_probe.py``'s production path): ``make_z4_solver(...,
-  impl="soa", fused_rhs="soa")`` → ``with_cuda_rhs``, its fused
-  right-hand side through the kernel of ``csrc/rhs.cu``.
+  impl="soa", fused_rhs="soa")`` → ``CudaADERDG`` (the step's three kernels
+  of ``csrc/aderdg_z4.cu``, the algebra compiled in) or ``with_cuda_rhs``
+  (its fused right-hand side through the kernel of ``csrc/rhs.cu``); and
+  the same for the 53-variable shifted system (``make_z4_shift_solver``,
+  frozen shift or Gamma-driver, ``scripts/z4_probe.py --shift``; kernels of
+  ``csrc/aderdg_z4_shift.cu`` and ``csrc/rhs.cu``).
 
 It imports ``torch``, NumPy and (for the spec DSL) SymPy, never JAX.
 States use the JAX package's SoA-P layouts, so they pass between the
@@ -52,6 +56,8 @@ _EXPORTS = {
     "noslip_reflect_flux": "exahype_tpu_torch.models.navier_stokes",
     "make_z4_solver": "exahype_tpu_torch.models.z4",
     "gauge_wave_state": "exahype_tpu_torch.models.z4",
+    "make_z4_shift_solver": "exahype_tpu_torch.models.z4",
+    "moving_gauge_wave_state": "exahype_tpu_torch.models.z4",
     "CudaRHS": "exahype_tpu_torch.models.rhs_cuda",
     "with_cuda_rhs": "exahype_tpu_torch.models.rhs_cuda",
     "CudaADERDG": "exahype_tpu_torch.models.aderdg_cuda",
@@ -69,6 +75,7 @@ _EXPORTS = {
     "limited_from_jax": "exahype_tpu_torch.convert",
     "grid_solver_from_jax": "exahype_tpu_torch.convert",
     "z4_solver_from_jax": "exahype_tpu_torch.convert",
+    "z4_shift_solver_from_jax": "exahype_tpu_torch.convert",
     "state_from_numpy": "exahype_tpu_torch.convert",
     "state_to_numpy": "exahype_tpu_torch.convert",
     "SemanticError": "exahype_tpu_torch.utils.errors",

@@ -70,7 +70,7 @@ _FACE_FLUX_WALLS = _FACE_FLUX[:-1] + (_INT, _INT, _P, _P, _P, _P, _LL, _P, _P)
 # mask 0 and null pointers without walls).
 _PREDICTOR_VOLUME_VISC = _PREDICTOR_VOLUME[:-1] + (_INT, _P, _P, _LL, _P)
 _SURFACE_UPDATE_WALLS = _SURFACE_UPDATE[:-1] + (_INT, _P, _P, _P)
-# The Z4 face stage (csrc/aderdg_z4.cu): the periodic entries' arguments
+# The Z4 face stages (csrc/aderdg_z4*.cu): the periodic entries' arguments
 # with the NCP half-fluctuations fhalf after fhat.
 _FACE_FLUX_Z4 = _FACE_FLUX[:2] + (_P,) + _FACE_FLUX[2:]
 _SURFACE_UPDATE_Z4 = _SURFACE_UPDATE[:2] + (_P,) + _SURFACE_UPDATE[2:]
@@ -90,6 +90,8 @@ _RHS_ALL = (
     _P, _P, _P, _P, _P, _LL, _INT, _LL, _INT, ctypes.c_double, ctypes.c_double,
     ctypes.c_double, ctypes.c_double, _P,
 )
+# The shifted instance: the same, then before the stream shift, f_b, eta.
+_RHS_ALL_SHIFT = _RHS_ALL[:-1] + (_INT, ctypes.c_double, ctypes.c_double, _P)
 _SIGNATURES = {
     f"exahype_{kernel}_{suffix}": argtypes
     for kernel, argtypes in (
@@ -103,8 +105,12 @@ _SIGNATURES = {
         ("aderdg_predictor_volume_z4", _PREDICTOR_VOLUME),
         ("aderdg_face_flux_z4", _FACE_FLUX_Z4),
         ("aderdg_surface_update_z4", _SURFACE_UPDATE_Z4),
+        ("aderdg_predictor_volume_z4_shift", _PREDICTOR_VOLUME),
+        ("aderdg_face_flux_z4_shift", _FACE_FLUX_Z4),
+        ("aderdg_surface_update_z4_shift", _SURFACE_UPDATE_Z4),
         ("subcell_row_sweep", _ROW_SWEEP),
         ("rhs_all_z4", _RHS_ALL),
+        ("rhs_all_z4_shift", _RHS_ALL_SHIFT),
     )
     for suffix in ("f32", "f64")
 }

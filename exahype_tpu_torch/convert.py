@@ -154,8 +154,8 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
     a (flux_fn, max_eigenvalue_fn) pair or (…, visc_flux_fn,
     visc_eigenvalue_fn) 4-tuple of the port's.  A JAX solver with
     ``source_fn``, ``ncp_fn`` or ``rhs_all_fn`` set raises ``SemanticError``
-    (those are JAX functions; the Z4 system crosses through
-    :func:`z4_solver_from_jax`); so does one whose viscous callbacks the
+    (those are JAX functions; the Z4 systems cross through
+    :func:`z4_solver_from_jax` and :func:`z4_shift_solver_from_jax`); so does one whose viscous callbacks the
     named physics does not replace, or the other way round.
 
     Walls: outflow and farfield need nothing more; a Dirichlet solver's
@@ -175,7 +175,7 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
         if getattr(jax_solver, name) is not None:
             raise SemanticError(
                 f"the JAX solver's {name} is a JAX function the port cannot "
-                "call; for the Z4 system use z4_solver_from_jax"
+                "call; for the Z4 systems use z4_solver_from_jax or z4_shift_solver_from_jax"
             )
     viscous = getattr(jax_solver, "visc_flux_fn", None) is not None
     if viscous != ("visc_flux_fn" in callbacks):
@@ -293,6 +293,48 @@ def grid_solver_from_jax(jax_solver, *, spec: str, gamma: float, device=None,
     )
 
 
+def _z4_from_jax(jax_solver, make, name: str, n_vars: int, other: str, params: dict,
+                 device, dtype):
+    """The port's solver for a JAX Z4 solver of ``n_vars`` variables through
+    the port's constructor ``make`` (``make_z4_solver`` or
+    ``make_z4_shift_solver``), with the hooks as they are set; see
+    :func:`z4_solver_from_jax`."""
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+
+    if type(jax_solver).__name__ == "PallasADERDG":
+        return CudaADERDG(_z4_from_jax(jax_solver.solver, make, name, n_vars, other, params,
+                                       device, dtype))
+    if jax_solver.ncp_fn is None or jax_solver.source_fn is None:
+        raise SemanticError(
+            f"not a {name} solver: it needs {n_vars} variables, ncp_fn and source_fn"
+        )
+    if jax_solver.n_vars != n_vars:
+        raise SemanticError(
+            f"not a {name} solver: it needs {n_vars} variables, got "
+            f"n_vars={jax_solver.n_vars} (cross it with {other})"
+        )
+    options = _options_from_jax(jax_solver, walls=None)
+    rhs = jax_solver.rhs_all_fn
+    solver = make(
+        dim=jax_solver.dim,
+        order=jax_solver.order,
+        grid_shape=tuple(jax_solver.grid_shape),
+        dx=jax_solver.dx,
+        **params,
+        fused_rhs="soa" if rhs is not None else False,
+        impl="soa",
+        picard_iters=jax_solver.picard_iters,
+        basis=jax_solver.basis,
+        device=device,
+        dtype=dtype,
+        **options,
+    )
+    if type(rhs).__name__ == "PallasRHS":
+        solver = with_cuda_rhs(solver)
+    return solver
+
+
 def z4_solver_from_jax(jax_solver, *, slicing: str = "harmonic", f: float = 1.0,
                        m: float = 2.0, kappa1: float = 0.0, kappa2: float = 0.0,
                        device=None, dtype: torch.dtype = torch.float64):
@@ -310,41 +352,33 @@ def z4_solver_from_jax(jax_solver, *, slicing: str = "harmonic", f: float = 1.0,
     ``PallasADERDG`` over a fused Z4 solver maps to
     :class:`~exahype_tpu_torch.models.aderdg_cuda.CudaADERDG` over the port's
     solver for the one it wraps (its step's kernels compile the algebra in).
-    States cross through :func:`state_from_numpy`.
+    A 53-variable (shifted) solver raises ``SemanticError``: it crosses
+    through :func:`z4_shift_solver_from_jax`.  States cross through
+    :func:`state_from_numpy`.
     """
-    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
-    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
     from exahype_tpu_torch.models.z4 import N_VARS, make_z4_solver
 
-    if type(jax_solver).__name__ == "PallasADERDG":
-        return CudaADERDG(z4_solver_from_jax(
-            jax_solver.solver, slicing=slicing, f=f, m=m, kappa1=kappa1, kappa2=kappa2,
-            device=device, dtype=dtype))
-    if jax_solver.n_vars != N_VARS or jax_solver.ncp_fn is None or (
-            jax_solver.source_fn is None):
-        raise SemanticError(
-            f"not a vacuum Z4 solver: it needs {N_VARS} variables, ncp_fn and "
-            f"source_fn (got n_vars={jax_solver.n_vars})"
-        )
-    options = _options_from_jax(jax_solver, walls=None)
-    rhs = jax_solver.rhs_all_fn
-    solver = make_z4_solver(
-        dim=jax_solver.dim,
-        order=jax_solver.order,
-        grid_shape=tuple(jax_solver.grid_shape),
-        dx=jax_solver.dx,
-        slicing=slicing, f=f, m=m, kappa1=kappa1, kappa2=kappa2,
-        fused_rhs="soa" if rhs is not None else False,
-        impl="soa",
-        picard_iters=jax_solver.picard_iters,
-        basis=jax_solver.basis,
-        device=device,
-        dtype=dtype,
-        **options,
-    )
-    if type(rhs).__name__ == "PallasRHS":
-        solver = with_cuda_rhs(solver)
-    return solver
+    params = dict(slicing=slicing, f=f, m=m, kappa1=kappa1, kappa2=kappa2)
+    return _z4_from_jax(jax_solver, make_z4_solver, "vacuum Z4", N_VARS,
+                        "z4_shift_solver_from_jax", params, device, dtype)
+
+
+def z4_shift_solver_from_jax(jax_solver, *, slicing: str = "harmonic", f: float = 1.0,
+                             m: float = 2.0, kappa1: float = 0.0, kappa2: float = 0.0,
+                             shift: str = "frozen", f_b: float = 0.75, eta: float = 1.0,
+                             device=None, dtype: torch.dtype = torch.float64):
+    """The port's shifted vacuum Z4 solver for a JAX ``make_z4_shift_solver``
+    solver (53 variables): as :func:`z4_solver_from_jax`, the caller naming
+    the system's parameters, the shift condition with them (``shift``,
+    ``f_b``, ``eta``).  ``with_pallas_rhs`` of it maps to ``with_cuda_rhs``,
+    ``PallasADERDG`` of it to ``CudaADERDG``.  A 38-variable solver raises
+    ``SemanticError``: it crosses through :func:`z4_solver_from_jax`."""
+    from exahype_tpu_torch.models.z4 import N_VARS_SHIFT, make_z4_shift_solver
+
+    params = dict(slicing=slicing, f=f, m=m, kappa1=kappa1, kappa2=kappa2, shift=shift,
+                  f_b=f_b, eta=eta)
+    return _z4_from_jax(jax_solver, make_z4_shift_solver, "shifted vacuum Z4", N_VARS_SHIFT,
+                        "z4_solver_from_jax", params, device, dtype)
 
 
 def state_from_numpy(arr, *, device=None, dtype: torch.dtype | None = None):

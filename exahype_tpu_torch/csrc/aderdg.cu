@@ -3,8 +3,9 @@
 // on the physics (3-D compressible Euler, 3-D heterogeneous elasticity, and
 // for the face stage 3-D compressible Navier–Stokes, whose predictor is
 // csrc/aderdg_visc.cuh's).  The definitions both sources share are in
-// csrc/aderdg_common.cuh.  The Z4 step (physics 3) has its own three kernels,
-// csrc/aderdg_z4.cuh; this file's occupancy query reports them.
+// csrc/aderdg_common.cuh.  The Z4 steps (physics 3 and 4) have their own
+// three kernels each, csrc/aderdg_z4.cuh; this file's occupancy query
+// reports them.
 //
 // Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
 // PallasADERDG.build (its pallas_call and the XLA face epilogue around it)
@@ -167,6 +168,10 @@ int visc_predictor_info_f64(int wall_planes, int* out) __attribute__((weak));
 // too): `which` 0 predictor, 1 face flux, 2 update.
 int z4_kernel_info_f32(int which, int* out) __attribute__((weak));
 int z4_kernel_info_f64(int which, int* out) __attribute__((weak));
+// The shifted Z4 kernels' occupancy (csrc/aderdg_z4_shift.cu and
+// aderdg_z4_shift_f64.cu; weak too), the same `which`.
+int z4_shift_kernel_info_f32(int which, int* out) __attribute__((weak));
+int z4_shift_kernel_info_f64(int which, int* out) __attribute__((weak));
 
 namespace {
 
@@ -1246,6 +1251,10 @@ int kernel_info(int kernel, int physics, int* out) {
     auto* info = sizeof(T) == 8 ? z4_kernel_info_f64 : z4_kernel_info_f32;
     return info && kernel >= 7 && kernel <= 9 ? info(kernel - 7, out) : cudaErrorInvalidValue;
   }
+  if (physics == kZ4Shift) {  // the shifted Z4 step's, 10-12
+    auto* info = sizeof(T) == 8 ? z4_shift_kernel_info_f64 : z4_shift_kernel_info_f32;
+    return info && kernel >= 10 && kernel <= 12 ? info(kernel - 10, out) : cudaErrorInvalidValue;
+  }
   if (physics == kNavierStokes) {
     // The viscous predictor, the face flux's own instantiation; the update
     // is Euler's.
@@ -1457,8 +1466,9 @@ int exahype_aderdg_surface_update_walls_f64(double* state, const double* fhat,
 // 4 = face_flux_walls, 5 = surface_update_walls, 6 and 7 =
 // predictor_volume_visc without and with the wall planes (physics 2: the
 // face stage and 6, 7 only); physics 3 (Z4, csrc/aderdg_z4.cu): 7 =
-// predictor_volume_z4, 8 = face_flux_z4, 9 = surface_update_z4; f64 = 0 or
-// 1.
+// predictor_volume_z4, 8 = face_flux_z4, 9 = surface_update_z4; physics 4
+// (the shifted Z4, csrc/aderdg_z4_shift.cu): 10 = predictor_volume_z4_shift,
+// 11 = face_flux_z4_shift, 12 = surface_update_z4_shift; f64 = 0 or 1.
 int exahype_aderdg_kernel_info(int kernel, int f64, int physics, int* out) {
   return f64 ? kernel_info<double>(kernel, physics, out)
              : kernel_info<float>(kernel, physics, out);

@@ -1,6 +1,6 @@
 // Definitions shared by the ADER-DG kernels of csrc/aderdg.cu (the Euler
 // and elastic predictors, the face stage), csrc/aderdg_visc.cu (the
-// viscous predictor) and csrc/aderdg_z4.cu (the Z4 step): the physics the
+// viscous predictor) and csrc/aderdg_z4*.cu (the Z4 steps): the physics the
 // Picard predictors and the face stage compile in, the kernels' parameter
 // bank, the predictors' shared-memory layouts, the face stage's tiling,
 // and the host-side helpers of their launchers.  Each source compiles its
@@ -17,7 +17,9 @@ namespace {
 constexpr int kDim = 3;
 
 // Physics ids of the C interface.
-enum PhysicsId : int { kEuler = 0, kElasticHet = 1, kNavierStokes = 2, kZ4 = 3 };
+enum PhysicsId : int {
+  kEuler = 0, kElasticHet = 1, kNavierStokes = 2, kZ4 = 3, kZ4Shift = 4
+};
 
 template <typename T>
 __device__ __forceinline__ T momentum(const T* q, int d) {

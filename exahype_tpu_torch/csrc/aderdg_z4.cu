@@ -18,8 +18,8 @@ int exahype_aderdg_predictor_volume_z4_f32(const float* u, float* out, float* fa
                                            int picard_iters, int physics, const double* params,
                                            long long g0, long long g1, long long g2,
                                            void* stream) {
-  return z4_predictor_volume<float>(u, out, faces, dt_ptr, dt_val, ops, dx, order, picard_iters,
-                                    physics, params, g0, g1, g2, stream);
+  return z4_predictor_volume<float, Z4Vacuum>(u, out, faces, dt_ptr, dt_val, ops, dx, order,
+                                              picard_iters, physics, params, g0, g1, g2, stream);
 }
 
 // The face stage's first launch: fhat and fhalf, [3][9][38][cell] each, the
@@ -28,8 +28,8 @@ int exahype_aderdg_face_flux_z4_f32(const float* faces, float* fhat, float* fhal
                                     const double* ops, const double* dx, int order, int physics,
                                     const double* params, long long g0, long long g1,
                                     long long g2, void* stream) {
-  return z4_face_flux<float>(faces, fhat, fhalf, ops, dx, order, physics, params, g0, g1, g2,
-                             stream);
+  return z4_face_flux<float, Z4Vacuum>(faces, fhat, fhalf, ops, dx, order, physics, params, g0, g1,
+                                       g2, stream);
 }
 
 // The face stage's second launch: the update of `state` in place.
@@ -38,8 +38,8 @@ int exahype_aderdg_surface_update_z4_f32(float* state, const float* fhat, const 
                                          const double* dx, int order, int physics,
                                          const double* params, long long g0, long long g1,
                                          long long g2, void* stream) {
-  return z4_surface_update<float>(state, fhat, fhalf, dt_ptr, dt_val, ops, dx, order, physics,
-                                  params, g0, g1, g2, stream);
+  return z4_surface_update<float, Z4Vacuum>(state, fhat, fhalf, dt_ptr, dt_val, ops, dx, order,
+                                            physics, params, g0, g1, g2, stream);
 }
 
 }  // extern "C"
@@ -47,4 +47,4 @@ int exahype_aderdg_surface_update_z4_f32(float* state, const float* fhat, const 
 // The float32 Z4 kernels' occupancy, for exahype_aderdg_kernel_info
 // (kernels 7-9 of physics 3, csrc/aderdg.cu): `which` 0 predictor, 1 face
 // flux, 2 update.
-int z4_kernel_info_f32(int which, int* out) { return z4_info<float>(which, out); }
+int z4_kernel_info_f32(int which, int* out) { return z4_info<float, Z4Vacuum>(which, out); }

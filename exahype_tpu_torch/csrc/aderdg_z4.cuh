@@ -1,7 +1,10 @@
-// The ADER-DG step of the 38-variable vacuum Z4 system (csrc/z4.cuh) for
-// Hopper (sm_90a): 3-D, order 2, periodic, the fused right-hand side.  Its
-// float32 instances and C interface are csrc/aderdg_z4.cu, its float64 ones
-// csrc/aderdg_z4_f64.cu: two sources that nvcc compiles in parallel.
+// The ADER-DG step of the vacuum Z4 systems for Hopper (sm_90a): 3-D,
+// order 2, periodic, the fused right-hand side, templated on the system: the
+// 38-variable zero-shift one (Z4Vacuum, csrc/z4.cuh) and the 53-variable
+// shifted one (Z4Shift, csrc/z4_shift.cuh).  The float32 instances and C
+// interface are csrc/aderdg_z4.cu and csrc/aderdg_z4_shift.cu, the float64
+// ones csrc/aderdg_z4_f64.cu and csrc/aderdg_z4_shift_f64.cu: four sources
+// that nvcc compiles in parallel.
 //
 // Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
 // PallasADERDG.build on a pure-NCP solver with the fused rhs_all_fn: its
@@ -16,6 +19,9 @@
 // ADERDGSolver.{predictor_volume, face_surface} on the port's fused Z4
 // solver (the face stage's halves: interface_flux, ncp_half, surface_term,
 // ncp_term).
+//
+// Each kernel below has a _shift twin (aderdg_predictor_volume_z4_shift, ...)
+// over the same template body with the 53-variable system.
 //
 //   aderdg_predictor_volume_z4  cell-local: the Picard predictor with
 //                            rhs_s = φ0_s u + dt w_s rhs(q_s, ∇q_s) (the flux
@@ -42,8 +48,9 @@
 //                            h_lo), the _lo values the −d neighbour's
 //                            high-face ones, in place.
 //
-// What bounds them on the H100.  One evaluation of the algebra is ~3,900
-// arithmetic operations (chip_smoke.py::z4_point_ops), and the predictor
+// What bounds them on the H100.  One evaluation of the 38-variable algebra
+// is ~3,900 arithmetic operations (chip_smoke.py::z4_point_ops; the shifted
+// one ~1.6 times that), and the predictor
 // makes 378 a cell and step (3 Picard iterations x 81 space-time points,
 // 81 for the source average, 54 for the NCP volume term): ~1.5e6
 // operations against ~24 KB of device memory a cell in float32, ~60 per
@@ -54,10 +61,12 @@
 // slice s, space node), CB cells a block (81 CB threads).  The algebra's
 // own live values set the register count (168-255 a thread), so a block is
 // the only one on its SM, and its CB is as large as the shared memory
-// allows: 4 cells (324 threads, 11 warps) in float32, 2 in float64.  A
-// cell's space-time array (81 x 38) cannot live in registers;
+// allows (z4_cells_per_block): 4 cells (324 threads, 11 warps) in float32,
+// 2 in float64; shifted, 3 and 1.  A cell's space-time array (81 x V)
+// cannot live in registers;
 // it lives in shared memory, with u and the physical gradients of the
-// slots the algebra reads (∂α and ∂γ_ij never appear: 31 slots an axis),
+// slots the algebra reads (∂α and ∂γ_ij never appear: 31 slots an axis;
+// shifted, also ∂b and ∂B, never ∂β: 43),
 // each row [slot][point] contiguous over the block's points, so the threads
 // of a warp read consecutive words.  A Picard iteration is three phases
 // between barriers: (1) each thread takes the gradients of its point
@@ -72,7 +81,8 @@
 // (their zero gradients compile away) run on every point, rhs(q̄, ∇q̄) on
 // the threads of slice 0 and rhs(q̄, 0) on those of slice 1.  Device memory
 // is read and written in another mapping, the block's cells fastest.  Shared
-// memory: 186,192 B a block in either type.
+// memory: 186,192 B a block in either type (shifted: 194,076 B in float32,
+// 129,384 B in float64).
 //
 // The NCP terms are differences of two evaluations, rhs(q, g) − rhs(q, 0),
 // kept as the reference makes them.  The plain version runs the same
@@ -100,6 +110,7 @@
 
 #include "aderdg_common.cuh"
 #include "z4.cuh"
+#include "z4_shift.cuh"
 
 namespace {
 
@@ -107,58 +118,127 @@ constexpr int kZ4N = 3;                            // order 2: nodes an axis
 constexpr int kZ4Faces = kZ4N * kZ4N;              // face nodes of an axis
 constexpr int kZ4Nodes = kZ4N * kZ4N * kZ4N;       // space nodes of a cell
 constexpr int kZ4Points = kZ4N * kZ4Nodes;         // space-time points of a cell
-constexpr int kZ4V = z4::kVars;
-// The algebra reads the gradients of slots kK..37 only (31 an axis).
-constexpr int kZ4GradFirst = z4::kK;
-constexpr int kZ4GradSlots = kZ4V - kZ4GradFirst;
 // Face-stage blocks: one tile of kTile cells of one (axis, face node); the
 // update's blocks take kZ4UpdateNodes space nodes of one tile.
 constexpr int kZ4UpdateNodes = 9;
+// The shared memory a block may take (227 KB on an H100).
+constexpr size_t kZ4SmemLimit = 232448;
 
-// The Z4 system's parameters as the kernels take them: slicing id, f, m, κ₁,
-// κ₂ (make_params's physics; the wave speed is csrc/z4.cuh::wave_speed).
-template <typename T>
-struct Z4Physics {
-  z4::Params p;
-  static Z4Physics make(const double* params) {
-    return {{static_cast<int>(params[0]), params[1], params[2], params[3], params[4]}};
+// A system the kernels compile in: its variable count kVars, its physics id
+// in the C interface, the slots whose gradients its algebra reads (rows
+// 0..kGradSlots-1 in slot order from kGradFirst: reads_grad says whether a
+// slot has one, slot v's row is v - row_offset(v), row r's slot is
+// kGradFirst + r + slot_skip(kGradFirst + r); the 38-variable system's
+// offsets are constants, so its kernels index as they did before
+// templating, to the instruction), its parameters (from the C interface's
+// params array, and their check), its right-hand side and its wave speed.
+//
+// The 38-variable zero-shift system: the algebra reads the gradients of
+// slots kK..37 only (31 an axis).
+struct Z4Vacuum {
+  static constexpr int kVars = z4::kVars;
+  static constexpr int kPhysics = kZ4;
+  static constexpr int kGradFirst = z4::kK;
+  static constexpr int kGradSlots = kVars - kGradFirst;
+  using P = z4::Params;
+  static __host__ __device__ constexpr bool reads_grad(int) { return true; }
+  static __host__ __device__ constexpr int row_offset(int) { return kGradFirst; }
+  static __host__ __device__ constexpr int slot_skip(int) { return 0; }
+  static P make(const double* params) {
+    return {static_cast<int>(params[0]), params[1], params[2], params[3], params[4]};
+  }
+  static bool bad(const double* params) { return params[0] != 0.0 && params[0] != 1.0; }
+  template <typename T, typename LoadQ, typename LoadDQ, typename Store>
+  static __device__ __forceinline__ void rhs(const LoadQ& q, const LoadDQ& dq, const P& p,
+                                             const Store& out) {
+    z4::rhs<T>(q, dq, p, out);
+  }
+  template <typename T>
+  static __device__ __forceinline__ T wave_speed(const T* q, int d, const P& p) {
+    return z4::wave_speed<T>(q, d, p);
   }
 };
 
-template <typename T>
-using Z4Params = Params<T, kZ4N, Z4Physics<T>>;
+// The 53-variable shifted system: the core's 31 gradient slots an axis, then
+// b^i and B_k^i (slots 41-52; ∂β never appears): 43.
+struct Z4Shift {
+  static constexpr int kVars = z4s::kVars;
+  static constexpr int kPhysics = kZ4Shift;
+  static constexpr int kGradFirst = z4::kK;
+  static constexpr int kGradSlots = z4s::kBeta - kGradFirst + kVars - z4s::kB;
+  using P = z4s::Params;
+  static __host__ __device__ constexpr bool reads_grad(int v) {
+    return v < z4s::kBeta || v >= z4s::kB;
+  }
+  static __host__ __device__ constexpr int row_offset(int v) {
+    return v < z4s::kBeta ? kGradFirst : kGradFirst + (z4s::kB - z4s::kBeta);
+  }
+  static __host__ __device__ constexpr int slot_skip(int v) {
+    return v < z4s::kBeta ? 0 : z4s::kB - z4s::kBeta;
+  }
+  static P make(const double* params) {
+    return {Z4Vacuum::make(params), static_cast<int>(params[5]), params[6], params[7]};
+  }
+  static bool bad(const double* params) {
+    return Z4Vacuum::bad(params) || (params[5] != 0.0 && params[5] != 1.0);
+  }
+  template <typename T, typename LoadQ, typename LoadDQ, typename Store>
+  static __device__ __forceinline__ void rhs(const LoadQ& q, const LoadDQ& dq, const P& p,
+                                             const Store& out) {
+    z4s::rhs<T>(q, dq, p, out);
+  }
+  template <typename T>
+  static __device__ __forceinline__ T wave_speed(const T* q, int d, const P& p) {
+    return z4s::wave_speed<T>(q, d, p);
+  }
+};
 
-// Cells a predictor block, the block the only one on its SM: as many as
-// the shared memory admits (46,548 B a cell in float32, 93,096 in float64),
-// 4 and 2.  At 4 (324 threads) ptxas fits the float32 algebra in 168
-// registers without spills, and the kernel ran 6 % faster than at 3 cells
-// and 204 registers (H100 80GB HBM3, 700 W; PERF.md).
-template <typename T>
-constexpr int z4_cells_per_block() { return sizeof(T) == 8 ? 2 : 4; }
+// The system's parameters as the kernels take them (make_params's physics).
+template <typename T, typename Sys>
+struct Z4Physics {
+  typename Sys::P p;
+  static Z4Physics make(const double* params) { return {Sys::make(params)}; }
+};
+
+template <typename T, typename Sys>
+using Z4Params = Params<T, kZ4N, Z4Physics<T, Sys>>;
 
 // The predictor's shared memory, in values of T: u [slot][node], q (its
 // right-hand sides in place) [slot][point], and the gradient rows
-// [axis][slot - kZ4GradFirst][point], which the epilogue reuses for q̄
-// [slot][node], ∇q̄ [axis][slot][node] and the NCP terms' two evaluations
+// [axis][row of slot][point], which the epilogue reuses for q̄ [slot][node],
+// ∇q̄ [axis][row of slot][node] and the NCP terms' two evaluations
 // [slot][node] each.
-template <int CB>
+template <int CB, typename Sys>
 struct Z4Smem {
+  static constexpr int V = Sys::kVars;
+  static constexpr int GS = Sys::kGradSlots;
   static constexpr int kPts = CB * kZ4Points;
   static constexpr int kNodes = CB * kZ4Nodes;
-  static constexpr int kU = kZ4V * kNodes;
-  static constexpr int kQ = kZ4V * kPts;
-  static constexpr int kG = kDim * kZ4GradSlots * kPts;
+  static constexpr int kU = V * kNodes;
+  static constexpr int kQ = V * kPts;
+  static constexpr int kG = kDim * GS * kPts;
   static constexpr int kQbar = 0;                                    // offsets in G
-  static constexpr int kGbar = kQbar + kZ4V * kNodes;
-  static constexpr int kNcpA = kGbar + kDim * kZ4GradSlots * kNodes;
-  static constexpr int kNcpB = kNcpA + kZ4V * kNodes;
-  static_assert(kNcpB + kZ4V * kNodes <= kG, "the epilogue fits the gradient rows");
+  static constexpr int kGbar = kQbar + V * kNodes;
+  static constexpr int kNcpA = kGbar + kDim * GS * kNodes;
+  static constexpr int kNcpB = kNcpA + V * kNodes;
+  static_assert(kNcpB + V * kNodes <= kG, "the epilogue fits the gradient rows");
   static constexpr int kTotal = kU + kQ + kG;
 };
 
-template <typename T>
+// Cells a predictor block, the block the only one on its SM: as many as
+// the shared memory admits.  38 variables: 46,548 B a cell in float32 and
+// 93,096 in float64, so 4 and 2; at 4 (324 threads) ptxas fits the float32
+// algebra in 168 registers without spills, and the kernel ran 6 % faster
+// than at 3 cells and 204 registers (H100 80GB HBM3, 700 W; PERF.md).
+// Shifted: 64,692 B and 129,384 B, so 3 and 1.
+template <typename T, typename Sys>
+constexpr int z4_cells_per_block() {
+  return static_cast<int>(kZ4SmemLimit / (Z4Smem<1, Sys>::kTotal * sizeof(T)));
+}
+
+template <typename T, typename Sys>
 constexpr size_t z4_predictor_smem() {
-  return static_cast<size_t>(Z4Smem<z4_cells_per_block<T>()>::kTotal) * sizeof(T);
+  return static_cast<size_t>(Z4Smem<z4_cells_per_block<T, Sys>(), Sys>::kTotal) * sizeof(T);
 }
 
 // The physical gradient along axis k at a node (its digit ik along k) of a
@@ -183,12 +263,13 @@ __device__ __forceinline__ int z4_digit(int node, int k) {
   return k == 0 ? node / 9 : (k == 1 ? (node / 3) % 3 : node % 3);
 }
 
-template <typename T, int CB>
+template <typename T, int CB, typename Sys>
 __global__ void __launch_bounds__(CB * kZ4Points, 1)
 aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __restrict__ faces,
-                           const T* __restrict__ dt_ptr, T dt_val, const Z4Params<T> P) {
-  using S = Z4Smem<CB>;
-  constexpr int V = kZ4V;
+                           const T* __restrict__ dt_ptr, T dt_val, const Z4Params<T, Sys> P) {
+  using S = Z4Smem<CB, Sys>;
+  constexpr int V = Sys::kVars;
+  constexpr int GS = Sys::kGradSlots;
   constexpr int NT = CB * kZ4Points;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sU = reinterpret_cast<T*>(smem_raw);
@@ -244,7 +325,7 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
   for (int k = 0; k < kDim; ++k) inv_dx[k] = T(1) / P.dx[k];
   const T phi0_s = select<T, kZ4N>(P.PHI0, s);
   const T dtw = dtv * select<T, kZ4N>(P.W, s);
-  const z4::Params zp = P.phys.p;
+  const typename Sys::P zp = P.phys.p;
   __syncthreads();
 
   // Picard: q ← K1inv (φ0 u + dt w rhs(q, ∇q)).
@@ -254,8 +335,9 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
     for (int k = 0; k < kDim; ++k) {
       const int ik = z4_digit(node, k), st = z4_stride(k);
 #pragma unroll 1
-      for (int v = kZ4GradFirst; v < V; ++v) {
-        sG[(k * kZ4GradSlots + v - kZ4GradFirst) * S::kPts + pt] =
+      for (int v = Sys::kGradFirst; v < V; ++v) {
+        if (!Sys::reads_grad(v)) continue;
+        sG[(k * GS + v - Sys::row_offset(v)) * S::kPts + pt] =
             z4_gradient<T>(drow[k], sQ + v * S::kPts + pt, ik, st, inv_dx[k]);
       }
     }
@@ -264,12 +346,12 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
     {
       auto load_q = [&](int v) { return sQ[v * S::kPts + pt]; };
       auto load_dq = [&](int k, int v) {
-        return sG[(k * kZ4GradSlots + v - kZ4GradFirst) * S::kPts + pt];
+        return sG[(k * GS + v - Sys::row_offset(v)) * S::kPts + pt];
       };
       auto store = [&](int v, T r) {
         sQ[v * S::kPts + pt] = phi0_s * sU[v * S::kNodes + cn] + dtw * r;
       };
-      z4::rhs<T>(load_q, load_dq, zp, store);
+      Sys::template rhs<T>(load_q, load_dq, zp, store);
     }
     __syncthreads();
     // (3) q ← K1inv rhs over the time slices, one (node, slot) a thread.
@@ -298,10 +380,12 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
     sQbar[e] = P.W[0] * q[0] + P.W[1] * q[kZ4Nodes] + P.W[2] * q[2 * kZ4Nodes];
   }
   __syncthreads();
-  // ∇q̄, one (axis, slot, node) a thread.
-  for (int e = threadIdx.x; e < kDim * kZ4GradSlots * S::kNodes; e += NT) {
+  // ∇q̄, one (axis, gradient row, node) a thread.
+  for (int e = threadIdx.x; e < kDim * GS * S::kNodes; e += NT) {
     const int row = e / S::kNodes, m = e - row * S::kNodes;
-    const int k = row / kZ4GradSlots, v = kZ4GradFirst + row - k * kZ4GradSlots;
+    const int k = row / GS;
+    int v = Sys::kGradFirst + row - k * GS;
+    v += Sys::slot_skip(v);
     const int nd = m % kZ4Nodes;
     const int ik = z4_digit(nd, k);
     T dr[kZ4N];
@@ -317,7 +401,7 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
     auto load_q = [&](int v) { return sQ[v * S::kPts + pt]; };
     auto zero = [](int, int) { return T(0); };
     auto store = [&](int v, T r) { sQ[v * S::kPts + pt] = r; };
-    z4::rhs<T>(load_q, zero, zp, store);
+    Sys::template rhs<T>(load_q, zero, zp, store);
   }
   // rhs(q̄, ∇q̄) of my node on the slice-0 threads, rhs(q̄, 0) on the
   // slice-1 ones: one code copy with the gradient zeroed at run time, so the
@@ -327,11 +411,11 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
     const bool grad = s == 0;
     auto load_q = [&](int v) { return sQbar[v * S::kNodes + cn]; };
     auto load_dq = [&](int k, int v) {
-      return grad ? sGbar[(k * kZ4GradSlots + v - kZ4GradFirst) * S::kNodes + cn] : T(0);
+      return grad ? sGbar[(k * GS + v - Sys::row_offset(v)) * S::kNodes + cn] : T(0);
     };
     T* dst = grad ? sA : sB;
     auto store = [&](int v, T r) { dst[v * S::kNodes + cn] = r; };
-    z4::rhs<T>(load_q, load_dq, zp, store);
+    Sys::template rhs<T>(load_q, load_dq, zp, store);
   }
   __syncthreads();
 
@@ -390,8 +474,8 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
 // run time and its result parked in sR: they round their Δq-free terms
 // alike, so the difference cancels them exactly, as the plain version's
 // does (where Δq = 0 the half is exactly 0).
-template <typename T, int D>
-__device__ __forceinline__ void z4_face_half(const z4::Params& zp, const T* sMid, const T* sDq,
+template <typename T, typename Sys, int D>
+__device__ __forceinline__ void z4_face_half(const typename Sys::P& zp, const T* sMid, const T* sDq,
                                              T* sR, T* out, long long ncell) {
 #pragma unroll 1
   for (int pass = 0; pass < 2; ++pass) {
@@ -404,7 +488,7 @@ __device__ __forceinline__ void z4_face_half(const z4::Params& zp, const T* sMid
         sR[v * kTile] = r;
       }
     };
-    z4::rhs<T>(load_q, load_dq, zp, store);
+    Sys::template rhs<T>(load_q, load_dq, zp, store);
   }
 }
 
@@ -412,11 +496,11 @@ __device__ __forceinline__ void z4_face_half(const z4::Params& zp, const T* sMid
 // solves the interface between the cell's high face and its +d neighbour's
 // low face once: F̂ into fhat[d][fm][v][cell] and the NCP half-fluctuation
 // into fhalf (the same layout).
-template <typename T>
+template <typename T, typename Sys>
 __global__ void __launch_bounds__(kTile, 8)
 aderdg_face_flux_z4(const T* __restrict__ faces, T* __restrict__ fhat, T* __restrict__ fhalf,
-                    const Z4Params<T> P) {
-  constexpr int V = kZ4V;
+                    const Z4Params<T, Sys> P) {
+  constexpr int V = Sys::kVars;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sMid = reinterpret_cast<T*>(smem_raw) + threadIdx.x;
   T* sDq = sMid + V * kTile;
@@ -438,7 +522,8 @@ aderdg_face_flux_z4(const T* __restrict__ faces, T* __restrict__ fhat, T* __rest
     qa[v] = base[wstride + v * ncell + cell];
     qb[v] = base[v * ncell + plus];
   }
-  const T s = dmax(z4::wave_speed<T>(qa, d, P.phys.p), z4::wave_speed<T>(qb, d, P.phys.p));
+  const T s = dmax(Sys::template wave_speed<T>(qa, d, P.phys.p),
+                   Sys::template wave_speed<T>(qb, d, P.phys.p));
   const long long o = static_cast<long long>(d * kZ4Faces + fm) * V * ncell + cell;
 #pragma unroll
   for (int v = 0; v < V; ++v) {
@@ -447,27 +532,27 @@ aderdg_face_flux_z4(const T* __restrict__ faces, T* __restrict__ fhat, T* __rest
     sMid[v * kTile] = T(0.5) * (qa[v] + qb[v]);
     sDq[v * kTile] = dq;
   }
-  const z4::Params zp = P.phys.p;
+  const typename Sys::P zp = P.phys.p;
   if (d == 0) {
-    z4_face_half<T, 0>(zp, sMid, sDq, sR, fhalf + o, ncell);
+    z4_face_half<T, Sys, 0>(zp, sMid, sDq, sR, fhalf + o, ncell);
   } else if (d == 1) {
-    z4_face_half<T, 1>(zp, sMid, sDq, sR, fhalf + o, ncell);
+    z4_face_half<T, Sys, 1>(zp, sMid, sDq, sR, fhalf + o, ncell);
   } else {
-    z4_face_half<T, 2>(zp, sMid, sDq, sR, fhalf + o, ncell);
+    z4_face_half<T, Sys, 2>(zp, sMid, sDq, sR, fhalf + o, ncell);
   }
 }
 
 // The face stage, second launch: one thread per (cell, space node) updates
-// the node's 38 rows of `state` in place, axis by axis: the surface term
+// the node's V rows of `state` in place, axis by axis: the surface term
 // −λ_d (ℓ_i(1)/w_i F̂_hi − ℓ_i(0)/w_i F̂_lo), then the NCP term
 // −λ_d (ℓ_i(1)/w_i h_hi + ℓ_i(0)/w_i h_lo), the _hi values the cell's own
 // entries of fhat and fhalf, the _lo ones its −d neighbour's.
-template <typename T>
+template <typename T, typename Sys>
 __global__ void __launch_bounds__(kTile * kZ4UpdateNodes)
 aderdg_surface_update_z4(T* __restrict__ state, const T* __restrict__ fhat,
                          const T* __restrict__ fhalf, const T* __restrict__ dt_ptr, T dt_val,
-                         const Z4Params<T> P) {
-  constexpr int V = kZ4V;
+                         const Z4Params<T, Sys> P) {
+  constexpr int V = Sys::kVars;
   constexpr int NG = kZ4Nodes / kZ4UpdateNodes;
   const int tile_index = blockIdx.x / NG;
   const TileCell tc(tile_index, P.g);
@@ -506,9 +591,9 @@ aderdg_surface_update_z4(T* __restrict__ state, const T* __restrict__ fhat,
 // Host side ---------------------------------------------------------------
 
 // The face stage's shared memory: q̃, Δq and rhs(q̃, 0) of a warp's threads.
-template <typename T>
+template <typename T, typename Sys>
 constexpr size_t z4_face_smem() {
-  return static_cast<size_t>(3 * kZ4V * kTile) * sizeof(T);
+  return static_cast<size_t>(3 * Sys::kVars * kTile) * sizeof(T);
 }
 
 // Tiles of the face stage, or 0 if the order is not 2, the grid is empty or
@@ -521,72 +606,77 @@ long long z4_face_tiles(int order, long long g0, long long g1, long long g2) {
   return tiles * (kZ4Nodes / kZ4UpdateNodes) > kMax ? 0 : tiles;
 }
 
+template <typename Sys>
 bool z4_bad_args(int physics, const double* params) {
-  return physics != kZ4 || params == nullptr || (params[0] != 0.0 && params[0] != 1.0);
+  return physics != Sys::kPhysics || params == nullptr || Sys::bad(params);
 }
 
-template <typename T>
+template <typename T, typename Sys>
 Shape z4_predictor_shape() {
-  constexpr int CB = z4_cells_per_block<T>();
-  return {reinterpret_cast<const void*>(aderdg_predictor_volume_z4<T, CB>),
-          dim3(CB * kZ4Points), z4_predictor_smem<T>()};
+  constexpr int CB = z4_cells_per_block<T, Sys>();
+  return {reinterpret_cast<const void*>(aderdg_predictor_volume_z4<T, CB, Sys>),
+          dim3(CB * kZ4Points), z4_predictor_smem<T, Sys>()};
 }
 
-template <typename T>
+template <typename T, typename Sys>
 Shape z4_face_flux_shape() {
-  return {reinterpret_cast<const void*>(aderdg_face_flux_z4<T>), dim3(kTile), z4_face_smem<T>()};
+  return {reinterpret_cast<const void*>(aderdg_face_flux_z4<T, Sys>), dim3(kTile),
+          z4_face_smem<T, Sys>()};
 }
 
-template <typename T>
+template <typename T, typename Sys>
 Shape z4_surface_update_shape() {
-  return {reinterpret_cast<const void*>(aderdg_surface_update_z4<T>),
+  return {reinterpret_cast<const void*>(aderdg_surface_update_z4<T, Sys>),
           dim3(kTile, kZ4UpdateNodes), 0};
 }
 
-template <typename T>
+template <typename T, typename Sys>
 int z4_predictor_volume(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
                         const double* ops, const double* dx, int order, int picard_iters,
                         int physics, const double* params, long long g0, long long g1,
                         long long g2, void* stream) {
-  constexpr int CB = z4_cells_per_block<T>();
-  if (z4_bad_args(physics, params) || z4_face_tiles(order, g0, g1, g2) == 0 || picard_iters < 0)
+  constexpr int CB = z4_cells_per_block<T, Sys>();
+  static_assert(CB >= 1, "a cell's shared memory fits a block");
+  if (z4_bad_args<Sys>(physics, params) || z4_face_tiles(order, g0, g1, g2) == 0 ||
+      picard_iters < 0)
     return cudaErrorInvalidValue;
-  const auto P = make_params<T, kZ4N, Z4Physics<T>>(ops, dx, picard_iters, params, g0, g1, g2);
-  const Shape sh = z4_predictor_shape<T>();
-  const cudaError_t attr = allow_smem(aderdg_predictor_volume_z4<T, CB>, sh.smem);
+  const auto P = make_params<T, kZ4N, Z4Physics<T, Sys>>(ops, dx, picard_iters, params, g0, g1,
+                                                          g2);
+  const Shape sh = z4_predictor_shape<T, Sys>();
+  const cudaError_t attr = allow_smem(aderdg_predictor_volume_z4<T, CB, Sys>, sh.smem);
   if (attr != cudaSuccess) return attr;
   const long long blocks = (P.ncell + CB - 1) / CB;
-  aderdg_predictor_volume_z4<T, CB>
+  aderdg_predictor_volume_z4<T, CB, Sys>
       <<<static_cast<unsigned>(blocks), sh.block, sh.smem, static_cast<cudaStream_t>(stream)>>>(
           u, out, faces, dt_ptr, static_cast<T>(dt_val), P);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename Sys>
 int z4_face_flux(const T* faces, T* fhat, T* fhalf, const double* ops, const double* dx,
                  int order, int physics, const double* params, long long g0, long long g1,
                  long long g2, void* stream) {
   const long long tiles = z4_face_tiles(order, g0, g1, g2);
-  if (z4_bad_args(physics, params) || tiles == 0) return cudaErrorInvalidValue;
-  const auto P = make_params<T, kZ4N, Z4Physics<T>>(ops, dx, 0, params, g0, g1, g2);
-  const Shape sh = z4_face_flux_shape<T>();
+  if (z4_bad_args<Sys>(physics, params) || tiles == 0) return cudaErrorInvalidValue;
+  const auto P = make_params<T, kZ4N, Z4Physics<T, Sys>>(ops, dx, 0, params, g0, g1, g2);
+  const Shape sh = z4_face_flux_shape<T, Sys>();
   const dim3 grid(static_cast<unsigned>(tiles), kDim * kZ4Faces);
-  aderdg_face_flux_z4<T><<<grid, sh.block, sh.smem, static_cast<cudaStream_t>(stream)>>>(
+  aderdg_face_flux_z4<T, Sys><<<grid, sh.block, sh.smem, static_cast<cudaStream_t>(stream)>>>(
       faces, fhat, fhalf, P);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename Sys>
 int z4_surface_update(T* state, const T* fhat, const T* fhalf, const T* dt_ptr, double dt_val,
                       const double* ops, const double* dx, int order, int physics,
                       const double* params, long long g0, long long g1, long long g2,
                       void* stream) {
   const long long tiles = z4_face_tiles(order, g0, g1, g2);
-  if (z4_bad_args(physics, params) || tiles == 0) return cudaErrorInvalidValue;
-  const auto P = make_params<T, kZ4N, Z4Physics<T>>(ops, dx, 0, params, g0, g1, g2);
-  const Shape sh = z4_surface_update_shape<T>();
+  if (z4_bad_args<Sys>(physics, params) || tiles == 0) return cudaErrorInvalidValue;
+  const auto P = make_params<T, kZ4N, Z4Physics<T, Sys>>(ops, dx, 0, params, g0, g1, g2);
+  const Shape sh = z4_surface_update_shape<T, Sys>();
   const long long blocks = tiles * (kZ4Nodes / kZ4UpdateNodes);
-  aderdg_surface_update_z4<T>
+  aderdg_surface_update_z4<T, Sys>
       <<<static_cast<unsigned>(blocks), sh.block, 0, static_cast<cudaStream_t>(stream)>>>(
           state, fhat, fhalf, dt_ptr, static_cast<T>(dt_val), P);
   return cudaGetLastError();
@@ -594,15 +684,15 @@ int z4_surface_update(T* state, const T* fhat, const T* fhalf, const T* dt_ptr, 
 
 // Occupancy of kernel `which` (0 predictor, 1 face flux, 2 update), as
 // shape_info gives it.
-template <typename T>
+template <typename T, typename Sys>
 int z4_info(int which, int* out) {
   switch (which) {
     case 0:
-      return shape_info(z4_predictor_shape<T>(), out);
+      return shape_info(z4_predictor_shape<T, Sys>(), out);
     case 1:
-      return shape_info(z4_face_flux_shape<T>(), out);
+      return shape_info(z4_face_flux_shape<T, Sys>(), out);
     case 2:
-      return shape_info(z4_surface_update_shape<T>(), out);
+      return shape_info(z4_surface_update_shape<T, Sys>(), out);
     default:
       return cudaErrorInvalidValue;
   }

@@ -12,16 +12,16 @@ int exahype_aderdg_predictor_volume_z4_f64(const double* u, double* out, double*
                                            int picard_iters, int physics, const double* params,
                                            long long g0, long long g1, long long g2,
                                            void* stream) {
-  return z4_predictor_volume<double>(u, out, faces, dt_ptr, dt_val, ops, dx, order,
-                                     picard_iters, physics, params, g0, g1, g2, stream);
+  return z4_predictor_volume<double, Z4Vacuum>(u, out, faces, dt_ptr, dt_val, ops, dx, order,
+                                               picard_iters, physics, params, g0, g1, g2, stream);
 }
 
 int exahype_aderdg_face_flux_z4_f64(const double* faces, double* fhat, double* fhalf,
                                     const double* ops, const double* dx, int order, int physics,
                                     const double* params, long long g0, long long g1,
                                     long long g2, void* stream) {
-  return z4_face_flux<double>(faces, fhat, fhalf, ops, dx, order, physics, params, g0, g1, g2,
-                              stream);
+  return z4_face_flux<double, Z4Vacuum>(faces, fhat, fhalf, ops, dx, order, physics, params, g0,
+                                        g1, g2, stream);
 }
 
 int exahype_aderdg_surface_update_z4_f64(double* state, const double* fhat, const double* fhalf,
@@ -29,12 +29,12 @@ int exahype_aderdg_surface_update_z4_f64(double* state, const double* fhat, cons
                                          const double* ops, const double* dx, int order,
                                          int physics, const double* params, long long g0,
                                          long long g1, long long g2, void* stream) {
-  return z4_surface_update<double>(state, fhat, fhalf, dt_ptr, dt_val, ops, dx, order, physics,
-                                   params, g0, g1, g2, stream);
+  return z4_surface_update<double, Z4Vacuum>(state, fhat, fhalf, dt_ptr, dt_val, ops, dx, order,
+                                             physics, params, g0, g1, g2, stream);
 }
 
 }  // extern "C"
 
 // The float64 Z4 kernels' occupancy, for exahype_aderdg_kernel_info
 // (kernels 7-9 of physics 3, csrc/aderdg.cu).
-int z4_kernel_info_f64(int which, int* out) { return z4_info<double>(which, out); }
+int z4_kernel_info_f64(int which, int* out) { return z4_info<double, Z4Vacuum>(which, out); }

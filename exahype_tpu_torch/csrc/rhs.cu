@@ -1,15 +1,18 @@
-// K5: the fused pointwise NCP right-hand side of the 38-variable vacuum Z4
-// system, rhs_all(Q, ∇Q) = S(Q) − Σ_d B_d(Q)·∂_d Q, for Hopper (sm_90a).
+// K5: the fused pointwise NCP right-hand side of the vacuum Z4 systems,
+// rhs_all(Q, ∇Q) = S(Q) − Σ_d B_d(Q)·∂_d Q, for Hopper (sm_90a): the
+// 38-variable zero-shift instance (rhs_all_z4) and the 53-variable shifted
+// one (rhs_all_z4_shift, frozen shift or Gamma-driver).
 //
 // Replaces the TPU kernel exahype_tpu/models/rhs_pallas.py::PallasRHS._build
-// (its pallas_call) on its 38-variable Z4 instance.  The numbers to match
-// are those of exahype_tpu/models/z4.py::z4_rhs_soa; the plain PyTorch
-// version is exahype_tpu_torch/models/z4.py::z4_rhs_soa through the solver's
-// rhs_all_fn (models/z4.py::_rhs_all_of).  The algebra is csrc/z4.cuh.
+// (its pallas_call) on those instances.  The numbers to match are those of
+// exahype_tpu/models/z4.py::z4_rhs_soa and ::z4_shift_rhs_soa; the plain
+// PyTorch versions are exahype_tpu_torch/models/z4.py::z4_rhs_soa and
+// ::z4_shift_rhs_soa through the solver's rhs_all_fn (models/z4.py::
+// _rhs_all_of).  The algebras are csrc/z4.cuh and csrc/z4_shift.cuh.
 //
 // Layout.  The solver hands over q and the three physical gradients as
 // contiguous [B, V, G] tensors (B = the product of the axes before the
-// variable axis: the Picard time node and the node axes; V = 38; G = the
+// variable axis: the Picard time node and the node axes; V = 38 or 53; G = the
 // product of the cell-grid axes after it) and takes the result in the same
 // layout.  Each variable's row is contiguous over G, so one thread per point
 // (b, x) reads q[b, s, x] and ∂_k Q[b, s, x] at stride G between slots, and
@@ -19,7 +22,8 @@
 //
 // What bounds it on the H100.  Per point it reads the 38 state values and
 // the 31 slots of each gradient that the algebra uses (∂α and ∂γ_ij never
-// appear), and writes 38: 676 B in f32.  Its arithmetic is a few thousand operations per
+// appear), and writes 38: 676 B in f32 (shifted: 53, 43 of each gradient
+// and 53, 1,040 B).  Its arithmetic is a few thousand operations per
 // point (chip_smoke.py counts them by running the plain algebra on a
 // counting scalar): ~6 per byte, under the card's f32 ridge of ~20, so the
 // bytes bound it.  No value is reused across points, so there is nothing to
@@ -35,6 +39,7 @@
 #include <cuda_runtime.h>
 
 #include "z4.cuh"
+#include "z4_shift.cuh"
 
 namespace {
 
@@ -56,6 +61,25 @@ rhs_all_z4(const T* __restrict__ q, const T* __restrict__ g0, const T* __restric
   z4::rhs<T>(load_q, load_dq, p, store);
 }
 
+// The shifted instance: the same layout over 53 slots.  The algebra reads
+// the gauge sector of q before it writes a result (csrc/z4_shift.cuh); out
+// is the wrapper's own tensor, never q.
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+rhs_all_z4_shift(const T* __restrict__ q, const T* __restrict__ g0, const T* __restrict__ g1,
+                 const T* __restrict__ g2, T* __restrict__ out, long long n_points,
+                 long long G, z4s::Params p) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  if (idx >= n_points) return;
+  const long long b = idx / G;
+  const long long base = b * z4s::kVars * G + (idx - b * G);
+  const T* const grads[3] = {g0, g1, g2};
+  auto load_q = [&](int s) { return q[base + s * G]; };
+  auto load_dq = [&](int k, int s) { return grads[k][base + s * G]; };
+  auto store = [&](int s, T v) { out[base + s * G] = v; };
+  z4s::rhs<T>(load_q, load_dq, p, store);
+}
+
 template <typename T>
 int launch(const T* q, const T* g0, const T* g1, const T* g2, T* out, long long n_lead,
            int n_vars, long long n_grid, int slicing, double f, double m, double kappa1,
@@ -68,6 +92,23 @@ int launch(const T* q, const T* g0, const T* g1, const T* g2, T* out, long long 
   const z4::Params p{slicing, f, m, kappa1, kappa2};
   rhs_all_z4<T><<<static_cast<unsigned>(blocks), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       q, g0, g1, g2, out, n_points, n_grid, p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_shift(const T* q, const T* g0, const T* g1, const T* g2, T* out, long long n_lead,
+                 int n_vars, long long n_grid, int slicing, double f, double m, double kappa1,
+                 double kappa2, int shift, double f_b, double eta, void* stream) {
+  if (n_vars != z4s::kVars || n_lead <= 0 || n_grid <= 0 || (slicing != 0 && slicing != 1) ||
+      (shift != 0 && shift != 1)) {
+    return cudaErrorInvalidValue;
+  }
+  const long long n_points = n_lead * n_grid;
+  const long long blocks = (n_points + kBlock - 1) / kBlock;
+  const z4s::Params p{{slicing, f, m, kappa1, kappa2}, shift, f_b, eta};
+  rhs_all_z4_shift<T>
+      <<<static_cast<unsigned>(blocks), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+          q, g0, g1, g2, out, n_points, n_grid, p);
   return cudaGetLastError();
 }
 
@@ -93,6 +134,27 @@ int exahype_rhs_all_z4_f64(const double* q, const double* g0, const double* g1,
                            double kappa2, void* stream) {
   return launch<double>(q, g0, g1, g2, out, n_lead, n_vars, n_grid, slicing, f, m, kappa1,
                         kappa2, stream);
+}
+
+// The shifted instance: the same, n_vars = 53, and after kappa2 the shift
+// condition (0 frozen, 1 Gamma-driver) with the Gamma-driver's f_b and eta.
+
+int exahype_rhs_all_z4_shift_f32(const float* q, const float* g0, const float* g1,
+                                 const float* g2, float* out, long long n_lead, int n_vars,
+                                 long long n_grid, int slicing, double f, double m,
+                                 double kappa1, double kappa2, int shift, double f_b,
+                                 double eta, void* stream) {
+  return launch_shift<float>(q, g0, g1, g2, out, n_lead, n_vars, n_grid, slicing, f, m, kappa1,
+                             kappa2, shift, f_b, eta, stream);
+}
+
+int exahype_rhs_all_z4_shift_f64(const double* q, const double* g0, const double* g1,
+                                 const double* g2, double* out, long long n_lead, int n_vars,
+                                 long long n_grid, int slicing, double f, double m,
+                                 double kappa1, double kappa2, int shift, double f_b,
+                                 double eta, void* stream) {
+  return launch_shift<double>(q, g0, g1, g2, out, n_lead, n_vars, n_grid, slicing, f, m,
+                              kappa1, kappa2, shift, f_b, eta, stream);
 }
 
 }  // extern "C"

@@ -17,7 +17,18 @@
 // caller's accessors decide the layout.  The derivative entries are read
 // where the algebra uses them, not all up front, to keep fewer of the 152
 // inputs live at once.
+//
+// rhs may take an extension besides (its last argument): the parts pass
+// through the extension's hooks on their way to out, before the
+// symmetrisation, and its finish runs last; the shifted system's
+// (csrc/z4_shift.cuh) adds its Lie-derivative terms and writes its gauge
+// sector.  Without one (NoShift, the 38-variable system) the pack is the
+// one this file had before extensions (an if constexpr branch), so that
+// rhs compiles to the same machine code and its kernels give the same bits
+// (with identity hooks the face flux kernel's NCP halves moved by an ulp).
 #pragma once
+
+#include <type_traits>
 
 #include "device_math.cuh"
 
@@ -41,10 +52,16 @@ struct Params {
   double f, m, kappa1, kappa2;
 };
 
-// ∂_t Q at one point.
-template <typename T, typename LoadQ, typename LoadDQ, typename Store>
+// The extension of the zero-shift system: none.  An extension's hooks
+// (csrc/z4_shift.cuh::Lie) each take a part (the r_* value of one
+// component, before the symmetrisation) with what they need of the
+// algebra's own values, and return the part.
+struct NoShift {};
+
+// ∂_t Q at one point (the parts through the extension *ext, if any).
+template <typename T, typename LoadQ, typename LoadDQ, typename Store, typename Ext = NoShift>
 __device__ __forceinline__ void rhs(const LoadQ& q, const LoadDQ& dq, const Params& p,
-                                    const Store& out) {
+                                    const Store& out, Ext* ext = nullptr) {
   // The packed derivative entries, read where used.
   auto dK = [&](int k, int i, int j) { return dq(k, kK + sym(i, j)); };    // ∂_k K_ij
   auto dD = [&](int k, int l, int i, int j) {                            // ∂_k D_lij
@@ -310,35 +327,73 @@ __device__ __forceinline__ void rhs(const LoadQ& q, const LoadDQ& dq, const Para
                  c2 * al * th;
 
   // ------------------------------------------------------------ pack
-  out(kAl, r_al);
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = i; j < 3; ++j) {
-      out(kG + sym(i, j), T(0.5) * (r_g[i][j] + r_g[j][i]));
-      out(kK + sym(i, j), T(0.5) * (r_K[i][j] + r_K[j][i]));
-    }
-  out(kTh, r_th);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const T dth = dq(i, kTh);
-    const T r_Z = al * (divKi[i] - dtrK[i] + dth - T(2) * KmixZ[i]) - al * th * A[i] -
-                  k1 * al * Z[i];
-    const T r_A = -dag * al * A[i] * Kmth - ag * (dtrK[i] - m * dth);
-    out(kZ + i, r_Z);
-    out(kA + i, r_A);
-  }
-  // r_D[k][i][j] = −α A_k K_ij − α ∂_k K_ij, symmetrised in (i, j).
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
+  if constexpr (std::is_same_v<Ext, NoShift>) {
+    out(kAl, r_al);
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
       for (int j = i; j < 3; ++j) {
-        const T rij = -al * A[k] * K[i][j] - al * dK(k, i, j);
-        const T rji = -al * A[k] * K[j][i] - al * dK(k, j, i);
-        out(kD + 6 * k + sym(i, j), T(0.5) * (rij + rji));
+        out(kG + sym(i, j), T(0.5) * (r_g[i][j] + r_g[j][i]));
+        out(kK + sym(i, j), T(0.5) * (r_K[i][j] + r_K[j][i]));
       }
+    out(kTh, r_th);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const T dth = dq(i, kTh);
+      const T r_Z = al * (divKi[i] - dtrK[i] + dth - T(2) * KmixZ[i]) - al * th * A[i] -
+                    k1 * al * Z[i];
+      const T r_A = -dag * al * A[i] * Kmth - ag * (dtrK[i] - m * dth);
+      out(kZ + i, r_Z);
+      out(kA + i, r_A);
+    }
+    // r_D[k][i][j] = −α A_k K_ij − α ∂_k K_ij, symmetrised in (i, j).
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = i; j < 3; ++j) {
+          const T rij = -al * A[k] * K[i][j] - al * dK(k, i, j);
+          const T rji = -al * A[k] * K[j][i] - al * dK(k, j, i);
+          out(kD + 6 * k + sym(i, j), T(0.5) * (rij + rji));
+        }
+  } else {
+    // The same parts through the extension's hooks.
+    ext->begin(q);
+    out(kAl, ext->al(r_al, al, A));
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = i; j < 3; ++j) {
+        out(kG + sym(i, j),
+            T(0.5) * (ext->g(i, j, r_g[i][j], g, D) + ext->g(j, i, r_g[j][i], g, D)));
+        out(kK + sym(i, j),
+            T(0.5) * (ext->K(i, j, r_K[i][j], K, dq) + ext->K(j, i, r_K[j][i], K, dq)));
+      }
+    out(kTh, ext->th(r_th, dq));
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const T dth = dq(i, kTh);
+      const T r_Z = al * (divKi[i] - dtrK[i] + dth - T(2) * KmixZ[i]) - al * th * A[i] -
+                    k1 * al * Z[i];
+      const T r_A = -dag * al * A[i] * Kmth - ag * (dtrK[i] - m * dth);
+      out(kZ + i, ext->Z(i, r_Z, Z, dq));
+      out(kA + i, ext->A(i, r_A, A, dq));
+    }
+    // r_D[k][i][j] = −α A_k K_ij − α ∂_k K_ij, symmetrised in (i, j).
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = i; j < 3; ++j) {
+          const T rij = -al * A[k] * K[i][j] - al * dK(k, i, j);
+          const T rji = -al * A[k] * K[j][i] - al * dK(k, j, i);
+          out(kD + 6 * k + sym(i, j),
+              T(0.5) * (ext->D(k, i, j, rij, g, D, dq) + ext->D(k, j, i, rji, g, D, dq)));
+        }
+    ext->finish(g, D, dq, out);
+  }
 }
 
 // The Rusanov bound along axis d (models/z4.py::z4_system's eig), the wider

@@ -9,9 +9,12 @@ Cauchy–Kovalewski predictor with its materials frozen
 (``bench.py::bench_ck``); and on the pure-NCP path with the fused
 right-hand side at order 2 in 3-D, periodic, for the 38-variable vacuum Z4
 system (``models/z4.py::make_z4_solver(..., impl="soa", fused_rhs="soa")``,
-``scripts/z4_probe.py``).  The step is three launches of kernels from
-``csrc/aderdg.cu``, ``csrc/aderdg_visc.cu`` and ``csrc/aderdg_z4.cu`` (see
-the notes there for the design):
+``scripts/z4_probe.py``) and the 53-variable shifted one
+(``make_z4_shift_solver(..., fused_rhs="soa")``, frozen shift or
+Gamma-driver, ``scripts/z4_probe.py --shift``).  The step is three launches
+of kernels from ``csrc/aderdg.cu``, ``csrc/aderdg_visc.cu``,
+``csrc/aderdg_z4.cu`` and ``csrc/aderdg_z4_shift.cu`` (see the notes there
+for the design):
 
 - ``aderdg_predictor_volume`` (Picard), ``aderdg_predictor_volume_visc``
   (Picard with the viscous flux from the polynomial's gradients) or
@@ -28,19 +31,20 @@ the notes there for the design):
   2(2N+1)/dx_d·max(κ⁻, κ⁺) to the dissipation speed.
 
 Z4 (``aderdg_predictor_volume_z4``, ``aderdg_face_flux_z4``,
-``aderdg_surface_update_z4``): the predictor evaluates the algebra of
-``csrc/z4.cuh`` in every Picard iteration, for the source average and twice
-for the strong-form NCP volume term; the face flux kernel also writes each
-interface's NCP half-fluctuation into a second tensor, ``fhalf``, which
-:meth:`CudaADERDG.face_flux` returns in place of ``fwall`` and
-:meth:`CudaADERDG.surface_update` takes.  A solver qualifies when its flux,
-wave speed, ``source_fn``, ``ncp_fn`` and ``rhs_all_fn`` all carry one
-``PhysicsTag("z4", ...)``; any other ``source_fn``/``ncp_fn``/``rhs_all_fn``
-raises :class:`LoweringError`, and so do a Z4 solver without the fused hook
-(the per-axis NCP branch), a Z4 solver with walls, and a solver whose
-``rhs_all_fn`` is already on K5 (``models.rhs_cuda.with_cuda_rhs``: these
-kernels compile the algebra in and would bypass it; build ``CudaADERDG`` on
-the plain solver).
+``aderdg_surface_update_z4``; shifted, the same names with ``_shift``): the
+predictor evaluates the algebra of ``csrc/z4.cuh`` (shifted:
+``csrc/z4_shift.cuh``) in every Picard iteration, for the source average
+and twice for the strong-form NCP volume term; the face flux kernel also
+writes each interface's NCP half-fluctuation into a second tensor,
+``fhalf``, which :meth:`CudaADERDG.face_flux` returns in place of ``fwall``
+and :meth:`CudaADERDG.surface_update` takes.  A solver qualifies when its
+flux, wave speed, ``source_fn``, ``ncp_fn`` and ``rhs_all_fn`` all carry one
+``PhysicsTag("z4", ...)`` (or ``"z4_shift"``); any other
+``source_fn``/``ncp_fn``/``rhs_all_fn`` raises :class:`LoweringError`, and so
+do a Z4 solver without the fused hook (the per-axis NCP branch), a Z4
+solver with walls, and a solver whose ``rhs_all_fn`` is already on K5
+(``models.rhs_cuda.with_cuda_rhs``: these kernels compile the algebra in and
+would bypass it; build ``CudaADERDG`` on the plain solver).
 
 With walls (``solver.boundary`` not periodic) the face stage is its wall
 variant, ``aderdg_face_flux_walls`` + ``aderdg_surface_update_walls``:
@@ -75,7 +79,7 @@ from exahype_tpu_torch.models import elastic
 from exahype_tpu_torch.models.aderdg import CALLBACK_OPTIONS, VISCOUS_OPTIONS, ADERDGSolver
 from exahype_tpu_torch.models.rhs_cuda import CudaRHS
 from exahype_tpu_torch.models.z4 import N_VARS as Z4_VARS
-from exahype_tpu_torch.models.z4 import SLICINGS
+from exahype_tpu_torch.models.z4 import N_VARS_SHIFT, SHIFTS, SLICINGS
 from exahype_tpu_torch.utils.errors import LoweringError
 
 #: (physics, dim, order) -> the predictor mode the kernels are instantiated
@@ -85,13 +89,16 @@ INSTANTIATED = {
     ("navier_stokes", 3, 3): "picard",
     ("elastic3d_het", 3, 3): "ck",
     ("z4", 3, 2): "picard",
+    ("z4_shift", 3, 2): "picard",
 }
+#: The Z4 systems, whose step is the fused-NCP kernels' (K1 d).
+_Z4 = ("z4", "z4_shift")
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def _n_vars(name: str, dim: int) -> int:
-    if name == "z4":
-        return Z4_VARS
+    if name in _Z4:
+        return Z4_VARS if name == "z4" else N_VARS_SHIFT
     return dim + 2 if name in ("euler", "navier_stokes") else elastic.N_VARS_3D_HET
 
 
@@ -111,6 +118,7 @@ _PHYSICS = {
     },
     "navier_stokes": {"id": 2, "ck_material_slots": None, "dissipation_mask": None},
     "z4": {"id": 3, "ck_material_slots": None, "dissipation_mask": None},
+    "z4_shift": {"id": 4, "ck_material_slots": None, "dissipation_mask": None},
 }
 
 
@@ -119,10 +127,14 @@ def _kernel_params(tag, solver) -> tuple:
     Navier–Stokes (γ, μ, max(4/3, γ/Pr), κ_T = μγ/((γ−1)Pr), then the face
     penalty factor 2(2N+1)/dx_d of each axis), each computed in float64 as
     the plain solver computes it; Z4's (slicing id, f, m, κ₁, κ₂) as K5
-    takes them; none for the elasticity."""
+    takes them, the shifted system's followed by (shift id, f_b, η); none for
+    the elasticity."""
     if tag.name == "z4":
         slicing, *rest = tag.params
         return (SLICINGS[slicing], *rest)
+    if tag.name == "z4_shift":
+        slicing, f, m, kappa1, kappa2, shift, f_b, eta = tag.params
+        return (SLICINGS[slicing], f, m, kappa1, kappa2, SHIFTS[shift], f_b, eta)
     if tag.name != "navier_stokes":
         return tag.params or (0.0,)
     gamma, mu, prandtl = tag.params
@@ -133,33 +145,35 @@ def _kernel_params(tag, solver) -> tuple:
 
 def _z4_refusal(solver) -> None:
     """Raise unless the solver's ``source_fn``/``ncp_fn``/``rhs_all_fn`` are
-    the fused vacuum Z4 system the kernels compile in (called when any is
-    set)."""
+    a fused vacuum Z4 system the kernels compile in, zero-shift or shifted
+    (called when any is set)."""
     if isinstance(solver.rhs_all_fn, CudaRHS):
         raise LoweringError(
             "the rhs_all_fn is on K5 (models.rhs_cuda.with_cuda_rhs): the CUDA step "
             "kernels compile the Z4 algebra in and would bypass it; build CudaADERDG on "
-            "the plain make_z4_solver(..., fused_rhs='soa') solver"
+            "the plain make_z4_solver or make_z4_shift_solver(..., fused_rhs='soa') solver"
         )
     names = ("flux_fn", "max_eigenvalue_fn", *CALLBACK_OPTIONS)
     tags = {getattr(getattr(solver, name), "physics", None)
             for name in names if getattr(solver, name) is not None}
     tag = tags.pop() if len(tags) == 1 else None
-    if tag is not None and tag.name == "z4":
+    if tag is not None and tag.name in _Z4:
         missing = [name for name in CALLBACK_OPTIONS if getattr(solver, name) is None]
         if missing:
             raise LoweringError(
-                f"a Z4 solver without {', '.join(missing)}: the CUDA kernels carry the "
-                "fused right-hand side only (make_z4_solver(..., fused_rhs='soa')); the "
-                "per-axis NCP branch is still to port, see ROADMAP.md, Queue 2 K1 d (the "
-                "plain solver runs it)"
+                f"a {tag.name} solver without {', '.join(missing)}: the CUDA kernels carry "
+                "the fused right-hand side only (make_z4_solver or make_z4_shift_solver(..., "
+                "fused_rhs='soa')); the per-axis NCP branch is still to port, see ROADMAP.md, "
+                "Queue 2 K1 d (the plain solver runs it)"
             )
         return
     options = ", ".join(name for name in CALLBACK_OPTIONS if getattr(solver, name) is not None)
     raise LoweringError(
         f"the CUDA step kernels carry source_fn, ncp_fn and rhs_all_fn for the fused "
-        f"vacuum Z4 system only (make_z4_solver(..., impl='soa', fused_rhs='soa'): its "
-        f"flux, wave speed and those three callbacks tagged z4 alike); this solver's "
+        f"vacuum Z4 system only, zero-shift or shifted (make_z4_solver or "
+        f"make_z4_shift_solver(..., impl='soa', fused_rhs='soa'): its flux, wave speed and "
+        f"those three callbacks tagged alike); "
+        f"this solver's "
         f"{options} is set otherwise; see ROADMAP.md, Queue 2 K1 d (the plain solver "
         "runs any)"
     )
@@ -174,12 +188,14 @@ class CudaADERDG:
     #: ``csrc/aderdg.cu`` (index 7 of physics 2: the instance of
     #: ``aderdg_predictor_volume_visc``, ``csrc/aderdg_visc.cu``, with the
     #: wall planes; 7-9 of physics 3: the Z4 kernels of
-    #: ``csrc/aderdg_z4.cu``).
+    #: ``csrc/aderdg_z4.cu``; 10-12 of physics 4: the shifted Z4 kernels of
+    #: ``csrc/aderdg_z4_shift.cu``).
     KERNELS = (
         "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
         "aderdg_surface_update", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
         "aderdg_predictor_volume_visc", "aderdg_predictor_volume_z4", "aderdg_face_flux_z4",
-        "aderdg_surface_update_z4",
+        "aderdg_surface_update_z4", "aderdg_predictor_volume_z4_shift",
+        "aderdg_face_flux_z4_shift", "aderdg_surface_update_z4_shift",
     )
 
     def __init__(self, solver: ADERDGSolver):
@@ -204,16 +220,17 @@ class CudaADERDG:
                 "visc_eigenvalue_fn (models.navier_stokes.navier_stokes gives all "
                 "four callbacks)"
             )
-        # (The Z4 system is 3-D; on a 2-D grid its tag keeps dim 3, and the
-        # instantiation check below names the missing (dim, order).)
+        # (The Z4 systems are 3-D; on a 2-D grid their tags keep dim 3, and
+        # the instantiation check below names the missing (dim, order).)
         if tag is None or tag.name not in _PHYSICS or (
-                tag.dim != solver.dim and tag.name != "z4"):
+                tag.dim != solver.dim and tag.name not in _Z4):
             raise LoweringError(
                 "the CUDA kernels compile in Euler, Navier–Stokes, "
                 "heterogeneous-elastic or vacuum Z4 physics: build the solver with "
                 "exahype_tpu_torch.models.aderdg.euler_physics, "
                 "models.navier_stokes.navier_stokes, "
-                "models.elastic.elastic3d_heterogeneous or models.z4.make_z4_solver"
+                "models.elastic.elastic3d_heterogeneous or models.z4.make_z4_solver / "
+                "make_z4_shift_solver"
             )
         n_vars = _n_vars(tag.name, solver.dim)
         if tag.n_real != solver.n_vars or solver.n_vars != n_vars:
@@ -269,7 +286,7 @@ class CudaADERDG:
             f"aderdg_face_flux{suffix}", f"aderdg_surface_update{suffix}",
         )
         if ncp:
-            self.kernels = tuple(name + "_z4" for name in self.kernels)
+            self.kernels = tuple(f"{name}_{tag.name}" for name in self.kernels)
         #: Launches per kernel since construction (or the last reset).
         self.launches = {name: 0 for name in self.kernels}
         ops = solver.ops
@@ -445,7 +462,7 @@ class CudaADERDG:
         material slot on) are not written: :meth:`surface_update` never
         reads them, and :meth:`face_surface` zeroes them when it returns
         the fluxes (``fwall`` is allocated zeroed for such a physics).
-        For Z4 (:attr:`ncp`) the second output is ``fhalf``, fhat's shape:
+        For Z4, shifted or not (:attr:`ncp`), the second output is ``fhalf``, fhat's shape:
         each interface's NCP half-fluctuation (the plain version is
         ``ADERDGSolver.ncp_half``)."""
         sol = self.solver

@@ -1,15 +1,17 @@
 """The fused Z4 right-hand side through a hand-written CUDA kernel (K5).
 
 Port of ``exahype_tpu/models/rhs_pallas.py`` (``PallasRHS``,
-``with_pallas_rhs``) for its 38-variable vacuum Z4 instance: the solver's
+``with_pallas_rhs``) for its vacuum Z4 instances: the solver's
 ``rhs_all_fn(Q, grads, var_axis)`` — the pointwise algebra
 S(Q) − Σ_d B_d(Q)·∂_d Q given Q and the three physical gradients, which the
 Picard predictor calls once per iteration and the corrector twice — runs as
-kernel ``rhs_all_z4`` of ``csrc/rhs.cu`` (algebra in ``csrc/z4.cuh``; see the
-note there for the design).
+kernel ``rhs_all_z4`` (38 variables, algebra ``csrc/z4.cuh``) or
+``rhs_all_z4_shift`` (the 53-variable shifted system, ``csrc/z4_shift.cuh``)
+of ``csrc/rhs.cu`` (see the note there for the design).
 
 :class:`CudaRHS` wraps a tagged Z4 ``rhs_all_fn`` (``make_z4_solver(...,
-impl="soa", fused_rhs="soa")``).  For tensors on the CPU it calls the wrapped
+impl="soa", fused_rhs="soa")`` or ``make_z4_shift_solver(...,
+fused_rhs="soa")``).  For tensors on the CPU it calls the wrapped
 plain version; for CUDA tensors it launches the kernel or raises
 :class:`LoweringError`.  On both devices it checks every gradient's shape,
 dtype and device against Q's (the Pallas wrapper reshapes them silently).
@@ -32,7 +34,7 @@ import math
 import torch
 
 from exahype_tpu_torch import _build
-from exahype_tpu_torch.models.z4 import N_VARS, SLICINGS
+from exahype_tpu_torch.models.z4 import N_VARS, N_VARS_SHIFT, SHIFTS, SLICINGS
 from exahype_tpu_torch.utils.errors import LoweringError
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -44,30 +46,39 @@ class CudaRHS:
     Built for one solver's ``dim`` and ``n_vars``; the wrapped function
     must carry the ``PhysicsTag("z4", 3, 38, (slicing, f, m, kappa1,
     kappa2))`` that :func:`~exahype_tpu_torch.models.z4.make_z4_solver`
-    gives it, whose parameters become the kernel's arguments.  ``launches``
-    counts the kernel's launches."""
+    gives it, or the ``PhysicsTag("z4_shift", 3, 53, (..., shift, f_b,
+    eta))`` of :func:`~exahype_tpu_torch.models.z4.make_z4_shift_solver`;
+    its parameters become the kernel's arguments.  :attr:`kernel` names the
+    instance, ``launches`` counts its launches."""
 
-    KERNEL = "rhs_all_z4"
+    #: The instance of each system: (kernel, variables).
+    INSTANCES = {"z4": ("rhs_all_z4", N_VARS), "z4_shift": ("rhs_all_z4_shift", N_VARS_SHIFT)}
 
     def __init__(self, rhs_all_fn, dim: int, n_vars: int):
         tag = getattr(rhs_all_fn, "physics", None)
-        if tag is None or tag.name != "z4" or tag.n_real != N_VARS:
+        if tag is None or tag.name not in self.INSTANCES or (
+                tag.n_real != self.INSTANCES[tag.name][1]):
             raise LoweringError(
-                "K5 is compiled for the 38-variable vacuum Z4 right-hand side: "
-                "build the solver with exahype_tpu_torch.models.z4.make_z4_solver"
+                "K5 is compiled for the 38-variable vacuum Z4 right-hand side and the "
+                "53-variable shifted one: build the solver with "
+                "exahype_tpu_torch.models.z4.make_z4_solver or make_z4_shift_solver"
                 f"(..., impl='soa', fused_rhs='soa'); got an rhs_all_fn tagged {tag!r}"
             )
-        if dim != 3 or n_vars != N_VARS:
+        self.kernel, vars_ = self.INSTANCES[tag.name]
+        if dim != 3 or n_vars != vars_:
             raise LoweringError(
-                f"K5 takes 3 gradient arrays of the {N_VARS} Z4 variables, got "
+                f"K5 takes 3 gradient arrays of the {vars_} {tag.name} variables, got "
                 f"dim={dim}, n_vars={n_vars}"
             )
-        slicing, f, m, kappa1, kappa2 = tag.params
+        slicing, f, m, kappa1, kappa2, *shift = tag.params
         self.inner = rhs_all_fn
         self.dim = dim
         self.n_vars = n_vars
         self._args = (SLICINGS[slicing], f, m, kappa1, kappa2)
-        #: Launches of ``rhs_all_z4`` since construction (or the last reset).
+        if shift:
+            mode, f_b, eta = shift
+            self._args += (SHIFTS[mode], f_b, eta)
+        #: Launches of :attr:`kernel` since construction (or the last reset).
         self.launches = 0
 
     def reset_launches(self):
@@ -102,12 +113,12 @@ class CudaRHS:
         lib = _build.library()
         with torch.cuda.device(Q.device):
             stream = torch.cuda.current_stream(Q.device).cuda_stream
-            err = getattr(lib, f"exahype_rhs_all_z4_{_SUFFIX[Q.dtype]}")(
+            err = getattr(lib, f"exahype_{self.kernel}_{_SUFFIX[Q.dtype]}")(
                 Q.data_ptr(), *(g.data_ptr() for g in grads), out.data_ptr(),
                 math.prod(Q.shape[:va]), self.n_vars, math.prod(Q.shape[va + 1:]),
                 *self._args, stream,
             )
-        _build.check(lib, err, self.KERNEL)
+        _build.check(lib, err, self.kernel)
         self.launches += 1
         return out
 
@@ -115,11 +126,12 @@ class CudaRHS:
 def with_cuda_rhs(solver):
     """A copy of ``solver`` whose ``rhs_all_fn`` runs through K5
     (:class:`CudaRHS`); it shares the solver's operator buffers.  The solver
-    must carry a fused Z4 hook (``make_z4_solver(..., fused_rhs="soa")``)."""
+    must carry a fused Z4 hook (``make_z4_solver(..., fused_rhs="soa")`` or
+    ``make_z4_shift_solver(..., fused_rhs="soa")``)."""
     if solver.rhs_all_fn is None:
         raise LoweringError(
             "with_cuda_rhs requires a solver with rhs_all_fn set "
-            "(make_z4_solver(..., impl='soa', fused_rhs='soa'))"
+            "(make_z4_solver or make_z4_shift_solver(..., impl='soa', fused_rhs='soa'))"
         )
     out = copy.copy(solver)
     out.rhs_all_fn = CudaRHS(solver.rhs_all_fn, solver.dim, solver.n_vars)

@@ -1,13 +1,15 @@
-"""First-order Z4, vacuum, zero shift: dynamic-spacetime GR (PyTorch).
+"""First-order Z4, vacuum: dynamic-spacetime GR (PyTorch).
 
-Port of the 38-variable system of ``exahype_tpu/models/z4.py`` on its
-production path (``impl="soa"``, ``fused_rhs="soa"``): the slot constants,
+Port of the 38-variable zero-shift system and the 53-variable shifted
+system of ``exahype_tpu/models/z4.py`` on their production path
+(``impl="soa"``, ``fused_rhs="soa"``): the slot constants,
 ``sym_to_mat``/``mat_to_sym``/``inv3``, the component-unrolled right-hand
-side ``z4_rhs_soa`` (``_oein``, ``_omap``, ``_osym``, ``_oinv3``, the SoA
-unpack/pack and ``_z4_core_soa``), the solver pair ``z4_system``, the fused
-hook ``_rhs_all_of``, ``make_z4_solver``, the flat and gauge-wave states, and
-the ADM constraint monitor.  The JAX module loads JAX, so the port keeps its
-own copy.
+sides ``z4_rhs_soa`` and ``z4_shift_rhs_soa`` (``_oein``, ``_omap``,
+``_osym``, ``_oinv3``, the SoA unpack/pack and ``_z4_core_soa``), the solver
+quadruples ``z4_system`` and ``z4_shift_system``, the fused hook
+``_rhs_all_of``, ``make_z4_solver`` and ``make_z4_shift_solver``, the flat,
+gauge-wave and moving gauge-wave states, and the ADM constraint monitor.
+The JAX module loads JAX, so the port keeps its own copy.
 
 The variables are α (1), γ_ij (6), K_ij (6), Θ (1), Z_i (3), A_k = ∂_k ln α
 (3) and D_kij = ½ ∂_k γ_ij (18); the right-hand side ``rhs(Q, ∂Q)`` is
@@ -26,13 +28,23 @@ is also the one ``csrc/z4.cuh`` follows, so the kernel (K5,
 ``models/rhs_cuda.py``) differs from this plain version by fused
 multiply-adds only.
 
+The shifted system adds the gauge sector β^i (slots 38-40), the
+Gamma-driver's b^i (41-43) and B_k^i = ∂_k β^i (44 + 3k + i), the
+Lie-derivative terms of every core variable, and either a frozen shift
+(``shift="frozen"``: the sector does not evolve) or the Gamma-driver
+(``shift="gamma_driver"``: ∂_t β = f_b b, ∂_t b = ∂_t Γ^i − η b, ∂_t B = f_b
+∂b, with ∂_t Γ^i by the explicit chain rule of the JAX ``z4_shift_rhs_soa``).
+
 Each callback carries ``.physics = PhysicsTag("z4", 3, 38, (slicing, f, m,
-kappa1, kappa2))``, which the kernel wrapper reads.  The einsum
-formulation (``impl="einsum"``, the JAX default), its fused hook
-(``fused_rhs=True``), the shifted 53-variable system and the coupled matter
-systems are not ported and raise :class:`SemanticError` (``ROADMAP.md``,
-Queue 1 item 7).  The constraint monitor uses ``torch.einsum``, as the JAX
-one uses ``jnp.einsum``.
+kappa1, kappa2))`` or ``PhysicsTag("z4_shift", 3, 53, (slicing, f, m,
+kappa1, kappa2, shift, f_b, eta))``, which the kernel wrappers read.  The
+einsum formulation (``impl="einsum"``, the JAX default: ``z4_rhs``, and
+for the shifted system ``z4_shift_rhs`` with its ``jax.jvp`` Gamma-driver
+term ``_gamma_contracted``) and its fused hook (``fused_rhs=True``) are
+not ported and raise :class:`SemanticError` (``ROADMAP.md``, Queue 1 item
+7.4); the coupled matter systems are Queue 1 items 7.2 and 7.3.  The
+constraint monitor uses ``torch.einsum``, as the JAX one uses
+``jnp.einsum``.
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ from exahype_tpu_torch.utils.errors import SemanticError
 SYM6 = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 
 N_VARS = 38
+N_VARS_SHIFT = 53
 
 # Variable slots.
 _AL = 0
@@ -58,9 +71,16 @@ _TH = 13
 _Z = slice(14, 17)
 _A = slice(17, 20)
 _D = slice(20, 38)
+# The shifted system's gauge sector: β^i, the Gamma-driver's b^i, and
+# B_k^i = ∂_k β^i at 44 + 3k + i.
+_BETA = slice(38, 41)
+_BSM = slice(41, 44)
+_BB = slice(44, 53)
 
 #: The slicing conditions, by name, and the id the CUDA kernel takes.
 SLICINGS = {"harmonic": 0, "1+log": 1}
+#: The shift conditions of the shifted system, and the id the CUDA kernels take.
+SHIFTS = {"frozen": 0, "gamma_driver": 1}
 
 
 def sym_to_mat(s):
@@ -235,9 +255,9 @@ def _z4_unpack_soa(q, dq3):
     return al, g, K, th, Z, A, D, dK, dth, dZ, dA, dD
 
 
-def _z4_pack_soa(r_al, r_g, r_K, r_th, r_Z, r_A, r_D):
+def _z4_pack_soa(r_al, r_g, r_K, r_th, r_Z, r_A, r_D, extra=()):
     """Symmetrize the (i, j) pairs and stack into the packed var axis
-    (last)."""
+    (last), the shifted system's ``extra`` slots after the 38."""
     parts = [r_al]
     r_g = _osym(r_g)
     r_K = _osym(r_K)
@@ -252,6 +272,7 @@ def _z4_pack_soa(r_al, r_g, r_K, r_th, r_Z, r_A, r_D):
         rDs = _osym(r_D[k])
         for (i, j) in SYM6:
             parts.append(rDs[i, j])
+    parts.extend(extra)
     return torch.stack(parts, dim=-1)
 
 
@@ -368,6 +389,97 @@ def _z4_core_soa(al, g, K, th, Z, A, D, dK, dth, dZ, dA, dD, *,
     return r_al, r_g, r_K, r_th, r_Z, r_A, r_D
 
 
+def z4_shift_rhs_soa(
+    q,
+    dq3,
+    *,
+    slicing: str = "harmonic",
+    f: float = 1.0,
+    m: float = 2.0,
+    kappa1: float = 0.0,
+    kappa2: float = 0.0,
+    shift: str = "frozen",
+    f_b: float = 0.75,
+    eta: float = 1.0,
+):
+    """The shifted vacuum Z4 right-hand side ∂_t Q (53 variables),
+    component-unrolled: the zero-shift parts, the Lie-derivative terms in
+    ``_oein`` order, and the gauge sector of ``shift`` (``"frozen"`` or
+    ``"gamma_driver"``).  ``q`` var-last ``[..., 53]``, ``dq3`` ``[..., 3,
+    53]``; affine in ``dq3``.  The Gamma-driver's ∂_t Γ^i is the explicit
+    chain rule along the full (post-Lie) ∂_t γ and ∂_t D: ∂_t γ^ab =
+    −γ^am γ^bn ∂_t γ_mn and ∂_t Γlow by Γlow's own permutation of ∂_t D."""
+    if shift not in SHIFTS:
+        raise ValueError(f"unknown shift mode {shift!r}")
+    E = _oein
+    al, g, K, th, Z, A, D, dK, dth, dZ, dA, dD = _z4_unpack_soa(q, dq3)
+    beta = _vec_obj(q, _BETA)
+    b = _vec_obj(q, _BSM)
+    B = np.empty((3, 3), dtype=object)
+    db = np.empty((3, 3), dtype=object)
+    dB = np.empty((3, 3, 3), dtype=object)
+    for k in range(3):
+        for i in range(3):
+            B[k, i] = q[..., _BB.start + 3 * k + i]
+            db[k, i] = dq3[..., k, _BSM.start + i]
+            for l in range(3):
+                dB[k, l, i] = dq3[..., k, _BB.start + 3 * l + i]
+
+    r_al, r_g, r_K, r_th, r_Z, r_A, r_D = _z4_core_soa(
+        al, g, K, th, Z, A, D, dK, dth, dZ, dA, dD,
+        slicing=slicing, f=f, m=m, kappa1=kappa1, kappa2=kappa2,
+    )
+
+    # The Lie-derivative terms.
+    r_al = r_al + al * E("k,k->", beta, A)
+    r_g = (
+        r_g
+        + _omap(lambda x: 2.0 * x, E("k,kij->ij", beta, D))
+        + E("ik,kj->ij", B, g)
+        + E("jk,ki->ij", B, g)
+    )
+    r_K = (
+        r_K
+        + E("k,kij->ij", beta, dK)
+        + E("ik,kj->ij", B, K)
+        + E("jk,ki->ij", B, K)
+    )
+    r_th = r_th + E("k,k->", beta, dth)
+    r_Z = r_Z + E("k,ki->i", beta, dZ) + E("ik,k->i", B, Z)
+    r_A = r_A + E("km,m->k", B, A) + E("m,km->k", beta, dA)
+    r_D = (
+        r_D
+        + E("km,mij->kij", B, D)
+        + E("m,kmij->kij", beta, dD)
+        + E("im,kmj->kij", B, D)
+        + E("jm,kmi->kij", B, D)
+        + _omap(lambda x: 0.5 * x, E("kim,mj->kij", dB, g))
+        + _omap(lambda x: 0.5 * x, E("kjm,mi->kij", dB, g))
+    )
+
+    if shift == "frozen":
+        extra = [torch.zeros_like(al)] * 15
+    else:
+        gi, _ = _oinv3(g)
+        Glow = np.transpose(D, (2, 0, 1)) + np.transpose(D, (2, 1, 0)) - D
+        dgi_t = _omap(lambda x: -x, E("am,bn,mn->ab", gi, gi, _osym(r_g)))
+        dGlow_t = (
+            np.transpose(r_D, (2, 0, 1))
+            + np.transpose(r_D, (2, 1, 0))
+            - r_D
+        )
+        dt_gamma = (
+            E("il,jk,ljk->i", dgi_t, gi, Glow)
+            + E("il,jk,ljk->i", gi, dgi_t, Glow)
+            + E("il,jk,ljk->i", gi, gi, dGlow_t)
+        )
+        extra = [f_b * b[i] for i in range(3)]
+        extra += [dt_gamma[i] - eta * b[i] for i in range(3)]
+        for k in range(3):
+            extra += [f_b * db[k, i] for i in range(3)]
+    return _z4_pack_soa(r_al, r_g, r_K, r_th, r_Z, r_A, r_D, extra)
+
+
 # ------------------------------------------------------------- the system
 
 
@@ -382,9 +494,55 @@ def _require_soa(impl: str):
     if impl != "soa":
         raise SemanticError(
             f"impl={impl!r} is not ported to exahype_tpu_torch yet: pass "
-            "impl='soa' (the einsum formulation is the JAX package's "
-            "oracle); see ROADMAP.md, Queue 1 item 7"
+            "impl='soa' (the einsum formulation, with the shifted system's "
+            "jax.jvp Gamma-driver term, is the JAX package's oracle); see "
+            "ROADMAP.md, Queue 1 item 7.4"
         )
+
+
+def _require_fused(fused_rhs):
+    if fused_rhs not in (False, "soa"):
+        raise SemanticError(
+            f"fused_rhs={fused_rhs!r} is not ported to exahype_tpu_torch yet "
+            "(the einsum hook): pass fused_rhs='soa' or False; see ROADMAP.md, "
+            "Queue 1 item 7.4"
+        )
+
+
+def _callbacks(rhs, n_vars: int, g_of, tag: PhysicsTag, shifted: bool):
+    """The solver's four callbacks over an affine ``rhs(q, dq3)`` of
+    ``n_vars`` variables, each tagged ``tag``; the wave speed adds |β^d|
+    when ``shifted``."""
+
+    def flux(Q, axis, va):
+        return torch.zeros_like(Q)
+
+    def eig(Q, axis, va):
+        q = torch.movedim(Q, va, -1)
+        al = q[..., _AL]
+        gi, _ = inv3(sym_to_mat(q[..., _G]))
+        gdd = gi[..., axis, axis]
+        cone = al * torch.sqrt(torch.clamp(g_of(al), min=1.0) * gdd)
+        return torch.abs(q[..., _BETA.start + axis]) + cone if shifted else cone
+
+    def source(Q, va):
+        q = torch.movedim(Q, va, -1)
+        dq3 = torch.zeros(q.shape[:-1] + (3, n_vars), dtype=q.dtype, device=q.device)
+        return torch.movedim(rhs(q, dq3), -1, va)
+
+    def ncp(Q, dQ, axis, va):
+        # rhs is affine in the derivatives: B_d·∂_dQ = rhs(Q,0) − rhs(Q,∂_d)
+        q = torch.movedim(Q, va, -1)
+        dq = torch.movedim(dQ, va, -1)
+        zeros = torch.zeros(q.shape[:-1] + (3, n_vars), dtype=q.dtype, device=q.device)
+        zrow = torch.zeros_like(dq)
+        dq3 = torch.stack([dq if d == axis else zrow for d in range(3)], dim=-2)
+        out = rhs(q, zeros) - rhs(q, dq3)
+        return torch.movedim(out, -1, va)
+
+    for fn in (flux, eig, ncp, source):
+        fn.physics = tag
+    return flux, eig, ncp, source
 
 
 def z4_system(
@@ -405,39 +563,44 @@ def z4_system(
     _require_soa(impl)
     kw = dict(slicing=slicing, f=f, m=m, kappa1=kappa1, kappa2=kappa2)
     g_of, _ = _slicing(slicing, f)
+    return _callbacks(lambda q, dq3: z4_rhs_soa(q, dq3, **kw), N_VARS, g_of, _tag(**kw),
+                      shifted=False)
 
-    def flux(Q, axis, va):
-        return torch.zeros_like(Q)
 
-    def eig(Q, axis, va):
-        q = torch.movedim(Q, va, -1)
-        al = q[..., _AL]
-        gi, _ = inv3(sym_to_mat(q[..., _G]))
-        gdd = gi[..., axis, axis]
-        return al * torch.sqrt(torch.clamp(g_of(al), min=1.0) * gdd)
+def _shift_tag(slicing, f, m, kappa1, kappa2, shift, f_b, eta) -> PhysicsTag:
+    return PhysicsTag(
+        "z4_shift", 3, N_VARS_SHIFT,
+        (slicing, float(f), float(m), float(kappa1), float(kappa2), shift, float(f_b),
+         float(eta)),
+    )
 
-    def _rhs(q, dq3):
-        return z4_rhs_soa(q, dq3, **kw)
 
-    def source(Q, va):
-        q = torch.movedim(Q, va, -1)
-        dq3 = torch.zeros(q.shape[:-1] + (3, N_VARS), dtype=q.dtype, device=q.device)
-        return torch.movedim(_rhs(q, dq3), -1, va)
-
-    def ncp(Q, dQ, axis, va):
-        # rhs is affine in the derivatives: B_d·∂_dQ = rhs(Q,0) − rhs(Q,∂_d)
-        q = torch.movedim(Q, va, -1)
-        dq = torch.movedim(dQ, va, -1)
-        zeros = torch.zeros(q.shape[:-1] + (3, N_VARS), dtype=q.dtype, device=q.device)
-        zrow = torch.zeros_like(dq)
-        dq3 = torch.stack([dq if d == axis else zrow for d in range(3)], dim=-2)
-        out = _rhs(q, zeros) - _rhs(q, dq3)
-        return torch.movedim(out, -1, va)
-
-    tag = _tag(**kw)
-    for fn in (flux, eig, ncp, source):
-        fn.physics = tag
-    return flux, eig, ncp, source
+def z4_shift_system(
+    slicing: str = "harmonic",
+    f: float = 1.0,
+    m: float = 2.0,
+    kappa1: float = 0.0,
+    kappa2: float = 0.0,
+    shift: str = "frozen",
+    f_b: float = 0.75,
+    eta: float = 1.0,
+    impl: str = "soa",
+):
+    """(flux_fn, max_eigenvalue_fn, ncp_fn, source_fn) of the 53-variable
+    shifted system (:func:`z4_shift_rhs_soa`).  The Rusanov bound along
+    axis d adds the coordinate speed |β^d| to the wider of the light and
+    gauge cones: |β^d| + α√(max(g(α), 1)·γ^dd).  ``impl="soa"`` only (the
+    JAX default, ``"einsum"``, raises).  Each callback is tagged
+    ``.physics = PhysicsTag("z4_shift", 3, 53, (slicing, f, m, kappa1,
+    kappa2, shift, f_b, eta))``."""
+    _require_soa(impl)
+    if shift not in SHIFTS:
+        raise ValueError(f"unknown shift mode {shift!r}")
+    kw = dict(slicing=slicing, f=f, m=m, kappa1=kappa1, kappa2=kappa2, shift=shift, f_b=f_b,
+              eta=eta)
+    g_of, _ = _slicing(slicing, f)
+    return _callbacks(lambda q, dq3: z4_shift_rhs_soa(q, dq3, **kw), N_VARS_SHIFT, g_of,
+                      _shift_tag(**kw), shifted=True)
 
 
 def _rhs_all_of(rhs_fn):
@@ -478,12 +641,7 @@ def make_z4_solver(
     ``rhs_all_fn`` hook, which :func:`~exahype_tpu_torch.models.rhs_cuda.
     with_cuda_rhs` puts on the K5 kernel); the einsum hook ``True``
     raises."""
-    if fused_rhs not in (False, "soa"):
-        raise SemanticError(
-            f"fused_rhs={fused_rhs!r} is not ported to exahype_tpu_torch yet "
-            "(the einsum hook): pass fused_rhs='soa' or False; see ROADMAP.md, "
-            "Queue 1 item 7"
-        )
+    _require_fused(fused_rhs)
     kw = dict(slicing=slicing, f=f, m=m, kappa1=kappa1, kappa2=kappa2)
     flux, eig, ncp, source = z4_system(impl=impl, **kw)
     rhs_all = None
@@ -494,6 +652,53 @@ def make_z4_solver(
         dim=dim,
         order=order,
         n_vars=N_VARS,
+        grid_shape=grid_shape,
+        flux_fn=flux,
+        max_eigenvalue_fn=eig,
+        ncp_fn=ncp,
+        source_fn=source,
+        rhs_all_fn=rhs_all,
+        dx=dx,
+        **kwargs,
+    )
+
+
+
+def make_z4_shift_solver(
+    dim: int,
+    order: int,
+    grid_shape: tuple,
+    dx=1.0,
+    slicing: str = "harmonic",
+    f: float = 1.0,
+    m: float = 2.0,
+    kappa1: float = 0.0,
+    kappa2: float = 0.0,
+    shift: str = "frozen",
+    f_b: float = 0.75,
+    eta: float = 1.0,
+    fused_rhs=False,
+    impl: str = "soa",
+    **kwargs,
+) -> ADERDGSolver:
+    """A shifted vacuum Z4 ADER-DG solver (53 variables) on a periodic box
+    (the JAX ``make_z4_shift_solver``; ``kwargs`` go to
+    :class:`ADERDGSolver`).  ``impl`` and ``fused_rhs`` as in
+    :func:`make_z4_solver`: ``fused_rhs="soa"`` gives the one-evaluation
+    ``rhs_all_fn`` hook (:func:`~exahype_tpu_torch.models.rhs_cuda.
+    with_cuda_rhs` puts it on K5, ``CudaADERDG`` compiles it in)."""
+    _require_fused(fused_rhs)
+    kw = dict(slicing=slicing, f=f, m=m, kappa1=kappa1, kappa2=kappa2, shift=shift, f_b=f_b,
+              eta=eta)
+    flux, eig, ncp, source = z4_shift_system(impl=impl, **kw)
+    rhs_all = None
+    if fused_rhs == "soa":
+        rhs_all = _rhs_all_of(lambda q, dq3: z4_shift_rhs_soa(q, dq3, **kw))
+        rhs_all.physics = flux.physics
+    return ADERDGSolver(
+        dim=dim,
+        order=order,
+        n_vars=N_VARS_SHIFT,
         grid_shape=grid_shape,
         flux_fn=flux,
         max_eigenvalue_fn=eig,
@@ -517,18 +722,21 @@ def _on_solver(solver, vals):
     )
 
 
-def flat_state_values() -> np.ndarray:
-    """Minkowski in Cartesian coordinates (the robust-stability base)."""
-    v = np.zeros(N_VARS)
+def flat_state_values(n_vars: int = N_VARS) -> np.ndarray:
+    """Minkowski in Cartesian coordinates (the robust-stability base); with
+    ``n_vars=53`` the shifted system's, its gauge sector zero."""
+    v = np.zeros(n_vars)
     v[_AL] = 1.0
     v[1] = v[4] = v[6] = 1.0  # γ = identity (xx, yy, zz slots)
     return v
 
 
 def z4_flat_state(solver) -> torch.Tensor:
-    """Flat-space nodal state on ``solver`` (its dtype and device)."""
+    """Flat-space nodal state on ``solver`` (its dtype and device; 38 or 53
+    variables, as the solver has)."""
     shape = solver.state_shape[: solver.var_axis] + solver.state_shape[solver.var_axis + 1:]
-    return _on_solver(solver, np.broadcast_to(flat_state_values(), shape + (N_VARS,)))
+    n = solver.n_vars
+    return _on_solver(solver, np.broadcast_to(flat_state_values(n), shape + (n,)))
 
 
 def gauge_wave_values(x, t, amplitude=0.01, wavelength=1.0):
@@ -568,11 +776,54 @@ def gauge_wave_state(solver, t=0.0, amplitude=0.01, wavelength=None) -> torch.Te
     return _on_solver(solver, gauge_wave_values(x, t, amplitude, wavelength))
 
 
+
+def moving_gauge_wave_values(x, t, v=0.2, amplitude=0.01, wavelength=1.0):
+    """The gauge wave in uniformly moving coordinates x' = x − v t, var-last
+    53-variable values at positions x (float64 NumPy): an exact vacuum
+    solution with constant shift β^x = v, so every Lie term is exercised.
+    γ_x'x' = H, α = √H, K_x'x' = ∂_x'H/(2√H), with H a function of ξ = x' −
+    (1 − v) t; b = B = 0 since β is constant."""
+    x = np.asarray(x, dtype=np.float64)
+    k = 2.0 * np.pi / wavelength
+    s = np.sin(k * (x - (1.0 - v) * t))
+    c = np.cos(k * (x - (1.0 - v) * t))
+    H = 1.0 - amplitude * s
+    dH = -amplitude * k * c  # ∂_x H
+    al = np.sqrt(H)
+    out = np.zeros(x.shape + (N_VARS_SHIFT,))
+    out[..., 0] = al
+    out[..., 1] = H
+    out[..., 4] = 1.0
+    out[..., 6] = 1.0
+    out[..., 7] = dH / (2.0 * al)
+    out[..., 17] = dH / (2.0 * H)
+    out[..., 20] = 0.5 * dH
+    out[..., 38] = v
+    return out
+
+
+def moving_gauge_wave_state(solver, t=0.0, v=0.2, amplitude=0.01,
+                            wavelength=None) -> torch.Tensor:
+    """Exact moving-coordinates gauge-wave nodal state on a shifted solver
+    (wave along grid axis 0; default wavelength = the axis-0 domain length),
+    in the solver's dtype on its device."""
+    coords = solver.nodes_meshgrid()
+    if wavelength is None:
+        wavelength = solver.grid_shape[0] * solver._dxs[0]
+    x = np.broadcast_to(
+        np.squeeze(np.asarray(coords[0]), axis=solver.var_axis),
+        solver.state_shape[: solver.var_axis]
+        + solver.state_shape[solver.var_axis + 1:],
+    )
+    return _on_solver(solver, moving_gauge_wave_values(x, t, v, amplitude, wavelength))
+
+
 # ------------------------------------------------------- constraint monitor
 
 
 def adm_constraints(q, dq3):
-    """Vacuum ADM constraints from the first-order state (var-last):
+    """Vacuum ADM constraints from the first-order state (var-last; 38 or
+    53 variables, slots 0-37 read):
     ``(H, M)``, the Hamiltonian constraint ``H = R + K² − K_ij K^ij`` and
     the momentum constraint ``M_i = ∇_j K^j_i − ∂_i K``.  ``dq3`` as in
     :func:`z4_rhs_soa`."""

@@ -1,23 +1,38 @@
 #!/usr/bin/env python3
-"""Whether two checkouts' Euler ADER-DG kernels give the same bits (GPU).
+"""Whether two checkouts' ADER-DG kernels give the same bits and the same
+machine code (GPU).
 
     python3 scripts/torch_same_bits.py OTHER_CHECKOUT [--out DIR]
 
-Runs ``exahype_tpu_torch``'s ``CudaADERDG`` Euler kernels of this checkout
-and of ``OTHER_CHECKOUT`` (each in a process of its own, importing the port
-from its own root and building its own ``csrc/``) on the same inputs —
-``bench.py``'s state recipe at ``(8, 4, 32)`` in float64 and float32 and at
-``(256, 8, 128)`` in float32, dt under the CFL limit — and compares
-``aderdg_predictor_volume``'s ``new`` and ``faces``, the face stage's
-``new`` with its face fluxes, and three chained steps, bit for bit.  Prints
-one line per output and exits non-zero if any differs.  Needs a CUDA card;
-imports no JAX.
+Runs ``exahype_tpu_torch``'s ``CudaADERDG`` kernels of this checkout and of
+``OTHER_CHECKOUT`` (each in a process of its own, importing the port from
+its own root and building its own ``csrc/``) on the same inputs and
+compares their outputs bit for bit:
+
+- the Euler kernels: ``bench.py``'s state recipe at ``(8, 4, 32)`` in
+  float64 and float32 and at ``(256, 8, 128)`` in float32, dt under the CFL
+  limit: ``aderdg_predictor_volume``'s ``new`` and ``faces``, the face
+  stage's ``new`` with its face fluxes, and three chained steps;
+- the 38-variable Z4 kernels (``aderdg_*_z4`` and K5's ``rhs_all_z4``):
+  the gauge wave of amplitude 0.1 with seeded noise of 1e-3 on every slot
+  at ``(8, 4, 16)`` in float64 and float32 and at ``(16, 16, 128)`` in
+  float32, dx = 1/128, dt = 1e-4: the predictor's ``new`` and ``faces``,
+  the face flux's F̂ and NCP halves, three chained steps, and K5 on the
+  first Picard call of a step.
+
+Then it disassembles both libraries (``cuobjdump -sass``) and compares the
+instructions of every kernel the two have in common (the 38-variable Z4
+kernels matched by name and value type, whatever template arguments were
+added since), ignoring addresses and encodings.  Prints one line per
+output and per kernel and exits non-zero if any differs.  Needs a CUDA
+card and nvcc; imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -25,6 +40,17 @@ import tempfile
 HERE = pathlib.Path(__file__).resolve().parent.parent
 CASES = (((8, 4, 32), "float64"), ((8, 4, 32), "float32"), ((256, 8, 128), "float32"))
 DT = 5e-5  # under the CFL limit (6.26e-5) of this state at dx = 1/256
+Z4_CASES = (((8, 4, 16), "float64"), ((8, 4, 16), "float32"), ((16, 16, 128), "float32"))
+#: The kernels whose machine code is compared: the Euler ones, K5's and the
+#: 38-variable Z4 step's (``<length><name>If`` or ``...Id`` in the mangled
+#: name, after the anonymous namespace's prefix).
+SASS_KERNELS = (
+    "aderdg_predictor_volume", "aderdg_face_flux", "aderdg_surface_update",
+    "aderdg_predictor_volume_z4", "aderdg_face_flux_z4", "aderdg_surface_update_z4",
+    "rhs_all_z4",
+)
+_KERNEL_NAME = re.compile(r"(\d+)(" + "|".join(sorted(SASS_KERNELS, key=len, reverse=True))
+                          + r")I([fd])")
 
 _CHILD = r"""
 import sys
@@ -32,11 +58,14 @@ root, out = sys.argv[1], sys.argv[2]
 sys.path.insert(0, root)
 import numpy as np
 import torch
+from exahype_tpu_torch import _build
 from exahype_tpu_torch.models.aderdg import ADERDGSolver, euler_physics
 from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+from exahype_tpu_torch.models.z4 import gauge_wave_state, make_z4_solver
 import exahype_tpu_torch
 assert exahype_tpu_torch.__file__.startswith(root), exahype_tpu_torch.__file__
-results = {}
+results = {"library": str(_build.library_path())}
 for grid, dtype in CASES:
     dtype = getattr(torch, dtype)
     flux, eig = euler_physics(3)
@@ -54,6 +83,32 @@ for grid, dtype in CASES:
     results[key + " face_surface new"] = surf.cpu()
     results[key + " face fluxes"] = torch.stack(fl).cpu()
     results[key + " 3 steps"] = cu.run(u, 3, DT).cpu()
+for grid, dtype in Z4_CASES:
+    dtype = getattr(torch, dtype)
+    sol = make_z4_solver(3, 2, grid, dx=1.0 / 128, impl="soa", fused_rhs="soa", device="cuda",
+                         dtype=dtype)
+    cu = CudaADERDG(sol)
+    u = gauge_wave_state(sol, amplitude=0.1)
+    noise = torch.from_numpy(np.random.default_rng(5).standard_normal(u.shape)).to(u)
+    u = (u + 1e-3 * noise).contiguous()
+    new, faces = cu.predictor_volume(u, 1e-4)[:2]
+    fhat, fhalf = cu.face_flux(faces)
+    key = f"Z4 {grid} {dtype}"
+    results[key + " predictor new"] = new.cpu()
+    results[key + " predictor faces"] = faces.cpu()
+    results[key + " face flux fhat"] = fhat.cpu()
+    results[key + " face flux fhalf"] = fhalf.cpu()
+    results[key + " 3 steps"] = cu.run(u, 3, 1e-4).cpu()
+    calls = []
+    rec = with_cuda_rhs(sol)
+    k5 = rec.rhs_all_fn
+    def first(Q, grads, va):
+        if not calls:
+            calls.append(k5(Q, grads, va))
+        return sol.rhs_all_fn(Q, grads, va)
+    rec.rhs_all_fn = first
+    rec.predictor_volume(u, 1e-4)
+    results[key + " rhs_all_z4 Picard call 1"] = calls[0].cpu()
 torch.save(results, out)
 """
 
@@ -61,9 +116,37 @@ torch.save(results, out)
 def run(root: pathlib.Path, out: pathlib.Path) -> dict:
     import torch
 
-    code = f"CASES = {CASES!r}\nDT = {DT!r}\n" + _CHILD
+    code = (f"CASES = {CASES!r}\nDT = {DT!r}\nZ4_CASES = {Z4_CASES!r}\n" + _CHILD)
     subprocess.run([sys.executable, "-c", code, str(root), str(out)], check=True)
     return torch.load(out)
+
+
+def sass(library: str) -> dict:
+    """``{(kernel, value type, k): [instruction, ...]}`` of the kernels of
+    :data:`SASS_KERNELS` in ``library`` (the shifted system's instances
+    left out; k numbers a kernel's instances of one value type in the order
+    of their mangled names): each instruction's text without its address
+    and encoding."""
+    sys.path.insert(0, str(HERE))
+    from exahype_tpu_torch import _build
+
+    cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", library], capture_output=True, text=True,
+                          check=True).stdout
+    found, code = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            m = _KERNEL_NAME.search(fn)
+            code = None
+            if m and m.group(1).endswith(str(len(m.group(2)))) and "Z4Shift" not in fn:
+                code = found.setdefault((m.group(2), m.group(3)), {}).setdefault(fn, [])
+            continue
+        if code is None or "/*" not in line or ";" not in line:
+            continue
+        code.append(line.split("*/", 1)[1].split(";")[0].strip())
+    return {(name, t, k): fns[fn] for (name, t), fns in found.items()
+            for k, fn in enumerate(sorted(fns))}
 
 
 def main():
@@ -82,6 +165,8 @@ def main():
         theirs = run(args.other.resolve(), out / "other.pt")
     same = True
     for key, a in mine.items():
+        if key == "library":
+            continue
         b = theirs[key]
         # Bit patterns, so -0.0 against 0.0 counts as a difference.
         equal = a.shape == b.shape and torch.equal(
@@ -90,6 +175,23 @@ def main():
         same &= equal
         print(f"[same bits] {key}: {'identical' if equal else 'DIFFERENT'}"
               + ("" if equal else f" (max |diff| {(a.double() - b.double()).abs().max().item()!r})"))
+    code_mine, code_theirs = sass(mine["library"]), sass(theirs["library"])
+    for key in sorted(set(code_mine) | set(code_theirs)):
+        a, b = code_mine.get(key), code_theirs.get(key)
+        label = f"{key[0]} ({'float' if key[1] == 'f' else 'double'}, instance {key[2]})"
+        if a is None or b is None:
+            same = False
+            print(f"[same sass] {label}: only in {'this checkout' if b is None else 'the other'}")
+            continue
+        equal = a == b
+        same &= equal
+        print(f"[same sass] {label}: {len(a)} and {len(b)} instructions, "
+              f"{'identical' if equal else 'DIFFERENT'}")
+        if not equal:
+            first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            for i in range(first, min(first + 6, max(len(a), len(b)))):
+                print(f"[same sass]   {i}: this {a[i] if i < len(a) else '-'!r} | other "
+                      f"{b[i] if i < len(b) else '-'!r}")
     print(f"[same bits] {HERE} vs {args.other}: {'identical' if same else 'DIFFERENT'}")
     sys.exit(0 if same else 1)
 

@@ -7,8 +7,11 @@ in every mode (Euler) and on the CK free surface, the viscous predictor
 every wall mode, the
 limiter's subcell sweep (K3, ``csrc/subcell.cu``) alone and under
 ``LimitedADERDG``, the spec kernel (K4) that ``CudaPrinter`` generates,
-alone and under ``GridSolver``, and the fused Z4 right-hand side (K5,
-``csrc/rhs.cu``) alone and under the Z4 step.
+alone and under ``GridSolver``, the fused Z4 right-hand side (K5,
+``csrc/rhs.cu``) alone and under the Z4 step, and the Z4 step's own three
+kernels (K1 d, ``csrc/aderdg_z4.cu``), for the 38-variable system and the
+53-variable shifted one (``csrc/aderdg_z4_shift.cu``, frozen shift and
+Gamma-driver, on the moving gauge wave with seeded noise on every slot).
 
 Every test here is marked ``cuda`` and skips without a card (the decision
 is made inside each test, never at import).  This file imports no JAX, so
@@ -925,7 +928,7 @@ def _z4_plain_halves(sol, faces):
     """The plain face flux kernel's two outputs in its layout."""
     fs = sol.face_flux_shape
     parts = [[faces[d, k].reshape(fs) for k in range(4)] for d in range(3)]
-    shape = (3, 9, 38) + sol.grid_shape
+    shape = (3, 9, sol.n_vars) + sol.grid_shape
     fhat = torch.stack([sol.interface_flux(*parts[d], d) for d in range(3)]).reshape(shape)
     fhalf = torch.stack([sol.ncp_half(*parts[d], d) for d in range(3)]).reshape(shape)
     return fhat, fhalf
@@ -937,16 +940,21 @@ def _z4_half_bound(sol, faces, got, ref):
     are held against the plain halves in float64 from the same faces, to 4
     times the plain float32 halves' (``ref``) own distance (the rule
     ``chip_smoke.py`` holds them to)."""
-    from exahype_tpu_torch.models.z4 import make_z4_solver
-
-    sol64 = make_z4_solver(3, 2, sol.grid_shape, dx=sol._dxs[0], impl="soa", fused_rhs="soa",
-                           device=faces.device, dtype=torch.float64,
-                           **dict(zip(("slicing", "f", "m", "kappa1", "kappa2"),
-                                      sol.rhs_all_fn.physics.params)))
-    ref64 = _z4_plain_halves(sol64, faces.double())[1]
+    ref64 = _z4_plain_halves(_z4_f64_twin(sol), faces.double())[1]
     limit = max(4 * _err(ref, ref64), _bound(ref64, torch.float32))
     assert limit < 0.1 * ref64.abs().max().item()  # the rule can tell a missing half
     return _err(got, ref64), limit
+
+
+def _z4_f64_twin(sol):
+    """The same fused Z4 solver (zero-shift or shifted) in float64."""
+    from exahype_tpu_torch.models.z4 import make_z4_shift_solver, make_z4_solver
+
+    tag = sol.rhs_all_fn.physics
+    names = ("slicing", "f", "m", "kappa1", "kappa2", "shift", "f_b", "eta")
+    make = make_z4_solver if tag.name == "z4" else make_z4_shift_solver
+    return make(3, 2, sol.grid_shape, dx=sol._dxs[0], impl="soa", fused_rhs="soa",
+                device=sol.weights.device, dtype=torch.float64, **dict(zip(names, tag.params)))
 
 
 def _z4_plain_update(sol, new, fhat, fhalf, dt):
@@ -1049,3 +1057,141 @@ def test_z4_kernel_info_and_refusals():
                              torch.zeros((3, 16, 5, 4, 2, 8), dtype=torch.float64,
                                          device=u.device), 1e-4,
                              fhalf=torch.zeros(1, device=u.device))
+
+
+# ------------------------- the shifted system: K5 c and K1 d's 53-variable instance
+
+
+#: The three families of the shifted system: frozen shift, Gamma-driver with
+#: κ₁ damping and η ≠ 1, Gamma-driver with 1+log slicing, f_b ≠ 0.75, m ≠ 2.
+Z4S_PARAMS = [
+    dict(shift="frozen"),
+    dict(shift="gamma_driver", kappa1=0.2, eta=0.7),
+    dict(shift="gamma_driver", slicing="1+log", f_b=0.5, m=1.5),
+]
+Z4S_IDS = ["frozen", "driver", "driver_1+log"]
+
+
+def _z4s_setup(grid, dtype, **params):
+    """The fused shifted solver at ``grid`` (p2, dx = 1/128) on the card,
+    its ``CudaADERDG`` and its ``with_cuda_rhs`` copy, and the moving gauge
+    wave (v = 0.2, amplitude 0.1) with seeded noise of 1e-3 on every slot:
+    on the exact wave b = B = 0 and their gradients vanish, so a kernel that
+    dropped the ∂B, ∂b or B·D terms would pass there."""
+    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+    from exahype_tpu_torch.models.z4 import make_z4_shift_solver, moving_gauge_wave_state
+
+    dev = _card()
+    sol = make_z4_shift_solver(3, 2, grid, dx=1.0 / 128, fused_rhs="soa", device=dev,
+                               dtype=dtype, **params)
+    u = moving_gauge_wave_state(sol, v=0.2, amplitude=0.1)
+    noise = np.random.default_rng(5).standard_normal(u.shape)
+    u = (u + 1e-3 * torch.from_numpy(noise).to(u)).contiguous()
+    return sol, CudaADERDG(sol), with_cuda_rhs(sol), u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", Z4S_PARAMS, ids=Z4S_IDS)
+@pytest.mark.parametrize("dtype,grid", Z4_CASES)
+def test_shift_rhs_kernel_matches_plain(dtype, grid, params):
+    """K5 c against the wrapped plain function on every call of one step."""
+    plain, _, kern, u = _z4s_setup(grid, dtype, **params)
+    k5 = kern.rhs_all_fn
+    assert k5.kernel == "rhs_all_z4_shift"
+    calls = _rhs_calls(plain, u)
+    assert len(calls) == plain.picard_iters + 2
+    for Q, grads, va in calls:
+        Q0 = Q.clone()
+        got = k5(Q, grads, va)
+        ref = plain.rhs_all_fn(Q, grads, va)
+        torch.cuda.synchronize()
+        assert torch.equal(Q, Q0) and got.shape == ref.shape
+        assert _err(got, ref) <= _z4_bound(ref, dtype)
+        assert torch.equal(got, k5(Q, grads, va))  # bitwise repeatable
+        if params["shift"] == "frozen":
+            assert not got[:, 38:].any()
+    assert k5.launches == 2 * len(calls)
+    step = kern.step(u, 1e-4)
+    ref = plain.step(u, 1e-4)
+    torch.cuda.synchronize()
+    assert _err(step, ref) <= _z4_bound(ref, dtype)
+    assert k5.launches == 2 * len(calls) + plain.picard_iters + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", Z4S_PARAMS, ids=Z4S_IDS)
+@pytest.mark.parametrize("dtype,grid", Z4_STEP_CASES)
+def test_z4_shift_kernels_match_plain(dtype, grid, params):
+    """Each of the three shifted kernels against its plain version, fed the
+    plain inputs; dt by value and by pointer."""
+    sol, cu, _, u = _z4s_setup(grid, dtype, **params)
+    dt = 1e-4
+    u0 = u.clone()
+    new_k, faces_k, _ = cu.predictor_volume(u, dt)
+    new_t, faces_t, _ = cu.predictor_volume(u, torch.tensor(dt, dtype=dtype, device=u.device))
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    fhat_k, fhalf_k = cu.face_flux(faces_p)
+    fhat_p, fhalf_p = _z4_plain_halves(sol, faces_p)
+    upd_k = cu.surface_update(new_p.clone(), fhat_p, dt, fhalf=fhalf_p)
+    upd_t = cu.surface_update(new_p.clone(), fhat_p, torch.tensor(dt, dtype=dtype, device=u.device),
+                              fhalf=fhalf_p)
+    upd_p = _z4_plain_update(sol, new_p, fhat_p, fhalf_p, dt)
+    torch.cuda.synchronize()
+    assert torch.equal(u, u0)
+    for a, b in ((new_k, new_p), (faces_k, faces_p), (fhat_k, fhat_p), (upd_k, upd_p)):
+        assert _err(a, b) <= _z4_bound(b, dtype)
+    if dtype == torch.float64:
+        assert _err(fhalf_k, fhalf_p) <= _z4_bound(fhalf_p, dtype)
+    else:
+        err, limit = _z4_half_bound(sol, faces_p, fhalf_k, fhalf_p)
+        assert err <= limit
+    assert not faces_k[:, 2:].any()  # the F̄ rows are written as zeros
+    assert torch.equal(new_t, new_k) and torch.equal(faces_t, faces_k)
+    assert torch.equal(upd_t, upd_k)
+    assert cu.launches == {name: n for name, n in zip(cu.kernels, (2, 1, 2))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", Z4_STEP_CASES)
+def test_z4_shift_stages_cross_feed_and_step(dtype, grid):
+    """The kernel predictor into the plain face stage and the plain
+    predictor into the kernel face stage; the step, 3 launches, bitwise
+    repeatable; the Gamma-driver moves the gauge sector."""
+    sol, cu, _, u = _z4s_setup(grid, dtype, **Z4S_PARAMS[1])
+    dt = 1e-4
+    new_k, faces_k, _ = cu.predictor_volume(u, dt)
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    ref = sol.face_surface(new_p, faces_p, dt)
+    mixed_a = sol.face_surface(new_k, faces_k, dt)
+    mixed_b = cu.face_surface(new_p.clone(), faces_p, dt)
+    cu.reset_launches()
+    step = cu.step(u, dt)
+    assert cu.launches == {name: 1 for name in cu.kernels}
+    again = cu.run(u, 1, dt)
+    torch.cuda.synchronize()
+    for a in (mixed_a, mixed_b, step):
+        assert _err(a, ref) <= _z4_bound(ref, dtype)
+    assert torch.equal(step, again)
+    assert (step - u)[:, :, :, 38:].abs().max().item() > 0
+
+
+@pytest.mark.cuda
+def test_z4_shift_kernel_info_and_refusals():
+    sol, cu, _, u = _z4s_setup((4, 2, 8), torch.float64)
+    assert cu.kernels == ("aderdg_predictor_volume_z4_shift", "aderdg_face_flux_z4_shift",
+                          "aderdg_surface_update_z4_shift")
+    for dtype in (torch.float32, torch.float64):
+        for name in cu.kernels:
+            info = cu.kernel_info(name, dtype)
+            assert info["blocks_per_sm"] >= 1 and info["registers"] > 0, (name, dtype, info)
+    # 3 cells a block in float32 and 1 in float64: as many as 227 KB admit.
+    f32 = cu.kernel_info(cu.kernels[0], torch.float32)
+    f64 = cu.kernel_info(cu.kernels[0], torch.float64)
+    assert (f32["threads"], f32["smem"]) == (243, 194076)
+    assert (f64["threads"], f64["smem"]) == (81, 129384)
+    new, faces, _ = cu.predictor_volume(u, 1e-4)
+    fhat, fhalf = cu.face_flux(faces)
+    with pytest.raises(LoweringError, match="fhalf"):
+        cu.surface_update(new, fhat, 1e-4)
+    with pytest.raises(LoweringError, match="shape"):
+        cu.predictor_volume(u[:, :, :, :38].contiguous(), 1e-4)
