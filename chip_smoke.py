@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one card, nvcc
 
-It drives eight paths, each through ``exahype_tpu_torch``'s entry points
+It drives nine paths, each through ``exahype_tpu_torch``'s entry points
 with its kernels' launch counters set to 0 just before and read just
 after (the two forms of the main path, ADER-DG and FV, and the limited,
-CK, walls, viscous, dynamic-GR and shifted dynamic-GR slices), in this
-order:
+CK, walls, viscous, dynamic-GR, shifted dynamic-GR and Z4+GRHD slices), in
+this order:
 
 - **ADER-DG**: ``bench.py::main``'s step — order 3, 3-D compressible
   Euler, a ``(256, 8, 128)`` periodic cell grid in float32, ``bench.py``'s
@@ -98,6 +98,23 @@ order:
   float64 at ``(8, 4, 16)`` for the frozen shift and two Gamma-driver
   families (``Z4S_FAMILIES``) and in float32 at full width; its readings
   add max|β − v| and max|b| (the Gamma-driver must move both).
+- **Z4+GRHD**: ``scripts/z4_probe.py --matter --large --pallas``'s system —
+  the 43-variable coupled Z4 + general-relativistic hydro system (geodesic
+  slicing: harmonic, f = 0; Γ = 5/3; the recovery's 10 Newton trips),
+  ``make_z4_matter_solver(fused_rhs="soa")``, on ``Z4_GRID`` from
+  ``examples/flrw_cosmology.py``'s FLRW slice (ρ₀ = 0.02, ε₀ = 0.4) with the
+  probe's 5 % perturbation of D̃ and τ̃ along axis 2, dt = 1e-4 (0.17x
+  ``cfl_dt``), float32, 5 warm-up steps and 10 checked ones — through
+  ``CudaADERDG`` (K1 d's conservative-flux variant over ``Z4Matter``,
+  ``csrc/aderdg_z4_matter.cu``: ``aderdg_*_z4_matter``, 3 launches a step)
+  and through ``with_cuda_rhs`` (K5 d, ``rhs_all_z4_matter``, con2prim in
+  the kernel).  Its kernels are held to their plain versions on a fluid
+  with a velocity field and seeded noise on every Z4 slot (``Z4M_NOISE``)
+  in float64 at ``(8, 4, 16)`` in two families (``Z4M_FAMILIES``) and in
+  float32 at full width; its gates add admissibility
+  (``z4_matter_admissible``), ∫D̃ dV conserved within ``Z4M_DRIFT``, and the
+  exact homogeneous FLRW universe after 10 steps against the Friedmann
+  reference (``flrw_reference``: a², D̃, |Θ|, |Z|).
 
 Phases:
 
@@ -105,7 +122,8 @@ Phases:
 2. build: ``csrc/aderdg.cu``, ``csrc/aderdg_visc.cu`` (float32) and
    ``csrc/aderdg_visc_f64.cu``, ``csrc/aderdg_z4.cu`` and
    ``csrc/aderdg_z4_f64.cu``, ``csrc/aderdg_z4_shift.cu`` and
-   ``csrc/aderdg_z4_shift_f64.cu``, ``csrc/subcell.cu``, ``csrc/rhs.cu`` and the
+   ``csrc/aderdg_z4_shift_f64.cu``, ``csrc/aderdg_z4_matter.cu`` and
+   ``csrc/aderdg_z4_matter_f64.cu``, ``csrc/subcell.cu``, ``csrc/rhs.cu`` and the
    K4 sources of the ``fv`` and the canonical ``rusanov`` spec, one
    ``nvcc`` each, all started together (time, source hash, nvcc seconds
    per source, and ptxas's registers/shared memory/spills);
@@ -305,6 +323,45 @@ Z4S_FAMILIES = (
 #: against their plain versions: on the exact moving wave b = B = 0 and
 #: ∂b = ∂B = 0, so a kernel that dropped those terms would pass there.
 Z4S_NOISE = 1e-4
+#: The Z4+GRHD path (``scripts/z4_probe.py --matter --large --pallas``,
+#: ``:77-196``, fused as ``:174-196`` runs it): the 43-variable coupled system,
+#: order 2, 3-D, geodesic slicing (harmonic, f = 0), Γ = 5/3, 10 Newton trips,
+#: on ``Z4_GRID`` at dx = 1/128, from ``examples/flrw_cosmology.py``'s FLRW slice
+#: (ρ₀ = 0.02, ε₀ = 0.4, a = 1, ȧ from the Hamiltonian constraint) with the
+#: probe's perturbation: slots 38 and 42 (D̃, τ̃) times 1 + 0.05 sin(2π i₂/g₂)
+#: along grid axis 2; dt = 1e-4; ``Z4M_WARMUP`` steps, then ``STEPS`` checked.
+Z4M_PARAMS = dict(slicing="harmonic", f=0.0)
+Z4M_RHO0 = 0.02
+Z4M_EPS0 = 0.4
+Z4M_PERT = 0.05
+Z4M_WARMUP = 5
+#: The f64 kernel-vs-plain families at ``Z4_CUT``: the path's own, and the
+#: kernels' other branches (1+log slicing, m ≠ 2, κ damping, Γ = 4/3, 7
+#: Newton trips).
+Z4M_FAMILIES = (
+    Z4M_PARAMS,
+    dict(slicing="1+log", m=1.5, kappa1=0.1, kappa2=0.3, gamma=4.0 / 3.0, iters=7),
+)
+#: The parity states: ``pack_matter`` of the FLRW metric with seeded noise
+#: of this size on every Z4 slot, ρ ≈ 0.02, p ≈ 0.008 and a velocity field
+#: of up to 0.15 a component (on the FLRW state v = 0, so the flux's
+#: velocity terms and the momentum sources would vanish).
+Z4M_NOISE = 1e-3
+#: Gates of the matter path: D̃ conserved to this relative drift over the
+#: checked steps (periodic, a conservative flux, no D̃ source: float32
+#: rounding only); on the exact homogeneous FLRW universe after 10 steps (t
+#: = 1e-3) a² = γ_xx within ``Z4M_A2_RTOL`` of the Friedmann reference's (in
+#: float32, a² ≈ 1.001 carries 1.2e-7 spacings; the ADER-DG truncation at dt
+#: = 1e-4 is far smaller), D̃ within ``Z4M_DRIFT`` of ρ₀ (a³ρ = ρ₀ exactly)
+#: and |Θ|, |Z| (zero on the exact slice) under ``Z4M_CONSTRAINT``.
+Z4M_DRIFT = 1e-5
+Z4M_A2_RTOL = 1e-5
+Z4M_CONSTRAINT = 1e-6
+#: Flops of the hydro flux of the three axes at a point beside the recovery
+#: it shares with the algebra (``csrc/z4_matter.cuh::flux``): √γ p, and per
+#: axis α D̃ v^d 2, the momentum rows 6 and the pressure term 2, α (τ̃ + √γ
+#: p) v^d 3.
+Z4M_FLUX_OPS = 1 + 3 * (2 + 6 + 2 + 3)
 #: K5's float32 bound is ``F32_ULPS`` spacings of max|plain|, as for the
 #: other kernels: on this state the plain float32 evaluation of each of a
 #: step's five calls is within 1.2-2.3 spacings of max|plain| of the float64
@@ -2480,14 +2537,24 @@ def z4_tally(torch, rhs_all, q, grads, skip_zero: bool = False) -> dict:
     return counts
 
 
+def z4_base(torch, n: int, points: int):
+    """``points`` float64 CPU points of flat space, ``[n, points]``: α = 1,
+    γ = identity; with the Z4+GRHD system's 43 variables also a fluid at
+    rest (D̃ = 0.02, τ̃ = 0.008), so that its recovery is finite."""
+    q = torch.zeros(n, points, dtype=torch.float64)
+    q[[0, 1, 4, 6]] = 1.0
+    if n == 43:
+        q[38], q[42] = 0.02, 0.008
+    return q
+
+
 def z4_point_ops(torch, rhs_all) -> dict:
     """The arithmetic of K5's plain version at one point, by kind
     (:func:`z4_tally` on one float64 CPU point of flat space, zero
     gradients, every op counted); the system's variables from its tag (38,
-    or 53 shifted)."""
+    53 shifted, or 43 Z4+GRHD, its fluid at rest)."""
     n = rhs_all.physics.n_real
-    q = torch.zeros(n, 1, dtype=torch.float64)
-    q[[0, 1, 4, 6]] = 1.0  # flat space: α = 1, γ = identity
+    q = z4_base(torch, n, 1)
     grads = tuple(torch.zeros(n, 1, dtype=torch.float64) for _ in range(3))
     return z4_tally(torch, rhs_all, q, grads)
 
@@ -2500,8 +2567,7 @@ def z4_slots_read(torch, rhs_all) -> tuple[int, int]:
     variables).  A slot is read when its NaN reaches the output: the algebra
     has no branch, and NaN·0 is NaN."""
     n = rhs_all.physics.n_real
-    q = torch.zeros(n, 4 * n, dtype=torch.float64)
-    q[[0, 1, 4, 6]] = 1.0  # α = 1, γ = identity
+    q = z4_base(torch, n, 4 * n)
     grads = tuple(torch.zeros(n, 4 * n, dtype=torch.float64) for _ in range(3))
     for slot in range(n):
         q[slot, slot] = math.nan
@@ -2523,6 +2589,8 @@ def z4_value_ops(torch, rhs_all, grad_axes=(0, 1, 2)) -> int:
     rng = np.random.default_rng(11)
     q = torch.from_numpy(0.1 * rng.standard_normal((n, 1)))
     q[[0, 1, 4, 6]] += 1.0  # α, γ near flat space, no slot exactly zero
+    if n == 43:
+        q[38:] = 0.01 * q[38:] + z4_base(torch, n, 1)[38:]  # a fluid that recovers
     grads = tuple(torch.from_numpy(rng.standard_normal((n, 1))) if k in grad_axes
                   else torch.zeros(n, 1, dtype=torch.float64) for k in range(3))
     return sum(z4_tally(torch, rhs_all, q, grads, skip_zero=True).values())
@@ -2530,7 +2598,7 @@ def z4_value_ops(torch, rhs_all, grad_axes=(0, 1, 2)) -> int:
 
 def z4_kernel_work(order: int, picard_iters: int, ncell: int, itemsize: int, full: int,
                    zero: int, one_axis: int, v: int = 38, gs: int = 31, eig_ops: int = 23,
-                   suffix: str = "z4") -> dict:
+                   suffix: str = "z4", hydro: int = 0, flux_ops: int = 0) -> dict:
     """``{kernel: (bytes, operations)}`` of the Z4 step's three kernels
     (``csrc/aderdg_z4.cuh``; ``suffix`` "z4" or "z4_shift"), from the
     algebra's operations at a point (``full``: every gradient axis;
@@ -2553,18 +2621,30 @@ def z4_kernel_work(order: int, picard_iters: int, ncell: int, itemsize: int, ful
       (2), q̃ (2) and the half (2), a zero and a one-axis evaluation.
       Bytes: both faces' v slots read, F̂ and the half written.
     - update: per node, slot and axis 10 (two λ(φ1/w a ∓ φ0/w b) terms).
-      Bytes: the state read and written, F̂ and the halves read."""
+      Bytes: the state read and written, F̂ and the halves read.
+
+    With a conservative flux on ``hydro`` rows (Z4+GRHD: 5; its three axes'
+    rows cost ``flux_ops`` at a point beside the recovery the algebra's
+    count holds): per iteration and point the flux and its D·F terms (a
+    3-point contraction, the λ w product and the difference: 7 a row and
+    axis); in the epilogue the flux at every point, F̄ (5 a row, axis and
+    node), the volume term (a contraction, λ and the sum: 8) and F̄'s face
+    projections (2 x 5); in the face flux kernel ½(f_hi + f⁺) (2 more a
+    hydro row) and those rows of both faces read."""
     n = order + 1
     pts, nodes, fn = n**4, n**3, 3 * n**2
     pred_ops = (picard_iters * (pts * full + pts * 3 * gs * 6 + pts * v * 3 + nodes * v * n * 5)
                 + pts * zero + nodes * (full + zero) + nodes * v * 20 + nodes * 3 * gs * 6
                 + fn * v * 2 * 5)
-    flux_ops = fn * (2 * eig_ops + 1 + v * 7 + zero + one_axis)
+    pred_ops += (picard_iters * pts * (flux_ops + hydro * 3 * 7) + pts * flux_ops
+                 + nodes * hydro * 3 * (5 + 8) + fn * hydro * 2 * 5)
+    flux_ops = fn * (2 * eig_ops + 1 + v * 7 + zero + one_axis + 2 * hydro)
     update_ops = nodes * v * 3 * 10
     return {
         f"aderdg_predictor_volume_{suffix}": (ncell * itemsize * (2 * nodes * v + 4 * fn * v),
                                               ncell * pred_ops),
-        f"aderdg_face_flux_{suffix}": (ncell * itemsize * fn * 4 * v, ncell * flux_ops),
+        f"aderdg_face_flux_{suffix}": (ncell * itemsize * fn * (4 * v + 2 * hydro),
+                                       ncell * flux_ops),
         f"aderdg_surface_update_{suffix}": (ncell * itemsize * (2 * nodes * v + 2 * fn * v),
                                             ncell * update_ops),
     }
@@ -2615,8 +2695,11 @@ def z4_kernel_parity(torch, sol, cu, u, dt, label: str, sol64=None, tag: str = "
     stage_p = sol.face_surface(new_p, faces_p, dt)
     step_k, step_p = cu.step(u, dt), sol.step(u, dt)
     torch.cuda.synchronize()
-    if faces_k[:, 2:].any():
+    # The F̄ rows are zero but on the Z4+GRHD system's hydro rows.
+    if faces_k[:, 2:, :, :38].any() or (sol.n_vars != 43 and faces_k[:, 2:].any()):
         fail(f"the Z4 predictor wrote nonzero F̄ rows ({label})")
+    if sol.n_vars == 43 and not faces_k[:, 2:, :, 38:].any():
+        fail(f"the Z4+GRHD predictor wrote no hydro F̄ rows ({label})")
     checks = [(pred, "new", new_k, new_p), (pred, "faces", faces_k, faces_p),
               (flux, "fhat", fhat_k, fhat_p), (flux, "fhalf", fhalf_k, fhalf_p),
               (update, "new", upd_k, upd_p), ("face stage", "new", stage_k, stage_p),
@@ -3255,6 +3338,376 @@ def z4_shift_path(torch, dev, card) -> list[dict]:
     }]
 
 
+def z4m_integral(torch, sol, u, slot: int) -> float:
+    """∫ Q_slot dV over the grid: the nodal values times the Gauss weights
+    of each cell's nodes and the cell volume, summed in float64."""
+    w = sol.weights.to(device=u.device, dtype=torch.float64)
+    w3 = (w[:, None, None] * w[None, :, None] * w[None, None, :]).reshape(
+        (sol.n_nodes,) * 3 + (1,) * (u.dim() - 3))
+    q = u.narrow(sol.var_axis, slot, 1).double()
+    return float((q * w3).sum()) * math.prod(sol._dxs)
+
+
+def z4m_flrw(torch, sol, rho0=Z4M_RHO0, eps0=Z4M_EPS0, perturb=True):
+    """``examples/flrw_cosmology.py``'s FLRW slice at a = 1 on ``sol`` (its
+    dtype and device), with ``scripts/z4_probe.py --matter``'s perturbation
+    of D̃ and τ̃ along grid axis 2 where ``perturb``; and ȧ."""
+    from exahype_tpu_torch.models.z4_matter import flrw_state
+
+    adot = math.sqrt(8.0 * math.pi * rho0 * (1.0 + eps0) / 3.0)
+    u = flrw_state(sol, 1.0, adot, rho0=rho0, eps0=eps0)
+    if perturb:
+        g2 = sol.grid_shape[2]
+        pert = 1.0 + Z4M_PERT * torch.sin(
+            2.0 * math.pi * torch.arange(g2, dtype=torch.float64) / g2)
+        for slot in (38, 42):
+            u.narrow(sol.var_axis, slot, 1).mul_(pert.to(u))
+    return u.contiguous(), adot
+
+
+def z4m_noisy(torch, sol, seed=5):
+    """A parity state (``Z4M_NOISE``): ``pack_matter`` of the FLRW metric
+    (γ ≈ δ, K ≈ −ȧ δ) with seeded noise on every Z4 slot, and a fluid with
+    ρ ≈ 0.02, p ≈ 0.008 and a seeded velocity field."""
+    import numpy as np
+
+    from exahype_tpu_torch.models.z4_matter import pack_matter
+
+    va = sol.var_axis
+    shape = sol.state_shape[:va] + sol.state_shape[va + 1:]
+    rng = np.random.default_rng(seed)
+    z4 = Z4M_NOISE * rng.standard_normal(shape + (38,))
+    z4[..., [0, 1, 4, 6]] += 1.0
+    z4[..., [7, 10, 12]] -= math.sqrt(8.0 * math.pi * Z4M_RHO0 * (1.0 + Z4M_EPS0) / 3.0)
+    rho = Z4M_RHO0 * (1.0 + 0.1 * rng.random(shape))
+    p = (5.0 / 3.0 - 1.0) * Z4M_RHO0 * Z4M_EPS0 * (1.0 + 0.1 * rng.random(shape))
+    v = 0.3 * (rng.random(shape + (3,)) - 0.5)
+    q = pack_matter(*(torch.from_numpy(x) for x in (z4, rho, v, p)))
+    return q.movedim(-1, va).to(device=sol.weights.device, dtype=sol.weights.dtype).contiguous()
+
+
+def z4_matter_path(torch, dev, card) -> list[dict]:
+    """The Z4+GRHD path: the 43-variable coupled step through ``CudaADERDG``
+    (K1 d's conservative-flux variant, ``csrc/aderdg_z4_matter.cu``) and the
+    ``with_cuda_rhs`` route (K5 d, ``rhs_all_z4_matter``); returns their
+    lines of the kernel JSON."""
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+    from exahype_tpu_torch.models.z4_matter import (
+        flrw_reference,
+        make_z4_matter_solver,
+        z4_matter_admissible,
+    )
+
+    def make(grid, dtype, **params):
+        plain = make_z4_matter_solver(3, Z4_ORDER, grid, dx=Z4_DX, fused_rhs="soa", device=dev,
+                                      dtype=dtype, **params)
+        return plain, with_cuda_rhs(plain)
+
+    admissible = z4_matter_admissible()
+    t0 = time.perf_counter()
+
+    def phase(what):
+        say(f"[z4m] {what}: {time.perf_counter() - t0:.1f} s into the path (host clock)")
+
+    # ------------------------------------------- kernels vs plain, float64, cut grid
+    for params in Z4M_FAMILIES:
+        plain64, kern64 = make(Z4_CUT, torch.float64, **params)
+        k5_64 = kern64.rhs_all_fn
+        which = f"{k5_64.inner.physics.params}"
+        u = z4m_noisy(torch, plain64)
+        if not bool(admissible(u, plain64.var_axis).all()):
+            fail(f"the Z4+GRHD parity state is not admissible ({which})")
+        for i, (Q, grads, va) in enumerate(z4_rhs_calls(plain64, u, Z4_DT)):
+            got, again = k5_64(Q, grads, va), k5_64(Q, grads, va)
+            ref = plain64.rhs_all_fn(Q, grads, va)
+            torch.cuda.synchronize()
+            err = max_err(torch, got, ref)
+            limit = Z4_F64_RTOL * max(1.0, ref.abs().max().item())
+            ok = err <= limit and torch.equal(got, again)
+            name = z4_call_name(i, plain64.picard_iters)
+            say(f"[z4m parity] rhs_all_z4_matter float64 {Z4_CUT} moving fluid, noisy Z4 slots "
+                f"(slicing, f, m, κ₁, κ₂, Γ, iters) = {which} {name} {tuple(Q.shape)}: "
+                f"max_abs_err {err:.3e} limit {limit:.3e} ({Z4_F64_RTOL:.0e} x max(1, "
+                f"max|plain| = {ref.abs().max().item():.4g})); repeat bitwise "
+                f"{torch.equal(got, again)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"K5 d (float64, {which}, {name}) disagrees with its plain version")
+        step_k, step_p = kern64.step(u, Z4_DT), plain64.step(u, Z4_DT)
+        err = max_err(torch, step_k, step_p)
+        limit = Z4_F64_RTOL * max(1.0, step_p.abs().max().item())
+        say(f"[z4m parity] one float64 step {Z4_CUT} {which} through with_cuda_rhs vs the plain "
+            f"step: max_abs_err {err:.3e} limit {limit:.3e}; K5 d launches {k5_64.launches}")
+        if not err <= limit:
+            fail(f"the float64 Z4+GRHD step through K5 d disagrees with the plain step ({which})")
+        z4_kernel_parity(torch, plain64, CudaADERDG(plain64), u, Z4_DT, f"K1 d matter {which}",
+                         tag="z4m")
+        del plain64, kern64, k5_64, u, got, again, ref, step_k, step_p
+
+    phase("the float64 parity of two families")
+
+    # ------------------------------------------- kernels vs plain, float32, full width
+    plain, kern = make(Z4_GRID, torch.float32, **Z4M_PARAMS)
+    sol64, _ = make(Z4_GRID, torch.float64, **Z4M_PARAMS)
+    cu = CudaADERDG(plain)
+    k5 = kern.rhs_all_fn
+    iters = plain.picard_iters
+    va = plain.var_axis
+    u0, adot0 = z4m_flrw(torch, plain)
+    un = z4m_noisy(torch, plain)
+    ncell = math.prod(Z4_GRID)
+    dofs = plain.dofs()
+    cfl = float(plain.cfl_dt(u0))
+    say(f"[z4m] {Z4_GRID} cells, order {Z4_ORDER}, 43 vars, {Z4M_PARAMS}, Γ = 5/3, 10 Newton "
+        f"trips; FLRW slice ρ₀ = {Z4M_RHO0}, ε₀ = {Z4M_EPS0}, ȧ = {adot0!r}, D̃ and τ̃ times 1 + "
+        f"{Z4M_PERT} sin along axis 2: {dofs} DOF, state {u0.nbytes} B f32; dt = {Z4_DT!r}; "
+        f"cfl_dt(initial state) = {cfl!r} (dt / cfl_dt = {Z4_DT / cfl!r}); picard_iters {iters}")
+    if Z4_DT > cfl:
+        fail(f"dt = {Z4_DT} is over the Z4+GRHD state's CFL limit {cfl}")
+    if not bool(admissible(u0, va).all()):
+        fail("the perturbed FLRW state is not admissible")
+    calls = z4_rhs_calls(plain, un, Z4_DT)
+    k5_err = 0.0
+    for i in (0, iters):  # the Picard shape, the corrector's
+        Q, grads, va_ = calls[i]
+        got = k5(Q, grads, va_)
+        ref = plain.rhs_all_fn(Q, grads, va_)
+        ref64 = plain.rhs_all_fn(Q.double(), tuple(g.double() for g in grads), va_)
+        torch.cuda.synchronize()
+        err, limit = max_err(torch, got, ref), f32_bound(torch, ref)
+        to64_k, to64_p = max_err(torch, got, ref64), max_err(torch, ref, ref64)
+        ok = err <= limit
+        say(f"[z4m parity] rhs_all_z4_matter float32 {Z4_GRID} moving fluid, noisy Z4 slots "
+            f"{z4_call_name(i, iters)} {tuple(Q.shape)}: max_abs_err {err:.3e} limit "
+            f"{limit:.3e} ({F32_ULPS} f32 spacings of max|plain| = {ref.abs().max().item():.4g}) "
+            f"{'ok' if ok else 'FAIL'}; against the float64 plain result: kernel {to64_k:.3e}, "
+            f"plain float32 {to64_p:.3e}")
+        if not ok:
+            fail(f"K5 d (float32, {z4_call_name(i, iters)}) disagrees with its plain version")
+        k5_err = max(k5_err, err)
+        del got, ref, ref64
+    del calls
+    k1d_errs = z4_kernel_parity(torch, plain, cu, un, Z4_DT, "K1 d matter, the path's own",
+                                sol64, tag="z4m")
+    del un
+    torch.cuda.empty_cache()
+    phase("the float32 parity at full width")
+
+    # ------------------------------------------- the main path: CudaADERDG
+    gib = 2.0**-30
+    uw = cu.run(u0, Z4M_WARMUP, Z4_DT)
+    mass0 = z4m_integral(torch, plain, uw, 38)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cu.reset_launches()
+    u_d = cu.run(uw, STEPS, Z4_DT)
+    torch.cuda.synchronize()
+    d_launches = dict(cu.launches)
+    d_peak = torch.cuda.max_memory_allocated()
+    say(f"[z4m main] {Z4M_WARMUP} warm-up steps, then {STEPS} steps of {Z4_GRID} f32 through "
+        f"CudaADERDG(make_z4_matter_solver(..., fused_rhs='soa')): launches {d_launches} "
+        f"(expected {STEPS} of each: 3 a step); peak {d_peak * gib:.4f} GiB allocated "
+        f"({held * gib:.4f} GiB held before) ({card})")
+    if d_launches != {name: STEPS for name in cu.kernels}:
+        fail(f"the Z4+GRHD step through CudaADERDG launched {d_launches} in {STEPS} steps, "
+             "expected 3 a step")
+    if tuple(u_d.shape) != plain.state_shape or not torch.isfinite(u_d).all():
+        fail("the Z4+GRHD state through CudaADERDG is not finite or has the wrong shape")
+    if not bool(admissible(u_d, va).all()):
+        fail("the Z4+GRHD state through CudaADERDG is not admissible")
+    drift = abs(z4m_integral(torch, plain, u_d, 38) - mass0) / abs(mass0)
+    say(f"[z4m main] CudaADERDG: ∫D̃ dV drift over {STEPS} steps {drift!r} (gate {Z4M_DRIFT}); "
+        "admissible (z4_matter_admissible) at every node")
+    if not drift <= Z4M_DRIFT:
+        fail(f"∫D̃ dV drifted by {drift} over {STEPS} Z4+GRHD steps through CudaADERDG")
+    if not torch.equal(u_d, cu.run(uw, STEPS, Z4_DT)):
+        fail("two Z4+GRHD runs through CudaADERDG from the same state differ")
+    say("[z4m main] CudaADERDG: two runs from the same state: bitwise equal")
+
+    # ------------------------------------------- the with_cuda_rhs route (K5 d)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k5.reset_launches()
+    u_k = kern.run(uw, STEPS, Z4_DT)
+    torch.cuda.synchronize()
+    launches = k5.launches
+    peak = torch.cuda.max_memory_allocated()
+    want = (iters + 2) * STEPS
+    say(f"[z4m main] {STEPS} steps of {Z4_GRID} f32 through make_z4_matter_solver + "
+        f"with_cuda_rhs: K5 d launches {launches} (expected (picard_iters + 2) x steps = "
+        f"{want}); peak {peak * gib:.4f} GiB allocated ({card})")
+    if launches != want:
+        fail(f"K5 d launched {launches} times in {STEPS} Z4+GRHD steps, expected {want}")
+    if tuple(u_k.shape) != plain.state_shape or not torch.isfinite(u_k).all():
+        fail("the Z4+GRHD state through with_cuda_rhs is not finite or has the wrong shape")
+    if not bool(admissible(u_k, va).all()):
+        fail("the Z4+GRHD state through with_cuda_rhs is not admissible")
+    d1, k1, p1 = cu.step(uw, Z4_DT), kern.step(uw, Z4_DT), plain.step(uw, Z4_DT)
+    torch.cuda.reset_peak_memory_stats()
+    p10 = plain.run(uw, STEPS, Z4_DT)
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated()
+    for route, n, a, b in (("CudaADERDG", 1, d1, p1), ("CudaADERDG", STEPS, u_d, p10),
+                           ("with_cuda_rhs", 1, k1, p1), ("with_cuda_rhs", STEPS, u_k, p10)):
+        err, limit = max_err(torch, a, b), n * f32_bound(torch, b)
+        say(f"[z4m main] {route}, {n} step(s), kernel path vs plain path: max_abs_err "
+            f"{err:.3e} limit {limit:.3e}")
+        if not err <= limit:
+            fail(f"the Z4+GRHD kernel path ({route}) disagrees with the plain path after "
+                 f"{n} step(s)")
+    del d1, k1, p1
+    phase("the main runs and the plain path")
+
+    # Readings of the perturbed run: the constraint sector (Θ, Z), how far
+    # the fluid moved, and the drift of ∫τ̃ dV (not conserved: the
+    # expansion's work).
+    for label, x in (("CudaADERDG path", u_d), ("with_cuda_rhs path", u_k),
+                     ("plain path", p10)):
+        th = x.narrow(va, 13, 1).double().abs().max().item()
+        zz = x.narrow(va, 14, 3).double().abs().max().item()
+        st = x.narrow(va, 39, 3).double().abs().max().item()
+        say(f"[z4m reading] {label} at t = {(Z4M_WARMUP + STEPS) * Z4_DT!r} from the perturbed "
+            f"FLRW slice: max|Θ| {th!r}, max|Z_i| {zz!r}, max|S̃_i| {st!r}, ∫D̃ dV "
+            f"{z4m_integral(torch, plain, x, 38)!r} (after the warm-up {mass0!r}), ∫τ̃ dV "
+            f"{z4m_integral(torch, plain, x, 42)!r}")
+    del p10, u_k, u_d
+
+    # The exact homogeneous FLRW universe: 10 steps to t = 1e-3 through
+    # CudaADERDG in float32 against the Friedmann reference (RK4), and the
+    # plain path in float64 on a cut grid (every cell alike) beside it.
+    t_end = STEPS * Z4_DT
+    a_ref, adot_ref = (float(x) for x in flrw_reference(t_end, rho0=Z4M_RHO0, eps0=Z4M_EPS0))
+    uh, _ = z4m_flrw(torch, plain, perturb=False)
+    flat64, _ = make((2, 2, 2), torch.float64, **Z4M_PARAMS)
+    uh64, _ = z4m_flrw(torch, flat64, perturb=False)
+    for label, sol, x in (("CudaADERDG f32 " + str(Z4_GRID), cu, uh),
+                          ("plain f64 (2, 2, 2)", flat64, uh64)):
+        y = sol.run(x, STEPS, Z4_DT)
+        a2 = y.narrow(va, 1, 1).double()
+        a2_err = (a2 - a_ref**2).abs().max().item() / a_ref**2
+        kxx_err = (y.narrow(va, 7, 1).double() + a_ref * adot_ref).abs().max().item() / abs(
+            a_ref * adot_ref)
+        d_drift = (y.narrow(va, 38, 1).double() - Z4M_RHO0).abs().max().item() / Z4M_RHO0
+        th = y.narrow(va, 13, 1).double().abs().max().item()
+        zz = y.narrow(va, 14, 3).double().abs().max().item()
+        say(f"[z4m flrw] {label}, homogeneous FLRW, t = {t_end!r}: a² = γ_xx rel. error "
+            f"{a2_err!r} (reference a = {a_ref!r}), K_xx rel. error {kxx_err!r}, D̃ drift "
+            f"{d_drift!r}, max|Θ| {th!r}, max|Z_i| {zz!r}")
+        if sol is cu and not (a2_err <= Z4M_A2_RTOL and d_drift <= Z4M_DRIFT
+                              and th <= Z4M_CONSTRAINT and zz <= Z4M_CONSTRAINT):
+            fail(f"the homogeneous FLRW run through CudaADERDG misses the Friedmann reference: "
+                 f"a² {a2_err} (gate {Z4M_A2_RTOL}), D̃ {d_drift} (gate {Z4M_DRIFT}), |Θ| {th}, "
+                 f"|Z| {zz} (gate {Z4M_CONSTRAINT})")
+    del uh, uh64, flat64, sol64, y
+    phase("the readings and the FLRW anchor")
+
+    # ------------------------------------------- times
+    d_win = windows(torch, cu, u0, Z4_DT, steps=10)
+    k_win = windows(torch, kern, u0, Z4_DT, steps=1)
+    p_win = windows(torch, plain, u0, Z4_DT, steps=1, n_windows=1)
+    for label, win in (("CudaADERDG path", d_win), ("with_cuda_rhs path", k_win),
+                       ("plain path", p_win)):
+        ms = [1e3 * w for w in win]
+        say(f"[z4m time] {label}: step ms per window {ms!r}; median {statistics.median(ms)!r} "
+            f"ms, {dofs / statistics.median(win)!r} DOF-updates/s ({dofs} DOF per step; {card})")
+    new, faces, _ = cu.predictor_volume(u0, Z4_DT)
+    fhat, fhalf = cu.face_flux(faces)
+    pred, flux, update = cu.kernels
+    d_times = {
+        pred: (event_ms(torch, lambda: cu.predictor_volume(u0, Z4_DT), 20),
+               once_ms(torch, lambda: plain.predictor_volume(u0, Z4_DT))),
+        flux: (event_ms(torch, lambda: cu.face_flux(faces), 20),
+               once_ms(torch, lambda: z4_plain_face_flux(torch, plain, faces))),
+        update: (event_ms(torch, lambda: cu.surface_update(new, fhat, Z4_DT, fhalf=fhalf), 20),
+                 once_ms(torch, lambda: z4_plain_update(plain, new, fhat, fhalf, Z4_DT))),
+        "face stage": (event_ms(torch, lambda: cu.face_surface(new, faces, Z4_DT), 20),
+                       once_ms(torch, lambda: plain.face_surface(new, faces, Z4_DT))),
+        "step": (event_ms(torch, lambda: cu.step(u0, Z4_DT), 20),
+                 once_ms(torch, lambda: plain.step(u0, Z4_DT))),
+    }
+    for name, (ms, plain_ms) in d_times.items():
+        say(f"[z4m time] K1 d matter {name}: kernel {ms!r} ms, plain {plain_ms!r} ms (CUDA "
+            f"events; {card})")
+    calls = z4_rhs_calls(plain, u0, Z4_DT)
+    pic, cor = calls[0], calls[iters]
+    del calls
+    k5_ms = {
+        "Picard": event_ms(torch, lambda: k5(*pic), 20),
+        "corrector": event_ms(torch, lambda: k5(*cor), 20),
+    }
+    k5_plain_ms = {
+        "Picard": event_ms(torch, lambda: plain.rhs_all_fn(*pic), 2),
+        "corrector": event_ms(torch, lambda: plain.rhs_all_fn(*cor), 2),
+    }
+    say(f"[z4m time] K5 d per launch (CUDA events, 20 launches): Picard shape "
+        f"{tuple(pic[0].shape)} {k5_ms['Picard']!r} ms, corrector shape {tuple(cor[0].shape)} "
+        f"{k5_ms['corrector']!r} ms; plain rhs_all_fn {k5_plain_ms['Picard']!r} / "
+        f"{k5_plain_ms['corrector']!r} ms ({card})")
+    idle, busy, wall = idle_share(torch, lambda: cu.run(u0, 20, Z4_DT))
+    say(f"[z4m idle] CudaADERDG path, 20 steps under torch.profiler: device busy {busy!r} ms of "
+        f"wall {wall!r} ms; idle share {idle!r} ({card})")
+    idle, busy, wall = idle_share(torch, lambda: kern.step(u0, Z4_DT))
+    say(f"[z4m idle] with_cuda_rhs path, 1 step under torch.profiler: device busy {busy!r} ms "
+        f"of wall {wall!r} ms; idle share {idle!r} ({card})")
+    say(f"[z4m mem] peak allocated over {STEPS} steps: CudaADERDG path {d_peak * gib:.4f} GiB, "
+        f"with_cuda_rhs path {peak * gib:.4f} GiB, plain path {plain_peak * gib:.4f} GiB "
+        f"({card})")
+    phase("the times")
+
+    # ------------------------------------------- bounds
+    counts = z4_point_ops(torch, plain.rhs_all_fn)
+    per_point = sum(counts.values())
+    q_slots, grad_slots = z4_slots_read(torch, plain.rhs_all_fn)
+    bounds = {}
+    for name, (Q, _, va_) in (("Picard", pic), ("corrector", cor)):
+        points = Q.numel() // Q.shape[va_]
+        n_bytes = Q.element_size() * points * (q_slots + grad_slots + Q.shape[va_])
+        bounds[name] = bound(n_bytes, per_point * points)
+        say(f"[bound] rhs_all_z4_matter {name} shape {tuple(Q.shape)} f32: {per_point} "
+            f"operations a point ({counts}, counted on the plain algebra, the recovery's 10 "
+            f"Newton trips included), {points} points, {n_bytes} B ({q_slots} state slots and "
+            f"{grad_slots} gradient slots read, as the plain algebra reads them, "
+            f"{Q.shape[va_]} written): bound {bounds[name]['bound_ms']!r} ms by "
+            f"{bounds[name]['bound_by']}; kernel {k5_ms[name]!r} ms ({card})")
+    full = z4_value_ops(torch, plain.rhs_all_fn)
+    zero = z4_value_ops(torch, plain.rhs_all_fn, ())
+    axes = [z4_value_ops(torch, plain.rhs_all_fn, (k,)) for k in range(3)]
+    say(f"[bound] the Z4+GRHD algebra's operations at a point with no zero state slot "
+        f"(z4_value_ops): every gradient axis {full}, none {zero}, one {axes}; gradient slots "
+        f"read {grad_slots // 3} an axis (the plain count on flat space at rest with zero "
+        f"gradients is {per_point}); the hydro flux of the three axes {Z4M_FLUX_OPS} beside "
+        "the shared recovery")
+    work = z4_kernel_work(Z4_ORDER, iters, ncell, u0.element_size(), full, zero,
+                          sum(axes) / 3, v=plain.n_vars, gs=grad_slots // 3,
+                          suffix="z4_matter", hydro=5, flux_ops=Z4M_FLUX_OPS)
+    work["face stage"] = tuple(a + b for a, b in zip(work[flux], work[update]))
+    lines = []
+    for name in (pred, flux, update, "face stage"):
+        bnd = kernel_report(None if name == "face stage" else cu, name, torch.float32,
+                            f"(Z4+GRHD) {Z4_GRID} f32", d_times[name][0], *work[name], card)
+        if name == "face stage":
+            continue
+        lines.append(kernel_line(f"{name} (Z4+GRHD, K1 d)",
+                                 "exahype_tpu/models/aderdg_pallas.py:156", d_launches[name],
+                                 k1d_errs[name], *d_times[name], bnd,
+                                 "exahype_tpu_torch/csrc/aderdg_z4.cuh"))
+    del kern, plain, cu, u0, uw, pic, cor, new, faces, fhat, fhalf
+    torch.cuda.empty_cache()
+    return lines + [{
+        "name": "rhs_all_z4_matter",
+        "route": "cuda",
+        "source": "exahype_tpu_torch/csrc/rhs.cu",
+        "replaces": "exahype_tpu/models/rhs_pallas.py:104",
+        "launches": launches,
+        "max_abs_err": k5_err,
+        "ms": k5_ms["Picard"],
+        "plain_ms": k5_plain_ms["Picard"],
+        **bounds["Picard"],
+        "library_ms": None,  # no single PyTorch call computes it
+    }]
+
+
 def main():
     import torch
 
@@ -3332,6 +3785,7 @@ def main():
         "FV": lambda: [fv_path(torch, dev, card, spec_printers)],
         "Z4": lambda: z4_path(torch, dev, card),
         "Z4 shifted": lambda: z4_shift_path(torch, dev, card),
+        "Z4+GRHD": lambda: z4_matter_path(torch, dev, card),
     }
     kernels, seconds = [], {"build": time.perf_counter() - t0}
     for name, run in paths.items():

@@ -1,6 +1,6 @@
 """exahype_tpu_torch — the PyTorch/CUDA port of ``exahype_tpu``.
 
-Seven paths of the JAX package run here, on an NVIDIA H100 through CUDA
+Eight paths of the JAX package run here, on an NVIDIA H100 through CUDA
 kernels written for it, and on the CPU through their plain PyTorch
 versions, which match the JAX package:
 
@@ -30,7 +30,13 @@ versions, which match the JAX package:
   (its fused right-hand side through the kernel of ``csrc/rhs.cu``); and
   the same for the 53-variable shifted system (``make_z4_shift_solver``,
   frozen shift or Gamma-driver, ``scripts/z4_probe.py --shift``; kernels of
-  ``csrc/aderdg_z4_shift.cu`` and ``csrc/rhs.cu``).
+  ``csrc/aderdg_z4_shift.cu`` and ``csrc/rhs.cu``);
+- the coupled Z4 + general-relativistic hydro step (43 variables: dynamic
+  spacetime with a perfect fluid, ``scripts/z4_probe.py --matter``):
+  ``make_z4_matter_solver(..., fused_rhs="soa")`` → ``CudaADERDG`` (the
+  kernels of ``csrc/aderdg_z4_matter.cu``, which carry the hydro flux and
+  the recovery's Newton) or ``with_cuda_rhs``; its anchor is the FLRW
+  universe (``flrw_state``, ``flrw_reference``).
 
 It imports ``torch``, NumPy and (for the spec DSL) SymPy, never JAX.
 States use the JAX package's SoA-P layouts, so they pass between the
@@ -58,6 +64,10 @@ _EXPORTS = {
     "gauge_wave_state": "exahype_tpu_torch.models.z4",
     "make_z4_shift_solver": "exahype_tpu_torch.models.z4",
     "moving_gauge_wave_state": "exahype_tpu_torch.models.z4",
+    "make_z4_matter_solver": "exahype_tpu_torch.models.z4_matter",
+    "flrw_state": "exahype_tpu_torch.models.z4_matter",
+    "flrw_reference": "exahype_tpu_torch.models.z4_matter",
+    "z4_matter_admissible": "exahype_tpu_torch.models.z4_matter",
     "CudaRHS": "exahype_tpu_torch.models.rhs_cuda",
     "with_cuda_rhs": "exahype_tpu_torch.models.rhs_cuda",
     "CudaADERDG": "exahype_tpu_torch.models.aderdg_cuda",
@@ -76,6 +86,7 @@ _EXPORTS = {
     "grid_solver_from_jax": "exahype_tpu_torch.convert",
     "z4_solver_from_jax": "exahype_tpu_torch.convert",
     "z4_shift_solver_from_jax": "exahype_tpu_torch.convert",
+    "z4_matter_solver_from_jax": "exahype_tpu_torch.convert",
     "state_from_numpy": "exahype_tpu_torch.convert",
     "state_to_numpy": "exahype_tpu_torch.convert",
     "SemanticError": "exahype_tpu_torch.utils.errors",

@@ -155,7 +155,8 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
     visc_eigenvalue_fn) 4-tuple of the port's.  A JAX solver with
     ``source_fn``, ``ncp_fn`` or ``rhs_all_fn`` set raises ``SemanticError``
     (those are JAX functions; the Z4 systems cross through
-    :func:`z4_solver_from_jax` and :func:`z4_shift_solver_from_jax`); so does one whose viscous callbacks the
+    :func:`z4_solver_from_jax`, :func:`z4_shift_solver_from_jax` and
+    :func:`z4_matter_solver_from_jax`); so does one whose viscous callbacks the
     named physics does not replace, or the other way round.
 
     Walls: outflow and farfield need nothing more; a Dirichlet solver's
@@ -175,7 +176,8 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
         if getattr(jax_solver, name) is not None:
             raise SemanticError(
                 f"the JAX solver's {name} is a JAX function the port cannot "
-                "call; for the Z4 systems use z4_solver_from_jax or z4_shift_solver_from_jax"
+                "call; for the Z4 systems use z4_solver_from_jax, z4_shift_solver_from_jax or "
+                "z4_matter_solver_from_jax"
             )
     viscous = getattr(jax_solver, "visc_flux_fn", None) is not None
     if viscous != ("visc_flux_fn" in callbacks):
@@ -352,15 +354,17 @@ def z4_solver_from_jax(jax_solver, *, slicing: str = "harmonic", f: float = 1.0,
     ``PallasADERDG`` over a fused Z4 solver maps to
     :class:`~exahype_tpu_torch.models.aderdg_cuda.CudaADERDG` over the port's
     solver for the one it wraps (its step's kernels compile the algebra in).
-    A 53-variable (shifted) solver raises ``SemanticError``: it crosses
-    through :func:`z4_shift_solver_from_jax`.  States cross through
+    A 53-variable (shifted) or 43-variable (Z4+GRHD) solver raises
+    ``SemanticError``: it crosses through :func:`z4_shift_solver_from_jax` or
+    :func:`z4_matter_solver_from_jax`.  States cross through
     :func:`state_from_numpy`.
     """
     from exahype_tpu_torch.models.z4 import N_VARS, make_z4_solver
 
     params = dict(slicing=slicing, f=f, m=m, kappa1=kappa1, kappa2=kappa2)
     return _z4_from_jax(jax_solver, make_z4_solver, "vacuum Z4", N_VARS,
-                        "z4_shift_solver_from_jax", params, device, dtype)
+                        "z4_shift_solver_from_jax or z4_matter_solver_from_jax", params, device,
+                        dtype)
 
 
 def z4_shift_solver_from_jax(jax_solver, *, slicing: str = "harmonic", f: float = 1.0,
@@ -378,7 +382,29 @@ def z4_shift_solver_from_jax(jax_solver, *, slicing: str = "harmonic", f: float 
     params = dict(slicing=slicing, f=f, m=m, kappa1=kappa1, kappa2=kappa2, shift=shift,
                   f_b=f_b, eta=eta)
     return _z4_from_jax(jax_solver, make_z4_shift_solver, "shifted vacuum Z4", N_VARS_SHIFT,
-                        "z4_solver_from_jax", params, device, dtype)
+                        "z4_solver_from_jax or z4_matter_solver_from_jax", params, device,
+                        dtype)
+
+
+def z4_matter_solver_from_jax(jax_solver, *, gamma: float = 5.0 / 3.0, iters: int = 10,
+                              slicing: str = "harmonic", f: float = 1.0, m: float = 2.0,
+                              kappa1: float = 0.0, kappa2: float = 0.0, device=None,
+                              dtype: torch.dtype = torch.float64):
+    """The port's coupled Z4+GRHD solver for a JAX ``make_z4_matter_solver``
+    solver (43 variables): as :func:`z4_solver_from_jax`, the caller naming
+    the system's parameters, the fluid's (``gamma``, ``iters``) with them.
+    ``with_pallas_rhs`` of it maps to ``with_cuda_rhs`` (K5 d),
+    ``PallasADERDG`` of it to ``CudaADERDG`` (K1 d's conservative-flux
+    variant).  A solver of another variable count raises ``SemanticError``:
+    38 crosses through :func:`z4_solver_from_jax`, 53 through
+    :func:`z4_shift_solver_from_jax`."""
+    from exahype_tpu_torch.models.z4_matter import N_VARS, make_z4_matter_solver
+
+    params = dict(gamma=gamma, iters=iters, slicing=slicing, f=f, m=m, kappa1=kappa1,
+                  kappa2=kappa2)
+    return _z4_from_jax(jax_solver, make_z4_matter_solver, "Z4+GRHD", N_VARS,
+                        "z4_solver_from_jax or z4_shift_solver_from_jax", params, device,
+                        dtype)
 
 
 def state_from_numpy(arr, *, device=None, dtype: torch.dtype | None = None):

@@ -1,10 +1,12 @@
-// The ADER-DG step of the vacuum Z4 systems for Hopper (sm_90a): 3-D,
-// order 2, periodic, the fused right-hand side, templated on the system: the
-// 38-variable zero-shift one (Z4Vacuum, csrc/z4.cuh) and the 53-variable
-// shifted one (Z4Shift, csrc/z4_shift.cuh).  The float32 instances and C
-// interface are csrc/aderdg_z4.cu and csrc/aderdg_z4_shift.cu, the float64
-// ones csrc/aderdg_z4_f64.cu and csrc/aderdg_z4_shift_f64.cu: four sources
-// that nvcc compiles in parallel.
+// The ADER-DG step of the Z4 systems for Hopper (sm_90a): 3-D, order 2,
+// periodic, the fused right-hand side, templated on the system: the
+// 38-variable zero-shift one (Z4Vacuum, csrc/z4.cuh), the 53-variable
+// shifted one (Z4Shift, csrc/z4_shift.cuh) and the 43-variable Z4+GRHD one
+// (Z4Matter, csrc/z4_matter.cuh), which also carries a conservative flux on
+// its hydro rows (kFlux).  The float32 instances and C interface are
+// csrc/aderdg_z4.cu, csrc/aderdg_z4_shift.cu and csrc/aderdg_z4_matter.cu,
+// the float64 ones the same names with _f64: six sources that nvcc compiles
+// in parallel.
 //
 // Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
 // PallasADERDG.build on a pure-NCP solver with the fused rhs_all_fn: its
@@ -21,7 +23,8 @@
 // ncp_term).
 //
 // Each kernel below has a _shift twin (aderdg_predictor_volume_z4_shift, ...)
-// over the same template body with the 53-variable system.
+// over the same template body with the 53-variable system, and a _matter
+// twin with the 43-variable one.
 //
 //   aderdg_predictor_volume_z4  cell-local: the Picard predictor with
 //                            rhs_s = φ0_s u + dt w_s rhs(q_s, ∇q_s) (the flux
@@ -100,6 +103,27 @@
 // the thread's own words of shared memory while the second evaluation runs.
 // The update is the Euler update's shape with the NCP term added.
 //
+// The conservative-flux variant (Z4Matter; the Pallas body's flux_fn beside
+// rhs_all_fn, :440-463, the volume integral of F̄, :744-750, and the
+// Rusanov flux with f ≠ 0 next to the NCP halves, :286-298).  Phase (2)
+// splits in two around a barrier: (2a) each thread recovers the fluid's
+// primitives at its point once (csrc/z4_matter.cuh::recover, the con2prim
+// Newton in it) and writes the flux of its 5 hydro rows along all 3 axes
+// into rows of their own (15 a point: 53,568 B a cell in float32 with the
+// rest, so still 4 cells a block, 2 in float64); (2b) the algebra runs on
+// the same recovery, held in registers across the barrier, and the hydro
+// rows' right-hand sides become φ0 u − Σ_d λ_d w_s (D·F_d) + dt w_s rhs,
+// the D·F contractions read along the thread's pencils, in the plain
+// version's order (the Z4 rows' F is zero, so theirs are the fluxless
+// ones).  The epilogue's source pass also writes F_d(q_s); after a barrier
+// F̄_d = Σ_s w_s F_d(q_s) replaces slice 0's flux rows, and new gains λ_d
+// Kvol·F̄_d on the hydro rows and the face tensor F̄'s projections on them
+// (zero rows elsewhere, written with the q rows, not as slabs).  The face
+// flux kernel adds ½ (f_hi + f⁺) on the hydro rows and makes the recovery
+// at q̃ once for both NCP evaluations.  The recovery and its Newton are one
+// code copy each a thread and phase, so a cancelling pair sees the same
+// matter terms and they cancel exactly.
+//
 // IEEE division and square root (no fast math; the gradient's division by
 // dx is a product with its reciprocal, see z4_gradient); nvcc contracts
 // a·b + c into fused multiply-adds, so the kernels differ from the plain
@@ -110,6 +134,7 @@
 
 #include "aderdg_common.cuh"
 #include "z4.cuh"
+#include "z4_matter.cuh"
 #include "z4_shift.cuh"
 
 namespace {
@@ -138,6 +163,8 @@ constexpr size_t kZ4SmemLimit = 232448;
 struct Z4Vacuum {
   static constexpr int kVars = z4::kVars;
   static constexpr int kPhysics = kZ4;
+  static constexpr bool kFlux = false;
+  static constexpr int kHydro = 0;  // rows with a flux
   static constexpr int kGradFirst = z4::kK;
   static constexpr int kGradSlots = kVars - kGradFirst;
   using P = z4::Params;
@@ -164,6 +191,8 @@ struct Z4Vacuum {
 struct Z4Shift {
   static constexpr int kVars = z4s::kVars;
   static constexpr int kPhysics = kZ4Shift;
+  static constexpr bool kFlux = false;
+  static constexpr int kHydro = 0;
   static constexpr int kGradFirst = z4::kK;
   static constexpr int kGradSlots = z4s::kBeta - kGradFirst + kVars - z4s::kB;
   using P = z4s::Params;
@@ -193,6 +222,54 @@ struct Z4Shift {
   }
 };
 
+// The 43-variable Z4+GRHD system: a conservative flux (kFlux) on the kHydro
+// hydro rows from kFluxFirst on, besides the NCP; the algebra reads the
+// core's 31 gradient slots an axis (the matter terms read none).  Its
+// recovery (z4m::recover) is made once a point and shared by the flux and
+// the algebra (csrc/z4_matter.cuh).
+struct Z4Matter {
+  static constexpr int kVars = z4m::kVars;
+  static constexpr int kPhysics = kZ4Matter;
+  static constexpr bool kFlux = true;
+  static constexpr int kFluxFirst = z4m::kHD;
+  static constexpr int kHydro = z4m::kHydro;
+  static constexpr int kGradFirst = z4::kK;
+  static constexpr int kGradSlots = z4::kVars - kGradFirst;
+  using P = z4m::Params;
+  template <typename T>
+  using Rec = z4m::Recovered<T>;
+  static __host__ __device__ constexpr bool reads_grad(int v) { return v < z4::kVars; }
+  static __host__ __device__ constexpr int row_offset(int) { return kGradFirst; }
+  static __host__ __device__ constexpr int slot_skip(int) { return 0; }
+  // params: the zero-shift system's five, then Γ and the recovery's Newton
+  // iterations (a whole number, at least 0).
+  static P make(const double* params) {
+    return {Z4Vacuum::make(params), params[5], static_cast<int>(params[6])};
+  }
+  static bool bad(const double* params) {
+    return Z4Vacuum::bad(params) || !(params[6] >= 0.0) || params[6] > 1e6 ||
+           params[6] != static_cast<double>(static_cast<int>(params[6]));
+  }
+  template <typename T, typename LoadQ>
+  static __device__ __forceinline__ Rec<T> recover(const LoadQ& q, const P& p) {
+    return z4m::recover<T>(q, p);
+  }
+  // The hydro flux row r (0..kHydro-1) along axis d.
+  template <typename T>
+  static __device__ __forceinline__ T flux(const Rec<T>& rec, int d, int r) {
+    return z4m::flux<T>(rec, d, r);
+  }
+  template <typename T, typename LoadQ, typename LoadDQ, typename Store>
+  static __device__ __forceinline__ void rhs(const LoadQ& q, const LoadDQ& dq, const P& p,
+                                             const Rec<T>& rec, const Store& out) {
+    z4m::rhs<T>(q, dq, p, rec, out);
+  }
+  template <typename T>
+  static __device__ __forceinline__ T wave_speed(const T* q, int d, const P& p) {
+    return z4m::wave_speed<T>(q, d, p);
+  }
+};
+
 // The system's parameters as the kernels take them (make_params's physics).
 template <typename T, typename Sys>
 struct Z4Physics {
@@ -207,7 +284,9 @@ using Z4Params = Params<T, kZ4N, Z4Physics<T, Sys>>;
 // right-hand sides in place) [slot][point], and the gradient rows
 // [axis][row of slot][point], which the epilogue reuses for q̄ [slot][node],
 // ∇q̄ [axis][row of slot][node] and the NCP terms' two evaluations
-// [slot][node] each.
+// [slot][node] each; with a flux (Sys::kFlux), then its rows [axis][hydro
+// row][point], which the epilogue reuses for F̄ (at the points of slice 0).
+
 template <int CB, typename Sys>
 struct Z4Smem {
   static constexpr int V = Sys::kVars;
@@ -222,7 +301,8 @@ struct Z4Smem {
   static constexpr int kNcpA = kGbar + kDim * GS * kNodes;
   static constexpr int kNcpB = kNcpA + V * kNodes;
   static_assert(kNcpB + V * kNodes <= kG, "the epilogue fits the gradient rows");
-  static constexpr int kTotal = kU + kQ + kG;
+  static constexpr int kF = kDim * Sys::kHydro * kPts;
+  static constexpr int kTotal = kU + kQ + kG + kF;
 };
 
 // Cells a predictor block, the block the only one on its SM: as many as
@@ -230,7 +310,9 @@ struct Z4Smem {
 // 93,096 in float64, so 4 and 2; at 4 (324 threads) ptxas fits the float32
 // algebra in 168 registers without spills, and the kernel ran 6 % faster
 // than at 3 cells and 204 registers (H100 80GB HBM3, 700 W; PERF.md).
-// Shifted: 64,692 B and 129,384 B, so 3 and 1.
+// Shifted: 64,692 B and 129,384 B, so 3 and 1.  Z4+GRHD: 48,708 B a cell
+// and the 15 flux rows, 4,860 B: 53,568 B in float32 and 107,136 B in
+// float64, so 4 and 2.
 template <typename T, typename Sys>
 constexpr int z4_cells_per_block() {
   return static_cast<int>(kZ4SmemLimit / (Z4Smem<1, Sys>::kTotal * sizeof(T)));
@@ -255,6 +337,15 @@ __device__ __forceinline__ T z4_gradient(const T (&drow)[kZ4N], const T* x, int 
                                          T inv_dx) {
   const T* x0 = x - ik * st;
   return (drow[0] * x0[0] + drow[1] * x0[st] + drow[2] * x0[2 * st]) * inv_dx;
+}
+
+// Σ_j m_j x_j along a row of nodes stride `st` apart, x pointing at the
+// node whose digit is ik: D·F (the flux's derivative in reference
+// coordinates), Kvol·F̄ and the face projections of F̄.
+template <typename T>
+__device__ __forceinline__ T z4_contract(const T (&mrow)[kZ4N], const T* x, int ik, int st) {
+  const T* x0 = x - ik * st;
+  return mrow[0] * x0[0] + mrow[1] * x0[st] + mrow[2] * x0[2 * st];
 }
 
 // The node stride of axis k within a cell's 27 nodes, and the node's digit.
@@ -343,7 +434,38 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
     }
     __syncthreads();
     // (2) the right-hand side of my point, in place of its q.
-    {
+    if constexpr (Sys::kFlux) {
+      // (2a) my point's recovery and its flux rows; (2b), once every point's
+      // are in, the right-hand side, the hydro rows φ0 u − Σ_d λ_d w_s
+      // (D·F_d) + dt w_s rhs along my pencils, in the plain version's order.
+      auto load_q = [&](int v) { return sQ[v * S::kPts + pt]; };
+      const auto rec = Sys::template recover<T>(load_q, zp);
+      T* sF = sG + S::kG;
+#pragma unroll
+      for (int d = 0; d < kDim; ++d)
+#pragma unroll
+        for (int r = 0; r < Sys::kHydro; ++r)
+          sF[(d * Sys::kHydro + r) * S::kPts + pt] = Sys::template flux<T>(rec, d, r);
+      T lamw[kDim];  // λ_d w_s, λ_d = dt / dx_d
+#pragma unroll
+      for (int d = 0; d < kDim; ++d) lamw[d] = dtv / P.dx[d] * select<T, kZ4N>(P.W, s);
+      __syncthreads();
+      auto load_dq = [&](int k, int v) {
+        return sG[(k * GS + v - Sys::row_offset(v)) * S::kPts + pt];
+      };
+      auto store = [&](int v, T r) {
+        T x = phi0_s * sU[v * S::kNodes + cn];
+        if (v >= Sys::kFluxFirst) {
+#pragma unroll
+          for (int d = 0; d < kDim; ++d) {
+            const T* f = sF + (d * Sys::kHydro + v - Sys::kFluxFirst) * S::kPts + pt;
+            x = x - lamw[d] * z4_contract<T>(drow[d], f, z4_digit(node, d), z4_stride(d));
+          }
+        }
+        sQ[v * S::kPts + pt] = x + dtw * r;
+      };
+      Sys::template rhs<T>(load_q, load_dq, zp, rec, store);
+    } else {
       auto load_q = [&](int v) { return sQ[v * S::kPts + pt]; };
       auto load_dq = [&](int k, int v) {
         return sG[(k * GS + v - Sys::row_offset(v)) * S::kPts + pt];
@@ -396,8 +518,20 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
   __syncthreads();
 
   // The source terms rhs(q_s, 0) of every point, in place of q (their zero
-  // gradients compile away).
-  {
+  // gradients compile away); with a flux also F_d(q_s) into the flux rows.
+  if constexpr (Sys::kFlux) {
+    auto load_q = [&](int v) { return sQ[v * S::kPts + pt]; };
+    const auto rec = Sys::template recover<T>(load_q, zp);
+    T* sF = sG + S::kG;
+#pragma unroll
+    for (int d = 0; d < kDim; ++d)
+#pragma unroll
+      for (int r = 0; r < Sys::kHydro; ++r)
+        sF[(d * Sys::kHydro + r) * S::kPts + pt] = Sys::template flux<T>(rec, d, r);
+    auto zero = [](int, int) { return T(0); };
+    auto store = [&](int v, T r) { sQ[v * S::kPts + pt] = r; };
+    Sys::template rhs<T>(load_q, zero, zp, rec, store);
+  } else {
     auto load_q = [&](int v) { return sQ[v * S::kPts + pt]; };
     auto zero = [](int, int) { return T(0); };
     auto store = [&](int v, T r) { sQ[v * S::kPts + pt] = r; };
@@ -415,9 +549,27 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
     };
     T* dst = grad ? sA : sB;
     auto store = [&](int v, T r) { dst[v * S::kNodes + cn] = r; };
-    Sys::template rhs<T>(load_q, load_dq, zp, store);
+    if constexpr (Sys::kFlux) {
+      // Both threads recover at q̄ alike, so the matter terms cancel.
+      const auto rec = Sys::template recover<T>(load_q, zp);
+      Sys::template rhs<T>(load_q, load_dq, zp, rec, store);
+    } else {
+      Sys::template rhs<T>(load_q, load_dq, zp, store);
+    }
   }
   __syncthreads();
+  if constexpr (Sys::kFlux) {
+    // F̄_d = Σ_s w_s F_d(q_s), in place at the points of slice 0, one
+    // (axis, hydro row, node) a thread.
+    T* sF = sG + S::kG;
+    for (int e = threadIdx.x; e < kDim * Sys::kHydro * S::kNodes; e += NT) {
+      const int row = e / S::kNodes, m = e - row * S::kNodes;
+      const int cc = m / kZ4Nodes;
+      T* f = sF + row * S::kPts + cc * kZ4Points + (m - cc * kZ4Nodes);
+      f[0] = P.W[0] * f[0] + P.W[1] * f[kZ4Nodes] + P.W[2] * f[2 * kZ4Nodes];
+    }
+    __syncthreads();
+  }
 
   // new = u + dt s̄ + dt (rhs(q̄, ∇q̄) − rhs(q̄, 0)), the block's cells fastest.
   for (int e = threadIdx.x; e < S::kU; e += NT) {
@@ -429,6 +581,21 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
     const T sbar = P.W[0] * src[0] + P.W[1] * src[kZ4Nodes] + P.W[2] * src[2 * kZ4Nodes];
     T nv = sU[v * S::kNodes + m] + dtv * sbar;
     nv = nv + dtv * (sA[v * S::kNodes + m] - sB[v * S::kNodes + m]);
+    if constexpr (Sys::kFlux) {
+      // The volume integral of the hydro rows: + λ_d Kvol·F̄_d along each axis.
+      if (v >= Sys::kFluxFirst) {
+        const T* sF = sG + S::kG;
+#pragma unroll
+        for (int d = 0; d < kDim; ++d) {
+          const int ik = z4_digit(nd, d);
+          T krow[kZ4N];
+          select_row<T, kZ4N>(P.Kvol, ik, krow);
+          const T* f = sF + (d * Sys::kHydro + v - Sys::kFluxFirst) * S::kPts +
+                       cc * kZ4Points + nd;
+          nv = nv + dtv / P.dx[d] * z4_contract<T>(krow, f, ik, z4_stride(d));
+        }
+      }
+    }
     out[static_cast<long long>(r) * ncell + cell0 + cc] = nv;
   }
 
@@ -451,7 +618,21 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
         (static_cast<long long>(d * 4 * kZ4Faces + fm) * V + v) * ncell + cell0 + cc;
     faces[o] = qlo;
     faces[o + wstride] = qhi;
+    if constexpr (Sys::kFlux) {
+      // f_lo, f_hi: the projections of F̄_d on the hydro rows, zero on the
+      // others.
+      T flo = T(0), fhi = T(0);
+      if (v >= Sys::kFluxFirst) {
+        const T* f = sG + S::kG + (d * Sys::kHydro + v - Sys::kFluxFirst) * S::kPts +
+                     cc * kZ4Points + base;
+        flo = z4_contract<T>(P.PHI0, f, 0, st);
+        fhi = z4_contract<T>(P.PHI1, f, 0, st);
+      }
+      faces[o + 2 * wstride] = flo;
+      faces[o + 3 * wstride] = fhi;
+    }
   }
+  if constexpr (Sys::kFlux) return;
   // The f rows (w = 2, 3) are zero for this physics, and adjacent: one slab
   // of 2 wstride values an axis.  They do not depend on the cell, so the
   // blocks split each slab into consecutive runs of 2 wstride / ncell x CB
@@ -474,21 +655,41 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
 // run time and its result parked in sR: they round their Δq-free terms
 // alike, so the difference cancels them exactly, as the plain version's
 // does (where Δq = 0 the half is exactly 0).
+//
+// With a flux (Sys::kFlux) the recovery at q̃ is made once, before both
+// evaluations, which share it (so their matter terms cancel exactly too).
 template <typename T, typename Sys, int D>
 __device__ __forceinline__ void z4_face_half(const typename Sys::P& zp, const T* sMid, const T* sDq,
                                              T* sR, T* out, long long ncell) {
+  if constexpr (Sys::kFlux) {
+    auto load_mid = [&](int v) { return sMid[v * kTile]; };
+    const auto rec = Sys::template recover<T>(load_mid, zp);
 #pragma unroll 1
-  for (int pass = 0; pass < 2; ++pass) {
-    auto load_q = [&](int v) { return sMid[v * kTile]; };
-    auto load_dq = [&](int k, int v) { return k == D && pass ? sDq[v * kTile] : T(0); };
-    auto store = [&](int v, T r) {
-      if (pass) {
-        out[v * ncell] = T(0.5) * (sR[v * kTile] - r);
-      } else {
-        sR[v * kTile] = r;
-      }
-    };
-    Sys::template rhs<T>(load_q, load_dq, zp, store);
+    for (int pass = 0; pass < 2; ++pass) {
+      auto load_dq = [&](int k, int v) { return k == D && pass ? sDq[v * kTile] : T(0); };
+      auto store = [&](int v, T r) {
+        if (pass) {
+          out[v * ncell] = T(0.5) * (sR[v * kTile] - r);
+        } else {
+          sR[v * kTile] = r;
+        }
+      };
+      Sys::template rhs<T>(load_mid, load_dq, zp, rec, store);
+    }
+  } else {
+#pragma unroll 1
+    for (int pass = 0; pass < 2; ++pass) {
+      auto load_q = [&](int v) { return sMid[v * kTile]; };
+      auto load_dq = [&](int k, int v) { return k == D && pass ? sDq[v * kTile] : T(0); };
+      auto store = [&](int v, T r) {
+        if (pass) {
+          out[v * ncell] = T(0.5) * (sR[v * kTile] - r);
+        } else {
+          sR[v * kTile] = r;
+        }
+      };
+      Sys::template rhs<T>(load_q, load_dq, zp, store);
+    }
   }
 }
 
@@ -513,7 +714,7 @@ aderdg_face_flux_z4(const T* __restrict__ faces, T* __restrict__ fhat, T* __rest
   const long long cell = tc.cell;
   const long long plus = tc.neighbour(d, 1);
   // faces[d][w][fm][v][cell], w = q_lo, q_hi, f_lo, f_hi (the f rows are
-  // zero for this physics and are not read).
+  // zero for a fluxless system and are not read; with a flux, its rows).
   const T* base = faces + static_cast<long long>(d * 4 * kZ4Faces + fm) * V * ncell;
   const long long wstride = static_cast<long long>(kZ4Faces * V) * ncell;
   T qa[V], qb[V];  // a: my high face, b: the neighbour's low face
@@ -525,12 +726,32 @@ aderdg_face_flux_z4(const T* __restrict__ faces, T* __restrict__ fhat, T* __rest
   const T s = dmax(Sys::template wave_speed<T>(qa, d, P.phys.p),
                    Sys::template wave_speed<T>(qb, d, P.phys.p));
   const long long o = static_cast<long long>(d * kZ4Faces + fm) * V * ncell + cell;
+  if constexpr (Sys::kFlux) {
+    // F̂ = ½ (f_hi + f⁺) − ½ s (q⁺ − q_hi): the f rows of my high face
+    // (w = 3) and the neighbour's low face (w = 2) on the hydro rows; the
+    // others' f is zero, and 0 − ½ s Δq as the plain version's ½ (0 + 0) −
+    // ½ s Δq.
 #pragma unroll
-  for (int v = 0; v < V; ++v) {
-    const T dq = qb[v] - qa[v];
-    fhat[o + v * ncell] = T(0) - T(0.5) * s * dq;
-    sMid[v * kTile] = T(0.5) * (qa[v] + qb[v]);
-    sDq[v * kTile] = dq;
+    for (int v = 0; v < V; ++v) {
+      const T dq = qb[v] - qa[v];
+      T fh = T(0) - T(0.5) * s * dq;
+      if (v >= Sys::kFluxFirst) {
+        const T fa = base[3 * wstride + v * ncell + cell];
+        const T fb = base[2 * wstride + v * ncell + plus];
+        fh = T(0.5) * (fa + fb) - T(0.5) * s * dq;
+      }
+      fhat[o + v * ncell] = fh;
+      sMid[v * kTile] = T(0.5) * (qa[v] + qb[v]);
+      sDq[v * kTile] = dq;
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const T dq = qb[v] - qa[v];
+      fhat[o + v * ncell] = T(0) - T(0.5) * s * dq;
+      sMid[v * kTile] = T(0.5) * (qa[v] + qb[v]);
+      sDq[v * kTile] = dq;
+    }
   }
   const typename Sys::P zp = P.phys.p;
   if (d == 0) {

@@ -1,18 +1,21 @@
-// K5: the fused pointwise NCP right-hand side of the vacuum Z4 systems,
+// K5: the fused pointwise NCP right-hand side of the Z4 systems,
 // rhs_all(Q, ∇Q) = S(Q) − Σ_d B_d(Q)·∂_d Q, for Hopper (sm_90a): the
-// 38-variable zero-shift instance (rhs_all_z4) and the 53-variable shifted
-// one (rhs_all_z4_shift, frozen shift or Gamma-driver).
+// 38-variable zero-shift instance (rhs_all_z4), the 53-variable shifted
+// one (rhs_all_z4_shift, frozen shift or Gamma-driver) and the 43-variable
+// coupled Z4+GRHD one (rhs_all_z4_matter, K5 d: the con2prim Newton of
+// csrc/srhd.cuh inside the kernel, a run-time loop of `iters` trips).
 //
 // Replaces the TPU kernel exahype_tpu/models/rhs_pallas.py::PallasRHS._build
 // (its pallas_call) on those instances.  The numbers to match are those of
-// exahype_tpu/models/z4.py::z4_rhs_soa and ::z4_shift_rhs_soa; the plain
-// PyTorch versions are exahype_tpu_torch/models/z4.py::z4_rhs_soa and
-// ::z4_shift_rhs_soa through the solver's rhs_all_fn (models/z4.py::
-// _rhs_all_of).  The algebras are csrc/z4.cuh and csrc/z4_shift.cuh.
+// exahype_tpu/models/z4.py::z4_rhs_soa and ::z4_shift_rhs_soa and
+// exahype_tpu/models/z4_matter.py::z4_matter_rhs_soa; the plain PyTorch
+// versions are the port's functions of those names through the solver's
+// rhs_all_fn (models/z4.py::_rhs_all_of).  The algebras are csrc/z4.cuh,
+// csrc/z4_shift.cuh and csrc/z4_matter.cuh.
 //
 // Layout.  The solver hands over q and the three physical gradients as
 // contiguous [B, V, G] tensors (B = the product of the axes before the
-// variable axis: the Picard time node and the node axes; V = 38 or 53; G = the
+// variable axis: the Picard time node and the node axes; V = 38, 53 or 43; G = the
 // product of the cell-grid axes after it) and takes the result in the same
 // layout.  Each variable's row is contiguous over G, so one thread per point
 // (b, x) reads q[b, s, x] and ∂_k Q[b, s, x] at stride G between slots, and
@@ -23,7 +26,8 @@
 // What bounds it on the H100.  Per point it reads the 38 state values and
 // the 31 slots of each gradient that the algebra uses (∂α and ∂γ_ij never
 // appear), and writes 38: 676 B in f32 (shifted: 53, 43 of each gradient
-// and 53, 1,040 B).  Its arithmetic is a few thousand operations per
+// and 53, 1,040 B; Z4+GRHD: 43, 31 and 43, 716 B; its recovery's Newton
+// adds a few hundred operations, not bytes).  Its arithmetic is a few thousand operations per
 // point (chip_smoke.py counts them by running the plain algebra on a
 // counting scalar): ~6 per byte, under the card's f32 ridge of ~20, so the
 // bytes bound it.  No value is reused across points, so there is nothing to
@@ -39,6 +43,7 @@
 #include <cuda_runtime.h>
 
 #include "z4.cuh"
+#include "z4_matter.cuh"
 #include "z4_shift.cuh"
 
 namespace {
@@ -80,6 +85,25 @@ rhs_all_z4_shift(const T* __restrict__ q, const T* __restrict__ g0, const T* __r
   z4s::rhs<T>(load_q, load_dq, p, store);
 }
 
+// The Z4+GRHD instance (K5 d): the same layout over 43 slots.  The algebra
+// recovers the fluid's primitives from q before it writes a result
+// (csrc/z4_matter.cuh); it reads no gradient of the hydro slots.
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+rhs_all_z4_matter(const T* __restrict__ q, const T* __restrict__ g0, const T* __restrict__ g1,
+                  const T* __restrict__ g2, T* __restrict__ out, long long n_points,
+                  long long G, z4m::Params p) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  if (idx >= n_points) return;
+  const long long b = idx / G;
+  const long long base = b * z4m::kVars * G + (idx - b * G);
+  const T* const grads[3] = {g0, g1, g2};
+  auto load_q = [&](int s) { return q[base + s * G]; };
+  auto load_dq = [&](int k, int s) { return grads[k][base + s * G]; };
+  auto store = [&](int s, T v) { out[base + s * G] = v; };
+  z4m::rhs<T>(load_q, load_dq, p, store);
+}
+
 template <typename T>
 int launch(const T* q, const T* g0, const T* g1, const T* g2, T* out, long long n_lead,
            int n_vars, long long n_grid, int slicing, double f, double m, double kappa1,
@@ -107,6 +131,23 @@ int launch_shift(const T* q, const T* g0, const T* g1, const T* g2, T* out, long
   const long long blocks = (n_points + kBlock - 1) / kBlock;
   const z4s::Params p{{slicing, f, m, kappa1, kappa2}, shift, f_b, eta};
   rhs_all_z4_shift<T>
+      <<<static_cast<unsigned>(blocks), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+          q, g0, g1, g2, out, n_points, n_grid, p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_matter(const T* q, const T* g0, const T* g1, const T* g2, T* out, long long n_lead,
+                  int n_vars, long long n_grid, int slicing, double f, double m, double kappa1,
+                  double kappa2, double gamma, int iters, void* stream) {
+  if (n_vars != z4m::kVars || n_lead <= 0 || n_grid <= 0 || (slicing != 0 && slicing != 1) ||
+      iters < 0) {
+    return cudaErrorInvalidValue;
+  }
+  const long long n_points = n_lead * n_grid;
+  const long long blocks = (n_points + kBlock - 1) / kBlock;
+  const z4m::Params p{{slicing, f, m, kappa1, kappa2}, gamma, iters};
+  rhs_all_z4_matter<T>
       <<<static_cast<unsigned>(blocks), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
           q, g0, g1, g2, out, n_points, n_grid, p);
   return cudaGetLastError();
@@ -155,6 +196,27 @@ int exahype_rhs_all_z4_shift_f64(const double* q, const double* g0, const double
                                  double eta, void* stream) {
   return launch_shift<double>(q, g0, g1, g2, out, n_lead, n_vars, n_grid, slicing, f, m,
                               kappa1, kappa2, shift, f_b, eta, stream);
+}
+
+// The Z4+GRHD instance (K5 d): the same, n_vars = 43, and after kappa2 the
+// fluid's gamma and the recovery's Newton iterations (at least 0).
+
+int exahype_rhs_all_z4_matter_f32(const float* q, const float* g0, const float* g1,
+                                  const float* g2, float* out, long long n_lead, int n_vars,
+                                  long long n_grid, int slicing, double f, double m,
+                                  double kappa1, double kappa2, double gamma, int iters,
+                                  void* stream) {
+  return launch_matter<float>(q, g0, g1, g2, out, n_lead, n_vars, n_grid, slicing, f, m, kappa1,
+                              kappa2, gamma, iters, stream);
+}
+
+int exahype_rhs_all_z4_matter_f64(const double* q, const double* g0, const double* g1,
+                                  const double* g2, double* out, long long n_lead, int n_vars,
+                                  long long n_grid, int slicing, double f, double m,
+                                  double kappa1, double kappa2, double gamma, int iters,
+                                  void* stream) {
+  return launch_matter<double>(q, g0, g1, g2, out, n_lead, n_vars, n_grid, slicing, f, m,
+                               kappa1, kappa2, gamma, iters, stream);
 }
 
 }  // extern "C"

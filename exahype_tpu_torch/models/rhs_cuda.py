@@ -1,16 +1,19 @@
 """The fused Z4 right-hand side through a hand-written CUDA kernel (K5).
 
 Port of ``exahype_tpu/models/rhs_pallas.py`` (``PallasRHS``,
-``with_pallas_rhs``) for its vacuum Z4 instances: the solver's
+``with_pallas_rhs``) for its Z4 instances: the solver's
 ``rhs_all_fn(Q, grads, var_axis)`` — the pointwise algebra
 S(Q) − Σ_d B_d(Q)·∂_d Q given Q and the three physical gradients, which the
 Picard predictor calls once per iteration and the corrector twice — runs as
-kernel ``rhs_all_z4`` (38 variables, algebra ``csrc/z4.cuh``) or
+kernel ``rhs_all_z4`` (38 variables, algebra ``csrc/z4.cuh``),
 ``rhs_all_z4_shift`` (the 53-variable shifted system, ``csrc/z4_shift.cuh``)
-of ``csrc/rhs.cu`` (see the note there for the design).
+or ``rhs_all_z4_matter`` (K5 d: the 43-variable coupled Z4+GRHD system,
+``csrc/z4_matter.cuh``, its con2prim Newton in the kernel) of
+``csrc/rhs.cu`` (see the note there for the design).
 
 :class:`CudaRHS` wraps a tagged Z4 ``rhs_all_fn`` (``make_z4_solver(...,
 impl="soa", fused_rhs="soa")`` or ``make_z4_shift_solver(...,
+fused_rhs="soa")`` or ``models/z4_matter.py::make_z4_matter_solver(...,
 fused_rhs="soa")``).  For tensors on the CPU it calls the wrapped
 plain version; for CUDA tensors it launches the kernel or raises
 :class:`LoweringError`.  On both devices it checks every gradient's shape,
@@ -35,6 +38,7 @@ import torch
 
 from exahype_tpu_torch import _build
 from exahype_tpu_torch.models.z4 import N_VARS, N_VARS_SHIFT, SHIFTS, SLICINGS
+from exahype_tpu_torch.models.z4_matter import N_VARS as N_VARS_MATTER
 from exahype_tpu_torch.utils.errors import LoweringError
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -47,22 +51,29 @@ class CudaRHS:
     must carry the ``PhysicsTag("z4", 3, 38, (slicing, f, m, kappa1,
     kappa2))`` that :func:`~exahype_tpu_torch.models.z4.make_z4_solver`
     gives it, or the ``PhysicsTag("z4_shift", 3, 53, (..., shift, f_b,
-    eta))`` of :func:`~exahype_tpu_torch.models.z4.make_z4_shift_solver`;
-    its parameters become the kernel's arguments.  :attr:`kernel` names the
+    eta))`` of :func:`~exahype_tpu_torch.models.z4.make_z4_shift_solver`,
+    or the ``PhysicsTag("z4_matter", 3, 43, (..., gamma, iters))`` of
+    :func:`~exahype_tpu_torch.models.z4_matter.make_z4_matter_solver`; its
+    parameters become the kernel's arguments.  :attr:`kernel` names the
     instance, ``launches`` counts its launches."""
 
     #: The instance of each system: (kernel, variables).
-    INSTANCES = {"z4": ("rhs_all_z4", N_VARS), "z4_shift": ("rhs_all_z4_shift", N_VARS_SHIFT)}
+    INSTANCES = {
+        "z4": ("rhs_all_z4", N_VARS),
+        "z4_shift": ("rhs_all_z4_shift", N_VARS_SHIFT),
+        "z4_matter": ("rhs_all_z4_matter", N_VARS_MATTER),
+    }
 
     def __init__(self, rhs_all_fn, dim: int, n_vars: int):
         tag = getattr(rhs_all_fn, "physics", None)
         if tag is None or tag.name not in self.INSTANCES or (
                 tag.n_real != self.INSTANCES[tag.name][1]):
             raise LoweringError(
-                "K5 is compiled for the 38-variable vacuum Z4 right-hand side and the "
-                "53-variable shifted one: build the solver with "
-                "exahype_tpu_torch.models.z4.make_z4_solver or make_z4_shift_solver"
-                f"(..., impl='soa', fused_rhs='soa'); got an rhs_all_fn tagged {tag!r}"
+                "K5 is compiled for the 38-variable vacuum Z4 right-hand side, the "
+                "53-variable shifted one and the 43-variable Z4+GRHD one: build the solver "
+                "with exahype_tpu_torch.models.z4.make_z4_solver, make_z4_shift_solver or "
+                "models.z4_matter.make_z4_matter_solver(..., impl='soa', fused_rhs='soa'); "
+                f"got an rhs_all_fn tagged {tag!r}"
             )
         self.kernel, vars_ = self.INSTANCES[tag.name]
         if dim != 3 or n_vars != vars_:
@@ -70,14 +81,17 @@ class CudaRHS:
                 f"K5 takes 3 gradient arrays of the {vars_} {tag.name} variables, got "
                 f"dim={dim}, n_vars={n_vars}"
             )
-        slicing, f, m, kappa1, kappa2, *shift = tag.params
+        slicing, f, m, kappa1, kappa2, *rest = tag.params
         self.inner = rhs_all_fn
         self.dim = dim
         self.n_vars = n_vars
         self._args = (SLICINGS[slicing], f, m, kappa1, kappa2)
-        if shift:
-            mode, f_b, eta = shift
+        if tag.name == "z4_shift":
+            mode, f_b, eta = rest
             self._args += (SHIFTS[mode], f_b, eta)
+        elif tag.name == "z4_matter":
+            gamma, iters = rest
+            self._args += (gamma, iters)
         #: Launches of :attr:`kernel` since construction (or the last reset).
         self.launches = 0
 
@@ -126,12 +140,13 @@ class CudaRHS:
 def with_cuda_rhs(solver):
     """A copy of ``solver`` whose ``rhs_all_fn`` runs through K5
     (:class:`CudaRHS`); it shares the solver's operator buffers.  The solver
-    must carry a fused Z4 hook (``make_z4_solver(..., fused_rhs="soa")`` or
-    ``make_z4_shift_solver(..., fused_rhs="soa")``)."""
+    must carry a fused Z4 hook (``make_z4_solver``, ``make_z4_shift_solver``
+    or ``make_z4_matter_solver(..., fused_rhs="soa")``)."""
     if solver.rhs_all_fn is None:
         raise LoweringError(
             "with_cuda_rhs requires a solver with rhs_all_fn set "
-            "(make_z4_solver or make_z4_shift_solver(..., impl='soa', fused_rhs='soa'))"
+            "(make_z4_solver, make_z4_shift_solver or make_z4_matter_solver(..., impl='soa', "
+            "fused_rhs='soa'))"
         )
     out = copy.copy(solver)
     out.rhs_all_fn = CudaRHS(solver.rhs_all_fn, solver.dim, solver.n_vars)

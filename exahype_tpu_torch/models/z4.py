@@ -42,7 +42,8 @@ einsum formulation (``impl="einsum"``, the JAX default: ``z4_rhs``, and
 for the shifted system ``z4_shift_rhs`` with its ``jax.jvp`` Gamma-driver
 term ``_gamma_contracted``) and its fused hook (``fused_rhs=True``) are
 not ported and raise :class:`SemanticError` (``ROADMAP.md``, Queue 1 item
-7.4); the coupled matter systems are Queue 1 items 7.2 and 7.3.  The
+7.4); the coupled Z4+GRHD system is ``models/z4_matter.py``, Z4+GRMHD
+is Queue 1 item 7.3.  The
 constraint monitor uses ``torch.einsum``, as the JAX one uses
 ``jnp.einsum``.
 """
@@ -509,13 +510,15 @@ def _require_fused(fused_rhs):
         )
 
 
-def _callbacks(rhs, n_vars: int, g_of, tag: PhysicsTag, shifted: bool):
+def _callbacks(rhs, n_vars: int, g_of, tag: PhysicsTag, shifted: bool, flux=None):
     """The solver's four callbacks over an affine ``rhs(q, dq3)`` of
     ``n_vars`` variables, each tagged ``tag``; the wave speed adds |β^d|
-    when ``shifted``."""
+    when ``shifted``.  The flux is ``flux(Q, axis, va)`` where given (the
+    coupled matter system's, ``models/z4_matter.py``), else zero."""
 
-    def flux(Q, axis, va):
-        return torch.zeros_like(Q)
+    if flux is None:
+        def flux(Q, axis, va):
+            return torch.zeros_like(Q)
 
     def eig(Q, axis, va):
         q = torch.movedim(Q, va, -1)

@@ -18,14 +18,24 @@ compares their outputs bit for bit:
   at ``(8, 4, 16)`` in float64 and float32 and at ``(16, 16, 128)`` in
   float32, dx = 1/128, dt = 1e-4: the predictor's ``new`` and ``faces``,
   the face flux's F̂ and NCP halves, three chained steps, and K5 on the
-  first Picard call of a step.
+  first Picard call of a step;
+- the 53-variable shifted Z4 kernels (the Gamma-driver, f_b = 0.75, η = 1,
+  and K5 c's ``rhs_all_z4_shift``) the same way on the moving gauge wave
+  (v = 0.2, amplitude 0.1, the same noise);
+- the 43-variable Z4+GRHD kernels (K1 d's conservative-flux variant over
+  ``Z4Matter`` and K5 d's ``rhs_all_z4_matter``), where the checkout has
+  them, on the perturbed FLRW state of ``chip_smoke.py``'s matter path
+  with the same noise: outputs a checkout without them lacks are
+  reported as new, not as differences.
 
 Then it disassembles both libraries (``cuobjdump -sass``) and compares the
-instructions of every kernel the two have in common (the 38-variable Z4
-kernels matched by name and value type, whatever template arguments were
-added since), ignoring addresses and encodings.  Prints one line per
-output and per kernel and exits non-zero if any differs.  Needs a CUDA
-card and nvcc; imports no JAX.
+instructions of every kernel the two have in common (the Z4 step's kernels
+matched by name, value type and system, ``Z4Vacuum``, ``Z4Shift`` or
+``Z4Matter``, whatever template arguments were added since), ignoring
+addresses and encodings; kernels of the Z4+GRHD system that only this
+checkout has are listed as new.  Prints one line per output and per kernel
+and exits non-zero if any differs.  Needs a CUDA card and nvcc; imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -41,14 +51,18 @@ HERE = pathlib.Path(__file__).resolve().parent.parent
 CASES = (((8, 4, 32), "float64"), ((8, 4, 32), "float32"), ((256, 8, 128), "float32"))
 DT = 5e-5  # under the CFL limit (6.26e-5) of this state at dx = 1/256
 Z4_CASES = (((8, 4, 16), "float64"), ((8, 4, 16), "float32"), ((16, 16, 128), "float32"))
-#: The kernels whose machine code is compared: the Euler ones, K5's and the
-#: 38-variable Z4 step's (``<length><name>If`` or ``...Id`` in the mangled
-#: name, after the anonymous namespace's prefix).
+#: The kernels whose machine code is compared: the Euler ones, K5's three
+#: instances and the Z4 steps' (``<length><name>If`` or ``...Id`` in the
+#: mangled name, after the anonymous namespace's prefix).
 SASS_KERNELS = (
     "aderdg_predictor_volume", "aderdg_face_flux", "aderdg_surface_update",
     "aderdg_predictor_volume_z4", "aderdg_face_flux_z4", "aderdg_surface_update_z4",
-    "rhs_all_z4",
+    "rhs_all_z4", "rhs_all_z4_shift", "rhs_all_z4_matter",
 )
+#: The Z4 step kernels' systems (a template argument of each instance).
+SYSTEMS = ("Z4Vacuum", "Z4Shift", "Z4Matter")
+#: What only this checkout may have: the Z4+GRHD system's kernels.
+NEW = ("Z4Matter", "rhs_all_z4_matter", "Z4+GRHD")
 _KERNEL_NAME = re.compile(r"(\d+)(" + "|".join(sorted(SASS_KERNELS, key=len, reverse=True))
                           + r")I([fd])")
 
@@ -62,7 +76,16 @@ from exahype_tpu_torch import _build
 from exahype_tpu_torch.models.aderdg import ADERDGSolver, euler_physics
 from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
 from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
-from exahype_tpu_torch.models.z4 import gauge_wave_state, make_z4_solver
+from exahype_tpu_torch.models.z4 import (
+    gauge_wave_state,
+    make_z4_shift_solver,
+    make_z4_solver,
+    moving_gauge_wave_state,
+)
+try:
+    from exahype_tpu_torch.models import z4_matter
+except ImportError:  # a checkout from before the Z4+GRHD system
+    z4_matter = None
 import exahype_tpu_torch
 assert exahype_tpu_torch.__file__.startswith(root), exahype_tpu_torch.__file__
 results = {"library": str(_build.library_path())}
@@ -83,17 +106,40 @@ for grid, dtype in CASES:
     results[key + " face_surface new"] = surf.cpu()
     results[key + " face fluxes"] = torch.stack(fl).cpu()
     results[key + " 3 steps"] = cu.run(u, 3, DT).cpu()
-for grid, dtype in Z4_CASES:
+def matter_state(sol):
+    # The perturbed FLRW slice of chip_smoke.py's matter path (rho0 0.02,
+    # eps0 0.4; slots 38 and 42 times 1 + 0.05 sin along axis 2).
+    adot = float(np.sqrt(8 * np.pi * 0.02 * 1.4 / 3))
+    u = z4_matter.flrw_state(sol, 1.0, adot, rho0=0.02, eps0=0.4)
+    g2 = sol.grid_shape[2]
+    pert = 1.0 + 0.05 * torch.sin(2 * np.pi * torch.arange(g2, dtype=torch.float64) / g2)
+    u = u.clone()
+    for slot in (38, 42):
+        u[:, :, :, slot] *= pert.to(u)
+    return u
+
+
+systems = [("Z4", lambda grid, dtype: make_z4_solver(
+               3, 2, grid, dx=1.0 / 128, impl="soa", fused_rhs="soa", device="cuda",
+               dtype=dtype), lambda sol: gauge_wave_state(sol, amplitude=0.1)),
+           ("shifted Z4", lambda grid, dtype: make_z4_shift_solver(
+               3, 2, grid, dx=1.0 / 128, shift="gamma_driver", fused_rhs="soa", device="cuda",
+               dtype=dtype), lambda sol: moving_gauge_wave_state(sol, v=0.2, amplitude=0.1))]
+if z4_matter is not None:
+    systems.append(("Z4+GRHD", lambda grid, dtype: z4_matter.make_z4_matter_solver(
+        3, 2, grid, dx=1.0 / 128, slicing="harmonic", f=0.0, fused_rhs="soa", device="cuda",
+        dtype=dtype), matter_state))
+for (grid, dtype), (system, make, state) in (
+        (case, system) for system in systems for case in Z4_CASES):
     dtype = getattr(torch, dtype)
-    sol = make_z4_solver(3, 2, grid, dx=1.0 / 128, impl="soa", fused_rhs="soa", device="cuda",
-                         dtype=dtype)
+    sol = make(grid, dtype)
     cu = CudaADERDG(sol)
-    u = gauge_wave_state(sol, amplitude=0.1)
+    u = state(sol)
     noise = torch.from_numpy(np.random.default_rng(5).standard_normal(u.shape)).to(u)
     u = (u + 1e-3 * noise).contiguous()
     new, faces = cu.predictor_volume(u, 1e-4)[:2]
     fhat, fhalf = cu.face_flux(faces)
-    key = f"Z4 {grid} {dtype}"
+    key = f"{system} {grid} {dtype}"
     results[key + " predictor new"] = new.cpu()
     results[key + " predictor faces"] = faces.cpu()
     results[key + " face flux fhat"] = fhat.cpu()
@@ -108,7 +154,7 @@ for grid, dtype in Z4_CASES:
         return sol.rhs_all_fn(Q, grads, va)
     rec.rhs_all_fn = first
     rec.predictor_volume(u, 1e-4)
-    results[key + " rhs_all_z4 Picard call 1"] = calls[0].cpu()
+    results[key + f" {k5.kernel} Picard call 1"] = calls[0].cpu()
 torch.save(results, out)
 """
 
@@ -122,11 +168,12 @@ def run(root: pathlib.Path, out: pathlib.Path) -> dict:
 
 
 def sass(library: str) -> dict:
-    """``{(kernel, value type, k): [instruction, ...]}`` of the kernels of
-    :data:`SASS_KERNELS` in ``library`` (the shifted system's instances
-    left out; k numbers a kernel's instances of one value type in the order
-    of their mangled names): each instruction's text without its address
-    and encoding."""
+    """``{(kernel, value type, system, k): [instruction, ...]}`` of the
+    kernels of :data:`SASS_KERNELS` in ``library`` (system: the Z4 step
+    kernels' :data:`SYSTEMS` template argument, else ""; k numbers the
+    instances of one kernel, value type and system in the order of their
+    mangled names): each instruction's text without its address and
+    encoding."""
     sys.path.insert(0, str(HERE))
     from exahype_tpu_torch import _build
 
@@ -139,13 +186,14 @@ def sass(library: str) -> dict:
             fn = line.split("Function :")[1].strip()
             m = _KERNEL_NAME.search(fn)
             code = None
-            if m and m.group(1).endswith(str(len(m.group(2)))) and "Z4Shift" not in fn:
-                code = found.setdefault((m.group(2), m.group(3)), {}).setdefault(fn, [])
+            if m and m.group(1).endswith(str(len(m.group(2)))):
+                system = next((s for s in SYSTEMS if s in fn), "")
+                code = found.setdefault((m.group(2), m.group(3), system), {}).setdefault(fn, [])
             continue
         if code is None or "/*" not in line or ";" not in line:
             continue
         code.append(line.split("*/", 1)[1].split(";")[0].strip())
-    return {(name, t, k): fns[fn] for (name, t), fns in found.items()
+    return {(name, t, system, k): fns[fn] for (name, t, system), fns in found.items()
             for k, fn in enumerate(sorted(fns))}
 
 
@@ -167,6 +215,9 @@ def main():
     for key, a in mine.items():
         if key == "library":
             continue
+        if key not in theirs and any(n in key for n in NEW):
+            print(f"[same bits] {key}: new in this checkout")
+            continue
         b = theirs[key]
         # Bit patterns, so -0.0 against 0.0 counts as a difference.
         equal = a.shape == b.shape and torch.equal(
@@ -178,7 +229,11 @@ def main():
     code_mine, code_theirs = sass(mine["library"]), sass(theirs["library"])
     for key in sorted(set(code_mine) | set(code_theirs)):
         a, b = code_mine.get(key), code_theirs.get(key)
-        label = f"{key[0]} ({'float' if key[1] == 'f' else 'double'}, instance {key[2]})"
+        label = (f"{key[0]} ({'float' if key[1] == 'f' else 'double'}"
+                 f"{', ' + key[2] if key[2] else ''}, instance {key[3]})")
+        if b is None and any(n in key[0] or n == key[2] for n in NEW):
+            print(f"[same sass] {label}: {len(a)} instructions, new in this checkout")
+            continue
         if a is None or b is None:
             same = False
             print(f"[same sass] {label}: only in {'this checkout' if b is None else 'the other'}")

@@ -9,9 +9,12 @@ limiter's subcell sweep (K3, ``csrc/subcell.cu``) alone and under
 ``LimitedADERDG``, the spec kernel (K4) that ``CudaPrinter`` generates,
 alone and under ``GridSolver``, the fused Z4 right-hand side (K5,
 ``csrc/rhs.cu``) alone and under the Z4 step, and the Z4 step's own three
-kernels (K1 d, ``csrc/aderdg_z4.cu``), for the 38-variable system and the
+kernels (K1 d, ``csrc/aderdg_z4.cu``), for the 38-variable system, the
 53-variable shifted one (``csrc/aderdg_z4_shift.cu``, frozen shift and
-Gamma-driver, on the moving gauge wave with seeded noise on every slot).
+Gamma-driver, on the moving gauge wave with seeded noise on every slot) and
+the 43-variable Z4+GRHD one (K5 d and K1 d's conservative-flux variant,
+``csrc/aderdg_z4_matter.cu``, on a fluid with a velocity field and seeded
+noise on every Z4 slot).
 
 Every test here is marked ``cuda`` and skips without a card (the decision
 is made inside each test, never at import).  This file imports no JAX, so
@@ -947,12 +950,16 @@ def _z4_half_bound(sol, faces, got, ref):
 
 
 def _z4_f64_twin(sol):
-    """The same fused Z4 solver (zero-shift or shifted) in float64."""
+    """The same fused Z4 solver (zero-shift, shifted or Z4+GRHD) in float64."""
     from exahype_tpu_torch.models.z4 import make_z4_shift_solver, make_z4_solver
+    from exahype_tpu_torch.models.z4_matter import make_z4_matter_solver
 
     tag = sol.rhs_all_fn.physics
     names = ("slicing", "f", "m", "kappa1", "kappa2", "shift", "f_b", "eta")
-    make = make_z4_solver if tag.name == "z4" else make_z4_shift_solver
+    if tag.name == "z4_matter":
+        names = ("slicing", "f", "m", "kappa1", "kappa2", "gamma", "iters")
+    make = {"z4": make_z4_solver, "z4_shift": make_z4_shift_solver,
+            "z4_matter": make_z4_matter_solver}[tag.name]
     return make(3, 2, sol.grid_shape, dx=sol._dxs[0], impl="soa", fused_rhs="soa",
                 device=sol.weights.device, dtype=torch.float64, **dict(zip(names, tag.params)))
 
@@ -1189,6 +1196,152 @@ def test_z4_shift_kernel_info_and_refusals():
     f64 = cu.kernel_info(cu.kernels[0], torch.float64)
     assert (f32["threads"], f32["smem"]) == (243, 194076)
     assert (f64["threads"], f64["smem"]) == (81, 129384)
+    new, faces, _ = cu.predictor_volume(u, 1e-4)
+    fhat, fhalf = cu.face_flux(faces)
+    with pytest.raises(LoweringError, match="fhalf"):
+        cu.surface_update(new, fhat, 1e-4)
+    with pytest.raises(LoweringError, match="shape"):
+        cu.predictor_volume(u[:, :, :, :38].contiguous(), 1e-4)
+
+
+# ------------------------- Z4+GRHD: K5 d and K1 d's conservative-flux variant
+
+
+#: The Z4+GRHD families: the matter path's own (harmonic slicing f = 0, Γ =
+#: 5/3, 10 Newton trips) and the kernels' other branches (1+log slicing, m ≠
+#: 2, κ damping, Γ = 4/3, 7 trips).
+Z4M_PARAMS = [
+    dict(slicing="harmonic", f=0.0),
+    dict(slicing="1+log", m=1.5, kappa1=0.1, kappa2=0.3, gamma=4.0 / 3.0, iters=7),
+]
+Z4M_IDS = ["flrw_gauge", "1+log_damped"]
+
+
+def _z4m_setup(grid, dtype, **params):
+    """The fused Z4+GRHD solver at ``grid`` (p2, dx = 1/128) on the card,
+    its ``CudaADERDG`` and ``with_cuda_rhs`` copy, and a state from
+    ``pack_matter``: near the FLRW slice (γ ≈ δ, K ≈ −0.48 δ) with seeded
+    noise of 1e-3 on every Z4 slot, ρ ≈ 0.02, p ≈ 0.008 and a velocity
+    field of up to ~0.3 (so every flux row, matter term and hydro source is
+    live)."""
+    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+    from exahype_tpu_torch.models.z4_matter import make_z4_matter_solver, pack_matter
+
+    dev = _card()
+    sol = make_z4_matter_solver(3, 2, grid, dx=1.0 / 128, fused_rhs="soa", device=dev,
+                                dtype=dtype, **params)
+    va = sol.var_axis
+    shape = sol.state_shape[:va] + sol.state_shape[va + 1:]
+    rng = np.random.default_rng(5)
+    z4 = 1e-3 * rng.standard_normal(shape + (38,))
+    z4[..., [0, 1, 4, 6]] += 1.0
+    z4[..., [7, 10, 12]] -= 0.48
+    rho = 0.02 * (1.0 + 0.1 * rng.random(shape))
+    p = 0.008 * (1.0 + 0.1 * rng.random(shape))
+    v = 0.3 * (rng.random(shape + (3,)) - 0.5)
+    q = pack_matter(*(torch.from_numpy(x) for x in (z4, rho, v, p)))
+    u = q.movedim(-1, va).to(dev, dtype).contiguous()
+    return sol, CudaADERDG(sol), with_cuda_rhs(sol), u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", Z4M_PARAMS, ids=Z4M_IDS)
+@pytest.mark.parametrize("dtype,grid", Z4_CASES)
+def test_matter_rhs_kernel_matches_plain(dtype, grid, params):
+    """K5 d against the wrapped plain function on every call of one step."""
+    plain, _, kern, u = _z4m_setup(grid, dtype, **params)
+    k5 = kern.rhs_all_fn
+    assert k5.kernel == "rhs_all_z4_matter"
+    calls = _rhs_calls(plain, u)
+    assert len(calls) == plain.picard_iters + 2
+    for Q, grads, va in calls:
+        Q0 = Q.clone()
+        got = k5(Q, grads, va)
+        ref = plain.rhs_all_fn(Q, grads, va)
+        torch.cuda.synchronize()
+        assert torch.equal(Q, Q0) and got.shape == ref.shape
+        assert _err(got, ref) <= _z4_bound(ref, dtype)
+        assert torch.equal(got, k5(Q, grads, va))  # bitwise repeatable
+        assert ref.narrow(va, 39, 4).abs().max().item() > 0  # the hydro sources are live
+    assert k5.launches == 2 * len(calls)
+    step = kern.step(u, 1e-4)
+    ref = plain.step(u, 1e-4)
+    torch.cuda.synchronize()
+    assert _err(step, ref) <= _z4_bound(ref, dtype)
+    assert k5.launches == 2 * len(calls) + plain.picard_iters + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", Z4M_PARAMS, ids=Z4M_IDS)
+@pytest.mark.parametrize("dtype,grid", Z4_STEP_CASES)
+def test_z4_matter_kernels_match_plain(dtype, grid, params):
+    """Each of the three Z4+GRHD kernels against its plain version, fed the
+    plain inputs; dt by value and by pointer; the face tensor's f rows carry
+    the hydro flux and only it."""
+    sol, cu, _, u = _z4m_setup(grid, dtype, **params)
+    dt = 1e-4
+    u0 = u.clone()
+    new_k, faces_k, _ = cu.predictor_volume(u, dt)
+    new_t, faces_t, _ = cu.predictor_volume(u, torch.tensor(dt, dtype=dtype, device=u.device))
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    fhat_k, fhalf_k = cu.face_flux(faces_p)
+    fhat_p, fhalf_p = _z4_plain_halves(sol, faces_p)
+    upd_k = cu.surface_update(new_p.clone(), fhat_p, dt, fhalf=fhalf_p)
+    upd_p = _z4_plain_update(sol, new_p, fhat_p, fhalf_p, dt)
+    torch.cuda.synchronize()
+    assert torch.equal(u, u0)
+    for a, b in ((new_k, new_p), (faces_k, faces_p), (fhat_k, fhat_p), (upd_k, upd_p)):
+        assert _err(a, b) <= _z4_bound(b, dtype)
+    if dtype == torch.float64:
+        assert _err(fhalf_k, fhalf_p) <= _z4_bound(fhalf_p, dtype)
+    else:
+        err, limit = _z4_half_bound(sol, faces_p, fhalf_k, fhalf_p)
+        assert err <= limit
+    assert not faces_k[:, 2:, :, :38].any()  # the Z4 rows' F̄ are zeros
+    assert faces_k[:, 2:, :, 38:].any()  # the hydro rows' are not
+    assert torch.equal(new_t, new_k) and torch.equal(faces_t, faces_k)
+    assert cu.launches == {name: n for name, n in zip(cu.kernels, (2, 1, 1))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", Z4_STEP_CASES)
+def test_z4_matter_stages_cross_feed_and_step(dtype, grid):
+    """The kernel predictor into the plain face stage and the plain
+    predictor into the kernel face stage; the step, 3 launches, bitwise
+    repeatable; the fluid moves."""
+    sol, cu, _, u = _z4m_setup(grid, dtype, **Z4M_PARAMS[0])
+    dt = 1e-4
+    new_k, faces_k, _ = cu.predictor_volume(u, dt)
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    ref = sol.face_surface(new_p, faces_p, dt)
+    mixed_a = sol.face_surface(new_k, faces_k, dt)
+    mixed_b = cu.face_surface(new_p.clone(), faces_p, dt)
+    cu.reset_launches()
+    step = cu.step(u, dt)
+    assert cu.launches == {name: 1 for name in cu.kernels}
+    again = cu.run(u, 1, dt)
+    torch.cuda.synchronize()
+    for a in (mixed_a, mixed_b, step):
+        assert _err(a, ref) <= _z4_bound(ref, dtype)
+    assert torch.equal(step, again)
+    assert (step - u)[:, :, :, 38:].abs().max().item() > 0
+
+
+@pytest.mark.cuda
+def test_z4_matter_kernel_info_and_refusals():
+    sol, cu, _, u = _z4m_setup((4, 2, 8), torch.float64)
+    assert cu.kernels == ("aderdg_predictor_volume_z4_matter", "aderdg_face_flux_z4_matter",
+                          "aderdg_surface_update_z4_matter")
+    for dtype in (torch.float32, torch.float64):
+        for name in cu.kernels:
+            info = cu.kernel_info(name, dtype)
+            assert info["blocks_per_sm"] >= 1 and info["registers"] > 0, (name, dtype, info)
+    # 4 cells a block in float32 and 2 in float64: as many as 227 KB admit
+    # with the 15 flux rows.
+    f32 = cu.kernel_info(cu.kernels[0], torch.float32)
+    f64 = cu.kernel_info(cu.kernels[0], torch.float64)
+    assert (f32["threads"], f32["smem"]) == (324, 214272)
+    assert (f64["threads"], f64["smem"]) == (162, 214272)
     new, faces, _ = cu.predictor_volume(u, 1e-4)
     fhat, fhalf = cu.face_flux(faces)
     with pytest.raises(LoweringError, match="fhalf"):
