@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one card, nvcc
 
-It drives nine paths, each through ``exahype_tpu_torch``'s entry points
+It drives ten paths, each through ``exahype_tpu_torch``'s entry points
 with its kernels' launch counters set to 0 just before and read just
 after (the two forms of the main path, ADER-DG and FV, and the limited,
-CK, walls, viscous, dynamic-GR, shifted dynamic-GR and Z4+GRHD slices), in
-this order:
+CK, walls, viscous, dynamic-GR, shifted dynamic-GR, Z4+GRHD and Z4+GRMHD
+slices), in this order:
 
 - **ADER-DG**: ``bench.py::main``'s step — order 3, 3-D compressible
   Euler, a ``(256, 8, 128)`` periodic cell grid in float32, ``bench.py``'s
@@ -115,6 +115,23 @@ this order:
   (``z4_matter_admissible``), ∫D̃ dV conserved within ``Z4M_DRIFT``, and the
   exact homogeneous FLRW universe after 10 steps against the Friedmann
   reference (``flrw_reference``: a², D̃, |Θ|, |Z|).
+- **Z4+GRMHD**: the ExaGRyPE flagship shape of
+  ``exahype_tpu/models/z4_grmhd.py`` — the 47-variable coupled Z4 + ideal
+  GRMHD system with GLM cleaning (geodesic slicing: harmonic, f = 0; Γ =
+  5/3; the recovery's 20 Newton trips; c_h = 1, κ = 0.5),
+  ``make_z4_grmhd_solver(fused_rhs="soa")``, on ``Z4_GRID`` from the
+  magnetized wave of the JAX tests with one period along axis 0, dt = 1e-4,
+  float32, 5 warm-up steps and 10 checked ones — through ``CudaADERDG``
+  (K1 d's conservative-flux variant over ``Z4Grmhd``,
+  ``csrc/aderdg_z4_grmhd.cu``: ``aderdg_*_z4_grmhd``, 3 launches a step)
+  and through ``with_cuda_rhs`` (K5 e, ``rhs_all_z4_grmhd``, the
+  field-aligned con2prim in the kernel) for ``Z4G_EAGER_STEPS``.  Its
+  kernels are held to their plain versions on a magnetized fluid with
+  seeded noise on every Z4 slot (``Z4G_NOISE``) in float64 at ``(8, 4,
+  16)`` in two families (``Z4G_FAMILIES``) and in float32 at full width;
+  its gates add admissibility (``z4_grmhd_admissible``), ∫D̃ dV and each
+  ∫B̃^i dV conserved within ``Z4G_DRIFT``, and with B̃ = φ̃ = 0 one float64
+  kernel step against the Z4+GRHD kernels' (``Z4G_ZERO_FIELD_TOL``).
 
 Phases:
 
@@ -123,7 +140,8 @@ Phases:
    ``csrc/aderdg_visc_f64.cu``, ``csrc/aderdg_z4.cu`` and
    ``csrc/aderdg_z4_f64.cu``, ``csrc/aderdg_z4_shift.cu`` and
    ``csrc/aderdg_z4_shift_f64.cu``, ``csrc/aderdg_z4_matter.cu`` and
-   ``csrc/aderdg_z4_matter_f64.cu``, ``csrc/subcell.cu``, ``csrc/rhs.cu`` and the
+   ``csrc/aderdg_z4_matter_f64.cu``, ``csrc/aderdg_z4_grmhd.cu`` and
+   ``csrc/aderdg_z4_grmhd_f64.cu``, ``csrc/subcell.cu``, ``csrc/rhs.cu`` and the
    K4 sources of the ``fv`` and the canonical ``rusanov`` spec, one
    ``nvcc`` each, all started together (time, source hash, nvcc seconds
    per source, and ptxas's registers/shared memory/spills);
@@ -362,6 +380,57 @@ Z4M_CONSTRAINT = 1e-6
 #: axis α D̃ v^d 2, the momentum rows 6 and the pressure term 2, α (τ̃ + √γ
 #: p) v^d 3.
 Z4M_FLUX_OPS = 1 + 3 * (2 + 6 + 2 + 3)
+#: The Z4+GRMHD path (Queue 1 item 7.3: the ExaGRyPE flagship shape of
+#: ``exahype_tpu/models/z4_grmhd.py``, fused as ``__graft_entry__.py:559-600``
+#: steps it): the 47-variable coupled system, order 2, 3-D, geodesic slicing
+#: (harmonic, f = 0), Γ = 5/3, the recovery's 20 Newton trips (the JAX
+#: default), c_h = 1, GLM damping κ = 0.5, on ``Z4_GRID`` at dx = 1/128, from
+#: the magnetized wave of ``tests/test_z4_grmhd.py:460-486`` (γ_xx = 1 +
+#: 0.05 sin kx, ρ = 1 + 0.1 sin, p = 1 + 0.05 cos, v_y = 0.1 sin, B^x = 0.05,
+#: B^z = 0.015 cos) with one period along grid axis 0; dt = 1e-4;
+#: ``Z4G_WARMUP`` steps, then ``STEPS`` checked.
+Z4G_PARAMS = dict(slicing="harmonic", f=0.0, gamma=5.0 / 3.0, iters=20, c_h=1.0,
+                  glm_kappa=0.5)
+Z4G_B0 = 0.05
+Z4G_AMP = 0.05
+Z4G_WARMUP = 5
+#: The f64 kernel-vs-plain families at ``Z4_CUT``: the path's own, and the
+#: kernels' other branches (f = 1, κ₁ damping, a cleaning speed under the
+#: cone, strong GLM damping).
+Z4G_FAMILIES = (
+    Z4G_PARAMS,
+    dict(Z4G_PARAMS, f=1.0, kappa1=0.1, c_h=0.8, glm_kappa=2.0),
+)
+#: The parity states: ``pack_matter_mhd`` of flat space with seeded noise of
+#: this size on every Z4 slot, ρ ≈ 1, p ≈ 1, a velocity field of up to 0.15
+#: a component, a field of 0.05 to 0.1 a component (nowhere zero: in float32
+#: a zero field recovers NaN in the reference, ``ROADMAP.md`` Queue 3) and a
+#: GLM scalar of ~1e-2.
+Z4G_NOISE = 1e-3
+#: Gates: ∫D̃ dV within ``Z4G_DRIFT`` of itself and each ∫B̃^i dV within it
+#: of ∫|B̃| dV over the checked steps (a conservative flux, no source:
+#: float32 rounding only; the JAX test's bar is 1e-10 in float64); the
+#: zero-field cross-check at the JAX bar of
+#: ``tests/test_z4_grmhd.py::test_zero_field_reduces_to_coupled_hydro``
+#: (rtol, atol): the two systems recover through different Newtons, z
+#: against p, and agree to the recovery's convergence.  Its cleaning speed
+#: is under the cone, so the Rusanov speeds of the two systems are alike.
+Z4G_DRIFT = 1e-5
+#: Steps of the eager routes at full width (``with_cuda_rhs`` and the plain
+#: path, ≳1 s each: the flux's vector Newton runs as PyTorch calls); the
+#: kernel path is held to the plain path after 1 and after these.
+Z4G_EAGER_STEPS = 2
+Z4G_ZERO_FIELD_TOL = (1e-7, 1e-9)
+Z4G_ZERO_FIELD_CH = 0.5
+#: Flops of the matter flux of the three axes at a point beside the recovery
+#: it shares with the algebra (``csrc/z4_grmhd.cuh::flux``): per axis √γ p*
+#: 1; α D̃ v^d 2; α ((τ̃ + √γ p*) v^d − √γ (v·B) B^d) 6; α c_h² B̃^d 3; the
+#: momentum rows α √γ B^d and W² 3, 7 each and the pressure term 2; the
+#: induction rows 4 each and the φ̃ term 2.
+Z4G_FLUX_OPS = 3 * (1 + 2 + 6 + 3 + (3 + 3 * 7 + 2) + (3 * 4 + 2))
+#: The Rusanov bound's operations (``csrc/z4_grmhd.cuh::wave_speed``): the
+#: vacuum cone's 23 and the max with c_h.
+Z4G_EIG_OPS = 24
 #: K5's float32 bound is ``F32_ULPS`` spacings of max|plain|, as for the
 #: other kernels: on this state the plain float32 evaluation of each of a
 #: step's five calls is within 1.2-2.3 spacings of max|plain| of the float64
@@ -2540,11 +2609,15 @@ def z4_tally(torch, rhs_all, q, grads, skip_zero: bool = False) -> dict:
 def z4_base(torch, n: int, points: int):
     """``points`` float64 CPU points of flat space, ``[n, points]``: α = 1,
     γ = identity; with the Z4+GRHD system's 43 variables also a fluid at
-    rest (D̃ = 0.02, τ̃ = 0.008), so that its recovery is finite."""
+    rest (D̃ = 0.02, τ̃ = 0.008), with the Z4+GRMHD system's 47 a magnetized
+    one (ρ = p = 1, B^x = 0.05: D̃ = 1, τ̃ = 1.50125), so that the recovery is
+    finite."""
     q = torch.zeros(n, points, dtype=torch.float64)
     q[[0, 1, 4, 6]] = 1.0
     if n == 43:
         q[38], q[42] = 0.02, 0.008
+    if n == 47:
+        q[38], q[42], q[43] = 1.0, 1.50125, 0.05
     return q
 
 
@@ -2552,7 +2625,7 @@ def z4_point_ops(torch, rhs_all) -> dict:
     """The arithmetic of K5's plain version at one point, by kind
     (:func:`z4_tally` on one float64 CPU point of flat space, zero
     gradients, every op counted); the system's variables from its tag (38,
-    53 shifted, or 43 Z4+GRHD, its fluid at rest)."""
+    53 shifted, 43 Z4+GRHD or 47 Z4+GRMHD, its fluid at rest)."""
     n = rhs_all.physics.n_real
     q = z4_base(torch, n, 1)
     grads = tuple(torch.zeros(n, 1, dtype=torch.float64) for _ in range(3))
@@ -2589,7 +2662,7 @@ def z4_value_ops(torch, rhs_all, grad_axes=(0, 1, 2)) -> int:
     rng = np.random.default_rng(11)
     q = torch.from_numpy(0.1 * rng.standard_normal((n, 1)))
     q[[0, 1, 4, 6]] += 1.0  # α, γ near flat space, no slot exactly zero
-    if n == 43:
+    if n in (43, 47):
         q[38:] = 0.01 * q[38:] + z4_base(torch, n, 1)[38:]  # a fluid that recovers
     grads = tuple(torch.from_numpy(rng.standard_normal((n, 1))) if k in grad_axes
                   else torch.zeros(n, 1, dtype=torch.float64) for k in range(3))
@@ -2600,7 +2673,8 @@ def z4_kernel_work(order: int, picard_iters: int, ncell: int, itemsize: int, ful
                    zero: int, one_axis: int, v: int = 38, gs: int = 31, eig_ops: int = 23,
                    suffix: str = "z4", hydro: int = 0, flux_ops: int = 0) -> dict:
     """``{kernel: (bytes, operations)}`` of the Z4 step's three kernels
-    (``csrc/aderdg_z4.cuh``; ``suffix`` "z4" or "z4_shift"), from the
+    (``csrc/aderdg_z4.cuh``; ``suffix`` "z4", "z4_shift", "z4_matter" or
+    "z4_grmhd"), from the
     algebra's operations at a point (``full``: every gradient axis;
     ``zero``: none; ``one_axis``: one, averaged over the axes;
     :func:`z4_value_ops`), the system's ``v`` variables and the ``gs``
@@ -2623,9 +2697,9 @@ def z4_kernel_work(order: int, picard_iters: int, ncell: int, itemsize: int, ful
     - update: per node, slot and axis 10 (two λ(φ1/w a ∓ φ0/w b) terms).
       Bytes: the state read and written, F̂ and the halves read.
 
-    With a conservative flux on ``hydro`` rows (Z4+GRHD: 5; its three axes'
-    rows cost ``flux_ops`` at a point beside the recovery the algebra's
-    count holds): per iteration and point the flux and its D·F terms (a
+    With a conservative flux on ``hydro`` rows (Z4+GRHD: 5, Z4+GRMHD: 9;
+    their three axes' rows cost ``flux_ops`` at a point beside the recovery
+    the algebra's count holds): per iteration and point the flux and its D·F terms (a
     3-point contraction, the λ w product and the difference: 7 a row and
     axis); in the epilogue the flux at every point, F̄ (5 a row, axis and
     node), the volume term (a contraction, λ and the sum: 8) and F̄'s face
@@ -2695,11 +2769,12 @@ def z4_kernel_parity(torch, sol, cu, u, dt, label: str, sol64=None, tag: str = "
     stage_p = sol.face_surface(new_p, faces_p, dt)
     step_k, step_p = cu.step(u, dt), sol.step(u, dt)
     torch.cuda.synchronize()
-    # The F̄ rows are zero but on the Z4+GRHD system's hydro rows.
-    if faces_k[:, 2:, :, :38].any() or (sol.n_vars != 43 and faces_k[:, 2:].any()):
+    # The F̄ rows are zero but on the coupled systems' matter rows (38 on).
+    coupled = sol.n_vars in (43, 47)
+    if faces_k[:, 2:, :, :38].any() or (not coupled and faces_k[:, 2:].any()):
         fail(f"the Z4 predictor wrote nonzero F̄ rows ({label})")
-    if sol.n_vars == 43 and not faces_k[:, 2:, :, 38:].any():
-        fail(f"the Z4+GRHD predictor wrote no hydro F̄ rows ({label})")
+    if coupled and not faces_k[:, 2:, :, 38:].any():
+        fail(f"the coupled Z4 predictor wrote no matter F̄ rows ({label})")
     checks = [(pred, "new", new_k, new_p), (pred, "faces", faces_k, faces_p),
               (flux, "fhat", fhat_k, fhat_p), (flux, "fhalf", fhalf_k, fhalf_p),
               (update, "new", upd_k, upd_p), ("face stage", "new", stage_k, stage_p),
@@ -3708,6 +3783,376 @@ def z4_matter_path(torch, dev, card) -> list[dict]:
     }]
 
 
+def z4g_noisy(torch, sol, seed=5):
+    """A parity state (``Z4G_NOISE``): ``pack_matter_mhd`` of flat space with
+    seeded noise on every Z4 slot, ρ ≈ 1, p ≈ 1, a velocity field of up to
+    0.15 a component, a field of 0.05 to 0.1 a component and a GLM scalar of
+    ~1e-2, in ``sol``'s dtype on its device."""
+    import numpy as np
+
+    from exahype_tpu_torch.models.z4_grmhd import pack_matter_mhd
+
+    va = sol.var_axis
+    shape = sol.state_shape[:va] + sol.state_shape[va + 1:]
+    rng = np.random.default_rng(seed)
+    z4 = Z4G_NOISE * rng.standard_normal(shape + (38,))
+    z4[..., [0, 1, 4, 6]] += 1.0
+    rho = 1.0 + 0.1 * rng.random(shape)
+    p = 1.0 + 0.1 * rng.random(shape)
+    v = 0.3 * (rng.random(shape + (3,)) - 0.5)
+    B = 0.05 * (1.0 + rng.random(shape + (3,)))
+    psi = 0.01 * rng.standard_normal(shape)
+    q = pack_matter_mhd(*(torch.from_numpy(x) for x in (z4, rho, v, p, B)),
+                        psi_glm=torch.from_numpy(psi))
+    return q.movedim(-1, va).to(device=sol.weights.device, dtype=sol.weights.dtype).contiguous()
+
+
+def z4g_totals(torch, sol, u) -> tuple[list[float], float]:
+    """``([∫D̃ dV, ∫B̃^x dV, ∫B̃^y dV, ∫B̃^z dV], ∫|B̃| dV)`` over the grid
+    (:func:`z4m_integral`; |B̃| the Euclidean norm of the three slots)."""
+    va = sol.var_axis
+    totals = [z4m_integral(torch, sol, u, slot) for slot in (38, 43, 44, 45)]
+    w = sol.weights.to(device=u.device, dtype=torch.float64)
+    w3 = (w[:, None, None] * w[None, :, None] * w[None, None, :]).reshape(
+        (sol.n_nodes,) * 3 + (1,) * (u.dim() - 3))
+    norm = u.narrow(va, 43, 3).double().norm(dim=va, keepdim=True)
+    return totals, float((norm * w3).sum()) * math.prod(sol._dxs)
+
+
+def z4_grmhd_path(torch, dev, card) -> list[dict]:
+    """The Z4+GRMHD path: the 47-variable coupled step through ``CudaADERDG``
+    (K1 d's conservative-flux variant over the magnetized system,
+    ``csrc/aderdg_z4_grmhd.cu``) and the ``with_cuda_rhs`` route (K5 e,
+    ``rhs_all_z4_grmhd``); returns their lines of the kernel JSON."""
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+    from exahype_tpu_torch.models.z4_grmhd import (
+        magnetized_wave_state,
+        make_z4_grmhd_solver,
+        z4_grmhd_admissible,
+    )
+    from exahype_tpu_torch.models.z4_matter import make_z4_matter_solver
+
+    def make(grid, dtype, **params):
+        plain = make_z4_grmhd_solver(3, Z4_ORDER, grid, dx=Z4_DX, fused_rhs="soa", device=dev,
+                                     dtype=dtype, **params)
+        return plain, with_cuda_rhs(plain)
+
+    admissible = z4_grmhd_admissible(gamma=Z4G_PARAMS["gamma"], iters=Z4G_PARAMS["iters"])
+    t0 = time.perf_counter()
+
+    def phase(what):
+        say(f"[z4g] {what}: {time.perf_counter() - t0:.1f} s into the path (host clock)")
+
+    # ------------------------------------------- kernels vs plain, float64, cut grid
+    for params in Z4G_FAMILIES:
+        plain64, kern64 = make(Z4_CUT, torch.float64, **params)
+        k5_64 = kern64.rhs_all_fn
+        which = f"{k5_64.inner.physics.params}"
+        u = z4g_noisy(torch, plain64)
+        if not bool(admissible(u, plain64.var_axis).all()):
+            fail(f"the Z4+GRMHD parity state is not admissible ({which})")
+        for i, (Q, grads, va) in enumerate(z4_rhs_calls(plain64, u, Z4_DT)):
+            got, again = k5_64(Q, grads, va), k5_64(Q, grads, va)
+            ref = plain64.rhs_all_fn(Q, grads, va)
+            torch.cuda.synchronize()
+            err = max_err(torch, got, ref)
+            limit = Z4_F64_RTOL * max(1.0, ref.abs().max().item())
+            ok = err <= limit and torch.equal(got, again)
+            name = z4_call_name(i, plain64.picard_iters)
+            say(f"[z4g parity] rhs_all_z4_grmhd float64 {Z4_CUT} magnetized fluid, noisy Z4 "
+                f"slots (slicing, f, m, κ₁, κ₂, Γ, iters, c_h, κ) = {which} {name} "
+                f"{tuple(Q.shape)}: max_abs_err {err:.3e} limit {limit:.3e} ({Z4_F64_RTOL:.0e} "
+                f"x max(1, max|plain| = {ref.abs().max().item():.4g})); repeat bitwise "
+                f"{torch.equal(got, again)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"K5 e (float64, {which}, {name}) disagrees with its plain version")
+        step_k, step_p = kern64.step(u, Z4_DT), plain64.step(u, Z4_DT)
+        err = max_err(torch, step_k, step_p)
+        limit = Z4_F64_RTOL * max(1.0, step_p.abs().max().item())
+        say(f"[z4g parity] one float64 step {Z4_CUT} {which} through with_cuda_rhs vs the plain "
+            f"step: max_abs_err {err:.3e} limit {limit:.3e}; K5 e launches {k5_64.launches}")
+        if not err <= limit:
+            fail(f"the float64 Z4+GRMHD step through K5 e disagrees with the plain step ({which})")
+        z4_kernel_parity(torch, plain64, CudaADERDG(plain64), u, Z4_DT, f"K1 d GRMHD {which}",
+                         tag="z4g")
+        del plain64, kern64, k5_64, u, got, again, ref, step_k, step_p
+
+    phase("the float64 parity of two families")
+
+    # ------------------------------------------- the zero-field cross-check, float64
+    # B̃ = φ̃ = 0 on a Z4+GRHD state: the first 43 rows of one kernel step
+    # are the Z4+GRHD kernels' step, to the recoveries' convergence.
+    g64, _ = make(Z4_CUT, torch.float64, **dict(Z4G_PARAMS, c_h=Z4G_ZERO_FIELD_CH))
+    m64 = make_z4_matter_solver(3, Z4_ORDER, Z4_CUT, dx=Z4_DX, fused_rhs="soa", device=dev,
+                                dtype=torch.float64, **Z4M_PARAMS)
+    va = m64.var_axis
+    um = z4m_noisy(torch, m64)
+    ug = torch.cat([um, torch.zeros_like(um.narrow(va, 0, 4))], dim=va).contiguous()
+    cug, cum = CudaADERDG(g64), CudaADERDG(m64)
+    sg, sm = cug.step(ug, Z4_DT), cum.step(um, Z4_DT)
+    torch.cuda.synchronize()
+    rtol, atol = Z4G_ZERO_FIELD_TOL
+    head = sg.narrow(va, 0, 43)
+    err = max_err(torch, head, sm)
+    excess = ((head - sm).abs() - rtol * sm.abs()).max().item()
+    field = sg.narrow(va, 43, 4).abs().max().item()
+    ok = excess <= atol and field == 0.0
+    say(f"[z4g zero field] float64 {Z4_CUT}, B̃ = φ̃ = 0 on the Z4+GRHD parity state, c_h = "
+        f"{Z4G_ZERO_FIELD_CH} (under the cone): one step through CudaADERDG(Z4+GRMHD) vs "
+        f"CudaADERDG(Z4+GRHD), rows 0-42: max_abs_err {err:.3e}, max(|a − b| − {rtol:g}|b|) "
+        f"{excess:.3e} (limit {atol:g}); max|B̃, φ̃| after the step {field!r}; launches "
+        f"{cug.launches} and {cum.launches} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("with B̃ = φ̃ = 0 the Z4+GRMHD kernel step is not the Z4+GRHD kernel step")
+    del g64, m64, um, ug, cug, cum, sg, sm, head
+    phase("the zero-field cross-check")
+
+    # ------------------------------------------- kernels vs plain, float32, full width
+    plain, kern = make(Z4_GRID, torch.float32, **Z4G_PARAMS)
+    sol64, _ = make(Z4_GRID, torch.float64, **Z4G_PARAMS)
+    cu = CudaADERDG(plain)
+    k5 = kern.rhs_all_fn
+    iters = plain.picard_iters
+    va = plain.var_axis
+    u0 = magnetized_wave_state(plain, B0=Z4G_B0, amp=Z4G_AMP).contiguous()
+    un = z4g_noisy(torch, plain)
+    ncell = math.prod(Z4_GRID)
+    dofs = plain.dofs()
+    cfl = float(plain.cfl_dt(u0))
+    say(f"[z4g] {Z4_GRID} cells, order {Z4_ORDER}, 47 vars, {Z4G_PARAMS}; the magnetized wave "
+        f"(B0 = {Z4G_B0}, amplitude {Z4G_AMP}, one period along axis 0): {dofs} DOF, state "
+        f"{u0.nbytes} B f32; dt = {Z4_DT!r}; cfl_dt(initial state) = {cfl!r} (dt / cfl_dt = "
+        f"{Z4_DT / cfl!r}); picard_iters {iters}")
+    if Z4_DT > cfl:
+        fail(f"dt = {Z4_DT} is over the Z4+GRMHD state's CFL limit {cfl}")
+    if not bool(admissible(u0, va).all()):
+        fail("the magnetized wave is not admissible")
+    calls = z4_rhs_calls(plain, un, Z4_DT)
+    k5_err = 0.0
+    for i in (0, iters):  # the Picard shape, the corrector's
+        Q, grads, va_ = calls[i]
+        got = k5(Q, grads, va_)
+        ref = plain.rhs_all_fn(Q, grads, va_)
+        ref64 = plain.rhs_all_fn(Q.double(), tuple(g.double() for g in grads), va_)
+        torch.cuda.synchronize()
+        err, limit = max_err(torch, got, ref), f32_bound(torch, ref)
+        to64_k, to64_p = max_err(torch, got, ref64), max_err(torch, ref, ref64)
+        ok = err <= limit
+        say(f"[z4g parity] rhs_all_z4_grmhd float32 {Z4_GRID} magnetized fluid, noisy Z4 slots "
+            f"{z4_call_name(i, iters)} {tuple(Q.shape)}: max_abs_err {err:.3e} limit "
+            f"{limit:.3e} ({F32_ULPS} f32 spacings of max|plain| = {ref.abs().max().item():.4g}) "
+            f"{'ok' if ok else 'FAIL'}; against the float64 plain result: kernel {to64_k:.3e}, "
+            f"plain float32 {to64_p:.3e}")
+        if not ok:
+            fail(f"K5 e (float32, {z4_call_name(i, iters)}) disagrees with its plain version")
+        k5_err = max(k5_err, err)
+        del got, ref, ref64
+    del calls
+    k1d_errs = z4_kernel_parity(torch, plain, cu, un, Z4_DT, "K1 d GRMHD, the path's own",
+                                sol64, tag="z4g")
+    del un, sol64
+    torch.cuda.empty_cache()
+    phase("the float32 parity at full width")
+
+    # ------------------------------------------- the main path: CudaADERDG
+    gib = 2.0**-30
+    uw = cu.run(u0, Z4G_WARMUP, Z4_DT)
+    totals0, field0 = z4g_totals(torch, plain, uw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cu.reset_launches()
+    u_d = cu.run(uw, STEPS, Z4_DT)
+    torch.cuda.synchronize()
+    d_launches = dict(cu.launches)
+    d_peak = torch.cuda.max_memory_allocated()
+    say(f"[z4g main] {Z4G_WARMUP} warm-up steps, then {STEPS} steps of {Z4_GRID} f32 through "
+        f"CudaADERDG(make_z4_grmhd_solver(..., fused_rhs='soa')): launches {d_launches} "
+        f"(expected {STEPS} of each: 3 a step); peak {d_peak * gib:.4f} GiB allocated "
+        f"({held * gib:.4f} GiB held before) ({card})")
+    if d_launches != {name: STEPS for name in cu.kernels}:
+        fail(f"the Z4+GRMHD step through CudaADERDG launched {d_launches} in {STEPS} steps, "
+             "expected 3 a step")
+    if tuple(u_d.shape) != plain.state_shape or not torch.isfinite(u_d).all():
+        fail("the Z4+GRMHD state through CudaADERDG is not finite or has the wrong shape")
+    if not bool(admissible(u_d, va).all()):
+        fail("the Z4+GRMHD state through CudaADERDG is not admissible")
+    totals1, _ = z4g_totals(torch, plain, u_d)
+    drifts = [abs(totals1[0] - totals0[0]) / abs(totals0[0])]
+    drifts += [abs(b - a) / field0 for a, b in zip(totals0[1:], totals1[1:])]
+    say(f"[z4g main] CudaADERDG over {STEPS} steps: ∫D̃ dV {totals0[0]!r} -> {totals1[0]!r}, "
+        f"drift {drifts[0]!r}; ∫B̃^i dV {totals0[1:]!r} -> {totals1[1:]!r}, drift against "
+        f"∫|B̃| dV = {field0!r}: {drifts[1:]!r} (gate {Z4G_DRIFT}); admissible "
+        "(z4_grmhd_admissible) at every node")
+    if not max(drifts) <= Z4G_DRIFT:
+        fail(f"∫D̃ or ∫B̃^i dV drifted by {drifts} over {STEPS} Z4+GRMHD steps through CudaADERDG")
+    if not torch.equal(u_d, cu.run(uw, STEPS, Z4_DT)):
+        fail("two Z4+GRMHD runs through CudaADERDG from the same state differ")
+    say("[z4g main] CudaADERDG: two runs from the same state: bitwise equal")
+
+    # ------------------------------------------- the with_cuda_rhs route (K5 e)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k5.reset_launches()
+    u_k = kern.run(uw, Z4G_EAGER_STEPS, Z4_DT)
+    torch.cuda.synchronize()
+    launches = k5.launches
+    peak = torch.cuda.max_memory_allocated()
+    want = (iters + 2) * Z4G_EAGER_STEPS
+    say(f"[z4g main] {Z4G_EAGER_STEPS} steps of {Z4_GRID} f32 through make_z4_grmhd_solver + "
+        f"with_cuda_rhs: K5 e launches {launches} (expected (picard_iters + 2) x steps = "
+        f"{want}); peak {peak * gib:.4f} GiB allocated ({card})")
+    if launches != want:
+        fail(f"K5 e launched {launches} times in {Z4G_EAGER_STEPS} Z4+GRMHD steps, expected "
+             f"{want}")
+    if tuple(u_k.shape) != plain.state_shape or not torch.isfinite(u_k).all():
+        fail("the Z4+GRMHD state through with_cuda_rhs is not finite or has the wrong shape")
+    if not bool(admissible(u_k, va).all()):
+        fail("the Z4+GRMHD state through with_cuda_rhs is not admissible")
+    # The plain path over as many steps; the kernel path after 1 and after
+    # them, within that many f32 bounds.
+    torch.cuda.reset_peak_memory_stats()
+    p1 = plain.step(uw, Z4_DT)
+    pn = plain.run(p1, Z4G_EAGER_STEPS - 1, Z4_DT)
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated()
+    d1, dn = cu.step(uw, Z4_DT), cu.run(uw, Z4G_EAGER_STEPS, Z4_DT)
+    for route, n, a, b in (("CudaADERDG", 1, d1, p1), ("CudaADERDG", Z4G_EAGER_STEPS, dn, pn),
+                           ("with_cuda_rhs", Z4G_EAGER_STEPS, u_k, pn)):
+        err, limit = max_err(torch, a, b), n * f32_bound(torch, b)
+        say(f"[z4g main] {route}, {n} step(s), kernel path vs plain path: max_abs_err "
+            f"{err:.3e} limit {limit:.3e}")
+        if not err <= limit:
+            fail(f"the Z4+GRMHD kernel path ({route}) disagrees with the plain path after "
+                 f"{n} step(s)")
+    del d1, dn, p1
+    phase("the main runs and the plain path")
+
+    # Readings: the constraint sector (Θ, Z), the field the flow bends
+    # (B̃^y, zero at first), the cleaning scalar.
+    t_d = (Z4G_WARMUP + STEPS) * Z4_DT
+    t_e = (Z4G_WARMUP + Z4G_EAGER_STEPS) * Z4_DT
+    for label, t, x in (("CudaADERDG path", t_d, u_d), ("with_cuda_rhs path", t_e, u_k),
+                        ("plain path", t_e, pn)):
+        th = x.narrow(va, 13, 1).double().abs().max().item()
+        zz = x.narrow(va, 14, 3).double().abs().max().item()
+        by = x.narrow(va, 44, 1).double().abs().max().item()
+        psi = x.narrow(va, 46, 1).double().abs().max().item()
+        totals, _ = z4g_totals(torch, plain, x)
+        say(f"[z4g reading] {label} at t = {t!r} from the magnetized wave: max|Θ| {th!r}, "
+            f"max|Z_i| {zz!r}, max|B̃^y| {by!r}, max|φ̃| {psi!r}, ∫(D̃, B̃^x, B̃^y, B̃^z) dV "
+            f"{totals!r}")
+    del pn, u_k, u_d
+    phase("the readings")
+
+    # ------------------------------------------- times
+    d_win = windows(torch, cu, u0, Z4_DT, steps=10)
+    k_win = windows(torch, kern, u0, Z4_DT, steps=1)
+    p_win = windows(torch, plain, u0, Z4_DT, steps=1, n_windows=1)
+    for label, win in (("CudaADERDG path", d_win), ("with_cuda_rhs path", k_win),
+                       ("plain path", p_win)):
+        ms = [1e3 * w for w in win]
+        say(f"[z4g time] {label}: step ms per window {ms!r}; median {statistics.median(ms)!r} "
+            f"ms, {dofs / statistics.median(win)!r} DOF-updates/s ({dofs} DOF per step; {card})")
+    new, faces, _ = cu.predictor_volume(u0, Z4_DT)
+    fhat, fhalf = cu.face_flux(faces)
+    pred, flux, update = cu.kernels
+    d_times = {
+        pred: (event_ms(torch, lambda: cu.predictor_volume(u0, Z4_DT), 20),
+               once_ms(torch, lambda: plain.predictor_volume(u0, Z4_DT))),
+        flux: (event_ms(torch, lambda: cu.face_flux(faces), 20),
+               once_ms(torch, lambda: z4_plain_face_flux(torch, plain, faces))),
+        update: (event_ms(torch, lambda: cu.surface_update(new, fhat, Z4_DT, fhalf=fhalf), 20),
+                 once_ms(torch, lambda: z4_plain_update(plain, new, fhat, fhalf, Z4_DT))),
+        "face stage": (event_ms(torch, lambda: cu.face_surface(new, faces, Z4_DT), 20),
+                       once_ms(torch, lambda: plain.face_surface(new, faces, Z4_DT))),
+        "step": (event_ms(torch, lambda: cu.step(u0, Z4_DT), 20),
+                 once_ms(torch, lambda: plain.step(u0, Z4_DT))),
+    }
+    for name, (ms, plain_ms) in d_times.items():
+        say(f"[z4g time] K1 d GRMHD {name}: kernel {ms!r} ms, plain {plain_ms!r} ms (CUDA "
+            f"events; {card})")
+    calls = z4_rhs_calls(plain, u0, Z4_DT)
+    pic, cor = calls[0], calls[iters]
+    del calls
+    k5_ms = {
+        "Picard": event_ms(torch, lambda: k5(*pic), 20),
+        "corrector": event_ms(torch, lambda: k5(*cor), 20),
+    }
+    k5_plain_ms = {
+        "Picard": event_ms(torch, lambda: plain.rhs_all_fn(*pic), 2),
+        "corrector": event_ms(torch, lambda: plain.rhs_all_fn(*cor), 2),
+    }
+    say(f"[z4g time] K5 e per launch (CUDA events, 20 launches): Picard shape "
+        f"{tuple(pic[0].shape)} {k5_ms['Picard']!r} ms, corrector shape {tuple(cor[0].shape)} "
+        f"{k5_ms['corrector']!r} ms; plain rhs_all_fn {k5_plain_ms['Picard']!r} / "
+        f"{k5_plain_ms['corrector']!r} ms ({card})")
+    idle, busy, wall = idle_share(torch, lambda: cu.run(u0, 20, Z4_DT))
+    say(f"[z4g idle] CudaADERDG path, 20 steps under torch.profiler: device busy {busy!r} ms of "
+        f"wall {wall!r} ms; idle share {idle!r} ({card})")
+    idle, busy, wall = idle_share(torch, lambda: kern.step(u0, Z4_DT))
+    say(f"[z4g idle] with_cuda_rhs path, 1 step under torch.profiler: device busy {busy!r} ms "
+        f"of wall {wall!r} ms; idle share {idle!r} ({card})")
+    say(f"[z4g mem] peak allocated: CudaADERDG path over {STEPS} steps {d_peak * gib:.4f} GiB, "
+        f"with_cuda_rhs path over {Z4G_EAGER_STEPS} {peak * gib:.4f} GiB, plain path over "
+        f"{Z4G_EAGER_STEPS} {plain_peak * gib:.4f} GiB ({card})")
+    phase("the times")
+
+    # ------------------------------------------- bounds
+    counts = z4_point_ops(torch, plain.rhs_all_fn)
+    per_point = sum(counts.values())
+    q_slots, grad_slots = z4_slots_read(torch, plain.rhs_all_fn)
+    bounds = {}
+    for name, (Q, _, va_) in (("Picard", pic), ("corrector", cor)):
+        points = Q.numel() // Q.shape[va_]
+        n_bytes = Q.element_size() * points * (q_slots + grad_slots + Q.shape[va_])
+        bounds[name] = bound(n_bytes, per_point * points)
+        say(f"[bound] rhs_all_z4_grmhd {name} shape {tuple(Q.shape)} f32: {per_point} "
+            f"operations a point ({counts}, counted on the plain algebra, the recovery's "
+            f"{Z4G_PARAMS['iters']} Newton trips included), {points} points, {n_bytes} B "
+            f"({q_slots} state slots and {grad_slots} gradient slots read, as the plain algebra "
+            f"reads them, {Q.shape[va_]} written): bound {bounds[name]['bound_ms']!r} ms by "
+            f"{bounds[name]['bound_by']}; kernel {k5_ms[name]!r} ms ({card})")
+    full = z4_value_ops(torch, plain.rhs_all_fn)
+    zero = z4_value_ops(torch, plain.rhs_all_fn, ())
+    axes = [z4_value_ops(torch, plain.rhs_all_fn, (k,)) for k in range(3)]
+    say(f"[bound] the Z4+GRMHD algebra's operations at a point with no zero state slot "
+        f"(z4_value_ops): every gradient axis {full}, none {zero}, one {axes}; gradient slots "
+        f"read {grad_slots // 3} an axis (the plain count on flat space at rest with zero "
+        f"gradients is {per_point}); the matter flux of the three axes {Z4G_FLUX_OPS} beside "
+        "the shared recovery")
+    work = z4_kernel_work(Z4_ORDER, iters, ncell, u0.element_size(), full, zero,
+                          sum(axes) / 3, v=plain.n_vars, gs=grad_slots // 3,
+                          eig_ops=Z4G_EIG_OPS, suffix="z4_grmhd", hydro=9,
+                          flux_ops=Z4G_FLUX_OPS)
+    work["face stage"] = tuple(a + b for a, b in zip(work[flux], work[update]))
+    lines = []
+    for name in (pred, flux, update, "face stage"):
+        bnd = kernel_report(None if name == "face stage" else cu, name, torch.float32,
+                            f"(Z4+GRMHD) {Z4_GRID} f32", d_times[name][0], *work[name], card)
+        if name == "face stage":
+            continue
+        lines.append(kernel_line(f"{name} (Z4+GRMHD, K1 d)",
+                                 "exahype_tpu/models/aderdg_pallas.py:156", d_launches[name],
+                                 k1d_errs[name], *d_times[name], bnd,
+                                 "exahype_tpu_torch/csrc/aderdg_z4.cuh"))
+    del kern, plain, cu, u0, uw, pic, cor, new, faces, fhat, fhalf
+    torch.cuda.empty_cache()
+    return lines + [{
+        "name": "rhs_all_z4_grmhd",
+        "route": "cuda",
+        "source": "exahype_tpu_torch/csrc/rhs.cu",
+        "replaces": "exahype_tpu/models/rhs_pallas.py:104",
+        "launches": launches,
+        "max_abs_err": k5_err,
+        "ms": k5_ms["Picard"],
+        "plain_ms": k5_plain_ms["Picard"],
+        **bounds["Picard"],
+        "library_ms": None,  # no single PyTorch call computes it
+    }]
+
+
 def main():
     import torch
 
@@ -3786,6 +4231,7 @@ def main():
         "Z4": lambda: z4_path(torch, dev, card),
         "Z4 shifted": lambda: z4_shift_path(torch, dev, card),
         "Z4+GRHD": lambda: z4_matter_path(torch, dev, card),
+        "Z4+GRMHD": lambda: z4_grmhd_path(torch, dev, card),
     }
     kernels, seconds = [], {"build": time.perf_counter() - t0}
     for name, run in paths.items():

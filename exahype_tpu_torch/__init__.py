@@ -1,6 +1,6 @@
 """exahype_tpu_torch — the PyTorch/CUDA port of ``exahype_tpu``.
 
-Eight paths of the JAX package run here, on an NVIDIA H100 through CUDA
+Nine paths of the JAX package run here, on an NVIDIA H100 through CUDA
 kernels written for it, and on the CPU through their plain PyTorch
 versions, which match the JAX package:
 
@@ -36,7 +36,13 @@ versions, which match the JAX package:
   ``make_z4_matter_solver(..., fused_rhs="soa")`` → ``CudaADERDG`` (the
   kernels of ``csrc/aderdg_z4_matter.cu``, which carry the hydro flux and
   the recovery's Newton) or ``with_cuda_rhs``; its anchor is the FLRW
-  universe (``flrw_state``, ``flrw_reference``).
+  universe (``flrw_state``, ``flrw_reference``);
+- the coupled Z4 + general-relativistic MHD step (47 variables: the fluid
+  magnetized, with GLM divergence cleaning; the ExaGRyPE flagship's
+  shape): ``make_z4_grmhd_solver(..., fused_rhs="soa")`` → ``CudaADERDG``
+  (the kernels of ``csrc/aderdg_z4_grmhd.cu``, the field-aligned recovery's
+  Newton in them) or ``with_cuda_rhs``; on the magnetized wave
+  (``magnetized_wave_state``).
 
 It imports ``torch``, NumPy and (for the spec DSL) SymPy, never JAX.
 States use the JAX package's SoA-P layouts, so they pass between the
@@ -68,6 +74,9 @@ _EXPORTS = {
     "flrw_state": "exahype_tpu_torch.models.z4_matter",
     "flrw_reference": "exahype_tpu_torch.models.z4_matter",
     "z4_matter_admissible": "exahype_tpu_torch.models.z4_matter",
+    "make_z4_grmhd_solver": "exahype_tpu_torch.models.z4_grmhd",
+    "magnetized_wave_state": "exahype_tpu_torch.models.z4_grmhd",
+    "z4_grmhd_admissible": "exahype_tpu_torch.models.z4_grmhd",
     "CudaRHS": "exahype_tpu_torch.models.rhs_cuda",
     "with_cuda_rhs": "exahype_tpu_torch.models.rhs_cuda",
     "CudaADERDG": "exahype_tpu_torch.models.aderdg_cuda",
@@ -87,6 +96,7 @@ _EXPORTS = {
     "z4_solver_from_jax": "exahype_tpu_torch.convert",
     "z4_shift_solver_from_jax": "exahype_tpu_torch.convert",
     "z4_matter_solver_from_jax": "exahype_tpu_torch.convert",
+    "z4_grmhd_solver_from_jax": "exahype_tpu_torch.convert",
     "state_from_numpy": "exahype_tpu_torch.convert",
     "state_to_numpy": "exahype_tpu_torch.convert",
     "SemanticError": "exahype_tpu_torch.utils.errors",

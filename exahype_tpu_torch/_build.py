@@ -94,6 +94,9 @@ _RHS_ALL = (
 _RHS_ALL_SHIFT = _RHS_ALL[:-1] + (_INT, ctypes.c_double, ctypes.c_double, _P)
 # The Z4+GRHD instance: the same, then before the stream gamma, iters.
 _RHS_ALL_MATTER = _RHS_ALL[:-1] + (ctypes.c_double, _INT, _P)
+# The Z4+GRMHD instance: the same, then before the stream gamma, iters, c_h,
+# glm_kappa.
+_RHS_ALL_GRMHD = _RHS_ALL[:-1] + (ctypes.c_double, _INT, ctypes.c_double, ctypes.c_double, _P)
 _SIGNATURES = {
     f"exahype_{kernel}_{suffix}": argtypes
     for kernel, argtypes in (
@@ -113,10 +116,14 @@ _SIGNATURES = {
         ("aderdg_predictor_volume_z4_matter", _PREDICTOR_VOLUME),
         ("aderdg_face_flux_z4_matter", _FACE_FLUX_Z4),
         ("aderdg_surface_update_z4_matter", _SURFACE_UPDATE_Z4),
+        ("aderdg_predictor_volume_z4_grmhd", _PREDICTOR_VOLUME),
+        ("aderdg_face_flux_z4_grmhd", _FACE_FLUX_Z4),
+        ("aderdg_surface_update_z4_grmhd", _SURFACE_UPDATE_Z4),
         ("subcell_row_sweep", _ROW_SWEEP),
         ("rhs_all_z4", _RHS_ALL),
         ("rhs_all_z4_shift", _RHS_ALL_SHIFT),
         ("rhs_all_z4_matter", _RHS_ALL_MATTER),
+        ("rhs_all_z4_grmhd", _RHS_ALL_GRMHD),
     )
     for suffix in ("f32", "f64")
 }

@@ -155,9 +155,10 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
     visc_eigenvalue_fn) 4-tuple of the port's.  A JAX solver with
     ``source_fn``, ``ncp_fn`` or ``rhs_all_fn`` set raises ``SemanticError``
     (those are JAX functions; the Z4 systems cross through
-    :func:`z4_solver_from_jax`, :func:`z4_shift_solver_from_jax` and
-    :func:`z4_matter_solver_from_jax`); so does one whose viscous callbacks the
-    named physics does not replace, or the other way round.
+    :func:`z4_solver_from_jax`, :func:`z4_shift_solver_from_jax`,
+    :func:`z4_matter_solver_from_jax` and :func:`z4_grmhd_solver_from_jax`);
+    so does one whose viscous callbacks the named physics does not replace,
+    or the other way round.
 
     Walls: outflow and farfield need nothing more; a Dirichlet solver's
     rows cross as data (``dirichlet_fn(d, side)`` of each wall, as NumPy,
@@ -176,8 +177,8 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
         if getattr(jax_solver, name) is not None:
             raise SemanticError(
                 f"the JAX solver's {name} is a JAX function the port cannot "
-                "call; for the Z4 systems use z4_solver_from_jax, z4_shift_solver_from_jax or "
-                "z4_matter_solver_from_jax"
+                "call; for the Z4 systems use z4_solver_from_jax, z4_shift_solver_from_jax, "
+                "z4_matter_solver_from_jax or z4_grmhd_solver_from_jax"
             )
     viscous = getattr(jax_solver, "visc_flux_fn", None) is not None
     if viscous != ("visc_flux_fn" in callbacks):
@@ -298,8 +299,9 @@ def grid_solver_from_jax(jax_solver, *, spec: str, gamma: float, device=None,
 def _z4_from_jax(jax_solver, make, name: str, n_vars: int, other: str, params: dict,
                  device, dtype):
     """The port's solver for a JAX Z4 solver of ``n_vars`` variables through
-    the port's constructor ``make`` (``make_z4_solver`` or
-    ``make_z4_shift_solver``), with the hooks as they are set; see
+    the port's constructor ``make`` (``make_z4_solver``,
+    ``make_z4_shift_solver``, ``make_z4_matter_solver`` or
+    ``make_z4_grmhd_solver``), with the hooks as they are set; see
     :func:`z4_solver_from_jax`."""
     from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
     from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
@@ -354,17 +356,18 @@ def z4_solver_from_jax(jax_solver, *, slicing: str = "harmonic", f: float = 1.0,
     ``PallasADERDG`` over a fused Z4 solver maps to
     :class:`~exahype_tpu_torch.models.aderdg_cuda.CudaADERDG` over the port's
     solver for the one it wraps (its step's kernels compile the algebra in).
-    A 53-variable (shifted) or 43-variable (Z4+GRHD) solver raises
-    ``SemanticError``: it crosses through :func:`z4_shift_solver_from_jax` or
-    :func:`z4_matter_solver_from_jax`.  States cross through
+    A 53-variable (shifted), 43-variable (Z4+GRHD) or 47-variable (Z4+GRMHD)
+    solver raises ``SemanticError``: it crosses through
+    :func:`z4_shift_solver_from_jax`, :func:`z4_matter_solver_from_jax` or
+    :func:`z4_grmhd_solver_from_jax`.  States cross through
     :func:`state_from_numpy`.
     """
     from exahype_tpu_torch.models.z4 import N_VARS, make_z4_solver
 
     params = dict(slicing=slicing, f=f, m=m, kappa1=kappa1, kappa2=kappa2)
     return _z4_from_jax(jax_solver, make_z4_solver, "vacuum Z4", N_VARS,
-                        "z4_shift_solver_from_jax or z4_matter_solver_from_jax", params, device,
-                        dtype)
+                        "z4_shift_solver_from_jax, z4_matter_solver_from_jax or "
+                        "z4_grmhd_solver_from_jax", params, device, dtype)
 
 
 def z4_shift_solver_from_jax(jax_solver, *, slicing: str = "harmonic", f: float = 1.0,
@@ -375,15 +378,17 @@ def z4_shift_solver_from_jax(jax_solver, *, slicing: str = "harmonic", f: float 
     solver (53 variables): as :func:`z4_solver_from_jax`, the caller naming
     the system's parameters, the shift condition with them (``shift``,
     ``f_b``, ``eta``).  ``with_pallas_rhs`` of it maps to ``with_cuda_rhs``,
-    ``PallasADERDG`` of it to ``CudaADERDG``.  A 38-variable solver raises
-    ``SemanticError``: it crosses through :func:`z4_solver_from_jax`."""
+    ``PallasADERDG`` of it to ``CudaADERDG``.  A solver of another variable
+    count raises ``SemanticError``: 38 crosses through
+    :func:`z4_solver_from_jax`, 43 through :func:`z4_matter_solver_from_jax`,
+    47 through :func:`z4_grmhd_solver_from_jax`."""
     from exahype_tpu_torch.models.z4 import N_VARS_SHIFT, make_z4_shift_solver
 
     params = dict(slicing=slicing, f=f, m=m, kappa1=kappa1, kappa2=kappa2, shift=shift,
                   f_b=f_b, eta=eta)
     return _z4_from_jax(jax_solver, make_z4_shift_solver, "shifted vacuum Z4", N_VARS_SHIFT,
-                        "z4_solver_from_jax or z4_matter_solver_from_jax", params, device,
-                        dtype)
+                        "z4_solver_from_jax, z4_matter_solver_from_jax or "
+                        "z4_grmhd_solver_from_jax", params, device, dtype)
 
 
 def z4_matter_solver_from_jax(jax_solver, *, gamma: float = 5.0 / 3.0, iters: int = 10,
@@ -397,14 +402,39 @@ def z4_matter_solver_from_jax(jax_solver, *, gamma: float = 5.0 / 3.0, iters: in
     ``PallasADERDG`` of it to ``CudaADERDG`` (K1 d's conservative-flux
     variant).  A solver of another variable count raises ``SemanticError``:
     38 crosses through :func:`z4_solver_from_jax`, 53 through
-    :func:`z4_shift_solver_from_jax`."""
+    :func:`z4_shift_solver_from_jax`, 47 through
+    :func:`z4_grmhd_solver_from_jax`."""
     from exahype_tpu_torch.models.z4_matter import N_VARS, make_z4_matter_solver
 
     params = dict(gamma=gamma, iters=iters, slicing=slicing, f=f, m=m, kappa1=kappa1,
                   kappa2=kappa2)
     return _z4_from_jax(jax_solver, make_z4_matter_solver, "Z4+GRHD", N_VARS,
-                        "z4_solver_from_jax or z4_shift_solver_from_jax", params, device,
-                        dtype)
+                        "z4_grmhd_solver_from_jax, z4_solver_from_jax or "
+                        "z4_shift_solver_from_jax", params, device, dtype)
+
+
+def z4_grmhd_solver_from_jax(jax_solver, *, gamma: float = 5.0 / 3.0, iters: int = 20,
+                             slicing: str = "harmonic", f: float = 1.0, m: float = 2.0,
+                             kappa1: float = 0.0, kappa2: float = 0.0, c_h: float = 1.0,
+                             glm_kappa: float = 0.0, device=None,
+                             dtype: torch.dtype = torch.float64):
+    """The port's coupled Z4+GRMHD solver for a JAX ``make_z4_grmhd_solver``
+    solver (47 variables): as :func:`z4_solver_from_jax`, the caller naming
+    the system's parameters, the fluid's (``gamma``, ``iters``) and the
+    cleaning's (``c_h``, ``glm_kappa``) with them.  ``with_pallas_rhs`` of
+    it maps to ``with_cuda_rhs`` (K5 e), ``PallasADERDG`` of it to
+    ``CudaADERDG`` (K1 d's conservative-flux variant over the 47-variable
+    system).  A solver of another variable count raises ``SemanticError``:
+    38 crosses through :func:`z4_solver_from_jax`, 53 through
+    :func:`z4_shift_solver_from_jax`, 43 through
+    :func:`z4_matter_solver_from_jax`."""
+    from exahype_tpu_torch.models.z4_grmhd import N_VARS, make_z4_grmhd_solver
+
+    params = dict(gamma=gamma, iters=iters, slicing=slicing, f=f, m=m, kappa1=kappa1,
+                  kappa2=kappa2, c_h=c_h, glm_kappa=glm_kappa)
+    return _z4_from_jax(jax_solver, make_z4_grmhd_solver, "Z4+GRMHD", N_VARS,
+                        "z4_solver_from_jax, z4_shift_solver_from_jax or "
+                        "z4_matter_solver_from_jax", params, device, dtype)
 
 
 def state_from_numpy(arr, *, device=None, dtype: torch.dtype | None = None):

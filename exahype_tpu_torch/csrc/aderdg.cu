@@ -3,7 +3,7 @@
 // on the physics (3-D compressible Euler, 3-D heterogeneous elasticity, and
 // for the face stage 3-D compressible Navier–Stokes, whose predictor is
 // csrc/aderdg_visc.cuh's).  The definitions both sources share are in
-// csrc/aderdg_common.cuh.  The Z4 steps (physics 3, 4 and 5) have their own
+// csrc/aderdg_common.cuh.  The Z4 steps (physics 3 to 6) have their own
 // three kernels each, csrc/aderdg_z4.cuh; this file's occupancy query
 // reports them.
 //
@@ -176,6 +176,10 @@ int z4_shift_kernel_info_f64(int which, int* out) __attribute__((weak));
 // aderdg_z4_matter_f64.cu; weak too), the same `which`.
 int z4_matter_kernel_info_f32(int which, int* out) __attribute__((weak));
 int z4_matter_kernel_info_f64(int which, int* out) __attribute__((weak));
+// The Z4+GRMHD kernels' occupancy (csrc/aderdg_z4_grmhd.cu and
+// aderdg_z4_grmhd_f64.cu; weak too), the same `which`.
+int z4_grmhd_kernel_info_f32(int which, int* out) __attribute__((weak));
+int z4_grmhd_kernel_info_f64(int which, int* out) __attribute__((weak));
 
 namespace {
 
@@ -1263,6 +1267,10 @@ int kernel_info(int kernel, int physics, int* out) {
     auto* info = sizeof(T) == 8 ? z4_matter_kernel_info_f64 : z4_matter_kernel_info_f32;
     return info && kernel >= 13 && kernel <= 15 ? info(kernel - 13, out) : cudaErrorInvalidValue;
   }
+  if (physics == kZ4Grmhd) {  // the Z4+GRMHD step's, 16-18
+    auto* info = sizeof(T) == 8 ? z4_grmhd_kernel_info_f64 : z4_grmhd_kernel_info_f32;
+    return info && kernel >= 16 && kernel <= 18 ? info(kernel - 16, out) : cudaErrorInvalidValue;
+  }
   if (physics == kNavierStokes) {
     // The viscous predictor, the face flux's own instantiation; the update
     // is Euler's.
@@ -1478,7 +1486,9 @@ int exahype_aderdg_surface_update_walls_f64(double* state, const double* fhat,
 // (the shifted Z4, csrc/aderdg_z4_shift.cu): 10 = predictor_volume_z4_shift,
 // 11 = face_flux_z4_shift, 12 = surface_update_z4_shift; physics 5
 // (Z4+GRHD, csrc/aderdg_z4_matter.cu): 13 = predictor_volume_z4_matter, 14 =
-// face_flux_z4_matter, 15 = surface_update_z4_matter; f64 = 0 or 1.
+// face_flux_z4_matter, 15 = surface_update_z4_matter; physics 6 (Z4+GRMHD,
+// csrc/aderdg_z4_grmhd.cu): 16 = predictor_volume_z4_grmhd, 17 =
+// face_flux_z4_grmhd, 18 = surface_update_z4_grmhd; f64 = 0 or 1.
 int exahype_aderdg_kernel_info(int kernel, int f64, int physics, int* out) {
   return f64 ? kernel_info<double>(kernel, physics, out)
              : kernel_info<float>(kernel, physics, out);

@@ -1,11 +1,11 @@
 // Definitions shared by the ADER-DG kernels of csrc/aderdg.cu (the Euler
 // and elastic predictors, the face stage), csrc/aderdg_visc.cu (the
 // viscous predictor) and csrc/aderdg_z4*.cu (the Z4 steps: vacuum, shifted
-// and coupled to matter): the physics the Picard predictors and the face
-// stage compile in, the kernels' parameter bank, the predictors'
-// shared-memory layouts, the face stage's tiling, and the host-side helpers
-// of their launchers.  Each source compiles its own copy (an anonymous
-// namespace).
+// and coupled to matter, magnetized or not): the physics the Picard
+// predictors and the face stage compile in, the kernels' parameter bank,
+// the predictors' shared-memory layouts, the face stage's tiling, and the
+// host-side helpers of their launchers.  Each source compiles its own copy
+// (an anonymous namespace).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,7 +19,8 @@ constexpr int kDim = 3;
 
 // Physics ids of the C interface.
 enum PhysicsId : int {
-  kEuler = 0, kElasticHet = 1, kNavierStokes = 2, kZ4 = 3, kZ4Shift = 4, kZ4Matter = 5
+  kEuler = 0, kElasticHet = 1, kNavierStokes = 2, kZ4 = 3, kZ4Shift = 4, kZ4Matter = 5,
+  kZ4Grmhd = 6
 };
 
 template <typename T>

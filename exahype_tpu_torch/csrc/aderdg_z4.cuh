@@ -1,12 +1,14 @@
 // The ADER-DG step of the Z4 systems for Hopper (sm_90a): 3-D, order 2,
 // periodic, the fused right-hand side, templated on the system: the
 // 38-variable zero-shift one (Z4Vacuum, csrc/z4.cuh), the 53-variable
-// shifted one (Z4Shift, csrc/z4_shift.cuh) and the 43-variable Z4+GRHD one
+// shifted one (Z4Shift, csrc/z4_shift.cuh), the 43-variable Z4+GRHD one
 // (Z4Matter, csrc/z4_matter.cuh), which also carries a conservative flux on
-// its hydro rows (kFlux).  The float32 instances and C interface are
-// csrc/aderdg_z4.cu, csrc/aderdg_z4_shift.cu and csrc/aderdg_z4_matter.cu,
-// the float64 ones the same names with _f64: six sources that nvcc compiles
-// in parallel.
+// its hydro rows (kFlux), and the 47-variable Z4+GRMHD one (Z4Grmhd,
+// csrc/z4_grmhd.cuh), the same flux branch on its fluid, field and cleaning
+// rows.  The float32 instances and C interface are csrc/aderdg_z4.cu,
+// csrc/aderdg_z4_shift.cu, csrc/aderdg_z4_matter.cu and
+// csrc/aderdg_z4_grmhd.cu, the float64 ones the same names with _f64: eight
+// sources that nvcc compiles in parallel.
 //
 // Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
 // PallasADERDG.build on a pure-NCP solver with the fused rhs_all_fn: its
@@ -23,8 +25,8 @@
 // ncp_term).
 //
 // Each kernel below has a _shift twin (aderdg_predictor_volume_z4_shift, ...)
-// over the same template body with the 53-variable system, and a _matter
-// twin with the 43-variable one.
+// over the same template body with the 53-variable system, a _matter twin
+// with the 43-variable one and a _grmhd twin with the 47-variable one.
 //
 //   aderdg_predictor_volume_z4  cell-local: the Picard predictor with
 //                            rhs_s = φ0_s u + dt w_s rhs(q_s, ∇q_s) (the flux
@@ -65,13 +67,12 @@
 // own live values set the register count (168-255 a thread), so a block is
 // the only one on its SM, and its CB is as large as the shared memory
 // allows (z4_cells_per_block): 4 cells (324 threads, 11 warps) in float32,
-// 2 in float64; shifted, 3 and 1.  A cell's space-time array (81 x V)
-// cannot live in registers;
-// it lives in shared memory, with u and the physical gradients of the
-// slots the algebra reads (∂α and ∂γ_ij never appear: 31 slots an axis;
-// shifted, also ∂b and ∂B, never ∂β: 43),
-// each row [slot][point] contiguous over the block's points, so the threads
-// of a warp read consecutive words.  A Picard iteration is three phases
+// 2 in float64; shifted and Z4+GRMHD, 3 and 1.  A cell's space-time array
+// (81 x V) cannot live in registers; it lives in shared memory, with u and
+// the physical gradients of the slots the algebra reads (∂α and ∂γ_ij never
+// appear: 31 slots an axis; shifted, also ∂b and ∂B, never ∂β: 43), each
+// row [slot][point] contiguous over the block's points, so the threads of a
+// warp read consecutive words.  A Picard iteration is three phases
 // between barriers: (1) each thread takes the gradients of its point
 // (3-point contractions with D along each axis, scaled by 1/dx_k after the
 // contraction, see z4_gradient), once, instead of the ~440 times the
@@ -85,7 +86,7 @@
 // the threads of slice 0 and rhs(q̄, 0) on those of slice 1.  Device memory
 // is read and written in another mapping, the block's cells fastest.  Shared
 // memory: 186,192 B a block in either type (shifted: 194,076 B in float32,
-// 129,384 B in float64).
+// 129,384 B in float64; Z4+GRMHD: 177,552 B and 118,368 B).
 //
 // The NCP terms are differences of two evaluations, rhs(q, g) − rhs(q, 0),
 // kept as the reference makes them.  The plain version runs the same
@@ -134,6 +135,7 @@
 
 #include "aderdg_common.cuh"
 #include "z4.cuh"
+#include "z4_grmhd.cuh"
 #include "z4_matter.cuh"
 #include "z4_shift.cuh"
 
@@ -270,6 +272,51 @@ struct Z4Matter {
   }
 };
 
+// The 47-variable Z4+GRMHD system: the template's conservative-flux branch
+// as Z4Matter takes it, on the kHydro = 9 rows of the fluid, the field and
+// the cleaning scalar; its recovery (z4gm::recover, the field-aligned
+// Newton of csrc/rmhd.cuh in it) is made once a point and shared by the
+// flux and the algebra (csrc/z4_grmhd.cuh).
+struct Z4Grmhd {
+  static constexpr int kVars = z4gm::kVars;
+  static constexpr int kPhysics = kZ4Grmhd;
+  static constexpr bool kFlux = true;
+  static constexpr int kFluxFirst = z4gm::kHD;
+  static constexpr int kHydro = z4gm::kHydro;
+  static constexpr int kGradFirst = z4::kK;
+  static constexpr int kGradSlots = z4::kVars - kGradFirst;
+  using P = z4gm::Params;
+  template <typename T>
+  using Rec = z4gm::Recovered<T>;
+  static __host__ __device__ constexpr bool reads_grad(int v) { return v < z4::kVars; }
+  static __host__ __device__ constexpr int row_offset(int) { return kGradFirst; }
+  static __host__ __device__ constexpr int slot_skip(int) { return 0; }
+  // params: Z4Matter's seven, then c_h and the GLM damping κ.
+  static P make(const double* params) {
+    return {Z4Vacuum::make(params), params[5], static_cast<int>(params[6]), params[7],
+            params[8]};
+  }
+  static bool bad(const double* params) { return Z4Matter::bad(params); }
+  template <typename T, typename LoadQ>
+  static __device__ __forceinline__ Rec<T> recover(const LoadQ& q, const P& p) {
+    return z4gm::recover<T>(q, p);
+  }
+  // The matter flux row r (0..kHydro-1) along axis d.
+  template <typename T>
+  static __device__ __forceinline__ T flux(const Rec<T>& rec, int d, int r) {
+    return z4gm::flux<T>(rec, d, r);
+  }
+  template <typename T, typename LoadQ, typename LoadDQ, typename Store>
+  static __device__ __forceinline__ void rhs(const LoadQ& q, const LoadDQ& dq, const P& p,
+                                             const Rec<T>& rec, const Store& out) {
+    z4gm::rhs<T>(q, dq, p, rec, out);
+  }
+  template <typename T>
+  static __device__ __forceinline__ T wave_speed(const T* q, int d, const P& p) {
+    return z4gm::wave_speed<T>(q, d, p);
+  }
+};
+
 // The system's parameters as the kernels take them (make_params's physics).
 template <typename T, typename Sys>
 struct Z4Physics {
@@ -312,7 +359,9 @@ struct Z4Smem {
 // than at 3 cells and 204 registers (H100 80GB HBM3, 700 W; PERF.md).
 // Shifted: 64,692 B and 129,384 B, so 3 and 1.  Z4+GRHD: 48,708 B a cell
 // and the 15 flux rows, 4,860 B: 53,568 B in float32 and 107,136 B in
-// float64, so 4 and 2.
+// float64, so 4 and 2.  Z4+GRMHD: 47 variables and 27 flux rows, 14,796
+// values a cell: 59,184 B in float32 and 118,368 B in float64, so 3 (243
+// threads) and 1.
 template <typename T, typename Sys>
 constexpr int z4_cells_per_block() {
   return static_cast<int>(kZ4SmemLimit / (Z4Smem<1, Sys>::kTotal * sizeof(T)));

@@ -1,23 +1,26 @@
 // K5: the fused pointwise NCP right-hand side of the Z4 systems,
 // rhs_all(Q, ∇Q) = S(Q) − Σ_d B_d(Q)·∂_d Q, for Hopper (sm_90a): the
 // 38-variable zero-shift instance (rhs_all_z4), the 53-variable shifted
-// one (rhs_all_z4_shift, frozen shift or Gamma-driver) and the 43-variable
+// one (rhs_all_z4_shift, frozen shift or Gamma-driver), the 43-variable
 // coupled Z4+GRHD one (rhs_all_z4_matter, K5 d: the con2prim Newton of
-// csrc/srhd.cuh inside the kernel, a run-time loop of `iters` trips).
+// csrc/srhd.cuh inside the kernel, a run-time loop of `iters` trips) and the
+// 47-variable coupled Z4+GRMHD one (rhs_all_z4_grmhd, K5 e: the
+// field-aligned con2prim Newton of csrc/rmhd.cuh inside the kernel).
 //
 // Replaces the TPU kernel exahype_tpu/models/rhs_pallas.py::PallasRHS._build
 // (its pallas_call) on those instances.  The numbers to match are those of
 // exahype_tpu/models/z4.py::z4_rhs_soa and ::z4_shift_rhs_soa and
-// exahype_tpu/models/z4_matter.py::z4_matter_rhs_soa; the plain PyTorch
+// exahype_tpu/models/z4_matter.py::z4_matter_rhs_soa and
+// exahype_tpu/models/z4_grmhd.py::z4_grmhd_rhs_soa; the plain PyTorch
 // versions are the port's functions of those names through the solver's
 // rhs_all_fn (models/z4.py::_rhs_all_of).  The algebras are csrc/z4.cuh,
-// csrc/z4_shift.cuh and csrc/z4_matter.cuh.
+// csrc/z4_shift.cuh, csrc/z4_matter.cuh and csrc/z4_grmhd.cuh.
 //
 // Layout.  The solver hands over q and the three physical gradients as
 // contiguous [B, V, G] tensors (B = the product of the axes before the
-// variable axis: the Picard time node and the node axes; V = 38, 53 or 43; G = the
-// product of the cell-grid axes after it) and takes the result in the same
-// layout.  Each variable's row is contiguous over G, so one thread per point
+// variable axis: the Picard time node and the node axes; V = 38, 53, 43 or
+// 47; G = the product of the cell-grid axes after it) and takes the result
+// in the same layout.  Each variable's row is contiguous over G, so one thread per point
 // (b, x) reads q[b, s, x] and ∂_k Q[b, s, x] at stride G between slots, and
 // the 32 threads of a warp read 32 neighbouring x of one slot: every load
 // and store is coalesced.  The Mosaic kernel's var-first (8, 128) tiling
@@ -26,8 +29,8 @@
 // What bounds it on the H100.  Per point it reads the 38 state values and
 // the 31 slots of each gradient that the algebra uses (∂α and ∂γ_ij never
 // appear), and writes 38: 676 B in f32 (shifted: 53, 43 of each gradient
-// and 53, 1,040 B; Z4+GRHD: 43, 31 and 43, 716 B; its recovery's Newton
-// adds a few hundred operations, not bytes).  Its arithmetic is a few thousand operations per
+// and 53, 1,040 B; Z4+GRHD: 43, 31 and 43, 716 B; Z4+GRMHD: 47, 31 and 47,
+// 748 B; their recoveries' Newton adds hundreds of operations, not bytes).  Its arithmetic is a few thousand operations per
 // point (chip_smoke.py counts them by running the plain algebra on a
 // counting scalar): ~6 per byte, under the card's f32 ridge of ~20, so the
 // bytes bound it.  No value is reused across points, so there is nothing to
@@ -43,6 +46,7 @@
 #include <cuda_runtime.h>
 
 #include "z4.cuh"
+#include "z4_grmhd.cuh"
 #include "z4_matter.cuh"
 #include "z4_shift.cuh"
 
@@ -104,6 +108,25 @@ rhs_all_z4_matter(const T* __restrict__ q, const T* __restrict__ g0, const T* __
   z4m::rhs<T>(load_q, load_dq, p, store);
 }
 
+// The Z4+GRMHD instance (K5 e): the same layout over 47 slots.  The algebra
+// recovers the primitives from q before it writes a result
+// (csrc/z4_grmhd.cuh); it reads no gradient of the matter slots.
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+rhs_all_z4_grmhd(const T* __restrict__ q, const T* __restrict__ g0, const T* __restrict__ g1,
+                 const T* __restrict__ g2, T* __restrict__ out, long long n_points,
+                 long long G, z4gm::Params p) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  if (idx >= n_points) return;
+  const long long b = idx / G;
+  const long long base = b * z4gm::kVars * G + (idx - b * G);
+  const T* const grads[3] = {g0, g1, g2};
+  auto load_q = [&](int s) { return q[base + s * G]; };
+  auto load_dq = [&](int k, int s) { return grads[k][base + s * G]; };
+  auto store = [&](int s, T v) { out[base + s * G] = v; };
+  z4gm::rhs<T>(load_q, load_dq, p, store);
+}
+
 template <typename T>
 int launch(const T* q, const T* g0, const T* g1, const T* g2, T* out, long long n_lead,
            int n_vars, long long n_grid, int slicing, double f, double m, double kappa1,
@@ -148,6 +171,24 @@ int launch_matter(const T* q, const T* g0, const T* g1, const T* g2, T* out, lon
   const long long blocks = (n_points + kBlock - 1) / kBlock;
   const z4m::Params p{{slicing, f, m, kappa1, kappa2}, gamma, iters};
   rhs_all_z4_matter<T>
+      <<<static_cast<unsigned>(blocks), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+          q, g0, g1, g2, out, n_points, n_grid, p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_grmhd(const T* q, const T* g0, const T* g1, const T* g2, T* out, long long n_lead,
+                 int n_vars, long long n_grid, int slicing, double f, double m, double kappa1,
+                 double kappa2, double gamma, int iters, double c_h, double glm_kappa,
+                 void* stream) {
+  if (n_vars != z4gm::kVars || n_lead <= 0 || n_grid <= 0 || (slicing != 0 && slicing != 1) ||
+      iters < 0) {
+    return cudaErrorInvalidValue;
+  }
+  const long long n_points = n_lead * n_grid;
+  const long long blocks = (n_points + kBlock - 1) / kBlock;
+  const z4gm::Params p{{slicing, f, m, kappa1, kappa2}, gamma, iters, c_h, glm_kappa};
+  rhs_all_z4_grmhd<T>
       <<<static_cast<unsigned>(blocks), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
           q, g0, g1, g2, out, n_points, n_grid, p);
   return cudaGetLastError();
@@ -217,6 +258,28 @@ int exahype_rhs_all_z4_matter_f64(const double* q, const double* g0, const doubl
                                   void* stream) {
   return launch_matter<double>(q, g0, g1, g2, out, n_lead, n_vars, n_grid, slicing, f, m,
                                kappa1, kappa2, gamma, iters, stream);
+}
+
+// The Z4+GRMHD instance (K5 e): the same, n_vars = 47, and after kappa2 the
+// fluid's gamma, the recovery's Newton iterations (at least 0), the
+// cleaning speed c_h and the GLM damping glm_kappa.
+
+int exahype_rhs_all_z4_grmhd_f32(const float* q, const float* g0, const float* g1,
+                                 const float* g2, float* out, long long n_lead, int n_vars,
+                                 long long n_grid, int slicing, double f, double m,
+                                 double kappa1, double kappa2, double gamma, int iters,
+                                 double c_h, double glm_kappa, void* stream) {
+  return launch_grmhd<float>(q, g0, g1, g2, out, n_lead, n_vars, n_grid, slicing, f, m, kappa1,
+                             kappa2, gamma, iters, c_h, glm_kappa, stream);
+}
+
+int exahype_rhs_all_z4_grmhd_f64(const double* q, const double* g0, const double* g1,
+                                 const double* g2, double* out, long long n_lead, int n_vars,
+                                 long long n_grid, int slicing, double f, double m,
+                                 double kappa1, double kappa2, double gamma, int iters,
+                                 double c_h, double glm_kappa, void* stream) {
+  return launch_grmhd<double>(q, g0, g1, g2, out, n_lead, n_vars, n_grid, slicing, f, m,
+                              kappa1, kappa2, gamma, iters, c_h, glm_kappa, stream);
 }
 
 }  // extern "C"

@@ -14,9 +14,11 @@ system (``models/z4.py::make_z4_solver(..., impl="soa", fused_rhs="soa")``,
 Gamma-driver, ``scripts/z4_probe.py --shift``); and on the same path with a
 conservative flux beside the NCP for the 43-variable coupled Z4+GRHD system
 (``models/z4_matter.py::make_z4_matter_solver(..., fused_rhs="soa")``,
-``scripts/z4_probe.py --matter``).  The step is three launches of kernels
-from ``csrc/aderdg.cu``, ``csrc/aderdg_visc.cu``, ``csrc/aderdg_z4.cu``,
-``csrc/aderdg_z4_shift.cu`` and ``csrc/aderdg_z4_matter.cu`` (see the notes
+``scripts/z4_probe.py --matter``) and the 47-variable coupled Z4+GRMHD one
+(``models/z4_grmhd.py::make_z4_grmhd_solver(..., fused_rhs="soa")``).  The
+step is three launches of kernels from ``csrc/aderdg.cu``,
+``csrc/aderdg_visc.cu``, ``csrc/aderdg_z4.cu``, ``csrc/aderdg_z4_shift.cu``,
+``csrc/aderdg_z4_matter.cu`` and ``csrc/aderdg_z4_grmhd.cu`` (see the notes
 there for the design):
 
 - ``aderdg_predictor_volume`` (Picard), ``aderdg_predictor_volume_visc``
@@ -37,15 +39,18 @@ Z4 (``aderdg_predictor_volume_z4``, ``aderdg_face_flux_z4``,
 ``aderdg_surface_update_z4``; shifted, the same names with ``_shift``;
 Z4+GRHD with ``_matter``, whose predictor also carries the hydro flux's D·F
 term, its volume integral and its face projections, and whose face flux
-the Rusanov flux's ½(f_hi + f⁺) on the hydro rows): the
+the Rusanov flux's ½(f_hi + f⁺) on the hydro rows; Z4+GRMHD with
+``_grmhd``, the same on its fluid, field and cleaning rows): the
 predictor evaluates the algebra of ``csrc/z4.cuh`` (shifted:
-``csrc/z4_shift.cuh``) in every Picard iteration, for the source average
+``csrc/z4_shift.cuh``; coupled: ``csrc/z4_matter.cuh``,
+``csrc/z4_grmhd.cuh``) in every Picard iteration, for the source average
 and twice for the strong-form NCP volume term; the face flux kernel also
 writes each interface's NCP half-fluctuation into a second tensor,
 ``fhalf``, which :meth:`CudaADERDG.face_flux` returns in place of ``fwall``
 and :meth:`CudaADERDG.surface_update` takes.  A solver qualifies when its
 flux, wave speed, ``source_fn``, ``ncp_fn`` and ``rhs_all_fn`` all carry one
-``PhysicsTag("z4", ...)`` (or ``"z4_shift"``, ``"z4_matter"``); any other
+``PhysicsTag("z4", ...)`` (or ``"z4_shift"``, ``"z4_matter"``,
+``"z4_grmhd"``); any other
 ``source_fn``/``ncp_fn``/``rhs_all_fn`` raises :class:`LoweringError`, and so
 do a Z4 solver without the fused hook (the per-axis NCP branch), a Z4
 solver with walls, and a solver whose ``rhs_all_fn`` is already on K5
@@ -86,6 +91,7 @@ from exahype_tpu_torch.models.aderdg import CALLBACK_OPTIONS, VISCOUS_OPTIONS, A
 from exahype_tpu_torch.models.rhs_cuda import CudaRHS
 from exahype_tpu_torch.models.z4 import N_VARS as Z4_VARS
 from exahype_tpu_torch.models.z4 import N_VARS_SHIFT, SHIFTS, SLICINGS
+from exahype_tpu_torch.models.z4_grmhd import N_VARS as N_VARS_GRMHD
 from exahype_tpu_torch.models.z4_matter import N_VARS as N_VARS_MATTER
 from exahype_tpu_torch.utils.errors import LoweringError
 
@@ -98,15 +104,17 @@ INSTANTIATED = {
     ("z4", 3, 2): "picard",
     ("z4_shift", 3, 2): "picard",
     ("z4_matter", 3, 2): "picard",
+    ("z4_grmhd", 3, 2): "picard",
 }
 #: The Z4 systems, whose step is the fused-NCP kernels' (K1 d).
-_Z4 = ("z4", "z4_shift", "z4_matter")
+_Z4 = ("z4", "z4_shift", "z4_matter", "z4_grmhd")
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def _n_vars(name: str, dim: int) -> int:
     if name in _Z4:
-        return {"z4": Z4_VARS, "z4_shift": N_VARS_SHIFT, "z4_matter": N_VARS_MATTER}[name]
+        return {"z4": Z4_VARS, "z4_shift": N_VARS_SHIFT, "z4_matter": N_VARS_MATTER,
+                "z4_grmhd": N_VARS_GRMHD}[name]
     return dim + 2 if name in ("euler", "navier_stokes") else elastic.N_VARS_3D_HET
 
 
@@ -128,6 +136,7 @@ _PHYSICS = {
     "z4": {"id": 3, "ck_material_slots": None, "dissipation_mask": None},
     "z4_shift": {"id": 4, "ck_material_slots": None, "dissipation_mask": None},
     "z4_matter": {"id": 5, "ck_material_slots": None, "dissipation_mask": None},
+    "z4_grmhd": {"id": 6, "ck_material_slots": None, "dissipation_mask": None},
 }
 
 
@@ -137,9 +146,10 @@ def _kernel_params(tag, solver) -> tuple:
     penalty factor 2(2N+1)/dx_d of each axis), each computed in float64 as
     the plain solver computes it; Z4's (slicing id, f, m, κ₁, κ₂) as K5
     takes them, the shifted system's followed by (shift id, f_b, η), the
-    Z4+GRHD system's by (Γ, con2prim's Newton iterations); none for the
+    Z4+GRHD system's by (Γ, con2prim's Newton iterations), the Z4+GRMHD
+    system's by (Γ, Newton iterations, c_h, GLM κ); none for the
     elasticity."""
-    if tag.name in ("z4", "z4_matter"):
+    if tag.name in ("z4", "z4_matter", "z4_grmhd"):
         slicing, *rest = tag.params
         return (SLICINGS[slicing], *rest)
     if tag.name == "z4_shift":
@@ -156,13 +166,13 @@ def _kernel_params(tag, solver) -> tuple:
 def _z4_refusal(solver) -> None:
     """Raise unless the solver's ``source_fn``/``ncp_fn``/``rhs_all_fn`` are
     a fused Z4 system the kernels compile in, zero-shift, shifted or coupled
-    to matter (called when any is set)."""
+    to matter, magnetized or not (called when any is set)."""
     if isinstance(solver.rhs_all_fn, CudaRHS):
         raise LoweringError(
             "the rhs_all_fn is on K5 (models.rhs_cuda.with_cuda_rhs): the CUDA step "
             "kernels compile the Z4 algebra in and would bypass it; build CudaADERDG on "
-            "the plain make_z4_solver, make_z4_shift_solver or make_z4_matter_solver(..., "
-            "fused_rhs='soa') solver"
+            "the plain make_z4_solver, make_z4_shift_solver, make_z4_matter_solver or "
+            "make_z4_grmhd_solver(..., fused_rhs='soa') solver"
         )
     names = ("flux_fn", "max_eigenvalue_fn", *CALLBACK_OPTIONS)
     tags = {getattr(getattr(solver, name), "physics", None)
@@ -173,21 +183,21 @@ def _z4_refusal(solver) -> None:
         if missing:
             raise LoweringError(
                 f"a {tag.name} solver without {', '.join(missing)}: the CUDA kernels carry "
-                "the fused right-hand side only (make_z4_solver, make_z4_shift_solver or "
-                "make_z4_matter_solver(..., fused_rhs='soa')); the per-axis NCP branch is "
-                "still to port, see ROADMAP.md, Queue 2 K1 d (the plain solver runs it)"
+                "the fused right-hand side only (make_z4_solver, make_z4_shift_solver, "
+                "make_z4_matter_solver or make_z4_grmhd_solver(..., fused_rhs='soa')); the "
+                "per-axis NCP branch is still to port, see ROADMAP.md, Queue 2 K1 d (the "
+                "plain solver runs it)"
             )
         return
     options = ", ".join(name for name in CALLBACK_OPTIONS if getattr(solver, name) is not None)
     raise LoweringError(
         f"the CUDA step kernels carry source_fn, ncp_fn and rhs_all_fn for the fused "
         f"vacuum Z4 system only, zero-shift or shifted, or coupled to a perfect fluid "
-        f"(Z4+GRHD) (make_z4_solver, "
-        f"make_z4_shift_solver or make_z4_matter_solver(..., impl='soa', fused_rhs='soa'): "
-        f"its flux, wave speed and those three callbacks tagged alike); "
-        f"this solver's "
-        f"{options} is set otherwise; see ROADMAP.md, Queue 2 K1 d (the plain solver "
-        "runs any)"
+        f"(Z4+GRHD) or a magnetized one (Z4+GRMHD) (make_z4_solver, make_z4_shift_solver, "
+        f"make_z4_matter_solver or make_z4_grmhd_solver(..., impl='soa', "
+        f"fused_rhs='soa'): its flux, wave speed and those three callbacks tagged alike); "
+        f"this solver's {options} is set otherwise; see ROADMAP.md, Queue 2 K1 d (the "
+        "plain solver runs any)"
     )
 
 
@@ -202,7 +212,8 @@ class CudaADERDG:
     #: wall planes; 7-9 of physics 3: the Z4 kernels of
     #: ``csrc/aderdg_z4.cu``; 10-12 of physics 4: the shifted Z4 kernels of
     #: ``csrc/aderdg_z4_shift.cu``; 13-15 of physics 5: the Z4+GRHD kernels
-    #: of ``csrc/aderdg_z4_matter.cu``).
+    #: of ``csrc/aderdg_z4_matter.cu``; 16-18 of physics 6: the Z4+GRMHD
+    #: kernels of ``csrc/aderdg_z4_grmhd.cu``).
     KERNELS = (
         "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
         "aderdg_surface_update", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
@@ -210,7 +221,8 @@ class CudaADERDG:
         "aderdg_surface_update_z4", "aderdg_predictor_volume_z4_shift",
         "aderdg_face_flux_z4_shift", "aderdg_surface_update_z4_shift",
         "aderdg_predictor_volume_z4_matter", "aderdg_face_flux_z4_matter",
-        "aderdg_surface_update_z4_matter",
+        "aderdg_surface_update_z4_matter", "aderdg_predictor_volume_z4_grmhd",
+        "aderdg_face_flux_z4_grmhd", "aderdg_surface_update_z4_grmhd",
     )
 
     def __init__(self, solver: ADERDGSolver):
@@ -241,11 +253,12 @@ class CudaADERDG:
                 tag.dim != solver.dim and tag.name not in _Z4):
             raise LoweringError(
                 "the CUDA kernels compile in Euler, Navier–Stokes, "
-                "heterogeneous-elastic, vacuum Z4 or Z4+GRHD physics: build the solver with "
-                "exahype_tpu_torch.models.aderdg.euler_physics, "
+                "heterogeneous-elastic, vacuum Z4, Z4+GRHD or Z4+GRMHD physics: build the "
+                "solver with exahype_tpu_torch.models.aderdg.euler_physics, "
                 "models.navier_stokes.navier_stokes, "
                 "models.elastic.elastic3d_heterogeneous, models.z4.make_z4_solver / "
-                "make_z4_shift_solver or models.z4_matter.make_z4_matter_solver"
+                "make_z4_shift_solver, models.z4_matter.make_z4_matter_solver or "
+                "models.z4_grmhd.make_z4_grmhd_solver"
             )
         n_vars = _n_vars(tag.name, solver.dim)
         if tag.n_real != solver.n_vars or solver.n_vars != n_vars:

@@ -6,14 +6,17 @@ Port of ``exahype_tpu/models/rhs_pallas.py`` (``PallasRHS``,
 S(Q) − Σ_d B_d(Q)·∂_d Q given Q and the three physical gradients, which the
 Picard predictor calls once per iteration and the corrector twice — runs as
 kernel ``rhs_all_z4`` (38 variables, algebra ``csrc/z4.cuh``),
-``rhs_all_z4_shift`` (the 53-variable shifted system, ``csrc/z4_shift.cuh``)
-or ``rhs_all_z4_matter`` (K5 d: the 43-variable coupled Z4+GRHD system,
-``csrc/z4_matter.cuh``, its con2prim Newton in the kernel) of
+``rhs_all_z4_shift`` (the 53-variable shifted system, ``csrc/z4_shift.cuh``),
+``rhs_all_z4_matter`` (K5 d: the 43-variable coupled Z4+GRHD system,
+``csrc/z4_matter.cuh``, its con2prim Newton in the kernel) or
+``rhs_all_z4_grmhd`` (K5 e: the 47-variable coupled Z4+GRMHD system,
+``csrc/z4_grmhd.cuh``, its field-aligned con2prim Newton in the kernel) of
 ``csrc/rhs.cu`` (see the note there for the design).
 
 :class:`CudaRHS` wraps a tagged Z4 ``rhs_all_fn`` (``make_z4_solver(...,
 impl="soa", fused_rhs="soa")`` or ``make_z4_shift_solver(...,
 fused_rhs="soa")`` or ``models/z4_matter.py::make_z4_matter_solver(...,
+fused_rhs="soa")`` or ``models/z4_grmhd.py::make_z4_grmhd_solver(...,
 fused_rhs="soa")``).  For tensors on the CPU it calls the wrapped
 plain version; for CUDA tensors it launches the kernel or raises
 :class:`LoweringError`.  On both devices it checks every gradient's shape,
@@ -38,6 +41,7 @@ import torch
 
 from exahype_tpu_torch import _build
 from exahype_tpu_torch.models.z4 import N_VARS, N_VARS_SHIFT, SHIFTS, SLICINGS
+from exahype_tpu_torch.models.z4_grmhd import N_VARS as N_VARS_GRMHD
 from exahype_tpu_torch.models.z4_matter import N_VARS as N_VARS_MATTER
 from exahype_tpu_torch.utils.errors import LoweringError
 
@@ -53,7 +57,10 @@ class CudaRHS:
     gives it, or the ``PhysicsTag("z4_shift", 3, 53, (..., shift, f_b,
     eta))`` of :func:`~exahype_tpu_torch.models.z4.make_z4_shift_solver`,
     or the ``PhysicsTag("z4_matter", 3, 43, (..., gamma, iters))`` of
-    :func:`~exahype_tpu_torch.models.z4_matter.make_z4_matter_solver`; its
+    :func:`~exahype_tpu_torch.models.z4_matter.make_z4_matter_solver`, or
+    the ``PhysicsTag("z4_grmhd", 3, 47, (..., gamma, iters, c_h,
+    glm_kappa))`` of
+    :func:`~exahype_tpu_torch.models.z4_grmhd.make_z4_grmhd_solver`; its
     parameters become the kernel's arguments.  :attr:`kernel` names the
     instance, ``launches`` counts its launches."""
 
@@ -62,6 +69,7 @@ class CudaRHS:
         "z4": ("rhs_all_z4", N_VARS),
         "z4_shift": ("rhs_all_z4_shift", N_VARS_SHIFT),
         "z4_matter": ("rhs_all_z4_matter", N_VARS_MATTER),
+        "z4_grmhd": ("rhs_all_z4_grmhd", N_VARS_GRMHD),
     }
 
     def __init__(self, rhs_all_fn, dim: int, n_vars: int):
@@ -70,9 +78,10 @@ class CudaRHS:
                 tag.n_real != self.INSTANCES[tag.name][1]):
             raise LoweringError(
                 "K5 is compiled for the 38-variable vacuum Z4 right-hand side, the "
-                "53-variable shifted one and the 43-variable Z4+GRHD one: build the solver "
-                "with exahype_tpu_torch.models.z4.make_z4_solver, make_z4_shift_solver or "
-                "models.z4_matter.make_z4_matter_solver(..., impl='soa', fused_rhs='soa'); "
+                "53-variable shifted one, the 43-variable Z4+GRHD one and the 47-variable "
+                "Z4+GRMHD one: build the solver with exahype_tpu_torch.models.z4."
+                "make_z4_solver, make_z4_shift_solver, models.z4_matter.make_z4_matter_solver "
+                "or models.z4_grmhd.make_z4_grmhd_solver(..., impl='soa', fused_rhs='soa'); "
                 f"got an rhs_all_fn tagged {tag!r}"
             )
         self.kernel, vars_ = self.INSTANCES[tag.name]
@@ -92,6 +101,9 @@ class CudaRHS:
         elif tag.name == "z4_matter":
             gamma, iters = rest
             self._args += (gamma, iters)
+        elif tag.name == "z4_grmhd":
+            gamma, iters, c_h, glm_kappa = rest
+            self._args += (gamma, iters, c_h, glm_kappa)
         #: Launches of :attr:`kernel` since construction (or the last reset).
         self.launches = 0
 
@@ -140,13 +152,14 @@ class CudaRHS:
 def with_cuda_rhs(solver):
     """A copy of ``solver`` whose ``rhs_all_fn`` runs through K5
     (:class:`CudaRHS`); it shares the solver's operator buffers.  The solver
-    must carry a fused Z4 hook (``make_z4_solver``, ``make_z4_shift_solver``
-    or ``make_z4_matter_solver(..., fused_rhs="soa")``)."""
+    must carry a fused Z4 hook (``make_z4_solver``, ``make_z4_shift_solver``,
+    ``make_z4_matter_solver`` or ``make_z4_grmhd_solver(...,
+    fused_rhs="soa")``)."""
     if solver.rhs_all_fn is None:
         raise LoweringError(
             "with_cuda_rhs requires a solver with rhs_all_fn set "
-            "(make_z4_solver, make_z4_shift_solver or make_z4_matter_solver(..., impl='soa', "
-            "fused_rhs='soa'))"
+            "(make_z4_solver, make_z4_shift_solver, make_z4_matter_solver or "
+            "make_z4_grmhd_solver(..., impl='soa', fused_rhs='soa'))"
         )
     out = copy.copy(solver)
     out.rhs_all_fn = CudaRHS(solver.rhs_all_fn, solver.dim, solver.n_vars)

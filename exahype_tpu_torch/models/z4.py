@@ -43,7 +43,7 @@ for the shifted system ``z4_shift_rhs`` with its ``jax.jvp`` Gamma-driver
 term ``_gamma_contracted``) and its fused hook (``fused_rhs=True``) are
 not ported and raise :class:`SemanticError` (``ROADMAP.md``, Queue 1 item
 7.4); the coupled Z4+GRHD system is ``models/z4_matter.py``, Z4+GRMHD
-is Queue 1 item 7.3.  The
+``models/z4_grmhd.py``.  The
 constraint monitor uses ``torch.einsum``, as the JAX one uses
 ``jnp.einsum``.
 """
@@ -510,23 +510,27 @@ def _require_fused(fused_rhs):
         )
 
 
-def _callbacks(rhs, n_vars: int, g_of, tag: PhysicsTag, shifted: bool, flux=None):
+def _callbacks(rhs, n_vars: int, g_of, tag: PhysicsTag, shifted: bool, flux=None, eig=None):
     """The solver's four callbacks over an affine ``rhs(q, dq3)`` of
     ``n_vars`` variables, each tagged ``tag``; the wave speed adds |β^d|
     when ``shifted``.  The flux is ``flux(Q, axis, va)`` where given (the
-    coupled matter system's, ``models/z4_matter.py``), else zero."""
+    coupled matter systems', ``models/z4_matter.py`` and
+    ``models/z4_grmhd.py``), else zero; the wave speed ``eig(Q, axis, va)``
+    where given (Z4+GRMHD's, widened to the cleaning speed), else the
+    vacuum cone."""
 
     if flux is None:
         def flux(Q, axis, va):
             return torch.zeros_like(Q)
 
-    def eig(Q, axis, va):
-        q = torch.movedim(Q, va, -1)
-        al = q[..., _AL]
-        gi, _ = inv3(sym_to_mat(q[..., _G]))
-        gdd = gi[..., axis, axis]
-        cone = al * torch.sqrt(torch.clamp(g_of(al), min=1.0) * gdd)
-        return torch.abs(q[..., _BETA.start + axis]) + cone if shifted else cone
+    if eig is None:
+        def eig(Q, axis, va):
+            q = torch.movedim(Q, va, -1)
+            al = q[..., _AL]
+            gi, _ = inv3(sym_to_mat(q[..., _G]))
+            gdd = gi[..., axis, axis]
+            cone = al * torch.sqrt(torch.clamp(g_of(al), min=1.0) * gdd)
+            return torch.abs(q[..., _BETA.start + axis]) + cone if shifted else cone
 
     def source(Q, va):
         q = torch.movedim(Q, va, -1)

@@ -23,17 +23,20 @@ compares their outputs bit for bit:
   and K5 c's ``rhs_all_z4_shift``) the same way on the moving gauge wave
   (v = 0.2, amplitude 0.1, the same noise);
 - the 43-variable Z4+GRHD kernels (K1 d's conservative-flux variant over
-  ``Z4Matter`` and K5 d's ``rhs_all_z4_matter``), where the checkout has
-  them, on the perturbed FLRW state of ``chip_smoke.py``'s matter path
-  with the same noise: outputs a checkout without them lacks are
-  reported as new, not as differences.
+  ``Z4Matter`` and K5 d's ``rhs_all_z4_matter``) on the perturbed FLRW
+  state of ``chip_smoke.py``'s matter path with the same noise;
+- the 47-variable Z4+GRMHD kernels (the same variant over ``Z4Grmhd`` and
+  K5 e's ``rhs_all_z4_grmhd``), where the checkout has them, on the
+  magnetized wave of ``chip_smoke.py``'s GRMHD path with the same noise:
+  outputs a checkout without them lacks are reported as new, not as
+  differences.
 
 Then it disassembles both libraries (``cuobjdump -sass``) and compares the
 instructions of every kernel the two have in common (the Z4 step's kernels
-matched by name, value type and system, ``Z4Vacuum``, ``Z4Shift`` or
-``Z4Matter``, whatever template arguments were added since), ignoring
-addresses and encodings; kernels of the Z4+GRHD system that only this
-checkout has are listed as new.  Prints one line per output and per kernel
+matched by name, value type and system, ``Z4Vacuum``, ``Z4Shift``,
+``Z4Matter`` or ``Z4Grmhd``, whatever template arguments were added since),
+ignoring addresses and encodings; kernels of the Z4+GRMHD system that only
+this checkout has are listed as new.  Prints one line per output and per kernel
 and exits non-zero if any differs.  Needs a CUDA card and nvcc; imports no
 JAX.
 """
@@ -51,18 +54,18 @@ HERE = pathlib.Path(__file__).resolve().parent.parent
 CASES = (((8, 4, 32), "float64"), ((8, 4, 32), "float32"), ((256, 8, 128), "float32"))
 DT = 5e-5  # under the CFL limit (6.26e-5) of this state at dx = 1/256
 Z4_CASES = (((8, 4, 16), "float64"), ((8, 4, 16), "float32"), ((16, 16, 128), "float32"))
-#: The kernels whose machine code is compared: the Euler ones, K5's three
+#: The kernels whose machine code is compared: the Euler ones, K5's four
 #: instances and the Z4 steps' (``<length><name>If`` or ``...Id`` in the
 #: mangled name, after the anonymous namespace's prefix).
 SASS_KERNELS = (
     "aderdg_predictor_volume", "aderdg_face_flux", "aderdg_surface_update",
     "aderdg_predictor_volume_z4", "aderdg_face_flux_z4", "aderdg_surface_update_z4",
-    "rhs_all_z4", "rhs_all_z4_shift", "rhs_all_z4_matter",
+    "rhs_all_z4", "rhs_all_z4_shift", "rhs_all_z4_matter", "rhs_all_z4_grmhd",
 )
 #: The Z4 step kernels' systems (a template argument of each instance).
-SYSTEMS = ("Z4Vacuum", "Z4Shift", "Z4Matter")
-#: What only this checkout may have: the Z4+GRHD system's kernels.
-NEW = ("Z4Matter", "rhs_all_z4_matter", "Z4+GRHD")
+SYSTEMS = ("Z4Vacuum", "Z4Shift", "Z4Matter", "Z4Grmhd")
+#: What only this checkout may have: the Z4+GRMHD system's kernels.
+NEW = ("Z4Grmhd", "rhs_all_z4_grmhd", "Z4+GRMHD")
 _KERNEL_NAME = re.compile(r"(\d+)(" + "|".join(sorted(SASS_KERNELS, key=len, reverse=True))
                           + r")I([fd])")
 
@@ -82,10 +85,11 @@ from exahype_tpu_torch.models.z4 import (
     make_z4_solver,
     moving_gauge_wave_state,
 )
+from exahype_tpu_torch.models import z4_matter
 try:
-    from exahype_tpu_torch.models import z4_matter
-except ImportError:  # a checkout from before the Z4+GRHD system
-    z4_matter = None
+    from exahype_tpu_torch.models import z4_grmhd
+except ImportError:  # a checkout from before the Z4+GRMHD system
+    z4_grmhd = None
 import exahype_tpu_torch
 assert exahype_tpu_torch.__file__.startswith(root), exahype_tpu_torch.__file__
 results = {"library": str(_build.library_path())}
@@ -125,10 +129,13 @@ systems = [("Z4", lambda grid, dtype: make_z4_solver(
            ("shifted Z4", lambda grid, dtype: make_z4_shift_solver(
                3, 2, grid, dx=1.0 / 128, shift="gamma_driver", fused_rhs="soa", device="cuda",
                dtype=dtype), lambda sol: moving_gauge_wave_state(sol, v=0.2, amplitude=0.1))]
-if z4_matter is not None:
-    systems.append(("Z4+GRHD", lambda grid, dtype: z4_matter.make_z4_matter_solver(
-        3, 2, grid, dx=1.0 / 128, slicing="harmonic", f=0.0, fused_rhs="soa", device="cuda",
-        dtype=dtype), matter_state))
+systems.append(("Z4+GRHD", lambda grid, dtype: z4_matter.make_z4_matter_solver(
+    3, 2, grid, dx=1.0 / 128, slicing="harmonic", f=0.0, fused_rhs="soa", device="cuda",
+    dtype=dtype), matter_state))
+if z4_grmhd is not None:
+    systems.append(("Z4+GRMHD", lambda grid, dtype: z4_grmhd.make_z4_grmhd_solver(
+        3, 2, grid, dx=1.0 / 128, slicing="harmonic", f=0.0, glm_kappa=0.5, fused_rhs="soa",
+        device="cuda", dtype=dtype), lambda sol: z4_grmhd.magnetized_wave_state(sol)))
 for (grid, dtype), (system, make, state) in (
         (case, system) for system in systems for case in Z4_CASES):
     dtype = getattr(torch, dtype)

@@ -14,7 +14,9 @@ kernels (K1 d, ``csrc/aderdg_z4.cu``), for the 38-variable system, the
 Gamma-driver, on the moving gauge wave with seeded noise on every slot) and
 the 43-variable Z4+GRHD one (K5 d and K1 d's conservative-flux variant,
 ``csrc/aderdg_z4_matter.cu``, on a fluid with a velocity field and seeded
-noise on every Z4 slot).
+noise on every Z4 slot) and the 47-variable Z4+GRMHD one (K5 e and the
+same variant over ``csrc/aderdg_z4_grmhd.cu``, on a magnetized fluid with a
+GLM scalar and the same noise).
 
 Every test here is marked ``cuda`` and skips without a card (the decision
 is made inside each test, never at import).  This file imports no JAX, so
@@ -950,16 +952,20 @@ def _z4_half_bound(sol, faces, got, ref):
 
 
 def _z4_f64_twin(sol):
-    """The same fused Z4 solver (zero-shift, shifted or Z4+GRHD) in float64."""
+    """The same fused Z4 solver (zero-shift, shifted, Z4+GRHD or Z4+GRMHD)
+    in float64."""
     from exahype_tpu_torch.models.z4 import make_z4_shift_solver, make_z4_solver
+    from exahype_tpu_torch.models.z4_grmhd import make_z4_grmhd_solver
     from exahype_tpu_torch.models.z4_matter import make_z4_matter_solver
 
     tag = sol.rhs_all_fn.physics
     names = ("slicing", "f", "m", "kappa1", "kappa2", "shift", "f_b", "eta")
     if tag.name == "z4_matter":
         names = ("slicing", "f", "m", "kappa1", "kappa2", "gamma", "iters")
+    if tag.name == "z4_grmhd":
+        names = ("slicing", "f", "m", "kappa1", "kappa2", "gamma", "iters", "c_h", "glm_kappa")
     make = {"z4": make_z4_solver, "z4_shift": make_z4_shift_solver,
-            "z4_matter": make_z4_matter_solver}[tag.name]
+            "z4_matter": make_z4_matter_solver, "z4_grmhd": make_z4_grmhd_solver}[tag.name]
     return make(3, 2, sol.grid_shape, dx=sol._dxs[0], impl="soa", fused_rhs="soa",
                 device=sol.weights.device, dtype=torch.float64, **dict(zip(names, tag.params)))
 
@@ -1348,3 +1354,174 @@ def test_z4_matter_kernel_info_and_refusals():
         cu.surface_update(new, fhat, 1e-4)
     with pytest.raises(LoweringError, match="shape"):
         cu.predictor_volume(u[:, :, :, :38].contiguous(), 1e-4)
+
+
+# ---------------------- Z4+GRMHD: K5 e and K1 d's conservative-flux variant
+
+
+#: The Z4+GRMHD families: the GRMHD path's own (harmonic slicing f = 0, Γ =
+#: 5/3, 20 Newton trips, c_h = 1, κ = 0.5) and the kernels' other branches
+#: (1+log slicing, m ≠ 2, κ₁, κ₂ damping, Γ = 4/3, 7 trips, c_h = 0.8, κ =
+#: 2).
+Z4G_PARAMS = [
+    dict(slicing="harmonic", f=0.0, glm_kappa=0.5),
+    dict(slicing="1+log", m=1.5, kappa1=0.1, kappa2=0.3, gamma=4.0 / 3.0, iters=7, c_h=0.8,
+         glm_kappa=2.0),
+]
+Z4G_IDS = ["path_gauge", "1+log_damped"]
+
+
+def _z4g_setup(grid, dtype, **params):
+    """The fused Z4+GRMHD solver at ``grid`` (p2, dx = 1/128) on the card,
+    its ``CudaADERDG`` and ``with_cuda_rhs`` copy, and a state from
+    ``pack_matter_mhd``: near flat space with seeded noise of 1e-3 on every
+    Z4 slot, ρ ≈ 1, p ≈ 1, a velocity field of up to ~0.15 a component, a
+    field of 0.05 to 0.1 a component (nowhere zero) and a GLM scalar of
+    ~1e-2 (so every flux row, matter term and source is live)."""
+    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+    from exahype_tpu_torch.models.z4_grmhd import make_z4_grmhd_solver, pack_matter_mhd
+
+    dev = _card()
+    sol = make_z4_grmhd_solver(3, 2, grid, dx=1.0 / 128, fused_rhs="soa", device=dev,
+                               dtype=dtype, **params)
+    va = sol.var_axis
+    shape = sol.state_shape[:va] + sol.state_shape[va + 1:]
+    rng = np.random.default_rng(5)
+    z4 = 1e-3 * rng.standard_normal(shape + (38,))
+    z4[..., [0, 1, 4, 6]] += 1.0
+    rho = 1.0 + 0.1 * rng.random(shape)
+    p = 1.0 + 0.1 * rng.random(shape)
+    v = 0.3 * (rng.random(shape + (3,)) - 0.5)
+    B = 0.05 * (1.0 + rng.random(shape + (3,)))
+    psi = 0.01 * rng.standard_normal(shape)
+    q = pack_matter_mhd(*(torch.from_numpy(x) for x in (z4, rho, v, p, B)),
+                        psi_glm=torch.from_numpy(psi))
+    u = q.movedim(-1, va).to(dev, dtype).contiguous()
+    return sol, CudaADERDG(sol), with_cuda_rhs(sol), u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", Z4G_PARAMS, ids=Z4G_IDS)
+@pytest.mark.parametrize("dtype,grid", Z4_CASES)
+def test_grmhd_rhs_kernel_matches_plain(dtype, grid, params):
+    """K5 e against the wrapped plain function on every call of one step."""
+    plain, _, kern, u = _z4g_setup(grid, dtype, **params)
+    k5 = kern.rhs_all_fn
+    assert k5.kernel == "rhs_all_z4_grmhd"
+    calls = _rhs_calls(plain, u)
+    assert len(calls) == plain.picard_iters + 2
+    for Q, grads, va in calls:
+        Q0 = Q.clone()
+        got = k5(Q, grads, va)
+        ref = plain.rhs_all_fn(Q, grads, va)
+        torch.cuda.synchronize()
+        assert torch.equal(Q, Q0) and got.shape == ref.shape
+        assert _err(got, ref) <= _z4_bound(ref, dtype)
+        assert torch.equal(got, k5(Q, grads, va))  # bitwise repeatable
+        assert ref.narrow(va, 39, 4).abs().max().item() > 0  # the hydro sources are live
+        assert ref.narrow(va, 46, 1).abs().max().item() > 0  # the GLM damping is live
+    assert k5.launches == 2 * len(calls)
+    step = kern.step(u, 1e-4)
+    ref = plain.step(u, 1e-4)
+    torch.cuda.synchronize()
+    assert _err(step, ref) <= _z4_bound(ref, dtype)
+    assert k5.launches == 2 * len(calls) + plain.picard_iters + 2
+
+
+@pytest.mark.cuda
+def test_grmhd_rhs_kernel_refuses_mismatched_gradients():
+    """K5 e keeps K5's refusals: a gradient that is not Q's shape, dtype or
+    layout never launches (``PallasRHS`` reshapes it silently)."""
+    plain, _, kern, u = _z4g_setup((4, 2, 8), torch.float64)
+    Q, grads, va = _rhs_calls(plain, u)[0]
+    k5 = kern.rhs_all_fn
+    with pytest.raises(LoweringError, match=r"grads\[0\]"):
+        k5(Q, (grads[0].reshape(-1).reshape(Q.shape[::-1]), *grads[1:]), va)
+    with pytest.raises(LoweringError, match=r"grads\[1\]"):
+        k5(Q, (grads[0], grads[1].float(), grads[2]), va)
+    with pytest.raises(LoweringError, match="contiguous"):
+        k5(Q, (grads[0].transpose(-1, -2).contiguous().transpose(-1, -2), *grads[1:]), va)
+    with pytest.raises(LoweringError, match="expected 3 gradient arrays"):
+        k5(Q, grads[:2], va)
+    assert k5.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", Z4G_PARAMS, ids=Z4G_IDS)
+@pytest.mark.parametrize("dtype,grid", Z4_STEP_CASES)
+def test_z4_grmhd_kernels_match_plain(dtype, grid, params):
+    """Each of the three Z4+GRMHD kernels against its plain version, fed the
+    plain inputs; dt by value and by pointer; the face tensor's f rows carry
+    the matter flux and only it."""
+    sol, cu, _, u = _z4g_setup(grid, dtype, **params)
+    dt = 1e-4
+    u0 = u.clone()
+    new_k, faces_k, _ = cu.predictor_volume(u, dt)
+    new_t, faces_t, _ = cu.predictor_volume(u, torch.tensor(dt, dtype=dtype, device=u.device))
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    fhat_k, fhalf_k = cu.face_flux(faces_p)
+    fhat_p, fhalf_p = _z4_plain_halves(sol, faces_p)
+    upd_k = cu.surface_update(new_p.clone(), fhat_p, dt, fhalf=fhalf_p)
+    upd_p = _z4_plain_update(sol, new_p, fhat_p, fhalf_p, dt)
+    torch.cuda.synchronize()
+    assert torch.equal(u, u0)
+    for a, b in ((new_k, new_p), (faces_k, faces_p), (fhat_k, fhat_p), (upd_k, upd_p)):
+        assert _err(a, b) <= _z4_bound(b, dtype)
+    if dtype == torch.float64:
+        assert _err(fhalf_k, fhalf_p) <= _z4_bound(fhalf_p, dtype)
+    else:
+        err, limit = _z4_half_bound(sol, faces_p, fhalf_k, fhalf_p)
+        assert err <= limit
+    assert not faces_k[:, 2:, :, :38].any()  # the Z4 rows' F̄ are zeros
+    assert faces_k[:, 2:, :, 38:].abs().amax(dim=(0, 1, 2, 4, 5, 6)).min() > 0  # every
+    # matter row's F̄ is live
+    assert torch.equal(new_t, new_k) and torch.equal(faces_t, faces_k)
+    assert cu.launches == {name: n for name, n in zip(cu.kernels, (2, 1, 1))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", Z4_STEP_CASES)
+def test_z4_grmhd_stages_cross_feed_and_step(dtype, grid):
+    """The kernel predictor into the plain face stage and the plain
+    predictor into the kernel face stage; the step, 3 launches, bitwise
+    repeatable; the fluid and the field move."""
+    sol, cu, _, u = _z4g_setup(grid, dtype, **Z4G_PARAMS[0])
+    dt = 1e-4
+    new_k, faces_k, _ = cu.predictor_volume(u, dt)
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    ref = sol.face_surface(new_p, faces_p, dt)
+    mixed_a = sol.face_surface(new_k, faces_k, dt)
+    mixed_b = cu.face_surface(new_p.clone(), faces_p, dt)
+    cu.reset_launches()
+    step = cu.step(u, dt)
+    assert cu.launches == {name: 1 for name in cu.kernels}
+    again = cu.run(u, 1, dt)
+    torch.cuda.synchronize()
+    for a in (mixed_a, mixed_b, step):
+        assert _err(a, ref) <= _z4_bound(ref, dtype)
+    assert torch.equal(step, again)
+    assert (step - u)[:, :, :, 38:43].abs().max().item() > 0
+    assert (step - u)[:, :, :, 43:].abs().max().item() > 0
+
+
+@pytest.mark.cuda
+def test_z4_grmhd_kernel_info_and_refusals():
+    sol, cu, _, u = _z4g_setup((4, 2, 8), torch.float64)
+    assert cu.kernels == ("aderdg_predictor_volume_z4_grmhd", "aderdg_face_flux_z4_grmhd",
+                          "aderdg_surface_update_z4_grmhd")
+    for dtype in (torch.float32, torch.float64):
+        for name in cu.kernels:
+            info = cu.kernel_info(name, dtype)
+            assert info["blocks_per_sm"] >= 1 and info["registers"] > 0, (name, dtype, info)
+    # 3 cells a block in float32 and 1 in float64: as many as 227 KB admit
+    # with the 27 flux rows (14,796 values a cell).
+    f32 = cu.kernel_info(cu.kernels[0], torch.float32)
+    f64 = cu.kernel_info(cu.kernels[0], torch.float64)
+    assert (f32["threads"], f32["smem"]) == (243, 177552)
+    assert (f64["threads"], f64["smem"]) == (81, 118368)
+    new, faces, _ = cu.predictor_volume(u, 1e-4)
+    fhat, fhalf = cu.face_flux(faces)
+    with pytest.raises(LoweringError, match="fhalf"):
+        cu.surface_update(new, fhat, 1e-4)
+    with pytest.raises(LoweringError, match="shape"):
+        cu.predictor_volume(u[:, :, :, :43].contiguous(), 1e-4)

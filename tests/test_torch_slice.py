@@ -147,6 +147,7 @@ SYMPY_FREE = (
     "exahype_tpu_torch.models.elastic",
     "exahype_tpu_torch.models.z4",
     "exahype_tpu_torch.models.srhd",
+    "exahype_tpu_torch.models.rmhd",
     "exahype_tpu_torch.models.rhs_cuda",
     "exahype_tpu_torch.models.limiter",
     "exahype_tpu_torch.models.subcell_cuda",
