@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one card, nvcc
 
-It drives ten paths, each through ``exahype_tpu_torch``'s entry points
+It drives eleven paths, each through ``exahype_tpu_torch``'s entry points
 with its kernels' launch counters set to 0 just before and read just
-after (the two forms of the main path, ADER-DG and FV, and the limited,
-CK, walls, viscous, dynamic-GR, shifted dynamic-GR, Z4+GRHD and Z4+GRMHD
-slices), in this order:
+after (the two forms of the main path, ADER-DG and FV, and the order-5,
+limited, CK, walls, viscous, dynamic-GR, shifted dynamic-GR, Z4+GRHD and
+Z4+GRMHD slices), in this order:
 
 - **ADER-DG**: ``bench.py::main``'s step — order 3, 3-D compressible
   Euler, a ``(256, 8, 128)`` periodic cell grid in float32, ``bench.py``'s
@@ -19,6 +19,20 @@ slices), in this order:
   (``tests/test_torch_slice.py::test_bench_dt_blows_up_in_both_packages``);
   the script records the step at which the port overflows at the bench
   grid.
+- **ADER-DG p5**: ``examples/high_order_p5.py``'s step — order 5, 3-D
+  compressible Euler, periodic, dx = 1/g0, dt = 2e-5, from the example's
+  exact density wave (γ = 1.4, p0 = 2, velocity (1, 0.5, 0.25); made
+  periodic along axis 1, see ``P5_GRIDS``) — through ``CudaADERDG`` (K1 c:
+  ``aderdg_predictor_volume_p5``, the space-time predictor of
+  ``csrc/aderdg_st.cuh``, and the face stage's n = 6 instances
+  ``aderdg_face_flux_p5`` + ``aderdg_surface_update_p5``), three launches a
+  step: each kernel against its plain version in float64 at ``(4, 2, 8)``
+  (at the example's dt and at half the cut state's ``cfl_dt``, within 1e-12
+  of max(1, max|plain|)) and in float32 at ``(32, 4, 128)``, the example's
+  chip grid, and ``(64, 8, 128)``; 10 steps at each with the example's
+  gates (error against the exact wave below 5e-3, mass drift below 1e-5),
+  bitwise repeatable and against the plain path; times and ``[kernel]``
+  lines at both.
 - **limited**: ``bench.py::bench_limited``'s production step — the same
   solver, grid and dtype, ``LimitedADERDG(admissible=euler_admissible(3),
   troubled_capacity=128, troubled_granularity="row", dmp_delta0=5e-4,
@@ -136,7 +150,8 @@ slices), in this order:
 Phases:
 
 1. card: name, and ``nvidia-smi``'s name and power limit;
-2. build: ``csrc/aderdg.cu``, ``csrc/aderdg_visc.cu`` (float32) and
+2. build: ``csrc/aderdg.cu``, ``csrc/aderdg_p5.cu`` (float32) and
+   ``csrc/aderdg_p5_f64.cu``, ``csrc/aderdg_visc.cu`` and
    ``csrc/aderdg_visc_f64.cu``, ``csrc/aderdg_z4.cu`` and
    ``csrc/aderdg_z4_f64.cu``, ``csrc/aderdg_z4_shift.cu`` and
    ``csrc/aderdg_z4_shift_f64.cu``, ``csrc/aderdg_z4_matter.cu`` and
@@ -250,6 +265,29 @@ WARMUP = 5
 FV_WIDTH = dict(dim=3, patch_size=4, halo_size=1, n_real=5, n_aux=0)
 FV_GRIDS = ((8, 8, 128), (32, 16, 128))
 FV_CFL = 0.45
+
+#: The order-5 path (``examples/high_order_p5.py``): 3-D compressible Euler
+#: at order 5 (6 Picard iterations), periodic, dx = 1/g0, dt = 2e-5 (``:77``),
+#: the exact density wave of ``:61-76`` (γ = 1.4, p0 = 2, velocity (1, 0.5,
+#: 0.25)) at the example's chip grid and at 4x its cells (the DOF scale of
+#: ``bench.py``'s p3 grid), 10 steps.  The example's wave sin(2π(x + y + z))
+#: has a unit period along every axis, and axis 1 of both grids is 0.125
+#: long: there it is not periodic, and its seam, not the scheme, sets the
+#: error (0.0202 at (32, 4, 32) after the 10 steps on the plain path, which
+#: equals JAX's to 1e-12).  So the gated wave takes, along an axis shorter
+#: than the unit, the shortest wave that is periodic on it (one period over
+#: its extent: sin(2π(x + 8y + z)) on both grids), still an exact solution
+#: (a density profile carried by a uniform flow at uniform pressure); the
+#: example's wave as written is run too, as a reading.
+P5_ORDER = 5
+P5_GRIDS = ((32, 4, 128), (64, 8, 128))
+P5_CUT = (4, 2, 8)
+P5_DT = 2e-5
+P5_GAMMA, P5_P0, P5_VEL = 1.4, 2.0, (1.0, 0.5, 0.25)
+P5_ERR_GATE = 5e-3   # examples/high_order_p5.py:97-98
+P5_MASS_GATE = 1e-5  # :99, the absolute drift of the mass
+#: f64 kernel-vs-plain bound, relative to max(1, max|plain|).
+P5_F64_RTOL = 1e-12
 
 #: The CK path (``bench.py:151-294``).
 CK_GRIDS = ((64, 4, 32), (256, 8, 128))
@@ -1852,6 +1890,203 @@ def aderdg_path(torch, dev, card) -> list[dict]:
     del cu, sol, u0, u
     torch.cuda.empty_cache()
     return kernels
+
+
+def p5_wave(torch, sol, t: float, dtype, periodic: bool = True):
+    """``examples/high_order_p5.py:61-76``'s density wave at time ``t``
+    (var axis 3): with ``periodic``, each axis shorter than the unit wave
+    carries one period over its extent instead (``P5_GRIDS``' note)."""
+    import numpy as np
+
+    coords = sol.nodes_meshgrid()
+    scale = []
+    for g, dx in zip(sol.grid_shape, sol._dxs):
+        ext = g * dx
+        scale.append(1.0 / ext if periodic and ext < 1.0 else 1.0)
+        if periodic and abs(ext * scale[-1] - round(ext * scale[-1])) > 1e-9:
+            fail(f"no periodic wave of the example's kind on an axis of extent {ext}")
+    phase = sum(k * (np.asarray(c) - v * t) for k, c, v in zip(scale, coords, P5_VEL))
+    no_var = sol.state_shape[:3] + sol.state_shape[4:]
+    rho = np.broadcast_to(np.squeeze(1.0 + 0.2 * np.sin(2 * np.pi * phase), 3), no_var)
+    e = P5_P0 / (P5_GAMMA - 1.0) + 0.5 * rho * sum(v * v for v in P5_VEL)
+    q = np.stack([rho] + [rho * v for v in P5_VEL] + [e], axis=3)
+    return torch.from_numpy(q).to(device=sol.weights.device, dtype=dtype).contiguous()
+
+
+def p5_path(torch, dev, card) -> list[dict]:
+    """The order-5 path: ``examples/high_order_p5.py``'s step through
+    ``CudaADERDG`` (K1 c: ``aderdg_predictor_volume_p5``, the space-time
+    predictor of ``csrc/aderdg_st.cuh``, and the face stage at n = 6);
+    returns the kernel JSON lines of its three kernels at the example's
+    grid."""
+    import numpy as np
+
+    from exahype_tpu_torch.models.aderdg import ADERDGSolver, euler_physics
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+
+    flux, eig = euler_physics(3, n_real=5, gamma=P5_GAMMA)
+
+    def make(grid, dtype):
+        sol = ADERDGSolver(3, P5_ORDER, 5, grid, flux, eig, dx=1.0 / grid[0],
+                           device=dev, dtype=dtype)
+        return sol, CudaADERDG(sol)
+
+    def kernel_stages(sol, cu, u, dt):
+        """Each kernel and the step against its plain version on ``u``:
+        ``[(name, what, got, ref)]``."""
+        new_k, faces_k, _ = cu.predictor_volume(u, dt)
+        new_p, faces_p, _ = sol.predictor_volume(u, dt)
+        fhat_k, fhat_p = cu.face_flux(faces_p)[0], plain_face_flux(torch, sol, faces_p)
+        upd_k = cu.surface_update(new_p.clone(), fhat_p, dt)
+        upd_p = plain_surface_update(sol, new_p, fhat_p, dt)
+        surf_k = cu.face_surface(new_p.clone(), faces_p, dt)
+        surf_p = sol.face_surface(new_p, faces_p, dt)
+        step_k, step_p = cu.step(u, dt), sol.step(u, dt)
+        torch.cuda.synchronize()
+        return [
+            (cu.kernels[0], "new", new_k, new_p),
+            (cu.kernels[0], "faces", faces_k, faces_p),
+            (cu.kernels[1], "fhat", fhat_k, fhat_p),
+            (cu.kernels[2], "new", upd_k, upd_p),
+            ("face stage", "new", surf_k, surf_p),
+            ("step", "new", step_k, step_p),
+        ]
+
+    # --------------------------------------- f64 parity on the cut grid
+    sol, cu = make(P5_CUT, torch.float64)
+    rng = np.random.default_rng(0)
+    u = p5_wave(torch, sol, 0.0, torch.float64)
+    u[:, :, :, 0] *= 1.0 + 0.05 * torch.from_numpy(rng.standard_normal(u[:, :, :, 0].shape)).to(u)
+    cut_cfl = float(cu.cfl_dt(u))
+    for dt in (P5_DT, 0.5 * cut_cfl):
+        for name, what, got, ref in kernel_stages(sol, cu, u, dt):
+            err = max_err(torch, got, ref)
+            limit = P5_F64_RTOL * max(1.0, ref.abs().max().item())
+            ok = err <= limit
+            say(f"[p5 parity] {name} ({what}) float64 {P5_CUT} dt {dt!r}: max_abs_err "
+                f"{err:.3e} limit {limit:.3e} (1e-12 of max(1, max|plain|)) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{name} disagrees with its plain version (float64, {P5_CUT})")
+    del sol, cu, u
+
+    lines, gib = [], 2.0**-30
+    for grid in P5_GRIDS:
+        sol, cu = make(grid, torch.float32)
+        u0 = p5_wave(torch, sol, 0.0, torch.float32)
+        dt = P5_DT
+        cfl = float(cu.cfl_dt(u0))
+        say(f"[p5 main] {grid} f32, {sol.dofs()} DOF: dt = {dt!r} "
+            f"(examples/high_order_p5.py:77), cfl_dt {cfl!r}")
+        if not dt < cfl:
+            fail(f"dt {dt} is not below cfl_dt {cfl} at {grid}")
+
+        # ------------------------------ each kernel against plain, f32
+        errs = {}
+        for name, what, got, ref in kernel_stages(sol, cu, u0, dt):
+            err, limit = max_err(torch, got, ref), f32_bound(torch, ref)
+            ok = err <= limit
+            say(f"[p5 parity] {name} ({what}) float32 {grid}: max_abs_err {err:.3e} limit "
+                f"{limit:.3e} ({F32_ULPS} f32 spacings of max|plain|) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{name} disagrees with its plain version (float32, {grid})")
+            errs[name] = max(errs.get(name, 0.0), err)
+
+        # ------------------------------------------------- main path
+        torch.cuda.synchronize()
+        cu.reset_launches()
+        u = cu.run(u0, STEPS, dt)
+        torch.cuda.synchronize()
+        launches = dict(cu.launches)
+        say(f"[p5 main] {STEPS} steps of {grid} f32 through CudaADERDG: launches {launches}")
+        if launches != {name: STEPS for name in cu.kernels}:
+            fail(f"the order-5 step launched {launches} in {STEPS} steps")
+        if tuple(u.shape) != sol.state_shape or not torch.isfinite(u).all():
+            fail("the order-5 state is not finite or has the wrong shape")
+        exact = p5_wave(torch, sol, STEPS * dt, torch.float64)
+        err = max_err(torch, u, exact)
+        m0, m1 = (float(cu.total_mass(x.double())[0]) for x in (u0, u))
+        say(f"[p5 main] {grid}: max error against the exact wave at t = {STEPS * dt!r}: "
+            f"{err:.3e} (gate {P5_ERR_GATE}); mass drift {abs(m1 - m0):.3e} (gate "
+            f"{P5_MASS_GATE}, mass {m0!r})")
+        if not (err < P5_ERR_GATE and abs(m1 - m0) < P5_MASS_GATE):
+            fail(f"the order-5 step misses the example's error or mass gate at {grid}")
+        if not torch.equal(u, cu.run(u0, STEPS, dt)):
+            fail("two order-5 runs from the same state differ")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        plain_u = sol.run(u0, STEPS, dt)
+        torch.cuda.synchronize()
+        say(f"[p5 mem] plain path {grid}, {STEPS} steps: peak "
+            f"{torch.cuda.max_memory_allocated() * gib:.4f} GiB allocated ({held * gib:.4f} "
+            f"GiB held before) of {torch.cuda.get_device_properties(0).total_memory * gib:.1f} "
+            f"GiB ({card})")
+        run_err, run_bound = max_err(torch, u, plain_u), STEPS * f32_bound(torch, plain_u)
+        say(f"[p5 main] two runs bitwise equal; {STEPS}-step kernel path vs plain path: "
+            f"max_abs_err {run_err:.3e} limit {run_bound:.3e}; plain error against the exact "
+            f"wave {max_err(torch, plain_u, exact):.3e}")
+        if not run_err <= run_bound:
+            fail("the order-5 kernel path disagrees with the plain path")
+        del plain_u
+        seam = p5_wave(torch, sol, 0.0, torch.float32, periodic=False)
+        seam_u = cu.run(seam, STEPS, dt)
+        seam_err = max_err(torch, seam_u, p5_wave(torch, sol, STEPS * dt, torch.float64,
+                                                  periodic=False))
+        say(f"[p5 reading] {grid}: the example's wave as written (axis 1 is "
+            f"{grid[1] / grid[0]!r} long, the wave not periodic on it): error against the "
+            f"formula after {STEPS} steps {seam_err:.3e}")
+        del seam, seam_u, exact
+
+        # ------------------------------------------------------ times
+        dofs = cu.dofs()
+        k_win = windows(torch, cu, u0, dt, steps=20)
+        p_win = windows(torch, sol, u0, dt, steps=2)
+        for label, win in (("kernel path", k_win), ("plain path", p_win)):
+            ms = [1e3 * w for w in win]
+            say(f"[p5 time] {grid} {label}: step ms per window {ms!r}; median "
+                f"{statistics.median(ms)!r} ms, {dofs / statistics.median(win)!r} "
+                f"DOF-updates/s ({card})")
+        new, faces, _ = cu.predictor_volume(u0, dt)
+        fhat, _ = cu.face_flux(faces)
+        times = {
+            cu.kernels[0]: (event_ms(torch, lambda: cu.predictor_volume(u0, dt), 20),
+                            event_ms(torch, lambda: sol.predictor_volume(u0, dt), 2)),
+            cu.kernels[1]: (event_ms(torch, lambda: cu.face_flux(faces), 20),
+                            event_ms(torch, lambda: plain_face_flux(torch, sol, faces), 2)),
+            cu.kernels[2]: (event_ms(torch, lambda: cu.surface_update(new, fhat, dt), 20),
+                            event_ms(torch, lambda: plain_surface_update(sol, new, fhat, dt), 2)),
+        }
+        for name, (ms, plain_ms) in times.items():
+            say(f"[p5 time] {grid} {name}: kernel {ms!r} ms, plain {plain_ms!r} ms (CUDA "
+                f"events; {card})")
+        del new, faces, fhat
+        idle, busy, wall = idle_share(torch, lambda: cu.run(u0, 20, dt))
+        say(f"[p5 idle] {grid} kernel path, 20 steps under torch.profiler: device busy "
+            f"{busy!r} ms of wall {wall!r} ms; idle share {idle!r} ({card})")
+        ncell = math.prod(grid)
+        itemsize = u0.element_size()
+        face_bytes = torch.empty(sol.face_shape, dtype=u0.dtype, device="meta").nbytes
+        work = {
+            cu.kernels[0]: (2 * u0.nbytes + face_bytes,
+                            predictor_ops(P5_ORDER, sol.picard_iters, ncell)),
+            cu.kernels[1]: (face_flux_bytes(P5_ORDER, ncell, itemsize),
+                            face_flux_ops(P5_ORDER, ncell)),
+            cu.kernels[2]: (surface_update_bytes(P5_ORDER, ncell, itemsize),
+                            surface_update_ops(P5_ORDER, ncell)),
+        }
+        for name in cu.kernels:
+            bnd = kernel_report(cu, name, torch.float32, f"(Euler p5) {grid} f32",
+                                times[name][0], *work[name], card)
+            if grid == P5_GRIDS[0]:
+                source = ("exahype_tpu_torch/csrc/aderdg_st.cuh" if name == cu.kernels[0]
+                          else "exahype_tpu_torch/csrc/aderdg.cu")
+                lines.append(kernel_line(name, "exahype_tpu/models/aderdg_pallas.py:156",
+                                         launches[name], errs[name], *times[name], bnd,
+                                         source=source))
+        del sol, cu, u0, u
+        torch.cuda.empty_cache()
+    return lines
 
 
 def dirichlet_state(*x):
@@ -4223,6 +4458,7 @@ def main():
 
     paths = {
         "ADER-DG": lambda: aderdg_path(torch, dev, card),
+        "ADER-DG p5": lambda: p5_path(torch, dev, card),
         "limited": lambda: limited_path(torch, dev, card),
         "CK": lambda: ck_path(torch, dev, card),
         "walls": lambda: walls_path(torch, dev, card),

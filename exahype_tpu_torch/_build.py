@@ -119,6 +119,9 @@ _SIGNATURES = {
         ("aderdg_predictor_volume_z4_grmhd", _PREDICTOR_VOLUME),
         ("aderdg_face_flux_z4_grmhd", _FACE_FLUX_Z4),
         ("aderdg_surface_update_z4_grmhd", _SURFACE_UPDATE_Z4),
+        ("aderdg_predictor_volume_p5", _PREDICTOR_VOLUME),
+        ("aderdg_face_flux_p5", _FACE_FLUX),
+        ("aderdg_surface_update_p5", _SURFACE_UPDATE),
         ("subcell_row_sweep", _ROW_SWEEP),
         ("rhs_all_z4", _RHS_ALL),
         ("rhs_all_z4_shift", _RHS_ALL_SHIFT),

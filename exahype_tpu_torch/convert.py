@@ -137,8 +137,17 @@ def _options_from_jax(jax_solver, walls):
 def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
                     physics="euler", walls=None, mu: float | None = None,
                     prandtl: float | None = None, device=None,
-                    dtype: torch.dtype = torch.float64) -> ADERDGSolver:
-    """The port's :class:`ADERDGSolver` for a JAX ``ADERDGSolver``.
+                    dtype: torch.dtype = torch.float64):
+    """The port's :class:`ADERDGSolver` for a JAX ``ADERDGSolver``, and
+    :class:`~exahype_tpu_torch.models.aderdg_cuda.CudaADERDG` over it for a
+    JAX ``PallasADERDG`` (the fused TPU kernel) over one.
+
+    ``PallasADERDG``'s TPU knobs have no counterpart and are not read:
+    ``tile0`` and ``vmem_limit_bytes`` (the VMEM tiling), ``picard_loop`` and
+    ``slice_loop`` (Mosaic code-size workarounds at orders 5 and 7),
+    ``interpret`` and ``dtype`` (the state's dtype is ``dtype`` here), and
+    ``boundary_faces_only``; the kernels compute the same step.  Which
+    (physics, dim, order) the kernels take is ``CudaADERDG``'s check.
 
     Reads the JAX solver's numeric fields (``dim``, ``order``, ``n_vars``,
     ``grid_shape``, ``dx``, ``basis``, ``picard_iters``) and its option
@@ -171,6 +180,12 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
     and ``noslip_reflect_flux``) or a (reflect_fn, reflect_flux_fn) pair of
     the port's.
     """
+    if type(jax_solver).__name__ == "PallasADERDG":
+        from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+
+        return CudaADERDG(aderdg_from_jax(
+            jax_solver.solver, gamma=gamma, physics=physics, walls=walls, mu=mu,
+            prandtl=prandtl, device=device, dtype=dtype))
     callbacks = _physics_callbacks(physics, gamma, mu, prandtl, jax_solver.dim,
                                    jax_solver.n_vars)
     for name in CALLBACK_OPTIONS:

@@ -5,7 +5,9 @@
 // csrc/aderdg_visc.cuh's).  The definitions both sources share are in
 // csrc/aderdg_common.cuh.  The Z4 steps (physics 3 to 6) have their own
 // three kernels each, csrc/aderdg_z4.cuh; this file's occupancy query
-// reports them.
+// reports them.  At order 5 the Euler predictor is csrc/aderdg_st.cuh's
+// (built by csrc/aderdg_p5.cu and aderdg_p5_f64.cu), and this file
+// instantiates the periodic face stage at n = 6 for it (the _p5 entries).
 //
 // Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
 // PallasADERDG.build (its pallas_call and the XLA face epilogue around it)
@@ -180,8 +182,17 @@ int z4_matter_kernel_info_f64(int which, int* out) __attribute__((weak));
 // aderdg_z4_grmhd_f64.cu; weak too), the same `which`.
 int z4_grmhd_kernel_info_f32(int which, int* out) __attribute__((weak));
 int z4_grmhd_kernel_info_f64(int which, int* out) __attribute__((weak));
+// The order-5 space-time predictor's occupancy (csrc/aderdg_p5.cu and
+// aderdg_p5_f64.cu; weak too).
+int st_predictor_info_f32(int* out) __attribute__((weak));
+int st_predictor_info_f64(int* out) __attribute__((weak));
 
 namespace {
+
+// Order 3: the node count of this file's predictors and of its face stage's
+// order-3 instances (the face stage also has order-5 Euler instances, for
+// csrc/aderdg_st.cuh's predictor).
+constexpr int kNN = 4;
 
 // The 12-variable heterogeneous elasticity of csrc/elastic.cuh with its CK
 // configuration compiled in: materials in slots 9-11 (kRho..kMu), the
@@ -1030,11 +1041,12 @@ bool bad_ghosts(int mask, int mode, const double* table, const void* rows) {
 // Tiles of the face stage (kTile cells of one row of the last axis), or 0
 // if the update kernel's block index (tiles x its node groups) or a grid
 // coordinate would not fit a 32-bit int.
+template <int NN>
 long long face_tiles(int order, long long g0, long long g1, long long g2) {
   constexpr long long kMax = 0x7fffffffLL;
-  if (bad_grid(order, g0, g1, g2) || g0 > kMax || g1 > kMax || g2 > kMax) return 0;
+  if (bad_grid<NN>(order, g0, g1, g2) || g0 > kMax || g1 > kMax || g2 > kMax) return 0;
   const long long tiles = g0 * g1 * ((g2 + kTile - 1) / kTile);
-  return tiles * (kNN * kNN * kNN / kUpdateNodes) > kMax ? 0 : tiles;
+  return tiles * (NN * NN * NN / kUpdateNodes) > kMax ? 0 : tiles;
 }
 
 template <typename T, typename Phys>
@@ -1053,18 +1065,30 @@ Shape ck_predictor_shape() {
                             ElasticHetPhysics<T>::kEvolved>()};
 }
 
-template <typename T, typename Phys, bool kWalls>
+// The face stage's shapes and launchers take the instance's node count NN:
+// the periodic pair is instantiated at order 3 (every physics) and at order
+// 5 (Euler), the wall pair at order 3 only.
+template <typename T, typename Phys, bool kWalls, int NN = kNN>
 Shape face_flux_shape() {
-  const void* fn = kWalls ? reinterpret_cast<const void*>(aderdg_face_flux_walls<T, kNN, Phys>)
-                          : reinterpret_cast<const void*>(aderdg_face_flux<T, kNN, Phys>);
+  static_assert(!kWalls || NN == kNN, "the wall pair is instantiated at order 3 only");
+  const void* fn;
+  if constexpr (kWalls) {
+    fn = reinterpret_cast<const void*>(aderdg_face_flux_walls<T, NN, Phys>);
+  } else {
+    fn = reinterpret_cast<const void*>(aderdg_face_flux<T, NN, Phys>);
+  }
   return {fn, dim3(kTile, kFluxNodes), 0};
 }
 
-template <typename T, typename Phys, bool kWalls>
+template <typename T, typename Phys, bool kWalls, int NN = kNN>
 Shape surface_update_shape() {
-  const void* fn = kWalls
-                       ? reinterpret_cast<const void*>(aderdg_surface_update_walls<T, kNN, Phys>)
-                       : reinterpret_cast<const void*>(aderdg_surface_update<T, kNN, Phys>);
+  static_assert(!kWalls || NN == kNN, "the wall pair is instantiated at order 3 only");
+  const void* fn;
+  if constexpr (kWalls) {
+    fn = reinterpret_cast<const void*>(aderdg_surface_update_walls<T, NN, Phys>);
+  } else {
+    fn = reinterpret_cast<const void*>(aderdg_surface_update<T, NN, Phys>);
+  }
   return {fn, dim3(kTile, kUpdateNodes), 0};
 }
 
@@ -1075,7 +1099,7 @@ cudaError_t launch_predictor_volume(const T* u, T* out, T* faces, const T* dt_pt
                                     long long g0, long long g1, long long g2,
                                     void* stream) {
   constexpr int CB = cells_per_block<T>();
-  if (bad_grid(order, g0, g1, g2) || picard_iters < 0) return cudaErrorInvalidValue;
+  if (bad_grid<kNN>(order, g0, g1, g2) || picard_iters < 0) return cudaErrorInvalidValue;
   const auto P = make_params<T, kNN, Phys>(ops, dx, picard_iters, params, g0, g1, g2);
   const Shape sh = predictor_shape<T, Phys>();
   const cudaError_t attr = allow_smem(aderdg_predictor_volume<T, kNN, CB, Phys>, sh.smem);
@@ -1094,7 +1118,7 @@ cudaError_t launch_ck_predictor_volume(const T* u, T* out, T* faces, const T* dt
                                        long long g1, long long g2, void* stream) {
   using Phys = ElasticHetPhysics<T>;
   constexpr int CB = cells_per_block<T>();
-  if (bad_grid(order, g0, g1, g2)) return cudaErrorInvalidValue;
+  if (bad_grid<kNN>(order, g0, g1, g2)) return cudaErrorInvalidValue;
   const auto P = make_params<T, kNN, Phys>(ops, dx, 0, params, g0, g1, g2);
   const Shape sh = ck_predictor_shape<T>();
   const cudaError_t attr = allow_smem(aderdg_ck_predictor_volume<T, kNN, CB>, sh.smem);
@@ -1106,43 +1130,43 @@ cudaError_t launch_ck_predictor_volume(const T* u, T* out, T* faces, const T* dt
   return cudaGetLastError();
 }
 
-template <typename T, typename Phys, bool kWalls>
+template <typename T, typename Phys, bool kWalls, int NN = kNN>
 cudaError_t launch_face_flux(const T* faces, T* fhat, const double* ops,
                              const double* dx, int order, const double* params, long long g0,
                              long long g1, long long g2, const WallParams<T, Phys::V>& W,
                              void* stream) {
-  const long long tiles = face_tiles(order, g0, g1, g2);
+  const long long tiles = face_tiles<NN>(order, g0, g1, g2);
   if (tiles == 0) return cudaErrorInvalidValue;
-  const auto P = make_params<T, kNN, Phys>(ops, dx, 0, params, g0, g1, g2);
-  const Shape sh = face_flux_shape<T, Phys, kWalls>();
-  const dim3 grid(static_cast<unsigned>(tiles), kDim * kNN * kNN / kFluxNodes);
+  const auto P = make_params<T, NN, Phys>(ops, dx, 0, params, g0, g1, g2);
+  const Shape sh = face_flux_shape<T, Phys, kWalls, NN>();
+  const dim3 grid(static_cast<unsigned>(tiles), kDim * NN * NN / kFluxNodes);
   if constexpr (kWalls) {
-    aderdg_face_flux_walls<T, kNN, Phys>
+    aderdg_face_flux_walls<T, NN, Phys>
         <<<grid, sh.block, 0, static_cast<cudaStream_t>(stream)>>>(faces, fhat, P, W);
   } else {
-    aderdg_face_flux<T, kNN, Phys><<<grid, sh.block, 0, static_cast<cudaStream_t>(stream)>>>(
+    aderdg_face_flux<T, NN, Phys><<<grid, sh.block, 0, static_cast<cudaStream_t>(stream)>>>(
         faces, fhat, P);
   }
   return cudaGetLastError();
 }
 
-template <typename T, typename Phys, bool kWalls>
+template <typename T, typename Phys, bool kWalls, int NN = kNN>
 cudaError_t launch_surface_update(T* state, const T* fhat, const T* dt_ptr, double dt_val,
                                   const double* ops, const double* dx, int order,
                                   const double* params, long long g0, long long g1,
                                   long long g2, const WallParams<T, Phys::V>& W,
                                   void* stream) {
-  const long long tiles = face_tiles(order, g0, g1, g2);
+  const long long tiles = face_tiles<NN>(order, g0, g1, g2);
   if (tiles == 0) return cudaErrorInvalidValue;
-  const auto P = make_params<T, kNN, Phys>(ops, dx, 0, params, g0, g1, g2);
-  const Shape sh = surface_update_shape<T, Phys, kWalls>();
-  const long long blocks = tiles * (kNN * kNN * kNN / kUpdateNodes);
+  const auto P = make_params<T, NN, Phys>(ops, dx, 0, params, g0, g1, g2);
+  const Shape sh = surface_update_shape<T, Phys, kWalls, NN>();
+  const long long blocks = tiles * (NN * NN * NN / kUpdateNodes);
   if constexpr (kWalls) {
-    aderdg_surface_update_walls<T, kNN, Phys>
+    aderdg_surface_update_walls<T, NN, Phys>
         <<<static_cast<unsigned>(blocks), sh.block, 0, static_cast<cudaStream_t>(stream)>>>(
             state, fhat, dt_ptr, static_cast<T>(dt_val), P, W);
   } else {
-    aderdg_surface_update<T, kNN, Phys>
+    aderdg_surface_update<T, NN, Phys>
         <<<static_cast<unsigned>(blocks), sh.block, 0, static_cast<cudaStream_t>(stream)>>>(
             state, fhat, dt_ptr, static_cast<T>(dt_val), P);
   }
@@ -1252,9 +1276,42 @@ int surface_update(T* state, const T* fhat, const T* dt_ptr, double dt_val, cons
   }
 }
 
+// The order-5 Euler face stage (NN = 6), periodic: the second and third
+// launches of a step on csrc/aderdg_st.cuh's predictor.
+constexpr int kNN5 = 6;
+
+template <typename T>
+int face_flux_p5(const T* faces, T* fhat, const double* ops, const double* dx, int order,
+                 int physics, const double* params, long long g0, long long g1, long long g2,
+                 void* stream) {
+  if (physics != kEuler) return cudaErrorInvalidValue;
+  const WallParams<T, EulerPhysics<T>::V> W{};
+  return launch_face_flux<T, EulerPhysics<T>, false, kNN5>(faces, fhat, ops, dx, order, params,
+                                                           g0, g1, g2, W, stream);
+}
+
+template <typename T>
+int surface_update_p5(T* state, const T* fhat, const T* dt_ptr, double dt_val,
+                      const double* ops, const double* dx, int order, int physics,
+                      const double* params, long long g0, long long g1, long long g2,
+                      void* stream) {
+  if (physics != kEuler) return cudaErrorInvalidValue;
+  const WallParams<T, EulerPhysics<T>::V> W{};
+  return launch_surface_update<T, EulerPhysics<T>, false, kNN5>(
+      state, fhat, dt_ptr, dt_val, ops, dx, order, params, g0, g1, g2, W, stream);
+}
+
 template <typename T>
 int kernel_info(int kernel, int physics, int* out) {
   const bool euler = physics == kEuler;
+  if (kernel >= 19 && kernel <= 21) {  // the order-5 Euler step's, 19-21
+    if (!euler) return cudaErrorInvalidValue;
+    using E = EulerPhysics<T>;
+    if (kernel == 20) return shape_info(face_flux_shape<T, E, false, kNN5>(), out);
+    if (kernel == 21) return shape_info(surface_update_shape<T, E, false, kNN5>(), out);
+    auto* info = sizeof(T) == 8 ? st_predictor_info_f64 : st_predictor_info_f32;
+    return info ? info(out) : cudaErrorInvalidValue;
+  }
   if (physics == kZ4) {  // the Z4 step's own three kernels, 7-9
     auto* info = sizeof(T) == 8 ? z4_kernel_info_f64 : z4_kernel_info_f32;
     return info && kernel >= 7 && kernel <= 9 ? info(kernel - 7, out) : cudaErrorInvalidValue;
@@ -1331,7 +1388,8 @@ extern "C" {
 // elasticity, the face stage (face_flux, then surface_update) for both.
 // fhat: [dim, n^(dim-1), n_vars, *grid], the interface fluxes; face_flux
 // leaves the rows that are zero by construction (the elasticity's
-// materials) unwritten.  Only order 3 is instantiated.
+// materials) unwritten.  These entries are the order-3 instances; the
+// order-5 Euler face stage has entries of its own (_p5, below).
 //
 // The face stage's wall variant, face_flux_walls then surface_update_walls
 // (the periodic entries' arguments, then these): bit d of wall_mask (not
@@ -1475,6 +1533,41 @@ int exahype_aderdg_surface_update_walls_f64(double* state, const double* fhat,
                                 g0, g1, g2, wall_mask, fwall, wall_off, stream);
 }
 
+// The order-5 Euler face stage (physics 0 only; order must be 5): the
+// periodic entries' arguments and layouts at n = 6, for the predictor of
+// csrc/aderdg_p5.cu.
+int exahype_aderdg_face_flux_p5_f32(const float* faces, float* fhat, const double* ops,
+                                    const double* dx, int order, int physics,
+                                    const double* params, long long g0, long long g1,
+                                    long long g2, void* stream) {
+  return face_flux_p5<float>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, stream);
+}
+
+int exahype_aderdg_face_flux_p5_f64(const double* faces, double* fhat, const double* ops,
+                                    const double* dx, int order, int physics,
+                                    const double* params, long long g0, long long g1,
+                                    long long g2, void* stream) {
+  return face_flux_p5<double>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, stream);
+}
+
+int exahype_aderdg_surface_update_p5_f32(float* state, const float* fhat, const float* dt_ptr,
+                                         double dt_val, const double* ops, const double* dx,
+                                         int order, int physics, const double* params,
+                                         long long g0, long long g1, long long g2,
+                                         void* stream) {
+  return surface_update_p5<float>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics, params,
+                                  g0, g1, g2, stream);
+}
+
+int exahype_aderdg_surface_update_p5_f64(double* state, const double* fhat,
+                                         const double* dt_ptr, double dt_val,
+                                         const double* ops, const double* dx, int order,
+                                         int physics, const double* params, long long g0,
+                                         long long g1, long long g2, void* stream) {
+  return surface_update_p5<double>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics, params,
+                                   g0, g1, g2, stream);
+}
+
 // out[0..4]: registers per thread, resident blocks per SM, threads per
 // block, dynamic shared memory bytes and local (spill) bytes per thread of
 // one kernel as its launcher launches it: kernel 0 = predictor_volume,
@@ -1488,7 +1581,9 @@ int exahype_aderdg_surface_update_walls_f64(double* state, const double* fhat,
 // (Z4+GRHD, csrc/aderdg_z4_matter.cu): 13 = predictor_volume_z4_matter, 14 =
 // face_flux_z4_matter, 15 = surface_update_z4_matter; physics 6 (Z4+GRMHD,
 // csrc/aderdg_z4_grmhd.cu): 16 = predictor_volume_z4_grmhd, 17 =
-// face_flux_z4_grmhd, 18 = surface_update_z4_grmhd; f64 = 0 or 1.
+// face_flux_z4_grmhd, 18 = surface_update_z4_grmhd; physics 0 at order 5:
+// 19 = predictor_volume_p5 (csrc/aderdg_p5.cu), 20 = face_flux_p5, 21 =
+// surface_update_p5; f64 = 0 or 1.
 int exahype_aderdg_kernel_info(int kernel, int f64, int physics, int* out) {
   return f64 ? kernel_info<double>(kernel, physics, out)
              : kernel_info<float>(kernel, physics, out);

@@ -1,7 +1,8 @@
 // Definitions shared by the ADER-DG kernels of csrc/aderdg.cu (the Euler
 // and elastic predictors, the face stage), csrc/aderdg_visc.cu (the
-// viscous predictor) and csrc/aderdg_z4*.cu (the Z4 steps: vacuum, shifted
-// and coupled to matter, magnetized or not): the physics the Picard
+// viscous predictor), csrc/aderdg_z4*.cu (the Z4 steps: vacuum, shifted
+// and coupled to matter, magnetized or not) and csrc/aderdg_p5*.cu (the
+// order-5 space-time predictor, csrc/aderdg_st.cuh): the physics the Picard
 // predictors and the face stage compile in, the kernels' parameter bank,
 // the predictors' shared-memory layouts, the face stage's tiling, and the
 // host-side helpers of their launchers.  Each source compiles its own copy
@@ -297,10 +298,11 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-constexpr int kNN = 4;  // order 3
-
+// Whether a launch of an instance with NN nodes an axis cannot take this
+// order or grid (each source names the node count of its instances).
+template <int NN>
 bool bad_grid(int order, long long g0, long long g1, long long g2) {
-  return order != kNN - 1 || g0 <= 0 || g1 <= 0 || g2 <= 0;
+  return order != NN - 1 || g0 <= 0 || g1 <= 0 || g2 <= 0;
 }
 
 // Each kernel's function, block and dynamic shared memory, as its launcher

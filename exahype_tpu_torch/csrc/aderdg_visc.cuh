@@ -69,6 +69,8 @@
 
 namespace {
 
+constexpr int kNN = 4;  // order 3: the node count of this file's instances
+
 // The wall planes of the viscous split (mask 0: none).
 template <typename T>
 struct ViscPlanes {
@@ -452,7 +454,7 @@ int predictor_volume_visc(const T* u, T* out, T* faces, const T* dt_ptr, double 
                           int physics, const double* params, long long g0, long long g1,
                           long long g2, int wall_mask, T* planes, const long long* wall_off,
                           long long wall_side, void* stream) {
-  if (physics != kNavierStokes || bad_grid(order, g0, g1, g2) || picard_iters < 0 ||
+  if (physics != kNavierStokes || bad_grid<kNN>(order, g0, g1, g2) || picard_iters < 0 ||
       wall_mask < 0 || wall_mask > 7)
     return cudaErrorInvalidValue;
   if (wall_mask != 0 && (planes == nullptr || wall_off == nullptr || wall_side <= 0))

@@ -2,7 +2,13 @@
 
 Port of ``exahype_tpu/models/aderdg_pallas.py::PallasADERDG`` on the
 flux-form path at order 3 in 3-D, periodic or with domain walls, for three
-physics: compressible Euler on the Picard predictor (``bench.py::main``),
+physics, and at order 5 in 3-D, periodic, for compressible Euler
+(``examples/high_order_p5.py``'s step: ``aderdg_predictor_volume_p5``, the
+space-time predictor of ``csrc/aderdg_st.cuh`` built by
+``csrc/aderdg_p5.cu``, with a thread a space node and each time slice's
+fluxes through shared memory, then ``aderdg_face_flux_p5`` and
+``aderdg_surface_update_p5``, the face stage's n = 6 instances; walls and
+the other physics raise at order 5).  At order 3 the physics are: compressible Euler on the Picard predictor (``bench.py::main``),
 compressible Navier–Stokes on the Picard predictor with its viscous terms
 (``models/navier_stokes.py``) and heterogeneous elasticity on the
 Cauchy–Kovalewski predictor with its materials frozen
@@ -99,6 +105,7 @@ from exahype_tpu_torch.utils.errors import LoweringError
 #: for with that physics.
 INSTANTIATED = {
     ("euler", 3, 3): "picard",
+    ("euler", 3, 5): "picard",
     ("navier_stokes", 3, 3): "picard",
     ("elastic3d_het", 3, 3): "ck",
     ("z4", 3, 2): "picard",
@@ -213,7 +220,9 @@ class CudaADERDG:
     #: ``csrc/aderdg_z4.cu``; 10-12 of physics 4: the shifted Z4 kernels of
     #: ``csrc/aderdg_z4_shift.cu``; 13-15 of physics 5: the Z4+GRHD kernels
     #: of ``csrc/aderdg_z4_matter.cu``; 16-18 of physics 6: the Z4+GRMHD
-    #: kernels of ``csrc/aderdg_z4_grmhd.cu``).
+    #: kernels of ``csrc/aderdg_z4_grmhd.cu``; 19-21 of physics 0: the
+    #: order-5 Euler step's, ``csrc/aderdg_p5.cu`` and the face stage's n = 6
+    #: instances).
     KERNELS = (
         "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
         "aderdg_surface_update", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
@@ -223,6 +232,7 @@ class CudaADERDG:
         "aderdg_predictor_volume_z4_matter", "aderdg_face_flux_z4_matter",
         "aderdg_surface_update_z4_matter", "aderdg_predictor_volume_z4_grmhd",
         "aderdg_face_flux_z4_grmhd", "aderdg_surface_update_z4_grmhd",
+        "aderdg_predictor_volume_p5", "aderdg_face_flux_p5", "aderdg_surface_update_p5",
     )
 
     def __init__(self, solver: ADERDGSolver):
@@ -293,6 +303,15 @@ class CudaADERDG:
                 f"{solver.boundary!r}: NCP walls on the card are still to port, see "
                 "ROADMAP.md, Queue 2 K1 d (the plain solver runs them)"
             )
+        # Order 5 (Euler) has kernels of its own, named with the order; its face
+        # stage is the periodic pair only.
+        order_suffix = "" if solver.order == 3 or ncp else f"_p{solver.order}"
+        if order_suffix and walled:
+            raise LoweringError(
+                f"the CUDA face stage at order {solver.order} is periodic only, and "
+                f"boundary={solver.boundary!r}: walls at that order are still to port, see "
+                "ROADMAP.md, Queue 1 item 4 (the plain solver runs them)"
+            )
         self.solver = solver
         #: Whether the step carries the fused NCP right-hand side (Z4): the
         #: face flux kernel then also returns the NCP half-fluctuations.
@@ -310,8 +329,9 @@ class CudaADERDG:
         suffix = "" if self.walls is None else "_walls"
         predictor = "aderdg_ck_predictor_volume" if mode == "ck" else "aderdg_predictor_volume"
         self.kernels = (
-            predictor + ("_visc" if viscous else ""),
-            f"aderdg_face_flux{suffix}", f"aderdg_surface_update{suffix}",
+            predictor + ("_visc" if viscous else "") + order_suffix,
+            f"aderdg_face_flux{suffix}{order_suffix}",
+            f"aderdg_surface_update{suffix}{order_suffix}",
         )
         if ncp:
             self.kernels = tuple(f"{name}_{tag.name}" for name in self.kernels)

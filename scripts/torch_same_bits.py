@@ -32,11 +32,14 @@ compares their outputs bit for bit:
   differences.
 
 Then it disassembles both libraries (``cuobjdump -sass``) and compares the
-instructions of every kernel the two have in common (the Z4 step's kernels
-matched by name, value type and system, ``Z4Vacuum``, ``Z4Shift``,
-``Z4Matter`` or ``Z4Grmhd``, whatever template arguments were added since),
-ignoring addresses and encodings; kernels of the Z4+GRMHD system that only
-this checkout has are listed as new.  Prints one line per output and per kernel
+instructions of every kernel the two have in common (matched by name, value
+type, the first integer template argument, which is the node count of the
+ADER-DG kernels of ``csrc/aderdg.cu``, and for the Z4 step's kernels the
+system, ``Z4Vacuum``, ``Z4Shift``, ``Z4Matter`` or ``Z4Grmhd``, whatever
+template arguments were added since), ignoring addresses and encodings;
+kernels of the Z4+GRMHD system and of the order-5 Euler step (the face
+stage at n = 6 and ``aderdg_predictor_volume_st``) that only this checkout
+has are listed as new.  Prints one line per output and per kernel
 and exits non-zero if any differs.  Needs a CUDA card and nvcc; imports no
 JAX.
 """
@@ -61,13 +64,17 @@ SASS_KERNELS = (
     "aderdg_predictor_volume", "aderdg_face_flux", "aderdg_surface_update",
     "aderdg_predictor_volume_z4", "aderdg_face_flux_z4", "aderdg_surface_update_z4",
     "rhs_all_z4", "rhs_all_z4_shift", "rhs_all_z4_matter", "rhs_all_z4_grmhd",
+    "aderdg_predictor_volume_st",
 )
 #: The Z4 step kernels' systems (a template argument of each instance).
 SYSTEMS = ("Z4Vacuum", "Z4Shift", "Z4Matter", "Z4Grmhd")
-#: What only this checkout may have: the Z4+GRMHD system's kernels.
-NEW = ("Z4Grmhd", "rhs_all_z4_grmhd", "Z4+GRMHD")
+#: What only this checkout may have: the Z4+GRMHD system's kernels, and the
+#: order-5 Euler step's (its predictor, and the face stage's kernels whose
+#: node count is ``NEW_NODES``).
+NEW = ("Z4Grmhd", "rhs_all_z4_grmhd", "Z4+GRMHD", "aderdg_predictor_volume_st")
+NEW_NODES = "6"
 _KERNEL_NAME = re.compile(r"(\d+)(" + "|".join(sorted(SASS_KERNELS, key=len, reverse=True))
-                          + r")I([fd])")
+                          + r")I([fd])(?:Li(\d+)E)?")
 
 _CHILD = r"""
 import sys
@@ -175,11 +182,12 @@ def run(root: pathlib.Path, out: pathlib.Path) -> dict:
 
 
 def sass(library: str) -> dict:
-    """``{(kernel, value type, system, k): [instruction, ...]}`` of the
-    kernels of :data:`SASS_KERNELS` in ``library`` (system: the Z4 step
-    kernels' :data:`SYSTEMS` template argument, else ""; k numbers the
-    instances of one kernel, value type and system in the order of their
-    mangled names): each instruction's text without its address and
+    """``{(kernel, value type, system, first integer template argument,
+    k): [instruction, ...]}`` of the kernels of :data:`SASS_KERNELS` in
+    ``library`` (system: the Z4 step kernels' :data:`SYSTEMS` template
+    argument, else ""; the integer "" if there is none; k numbers the
+    instances of one kernel, value type, system and integer in the order of
+    their mangled names): each instruction's text without its address and
     encoding."""
     sys.path.insert(0, str(HERE))
     from exahype_tpu_torch import _build
@@ -195,13 +203,13 @@ def sass(library: str) -> dict:
             code = None
             if m and m.group(1).endswith(str(len(m.group(2)))):
                 system = next((s for s in SYSTEMS if s in fn), "")
-                code = found.setdefault((m.group(2), m.group(3), system), {}).setdefault(fn, [])
+                key = (m.group(2), m.group(3), system, m.group(4) or "")
+                code = found.setdefault(key, {}).setdefault(fn, [])
             continue
         if code is None or "/*" not in line or ";" not in line:
             continue
         code.append(line.split("*/", 1)[1].split(";")[0].strip())
-    return {(name, t, system, k): fns[fn] for (name, t, system), fns in found.items()
-            for k, fn in enumerate(sorted(fns))}
+    return {(*key, k): fns[fn] for key, fns in found.items() for k, fn in enumerate(sorted(fns))}
 
 
 def main():
@@ -237,8 +245,10 @@ def main():
     for key in sorted(set(code_mine) | set(code_theirs)):
         a, b = code_mine.get(key), code_theirs.get(key)
         label = (f"{key[0]} ({'float' if key[1] == 'f' else 'double'}"
-                 f"{', ' + key[2] if key[2] else ''}, instance {key[3]})")
-        if b is None and any(n in key[0] or n == key[2] for n in NEW):
+                 f"{', ' + key[2] if key[2] else ''}{', ' + key[3] if key[3] else ''}, "
+                 f"instance {key[4]})")
+        new_nodes = key[3] == NEW_NODES and key[0] in ("aderdg_face_flux", "aderdg_surface_update")
+        if b is None and (new_nodes or any(n in key[0] or n == key[2] for n in NEW)):
             print(f"[same sass] {label}: {len(a)} instructions, new in this checkout")
             continue
         if a is None or b is None:

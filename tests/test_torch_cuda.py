@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 Picard predictor and the two-launch face stage of ``csrc/aderdg.cu`` (with
-its face-flux output), the CK predictor (K2) and the face stage's elastic
+its face-flux output), the order-5 Euler step (K1 c: the space-time
+predictor of ``csrc/aderdg_st.cuh`` and the face stage at n = 6), the CK
+predictor (K2) and the face stage's elastic
 variant, both at the edges of their tilings, the face stage's wall variant
 in every mode (Euler) and on the CK free surface, the viscous predictor
 (``csrc/aderdg_visc.cu``) and the Navier–Stokes face stage, periodic and in
@@ -284,6 +286,100 @@ def test_kernel_info_reports_each_launch_shape(physics):
             info = cu.kernel_info(name, dtype)
             assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, (name, info)
             assert info["threads"] % 32 == 0, (name, info)
+
+
+# ------------------------------------------------ order 5: K1 c's space-time predictor
+
+
+def _p5_setup(grid, dtype):
+    """``examples/high_order_p5.py``'s solver and exact density wave (γ = 1.4,
+    p0 = 2, velocity (1, 0.5, 0.25)) at ``grid``, dx = 1/g0, the density
+    times 1 + 0.05 N(0, 1) (seeded) so that every node differs."""
+    dev = _card()
+    flux, eig = euler_physics(3)
+    sol = ADERDGSolver(3, 5, 5, grid, flux, eig, dx=1.0 / grid[0], device=dev, dtype=dtype)
+    phase = sum(np.asarray(c) for c in sol.nodes_meshgrid())
+    no_var = sol.state_shape[:3] + sol.state_shape[4:]
+    rho = np.broadcast_to(np.squeeze(1.0 + 0.2 * np.sin(2 * np.pi * phase), 3), no_var)
+    rho = rho * (1.0 + 0.05 * np.random.default_rng(0).standard_normal(no_var))
+    vel = (1.0, 0.5, 0.25)
+    e = 2.0 / 0.4 + 0.5 * rho * sum(v * v for v in vel)
+    q = np.stack([rho] + [rho * v for v in vel] + [e], axis=3)
+    return sol, CudaADERDG(sol), torch.from_numpy(q).to(dev, dtype).contiguous()
+
+
+P5_CASES = [
+    (torch.float64, (4, 2, 8)),
+    (torch.float64, (3, 1, 5)),  # ragged last block (15 cells, 2 a block), a one-cell axis
+    (torch.float32, (4, 2, 8)),
+    (torch.float32, (3, 1, 5)),
+]
+P5_DT = 2e-4  # under the CFL limit of this state at dx = 1/g0 <= 1/3
+P5_NAMES = ("aderdg_predictor_volume_p5", "aderdg_face_flux_p5", "aderdg_surface_update_p5")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", P5_CASES)
+def test_p5_predictor_kernel_matches_plain(dtype, grid):
+    sol, cu, u = _p5_setup(grid, dtype)
+    u0 = u.clone()
+    new_k, faces_k, fv = cu.predictor_volume(u, P5_DT)
+    new_p, faces_p, _ = sol.predictor_volume(u, P5_DT)
+    torch.cuda.synchronize()
+    assert torch.equal(u, u0) and fv is None
+    assert _err(new_k, new_p) <= _bound(new_p, dtype)
+    assert _err(faces_k, faces_p) <= _bound(faces_p, dtype)
+    assert cu.kernels == P5_NAMES and cu.launches[P5_NAMES[0]] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", P5_CASES)
+def test_p5_face_stage_matches_plain(dtype, grid):
+    sol, cu, u = _p5_setup(grid, dtype)
+    new, faces, _ = sol.predictor_volume(u, P5_DT)
+    fhat_k, side = cu.face_flux(faces)
+    fshape = sol.face_flux_shape
+    fhat_p = torch.stack([
+        sol.interface_flux(*(faces[d, k].reshape(fshape) for k in range(4)), d)
+        for d in range(3)]).reshape(fhat_k.shape)
+    upd_k = cu.surface_update(new.clone(), fhat_p, P5_DT)
+    upd_p = new
+    for d in range(3):
+        upd_p = sol.surface_term(upd_p, fhat_p[d].view(fshape), d, P5_DT)
+    out_k = cu.face_surface(new.clone(), faces, P5_DT)
+    out_p = sol.face_surface(new, faces, P5_DT)
+    torch.cuda.synchronize()
+    assert side is None
+    assert _err(fhat_k, fhat_p) <= _bound(fhat_p, dtype)
+    assert _err(upd_k, upd_p) <= _bound(upd_p, dtype)
+    assert _err(out_k, out_p) <= _bound(out_p, dtype)
+    assert cu.launches == {P5_NAMES[0]: 0, P5_NAMES[1]: 2, P5_NAMES[2]: 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", P5_CASES)
+def test_p5_step_kernels_match_plain_and_repeat_bitwise(dtype, grid):
+    sol, cu, u = _p5_setup(grid, dtype)
+    ref = sol.step(u, P5_DT)
+    by_value = cu.step(u, P5_DT)
+    by_pointer = cu.step(u, torch.tensor(P5_DT, dtype=dtype, device=u.device))
+    torch.cuda.synchronize()
+    assert _err(by_value, ref) <= _bound(ref, dtype)
+    assert torch.equal(by_value, by_pointer)
+    assert torch.equal(cu.run(u, 3, P5_DT), cu.run(u, 3, P5_DT))
+    assert cu.launches == {name: 8 for name in P5_NAMES}
+
+
+@pytest.mark.cuda
+def test_p5_kernel_info_reports_the_n6_shapes():
+    for dtype, smem, size in ((torch.float32, 60624, 4), (torch.float64, 121248, 8)):
+        _, cu, _ = _p5_setup((2, 2, 4), dtype)
+        pred, flux, update = (cu.kernel_info(name, dtype) for name in P5_NAMES)
+        # 2 cells of 216 nodes a block; u, two flux buffers and Kvol in shared memory.
+        assert pred["threads"] == 432 and pred["smem"] == smem == (7 * 5 * 432 + 36) * size
+        assert pred["registers"] > 0 and pred["blocks_per_sm"] >= 1, pred
+        assert flux["threads"] == 128 and update["threads"] == 256
+        assert flux["smem"] == update["smem"] == 0
 
 
 # ------------------------------------------------ the face stage's walls
