@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one card, nvcc
 
-It drives eleven paths, each through ``exahype_tpu_torch``'s entry points
+It drives thirteen paths, each through ``exahype_tpu_torch``'s entry points
 with its kernels' launch counters set to 0 just before and read just
 after (the two forms of the main path, ADER-DG and FV, and the order-5,
-limited, CK, walls, viscous, dynamic-GR, shifted dynamic-GR, Z4+GRHD and
-Z4+GRMHD slices), in this order:
+limited, limited with walls, limited 2-D blast with walls, CK, walls,
+viscous, dynamic-GR, shifted dynamic-GR, Z4+GRHD and Z4+GRMHD slices), in
+this order:
 
 - **ADER-DG**: ``bench.py::main``'s step — order 3, 3-D compressible
   Euler, a ``(256, 8, 128)`` periodic cell grid in float32, ``bench.py``'s
@@ -43,6 +44,37 @@ Z4+GRMHD slices), in this order:
   of ``csrc/aderdg.cu`` (the predictor and the face stage's two launches,
   which also return the face fluxes) and the subcell sweep (K3) of
   ``csrc/subcell.cu``, six launches a step.
+- **limited walls**: the same production step with reflective walls on
+  axis 0 (``wall_axes=(0,)``, ``euler_reflect``/``euler_reflect_flux``):
+  the face stage's wall pair (``aderdg_face_flux_walls`` +
+  ``aderdg_surface_update_walls``) and K3 on ghosts that mirror at the
+  walls, from the Sod state with a uniform u_x = 0.5 added (``WALLS_UX``:
+  the reflection at the high wall troubles wall rows from the first step),
+  dt = 1.5e-4, 5 warm-up and 10 checked steps.  Gates: the limited path's
+  (admissibility, rows demanded against the capacity, one step's masks
+  and state against the plain path, the poison check, bitwise
+  repeatability, six launches a step), mass and energy drift under 1e-5,
+  troubled rows at a wall on every checked step (``[limited walls]``);
+  in float64 at ``(8, 4, 8)`` the candidate's face fluxes slot for slot
+  in every wall mode, and limited steps with reflective, outflow and
+  farfield walls against the plain limiter at 1e-12.
+- **limited blast walls**: ``examples/limited_blast_walls.py`` — 2-D p3
+  Euler in a reflective box, ``LimitedADERDG(admissible=euler_admissible(2),
+  accelerator=CudaADERDG(solver))`` with the whole-grid subcell fallback
+  (eager PyTorch), the pressurised disc — through K1 c's 2-D instance
+  (``csrc/aderdg_2d.cu``: ``aderdg_predictor_volume_2d`` and the wall pair
+  ``aderdg_face_flux_walls_2d`` + ``aderdg_surface_update_walls_2d``, three
+  launches a step): the example's ``(16, 16)`` at dt = 2.5e-4 over its 20
+  steps with its gates (admissible, mass and energy drift under 1e-5,
+  cells troubled on step 1), then ``(1024, 1024)`` at ``cfl_dt`` over 10
+  steps with the same gates, repeatability, one step's masks and state
+  against the plain path, the periodic twin (the periodic pair
+  ``aderdg_face_flux_2d`` + ``aderdg_surface_update_2d``), times and
+  ``[kernel]`` lines; every 2-D kernel against its plain version launch by
+  launch in float64 at ``(8, 8)`` (periodic and every wall mode, a
+  Dirichlet box from ``make_dirichlet_fn`` included) and in float32 at
+  ``(1024, 1024)``; the whole-grid ``fallback="means"`` and the Dirichlet
+  whole-grid step against the plain limiter in float64.
 - **CK**: ``bench.py::bench_ck``'s step — order 3, 3-D heterogeneous
   elasticity (12 variables: velocity–stress and frozen per-node ρ, λ, μ),
   ``predictor_mode="ck"``, ``ck_material_slots=(9, 10, 11)``,
@@ -139,7 +171,7 @@ Z4+GRMHD slices), in this order:
   (K1 d's conservative-flux variant over ``Z4Grmhd``,
   ``csrc/aderdg_z4_grmhd.cu``: ``aderdg_*_z4_grmhd``, 3 launches a step)
   and through ``with_cuda_rhs`` (K5 e, ``rhs_all_z4_grmhd``, the
-  field-aligned con2prim in the kernel) for ``Z4G_EAGER_STEPS``.  Its
+  field-aligned con2prim in the kernel) for ``Z4_EAGER_STEPS``.  Its
   kernels are held to their plain versions on a magnetized fluid with
   seeded noise on every Z4 slot (``Z4G_NOISE``) in float64 at ``(8, 4,
   16)`` in two families (``Z4G_FAMILIES``) and in float32 at full width;
@@ -150,7 +182,7 @@ Z4+GRMHD slices), in this order:
 Phases:
 
 1. card: name, and ``nvidia-smi``'s name and power limit;
-2. build: ``csrc/aderdg.cu``, ``csrc/aderdg_p5.cu`` (float32) and
+2. build: ``csrc/aderdg.cu``, ``csrc/aderdg_2d.cu``, ``csrc/aderdg_p5.cu`` (float32) and
    ``csrc/aderdg_p5_f64.cu``, ``csrc/aderdg_visc.cu`` and
    ``csrc/aderdg_visc_f64.cu``, ``csrc/aderdg_z4.cu`` and
    ``csrc/aderdg_z4_f64.cu``, ``csrc/aderdg_z4_shift.cu`` and
@@ -195,10 +227,11 @@ Phases:
    troubled mask against the plain path's, and the poison check: one step
    with NaN in every inactive slot of the gathered batch, its ghosts and
    its edge fluxes bitwise equal to the ordinary step; Z4: through
-   ``CudaADERDG`` 3 launches a step, through ``with_cuda_rhs`` K5's
-   (picard_iters + 2), both routes bitwise repeatable and against the
-   plain path after 1 and 10 steps, with the error against the exact gauge
-   wave and the ADM constraints of every path as readings);
+   ``CudaADERDG`` 3 launches a step over 10 steps, through
+   ``with_cuda_rhs`` K5's (picard_iters + 2) over ``Z4_EAGER_STEPS``, both
+   routes bitwise repeatable and against the plain path after 1 and
+   ``Z4_EAGER_STEPS`` steps, with the error against the exact gauge wave and
+   the ADM constraints of every path as readings);
 5. times: step ms over 3 host-clock windows, DOF-updates/s, per-kernel (and
    for FV ``halo_fill`` / ``compute_dt``, for the limited step the rest of
    the step, for Z4 the eager stages) times with CUDA events, device idle
@@ -260,6 +293,29 @@ LIMITED_DT = 1.5e-4
 CAPACITY = 128
 DMP_DELTA0 = 5e-4
 WARMUP = 5
+
+#: The limited walls path: the limited path's step with reflective walls on
+#: axis 0, from the bench's Sod state with a uniform flow u_x added (into
+#: the high wall), so that the reflection troubles wall rows from the first
+#: step; its float64 cut grid is the walls path's.
+WALLS_UX = 0.5
+WALLS_AXES = (0,)
+
+#: The limited blast walls path (``examples/limited_blast_walls.py``): 2-D
+#: p3 Euler in a reflective box, the whole-grid subcell fallback, the
+#: pressurised disc r < 0.1 (ρ 1/0.125, p 10/0.1, at rest).  The example's
+#: own grid at its dt = 2.5e-4 over its 20 steps, then (1024, 1024) (67.1 M
+#: DOF, the scale of bench.py's 83.9 M) at the solver's cfl_dt of the
+#: initial state over ``STEPS``; the float64 checks on (8, 8).
+BLAST_GRIDS = ((16, 16), (1024, 1024))
+BLAST_DT = 2.5e-4
+BLAST_STEPS = 20
+BLAST_CUT = (8, 8)
+#: Flops of one 2-D Euler flux (the 3-D count less the third axis's kinetic
+#: and advective terms: 1 division, pressure 7, coefficient 1, 3 advective
+#: products, the pressure term 1, energy 3) and of one 2-D wave speed.
+FLUX_OPS_2D = 16
+EIG_OPS_2D = 15
 
 #: The FV path (``__graft_entry__.py:16-36``): 3-D Euler, patch 4, halo 1.
 FV_WIDTH = dict(dim=3, patch_size=4, halo_size=1, n_real=5, n_aux=0)
@@ -454,10 +510,11 @@ Z4G_NOISE = 1e-3
 #: against p, and agree to the recovery's convergence.  Its cleaning speed
 #: is under the cone, so the Rusanov speeds of the two systems are alike.
 Z4G_DRIFT = 1e-5
-#: Steps of the eager routes at full width (``with_cuda_rhs`` and the plain
-#: path, ≳1 s each: the flux's vector Newton runs as PyTorch calls); the
-#: kernel path is held to the plain path after 1 and after these.
-Z4G_EAGER_STEPS = 2
+#: Steps of the Z4 paths' eager routes at full width (``with_cuda_rhs`` and
+#: the plain path: 0.4 s to ≳1 s a step, most of it PyTorch calls; the
+#: Z4+GRMHD flux's vector Newton is the slowest); the kernel path is held to
+#: the plain path after 1 and after these, and runs its own ``STEPS``.
+Z4_EAGER_STEPS = 2
 Z4G_ZERO_FIELD_TOL = (1e-7, 1e-9)
 Z4G_ZERO_FIELD_CH = 0.5
 #: Flops of the matter flux of the three axes at a point beside the recovery
@@ -646,7 +703,8 @@ def bound(n_bytes: float, n_ops: float) -> dict:
     }
 
 
-def predictor_ops(order: int, picard_iters: int, ncell: int, dim=3, nvar=5) -> float:
+def predictor_ops(order: int, picard_iters: int, ncell: int, dim=3, nvar=5,
+                  flux_ops=FLUX_OPS) -> float:
     """Flops of ``aderdg_predictor_volume`` (``csrc/aderdg.cu``), counted per
     (cell, node): each Picard iteration evaluates ``dim`` fluxes per time
     slice and contracts them with D (2n-1 flops per n-point contraction)
@@ -655,8 +713,8 @@ def predictor_ops(order: int, picard_iters: int, ncell: int, dim=3, nvar=5) -> f
     (``dim`` n^(dim-1) of the n^dim threads)."""
     n = order + 1
     contr = 2 * n - 1
-    picard = n * (dim * FLUX_OPS + nvar * (1 + dim * (contr + 3))) + n * nvar * contr
-    averages = n * (2 * nvar + dim * FLUX_OPS + 2 * dim * nvar)
+    picard = n * (dim * flux_ops + nvar * (1 + dim * (contr + 3))) + n * nvar * contr
+    averages = n * (2 * nvar + dim * flux_ops + 2 * dim * nvar)
     volume = nvar * dim * (contr + 2)
     faces = dim * n ** (dim - 1) / n**dim * nvar * 4 * contr
     per_node = picard_iters * picard + averages + volume + faces
@@ -3186,52 +3244,56 @@ def z4_path(torch, dev, card) -> list[dict]:
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     k5.reset_launches()
-    u = kern.run(u0, STEPS, Z4_DT)
+    u = kern.run(u0, Z4_EAGER_STEPS, Z4_DT)
     torch.cuda.synchronize()
     launches = k5.launches
     peak = torch.cuda.max_memory_allocated()
-    want = (iters + 2) * STEPS
-    say(f"[z4 main] {STEPS} steps of {Z4_GRID} f32 through make_z4_solver + with_cuda_rhs: "
+    want = (iters + 2) * Z4_EAGER_STEPS
+    say(f"[z4 main] {Z4_EAGER_STEPS} steps of {Z4_GRID} f32 through make_z4_solver + with_cuda_rhs: "
         f"K5 launches {launches} (expected (picard_iters + 2) x steps = {want}); peak "
         f"{peak * gib:.4f} GiB allocated ({held * gib:.4f} GiB held before: the first "
         f"Picard and corrector inputs, the initial state, operators) ({card})")
     if launches != want:
-        fail(f"K5 launched {launches} times in {STEPS} Z4 main-path steps, expected {want}")
+        fail(f"K5 launched {launches} times in {Z4_EAGER_STEPS} Z4 main-path steps, expected "
+             f"{want}")
     if tuple(u.shape) != plain.state_shape or not torch.isfinite(u).all():
         fail("the Z4 main-path state is not finite or has the wrong shape")
-    again = kern.run(u0, STEPS, Z4_DT)
+    again = kern.run(u0, Z4_EAGER_STEPS, Z4_DT)
     if not torch.equal(u, again):
         fail("two Z4 runs from the same state differ")
     say("[z4 main] two runs from the same state: bitwise equal")
     del again
-    d1, k1, p1 = cu.step(u0, Z4_DT), kern.step(u0, Z4_DT), plain.step(u0, Z4_DT)
+    # The plain path over the eager depth; the kernel paths after 1 and
+    # after as many steps, within that many f32 bounds.
+    d1, k1 = cu.step(u0, Z4_DT), kern.step(u0, Z4_DT)
     torch.cuda.reset_peak_memory_stats()
-    p10 = plain.run(u0, STEPS, Z4_DT)
+    p1 = plain.step(u0, Z4_DT)
+    pn = plain.run(p1, Z4_EAGER_STEPS - 1, Z4_DT)
     torch.cuda.synchronize()
     plain_peak = torch.cuda.max_memory_allocated()
-    for route, n, a, b in (("CudaADERDG", 1, d1, p1), ("CudaADERDG", STEPS, u_d, p10),
-                           ("with_cuda_rhs", 1, k1, p1), ("with_cuda_rhs", STEPS, u, p10)):
+    dn = cu.run(u0, Z4_EAGER_STEPS, Z4_DT)
+    for route, n, a, b in (("CudaADERDG", 1, d1, p1), ("CudaADERDG", Z4_EAGER_STEPS, dn, pn),
+                           ("with_cuda_rhs", 1, k1, p1), ("with_cuda_rhs", Z4_EAGER_STEPS, u, pn)):
         err, limit = max_err(torch, a, b), n * f32_bound(torch, b)
         say(f"[z4 main] {route}, {n} step(s), kernel path vs plain path: max_abs_err "
             f"{err:.3e} limit {limit:.3e}")
         if not err <= limit:
             fail(f"the Z4 kernel path ({route}) disagrees with the plain path after {n} step(s)")
-    del d1, k1, p1
+    del d1, k1, p1, dn
 
     # Readings: the error against the exact gauge wave, the ADM constraints
     # (in float64, from a float64 solver's operators).
-    exact = gauge_wave_state(sol64, t=STEPS * Z4_DT, amplitude=Z4_AMPLITUDE)
-    for label, x, ex in (("initial state", u0, gauge_wave_state(sol64, amplitude=Z4_AMPLITUDE)),
-                         ("CudaADERDG path", u_d, exact), ("with_cuda_rhs path", u, exact),
-                         ("plain path", p10, exact)):
-        diff = x.double() - ex
+    t_d, t_e = STEPS * Z4_DT, Z4_EAGER_STEPS * Z4_DT
+    for label, t, x in (("initial state", 0.0, u0), ("CudaADERDG path", t_d, u_d),
+                        ("with_cuda_rhs path", t_e, u), ("plain path", t_e, pn)):
+        diff = x.double() - gauge_wave_state(sol64, t=t, amplitude=Z4_AMPLITUDE)
         H, M = solver_constraints(sol64, x.double())
-        say(f"[z4 reading] {label} at t = {0 if x is u0 else STEPS * Z4_DT!r}: error against "
+        say(f"[z4 reading] {label} at t = {t!r}: error against "
             f"the exact gauge wave: L2 (nodal RMS over all DOF) {diff.pow(2).mean().sqrt().item()!r}"
             f", max {diff.abs().max().item()!r}; ADM constraints max|H| "
             f"{H.abs().max().item()!r}, max|M| {M.abs().max().item()!r}")
         del diff, H, M
-    del sol64, exact, p10, u, u_d
+    del sol64, pn, u, u_d
 
     # ------------------------------------------- times
     d_win = windows(torch, cu, u0, Z4_DT, steps=10)
@@ -3484,32 +3546,36 @@ def z4_shift_path(torch, dev, card) -> list[dict]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k5.reset_launches()
-    u_k = kern.run(u0, STEPS, Z4_DT)
+    u_k = kern.run(u0, Z4_EAGER_STEPS, Z4_DT)
     torch.cuda.synchronize()
     launches = k5.launches
     peak = torch.cuda.max_memory_allocated()
-    want = (iters + 2) * STEPS
-    say(f"[z4s main] {STEPS} steps of {Z4_GRID} f32 through make_z4_shift_solver + "
+    want = (iters + 2) * Z4_EAGER_STEPS
+    say(f"[z4s main] {Z4_EAGER_STEPS} steps of {Z4_GRID} f32 through make_z4_shift_solver + "
         f"with_cuda_rhs: K5 c launches {launches} (expected (picard_iters + 2) x steps = "
         f"{want}); peak {peak * gib:.4f} GiB allocated ({card})")
     if launches != want:
-        fail(f"K5 c launched {launches} times in {STEPS} shifted Z4 steps, expected {want}")
+        fail(f"K5 c launched {launches} times in {Z4_EAGER_STEPS} shifted Z4 steps, expected "
+             f"{want}")
     if tuple(u_k.shape) != plain.state_shape or not torch.isfinite(u_k).all():
         fail("the shifted Z4 state through with_cuda_rhs is not finite or has the wrong shape")
-    d1, k1, p1 = cu.step(u0, Z4_DT), kern.step(u0, Z4_DT), plain.step(u0, Z4_DT)
+    d1, k1 = cu.step(u0, Z4_DT), kern.step(u0, Z4_DT)
     torch.cuda.reset_peak_memory_stats()
-    p10 = plain.run(u0, STEPS, Z4_DT)
+    p1 = plain.step(u0, Z4_DT)
+    pn = plain.run(p1, Z4_EAGER_STEPS - 1, Z4_DT)
     torch.cuda.synchronize()
     plain_peak = torch.cuda.max_memory_allocated()
-    for route, n, a, b in (("CudaADERDG", 1, d1, p1), ("CudaADERDG", STEPS, u_d, p10),
-                           ("with_cuda_rhs", 1, k1, p1), ("with_cuda_rhs", STEPS, u_k, p10)):
+    dn = cu.run(u0, Z4_EAGER_STEPS, Z4_DT)
+    for route, n, a, b in (("CudaADERDG", 1, d1, p1), ("CudaADERDG", Z4_EAGER_STEPS, dn, pn),
+                           ("with_cuda_rhs", 1, k1, p1),
+                           ("with_cuda_rhs", Z4_EAGER_STEPS, u_k, pn)):
         err, limit = max_err(torch, a, b), n * f32_bound(torch, b)
         say(f"[z4s main] {route}, {n} step(s), kernel path vs plain path: max_abs_err "
             f"{err:.3e} limit {limit:.3e}")
         if not err <= limit:
             fail(f"the shifted Z4 kernel path ({route}) disagrees with the plain path after "
                  f"{n} step(s)")
-    del d1, k1, p1
+    del d1, k1, p1, dn
 
     phase("the main runs and the plain path")
 
@@ -3517,19 +3583,16 @@ def z4_shift_path(torch, dev, card) -> list[dict]:
     # and slots 0-37: the Gamma-driver's b follows ∂_t Γ, which the wave in
     # moving coordinates does not hold at 0), the ADM constraints (float64,
     # from a float64 solver's operators), and how far the Gamma-driver moved β, b.
-    t_end = STEPS * Z4_DT
-    exact = moving_gauge_wave_state(sol64, t=t_end, v=Z4S_V, amplitude=Z4_AMPLITUDE)
+    t_d, t_e = STEPS * Z4_DT, Z4_EAGER_STEPS * Z4_DT
     va = plain.var_axis
-    for label, x, ex in (
-            ("initial state", u0, moving_gauge_wave_state(sol64, v=Z4S_V, amplitude=Z4_AMPLITUDE)),
-            ("CudaADERDG path", u_d, exact), ("with_cuda_rhs path", u_k, exact),
-            ("plain path", p10, exact)):
-        diff = x.double() - ex
+    for label, t, x in (("initial state", 0.0, u0), ("CudaADERDG path", t_d, u_d),
+                        ("with_cuda_rhs path", t_e, u_k), ("plain path", t_e, pn)):
+        diff = x.double() - moving_gauge_wave_state(sol64, t=t, v=Z4S_V, amplitude=Z4_AMPLITUDE)
         core = diff.narrow(va, 0, 38)
         H, M = solver_constraints(sol64, x.double())
         beta = x.narrow(va, 38, 1).double()
         b = x.narrow(va, 41, 3).double()
-        say(f"[z4s reading] {label} at t = {0 if x is u0 else t_end!r}: error against the "
+        say(f"[z4s reading] {label} at t = {t!r}: error against the "
             f"exact moving gauge wave: L2 (nodal RMS over all DOF) "
             f"{diff.pow(2).mean().sqrt().item()!r}, max {diff.abs().max().item()!r}; over slots "
             f"0-37 L2 {core.pow(2).mean().sqrt().item()!r}, max {core.abs().max().item()!r}; ADM "
@@ -3539,7 +3602,7 @@ def z4_shift_path(torch, dev, card) -> list[dict]:
         if x is not u0 and not (b.abs().max().item() > 0 and (beta - Z4S_V).abs().max() > 0):
             fail(f"the Gamma-driver did not move β and b ({label})")
         del diff, core, H, M, beta, b
-    del sol64, exact, p10, u_k, u_d
+    del sol64, pn, u_k, u_d
     phase("the readings")
 
     # ------------------------------------------- times
@@ -3839,49 +3902,54 @@ def z4_matter_path(torch, dev, card) -> list[dict]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k5.reset_launches()
-    u_k = kern.run(uw, STEPS, Z4_DT)
+    u_k = kern.run(uw, Z4_EAGER_STEPS, Z4_DT)
     torch.cuda.synchronize()
     launches = k5.launches
     peak = torch.cuda.max_memory_allocated()
-    want = (iters + 2) * STEPS
-    say(f"[z4m main] {STEPS} steps of {Z4_GRID} f32 through make_z4_matter_solver + "
+    want = (iters + 2) * Z4_EAGER_STEPS
+    say(f"[z4m main] {Z4_EAGER_STEPS} steps of {Z4_GRID} f32 through make_z4_matter_solver + "
         f"with_cuda_rhs: K5 d launches {launches} (expected (picard_iters + 2) x steps = "
         f"{want}); peak {peak * gib:.4f} GiB allocated ({card})")
     if launches != want:
-        fail(f"K5 d launched {launches} times in {STEPS} Z4+GRHD steps, expected {want}")
+        fail(f"K5 d launched {launches} times in {Z4_EAGER_STEPS} Z4+GRHD steps, expected "
+             f"{want}")
     if tuple(u_k.shape) != plain.state_shape or not torch.isfinite(u_k).all():
         fail("the Z4+GRHD state through with_cuda_rhs is not finite or has the wrong shape")
     if not bool(admissible(u_k, va).all()):
         fail("the Z4+GRHD state through with_cuda_rhs is not admissible")
-    d1, k1, p1 = cu.step(uw, Z4_DT), kern.step(uw, Z4_DT), plain.step(uw, Z4_DT)
+    d1, k1 = cu.step(uw, Z4_DT), kern.step(uw, Z4_DT)
     torch.cuda.reset_peak_memory_stats()
-    p10 = plain.run(uw, STEPS, Z4_DT)
+    p1 = plain.step(uw, Z4_DT)
+    pn = plain.run(p1, Z4_EAGER_STEPS - 1, Z4_DT)
     torch.cuda.synchronize()
     plain_peak = torch.cuda.max_memory_allocated()
-    for route, n, a, b in (("CudaADERDG", 1, d1, p1), ("CudaADERDG", STEPS, u_d, p10),
-                           ("with_cuda_rhs", 1, k1, p1), ("with_cuda_rhs", STEPS, u_k, p10)):
+    dn = cu.run(uw, Z4_EAGER_STEPS, Z4_DT)
+    for route, n, a, b in (("CudaADERDG", 1, d1, p1), ("CudaADERDG", Z4_EAGER_STEPS, dn, pn),
+                           ("with_cuda_rhs", 1, k1, p1),
+                           ("with_cuda_rhs", Z4_EAGER_STEPS, u_k, pn)):
         err, limit = max_err(torch, a, b), n * f32_bound(torch, b)
         say(f"[z4m main] {route}, {n} step(s), kernel path vs plain path: max_abs_err "
             f"{err:.3e} limit {limit:.3e}")
         if not err <= limit:
             fail(f"the Z4+GRHD kernel path ({route}) disagrees with the plain path after "
                  f"{n} step(s)")
-    del d1, k1, p1
+    del d1, k1, p1, dn
     phase("the main runs and the plain path")
 
     # Readings of the perturbed run: the constraint sector (Θ, Z), how far
     # the fluid moved, and the drift of ∫τ̃ dV (not conserved: the
     # expansion's work).
-    for label, x in (("CudaADERDG path", u_d), ("with_cuda_rhs path", u_k),
-                     ("plain path", p10)):
+    t_d, t_e = (Z4M_WARMUP + STEPS) * Z4_DT, (Z4M_WARMUP + Z4_EAGER_STEPS) * Z4_DT
+    for label, t, x in (("CudaADERDG path", t_d, u_d), ("with_cuda_rhs path", t_e, u_k),
+                        ("plain path", t_e, pn)):
         th = x.narrow(va, 13, 1).double().abs().max().item()
         zz = x.narrow(va, 14, 3).double().abs().max().item()
         st = x.narrow(va, 39, 3).double().abs().max().item()
-        say(f"[z4m reading] {label} at t = {(Z4M_WARMUP + STEPS) * Z4_DT!r} from the perturbed "
+        say(f"[z4m reading] {label} at t = {t!r} from the perturbed "
             f"FLRW slice: max|Θ| {th!r}, max|Z_i| {zz!r}, max|S̃_i| {st!r}, ∫D̃ dV "
             f"{z4m_integral(torch, plain, x, 38)!r} (after the warm-up {mass0!r}), ∫τ̃ dV "
             f"{z4m_integral(torch, plain, x, 42)!r}")
-    del p10, u_k, u_d
+    del pn, u_k, u_d
 
     # The exact homogeneous FLRW universe: 10 steps to t = 1e-3 through
     # CudaADERDG in float32 against the Friedmann reference (RK4), and the
@@ -4230,16 +4298,16 @@ def z4_grmhd_path(torch, dev, card) -> list[dict]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k5.reset_launches()
-    u_k = kern.run(uw, Z4G_EAGER_STEPS, Z4_DT)
+    u_k = kern.run(uw, Z4_EAGER_STEPS, Z4_DT)
     torch.cuda.synchronize()
     launches = k5.launches
     peak = torch.cuda.max_memory_allocated()
-    want = (iters + 2) * Z4G_EAGER_STEPS
-    say(f"[z4g main] {Z4G_EAGER_STEPS} steps of {Z4_GRID} f32 through make_z4_grmhd_solver + "
+    want = (iters + 2) * Z4_EAGER_STEPS
+    say(f"[z4g main] {Z4_EAGER_STEPS} steps of {Z4_GRID} f32 through make_z4_grmhd_solver + "
         f"with_cuda_rhs: K5 e launches {launches} (expected (picard_iters + 2) x steps = "
         f"{want}); peak {peak * gib:.4f} GiB allocated ({card})")
     if launches != want:
-        fail(f"K5 e launched {launches} times in {Z4G_EAGER_STEPS} Z4+GRMHD steps, expected "
+        fail(f"K5 e launched {launches} times in {Z4_EAGER_STEPS} Z4+GRMHD steps, expected "
              f"{want}")
     if tuple(u_k.shape) != plain.state_shape or not torch.isfinite(u_k).all():
         fail("the Z4+GRMHD state through with_cuda_rhs is not finite or has the wrong shape")
@@ -4249,12 +4317,12 @@ def z4_grmhd_path(torch, dev, card) -> list[dict]:
     # them, within that many f32 bounds.
     torch.cuda.reset_peak_memory_stats()
     p1 = plain.step(uw, Z4_DT)
-    pn = plain.run(p1, Z4G_EAGER_STEPS - 1, Z4_DT)
+    pn = plain.run(p1, Z4_EAGER_STEPS - 1, Z4_DT)
     torch.cuda.synchronize()
     plain_peak = torch.cuda.max_memory_allocated()
-    d1, dn = cu.step(uw, Z4_DT), cu.run(uw, Z4G_EAGER_STEPS, Z4_DT)
-    for route, n, a, b in (("CudaADERDG", 1, d1, p1), ("CudaADERDG", Z4G_EAGER_STEPS, dn, pn),
-                           ("with_cuda_rhs", Z4G_EAGER_STEPS, u_k, pn)):
+    d1, dn = cu.step(uw, Z4_DT), cu.run(uw, Z4_EAGER_STEPS, Z4_DT)
+    for route, n, a, b in (("CudaADERDG", 1, d1, p1), ("CudaADERDG", Z4_EAGER_STEPS, dn, pn),
+                           ("with_cuda_rhs", Z4_EAGER_STEPS, u_k, pn)):
         err, limit = max_err(torch, a, b), n * f32_bound(torch, b)
         say(f"[z4g main] {route}, {n} step(s), kernel path vs plain path: max_abs_err "
             f"{err:.3e} limit {limit:.3e}")
@@ -4267,7 +4335,7 @@ def z4_grmhd_path(torch, dev, card) -> list[dict]:
     # Readings: the constraint sector (Θ, Z), the field the flow bends
     # (B̃^y, zero at first), the cleaning scalar.
     t_d = (Z4G_WARMUP + STEPS) * Z4_DT
-    t_e = (Z4G_WARMUP + Z4G_EAGER_STEPS) * Z4_DT
+    t_e = (Z4G_WARMUP + Z4_EAGER_STEPS) * Z4_DT
     for label, t, x in (("CudaADERDG path", t_d, u_d), ("with_cuda_rhs path", t_e, u_k),
                         ("plain path", t_e, pn)):
         th = x.narrow(va, 13, 1).double().abs().max().item()
@@ -4330,8 +4398,8 @@ def z4_grmhd_path(torch, dev, card) -> list[dict]:
     say(f"[z4g idle] with_cuda_rhs path, 1 step under torch.profiler: device busy {busy!r} ms "
         f"of wall {wall!r} ms; idle share {idle!r} ({card})")
     say(f"[z4g mem] peak allocated: CudaADERDG path over {STEPS} steps {d_peak * gib:.4f} GiB, "
-        f"with_cuda_rhs path over {Z4G_EAGER_STEPS} {peak * gib:.4f} GiB, plain path over "
-        f"{Z4G_EAGER_STEPS} {plain_peak * gib:.4f} GiB ({card})")
+        f"with_cuda_rhs path over {Z4_EAGER_STEPS} {peak * gib:.4f} GiB, plain path over "
+        f"{Z4_EAGER_STEPS} {plain_peak * gib:.4f} GiB ({card})")
     phase("the times")
 
     # ------------------------------------------- bounds
@@ -4386,6 +4454,580 @@ def z4_grmhd_path(torch, dev, card) -> list[dict]:
         **bounds["Picard"],
         "library_ms": None,  # no single PyTorch call computes it
     }]
+
+
+def flowing_sod_state(solver, torch, device, dtype, ux=WALLS_UX):
+    """:func:`sod_state` with a uniform flow ``ux`` along axis 0 added: the
+    momentum ρ u_x and the kinetic energy ½ ρ u_x² (the pressures stay)."""
+    q = sod_state(solver, torch, device, dtype)
+    va = solver.var_axis
+    rho = q.select(va, 0)
+    q.select(va, 1).copy_(ux * rho)
+    q.select(va, 4).add_(0.5 * ux * ux * rho)
+    return q
+
+
+def wall_rows(mask, g0: int) -> int:
+    """Rows (last-axis lines of cells) with a troubled cell in the first or
+    last cell plane of axis 0, where the walls are."""
+    rows = mask.any(dim=-1)
+    return int(rows[0].sum() + rows[g0 - 1].sum())
+
+
+def limited_walls_path(torch, dev, card) -> list[dict]:
+    """The limited step with reflective walls on axis 0 on the gathered row
+    fallback (3-D); returns the kernel JSON lines of its walled face stage
+    and its K3 sweeps."""
+    import numpy as np
+
+    from exahype_tpu_torch.models import subcell_cuda
+    from exahype_tpu_torch.models.aderdg import (
+        ADERDGSolver,
+        euler_physics,
+        euler_reflect,
+        euler_reflect_flux,
+    )
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.limiter import LimitedADERDG, euler_admissible
+
+    flux, eig = euler_physics(3, n_real=5)
+    adm = euler_admissible(3)
+    box = dict(boundary="reflective", wall_axes=WALLS_AXES, reflect_fn=euler_reflect(3),
+               reflect_flux_fn=euler_reflect_flux(3))
+
+    def make(grid, dtype, walls):
+        sol = ADERDGSolver(3, ORDER, 5, grid, flux, eig, dx=DX, device=dev, dtype=dtype, **walls)
+        cu = CudaADERDG(sol)
+        opts = dict(troubled_capacity=CAPACITY, troubled_granularity="row",
+                    dmp_delta0=DMP_DELTA0, device=dev)
+        kernel = LimitedADERDG(sol, adm, accelerator=cu, subcell_cuda=True, **opts)
+        return sol, cu, kernel, LimitedADERDG(sol, adm, **opts)
+
+    # ---------------------------------- 3. f64 on the cut grid
+    # The candidate's face fluxes, which the limiter matches against, slot
+    # for slot (the last row of a wall axis is the high-wall flux) in every
+    # wall mode; then limited steps against the plain limiter.
+    for name in ("reflective box", "outflow (0,)", "farfield (0,)", "dirichlet box",
+                 "reflective (1, 2)"):
+        sol = ADERDGSolver(3, ORDER, 5, WALL_CUT, flux, eig, dx=DX, device=dev,
+                           dtype=torch.float64, **euler_walls(name, WALL_CUT))
+        cu = CudaADERDG(sol)
+        u = flowing_sod_state(sol, torch, dev, torch.float64)
+        new_k, fl_k = cu.step(u, LIMITED_DT, return_face_fluxes=True)
+        new_p, fl_p = sol.step(u, LIMITED_DT, return_face_fluxes=True)
+        torch.cuda.synchronize()
+        errs = [max_err(torch, new_k, new_p)] + [max_err(torch, a, b) for a, b in zip(fl_k, fl_p)]
+        say(f"[limited walls parity] {name} f64 {WALL_CUT}: CudaADERDG.step(return_face_fluxes"
+            f"=True) against the plain step: state {errs[0]:.3e}, face fluxes per axis "
+            f"{[f'{e:.3e}' for e in errs[1:]]} (limit {F64_ATOL:.0e})")
+        if not max(errs) <= F64_ATOL:
+            fail(f"the walled candidate's face fluxes disagree with the plain step ({name})")
+    for name in ("reflective (0,)", "outflow (0,)", "farfield (0,)"):
+        walls = box if name == "reflective (0,)" else euler_walls(name, WALL_CUT)
+        sol, cu, lim, plain = make(WALL_CUT, torch.float64, walls)
+        a = b = flowing_sod_state(sol, torch, dev, torch.float64)
+        for k in range(2):
+            mask_k = lim.troubled_mask(a, cu.step(a, LIMITED_DT))
+            mask_p = plain.troubled_mask(b, sol.step(b, LIMITED_DT))
+            a, b = lim.step(a, LIMITED_DT), plain.step(b, LIMITED_DT)
+            torch.cuda.synchronize()
+            err = max_err(torch, a, b)
+            say(f"[limited walls parity] {name} f64 {WALL_CUT}, step {k + 1}: troubled cells "
+                f"{int(mask_k.sum())} (kernel candidate) / {int(mask_p.sum())} (plain), wall "
+                f"rows {wall_rows(mask_k, WALL_CUT[0])}; limited step kernel path vs "
+                f"plain path max_abs_err {err:.3e} (limit {F64_ATOL:.0e})")
+            if not (torch.equal(mask_k, mask_p) and err <= F64_ATOL):
+                fail(f"the walled limited step disagrees with the plain limiter ({name})")
+    del sol, cu, lim, plain, u, a, b
+
+    # ---------------------------------- 4. the main path at full width
+    sol, cu, lim, plain = make(GRID, torch.float32, box)
+    u0 = flowing_sod_state(sol, torch, dev, torch.float32)
+    say(f"[limited walls] {GRID} f32, reflective walls on axes {WALLS_AXES}, the Sod state "
+        f"with u_x = {WALLS_UX} added; dt = {LIMITED_DT!r}; cfl_dt(initial state) = "
+        f"{float(sol.cfl_dt(u0))!r}; capacity {CAPACITY} rows; kernels {cu.kernels}")
+    u5 = lim.run(u0, WARMUP, LIMITED_DT)
+    torch.cuda.synchronize()
+    if not torch.isfinite(u5).all():
+        fail("the walled limited state is not finite after the warm-up")
+    gib = 2.0**-30
+    torch.cuda.reset_peak_memory_stats()
+    cu.reset_launches()
+    subcell_cuda.reset_launches()
+    u = lim.run(u5, STEPS, LIMITED_DT)
+    torch.cuda.synchronize()
+    launches = {**cu.launches, **subcell_cuda.launches}
+    say(f"[limited walls main] {STEPS} steps of {GRID} f32 after {WARMUP} warm-up steps: "
+        f"launches {launches}; peak {torch.cuda.max_memory_allocated() * gib:.4f} GiB "
+        f"allocated ({card})")
+    want = {**{name: STEPS for name in cu.kernels}, "subcell_row_sweep": 3 * STEPS}
+    if launches != want:
+        fail(f"the walled limited path launches {launches}, expected {want}")
+    finite, admissible = bool(torch.isfinite(u).all()), bool(adm(u, sol.var_axis).all())
+    say(f"[limited walls main] state finite {finite}, admissible {admissible}, rho_min "
+        f"{u.select(sol.var_axis, 0).min().item()!r}")
+    if tuple(u.shape) != sol.state_shape or not (finite and admissible):
+        fail("the walled limited state is not finite and admissible")
+    demand, at_walls, v = [], [], u5
+    for _ in range(STEPS):
+        mask = lim.troubled_mask(v, cu.step(v, LIMITED_DT))
+        demand.append(int(mask.any(dim=-1).sum()))
+        at_walls.append(wall_rows(mask, GRID[0]))
+        v = lim.step(v, LIMITED_DT)
+    overflow = max(demand) > CAPACITY
+    say(f"[limited walls] troubled rows per checked step {demand} against capacity "
+        f"{CAPACITY} (overflow engaged {overflow}); of them touching a wall {at_walls}")
+    if not torch.equal(u, v):
+        fail("two walled limited runs from the same state differ")
+    say("[limited walls main] two runs from the same state: bitwise equal")
+    if not min(at_walls) > 0:
+        fail("a checked step of the walled limited path troubled no row at a wall")
+    m0, m1 = sol.total_mass(u5.double()), sol.total_mass(u.double())
+    rel = ((m1 - m0).abs() / m0.abs()).tolist()
+    say(f"[limited walls main] relative drift over {STEPS} steps: mass {rel[0]:.3e}, energy "
+        f"{rel[4]:.3e} (limit {MASS_RTOL:.1e}: the reflective box conserves both); momentum "
+        f"along the walls' axis {(m1 - m0)[1].item()!r} (the walls push)")
+    if not (rel[0] <= MASS_RTOL and rel[4] <= MASS_RTOL):
+        fail("the walled limited step leaks mass or energy")
+    mask_k = lim.troubled_mask(u, cu.step(u, LIMITED_DT))
+    mask_p = plain.troubled_mask(u, sol.step(u, LIMITED_DT))
+    step_k, step_p = lim.step(u, LIMITED_DT), plain.step(u, LIMITED_DT)
+    torch.cuda.synchronize()
+    err, limit = max_err(torch, step_k, step_p), f32_bound(torch, step_p)
+    say(f"[limited walls main] one step, kernel path vs plain path: troubled cells "
+        f"{int(mask_k.sum())} / {int(mask_p.sum())}, masks equal {torch.equal(mask_k, mask_p)}; "
+        f"state max_abs_err {err:.3e} limit {limit:.3e}")
+    if not (torch.equal(mask_k, mask_p) and err <= limit):
+        fail("the walled limited kernel path disagrees with the plain path")
+    real_sweep, seen = subcell_cuda.row_sweep_call, []
+
+    def poisoned(limiter, d, s, lo, hi, dt, n_active):
+        n = int(n_active)
+        seen.append((n, s.shape[-2]))
+        for x in (s, lo, hi):
+            x[..., n:, :] = float("nan")
+        s, g_lo, g_hi = real_sweep(limiter, d, s, lo, hi, dt, n_active)
+        g_lo[:, n:] = float("nan")
+        g_hi[:, n:] = float("nan")
+        return s, g_lo, g_hi
+
+    subcell_cuda.row_sweep_call = poisoned
+    try:
+        step_nan = lim.step(u, LIMITED_DT)
+    finally:
+        subcell_cuda.row_sweep_call = real_sweep
+    torch.cuda.synchronize()
+    same = torch.equal(step_nan, step_k)
+    say(f"[limited walls main] poison: the inactive slots, their ghosts and edge fluxes NaN "
+        f"((n_active, K) of each sweep: {seen}): bitwise equal to the ordinary step {same}")
+    if not (same and len(seen) == 3 and seen[0][0] < seen[0][1]):
+        fail("the poisoned walled limited step differs, or poisoned no slot")
+    del mask_k, mask_p, step_k, step_p, step_nan, v
+
+    # The walled face stage against plain on this path's state (f32).
+    errs = walls_parity(torch, sol, cu, u5, LIMITED_DT, "limited walls, axis 0", 5, [(0, 5)])
+
+    # ---------------------------------- K3 on this path's gathered batch
+    candidate = cu.step(u5, LIMITED_DT)
+    tables = plain._gather_tables_row(plain.troubled_mask(u5, candidate))
+    n_active = int(tables["n_active"])
+    recorded = []
+
+    def record(s_, lo_, hi_, d_, dt_):
+        recorded.append((d_, s_, lo_, hi_))
+        return LimitedADERDG._row_sweep_math(plain, s_, lo_, hi_, d_, dt_)
+
+    plain._row_sweep_math = record
+    try:
+        plain._gathered_subcell_step_row(u5, LIMITED_DT, tables)
+    finally:
+        del plain._row_sweep_math
+    k3_err, k3_ms, k3_plain_ms = 0.0, {}, {}
+    n_dev = tables["n_active"]
+    for d, s, lo, hi in recorded:
+        ref = plain._row_sweep_math(s, lo, hi, d, LIMITED_DT)
+        k3_err = max(k3_err, k3_check(torch, subcell_cuda, lim, d, s, lo, hi, n_active, ref,
+                                      f"{tuple(s.shape)} (walled gathered batch)"))
+        work = s.clone()
+        k3_ms[d] = device_ms(torch, lambda: subcell_cuda.row_sweep_call(
+            lim, d, work, lo, hi, LIMITED_DT, n_dev), 20, "subcell_row_sweep")
+        k3_plain_ms[d] = event_ms(torch, lambda: plain._row_sweep_math(
+            s, lo, hi, d, LIMITED_DT), 3)
+        del ref, work
+    sweep_shape = tuple(recorded[0][1].shape)
+    del recorded, candidate
+
+    # ---------------------------------- times
+    dofs = sol.dofs()
+    for label, solver, steps, n in (("kernel path", lim, STEPS, 3), ("plain path", plain, 2, 1)):
+        win = windows(torch, solver, u5, LIMITED_DT, steps=steps, n_windows=n)
+        ms = [1e3 * w for w in win]
+        say(f"[limited walls time] {label}: step ms per window {ms!r}; median "
+            f"{statistics.median(ms)!r} ms, {dofs / statistics.median(win)!r} DOF-updates/s "
+            f"({dofs} DOF per step; {card})")
+    new, faces, _ = cu.predictor_volume(u5, LIMITED_DT)
+    fhat, fwall = cu.face_flux(faces)
+    walls = cu.wall_fluxes(fwall)
+    times = {
+        cu.kernels[0]: (event_ms(torch, lambda: cu.predictor_volume(u5, LIMITED_DT), 10),
+                        event_ms(torch, lambda: sol.predictor_volume(u5, LIMITED_DT), 2)),
+        cu.kernels[1]: (event_ms(torch, lambda: cu.face_flux(faces), 10),
+                        event_ms(torch, lambda: plain_face_flux(torch, sol, faces), 2)),
+        cu.kernels[2]: (event_ms(torch, lambda: cu.surface_update(new, fhat, LIMITED_DT, fwall),
+                                 10),
+                        event_ms(torch, lambda: plain_surface_update(sol, new, fhat, LIMITED_DT,
+                                                                     walls), 2)),
+        "face stage": (event_ms(torch, lambda: cu.face_surface(new, faces, LIMITED_DT, True), 10),
+                       event_ms(torch, lambda: sol.face_surface(new, faces, LIMITED_DT, True), 2)),
+    }
+    step_ms = event_ms(torch, lambda: lim.step(u5, LIMITED_DT), 10)
+    in_step = device_ms(torch, lambda: lim.step(u5, LIMITED_DT), 3, "subcell_row_sweep", 3)
+    say(f"[limited walls time] per call (CUDA events): " + ", ".join(
+        f"{k} {v[0]!r} ms (plain {v[1]!r} ms)" for k, v in times.items()) + f"; sweeps "
+        f"{list(k3_ms.values())!r} ms (device time, plain {list(k3_plain_ms.values())!r} ms); "
+        f"whole step {step_ms!r} ms, of which the sweeps {in_step!r} ms and the three ADER-DG "
+        f"launches {times[cu.kernels[0]][0] + times['face stage'][0]!r} ms ({card})")
+    del new, faces, fhat, fwall, walls
+    idle, busy, wall = idle_share(torch, lambda: lim.run(u5, STEPS, LIMITED_DT))
+    say(f"[limited walls idle] kernel path, {STEPS} steps under torch.profiler: device busy "
+        f"{busy!r} ms of wall {wall!r} ms; idle share {idle!r} ({card})")
+
+    # ---------------------------------- bounds
+    itemsize = u5.element_size()
+    ncell = math.prod(GRID)
+    face_bytes = torch.empty(sol.face_shape, dtype=u5.dtype, device="meta").nbytes
+    fhat_bytes = 3 * sol.n_nodes**2 * sol.n_vars * ncell * itemsize
+    side = cu.walls["size"] * itemsize
+    low = cu.walls["size"] // sol.n_vars
+    work = {
+        cu.kernels[0]: (2 * u5.nbytes + face_bytes,
+                        predictor_ops(ORDER, sol.picard_iters, ncell)),
+        cu.kernels[1]: (face_flux_bytes(ORDER, ncell, itemsize) + side,
+                        face_flux_ops(ORDER, ncell) + low * (2 * EIG_OPS + 6 * 5)),
+        cu.kernels[2]: (surface_update_bytes(ORDER, ncell, itemsize) + side,
+                        surface_update_ops(ORDER, ncell)),
+        "face stage": (face_fhat_bytes(face_bytes, u5.nbytes, fhat_bytes) + side,
+                       face_surface_ops(ORDER, ncell) + low * (2 * EIG_OPS + 6 * 5)),
+    }
+    replaces = "exahype_tpu/models/aderdg_pallas.py:156"
+    lines = []
+    for name in (*cu.kernels, "face stage"):
+        bnd = kernel_report(None if name == "face stage" else cu, name, torch.float32,
+                            f"(limited walls path) {GRID} f32", times[name][0], *work[name],
+                            card)
+        if name == cu.kernels[0]:
+            continue  # the ADER-DG path's line holds the predictor
+        label = (f"{cu.kernels[1]} + {cu.kernels[2]} (face stage with face fluxes, limited "
+                 "walls path)" if name == "face stage" else f"{name} (limited walls path)")
+        count = launches[cu.kernels[2] if name == "face stage" else name]
+        err = max(errs[cu.kernels[1]], errs[name]) if name == "face stage" else errs[name]
+        lines.append(kernel_line(label, replaces, count, err, *times[name], bnd))
+    k3_info = subcell_cuda.kernel_info(torch.float32)
+    n_cells = sweep_shape[4] * sweep_shape[5]
+    k3_bnd = kernel_report(None, "subcell_row_sweep", torch.float32,
+                           f"(limited walls path, {n_active} active slots) {sweep_shape} f32, "
+                           "mean of 3 directions", statistics.mean(k3_ms.values()),
+                           sweep_bytes(49 * n_active * GRID[-1], n_cells, itemsize),
+                           sweep_ops(49 * n_active * GRID[-1]), card, info=k3_info)
+    lines.append({
+        "name": "subcell_row_sweep (limited walls path)",
+        "route": "cuda",
+        "source": "exahype_tpu_torch/csrc/subcell.cu",
+        "replaces": "exahype_tpu/models/subcell_pallas.py:47",
+        "launches": launches["subcell_row_sweep"],
+        "max_abs_err": k3_err,
+        "ms": statistics.mean(k3_ms.values()),
+        "plain_ms": statistics.mean(k3_plain_ms.values()),
+        **k3_bnd,
+        "library_ms": None,  # no single PyTorch call computes it
+    })
+    del sol, cu, lim, plain, u0, u5, u
+    torch.cuda.empty_cache()
+    return lines
+
+
+def blast_state(torch, solver, dtype):
+    """``examples/limited_blast_walls.py:56-63``: the pressurised disc r <
+    0.1 at the box's centre (ρ 1, p 10 inside; ρ 0.125, p 0.1 outside), at
+    rest."""
+    import numpy as np
+
+    x, y = solver.nodes_meshgrid()
+    r2 = (x - 0.5) ** 2 + (y - 0.5) ** 2
+    inside = np.squeeze(r2 < 0.1**2, axis=solver.var_axis)
+    rho = np.where(inside, 1.0, 0.125)
+    p = np.where(inside, 10.0, 0.1)
+    z = np.zeros_like(rho)
+    q = np.stack([rho, z, z, p / 0.4], axis=solver.var_axis)
+    return torch.from_numpy(np.ascontiguousarray(q)).to(solver.weights.device, dtype)
+
+
+def stages_2d(torch, sol, cu, u, dt):
+    """Each 2-D kernel and the stage and step against its plain version on
+    ``u``: ``[(name, what, got, ref)]`` (the predictor's new state and
+    faces, F̂ and with walls the side tensor, the update, the stage with its
+    face fluxes, a step)."""
+    new_k, faces_k, _ = cu.predictor_volume(u, dt)
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    fhat_k, fwall_k = cu.face_flux(faces_p)
+    fshape = sol.face_flux_shape
+    fhat_p, walls = [], {}
+    for d in range(sol.dim):
+        q_lo, q_hi, f_lo, f_hi = (faces_p[d, k].reshape(fshape) for k in range(4))
+        fhat_p.append(sol.interface_flux(q_lo, q_hi, f_lo, f_hi, d))
+        if sol.is_wall(d):
+            walls[d] = sol.low_wall_flux(q_lo, f_lo, d)
+    fhat_p = torch.stack(fhat_p).view(fhat_k.shape)
+    side = torch.cat([walls[d].reshape(-1) for d in sorted(walls)]) if walls else None
+    upd_k = cu.surface_update(new_p.clone(), fhat_p, dt, side)
+    upd_p = plain_surface_update(sol, new_p, fhat_p, dt, walls)
+    stage_k, fl_k = cu.face_surface(new_p.clone(), faces_p, dt, True)
+    stage_p, fl_p = sol.face_surface(new_p, faces_p, dt, True)
+    step_k, step_p = cu.step(u, dt), sol.step(u, dt)
+    torch.cuda.synchronize()
+    out = [(cu.kernels[0], "new", new_k, new_p), (cu.kernels[0], "faces", faces_k, faces_p),
+           (cu.kernels[1], "fhat", fhat_k, fhat_p)]
+    out += [(cu.kernels[1], f"fwall[{d}]", cu.wall_fluxes(fwall_k)[d], walls[d]) for d in walls]
+    out += [(cu.kernels[2], "new", upd_k, upd_p), ("face stage", "new", stage_k, stage_p)]
+    out += [("face stage", f"face fluxes[{d}]", a, b) for d, (a, b) in enumerate(zip(fl_k, fl_p))]
+    return out + [("step", "new", step_k, step_p)]
+
+
+def blast_walls_path(torch, dev, card) -> list[dict]:
+    """``examples/limited_blast_walls.py`` on the card: the 2-D kernels
+    against plain, the example at its own grid and at (1024, 1024), with
+    the times; returns the kernel JSON lines of the 2-D kernels."""
+    import numpy as np
+
+    from exahype_tpu_torch.models.aderdg import (
+        ADERDGSolver,
+        euler_physics,
+        euler_reflect,
+        euler_reflect_flux,
+        make_dirichlet_fn,
+    )
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.limiter import LimitedADERDG, euler_admissible
+
+    flux, eig = euler_physics(2, n_real=4)
+    adm = euler_admissible(2)
+    mirror = dict(reflect_fn=euler_reflect(2), reflect_flux_fn=euler_reflect_flux(2))
+
+    def held(*x):
+        rho = 1.0 + 0.2 * np.sin(2 * np.pi * x[0]) * np.cos(np.pi * x[1])
+        vel = (0.3 + 0.1 * np.cos(2 * np.pi * x[1]), -0.2 + 0.1 * np.sin(np.pi * x[0]))
+        e = (2.0 + 0.1 * np.sin(np.pi * x[1])) / 0.4 + 0.5 * rho * sum(v * v for v in vel)
+        return np.stack([rho, rho * vel[0], rho * vel[1], e], axis=-1)
+
+    def walls_of(name, grid):
+        return {
+            "periodic": {},
+            "reflective box": dict(boundary="reflective", **mirror),
+            "reflective (1,)": dict(boundary="reflective", wall_axes=(1,), **mirror),
+            "outflow (0,)": dict(boundary="outflow", wall_axes=(0,)),
+            "farfield (0,)": dict(boundary="farfield", farfield_state=(1.0, 2.0, 0.0, 4.5),
+                                  wall_axes=(0,)),
+            "dirichlet box": dict(boundary="dirichlet", dirichlet_fn=make_dirichlet_fn(
+                held, dim=2, order=ORDER, grid_shape=grid, dx=1.0 / grid[0])),
+        }[name]
+
+    def make(grid, dtype, name="reflective box", **opts):
+        sol = ADERDGSolver(2, ORDER, 4, grid, flux, eig, dx=1.0 / grid[0], device=dev,
+                           dtype=dtype, **walls_of(name, grid))
+        cu = CudaADERDG(sol)
+        return (sol, cu, LimitedADERDG(sol, adm, accelerator=cu, device=dev, **opts),
+                LimitedADERDG(sol, adm, device=dev, **opts))
+
+    def parity(sol, cu, u, dt, label):
+        f64 = u.dtype == torch.float64
+        errs = {}
+        for name, what, got, ref in stages_2d(torch, sol, cu, u, dt):
+            err = max_err(torch, got, ref)
+            limit = F64_ATOL if f64 else f32_bound(torch, ref)
+            ok = err <= limit
+            say(f"[blast parity] {label}: {name} ({what}) {str(u.dtype)[6:]} {sol.grid_shape}: "
+                f"max_abs_err {err:.3e} limit {limit:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"the 2-D {name} ({what}) disagrees with its plain version ({label})")
+            errs[name] = max(errs.get(name, 0.0), err)
+        return errs
+
+    # ---------------------------------- 3. f64 on the cut grid, every mode
+    rng = np.random.default_rng(4)
+    for name in ("periodic", "reflective box", "reflective (1,)", "outflow (0,)",
+                 "farfield (0,)", "dirichlet box"):
+        sol, cu, _, _ = make(BLAST_CUT, torch.float64, name)
+        u = blast_state(torch, sol, torch.float64)
+        u = u * (1.0 + 0.05 * torch.from_numpy(rng.random(u.shape)).to(u))
+        parity(sol, cu, u, 0.5 * float(sol.cfl_dt(u)), name)
+    # The whole-grid means fallback, and the Dirichlet whole-grid subcell
+    # step, against the plain limiter (f64, 2 steps each).
+    for name, opts in (("reflective box, fallback='means'", dict(fallback="means")),
+                       ("dirichlet box, fallback='subcell'", {})):
+        sol, cu, lim, plain = make(BLAST_CUT, torch.float64, name.split(",")[0], **opts)
+        a = b = blast_state(torch, sol, torch.float64)
+        dt = 0.5 * float(sol.cfl_dt(a))
+        for k in range(2):
+            mask = plain.troubled_mask(b, sol.step(b, dt))
+            a, b = lim.step(a, dt), plain.step(b, dt)
+            torch.cuda.synchronize()
+            err = max_err(torch, a, b)
+            say(f"[blast parity] {name} f64 {BLAST_CUT}, step {k + 1}: troubled cells "
+                f"{int(mask.sum())}; limited step kernel path vs plain path max_abs_err "
+                f"{err:.3e} (limit {F64_ATOL:.0e})")
+            if not (err <= F64_ATOL and bool(mask.any())):
+                fail(f"the whole-grid limited step ({name}) disagrees with the plain limiter, "
+                     "or troubled no cell")
+    del sol, cu, lim, plain, u, a, b
+
+    lines, gib = [], 2.0**-30
+    for grid in BLAST_GRIDS:
+        big = grid != BLAST_GRIDS[0]
+        sol, cu, lim, plain = make(grid, torch.float32)
+        u0 = blast_state(torch, sol, torch.float32)
+        dt = float(cu.cfl_dt(u0)) if big else BLAST_DT
+        steps = STEPS if big else BLAST_STEPS
+        origin = "cfl_dt of the initial state" if big else "the example's"
+        say(f"[blast walls] {grid} f32, {sol.dofs()} DOF, reflective box, whole-grid subcell "
+            f"fallback: dt = {dt!r} ({origin}), {steps} steps; kernels {cu.kernels}")
+        errs = parity(sol, cu, u0, dt, "reflective box") if big else {}
+        frac = lim.troubled_mask(u0, cu.step(u0, dt)).double().mean().item()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cu.reset_launches()
+        u = lim.run(u0, steps, dt)
+        torch.cuda.synchronize()
+        launches = dict(cu.launches)
+        peak = torch.cuda.max_memory_allocated()
+        say(f"[blast walls main] {steps} steps of {grid} f32 through LimitedADERDG("
+            f"accelerator=CudaADERDG): launches {launches}; peak {peak * gib:.4f} GiB allocated "
+            f"of {torch.cuda.get_device_properties(0).total_memory * gib:.1f} GiB ({card})")
+        if launches != {name: steps for name in cu.kernels}:
+            fail(f"the 2-D limited step launched {launches} in {steps} steps, expected 3 a step")
+        finite, admissible = bool(torch.isfinite(u).all()), bool(adm(u, sol.var_axis).all())
+        m0, m1 = sol.total_mass(u0.double()), sol.total_mass(u.double())
+        rel = ((m1 - m0).abs() / m0.abs()).tolist()
+        say(f"[blast walls main] {grid}: finite {finite}, admissible {admissible}; troubled "
+            f"fraction on step 1 {frac!r}; relative drift over {steps} steps: mass "
+            f"{rel[0]:.3e}, energy {rel[3]:.3e} (gates of examples/limited_blast_walls.py: "
+            f"admissible, drifts below {MASS_RTOL:.0e} in f32, fraction above 0)")
+        if not (tuple(u.shape) == sol.state_shape and finite and admissible and frac > 0
+                and rel[0] < MASS_RTOL and rel[3] < MASS_RTOL):
+            fail(f"the limited blast in a closed box misses the example's gates at {grid}")
+        if not big:
+            del sol, cu, lim, plain, u0, u
+            continue
+        if not torch.equal(u, lim.run(u0, steps, dt)):
+            fail("two limited blast runs from the same state differ")
+        mask_k = lim.troubled_mask(u, cu.step(u, dt))
+        mask_p = plain.troubled_mask(u, sol.step(u, dt))
+        torch.cuda.reset_peak_memory_stats()
+        step_k, step_p = lim.step(u, dt), plain.step(u, dt)
+        torch.cuda.synchronize()
+        plain_peak = torch.cuda.max_memory_allocated()
+        err, limit = max_err(torch, step_k, step_p), f32_bound(torch, step_p)
+        say(f"[blast walls main] two runs bitwise equal; one step from the final state, kernel "
+            f"path vs plain path: troubled cells {int(mask_k.sum())} / {int(mask_p.sum())}, "
+            f"masks equal {torch.equal(mask_k, mask_p)}; state max_abs_err {err:.3e} limit "
+            f"{limit:.3e}; peak of the two steps {plain_peak * gib:.4f} GiB")
+        if not (torch.equal(mask_k, mask_p) and err <= limit):
+            fail("the 2-D limited kernel path disagrees with the plain path")
+        del mask_k, mask_p, step_k, step_p
+
+        # The periodic twin: the same blast with the 2-D periodic pair.
+        psol, pcu, plim, _ = make(grid, torch.float32, "periodic")
+        perrs = parity(psol, pcu, u0, dt, "periodic")
+        pcu.reset_launches()
+        pu = plim.run(u0, 3, dt)
+        torch.cuda.synchronize()
+        p_launches = dict(pcu.launches)
+        say(f"[blast walls main] periodic twin, 3 limited steps of {grid} f32: launches "
+            f"{p_launches}; finite {bool(torch.isfinite(pu).all())}")
+        if p_launches != {name: 3 for name in pcu.kernels} or not torch.isfinite(pu).all():
+            fail("the periodic 2-D limited step did not launch its kernels or is not finite")
+        del pu
+
+        # ------------------------------ times
+        dofs = sol.dofs()
+        for label, solver, n_steps, n_win in (("kernel path", lim, STEPS, 3),
+                                              ("plain path", plain, 2, 1)):
+            win = windows(torch, solver, u0, dt, steps=n_steps, n_windows=n_win)
+            ms = [1e3 * w for w in win]
+            say(f"[blast walls time] {grid} {label}: step ms per window {ms!r}; median "
+                f"{statistics.median(ms)!r} ms, {dofs / statistics.median(win)!r} "
+                f"DOF-updates/s ({dofs} DOF per step; {card})")
+        times, kernel_lines = {}, []
+        for s_, c_ in ((sol, cu), (psol, pcu)):
+            new, faces, _ = c_.predictor_volume(u0, dt)
+            fhat, fwall = c_.face_flux(faces)
+            walls = {} if fwall is None else c_.wall_fluxes(fwall)
+            times[c_.kernels[0]] = (
+                event_ms(torch, lambda: c_.predictor_volume(u0, dt), 10),
+                event_ms(torch, lambda: s_.predictor_volume(u0, dt), 2))
+            times[c_.kernels[1]] = (
+                event_ms(torch, lambda: c_.face_flux(faces), 10),
+                event_ms(torch, lambda: plain_face_flux(torch, s_, faces), 2))
+            times[c_.kernels[2]] = (
+                event_ms(torch, lambda: c_.surface_update(new, fhat, dt, fwall), 10),
+                event_ms(torch, lambda: plain_surface_update(s_, new, fhat, dt, walls), 2))
+            del new, faces, fhat, fwall, walls
+        cand, dg_fl = cu.step(u0, dt, return_face_fluxes=True)
+        mask = lim.troubled_mask(u0, cand)
+        fb, fv = lim.subcell_fv_step(u0, dt, return_face_fluxes=True)
+        matched = lim._match_interface_fluxes(cand, dg_fl, fv, mask, dt)
+        stage_ms = {
+            "candidate (3 launches)": event_ms(
+                torch, lambda: cu.step(u0, dt, return_face_fluxes=True), 10),
+            "troubled_mask": event_ms(torch, lambda: lim.troubled_mask(u0, cand), 5),
+            "subcell_fv_step (the eager whole-grid fallback)": event_ms(
+                torch, lambda: lim.subcell_fv_step(u0, dt, return_face_fluxes=True), 5),
+            "_match_interface_fluxes": event_ms(
+                torch, lambda: lim._match_interface_fluxes(cand, dg_fl, fv, mask, dt), 5),
+            "merge and guard": event_ms(torch, lambda: lim._admissibility_scale(
+                torch.where(mask, fb, matched)), 5),
+            "whole step": event_ms(torch, lambda: lim.step(u0, dt), 5),
+        }
+        say(f"[blast walls time] {grid} the step's stages (CUDA events): " + ", ".join(
+            f"{k} {v!r} ms" for k, v in stage_ms.items()) + f"; the kernels alone: " + ", ".join(
+            f"{k} {v[0]!r} ms (plain {v[1]!r} ms)" for k, v in times.items()) + f" ({card})")
+        del cand, dg_fl, mask, fb, fv, matched
+        idle, busy, wall = idle_share(torch, lambda: lim.run(u0, STEPS, dt))
+        say(f"[blast walls idle] {grid} kernel path, {STEPS} steps under torch.profiler: device "
+            f"busy {busy!r} ms of wall {wall!r} ms; idle share {idle!r} ({card})")
+
+        # ------------------------------ bounds
+        ncell = math.prod(grid)
+        itemsize = u0.element_size()
+        face_bytes = torch.empty(sol.face_shape, dtype=u0.dtype, device="meta").nbytes
+        side = cu.walls["size"] * itemsize
+        low = cu.walls["size"] // sol.n_vars
+        rusanov = 2 * EIG_OPS_2D + 6 * 4
+        kw = dict(dim=2, nvar=4)
+        work = {
+            "predictor": (2 * u0.nbytes + face_bytes,
+                          predictor_ops(ORDER, sol.picard_iters, ncell, flux_ops=FLUX_OPS_2D, **kw)),
+            "flux": (face_flux_bytes(ORDER, ncell, itemsize, rows=4, **kw),
+                     face_flux_ops(ORDER, ncell, eig_ops=EIG_OPS_2D, **kw)),
+            "update": (surface_update_bytes(ORDER, ncell, itemsize, dim=2, rows=4),
+                       surface_update_ops(ORDER, ncell, **kw)),
+        }
+        for c_, count, kerrs in ((cu, launches, errs), (pcu, p_launches, perrs)):
+            walled = c_ is cu
+            for name, (n_bytes, n_ops) in zip(c_.kernels, work.values()):
+                if walled and name != c_.kernels[0]:
+                    n_bytes += side
+                    n_ops += low * rusanov if name == c_.kernels[1] else 0
+                if not walled and name == c_.kernels[0]:
+                    continue  # the same predictor as the walled step's
+                bnd = kernel_report(c_, name, torch.float32,
+                                    f"(2-D Euler p3, {'reflective box' if walled else 'periodic'})"
+                                    f" {grid} f32", times[name][0], n_bytes, n_ops, card)
+                lines.append(kernel_line(name, "exahype_tpu/models/aderdg_pallas.py:156",
+                                         count[name], kerrs[name], *times[name], bnd,
+                                         source="exahype_tpu_torch/csrc/aderdg_2d.cu"))
+        del sol, cu, lim, plain, psol, pcu, plim, u0, u
+        torch.cuda.empty_cache()
+    return lines
 
 
 def main():
@@ -4460,6 +5102,8 @@ def main():
         "ADER-DG": lambda: aderdg_path(torch, dev, card),
         "ADER-DG p5": lambda: p5_path(torch, dev, card),
         "limited": lambda: limited_path(torch, dev, card),
+        "limited walls": lambda: limited_walls_path(torch, dev, card),
+        "limited blast walls": lambda: blast_walls_path(torch, dev, card),
         "CK": lambda: ck_path(torch, dev, card),
         "walls": lambda: walls_path(torch, dev, card),
         "viscous": lambda: viscous_path(torch, dev, card),

@@ -122,6 +122,11 @@ _SIGNATURES = {
         ("aderdg_predictor_volume_p5", _PREDICTOR_VOLUME),
         ("aderdg_face_flux_p5", _FACE_FLUX),
         ("aderdg_surface_update_p5", _SURFACE_UPDATE),
+        ("aderdg_predictor_volume_2d", _PREDICTOR_VOLUME),
+        ("aderdg_face_flux_2d", _FACE_FLUX),
+        ("aderdg_surface_update_2d", _SURFACE_UPDATE),
+        ("aderdg_face_flux_walls_2d", _FACE_FLUX_WALLS),
+        ("aderdg_surface_update_walls_2d", _SURFACE_UPDATE_WALLS),
         ("subcell_row_sweep", _ROW_SWEEP),
         ("rhs_all_z4", _RHS_ALL),
         ("rhs_all_z4_shift", _RHS_ALL_SHIFT),

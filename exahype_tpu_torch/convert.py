@@ -218,24 +218,29 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
     )
 
 
-def limited_from_jax(jax_limited, *, gamma: float, device=None,
+def limited_from_jax(jax_limited, *, gamma: float, walls=None, device=None,
                      dtype: torch.dtype = torch.float64):
-    """The port's :class:`LimitedADERDG` for a JAX ``LimitedADERDG``.
+    """The port's :class:`LimitedADERDG` for a JAX ``LimitedADERDG``, 2-D or
+    3-D, periodic or walled.
 
-    Builds the base solver through :func:`aderdg_from_jax` and reads the
-    limiter's numbers and options (``dmp_delta0``, ``dmp_eps``,
-    ``fallback``, ``fallback_order``, ``troubled_capacity``,
+    Builds the base solver through :func:`aderdg_from_jax` (a reflective
+    solver's hooks named by ``walls``, e.g. ``"euler"``; outflow, farfield
+    and Dirichlet walls need nothing more, the Dirichlet rows cross as
+    data) and reads the limiter's numbers and options (``dmp_delta0``,
+    ``dmp_eps``, ``fallback``, ``fallback_order``, ``troubled_capacity``,
     ``troubled_granularity``, ``overflow_fallback``, ``post_step_guard``).
     The JAX ``admissible`` callback is opaque: where it is set, the port's
     :func:`euler_admissible` with ``gamma`` takes its place.  A JAX
     ``PallasADERDG`` accelerator maps to :class:`CudaADERDG`, and
     ``subcell_pallas=True`` to ``subcell_cuda=True``.  An option outside
-    the ported configuration raises ``SemanticError``.
+    the ported configurations raises ``SemanticError``; the JAX limiter's
+    own errors are raised as it raises them.
     """
     from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
     from exahype_tpu_torch.models.limiter import LimitedADERDG, euler_admissible
 
-    solver = aderdg_from_jax(jax_limited.solver, gamma=gamma, device=device, dtype=dtype)
+    solver = aderdg_from_jax(jax_limited.solver, gamma=gamma, walls=walls, device=device,
+                             dtype=dtype)
     admissible = None
     if jax_limited.admissible is not None:
         admissible = euler_admissible(solver.dim, gamma=gamma)

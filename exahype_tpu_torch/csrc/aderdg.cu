@@ -186,6 +186,10 @@ int z4_grmhd_kernel_info_f64(int which, int* out) __attribute__((weak));
 // aderdg_p5_f64.cu; weak too).
 int st_predictor_info_f32(int* out) __attribute__((weak));
 int st_predictor_info_f64(int* out) __attribute__((weak));
+// The 2-D Euler step's occupancy (csrc/aderdg_2d.cu; weak too): `which` 0
+// predictor, 1 face flux, 2 update, 3 and 4 the wall pair.
+int aderdg_2d_kernel_info_f32(int which, int* out) __attribute__((weak));
+int aderdg_2d_kernel_info_f64(int which, int* out) __attribute__((weak));
 
 namespace {
 
@@ -1304,6 +1308,10 @@ int surface_update_p5(T* state, const T* fhat, const T* dt_ptr, double dt_val,
 template <typename T>
 int kernel_info(int kernel, int physics, int* out) {
   const bool euler = physics == kEuler;
+  if (kernel >= 22 && kernel <= 26) {  // the 2-D Euler step's, 22-26
+    auto* info = sizeof(T) == 8 ? aderdg_2d_kernel_info_f64 : aderdg_2d_kernel_info_f32;
+    return euler && info ? info(kernel - 22, out) : cudaErrorInvalidValue;
+  }
   if (kernel >= 19 && kernel <= 21) {  // the order-5 Euler step's, 19-21
     if (!euler) return cudaErrorInvalidValue;
     using E = EulerPhysics<T>;
@@ -1583,7 +1591,9 @@ int exahype_aderdg_surface_update_p5_f64(double* state, const double* fhat,
 // csrc/aderdg_z4_grmhd.cu): 16 = predictor_volume_z4_grmhd, 17 =
 // face_flux_z4_grmhd, 18 = surface_update_z4_grmhd; physics 0 at order 5:
 // 19 = predictor_volume_p5 (csrc/aderdg_p5.cu), 20 = face_flux_p5, 21 =
-// surface_update_p5; f64 = 0 or 1.
+// surface_update_p5; physics 0 in 2-D (csrc/aderdg_2d.cu): 22 =
+// predictor_volume_2d, 23 = face_flux_2d, 24 = surface_update_2d, 25 =
+// face_flux_walls_2d, 26 = surface_update_walls_2d; f64 = 0 or 1.
 int exahype_aderdg_kernel_info(int kernel, int f64, int physics, int* out) {
   return f64 ? kernel_info<double>(kernel, physics, out)
              : kernel_info<float>(kernel, physics, out);

@@ -1,0 +1,842 @@
+// ADER-DG step on a 2-D grid for Hopper (sm_90a), periodic or closed by
+// domain walls: compressible Euler (4 variables) at order 3 (NN = 4), three
+// launches a step, float32 and float64.  The shared helpers (the parameter
+// bank's row selection, the occupancy query, the shared-memory opt-in) are
+// csrc/aderdg_common.cuh's; the dimension is this file's own: the 3-D
+// sources keep theirs (kDim = 3), so their kernels are untouched.
+//
+// Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
+// PallasADERDG.build (K1 c, its 2-D Euler p3 instance; pallas_call at
+// :917) and, on a grid with walls, the XLA face_update it routes every axis
+// through (:52-55, 198-212).  The numbers to match are those of
+// exahype_tpu/models/aderdg.py::ADERDGSolver.step; the plain PyTorch
+// version is exahype_tpu_torch/models/aderdg.py::ADERDGSolver.
+// {predictor_volume, face_surface} (the face stage's halves:
+// interface_flux and low_wall_flux, surface_term).
+//
+//   aderdg_predictor_volume_2d  cell-local: the Picard space-time predictor
+//                            over picard_iters iterations, the time
+//                            averages q̄ and F̄_d, the volume integral new =
+//                            u + Σ_d λ_d Kvol F̄_d and the face projections
+//                            (q_lo, q_hi, f_lo, f_hi) of both axes into
+//                            faces[d][which][m][v][cell].
+//   aderdg_face_flux_2d      the face stage, first launch: the Rusanov flux
+//                            of every interface, once, into fhat[d][m][v]
+//                            [cell] (each cell's high-face fluxes: the
+//                            limiter's face-flux input).
+//   aderdg_surface_update_2d the face stage, second launch: the surface
+//                            update of `new`, in place.
+//   aderdg_face_flux_walls_2d, aderdg_surface_update_walls_2d
+//                            the face stage on a grid with walls: on a wall
+//                            axis the last row's right state is the ghost
+//                            of its own high face (F̂ there is the
+//                            high-wall flux), the first row also solves its
+//                            low wall into the side tensor fwall
+//                            [wall axis][m][v][plane], which the update
+//                            reads in place of the wrapped neighbour.  The
+//                            ghosts: a sign table times my face (mirror;
+//                            outflow is the all-ones table), the farfield
+//                            state or the Dirichlet row, with F(ghost) for
+//                            the last two, as csrc/aderdg.cu's 3-D wall pair.
+//
+// Design.  At order 3 in 2-D a cell has 16 space nodes and 4 time slices,
+// 256 values of q (and as many right-hand sides): the 3-D predictor's
+// pencil shape (a warp the 16 pencils of 2 cells) has no counterpart.  The
+// predictor takes csrc/aderdg_st.cuh's design instead: a thread a space
+// node, kCells2D cells a block (256 threads).  A thread keeps its node's q
+// of every slice in registers (a slice's right-hand side replaces its q
+// once the slice's fluxes are taken); only the fluxes are shared: for each
+// slice every thread writes its node's two axis fluxes to shared memory
+// (double-buffered, one barrier a slice) and contracts the two lines
+// through its node with its own rows of D, in the plain version's order
+// (φ0 u − λ_0 w D·F_0 − λ_1 w D·F_1); q ← K1inv rhs is thread-local.  The
+// epilogue averages q and its fluxes in registers, stores q̄ and F̄_d over
+// the flux buffers, and the volume integral and the face projections run
+// in the I/O mapping (the block's cells fastest: 64-byte runs in float32)
+// from shared memory to device memory; u is staged through shared memory
+// in the same mapping and stays there for the right-hand sides.
+//
+// The face stage is memory-bound (~8 flops a byte): a thread per (cell,
+// axis, face node) solves one interface, a thread per (cell, space node)
+// updates one node; consecutive threads take consecutive cells of the
+// flattened grid, so every access is a run of a warp's 32 cells.  No
+// atomics and no races: the step is bitwise repeatable, and the face-flux
+// output changes no bit of the state.  IEEE division and square root (no
+// fast math); nvcc contracts a·b + c into fused multiply-adds, so the
+// kernels differ from the plain version by rounding only.  Offsets into
+// device memory are 64-bit.
+
+#include <cuda_runtime.h>
+
+#include "aderdg_common.cuh"
+
+namespace {
+
+constexpr int kDim2 = 2;
+// Order 3: the node count of this file's instances.
+constexpr int kNN2 = 4;
+// Cells a block of the predictor (16 threads each).
+constexpr int kCells2D = 16;
+// Threads a block of the face stage's two kernels.
+constexpr int kFace2DThreads = 128;
+
+// 2-D compressible Euler, state [rho, m_x, m_y, E], csrc/euler.cuh at
+// DIM = 2; params = {gamma}.
+template <typename T>
+struct Euler2D {
+  static constexpr int V = kDim2 + 2;
+  T gm1;  // gamma - 1
+  T gamma;
+  static Euler2D make(const double* params) {
+    return {static_cast<T>(params[0] - 1.0), static_cast<T>(params[0])};
+  }
+  // The flux along both axes, with one 1/ρ and one pressure for the two.
+  __device__ __forceinline__ void fluxes(const T* q, T (&f)[kDim2][V]) const {
+    const T inv_rho = T(1) / q[0];
+    const T p = euler_pressure_from<T, kDim2>(q, inv_rho, gm1);
+#pragma unroll
+    for (int d = 0; d < kDim2; ++d) euler_flux_from<T, kDim2, V>(q, d, inv_rho, p, f[d]);
+  }
+  __device__ __forceinline__ T max_eigenvalue(const T* q, int d) const {
+    return euler_max_eigenvalue<T, kDim2>(q, d == 0 ? q[1] : q[2], gm1, gamma);
+  }
+  // The flux along axis d (a wall's ghost flux F(ghost)), d dispatched to
+  // compile-time axes so that q and f stay in registers.
+  __device__ __forceinline__ void flux_along(const T* q, int d, T* f) const {
+    const T inv_rho = T(1) / q[0];
+    const T p = euler_pressure_from<T, kDim2>(q, inv_rho, gm1);
+    if (d == 0) {
+      euler_flux_from<T, kDim2, V>(q, 0, inv_rho, p, f);
+    } else {
+      euler_flux_from<T, kDim2, V>(q, 1, inv_rho, p, f);
+    }
+  }
+};
+
+template <typename T, int NN>
+struct Params2D {
+  T D[NN][NN];
+  T K1inv[NN][NN];
+  T Kvol[NN][NN];
+  T W[NN];
+  T PHI0[NN];
+  T PHI1[NN];
+  T PHI0W[NN];
+  T PHI1W[NN];
+  T dx[kDim2];
+  Euler2D<T> phys;
+  int picard_iters;
+  long long g[kDim2];  // cell grid
+  long long ncell;
+};
+
+// ops and params as csrc/aderdg_common.cuh's make_params reads them.
+template <typename T, int NN>
+Params2D<T, NN> make_params_2d(const double* ops, const double* dx, int picard_iters,
+                               const double* params, long long g0, long long g1) {
+  Params2D<T, NN> P;
+  const double* o = ops;
+  T(*mats[3])[NN] = {P.D, P.K1inv, P.Kvol};
+  for (int k = 0; k < 3; ++k) {
+    for (int i = 0; i < NN; ++i)
+      for (int j = 0; j < NN; ++j) mats[k][i][j] = static_cast<T>(o[i * NN + j]);
+    o += NN * NN;
+  }
+  T* vecs[5] = {P.W, P.PHI0, P.PHI1, P.PHI0W, P.PHI1W};
+  for (int k = 0; k < 5; ++k) {
+    for (int i = 0; i < NN; ++i) vecs[k][i] = static_cast<T>(o[i]);
+    o += NN;
+  }
+  for (int d = 0; d < kDim2; ++d) P.dx[d] = static_cast<T>(dx[d]);
+  P.phys = Euler2D<T>::make(params);
+  P.picard_iters = picard_iters;
+  P.g[0] = g0;
+  P.g[1] = g1;
+  P.ncell = g0 * g1;
+  return P;
+}
+
+// Wall modes of the C interface (csrc/aderdg.cu's).
+enum WallMode : int { kMirror = 0, kFarfield = 1, kDirichlet = 2 };
+
+// The face stage's wall description (zero, and unread, without walls).
+template <typename T, int V>
+struct Walls2D {
+  int mask;              // bit d: grid axis d carries walls
+  int mode;              // WallMode
+  T sq[kDim2][V];        // kMirror: ghost state S_q[d] q
+  T sf[kDim2][V];        // kMirror: ghost flux S_f[d] f
+  T far[V];              // kFarfield: the ghost state
+  const T* rows;         // kDirichlet: ghost rows [side][wall axis][m][v][plane]
+  T* fwall;              // low-wall fluxes [wall axis][m][v][plane]
+  long long off[kDim2];  // element offset of axis d's block (wall axes)
+  long long side;        // elements of one side of rows
+};
+
+// A thread's cell of the face stage: its flat index, its coordinates, and
+// the grid.
+struct Cell2D {
+  long long cell;
+  int i[kDim2];
+  int g[kDim2];
+
+  __device__ __forceinline__ Cell2D(long long c, const long long (&grid)[kDim2]) : cell(c) {
+    g[0] = static_cast<int>(grid[0]);
+    g[1] = static_cast<int>(grid[1]);
+    i[0] = static_cast<int>(c / g[1]);
+    i[1] = static_cast<int>(c - static_cast<long long>(i[0]) * g[1]);
+  }
+  __device__ __forceinline__ int at(int d) const { return d == 0 ? i[0] : i[1]; }
+  __device__ __forceinline__ int extent(int d) const { return d == 0 ? g[0] : g[1]; }
+  // The plane across axis d (the other axis) and my index in it.
+  __device__ __forceinline__ long long plane(int d) const { return d == 0 ? g[1] : g[0]; }
+  __device__ __forceinline__ long long plane_index(int d) const { return d == 0 ? i[1] : i[0]; }
+  // The periodic neighbour one cell up (+1) or down (-1) axis d.
+  __device__ __forceinline__ long long neighbour(int d, int step) const {
+    const long long stride = d == 0 ? g[1] : 1;
+    const int id = at(d), gd = extent(d);
+    if (step > 0) return id + 1 == gd ? cell - (gd - 1) * stride : cell + stride;
+    return id == 0 ? cell + (gd - 1) * stride : cell - stride;
+  }
+};
+
+// ------------------------------------------------------------- predictor
+
+// Shared memory of a predictor block, in values of T: u [V][NP], the
+// double-buffered fluxes [2][kDim2][V][NP] (the epilogue's q̄ [V][NP] and
+// F̄ [kDim2][V][NP] over them), and Kvol [NN][NN].  NP = CB NN²: the block's
+// space nodes, cell by cell.
+template <int NN, int CB, int V>
+struct Smem2D {
+  static constexpr int kNodes = NN * NN;
+  static constexpr int kNP = CB * kNodes;
+  static constexpr int kFluxes = kDim2 * V * kNP;  // one buffer
+  static constexpr int kF = V * kNP;
+  static constexpr int kK = kF + 2 * kFluxes;
+  static constexpr int kTotal = kK + NN * NN;
+};
+
+template <typename T, int NN, int V>
+constexpr size_t predictor_2d_smem() {
+  return static_cast<size_t>(Smem2D<NN, kCells2D, V>::kTotal) * sizeof(T);
+}
+
+template <typename T, int NN, int CB>
+__global__ void __launch_bounds__(CB * NN * NN)
+aderdg_predictor_volume_2d(const T* __restrict__ u, T* __restrict__ out,
+                           T* __restrict__ faces, const T* __restrict__ dt_ptr, T dt_val,
+                           const Params2D<T, NN> P) {
+  constexpr int V = Euler2D<T>::V;
+  constexpr int NF = NN;  // face nodes of an axis
+  using S = Smem2D<NN, CB, V>;
+  constexpr int NC = S::kNodes;  // space nodes of a cell
+  constexpr int NP = S::kNP;     // of the block: its thread count
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sU = reinterpret_cast<T*>(smem_raw);  // u [v][point]
+  T* sF = sU + S::kF;                      // the flux buffers; then q̄, F̄
+  T* sK = sU + S::kK;                      // Kvol
+
+  const long long ncell = P.ncell;
+  const long long cell0 = static_cast<long long>(blockIdx.x) * CB;
+
+  // u into shared memory in the I/O mapping: element e = (node V + v) CB + c
+  // of the block, V of them a thread, the block's cells fastest; the ragged
+  // last block clamps its loads to the last cell.
+  {
+    T x[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int e = static_cast<int>(threadIdx.x) + k * NP;
+      const int c = e % CB, r = e / CB;
+      const long long cell = cell0 + c < ncell ? cell0 + c : ncell - 1;
+      x[k] = u[static_cast<long long>(r) * ncell + cell];
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int e = static_cast<int>(threadIdx.x) + k * NP;
+      const int c = e % CB, r = e / CB;
+      const int node = r / V, v = r - node * V;
+      sU[v * NP + c * NC + node] = x[k];
+    }
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < NN; ++i) {
+#pragma unroll
+      for (int j = 0; j < NN; ++j) sK[i * NN + j] = P.Kvol[i][j];
+    }
+  }
+
+  // The compute mapping: my point is node (i0, i1) of the block's cell c;
+  // axis 0's node stride is NN, axis 1's is 1.
+  const int pt = static_cast<int>(threadIdx.x);
+  const int node = pt % NC;
+  const int id[kDim2] = {node / NN, node % NN};
+  const int st[kDim2] = {NN, 1};
+  T Dr[kDim2][NN];  // D's row of my index along each axis
+#pragma unroll
+  for (int d = 0; d < kDim2; ++d) select_row<T, NN>(P.D, id[d], Dr[d]);
+  const T dtv = dt_ptr != nullptr ? *dt_ptr : dt_val;
+  T lam[kDim2];
+#pragma unroll
+  for (int d = 0; d < kDim2; ++d) lam[d] = dtv / P.dx[d];
+  __syncthreads();  // u and Kvol staged
+
+  T q[NN][V];  // [time slice][v]: q, or a slice's right-hand side
+#pragma unroll
+  for (int s = 0; s < NN; ++s) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) q[s][v] = sU[v * NP + pt];
+  }
+
+  // Picard: q <- K1inv (φ0 u − Σ_d λ_d w ∂_ξd F_d(q)), slice by slice; the
+  // flux buffer alternates from slice to slice (across iterations too).
+  int buffer = 0;
+  for (int it = 0; it < P.picard_iters; ++it) {
+#pragma unroll
+    for (int s = 0; s < NN; ++s) {
+      T* fl = sF + buffer * S::kFluxes;
+      buffer ^= 1;
+      {
+        T f[kDim2][V];
+        P.phys.fluxes(q[s], f);
+#pragma unroll
+        for (int d = 0; d < kDim2; ++d) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) fl[(d * V + v) * NP + pt] = f[d][v];
+        }
+      }
+      __syncthreads();  // every node's fluxes of slice s are in
+      T lw[kDim2];
+#pragma unroll
+      for (int d = 0; d < kDim2; ++d) lw[d] = lam[d] * P.W[s];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        T dF[kDim2];
+#pragma unroll
+        for (int d = 0; d < kDim2; ++d) {
+          const T* x = fl + (d * V + v) * NP + pt - id[d] * st[d];  // the line's first node
+          T acc = Dr[d][0] * x[0];
+#pragma unroll
+          for (int j = 1; j < NN; ++j) acc = acc + Dr[d][j] * x[j * st[d]];
+          dF[d] = acc;
+        }
+        T r = P.PHI0[s] * sU[v * NP + pt];
+        r = r - lw[0] * dF[0];
+        q[s][v] = r - lw[1] * dF[1];  // slice s's fluxes are taken: its rhs goes here
+      }
+    }
+    // q <- K1inv rhs, one variable at a time.
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      T r[NN];
+#pragma unroll
+      for (int t = 0; t < NN; ++t) r[t] = q[t][v];
+#pragma unroll
+      for (int s = 0; s < NN; ++s) {
+        T acc = P.K1inv[s][0] * r[0];
+#pragma unroll
+        for (int t = 1; t < NN; ++t) acc = acc + P.K1inv[s][t] * r[t];
+        q[s][v] = acc;
+      }
+    }
+  }
+
+  // Time averages of the final q and of its fluxes at my node.
+  T qb[V], fb[kDim2][V];
+#pragma unroll
+  for (int s = 0; s < NN; ++s) {
+    const T w = P.W[s];
+    T f[kDim2][V];
+    P.phys.fluxes(q[s], f);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      qb[v] = s == 0 ? w * q[s][v] : qb[v] + w * q[s][v];
+#pragma unroll
+      for (int d = 0; d < kDim2; ++d) fb[d][v] = s == 0 ? w * f[d][v] : fb[d][v] + w * f[d][v];
+    }
+  }
+  T* sQb = sF;           // q̄ [v][point]
+  T* sFb = sF + V * NP;  // F̄ [d][v][point]
+  __syncthreads();       // the last slice's contractions are done with the buffers
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    sQb[v * NP + pt] = qb[v];
+#pragma unroll
+    for (int d = 0; d < kDim2; ++d) sFb[(d * V + v) * NP + pt] = fb[d][v];
+  }
+  __syncthreads();
+
+  // Back in the I/O mapping.  The volume integral, new = u + Σ_d λ_d
+  // Kvol_d F̄_d, of element e = (node V + v) CB + c.
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int e = static_cast<int>(threadIdx.x) + k * NP;
+    const int c = e % CB, r = e / CB;
+    const int n = r / V, v = r - n * V;
+    const int at = c * NC + n;  // the node's point
+    const int in[kDim2] = {n / NN, n % NN};
+    T nv = sU[v * NP + at];
+#pragma unroll
+    for (int d = 0; d < kDim2; ++d) {
+      const T* x = sFb + (d * V + v) * NP + at - in[d] * st[d];
+      const T* kr = sK + in[d] * NN;
+      T kv = kr[0] * x[0];
+#pragma unroll
+      for (int j = 1; j < NN; ++j) kv = kv + kr[j] * x[j * st[d]];
+      nv = nv + lam[d] * kv;
+    }
+    if (cell0 + c < ncell) out[static_cast<long long>(r) * ncell + cell0 + c] = nv;
+  }
+
+  // The face projections of element e = ((d NF + m) V + v) CB + c: the line
+  // of nodes along d through face node m (the other axis's index), projected
+  // with φ(0) and φ(1).  faces[d][which][m][v][cell], which = q_lo, q_hi,
+  // f_lo, f_hi.
+  const long long stride_w = static_cast<long long>(NF * V) * ncell;
+  for (int e = static_cast<int>(threadIdx.x); e < kDim2 * NF * V * CB; e += NP) {
+    const int c = e % CB, r = e / CB;
+    if (cell0 + c >= ncell) continue;
+    const int v = r % V, dm = r / V;
+    const int d = dm / NF, m = dm - d * NF;
+    const int base = d == 0 ? m : m * NN;
+    const int sd = d == 0 ? NN : 1;
+    const T* xq = sQb + v * NP + c * NC + base;
+    const T* xf = sFb + (d * V + v) * NP + c * NC + base;
+    T qlo = P.PHI0[0] * xq[0], qhi = P.PHI1[0] * xq[0];
+    T flo = P.PHI0[0] * xf[0], fhi = P.PHI1[0] * xf[0];
+#pragma unroll
+    for (int j = 1; j < NN; ++j) {
+      const T qj = xq[j * sd], fj = xf[j * sd];
+      qlo = qlo + P.PHI0[j] * qj;
+      qhi = qhi + P.PHI1[j] * qj;
+      flo = flo + P.PHI0[j] * fj;
+      fhi = fhi + P.PHI1[j] * fj;
+    }
+    const long long o = (static_cast<long long>(d * 4 * NF + m) * V + v) * ncell + cell0 + c;
+    faces[o] = qlo;
+    faces[o + stride_w] = qhi;
+    faces[o + 2 * stride_w] = flo;
+    faces[o + 3 * stride_w] = fhi;
+  }
+}
+
+// ------------------------------------------------------------ face stage
+
+// The ghost of wall (axis d, side) at face node m, plane index p, from my
+// own face state q and flux f: its state gq and flux gf.
+template <typename T>
+__device__ __forceinline__ void wall_ghost_2d(const Walls2D<T, Euler2D<T>::V>& W,
+                                              const Euler2D<T>& phys, int d, int side, int m,
+                                              long long plane, long long p, const T* q,
+                                              const T* f, T* gq, T* gf) {
+  constexpr int V = Euler2D<T>::V;
+  if (W.mode == kMirror) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      gq[v] = (d == 0 ? W.sq[0][v] : W.sq[1][v]) * q[v];
+      gf[v] = (d == 0 ? W.sf[0][v] : W.sf[1][v]) * f[v];
+    }
+    return;
+  }
+  if (W.mode == kFarfield) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) gq[v] = W.far[v];
+  } else {
+    const T* row = W.rows + side * W.side + (d == 0 ? W.off[0] : W.off[1]) +
+                   static_cast<long long>(m) * V * plane + p;
+#pragma unroll
+    for (int v = 0; v < V; ++v) gq[v] = row[v * plane];
+  }
+  phys.flux_along(gq, d, gf);
+}
+
+// The face stage, first launch: one thread per (cell, axis d, face node m)
+// solves the interface between the cell's high face and its +d
+// neighbour's low face, F̂ = ½(f_hi + f_lo⁺) − ½ s (q_lo⁺ − q_hi), s the
+// larger wave speed, into fhat[d][m][v][cell].  kWalls: on a wall axis the
+// last row's right state is the ghost of its own high face, and the first
+// row also solves its low wall, ½(g_f + f_lo) − ½ s_w (q_lo − g_q), into
+// W.fwall.
+template <typename T, int NN, bool kWalls>
+__global__ void __launch_bounds__(kFace2DThreads)
+aderdg_face_flux_2d(const T* __restrict__ faces, T* __restrict__ fhat, const Params2D<T, NN> P,
+                    const Walls2D<T, Euler2D<T>::V> W) {
+  constexpr int NF = NN;
+  constexpr int V = Euler2D<T>::V;
+  const long long ncell = P.ncell;
+  const long long c = static_cast<long long>(blockIdx.x) * kFace2DThreads + threadIdx.x;
+  if (c >= ncell) return;
+  const Cell2D tc(c, P.g);
+  const int d = blockIdx.y / NF;
+  const int m = blockIdx.y - d * NF;
+  const bool wall = kWalls && ((W.mask >> d) & 1);
+  // faces[d][which][m][v][cell], which = q_lo, q_hi, f_lo, f_hi.
+  const T* base = faces + static_cast<long long>(d * 4 * NF + m) * V * ncell;
+  const long long wstride = static_cast<long long>(NF * V) * ncell;
+  T qa[V], qb[V], fa[V], fb[V];  // a: my high face, b: the neighbour's low face or my ghost
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    qa[v] = base[wstride + v * ncell + c];
+    fa[v] = base[3 * wstride + v * ncell + c];
+  }
+  if (wall && tc.at(d) == tc.extent(d) - 1) {  // the high wall
+    wall_ghost_2d<T>(W, P.phys, d, 1, m, tc.plane(d), tc.plane_index(d), qa, fa, qb, fb);
+  } else {
+    const long long plus = tc.neighbour(d, 1);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      qb[v] = base[v * ncell + plus];
+      fb[v] = base[2 * wstride + v * ncell + plus];
+    }
+  }
+  if (wall && tc.at(d) == 0) {  // the low wall
+    const long long plane = tc.plane(d);
+    const long long p = tc.plane_index(d);
+    T ql[V], fl[V], gq[V], gf[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      ql[v] = base[v * ncell + c];
+      fl[v] = base[2 * wstride + v * ncell + c];
+    }
+    wall_ghost_2d<T>(W, P.phys, d, 0, m, plane, p, ql, fl, gq, gf);
+    const T sw = dmax(P.phys.max_eigenvalue(ql, d), P.phys.max_eigenvalue(gq, d));
+    T* w = W.fwall + (d == 0 ? W.off[0] : W.off[1]) + static_cast<long long>(m) * V * plane + p;
+#pragma unroll
+    for (int v = 0; v < V; ++v) w[v * plane] = T(0.5) * (gf[v] + fl[v]) - T(0.5) * sw * (ql[v] - gq[v]);
+  }
+  const T s = dmax(P.phys.max_eigenvalue(qa, d), P.phys.max_eigenvalue(qb, d));
+  T* out = fhat + static_cast<long long>(d * NF + m) * V * ncell + c;
+#pragma unroll
+  for (int v = 0; v < V; ++v) out[v * ncell] = T(0.5) * (fa[v] + fb[v]) - T(0.5) * s * (qb[v] - qa[v]);
+}
+
+// The face stage, second launch: one thread per (cell, space node) updates
+// the node's rows of `state` in place with −λ_d (ℓ_i(1)/w_i F̂_hi −
+// ℓ_i(0)/w_i F̂_lo) of each axis, F̂_hi the cell's own entry of fhat and
+// F̂_lo its −d neighbour's, or (kWalls, the first row of a wall axis) the
+// low-wall flux of W.fwall.
+template <typename T, int NN, bool kWalls>
+__global__ void __launch_bounds__(kFace2DThreads)
+aderdg_surface_update_2d(T* __restrict__ state, const T* __restrict__ fhat,
+                         const T* __restrict__ dt_ptr, T dt_val, const Params2D<T, NN> P,
+                         const Walls2D<T, Euler2D<T>::V> W) {
+  constexpr int NF = NN;
+  constexpr int V = Euler2D<T>::V;
+  const long long ncell = P.ncell;
+  const long long c = static_cast<long long>(blockIdx.x) * kFace2DThreads + threadIdx.x;
+  if (c >= ncell) return;
+  const Cell2D tc(c, P.g);
+  const int node = blockIdx.y;
+  const T dtv = dt_ptr != nullptr ? *dt_ptr : dt_val;
+  const int ix[kDim2] = {node / NN, node % NN};
+  const int mf[kDim2] = {ix[1], ix[0]};  // my face node on each axis's faces
+  T lam[kDim2], p1w[kDim2], p0w[kDim2];
+  long long hi[kDim2];  // offset of F̂_hi of row 0
+  const T* lo[kDim2];   // F̂_lo of row 0, and the stride between rows
+  long long lo_step[kDim2];
+#pragma unroll
+  for (int d = 0; d < kDim2; ++d) {
+    lam[d] = dtv / P.dx[d];
+    p1w[d] = select<T, NN>(P.PHI1W, ix[d]);
+    p0w[d] = select<T, NN>(P.PHI0W, ix[d]);
+    const long long row0 = static_cast<long long>(d * NF + mf[d]) * V * ncell;
+    hi[d] = row0 + c;
+    if (kWalls && ((W.mask >> d) & 1) && tc.at(d) == 0) {
+      const long long plane = tc.plane(d);
+      lo[d] = W.fwall + W.off[d] + static_cast<long long>(mf[d]) * V * plane + tc.plane_index(d);
+      lo_step[d] = plane;
+    } else {
+      lo[d] = fhat + row0 + tc.neighbour(d, -1);
+      lo_step[d] = ncell;
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const long long o = static_cast<long long>(node * V + v) * ncell + c;
+    T x = state[o];
+#pragma unroll
+    for (int d = 0; d < kDim2; ++d) {
+      x = x - lam[d] * (p1w[d] * fhat[hi[d] + v * ncell] - p0w[d] * lo[d][v * lo_step[d]]);
+    }
+    state[o] = x;
+  }
+}
+
+// ------------------------------------------------------------ host side
+
+// The wall description from the C interface's arguments (all zero for
+// mask == 0; no ghost tables without `table`: the update reads only the
+// mask, fwall and the offsets).  table: S_q [2][V], S_f [2][V], the
+// farfield state [V], float64.
+template <typename T>
+Walls2D<T, Euler2D<T>::V> make_walls_2d(int mask, int mode, const double* table, const T* rows,
+                                        T* fwall, const long long* off, long long side) {
+  constexpr int V = Euler2D<T>::V;
+  Walls2D<T, V> W{};
+  if (mask == 0) return W;
+  W.mask = mask;
+  W.mode = mode;
+  W.rows = rows;
+  W.fwall = fwall;
+  W.side = side;
+  for (int d = 0; d < kDim2; ++d) W.off[d] = off[d];
+  if (table == nullptr) return W;
+  for (int d = 0; d < kDim2; ++d) {
+    for (int v = 0; v < V; ++v) {
+      W.sq[d][v] = static_cast<T>(table[d * V + v]);
+      W.sf[d][v] = static_cast<T>(table[(kDim2 + d) * V + v]);
+    }
+  }
+  for (int v = 0; v < V; ++v) W.far[v] = static_cast<T>(table[2 * kDim2 * V + v]);
+  return W;
+}
+
+// A launch this file's instances can take: Euler, order 3, a 2-D grid (g2
+// is 1) whose cells and coordinates fit a 32-bit int.
+bool bad_2d(int physics, int order, long long g0, long long g1, long long g2) {
+  constexpr long long kMax = 0x7fffffffLL;
+  return physics != kEuler || order != kNN2 - 1 || g0 <= 0 || g1 <= 0 || g2 != 1 ||
+         g0 * g1 > kMax;
+}
+
+// The wall arguments: a mask of the 2 axes with the side tensor and its
+// offsets, and for the face flux a known mode, the tables and, in
+// Dirichlet mode, the rows.
+bool bad_walls_2d(int mask, const void* fwall, const long long* off) {
+  return mask <= 0 || mask > 3 || fwall == nullptr || off == nullptr;
+}
+
+template <typename T>
+Shape predictor_2d_shape() {
+  return {reinterpret_cast<const void*>(aderdg_predictor_volume_2d<T, kNN2, kCells2D>),
+          dim3(kCells2D * kNN2 * kNN2), predictor_2d_smem<T, kNN2, Euler2D<T>::V>()};
+}
+
+template <typename T, bool kWalls>
+Shape face_flux_2d_shape() {
+  return {reinterpret_cast<const void*>(aderdg_face_flux_2d<T, kNN2, kWalls>),
+          dim3(kFace2DThreads), 0};
+}
+
+template <typename T, bool kWalls>
+Shape surface_update_2d_shape() {
+  return {reinterpret_cast<const void*>(aderdg_surface_update_2d<T, kNN2, kWalls>),
+          dim3(kFace2DThreads), 0};
+}
+
+template <typename T>
+int predictor_volume_2d(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
+                        const double* ops, const double* dx, int order, int picard_iters,
+                        int physics, const double* params, long long g0, long long g1,
+                        long long g2, void* stream) {
+  if (bad_2d(physics, order, g0, g1, g2) || picard_iters < 0) return cudaErrorInvalidValue;
+  const auto P = make_params_2d<T, kNN2>(ops, dx, picard_iters, params, g0, g1);
+  const Shape sh = predictor_2d_shape<T>();
+  const cudaError_t attr = allow_smem(aderdg_predictor_volume_2d<T, kNN2, kCells2D>, sh.smem);
+  if (attr != cudaSuccess) return attr;
+  const long long blocks = (P.ncell + kCells2D - 1) / kCells2D;
+  aderdg_predictor_volume_2d<T, kNN2, kCells2D>
+      <<<static_cast<unsigned>(blocks), sh.block, sh.smem, static_cast<cudaStream_t>(stream)>>>(
+          u, out, faces, dt_ptr, static_cast<T>(dt_val), P);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kWalls>
+int face_flux_2d(const T* faces, T* fhat, const double* ops, const double* dx, int order,
+                 int physics, const double* params, long long g0, long long g1, long long g2,
+                 const Walls2D<T, Euler2D<T>::V>& W, void* stream) {
+  if (bad_2d(physics, order, g0, g1, g2)) return cudaErrorInvalidValue;
+  const auto P = make_params_2d<T, kNN2>(ops, dx, 0, params, g0, g1);
+  const dim3 grid(static_cast<unsigned>((P.ncell + kFace2DThreads - 1) / kFace2DThreads),
+                  kDim2 * kNN2);
+  aderdg_face_flux_2d<T, kNN2, kWalls>
+      <<<grid, dim3(kFace2DThreads), 0, static_cast<cudaStream_t>(stream)>>>(faces, fhat, P, W);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kWalls>
+int surface_update_2d(T* state, const T* fhat, const T* dt_ptr, double dt_val,
+                      const double* ops, const double* dx, int order, int physics,
+                      const double* params, long long g0, long long g1, long long g2,
+                      const Walls2D<T, Euler2D<T>::V>& W, void* stream) {
+  if (bad_2d(physics, order, g0, g1, g2)) return cudaErrorInvalidValue;
+  const auto P = make_params_2d<T, kNN2>(ops, dx, 0, params, g0, g1);
+  const dim3 grid(static_cast<unsigned>((P.ncell + kFace2DThreads - 1) / kFace2DThreads),
+                  kNN2 * kNN2);
+  aderdg_surface_update_2d<T, kNN2, kWalls>
+      <<<grid, dim3(kFace2DThreads), 0, static_cast<cudaStream_t>(stream)>>>(
+          state, fhat, dt_ptr, static_cast<T>(dt_val), P, W);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int face_flux_walls_2d(const T* faces, T* fhat, const double* ops, const double* dx, int order,
+                       int physics, const double* params, long long g0, long long g1,
+                       long long g2, int wall_mask, int wall_mode, const double* wall_table,
+                       const T* wall_rows, T* fwall, const long long* wall_off,
+                       long long wall_side, const T* visc_rows, void* stream) {
+  if (bad_walls_2d(wall_mask, fwall, wall_off) || wall_table == nullptr ||
+      visc_rows != nullptr || (wall_mode != kMirror && wall_mode != kFarfield &&
+                               wall_mode != kDirichlet) ||
+      (wall_mode == kDirichlet && wall_rows == nullptr))
+    return cudaErrorInvalidValue;
+  const auto W = make_walls_2d<T>(wall_mask, wall_mode, wall_table, wall_rows, fwall, wall_off,
+                                  wall_side);
+  return face_flux_2d<T, true>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, W,
+                               stream);
+}
+
+template <typename T>
+int surface_update_walls_2d(T* state, const T* fhat, const T* dt_ptr, double dt_val,
+                            const double* ops, const double* dx, int order, int physics,
+                            const double* params, long long g0, long long g1, long long g2,
+                            int wall_mask, const T* fwall, const long long* wall_off,
+                            void* stream) {
+  if (bad_walls_2d(wall_mask, fwall, wall_off)) return cudaErrorInvalidValue;
+  const auto W = make_walls_2d<T>(wall_mask, kMirror, nullptr, nullptr, const_cast<T*>(fwall),
+                                  wall_off, 0);
+  return surface_update_2d<T, true>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics,
+                                    params, g0, g1, g2, W, stream);
+}
+
+// which: 0 predictor, 1 face flux, 2 update, 3 face flux (walls), 4 update
+// (walls).
+template <typename T>
+int kernel_info_2d(int which, int* out) {
+  switch (which) {
+    case 0:
+      return shape_info(predictor_2d_shape<T>(), out);
+    case 1:
+      return shape_info(face_flux_2d_shape<T, false>(), out);
+    case 2:
+      return shape_info(surface_update_2d_shape<T, false>(), out);
+    case 3:
+      return shape_info(face_flux_2d_shape<T, true>(), out);
+    case 4:
+      return shape_info(surface_update_2d_shape<T, true>(), out);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// The launchers take csrc/aderdg.cu's entries' arguments and layouts, with
+// the grid (g0, g1, 1): physics must be 0 (Euler, params = {gamma}), order
+// 3.  faces: [2][4][4][4][cell]; fhat: [2][4][4][cell].  The wall pair's
+// wall_table is S_q [2][4], S_f [2][4], the farfield state [4] (float64),
+// wall_mask a mask of the 2 axes, visc_rows null.  Each returns the
+// launch's cudaError_t.
+
+int exahype_aderdg_predictor_volume_2d_f32(const float* u, float* out, float* faces,
+                                           const float* dt_ptr, double dt_val,
+                                           const double* ops, const double* dx, int order,
+                                           int picard_iters, int physics, const double* params,
+                                           long long g0, long long g1, long long g2,
+                                           void* stream) {
+  return predictor_volume_2d<float>(u, out, faces, dt_ptr, dt_val, ops, dx, order, picard_iters,
+                                    physics, params, g0, g1, g2, stream);
+}
+
+int exahype_aderdg_predictor_volume_2d_f64(const double* u, double* out, double* faces,
+                                           const double* dt_ptr, double dt_val,
+                                           const double* ops, const double* dx, int order,
+                                           int picard_iters, int physics, const double* params,
+                                           long long g0, long long g1, long long g2,
+                                           void* stream) {
+  return predictor_volume_2d<double>(u, out, faces, dt_ptr, dt_val, ops, dx, order,
+                                     picard_iters, physics, params, g0, g1, g2, stream);
+}
+
+int exahype_aderdg_face_flux_2d_f32(const float* faces, float* fhat, const double* ops,
+                                    const double* dx, int order, int physics,
+                                    const double* params, long long g0, long long g1,
+                                    long long g2, void* stream) {
+  return face_flux_2d<float, false>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2,
+                                    Walls2D<float, 4>{}, stream);
+}
+
+int exahype_aderdg_face_flux_2d_f64(const double* faces, double* fhat, const double* ops,
+                                    const double* dx, int order, int physics,
+                                    const double* params, long long g0, long long g1,
+                                    long long g2, void* stream) {
+  return face_flux_2d<double, false>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2,
+                                     Walls2D<double, 4>{}, stream);
+}
+
+int exahype_aderdg_surface_update_2d_f32(float* state, const float* fhat, const float* dt_ptr,
+                                         double dt_val, const double* ops, const double* dx,
+                                         int order, int physics, const double* params,
+                                         long long g0, long long g1, long long g2,
+                                         void* stream) {
+  return surface_update_2d<float, false>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics,
+                                         params, g0, g1, g2, Walls2D<float, 4>{}, stream);
+}
+
+int exahype_aderdg_surface_update_2d_f64(double* state, const double* fhat,
+                                         const double* dt_ptr, double dt_val,
+                                         const double* ops, const double* dx, int order,
+                                         int physics, const double* params, long long g0,
+                                         long long g1, long long g2, void* stream) {
+  return surface_update_2d<double, false>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics,
+                                          params, g0, g1, g2, Walls2D<double, 4>{}, stream);
+}
+
+int exahype_aderdg_face_flux_walls_2d_f32(const float* faces, float* fhat, const double* ops,
+                                          const double* dx, int order, int physics,
+                                          const double* params, long long g0, long long g1,
+                                          long long g2, int wall_mask, int wall_mode,
+                                          const double* wall_table, const float* wall_rows,
+                                          float* fwall, const long long* wall_off,
+                                          long long wall_side, const float* visc_rows,
+                                          void* stream) {
+  return face_flux_walls_2d<float>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2,
+                                   wall_mask, wall_mode, wall_table, wall_rows, fwall, wall_off,
+                                   wall_side, visc_rows, stream);
+}
+
+int exahype_aderdg_face_flux_walls_2d_f64(const double* faces, double* fhat, const double* ops,
+                                          const double* dx, int order, int physics,
+                                          const double* params, long long g0, long long g1,
+                                          long long g2, int wall_mask, int wall_mode,
+                                          const double* wall_table, const double* wall_rows,
+                                          double* fwall, const long long* wall_off,
+                                          long long wall_side, const double* visc_rows,
+                                          void* stream) {
+  return face_flux_walls_2d<double>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2,
+                                    wall_mask, wall_mode, wall_table, wall_rows, fwall, wall_off,
+                                    wall_side, visc_rows, stream);
+}
+
+int exahype_aderdg_surface_update_walls_2d_f32(float* state, const float* fhat,
+                                               const float* dt_ptr, double dt_val,
+                                               const double* ops, const double* dx, int order,
+                                               int physics, const double* params, long long g0,
+                                               long long g1, long long g2, int wall_mask,
+                                               const float* fwall, const long long* wall_off,
+                                               void* stream) {
+  return surface_update_walls_2d<float>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics,
+                                        params, g0, g1, g2, wall_mask, fwall, wall_off, stream);
+}
+
+int exahype_aderdg_surface_update_walls_2d_f64(double* state, const double* fhat,
+                                               const double* dt_ptr, double dt_val,
+                                               const double* ops, const double* dx, int order,
+                                               int physics, const double* params, long long g0,
+                                               long long g1, long long g2, int wall_mask,
+                                               const double* fwall, const long long* wall_off,
+                                               void* stream) {
+  return surface_update_walls_2d<double>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics,
+                                         params, g0, g1, g2, wall_mask, fwall, wall_off, stream);
+}
+
+}  // extern "C"
+
+// The 2-D kernels' occupancy, for exahype_aderdg_kernel_info (kernels 22-26
+// of physics 0, csrc/aderdg.cu): `which` 0 predictor, 1 face flux, 2
+// update, 3 and 4 the wall pair.
+int aderdg_2d_kernel_info_f32(int which, int* out) { return kernel_info_2d<float>(which, out); }
+int aderdg_2d_kernel_info_f64(int which, int* out) { return kernel_info_2d<double>(which, out); }

@@ -8,7 +8,13 @@ space-time predictor of ``csrc/aderdg_st.cuh`` built by
 ``csrc/aderdg_p5.cu``, with a thread a space node and each time slice's
 fluxes through shared memory, then ``aderdg_face_flux_p5`` and
 ``aderdg_surface_update_p5``, the face stage's n = 6 instances; walls and
-the other physics raise at order 5).  At order 3 the physics are: compressible Euler on the Picard predictor (``bench.py::main``),
+the other physics raise at order 5), and at order 3 in 2-D, periodic or
+with walls, for compressible Euler (``examples/limited_blast_walls.py``'s
+solver: ``aderdg_predictor_volume_2d``, a thread a space node, and the
+face pair ``aderdg_face_flux_2d`` + ``aderdg_surface_update_2d`` or its wall
+variant ``aderdg_face_flux_walls_2d`` + ``aderdg_surface_update_walls_2d``,
+all of ``csrc/aderdg_2d.cu``; the grid goes to them as (g0, g1, 1)).  At
+order 3 in 3-D the physics are: compressible Euler on the Picard predictor (``bench.py::main``),
 compressible Navier–Stokes on the Picard predictor with its viscous terms
 (``models/navier_stokes.py``) and heterogeneous elasticity on the
 Cauchy–Kovalewski predictor with its materials frozen
@@ -104,6 +110,7 @@ from exahype_tpu_torch.utils.errors import LoweringError
 #: (physics, dim, order) -> the predictor mode the kernels are instantiated
 #: for with that physics.
 INSTANTIATED = {
+    ("euler", 2, 3): "picard",
     ("euler", 3, 3): "picard",
     ("euler", 3, 5): "picard",
     ("navier_stokes", 3, 3): "picard",
@@ -222,7 +229,8 @@ class CudaADERDG:
     #: of ``csrc/aderdg_z4_matter.cu``; 16-18 of physics 6: the Z4+GRMHD
     #: kernels of ``csrc/aderdg_z4_grmhd.cu``; 19-21 of physics 0: the
     #: order-5 Euler step's, ``csrc/aderdg_p5.cu`` and the face stage's n = 6
-    #: instances).
+    #: instances; 22-26 of physics 0: the 2-D Euler step's,
+    #: ``csrc/aderdg_2d.cu``, the wall pair last).
     KERNELS = (
         "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
         "aderdg_surface_update", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
@@ -233,6 +241,8 @@ class CudaADERDG:
         "aderdg_surface_update_z4_matter", "aderdg_predictor_volume_z4_grmhd",
         "aderdg_face_flux_z4_grmhd", "aderdg_surface_update_z4_grmhd",
         "aderdg_predictor_volume_p5", "aderdg_face_flux_p5", "aderdg_surface_update_p5",
+        "aderdg_predictor_volume_2d", "aderdg_face_flux_2d", "aderdg_surface_update_2d",
+        "aderdg_face_flux_walls_2d", "aderdg_surface_update_walls_2d",
     )
 
     def __init__(self, solver: ADERDGSolver):
@@ -312,6 +322,10 @@ class CudaADERDG:
                 f"boundary={solver.boundary!r}: walls at that order are still to port, see "
                 "ROADMAP.md, Queue 1 item 4 (the plain solver runs them)"
             )
+        # The 2-D Euler step has kernels of its own (csrc/aderdg_2d.cu), named
+        # with the dimension; they take the grid as (g0, g1, 1).
+        dim_suffix = "_2d" if solver.dim == 2 else ""
+        self._grid = tuple(solver.grid_shape) + (1,) * (3 - solver.dim)
         self.solver = solver
         #: Whether the step carries the fused NCP right-hand side (Z4): the
         #: face flux kernel then also returns the NCP half-fluctuations.
@@ -329,9 +343,9 @@ class CudaADERDG:
         suffix = "" if self.walls is None else "_walls"
         predictor = "aderdg_ck_predictor_volume" if mode == "ck" else "aderdg_predictor_volume"
         self.kernels = (
-            predictor + ("_visc" if viscous else "") + order_suffix,
-            f"aderdg_face_flux{suffix}{order_suffix}",
-            f"aderdg_surface_update{suffix}{order_suffix}",
+            predictor + ("_visc" if viscous else "") + order_suffix + dim_suffix,
+            f"aderdg_face_flux{suffix}{order_suffix}{dim_suffix}",
+            f"aderdg_surface_update{suffix}{order_suffix}{dim_suffix}",
         )
         if ncp:
             self.kernels = tuple(f"{name}_{tag.name}" for name in self.kernels)
@@ -469,7 +483,7 @@ class CudaADERDG:
             err = getattr(lib, f"exahype_{name}_{_SUFFIX[u.dtype]}")(
                 u.data_ptr(), new.data_ptr(), faces.data_ptr(), dt_ptr, dt_val,
                 self._ops.ctypes.data, self._dx.ctypes.data, sol.order, *iters,
-                self._physics_id, self._params.ctypes.data, *sol.grid_shape, *planes, stream,
+                self._physics_id, self._params.ctypes.data, *self._grid, *planes, stream,
             )
         _build.check(lib, err, name)
         self.launches[name] += 1
@@ -531,7 +545,7 @@ class CudaADERDG:
         )
         args = (faces.data_ptr(), fhat.data_ptr(), self._ops.ctypes.data,
                 self._dx.ctypes.data, sol.order, self._physics_id,
-                self._params.ctypes.data, *sol.grid_shape)
+                self._params.ctypes.data, *self._grid)
         fwall = None
         if self.ncp:
             fwall = torch.empty_like(fhat)  # fhalf
@@ -571,7 +585,7 @@ class CudaADERDG:
         dt_dev, dt_ptr, dt_val = self._dt_args(dt, new)
         args = (new.data_ptr(), fhat.data_ptr(), dt_ptr, dt_val, self._ops.ctypes.data,
                 self._dx.ctypes.data, sol.order, self._physics_id,
-                self._params.ctypes.data, *sol.grid_shape)
+                self._params.ctypes.data, *self._grid)
         if fhalf is not None:
             self._check(fhalf, fshape, "fhalf")
             if fhalf.dtype != new.dtype or fhalf.device != new.device:

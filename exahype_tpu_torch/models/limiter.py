@@ -1,28 +1,48 @@
-"""A-posteriori subcell FV limiter for ADER-DG, gathered-row production path
-(PyTorch, eager).
+"""A-posteriori subcell FV limiter for ADER-DG (PyTorch, eager).
 
-Port of ``exahype_tpu/models/limiter.py::LimitedADERDG`` on the
-configuration its benchmark runs (``bench.py::bench_limited``): periodic
-grid, ``troubled_capacity`` rows with ``troubled_granularity="row"``, the
-first-order ``"subcell"`` fallback, the ``"means"`` overflow policy and the
-post-step admissibility guard.  One step:
+Port of ``exahype_tpu/models/limiter.py::LimitedADERDG`` on two families
+of configurations:
+
+- the gathered-row production path that ``bench.py::bench_limited`` runs:
+  ``troubled_capacity`` rows with ``troubled_granularity="row"``, the
+  first-order ``"subcell"`` fallback, the ``"means"`` overflow policy and
+  the post-step admissibility guard, periodic or closed by reflective,
+  outflow or farfield walls;
+- the whole-grid fallbacks (``troubled_capacity=None``), ``"subcell"``
+  (first order, with the guard) and ``"means"``, in every wall mode,
+  Dirichlet included: the fallback runs on every cell and the troubled
+  cells take it (``examples/limited_blast_walls.py``'s configuration).
+
+One step:
 
 1. the unlimited candidate and its per-axis high-face fluxes, from the base
    solver or, with ``accelerator=CudaADERDG(solver)``, its CUDA kernels;
 2. detection (:meth:`LimitedADERDG.troubled_mask`): relaxed DMP on the
-   nodal extremes of the 2·dim+1 neighbourhood, finiteness, and the
-   ``admissible`` hook;
-3. the troubled cells' last-axis rows gathered into a batch of at most
-   ``troubled_capacity`` rows (:meth:`_gather_tables_row`), one
-   (2N+1)^dim-subcell Rusanov step on it, one directional sweep per axis
-   (:meth:`_row_sweep_math`, or with ``subcell_cuda=True`` the CUDA kernel
-   of ``models/subcell_cuda.py``), and the rows scattered back;
+   nodal extremes of the 2·dim+1 neighbourhood (clamped at walls),
+   finiteness, and the ``admissible`` hook;
+3. the fallback: on the gathered path the troubled cells' last-axis rows
+   gathered into a batch of at most ``troubled_capacity`` rows
+   (:meth:`_gather_tables_row`), one (2N+1)^dim-subcell Rusanov step on it,
+   one directional sweep per axis (:meth:`_row_sweep_math`, or with
+   ``subcell_cuda=True`` the CUDA kernel of ``models/subcell_cuda.py``), and
+   the rows scattered back; on the whole grid the same sweeps over every
+   cell (:meth:`subcell_fv_step`) or the first-order cell-mean update
+   (:meth:`fv_fallback`);
 4. interface matching, so mixed DG/FV faces carry one flux and the step
-   conserves; the cell-mean update of rows beyond the capacity; the guard.
+   conserves (wall faces have one owner and are never mixed); on the
+   gathered path the cell-mean update of rows beyond the capacity; the
+   guard.
 
-Detection, tables, gathers, projections, ghosts, scatters, matching and the
-guard are plain PyTorch on either device, as they are XLA in the JAX
-package.  What the translation changes:
+Walls (the solver's ``boundary`` on its ``wall_axes``): the ghosts of the
+fallbacks come from the solver's reflect hook (mirror, outflow copy,
+farfield state) or, on the whole grid, from the Dirichlet rows projected to
+subcells and cell means once at construction (:meth:`_ghost_sub`,
+:meth:`_ghost_mean`).  The gathered path refuses Dirichlet walls, as JAX
+does.
+
+Detection, tables, gathers, projections, ghosts, scatters, matching, the
+whole-grid fallbacks and the guard are plain PyTorch on either device, as
+they are XLA in the JAX package.  What the translation changes:
 
 - JAX's ``mode="drop"`` scatters send an inactive slot's write out of
   bounds.  The table and face-flux scatters here write into a buffer one
@@ -38,8 +58,11 @@ package.  What the translation changes:
 - The TPU's ``optimization_barrier`` around the ghosts (a v5e miscompile
   workaround) has no counterpart.
 
-Options outside that configuration raise :class:`SemanticError` (see
-``ROADMAP.md``, Queue 1 item 9).
+Options outside these configurations raise :class:`SemanticError` naming
+``ROADMAP.md``, Queue 1 item 9 and its step (9.3: ``fallback_order=2`` and
+viscous solvers; 9.4: NCP, source, CK and dissipation-masked solvers; 9.5:
+``troubled_granularity="cell"`` and ``overflow_fallback="candidate"`` on the
+gathered path); the JAX limiter's own refusals and errors are mirrored.
 """
 
 from __future__ import annotations
@@ -55,6 +78,7 @@ from exahype_tpu_torch.models.aderdg import (
     ADERDGSolver,
     _apply,
     _project,
+    _replace_row,
 )
 from exahype_tpu_torch.models.dg import subcell_projection, subcell_reconstruction
 from exahype_tpu_torch.utils.device import resolve_device
@@ -77,36 +101,35 @@ def euler_admissible(dim: int, gamma: float = 1.4):
     return ok
 
 
-#: Options of the JAX ``LimitedADERDG`` with the one value the port
-#: carries; any other raises.
-PORTED_VALUES = {
-    "fallback": "subcell",
-    "fallback_order": 1,
-    "troubled_granularity": "row",
-    "overflow_fallback": "means",
-}
-
-
 def _leading_all(x, n: int):
     """``all`` over the first ``n`` axes."""
     return x.flatten(0, n - 1).all(dim=0)
 
 
+def _unported(what: str, step: str) -> SemanticError:
+    return SemanticError(
+        f"{what} is not ported to exahype_tpu_torch yet; see ROADMAP.md, Queue 1 item 9 "
+        f"({step})"
+    )
+
+
 class LimitedADERDG(nn.Module):
-    """ADER-DG with the gathered-row subcell FV fallback.
+    """ADER-DG with the subcell FV fallback, gathered by rows or on the
+    whole grid.
 
     ``admissible(Q, var_axis) -> bool mask`` over the node axes (reduced
     with ``all`` per cell); omit to use only the DMP criterion.  The
     keyword options carry the JAX limiter's names and defaults; those
-    outside the production configuration raise :class:`SemanticError`
-    (``troubled_capacity`` must be set, ``troubled_granularity`` must be
-    ``"row"``).  ``accelerator``: a :class:`CudaADERDG` over the same
-    solver, for the candidate step; ``subcell_cuda``: run the directional
-    sweeps through the CUDA kernel (the JAX limiter's ``subcell_pallas``).
+    outside the ported configurations raise :class:`SemanticError` (see the
+    module's docstring).  ``accelerator``: a :class:`CudaADERDG` over the
+    same solver, for the candidate step; ``subcell_cuda``: run the gathered
+    path's directional sweeps through the CUDA kernel (the JAX limiter's
+    ``subcell_pallas``).
 
-    The subcell projection ``P`` and reconstruction ``R`` are float64
-    buffers on ``device`` — the card unless ``device="cpu"`` — which must
-    be the solver's; they are cast to the state's dtype where applied.
+    The subcell projection ``P`` and reconstruction ``R`` (and a Dirichlet
+    solver's projected ghost rows) are float64 buffers on ``device`` — the
+    card unless ``device="cpu"`` — which must be the solver's; they are
+    cast to the state's dtype where applied.
     """
 
     def __init__(
@@ -127,50 +150,54 @@ class LimitedADERDG(nn.Module):
         device=None,
     ):
         super().__init__()
-        given = {
-            "fallback": fallback,
-            "fallback_order": fallback_order,
-            "troubled_granularity": troubled_granularity,
-            "overflow_fallback": overflow_fallback,
-        }
-        for name, value in given.items():
-            if value != PORTED_VALUES[name]:
-                raise SemanticError(
-                    f"{name}={value!r} is not ported to exahype_tpu_torch yet "
-                    "(only the gathered-row subcell fallback with the 'means' "
-                    "overflow policy is); see ROADMAP.md, Queue 1 item 9"
-                )
-        if troubled_capacity is None:
+        gathered = troubled_capacity is not None
+        # The JAX limiter's own refusals and errors, in its order.
+        if solver.boundary == "dirichlet" and gathered:
             raise SemanticError(
-                "troubled_capacity=None (the whole-grid fallback) is not "
-                "ported to exahype_tpu_torch yet; see ROADMAP.md, Queue 1 "
-                "item 9"
+                "the gathered (troubled_capacity) fallback does not support dirichlet "
+                "walls yet — use the whole-grid subcell fallback"
             )
-        if (solver.predictor_mode != "picard" or solver.dissipation_mask is not None
-                or any(getattr(solver, name) is not None for name in CALLBACK_OPTIONS)):
+        if solver.visc_flux_fn is not None and gathered:
             raise SemanticError(
-                "the limiter over a CK, dissipation-masked, source or NCP solver "
-                "is not ported to exahype_tpu_torch yet; see ROADMAP.md, Queue 1 "
-                "item 9"
+                "viscous solvers are not supported on the gathered (troubled_capacity) "
+                "fallback paths yet; see ROADMAP.md, Queue 1 item 9"
             )
-        if solver.visc_flux_fn is not None:
-            # The fallback has no diffusive face fluxes: a viscous solver
-            # would get a wrong answer, not an error.  JAX carries them on
-            # its whole-grid paths only and refuses the gathered ones.
-            raise SemanticError(
-                "viscous solvers are not supported on the gathered "
-                "(troubled_capacity) fallback paths yet; see ROADMAP.md, Queue 1 "
-                "item 9"
-            )
-        if any(solver.is_wall(d) for d in range(solver.dim)):
-            # The subcell fallback's ghosts are periodic: a walled solver
-            # would get a wrong answer, not an error.
-            raise SemanticError(
-                f"the limiter over a walled solver (boundary={solver.boundary!r}) is "
-                "not ported to exahype_tpu_torch yet; see ROADMAP.md, Queue 1 item 9"
-            )
+        if fallback not in ("subcell", "means"):
+            raise ValueError(f"unknown fallback {fallback!r}")
+        if fallback_order not in (1, 2):
+            raise ValueError(f"fallback_order must be 1 or 2, got {fallback_order}")
         if accelerator is not None and accelerator.solver is not solver:
             raise ValueError("accelerator must wrap the limiter's own base solver")
+        if troubled_granularity not in ("cell", "row"):
+            raise ValueError(f"unknown troubled_granularity {troubled_granularity!r}")
+        if overflow_fallback not in ("means", "candidate"):
+            raise ValueError(f"unknown overflow_fallback {overflow_fallback!r}")
+        if gathered and (fallback != "subcell" or fallback_order != 1):
+            raise ValueError(
+                "troubled_capacity requires fallback='subcell' with fallback_order=1 "
+                "(the gathered ghost exchange carries one subcell layer)"
+            )
+        if subcell_cuda and (not gathered or troubled_granularity != "row"):
+            raise ValueError(
+                "subcell_cuda accelerates the gathered ROW fallback: set "
+                "troubled_capacity with troubled_granularity='row'"
+            )
+        # What the port does not carry yet.
+        if fallback_order == 2:
+            raise _unported("fallback_order=2 (the MUSCL subcell fallback)", "9.3")
+        if solver.visc_flux_fn is not None:
+            # The whole-grid fallbacks have no diffusive face fluxes yet: a
+            # viscous solver would get a wrong answer, not an error.
+            raise _unported("the limiter over a viscous solver on the whole grid", "9.3")
+        if (solver.predictor_mode != "picard" or solver.dissipation_mask is not None
+                or any(getattr(solver, name) is not None for name in CALLBACK_OPTIONS)):
+            raise _unported(
+                "the limiter over a CK, dissipation-masked, source or NCP solver", "9.4")
+        if gathered and troubled_granularity != "row":
+            raise _unported(f"troubled_granularity={troubled_granularity!r} on the gathered "
+                            "path (only 'row' is)", "9.5")
+        if gathered and overflow_fallback != "means":
+            raise _unported(f"overflow_fallback={overflow_fallback!r} (only 'means' is)", "9.5")
         device = resolve_device(device)
         if device != solver.weights.device:
             raise ValueError(
@@ -180,17 +207,108 @@ class LimitedADERDG(nn.Module):
         self.admissible = admissible
         self.dmp_delta0 = float(dmp_delta0)
         self.dmp_eps = float(dmp_eps)
+        self.fallback = fallback
         self.accelerator = accelerator
         self.subcell_cuda = bool(subcell_cuda)
         self.post_step_guard = bool(post_step_guard)
         self.n_sub = 2 * solver.order + 1
-        n_rows = int(np.prod(solver.grid_shape[:-1]))
-        self.troubled_capacity = min(int(troubled_capacity), n_rows)
+        self.troubled_capacity = None
+        if gathered:
+            n_rows = int(np.prod(solver.grid_shape[:-1]))
+            self.troubled_capacity = min(int(troubled_capacity), n_rows)
         P = subcell_projection(solver.order, self.n_sub, solver.basis)
         R = subcell_reconstruction(solver.order, self.n_sub, solver.basis)
         self._P_np = P
         self.register_buffer("P", torch.as_tensor(P, dtype=torch.float64, device=device))
         self.register_buffer("R", torch.as_tensor(R, dtype=torch.float64, device=device))
+        self._dirichlet_sub, self._dirichlet_mean = {}, {}
+        if solver.boundary == "dirichlet":
+            self._build_dirichlet_rows(device)
+
+    # ------------------------------------------------------- boundary helpers
+
+    def _wall_on(self, d: int) -> bool:
+        """Whether grid axis ``d`` carries a domain wall (any type)."""
+        return self.solver.is_wall(d)
+
+    def _build_dirichlet_rows(self, device):
+        """The Dirichlet wall ghosts in the two layouts the fallbacks read,
+        computed once in float64 NumPy as JAX does: subcell means
+        (``_dirichlet_sub[(d, side)]``: the transverse node axes
+        P-projected, a singleton node axis at ``d``) and cell means
+        (``_dirichlet_mean[(d, side)]``: the transverse node axes
+        weight-projected, ``[V, grid with d -> 1]``)."""
+        sol = self.solver
+        nn_ = sol.n_nodes
+        w = np.asarray(sol.ops.weights)
+        for d in range(sol.dim):
+            if not sol.is_wall(d):
+                continue
+            for side in (0, 1):
+                face_shape = (nn_,) * (sol.dim - 1) + (sol.n_vars,) + tuple(
+                    1 if e == d else g for e, g in enumerate(sol.grid_shape))
+                row = np.broadcast_to(np.asarray(sol.dirichlet_fn(d, side)), face_shape)
+                sub = mean = row
+                for t in range(sol.dim - 1):
+                    sub = np.moveaxis(np.tensordot(self._P_np, sub, axes=([1], [t])), 0, t)
+                    mean = np.tensordot(w, mean, axes=([0], [0]))
+                self._dirichlet_sub[(d, side)] = torch.as_tensor(
+                    np.expand_dims(sub, d), dtype=torch.float64, device=device)
+                self._dirichlet_mean[(d, side)] = torch.as_tensor(
+                    mean, dtype=torch.float64, device=device)
+
+    @staticmethod
+    def _set_row(x, row, pos, ax):
+        """``x`` with its index ``pos`` (negative from the end) along ``ax``
+        replaced by the size-1 slice ``row``, out of place."""
+        return _replace_row(x, row, ax, pos % x.shape[ax])
+
+    @staticmethod
+    def _row(x, pos, ax):
+        return x.narrow(ax, pos % x.shape[ax], 1)
+
+    def _ghost_sub(self, row, d, side, va):
+        """Ghost SUBCELL layer at the ``(axis d, side)`` wall given the
+        wall-adjacent layer ``row``: the reflect hook (reflective walls
+        mirror, outflow copies, farfield broadcasts the prescribed state)
+        or the precomputed Dirichlet subcell row."""
+        if self.solver.boundary == "dirichlet":
+            return self._dirichlet_sub[(d, side)].to(row.dtype).expand(row.shape)
+        return self.solver.reflect_fn(row, d, va)
+
+    def _ghost_mean(self, row, d, side):
+        """Ghost CELL-MEAN row (``[V, grid with d -> 1]``, var axis 0) at the
+        ``(axis d, side)`` wall."""
+        if self.solver.boundary == "dirichlet":
+            return self._dirichlet_mean[(d, side)].to(row.dtype).expand(row.shape)
+        return self.solver.reflect_fn(row, d, 0)
+
+    def _shift_clamp(self, x, sh, ax, d):
+        """Neighbour values along grid axis ``ax`` (direction ``d``) for the
+        DMP neighbourhood; at reflective/outflow walls the missing
+        neighbour is the cell's own value (the neighbourhood shrinks), at
+        farfield/Dirichlet walls the prescribed ghost mean (the window
+        admits the inflow state, so held boundary data never
+        false-flags)."""
+        out = torch.roll(x, sh, ax)
+        if self._wall_on(d):
+            pos = -1 if sh == -1 else 0
+            row = self._row(x, pos, ax)
+            if self.solver.boundary in ("farfield", "dirichlet"):
+                row = self._ghost_mean(row, d, 1 if sh == -1 else 0)
+            out = self._set_row(out, row, pos, ax)
+        return out
+
+    def _shift_reflect(self, x, sh, ax, d):
+        """Neighbour STATE along grid axis ``ax`` for direction ``d`` of a
+        cell-means array ``x`` (var axis 0); at walls the ghost comes from
+        the boundary hook (mirror, copy, farfield state, Dirichlet mean)."""
+        out = torch.roll(x, sh, ax)
+        if self._wall_on(d):
+            pos = -1 if sh == -1 else 0
+            out = self._set_row(out, self._ghost_mean(self._row(x, pos, ax), d,
+                                                       1 if sh == -1 else 0), pos, ax)
+        return out
 
     # ------------------------------------------------------- diagnostics
 
@@ -199,8 +317,11 @@ class LimitedADERDG(nn.Module):
 
     def capacity_usage(self, u, dt):
         """``(rows_demanded, capacity)`` for one step from ``u``: the
-        overflow monitor.  ``rows_demanded`` is a 0-d tensor on the state's
-        device; it runs one candidate step of its own."""
+        overflow monitor of the gathered path.  ``rows_demanded`` is a 0-d
+        tensor on the state's device; it runs one candidate step of its
+        own."""
+        if self.troubled_capacity is None:
+            raise ValueError("capacity_usage requires troubled_capacity")
         candidate = self._stepper().step(u, dt)
         t = self.troubled_mask(u, candidate)
         return t.any(dim=-1).sum(), self.troubled_capacity
@@ -234,8 +355,8 @@ class LimitedADERDG(nn.Module):
         lo, hi = cell_lo, cell_hi
         for d in range(D):
             for shift in (-1, 1):
-                lo = torch.minimum(lo, torch.roll(cell_lo, shift, 1 + d))
-                hi = torch.maximum(hi, torch.roll(cell_hi, shift, 1 + d))
+                lo = torch.minimum(lo, self._shift_clamp(cell_lo, shift, 1 + d, d))
+                hi = torch.maximum(hi, self._shift_clamp(cell_hi, shift, 1 + d, d))
         delta = torch.maximum(
             self.dmp_delta0 * (1.0 + torch.abs(hi)), self.dmp_eps * (hi - lo)
         )
@@ -249,15 +370,15 @@ class LimitedADERDG(nn.Module):
 
     def fv_fallback(self, u, dt):
         """First-order Rusanov update of the cell means, nodal-broadcast
-        (the overflow policy's update)."""
+        (the ``"means"`` fallback, and the overflow policy's update)."""
         sol = self.solver
         means = self.cell_means(u)  # [V, *grid]; var axis 0
         new = means
         for d in range(sol.dim):
             lam = dt / sol._dxs[d]
             ax = 1 + d
-            up = torch.roll(means, -1, ax)  # +d neighbour
-            dn = torch.roll(means, 1, ax)  # -d neighbour
+            up = self._shift_reflect(means, -1, ax, d)  # +d neighbour
+            dn = self._shift_reflect(means, 1, ax, d)  # -d neighbour
 
             def flux(Q):
                 return sol.flux_fn(Q, d, 0)
@@ -272,6 +393,64 @@ class LimitedADERDG(nn.Module):
             new = new - lam * (fhat_hi - fhat_lo)
         return self._broadcast_means(new, u)
 
+    # ------------------------------------------------------------- subcell
+
+    def project_subcells(self, u):
+        """Nodal state -> subcell means: node axes become n_sub-sized."""
+        out = u
+        for d in range(self.solver.dim):
+            out = _apply(self.P, out, self.solver.node_axis(d))
+        return out
+
+    def reconstruct_subcells(self, s):
+        """Subcell means -> nodal, with the cell-mean conservation fix (the
+        quadrature mean equals the subcell mean); any trailing axes (the
+        grid, or the gathered path's slot batch)."""
+        sol = self.solver
+        out = s
+        for d in range(sol.dim):
+            out = _apply(self.R, out, d)
+        mean_sub = torch.mean(s, dim=tuple(range(sol.dim)))
+        mean_rec = out
+        for d in reversed(range(sol.dim)):
+            mean_rec = _project(sol.weights, mean_rec, d)
+        shift = (mean_sub - mean_rec).reshape((1,) * sol.dim + tuple(mean_sub.shape))
+        return out + shift
+
+    def subcell_fv_step(self, u, dt, return_face_fluxes: bool = False):
+        """One first-order Rusanov FV step on the (2N+1)^dim subcell grid
+        of every cell (periodic across cells, or the wall ghosts of
+        :meth:`_ghost_sub` fed the wall-adjacent subcell of the same
+        cell), returned as reconstructed nodal state.  The sweeps are
+        :meth:`_row_sweep_math` over the whole grid.
+
+        ``return_face_fluxes=True`` also returns, per direction, the
+        transverse-mean flux through each cell's HIGH face ``[V, *grid]``
+        (on a wall axis the last row's is the high-wall flux), for
+        interface matching."""
+        sol = self.solver
+        n_sub = self.n_sub
+        va = sol.var_axis
+        s = self.project_subcells(u)
+        face_fluxes = []
+        for d in range(sol.dim):
+            grid_ax = sol.grid_axis(d)
+            first = s.narrow(d, 0, 1)
+            last = s.narrow(d, n_sub - 1, 1)
+            from_right = torch.roll(first, -1, grid_ax)
+            from_left = torch.roll(last, 1, grid_ax)
+            if self._wall_on(d):
+                ghost_hi = self._ghost_sub(self._row(last, -1, grid_ax), d, 1, va)
+                from_right = self._set_row(from_right, ghost_hi, -1, grid_ax)
+                ghost_lo = self._ghost_sub(self._row(first, 0, grid_ax), d, 0, va)
+                from_left = self._set_row(from_left, ghost_lo, 0, grid_ax)
+            s, _, g_hi = self._row_sweep_math(s, from_left, from_right, d, dt)
+            face_fluxes.append(g_hi)
+        recon = self.reconstruct_subcells(s)
+        if return_face_fluxes:
+            return recon, face_fluxes
+        return recon
+
     # --------------------------------------------- row-granular gathered path
 
     def _gather_tables_row(self, troubled):
@@ -280,7 +459,10 @@ class LimitedADERDG(nn.Module):
         over the flattened leading grid axes (``R_n`` rows); ``row`` holds
         the sentinel ``R_n`` in inactive slots.  The active slots are the
         prefix ``k < n_active``; ``n_active`` is a 0-d tensor, so no host
-        synchronisation reads it.  All int64, on the mask's device."""
+        synchronisation reads it.  ``wall[k, d, side]`` marks a slot whose
+        neighbour row across ``side`` of table direction ``d`` lies beyond a
+        wall; its ``nb_slot`` is then -1 (its ghost is the wall's).  All
+        int64 (``wall`` bool), on the mask's device."""
         sol = self.solver
         K = self.troubled_capacity
         grid = sol.grid_shape
@@ -302,20 +484,24 @@ class LimitedADERDG(nn.Module):
             0, row, torch.arange(K, dtype=torch.int64, device=dev)
         )[:R_n]
         strides = [int(np.prod(lead_grid[d + 1:])) for d in range(sol.dim - 1)]
-        nb_slot, nb_row = [], []
+        nb_slot, nb_row, wall = [], [], []
         for d in range(sol.dim - 1):
             coord = (row_safe // strides[d]) % lead_grid[d]
             span = lead_grid[d] * strides[d]
-            per_nb, per_row = [], []
+            per_nb, per_row, per_wall = [], [], []
             for sh in (-1, 1):
                 moved = coord + sh
+                crossed = (moved < 0) | (moved >= lead_grid[d])
+                on_wall = crossed if self._wall_on(d) else torch.zeros_like(active)
                 flat_nb = row_safe + sh * strides[d]
                 flat_nb = torch.where(moved < 0, flat_nb + span, flat_nb)
                 flat_nb = torch.where(moved >= lead_grid[d], flat_nb - span, flat_nb)
-                per_nb.append(slot_of[flat_nb])
+                per_nb.append(torch.where(on_wall, -1, slot_of[flat_nb]))
                 per_row.append(flat_nb)
+                per_wall.append(on_wall)
             nb_slot.append(torch.stack(per_nb, dim=-1))
             nb_row.append(torch.stack(per_row, dim=-1))
+            wall.append(torch.stack(per_wall, dim=-1))
         row_gathered = torch.zeros(R_n + 1, dtype=torch.bool, device=dev).index_fill_(
             0, row, True
         )[:R_n]
@@ -328,6 +514,7 @@ class LimitedADERDG(nn.Module):
             "n_active": torch.clamp(flat.sum(), max=K),
             "nb_slot": torch.stack(nb_slot, dim=1),  # [K, dim-1, 2]
             "nb_row": torch.stack(nb_row, dim=1),  # [K, dim-1, 2]
+            "wall": torch.stack(wall, dim=1),  # [K, dim-1, 2]
             "mask": mask,
         }
 
@@ -342,13 +529,16 @@ class LimitedADERDG(nn.Module):
     def _gathered_subcell_step_row(self, u, dt, tables):
         """The (2N+1)^dim Rusanov FV step on the gathered ROW batch
         ``[.., K, L]``.  The last direction's ghosts are an in-row roll
-        (rows span the whole periodic axis); the other directions take the
-        neighbour slot's edge layer where that row is gathered and the
-        neighbour row's projected DG edge layer where it is not.  Returns
-        the reconstructed nodal rows and the per-direction ``(g_lo, g_hi)``
-        transverse-mean cell-boundary fluxes ``[V, K, L]``."""
+        (rows span the whole axis), its walls the mirror of the row's edge
+        layer; the other directions take the neighbour slot's edge layer
+        where that row is gathered, the neighbour row's projected DG edge
+        layer where it is not, and the mirror of the slot's own edge layer
+        beyond a wall.  Returns the reconstructed nodal rows and the
+        per-direction ``(g_lo, g_hi)`` transverse-mean cell-boundary fluxes
+        ``[V, K, L]``."""
         sol = self.solver
         n_sub = self.n_sub
+        va = sol.var_axis
         D = sol.dim
         K_ax = D + 1  # slot axis of gathered arrays
         L_ax = D + 2
@@ -404,19 +594,30 @@ class LimitedADERDG(nn.Module):
                     last.index_select(K_ax, torch.clamp(nb_lo, min=0)),
                     dg_ghost[d][0],
                 )
+                if self._wall_on(d):
+                    ghost_hi = torch.where(kmask(tables["wall"][:, d, 1], s.dim()),
+                                           sol.reflect_fn(last, d, va), ghost_hi)
+                    ghost_lo = torch.where(kmask(tables["wall"][:, d, 0], s.dim()),
+                                           sol.reflect_fn(first, d, va), ghost_lo)
             else:
                 ghost_hi = torch.roll(first, -1, L_ax)
                 ghost_lo = torch.roll(last, 1, L_ax)
+                if self._wall_on(d):
+                    mirror_hi = sol.reflect_fn(self._row(last, -1, L_ax), d, va)
+                    mirror_lo = sol.reflect_fn(self._row(first, 0, L_ax), d, va)
+                    ghost_hi = self._set_row(ghost_hi, mirror_hi, -1, L_ax)
+                    ghost_lo = self._set_row(ghost_lo, mirror_lo, 0, L_ax)
             s, g_lo, g_hi = sweep(d, s, ghost_lo.contiguous(), ghost_hi.contiguous())
             g_fluxes.append((g_lo, g_hi))
-        return self._reconstruct_gathered(s), g_fluxes
+        return self.reconstruct_subcells(s), g_fluxes
 
     def _row_sweep_math(self, s, ghost_lo, ghost_hi, d, dt):
-        """One directional Rusanov sweep on the gathered row batch
-        ``[sub.., V, K, L]``, with the ghost layers already built — the
-        plain version of the ``subcell_row_sweep`` kernel
-        (``csrc/subcell.cu``).  Returns ``(s_new, g_lo, g_hi)``, the ``g``'s
-        the transverse-mean cell-boundary fluxes ``[V, K, L]``."""
+        """One directional Rusanov sweep along subcell axis ``d`` of a batch
+        ``[sub.., V, *rest]`` (the gathered rows ``[.., K, L]``, or the whole
+        grid), with the ghost layers already built — the plain version of
+        the ``subcell_row_sweep`` kernel (``csrc/subcell.cu``).  Returns
+        ``(s_new, g_lo, g_hi)``, the ``g``'s the transverse-mean
+        cell-boundary fluxes ``[V, *rest]``."""
         sol = self.solver
         n_sub = self.n_sub
         va = sol.var_axis
@@ -446,20 +647,6 @@ class LimitedADERDG(nn.Module):
         g_lo = torch.mean(fhat_lo.select(d, 0), dim=other_sub)
         return s - lam * (fhat_hi - fhat_lo), g_lo, g_hi
 
-    def _reconstruct_gathered(self, s):
-        """Subcell means -> nodal on the slot batch, with the cell-mean
-        conservation fix (the quadrature mean equals the subcell mean)."""
-        sol = self.solver
-        out = s
-        for d in range(sol.dim):
-            out = _apply(self.R, out, d)
-        mean_sub = torch.mean(s, dim=tuple(range(sol.dim)))
-        mean_rec = out
-        for d in reversed(range(sol.dim)):
-            mean_rec = _project(sol.weights, mean_rec, d)
-        shift = (mean_sub - mean_rec).reshape((1,) * sol.dim + tuple(mean_sub.shape))
-        return out + shift
-
     def _scatter_fallback_row(self, candidate, R, tables, troubled):
         """Merge the gathered rows back into ``candidate``, in place: the
         troubled CELLS of each gathered row take the FV values, the rest
@@ -488,8 +675,9 @@ class LimitedADERDG(nn.Module):
         """Global high-face flux arrays ``[V, *grid]`` from the gathered
         row fluxes: each slot writes its high-face fluxes at its row, and
         in the table directions its low-face fluxes at the -d neighbour row
-        (identical values where both rows are gathered).  Dropped writes go
-        to a scratch row past the last."""
+        (identical values where both rows are gathered), but not across a
+        wall (the wall face has one owner).  Dropped writes go to a scratch
+        row past the last."""
         sol = self.solver
         grid = sol.grid_shape
         L = grid[-1]
@@ -501,7 +689,8 @@ class LimitedADERDG(nn.Module):
             G = torch.zeros((sol.n_vars, R_n + 1, L), dtype=dtype, device=dev)
             G.index_copy_(1, tables["row"], g_hi)
             if d < sol.dim - 1:
-                tgt = torch.where(tables["active"], tables["nb_row"][:, d, 0], R_n)
+                keep = tables["active"] & ~tables["wall"][:, d, 0]
+                tgt = torch.where(keep, tables["nb_row"][:, d, 0], R_n)
                 G.index_copy_(1, tgt, g_lo)
             out.append(G[:, :R_n].reshape((sol.n_vars,) + grid))
         return out
@@ -529,12 +718,15 @@ class LimitedADERDG(nn.Module):
             cand = mb + th * (out - mb)
             okc = cell_ok(cand)
             best = torch.where(okc.reshape((1,) * (D + 1) + tuple(okc.shape)), cand, best)
-        return best
+        return best.contiguous()
 
     def _match_interface_fluxes(self, candidate, dg_fluxes, fv_fluxes, troubled, dt):
         """Make mixed DG/FV faces single-valued: untroubled cells beside a
         troubled neighbour replace their DG face flux with the (constant)
-        transverse mean the troubled side used."""
+        transverse mean the troubled side used.  Wall faces have one owner
+        and are never mixed (the wrapped mask rows are meaningless there);
+        axes outside ``wall_axes`` stay periodic and their wrap faces are
+        matched."""
         sol = self.solver
         nn_ = sol.n_nodes
         out = candidate
@@ -544,8 +736,14 @@ class LimitedADERDG(nn.Module):
             face_grid_ax = sol.grid_axis(d) - 1
             fhat_dg = dg_fluxes[d]  # [nodes^(dim-1), V, *grid]
             G = fv_fluxes[d].reshape((1,) * (sol.dim - 1) + tuple(fv_fluxes[d].shape))
-            mixed_hi = (~troubled) & torch.roll(troubled, -1, d)
-            mixed_lo = (~troubled) & torch.roll(troubled, 1, d)
+            nbr_hi = torch.roll(troubled, -1, d)
+            nbr_lo = torch.roll(troubled, 1, d)
+            if self._wall_on(d):
+                false_row = torch.zeros_like(self._row(nbr_hi, -1, d))
+                nbr_hi = self._set_row(nbr_hi, false_row, -1, d)
+                nbr_lo = self._set_row(nbr_lo, false_row, 0, d)
+            mixed_hi = (~troubled) & nbr_hi
+            mixed_lo = (~troubled) & nbr_lo
 
             def expand_mask(m, like):
                 return m.reshape((1,) * (like.dim() - m.dim()) + tuple(m.shape))
@@ -575,14 +773,36 @@ class LimitedADERDG(nn.Module):
             "TimeLoopDriver); see ROADMAP.md, Queue 1 item 6"
         )
 
+    def _effective_fluxes(self, dg_fluxes, fv_fluxes, troubled):
+        """The per-direction EFFECTIVE high-face fluxes of a limited step:
+        the subcell FV transverse mean on every face touching a troubled
+        cell, the nodal DG Rusanov flux elsewhere.  On a wall axis the last
+        slot is the high-wall face, which has one owner: it takes the FV
+        flux only if the last cell is troubled."""
+        sol = self.solver
+        eff = []
+        for d in range(sol.dim):
+            fhat_dg = dg_fluxes[d]
+            G = fv_fluxes[d].reshape((1,) * (sol.dim - 1) + tuple(fv_fluxes[d].shape))
+            either = troubled | torch.roll(troubled, -1, d)
+            if self._wall_on(d):
+                either = self._set_row(either, self._row(troubled, -1, d), -1, d)
+            shape = (1,) * (fhat_dg.dim() - either.dim()) + tuple(either.shape)
+            eff.append(torch.where(either.reshape(shape), G.expand(fhat_dg.shape), fhat_dg))
+        return eff
+
     def step(self, u, dt, return_face_fluxes: bool = False, troubled_transform=None):
         """One limited step; a fresh tensor.
 
         ``return_face_fluxes=True`` also returns the per-direction
-        EFFECTIVE high-face fluxes of the limited update: the subcell FV
-        transverse mean on every face touching a troubled cell, the nodal
-        DG Rusanov flux elsewhere.  ``troubled_transform`` (the JAX AMR
-        pool's hook) is not ported and raises unless None."""
+        EFFECTIVE high-face fluxes of the limited update
+        (:meth:`_effective_fluxes`; the ``"means"`` fallback has none and
+        raises, as in JAX).  Wall-face convention: ``eff[d][..., c]`` is the
+        flux through cell ``c``'s HIGH face, so on a wall axis the last slot
+        holds the HIGH-WALL flux (DG's if the last cell is untroubled, the
+        subcell FV aggregate if it is troubled); the LOW-wall flux is not
+        stored.  ``troubled_transform`` (the JAX AMR pool's hook) is not
+        ported and raises unless None."""
         if troubled_transform is not None:
             raise SemanticError(
                 "troubled_transform (the AMR pool's hook) is not ported to "
@@ -590,9 +810,12 @@ class LimitedADERDG(nn.Module):
             )
         sol = self.solver
         candidate, dg_fluxes = self._stepper().step(u, dt, return_face_fluxes=True)
-        troubled_raw = self.troubled_mask(u, candidate)  # [*grid]
-        tables = self._gather_tables_row(troubled_raw)
-        troubled = tables["mask"]
+        troubled = self.troubled_mask(u, candidate)  # [*grid]
+        if self.troubled_capacity is None:
+            return self._step_whole_grid(u, dt, candidate, dg_fluxes, troubled,
+                                         return_face_fluxes)
+        tables = self._gather_tables_row(troubled)
+        troubled_raw, troubled = troubled, tables["mask"]
         R, g_fluxes = self._gathered_subcell_step_row(u, dt, tables)
         fv_fluxes = self._scatter_face_fluxes_row(g_fluxes, tables, u.dtype)
         candidate = self._match_interface_fluxes(
@@ -610,14 +833,32 @@ class LimitedADERDG(nn.Module):
             out = self._admissibility_scale(out)
         if not return_face_fluxes:
             return out
-        eff = []
-        for d in range(sol.dim):
-            fhat_dg = dg_fluxes[d]
-            G = fv_fluxes[d].reshape((1,) * (sol.dim - 1) + tuple(fv_fluxes[d].shape))
-            either = troubled | torch.roll(troubled, -1, d)
-            shape = (1,) * (fhat_dg.dim() - either.dim()) + tuple(either.shape)
-            eff.append(torch.where(either.reshape(shape), G.expand(fhat_dg.shape), fhat_dg))
-        return out, eff
+        return out, self._effective_fluxes(dg_fluxes, fv_fluxes, troubled)
+
+    def _step_whole_grid(self, u, dt, candidate, dg_fluxes, troubled, return_face_fluxes):
+        """The rest of :meth:`step` with the fallback on the whole grid:
+        the subcell step (matched, then guarded) or the cell-mean update
+        (neither matched nor guarded, as in JAX) taken by the troubled
+        cells."""
+        sol = self.solver
+        if self.fallback == "subcell":
+            fb, fv_fluxes = self.subcell_fv_step(u, dt, return_face_fluxes=True)
+            candidate = self._match_interface_fluxes(
+                candidate, dg_fluxes, fv_fluxes, troubled, dt
+            )
+        else:
+            if return_face_fluxes:
+                raise ValueError("return_face_fluxes requires the 'subcell' fallback")
+            fb = self.fv_fallback(u, dt)
+        mask = troubled.reshape((1,) * (sol.dim + 1) + tuple(troubled.shape))
+        # Contiguous, as the kernels take a state: the reconstruction's
+        # contractions leave its node axes permuted, and where() keeps that.
+        out = torch.where(mask, fb, candidate).contiguous()
+        if self.admissible is not None and self.fallback == "subcell" and self.post_step_guard:
+            out = self._admissibility_scale(out)
+        if not return_face_fluxes:
+            return out
+        return out, self._effective_fluxes(dg_fluxes, fv_fluxes, troubled)
 
     def run(self, u, n_steps: int, dt):
         for _ in range(n_steps):

@@ -38,7 +38,8 @@ ADER-DG kernels of ``csrc/aderdg.cu``, and for the Z4 step's kernels the
 system, ``Z4Vacuum``, ``Z4Shift``, ``Z4Matter`` or ``Z4Grmhd``, whatever
 template arguments were added since), ignoring addresses and encodings;
 kernels of the Z4+GRMHD system and of the order-5 Euler step (the face
-stage at n = 6 and ``aderdg_predictor_volume_st``) that only this checkout
+stage at n = 6 and ``aderdg_predictor_volume_st``) and of the 2-D Euler
+step (``csrc/aderdg_2d.cu``, periodic and walled) that only this checkout
 has are listed as new.  Prints one line per output and per kernel
 and exits non-zero if any differs.  Needs a CUDA card and nvcc; imports no
 JAX.
@@ -64,14 +65,16 @@ SASS_KERNELS = (
     "aderdg_predictor_volume", "aderdg_face_flux", "aderdg_surface_update",
     "aderdg_predictor_volume_z4", "aderdg_face_flux_z4", "aderdg_surface_update_z4",
     "rhs_all_z4", "rhs_all_z4_shift", "rhs_all_z4_matter", "rhs_all_z4_grmhd",
-    "aderdg_predictor_volume_st",
+    "aderdg_predictor_volume_st", "aderdg_predictor_volume_2d", "aderdg_face_flux_2d",
+    "aderdg_surface_update_2d",
 )
 #: The Z4 step kernels' systems (a template argument of each instance).
 SYSTEMS = ("Z4Vacuum", "Z4Shift", "Z4Matter", "Z4Grmhd")
-#: What only this checkout may have: the Z4+GRMHD system's kernels, and the
+#: What only this checkout may have: the Z4+GRMHD system's kernels, the
 #: order-5 Euler step's (its predictor, and the face stage's kernels whose
-#: node count is ``NEW_NODES``).
-NEW = ("Z4Grmhd", "rhs_all_z4_grmhd", "Z4+GRMHD", "aderdg_predictor_volume_st")
+#: node count is ``NEW_NODES``) and the 2-D Euler step's.
+NEW = ("Z4Grmhd", "rhs_all_z4_grmhd", "Z4+GRMHD", "aderdg_predictor_volume_st",
+       "aderdg_predictor_volume_2d", "aderdg_face_flux_2d", "aderdg_surface_update_2d")
 NEW_NODES = "6"
 _KERNEL_NAME = re.compile(r"(\d+)(" + "|".join(sorted(SASS_KERNELS, key=len, reverse=True))
                           + r")I([fd])(?:Li(\d+)E)?")

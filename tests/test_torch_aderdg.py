@@ -324,8 +324,12 @@ def test_cuda_wrapper_rejects_what_the_kernels_do_not_take():
         CudaADERDG(ADERDGSolver(3, 3, 5, (2, 2, 2), f3, e2, device="cpu"))
     with pytest.raises(LoweringError, match="order=2"):
         CudaADERDG(ADERDGSolver(3, 2, 5, (2, 2, 2), f3, e3, device="cpu"))
-    with pytest.raises(LoweringError, match="dim=2"):
-        CudaADERDG(ADERDGSolver(2, 3, 4, (2, 2), f2, e2, device="cpu"))
+    # 2-D: order 3 is instantiated (csrc/aderdg_2d.cu), orders 2 and 5 are not.
+    assert CudaADERDG(ADERDGSolver(2, 3, 4, (2, 2), f2, e2, device="cpu")).kernels == (
+        "aderdg_predictor_volume_2d", "aderdg_face_flux_2d", "aderdg_surface_update_2d")
+    for order in (2, 5):
+        with pytest.raises(LoweringError, match=f"dim=2, order={order}.*Queue 1 item 4"):
+            CudaADERDG(ADERDGSolver(2, order, 4, (2, 2), f2, e2, device="cpu"))
     f6, e6 = euler_physics(3, n_real=6)
     with pytest.raises(LoweringError, match="n_vars=6"):
         CudaADERDG(ADERDGSolver(3, 3, 6, (2, 2, 2), f6, e6, device="cpu"))

@@ -18,7 +18,9 @@ the 43-variable Z4+GRHD one (K5 d and K1 d's conservative-flux variant,
 ``csrc/aderdg_z4_matter.cu``, on a fluid with a velocity field and seeded
 noise on every Z4 slot) and the 47-variable Z4+GRMHD one (K5 e and the
 same variant over ``csrc/aderdg_z4_grmhd.cu``, on a magnetized fluid with a
-GLM scalar and the same noise).
+GLM scalar and the same noise); the 2-D Euler p3 step (K1 c,
+``csrc/aderdg_2d.cu``) periodic and in every wall mode, and the limited
+step with walls (gathered rows in 3-D, the whole grid in 2-D).
 
 Every test here is marked ``cuda`` and skips without a card (the decision
 is made inside each test, never at import).  This file imports no JAX, so
@@ -779,6 +781,165 @@ def test_limited_step_kernels_match_plain():
                            "aderdg_surface_update": 2}
     assert subcell_cuda.launches["subcell_row_sweep"] == 6
     assert torch.equal(lim_k.run(u, 2, 4.8e-3), a)
+
+
+# ------------------------------------------------ the 2-D Euler step (K1 c)
+
+
+def _setup_2d(grid, dtype, name="periodic"):
+    """A 2-D p3 Euler solver on the card (dx = 1/g0) in wall mode ``name``,
+    its ``CudaADERDG`` and a seeded state with flow along both axes."""
+    from exahype_tpu_torch.models.aderdg import (
+        euler_reflect,
+        euler_reflect_flux,
+        make_dirichlet_fn,
+    )
+
+    dev = _card()
+    dx = 1.0 / grid[0]
+
+    def held(*x):
+        rho = 1.0 + 0.2 * np.sin(2 * np.pi * x[0]) * np.cos(np.pi * x[1])
+        vel = (0.3 + 0.1 * np.cos(2 * np.pi * x[1]), -0.2 + 0.1 * np.sin(np.pi * x[0]))
+        e = (2.0 + 0.1 * np.sin(np.pi * x[1])) / 0.4 + 0.5 * rho * sum(v * v for v in vel)
+        return np.stack([rho, rho * vel[0], rho * vel[1], e], axis=-1)
+
+    mirror = dict(reflect_fn=euler_reflect(2), reflect_flux_fn=euler_reflect_flux(2))
+    walls = {
+        "periodic": {},
+        "reflective": dict(boundary="reflective", **mirror),
+        "reflective_1": dict(boundary="reflective", wall_axes=(1,), **mirror),
+        "outflow_0": dict(boundary="outflow", wall_axes=(0,)),
+        "farfield_0": dict(boundary="farfield", farfield_state=(1.0, 2.0, 0.0, 1.0 / 0.4 + 2.0),
+                           wall_axes=(0,)),
+        "dirichlet": dict(boundary="dirichlet", dirichlet_fn=make_dirichlet_fn(
+            held, dim=2, order=3, grid_shape=grid, dx=dx)),
+    }[name]
+    flux, eig = euler_physics(2, n_real=4)
+    sol = ADERDGSolver(2, 3, 4, grid, flux, eig, dx=dx, device=dev, dtype=dtype, **walls)
+    rng = np.random.default_rng(2)
+    rho = 1.0 + 0.2 * rng.random((4, 4) + grid)
+    q = np.stack([rho, 0.5 * rho, -0.3 * rho, 5.0 + 0.5 * rho], axis=2)
+    return sol, CudaADERDG(sol), torch.from_numpy(q).to(dev, dtype).contiguous()
+
+
+NAMES_2D = ["periodic", "reflective", "reflective_1", "outflow_0", "farfield_0", "dirichlet"]
+#: (8, 8); (5, 7): a ragged last block of the predictor (16 cells) and of
+#: the face stage (128), odd extents; f32 at (64, 48).
+CASES_2D = [(torch.float64, (8, 8)), (torch.float64, (5, 7)), (torch.float32, (64, 48))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", CASES_2D)
+@pytest.mark.parametrize("name", NAMES_2D)
+def test_2d_kernels_match_plain(name, dtype, grid):
+    """``csrc/aderdg_2d.cu`` launch by launch against the plain solver:
+    the predictor's new state and faces, the face flux's F̂ (and with walls
+    its side tensor), the update, the stage with its face fluxes, and 3
+    steps (dt by value and by pointer, bitwise equal)."""
+    sol, cu, u = _setup_2d(grid, dtype, name)
+    dt = 0.5 * float(sol.cfl_dt(u))
+
+    def close(got, ref, rounds=1):
+        assert _err(got, ref) <= rounds * _bound(ref, dtype)
+
+    new_k, faces_k, _ = cu.predictor_volume(u, dt)
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    close(new_k, new_p)
+    close(faces_k, faces_p)
+    fhat, fwall = cu.face_flux(faces_p)
+    fshape = sol.face_flux_shape
+    plain, walls = [], {}
+    for d in range(2):
+        q_lo, q_hi, f_lo, f_hi = (faces_p[d, k].reshape(fshape) for k in range(4))
+        plain.append(sol.interface_flux(q_lo, q_hi, f_lo, f_hi, d))
+        close(fhat[d].view(fshape), plain[d])
+        if sol.is_wall(d):
+            walls[d] = sol.low_wall_flux(q_lo, f_lo, d)
+            close(cu.wall_fluxes(fwall)[d], walls[d])
+    assert (fwall is None) == (name == "periodic")
+    side = None if fwall is None else torch.cat([walls[d].reshape(-1) for d in sorted(walls)])
+    upd = cu.surface_update(new_p.clone(), torch.stack(plain).view(fhat.shape), dt, side)
+    ref = new_p
+    for d in range(2):
+        ref = sol.surface_term(ref, plain[d], d, dt, walls.get(d))
+    close(upd, ref)
+    stage, fl_k = cu.face_surface(new_p.clone(), faces_p, dt, return_face_fluxes=True)
+    stage_p, fl_p = sol.face_surface(new_p, faces_p, dt, return_face_fluxes=True)
+    close(stage, stage_p)
+    for a, b in zip(fl_k, fl_p):
+        close(a, b)
+    by_value = cu.run(u, 3, dt)
+    by_pointer = cu.run(u, 3, torch.tensor(dt, dtype=dtype, device=u.device))
+    torch.cuda.synchronize()
+    close(by_value, sol.run(u, 3, dt), 1 if dtype == torch.float64 else 3)
+    assert torch.equal(by_value, by_pointer)
+    # The predictor: 1 + 2 x 3; the face pair: once alone, once in the stage, 2 x 3.
+    assert cu.launches == dict(zip(cu.kernels, (7, 8, 8)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["periodic", "reflective"])
+def test_2d_kernel_info(name):
+    sol, cu, _ = _setup_2d((4, 4), torch.float32, name)
+    suffix = "_walls_2d" if name != "periodic" else "_2d"
+    assert cu.kernels == ("aderdg_predictor_volume_2d", f"aderdg_face_flux{suffix}",
+                          f"aderdg_surface_update{suffix}")
+    for kernel in cu.kernels:
+        for dtype in (torch.float32, torch.float64):
+            info = cu.kernel_info(kernel, dtype)
+            assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, (kernel, info)
+    assert cu.kernel_info(cu.kernels[0], torch.float32)["threads"] == 256
+
+
+@pytest.mark.cuda
+def test_walled_limited_steps_match_plain():
+    """The limited step with walls on the card against the plain limiter,
+    f64 at 1e-12: the gathered rows in a 3-D reflective box at (8, 4, 8)
+    (CudaADERDG's walled face stage and K3), and the whole-grid subcell
+    fallback in the 2-D reflective box (the 2-D kernels)."""
+    from exahype_tpu_torch.models import subcell_cuda
+    from exahype_tpu_torch.models.aderdg import euler_reflect, euler_reflect_flux
+    from exahype_tpu_torch.models.limiter import LimitedADERDG, euler_admissible
+
+    mirror = dict(boundary="reflective", reflect_fn=euler_reflect(3),
+                  reflect_flux_fn=euler_reflect_flux(3))
+    grid = (8, 4, 8)
+    sol, cu, _ = _setup(grid, torch.float64, 1.0 / 8, **mirror)
+    opts = dict(troubled_capacity=8, troubled_granularity="row", dmp_delta0=5e-4,
+                device=sol.weights.device)
+    lim_k = LimitedADERDG(sol, euler_admissible(3), accelerator=cu, subcell_cuda=True, **opts)
+    lim_p = LimitedADERDG(sol, euler_admissible(3), **opts)
+    left = np.broadcast_to(np.arange(grid[0]).reshape(-1, 1, 1) < grid[0] // 2, grid)
+    rho = np.broadcast_to(np.where(left, 1.0, 0.125), (4, 4, 4) + grid)
+    p = np.broadcast_to(np.where(left, 1.0, 0.1), (4, 4, 4) + grid)
+    zero = np.zeros_like(rho)
+    q = np.stack([rho, 0.5 * rho, zero, zero, p / 0.4 + 0.125 * rho], axis=3)
+    u = torch.from_numpy(q).to(sol.weights.device).contiguous()
+    subcell_cuda.reset_launches()
+    a = b = u
+    for _ in range(2):
+        a, b = lim_k.step(a, 4.8e-3), lim_p.step(b, 4.8e-3)
+    torch.cuda.synchronize()
+    assert _err(a, b) <= 1e-12
+    assert cu.kernels[1:] == ("aderdg_face_flux_walls", "aderdg_surface_update_walls")
+    assert all(n == 2 for n in cu.launches.values())
+    assert subcell_cuda.launches["subcell_row_sweep"] == 6
+
+    sol2, cu2, u2 = _setup_2d((8, 8), torch.float64, "reflective")
+    lim_k = LimitedADERDG(sol2, euler_admissible(2), accelerator=cu2, device=u2.device)
+    lim_p = LimitedADERDG(sol2, euler_admissible(2), device=u2.device)
+    u2 = u2.clone()
+    u2[:, :, 3, 3:5, 3:5] *= 20.0  # a pressurised block: troubled cells
+    dt = 0.5 * float(sol2.cfl_dt(u2))
+    assert bool(lim_p.troubled_mask(u2, sol2.step(u2, dt)).any())
+    a, fl_a = lim_k.step(u2, dt, return_face_fluxes=True)
+    b, fl_b = lim_p.step(u2, dt, return_face_fluxes=True)
+    torch.cuda.synchronize()
+    assert _err(a, b) <= 1e-12
+    for x, y in zip(fl_a, fl_b):
+        assert _err(x, y) <= 1e-12
+    assert all(n == 1 for n in cu2.launches.values())
 
 
 # ------------------------------------------------ K4: the generated spec kernel

@@ -128,9 +128,7 @@ def test_limited_from_jax_reads_the_configuration():
 
 
 REFUSED = {
-    "no capacity": dict(troubled_capacity=None),
     "cell granularity": dict(troubled_granularity="cell"),
-    "means fallback": dict(fallback="means", troubled_capacity=None),
     "MUSCL": dict(fallback_order=2, troubled_capacity=None),
     "candidate overflow": dict(overflow_fallback="candidate"),
 }
@@ -143,11 +141,41 @@ def test_options_outside_the_slice_raise(name):
         limited_from_jax(jl, gamma=1.4, device="cpu")
 
 
+#: The whole-grid fallbacks, which the port used to refuse.
+WHOLE_GRID = {
+    "no capacity": dict(troubled_capacity=None),
+    "means fallback": dict(fallback="means", troubled_capacity=None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WHOLE_GRID))
+def test_whole_grid_options_match_jax(name):
+    """Two limited Sod steps of the whole-grid subcell and means fallbacks
+    against JAX (tests/test_torch_limiter_walls.py holds them with walls)."""
+    js, jl = jax_config(**WHOLE_GRID[name])
+    port = limited_from_jax(jl, gamma=1.4, device="cpu")
+    assert port.troubled_capacity is None
+    ref, u = jnp.asarray(sod_state(js)), state_from_numpy(sod_state(js), device="cpu")
+    for k in range(2):
+        ref, u = jl.step(ref, DT), port.step(u, DT)
+        np.testing.assert_allclose(state_to_numpy(u), np.asarray(ref), rtol=0, atol=1e-12,
+                                   err_msg=f"step {k + 1}")
+    if name == "means fallback":
+        with pytest.raises(ValueError, match="requires the 'subcell' fallback"):
+            port.step(u, DT, return_face_fluxes=True)
+    with pytest.raises(ValueError, match="capacity_usage requires troubled_capacity"):
+        port.capacity_usage(u, DT)
+
+
 def test_walls_hooks_and_observables_raise():
+    # A walled limiter crosses (tests/test_torch_limiter_walls.py); a walled
+    # MUSCL one is refused (ROADMAP Queue 1 item 9.3).
     flux, eig = jax_euler_physics(dim=3, n_real=5)
     js = JaxSolver(dim=3, order=3, n_vars=5, grid_shape=GRID, flux_fn=flux,
                    max_eigenvalue_fn=eig, dx=1.0 / GRID[0], boundary="outflow")
     jl = JaxLimited(js, troubled_capacity=CAPACITY, troubled_granularity="row")
+    assert limited_from_jax(jl, gamma=1.4, device="cpu").solver.is_wall(0)
+    jl = JaxLimited(js, fallback_order=2)
     with pytest.raises(SemanticError, match="ROADMAP"):
         limited_from_jax(jl, gamma=1.4, device="cpu")
     _, jl = jax_config()

@@ -406,8 +406,9 @@ def test_viscous_options_must_be_set_together_and_refuse_ck():
 
 
 def test_limiter_refuses_a_viscous_solver():
-    """The port's limiter has only the gathered fallback, which carries no
-    diffusive fluxes: a viscous solver is refused with JAX's words."""
+    """The gathered fallback carries no diffusive fluxes: a viscous solver
+    is refused there with JAX's words; the port's whole-grid fallbacks do
+    not carry them yet either (ROADMAP Queue 1 item 9.3)."""
     kw, visc, visc_eig = _ns_kw(3)
     sol = ADERDGSolver(**dict(kw, order=3, grid_shape=(2, 2, 4)), visc_flux_fn=visc,
                        visc_eigenvalue_fn=visc_eig)
@@ -417,6 +418,8 @@ def test_limiter_refuses_a_viscous_solver():
                              r"Queue 1 item 9"):
         LimitedADERDG(sol, euler_admissible(3), troubled_capacity=4,
                       troubled_granularity="row", device="cpu")
+    with pytest.raises(SemanticError, match=r"viscous solver on the whole grid.*\(9.3\)"):
+        LimitedADERDG(sol, euler_admissible(3), device="cpu")
 
 
 def test_cuda_wrapper_takes_the_tagged_physics_only():

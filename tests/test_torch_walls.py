@@ -381,11 +381,23 @@ def test_cuda_wrapper_refuses_unsigned_hooks_and_viscous_walls():
 
 
 def test_limiter_refuses_a_walled_solver():
+    """The limiter takes walls (tests/test_torch_limiter_walls.py); what it
+    still refuses around them: Dirichlet walls on the gathered path (JAX's
+    own refusal, with its message) and a walled MUSCL fallback (ROADMAP
+    Queue 1 item 9.3)."""
     flux, eig = euler_physics(3)
-    sol = ADERDGSolver(3, 3, 5, (2, 2, 4), flux, eig, device="cpu", boundary="outflow")
-    with pytest.raises(SemanticError, match="ROADMAP.md, Queue 1 item 9"):
+    state_fn, kw = _smooth_state(3, 3, (2, 2, 4), 0.5)
+    sol = ADERDGSolver(3, 3, 5, (2, 2, 4), flux, eig, device="cpu", boundary="dirichlet",
+                       dirichlet_fn=make_dirichlet_fn(state_fn, **kw))
+    with pytest.raises(SemanticError, match="does not support dirichlet walls"):
         LimitedADERDG(sol, euler_admissible(3), troubled_capacity=4,
                       troubled_granularity="row", device="cpu")
+    LimitedADERDG(sol, euler_admissible(3), device="cpu")  # the whole grid takes them
+    sol = ADERDGSolver(3, 3, 5, (2, 2, 4), flux, eig, device="cpu", boundary="outflow")
+    LimitedADERDG(sol, euler_admissible(3), troubled_capacity=4, troubled_granularity="row",
+                  device="cpu")
+    with pytest.raises(SemanticError, match=r"ROADMAP.md, Queue 1 item 9 \(9.3\)"):
+        LimitedADERDG(sol, euler_admissible(3), fallback_order=2, device="cpu")
 
 
 @pytest.mark.parametrize("name", sorted(CASES_3D))
