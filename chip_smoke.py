@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one card, nvcc
 
-It drives thirteen paths, each through ``exahype_tpu_torch``'s entry points
+It drives fifteen paths, each through ``exahype_tpu_torch``'s entry points
 with its kernels' launch counters set to 0 just before and read just
 after (the two forms of the main path, ADER-DG and FV, and the order-5,
-limited, limited with walls, limited 2-D blast with walls, CK, walls,
-viscous, dynamic-GR, shifted dynamic-GR, Z4+GRHD and Z4+GRMHD slices), in
-this order:
+limited, limited with walls, limited 2-D blast with walls, viscous shock,
+2-D vortex, CK, walls, viscous, dynamic-GR, shifted dynamic-GR, Z4+GRHD and
+Z4+GRMHD slices), in this order:
 
 - **ADER-DG**: ``bench.py::main``'s step — order 3, 3-D compressible
   Euler, a ``(256, 8, 128)`` periodic cell grid in float32, ``bench.py``'s
@@ -75,6 +75,29 @@ this order:
   Dirichlet box from ``make_dirichlet_fn`` included) and in float32 at
   ``(1024, 1024)``; the whole-grid ``fallback="means"`` and the Dirichlet
   whole-grid step against the plain limiter in float64.
+- **viscous shock**: ``examples/viscous_shock.py`` — 2-D p3 compressible
+  Navier–Stokes (μ = 5e-3, Pr = 0.7), periodic, the shock-tube slab,
+  ``LimitedADERDG(admissible=euler_admissible(2), fallback_order=2,
+  accelerator=CudaADERDG(solver))`` with the whole-grid MUSCL fallback and
+  its diffusive face fluxes (eager PyTorch) — through K1 c's 2-D
+  Navier–Stokes instance (``csrc/aderdg_2d.cu``:
+  ``aderdg_predictor_volume_visc_2d`` and the periodic pair's viscous
+  instance ``aderdg_face_flux_2d`` + ``aderdg_surface_update_2d``, three
+  launches a step): the example's ``(64, 4)`` in float64 at half the
+  viscous ``cfl_dt`` over its 120 steps for μ = 0 (the 2-D Euler kernels)
+  and μ = 5e-3 with its gates (drift below 1e-12, admissible, the limiter
+  fired, the two runs differ by more than 1e-5) and 3 steps against the
+  plain limiter, then ``(1024, 1024)`` in float32 over 10 steps with the
+  gates, repeatability, one step's masks and state against the plain path,
+  the stages' times, the idle share, the peak memory and ``[kernel]``
+  lines; the kernels against their plain versions launch by launch in
+  float64 at ``(8, 8)`` and ``(64, 4)`` on a noisy state and in float32 at
+  ``(1024, 1024)``.
+- **2-D vortex**: ``examples/navier_stokes_vortex.py`` — the periodic 2-D
+  Taylor–Green vortex on the same kernels through ``CudaADERDG``, float64:
+  the example's ``(32, 32)`` over T = 0.25 (the kinetic energy's decay
+  rate within 2e-2 of 4ν(2π)², drift below 1e-11) and ``(1024, 1024)`` over
+  10 steps at ``cfl_dt`` (the decay against 1 − exp(−4ν(2π)²t)), timed.
 - **CK**: ``bench.py::bench_ck``'s step — order 3, 3-D heterogeneous
   elasticity (12 variables: velocity–stress and frozen per-node ρ, λ, μ),
   ``predictor_mode="ck"``, ``ck_material_slots=(9, 10, 11)``,
@@ -316,6 +339,45 @@ BLAST_CUT = (8, 8)
 #: products, the pressure term 1, energy 3) and of one 2-D wave speed.
 FLUX_OPS_2D = 16
 EIG_OPS_2D = 15
+
+#: The viscous shock path (``examples/viscous_shock.py``): 2-D p3
+#: Navier–Stokes, periodic, the slab 0.25 < x < 0.75 at (ρ, p) = (1, 1),
+#: (0.125, 0.1) outside, at rest, under ``LimitedADERDG(fallback_order=2)``
+#: (the MUSCL whole-grid fallback, minmod) at half the viscous solver's
+#: cfl_dt.  The example's chip grid (64, 4), dx = 1/64, in float64 over its
+#: 120 steps for both viscosities with its gates (``:108-110``), then
+#: (1024, 1024) (67.1 M DOF, the blast's scale) in float32, μ = 5e-3, over
+#: ``STEPS``; the float64 kernel checks on ``BLAST_CUT``.
+SHOCK_GRIDS = ((64, 4), (1024, 1024))
+SHOCK_MU = 5e-3
+SHOCK_STEPS = 120
+SHOCK_PRANDTL = 0.7  # models/navier_stokes.py's default, the example's
+#: The example's gates: conservation drift, the state difference the
+#: viscosity makes.
+SHOCK_DRIFT = 1e-12
+SHOCK_DMAX = 1e-5
+#: The 2-D vortex path (``examples/navier_stokes_vortex.py``): the periodic
+#: Taylor–Green vortex, V0 = 1e-2, ρ = p = 1, μ = 5e-3, Pr = 0.7, at cfl_dt:
+#: the example's (32, 32) over T = 0.25 in float64 with its gates (KE decay
+#: rate within 2e-2 of 4ν(2π)², drift below 1e-11), and (1024, 1024) over
+#: ``STEPS`` in float64 (in float32 a step moves the momenta by about one
+#: float32 spacing there, so the decay cannot be read), the decay 1 − KE₁/KE₀
+#: within ``VORTEX_RTOL`` of 1 − exp(−4ν(2π)²t) (on a CPU at (128, 128)
+#: float64 the port's plain solver is 1.0e-5 from it after 10 steps).
+VORTEX_GRIDS = ((32, 32), (1024, 1024))
+VORTEX_MU = 5e-3
+VORTEX_V0 = 1e-2
+VORTEX_T = 0.25
+VORTEX_RTOL = 2e-2
+VORTEX_DRIFT = 1e-11
+#: Flops of the 2-D viscous flux of both axes at one node, as
+#: ``csrc/navier_stokes.cuh``'s 2-D form shares its terms (1/ρ 1, the
+#: velocity 2, q² 3, T 4; per gradient axis ∂v 6, v·∂m 3, ∂T 8; ∇·v 1; per
+#: flux axis τ 6, its 2 signs, the energy row 6) and its 6 sums into the
+#: Euler flux; one node's 2-D gradients: 8 four-point contractions (7 each)
+#: and 8 products by 1/dx.
+VISC_FLUX_OPS_2D = 1 + 2 + 3 + 4 + 2 * (6 + 3 + 8) + 1 + 2 * (6 + 2 + 6) + 6
+GRAD_OPS_2D = 8 * 7 + 8
 
 #: The FV path (``__graft_entry__.py:16-36``): 3-D Euler, patch 4, halo 1.
 FV_WIDTH = dict(dim=3, patch_size=4, halo_size=1, n_real=5, n_aux=0)
@@ -731,6 +793,18 @@ def visc_predictor_ops(order: int, picard_iters: int, ncell: int, split: bool = 
     visc = GRAD_OPS + VISC_FLUX_OPS
     per_node = picard_iters * n * visc + n * (visc + (24 if split else 0))
     return predictor_ops(order, picard_iters, ncell) + per_node * n**3 * ncell
+
+
+def visc_predictor_ops_2d(order: int, picard_iters: int, ncell: int) -> float:
+    """Flops of ``aderdg_predictor_volume_visc_2d`` (``csrc/aderdg_2d.cu``):
+    the 2-D Euler predictor's (:func:`predictor_ops` in 2-D), plus per
+    (cell, node) and time slice of every Picard iteration and of the time
+    averages the gradients and the viscous flux."""
+    n = order + 1
+    visc = GRAD_OPS_2D + VISC_FLUX_OPS_2D
+    per_node = picard_iters * n * visc + n * visc
+    euler = predictor_ops(order, picard_iters, ncell, dim=2, nvar=4, flux_ops=FLUX_OPS_2D)
+    return euler + per_node * n**2 * ncell
 
 
 def ck_predictor_ops(order: int, ncell: int, dim=3, nvar=12, evolved=CK_EVOLVED) -> float:
@@ -4762,6 +4836,26 @@ def blast_state(torch, solver, dtype):
     return torch.from_numpy(np.ascontiguousarray(q)).to(solver.weights.device, dtype)
 
 
+def parity_2d(torch, sol, cu, u, dt, label: str, tag: str) -> dict:
+    """The 2-D kernels against their plain versions on ``u``
+    (:func:`stages_2d`): float64 at ``F64_ATOL``, float32 within
+    ``F32_ULPS`` spacings of the largest plain value; ``[{tag} parity]``
+    lines.  Fails on a disagreement; returns the largest error of each
+    kernel."""
+    f64 = u.dtype == torch.float64
+    errs = {}
+    for name, what, got, ref in stages_2d(torch, sol, cu, u, dt):
+        err = max_err(torch, got, ref)
+        limit = F64_ATOL if f64 else f32_bound(torch, ref)
+        ok = err <= limit
+        say(f"[{tag} parity] {label}: {name} ({what}) {str(u.dtype)[6:]} {sol.grid_shape}: "
+            f"max_abs_err {err:.3e} limit {limit:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the 2-D {name} ({what}) disagrees with its plain version ({label})")
+        errs[name] = max(errs.get(name, 0.0), err)
+    return errs
+
+
 def stages_2d(torch, sol, cu, u, dt):
     """Each 2-D kernel and the stage and step against its plain version on
     ``u``: ``[(name, what, got, ref)]`` (the predictor's new state and
@@ -4838,20 +4932,6 @@ def blast_walls_path(torch, dev, card) -> list[dict]:
         return (sol, cu, LimitedADERDG(sol, adm, accelerator=cu, device=dev, **opts),
                 LimitedADERDG(sol, adm, device=dev, **opts))
 
-    def parity(sol, cu, u, dt, label):
-        f64 = u.dtype == torch.float64
-        errs = {}
-        for name, what, got, ref in stages_2d(torch, sol, cu, u, dt):
-            err = max_err(torch, got, ref)
-            limit = F64_ATOL if f64 else f32_bound(torch, ref)
-            ok = err <= limit
-            say(f"[blast parity] {label}: {name} ({what}) {str(u.dtype)[6:]} {sol.grid_shape}: "
-                f"max_abs_err {err:.3e} limit {limit:.3e} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"the 2-D {name} ({what}) disagrees with its plain version ({label})")
-            errs[name] = max(errs.get(name, 0.0), err)
-        return errs
-
     # ---------------------------------- 3. f64 on the cut grid, every mode
     rng = np.random.default_rng(4)
     for name in ("periodic", "reflective box", "reflective (1,)", "outflow (0,)",
@@ -4859,7 +4939,7 @@ def blast_walls_path(torch, dev, card) -> list[dict]:
         sol, cu, _, _ = make(BLAST_CUT, torch.float64, name)
         u = blast_state(torch, sol, torch.float64)
         u = u * (1.0 + 0.05 * torch.from_numpy(rng.random(u.shape)).to(u))
-        parity(sol, cu, u, 0.5 * float(sol.cfl_dt(u)), name)
+        parity_2d(torch, sol, cu, u, 0.5 * float(sol.cfl_dt(u)), name, "blast")
     # The whole-grid means fallback, and the Dirichlet whole-grid subcell
     # step, against the plain limiter (f64, 2 steps each).
     for name, opts in (("reflective box, fallback='means'", dict(fallback="means")),
@@ -4890,7 +4970,7 @@ def blast_walls_path(torch, dev, card) -> list[dict]:
         origin = "cfl_dt of the initial state" if big else "the example's"
         say(f"[blast walls] {grid} f32, {sol.dofs()} DOF, reflective box, whole-grid subcell "
             f"fallback: dt = {dt!r} ({origin}), {steps} steps; kernels {cu.kernels}")
-        errs = parity(sol, cu, u0, dt, "reflective box") if big else {}
+        errs = parity_2d(torch, sol, cu, u0, dt, "reflective box", "blast") if big else {}
         frac = lim.troubled_mask(u0, cu.step(u0, dt)).double().mean().item()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4936,7 +5016,7 @@ def blast_walls_path(torch, dev, card) -> list[dict]:
 
         # The periodic twin: the same blast with the 2-D periodic pair.
         psol, pcu, plim, _ = make(grid, torch.float32, "periodic")
-        perrs = parity(psol, pcu, u0, dt, "periodic")
+        perrs = parity_2d(torch, psol, pcu, u0, dt, "periodic", "blast")
         pcu.reset_launches()
         pu = plim.run(u0, 3, dt)
         torch.cuda.synchronize()
@@ -5030,6 +5110,301 @@ def blast_walls_path(torch, dev, card) -> list[dict]:
     return lines
 
 
+def shock_state(torch, solver, dtype):
+    """``examples/viscous_shock.py:50-59``: the slab 0.25 < x < 0.75 at (ρ,
+    p) = (1, 1), (0.125, 0.1) outside, at rest (γ = 1.4)."""
+    import numpy as np
+
+    va = solver.var_axis
+    no_var = solver.state_shape[:va] + solver.state_shape[va + 1:]
+    x = np.broadcast_to(np.squeeze(solver.nodes_meshgrid()[0], va), no_var)
+    inside = (x > 0.25) & (x < 0.75)
+    rho = np.where(inside, 1.0, 0.125)
+    p = np.where(inside, 1.0, 0.1)
+    z = np.zeros_like(x)
+    q = np.stack([rho, z, z, p / 0.4], axis=va)
+    return torch.from_numpy(np.ascontiguousarray(q)).to(solver.weights.device, dtype)
+
+
+def ns2d_solver(torch, dev, grid, dtype, mu):
+    """A periodic 2-D p3 solver on the unit-wide box, dx = 1/g0: Navier–Stokes
+    (Pr 0.7) for μ > 0, Euler for μ = 0 (the example builds its inviscid run
+    without the viscous callbacks), with its ``CudaADERDG``."""
+    from exahype_tpu_torch.models.aderdg import ADERDGSolver, euler_physics
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.navier_stokes import navier_stokes
+
+    kw = {}
+    if mu > 0:
+        flux, eig, visc, visc_eig = navier_stokes(2, mu=mu, prandtl=SHOCK_PRANDTL)
+        kw = dict(visc_flux_fn=visc, visc_eigenvalue_fn=visc_eig)
+    else:
+        flux, eig = euler_physics(2, n_real=4)
+    sol = ADERDGSolver(2, ORDER, 4, grid, flux, eig, dx=1.0 / grid[0], device=dev, dtype=dtype,
+                       **kw)
+    return sol, CudaADERDG(sol)
+
+
+def viscous_shock_path(torch, dev, card) -> list[dict]:
+    """``examples/viscous_shock.py`` on the card: the 2-D Navier–Stokes
+    kernels against plain, the example at its own grid for both
+    viscosities with its gates, and at (1024, 1024) with the times; returns
+    the kernel JSON lines of the 2-D viscous predictor and face pair."""
+    import numpy as np
+
+    from exahype_tpu_torch.models.limiter import LimitedADERDG, euler_admissible
+
+    adm = euler_admissible(2)
+
+    def make(grid, dtype, mu=SHOCK_MU):
+        sol, cu = ns2d_solver(torch, dev, grid, dtype, mu)
+        return (sol, cu, LimitedADERDG(sol, adm, fallback_order=2, accelerator=cu, device=dev),
+                LimitedADERDG(sol, adm, fallback_order=2, device=dev))
+
+    # ---------------------------------- 3. f64 on the cut grid and the example's
+    rng = np.random.default_rng(6)
+    for grid in (BLAST_CUT, SHOCK_GRIDS[0]):
+        sol, cu, _, _ = make(grid, torch.float64)
+        u = shock_state(torch, sol, torch.float64)
+        noisy = u * (1.0 + 0.05 * torch.from_numpy(rng.random(u.shape)).to(u))
+        noisy[:, :, 1:3] += 0.1 * torch.from_numpy(rng.standard_normal(
+            noisy[:, :, 1:3].shape)).to(u)
+        parity_2d(torch, sol, cu, noisy, 0.5 * float(sol.cfl_dt(noisy)), "noisy shock tube",
+                    "shock")
+    del sol, cu, u, noisy
+
+    # ---------------------------------- 4. the example's run, f64 (64, 4)
+    grid = SHOCK_GRIDS[0]
+    vsol, _ = ns2d_solver(torch, dev, grid, torch.float64, SHOCK_MU)
+    dt = 0.5 * float(vsol.cfl_dt(shock_state(torch, vsol, torch.float64)))
+    results = {}
+    for mu in (0.0, SHOCK_MU):
+        sol, cu, lim, plain = make(grid, torch.float64, mu)
+        u0 = shock_state(torch, sol, torch.float64)
+        troubled = lim.troubled_mask(u0, cu.step(u0, dt)).double().mean().item()
+        a = b = u0
+        for k in range(3):
+            a, b = lim.step(a, dt), plain.step(b, dt)
+        torch.cuda.synchronize()
+        err = max_err(torch, a, b)
+        cu.reset_launches()
+        t0 = time.perf_counter()
+        u = lim.run(u0, SHOCK_STEPS, dt)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(cu.launches)
+        drift = (sol.total_mass(u) - sol.total_mass(u0)).abs().max().item()
+        admissible = bool(adm(u, sol.var_axis).all())
+        ke = float((0.5 * (u[:, :, 1] ** 2 + u[:, :, 2] ** 2) / u[:, :, 0]).sum())
+        results[mu] = u
+        tag = "inviscid" if mu == 0 else f"mu={mu}"
+        say(f"[shock main] {grid} f64 {tag}: dt = {dt!r} (half the viscous solver's cfl_dt), "
+            f"{SHOCK_STEPS} steps through LimitedADERDG(fallback_order=2, accelerator="
+            f"CudaADERDG) in {secs:.2f} s: kernels {cu.kernels}, launches {launches}; troubled "
+            f"fraction on step 1 {troubled!r}; conservation drift {drift:.3e} (gate "
+            f"{SHOCK_DRIFT:.0e}); admissible {admissible}; KE {ke!r}; 3 steps against the "
+            f"plain limiter max_abs_err {err:.3e} (limit {F64_ATOL:.0e})")
+        if launches != {name: SHOCK_STEPS for name in cu.kernels}:
+            fail(f"the viscous shock ({tag}) launched {launches} in {SHOCK_STEPS} steps")
+        if not (drift < SHOCK_DRIFT and admissible and err <= F64_ATOL):
+            fail(f"the viscous shock ({tag}) misses the example's gates or the plain limiter")
+        if mu == 0 and not troubled > 0:
+            fail("the limiter did not fire on the inviscid shock tube")
+    dmax = max_err(torch, results[0.0], results[SHOCK_MU])
+    say(f"[shock main] viscosity acted through the limited path: max state difference "
+        f"{dmax:.3e} (gate > {SHOCK_DMAX:.0e})")
+    if not dmax > SHOCK_DMAX:
+        fail("the viscous and inviscid shock tubes do not differ")
+    del results, sol, cu, lim, plain, u0, u, a, b
+
+    # ---------------------------------- (1024, 1024) f32
+    grid = SHOCK_GRIDS[1]
+    gib = 2.0**-30
+    sol, cu, lim, plain = make(grid, torch.float32)
+    u0 = shock_state(torch, sol, torch.float32)
+    dt = 0.5 * float(cu.cfl_dt(u0))
+    say(f"[shock] {grid} f32, {sol.dofs()} DOF, μ = {SHOCK_MU}, MUSCL whole-grid fallback: dt "
+        f"= {dt!r} (half of cfl_dt), {STEPS} steps; kernels {cu.kernels}")
+    errs = parity_2d(torch, sol, cu, u0, dt, "shock tube", "shock")
+    frac = lim.troubled_mask(u0, cu.step(u0, dt)).double().mean().item()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cu.reset_launches()
+    u = lim.run(u0, STEPS, dt)
+    torch.cuda.synchronize()
+    launches = dict(cu.launches)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[shock main] {STEPS} steps of {grid} f32: launches {launches}; peak {peak * gib:.4f} "
+        f"GiB allocated ({held * gib:.4f} GiB held before) of "
+        f"{torch.cuda.get_device_properties(0).total_memory * gib:.1f} GiB ({card})")
+    if launches != {name: STEPS for name in cu.kernels}:
+        fail(f"the 2-D viscous limited step launched {launches} in {STEPS} steps")
+    finite, admissible = bool(torch.isfinite(u).all()), bool(adm(u, sol.var_axis).all())
+    m0, m1 = sol.total_mass(u0.double()), sol.total_mass(u.double())
+    rel = ((m1 - m0).abs() / m0.abs()).tolist()
+    say(f"[shock main] {grid}: finite {finite}, admissible {admissible}; troubled fraction on "
+        f"step 1 {frac!r}; relative drift over {STEPS} steps: mass {rel[0]:.3e}, energy "
+        f"{rel[3]:.3e} (limit {MASS_RTOL:.0e} in f32)")
+    if not (finite and admissible and frac > 0 and rel[0] < MASS_RTOL and rel[3] < MASS_RTOL):
+        fail(f"the viscous shock misses its gates at {grid}")
+    if not torch.equal(u, lim.run(u0, STEPS, dt)):
+        fail("two viscous shock runs from the same state differ")
+    mask_k = lim.troubled_mask(u, cu.step(u, dt))
+    mask_p = plain.troubled_mask(u, sol.step(u, dt))
+    step_k = lim.step(u, dt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_p = plain.step(u, dt)
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated()
+    err, limit = max_err(torch, step_k, step_p), f32_bound(torch, step_p)
+    say(f"[shock main] two runs bitwise equal; one step from the final state, kernel path vs "
+        f"plain path: troubled cells {int(mask_k.sum())} / {int(mask_p.sum())}, masks equal "
+        f"{torch.equal(mask_k, mask_p)}; state max_abs_err {err:.3e} limit {limit:.3e}; peak of "
+        f"the plain step {plain_peak * gib:.4f} GiB")
+    if not (torch.equal(mask_k, mask_p) and err <= limit):
+        fail("the 2-D viscous limited kernel path disagrees with the plain path")
+    del mask_k, mask_p, step_k, step_p, u
+
+    # ------------------------------ times
+    dofs = sol.dofs()
+    step_ms = {}
+    for label, solver, n_steps, n_win in (("kernel path", lim, STEPS, 3),
+                                          ("plain path", plain, 2, 1)):
+        win = windows(torch, solver, u0, dt, steps=n_steps, n_windows=n_win)
+        ms = [1e3 * w for w in win]
+        step_ms[label] = statistics.median(ms)
+        say(f"[shock time] {grid} {label}: step ms per window {ms!r}; median "
+            f"{statistics.median(ms)!r} ms, {dofs / statistics.median(win)!r} DOF-updates/s "
+            f"({dofs} DOF per step; {card})")
+    new, faces, _ = cu.predictor_volume(u0, dt)
+    fhat, _ = cu.face_flux(faces)
+    times = {
+        cu.kernels[0]: (event_ms(torch, lambda: cu.predictor_volume(u0, dt), 10),
+                        event_ms(torch, lambda: sol.predictor_volume(u0, dt), 2)),
+        cu.kernels[1]: (event_ms(torch, lambda: cu.face_flux(faces), 10),
+                        event_ms(torch, lambda: plain_face_flux(torch, sol, faces), 2)),
+        cu.kernels[2]: (event_ms(torch, lambda: cu.surface_update(new, fhat, dt), 10),
+                        event_ms(torch, lambda: plain_surface_update(sol, new, fhat, dt), 2)),
+    }
+    del new, faces, fhat
+    cand, dg_fl = cu.step(u0, dt, return_face_fluxes=True)
+    mask = lim.troubled_mask(u0, cand)
+    fb, fv = lim.subcell_fv_step(u0, dt, return_face_fluxes=True)
+    matched = lim._match_interface_fluxes(cand, dg_fl, fv, mask, dt)
+    stage_ms = {
+        "candidate (3 launches)": event_ms(
+            torch, lambda: cu.step(u0, dt, return_face_fluxes=True), 10),
+        "troubled_mask": event_ms(torch, lambda: lim.troubled_mask(u0, cand), 5),
+        "subcell_fv_step (the eager MUSCL fallback, two stages)": event_ms(
+            torch, lambda: lim.subcell_fv_step(u0, dt, return_face_fluxes=True), 3),
+        "_match_interface_fluxes": event_ms(
+            torch, lambda: lim._match_interface_fluxes(cand, dg_fl, fv, mask, dt), 5),
+        "merge and guard": event_ms(torch, lambda: lim._admissibility_scale(
+            torch.where(mask, fb, matched)), 5),
+        "whole step": event_ms(torch, lambda: lim.step(u0, dt), 3),
+    }
+    say(f"[shock time] {grid} the step's stages (CUDA events): " + ", ".join(
+        f"{k} {v!r} ms" for k, v in stage_ms.items()) + "; the kernels alone: " + ", ".join(
+        f"{k} {v[0]!r} ms (plain {v[1]!r} ms)" for k, v in times.items()) + f" ({card})")
+    del cand, dg_fl, mask, fb, fv, matched
+    idle, busy, wall = idle_share(torch, lambda: lim.run(u0, STEPS, dt))
+    say(f"[shock idle] {grid} kernel path, {STEPS} steps under torch.profiler: device busy "
+        f"{busy!r} ms of wall {wall!r} ms; idle share {idle!r} ({card})")
+
+    # ------------------------------ bounds
+    ncell = math.prod(grid)
+    itemsize = u0.element_size()
+    face_bytes = torch.empty(sol.face_shape, dtype=u0.dtype, device="meta").nbytes
+    kw = dict(dim=2, nvar=4)
+    work = {
+        cu.kernels[0]: (2 * u0.nbytes + face_bytes,
+                        visc_predictor_ops_2d(ORDER, sol.picard_iters, ncell)),
+        cu.kernels[1]: (face_flux_bytes(ORDER, ncell, itemsize, rows=4, **kw),
+                        face_flux_ops(ORDER, ncell, eig_ops=EIG_OPS_2D, **kw)
+                        + ncell * 2 * (ORDER + 1) * NS_PENALTY_OPS),
+        cu.kernels[2]: (surface_update_bytes(ORDER, ncell, itemsize, dim=2, rows=4),
+                        surface_update_ops(ORDER, ncell, **kw)),
+    }
+    lines = []
+    for name, (n_bytes, n_ops) in work.items():
+        bnd = kernel_report(cu, name, torch.float32, f"(2-D Navier–Stokes p3) {grid} f32",
+                            times[name][0], n_bytes, n_ops, card)
+        title = name if name == cu.kernels[0] else f"{name} (2-D Navier–Stokes)"
+        lines.append(kernel_line(title, "exahype_tpu/models/aderdg_pallas.py:156",
+                                 launches[name], errs[name], *times[name], bnd,
+                                 source="exahype_tpu_torch/csrc/aderdg_2d.cu"))
+    del sol, cu, lim, plain, u0
+    torch.cuda.empty_cache()
+    return lines
+
+
+def vortex_state(torch, solver, dtype):
+    """``examples/navier_stokes_vortex.py:50-57``: the Taylor–Green vortex,
+    v = V0 (sin 2πx cos 2πy, −cos 2πx sin 2πy), ρ = p = 1."""
+    import numpy as np
+
+    va = solver.var_axis
+    no_var = solver.state_shape[:va] + solver.state_shape[va + 1:]
+    x, y = (np.broadcast_to(np.squeeze(c, va), no_var) for c in solver.nodes_meshgrid())
+    vx = VORTEX_V0 * np.sin(2 * np.pi * x) * np.cos(2 * np.pi * y)
+    vy = -VORTEX_V0 * np.cos(2 * np.pi * x) * np.sin(2 * np.pi * y)
+    e = 1.0 / 0.4 + 0.5 * (vx**2 + vy**2)
+    q = np.stack([np.ones_like(x), vx, vy, e], axis=va)
+    return torch.from_numpy(np.ascontiguousarray(q)).to(solver.weights.device, dtype)
+
+
+def vortex2d_path(torch, dev, card) -> list[dict]:
+    """``examples/navier_stokes_vortex.py`` on the card through
+    ``CudaADERDG``: the example's (32, 32) over T = 0.25 with its gates, and
+    (1024, 1024) over ``STEPS``, both float64, the kinetic energy's decay
+    against the viscous rate; the step timed.  No kernel lines of its own
+    (the kernels are the viscous shock path's)."""
+
+    def kinetic(u):
+        return float((0.5 * (u[:, :, 1] ** 2 + u[:, :, 2] ** 2) / u[:, :, 0]).sum())
+
+    exact_rate = 4.0 * VORTEX_MU * (2 * math.pi) ** 2
+    for grid in VORTEX_GRIDS:
+        big = grid != VORTEX_GRIDS[0]
+        sol, cu = ns2d_solver(torch, dev, grid, torch.float64, VORTEX_MU)
+        u0 = vortex_state(torch, sol, torch.float64)
+        dt = float(cu.cfl_dt(u0))
+        n = STEPS if big else max(1, round(VORTEX_T / dt))
+        cu.reset_launches()
+        t0 = time.perf_counter()
+        u = cu.run(u0, n, dt)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(cu.launches)
+        t = n * dt
+        k0, k1 = kinetic(u0), kinetic(u)
+        rate = math.log(k0 / k1) / t
+        decay, exact = 1.0 - k1 / k0, -math.expm1(-exact_rate * t)
+        drift = (sol.total_mass(u) - sol.total_mass(u0)).abs().max().item()
+        rel_rate, rel_decay = abs(rate - exact_rate) / exact_rate, abs(decay - exact) / exact
+        say(f"[vortex] {grid} f64 through CudaADERDG: dt = cfl_dt = {dt!r}, {n} steps (t = "
+            f"{t!r}) in {secs:.2f} s; launches {launches}; KE decay rate {rate!r} against "
+            f"4ν(2π)² = {exact_rate!r} (relative {rel_rate:.3e}); decay {decay!r} against 1 − "
+            f"exp(−4ν(2π)²t) = {exact!r} (relative {rel_decay:.3e}, limit {VORTEX_RTOL}); "
+            f"conservation drift {drift:.3e} (limit {VORTEX_DRIFT:.0e})")
+        if launches != {name: n for name in cu.kernels} or not torch.isfinite(u).all():
+            fail(f"the 2-D vortex at {grid} did not launch its kernels or is not finite")
+        if not (rel_rate < VORTEX_RTOL and rel_decay < VORTEX_RTOL and drift < VORTEX_DRIFT):
+            fail(f"the 2-D vortex at {grid} misses the example's decay or drift gate")
+        if big:
+            win = windows(torch, cu, u0, dt, steps=STEPS)
+            ms = [1e3 * w for w in win]
+            plain_ms = once_ms(torch, lambda: sol.step(u0, dt))
+            say(f"[vortex time] {grid} f64 step: ms per window {ms!r}; median "
+                f"{statistics.median(ms)!r} ms, {sol.dofs() / statistics.median(win)!r} "
+                f"DOF-updates/s; plain step {plain_ms!r} ms ({card})")
+        del sol, cu, u0, u
+        torch.cuda.empty_cache()
+    return []
+
+
 def main():
     import torch
 
@@ -5104,6 +5479,8 @@ def main():
         "limited": lambda: limited_path(torch, dev, card),
         "limited walls": lambda: limited_walls_path(torch, dev, card),
         "limited blast walls": lambda: blast_walls_path(torch, dev, card),
+        "viscous shock": lambda: viscous_shock_path(torch, dev, card),
+        "2-D vortex": lambda: vortex2d_path(torch, dev, card),
         "CK": lambda: ck_path(torch, dev, card),
         "walls": lambda: walls_path(torch, dev, card),
         "viscous": lambda: viscous_path(torch, dev, card),

@@ -123,6 +123,7 @@ _SIGNATURES = {
         ("aderdg_face_flux_p5", _FACE_FLUX),
         ("aderdg_surface_update_p5", _SURFACE_UPDATE),
         ("aderdg_predictor_volume_2d", _PREDICTOR_VOLUME),
+        ("aderdg_predictor_volume_visc_2d", _PREDICTOR_VOLUME),
         ("aderdg_face_flux_2d", _FACE_FLUX),
         ("aderdg_surface_update_2d", _SURFACE_UPDATE),
         ("aderdg_face_flux_walls_2d", _FACE_FLUX_WALLS),

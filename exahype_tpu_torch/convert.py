@@ -218,16 +218,19 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
     )
 
 
-def limited_from_jax(jax_limited, *, gamma: float, walls=None, device=None,
+def limited_from_jax(jax_limited, *, gamma: float, walls=None, physics="euler",
+                     mu: float | None = None, prandtl: float | None = None, device=None,
                      dtype: torch.dtype = torch.float64):
     """The port's :class:`LimitedADERDG` for a JAX ``LimitedADERDG``, 2-D or
-    3-D, periodic or walled.
+    3-D, periodic or walled, inviscid or viscous.
 
     Builds the base solver through :func:`aderdg_from_jax` (a reflective
-    solver's hooks named by ``walls``, e.g. ``"euler"``; outflow, farfield
-    and Dirichlet walls need nothing more, the Dirichlet rows cross as
-    data) and reads the limiter's numbers and options (``dmp_delta0``,
-    ``dmp_eps``, ``fallback``, ``fallback_order``, ``troubled_capacity``,
+    solver's hooks named by ``walls``, e.g. ``"euler"`` or ``"noslip"``;
+    outflow, farfield and Dirichlet walls need nothing more, the Dirichlet
+    rows cross as data; a viscous solver's physics named by ``physics=
+    "navier_stokes"`` with ``mu`` and ``prandtl``) and reads the limiter's
+    numbers and options (``dmp_delta0``, ``dmp_eps``, ``fallback``,
+    ``fallback_order``, ``fallback_slope``, ``troubled_capacity``,
     ``troubled_granularity``, ``overflow_fallback``, ``post_step_guard``).
     The JAX ``admissible`` callback is opaque: where it is set, the port's
     :func:`euler_admissible` with ``gamma`` takes its place.  A JAX
@@ -239,8 +242,8 @@ def limited_from_jax(jax_limited, *, gamma: float, walls=None, device=None,
     from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
     from exahype_tpu_torch.models.limiter import LimitedADERDG, euler_admissible
 
-    solver = aderdg_from_jax(jax_limited.solver, gamma=gamma, walls=walls, device=device,
-                             dtype=dtype)
+    solver = aderdg_from_jax(jax_limited.solver, gamma=gamma, walls=walls, physics=physics,
+                             mu=mu, prandtl=prandtl, device=device, dtype=dtype)
     admissible = None
     if jax_limited.admissible is not None:
         admissible = euler_admissible(solver.dim, gamma=gamma)
@@ -254,6 +257,7 @@ def limited_from_jax(jax_limited, *, gamma: float, walls=None, device=None,
         dmp_eps=jax_limited.dmp_eps,
         fallback=jax_limited.fallback,
         fallback_order=jax_limited.fallback_order,
+        fallback_slope=jax_limited.fallback_slope,
         accelerator=accelerator,
         troubled_capacity=jax_limited.troubled_capacity,
         troubled_granularity=jax_limited.troubled_granularity,

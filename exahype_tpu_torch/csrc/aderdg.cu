@@ -186,10 +186,11 @@ int z4_grmhd_kernel_info_f64(int which, int* out) __attribute__((weak));
 // aderdg_p5_f64.cu; weak too).
 int st_predictor_info_f32(int* out) __attribute__((weak));
 int st_predictor_info_f64(int* out) __attribute__((weak));
-// The 2-D Euler step's occupancy (csrc/aderdg_2d.cu; weak too): `which` 0
-// predictor, 1 face flux, 2 update, 3 and 4 the wall pair.
-int aderdg_2d_kernel_info_f32(int which, int* out) __attribute__((weak));
-int aderdg_2d_kernel_info_f64(int which, int* out) __attribute__((weak));
+// The 2-D steps' occupancy (csrc/aderdg_2d.cu; weak too): `which` 0
+// predictor, 1 face flux, 2 update, 3 and 4 the wall pair, 5 the viscous
+// predictor, of `physics` (0 Euler; 2 Navier–Stokes: 1, 2 and 5).
+int aderdg_2d_kernel_info_f32(int which, int physics, int* out) __attribute__((weak));
+int aderdg_2d_kernel_info_f64(int which, int physics, int* out) __attribute__((weak));
 
 namespace {
 
@@ -1308,9 +1309,9 @@ int surface_update_p5(T* state, const T* fhat, const T* dt_ptr, double dt_val,
 template <typename T>
 int kernel_info(int kernel, int physics, int* out) {
   const bool euler = physics == kEuler;
-  if (kernel >= 22 && kernel <= 26) {  // the 2-D Euler step's, 22-26
+  if (kernel >= 22 && kernel <= 27) {  // the 2-D steps', 22-27
     auto* info = sizeof(T) == 8 ? aderdg_2d_kernel_info_f64 : aderdg_2d_kernel_info_f32;
-    return euler && info ? info(kernel - 22, out) : cudaErrorInvalidValue;
+    return info ? info(kernel - 22, physics, out) : cudaErrorInvalidValue;
   }
   if (kernel >= 19 && kernel <= 21) {  // the order-5 Euler step's, 19-21
     if (!euler) return cudaErrorInvalidValue;

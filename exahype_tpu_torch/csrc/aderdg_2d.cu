@@ -1,14 +1,20 @@
-// ADER-DG step on a 2-D grid for Hopper (sm_90a), periodic or closed by
-// domain walls: compressible Euler (4 variables) at order 3 (NN = 4), three
-// launches a step, float32 and float64.  The shared helpers (the parameter
-// bank's row selection, the occupancy query, the shared-memory opt-in) are
+// ADER-DG step on a 2-D grid for Hopper (sm_90a) at order 3 (NN = 4), three
+// launches a step, float32 and float64: compressible Euler (4 variables),
+// periodic or closed by domain walls, and compressible Navier–Stokes (4
+// variables), periodic.  The shared helpers (the parameter bank's row
+// selection, the occupancy query, the shared-memory opt-in) are
 // csrc/aderdg_common.cuh's; the dimension is this file's own: the 3-D
-// sources keep theirs (kDim = 3), so their kernels are untouched.
+// sources keep theirs (kDim = 3), so their kernels are untouched.  The
+// kernels are templated on the physics (Euler2D, NavierStokes2D); the
+// viscous code sits in `if constexpr` branches, so the Euler instances
+// compile to the code they had without them.
 //
 // Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
-// PallasADERDG.build (K1 c, its 2-D Euler p3 instance; pallas_call at
-// :917) and, on a grid with walls, the XLA face_update it routes every axis
-// through (:52-55, 198-212).  The numbers to match are those of
+// PallasADERDG.build (K1 c, its 2-D Euler and Navier–Stokes p3 instances;
+// pallas_call at :917; the viscous terms of its Picard body :324-336 and
+// the Gassner penalty of rusanov_speed :238-250) and, on a grid with walls,
+// the XLA face_update it routes every axis through (:52-55, 198-212).  The
+// numbers to match are those of
 // exahype_tpu/models/aderdg.py::ADERDGSolver.step; the plain PyTorch
 // version is exahype_tpu_torch/models/aderdg.py::ADERDGSolver.
 // {predictor_volume, face_surface} (the face stage's halves:
@@ -20,12 +26,20 @@
 //                            u + Σ_d λ_d Kvol F̄_d and the face projections
 //                            (q_lo, q_hi, f_lo, f_hi) of both axes into
 //                            faces[d][which][m][v][cell].
+//                            Over NavierStokes2D (the C entry
+//                            exahype_aderdg_predictor_volume_visc_2d):
+//                            F_d + F_v,d at every node and slice, F_v,d
+//                            from the physical gradients of the slice's q
+//                            (csrc/navier_stokes.cuh's 2-D form).
 //   aderdg_face_flux_2d      the face stage, first launch: the Rusanov flux
 //                            of every interface, once, into fhat[d][m][v]
 //                            [cell] (each cell's high-face fluxes: the
-//                            limiter's face-flux input).
+//                            limiter's face-flux input); for Navier–Stokes
+//                            its dissipation speed gains the Gassner
+//                            penalty 2(2N+1)/dx_d max(κ⁻, κ⁺).
 //   aderdg_surface_update_2d the face stage, second launch: the surface
-//                            update of `new`, in place.
+//                            update of `new`, in place (it reads no
+//                            physics: one instance for both).
 //   aderdg_face_flux_walls_2d, aderdg_surface_update_walls_2d
 //                            the face stage on a grid with walls: on a wall
 //                            axis the last row's right state is the ghost
@@ -49,7 +63,9 @@
 // slice every thread writes its node's two axis fluxes to shared memory
 // (double-buffered, one barrier a slice) and contracts the two lines
 // through its node with its own rows of D, in the plain version's order
-// (φ0 u − λ_0 w D·F_0 − λ_1 w D·F_1); q ← K1inv rhs is thread-local.  The
+// (φ0 u − λ_0 w D·F_0 − λ_1 w D·F_1); q ← K1inv rhs is thread-local.
+// Navier–Stokes first shares the slice's q (a second barrier a slice) for
+// the gradients, which stay in registers with one buffer of fluxes.  The
 // epilogue averages q and its fluxes in registers, stores q̄ and F̄_d over
 // the flux buffers, and the volume integral and the face projections run
 // in the I/O mapping (the block's cells fastest: 64-byte runs in float32)
@@ -85,6 +101,7 @@ constexpr int kFace2DThreads = 128;
 template <typename T>
 struct Euler2D {
   static constexpr int V = kDim2 + 2;
+  static constexpr bool kViscous = false;
   T gm1;  // gamma - 1
   T gamma;
   static Euler2D make(const double* params) {
@@ -113,7 +130,43 @@ struct Euler2D {
   }
 };
 
-template <typename T, int NN>
+// 2-D compressible Navier–Stokes: Euler2D's flux and wave speed, and the
+// viscous terms of csrc/navier_stokes.cuh in 2-D.  params: gamma, mu,
+// max(4/3, gamma/Pr), kappa_T and the face penalty factor 2 (2N + 1) / dx_d
+// of each axis, as csrc/aderdg_common.cuh's NavierStokesPhysics takes them.
+template <typename T>
+struct NavierStokes2D : Euler2D<T> {
+  static constexpr bool kViscous = true;
+  T mu;
+  T c_kappa;  // max(4/3, gamma/Pr): kappa = c_kappa mu / rho
+  T kappa_T;  // the heat conductivity
+  T pen[kDim2];
+  static NavierStokes2D make(const double* params) {
+    return {Euler2D<T>::make(params), static_cast<T>(params[1]), static_cast<T>(params[2]),
+            static_cast<T>(params[3]), {static_cast<T>(params[4]), static_cast<T>(params[5])}};
+  }
+  // The Gassner penalty 2 (2N + 1) / dx_d max(kappa_a, kappa_b) of a face
+  // along d.
+  __device__ __forceinline__ T penalty(const T* qa, const T* qb, int d) const {
+    const T ka = c_kappa * (mu / qa[0]), kb = c_kappa * (mu / qb[0]);
+    return (d == 0 ? pen[0] : pen[1]) * dmax(ka, kb);
+  }
+  // The flux along both axes with the viscous flux of the physical
+  // gradients g[e][v] added (the mass row's is zero).
+  __device__ __forceinline__ void fluxes(const T* q, const T (&g)[kDim2][4],
+                                         T (&f)[kDim2][4]) const {
+    Euler2D<T>::fluxes(q, f);
+    T fv[kDim2][4];
+    navier_stokes_viscous_fluxes_2d<T>(q, g, this->gm1, mu, kappa_T, fv);
+#pragma unroll
+    for (int d = 0; d < kDim2; ++d) {
+#pragma unroll
+      for (int v = 1; v < 4; ++v) f[d][v] = f[d][v] + fv[d][v];
+    }
+  }
+};
+
+template <typename T, int NN, typename Phys = Euler2D<T>>
 struct Params2D {
   T D[NN][NN];
   T K1inv[NN][NN];
@@ -124,17 +177,17 @@ struct Params2D {
   T PHI0W[NN];
   T PHI1W[NN];
   T dx[kDim2];
-  Euler2D<T> phys;
+  Phys phys;
   int picard_iters;
   long long g[kDim2];  // cell grid
   long long ncell;
 };
 
 // ops and params as csrc/aderdg_common.cuh's make_params reads them.
-template <typename T, int NN>
-Params2D<T, NN> make_params_2d(const double* ops, const double* dx, int picard_iters,
-                               const double* params, long long g0, long long g1) {
-  Params2D<T, NN> P;
+template <typename T, int NN, typename Phys = Euler2D<T>>
+Params2D<T, NN, Phys> make_params_2d(const double* ops, const double* dx, int picard_iters,
+                                     const double* params, long long g0, long long g1) {
+  Params2D<T, NN, Phys> P;
   const double* o = ops;
   T(*mats[3])[NN] = {P.D, P.K1inv, P.Kvol};
   for (int k = 0; k < 3; ++k) {
@@ -148,7 +201,7 @@ Params2D<T, NN> make_params_2d(const double* ops, const double* dx, int picard_i
     o += NN;
   }
   for (int d = 0; d < kDim2; ++d) P.dx[d] = static_cast<T>(dx[d]);
-  P.phys = Euler2D<T>::make(params);
+  P.phys = Phys::make(params);
   P.picard_iters = picard_iters;
   P.g[0] = g0;
   P.g[1] = g1;
@@ -204,8 +257,9 @@ struct Cell2D {
 
 // Shared memory of a predictor block, in values of T: u [V][NP], the
 // double-buffered fluxes [2][kDim2][V][NP] (the epilogue's q̄ [V][NP] and
-// F̄ [kDim2][V][NP] over them), and Kvol [NN][NN].  NP = CB NN²: the block's
-// space nodes, cell by cell.
+// F̄ [kDim2][V][NP] over them; a viscous physics keeps the slice's q [V][NP]
+// at the first buffer's start and its fluxes after it, one buffer), and
+// Kvol [NN][NN].  NP = CB NN²: the block's space nodes, cell by cell.
 template <int NN, int CB, int V>
 struct Smem2D {
   static constexpr int kNodes = NN * NN;
@@ -221,12 +275,20 @@ constexpr size_t predictor_2d_smem() {
   return static_cast<size_t>(Smem2D<NN, kCells2D, V>::kTotal) * sizeof(T);
 }
 
-template <typename T, int NN, int CB>
+// The predictor (Euler) and, with a viscous Phys (Navier–Stokes), the
+// viscous predictor: for each slice a thread first shares its node's q and
+// contracts the two lines of q through its node with its own rows of D
+// (times 1/dx_d, a product) into ∂q/∂x_0 and ∂q/∂x_1, then forms F_d + F_v,d
+// at its node and goes on as the Euler body does, two barriers a slice; the
+// time averages take the gradients of the final q, as the plain version
+// does.  The viscous code sits in `if constexpr` branches, so the Euler
+// instance compiles to the code it had.
+template <typename T, int NN, int CB, typename Phys>
 __global__ void __launch_bounds__(CB * NN * NN)
 aderdg_predictor_volume_2d(const T* __restrict__ u, T* __restrict__ out,
                            T* __restrict__ faces, const T* __restrict__ dt_ptr, T dt_val,
-                           const Params2D<T, NN> P) {
-  constexpr int V = Euler2D<T>::V;
+                           const Params2D<T, NN, Phys> P) {
+  constexpr int V = Phys::V;
   constexpr int NF = NN;  // face nodes of an axis
   using S = Smem2D<NN, CB, V>;
   constexpr int NC = S::kNodes;  // space nodes of a cell
@@ -282,6 +344,29 @@ aderdg_predictor_volume_2d(const T* __restrict__ u, T* __restrict__ out,
   for (int d = 0; d < kDim2; ++d) lam[d] = dtv / P.dx[d];
   __syncthreads();  // u and Kvol staged
 
+  // Viscous: the slice's q of every node, and my node's F_d + F_v,d of my q
+  // `qs` from it (the gradients first, each line contracted with my row of
+  // D).
+  T* sQ = sF;
+  auto visc_fluxes = [&](const T* qs, T (&f)[kDim2][V]) {
+    if constexpr (Phys::kViscous) {
+      T g[kDim2][V];
+#pragma unroll
+      for (int d = 0; d < kDim2; ++d) {
+        const T inv_dx = T(1) / P.dx[d];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const T* x = sQ + v * NP + pt - id[d] * st[d];
+          T acc = Dr[d][0] * x[0];
+#pragma unroll
+          for (int j = 1; j < NN; ++j) acc = acc + Dr[d][j] * x[j * st[d]];
+          g[d][v] = acc * inv_dx;
+        }
+      }
+      P.phys.fluxes(qs, g, f);
+    }
+  };
+
   T q[NN][V];  // [time slice][v]: q, or a slice's right-hand side
 #pragma unroll
   for (int s = 0; s < NN; ++s) {
@@ -299,7 +384,17 @@ aderdg_predictor_volume_2d(const T* __restrict__ u, T* __restrict__ out,
       buffer ^= 1;
       {
         T f[kDim2][V];
-        P.phys.fluxes(q[s], f);
+        if constexpr (Phys::kViscous) {
+          // One buffer each, after the slice's q: the barrier after the
+          // contractions' reads of slice s - 1 is this slice's first.
+          fl = sQ + V * NP;
+#pragma unroll
+          for (int v = 0; v < V; ++v) sQ[v * NP + pt] = q[s][v];
+          __syncthreads();  // every node's q of slice s is in
+          visc_fluxes(q[s], f);
+        } else {
+          P.phys.fluxes(q[s], f);
+        }
 #pragma unroll
         for (int d = 0; d < kDim2; ++d) {
 #pragma unroll
@@ -348,7 +443,15 @@ aderdg_predictor_volume_2d(const T* __restrict__ u, T* __restrict__ out,
   for (int s = 0; s < NN; ++s) {
     const T w = P.W[s];
     T f[kDim2][V];
-    P.phys.fluxes(q[s], f);
+    if constexpr (Phys::kViscous) {
+      __syncthreads();  // every node is done with the buffer's last q
+#pragma unroll
+      for (int v = 0; v < V; ++v) sQ[v * NP + pt] = q[s][v];
+      __syncthreads();  // slice s's q is in
+      visc_fluxes(q[s], f);
+    } else {
+      P.phys.fluxes(q[s], f);
+    }
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       qb[v] = s == 0 ? w * q[s][v] : qb[v] + w * q[s][v];
@@ -457,11 +560,12 @@ __device__ __forceinline__ void wall_ghost_2d(const Walls2D<T, Euler2D<T>::V>& W
 // larger wave speed, into fhat[d][m][v][cell].  kWalls: on a wall axis the
 // last row's right state is the ghost of its own high face, and the first
 // row also solves its low wall, ½(g_f + f_lo) − ½ s_w (q_lo − g_q), into
-// W.fwall.
-template <typename T, int NN, bool kWalls>
+// W.fwall.  A viscous Phys (Navier–Stokes, periodic only) adds the Gassner
+// penalty to s.
+template <typename T, int NN, bool kWalls, typename Phys>
 __global__ void __launch_bounds__(kFace2DThreads)
-aderdg_face_flux_2d(const T* __restrict__ faces, T* __restrict__ fhat, const Params2D<T, NN> P,
-                    const Walls2D<T, Euler2D<T>::V> W) {
+aderdg_face_flux_2d(const T* __restrict__ faces, T* __restrict__ fhat,
+                    const Params2D<T, NN, Phys> P, const Walls2D<T, Euler2D<T>::V> W) {
   constexpr int NF = NN;
   constexpr int V = Euler2D<T>::V;
   const long long ncell = P.ncell;
@@ -505,7 +609,8 @@ aderdg_face_flux_2d(const T* __restrict__ faces, T* __restrict__ fhat, const Par
 #pragma unroll
     for (int v = 0; v < V; ++v) w[v * plane] = T(0.5) * (gf[v] + fl[v]) - T(0.5) * sw * (ql[v] - gq[v]);
   }
-  const T s = dmax(P.phys.max_eigenvalue(qa, d), P.phys.max_eigenvalue(qb, d));
+  T s = dmax(P.phys.max_eigenvalue(qa, d), P.phys.max_eigenvalue(qb, d));
+  if constexpr (Phys::kViscous) s = s + P.phys.penalty(qa, qb, d);
   T* out = fhat + static_cast<long long>(d * NF + m) * V * ncell + c;
 #pragma unroll
   for (int v = 0; v < V; ++v) out[v * ncell] = T(0.5) * (fa[v] + fb[v]) - T(0.5) * s * (qb[v] - qa[v]);
@@ -592,12 +697,12 @@ Walls2D<T, Euler2D<T>::V> make_walls_2d(int mask, int mode, const double* table,
   return W;
 }
 
-// A launch this file's instances can take: Euler, order 3, a 2-D grid (g2
-// is 1) whose cells and coordinates fit a 32-bit int.
+// A launch this file's instances can take: Euler or Navier–Stokes, order
+// 3, a 2-D grid (g2 is 1) whose cells and coordinates fit a 32-bit int.
 bool bad_2d(int physics, int order, long long g0, long long g1, long long g2) {
   constexpr long long kMax = 0x7fffffffLL;
-  return physics != kEuler || order != kNN2 - 1 || g0 <= 0 || g1 <= 0 || g2 != 1 ||
-         g0 * g1 > kMax;
+  return (physics != kEuler && physics != kNavierStokes) || order != kNN2 - 1 || g0 <= 0 ||
+         g1 <= 0 || g2 != 1 || g0 * g1 > kMax;
 }
 
 // The wall arguments: a mask of the 2 axes with the side tensor and its
@@ -607,15 +712,15 @@ bool bad_walls_2d(int mask, const void* fwall, const long long* off) {
   return mask <= 0 || mask > 3 || fwall == nullptr || off == nullptr;
 }
 
-template <typename T>
+template <typename T, typename Phys = Euler2D<T>>
 Shape predictor_2d_shape() {
-  return {reinterpret_cast<const void*>(aderdg_predictor_volume_2d<T, kNN2, kCells2D>),
-          dim3(kCells2D * kNN2 * kNN2), predictor_2d_smem<T, kNN2, Euler2D<T>::V>()};
+  return {reinterpret_cast<const void*>(aderdg_predictor_volume_2d<T, kNN2, kCells2D, Phys>),
+          dim3(kCells2D * kNN2 * kNN2), predictor_2d_smem<T, kNN2, Phys::V>()};
 }
 
-template <typename T, bool kWalls>
+template <typename T, bool kWalls, typename Phys = Euler2D<T>>
 Shape face_flux_2d_shape() {
-  return {reinterpret_cast<const void*>(aderdg_face_flux_2d<T, kNN2, kWalls>),
+  return {reinterpret_cast<const void*>(aderdg_face_flux_2d<T, kNN2, kWalls, Phys>),
           dim3(kFace2DThreads), 0};
 }
 
@@ -625,34 +730,51 @@ Shape surface_update_2d_shape() {
           dim3(kFace2DThreads), 0};
 }
 
-template <typename T>
+// The Euler predictor for physics 0, the viscous one for physics 2.
+template <typename T, typename Phys>
 int predictor_volume_2d(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
                         const double* ops, const double* dx, int order, int picard_iters,
                         int physics, const double* params, long long g0, long long g1,
                         long long g2, void* stream) {
-  if (bad_2d(physics, order, g0, g1, g2) || picard_iters < 0) return cudaErrorInvalidValue;
-  const auto P = make_params_2d<T, kNN2>(ops, dx, picard_iters, params, g0, g1);
-  const Shape sh = predictor_2d_shape<T>();
-  const cudaError_t attr = allow_smem(aderdg_predictor_volume_2d<T, kNN2, kCells2D>, sh.smem);
+  const int own = Phys::kViscous ? kNavierStokes : kEuler;
+  if (bad_2d(physics, order, g0, g1, g2) || physics != own || picard_iters < 0)
+    return cudaErrorInvalidValue;
+  const auto P = make_params_2d<T, kNN2, Phys>(ops, dx, picard_iters, params, g0, g1);
+  const Shape sh = predictor_2d_shape<T, Phys>();
+  const cudaError_t attr =
+      allow_smem(aderdg_predictor_volume_2d<T, kNN2, kCells2D, Phys>, sh.smem);
   if (attr != cudaSuccess) return attr;
   const long long blocks = (P.ncell + kCells2D - 1) / kCells2D;
-  aderdg_predictor_volume_2d<T, kNN2, kCells2D>
+  aderdg_predictor_volume_2d<T, kNN2, kCells2D, Phys>
       <<<static_cast<unsigned>(blocks), sh.block, sh.smem, static_cast<cudaStream_t>(stream)>>>(
           u, out, faces, dt_ptr, static_cast<T>(dt_val), P);
   return cudaGetLastError();
 }
 
+template <typename T, bool kWalls, typename Phys>
+int launch_face_flux_2d(const T* faces, T* fhat, const double* ops, const double* dx,
+                        const double* params, long long g0, long long g1,
+                        const Walls2D<T, Euler2D<T>::V>& W, void* stream) {
+  const auto P = make_params_2d<T, kNN2, Phys>(ops, dx, 0, params, g0, g1);
+  const dim3 grid(static_cast<unsigned>((P.ncell + kFace2DThreads - 1) / kFace2DThreads),
+                  kDim2 * kNN2);
+  aderdg_face_flux_2d<T, kNN2, kWalls, Phys>
+      <<<grid, dim3(kFace2DThreads), 0, static_cast<cudaStream_t>(stream)>>>(faces, fhat, P, W);
+  return cudaGetLastError();
+}
+
+// Euler, periodic or walled; Navier–Stokes periodic only.
 template <typename T, bool kWalls>
 int face_flux_2d(const T* faces, T* fhat, const double* ops, const double* dx, int order,
                  int physics, const double* params, long long g0, long long g1, long long g2,
                  const Walls2D<T, Euler2D<T>::V>& W, void* stream) {
   if (bad_2d(physics, order, g0, g1, g2)) return cudaErrorInvalidValue;
-  const auto P = make_params_2d<T, kNN2>(ops, dx, 0, params, g0, g1);
-  const dim3 grid(static_cast<unsigned>((P.ncell + kFace2DThreads - 1) / kFace2DThreads),
-                  kDim2 * kNN2);
-  aderdg_face_flux_2d<T, kNN2, kWalls>
-      <<<grid, dim3(kFace2DThreads), 0, static_cast<cudaStream_t>(stream)>>>(faces, fhat, P, W);
-  return cudaGetLastError();
+  if (physics == kEuler)
+    return launch_face_flux_2d<T, kWalls, Euler2D<T>>(faces, fhat, ops, dx, params, g0, g1, W,
+                                                       stream);
+  if (kWalls) return cudaErrorInvalidValue;
+  return launch_face_flux_2d<T, false, NavierStokes2D<T>>(faces, fhat, ops, dx, params, g0, g1,
+                                                           W, stream);
 }
 
 template <typename T, bool kWalls>
@@ -701,9 +823,23 @@ int surface_update_walls_2d(T* state, const T* fhat, const T* dt_ptr, double dt_
 }
 
 // which: 0 predictor, 1 face flux, 2 update, 3 face flux (walls), 4 update
-// (walls).
+// (walls), 5 the viscous predictor; physics 2 (Navier–Stokes) has 1, 2 and
+// 5, its own face flux and Euler's update.
 template <typename T>
-int kernel_info_2d(int which, int* out) {
+int kernel_info_2d(int which, int physics, int* out) {
+  if (physics == kNavierStokes) {
+    switch (which) {
+      case 1:
+        return shape_info(face_flux_2d_shape<T, false, NavierStokes2D<T>>(), out);
+      case 2:
+        return shape_info(surface_update_2d_shape<T, false>(), out);
+      case 5:
+        return shape_info(predictor_2d_shape<T, NavierStokes2D<T>>(), out);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
+  if (physics != kEuler) return cudaErrorInvalidValue;
   switch (which) {
     case 0:
       return shape_info(predictor_2d_shape<T>(), out);
@@ -725,11 +861,13 @@ int kernel_info_2d(int which, int* out) {
 extern "C" {
 
 // The launchers take csrc/aderdg.cu's entries' arguments and layouts, with
-// the grid (g0, g1, 1): physics must be 0 (Euler, params = {gamma}), order
-// 3.  faces: [2][4][4][4][cell]; fhat: [2][4][4][cell].  The wall pair's
-// wall_table is S_q [2][4], S_f [2][4], the farfield state [4] (float64),
-// wall_mask a mask of the 2 axes, visc_rows null.  Each returns the
-// launch's cudaError_t.
+// the grid (g0, g1, 1), order 3: physics 0 (Euler, params = {gamma}) for
+// the Euler predictor and the wall pair, 2 (Navier–Stokes, params as
+// NavierStokes2D::make reads them) for the viscous predictor, either for
+// the periodic pair.  faces: [2][4][4][4][cell]; fhat: [2][4][4][cell].
+// The wall pair's wall_table is S_q [2][4], S_f [2][4], the farfield state
+// [4] (float64), wall_mask a mask of the 2 axes, visc_rows null.  Each
+// returns the launch's cudaError_t.
 
 int exahype_aderdg_predictor_volume_2d_f32(const float* u, float* out, float* faces,
                                            const float* dt_ptr, double dt_val,
@@ -737,8 +875,9 @@ int exahype_aderdg_predictor_volume_2d_f32(const float* u, float* out, float* fa
                                            int picard_iters, int physics, const double* params,
                                            long long g0, long long g1, long long g2,
                                            void* stream) {
-  return predictor_volume_2d<float>(u, out, faces, dt_ptr, dt_val, ops, dx, order, picard_iters,
-                                    physics, params, g0, g1, g2, stream);
+  return predictor_volume_2d<float, Euler2D<float>>(u, out, faces, dt_ptr, dt_val, ops, dx,
+                                                    order, picard_iters, physics, params, g0,
+                                                    g1, g2, stream);
 }
 
 int exahype_aderdg_predictor_volume_2d_f64(const double* u, double* out, double* faces,
@@ -747,8 +886,31 @@ int exahype_aderdg_predictor_volume_2d_f64(const double* u, double* out, double*
                                            int picard_iters, int physics, const double* params,
                                            long long g0, long long g1, long long g2,
                                            void* stream) {
-  return predictor_volume_2d<double>(u, out, faces, dt_ptr, dt_val, ops, dx, order,
-                                     picard_iters, physics, params, g0, g1, g2, stream);
+  return predictor_volume_2d<double, Euler2D<double>>(u, out, faces, dt_ptr, dt_val, ops, dx,
+                                                      order, picard_iters, physics, params, g0,
+                                                      g1, g2, stream);
+}
+
+int exahype_aderdg_predictor_volume_visc_2d_f32(const float* u, float* out, float* faces,
+                                                const float* dt_ptr, double dt_val,
+                                                const double* ops, const double* dx, int order,
+                                                int picard_iters, int physics,
+                                                const double* params, long long g0,
+                                                long long g1, long long g2, void* stream) {
+  return predictor_volume_2d<float, NavierStokes2D<float>>(
+      u, out, faces, dt_ptr, dt_val, ops, dx, order, picard_iters, physics, params, g0, g1, g2,
+      stream);
+}
+
+int exahype_aderdg_predictor_volume_visc_2d_f64(const double* u, double* out, double* faces,
+                                                const double* dt_ptr, double dt_val,
+                                                const double* ops, const double* dx, int order,
+                                                int picard_iters, int physics,
+                                                const double* params, long long g0,
+                                                long long g1, long long g2, void* stream) {
+  return predictor_volume_2d<double, NavierStokes2D<double>>(
+      u, out, faces, dt_ptr, dt_val, ops, dx, order, picard_iters, physics, params, g0, g1, g2,
+      stream);
 }
 
 int exahype_aderdg_face_flux_2d_f32(const float* faces, float* fhat, const double* ops,
@@ -835,8 +997,12 @@ int exahype_aderdg_surface_update_walls_2d_f64(double* state, const double* fhat
 
 }  // extern "C"
 
-// The 2-D kernels' occupancy, for exahype_aderdg_kernel_info (kernels 22-26
-// of physics 0, csrc/aderdg.cu): `which` 0 predictor, 1 face flux, 2
-// update, 3 and 4 the wall pair.
-int aderdg_2d_kernel_info_f32(int which, int* out) { return kernel_info_2d<float>(which, out); }
-int aderdg_2d_kernel_info_f64(int which, int* out) { return kernel_info_2d<double>(which, out); }
+// The 2-D kernels' occupancy, for exahype_aderdg_kernel_info (kernels 22-27,
+// csrc/aderdg.cu): `which` 0 predictor, 1 face flux, 2 update, 3 and 4 the
+// wall pair (physics 0); 1, 2 and 5, the viscous predictor (physics 2).
+int aderdg_2d_kernel_info_f32(int which, int physics, int* out) {
+  return kernel_info_2d<float>(which, physics, out);
+}
+int aderdg_2d_kernel_info_f64(int which, int physics, int* out) {
+  return kernel_info_2d<double>(which, physics, out);
+}

@@ -54,3 +54,41 @@ __device__ __forceinline__ void navier_stokes_viscous_fluxes(const T* q, const T
     fv[d][4] = -(tau[0] * v[0] + tau[1] * v[1] + tau[2] * v[2]) - kappa_T * dT[d];
   }
 }
+
+// The 2-D form, state [rho, m_1, m_2, E]: fv[d][v] for both axes and the
+// rows v = 1..3 from the state and its physical gradients g[e][v], in the
+// 3-D form's operation order (exahype_tpu/models/navier_stokes.py at
+// dim = 2).  Its own function, so that the 3-D kernels keep their code.
+// Used by csrc/aderdg_2d.cu.
+template <typename T>
+__device__ __forceinline__ void navier_stokes_viscous_fluxes_2d(const T* q, const T (&g)[2][4],
+                                                                T gm1, T mu, T kappa_T,
+                                                                T (&fv)[2][4]) {
+  const T inv_rho = T(1) / q[0];
+  T v[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) v[j] = q[1 + j] * inv_rho;
+  const T q2 = v[0] * v[0] + v[1] * v[1];
+  const T temp = gm1 * (q[3] * inv_rho - T(0.5) * q2);  // p / rho with R = 1
+  T dv[2][2], dT[2];  // dv[e][j] = d_e v_j, dT[e] = d_e T
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const T drho = g[e][0];
+    dv[e][0] = (g[e][1] - v[0] * drho) * inv_rho;
+    dv[e][1] = (g[e][2] - v[1] * drho) * inv_rho;
+    const T v_dot_dm = v[0] * g[e][1] + v[1] * g[e][2];
+    dT[e] = (gm1 * (g[e][3] - v_dot_dm + T(0.5) * q2 * drho) - temp * drho) * inv_rho;
+  }
+  const T div_v = dv[0][0] + dv[1][1];
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    T tau[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      tau[j] = j == d ? mu * (dv[d][d] + dv[d][d] - T(2.0 / 3.0) * div_v)
+                      : mu * (dv[d][j] + dv[j][d]);
+      fv[d][1 + j] = -tau[j];
+    }
+    fv[d][3] = -(tau[0] * v[0] + tau[1] * v[1]) - kappa_T * dT[d];
+  }
+}

@@ -13,7 +13,11 @@ with walls, for compressible Euler (``examples/limited_blast_walls.py``'s
 solver: ``aderdg_predictor_volume_2d``, a thread a space node, and the
 face pair ``aderdg_face_flux_2d`` + ``aderdg_surface_update_2d`` or its wall
 variant ``aderdg_face_flux_walls_2d`` + ``aderdg_surface_update_walls_2d``,
-all of ``csrc/aderdg_2d.cu``; the grid goes to them as (g0, g1, 1)).  At
+all of ``csrc/aderdg_2d.cu``; the grid goes to them as (g0, g1, 1)), and
+periodic for compressible Navier–Stokes (``examples/viscous_shock.py``'s
+and ``examples/navier_stokes_vortex.py``'s solver:
+``aderdg_predictor_volume_visc_2d`` and the periodic face pair's
+Navier–Stokes instance, the same names; 2-D viscous walls raise).  At
 order 3 in 3-D the physics are: compressible Euler on the Picard predictor (``bench.py::main``),
 compressible Navier–Stokes on the Picard predictor with its viscous terms
 (``models/navier_stokes.py``) and heterogeneous elasticity on the
@@ -113,6 +117,7 @@ INSTANTIATED = {
     ("euler", 2, 3): "picard",
     ("euler", 3, 3): "picard",
     ("euler", 3, 5): "picard",
+    ("navier_stokes", 2, 3): "picard",
     ("navier_stokes", 3, 3): "picard",
     ("elastic3d_het", 3, 3): "ck",
     ("z4", 3, 2): "picard",
@@ -230,7 +235,9 @@ class CudaADERDG:
     #: kernels of ``csrc/aderdg_z4_grmhd.cu``; 19-21 of physics 0: the
     #: order-5 Euler step's, ``csrc/aderdg_p5.cu`` and the face stage's n = 6
     #: instances; 22-26 of physics 0: the 2-D Euler step's,
-    #: ``csrc/aderdg_2d.cu``, the wall pair last).
+    #: ``csrc/aderdg_2d.cu``, the wall pair last; 27 of physics 2: the 2-D
+    #: viscous predictor of the same file, whose face pair is 23-24 of
+    #: physics 2).
     KERNELS = (
         "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
         "aderdg_surface_update", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
@@ -243,6 +250,7 @@ class CudaADERDG:
         "aderdg_predictor_volume_p5", "aderdg_face_flux_p5", "aderdg_surface_update_p5",
         "aderdg_predictor_volume_2d", "aderdg_face_flux_2d", "aderdg_surface_update_2d",
         "aderdg_face_flux_walls_2d", "aderdg_surface_update_walls_2d",
+        "aderdg_predictor_volume_visc_2d",
     )
 
     def __init__(self, solver: ADERDGSolver):
@@ -322,9 +330,16 @@ class CudaADERDG:
                 f"boundary={solver.boundary!r}: walls at that order are still to port, see "
                 "ROADMAP.md, Queue 1 item 4 (the plain solver runs them)"
             )
-        # The 2-D Euler step has kernels of its own (csrc/aderdg_2d.cu), named
-        # with the dimension; they take the grid as (g0, g1, 1).
+        # The 2-D steps have kernels of their own (csrc/aderdg_2d.cu), named
+        # with the dimension; they take the grid as (g0, g1, 1).  Navier–Stokes
+        # there is periodic only.
         dim_suffix = "_2d" if solver.dim == 2 else ""
+        if dim_suffix and viscous and walled:
+            raise LoweringError(
+                f"the CUDA 2-D Navier–Stokes step is periodic only, and boundary="
+                f"{solver.boundary!r}: 2-D viscous walls on the card are still to port, see "
+                "ROADMAP.md, Queue 1 item 4 (the plain solver runs them)"
+            )
         self._grid = tuple(solver.grid_shape) + (1,) * (3 - solver.dim)
         self.solver = solver
         #: Whether the step carries the fused NCP right-hand side (Z4): the

@@ -9,9 +9,16 @@ of configurations:
   the post-step admissibility guard, periodic or closed by reflective,
   outflow or farfield walls;
 - the whole-grid fallbacks (``troubled_capacity=None``), ``"subcell"``
-  (first order, with the guard) and ``"means"``, in every wall mode,
-  Dirichlet included: the fallback runs on every cell and the troubled
-  cells take it (``examples/limited_blast_walls.py``'s configuration).
+  (first order, or with ``fallback_order=2`` the MUSCL reconstruction with
+  Heun's two stages and the ``fallback_slope`` limiter; with the guard) and
+  ``"means"``, in every wall mode, Dirichlet included: the fallback runs on
+  every cell and the troubled cells take it
+  (``examples/limited_blast_walls.py``'s configuration).  Over a viscous
+  solver each of them adds central-difference diffusive face fluxes, so
+  mixed faces stay matched and the step conserves
+  (``examples/viscous_shock.py``'s configuration); JAX refuses viscous
+  solvers with Dirichlet walls and on the gathered path, and so does the
+  port.
 
 One step:
 
@@ -26,8 +33,8 @@ One step:
    one directional sweep per axis (:meth:`_row_sweep_math`, or with
    ``subcell_cuda=True`` the CUDA kernel of ``models/subcell_cuda.py``), and
    the rows scattered back; on the whole grid the same sweeps over every
-   cell (:meth:`subcell_fv_step`) or the first-order cell-mean update
-   (:meth:`fv_fallback`);
+   cell (:meth:`subcell_fv_step`; second order: :meth:`_muscl_sweep`
+   twice) or the first-order cell-mean update (:meth:`fv_fallback`);
 4. interface matching, so mixed DG/FV faces carry one flux and the step
    conserves (wall faces have one owner and are never mixed); on the
    gathered path the cell-mean update of rows beyond the capacity; the
@@ -59,10 +66,10 @@ they are XLA in the JAX package.  What the translation changes:
   workaround) has no counterpart.
 
 Options outside these configurations raise :class:`SemanticError` naming
-``ROADMAP.md``, Queue 1 item 9 and its step (9.3: ``fallback_order=2`` and
-viscous solvers; 9.4: NCP, source, CK and dissipation-masked solvers; 9.5:
-``troubled_granularity="cell"`` and ``overflow_fallback="candidate"`` on the
-gathered path); the JAX limiter's own refusals and errors are mirrored.
+``ROADMAP.md``, Queue 1 item 9 and its step (9.4: NCP, source, CK and
+dissipation-masked solvers; 9.5: ``troubled_granularity="cell"`` and
+``overflow_fallback="candidate"`` on the gathered path); the JAX limiter's
+own refusals and errors are mirrored.
 """
 
 from __future__ import annotations
@@ -141,6 +148,7 @@ class LimitedADERDG(nn.Module):
         dmp_eps: float = 1e-3,
         fallback: str = "subcell",
         fallback_order: int = 1,
+        fallback_slope: str = "minmod",
         accelerator=None,
         troubled_capacity: Optional[int] = None,
         troubled_granularity: str = "cell",
@@ -157,6 +165,11 @@ class LimitedADERDG(nn.Module):
                 "the gathered (troubled_capacity) fallback does not support dirichlet "
                 "walls yet — use the whole-grid subcell fallback"
             )
+        if solver.boundary == "dirichlet" and solver.visc_flux_fn is not None:
+            raise SemanticError(
+                "limited viscous solvers with dirichlet walls are not supported (ghost "
+                "gradients at prescribed-state walls are unspecified)"
+            )
         if solver.visc_flux_fn is not None and gathered:
             raise SemanticError(
                 "viscous solvers are not supported on the gathered (troubled_capacity) "
@@ -166,6 +179,8 @@ class LimitedADERDG(nn.Module):
             raise ValueError(f"unknown fallback {fallback!r}")
         if fallback_order not in (1, 2):
             raise ValueError(f"fallback_order must be 1 or 2, got {fallback_order}")
+        if fallback_slope not in ("minmod", "mc", "central"):
+            raise ValueError(f"unknown fallback_slope {fallback_slope!r}")
         if accelerator is not None and accelerator.solver is not solver:
             raise ValueError("accelerator must wrap the limiter's own base solver")
         if troubled_granularity not in ("cell", "row"):
@@ -183,12 +198,6 @@ class LimitedADERDG(nn.Module):
                 "troubled_capacity with troubled_granularity='row'"
             )
         # What the port does not carry yet.
-        if fallback_order == 2:
-            raise _unported("fallback_order=2 (the MUSCL subcell fallback)", "9.3")
-        if solver.visc_flux_fn is not None:
-            # The whole-grid fallbacks have no diffusive face fluxes yet: a
-            # viscous solver would get a wrong answer, not an error.
-            raise _unported("the limiter over a viscous solver on the whole grid", "9.3")
         if (solver.predictor_mode != "picard" or solver.dissipation_mask is not None
                 or any(getattr(solver, name) is not None for name in CALLBACK_OPTIONS)):
             raise _unported(
@@ -208,6 +217,8 @@ class LimitedADERDG(nn.Module):
         self.dmp_delta0 = float(dmp_delta0)
         self.dmp_eps = float(dmp_eps)
         self.fallback = fallback
+        self.fallback_order = int(fallback_order)
+        self.fallback_slope = fallback_slope
         self.accelerator = accelerator
         self.subcell_cuda = bool(subcell_cuda)
         self.post_step_guard = bool(post_step_guard)
@@ -299,16 +310,62 @@ class LimitedADERDG(nn.Module):
             out = self._set_row(out, row, pos, ax)
         return out
 
-    def _shift_reflect(self, x, sh, ax, d):
+    def _shift_reflect(self, x, sh, ax, d, negate_ghost=False, grad_field=False):
         """Neighbour STATE along grid axis ``ax`` for direction ``d`` of a
         cell-means array ``x`` (var axis 0); at walls the ghost comes from
-        the boundary hook (mirror, copy, farfield state, Dirichlet mean)."""
+        the boundary hook (mirror, copy, farfield state, Dirichlet mean).
+        ``grad_field=True`` marks gradient arrays: their ghost is zero at
+        farfield and Dirichlet walls and the mirror or copy otherwise,
+        negated with ``negate_ghost`` (the wall-normal component)."""
         out = torch.roll(x, sh, ax)
         if self._wall_on(d):
             pos = -1 if sh == -1 else 0
-            out = self._set_row(out, self._ghost_mean(self._row(x, pos, ax), d,
-                                                       1 if sh == -1 else 0), pos, ax)
+            row = self._row(x, pos, ax)
+            if grad_field:
+                ghost = self._ghost_grad(row, d, 0, negate_ghost)
+            else:
+                ghost = self._ghost_mean(row, d, 1 if sh == -1 else 0)
+            out = self._set_row(out, ghost, pos, ax)
         return out
+
+    def _ghost_grad(self, row, d, va, negate):
+        """Ghost of a gradient or slope layer at an axis ``d`` wall: zero at
+        prescribed-state walls (farfield, Dirichlet: the ghost is a
+        constant), else the reflect hook's mirror or copy, negated for the
+        wall-normal component."""
+        if self.solver.boundary in ("farfield", "dirichlet"):
+            return torch.zeros_like(row)
+        ghost = self.solver.reflect_fn(row, d, va)
+        return -ghost if negate else ghost
+
+    def _sub_shift(self, x, sh, d, va, negate_ghost=False, grad_field=False):
+        """``x`` shifted by one along the GLOBAL subcell index of direction
+        ``d`` (the subcell axis within a cell, then the grid axis across
+        cells; periodic, or the wall ghost of :meth:`_ghost_sub`, or with
+        ``grad_field`` of :meth:`_ghost_grad`): ``sh = -1`` gives each
+        subcell its +d neighbour, ``sh = 1`` its -d neighbour."""
+        sol = self.solver
+        grid_ax = sol.grid_axis(d)
+        n_sub = self.n_sub
+
+        def ghost_of(row, side):
+            if grad_field:
+                return self._ghost_grad(row, d, va, negate_ghost)
+            return self._ghost_sub(row, d, side, va)
+
+        if sh == -1:
+            nxt = torch.roll(x.narrow(d, 0, 1), -1, grid_ax)
+            if self._wall_on(d):
+                row = self._row(x.narrow(d, n_sub - 1, 1), -1, grid_ax)
+                nxt = self._set_row(nxt, ghost_of(row, 1), -1, grid_ax)
+            return torch.cat([x.narrow(d, 1, n_sub - 1), nxt], dim=d)
+        if sh == 1:
+            prv = torch.roll(x.narrow(d, n_sub - 1, 1), 1, grid_ax)
+            if self._wall_on(d):
+                row = self._row(x.narrow(d, 0, 1), 0, grid_ax)
+                prv = self._set_row(prv, ghost_of(row, 0), 0, grid_ax)
+            return torch.cat([prv, x.narrow(d, 0, n_sub - 1)], dim=d)
+        raise ValueError(f"shift must be +-1, got {sh}")
 
     # ------------------------------------------------------- diagnostics
 
@@ -374,6 +431,12 @@ class LimitedADERDG(nn.Module):
         sol = self.solver
         means = self.cell_means(u)  # [V, *grid]; var axis 0
         new = means
+        visc = sol.visc_flux_fn
+        if visc is not None:
+            # Central differences of the cell means, once for every direction.
+            G = [(self._shift_reflect(means, -1, 1 + e, e)
+                  - self._shift_reflect(means, 1, 1 + e, e)) / (2.0 * sol._dxs[e])
+                 for e in range(sol.dim)]
         for d in range(sol.dim):
             lam = dt / sol._dxs[d]
             ax = 1 + d
@@ -390,8 +453,33 @@ class LimitedADERDG(nn.Module):
             s_lo = torch.maximum(eig(dn), eig(means))[None]
             fhat_hi = 0.5 * (flux(means) + flux(up)) - 0.5 * s_hi * (up - means)
             fhat_lo = 0.5 * (flux(dn) + flux(means)) - 0.5 * s_lo * (means - dn)
+            if visc is not None:
+                v_hi, v_lo = self._diffusive_fluxes(
+                    means, up, dn, G, d, 0, sol._dxs[d],
+                    lambda x, sh, e: self._shift_reflect(
+                        x, sh, ax, d, negate_ghost=(e == d), grad_field=True))
+                fhat_hi, fhat_lo = fhat_hi + v_hi, fhat_lo + v_lo
             new = new - lam * (fhat_hi - fhat_lo)
         return self._broadcast_means(new, u)
+
+    def _diffusive_fluxes(self, s, up, dn, G, d, va, h, shift_grad):
+        """The central-difference diffusive fluxes through the high and low
+        faces along ``d`` of the cells (or subcells) ``s`` with neighbours
+        ``up``/``dn`` and cell-centred gradients ``G`` (spacing ``h`` along
+        ``d``): the two-point normal derivative and the face average of the
+        transverse gradients (``shift_grad(G[e], sh, e)`` the neighbour
+        gradient), fed to the solver's viscous flux at the face-mean state.
+        ``fhat_hi`` of a cell is ``fhat_lo`` of the next, so the update
+        telescopes."""
+        sol = self.solver
+        G_up = [shift_grad(G[e], -1, e) for e in range(sol.dim)]
+        G_dn = [shift_grad(G[e], 1, e) for e in range(sol.dim)]
+        grads_hi = tuple((up - s) / h if e == d else 0.5 * (G[e] + G_up[e])
+                         for e in range(sol.dim))
+        grads_lo = tuple((s - dn) / h if e == d else 0.5 * (G_dn[e] + G[e])
+                         for e in range(sol.dim))
+        return (sol.visc_flux_fn(0.5 * (s + up), grads_hi, d, va),
+                sol.visc_flux_fn(0.5 * (dn + s), grads_lo, d, va))
 
     # ------------------------------------------------------------- subcell
 
@@ -432,6 +520,15 @@ class LimitedADERDG(nn.Module):
         n_sub = self.n_sub
         va = sol.var_axis
         s = self.project_subcells(u)
+        if self.fallback_order == 2:
+            # MUSCL + Heun (SSP-RK2); the cell-boundary flux is the stages'
+            # average.
+            s1, fl1 = self._muscl_sweep(s, dt)
+            s2, fl2 = self._muscl_sweep(s1, dt)
+            recon = self.reconstruct_subcells(0.5 * (s + s2))
+            if return_face_fluxes:
+                return recon, [0.5 * (a + b) for a, b in zip(fl1, fl2)]
+            return recon
         face_fluxes = []
         for d in range(sol.dim):
             grid_ax = sol.grid_axis(d)
@@ -444,12 +541,89 @@ class LimitedADERDG(nn.Module):
                 from_right = self._set_row(from_right, ghost_hi, -1, grid_ax)
                 ghost_lo = self._ghost_sub(self._row(first, 0, grid_ax), d, 0, va)
                 from_left = self._set_row(from_left, ghost_lo, 0, grid_ax)
-            s, _, g_hi = self._row_sweep_math(s, from_left, from_right, d, dt)
+            extra = None
+            if sol.visc_flux_fn is not None:
+                # The diffusive face fluxes of the sweep's own state (JAX's
+                # whole-grid step, limiter.py:678-713).
+                G = self._sub_gradients(s)
+                extra = self._diffusive_fluxes(
+                    s, self._sub_shift(s, -1, d, va), self._sub_shift(s, 1, d, va), G, d, va,
+                    sol._dxs[d] / n_sub,
+                    lambda x, sh, e: self._sub_shift(x, sh, d, va, negate_ghost=(e == d),
+                                                     grad_field=True))
+            s, _, g_hi = self._row_sweep_math(s, from_left, from_right, d, dt, extra)
             face_fluxes.append(g_hi)
         recon = self.reconstruct_subcells(s)
         if return_face_fluxes:
             return recon, face_fluxes
         return recon
+
+    # -------------------------------------------------- second-order subcell
+
+    def _sub_gradients(self, s):
+        """Cell-centred central differences of the subcell state along each
+        axis (the ghosts of :meth:`_sub_shift`)."""
+        sol = self.solver
+        va = sol.var_axis
+        return [(self._sub_shift(s, -1, e, va) - self._sub_shift(s, 1, e, va))
+                / (2.0 * (sol._dxs[e] / self.n_sub)) for e in range(sol.dim)]
+
+    def _slope(self, d_plus, d_minus):
+        """The limited slope from the forward and backward differences."""
+        if self.fallback_slope == "central":
+            return 0.5 * (d_plus + d_minus)
+        same = (d_plus * d_minus) > 0.0
+        if self.fallback_slope == "minmod":
+            lim = torch.where(torch.abs(d_plus) < torch.abs(d_minus), d_plus, d_minus)
+        else:  # monotonized central
+            lim = torch.sign(d_plus) * torch.minimum(
+                torch.abs(0.5 * (d_plus + d_minus)),
+                2.0 * torch.minimum(torch.abs(d_plus), torch.abs(d_minus)))
+        return torch.where(same, lim, 0.0)
+
+    def _muscl_sweep(self, s, dt):
+        """One unsplit MUSCL Rusanov stage on the subcell grid: ``s +
+        dt·L(s)`` and the per-direction transverse-mean cell-boundary fluxes
+        (JAX's ``_muscl_sweep``, its flux and viscous parts; its NCP and
+        source terms go with ROADMAP Queue 1 item 9.4)."""
+        sol = self.solver
+        va = sol.var_axis
+        n_sub = self.n_sub
+        out = s
+        face_fluxes = []
+        if sol.visc_flux_fn is not None:
+            G = self._sub_gradients(s)  # of the stage state, once
+        for d in range(sol.dim):
+            lam = dt / (sol._dxs[d] / n_sub)
+            u_plus = self._sub_shift(s, -1, d, va)
+            u_minus = self._sub_shift(s, 1, d, va)
+            sigma = self._slope(u_plus - s, s - u_minus)
+            sigma_plus = self._sub_shift(sigma, -1, d, va, negate_ghost=True, grad_field=True)
+            sigma_minus = self._sub_shift(sigma, 1, d, va, negate_ghost=True, grad_field=True)
+            # The reconstructed interface states at my high and low faces.
+            qL_hi = s + 0.5 * sigma
+            qR_hi = u_plus - 0.5 * sigma_plus
+            qL_lo = u_minus + 0.5 * sigma_minus
+            qR_lo = s - 0.5 * sigma
+
+            def rusanov(qL, qR):
+                F = 0.5 * (sol.flux_fn(qL, d, va) + sol.flux_fn(qR, d, va))
+                sp = torch.maximum(sol.max_eigenvalue_fn(qL, d, va),
+                                   sol.max_eigenvalue_fn(qR, d, va)).unsqueeze(va)
+                return F - 0.5 * sp * (qR - qL)
+
+            fhat_hi = rusanov(qL_hi, qR_hi)
+            fhat_lo = rusanov(qL_lo, qR_lo)
+            if sol.visc_flux_fn is not None:
+                v_hi, v_lo = self._diffusive_fluxes(
+                    s, u_plus, u_minus, G, d, va, sol._dxs[d] / n_sub,
+                    lambda x, sh, e: self._sub_shift(x, sh, d, va, negate_ghost=(e == d),
+                                                     grad_field=True))
+                fhat_hi, fhat_lo = fhat_hi + v_hi, fhat_lo + v_lo
+            out = out - lam * (fhat_hi - fhat_lo)
+            other_sub = tuple(a if a < d else a - 1 for a in range(sol.dim) if a != d)
+            face_fluxes.append(torch.mean(fhat_hi.select(d, n_sub - 1), dim=other_sub))
+        return out, face_fluxes
 
     # --------------------------------------------- row-granular gathered path
 
@@ -611,13 +785,14 @@ class LimitedADERDG(nn.Module):
             g_fluxes.append((g_lo, g_hi))
         return self.reconstruct_subcells(s), g_fluxes
 
-    def _row_sweep_math(self, s, ghost_lo, ghost_hi, d, dt):
+    def _row_sweep_math(self, s, ghost_lo, ghost_hi, d, dt, extra=None):
         """One directional Rusanov sweep along subcell axis ``d`` of a batch
         ``[sub.., V, *rest]`` (the gathered rows ``[.., K, L]``, or the whole
         grid), with the ghost layers already built — the plain version of
-        the ``subcell_row_sweep`` kernel (``csrc/subcell.cu``).  Returns
-        ``(s_new, g_lo, g_hi)``, the ``g``'s the transverse-mean
-        cell-boundary fluxes ``[V, *rest]``."""
+        the ``subcell_row_sweep`` kernel (``csrc/subcell.cu``).  ``extra``:
+        fluxes added to the high and low face fluxes (the whole grid's
+        viscous terms).  Returns ``(s_new, g_lo, g_hi)``, the ``g``'s the
+        transverse-mean cell-boundary fluxes ``[V, *rest]``."""
         sol = self.solver
         n_sub = self.n_sub
         va = sol.var_axis
@@ -642,6 +817,8 @@ class LimitedADERDG(nn.Module):
         s_lo = torch.maximum(E_minus, E).unsqueeze(va)
         fhat_hi = 0.5 * (F + F_plus) - 0.5 * s_hi * (u_plus - s)
         fhat_lo = 0.5 * (F_minus + F) - 0.5 * s_lo * (s - u_minus)
+        if extra is not None:
+            fhat_hi, fhat_lo = fhat_hi + extra[0], fhat_lo + extra[1]
         other_sub = tuple(a if a < d else a - 1 for a in range(D) if a != d)
         g_hi = torch.mean(fhat_hi.select(d, n_sub - 1), dim=other_sub)
         g_lo = torch.mean(fhat_lo.select(d, 0), dim=other_sub)

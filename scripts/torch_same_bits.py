@@ -39,8 +39,9 @@ system, ``Z4Vacuum``, ``Z4Shift``, ``Z4Matter`` or ``Z4Grmhd``, whatever
 template arguments were added since), ignoring addresses and encodings;
 kernels of the Z4+GRMHD system and of the order-5 Euler step (the face
 stage at n = 6 and ``aderdg_predictor_volume_st``) and of the 2-D Euler
-step (``csrc/aderdg_2d.cu``, periodic and walled) that only this checkout
-has are listed as new.  Prints one line per output and per kernel
+step (``csrc/aderdg_2d.cu``, periodic and walled) and the 2-D kernels'
+``NavierStokes2D`` instances (the viscous predictor, the face flux) that
+only this checkout has are listed as new.  Prints one line per output and per kernel
 and exits non-zero if any differs.  Needs a CUDA card and nvcc; imports no
 JAX.
 """
@@ -68,13 +69,15 @@ SASS_KERNELS = (
     "aderdg_predictor_volume_st", "aderdg_predictor_volume_2d", "aderdg_face_flux_2d",
     "aderdg_surface_update_2d",
 )
-#: The Z4 step kernels' systems (a template argument of each instance).
-SYSTEMS = ("Z4Vacuum", "Z4Shift", "Z4Matter", "Z4Grmhd")
+#: The Z4 step kernels' systems and the 2-D Navier–Stokes physics (a
+#: template argument of each instance).
+SYSTEMS = ("Z4Vacuum", "Z4Shift", "Z4Matter", "Z4Grmhd", "NavierStokes2D")
 #: What only this checkout may have: the Z4+GRMHD system's kernels, the
 #: order-5 Euler step's (its predictor, and the face stage's kernels whose
 #: node count is ``NEW_NODES``) and the 2-D Euler step's.
 NEW = ("Z4Grmhd", "rhs_all_z4_grmhd", "Z4+GRMHD", "aderdg_predictor_volume_st",
-       "aderdg_predictor_volume_2d", "aderdg_face_flux_2d", "aderdg_surface_update_2d")
+       "aderdg_predictor_volume_2d", "aderdg_face_flux_2d", "aderdg_surface_update_2d",
+       "NavierStokes2D")
 NEW_NODES = "6"
 _KERNEL_NAME = re.compile(r"(\d+)(" + "|".join(sorted(SASS_KERNELS, key=len, reverse=True))
                           + r")I([fd])(?:Li(\d+)E)?")

@@ -20,7 +20,10 @@ noise on every Z4 slot) and the 47-variable Z4+GRMHD one (K5 e and the
 same variant over ``csrc/aderdg_z4_grmhd.cu``, on a magnetized fluid with a
 GLM scalar and the same noise); the 2-D Euler p3 step (K1 c,
 ``csrc/aderdg_2d.cu``) periodic and in every wall mode, and the limited
-step with walls (gathered rows in 3-D, the whole grid in 2-D).
+step with walls (gathered rows in 3-D, the whole grid in 2-D); the 2-D
+Navier–Stokes p3 step (the viscous predictor and the penalised face pair
+of the same file) and the limited step over viscous solvers in 2-D (the
+MUSCL fallback) and 3-D.
 
 Every test here is marked ``cuda`` and skips without a card (the decision
 is made inside each test, never at import).  This file imports no JAX, so
@@ -940,6 +943,142 @@ def test_walled_limited_steps_match_plain():
     for x, y in zip(fl_a, fl_b):
         assert _err(x, y) <= 1e-12
     assert all(n == 1 for n in cu2.launches.values())
+
+
+# ------------------------------------- the 2-D Navier–Stokes step (K1 c)
+
+
+def _setup_2d_ns(grid, dtype, mu=0.02):
+    """A periodic 2-D p3 Navier–Stokes solver on the card (dx_0 = 1/g0,
+    dx_1 = 0.7/g1), its ``CudaADERDG`` and a state with seeded noise on
+    every node (every gradient of order 1/dx)."""
+    from exahype_tpu_torch.models.navier_stokes import navier_stokes
+
+    dev = _card()
+    flux, eig, visc, visc_eig = navier_stokes(2, mu=mu, prandtl=0.7)
+    sol = ADERDGSolver(2, 3, 4, grid, flux, eig, dx=(1.0 / grid[0], 0.7 / grid[1]),
+                       visc_flux_fn=visc, visc_eigenvalue_fn=visc_eig, device=dev, dtype=dtype)
+    rng = np.random.default_rng(5)
+    shape = (4, 4) + grid
+    rho = 1.0 + 0.3 * rng.random(shape)
+    vel = [0.3 * rng.standard_normal(shape) for _ in range(2)]
+    p = 1.0 + 0.3 * rng.random(shape)
+    e = p / 0.4 + 0.5 * rho * (vel[0] ** 2 + vel[1] ** 2)
+    q = np.stack([rho, rho * vel[0], rho * vel[1], e], axis=2)
+    return sol, CudaADERDG(sol), torch.from_numpy(q).to(dev, dtype).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", CASES_2D)
+def test_2d_ns_kernels_match_plain(dtype, grid):
+    """``aderdg_predictor_volume_visc_2d`` and the periodic face pair's
+    Navier–Stokes instance launch by launch against the plain solver: the
+    predictor's new state and faces, F̂ (with the Gassner penalty), the
+    update, the stage with its face fluxes, and 3 steps (dt by value and by
+    pointer, bitwise equal)."""
+    sol, cu, u = _setup_2d_ns(grid, dtype)
+    assert cu.kernels == ("aderdg_predictor_volume_visc_2d", "aderdg_face_flux_2d",
+                          "aderdg_surface_update_2d")
+    dt = 0.5 * float(sol.cfl_dt(u))
+
+    def close(got, ref, rounds=1):
+        assert _err(got, ref) <= rounds * _bound(ref, dtype)
+
+    new_k, faces_k, fv = cu.predictor_volume(u, dt)
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    assert fv is None
+    close(new_k, new_p)
+    close(faces_k, faces_p)
+    fhat, fwall = cu.face_flux(faces_p)
+    assert fwall is None
+    fshape = sol.face_flux_shape
+    plain = []
+    for d in range(2):
+        plain.append(sol.interface_flux(*(faces_p[d, k].reshape(fshape) for k in range(4)), d))
+        close(fhat[d].view(fshape), plain[d])
+    upd = cu.surface_update(new_p.clone(), torch.stack(plain).view(fhat.shape), dt)
+    ref = new_p
+    for d in range(2):
+        ref = sol.surface_term(ref, plain[d], d, dt)
+    close(upd, ref)
+    stage, fl_k = cu.face_surface(new_p.clone(), faces_p, dt, return_face_fluxes=True)
+    stage_p, fl_p = sol.face_surface(new_p, faces_p, dt, return_face_fluxes=True)
+    close(stage, stage_p)
+    for a, b in zip(fl_k, fl_p):
+        close(a, b)
+    by_value = cu.run(u, 3, dt)
+    by_pointer = cu.run(u, 3, torch.tensor(dt, dtype=dtype, device=u.device))
+    torch.cuda.synchronize()
+    close(by_value, sol.run(u, 3, dt), 1 if dtype == torch.float64 else 3)
+    assert torch.equal(by_value, by_pointer)
+    assert cu.launches == dict(zip(cu.kernels, (7, 8, 8)))
+
+
+@pytest.mark.cuda
+def test_2d_ns_kernel_info_and_refusals():
+    """The 2-D viscous kernels' occupancy (index 27 and the face pair of
+    physics 2); the launchers refuse Euler's predictor for Navier–Stokes
+    and the viscous one for Euler."""
+    from exahype_tpu_torch import _build
+
+    sol, cu, u = _setup_2d_ns((4, 4), torch.float32)
+    for kernel in cu.kernels:
+        for dtype in (torch.float32, torch.float64):
+            info = cu.kernel_info(kernel, dtype)
+            assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, (kernel, info)
+    assert cu.kernel_info(cu.kernels[0], torch.float32)["threads"] == 256
+    esol, ecu, _ = _setup_2d((4, 4), torch.float32)
+    lib = _build.library()
+    new, faces = torch.empty_like(u), torch.empty(sol.face_shape, dtype=u.dtype, device=u.device)
+    for name, c in (("aderdg_predictor_volume_2d", cu), ("aderdg_predictor_volume_visc_2d", ecu)):
+        err = getattr(lib, f"exahype_{name}_f32")(
+            u.data_ptr(), new.data_ptr(), faces.data_ptr(), None, 1e-4, c._ops.ctypes.data,
+            c._dx.ctypes.data, 3, 2, c._physics_id, c._params.ctypes.data, *c._grid, None)
+        assert err != 0, name
+
+
+@pytest.mark.cuda
+def test_viscous_limited_steps_match_plain():
+    """The limited step over a viscous solver on the card against the plain
+    limiter, f64 at 1e-12, with its face fluxes: the 2-D MUSCL fallback on
+    the 2-D Navier–Stokes kernels (a pressurised block: troubled cells),
+    and the 3-D first-order fallback on ``aderdg_predictor_volume_visc``
+    with no-slip walls."""
+    from exahype_tpu_torch.models.limiter import LimitedADERDG, euler_admissible
+    from exahype_tpu_torch.models.navier_stokes import (
+        navier_stokes,
+        noslip_reflect,
+        noslip_reflect_flux,
+    )
+
+    sol, cu, u = _setup_2d_ns((8, 8), torch.float64, mu=5e-3)
+    u = u.clone()
+    u[:, :, 3, 3:5, 3:5] *= 20.0
+    cases = [(sol, cu, u, dict(fallback_order=2, fallback_slope="mc"))]
+    dev = u.device
+    flux, eig, visc, visc_eig = navier_stokes(3, mu=0.02, prandtl=0.7)
+    grid = (4, 4, 4)
+    sol3 = ADERDGSolver(3, 3, 5, grid, flux, eig, dx=0.25, visc_flux_fn=visc,
+                        visc_eigenvalue_fn=visc_eig, boundary="reflective",
+                        reflect_fn=noslip_reflect(3), reflect_flux_fn=noslip_reflect_flux(3),
+                        wall_axes=(0,), device=dev, dtype=torch.float64)
+    rng = np.random.default_rng(7)
+    rho = 1.0 + 0.2 * rng.random((4, 4, 4) + grid)
+    rho[:, :, :, 1:3] *= 8.0
+    q = np.stack([rho, 0.3 * rho, -0.2 * rho, 0.1 * rho, 2.5 + rho], axis=3)
+    cases.append((sol3, CudaADERDG(sol3), torch.from_numpy(q).to(dev), {}))
+    for s, c, x, opts in cases:
+        lim_k = LimitedADERDG(s, euler_admissible(s.dim), accelerator=c, device=dev, **opts)
+        lim_p = LimitedADERDG(s, euler_admissible(s.dim), device=dev, **opts)
+        dt = 0.5 * float(s.cfl_dt(x))
+        assert bool(lim_p.troubled_mask(x, s.step(x, dt)).any())
+        a, fl_a = lim_k.step(x, dt, return_face_fluxes=True)
+        b, fl_b = lim_p.step(x, dt, return_face_fluxes=True)
+        torch.cuda.synchronize()
+        assert _err(a, b) <= 1e-12
+        for y, z in zip(fl_a, fl_b):
+            assert _err(y, z) <= 1e-12
+        assert all(n == 1 for n in c.launches.values()), c.launches
 
 
 # ------------------------------------------------ K4: the generated spec kernel

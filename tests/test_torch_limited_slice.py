@@ -129,7 +129,6 @@ def test_limited_from_jax_reads_the_configuration():
 
 REFUSED = {
     "cell granularity": dict(troubled_granularity="cell"),
-    "MUSCL": dict(fallback_order=2, troubled_capacity=None),
     "candidate overflow": dict(overflow_fallback="candidate"),
 }
 
@@ -145,13 +144,15 @@ def test_options_outside_the_slice_raise(name):
 WHOLE_GRID = {
     "no capacity": dict(troubled_capacity=None),
     "means fallback": dict(fallback="means", troubled_capacity=None),
+    "MUSCL": dict(fallback_order=2, troubled_capacity=None),
 }
 
 
 @pytest.mark.parametrize("name", sorted(WHOLE_GRID))
 def test_whole_grid_options_match_jax(name):
-    """Two limited Sod steps of the whole-grid subcell and means fallbacks
-    against JAX (tests/test_torch_limiter_walls.py holds them with walls)."""
+    """Two limited Sod steps of the whole-grid subcell (first and second
+    order) and means fallbacks against JAX (tests/test_torch_limiter_walls.py
+    and tests/test_torch_limiter_muscl.py hold them with walls)."""
     js, jl = jax_config(**WHOLE_GRID[name])
     port = limited_from_jax(jl, gamma=1.4, device="cpu")
     assert port.troubled_capacity is None
@@ -168,16 +169,16 @@ def test_whole_grid_options_match_jax(name):
 
 
 def test_walls_hooks_and_observables_raise():
-    # A walled limiter crosses (tests/test_torch_limiter_walls.py); a walled
-    # MUSCL one is refused (ROADMAP Queue 1 item 9.3).
+    # A walled limiter crosses (tests/test_torch_limiter_walls.py), a walled
+    # MUSCL one too, with its slope (tests/test_torch_limiter_muscl.py).
     flux, eig = jax_euler_physics(dim=3, n_real=5)
     js = JaxSolver(dim=3, order=3, n_vars=5, grid_shape=GRID, flux_fn=flux,
                    max_eigenvalue_fn=eig, dx=1.0 / GRID[0], boundary="outflow")
     jl = JaxLimited(js, troubled_capacity=CAPACITY, troubled_granularity="row")
     assert limited_from_jax(jl, gamma=1.4, device="cpu").solver.is_wall(0)
-    jl = JaxLimited(js, fallback_order=2)
-    with pytest.raises(SemanticError, match="ROADMAP"):
-        limited_from_jax(jl, gamma=1.4, device="cpu")
+    jl = JaxLimited(js, fallback_order=2, fallback_slope="central")
+    port = limited_from_jax(jl, gamma=1.4, device="cpu")
+    assert (port.fallback_order, port.fallback_slope) == (2, "central")
     _, jl = jax_config()
     port = limited_from_jax(jl, gamma=1.4, device="cpu")
     with pytest.raises(SemanticError, match="ROADMAP"):

@@ -407,8 +407,9 @@ def test_viscous_options_must_be_set_together_and_refuse_ck():
 
 def test_limiter_refuses_a_viscous_solver():
     """The gathered fallback carries no diffusive fluxes: a viscous solver
-    is refused there with JAX's words; the port's whole-grid fallbacks do
-    not carry them yet either (ROADMAP Queue 1 item 9.3)."""
+    is refused there with JAX's words, and so is one with Dirichlet walls
+    (ghost gradients at prescribed states are unspecified); the whole-grid
+    fallbacks take it (``test_limiter_over_a_viscous_solver_matches_jax``)."""
     kw, visc, visc_eig = _ns_kw(3)
     sol = ADERDGSolver(**dict(kw, order=3, grid_shape=(2, 2, 4)), visc_flux_fn=visc,
                        visc_eigenvalue_fn=visc_eig)
@@ -418,8 +419,29 @@ def test_limiter_refuses_a_viscous_solver():
                              r"Queue 1 item 9"):
         LimitedADERDG(sol, euler_admissible(3), troubled_capacity=4,
                       troubled_granularity="row", device="cpu")
-    with pytest.raises(SemanticError, match=r"viscous solver on the whole grid.*\(9.3\)"):
+    LimitedADERDG(sol, euler_admissible(3), device="cpu")
+    sol.boundary = "dirichlet"
+    with pytest.raises(SemanticError, match=r"limited viscous solvers with dirichlet walls "
+                                            r"are not supported"):
         LimitedADERDG(sol, euler_admissible(3), device="cpu")
+
+
+def test_limiter_over_a_viscous_solver_matches_jax():
+    """The whole-grid limited step over a 3-D viscous solver with no-slip
+    walls on axis 0, every cell on the first-order fallback, against JAX
+    (tests/test_torch_viscous_limited.py holds the other fallbacks)."""
+    from exahype_tpu.models.limiter import LimitedADERDG as JaxLimited
+    from exahype_tpu_torch.convert import limited_from_jax
+
+    js = jax_ns(3, (2, 2, 4), boundary="reflective", wall_axes=(0,))
+    jl = JaxLimited(js)
+    port = limited_from_jax(jl, gamma=GAMMA, walls="noslip", physics="navier_stokes", mu=MU,
+                            prandtl=PRANDTL, device="cpu")
+    port.troubled_mask = lambda u, c: torch.ones(js.grid_shape, dtype=torch.bool)
+    Q = random_state(js, seed=9)
+    ref = jax.jit(lambda q: jl.step(q, DT, troubled_transform=jnp.ones_like))(jnp.asarray(Q))
+    got = port.step(state_from_numpy(Q, device="cpu"), DT)
+    np.testing.assert_allclose(state_to_numpy(got), np.asarray(ref), rtol=0, atol=1e-12)
 
 
 def test_cuda_wrapper_takes_the_tagged_physics_only():
@@ -466,8 +488,18 @@ def test_cuda_wrapper_takes_the_tagged_physics_only():
         with pytest.raises(LoweringError, match=match):
             CudaADERDG(s)
         s.step(u, DT)  # the plain solver runs it
+    # 2-D at order 3 has kernels of its own (periodic); 2-D walls and other
+    # orders are refused.
     flux2, eig2, visc2, visc_eig2 = ns.navier_stokes(2)
     s2 = ADERDGSolver(2, 3, 4, (4, 4), flux2, eig2, visc_flux_fn=visc2,
                       visc_eigenvalue_fn=visc_eig2, **kw)
+    assert CudaADERDG(s2).kernels == ("aderdg_predictor_volume_visc_2d",
+                                      "aderdg_face_flux_2d", "aderdg_surface_update_2d")
+    w2 = ADERDGSolver(2, 3, 4, (4, 4), flux2, eig2, visc_flux_fn=visc2,
+                      visc_eigenvalue_fn=visc_eig2, boundary="outflow", **kw)
+    with pytest.raises(LoweringError, match=r"2-D Navier–Stokes.*Queue 1 item 4"):
+        CudaADERDG(w2)
+    o2 = ADERDGSolver(2, 2, 4, (4, 4), flux2, eig2, visc_flux_fn=visc2,
+                      visc_eigenvalue_fn=visc_eig2, **kw)
     with pytest.raises(LoweringError, match="no CUDA kernel instantiated"):
-        CudaADERDG(s2)
+        CudaADERDG(o2)

@@ -381,10 +381,10 @@ def test_cuda_wrapper_refuses_unsigned_hooks_and_viscous_walls():
 
 
 def test_limiter_refuses_a_walled_solver():
-    """The limiter takes walls (tests/test_torch_limiter_walls.py); what it
-    still refuses around them: Dirichlet walls on the gathered path (JAX's
-    own refusal, with its message) and a walled MUSCL fallback (ROADMAP
-    Queue 1 item 9.3)."""
+    """The limiter takes walls (tests/test_torch_limiter_walls.py, the
+    MUSCL fallback's in tests/test_torch_limiter_muscl.py); what it still
+    refuses around them: Dirichlet walls on the gathered path (JAX's own
+    refusal, with its message)."""
     flux, eig = euler_physics(3)
     state_fn, kw = _smooth_state(3, 3, (2, 2, 4), 0.5)
     sol = ADERDGSolver(3, 3, 5, (2, 2, 4), flux, eig, device="cpu", boundary="dirichlet",
@@ -396,8 +396,10 @@ def test_limiter_refuses_a_walled_solver():
     sol = ADERDGSolver(3, 3, 5, (2, 2, 4), flux, eig, device="cpu", boundary="outflow")
     LimitedADERDG(sol, euler_admissible(3), troubled_capacity=4, troubled_granularity="row",
                   device="cpu")
-    with pytest.raises(SemanticError, match=r"ROADMAP.md, Queue 1 item 9 \(9.3\)"):
-        LimitedADERDG(sol, euler_admissible(3), fallback_order=2, device="cpu")
+    muscl = LimitedADERDG(sol, euler_admissible(3), fallback_order=2, fallback_slope="mc",
+                          device="cpu")
+    u = state_from_numpy(bench_state(sol), device="cpu")
+    assert torch.isfinite(muscl.step(u, DT)).all()
 
 
 @pytest.mark.parametrize("name", sorted(CASES_3D))

@@ -288,8 +288,8 @@ def test_limiter_refusals_name_queue1_item9():
     # JAX's own error for the means fallback with a capacity.
     with pytest.raises(ValueError, match="troubled_capacity requires fallback='subcell'"):
         LimitedADERDG(sol, troubled_capacity=8, fallback="means", **row)
-    with pytest.raises(SemanticError, match="MUSCL.*ROADMAP.md, Queue 1 item 9 \\(9.3\\)"):
-        LimitedADERDG(sol, troubled_capacity=None, fallback_order=2, **row)
+    with pytest.raises(SemanticError, match="candidate.*ROADMAP.md, Queue 1 item 9 \\(9.5\\)"):
+        LimitedADERDG(sol, troubled_capacity=8, overflow_fallback="candidate", **row)
     with pytest.raises(SemanticError, match="NCP solver.*ROADMAP.md, Queue 1 item 9"):
         LimitedADERDG(_port((2, 2, 2)), troubled_capacity=8, **row)
 
