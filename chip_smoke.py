@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one card, nvcc
 
-It drives fifteen paths, each through ``exahype_tpu_torch``'s entry points
+It drives sixteen paths, each through ``exahype_tpu_torch``'s entry points
 with its kernels' launch counters set to 0 just before and read just
 after (the two forms of the main path, ADER-DG and FV, and the order-5,
 limited, limited with walls, limited 2-D blast with walls, viscous shock,
-2-D vortex, CK, walls, viscous, dynamic-GR, shifted dynamic-GR, Z4+GRHD and
-Z4+GRMHD slices), in this order:
+2-D vortex, CK, walls, viscous, dynamic-GR, shifted dynamic-GR, Z4+GRHD,
+limited Z4+GRHD and Z4+GRMHD slices), in this order:
 
 - **ADER-DG**: ``bench.py::main``'s step — order 3, 3-D compressible
   Euler, a ``(256, 8, 128)`` periodic cell grid in float32, ``bench.py``'s
@@ -184,6 +184,23 @@ Z4+GRMHD slices), in this order:
   (``z4_matter_admissible``), ∫D̃ dV conserved within ``Z4M_DRIFT``, and the
   exact homogeneous FLRW universe after 10 steps against the Friedmann
   reference (``flrw_reference``: a², D̃, |Θ|, |Z|).
+- **limited Z4+GRHD**: the same solver and FLRW slice (no sine) with a
+  one-cell clump of D̃ and τ̃ at the box centre (``Z4L_AMP``, ``Z4L_WIDTH``:
+  ``tests/test_z4_matter.py:503-543``'s profile, as sharp relative to a
+  cell), ``LimitedADERDG(admissible=z4_matter_admissible(),
+  troubled_capacity=128, troubled_granularity="row",
+  accelerator=CudaADERDG(solver), subcell_cuda=True)``, dt = 1e-4, 5
+  warm-up and 10 checked steps, the troubled rows printed at each — through
+  K1 d's three Z4+GRHD kernels and K3 a's Z4+GRHD p2 instance
+  (``subcell_row_sweep_z4_matter``: ``csrc/subcell_ncp.cuh``, built by
+  ``csrc/subcell_z4_matter.cu``), three launches a step each; the source
+  after the sweeps stays plain PyTorch.  K3 a is held to the plain sweep
+  direction by direction in float64 at ``Z4_CUT`` with every slot active
+  on a noisy state (``Z4M_NOISE``) at 1e-12 of max(1, max|plain|), and in
+  float32 on the main path's gathered batch; the gates add
+  admissibility, ∫D̃ dV within ``MASS_RTOL`` when no overflow engaged, one
+  step against the plain limited step (equal troubled masks, the float32
+  bound) and bitwise repeatability.
 - **Z4+GRMHD**: the ExaGRyPE flagship shape of
   ``exahype_tpu/models/z4_grmhd.py`` — the 47-variable coupled Z4 + ideal
   GRMHD system with GLM cleaning (geodesic slicing: harmonic, f = 0; Γ =
@@ -536,6 +553,17 @@ Z4M_CONSTRAINT = 1e-6
 #: axis α D̃ v^d 2, the momentum rows 6 and the pressure term 2, α (τ̃ + √γ
 #: p) v^d 3.
 Z4M_FLUX_OPS = 1 + 3 * (2 + 6 + 2 + 3)
+#: The limited Z4+GRHD path (ROADMAP Queue 1 item 9.4; the limiter over the
+#: coupled system of ``tests/test_z4_matter.py:503-543``, ExaGRyPE's shape of
+#: a shock-capturing fluid on a dynamic spacetime): the Z4+GRHD path's solver
+#: and FLRW slice (``Z4M_*``, without the sine), D̃ and τ̃ times 1 +
+#: ``Z4L_AMP``·exp(−|x − c|²/``Z4L_WIDTH``) at the box centre c, w = 2 dx²
+#: (σ = one cell: the JAX test's bump is as sharp against its cells, and a p2
+#: cell cannot resolve it, so the detector fires); capacity 128 rows (the
+#: limited Euler path's ``CAPACITY``, half of the 256 rows); dt = ``Z4_DT``,
+#: ``Z4M_WARMUP`` warm-up steps, then ``STEPS`` checked.
+Z4L_AMP = 4.0
+Z4L_WIDTH = 2.0 * Z4_DX**2
 #: The Z4+GRMHD path (Queue 1 item 7.3: the ExaGRyPE flagship shape of
 #: ``exahype_tpu/models/z4_grmhd.py``, fused as ``__graft_entry__.py:559-600``
 #: steps it): the 47-variable coupled system, order 2, 3-D, geodesic slicing
@@ -968,32 +996,37 @@ def sweep_ops(n_pencils: int, n_sub=7, nvar=5) -> float:
     return per_pencil * n_pencils
 
 
-def k3_check(torch, subcell_cuda, lim, d, s, lo, hi, n: int, ref, label: str) -> float:
+def k3_check(torch, subcell_cuda, lim, d, s, lo, hi, n: int, ref, label: str,
+             dt=LIMITED_DT, name="subcell_row_sweep", f64_rtol=None) -> float:
     """K3's in-place contract on a clone of ``s`` with ``n`` active slots,
     twice (dt by value, then by pointer): the active slots of ``s`` and of
     the edge fluxes against ``ref`` (the plain sweep of all slots; float64
-    at ``F64_ATOL``, float32 at ``F32_ULPS``), the inactive slots of ``s``
+    at ``F64_ATOL``, or with ``f64_rtol`` at that share of max(1,
+    max|plain|), float32 at ``F32_ULPS``), the inactive slots of ``s``
     bitwise its input and the edge fluxes 0 there, the ghosts unchanged,
-    the two runs bitwise equal.  Prints one line per output and fails on
-    any miss; returns the largest error."""
+    the two runs bitwise equal.  Prints one line per output (``name`` the
+    kernel's) and fails on any miss; returns the largest error."""
     n_active = torch.tensor(n, device=s.device)
     lo0, hi0 = lo.clone(), hi.clone()
     s1, s2 = s.clone(), s.clone()
-    got = subcell_cuda.row_sweep_call(lim, d, s1, lo, hi, LIMITED_DT, n_active)
+    got = subcell_cuda.row_sweep_call(lim, d, s1, lo, hi, dt, n_active)
     again = subcell_cuda.row_sweep_call(
-        lim, d, s2, lo, hi, torch.tensor(LIMITED_DT, dtype=s.dtype, device=s.device),
-        n_active)
+        lim, d, s2, lo, hi, torch.tensor(dt, dtype=s.dtype, device=s.device), n_active)
     torch.cuda.synchronize()
     f64 = s.dtype == torch.float64
     worst = 0.0
     for what, a, b, c in zip(("s", "g_lo", "g_hi"), got, again, ref):
         act = c[..., :n, :]
         err = max_err(torch, a[..., :n, :], act) if n else 0.0
-        limit = F64_ATOL if f64 else (f32_bound(torch, act) if n else 0.0)
+        if f64:
+            limit = F64_ATOL if f64_rtol is None else f64_rtol * max(
+                1.0, act.abs().max().item() if n else 0.0)
+        else:
+            limit = f32_bound(torch, act) if n else 0.0
         rest = a[..., n:, :]
         untouched = bool(torch.equal(rest, s[..., n:, :]) if what == "s" else not rest.any())
         repeat = torch.equal(a, b)
-        say(f"[parity] subcell_row_sweep d={d} ({what}) {str(s.dtype)[6:]} {label}, "
+        say(f"[parity] {name} d={d} ({what}) {str(s.dtype)[6:]} {label}, "
             f"{n} of {s.shape[-2]} slots active: max_abs_err {err:.3e} limit {limit:.3e}; "
             f"inactive slots {'untouched' if what == 's' else 'zero'} {untouched}; "
             f"repeat bitwise (dt by value, by pointer) {repeat}")
@@ -1003,6 +1036,26 @@ def k3_check(torch, subcell_cuda, lim, d, s, lo, hi, n: int, ref, label: str) ->
     if not (got[0] is s1 and torch.equal(lo, lo0) and torch.equal(hi, hi0)):
         fail("K3 did not sweep in place or changed its ghosts")
     return worst
+
+
+def record_sweeps(lim, u, dt, tables) -> list:
+    """``(d, s, ghost_lo, ghost_hi)`` of each sweep of ``lim``'s plain
+    gathered step from ``u`` with ``tables`` (the batch as it enters each
+    direction)."""
+    from exahype_tpu_torch.models.limiter import LimitedADERDG
+
+    recorded = []
+
+    def record(s_, lo_, hi_, d_, dt_):
+        recorded.append((d_, s_, lo_, hi_))
+        return LimitedADERDG._row_sweep_math(lim, s_, lo_, hi_, d_, dt_)
+
+    lim._row_sweep_math = record
+    try:
+        lim._gathered_subcell_step_row(u, dt, tables)
+    finally:
+        del lim._row_sweep_math
+    return recorded
 
 
 def fv_ops(n_patches: int, dim=3, patch=4, halo=1, nvar=5) -> float:
@@ -1148,17 +1201,7 @@ def limited_path(torch, dev, card) -> list[dict]:
     candidate = cu.step(u5, LIMITED_DT)
     tables = plain._gather_tables_row(plain.troubled_mask(u5, candidate))
     n_active = int(tables["n_active"])
-    recorded = []
-
-    def record(s_, lo_, hi_, d_, dt_):
-        recorded.append((d_, s_, lo_, hi_))
-        return LimitedADERDG._row_sweep_math(plain, s_, lo_, hi_, d_, dt_)
-
-    plain._row_sweep_math = record
-    try:
-        plain._gathered_subcell_step_row(u5, LIMITED_DT, tables)
-    finally:
-        del plain._row_sweep_math
+    recorded = record_sweeps(plain, u5, LIMITED_DT, tables)
     del candidate
     # The kernel's times in place, on a working copy: at the batch's own
     # n_active and with every slot active (the overflow's worst case).
@@ -1199,7 +1242,8 @@ def limited_path(torch, dev, card) -> list[dict]:
     say(f"[limited main] {STEPS} steps of {GRID} f32 through LimitedADERDG after "
         f"{WARMUP} warm-up steps: launches {launches}; peak "
         f"{torch.cuda.max_memory_allocated() * gib:.4f} GiB allocated ({card})")
-    want = {**{name: STEPS for name in cu.kernels}, "subcell_row_sweep": 3 * STEPS}
+    want = {**{name: 0 for name in subcell_cuda.launches},
+            **{name: STEPS for name in cu.kernels}, "subcell_row_sweep": 3 * STEPS}
     if launches != want:
         fail(f"limited main path launches {launches}, expected {want}")
     finite = bool(torch.isfinite(u).all())
@@ -3017,23 +3061,121 @@ def z4_slots_read(torch, rhs_all) -> tuple[int, int]:
     return int(reached[:n].sum()), int(reached[n:].sum())
 
 
+def z4_value_point(torch, n: int, grad_axes):
+    """``(q, grads)``: one float64 CPU point of ``n`` variables whose state
+    has no zero slot (α, γ near flat space; with a fluid, one that recovers)
+    and whose gradient is seeded noise along ``grad_axes`` and zero along
+    the other axes."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(0.1 * rng.standard_normal((n, 1)))
+    q[[0, 1, 4, 6]] += 1.0
+    if n in (43, 47):
+        q[38:] = 0.01 * q[38:] + z4_base(torch, n, 1)[38:]
+    grads = tuple(torch.from_numpy(rng.standard_normal((n, 1))) if k in grad_axes
+                  else torch.zeros(n, 1, dtype=torch.float64) for k in range(3))
+    return q, grads
+
+
 def z4_value_ops(torch, rhs_all, grad_axes=(0, 1, 2)) -> int:
     """The arithmetic one evaluation of the algebra needs at a point whose
     state has no zero slot and whose gradient is nonzero along
-    ``grad_axes`` only: :func:`z4_tally` with ``skip_zero`` (the kernels of
-    ``csrc/aderdg_z4.cuh`` compile the zero gradient rows' terms away where
-    they know them at compile time)."""
-    import numpy as np
-
-    n = rhs_all.physics.n_real
-    rng = np.random.default_rng(11)
-    q = torch.from_numpy(0.1 * rng.standard_normal((n, 1)))
-    q[[0, 1, 4, 6]] += 1.0  # α, γ near flat space, no slot exactly zero
-    if n in (43, 47):
-        q[38:] = 0.01 * q[38:] + z4_base(torch, n, 1)[38:]  # a fluid that recovers
-    grads = tuple(torch.from_numpy(rng.standard_normal((n, 1))) if k in grad_axes
-                  else torch.zeros(n, 1, dtype=torch.float64) for k in range(3))
+    ``grad_axes`` only (:func:`z4_value_point`): :func:`z4_tally` with
+    ``skip_zero`` (the kernels of ``csrc/aderdg_z4.cuh`` compile the zero
+    gradient rows' terms away where they know them at compile time)."""
+    q, grads = z4_value_point(torch, rhs_all.physics.n_real, grad_axes)
     return sum(z4_tally(torch, rhs_all, q, grads, skip_zero=True).values())
+
+
+def z4_ncp_ops(torch, rhs_all, axis: int) -> int:
+    """The arithmetic that the non-conservative product B_axis(q)·Δq alone
+    needs at a point (:func:`z4_value_point` with the gradient along
+    ``axis``): the algebra, affine in the gradient, is traced op by op under
+    a dispatch mode, and only the work of the difference rhs(q, e_axis Δq) −
+    rhs(q, 0) is counted.  That is each op on a value that depends on the
+    gradient (a sum of such a value and a gradient-free one costs nothing:
+    the gradient-free term cancels), plus every gradient-free op that a
+    coefficient of such an op needs (a factor or divisor, and what computes
+    it, each counted once).  Ops are counted as :func:`z4_tally` with
+    ``skip_zero`` counts them; an op other than a sum, product, quotient by
+    a gradient-free value, negation or a data movement on a gradient-
+    dependent value raises."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    arith = {"add", "sub", "rsub", "mul", "div", "neg", "reciprocal", "sqrt"}
+    moves = {"select", "slice", "stack", "cat", "permute", "view", "unsqueeze", "squeeze",
+             "expand", "clone", "alias", "transpose", "t", "detach", "_unsafe_view"}
+    # A record per op: [cost, depends on the gradient, the inputs whose δ it
+    # reads, the gradient-free inputs it needs whole]; nodes[i] is the record
+    # of value i (several outputs of one op share it).
+    nodes, key, keep = [], {}, []
+
+    def value(t, rec):
+        key[id(t)] = len(nodes)
+        keep.append(t)  # keeps every id() unique while the trace lives
+        nodes.append(rec)
+
+    def zero(x):
+        return (isinstance(x, torch.Tensor) and not bool(x.any())) or (
+            isinstance(x, (int, float)) and x == 0)
+
+    class Flow(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            ins = []
+            for t in tree_leaves((args, kwargs or {})):
+                if isinstance(t, torch.Tensor):
+                    if id(t) not in key:
+                        value(t, [0, False, [], []])  # a constant
+                    ins.append(key[id(t)])
+            cost = int(name in arith and not (name in ("mul", "add", "sub", "rsub")
+                                              and any(zero(a) for a in args[:2])))
+            dep = [i for i in ins if nodes[i][1]]
+            free = [i for i in ins if not nodes[i][1]]
+            outs = [o for o in tree_leaves(out) if isinstance(o, torch.Tensor)]
+            if dep and not any(bool(o.any()) for o in outs):
+                rec = [0, False, [], []]  # a zero: the same in both evaluations
+            elif not dep:
+                rec = [cost, False, [], free]
+            elif name in ("add", "sub", "rsub"):
+                rec = [cost if len(dep) == 2 else 0, True, dep, []]
+            elif name == "neg" or (name == "mul" and len(dep) == 1) or (
+                    name == "div" and dep == [key.get(id(args[0]))]):
+                rec = [cost, True, dep, free]
+            elif name in moves:
+                rec = [0, True, dep, []]
+            else:
+                raise ValueError(f"{name} of the gradient: the algebra is not affine in it")
+            for o in outs:
+                value(o, rec)
+            return out
+
+    q, grads = z4_value_point(torch, rhs_all.physics.n_real, (axis,))
+    value(q, [0, False, [], []])
+    for k, gq in enumerate(grads):
+        value(gq, [0, k == axis, [], []])
+    with Flow():
+        r = rhs_all(q, grads, 0)
+    # Back from the output: the δ ops it reads, then the coefficients'
+    # whole gradient-free cones.
+    need_dep, need_free, todo = set(), set(), [key[id(r)]]
+    while todo:
+        i = todo.pop()
+        if i not in need_dep:
+            need_dep.add(i)
+            todo += nodes[i][2]
+            need_free.update(nodes[i][3])
+    todo = list(need_free)
+    while todo:
+        for j in nodes[todo.pop()][3]:
+            if j not in need_free:
+                need_free.add(j)
+                todo.append(j)
+    recs = {id(nodes[i]): nodes[i] for i in need_dep | need_free}
+    return sum(rec[0] for rec in recs.values())
 
 
 def z4_kernel_work(order: int, picard_iters: int, ncell: int, itemsize: int, full: int,
@@ -4160,6 +4302,287 @@ def z4_matter_path(torch, dev, card) -> list[dict]:
     }]
 
 
+def z4l_clump(torch, sol):
+    """The limited Z4+GRHD path's initial state on ``sol``: the FLRW slice
+    (``z4m_flrw`` without the sine) with D̃ and τ̃ times 1 +
+    ``Z4L_AMP``·exp(−|x − c|²/``Z4L_WIDTH``), c the box centre."""
+    import numpy as np
+
+    u, _ = z4m_flrw(torch, sol, perturb=False)
+    r2 = sum((x - 0.5 * g * h) ** 2
+             for x, g, h in zip(node_coords(sol), sol.grid_shape, sol._dxs))
+    bump = torch.from_numpy(np.ascontiguousarray(1.0 + Z4L_AMP * np.exp(-r2 / Z4L_WIDTH)))
+    bump = bump.unsqueeze(sol.var_axis).to(u)
+    for slot in (38, 42):
+        u.narrow(sol.var_axis, slot, 1).mul_(bump)
+    return u.contiguous()
+
+
+def z4l_sweep_ops(torch, rhs_all, n_sub: int = 5, nvar: int = 43) -> tuple[int, dict]:
+    """Flops a pencil of the Z4+GRHD sweep (``csrc/subcell_ncp.cuh``) needs,
+    and its parts: ``n_sub + 2`` states' recovery, hydro flux along the axis
+    and wave speed; ``n_sub + 1`` faces' q̃ and Δq (3 a value), Rusanov flux
+    (the 38 fluxless rows 3 a value, the 5 hydro rows 5, the max), and NCP
+    half (B_d(q̃)·Δq, :func:`z4_ncp_ops` averaged over the axes, halved: 1 a
+    value); ``n_sub`` updates (6 a value) and the two edge fluxes' sums (1 a
+    value each).  The recovery's count is the plain ``recover``'s, tallied
+    as ``z4_tally`` tallies the algebra.  The kernel reaches the NCP as the
+    difference of two whole evaluations of the algebra; the work the
+    function needs is the product alone."""
+    from exahype_tpu_torch.models.z4_matter import recover
+
+    q = z4_base(torch, nvar, 1)
+    rec = sum(z4_tally(torch, lambda q_, g_, va: recover(q_.T)[2], q, ()).values())
+    ncp = statistics.mean(z4_ncp_ops(torch, rhs_all, k) for k in range(3))
+    parts = {
+        "states": (n_sub + 2) * (rec + Z4M_FLUX_OPS // 3 + 23),
+        "faces": (n_sub + 1) * (3 * nvar + 3 * 38 + 5 * 5 + 1 + ncp + nvar),
+        "updates": n_sub * 6 * nvar,
+        "edge sums": 2 * nvar,
+    }
+    return int(sum(parts.values())), {"recovery": rec, "NCP product (mean of the axes)": ncp,
+                                      **parts}
+
+
+def limited_z4_matter_path(torch, dev, card) -> list[dict]:
+    """The limited Z4+GRHD path: ``LimitedADERDG`` over the coupled solver,
+    its candidate through ``CudaADERDG`` (K1 d) and its gathered sweeps
+    through K3 a's Z4+GRHD instance (``subcell_row_sweep_z4_matter``);
+    returns K3 a's line of the kernel JSON."""
+    from exahype_tpu_torch.models import subcell_cuda
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.limiter import LimitedADERDG
+    from exahype_tpu_torch.models.z4_matter import make_z4_matter_solver, z4_matter_admissible
+
+    adm = z4_matter_admissible()
+    kernel = "subcell_row_sweep_z4_matter"
+    t0 = time.perf_counter()
+
+    def phase(what):
+        say(f"[z4l] {what}: {time.perf_counter() - t0:.1f} s into the path (host clock)")
+
+    def make(grid, dtype, capacity=CAPACITY):
+        sol = make_z4_matter_solver(3, Z4_ORDER, grid, dx=Z4_DX, fused_rhs="soa", device=dev,
+                                    dtype=dtype, **Z4M_PARAMS)
+        cu = CudaADERDG(sol)
+        opts = dict(troubled_capacity=capacity, troubled_granularity="row", device=dev)
+        return (sol, cu, LimitedADERDG(sol, adm, accelerator=cu, subcell_cuda=True, **opts),
+                LimitedADERDG(sol, adm, **opts))
+
+    # ------------------------------------------- K3 a vs plain, float64, cut grid
+    rows64 = Z4_CUT[0] * Z4_CUT[1]
+    sol64, _, lim64, plain64 = make(Z4_CUT, torch.float64, capacity=rows64)
+    u = z4m_noisy(torch, sol64)
+    every = plain64._gather_tables_row(torch.ones(Z4_CUT, dtype=torch.bool, device=dev))
+    for d, s, lo, hi in record_sweeps(plain64, u, Z4_DT, every):
+        ref = plain64._row_sweep_math(s, lo, hi, d, Z4_DT)
+        for n in (rows64, rows64 // 2 - 1):
+            k3_check(torch, subcell_cuda, lim64, d, s, lo, hi, n, ref,
+                     f"{tuple(s.shape)} ({Z4_CUT} noisy, every row gathered)", dt=Z4_DT,
+                     name=kernel, f64_rtol=Z4_F64_RTOL)
+    del sol64, lim64, plain64, u, every, s, lo, hi, ref
+    phase("K3 a in float64")
+
+    # ------------------------------------------- the main path
+    sol, cu, lim, plain = make(Z4_GRID, torch.float32)
+    va = sol.var_axis
+    u0 = z4l_clump(torch, sol)
+    rows = Z4_GRID[0] * Z4_GRID[1]
+    say(f"[z4l] {Z4_GRID} cells, order {Z4_ORDER}, 43 vars, {Z4M_PARAMS}, FLRW slice ρ₀ = "
+        f"{Z4M_RHO0}, ε₀ = {Z4M_EPS0}, D̃ and τ̃ times 1 + {Z4L_AMP} exp(−|x − c|²/"
+        f"{Z4L_WIDTH!r}); dt = {Z4_DT!r}; cfl_dt(initial state) {float(sol.cfl_dt(u0))!r}; "
+        f"capacity {CAPACITY} of {rows} rows of {Z4_GRID[-1]} cells, f32")
+    if not bool(adm(u0, va).all()):
+        fail("the clumped FLRW state is not admissible")
+
+    # The rows each step demands and gathers: the step's own tables, read
+    # after the run (no extra synchronisation inside it).
+    demand = []
+    real_tables = lim._gather_tables_row
+
+    def logged(troubled):
+        demand.append(troubled.reshape(rows, -1).any(dim=-1).sum())
+        return real_tables(troubled)
+
+    def rows_line(label):
+        counts = [int(x) for x in demand]
+        say(f"[z4l main] troubled rows per step ({label}): {counts} against capacity "
+            f"{CAPACITY}; overflow (the cell-mean update) engaged on "
+            f"{sum(c > CAPACITY for c in counts)} of them")
+        demand.clear()
+        return counts
+
+    lim._gather_tables_row = logged
+    uw = lim.run(u0, Z4M_WARMUP, Z4_DT)
+    torch.cuda.synchronize()
+    warm_rows = rows_line(f"{Z4M_WARMUP} warm-up steps")
+    if not warm_rows[0] > 0:
+        fail("the detector did not fire on the clump")
+    mass0 = z4m_integral(torch, sol, uw, 38)
+    gib = 2.0**-30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cu.reset_launches()
+    subcell_cuda.reset_launches()
+    u = lim.run(uw, STEPS, Z4_DT)
+    torch.cuda.synchronize()
+    launches = {**cu.launches, **subcell_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    checked_rows = rows_line(f"{STEPS} checked steps")
+    lim._gather_tables_row = real_tables
+    overflow = max(checked_rows) > CAPACITY
+    say(f"[z4l main] {STEPS} steps of {Z4_GRID} f32 through LimitedADERDG after {Z4M_WARMUP} "
+        f"warm-up steps: launches {launches}; peak {peak * gib:.4f} GiB allocated ({card})")
+    want = {**{name: 0 for name in subcell_cuda.launches},
+            **{name: STEPS for name in cu.kernels}, kernel: 3 * STEPS}
+    if launches != want:
+        fail(f"the limited Z4+GRHD path launches {launches}, expected {want}")
+    finite, admissible = bool(torch.isfinite(u).all()), bool(adm(u, va).all())
+    drift = abs(z4m_integral(torch, sol, u, 38) - mass0) / abs(mass0)
+    say(f"[z4l main] state finite {finite}, admissible (z4_matter_admissible) {admissible}; "
+        f"∫D̃ dV drift over {STEPS} steps {drift!r} (gate {MASS_RTOL} when no overflow "
+        "engaged)")
+    if tuple(u.shape) != sol.state_shape or not (finite and admissible):
+        fail("the limited Z4+GRHD state is not finite and admissible")
+    if not overflow and not drift <= MASS_RTOL:
+        fail(f"∫D̃ dV drifted by {drift} over {STEPS} limited Z4+GRHD steps")
+    if not torch.equal(u, lim.run(uw, STEPS, Z4_DT)):
+        fail("two limited Z4+GRHD runs from the same state differ")
+    say("[z4l main] two runs from the same state: bitwise equal")
+
+    # One step of the kernel path against the plain limited step.
+    mask_k = lim.troubled_mask(u, cu.step(u, Z4_DT))
+    mask_p = plain.troubled_mask(u, sol.step(u, Z4_DT))
+    step_k = lim.step(u, Z4_DT)
+    torch.cuda.reset_peak_memory_stats()
+    step_p = plain.step(u, Z4_DT)
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated()
+    err, limit = max_err(torch, step_k, step_p), f32_bound(torch, step_p)
+    say(f"[z4l main] one step, kernel path vs plain path: troubled cells "
+        f"{int(mask_k.sum())} (kernel candidate) / {int(mask_p.sum())} (plain), masks equal "
+        f"{torch.equal(mask_k, mask_p)}; state max_abs_err {err:.3e} limit {limit:.3e}")
+    if not (torch.equal(mask_k, mask_p) and err <= limit):
+        fail("the limited Z4+GRHD kernel path disagrees with the plain path")
+    del mask_k, mask_p, step_k, step_p
+    phase("the main path and the plain step")
+
+    # ------------------------------------------- K3 a on the main path's batch, float32
+    candidate = cu.step(uw, Z4_DT)
+    tables = plain._gather_tables_row(plain.troubled_mask(uw, candidate))
+    n_active = int(tables["n_active"])
+    del candidate
+    recorded = record_sweeps(plain, uw, Z4_DT, tables)
+    sweep_shape = tuple(recorded[0][1].shape)
+    k3_err, k3_ms, k3_full_ms, k3_plain_ms = 0.0, {}, {}, {}
+    n_dev, all_dev = tables["n_active"], torch.tensor(CAPACITY, device=dev)
+    for d, s, lo, hi in recorded:
+        ref = plain._row_sweep_math(s, lo, hi, d, Z4_DT)
+        label = f"{sweep_shape} (gathered batch after {Z4M_WARMUP} steps)"
+        k3_err = max(k3_err, k3_check(torch, subcell_cuda, lim, d, s, lo, hi, n_active, ref,
+                                      label, dt=Z4_DT, name=kernel))
+        k3_check(torch, subcell_cuda, lim, d, s, lo, hi, CAPACITY, ref, label, dt=Z4_DT,
+                 name=kernel)
+        work = s.clone()
+
+        def sweep(n_):
+            return subcell_cuda.row_sweep_call(lim, d, work, lo, hi, Z4_DT, n_)
+
+        # CUDA events over back-to-back calls: a sweep of 43 variables
+        # outlasts the wrapper's host time (torch.profiler recorded no span
+        # of it with every slot active on an H100).
+        k3_ms[d] = event_ms(torch, lambda: sweep(n_dev), 5)
+        work.copy_(s)
+        k3_full_ms[d] = event_ms(torch, lambda: sweep(all_dev), 3)
+        k3_plain_ms[d] = once_ms(torch, lambda: plain._row_sweep_math(s, lo, hi, d, Z4_DT))
+        del ref, work
+    s_last = recorded[-1][1]
+    source_ms = event_ms(torch, lambda: sol.source_fn(s_last, va), 3)
+    del recorded, s, lo, hi, s_last
+    torch.cuda.empty_cache()
+    phase("K3 a in float32 at full width")
+
+    # ------------------------------------------- times
+    dofs = sol.dofs()
+    k_win = windows(torch, lim, uw, Z4_DT, steps=STEPS)
+    ms = [1e3 * w for w in k_win]
+    plain_step_ms = once_ms(torch, lambda: plain.step(uw, Z4_DT))
+    say(f"[z4l time] kernel path: step ms per window {ms!r}; median {statistics.median(ms)!r} "
+        f"ms, {dofs / statistics.median(k_win)!r} DOF-updates/s ({dofs} DOF per step); plain "
+        f"path one step {plain_step_ms!r} ms ({card})")
+    cand, dg_fl = cu.step(uw, Z4_DT, return_face_fluxes=True)
+    raw = lim.troubled_mask(uw, cand)
+    tab = lim._gather_tables_row(raw)
+    R, g = lim._gathered_subcell_step_row(uw, Z4_DT, tab)
+    fv = lim._scatter_face_fluxes_row(g, tab, uw.dtype)
+    matched = lim._match_interface_fluxes(cand, dg_fl, fv, tab["mask"], Z4_DT)
+    merged = lim._scatter_fallback_row(matched.clone(), R, tab, tab["mask"])
+    stages = {
+        "candidate (K1 d, face fluxes out)":
+            lambda: cu.step(uw, Z4_DT, return_face_fluxes=True),
+        "detection": lambda: lim.troubled_mask(uw, cand),
+        "tables": lambda: lim._gather_tables_row(raw),
+        "gathered fallback (projection, ghosts, 3 sweeps, source, reconstruction)":
+            lambda: lim._gathered_subcell_step_row(uw, Z4_DT, tab),
+        "matching (face-flux scatter and interface matching)": lambda: (
+            lim._match_interface_fluxes(cand, dg_fl, lim._scatter_face_fluxes_row(
+                g, tab, uw.dtype), tab["mask"], Z4_DT)),
+        "merge and guard": lambda: lim._admissibility_scale(lim._scatter_fallback_row(
+            matched, R, tab, tab["mask"])),
+    }
+    stage_ms = {k: event_ms(torch, fn, 3) for k, fn in stages.items()}
+    step_ms = event_ms(torch, lambda: lim.step(uw, Z4_DT), 5)
+    say(f"[z4l time] the step's stages alone (CUDA events, 3 calls each): " + ", ".join(
+        f"{k} {v!r} ms" for k, v in stage_ms.items()) + f"; of the gathered fallback: the "
+        f"sweeps {sum(k3_ms.values())!r} ms (CUDA events) at {n_active} active slots, the "
+        f"source (plain source_fn on the batch {sweep_shape}) {source_ms!r} ms; whole step "
+        f"{step_ms!r} ms ({card})")
+    del cand, dg_fl, raw, tab, R, g, fv, matched, merged
+    idle, busy, wall = idle_share(torch, lambda: lim.run(uw, STEPS, Z4_DT))
+    say(f"[z4l idle] kernel path, {STEPS} steps under torch.profiler: device busy {busy!r} ms "
+        f"of wall {wall!r} ms; idle share {idle!r} ({card})")
+    say(f"[z4l mem] peak allocated over {STEPS} steps: kernel path {peak * gib:.4f} GiB, "
+        f"plain step {plain_peak * gib:.4f} GiB ({card})")
+    phase("the times")
+
+    # ------------------------------------------- bounds
+    itemsize = uw.element_size()
+    per_pencil, parts = z4l_sweep_ops(torch, sol.rhs_all_fn)
+    n_cells = sweep_shape[4] * sweep_shape[5]
+    info = subcell_cuda.kernel_info(torch.float32, 0, "z4_matter")
+    bnds = {}
+    for what, nrows, ms_ in ((f"{n_active} active slots", n_active, k3_ms),
+                             (f"all {CAPACITY} slots active", CAPACITY, k3_full_ms)):
+        pencils = 25 * nrows * Z4_GRID[-1]
+        bnds[what] = kernel_report(
+            None, kernel, torch.float32, f"(limited Z4+GRHD, {what}) {sweep_shape} f32, mean "
+            "of 3 directions", statistics.mean(ms_.values()),
+            sweep_bytes(pencils, n_cells, itemsize, n_sub=5, nvar=43), per_pencil * pencils,
+            card, info=info)
+    bnd, bnd_full = bnds.values()
+    say(f"[bound] {kernel} f32, one sweep: {per_pencil} operations a pencil ({parts}); "
+        f"{n_active} active slots: kernel mean {statistics.mean(k3_ms.values())!r} ms (per "
+        f"direction {list(k3_ms.values())!r}) against {bnd['bound_ms']!r} ms by "
+        f"{bnd['bound_by']}; all {CAPACITY} slots active: kernel mean "
+        f"{statistics.mean(k3_full_ms.values())!r} ms (per direction "
+        f"{list(k3_full_ms.values())!r}) against {bnd_full['bound_ms']!r} ms by "
+        f"{bnd_full['bound_by']}; plain sweep {list(k3_plain_ms.values())!r} ms ({card})")
+    del sol, cu, lim, plain, u0, uw, u
+    torch.cuda.empty_cache()
+    return [{
+        "name": kernel,
+        "route": "cuda",
+        "source": "exahype_tpu_torch/csrc/subcell_ncp.cuh",
+        "replaces": "exahype_tpu/models/subcell_pallas.py:47",
+        "launches": launches[kernel],
+        "max_abs_err": k3_err,
+        "ms": statistics.mean(k3_ms.values()),
+        "plain_ms": statistics.mean(k3_plain_ms.values()),
+        **bnd,
+        "library_ms": None,  # no single PyTorch call computes it
+    }]
+
+
 def z4g_noisy(torch, sol, seed=5):
     """A parity state (``Z4G_NOISE``): ``pack_matter_mhd`` of flat space with
     seeded noise on every Z4 slot, ρ ≈ 1, p ≈ 1, a velocity field of up to
@@ -4634,7 +5057,8 @@ def limited_walls_path(torch, dev, card) -> list[dict]:
     say(f"[limited walls main] {STEPS} steps of {GRID} f32 after {WARMUP} warm-up steps: "
         f"launches {launches}; peak {torch.cuda.max_memory_allocated() * gib:.4f} GiB "
         f"allocated ({card})")
-    want = {**{name: STEPS for name in cu.kernels}, "subcell_row_sweep": 3 * STEPS}
+    want = {**{name: 0 for name in subcell_cuda.launches},
+            **{name: STEPS for name in cu.kernels}, "subcell_row_sweep": 3 * STEPS}
     if launches != want:
         fail(f"the walled limited path launches {launches}, expected {want}")
     finite, admissible = bool(torch.isfinite(u).all()), bool(adm(u, sol.var_axis).all())
@@ -4705,17 +5129,7 @@ def limited_walls_path(torch, dev, card) -> list[dict]:
     candidate = cu.step(u5, LIMITED_DT)
     tables = plain._gather_tables_row(plain.troubled_mask(u5, candidate))
     n_active = int(tables["n_active"])
-    recorded = []
-
-    def record(s_, lo_, hi_, d_, dt_):
-        recorded.append((d_, s_, lo_, hi_))
-        return LimitedADERDG._row_sweep_math(plain, s_, lo_, hi_, d_, dt_)
-
-    plain._row_sweep_math = record
-    try:
-        plain._gathered_subcell_step_row(u5, LIMITED_DT, tables)
-    finally:
-        del plain._row_sweep_math
+    recorded = record_sweeps(plain, u5, LIMITED_DT, tables)
     k3_err, k3_ms, k3_plain_ms = 0.0, {}, {}
     n_dev = tables["n_active"]
     for d, s, lo, hi in recorded:
@@ -5488,6 +5902,7 @@ def main():
         "Z4": lambda: z4_path(torch, dev, card),
         "Z4 shifted": lambda: z4_shift_path(torch, dev, card),
         "Z4+GRHD": lambda: z4_matter_path(torch, dev, card),
+        "limited Z4+GRHD": lambda: limited_z4_matter_path(torch, dev, card),
         "Z4+GRMHD": lambda: z4_grmhd_path(torch, dev, card),
     }
     kernels, seconds = [], {"build": time.perf_counter() - t0}

@@ -82,6 +82,9 @@ _ROW_SWEEP = (
     _P, _P, _P, _P, _P, _P, _P, ctypes.c_double, ctypes.c_double,
     ctypes.c_double, _INT, _INT, _INT, _INT, _P, _LL, _LL, _P,
 )
+# The Z4+GRHD sweep (csrc/subcell_z4_matter*.cu): the same with the
+# system's parameter array in place of gamma.
+_ROW_SWEEP_Z4_MATTER = _ROW_SWEEP[:9] + (_P,) + _ROW_SWEEP[10:]
 # f64, d, out (6 ints)
 _SUBCELL_INFO = (_INT, _INT, _P)
 # q, g0, g1, g2, out, n_lead, n_vars, n_grid, slicing, f, m, kappa1, kappa2,
@@ -129,6 +132,7 @@ _SIGNATURES = {
         ("aderdg_face_flux_walls_2d", _FACE_FLUX_WALLS),
         ("aderdg_surface_update_walls_2d", _SURFACE_UPDATE_WALLS),
         ("subcell_row_sweep", _ROW_SWEEP),
+        ("subcell_row_sweep_z4_matter", _ROW_SWEEP_Z4_MATTER),
         ("rhs_all_z4", _RHS_ALL),
         ("rhs_all_z4_shift", _RHS_ALL_SHIFT),
         ("rhs_all_z4_matter", _RHS_ALL_MATTER),
@@ -138,6 +142,7 @@ _SIGNATURES = {
 }
 _SIGNATURES["exahype_aderdg_kernel_info"] = _KERNEL_INFO
 _SIGNATURES["exahype_subcell_kernel_info"] = _SUBCELL_INFO
+_SIGNATURES["exahype_subcell_z4_matter_kernel_info"] = _SUBCELL_INFO
 
 
 class BuildError(RuntimeError):

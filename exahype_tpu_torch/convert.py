@@ -220,9 +220,10 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
 
 def limited_from_jax(jax_limited, *, gamma: float, walls=None, physics="euler",
                      mu: float | None = None, prandtl: float | None = None, device=None,
-                     dtype: torch.dtype = torch.float64):
+                     dtype: torch.dtype = torch.float64, **system):
     """The port's :class:`LimitedADERDG` for a JAX ``LimitedADERDG``, 2-D or
-    3-D, periodic or walled, inviscid or viscous.
+    3-D, periodic or walled, inviscid or viscous, or over the coupled
+    Z4+GRHD system.
 
     Builds the base solver through :func:`aderdg_from_jax` (a reflective
     solver's hooks named by ``walls``, e.g. ``"euler"`` or ``"noslip"``;
@@ -232,21 +233,40 @@ def limited_from_jax(jax_limited, *, gamma: float, walls=None, physics="euler",
     numbers and options (``dmp_delta0``, ``dmp_eps``, ``fallback``,
     ``fallback_order``, ``fallback_slope``, ``troubled_capacity``,
     ``troubled_granularity``, ``overflow_fallback``, ``post_step_guard``).
-    The JAX ``admissible`` callback is opaque: where it is set, the port's
-    :func:`euler_admissible` with ``gamma`` takes its place.  A JAX
-    ``PallasADERDG`` accelerator maps to :class:`CudaADERDG`, and
-    ``subcell_pallas=True`` to ``subcell_cuda=True``.  An option outside
-    the ported configurations raises ``SemanticError``; the JAX limiter's
-    own errors are raised as it raises them.
+    ``physics="z4_matter"`` builds the base solver through
+    :func:`z4_matter_solver_from_jax` with ``gamma`` and the system's other
+    parameters given as keywords (``iters``, ``slicing``, ``f``, ``m``,
+    ``kappa1``, ``kappa2``).  The JAX ``admissible`` callback is opaque:
+    where it is set, the port's :func:`euler_admissible` with ``gamma``
+    takes its place, or over Z4+GRHD
+    :func:`~exahype_tpu_torch.models.z4_matter.z4_matter_admissible` with
+    ``gamma`` and ``iters``.  A JAX ``PallasADERDG`` accelerator maps to
+    :class:`CudaADERDG`, and ``subcell_pallas=True`` to
+    ``subcell_cuda=True``.  An option outside the ported configurations
+    raises ``SemanticError``; the JAX limiter's own errors are raised as it
+    raises them.
     """
     from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
     from exahype_tpu_torch.models.limiter import LimitedADERDG, euler_admissible
 
-    solver = aderdg_from_jax(jax_limited.solver, gamma=gamma, walls=walls, physics=physics,
-                             mu=mu, prandtl=prandtl, device=device, dtype=dtype)
-    admissible = None
-    if jax_limited.admissible is not None:
-        admissible = euler_admissible(solver.dim, gamma=gamma)
+    if physics == "z4_matter":
+        from exahype_tpu_torch.models.z4_matter import z4_matter_admissible
+
+        if walls is not None or mu is not None or prandtl is not None:
+            raise SemanticError("the Z4+GRHD system crosses periodic and inviscid only")
+        solver = z4_matter_solver_from_jax(jax_limited.solver, gamma=gamma, device=device,
+                                           dtype=dtype, **system)
+        admissible = None
+        if jax_limited.admissible is not None:
+            admissible = z4_matter_admissible(gamma=gamma, iters=system.get("iters", 10))
+    else:
+        if system:
+            raise SemanticError(f"{sorted(system)} are parameters of physics='z4_matter'")
+        solver = aderdg_from_jax(jax_limited.solver, gamma=gamma, walls=walls, physics=physics,
+                                 mu=mu, prandtl=prandtl, device=device, dtype=dtype)
+        admissible = None
+        if jax_limited.admissible is not None:
+            admissible = euler_admissible(solver.dim, gamma=gamma)
     accelerator = None
     if jax_limited.accelerator is not None:
         accelerator = CudaADERDG(solver)

@@ -20,6 +20,16 @@ of configurations:
   solvers with Dirichlet walls and on the gathered path, and so does the
   port.
 
+Every fallback carries the solver's non-conservative product, source and
+dissipation mask as JAX does (the coupled Z4+GRHD system's
+``tests/test_z4_matter.py`` configuration; CK solvers alike: the fallback
+reads only the physics callbacks): the jump term is masked, the NCP adds
+the central half-fluctuation ½·ncp(½(a + b), b − a) of each face (the
+MUSCL stages also the in-cell term B(s)·σ), and the source a forward-Euler
+term after the sweeps (on the gathered rows plain PyTorch, outside the
+sweep kernel).  A solver with ``rhs_all_fn`` is limited through its
+``ncp_fn`` and ``source_fn``.
+
 One step:
 
 1. the unlimited candidate and its per-axis high-face fluxes, from the base
@@ -66,10 +76,11 @@ they are XLA in the JAX package.  What the translation changes:
   workaround) has no counterpart.
 
 Options outside these configurations raise :class:`SemanticError` naming
-``ROADMAP.md``, Queue 1 item 9 and its step (9.4: NCP, source, CK and
-dissipation-masked solvers; 9.5: ``troubled_granularity="cell"`` and
-``overflow_fallback="candidate"`` on the gathered path); the JAX limiter's
-own refusals and errors are mirrored.
+``ROADMAP.md``, Queue 1 item 9 and its step (9.5: ``troubled_granularity=
+"cell"`` and ``overflow_fallback="candidate"`` on the gathered path); the
+JAX limiter's own refusals and errors are mirrored.  ``subcell_cuda=True``
+on a card solver whose (dim, order, physics) the sweep kernel lacks raises
+``LoweringError`` at construction (``models/subcell_cuda.py``).
 """
 
 from __future__ import annotations
@@ -81,7 +92,6 @@ import torch
 from torch import nn
 
 from exahype_tpu_torch.models.aderdg import (
-    CALLBACK_OPTIONS,
     ADERDGSolver,
     _apply,
     _project,
@@ -198,10 +208,6 @@ class LimitedADERDG(nn.Module):
                 "troubled_capacity with troubled_granularity='row'"
             )
         # What the port does not carry yet.
-        if (solver.predictor_mode != "picard" or solver.dissipation_mask is not None
-                or any(getattr(solver, name) is not None for name in CALLBACK_OPTIONS)):
-            raise _unported(
-                "the limiter over a CK, dissipation-masked, source or NCP solver", "9.4")
         if gathered and troubled_granularity != "row":
             raise _unported(f"troubled_granularity={troubled_granularity!r} on the gathered "
                             "path (only 'row' is)", "9.5")
@@ -227,6 +233,12 @@ class LimitedADERDG(nn.Module):
         if gathered:
             n_rows = int(np.prod(solver.grid_shape[:-1]))
             self.troubled_capacity = min(int(troubled_capacity), n_rows)
+        if self.subcell_cuda and device.type == "cuda":
+            # The sweep kernels exist for a few (dim, order, physics) only:
+            # refuse the others here rather than at the first troubled step.
+            from exahype_tpu_torch.models.subcell_cuda import check_physics
+
+            check_physics(self)
         P = subcell_projection(solver.order, self.n_sub, solver.basis)
         R = subcell_reconstruction(solver.order, self.n_sub, solver.basis)
         self._P_np = P
@@ -425,9 +437,21 @@ class LimitedADERDG(nn.Module):
 
     # ---------------------------------------------------------- fallbacks
 
+    def _masked_jump(self, dq, va):
+        """The solver's ``dissipation_mask`` applied to a Rusanov jump term
+        (var axis ``va``)."""
+        m = self.solver.dmask
+        if m is None:
+            return dq
+        shape = [1] * dq.dim()
+        shape[va] = m.numel()
+        return dq * m.to(dq.dtype).reshape(shape)
+
     def fv_fallback(self, u, dt):
         """First-order Rusanov update of the cell means, nodal-broadcast
-        (the ``"means"`` fallback, and the overflow policy's update)."""
+        (the ``"means"`` fallback, and the overflow policy's update); with
+        an NCP the central half-fluctuation of both faces, with a source
+        its forward-Euler term on the old means."""
         sol = self.solver
         means = self.cell_means(u)  # [V, *grid]; var axis 0
         new = means
@@ -451,8 +475,10 @@ class LimitedADERDG(nn.Module):
 
             s_hi = torch.maximum(eig(means), eig(up))[None]
             s_lo = torch.maximum(eig(dn), eig(means))[None]
-            fhat_hi = 0.5 * (flux(means) + flux(up)) - 0.5 * s_hi * (up - means)
-            fhat_lo = 0.5 * (flux(dn) + flux(means)) - 0.5 * s_lo * (means - dn)
+            fhat_hi = (0.5 * (flux(means) + flux(up))
+                       - 0.5 * s_hi * self._masked_jump(up - means, 0))
+            fhat_lo = (0.5 * (flux(dn) + flux(means))
+                       - 0.5 * s_lo * self._masked_jump(means - dn, 0))
             if visc is not None:
                 v_hi, v_lo = self._diffusive_fluxes(
                     means, up, dn, G, d, 0, sol._dxs[d],
@@ -460,6 +486,14 @@ class LimitedADERDG(nn.Module):
                         x, sh, ax, d, negate_ghost=(e == d), grad_field=True))
                 fhat_hi, fhat_lo = fhat_hi + v_hi, fhat_lo + v_lo
             new = new - lam * (fhat_hi - fhat_lo)
+            if sol.ncp_fn is not None:
+                # Piecewise-constant cells: no volume term, the central half
+                # of each face (the dissipation is in fhat).
+                half_hi = 0.5 * sol.ncp_fn(0.5 * (means + up), up - means, d, 0)
+                half_lo = 0.5 * sol.ncp_fn(0.5 * (dn + means), means - dn, d, 0)
+                new = new - lam * (half_hi + half_lo)
+        if sol.source_fn is not None:
+            new = new + dt * sol.source_fn(means, 0)
         return self._broadcast_means(new, u)
 
     def _diffusive_fluxes(self, s, up, dn, G, d, va, h, shift_grad):
@@ -553,6 +587,10 @@ class LimitedADERDG(nn.Module):
                                                      grad_field=True))
             s, _, g_hi = self._row_sweep_math(s, from_left, from_right, d, dt, extra)
             face_fluxes.append(g_hi)
+        if sol.source_fn is not None:
+            # Forward Euler on the swept subcell means (first order in time,
+            # as the fallback is).
+            s = s + dt * sol.source_fn(s, va)
         recon = self.reconstruct_subcells(s)
         if return_face_fluxes:
             return recon, face_fluxes
@@ -584,8 +622,9 @@ class LimitedADERDG(nn.Module):
     def _muscl_sweep(self, s, dt):
         """One unsplit MUSCL Rusanov stage on the subcell grid: ``s +
         dt·L(s)`` and the per-direction transverse-mean cell-boundary fluxes
-        (JAX's ``_muscl_sweep``, its flux and viscous parts; its NCP and
-        source terms go with ROADMAP Queue 1 item 9.4)."""
+        (JAX's ``_muscl_sweep``).  With an NCP, the path-conservative
+        fluctuations of the reconstructed interface states and the in-cell
+        term B(s)·σ; with a source, its forward-Euler term on ``s``."""
         sol = self.solver
         va = sol.var_axis
         n_sub = self.n_sub
@@ -610,7 +649,7 @@ class LimitedADERDG(nn.Module):
                 F = 0.5 * (sol.flux_fn(qL, d, va) + sol.flux_fn(qR, d, va))
                 sp = torch.maximum(sol.max_eigenvalue_fn(qL, d, va),
                                    sol.max_eigenvalue_fn(qR, d, va)).unsqueeze(va)
-                return F - 0.5 * sp * (qR - qL)
+                return F - 0.5 * sp * self._masked_jump(qR - qL, va)
 
             fhat_hi = rusanov(qL_hi, qR_hi)
             fhat_lo = rusanov(qL_lo, qR_lo)
@@ -621,8 +660,17 @@ class LimitedADERDG(nn.Module):
                                                      grad_field=True))
                 fhat_hi, fhat_lo = fhat_hi + v_hi, fhat_lo + v_lo
             out = out - lam * (fhat_hi - fhat_lo)
+            if sol.ncp_fn is not None:
+                half_hi = 0.5 * sol.ncp_fn(0.5 * (qL_hi + qR_hi), qR_hi - qL_hi, d, va)
+                half_lo = 0.5 * sol.ncp_fn(0.5 * (qL_lo + qR_lo), qR_lo - qL_lo, d, va)
+                # The in-cell reconstruction term B(s)·σ: what lifts the
+                # path-conservative fallback to second order.
+                vol = sol.ncp_fn(s, sigma, d, va)
+                out = out - lam * (half_hi + half_lo + vol)
             other_sub = tuple(a if a < d else a - 1 for a in range(sol.dim) if a != d)
             face_fluxes.append(torch.mean(fhat_hi.select(d, n_sub - 1), dim=other_sub))
+        if sol.source_fn is not None:
+            out = out + dt * sol.source_fn(s, va)
         return out, face_fluxes
 
     # --------------------------------------------- row-granular gathered path
@@ -783,16 +831,24 @@ class LimitedADERDG(nn.Module):
                     ghost_lo = self._set_row(ghost_lo, mirror_lo, 0, L_ax)
             s, g_lo, g_hi = sweep(d, s, ghost_lo.contiguous(), ghost_hi.contiguous())
             g_fluxes.append((g_lo, g_hi))
+        if sol.source_fn is not None:
+            # Plain PyTorch on every slot (XLA around the sweeps in JAX).
+            s = s + dt * sol.source_fn(s, va)
         return self.reconstruct_subcells(s), g_fluxes
 
     def _row_sweep_math(self, s, ghost_lo, ghost_hi, d, dt, extra=None):
         """One directional Rusanov sweep along subcell axis ``d`` of a batch
         ``[sub.., V, *rest]`` (the gathered rows ``[.., K, L]``, or the whole
         grid), with the ghost layers already built — the plain version of
-        the ``subcell_row_sweep`` kernel (``csrc/subcell.cu``).  ``extra``:
-        fluxes added to the high and low face fluxes (the whole grid's
-        viscous terms).  Returns ``(s_new, g_lo, g_hi)``, the ``g``'s the
-        transverse-mean cell-boundary fluxes ``[V, *rest]``."""
+        the sweep kernels (``csrc/subcell.cu``, ``csrc/subcell_ncp.cuh``).
+        The jump term takes the solver's dissipation mask; with an NCP each
+        subcell also takes the central half-fluctuation
+        ½·ncp(½(s_j + s_{j+1}), s_{j+1} − s_j) of its two faces, evaluated
+        once a face (the two subcells beside a face see the same operands
+        in the same order).  ``extra``: fluxes added to the high and low
+        face fluxes (the whole grid's viscous terms).  Returns ``(s_new,
+        g_lo, g_hi)``, the ``g``'s the transverse-mean cell-boundary fluxes
+        ``[V, *rest]``."""
         sol = self.solver
         n_sub = self.n_sub
         va = sol.var_axis
@@ -815,14 +871,22 @@ class LimitedADERDG(nn.Module):
         E_minus = cat(sol.max_eigenvalue_fn(ghost_lo, d, va), E.narrow(d, 0, n_sub - 1))
         s_hi = torch.maximum(E, E_plus).unsqueeze(va)
         s_lo = torch.maximum(E_minus, E).unsqueeze(va)
-        fhat_hi = 0.5 * (F + F_plus) - 0.5 * s_hi * (u_plus - s)
-        fhat_lo = 0.5 * (F_minus + F) - 0.5 * s_lo * (s - u_minus)
+        fhat_hi = 0.5 * (F + F_plus) - 0.5 * s_hi * self._masked_jump(u_plus - s, va)
+        fhat_lo = 0.5 * (F_minus + F) - 0.5 * s_lo * self._masked_jump(s - u_minus, va)
         if extra is not None:
             fhat_hi, fhat_lo = fhat_hi + extra[0], fhat_lo + extra[1]
         other_sub = tuple(a if a < d else a - 1 for a in range(D) if a != d)
         g_hi = torch.mean(fhat_hi.select(d, n_sub - 1), dim=other_sub)
         g_lo = torch.mean(fhat_lo.select(d, 0), dim=other_sub)
-        return s - lam * (fhat_hi - fhat_lo), g_lo, g_hi
+        out = s - lam * (fhat_hi - fhat_lo)
+        if sol.ncp_fn is not None:
+            # Face j lies between ext[j] and ext[j+1] of the pencil extended
+            # by its ghosts: subcell j's low face is j, its high face j + 1.
+            ext = cat(cat(ghost_lo, s), ghost_hi)
+            left, right = ext.narrow(d, 0, n_sub + 1), ext.narrow(d, 1, n_sub + 1)
+            half = 0.5 * sol.ncp_fn(0.5 * (left + right), right - left, d, va)
+            out = out - lam * (half.narrow(d, 1, n_sub) + half.narrow(d, 0, n_sub))
+        return out, g_lo, g_hi
 
     def _scatter_fallback_row(self, candidate, R, tables, troubled):
         """Merge the gathered rows back into ``candidate``, in place: the

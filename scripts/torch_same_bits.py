@@ -29,7 +29,13 @@ compares their outputs bit for bit:
   K5 e's ``rhs_all_z4_grmhd``), where the checkout has them, on the
   magnetized wave of ``chip_smoke.py``'s GRMHD path with the same noise:
   outputs a checkout without them lacks are reported as new, not as
-  differences.
+  differences;
+- the limiter's subcell sweep K3 (``subcell_row_sweep``, 3-D p3 Euler) on
+  a seeded gathered batch ``[7, 7, 7, 5, 8, 16]`` with 5 of 8 slots active,
+  each direction, in float64 and float32, and where the checkout has it K3
+  a's Z4+GRHD p2 instance (``subcell_row_sweep_z4_matter``) on the card
+  tests' noisy batch (``tests/torch_z4m_batch.py``), reported as new
+  against a checkout without it.
 
 Then it disassembles both libraries (``cuobjdump -sass``) and compares the
 instructions of every kernel the two have in common (matched by name, value
@@ -67,7 +73,7 @@ SASS_KERNELS = (
     "aderdg_predictor_volume_z4", "aderdg_face_flux_z4", "aderdg_surface_update_z4",
     "rhs_all_z4", "rhs_all_z4_shift", "rhs_all_z4_matter", "rhs_all_z4_grmhd",
     "aderdg_predictor_volume_st", "aderdg_predictor_volume_2d", "aderdg_face_flux_2d",
-    "aderdg_surface_update_2d",
+    "aderdg_surface_update_2d", "subcell_row_sweep", "subcell_row_sweep_ncp",
 )
 #: The Z4 step kernels' systems and the 2-D Navier–Stokes physics (a
 #: template argument of each instance).
@@ -77,7 +83,7 @@ SYSTEMS = ("Z4Vacuum", "Z4Shift", "Z4Matter", "Z4Grmhd", "NavierStokes2D")
 #: node count is ``NEW_NODES``) and the 2-D Euler step's.
 NEW = ("Z4Grmhd", "rhs_all_z4_grmhd", "Z4+GRMHD", "aderdg_predictor_volume_st",
        "aderdg_predictor_volume_2d", "aderdg_face_flux_2d", "aderdg_surface_update_2d",
-       "NavierStokes2D")
+       "NavierStokes2D", "subcell_row_sweep_ncp", "K3 a Z4+GRHD")
 NEW_NODES = "6"
 _KERNEL_NAME = re.compile(r"(\d+)(" + "|".join(sorted(SASS_KERNELS, key=len, reverse=True))
                           + r")I([fd])(?:Li(\d+)E)?")
@@ -175,6 +181,41 @@ for (grid, dtype), (system, make, state) in (
     rec.rhs_all_fn = first
     rec.predictor_volume(u, 1e-4)
     results[key + f" {k5.kernel} Picard call 1"] = calls[0].cpu()
+from exahype_tpu_torch.models import subcell_cuda
+from exahype_tpu_torch.models.limiter import LimitedADERDG
+def batch(shape, seed, nvar):
+    if nvar == 43:  # the Z4+GRHD batch of the card tests
+        sys.path.insert(0, root + "/tests")
+        from torch_z4m_batch import z4m_gathered_batch
+        return z4m_gathered_batch(shape, seed)
+    rng = np.random.default_rng(seed)
+    lead = shape[:3] + shape[4:]
+    q = np.stack([1.0 + 0.3 * rng.random(lead)]
+                 + [0.4 * rng.standard_normal(lead) for _ in range(3)]
+                 + [2.5 + rng.random(lead)], axis=3)
+    return torch.from_numpy(q)
+sweeps = [("K3 Euler sweep", 7, 5, lambda dtype: ADERDGSolver(
+    3, 3, 5, (4, 2, 8), *euler_physics(3), dx=1.0 / 256, device="cuda", dtype=dtype))]
+if "subcell_row_sweep_z4_matter" in getattr(subcell_cuda, "KERNELS", {}).values():
+    sweeps.append(("K3 a Z4+GRHD sweep", 5, 43, lambda dtype: z4_matter.make_z4_matter_solver(
+        3, 2, (4, 2, 8), dx=1.0 / 128, slicing="harmonic", f=0.0, fused_rhs="soa",
+        device="cuda", dtype=dtype)))
+for label, n_sub, nvar, make in sweeps:
+    for dtype in (torch.float64, torch.float32):
+        sol = make(dtype)
+        lim = LimitedADERDG(sol, troubled_capacity=8, troubled_granularity="row",
+                            device=sol.weights.device)
+        shape = (n_sub, n_sub, n_sub, nvar, 8, 16)
+        s = batch(shape, 7, nvar).to("cuda", dtype).contiguous()
+        for d in range(3):
+            gshape = list(shape)
+            gshape[d] = 1
+            lo, hi = (batch(tuple(gshape), 10 * k + d, nvar).to("cuda", dtype).contiguous()
+                      for k in (1, 2))
+            got = subcell_cuda.row_sweep_call(lim, d, s.clone(), lo, hi, 5e-5,
+                                              torch.tensor(5, device="cuda"))
+            for what, x in zip(("s", "g_lo", "g_hi"), got):
+                results[f"{label} {dtype} d={d} {what}"] = x.cpu()
 torch.save(results, out)
 """
 

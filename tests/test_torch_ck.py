@@ -302,8 +302,15 @@ def test_convert_names_the_physics():
 
 
 def test_limiter_refuses_a_ck_solver():
+    """A CK solver builds a limiter since ROADMAP Queue 1 item 9.4 (its
+    fallback reads the physics callbacks and the dissipation mask;
+    ``tests/test_torch_limiter_ncp.py`` holds its step to JAX); what stays
+    refused is the sweep kernel for its masked physics, Queue 2 K3 a."""
+    from exahype_tpu_torch.models import subcell_cuda
     from exahype_tpu_torch.models.limiter import LimitedADERDG
 
-    with pytest.raises(SemanticError, match="CK"):
-        LimitedADERDG(port_ck_solver(3, (2, 2, 2)), troubled_capacity=2,
-                      troubled_granularity="row", device="cpu")
+    lim = LimitedADERDG(port_ck_solver(3, (2, 2, 2)), troubled_capacity=2,
+                        troubled_granularity="row", subcell_cuda=True, device="cpu")
+    assert lim.solver.predictor_mode == "ck"
+    with pytest.raises(LoweringError, match=r"dissipation mask.*ROADMAP.md, Queue 2 K3 a"):
+        subcell_cuda.check_physics(lim)

@@ -8,7 +8,9 @@ in every mode (Euler) and on the CK free surface, the viscous predictor
 (``csrc/aderdg_visc.cu``) and the Navier–Stokes face stage, periodic and in
 every wall mode, the
 limiter's subcell sweep (K3, ``csrc/subcell.cu``) alone and under
-``LimitedADERDG``, the spec kernel (K4) that ``CudaPrinter`` generates,
+``LimitedADERDG``, its Z4+GRHD p2 instance with the NCP halves (K3 a,
+``csrc/subcell_ncp.cuh``) alone and under the limited Z4+GRHD step, the
+spec kernel (K4) that ``CudaPrinter`` generates,
 alone and under ``GridSolver``, the fused Z4 right-hand side (K5,
 ``csrc/rhs.cu``) alone and under the Z4 step, and the Z4 step's own three
 kernels (K1 d, ``csrc/aderdg_z4.cu``), for the 38-variable system, the
@@ -46,6 +48,7 @@ import torch
 from exahype_tpu_torch.models.aderdg import ADERDGSolver, euler_physics
 from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
 from exahype_tpu_torch.utils.errors import LoweringError
+from torch_z4m_batch import z4m_gathered_batch
 
 torch.set_num_threads(1)
 
@@ -784,6 +787,129 @@ def test_limited_step_kernels_match_plain():
                            "aderdg_surface_update": 2}
     assert subcell_cuda.launches["subcell_row_sweep"] == 6
     assert torch.equal(lim_k.run(u, 2, 4.8e-3), a)
+
+
+# ------------------------------------- K3 a: the Z4+GRHD p2 sweep with NCP
+
+
+def _z4m_limiter(grid, dtype, kernels=False, capacity=8):
+    """A limiter over the Z4+GRHD p2 solver on the card (geodesic slicing,
+    dx = 1/8); with ``kernels`` the candidate through ``CudaADERDG`` and the
+    sweeps through K3 a."""
+    from exahype_tpu_torch.models.limiter import LimitedADERDG
+    from exahype_tpu_torch.models.z4_matter import make_z4_matter_solver, z4_matter_admissible
+
+    dev = _card()
+    sol = make_z4_matter_solver(3, 2, grid, dx=1.0 / 8, slicing="harmonic", f=0.0,
+                                fused_rhs="soa", device=dev, dtype=dtype)
+    cu = CudaADERDG(sol)
+    return LimitedADERDG(sol, z4_matter_admissible(), troubled_capacity=capacity,
+                         troubled_granularity="row", accelerator=cu if kernels else None,
+                         subcell_cuda=kernels, device=dev), cu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(d, t) for d in (0, 1, 2)
+                                     for t in (torch.float64, torch.float32)])
+def test_z4_matter_sweep_kernel_matches_plain(d, dtype):
+    """K3 a (``subcell_row_sweep_z4_matter``) in place for n_active in {0, 1,
+    K}: the active slots as the plain sweep gives them (f64 at 1e-12 of
+    max(1, max|plain|), f32 at 64 spacings), the others bitwise untouched
+    with zero edge fluxes, the ghosts unchanged, bitwise repeatable, dt by
+    value and by pointer alike (K = 3, L = 20: a block of 32 cells
+    straddles slots)."""
+    from exahype_tpu_torch.models import subcell_cuda
+
+    lim, _ = _z4m_limiter((2, 2, 4), dtype)
+    dev = lim.P.device
+    K, L = 3, 20
+    s0 = z4m_gathered_batch((5, 5, 5, 43, K, L), 1, dtype, dev)
+    gshape = [5, 5, 5, 43, K, L]
+    gshape[d] = 1
+    lo, hi = (z4m_gathered_batch(tuple(gshape), seed, dtype, dev) for seed in (2, 3))
+    lo0, hi0 = lo.clone(), hi.clone()
+    ref = lim._row_sweep_math(s0, lo, hi, d, DT)
+    subcell_cuda.reset_launches()
+    for n in (0, 1, K):
+        n_active = torch.tensor(n, device=dev)
+        s1, s2 = s0.clone(), s0.clone()
+        got = subcell_cuda.row_sweep_call(lim, d, s1, lo, hi, DT, n_active)
+        again = subcell_cuda.row_sweep_call(
+            lim, d, s2, lo, hi, torch.tensor(DT, dtype=dtype, device=dev), n_active)
+        torch.cuda.synchronize()
+        assert got[0] is s1 and again[0] is s2
+        for a, b, c in zip(got, again, ref):
+            if n:
+                act = c[..., :n, :]
+                bar = (1e-12 * max(1.0, act.abs().max().item()) if dtype == torch.float64
+                       else _bound(act, dtype))
+                assert _err(a[..., :n, :], act) <= bar, n
+            assert torch.equal(a, b), n
+        assert torch.equal(s1[..., n:, :], s0[..., n:, :]), n
+        assert not got[1][:, n:].any() and not got[2][:, n:].any(), n
+        assert torch.equal(lo, lo0) and torch.equal(hi, hi0)
+    assert subcell_cuda.launches == {"subcell_row_sweep": 0, "subcell_row_sweep_z4_matter": 6}
+
+
+@pytest.mark.cuda
+def test_z4_matter_sweep_kernel_info_and_refusals():
+    """K3 a's occupancy (one block an SM: 5 warps in f32, 2 in f64) and the
+    refusals on the card: a Z4+GRMHD limiter with ``subcell_cuda=True``
+    (ROADMAP Queue 2 K3 a), a batch of the wrong shape."""
+    from exahype_tpu_torch.models import subcell_cuda
+    from exahype_tpu_torch.models.limiter import LimitedADERDG
+    from exahype_tpu_torch.models.z4_grmhd import make_z4_grmhd_solver
+
+    dev = _card()
+    for dtype, threads in ((torch.float32, 160), (torch.float64, 64)):
+        for d in range(3):
+            info = subcell_cuda.kernel_info(dtype, d, "z4_matter")
+            assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, info
+            assert info["threads"] == threads and info["smem"] > 48 * 1024, info
+    with pytest.raises(LoweringError, match="ROADMAP.md, Queue 2 K3 a"):
+        LimitedADERDG(make_z4_grmhd_solver(3, 2, (2, 2, 2), fused_rhs="soa", device=dev),
+                      troubled_capacity=2, troubled_granularity="row", subcell_cuda=True,
+                      device=dev)
+    lim, _ = _z4m_limiter((2, 2, 4), torch.float64)
+    s = z4m_gathered_batch((5, 5, 5, 43, 2, 4), 1, torch.float64, dev)
+    with pytest.raises(LoweringError, match="shape"):
+        subcell_cuda.row_sweep_call(lim, 0, s, s[:1].contiguous(), s[:, :1].contiguous(), DT,
+                                    torch.tensor(2, device=dev))
+
+
+@pytest.mark.cuda
+def test_limited_z4_matter_step_kernels_match_plain():
+    """The limited Z4+GRHD step on the kernels (K1 d's candidate, K3 a's
+    sweeps) against the plain limited step on the card in f64: the FLRW
+    slice with a one-cell clump at (4, 4, 8), capacity 8 rows, two steps;
+    states within 1e-12 of max(1, max|plain|), launches counted, bitwise
+    repeatable."""
+    from exahype_tpu_torch.models import subcell_cuda
+    from exahype_tpu_torch.models.z4_matter import flrw_state
+
+    grid = (4, 4, 8)
+    lim_k, cu = _z4m_limiter(grid, torch.float64, kernels=True)
+    lim_p, _ = _z4m_limiter(grid, torch.float64)
+    sol = lim_k.solver
+    u = flrw_state(sol, 1.0, float(np.sqrt(8 * np.pi * 0.02 * 1.4 / 3)), rho0=0.02, eps0=0.4)
+    r2 = 0.0
+    for d, c in enumerate(sol.nodes_meshgrid()):
+        r2 = r2 + (np.squeeze(c, sol.var_axis) - 0.5 * grid[d] / 8) ** 2
+    bump = torch.from_numpy(np.ascontiguousarray(1.0 + 4.0 * np.exp(-r2 / (2 / 64)))).to(u)
+    u = u.clone()
+    for slot in (38, 42):
+        u.narrow(sol.var_axis, slot, 1).mul_(bump.unsqueeze(sol.var_axis))
+    u = u.contiguous()
+    cu.reset_launches()
+    subcell_cuda.reset_launches()
+    a = b = u
+    for _ in range(2):
+        a, b = lim_k.step(a, 1e-4), lim_p.step(b, 1e-4)
+    torch.cuda.synchronize()
+    assert _err(a, b) <= 1e-12 * max(1.0, b.abs().max().item())
+    assert set(cu.launches.values()) == {2}
+    assert subcell_cuda.launches["subcell_row_sweep_z4_matter"] == 6
+    assert torch.equal(lim_k.run(u, 2, 1e-4), a)
 
 
 # ------------------------------------------------ the 2-D Euler step (K1 c)

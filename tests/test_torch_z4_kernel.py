@@ -290,8 +290,15 @@ def test_limiter_refusals_name_queue1_item9():
         LimitedADERDG(sol, troubled_capacity=8, fallback="means", **row)
     with pytest.raises(SemanticError, match="candidate.*ROADMAP.md, Queue 1 item 9 \\(9.5\\)"):
         LimitedADERDG(sol, troubled_capacity=8, overflow_fallback="candidate", **row)
-    with pytest.raises(SemanticError, match="NCP solver.*ROADMAP.md, Queue 1 item 9"):
-        LimitedADERDG(_port((2, 2, 2)), troubled_capacity=8, **row)
+    # The NCP solver builds a limiter since item 9.4; the sweep kernel has no
+    # vacuum Z4 instance (the Z4+GRHD p2 one is K3 a's first): Queue 2 K3 a.
+    z4 = LimitedADERDG(_port((2, 2, 2)), troubled_capacity=8, **row)
+    assert z4.troubled_capacity == 4 and z4.solver.ncp_fn is not None
+    from exahype_tpu_torch.models import subcell_cuda
+
+    with pytest.raises(LoweringError, match=r"ROADMAP.md, Queue 2 K3 a"):
+        subcell_cuda.check_physics(LimitedADERDG(_port((2, 2, 2)), troubled_capacity=8,
+                                                 subcell_cuda=True, **row))
 
 
 def test_driver_observables_names_queue1_item6():

@@ -26,6 +26,7 @@ from exahype_tpu_torch.convert import (
     state_to_numpy,
     z4_solver_from_jax,
 )
+from exahype_tpu_torch.models import subcell_cuda
 from exahype_tpu_torch.models import z4 as tz
 from exahype_tpu_torch.models.aderdg import euler_physics
 from exahype_tpu_torch.models.limiter import LimitedADERDG
@@ -194,8 +195,12 @@ def test_refusals():
     for rhs_all in (lambda q, g, va: q, flux):  # untagged; tagged Euler
         with pytest.raises(LoweringError, match="38-variable vacuum Z4"):
             CudaRHS(rhs_all, 3, 38)
-    with pytest.raises(SemanticError, match="ROADMAP"):  # the limiter's NCP variant
-        LimitedADERDG(_port(), troubled_capacity=8, troubled_granularity="row", device="cpu")
+    # The limiter takes the NCP solver since ROADMAP Queue 1 item 9.4; the
+    # sweep kernel has no vacuum Z4 instance: Queue 2 K3 a.
+    lim = LimitedADERDG(_port(), troubled_capacity=8, troubled_granularity="row",
+                        subcell_cuda=True, device="cpu")
+    with pytest.raises(LoweringError, match=r"ROADMAP.md, Queue 2 K3 a"):
+        subcell_cuda.check_physics(lim)
 
 
 def test_jax_callbacks_do_not_cross_through_aderdg_from_jax(jax_run):
