@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one card, nvcc
 
-It drives sixteen paths, each through ``exahype_tpu_torch``'s entry points
+It drives seventeen paths, each through ``exahype_tpu_torch``'s entry points
 with its kernels' launch counters set to 0 just before and read just
 after (the two forms of the main path, ADER-DG and FV, and the order-5,
 limited, limited with walls, limited 2-D blast with walls, viscous shock,
-2-D vortex, CK, walls, viscous, dynamic-GR, shifted dynamic-GR, Z4+GRHD,
-limited Z4+GRHD and Z4+GRMHD slices), in this order:
+2-D vortex, CK, layered seismic, walls, viscous, dynamic-GR, shifted
+dynamic-GR, Z4+GRHD, limited Z4+GRHD and Z4+GRMHD slices), in this order:
 
 - **ADER-DG**: ``bench.py::main``'s step — order 3, 3-D compressible
   Euler, a ``(256, 8, 128)`` periodic cell grid in float32, ``bench.py``'s
@@ -109,6 +109,35 @@ limited Z4+GRHD and Z4+GRMHD slices), in this order:
   (finite, slots 9–11 bitwise frozen, seismic energy ratio below 1.02),
   and ``(256, 8, 128)``, the same problem at 4x the resolution, 10 steps at
   ``cfl_dt`` (2e-4 is over the CFL limit at dx = 1/256).
+- **seismic**: ``examples/seismic3d_layered.py`` — the same CK system in a
+  two-layer medium (ρ, λ, μ = 1, 2, 1 above half depth, 1.2, 9.6, 4.8
+  below) with the free surface on axis 2, the absorbing sponge on axes 0
+  and 1 (``sponge_source(width=0.12, rate=40, n_wave=9)``), a vertical
+  Ricker point force (f0 = 8) at depth and four surface receivers, dt =
+  ``cfl_dt`` at cfl 0.15, half the example's (at the example's dt this
+  step diverges in both packages: ``SEIS_CFL``) — Strang-split
+  ``PointSources.step`` around ``CudaADERDG.step`` (K2 a,
+  ``aderdg_ck_predictor_volume_sponge``, and the walled face pair: three
+  launches a step), ``TracerAdvector.sample`` after each step, the time a
+  0-d tensor and the seismogram on the card.  In float64 at the example's
+  ``(9, 9, 6)``: K2 a against its plain version (``new`` and the face
+  projections, on a state with seeded noise on the wave rows, within 1e-12
+  of max(1, max|plain|), at both dt), the walled face stage launch by
+  launch, 5 forced steps of the kernel path against the plain path at the
+  same bar, the run to the example's time (160 steps) with its gates and
+  on to 240 steps, past the P arrival, where its arrival gate applies; in
+  float32 at ``(63, 63, 36)``: 800 steps (the example's time) with its
+  gates (finite, materials bitwise frozen, mirror symmetry across the
+  source axis below 1e-5 of the field's maximum), on to 1,600 steps where
+  its P-arrival gate applies, 3 launches a step, two runs bitwise equal;
+  K2 a against its plain version and 10 forced steps against the plain
+  path, both on the step-800 field with seeded noise on the wave rows,
+  over every cell and over the sponge's cells alone (each limit from its
+  own max|plain|; the sourceless kernel must miss the sponge cells'); as
+  readings, K2 a's time beside the sourceless
+  K2's on the same state and its bound, the forced step's time, the inject
+  and sample times, the idle share, the peak memory and the host
+  synchronisations of a step.
 - **walls**: domain walls on the ADER-DG step — the face stage's wall
   variant (``aderdg_face_flux_walls`` + ``aderdg_surface_update_walls``)
   against the plain ``face_update`` in float64 at ``(8, 4, 8)`` in every
@@ -431,6 +460,42 @@ CK_WARMUP = 5          # the bench's first chunk
 CK_WINDOW = 40         # its 8 chunks of 5 steps
 CK_ENERGY_GATE = 1.02  # bench.py:280
 CK_EVOLVED = 9
+
+#: The layered seismic path (``examples/seismic3d_layered.py``): the
+#: example's CPU grid in float64 (the kernel checks and its run) and its
+#: chip grid in float32 (``:44``), each to the time the example's 80 and 400
+#: steps reach (``:86``, ``:114``), then on past the kinematic P arrival at
+#: the nearest receiver (t_expect ≈ 0.127 and 0.120), where the example's
+#: arrival gate applies.  The sponge (``:64``), the Ricker force (``:103``)
+#: and the layers (``:47-49``) are the example's; its dt is not.  The
+#: example steps at ``cfl_dt`` with the solver's default cfl, min(0.4,
+#: 1.5/(N + 2)) = 0.3, and at that dt this CK step grows without bound in
+#: both packages (``tests/test_torch_seismic3d.py::
+#: test_seismic_example_dt_diverges_in_both_packages``: JAX's own XLA step
+#: and the port's past 1e9 after 120 steps on the CPU grid, where the
+#: physical field is O(100)), as does every 3-D order-3 elastic step there
+#: (``tests/test_torch_ck_cfl.py``: periodic or walled, homogeneous or
+#: layered, CK or Picard); at half that dt it stays bounded.  So the path
+#: steps at ``cfl_dt(u0, cfl=SEIS_CFL)`` over twice the example's step
+#: counts.
+SEIS_GRIDS = ((9, 9, 6), (63, 63, 36))
+SEIS_CFL = 0.15
+SEIS_STEPS = (160, 800)
+SEIS_ARRIVAL_STEPS = (240, 1600)
+SEIS_SPONGE = dict(width=0.12, rate=40.0, axes=(0, 1), n_wave=9)
+SEIS_F0 = 8.0
+SEIS_UP, SEIS_LO = (1.0, 2.0, 1.0), (1.2, 9.6, 4.8)  # ρ, λ, μ above and below half depth
+SEIS_SYM = 1e-5       # :146, of the seismogram's largest value
+SEIS_ARRIVAL = 0.5    # :154, of t_expect
+#: Seeded noise on the 9 wave rows of the kernel checks (the example starts
+#: from rest, and by step 800 its field has not reached the sponge), the
+#: forced steps the float64 kernel path is held to the plain path over, and
+#: the float32 ones at full width.
+SEIS_NOISE = 1e-3
+SEIS_F64_STEPS = 5
+SEIS_PLAIN_STEPS = 10
+#: f64 kernel-vs-plain bound, relative to max(1, max|plain|).
+SEIS_F64_RTOL = 1e-12
 
 #: The walls path: the float64 cut grid (axis 2 is not a multiple of the
 #: face stage's 32-cell tile, so its ragged tile meets the walls), the
@@ -849,6 +914,14 @@ def ck_predictor_ops(order: int, ncell: int, dim=3, nvar=12, evolved=CK_EVOLVED)
     faces = dim * n ** (dim - 1) / n**dim * nvar * 4 * contr
     per_node = 1 + order * level + dim * ELASTIC_FLUX_OPS + volume + faces
     return per_node * n**dim * ncell
+
+
+def ck_sponge_ops(order: int, ncell: int, evolved=CK_EVOLVED) -> float:
+    """Flops K2 a adds to :func:`ck_predictor_ops`: dt·(−σ q) and its sum
+    (3 flops) per evolved row and node at each of the N levels and once
+    more for new = u + dt·S(q̄)."""
+    n = order + 1
+    return 3 * evolved * (order + 1) * n**3 * ncell
 
 
 def ck_bytes(state_bytes: int, face_bytes: int) -> int:
@@ -1712,6 +1785,356 @@ def ck_path(torch, dev, card) -> list[dict]:
             launches["aderdg_surface_update"], errs["face stage"], *times["face stage"],
             bounds["face stage"]))
     return lines
+
+
+def seismic_setup(torch, dev, grid, dtype):
+    """``examples/seismic3d_layered.py:51-112`` at ``grid``: the CK
+    heterogeneous-elastic solver with the free surface on axis 2 and the
+    sponge, ``CudaADERDG`` over it, the layered state at rest, the Ricker
+    point force, the receivers (in the state's dtype), the probe, the
+    path's dt (``cfl_dt`` of the initial state at ``SEIS_CFL``) and the
+    example's (at the default cfl), each a Python float as the example takes
+    it, and the depth of the box."""
+    import numpy as np
+
+    from exahype_tpu_torch.models.aderdg import ADERDGSolver
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.elastic import (
+        DISSIPATION_MASK,
+        MATERIAL_SLOTS,
+        N_VARS_3D_HET,
+        elastic3d_free_surface_het,
+        elastic3d_heterogeneous,
+        sponge_source,
+    )
+    from exahype_tpu_torch.models.point_source import PointSources, ricker
+    from exahype_tpu_torch.models.tracers import TracerAdvector
+
+    flux, eig = elastic3d_heterogeneous()
+    reflect, reflect_flux = elastic3d_free_surface_het()
+    sol = ADERDGSolver(3, ORDER, N_VARS_3D_HET, grid, flux, eig, dx=1.0 / grid[0], device=dev,
+                       dtype=dtype, boundary="reflective", wall_axes=(2,), reflect_fn=reflect,
+                       reflect_flux_fn=reflect_flux, dissipation_mask=DISSIPATION_MASK,
+                       predictor_mode="ck", ck_material_slots=MATERIAL_SLOTS)
+    sol.source_fn = sponge_source(sol, **SEIS_SPONGE)
+    no_var = sol.state_shape[:3] + sol.state_shape[4:]
+    zc = np.broadcast_to(np.squeeze(sol.nodes_meshgrid()[2], 3), no_var)
+    zmax = grid[2] * sol._dxs[2]
+    upper = zc > 0.5 * zmax
+    mats = np.stack([np.where(upper, a, b) for a, b in zip(SEIS_UP, SEIS_LO)], axis=3)
+    u0 = torch.zeros(sol.state_shape, dtype=dtype, device=dev)
+    u0[:, :, :, CK_EVOLVED:] = torch.from_numpy(mats).to(dev, dtype)
+    amp = np.zeros((1, N_VARS_3D_HET))
+    amp[0, 2] = 1.0
+    src = PointSources(sol, [[0.5, 0.5, 0.75 * zmax]], amp, wavelet=ricker(SEIS_F0))
+    rx = np.asarray([0.3, 0.4, 0.6, 0.7])
+    rec = torch.as_tensor(np.stack([rx, np.full_like(rx, 0.5), np.full_like(rx, 0.95 * zmax)],
+                                   -1), dtype=dtype, device=dev)
+    probe = TracerAdvector(sol, lambda v: v[:, :3])
+    dts = (float(sol.cfl_dt(u0, cfl=SEIS_CFL)), float(sol.cfl_dt(u0)))
+    return sol, CudaADERDG(sol), u0, src, rec, probe, dts, zmax
+
+
+def forced_run(torch, src, step_fn, probe, rec, u, t, dt, n: int):
+    """``n`` Strang-split forced steps (``PointSources.step`` around
+    ``step_fn``), the receivers sampled after each, as the example's scan
+    body; ``t`` a 0-d tensor of the state's dtype on its device.  Returns
+    ``(u, t, seismogram [n, receivers, n_vars])``, all on the device."""
+    seis = []
+    for _ in range(n):
+        u = src.step(u, t, dt, step_fn)
+        t = t + dt
+        seis.append(probe.sample(u, rec))
+    return u, t, torch.stack(seis)
+
+
+def seismic_gates(torch, label: str, u, u0, seis, t: float, dt: float, zmax: float,
+                  arrival: bool):
+    """The example's checks (``:118-155``): finite, the materials bitwise
+    frozen, the mirror symmetry of v_z and v_x across the source axis below
+    ``SEIS_SYM`` of the seismogram's largest value, and, once t has passed
+    the kinematic P arrival at the nearest receiver, the measured arrival
+    (the first step whose largest value there passes 1 % of its peak)
+    within ``SEIS_ARRIVAL`` of it.  They read the seismogram's velocity
+    rows, the ``[n_steps, n_receivers, 3]`` the example's comment gives it
+    (``:113``): its code keeps all 12 sampled rows, whose materials (λ = 2
+    at the receivers) then set the 1 % threshold wherever the wave at the
+    receivers stays under ~200, so that its arrival reads as the first step.
+    Those readings are printed beside.  Fails on a miss (the arrival only
+    where ``arrival`` says it must apply)."""
+    import numpy as np
+
+    s = seis.double().cpu().numpy()
+    finite = bool(torch.isfinite(u).all()) and bool(np.isfinite(s).all())
+    frozen = torch.equal(u[:, :, :, CK_EVOLVED:], u0[:, :, :, CK_EVOLVED:])
+    cp_up = math.sqrt((SEIS_UP[1] + 2 * SEIS_UP[2]) / SEIS_UP[0])
+    t_expect = math.hypot(0.1, 0.95 * zmax - 0.75 * zmax) / cp_up + 0.35 / SEIS_F0
+    readings = {}
+    for rows, x in (("velocity rows", s[..., :3]), ("all 12 rows, as the example's code", s)):
+        v_mag = np.abs(x[:, 1, :]).max(axis=-1)
+        readings[rows] = {
+            "vz": float(np.abs(x[:, 1, 2] - x[:, 2, 2]).max()),
+            "vx": float(np.abs(x[:, 1, 0] + x[:, 2, 0]).max()),
+            "scale": max(float(np.abs(x).max()), 1e-30),
+            "t_arrive": (int(np.argmax(v_mag > 0.01 * v_mag.max())) + 1) * dt,
+        }
+    applies = t > t_expect
+    say(f"[seis gates] {label}: t = {t!r} after {s.shape[0]} steps; finite {finite}; "
+        f"max|wave| {u[:, :, :, :CK_EVOLVED].abs().amax().item()!r}; "
+        f"materials bitwise frozen {frozen}; t_expect = {t_expect!r} (the arrival gate "
+        f"{'applies' if applies else 'does not apply yet'})")
+    for rows, r in readings.items():
+        say(f"[seis gates]   {rows}: mirror symmetry |vz diff| {r['vz']!r}, |vx sum| "
+            f"{r['vx']!r} of field max {r['scale']!r} (gate {SEIS_SYM} of it); P arrival at "
+            f"the nearest receiver t = {r['t_arrive']!r}, |diff| "
+            f"{abs(r['t_arrive'] - t_expect) / t_expect!r} of t_expect (gate {SEIS_ARRIVAL})")
+    r = readings["velocity rows"]
+    if not (finite and frozen):
+        fail(f"seismic {label}: the state is not finite or its materials moved")
+    if not (r["vz"] < SEIS_SYM * r["scale"] and r["vx"] < SEIS_SYM * r["scale"]):
+        fail(f"seismic {label}: the field is not mirror-symmetric across the source axis")
+    if applies != arrival:
+        fail(f"seismic {label}: t = {t} and t_expect = {t_expect}: the arrival gate should "
+             f"{'' if arrival else 'not '}apply here")
+    if applies and not abs(r["t_arrive"] - t_expect) < SEIS_ARRIVAL * t_expect:
+        fail(f"seismic {label}: the P wave arrived at {r['t_arrive']}, expected {t_expect}")
+
+
+def seismic_path(torch, dev, card) -> list[dict]:
+    """The layered seismic form of the main path; returns the kernel JSON
+    line of K2 a (at ``(63, 63, 36)``)."""
+    import warnings
+
+    import numpy as np
+
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.elastic import N_VARS_3D_HET
+
+    name = "aderdg_ck_predictor_volume_sponge"
+    E, V = CK_EVOLVED, N_VARS_3D_HET
+
+    def rel_check(label, got, ref):
+        """``got`` against ``ref`` within ``SEIS_F64_RTOL`` of max(1,
+        max|ref|); fails on a miss."""
+        err = max_err(torch, got, ref)
+        limit = SEIS_F64_RTOL * max(1.0, ref.abs().max().item())
+        ok = err <= limit
+        say(f"[seis parity] {label}: max_abs_err {err:.3e} limit {limit:.3e} (1e-12 of "
+            f"max(1, max|plain|)) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"seismic {label} disagrees with its plain version")
+        return err
+
+    # ---------------------------------------- float64 at the example's CPU grid
+    grid = SEIS_GRIDS[0]
+    sol, cu, u0, src, rec, probe, (dt, dt_ex), zmax = seismic_setup(
+        torch, dev, grid, torch.float64)
+    if cu.kernels != (name, "aderdg_face_flux_walls", "aderdg_surface_update_walls"):
+        fail(f"the seismic solver's kernels are {cu.kernels}")
+    noise = np.random.default_rng(19).standard_normal(u0[:, :, :, :E].shape)
+    u = u0.clone()
+    u[:, :, :, :E] += SEIS_NOISE * torch.from_numpy(noise).to(u)
+    say(f"[seis] {grid} f64: dt = cfl_dt(initial state, cfl={SEIS_CFL}) = {dt!r} (the "
+        f"example's {dt_ex!r}); sponge {SEIS_SPONGE}, max σ "
+        f"{float(sol.source_fn.sponge.sigma.max())!r}; kernels {cu.kernels}")
+    for step_dt in (dt, dt_ex):
+        new_k, faces_k, _ = cu.predictor_volume(u, step_dt)
+        new_p, faces_p, _ = sol.predictor_volume(u, step_dt)
+        torch.cuda.synchronize()
+        rel_check(f"{name} (new) f64 {grid}, dt {step_dt!r}", new_k, new_p)
+        rel_check(f"{name} (faces) f64 {grid}, dt {step_dt!r}", faces_k, faces_p)
+        if not torch.equal(new_k[:, :, :, E:], u[:, :, :, E:]):
+            fail("K2 a moved the material rows")
+    walls_parity(torch, sol, cu, u, dt, "seismic (K2 a, free surface)", E,
+                 [(0, E), (E, V - E)])
+    t0 = torch.zeros((), dtype=torch.float64, device=dev)
+    uk, _, sk = forced_run(torch, src, cu.step, probe, rec, u, t0, dt, SEIS_F64_STEPS)
+    up, _, sp = forced_run(torch, src, sol.step, probe, rec, u, t0, dt, SEIS_F64_STEPS)
+    rel_check(f"{SEIS_F64_STEPS} forced steps, kernel path vs plain (state) f64 {grid}", uk, up)
+    rel_check(f"{SEIS_F64_STEPS} forced steps, kernel path vs plain (seismogram) f64 {grid}",
+              sk, sp)
+    cu.reset_launches()
+    u1, t1, s1 = forced_run(torch, src, cu.step, probe, rec, u0, t0, dt, SEIS_STEPS[0])
+    torch.cuda.synchronize()
+    if cu.launches != {k: SEIS_STEPS[0] for k in cu.kernels}:
+        fail(f"seismic {grid} launches {cu.launches}")
+    seismic_gates(torch, f"{grid} f64, {SEIS_STEPS[0]} steps (the example's t)", u1, u0, s1,
+                  float(t1), dt, zmax, arrival=False)
+    u2, t2, s2 = forced_run(torch, src, cu.step, probe, rec, u1, t1, dt,
+                            SEIS_ARRIVAL_STEPS[0] - SEIS_STEPS[0])
+    seismic_gates(torch, f"{grid} f64, on to {SEIS_ARRIVAL_STEPS[0]} steps", u2, u0,
+                  torch.cat([s1, s2]), float(t2), dt, zmax, arrival=True)
+    del sol, cu, u0, u, new_k, faces_k, new_p, faces_p, uk, up, u1, u2
+
+    # ---------------------------------------- float32 at the example's chip grid
+    grid = SEIS_GRIDS[1]
+    f32 = torch.float32
+    sol, cu, u0, src, rec, probe, (dt, dt_ex), zmax = seismic_setup(torch, dev, grid, f32)
+    t0 = torch.zeros((), dtype=f32, device=dev)
+    ncell = math.prod(grid)
+    say(f"[seis] {grid} f32: dt = cfl_dt(initial state, cfl={SEIS_CFL}) = {dt!r} (the "
+        f"example's {dt_ex!r}); {ncell} cells, state {u0.nbytes} B; {SEIS_STEPS[1]} steps, "
+        f"then to {SEIS_ARRIVAL_STEPS[1]}")
+    cu.reset_launches()
+    u400, t400, s400 = forced_run(torch, src, cu.step, probe, rec, u0, t0, dt, SEIS_STEPS[1])
+    torch.cuda.synchronize()
+    launches = dict(cu.launches)
+    say(f"[seis main] {SEIS_STEPS[1]} forced steps of {grid} f32 through CudaADERDG: "
+        f"launches {launches}")
+    if launches != {k: SEIS_STEPS[1] for k in cu.kernels}:
+        fail(f"seismic main path launches {launches}, expected 3 a step")
+    seismic_gates(torch, f"{grid} f32, {SEIS_STEPS[1]} steps (the example's t)", u400, u0,
+                  s400, float(t400), dt, zmax, arrival=False)
+    u800, t800, s800 = forced_run(torch, src, cu.step, probe, rec, u400, t400, dt,
+                                  SEIS_ARRIVAL_STEPS[1] - SEIS_STEPS[1])
+    seismic_gates(torch, f"{grid} f32, on to {SEIS_ARRIVAL_STEPS[1]} steps", u800, u0,
+                  torch.cat([s400, s800]), float(t800), dt, zmax, arrival=True)
+    del u800, s800
+    again, _, s_again = forced_run(torch, src, cu.step, probe, rec, u0, t0, dt, SEIS_STEPS[1])
+    if not (torch.equal(again, u400) and torch.equal(s_again, s400)):
+        fail("two seismic runs from the same state differ")
+    say(f"[seis main] two {SEIS_STEPS[1]}-step runs: state and seismogram bitwise equal")
+    del again, s_again
+    # Kernel against plain on the step-800 field with seeded noise on the
+    # wave rows in every cell.  By then the forced field has not reached the
+    # sponge and its spike at the source sets max|plain| over the grid, so
+    # the sponge's cells are held to a limit from their own max as well, and
+    # the sourceless K2 on the same input must miss that limit.
+    bare_sol = copy.copy(sol)
+    bare_sol.source_fn = None
+    bare = CudaADERDG(bare_sol)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    un = u400.clone()
+    un[:, :, :, :E] += SEIS_NOISE * torch.randn(un[:, :, :, :E].shape, generator=gen,
+                                                device=dev, dtype=f32)
+    in_sponge = torch.from_numpy(sol.source_fn.sponge.sigma > 0).to(dev)  # [*grid]
+    say(f"[seis parity] {grid}: the sponge's cells {int(in_sponge.sum())} of {ncell}; noise "
+        f"{SEIS_NOISE} x N(0, 1) on the wave rows of the step-{SEIS_STEPS[1]} field")
+
+    def held(label, got, ref, bare_out, n_steps):
+        """The evolved rows of ``got`` against ``ref`` over every cell and
+        over the sponge's cells alone, each within ``n_steps`` x
+        ``F32_ULPS`` f32 spacings of its own max|ref|; ``bare_out`` (the
+        sourceless kernel's, from the same input) must miss the sponge
+        cells' limit.  Fails on a miss; returns the error over every cell."""
+        got, ref, bare_out = (x.narrow(3, 0, E) for x in (got, ref, bare_out))
+        diff = (got.double() - ref.double()).abs()
+        bare_diff = (bare_out.double() - ref.double()).abs()
+        out = None
+        for where, m in (("every cell", None), ("the sponge's cells", in_sponge)):
+            pick = (lambda x: x) if m is None else (lambda x: torch.where(m, x, 0))  # noqa: E731
+            e = pick(diff).amax().item()
+            limit = n_steps * F32_ULPS * 2.0**-23 * pick(ref.abs()).amax().item()
+            say(f"[seis parity] {label}, evolved rows over {where}: max_abs_err {e:.3e} limit "
+                f"{limit:.3e} ({n_steps} x {F32_ULPS} f32 spacings of max|plain| there) "
+                f"{'ok' if e <= limit else 'FAIL'}")
+            if not e <= limit:
+                fail(f"seismic {label} disagrees with its plain version over {where}")
+            out = e if out is None else out
+        b = pick(bare_diff).amax().item()
+        say(f"[seis parity] {label}: the sourceless K2's max_abs_err over the sponge's cells "
+            f"{b:.3e} ({b / limit:.1f}x the limit; must miss it)")
+        if not b > limit:
+            fail(f"seismic {label}: the check cannot tell the sponge from none")
+        return out
+
+    new_k, faces_k, _ = cu.predictor_volume(un, dt)
+    new_p, faces_p, _ = sol.predictor_volume(un, dt)
+    new_b, faces_b, _ = bare.predictor_volume(un, dt)
+    torch.cuda.synchronize()
+    err = max(held(f"{name} (new) f32 {grid}", new_k, new_p, new_b, 1),
+              held(f"{name} (faces) f32 {grid}", faces_k, faces_p, faces_b, 1))
+    mat_err = max_err(torch, faces_k.narrow(3, E, V - E), faces_p.narrow(3, E, V - E))
+    mat_limit = f32_bound(torch, faces_p.narrow(3, E, V - E))
+    mat_new = torch.equal(new_k[:, :, :, E:], un[:, :, :, E:])
+    say(f"[seis parity] {name} f32 {grid}, material rows: new bitwise the input's {mat_new}; "
+        f"faces max_abs_err {mat_err:.3e} limit {mat_limit:.3e} ({F32_ULPS} f32 spacings)")
+    if not (mat_new and mat_err <= mat_limit):
+        fail(f"K2 a's material rows disagree with its plain version at {grid}")
+    del new_k, new_p, new_b, faces_k, faces_p, faces_b
+
+    uk, _, sk = forced_run(torch, src, cu.step, probe, rec, un, t400, dt, SEIS_PLAIN_STEPS)
+    up, _, sp = forced_run(torch, src, sol.step, probe, rec, un, t400, dt, SEIS_PLAIN_STEPS)
+    ub = forced_run(torch, src, bare.step, probe, rec, un, t400, dt, SEIS_PLAIN_STEPS)[0]
+    held(f"{SEIS_PLAIN_STEPS} forced steps from step {SEIS_STEPS[1]}, kernel path vs plain "
+         f"path, f32 {grid}", uk, up, ub, SEIS_PLAIN_STEPS)
+    seis_err = max_err(torch, sk, sp)
+    seis_bound = SEIS_PLAIN_STEPS * f32_bound(torch, sp)
+    plain_frozen = torch.equal(up[:, :, :, E:], u0[:, :, :, E:])
+    say(f"[seis main] {SEIS_PLAIN_STEPS} forced steps, kernel path vs plain path: seismogram "
+        f"max_abs_err {seis_err:.3e} limit {seis_bound:.3e} ({SEIS_PLAIN_STEPS} x {F32_ULPS} "
+        f"f32 spacings of max|plain|); plain path's materials frozen {plain_frozen}")
+    if not (seis_err <= seis_bound and plain_frozen):
+        fail("the seismic main path disagrees with the plain path")
+    del uk, up, ub, un
+
+    # ------------------------------------------------ times
+    k2a_ms = event_ms(torch, lambda: cu.predictor_volume(u400, dt), 20)
+    k2_ms = event_ms(torch, lambda: bare.predictor_volume(u400, dt), 20)
+    plain_ms = event_ms(torch, lambda: sol.predictor_volume(u400, dt), 3)
+    _, faces, _ = cu.predictor_volume(u400, dt)
+    fhat, fwall = cu.face_flux(faces)
+    new = u400.clone()
+    pair_ms = (event_ms(torch, lambda: cu.face_flux(faces), 20),
+               event_ms(torch, lambda: cu.surface_update(new, fhat, dt, fwall), 20))
+    inject_ms = event_ms(torch, lambda: src.inject(u400, t400, 0.5 * dt), 20)
+    sample_ms = event_ms(torch, lambda: probe.sample(u400, rec), 20)
+    say(f"[seis time] {grid} f32 (CUDA events): {name} {k2a_ms!r} ms, the sourceless K2 "
+        f"aderdg_ck_predictor_volume on the same grid and state {k2_ms!r} ms "
+        f"({k2a_ms / k2_ms:.3f}x), plain predictor_volume {plain_ms!r} ms; walled face pair "
+        f"aderdg_face_flux_walls {pair_ms[0]!r} ms + aderdg_surface_update_walls "
+        f"{pair_ms[1]!r} ms; PointSources.inject (half step) {inject_ms!r} ms; "
+        f"TracerAdvector.sample (4 receivers) {sample_ms!r} ms ({card})")
+    del fhat, fwall, new, faces
+    forced = lambda n: forced_run(torch, src, cu.step, probe, rec, u400, t400, dt, n)  # noqa: E731
+    win = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        forced(50)
+        torch.cuda.synchronize()
+        win.append(1e3 * (time.perf_counter() - t1) / 50)
+    step_win = [1e3 * w for w in windows(torch, cu, u400, dt, steps=50)]
+    plain_win = [1e3 * w for w in windows(torch, sol, u400, dt, steps=2, n_windows=1)]
+    say(f"[seis time] {grid} forced step + sample (host clock, 3 windows of 50): ms per "
+        f"window {win!r}, median {statistics.median(win)!r}; CudaADERDG.step alone "
+        f"{step_win!r}, median {statistics.median(step_win)!r}; plain ADERDGSolver.step "
+        f"{plain_win!r} ({card})")
+    idle, busy, wall = idle_share(torch, lambda: forced(20))
+    say(f"[seis idle] {grid} 20 forced steps + samples under torch.profiler: device busy "
+        f"{busy!r} ms of wall {wall!r} ms; idle share {idle!r} ({card})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    forced(20)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[seis mem] {grid} 20 forced steps: peak {peak} B allocated ({base} B before: the "
+        f"state at the example's time, σ, the seismogram), state {u0.nbytes} B")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            forced(1)
+            syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    say(f"[seis main] host synchronisations in one forced step + sample (torch.cuda."
+        f"set_sync_debug_mode('warn')): {len(syncs)}"
+        + "".join(f"; {w.message}" for w in syncs[:3]))
+
+    state_bytes, itemsize = u400.nbytes, u400.element_size()
+    face_bytes = math.prod(sol.face_shape) * itemsize
+    n_bytes = ck_bytes(state_bytes, face_bytes) + ncell * itemsize  # σ, one value a cell
+    n_ops = ck_predictor_ops(ORDER, ncell) + ck_sponge_ops(ORDER, ncell)
+    bnd = kernel_report(cu, name, f32, f"(CK + sponge, elastic, free surface) {grid} f32",
+                        k2a_ms, n_bytes, n_ops, card)
+    kernel_report(bare, "aderdg_ck_predictor_volume", f32,
+                  f"(sourceless, same grid and state) {grid} f32", k2_ms,
+                  ck_bytes(state_bytes, face_bytes), ck_predictor_ops(ORDER, ncell), card)
+    return [kernel_line(name, "exahype_tpu/models/aderdg_pallas.py:416", launches[name], err,
+                        k2a_ms, plain_ms, bnd)]
 
 
 def fv_path(torch, dev, card, spec_printers) -> dict:
@@ -5896,6 +6319,7 @@ def main():
         "viscous shock": lambda: viscous_shock_path(torch, dev, card),
         "2-D vortex": lambda: vortex2d_path(torch, dev, card),
         "CK": lambda: ck_path(torch, dev, card),
+        "seismic": lambda: seismic_path(torch, dev, card),
         "walls": lambda: walls_path(torch, dev, card),
         "viscous": lambda: viscous_path(torch, dev, card),
         "FV": lambda: [fv_path(torch, dev, card, spec_printers)],

@@ -19,7 +19,11 @@ versions, which match the JAX package:
 - the Cauchy–Kovalewski step of 3-D heterogeneous elasticity
   (``bench.py``'s third metric): ``ADERDGSolver(predictor_mode="ck")`` on
   ``elastic3d_heterogeneous``, through the CK kernel of ``csrc/aderdg.cu``,
-  with or without the free surface (``elastic3d_free_surface_het``);
+  with or without the free surface (``elastic3d_free_surface_het``), and
+  the layered seismic run of ``examples/seismic3d_layered.py``: the CK step
+  with the absorbing sponge (``sponge_source``, compiled into the CK
+  kernel), a Ricker point force (``PointSources``, ``ricker``) and surface
+  receivers (``TracerAdvector``);
 - the spec-DSL FV Rusanov patch update (``__graft_entry__.py``'s path):
   ``KernelBuilder`` → ``CudaPrinter``, which generates one CUDA kernel from
   the statement list → ``TpuPatchGrid`` halo exchange → ``GridSolver``;
@@ -63,6 +67,10 @@ _EXPORTS = {
     "sign_reflect": "exahype_tpu_torch.models.aderdg",
     "elastic3d_free_surface_het": "exahype_tpu_torch.models.elastic",
     "elastic3d_heterogeneous": "exahype_tpu_torch.models.elastic",
+    "sponge_source": "exahype_tpu_torch.models.elastic",
+    "PointSources": "exahype_tpu_torch.models.point_source",
+    "ricker": "exahype_tpu_torch.models.point_source",
+    "TracerAdvector": "exahype_tpu_torch.models.tracers",
     "navier_stokes": "exahype_tpu_torch.models.navier_stokes",
     "noslip_reflect": "exahype_tpu_torch.models.navier_stokes",
     "noslip_reflect_flux": "exahype_tpu_torch.models.navier_stokes",
@@ -91,6 +99,7 @@ _EXPORTS = {
     "TpuPatchGrid": "exahype_tpu_torch.parallel.grid",
     "GridSolver": "exahype_tpu_torch.parallel.solver",
     "aderdg_from_jax": "exahype_tpu_torch.convert",
+    "point_sources_from_jax": "exahype_tpu_torch.convert",
     "limited_from_jax": "exahype_tpu_torch.convert",
     "grid_solver_from_jax": "exahype_tpu_torch.convert",
     "z4_solver_from_jax": "exahype_tpu_torch.convert",

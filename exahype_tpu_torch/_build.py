@@ -53,6 +53,9 @@ _PREDICTOR_VOLUME = (
 _CK_PREDICTOR_VOLUME = (
     _P, _P, _P, _P, ctypes.c_double, _P, _P, _INT, _INT, _P, _LL, _LL, _LL, _P,
 )
+# K2 a, the CK predictor with the sponge: the same, then before the stream
+# sigma (the sponge's rate of each cell).
+_CK_PREDICTOR_VOLUME_SPONGE = _CK_PREDICTOR_VOLUME[:-1] + (_P, _P)
 # faces, fhat, ops, dx, order, physics, params, g0, g1, g2, stream
 _FACE_FLUX = (_P, _P, _P, _P, _INT, _INT, _P, _LL, _LL, _LL, _P)
 # state, fhat, dt_ptr, dt_val, ops, dx, order, physics, params, g0, g1, g2,
@@ -106,6 +109,7 @@ _SIGNATURES = {
         ("aderdg_predictor_volume", _PREDICTOR_VOLUME),
         ("aderdg_predictor_volume_visc", _PREDICTOR_VOLUME_VISC),
         ("aderdg_ck_predictor_volume", _CK_PREDICTOR_VOLUME),
+        ("aderdg_ck_predictor_volume_sponge", _CK_PREDICTOR_VOLUME_SPONGE),
         ("aderdg_face_flux", _FACE_FLUX),
         ("aderdg_surface_update", _SURFACE_UPDATE),
         ("aderdg_face_flux_walls", _FACE_FLUX_WALLS),

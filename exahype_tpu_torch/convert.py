@@ -26,6 +26,7 @@ from exahype_tpu_torch.models.aderdg import (
 from exahype_tpu_torch.models.elastic import (
     elastic3d_free_surface_het,
     elastic3d_heterogeneous,
+    sponge_source,
 )
 from exahype_tpu_torch.models.navier_stokes import (
     navier_stokes,
@@ -134,9 +135,29 @@ def _options_from_jax(jax_solver, walls):
     return options
 
 
+def _sponge_from_jax(jax_solver, solver, sponge: dict):
+    """The port's :func:`sponge_source` for ``solver`` with the parameters
+    ``sponge`` (``width``, ``rate``, ``axes``, ``n_wave``), checked against
+    the JAX solver's ``source_fn`` on one probe state (seeded noise,
+    float64): raises if they differ by more than a few roundings."""
+    port = sponge_source(solver, **sponge)
+    va = jax_solver.var_axis
+    probe = np.random.default_rng(0).standard_normal(tuple(jax_solver.state_shape))
+    want = np.asarray(jax_solver.source_fn(probe, va), dtype=np.float64)
+    got = port(torch.from_numpy(probe), va).numpy()
+    err = float(np.max(np.abs(got - want)))
+    if not err <= 4 * np.finfo(np.float64).eps * max(1.0, float(np.max(np.abs(want)))):
+        raise SemanticError(
+            f"sponge={sponge!r} does not reproduce the JAX solver's source_fn (max "
+            f"difference {err!r} on a probe state): name the parameters its "
+            "sponge_source was built with"
+        )
+    return port
+
+
 def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
                     physics="euler", walls=None, mu: float | None = None,
-                    prandtl: float | None = None, device=None,
+                    prandtl: float | None = None, sponge: dict | None = None, device=None,
                     dtype: torch.dtype = torch.float64):
     """The port's :class:`ADERDGSolver` for a JAX ``ADERDGSolver``, and
     :class:`~exahype_tpu_torch.models.aderdg_cuda.CudaADERDG` over it for a
@@ -179,17 +200,28 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
     ``"noslip"`` (:func:`~exahype_tpu_torch.models.navier_stokes.noslip_reflect`
     and ``noslip_reflect_flux``) or a (reflect_fn, reflect_flux_fn) pair of
     the port's.
+
+    A JAX ``source_fn`` made by ``exahype_tpu.models.elastic.sponge_source``
+    crosses when ``sponge`` names its parameters (``dict(width=..., rate=...,
+    axes=..., n_wave=...)``; the JAX closure carries none): the port's
+    :func:`~exahype_tpu_torch.models.elastic.sponge_source` is built with
+    them on the port's solver and checked against the JAX closure on one
+    probe state, and a mismatch raises ``SemanticError``.
     """
     if type(jax_solver).__name__ == "PallasADERDG":
         from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
 
         return CudaADERDG(aderdg_from_jax(
             jax_solver.solver, gamma=gamma, physics=physics, walls=walls, mu=mu,
-            prandtl=prandtl, device=device, dtype=dtype))
+            prandtl=prandtl, sponge=sponge, device=device, dtype=dtype))
     callbacks = _physics_callbacks(physics, gamma, mu, prandtl, jax_solver.dim,
                                    jax_solver.n_vars)
+    if sponge is not None and jax_solver.source_fn is None:
+        raise SemanticError("sponge= names a JAX solver's sponge_source, and this one has "
+                            "no source_fn")
     for name in CALLBACK_OPTIONS:
-        if getattr(jax_solver, name) is not None:
+        if getattr(jax_solver, name) is not None and not (
+                name == "source_fn" and sponge is not None):
             raise SemanticError(
                 f"the JAX solver's {name} is a JAX function the port cannot "
                 "call; for the Z4 systems use z4_solver_from_jax, z4_shift_solver_from_jax, "
@@ -203,7 +235,7 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
             "prandtl, gamma) or a port 4-tuple, and only a viscous one does (see "
             "ROADMAP.md, Queue 1, done: item 3, the viscous fluxes)"
         )
-    return ADERDGSolver(
+    solver = ADERDGSolver(
         dim=jax_solver.dim,
         order=jax_solver.order,
         n_vars=jax_solver.n_vars,
@@ -216,6 +248,31 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
         dtype=dtype,
         **_options_from_jax(jax_solver, walls),
     )
+    if sponge is not None:
+        solver.source_fn = _sponge_from_jax(jax_solver, solver, sponge)
+    return solver
+
+
+def point_sources_from_jax(jax_sources, solver, *, f0: float, t_delay: float | None = None):
+    """The port's :class:`~exahype_tpu_torch.models.point_source.PointSources`
+    on ``solver`` (a port solver) for a JAX ``PointSources`` whose wavelet
+    is ``ricker(f0, t_delay)``: its positions and amplitudes cross as
+    NumPy, the wavelet by its parameters (the JAX function is opaque), and
+    the two wavelets are compared at 33 times over [0, 4/f0]; a mismatch
+    raises ``SemanticError``."""
+    from exahype_tpu_torch.models.point_source import PointSources, ricker
+
+    psi = ricker(f0, t_delay)
+    t = np.linspace(0.0, 4.0 / f0, 33)
+    want = np.asarray(jax_sources.wavelet(t), dtype=np.float64)
+    got = psi(torch.from_numpy(t)).numpy()
+    if not np.allclose(got, want, rtol=0, atol=1e-13):
+        raise SemanticError(
+            f"ricker(f0={f0!r}, t_delay={t_delay!r}) does not reproduce the JAX "
+            "PointSources' wavelet: name its parameters"
+        )
+    return PointSources(solver, np.asarray(jax_sources.positions),
+                        np.asarray(jax_sources.amplitudes), psi)
 
 
 def limited_from_jax(jax_limited, *, gamma: float, walls=None, physics="euler",

@@ -118,6 +118,24 @@
 // bits, their face fluxes exact zeros, and the face stage does not touch them (mask 0), so slots
 // 9-11 leave the step bitwise unchanged.
 //
+// K2 a, the CK predictor's source instance (aderdg_ck_predictor_volume
+// with Source = SpongeSource, entry _sponge): the absorbing sponge of
+// examples/seismic3d_layered.py, S(q) = −σ_c q on the 9 evolved rows, zero
+// on the materials, σ_c a cell's rate (a [ncell] input in the state's
+// dtype, read once a cell; the TPU kernel captures σ as a constant of the
+// grid's shape, which its interpret mode refuses and its tiling cannot
+// cut, so JAX runs that example on XLA).  It replaces the source branch of
+// PallasADERDG.build's CK body (exahype_tpu/models/aderdg_pallas.py:416-425):
+// each level adds dt·(−σ_c q_{k−1}) to the x and y flux terms before the
+// z term and the division by k (r = ((−λ_0 D F_0 − λ_1 D F_1) + dt·S) −
+// λ_2 D F_2, q_k = r/k), and new starts from u + dt·S(q̄).  The reference
+// (the plain version, XLA) takes q_k = (dt/k)·(Σ_d −D F_d/dx_d + S): the
+// same function up to the rounding of a reordered sum, ~1e-16 of the
+// terms in float64.  The extra work is 9 multiply-adds a node and level and
+// one load a cell, so it stays memory-bound like K2; the sourceless
+// instance is compiled from the same body with the source branches
+// compiled out (if constexpr), so its machine code is K2's.
+//
 // Walls (the face stage's wall variant: two kernels of their own beside the
 // periodic pair, which is unchanged).  On a wall axis the TPU
 // path turns its in-kernel solves off, emits every axis's face projections
@@ -483,6 +501,16 @@ aderdg_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
   }
 }
 
+// The CK predictor's source instances (a template argument): none, or K2
+// a's absorbing sponge S(q) = −σ_c q on the evolved rows, σ_c a cell's rate
+// (models/elastic.py::sponge_source; zero on the material rows).
+struct NoSource {
+  static constexpr bool kOn = false;
+};
+struct SpongeSource {
+  static constexpr bool kOn = true;
+};
+
 // Dynamic shared memory of aderdg_ck_predictor_volume: u (then q̄, then
 // new) in V rows and one axis's F̄_d in E rows, each NN^3 CB values a row.
 template <typename T, int NN, int CB, int V, int E>
@@ -493,12 +521,16 @@ constexpr size_t ck_predictor_smem() {
 // K2, the CK predictor (see the note at the top): one thread per (cell,
 // pencil along the last node axis), CB cells x NN^2 pencils per block, the
 // Picard predictor's thread shape; shared memory only stages u in, q̄ and
-// F̄_d for the face projections, and new out.
-template <typename T, int NN, int CB>
+// F̄_d for the face projections, and new out.  With Source = SpongeSource
+// (K2 a) each level adds dt·S(q_{k−1}) = dt·(−σ_c q) to the evolved rows
+// before the division by k, and new starts from u + dt·S(q̄); sigma, σ_c
+// per cell, is read once a cell (unread, and null, without a source).
+template <typename T, int NN, int CB, typename Source = NoSource>
 __global__ void __launch_bounds__(CB * NN * NN, 3)
 aderdg_ck_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
                            T* __restrict__ faces, const T* __restrict__ dt_ptr,
-                           T dt_val, const Params<T, NN, ElasticHetPhysics<T>> P) {
+                           T dt_val, const Params<T, NN, ElasticHetPhysics<T>> P,
+                           const T* __restrict__ sigma) {
   static_assert(NN * NN * 2 == 32, "a warp holds the 16 pencils of 2 cells");
   using Phys = ElasticHetPhysics<T>;
   using U = PencilStage<NN, CB>;
@@ -532,6 +564,13 @@ aderdg_ck_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
   T lam[kDim];
 #pragma unroll
   for (int d = 0; d < kDim; ++d) lam[d] = dtv / P.dx[d];
+  // The sponge's rate of my compute-mapping cell (the ragged tail clamped
+  // as in the I/O mapping).
+  T sig = T(0);
+  if constexpr (Source::kOn) {
+    const long long cc = static_cast<long long>(blockIdx.x) * CB + c;
+    sig = sigma[cc < ncell ? cc : ncell - 1];
+  }
   // The coefficient of the value the xor-k shuffle brings: D and Kvol
   // along axes 0 and 1, and the face projections' φ(0), φ(1) (for the
   // face node whose index on that axis is mine).
@@ -599,8 +638,13 @@ aderdg_ck_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
           dF0 = dF0 + D0[x] * __shfl_xor_sync(kAll, f[0][v], x << 3);
           dF1 = dF1 + D1[x] * __shfl_xor_sync(kAll, f[1][v], x << 1);
         }
-        // q_{k-1} at this node has given its fluxes: its slot takes r.
-        qk[i2][v] = -(lam[0] * dF0) - lam[1] * dF1;
+        // q_{k-1} at this node has given its fluxes: its slot takes r
+        // (with the sponge, and its source term dt·(−σ_c q_{k−1})).
+        if constexpr (Source::kOn) {
+          qk[i2][v] = (-(lam[0] * dF0) - lam[1] * dF1) + dtv * -(sig * qk[i2][v]);
+        } else {
+          qk[i2][v] = -(lam[0] * dF0) - lam[1] * dF1;
+        }
       }
     }
 #pragma unroll
@@ -614,14 +658,19 @@ aderdg_ck_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
     }
   }
 
-  // new's evolved rows start from u, in the registers of q_k (spent); q̄'s
-  // evolved rows replace u's in sA (its material rows are u's already).
+  // new's evolved rows start from u (with the sponge u + dt·S(q̄)), in the
+  // registers of q_k (spent); q̄'s evolved rows replace u's in sA (its
+  // material rows are u's already).
   T nw[NN][E];
 #pragma unroll
   for (int i2 = 0; i2 < NN; ++i2) {
 #pragma unroll
     for (int v = 0; v < E; ++v) {
-      nw[i2][v] = A(i2, v);
+      if constexpr (Source::kOn) {
+        nw[i2][v] = A(i2, v) + dtv * -(sig * QB(i2, v));
+      } else {
+        nw[i2][v] = A(i2, v);
+      }
       A(i2, v) = QB(i2, v);
     }
   }
@@ -1061,10 +1110,10 @@ Shape predictor_shape() {
           dim3(CB * kNN * kNN), predictor_smem<T, kNN, CB, Phys::V>()};
 }
 
-template <typename T>
+template <typename T, typename Source = NoSource>
 Shape ck_predictor_shape() {
   constexpr int CB = cells_per_block<T>();
-  return {reinterpret_cast<const void*>(aderdg_ck_predictor_volume<T, kNN, CB>),
+  return {reinterpret_cast<const void*>(aderdg_ck_predictor_volume<T, kNN, CB, Source>),
           dim3(CB * kNN * kNN),
           ck_predictor_smem<T, kNN, CB, ElasticHetPhysics<T>::V,
                             ElasticHetPhysics<T>::kEvolved>()};
@@ -1116,22 +1165,26 @@ cudaError_t launch_predictor_volume(const T* u, T* out, T* faces, const T* dt_pt
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename Source>
 cudaError_t launch_ck_predictor_volume(const T* u, T* out, T* faces, const T* dt_ptr,
                                        double dt_val, const double* ops, const double* dx,
                                        int order, const double* params, long long g0,
-                                       long long g1, long long g2, void* stream) {
+                                       long long g1, long long g2, const T* sigma,
+                                       void* stream) {
   using Phys = ElasticHetPhysics<T>;
   constexpr int CB = cells_per_block<T>();
-  if (bad_grid<kNN>(order, g0, g1, g2)) return cudaErrorInvalidValue;
+  if (bad_grid<kNN>(order, g0, g1, g2) || (Source::kOn && sigma == nullptr))
+    return cudaErrorInvalidValue;
   const auto P = make_params<T, kNN, Phys>(ops, dx, 0, params, g0, g1, g2);
-  const Shape sh = ck_predictor_shape<T>();
-  const cudaError_t attr = allow_smem(aderdg_ck_predictor_volume<T, kNN, CB>, sh.smem);
+  const Shape sh = ck_predictor_shape<T, Source>();
+  const cudaError_t attr =
+      allow_smem(aderdg_ck_predictor_volume<T, kNN, CB, Source>, sh.smem);
   if (attr != cudaSuccess) return attr;
   const long long blocks = (P.ncell + CB - 1) / CB;
-  aderdg_ck_predictor_volume<T, kNN, CB>
+  aderdg_ck_predictor_volume<T, kNN, CB, Source>
       <<<static_cast<unsigned>(blocks), sh.block, sh.smem,
-         static_cast<cudaStream_t>(stream)>>>(u, out, faces, dt_ptr, static_cast<T>(dt_val), P);
+         static_cast<cudaStream_t>(stream)>>>(u, out, faces, dt_ptr, static_cast<T>(dt_val), P,
+                                              sigma);
   return cudaGetLastError();
 }
 
@@ -1189,14 +1242,14 @@ int predictor_volume(const T* u, T* out, T* faces, const T* dt_ptr, double dt_va
                                                      g2, stream);
 }
 
-template <typename T>
+template <typename T, typename Source = NoSource>
 int ck_predictor_volume(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
                         const double* ops, const double* dx, int order, int physics,
                         const double* params, long long g0, long long g1, long long g2,
-                        void* stream) {
+                        const T* sigma, void* stream) {
   if (physics != kElasticHet) return cudaErrorInvalidValue;
-  return launch_ck_predictor_volume<T>(u, out, faces, dt_ptr, dt_val, ops, dx, order, params,
-                                       g0, g1, g2, stream);
+  return launch_ck_predictor_volume<T, Source>(u, out, faces, dt_ptr, dt_val, ops, dx, order,
+                                               params, g0, g1, g2, sigma, stream);
 }
 
 template <typename T, typename Phys>
@@ -1366,6 +1419,9 @@ int kernel_info(int kernel, int physics, int* out) {
       return euler ? shape_info(predictor_shape<T, E>(), out) : cudaErrorInvalidValue;
     case 1:
       return euler ? cudaErrorInvalidValue : shape_info(ck_predictor_shape<T>(), out);
+    case 28:
+      return euler ? cudaErrorInvalidValue
+                   : shape_info(ck_predictor_shape<T, SpongeSource>(), out);
     case 2:
       return shape_info(euler ? face_flux_shape<T, E, false>() : face_flux_shape<T, H, false>(),
                         out);
@@ -1446,7 +1502,7 @@ int exahype_aderdg_ck_predictor_volume_f32(const float* u, float* out, float* fa
                                            int physics, const double* params, long long g0,
                                            long long g1, long long g2, void* stream) {
   return ck_predictor_volume<float>(u, out, faces, dt_ptr, dt_val, ops, dx, order, physics,
-                                    params, g0, g1, g2, stream);
+                                    params, g0, g1, g2, nullptr, stream);
 }
 
 int exahype_aderdg_ck_predictor_volume_f64(const double* u, double* out, double* faces,
@@ -1455,7 +1511,33 @@ int exahype_aderdg_ck_predictor_volume_f64(const double* u, double* out, double*
                                            int physics, const double* params, long long g0,
                                            long long g1, long long g2, void* stream) {
   return ck_predictor_volume<double>(u, out, faces, dt_ptr, dt_val, ops, dx, order, physics,
-                                     params, g0, g1, g2, stream);
+                                     params, g0, g1, g2, nullptr, stream);
+}
+
+// K2 a, the CK predictor with the absorbing sponge (physics 1 only): the
+// entries above, then sigma, the sponge's rate of each cell ([ncell], the
+// state's dtype, on the card; not null).
+int exahype_aderdg_ck_predictor_volume_sponge_f32(const float* u, float* out, float* faces,
+                                                  const float* dt_ptr, double dt_val,
+                                                  const double* ops, const double* dx,
+                                                  int order, int physics,
+                                                  const double* params, long long g0,
+                                                  long long g1, long long g2,
+                                                  const float* sigma, void* stream) {
+  return ck_predictor_volume<float, SpongeSource>(u, out, faces, dt_ptr, dt_val, ops, dx, order,
+                                                  physics, params, g0, g1, g2, sigma, stream);
+}
+
+int exahype_aderdg_ck_predictor_volume_sponge_f64(const double* u, double* out, double* faces,
+                                                  const double* dt_ptr, double dt_val,
+                                                  const double* ops, const double* dx,
+                                                  int order, int physics,
+                                                  const double* params, long long g0,
+                                                  long long g1, long long g2,
+                                                  const double* sigma, void* stream) {
+  return ck_predictor_volume<double, SpongeSource>(u, out, faces, dt_ptr, dt_val, ops, dx,
+                                                   order, physics, params, g0, g1, g2, sigma,
+                                                   stream);
 }
 
 int exahype_aderdg_face_flux_f32(const float* faces, float* fhat,
@@ -1594,7 +1676,9 @@ int exahype_aderdg_surface_update_p5_f64(double* state, const double* fhat,
 // 19 = predictor_volume_p5 (csrc/aderdg_p5.cu), 20 = face_flux_p5, 21 =
 // surface_update_p5; physics 0 in 2-D (csrc/aderdg_2d.cu): 22 =
 // predictor_volume_2d, 23 = face_flux_2d, 24 = surface_update_2d, 25 =
-// face_flux_walls_2d, 26 = surface_update_walls_2d; f64 = 0 or 1.
+// face_flux_walls_2d, 26 = surface_update_walls_2d; physics 1: 28 =
+// ck_predictor_volume_sponge (K2 a, the CK predictor with the sponge);
+// f64 = 0 or 1.
 int exahype_aderdg_kernel_info(int kernel, int f64, int physics, int* out) {
   return f64 ? kernel_info<double>(kernel, physics, out)
              : kernel_info<float>(kernel, physics, out);

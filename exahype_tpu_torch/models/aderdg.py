@@ -8,7 +8,7 @@ volume integral, the Rusanov face solve (with an optional
 ``dissipation_mask``) and the corrector on a Cartesian grid that is
 periodic or closed by domain walls (``boundary``: reflective, outflow,
 farfield or dirichlet, on every axis or on ``wall_axes``).  On
-the Picard path it also carries the algebraic source ``source_fn``, the
+either predictor it also carries the algebraic source ``source_fn``, the
 non-conservative product ``ncp_fn`` (strong-form volume term,
 path-conservative face fluctuations) and the fused right-hand side
 ``rhs_all_fn`` of big NCP systems (the Z4 step, ``models/z4.py``).  It is
@@ -31,8 +31,7 @@ add the Gassner penalty to the face dissipation speed and the parabolic
 term to ``cfl_dt``; on a walled viscous solver the face stage also takes
 the viscous-only time-averaged flux on the wall planes (a side tensor, see
 :meth:`ADERDGSolver.predictor_volume`).  ``reuse_last_flux`` is not ported
-and raises :class:`SemanticError` naming ``ROADMAP.md``; so does any CK
-combination with sources or non-conservative products.
+and raises :class:`SemanticError` naming ``ROADMAP.md``.
 
 Also the port's copies of the JAX wall hooks: :func:`euler_reflect`,
 :func:`euler_reflect_flux` (sign tables, ``.signs``, so the CUDA face stage
@@ -335,14 +334,6 @@ class ADERDGSolver(nn.Module):
                 "the Cauchy–Kovalewski (linear) predictor does not support "
                 "viscous fluxes — use predictor_mode='picard'"
             )
-        hooks = {"source_fn": source_fn, "ncp_fn": ncp_fn, "rhs_all_fn": rhs_all_fn}
-        for name, fn in hooks.items():
-            if fn is not None and predictor_mode == "ck":
-                raise SemanticError(
-                    f"{name} with predictor_mode='ck' is not ported to "
-                    "exahype_tpu_torch yet (only the Picard path carries it); "
-                    "see ROADMAP.md, Queue 1 item 8"
-                )
         if ck_material_slots is not None:
             if predictor_mode != "ck":
                 raise SemanticError(
@@ -621,11 +612,14 @@ class ADERDGSolver(nn.Module):
         """Cauchy–Kovalewski predictor (the JAX ``_predictor_ck``, in its
         operation order): the Taylor terms ``q_k = (dt/k)·L(q_{k-1})`` of N
         applications of the spatial operator ``L(v) = −Σ_d D·F_d(v)/dx_d``
-        on the spatial nodal array, with the material slots injected from
-        ``u`` before and zeroed after each application; by linearity
-        ``q̄ = Σ_k q_k/(k+1)`` and ``F̄_d = F_d(q̄)``."""
+        (minus each axis's ``ncp_fn(v, D·v)/dx_d``), plus ``rhs_all_fn(v,
+        ∇v)`` or else ``source_fn(v)``, on the spatial nodal array, with the
+        material slots injected from ``u`` before and zeroed after each
+        application; by linearity ``q̄ = Σ_k q_k/(k+1)``, ``F̄_d = F_d(q̄)``
+        and, with ``source_fn``, ``S̄ = S(q̄)`` as a third element."""
         va = self.var_axis
         mat = self.ck_mask
+        per_axis_ncp = self.ncp_fn is not None and self.rhs_all_fn is None
 
         def L(v):
             if mat is not None:
@@ -635,6 +629,13 @@ class ADERDGSolver(nn.Module):
                 F = self.flux_fn(v, d, va)
                 term = -_apply(self.D, F, axis=self.node_axis(d)) / self._dxs[d]
                 rhs = term if rhs is None else rhs + term
+                if per_axis_ncp:
+                    dq = _apply(self.D, v, axis=self.node_axis(d))
+                    rhs = rhs - self.ncp_fn(v, dq, d, va) / self._dxs[d]
+            if self.rhs_all_fn is not None:
+                rhs = rhs + self.rhs_all_fn(v.contiguous(), self._grads(v, 0), va)
+            elif self.source_fn is not None:
+                rhs = rhs + self.source_fn(v, va)
             if mat is not None:
                 # d/dt of a frozen material slot is identically zero.
                 rhs = torch.where(mat, 0.0, rhs)
@@ -646,6 +647,8 @@ class ADERDGSolver(nn.Module):
             qk = (dt / k) * L(qk)
             qbar = qbar + qk / (k + 1)
         fbar = [self.flux_fn(qbar, d, va) for d in range(self.dim)]
+        if self.source_fn is not None:
+            return qbar, fbar, self.source_fn(qbar, va)
         return qbar, fbar
 
     def _grads(self, x, base_axis: int):

@@ -22,7 +22,11 @@ order 3 in 3-D the physics are: compressible Euler on the Picard predictor (``be
 compressible Navier–Stokes on the Picard predictor with its viscous terms
 (``models/navier_stokes.py``) and heterogeneous elasticity on the
 Cauchy–Kovalewski predictor with its materials frozen
-(``bench.py::bench_ck``); and on the pure-NCP path with the fused
+(``bench.py::bench_ck``), with the absorbing sponge of
+``models/elastic.py::sponge_source`` as its source
+(``examples/seismic3d_layered.py``'s step: K2 a,
+``aderdg_ck_predictor_volume_sponge``, which takes σ per cell as a
+``[ncell]`` tensor); and on the pure-NCP path with the fused
 right-hand side at order 2 in 3-D, periodic, for the 38-variable vacuum Z4
 system (``models/z4.py::make_z4_solver(..., impl="soa", fused_rhs="soa")``,
 ``scripts/z4_probe.py``) and the 53-variable shifted one
@@ -71,7 +75,13 @@ flux, wave speed, ``source_fn``, ``ncp_fn`` and ``rhs_all_fn`` all carry one
 do a Z4 solver without the fused hook (the per-axis NCP branch), a Z4
 solver with walls, and a solver whose ``rhs_all_fn`` is already on K5
 (``models.rhs_cuda.with_cuda_rhs``: these kernels compile the algebra in and
-would bypass it; build ``CudaADERDG`` on the plain solver).
+would bypass it; build ``CudaADERDG`` on the plain solver).  On the CK
+predictor the one callback compiled in is the sponge (a ``source_fn`` that
+carries a :class:`~exahype_tpu_torch.models.elastic.SpongeTag`, with
+``n_wave`` the 9 evolved rows); CK with ``ncp_fn`` or ``rhs_all_fn``, CK
+with any other ``source_fn``, and a sponge on a solver other than the CK
+``elastic3d_het`` one raise :class:`LoweringError` naming ROADMAP.md,
+Queue 2 K2 a (the plain solver runs them all).
 
 With walls (``solver.boundary`` not periodic) the face stage is its wall
 variant, ``aderdg_face_flux_walls`` + ``aderdg_surface_update_walls``:
@@ -182,6 +192,39 @@ def _kernel_params(tag, solver) -> tuple:
             *(2.0 * (2 * solver.order + 1) / dx for dx in solver._dxs))
 
 
+def _ck_sponge(solver):
+    """The :class:`~exahype_tpu_torch.models.elastic.SpongeTag` of a CK
+    ``elastic3d_het`` solver whose one callback is the sponge, or None for
+    a solver without CK callbacks or sponge; raise for the CK callbacks
+    the kernels do not compile in (Queue 2 K2 a)."""
+    where = "see ROADMAP.md, Queue 2 K2 a (the plain solver runs it)"
+    ck = solver.predictor_mode == "ck"
+    sponge = getattr(solver.source_fn, "sponge", None)
+    if ck:
+        for name in ("ncp_fn", "rhs_all_fn"):
+            if getattr(solver, name) is not None:
+                raise LoweringError(
+                    f"the CUDA CK predictor carries no {name}: CK with a non-conservative "
+                    f"product or a fused right-hand side on the card is still to port; {where}"
+                )
+        if solver.source_fn is not None and sponge is None:
+            raise LoweringError(
+                "the CUDA CK predictor compiles in one source, the absorbing sponge of "
+                "models.elastic.sponge_source; this solver's source_fn is another; " + where
+            )
+    if sponge is None:
+        return None
+    tag = getattr(solver.flux_fn, "physics", None)
+    if not ck or tag is None or tag.name != "elastic3d_het" or sponge.n_wave != (
+            elastic.MATERIAL_SLOTS[0]) or sponge.sigma.shape != tuple(solver.grid_shape):
+        raise LoweringError(
+            "the sponge is compiled into the CK predictor of the 12-variable "
+            "elastic3d_het solver only, damping its 9 evolved rows (n_wave=9) on the "
+            "solver's own grid; " + where
+        )
+    return sponge
+
+
 def _z4_refusal(solver) -> None:
     """Raise unless the solver's ``source_fn``/``ncp_fn``/``rhs_all_fn`` are
     a fused Z4 system the kernels compile in, zero-shift, shifted or coupled
@@ -250,11 +293,13 @@ class CudaADERDG:
         "aderdg_predictor_volume_p5", "aderdg_face_flux_p5", "aderdg_surface_update_p5",
         "aderdg_predictor_volume_2d", "aderdg_face_flux_2d", "aderdg_surface_update_2d",
         "aderdg_face_flux_walls_2d", "aderdg_surface_update_walls_2d",
-        "aderdg_predictor_volume_visc_2d",
+        "aderdg_predictor_volume_visc_2d", "aderdg_ck_predictor_volume_sponge",
     )
 
     def __init__(self, solver: ADERDGSolver):
-        ncp = any(getattr(solver, option) is not None for option in CALLBACK_OPTIONS)
+        sponge = _ck_sponge(solver)
+        ncp = sponge is None and any(
+            getattr(solver, option) is not None for option in CALLBACK_OPTIONS)
         if ncp:
             _z4_refusal(solver)
         viscous = any(getattr(solver, option) is not None for option in VISCOUS_OPTIONS)
@@ -345,6 +390,10 @@ class CudaADERDG:
         #: Whether the step carries the fused NCP right-hand side (Z4): the
         #: face flux kernel then also returns the NCP half-fluctuations.
         self.ncp = ncp
+        #: The sponge the CK predictor compiles in (K2 a), or None; its σ
+        #: goes to the kernel per cell, by dtype and device in ``_sigma``.
+        self.sponge = sponge
+        self._sigma = {}
         self._physics_id = physics["id"]
         # The rows whose face flux can be nonzero: all but the frozen
         # materials, the last rows (the kernels' Phys::kFluxRows).
@@ -357,6 +406,8 @@ class CudaADERDG:
         #: stage (its wall variant on a grid with walls).
         suffix = "" if self.walls is None else "_walls"
         predictor = "aderdg_ck_predictor_volume" if mode == "ck" else "aderdg_predictor_volume"
+        if sponge is not None:
+            predictor += "_sponge"
         self.kernels = (
             predictor + ("_visc" if viscous else "") + order_suffix + dim_suffix,
             f"aderdg_face_flux{suffix}{order_suffix}{dim_suffix}",
@@ -480,8 +531,9 @@ class CudaADERDG:
         faces = torch.empty(sol.face_shape, dtype=u.dtype, device=u.device)
         dt_dev, dt_ptr, dt_val = self._dt_args(dt, u)
         name = self.kernels[0]
-        # The Picard launchers take the iteration count; the CK one has none.
-        iters = () if name == "aderdg_ck_predictor_volume" else (sol.picard_iters,)
+        # The Picard launchers take the iteration count; the CK ones have none.
+        ck = name.startswith("aderdg_ck_predictor_volume")
+        iters = () if ck else (sol.picard_iters,)
         # The viscous launcher takes the wall planes of the viscous split
         # (mask 0: none).
         fvwall, planes = None, ()
@@ -492,6 +544,12 @@ class CudaADERDG:
                 planes = (w["mask"], fvwall.data_ptr(), w["off"].ctypes.data, w["size"])
             else:
                 planes = (0, None, None, 0)
+        if self.sponge is not None:  # K2 a takes σ, one value a cell
+            key = (u.dtype, u.device)
+            if key not in self._sigma:
+                self._sigma[key] = torch.as_tensor(
+                    self.sponge.sigma.reshape(-1), dtype=u.dtype, device=u.device).contiguous()
+            planes = (self._sigma[key].data_ptr(),)
         lib = _build.library()
         with torch.cuda.device(u.device):
             stream = torch.cuda.current_stream(u.device).cuda_stream

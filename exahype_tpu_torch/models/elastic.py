@@ -14,11 +14,14 @@ involve the normal are ``-z`` for a zero ``z``.  The CUDA kernels'
 ``__device__`` version is ``csrc/elastic.cuh``.
 
 Also a NumPy copy of ``plane_p_wave_3d`` and ``_speeds`` (the JAX module
-loads JAX), and the initial state of ``bench.py::bench_ck``.
+loads JAX), the initial state of ``bench.py::bench_ck``, and the absorbing
+sponge ``sponge_source`` (``examples/seismic3d_layered.py``'s edges), whose
+tag (:class:`SpongeTag`) the CUDA CK predictor reads.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -167,3 +170,65 @@ def seismic_energy(Q, var_axis, materials=None):
     trs = torch.sum(diag, dim=va)
     strain2 = (s_dd - lam / (3 * lam + 2 * mu) * trs**2) / (2.0 * mu)
     return torch.sum(v2 + strain2)
+
+
+# ---------------------------------------------------------- absorbing edges
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SpongeTag:
+    """What a :func:`sponge_source` closure computes, so the CUDA CK
+    predictor can compile it in (``models/aderdg_cuda.py``): its
+    parameters, and ``sigma``, the damping rate of each cell (float64
+    NumPy, the solver's grid shape)."""
+
+    width: float
+    rate: float
+    axes: tuple
+    n_wave: int
+    sigma: np.ndarray
+
+
+def sponge_source(solver, width: float, rate: float, axes=None,
+                  n_wave: int | None = None):
+    """``source_fn`` damping the wave variables within ``width`` of the
+    domain edges along ``axes`` (default: all), with a squared-cosine
+    profile peaking at ``rate`` on the boundary: S = −σ(x)·Q on the first
+    ``n_wave`` variables (default all), zero on the rest (the JAX
+    ``sponge_source``, ``exahype_tpu/models/elastic.py:209-249``).  σ is
+    computed per cell in float64 NumPy as the JAX closure computes it and
+    cast to the state's dtype; the closure carries ``.sponge``, a
+    :class:`SpongeTag`."""
+    dim = solver.dim
+    if axes is None:
+        axes = tuple(range(dim))
+    axes = tuple(int(d) for d in axes)
+    sigma = np.zeros(solver.grid_shape)
+    for d in axes:
+        centers = (np.arange(solver.grid_shape[d]) + 0.5) * solver._dxs[d]
+        extent = solver.grid_shape[d] * solver._dxs[d]
+        edge = np.minimum(centers, extent - centers)
+        prof = np.where(edge < width, np.cos(0.5 * np.pi * edge / width) ** 2, 0.0)
+        shape = [1] * dim
+        shape[d] = solver.grid_shape[d]
+        sigma = np.maximum(sigma, prof.reshape(shape))
+    sigma = rate * sigma
+    nv = solver.n_vars if n_wave is None else int(n_wave)
+    mask = np.asarray([1.0] * nv + [0.0] * (solver.n_vars - nv))
+    n_vars, grid = solver.n_vars, tuple(solver.grid_shape)
+    cache = {}
+
+    def source(q, var_axis):
+        # q may carry a leading time-node axis inside the predictor; the
+        # trailing grid axes always line up.
+        key = (q.dtype, q.device, q.dim(), var_axis)
+        if key not in cache:
+            s = torch.as_tensor(sigma, dtype=q.dtype, device=q.device)
+            mshape = [1] * q.dim()
+            mshape[var_axis] = n_vars
+            m = torch.as_tensor(mask, dtype=q.dtype, device=q.device).reshape(mshape)
+            cache[key] = s.reshape((1,) * (q.dim() - dim) + grid) * m
+        return -cache[key] * q
+
+    source.sponge = SpongeTag(float(width), float(rate), axes, nv, sigma)
+    return source

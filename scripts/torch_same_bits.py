@@ -30,6 +30,15 @@ compares their outputs bit for bit:
   magnetized wave of ``chip_smoke.py``'s GRMHD path with the same noise:
   outputs a checkout without them lacks are reported as new, not as
   differences;
+- the CK kernels (K2, ``aderdg_ck_predictor_volume``, and the face stage's
+  elastic variant): ``bench_ck``'s two-layer state with seeded noise of
+  1e-3 on the 9 wave rows at ``(8, 4, 32)`` in float64 and float32 and at
+  ``(64, 4, 32)`` in float32, dt = 2e-4: the predictor's ``new`` and
+  ``faces``, three chained steps periodic and with the free surface on
+  axis 2, and, where the checkout has it, the same with the absorbing
+  sponge of ``examples/seismic3d_layered.py`` (K2 a,
+  ``aderdg_ck_predictor_volume_sponge``), reported as new against a
+  checkout without it;
 - the limiter's subcell sweep K3 (``subcell_row_sweep``, 3-D p3 Euler) on
   a seeded gathered batch ``[7, 7, 7, 5, 8, 16]`` with 5 of 8 slots active,
   each direction, in float64 and float32, and where the checkout has it K3
@@ -42,7 +51,9 @@ instructions of every kernel the two have in common (matched by name, value
 type, the first integer template argument, which is the node count of the
 ADER-DG kernels of ``csrc/aderdg.cu``, and for the Z4 step's kernels the
 system, ``Z4Vacuum``, ``Z4Shift``, ``Z4Matter`` or ``Z4Grmhd``, whatever
-template arguments were added since), ignoring addresses and encodings;
+template arguments were added since; K2 a, the CK predictor's
+``SpongeSource`` instance, by that argument), ignoring addresses and
+encodings;
 kernels of the Z4+GRMHD system and of the order-5 Euler step (the face
 stage at n = 6 and ``aderdg_predictor_volume_st``) and of the 2-D Euler
 step (``csrc/aderdg_2d.cu``, periodic and walled) and the 2-D kernels'
@@ -65,6 +76,7 @@ HERE = pathlib.Path(__file__).resolve().parent.parent
 CASES = (((8, 4, 32), "float64"), ((8, 4, 32), "float32"), ((256, 8, 128), "float32"))
 DT = 5e-5  # under the CFL limit (6.26e-5) of this state at dx = 1/256
 Z4_CASES = (((8, 4, 16), "float64"), ((8, 4, 16), "float32"), ((16, 16, 128), "float32"))
+CK_CASES = (((8, 4, 32), "float64"), ((8, 4, 32), "float32"), ((64, 4, 32), "float32"))
 #: The kernels whose machine code is compared: the Euler ones, K5's four
 #: instances and the Z4 steps' (``<length><name>If`` or ``...Id`` in the
 #: mangled name, after the anonymous namespace's prefix).
@@ -74,16 +86,18 @@ SASS_KERNELS = (
     "rhs_all_z4", "rhs_all_z4_shift", "rhs_all_z4_matter", "rhs_all_z4_grmhd",
     "aderdg_predictor_volume_st", "aderdg_predictor_volume_2d", "aderdg_face_flux_2d",
     "aderdg_surface_update_2d", "subcell_row_sweep", "subcell_row_sweep_ncp",
+    "aderdg_ck_predictor_volume",
 )
-#: The Z4 step kernels' systems and the 2-D Navier–Stokes physics (a
-#: template argument of each instance).
-SYSTEMS = ("Z4Vacuum", "Z4Shift", "Z4Matter", "Z4Grmhd", "NavierStokes2D")
+#: The Z4 step kernels' systems, the 2-D Navier–Stokes physics and the CK
+#: predictor's sponge (a template argument of each instance).
+SYSTEMS = ("Z4Vacuum", "Z4Shift", "Z4Matter", "Z4Grmhd", "NavierStokes2D", "SpongeSource")
 #: What only this checkout may have: the Z4+GRMHD system's kernels, the
 #: order-5 Euler step's (its predictor, and the face stage's kernels whose
 #: node count is ``NEW_NODES``) and the 2-D Euler step's.
 NEW = ("Z4Grmhd", "rhs_all_z4_grmhd", "Z4+GRMHD", "aderdg_predictor_volume_st",
        "aderdg_predictor_volume_2d", "aderdg_face_flux_2d", "aderdg_surface_update_2d",
-       "NavierStokes2D", "subcell_row_sweep_ncp", "K3 a Z4+GRHD")
+       "NavierStokes2D", "subcell_row_sweep_ncp", "K3 a Z4+GRHD", "SpongeSource",
+       "CK sponge")
 NEW_NODES = "6"
 _KERNEL_NAME = re.compile(r"(\d+)(" + "|".join(sorted(SASS_KERNELS, key=len, reverse=True))
                           + r")I([fd])(?:Li(\d+)E)?")
@@ -129,6 +143,32 @@ for grid, dtype in CASES:
     results[key + " face_surface new"] = surf.cpu()
     results[key + " face fluxes"] = torch.stack(fl).cpu()
     results[key + " 3 steps"] = cu.run(u, 3, DT).cpu()
+from exahype_tpu_torch.models import elastic
+for grid, dtype in CK_CASES:
+    dtype = getattr(torch, dtype)
+    cases = [("periodic", {}), ("free surface", dict(
+        boundary="reflective", wall_axes=(2,), reflect_fn=elastic.elastic3d_free_surface_het()[0],
+        reflect_flux_fn=elastic.elastic3d_free_surface_het()[1]))]
+    if hasattr(elastic, "sponge_source"):  # K2 a, this PR's checkouts on
+        cases.append(("sponge", cases[1][1]))
+    for label, walls in cases:
+        flux, eig = elastic.elastic3d_heterogeneous()
+        sol = ADERDGSolver(3, 3, 12, grid, flux, eig, dx=1.0 / grid[0], device="cuda",
+                           dtype=dtype, predictor_mode="ck",
+                           ck_material_slots=elastic.MATERIAL_SLOTS,
+                           dissipation_mask=elastic.DISSIPATION_MASK, **walls)
+        if label == "sponge":
+            sol.source_fn = elastic.sponge_source(sol, width=0.3, rate=40.0, axes=(0, 1),
+                                                  n_wave=9)
+        cu = CudaADERDG(sol)
+        q, _ = elastic.two_layer_state(sol)
+        q[:, :, :, :9] += 1e-3 * np.random.default_rng(4).standard_normal(q[:, :, :, :9].shape)
+        u = torch.from_numpy(q).to("cuda", dtype).contiguous()
+        new, faces = cu.predictor_volume(u, 2e-4)[:2]
+        key = f"CK {label} {grid} {dtype}"
+        results[key + " predictor new"] = new.cpu()
+        results[key + " predictor faces"] = faces.cpu()
+        results[key + " 3 steps"] = cu.run(u, 3, 2e-4).cpu()
 def matter_state(sol):
     # The perturbed FLRW slice of chip_smoke.py's matter path (rho0 0.02,
     # eps0 0.4; slots 38 and 42 times 1 + 0.05 sin along axis 2).
@@ -223,7 +263,8 @@ torch.save(results, out)
 def run(root: pathlib.Path, out: pathlib.Path) -> dict:
     import torch
 
-    code = (f"CASES = {CASES!r}\nDT = {DT!r}\nZ4_CASES = {Z4_CASES!r}\n" + _CHILD)
+    code = (f"CASES = {CASES!r}\nDT = {DT!r}\nZ4_CASES = {Z4_CASES!r}\n"
+            f"CK_CASES = {CK_CASES!r}\n" + _CHILD)
     subprocess.run([sys.executable, "-c", code, str(root), str(out)], check=True)
     return torch.load(out)
 

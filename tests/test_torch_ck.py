@@ -3,9 +3,10 @@ JAX package's, on the CPU: the predictor's q̄/F̄ and one step at orders 2
 and 3, one step against the fused Pallas kernel's CK branch in interpret
 mode, and the slice as a whole — ``bench.py::bench_ck``'s configuration at a
 cut grid carried across with ``aderdg_from_jax``, 5 steps side by side.
-Also what the port refuses: the CK combinations it does not carry
-(``SemanticError``) and the physics/mode pairs the CUDA kernels are not
-instantiated for (``LoweringError``).
+Also what the port refuses: the CK callbacks the CUDA kernels do not
+carry (``LoweringError`` naming Queue 2 K2 a; the plain solver runs them)
+and the physics/mode pairs the CUDA kernels are not instantiated for
+(``LoweringError``).
 
 Inputs are made with NumPy from a seed (or the bench's recipe) and handed
 to both packages.  f64 at rtol=0, atol=1e-12 (the repo's JAX↔Pallas bar);
@@ -221,8 +222,12 @@ def test_unported_ck_combinations_raise(options):
             port_ck_solver(3, (2, 2, 2), **options,
                            visc_eigenvalue_fn=lambda q, d, va: 0.0 * q.select(va, 0))
         return
-    with pytest.raises(SemanticError, match="ROADMAP.md"):
-        port_ck_solver(3, (2, 2, 2), **options)
+    # Ported with CK's source, NCP and fused right-hand side (the plain
+    # solver; tests/test_torch_ck_source.py holds them to JAX): the CUDA
+    # kernels refuse them, naming the K2 a instances still to port.
+    sol = port_ck_solver(3, (2, 2, 2), **options)
+    with pytest.raises(LoweringError, match=r"ROADMAP.md, Queue 2 K2 a"):
+        CudaADERDG(sol)
 
 
 def _assert_ck_walls_match_jax(walls):

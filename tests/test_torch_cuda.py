@@ -3,7 +3,8 @@ Picard predictor and the two-launch face stage of ``csrc/aderdg.cu`` (with
 its face-flux output), the order-5 Euler step (K1 c: the space-time
 predictor of ``csrc/aderdg_st.cuh`` and the face stage at n = 6), the CK
 predictor (K2) and the face stage's elastic
-variant, both at the edges of their tilings, the face stage's wall variant
+variant, both at the edges of their tilings, the CK predictor's sponge
+instance (K2 a) under the walled CK step, the face stage's wall variant
 in every mode (Euler) and on the CK free surface, the viscous predictor
 (``csrc/aderdg_visc.cu``) and the Navier–Stokes face stage, periodic and in
 every wall mode, the
@@ -239,6 +240,66 @@ def test_ck_step_kernels_match_plain_and_repeat_bitwise(dtype, grid):
     assert torch.equal(by_value[:, :, :, 9:], u[:, :, :, 9:])  # bitwise frozen
     assert cu.launches == {"aderdg_ck_predictor_volume": 6, "aderdg_face_flux": 6,
                            "aderdg_surface_update": 6}
+
+
+# ------------------------------------------------ K2 a: the CK predictor with the sponge
+
+
+def _ck_sponge_setup(grid, dtype):
+    """``examples/seismic3d_layered.py``'s solver (the free surface on axis 2,
+    its sponge on axes 0 and 1 with the width widened to reach these small
+    grids' interiors) on ``bench_ck``'s two-layer state with seeded noise of
+    1e-3 on the 9 wave rows."""
+    from exahype_tpu_torch.models.elastic import (
+        elastic3d_free_surface_het,
+        sponge_source,
+    )
+
+    sol, _, u = _ck_setup(grid, dtype, boundary="reflective", wall_axes=(2,),
+                          reflect_fn=elastic3d_free_surface_het()[0],
+                          reflect_flux_fn=elastic3d_free_surface_het()[1])
+    sol.source_fn = sponge_source(sol, width=0.3, rate=40.0, axes=(0, 1), n_wave=9)
+    noise = np.random.default_rng(4).standard_normal(u[:, :, :, :9].shape)
+    u[:, :, :, :9] += 1e-3 * torch.from_numpy(noise).to(u)
+    return sol, CudaADERDG(sol), u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", CK_CASES)
+def test_ck_sponge_predictor_kernel_matches_plain(dtype, grid):
+    sol, cu, u = _ck_sponge_setup(grid, dtype)
+    assert cu.kernels[0] == "aderdg_ck_predictor_volume_sponge"
+    u0 = u.clone()
+    new_k, faces_k, _ = cu.predictor_volume(u, CK_DT)
+    new_p, faces_p, _ = sol.predictor_volume(u, CK_DT)
+    torch.cuda.synchronize()
+    assert torch.equal(u, u0)
+    _ck_err(new_k, new_p, dtype)
+    _ck_err(faces_k, faces_p, dtype)
+    assert torch.equal(new_k[:, :, :, 9:], u[:, :, :, 9:])  # materials untouched
+    # The sponge moved the predictor: the sourceless kernel's new differs.
+    bare = CudaADERDG(_ck_setup(grid, dtype)[0]).predictor_volume(u, CK_DT)[0]
+    assert _err(new_k, bare) > 1e-7
+    assert cu.launches[cu.kernels[0]] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", CK_CASES)
+def test_ck_sponge_step_kernels_match_plain_and_repeat_bitwise(dtype, grid):
+    sol, cu, u = _ck_sponge_setup(grid, dtype)
+    ref = sol.run(u, 3, CK_DT)
+    by_value = cu.run(u, 3, CK_DT)
+    by_pointer = cu.run(u, 3, torch.tensor(CK_DT, dtype=dtype, device=u.device))
+    torch.cuda.synchronize()
+    rounds = 1 if dtype == torch.float64 else 3
+    for lo, n in ((0, 9), (9, 3)):
+        g, r = by_value.narrow(3, lo, n), ref.narrow(3, lo, n)
+        assert _err(g, r) <= rounds * _bound(r, dtype)
+    assert torch.equal(by_value, by_pointer)
+    assert torch.equal(by_value[:, :, :, 9:], u[:, :, :, 9:])  # bitwise frozen
+    assert cu.launches == {name: 6 for name in cu.kernels}
+    info = cu.kernel_info(cu.kernels[0], dtype)
+    assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, info
 
 
 # ------------------------------------------------ the kernels' tiling at its edges

@@ -154,6 +154,8 @@ SYMPY_FREE = (
     "exahype_tpu_torch.models.dg",
     "exahype_tpu_torch.models.euler",
     "exahype_tpu_torch.models.navier_stokes",
+    "exahype_tpu_torch.models.point_source",
+    "exahype_tpu_torch.models.tracers",
     "exahype_tpu_torch.convert",
     "exahype_tpu_torch._build",
     "exahype_tpu_torch.utils.device",

@@ -34,7 +34,6 @@ from exahype_tpu_torch.convert import (
     state_to_numpy,
     z4_solver_from_jax,
 )
-from exahype_tpu_torch.models import elastic
 from exahype_tpu_torch.models import z4 as tz
 from exahype_tpu_torch.models.aderdg import ADERDGSolver, euler_physics
 from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
@@ -307,14 +306,6 @@ def test_driver_observables_names_queue1_item6():
                         troubled_capacity=8, troubled_granularity="row", device="cpu")
     with pytest.raises(SemanticError, match=r"ROADMAP.md, Queue 1 item 6$"):
         lim.driver_observables()
-
-
-def test_ck_with_ncp_names_queue1_item8():
-    flux, eig = elastic.elastic3d_heterogeneous()
-    z4 = _port((2, 2, 2))
-    with pytest.raises(SemanticError, match="ROADMAP.md, Queue 1 item 8"):
-        ADERDGSolver(3, 3, 12, (2, 2, 2), flux, eig, device="cpu", predictor_mode="ck",
-                     ncp_fn=z4.ncp_fn)
 
 
 def test_viscous_crossing_cites_the_done_item():

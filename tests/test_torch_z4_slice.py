@@ -29,6 +29,7 @@ from exahype_tpu_torch.convert import (
 from exahype_tpu_torch.models import subcell_cuda
 from exahype_tpu_torch.models import z4 as tz
 from exahype_tpu_torch.models.aderdg import euler_physics
+from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
 from exahype_tpu_torch.models.limiter import LimitedADERDG
 from exahype_tpu_torch.models.rhs_cuda import CudaRHS, with_cuda_rhs
 from exahype_tpu_torch.utils.errors import LoweringError, SemanticError
@@ -184,8 +185,11 @@ def test_refusals():
         tz.make_z4_solver(3, 2, GRID, dx=DX, impl="soa", fused_rhs=True, device="cpu")
     with pytest.raises(ValueError, match="slicing"):
         tz.make_z4_solver(3, 2, GRID, dx=DX, impl="soa", slicing="maximal", device="cpu")
-    with pytest.raises(SemanticError, match="ROADMAP"):  # not on the CK path
-        tz.make_z4_solver(3, 2, GRID, dx=DX, impl="soa", predictor_mode="ck", device="cpu")
+    # On the CK path the plain solver carries the Z4 callbacks (ROADMAP Queue
+    # 1 item 8); the CUDA kernels do not (Queue 2 K2 a).
+    ck = tz.make_z4_solver(3, 2, GRID, dx=DX, impl="soa", predictor_mode="ck", device="cpu")
+    with pytest.raises(LoweringError, match=r"ROADMAP.md, Queue 2 K2 a"):
+        CudaADERDG(ck)
     with pytest.raises(LoweringError, match="rhs_all_fn set"):
         with_cuda_rhs(_port(fused_rhs=False))
     with pytest.raises(LoweringError, match="dim=2"):
