@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one card, nvcc
 
-It drives seventeen paths, each through ``exahype_tpu_torch``'s entry points
+It drives eighteen paths, each through ``exahype_tpu_torch``'s entry points
 with its kernels' launch counters set to 0 just before and read just
 after (the two forms of the main path, ADER-DG and FV, and the order-5,
 limited, limited with walls, limited 2-D blast with walls, viscous shock,
-2-D vortex, CK, layered seismic, walls, viscous, dynamic-GR, shifted
+2-D vortex, CK, layered seismic, homogeneous elastic, walls, viscous,
+dynamic-GR, shifted
 dynamic-GR, Z4+GRHD, limited Z4+GRHD and Z4+GRMHD slices), in this order:
 
 - **ADER-DG**: ``bench.py::main``'s step — order 3, 3-D compressible
@@ -138,6 +139,24 @@ dynamic-GR, Z4+GRHD, limited Z4+GRHD and Z4+GRMHD slices), in this order:
   K2's on the same state and its bound, the forced step's time, the inject
   and sample times, the idle share, the peak memory and the host
   synchronisations of a step.
+- **elastic K2 b**: the homogeneous elasticity on the CK kernels (K2 b,
+  the CK predictor a thread a space node, ``csrc/aderdg_ck_nodes.cuh``).
+  3-D: ``elastic3d`` at order 2, periodic, ``(256, 8, 128)`` in float32
+  (``aderdg_ck_predictor_volume_p2`` and the face stage's n = 3 instances
+  ``aderdg_face_flux_p2`` + ``aderdg_surface_update_p2``): the kernels
+  against plain in float64 at two cut grids and in float32 at full width
+  on seeded noise, 10 steps of the plane P wave at ``cfl_dt`` (cfl 0.15)
+  against the plain path and the exact wave, bitwise repeatable, 3
+  launches a step, the growth at the default cfl and at 0.3 as a reading;
+  times, idle share, ``[kernel]`` lines.  2-D:
+  ``examples/seismic_point_source.py --ck`` (``aderdg_ck_predictor_volume_2d``
+  and the walled 2-D face pair over ``Elastic2D``, ``csrc/aderdg_2d.cu``) on
+  the odd grid ``(129, 129)`` in float32 for 1,200 Strang-split forced steps
+  with the receivers sampled after each, the example's mirror and P-arrival
+  gates, 3 launches a step, bitwise repeatable, 10 steps against the plain
+  path; the example's own ``(128, 128)``/400 steps as a reading; the kernels
+  against plain in float64 at two cut grids (periodic and free surface) and
+  in float32 at ``(1024, 1024)``, where the forced step is timed.
 - **walls**: domain walls on the ADER-DG step — the face stage's wall
   variant (``aderdg_face_flux_walls`` + ``aderdg_surface_update_walls``)
   against the plain ``face_update`` in float64 at ``(8, 4, 8)`` in every
@@ -496,6 +515,55 @@ SEIS_F64_STEPS = 5
 SEIS_PLAIN_STEPS = 10
 #: f64 kernel-vs-plain bound, relative to max(1, max|plain|).
 SEIS_F64_RTOL = 1e-12
+
+#: K2 b, the homogeneous elasticity on the CK kernels.  3-D: ``elastic3d``
+#: (ρ, λ, μ = 1, 2, 1) at order 2, periodic, at CK's 3-D grid (63.7 M DOF,
+#: 255 MB in float32), dt = ``cfl_dt`` at cfl 0.15 (the default cfl, 0.375
+#: at order 2, and 0.3 grow a seeded plane wave without bound here as at
+#: order 3: ``EL3_CFL_STEPS`` steps of each are a reading), float64 parity at two cut
+#: grids (one ragged in every tiling), 10 steps of the plane P wave against
+#: the plain path and the exact wave (``EL3_EXACT`` of its max).
+EL3_GRID = (256, 8, 128)
+EL3_CUTS = ((4, 4, 8), (3, 5, 7))
+EL3_ORDER = 2
+EL3_MATERIALS = (1.0, 2.0, 1.0)
+EL3_CFL = 0.15
+EL3_STEPS = 10
+EL3_EXACT = 1e-3
+EL3_CFL_STEPS = 300
+EL3_SEED = 1e-3  # of EL_NOISE: the growth reading's seed
+#: 2-D: ``examples/seismic_point_source.py --ck`` (ρ, λ, μ = 1, 2, 1, a
+#: vertical Ricker force of f0 = 8 at (0.5, 0.5), receivers at x = 0.3, 0.4,
+#: 0.6, 0.7 and y = 0.3, dt = ``cfl_dt`` of a state of ones) on the odd grid
+#: ``EL2_GRID`` for ``EL2_STEPS`` steps, t ≈ 0.2 past the kinematic P
+#: arrival t_expect ≈ 0.156 (the example's own (128, 128) grid puts the
+#: source on a cell face, and its 400 steps end at t ≈ 0.067: a reading,
+#: ``EL2_EXAMPLE``), with its gates (``:79-100``: mirror symmetry below
+#: ``EL2_SYM`` of the field's maximum, the arrival within ``EL2_ARRIVAL`` of
+#: t_expect); float64 parity at two cut grids, periodic and with the free
+#: surface; the forced step timed at ``EL2_TIME_GRID`` (16.8 M DOF) after
+#: ``EL2_TIME_WARMUP`` steps, and the kernels against plain there on that
+#: field with seeded noise.
+EL2_MATERIALS = (1.0, 2.0, 1.0)
+EL2_F0 = 8.0
+EL2_GRID = (129, 129)
+EL2_STEPS = 1200
+EL2_EXAMPLE = ((128, 128), 400)
+EL2_CUTS = ((9, 9), (5, 7))
+EL2_TIME_GRID = (1024, 1024)
+EL2_TIME_WARMUP = 50
+EL2_PLAIN_STEPS = 10
+EL2_SYM = 1e-5
+EL2_ARRIVAL = 0.5
+#: Seeded noise of the K2 b kernel checks.
+EL_NOISE = 1e-3
+#: Flops of one homogeneous elastic flux (``csrc/elastic.cuh``): 3-D, 3
+#: divisions, 5 for the normal stress, 2 for the other normal stresses, 7
+#: for the two shear rows with the normal (their 0·v_x products and + 0
+#: terms) and 1 for the third; 2-D, 2 divisions and 3 products.  The wave
+#: speed is a constant (0 flops).
+EL3_FLUX_OPS = 18
+EL2_FLUX_OPS = 5
 
 #: The walls path: the float64 cut grid (axis 2 is not a multiple of the
 #: face stage's 32-cell tile, so its ragged tile meets the walls), the
@@ -900,19 +968,21 @@ def visc_predictor_ops_2d(order: int, picard_iters: int, ncell: int) -> float:
     return euler + per_node * n**2 * ncell
 
 
-def ck_predictor_ops(order: int, ncell: int, dim=3, nvar=12, evolved=CK_EVOLVED) -> float:
-    """Flops of ``aderdg_ck_predictor_volume`` (``csrc/aderdg.cu``), per
-    (cell, node): 1/ρ once; each of the N levels evaluates ``dim`` elastic
-    fluxes and, per evolved variable, ``dim`` D contractions (2n-1 flops)
-    with their λ_d product and sum, the division by k and the q̄ update (2);
+def ck_predictor_ops(order: int, ncell: int, dim=3, nvar=12, evolved=CK_EVOLVED,
+                     flux_ops=ELASTIC_FLUX_OPS) -> float:
+    """Flops of ``aderdg_ck_predictor_volume`` (``csrc/aderdg.cu``; K2 b's
+    ``csrc/aderdg_ck_nodes.cuh`` with its own ``flux_ops``), per (cell,
+    node): 1/ρ once; each of the N levels evaluates ``dim`` elastic fluxes
+    and, per evolved variable, ``dim`` D contractions (2n-1 flops) with
+    their λ_d product and sum, the division by k and the q̄ update (2);
     then F̄_d = F_d(q̄), the volume integral and the face projections, as
     in :func:`predictor_ops`."""
     n = order + 1
     contr = 2 * n - 1
-    level = dim * ELASTIC_FLUX_OPS + evolved * (dim * (contr + 2) + 3)
+    level = dim * flux_ops + evolved * (dim * (contr + 2) + 3)
     volume = nvar * dim * (contr + 2)
     faces = dim * n ** (dim - 1) / n**dim * nvar * 4 * contr
-    per_node = 1 + order * level + dim * ELASTIC_FLUX_OPS + volume + faces
+    per_node = 1 + order * level + dim * flux_ops + volume + faces
     return per_node * n**dim * ncell
 
 
@@ -2135,6 +2205,305 @@ def seismic_path(torch, dev, card) -> list[dict]:
                   ck_bytes(state_bytes, face_bytes), ck_predictor_ops(ORDER, ncell), card)
     return [kernel_line(name, "exahype_tpu/models/aderdg_pallas.py:416", launches[name], err,
                         k2a_ms, plain_ms, bnd)]
+
+
+def point_source_setup(torch, dev, grid, dtype):
+    """``examples/seismic_point_source.py --ck`` (``:36-66``) at ``grid``:
+    the 2-D CK elastic solver (ρ, λ, μ = 1, 2, 1) in the traction-free box,
+    ``CudaADERDG`` over it, the state at rest, the vertical Ricker point
+    force at (0.5, 0.5), the receivers at y = 0.3 (in the state's dtype),
+    the probe of (v_x, v_y), and the example's dt (``cfl_dt`` of a state of
+    ones at the default cfl) as a Python float."""
+    import numpy as np
+
+    from exahype_tpu_torch.models.aderdg import ADERDGSolver
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.elastic import elastic, elastic_free_surface
+    from exahype_tpu_torch.models.point_source import PointSources, ricker
+    from exahype_tpu_torch.models.tracers import TracerAdvector
+
+    flux, eig = elastic(*EL2_MATERIALS)
+    reflect, reflect_flux = elastic_free_surface()
+    sol = ADERDGSolver(2, ORDER, 5, grid, flux, eig, dx=1.0 / grid[0], device=dev, dtype=dtype,
+                       boundary="reflective", reflect_fn=reflect, reflect_flux_fn=reflect_flux,
+                       predictor_mode="ck")
+    amp = np.zeros((1, 5))
+    amp[0, 1] = 1.0
+    src = PointSources(sol, [[0.5, 0.5]], amp, wavelet=ricker(EL2_F0))
+    rx = np.asarray([0.3, 0.4, 0.6, 0.7])
+    rec = torch.as_tensor(np.stack([rx, np.full_like(rx, 0.3)], -1), dtype=dtype, device=dev)
+    probe = TracerAdvector(sol, lambda v: v[:, :2])
+    u0 = torch.zeros(sol.state_shape, dtype=dtype, device=dev)
+    dt = float(sol.cfl_dt(torch.ones_like(u0)))
+    return sol, CudaADERDG(sol), u0, src, rec, probe, dt
+
+
+def point_source_gates(label: str, seis, t: float, dt: float, gate: bool) -> dict:
+    """The example's checks (``:79-100``) on a seismogram ``[n, 4, 2]``:
+    the mirror symmetry of v_y (even) and v_x (odd) across the source axis
+    below ``EL2_SYM`` of the field's maximum, and, once t has passed the
+    kinematic P arrival at the nearest receiver, the measured arrival (the
+    first step whose largest value there passes 1 % of its peak) within
+    ``EL2_ARRIVAL`` of it.  With ``gate`` a miss fails (and the arrival gate
+    must apply); without, the figures are a reading."""
+    import numpy as np
+
+    s = seis.double().cpu().numpy()
+    scale = max(float(np.abs(s).max()), 1e-30)
+    vy = float(np.abs(s[:, 1, 1] - s[:, 2, 1]).max()) / scale
+    vx = float(np.abs(s[:, 1, 0] + s[:, 2, 0]).max()) / scale
+    cp = math.sqrt((EL2_MATERIALS[1] + 2 * EL2_MATERIALS[2]) / EL2_MATERIALS[0])
+    t_expect = math.hypot(0.1, 0.2) / cp + 0.35 / EL2_F0
+    v_mag = np.abs(s[:, 1, :]).max(axis=-1)
+    t_arrive = (int(np.argmax(v_mag > 0.01 * v_mag.max())) + 1) * dt
+    applies = t > t_expect
+    finite = bool(np.isfinite(s).all())
+    say(f"[{'ps gates' if gate else 'ps reading'}] {label}: t = {t!r} after {s.shape[0]} steps, "
+        f"finite {finite}; mirror symmetry |vy diff| {vy!r}, |vx sum| {vx!r} of the field max "
+        f"{scale!r} (gate {EL2_SYM}); t_expect = {t_expect!r}, the arrival gate "
+        f"{'applies' if applies else 'does not apply'}: P arrival at the nearest receiver "
+        f"t = {t_arrive!r}, |diff| {abs(t_arrive - t_expect) / t_expect!r} of t_expect (gate "
+        f"{EL2_ARRIVAL})")
+    if gate:
+        if not (finite and vy < EL2_SYM and vx < EL2_SYM):
+            fail(f"point source {label}: not finite or not mirror-symmetric")
+        if not (applies and abs(t_arrive - t_expect) < EL2_ARRIVAL * t_expect):
+            fail(f"point source {label}: the P arrival gate does not apply or misses "
+                 f"({t_arrive} against {t_expect})")
+    return {"vy": vy, "vx": vx, "t_arrive": t_arrive, "t_expect": t_expect}
+
+
+def elastic_k2b_path(torch, dev, card) -> list[dict]:
+    """K2 b, the homogeneous elasticity on the CK kernels: the 3-D
+    ``elastic3d`` step at order 2 and ``examples/seismic_point_source.py
+    --ck`` in 2-D; returns the kernel JSON lines of their six kernels."""
+    import numpy as np
+
+    from exahype_tpu_torch.models.aderdg import ADERDGSolver
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.elastic import elastic3d, plane_p_wave_3d
+
+    lines = []
+    f32, f64 = torch.float32, torch.float64
+
+    # ------------------------------------------------ 3-D elastic3d at p2
+    def make3(grid, dtype):
+        sol = ADERDGSolver(3, EL3_ORDER, 9, grid, *elastic3d(*EL3_MATERIALS), dx=1.0 / grid[0],
+                           device=dev, dtype=dtype, predictor_mode="ck")
+        return sol, CudaADERDG(sol)
+
+    def noisy(sol, dtype, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return EL_NOISE * torch.randn(sol.state_shape, generator=gen, device=dev, dtype=dtype)
+
+    errs3 = {}
+    for grid in EL3_CUTS:
+        sol, cu = make3(grid, f64)
+        u = noisy(sol, f64, seed=grid[2])
+        for name, e in parity_2d(torch, sol, cu, u, 0.5 * float(sol.cfl_dt(u)),
+                                 "elastic3d p2, periodic", "k2b").items():
+            errs3[name] = max(errs3.get(name, 0.0), e)
+    grid = EL3_GRID
+    sol, cu = make3(grid, f32)
+    ncell = math.prod(grid)
+    X = np.broadcast_to(np.squeeze(sol.nodes_meshgrid()[0], 3),
+                        sol.state_shape[:3] + sol.state_shape[4:])
+    rho, lam, mu = EL3_MATERIALS
+    exact = lambda t: torch.from_numpy(np.ascontiguousarray(np.moveaxis(  # noqa: E731
+        plane_p_wave_3d(X, t, rho=rho, lam=lam, mu=mu), -1, 3)))
+    u0 = exact(0.0).to(dev, f32)
+    dt = float(sol.cfl_dt(u0, cfl=EL3_CFL))
+    say(f"[k2b] elastic3d p2 {grid} f32: {sol.dofs()} DOF, state {u0.nbytes} B; dt = "
+        f"cfl_dt(plane P wave, cfl={EL3_CFL}) = {dt!r}; kernels {cu.kernels}")
+    for name, e in parity_2d(torch, sol, cu, noisy(sol, f32, seed=7), dt,
+                             "elastic3d p2, seeded noise", "k2b").items():
+        errs3[name] = max(errs3.get(name, 0.0), e)
+    cu.reset_launches()
+    u = cu.run(u0, EL3_STEPS, dt)
+    torch.cuda.synchronize()
+    launches3 = dict(cu.launches)
+    if launches3 != {k: EL3_STEPS for k in cu.kernels}:
+        fail(f"elastic3d p2 launched {launches3} in {EL3_STEPS} steps, expected 3 a step")
+    again = cu.run(u0, EL3_STEPS, dt)
+    plain = sol.run(u0, EL3_STEPS, dt)
+    torch.cuda.synchronize()
+    want = exact(EL3_STEPS * dt).to(dev, torch.float64)
+    err_plain, limit = max_err(torch, u, plain), EL3_STEPS * f32_bound(torch, plain)
+    err_exact = max_err(torch, u, want) / want.abs().max().item()
+    err_exact_plain = max_err(torch, plain, want) / want.abs().max().item()
+    say(f"[k2b main] {EL3_STEPS} steps of the plane P wave, {grid} f32, through CudaADERDG: "
+        f"launches {launches3}; two runs bitwise equal {torch.equal(u, again)}; vs the plain "
+        f"path max_abs_err {err_plain:.3e} limit {limit:.3e} ({EL3_STEPS} x {F32_ULPS} f32 "
+        f"spacings); vs the exact wave (relative to its max) {err_exact:.3e}, the plain path's "
+        f"{err_exact_plain:.3e} (gate {EL3_EXACT})")
+    if not (torch.equal(u, again) and err_plain <= limit and err_exact < EL3_EXACT):
+        fail("the elastic3d p2 step is not repeatable, or misses the plain path or the wave")
+    del again, plain, want
+    growth = {}
+    seeded = u0 + EL3_SEED * noisy(sol, f32, seed=11)
+    for cfl in (None, 0.3, EL3_CFL):
+        c_dt = float(sol.cfl_dt(u0, cfl=cfl))
+        uu = cu.run(seeded, EL3_CFL_STEPS, c_dt)
+        growth[cfl] = uu.abs().max().item() / seeded.abs().max().item()
+    say(f"[k2b reading] elastic3d p2 {grid} f32, {EL3_CFL_STEPS} steps of the plane P wave "
+        f"with seeded noise of {EL3_SEED * EL_NOISE} (a plane wave alone excites no "
+        f"transverse mode): "
+        f"max|q| / max|q0| at cfl {min(0.4, 1.5 / (EL3_ORDER + 2))} (the default) "
+        f"{growth[None]!r}, at 0.3 {growth[0.3]!r}, at {EL3_CFL} {growth[EL3_CFL]!r}")
+    if not growth[EL3_CFL] < 1.01:
+        fail(f"the elastic3d p2 step at cfl {EL3_CFL} grows")
+    new, faces, _ = cu.predictor_volume(u, dt)
+    fhat, _ = cu.face_flux(faces)
+    times3 = {
+        cu.kernels[0]: (event_ms(torch, lambda: cu.predictor_volume(u, dt), 20),
+                        event_ms(torch, lambda: sol.predictor_volume(u, dt), 3)),
+        cu.kernels[1]: (event_ms(torch, lambda: cu.face_flux(faces), 20),
+                        event_ms(torch, lambda: plain_face_flux(torch, sol, faces), 3)),
+        cu.kernels[2]: (event_ms(torch, lambda: cu.surface_update(new, fhat, dt), 20),
+                        event_ms(torch, lambda: plain_surface_update(sol, new, fhat, dt), 3)),
+    }
+    win = [1e3 * w for w in windows(torch, cu, u, dt, steps=20)]
+    plain_win = [1e3 * w for w in windows(torch, sol, u, dt, steps=2, n_windows=1)]
+    idle, busy, wall = idle_share(torch, lambda: cu.run(u, 10, dt))
+    say(f"[k2b time] elastic3d p2 {grid} f32: step ms per window {win!r}, median "
+        f"{statistics.median(win)!r} ms, {sol.dofs() / statistics.median(win) * 1e3!r} "
+        f"DOF-updates/s; plain step {plain_win!r} ms; kernels (CUDA events) " + ", ".join(
+            f"{k} {v[0]!r} ms (plain {v[1]!r} ms)" for k, v in times3.items()) + f" ({card})")
+    say(f"[k2b idle] elastic3d p2 {grid}, 10 steps under torch.profiler: device busy {busy!r} "
+        f"ms of wall {wall!r} ms; idle share {idle!r} ({card})")
+    itemsize = u.element_size()
+    face_bytes = faces.nbytes
+    kw = dict(dim=3, nvar=9)
+    work3 = {
+        cu.kernels[0]: (ck_bytes(u.nbytes, face_bytes),
+                        ck_predictor_ops(EL3_ORDER, ncell, evolved=9, flux_ops=EL3_FLUX_OPS,
+                                         **kw)),
+        cu.kernels[1]: (face_flux_bytes(EL3_ORDER, ncell, itemsize, rows=9, **kw),
+                        face_flux_ops(EL3_ORDER, ncell, eig_ops=0, **kw)),
+        cu.kernels[2]: (surface_update_bytes(EL3_ORDER, ncell, itemsize, rows=9),
+                        surface_update_ops(EL3_ORDER, ncell, **kw)),
+    }
+    for name, (n_bytes, n_ops) in work3.items():
+        bnd = kernel_report(cu, name, f32, f"(K2 b, elastic3d p2, periodic) {grid} f32",
+                            times3[name][0], n_bytes, n_ops, card)
+        replaces = ("exahype_tpu/models/aderdg_pallas.py:358" if name == cu.kernels[0]
+                    else "exahype_tpu/models/aderdg_pallas.py:156")
+        lines.append(kernel_line(name, replaces, launches3[name], errs3[name], *times3[name],
+                                 bnd))
+    del sol, cu, u, u0, uu, seeded, new, faces, fhat
+    torch.cuda.empty_cache()
+
+    # ---------------------------- 2-D: examples/seismic_point_source.py --ck
+    errs2 = {}
+    for grid in EL2_CUTS:
+        for walled in (True, False):
+            sol, cu, u0, *_ = point_source_setup(torch, dev, grid, f64)
+            if not walled:
+                sol = ADERDGSolver(2, ORDER, 5, grid, sol.flux_fn, sol.max_eigenvalue_fn,
+                                   dx=1.0 / grid[0], device=dev, dtype=f64, predictor_mode="ck")
+                cu = CudaADERDG(sol)
+            u = noisy(sol, f64, seed=grid[0] + walled)
+            for name, e in parity_2d(torch, sol, cu, u, 0.5 * float(sol.cfl_dt(u)),
+                                     "free surface" if walled else "periodic", "k2b").items():
+                errs2[name] = max(errs2.get(name, 0.0), e)
+    sol, cu, u0, src, rec, probe, dt = point_source_setup(torch, dev, EL2_GRID, f32)
+    t0 = torch.zeros((), dtype=f32, device=dev)
+    say(f"[ps] examples/seismic_point_source.py --ck at {EL2_GRID} f32 (odd: the source at "
+        f"x = 0.5 is a cell centre): dt = cfl_dt(ones) = {dt!r}; {EL2_STEPS} forced steps to "
+        f"t = {EL2_STEPS * dt!r}; kernels {cu.kernels}")
+    cu.reset_launches()
+    u, t, seis = forced_run(torch, src, cu.step, probe, rec, u0, t0, dt, EL2_STEPS)
+    torch.cuda.synchronize()
+    launches2 = dict(cu.launches)
+    if launches2 != {k: EL2_STEPS for k in cu.kernels}:
+        fail(f"the point-source run launched {launches2} in {EL2_STEPS} steps")
+    point_source_gates(f"{EL2_GRID} f32, {EL2_STEPS} steps", seis, float(t), dt, gate=True)
+    u_b, _, s_b = forced_run(torch, src, cu.step, probe, rec, u0, t0, dt, EL2_STEPS)
+    if not (torch.equal(u_b, u) and torch.equal(s_b, seis)):
+        fail("two point-source runs from rest differ")
+    n_cmp = EL2_PLAIN_STEPS
+    uk, _, sk = forced_run(torch, src, cu.step, probe, rec, u, t, dt, n_cmp)
+    up, _, sp = forced_run(torch, src, sol.step, probe, rec, u, t, dt, n_cmp)
+    e_state, l_state = max_err(torch, uk, up), n_cmp * f32_bound(torch, up)
+    e_seis, l_seis = max_err(torch, sk, sp), n_cmp * f32_bound(torch, sp)
+    say(f"[ps main] {EL2_GRID}: launches {launches2} (3 a step); two runs bitwise equal; "
+        f"{n_cmp} forced steps on from step {EL2_STEPS}, kernel path vs plain path: state "
+        f"max_abs_err {e_state:.3e} limit {l_state:.3e}, seismogram {e_seis:.3e} limit "
+        f"{l_seis:.3e} ({n_cmp} x {F32_ULPS} f32 spacings)")
+    if not (e_state <= l_state and e_seis <= l_seis):
+        fail("the point-source kernel path disagrees with the plain path")
+    del u_b, s_b, uk, up, sk, sp
+    grid_ex, steps_ex = EL2_EXAMPLE
+    sol_e, cu_e, u0_e, src_e, rec_e, probe_e, dt_e = point_source_setup(torch, dev, grid_ex, f32)
+    _, t_e, s_e = forced_run(torch, src_e, cu_e.step, probe_e, rec_e, u0_e,
+                             torch.zeros((), dtype=f32, device=dev), dt_e, steps_ex)
+    point_source_gates(f"the example as written, {grid_ex} f32, {steps_ex} steps (an even grid: "
+                       "the source on a cell face; its t before t_expect)", s_e, float(t_e), dt_e,
+                       gate=False)
+    del sol_e, cu_e, u0_e, s_e
+
+    grid = EL2_TIME_GRID
+    sol, cu, u0, src, rec, probe, dt = point_source_setup(torch, dev, grid, f32)
+    ncell = math.prod(grid)
+    t0 = torch.zeros((), dtype=f32, device=dev)
+    u, t, _ = forced_run(torch, src, cu.step, probe, rec, u0, t0, dt, EL2_TIME_WARMUP)
+    un = u + noisy(sol, f32, seed=3)
+    for name, e in parity_2d(torch, sol, cu, un, dt, "free surface, seeded noise",
+                             "k2b").items():
+        errs2[name] = max(errs2.get(name, 0.0), e)
+    del un
+    forced = lambda n: forced_run(torch, src, cu.step, probe, rec, u, t, dt, n)  # noqa: E731
+    win = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        forced(20)
+        torch.cuda.synchronize()
+        win.append(1e3 * (time.perf_counter() - t1) / 20)
+    step_win = [1e3 * w for w in windows(torch, cu, u, dt, steps=20)]
+    plain_win = [1e3 * w for w in windows(torch, sol, u, dt, steps=2, n_windows=1)]
+    idle, busy, wall = idle_share(torch, lambda: forced(20))
+    new, faces, _ = cu.predictor_volume(u, dt)
+    fhat, fwall = cu.face_flux(faces)
+    walls = cu.wall_fluxes(fwall)
+    times2 = {
+        cu.kernels[0]: (event_ms(torch, lambda: cu.predictor_volume(u, dt), 20),
+                        event_ms(torch, lambda: sol.predictor_volume(u, dt), 3)),
+        cu.kernels[1]: (event_ms(torch, lambda: cu.face_flux(faces), 20),
+                        event_ms(torch, lambda: plain_face_flux(torch, sol, faces), 3)),
+        cu.kernels[2]: (event_ms(torch, lambda: cu.surface_update(new, fhat, dt, fwall), 20),
+                        event_ms(torch, lambda: plain_surface_update(sol, new, fhat, dt, walls),
+                                 3)),
+    }
+    say(f"[ps time] {grid} f32, {sol.dofs()} DOF, state {u.nbytes} B: forced step + sample "
+        f"(host clock, 3 windows of 20) ms {win!r}, median {statistics.median(win)!r}; "
+        f"CudaADERDG.step alone {step_win!r}, median {statistics.median(step_win)!r} ms, "
+        f"{sol.dofs() / statistics.median(step_win) * 1e3!r} DOF-updates/s; plain step "
+        f"{plain_win!r} ms; kernels (CUDA events) " + ", ".join(
+            f"{k} {v[0]!r} ms (plain {v[1]!r} ms)" for k, v in times2.items()) + f" ({card})")
+    say(f"[ps idle] {grid}, 20 forced steps + samples under torch.profiler: device busy "
+        f"{busy!r} ms of wall {wall!r} ms; idle share {idle!r} ({card})")
+    itemsize = u.element_size()
+    kw = dict(dim=2, nvar=5)
+    side = cu.walls["size"] * itemsize
+    low = cu.walls["size"] // sol.n_vars  # low-wall solves
+    work2 = {
+        cu.kernels[0]: (ck_bytes(u.nbytes, faces.nbytes),
+                        ck_predictor_ops(ORDER, ncell, evolved=5, flux_ops=EL2_FLUX_OPS, **kw)),
+        cu.kernels[1]: (face_flux_bytes(ORDER, ncell, itemsize, rows=5, **kw) + side,
+                        face_flux_ops(ORDER, ncell, eig_ops=0, **kw) + low * 6 * 5),
+        cu.kernels[2]: (surface_update_bytes(ORDER, ncell, itemsize, dim=2, rows=5) + side,
+                        surface_update_ops(ORDER, ncell, **kw)),
+    }
+    for name, (n_bytes, n_ops) in work2.items():
+        bnd = kernel_report(cu, name, f32, f"(K2 b, 2-D elastic p3, free surface) {grid} f32",
+                            times2[name][0], n_bytes, n_ops, card)
+        replaces = ("exahype_tpu/models/aderdg_pallas.py:358" if name == cu.kernels[0]
+                    else "exahype_tpu/models/aderdg_pallas.py:156")
+        lines.append(kernel_line(f"{name} (Elastic2D)", replaces, launches2[name], errs2[name],
+                                 *times2[name], bnd, source="exahype_tpu_torch/csrc/aderdg_2d.cu"))
+    del sol, cu, u, u0, new, faces, fhat, fwall, walls
+    return lines
 
 
 def fv_path(torch, dev, card, spec_printers) -> dict:
@@ -6320,6 +6689,7 @@ def main():
         "2-D vortex": lambda: vortex2d_path(torch, dev, card),
         "CK": lambda: ck_path(torch, dev, card),
         "seismic": lambda: seismic_path(torch, dev, card),
+        "elastic K2 b": lambda: elastic_k2b_path(torch, dev, card),
         "walls": lambda: walls_path(torch, dev, card),
         "viscous": lambda: viscous_path(torch, dev, card),
         "FV": lambda: [fv_path(torch, dev, card, spec_printers)],

@@ -110,6 +110,10 @@ _SIGNATURES = {
         ("aderdg_predictor_volume_visc", _PREDICTOR_VOLUME_VISC),
         ("aderdg_ck_predictor_volume", _CK_PREDICTOR_VOLUME),
         ("aderdg_ck_predictor_volume_sponge", _CK_PREDICTOR_VOLUME_SPONGE),
+        ("aderdg_ck_predictor_volume_p2", _CK_PREDICTOR_VOLUME),
+        ("aderdg_ck_predictor_volume_2d", _CK_PREDICTOR_VOLUME),
+        ("aderdg_face_flux_p2", _FACE_FLUX),
+        ("aderdg_surface_update_p2", _SURFACE_UPDATE),
         ("aderdg_face_flux", _FACE_FLUX),
         ("aderdg_surface_update", _SURFACE_UPDATE),
         ("aderdg_face_flux_walls", _FACE_FLUX_WALLS),

@@ -24,8 +24,12 @@ from exahype_tpu_torch.models.aderdg import (
     euler_reflect_flux,
 )
 from exahype_tpu_torch.models.elastic import (
+    elastic,
+    elastic3d,
+    elastic3d_free_surface,
     elastic3d_free_surface_het,
     elastic3d_heterogeneous,
+    elastic_free_surface,
     sponge_source,
 )
 from exahype_tpu_torch.models.navier_stokes import (
@@ -40,12 +44,35 @@ from exahype_tpu_torch.utils.errors import SemanticError
 _CALLBACKS = ("flux_fn", "max_eigenvalue_fn", *VISCOUS_OPTIONS)
 
 
-def _physics_callbacks(physics, gamma, mu, prandtl, dim: int, n_vars: int) -> dict:
+#: The homogeneous elastic systems: (dimension, variables, the pair's maker).
+_ELASTIC = {"elastic": (2, 5, elastic), "elastic3d": (3, 9, elastic3d)}
+
+
+def _physics_callbacks(physics, gamma, mu, prandtl, dim: int, n_vars: int,
+                       rho=None, lam=None) -> dict:
     """The port's physics callbacks named by ``physics``, by option name:
     the flux and eigenvalue, and for Navier–Stokes (or a 4-tuple) the
     viscous pair too."""
+    if isinstance(physics, str) and physics in _ELASTIC:
+        if gamma is not None or prandtl is not None or None in (rho, lam, mu):
+            raise SemanticError(
+                f"physics={physics!r} takes its material constants rho, lam and mu "
+                "(the JAX pair is opaque), and no gamma or prandtl"
+            )
+        want_dim, want_vars, make = _ELASTIC[physics]
+        if (dim, n_vars) != (want_dim, want_vars):
+            raise SemanticError(
+                f"physics={physics!r} is the {want_dim}-D system of {want_vars} "
+                f"variables, got dim={dim}, n_vars={n_vars}"
+            )
+        return dict(zip(_CALLBACKS, make(rho=rho, lam=lam, mu=mu)))
+    if rho is not None or lam is not None:
+        raise SemanticError("rho and lam apply to physics='elastic' and 'elastic3d' only")
     if (mu is not None or prandtl is not None) and physics != "navier_stokes":
-        raise SemanticError("mu and prandtl apply to physics='navier_stokes' only")
+        raise SemanticError(
+            "mu and prandtl apply to physics='navier_stokes' only (mu also to "
+            "'elastic' and 'elastic3d', as the Lamé constant)"
+        )
     if physics in ("euler", "navier_stokes"):
         if gamma is None:
             raise SemanticError(f"physics={physics!r} needs gamma")
@@ -64,8 +91,8 @@ def _physics_callbacks(physics, gamma, mu, prandtl, dim: int, n_vars: int) -> di
     if physics == "elastic3d_het":
         return dict(zip(_CALLBACKS, elastic3d_heterogeneous()))
     raise SemanticError(
-        "physics must be 'euler', 'navier_stokes', 'elastic3d_het', a (flux_fn, "
-        "max_eigenvalue_fn) pair or a (flux_fn, max_eigenvalue_fn, visc_flux_fn, "
+        "physics must be 'euler', 'navier_stokes', 'elastic', 'elastic3d', "
+        "'elastic3d_het', a (flux_fn, max_eigenvalue_fn) pair or a (flux_fn, max_eigenvalue_fn, visc_flux_fn, "
         f"visc_eigenvalue_fn) 4-tuple, got {physics!r}"
     )
 
@@ -76,13 +103,18 @@ def _reflect_pair(walls, n_vars: int, dim: int):
         return euler_reflect(dim, n_vars), euler_reflect_flux(dim, n_vars)
     if walls == "elastic3d_het_free_surface":
         return elastic3d_free_surface_het()
+    if walls == "elastic_free_surface":
+        return elastic_free_surface()
+    if walls == "elastic3d_free_surface":
+        return elastic3d_free_surface()
     if walls == "noslip":
         return noslip_reflect(dim), noslip_reflect_flux(dim)
     if isinstance(walls, tuple) and len(walls) == 2:
         return walls
     raise SemanticError(
-        "walls must be 'euler', 'elastic3d_het_free_surface', 'noslip' or a "
-        f"(reflect_fn, reflect_flux_fn) pair of the port's, got {walls!r}"
+        "walls must be 'euler', 'elastic_free_surface', 'elastic3d_free_surface', "
+        "'elastic3d_het_free_surface', 'noslip' or a (reflect_fn, reflect_flux_fn) "
+        f"pair of the port's, got {walls!r}"
     )
 
 
@@ -126,6 +158,7 @@ def _options_from_jax(jax_solver, walls):
             raise SemanticError(
                 "the JAX solver's reflect_fn/reflect_flux_fn are JAX functions the "
                 "port cannot call: name the port's pair with walls='euler', "
+                "'elastic_free_surface', 'elastic3d_free_surface', "
                 "'elastic3d_het_free_surface', 'noslip' or (reflect_fn, reflect_flux_fn)"
             )
         options["reflect_fn"], options["reflect_flux_fn"] = _reflect_pair(
@@ -157,7 +190,8 @@ def _sponge_from_jax(jax_solver, solver, sponge: dict):
 
 def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
                     physics="euler", walls=None, mu: float | None = None,
-                    prandtl: float | None = None, sponge: dict | None = None, device=None,
+                    prandtl: float | None = None, sponge: dict | None = None,
+                    rho: float | None = None, lam: float | None = None, device=None,
                     dtype: torch.dtype = torch.float64):
     """The port's :class:`ADERDGSolver` for a JAX ``ADERDGSolver``, and
     :class:`~exahype_tpu_torch.models.aderdg_cuda.CudaADERDG` over it for a
@@ -179,7 +213,10 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
     ``"euler"`` with ``gamma`` (the default), ``"navier_stokes"`` with
     ``gamma``, ``mu`` and ``prandtl``
     (:func:`~exahype_tpu_torch.models.navier_stokes.navier_stokes`, the four
-    callbacks of a viscous solver), ``"elastic3d_het"``
+    callbacks of a viscous solver), ``"elastic"`` or ``"elastic3d"`` with
+    the material constants ``rho``, ``lam`` and ``mu`` (the homogeneous 2-D
+    and 3-D systems, :func:`~exahype_tpu_torch.models.elastic.elastic` and
+    :func:`~exahype_tpu_torch.models.elastic.elastic3d`), ``"elastic3d_het"``
     (:func:`~exahype_tpu_torch.models.elastic.elastic3d_heterogeneous`), or
     a (flux_fn, max_eigenvalue_fn) pair or (…, visc_flux_fn,
     visc_eigenvalue_fn) 4-tuple of the port's.  A JAX solver with
@@ -195,8 +232,9 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
     with its ``basis`` stamp); a reflective solver's hooks are JAX
     functions, so the caller names them with ``walls``: ``"euler"``
     (:func:`~exahype_tpu_torch.models.aderdg.euler_reflect` and
-    ``euler_reflect_flux``), ``"elastic3d_het_free_surface"``
-    (:func:`~exahype_tpu_torch.models.elastic.elastic3d_free_surface_het`),
+    ``euler_reflect_flux``), ``"elastic_free_surface"``,
+    ``"elastic3d_free_surface"``, ``"elastic3d_het_free_surface"`` (the
+    traction-free walls of :mod:`~exahype_tpu_torch.models.elastic`),
     ``"noslip"`` (:func:`~exahype_tpu_torch.models.navier_stokes.noslip_reflect`
     and ``noslip_reflect_flux``) or a (reflect_fn, reflect_flux_fn) pair of
     the port's.
@@ -213,9 +251,9 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
 
         return CudaADERDG(aderdg_from_jax(
             jax_solver.solver, gamma=gamma, physics=physics, walls=walls, mu=mu,
-            prandtl=prandtl, sponge=sponge, device=device, dtype=dtype))
+            prandtl=prandtl, sponge=sponge, rho=rho, lam=lam, device=device, dtype=dtype))
     callbacks = _physics_callbacks(physics, gamma, mu, prandtl, jax_solver.dim,
-                                   jax_solver.n_vars)
+                                   jax_solver.n_vars, rho, lam)
     if sponge is not None and jax_solver.source_fn is None:
         raise SemanticError("sponge= names a JAX solver's sponge_source, and this one has "
                             "no source_fn")

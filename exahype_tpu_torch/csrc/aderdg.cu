@@ -2,7 +2,8 @@
 // domain walls: four kernels and the face stage's wall variant, templated
 // on the physics (3-D compressible Euler, 3-D heterogeneous elasticity, and
 // for the face stage 3-D compressible Navier–Stokes, whose predictor is
-// csrc/aderdg_visc.cuh's).  The definitions both sources share are in
+// csrc/aderdg_visc.cuh's, and the homogeneous elasticity at order 2, whose
+// predictor is csrc/aderdg_ck_nodes.cuh's, K2 b).  The definitions both sources share are in
 // csrc/aderdg_common.cuh.  The Z4 steps (physics 3 to 6) have their own
 // three kernels each, csrc/aderdg_z4.cuh; this file's occupancy query
 // reports them.  At order 5 the Euler predictor is csrc/aderdg_st.cuh's
@@ -136,6 +137,15 @@
 // instance is compiled from the same body with the source branches
 // compiled out (if constexpr), so its machine code is K2's.
 //
+// K2 b, the homogeneous 3-D elasticity (Elastic3D of csrc/elastic.cuh: 9
+// variables, ρ, λ, μ kernel parameters) at order 2, periodic, three launches
+// a step: the CK predictor of csrc/aderdg_ck_nodes.cuh (a thread a space
+// node, 8 cells a block; K2's pencil mapping needs NN = 4) through the entry
+// aderdg_ck_predictor_volume_p2, and the face stage's NN = 3 instances
+// (aderdg_face_flux_p2, aderdg_surface_update_p2: the Rusanov flux with no
+// mask on all 9 rows), tiled by 3 face nodes and 9 space nodes a block
+// (FaceTiling), where NN = 4 and 6 keep 4 and 8.
+//
 // Walls (the face stage's wall variant: two kernels of their own beside the
 // periodic pair, which is unchanged).  On a wall axis the TPU
 // path turns its in-kernel solves off, emits every axis's face projections
@@ -175,6 +185,7 @@
 
 #include <cuda_runtime.h>
 
+#include "aderdg_ck_nodes.cuh"
 #include "aderdg_common.cuh"
 #include "elastic.cuh"
 
@@ -774,9 +785,19 @@ aderdg_ck_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
 
 // The face stage's tiling (kTile, TileCell: csrc/aderdg_common.cuh):
 // blocks of aderdg_face_flux take kFluxNodes face nodes of one axis, blocks
-// of aderdg_surface_update kUpdateNodes space nodes.
+// of aderdg_surface_update kUpdateNodes space nodes.  At NN = 3 (9 face
+// nodes an axis, 27 space nodes a cell, K2 b's elasticity at order 2) those
+// do not divide: there a block takes 3 face nodes and 9 space nodes
+// (FaceTiling; the instances at NN = 4 and 6 keep kFluxNodes and
+// kUpdateNodes).
 constexpr int kFluxNodes = 4;
 constexpr int kUpdateNodes = 8;
+
+template <int NN>
+struct FaceTiling {
+  static constexpr int kFlux = NN == 3 ? 3 : kFluxNodes;
+  static constexpr int kUpdate = NN == 3 ? 9 : kUpdateNodes;
+};
 
 // The face stage, first launch: one thread per (cell, axis d, face node m)
 // solves the interface between the cell's high face and its +d
@@ -787,16 +808,17 @@ constexpr int kUpdateNodes = 8;
 // neighbour's low-face flux.  Rows from Phys::kFluxRows on are zero by
 // construction and are not written (the update never reads them).
 template <typename T, int NN, typename Phys>
-__global__ void __launch_bounds__(kTile * kFluxNodes)
+__global__ void __launch_bounds__(kTile * FaceTiling<NN>::kFlux)
 aderdg_face_flux(const T* __restrict__ faces, T* __restrict__ fhat,
                  const Params<T, NN, Phys> P) {
   constexpr int NF = NN * NN;
   constexpr int V = Phys::V;
   constexpr int R = Phys::kFluxRows;
+  constexpr int FN = FaceTiling<NN>::kFlux;
   const TileCell tc(blockIdx.x, P.g);
   if (!tc.inside) return;  // no barrier here
-  const int d = blockIdx.y / (NF / kFluxNodes);
-  const int m = (blockIdx.y % (NF / kFluxNodes)) * kFluxNodes + threadIdx.y;
+  const int d = blockIdx.y / (NF / FN);
+  const int m = (blockIdx.y % (NF / FN)) * FN + threadIdx.y;
   const long long ncell = P.ncell;
   const long long cell = tc.cell;
   const long long plus = tc.neighbour(d, 1);
@@ -832,17 +854,18 @@ aderdg_face_flux(const T* __restrict__ faces, T* __restrict__ fhat,
 // tile are consecutive blocks, so the four nodes of a pencil that read one
 // F̂ value, and the neighbour tiles' reads, find it in L2.
 template <typename T, int NN, typename Phys>
-__global__ void __launch_bounds__(kTile * kUpdateNodes)
+__global__ void __launch_bounds__(kTile * FaceTiling<NN>::kUpdate)
 aderdg_surface_update(T* __restrict__ state, const T* __restrict__ fhat,
                       const T* __restrict__ dt_ptr, T dt_val, const Params<T, NN, Phys> P) {
   constexpr int NF = NN * NN;
-  constexpr int NG = NN * NF / kUpdateNodes;
+  constexpr int UN = FaceTiling<NN>::kUpdate;
+  constexpr int NG = NN * NF / UN;
   constexpr int V = Phys::V;
   constexpr int R = Phys::kFluxRows;
   const int tile_index = blockIdx.x / NG;
   const TileCell tc(tile_index, P.g);
   if (!tc.inside) return;
-  const int node = (blockIdx.x - tile_index * NG) * kUpdateNodes + threadIdx.y;
+  const int node = (blockIdx.x - tile_index * NG) * UN + threadIdx.y;
   const long long ncell = P.ncell;
   const long long cell = tc.cell;
   const T dtv = dt_ptr != nullptr ? *dt_ptr : dt_val;
@@ -1100,7 +1123,7 @@ long long face_tiles(int order, long long g0, long long g1, long long g2) {
   constexpr long long kMax = 0x7fffffffLL;
   if (bad_grid<NN>(order, g0, g1, g2) || g0 > kMax || g1 > kMax || g2 > kMax) return 0;
   const long long tiles = g0 * g1 * ((g2 + kTile - 1) / kTile);
-  return tiles * (NN * NN * NN / kUpdateNodes) > kMax ? 0 : tiles;
+  return tiles * (NN * NN * NN / FaceTiling<NN>::kUpdate) > kMax ? 0 : tiles;
 }
 
 template <typename T, typename Phys>
@@ -1131,7 +1154,7 @@ Shape face_flux_shape() {
   } else {
     fn = reinterpret_cast<const void*>(aderdg_face_flux<T, NN, Phys>);
   }
-  return {fn, dim3(kTile, kFluxNodes), 0};
+  return {fn, dim3(kTile, FaceTiling<NN>::kFlux), 0};
 }
 
 template <typename T, typename Phys, bool kWalls, int NN = kNN>
@@ -1143,7 +1166,7 @@ Shape surface_update_shape() {
   } else {
     fn = reinterpret_cast<const void*>(aderdg_surface_update<T, NN, Phys>);
   }
-  return {fn, dim3(kTile, kUpdateNodes), 0};
+  return {fn, dim3(kTile, FaceTiling<NN>::kUpdate), 0};
 }
 
 template <typename T, typename Phys>
@@ -1197,7 +1220,7 @@ cudaError_t launch_face_flux(const T* faces, T* fhat, const double* ops,
   if (tiles == 0) return cudaErrorInvalidValue;
   const auto P = make_params<T, NN, Phys>(ops, dx, 0, params, g0, g1, g2);
   const Shape sh = face_flux_shape<T, Phys, kWalls, NN>();
-  const dim3 grid(static_cast<unsigned>(tiles), kDim * NN * NN / kFluxNodes);
+  const dim3 grid(static_cast<unsigned>(tiles), kDim * NN * NN / FaceTiling<NN>::kFlux);
   if constexpr (kWalls) {
     aderdg_face_flux_walls<T, NN, Phys>
         <<<grid, sh.block, 0, static_cast<cudaStream_t>(stream)>>>(faces, fhat, P, W);
@@ -1218,7 +1241,7 @@ cudaError_t launch_surface_update(T* state, const T* fhat, const T* dt_ptr, doub
   if (tiles == 0) return cudaErrorInvalidValue;
   const auto P = make_params<T, NN, Phys>(ops, dx, 0, params, g0, g1, g2);
   const Shape sh = surface_update_shape<T, Phys, kWalls, NN>();
-  const long long blocks = tiles * (NN * NN * NN / kUpdateNodes);
+  const long long blocks = tiles * (NN * NN * NN / FaceTiling<NN>::kUpdate);
   if constexpr (kWalls) {
     aderdg_surface_update_walls<T, NN, Phys>
         <<<static_cast<unsigned>(blocks), sh.block, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -1359,12 +1382,61 @@ int surface_update_p5(T* state, const T* fhat, const T* dt_ptr, double dt_val,
       state, fhat, dt_ptr, dt_val, ops, dx, order, params, g0, g1, g2, W, stream);
 }
 
+// K2 b's 3-D step: the homogeneous elasticity (physics 7, Elastic3D,
+// params = {ρ, λ, μ}) at order 2 (NN = 3), periodic: csrc/aderdg_ck_nodes.cuh's
+// CK predictor, a thread a space node, 8 cells a block (216 threads), and
+// the face stage's NN = 3 instances.
+constexpr int kNNp2 = 3;
+constexpr int kCellsP2 = 8;
+
+template <typename T>
+using CkP2Params = Params<T, kNNp2, Elastic3D<T>>;
+
+template <typename T>
+int ck_predictor_volume_p2(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
+                           const double* ops, const double* dx, int order, int physics,
+                           const double* params, long long g0, long long g1, long long g2,
+                           void* stream) {
+  if (physics != kElastic3D || bad_grid<kNNp2>(order, g0, g1, g2)) return cudaErrorInvalidValue;
+  const auto P = make_params<T, kNNp2, Elastic3D<T>>(ops, dx, 0, params, g0, g1, g2);
+  return launch_ck_nodes<T, kDim, kNNp2, kCellsP2, Elastic3D<T>, CkP2Params<T>>(
+      u, out, faces, dt_ptr, dt_val, P, stream);
+}
+
+template <typename T>
+int face_flux_p2(const T* faces, T* fhat, const double* ops, const double* dx, int order,
+                 int physics, const double* params, long long g0, long long g1, long long g2,
+                 void* stream) {
+  if (physics != kElastic3D) return cudaErrorInvalidValue;
+  const WallParams<T, Elastic3D<T>::V> W{};
+  return launch_face_flux<T, Elastic3D<T>, false, kNNp2>(faces, fhat, ops, dx, order, params, g0,
+                                                        g1, g2, W, stream);
+}
+
+template <typename T>
+int surface_update_p2(T* state, const T* fhat, const T* dt_ptr, double dt_val,
+                      const double* ops, const double* dx, int order, int physics,
+                      const double* params, long long g0, long long g1, long long g2,
+                      void* stream) {
+  if (physics != kElastic3D) return cudaErrorInvalidValue;
+  const WallParams<T, Elastic3D<T>::V> W{};
+  return launch_surface_update<T, Elastic3D<T>, false, kNNp2>(
+      state, fhat, dt_ptr, dt_val, ops, dx, order, params, g0, g1, g2, W, stream);
+}
+
 template <typename T>
 int kernel_info(int kernel, int physics, int* out) {
   const bool euler = physics == kEuler;
-  if (kernel >= 22 && kernel <= 27) {  // the 2-D steps', 22-27
+  if ((kernel >= 22 && kernel <= 27) || kernel == 32) {  // the 2-D steps', 22-27 and 32
     auto* info = sizeof(T) == 8 ? aderdg_2d_kernel_info_f64 : aderdg_2d_kernel_info_f32;
-    return info ? info(kernel - 22, physics, out) : cudaErrorInvalidValue;
+    return info ? info(kernel == 32 ? 6 : kernel - 22, physics, out) : cudaErrorInvalidValue;
+  }
+  if (kernel >= 29 && kernel <= 31) {  // K2 b's 3-D step, 29-31
+    using H = Elastic3D<T>;
+    if (physics != kElastic3D) return cudaErrorInvalidValue;
+    if (kernel == 30) return shape_info(face_flux_shape<T, H, false, kNNp2>(), out);
+    if (kernel == 31) return shape_info(surface_update_shape<T, H, false, kNNp2>(), out);
+    return shape_info(ck_nodes_shape<T, kDim, kNNp2, kCellsP2, H, CkP2Params<T>>(), out);
   }
   if (kernel >= 19 && kernel <= 21) {  // the order-5 Euler step's, 19-21
     if (!euler) return cudaErrorInvalidValue;
@@ -1659,6 +1731,60 @@ int exahype_aderdg_surface_update_p5_f64(double* state, const double* fhat,
                                    g0, g1, g2, stream);
 }
 
+// K2 b, the 3-D homogeneous elasticity at order 2 (physics 7, params = {ρ,
+// λ, μ}; order must be 2), periodic: the CK predictor (the CK entries'
+// arguments) and the face stage (the periodic entries' arguments) at n = 3;
+// faces: [3][4][9][9][cell], fhat: [3][9][9][cell].
+int exahype_aderdg_ck_predictor_volume_p2_f32(const float* u, float* out, float* faces,
+                                              const float* dt_ptr, double dt_val,
+                                              const double* ops, const double* dx, int order,
+                                              int physics, const double* params, long long g0,
+                                              long long g1, long long g2, void* stream) {
+  return ck_predictor_volume_p2<float>(u, out, faces, dt_ptr, dt_val, ops, dx, order, physics,
+                                       params, g0, g1, g2, stream);
+}
+
+int exahype_aderdg_ck_predictor_volume_p2_f64(const double* u, double* out, double* faces,
+                                              const double* dt_ptr, double dt_val,
+                                              const double* ops, const double* dx, int order,
+                                              int physics, const double* params, long long g0,
+                                              long long g1, long long g2, void* stream) {
+  return ck_predictor_volume_p2<double>(u, out, faces, dt_ptr, dt_val, ops, dx, order, physics,
+                                        params, g0, g1, g2, stream);
+}
+
+int exahype_aderdg_face_flux_p2_f32(const float* faces, float* fhat, const double* ops,
+                                    const double* dx, int order, int physics,
+                                    const double* params, long long g0, long long g1,
+                                    long long g2, void* stream) {
+  return face_flux_p2<float>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, stream);
+}
+
+int exahype_aderdg_face_flux_p2_f64(const double* faces, double* fhat, const double* ops,
+                                    const double* dx, int order, int physics,
+                                    const double* params, long long g0, long long g1,
+                                    long long g2, void* stream) {
+  return face_flux_p2<double>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, stream);
+}
+
+int exahype_aderdg_surface_update_p2_f32(float* state, const float* fhat, const float* dt_ptr,
+                                         double dt_val, const double* ops, const double* dx,
+                                         int order, int physics, const double* params,
+                                         long long g0, long long g1, long long g2,
+                                         void* stream) {
+  return surface_update_p2<float>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics, params,
+                                  g0, g1, g2, stream);
+}
+
+int exahype_aderdg_surface_update_p2_f64(double* state, const double* fhat,
+                                         const double* dt_ptr, double dt_val,
+                                         const double* ops, const double* dx, int order,
+                                         int physics, const double* params, long long g0,
+                                         long long g1, long long g2, void* stream) {
+  return surface_update_p2<double>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics, params,
+                                   g0, g1, g2, stream);
+}
+
 // out[0..4]: registers per thread, resident blocks per SM, threads per
 // block, dynamic shared memory bytes and local (spill) bytes per thread of
 // one kernel as its launcher launches it: kernel 0 = predictor_volume,
@@ -1676,9 +1802,12 @@ int exahype_aderdg_surface_update_p5_f64(double* state, const double* fhat,
 // 19 = predictor_volume_p5 (csrc/aderdg_p5.cu), 20 = face_flux_p5, 21 =
 // surface_update_p5; physics 0 in 2-D (csrc/aderdg_2d.cu): 22 =
 // predictor_volume_2d, 23 = face_flux_2d, 24 = surface_update_2d, 25 =
-// face_flux_walls_2d, 26 = surface_update_walls_2d; physics 1: 28 =
-// ck_predictor_volume_sponge (K2 a, the CK predictor with the sponge);
-// f64 = 0 or 1.
+// face_flux_walls_2d, 26 = surface_update_walls_2d (physics 8, the 2-D
+// elasticity: 23-26 its face stage, 32 = ck_predictor_volume_2d); physics 1:
+// 28 = ck_predictor_volume_sponge (K2 a, the CK predictor with the sponge);
+// physics 7 (the 3-D homogeneous elasticity at order 2): 29 =
+// ck_predictor_volume_p2, 30 = face_flux_p2, 31 = surface_update_p2; f64 =
+// 0 or 1.
 int exahype_aderdg_kernel_info(int kernel, int f64, int physics, int* out) {
   return f64 ? kernel_info<double>(kernel, physics, out)
              : kernel_info<float>(kernel, physics, out);

@@ -1,7 +1,12 @@
 // ADER-DG step on a 2-D grid for Hopper (sm_90a) at order 3 (NN = 4), three
 // launches a step, float32 and float64: compressible Euler (4 variables),
-// periodic or closed by domain walls, and compressible Navier–Stokes (4
-// variables), periodic.  The shared helpers (the parameter bank's row
+// periodic or closed by domain walls, compressible Navier–Stokes (4
+// variables), periodic, and the elasticity (5 variables, K2 b:
+// examples/seismic_point_source.py --ck), periodic or walled, on the CK
+// predictor of csrc/aderdg_ck_nodes.cuh (entry
+// aderdg_ck_predictor_volume_2d) and this file's face pairs over
+// Elastic2D (csrc/elastic.cuh), which take their variable count from the
+// physics.  The shared helpers (the parameter bank's row
 // selection, the occupancy query, the shared-memory opt-in) are
 // csrc/aderdg_common.cuh's; the dimension is this file's own: the 3-D
 // sources keep theirs (kDim = 3), so their kernels are untouched.  The
@@ -84,7 +89,9 @@
 
 #include <cuda_runtime.h>
 
+#include "aderdg_ck_nodes.cuh"
 #include "aderdg_common.cuh"
+#include "elastic.cuh"
 
 namespace {
 
@@ -528,12 +535,12 @@ aderdg_predictor_volume_2d(const T* __restrict__ u, T* __restrict__ out,
 
 // The ghost of wall (axis d, side) at face node m, plane index p, from my
 // own face state q and flux f: its state gq and flux gf.
-template <typename T>
-__device__ __forceinline__ void wall_ghost_2d(const Walls2D<T, Euler2D<T>::V>& W,
-                                              const Euler2D<T>& phys, int d, int side, int m,
-                                              long long plane, long long p, const T* q,
-                                              const T* f, T* gq, T* gf) {
-  constexpr int V = Euler2D<T>::V;
+template <typename T, typename Phys>
+__device__ __forceinline__ void wall_ghost_2d(const Walls2D<T, Phys::V>& W, const Phys& phys,
+                                              int d, int side, int m, long long plane,
+                                              long long p, const T* q, const T* f, T* gq,
+                                              T* gf) {
+  constexpr int V = Phys::V;
   if (W.mode == kMirror) {
 #pragma unroll
     for (int v = 0; v < V; ++v) {
@@ -565,9 +572,9 @@ __device__ __forceinline__ void wall_ghost_2d(const Walls2D<T, Euler2D<T>::V>& W
 template <typename T, int NN, bool kWalls, typename Phys>
 __global__ void __launch_bounds__(kFace2DThreads)
 aderdg_face_flux_2d(const T* __restrict__ faces, T* __restrict__ fhat,
-                    const Params2D<T, NN, Phys> P, const Walls2D<T, Euler2D<T>::V> W) {
+                    const Params2D<T, NN, Phys> P, const Walls2D<T, Phys::V> W) {
   constexpr int NF = NN;
-  constexpr int V = Euler2D<T>::V;
+  constexpr int V = Phys::V;
   const long long ncell = P.ncell;
   const long long c = static_cast<long long>(blockIdx.x) * kFace2DThreads + threadIdx.x;
   if (c >= ncell) return;
@@ -585,7 +592,7 @@ aderdg_face_flux_2d(const T* __restrict__ faces, T* __restrict__ fhat,
     fa[v] = base[3 * wstride + v * ncell + c];
   }
   if (wall && tc.at(d) == tc.extent(d) - 1) {  // the high wall
-    wall_ghost_2d<T>(W, P.phys, d, 1, m, tc.plane(d), tc.plane_index(d), qa, fa, qb, fb);
+    wall_ghost_2d<T, Phys>(W, P.phys, d, 1, m, tc.plane(d), tc.plane_index(d), qa, fa, qb, fb);
   } else {
     const long long plus = tc.neighbour(d, 1);
 #pragma unroll
@@ -603,7 +610,7 @@ aderdg_face_flux_2d(const T* __restrict__ faces, T* __restrict__ fhat,
       ql[v] = base[v * ncell + c];
       fl[v] = base[2 * wstride + v * ncell + c];
     }
-    wall_ghost_2d<T>(W, P.phys, d, 0, m, plane, p, ql, fl, gq, gf);
+    wall_ghost_2d<T, Phys>(W, P.phys, d, 0, m, plane, p, ql, fl, gq, gf);
     const T sw = dmax(P.phys.max_eigenvalue(ql, d), P.phys.max_eigenvalue(gq, d));
     T* w = W.fwall + (d == 0 ? W.off[0] : W.off[1]) + static_cast<long long>(m) * V * plane + p;
 #pragma unroll
@@ -620,14 +627,15 @@ aderdg_face_flux_2d(const T* __restrict__ faces, T* __restrict__ fhat,
 // the node's rows of `state` in place with −λ_d (ℓ_i(1)/w_i F̂_hi −
 // ℓ_i(0)/w_i F̂_lo) of each axis, F̂_hi the cell's own entry of fhat and
 // F̂_lo its −d neighbour's, or (kWalls, the first row of a wall axis) the
-// low-wall flux of W.fwall.
-template <typename T, int NN, bool kWalls>
+// low-wall flux of W.fwall.  It reads no physics: Phys gives the variable
+// count only (Euler2D for Euler and Navier–Stokes, Elastic2D).
+template <typename T, int NN, bool kWalls, typename Phys = Euler2D<T>>
 __global__ void __launch_bounds__(kFace2DThreads)
 aderdg_surface_update_2d(T* __restrict__ state, const T* __restrict__ fhat,
                          const T* __restrict__ dt_ptr, T dt_val, const Params2D<T, NN> P,
-                         const Walls2D<T, Euler2D<T>::V> W) {
+                         const Walls2D<T, Phys::V> W) {
   constexpr int NF = NN;
-  constexpr int V = Euler2D<T>::V;
+  constexpr int V = Phys::V;
   const long long ncell = P.ncell;
   const long long c = static_cast<long long>(blockIdx.x) * kFace2DThreads + threadIdx.x;
   if (c >= ncell) return;
@@ -674,10 +682,9 @@ aderdg_surface_update_2d(T* __restrict__ state, const T* __restrict__ fhat,
 // mask == 0; no ghost tables without `table`: the update reads only the
 // mask, fwall and the offsets).  table: S_q [2][V], S_f [2][V], the
 // farfield state [V], float64.
-template <typename T>
-Walls2D<T, Euler2D<T>::V> make_walls_2d(int mask, int mode, const double* table, const T* rows,
-                                        T* fwall, const long long* off, long long side) {
-  constexpr int V = Euler2D<T>::V;
+template <typename T, int V>
+Walls2D<T, V> make_walls_2d(int mask, int mode, const double* table, const T* rows, T* fwall,
+                            const long long* off, long long side) {
   Walls2D<T, V> W{};
   if (mask == 0) return W;
   W.mask = mask;
@@ -697,12 +704,13 @@ Walls2D<T, Euler2D<T>::V> make_walls_2d(int mask, int mode, const double* table,
   return W;
 }
 
-// A launch this file's instances can take: Euler or Navier–Stokes, order
-// 3, a 2-D grid (g2 is 1) whose cells and coordinates fit a 32-bit int.
+// A launch this file's instances can take: Euler, Navier–Stokes or the
+// elasticity, order 3, a 2-D grid (g2 is 1) whose cells and coordinates fit
+// a 32-bit int.
 bool bad_2d(int physics, int order, long long g0, long long g1, long long g2) {
   constexpr long long kMax = 0x7fffffffLL;
-  return (physics != kEuler && physics != kNavierStokes) || order != kNN2 - 1 || g0 <= 0 ||
-         g1 <= 0 || g2 != 1 || g0 * g1 > kMax;
+  return (physics != kEuler && physics != kNavierStokes && physics != kElastic2D) ||
+         order != kNN2 - 1 || g0 <= 0 || g1 <= 0 || g2 != 1 || g0 * g1 > kMax;
 }
 
 // The wall arguments: a mask of the 2 axes with the side tensor and its
@@ -724,10 +732,31 @@ Shape face_flux_2d_shape() {
           dim3(kFace2DThreads), 0};
 }
 
-template <typename T, bool kWalls>
+template <typename T, bool kWalls, typename Phys = Euler2D<T>>
 Shape surface_update_2d_shape() {
-  return {reinterpret_cast<const void*>(aderdg_surface_update_2d<T, kNN2, kWalls>),
+  return {reinterpret_cast<const void*>(aderdg_surface_update_2d<T, kNN2, kWalls, Phys>),
           dim3(kFace2DThreads), 0};
+}
+
+// K2 b's 2-D instance: the CK predictor of csrc/aderdg_ck_nodes.cuh over
+// Elastic2D, a thread a space node, kCells2D cells a block.
+template <typename T>
+using CkParams2D = Params2D<T, kNN2, Elastic2D<T>>;
+
+template <typename T>
+Shape ck_predictor_2d_shape() {
+  return ck_nodes_shape<T, kDim2, kNN2, kCells2D, Elastic2D<T>, CkParams2D<T>>();
+}
+
+template <typename T>
+int ck_predictor_volume_2d(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
+                           const double* ops, const double* dx, int order, int physics,
+                           const double* params, long long g0, long long g1, long long g2,
+                           void* stream) {
+  if (bad_2d(physics, order, g0, g1, g2) || physics != kElastic2D) return cudaErrorInvalidValue;
+  const auto P = make_params_2d<T, kNN2, Elastic2D<T>>(ops, dx, 0, params, g0, g1);
+  return launch_ck_nodes<T, kDim2, kNN2, kCells2D, Elastic2D<T>, CkParams2D<T>>(
+      u, out, faces, dt_ptr, dt_val, P, stream);
 }
 
 // The Euler predictor for physics 0, the viscous one for physics 2.
@@ -751,10 +780,25 @@ int predictor_volume_2d(const T* u, T* out, T* faces, const T* dt_ptr, double dt
   return cudaGetLastError();
 }
 
+// The wall arguments of a launch (all zero and null without walls).
+struct WallArgs2D {
+  int mask;
+  int mode;
+  const double* table;
+  const void* rows;
+  void* fwall;
+  const long long* off;
+  long long side;
+};
+
 template <typename T, bool kWalls, typename Phys>
 int launch_face_flux_2d(const T* faces, T* fhat, const double* ops, const double* dx,
-                        const double* params, long long g0, long long g1,
-                        const Walls2D<T, Euler2D<T>::V>& W, void* stream) {
+                        const double* params, long long g0, long long g1, const WallArgs2D& A,
+                        void* stream) {
+  const auto W = kWalls ? make_walls_2d<T, Phys::V>(A.mask, A.mode, A.table,
+                                                    static_cast<const T*>(A.rows),
+                                                    static_cast<T*>(A.fwall), A.off, A.side)
+                        : Walls2D<T, Phys::V>{};
   const auto P = make_params_2d<T, kNN2, Phys>(ops, dx, 0, params, g0, g1);
   const dim3 grid(static_cast<unsigned>((P.ncell + kFace2DThreads - 1) / kFace2DThreads),
                   kDim2 * kNN2);
@@ -763,33 +807,52 @@ int launch_face_flux_2d(const T* faces, T* fhat, const double* ops, const double
   return cudaGetLastError();
 }
 
-// Euler, periodic or walled; Navier–Stokes periodic only.
+// Euler and the elasticity, periodic or walled; Navier–Stokes periodic only.
 template <typename T, bool kWalls>
 int face_flux_2d(const T* faces, T* fhat, const double* ops, const double* dx, int order,
                  int physics, const double* params, long long g0, long long g1, long long g2,
-                 const Walls2D<T, Euler2D<T>::V>& W, void* stream) {
+                 const WallArgs2D& A, void* stream) {
   if (bad_2d(physics, order, g0, g1, g2)) return cudaErrorInvalidValue;
   if (physics == kEuler)
-    return launch_face_flux_2d<T, kWalls, Euler2D<T>>(faces, fhat, ops, dx, params, g0, g1, W,
+    return launch_face_flux_2d<T, kWalls, Euler2D<T>>(faces, fhat, ops, dx, params, g0, g1, A,
                                                        stream);
+  if (physics == kElastic2D)
+    return launch_face_flux_2d<T, kWalls, Elastic2D<T>>(faces, fhat, ops, dx, params, g0, g1, A,
+                                                         stream);
   if (kWalls) return cudaErrorInvalidValue;
   return launch_face_flux_2d<T, false, NavierStokes2D<T>>(faces, fhat, ops, dx, params, g0, g1,
-                                                           W, stream);
+                                                           A, stream);
 }
 
+template <typename T, bool kWalls, typename Phys>
+int launch_surface_update_2d(T* state, const T* fhat, const T* dt_ptr, double dt_val,
+                             const double* ops, const double* dx, const double* params,
+                             long long g0, long long g1, const WallArgs2D& A, void* stream) {
+  const auto W = kWalls ? make_walls_2d<T, Phys::V>(A.mask, kMirror, nullptr, nullptr,
+                                                    static_cast<T*>(A.fwall), A.off, 0)
+                        : Walls2D<T, Phys::V>{};
+  const auto P = make_params_2d<T, kNN2>(ops, dx, 0, params, g0, g1);
+  const dim3 grid(static_cast<unsigned>((P.ncell + kFace2DThreads - 1) / kFace2DThreads),
+                  kNN2 * kNN2);
+  aderdg_surface_update_2d<T, kNN2, kWalls, Phys>
+      <<<grid, dim3(kFace2DThreads), 0, static_cast<cudaStream_t>(stream)>>>(
+          state, fhat, dt_ptr, static_cast<T>(dt_val), P, W);
+  return cudaGetLastError();
+}
+
+// The update reads no physics: one instance for Euler and Navier–Stokes,
+// one for the elasticity's 5 rows.
 template <typename T, bool kWalls>
 int surface_update_2d(T* state, const T* fhat, const T* dt_ptr, double dt_val,
                       const double* ops, const double* dx, int order, int physics,
                       const double* params, long long g0, long long g1, long long g2,
-                      const Walls2D<T, Euler2D<T>::V>& W, void* stream) {
+                      const WallArgs2D& A, void* stream) {
   if (bad_2d(physics, order, g0, g1, g2)) return cudaErrorInvalidValue;
-  const auto P = make_params_2d<T, kNN2>(ops, dx, 0, params, g0, g1);
-  const dim3 grid(static_cast<unsigned>((P.ncell + kFace2DThreads - 1) / kFace2DThreads),
-                  kNN2 * kNN2);
-  aderdg_surface_update_2d<T, kNN2, kWalls>
-      <<<grid, dim3(kFace2DThreads), 0, static_cast<cudaStream_t>(stream)>>>(
-          state, fhat, dt_ptr, static_cast<T>(dt_val), P, W);
-  return cudaGetLastError();
+  if (physics == kElastic2D)
+    return launch_surface_update_2d<T, kWalls, Elastic2D<T>>(state, fhat, dt_ptr, dt_val, ops,
+                                                             dx, params, g0, g1, A, stream);
+  return launch_surface_update_2d<T, kWalls, Euler2D<T>>(state, fhat, dt_ptr, dt_val, ops, dx,
+                                                         params, g0, g1, A, stream);
 }
 
 template <typename T>
@@ -803,9 +866,8 @@ int face_flux_walls_2d(const T* faces, T* fhat, const double* ops, const double*
                                wall_mode != kDirichlet) ||
       (wall_mode == kDirichlet && wall_rows == nullptr))
     return cudaErrorInvalidValue;
-  const auto W = make_walls_2d<T>(wall_mask, wall_mode, wall_table, wall_rows, fwall, wall_off,
-                                  wall_side);
-  return face_flux_2d<T, true>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, W,
+  const WallArgs2D A{wall_mask, wall_mode, wall_table, wall_rows, fwall, wall_off, wall_side};
+  return face_flux_2d<T, true>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, A,
                                stream);
 }
 
@@ -816,17 +878,34 @@ int surface_update_walls_2d(T* state, const T* fhat, const T* dt_ptr, double dt_
                             int wall_mask, const T* fwall, const long long* wall_off,
                             void* stream) {
   if (bad_walls_2d(wall_mask, fwall, wall_off)) return cudaErrorInvalidValue;
-  const auto W = make_walls_2d<T>(wall_mask, kMirror, nullptr, nullptr, const_cast<T*>(fwall),
-                                  wall_off, 0);
+  const WallArgs2D A{wall_mask, kMirror, nullptr, nullptr, const_cast<T*>(fwall), wall_off, 0};
   return surface_update_2d<T, true>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics,
-                                    params, g0, g1, g2, W, stream);
+                                    params, g0, g1, g2, A, stream);
 }
 
 // which: 0 predictor, 1 face flux, 2 update, 3 face flux (walls), 4 update
-// (walls), 5 the viscous predictor; physics 2 (Navier–Stokes) has 1, 2 and
-// 5, its own face flux and Euler's update.
+// (walls), 5 the viscous predictor, 6 the CK predictor; physics 2
+// (Navier–Stokes) has 1, 2 and 5, its own face flux and Euler's update;
+// physics 8 (the elasticity) 1-4 and 6.
 template <typename T>
 int kernel_info_2d(int which, int physics, int* out) {
+  if (physics == kElastic2D) {
+    using H = Elastic2D<T>;
+    switch (which) {
+      case 1:
+        return shape_info(face_flux_2d_shape<T, false, H>(), out);
+      case 2:
+        return shape_info(surface_update_2d_shape<T, false, H>(), out);
+      case 3:
+        return shape_info(face_flux_2d_shape<T, true, H>(), out);
+      case 4:
+        return shape_info(surface_update_2d_shape<T, true, H>(), out);
+      case 6:
+        return shape_info(ck_predictor_2d_shape<T>(), out);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
   if (physics == kNavierStokes) {
     switch (which) {
       case 1:
@@ -913,12 +992,34 @@ int exahype_aderdg_predictor_volume_visc_2d_f64(const double* u, double* out, do
       stream);
 }
 
+// K2 b's 2-D CK predictor (physics 8, the elasticity, params = {ρ, λ, μ}):
+// the CK entries' arguments (csrc/aderdg.cu), the grid (g0, g1, 1), order 3;
+// faces: [2][4][4][5][cell].  The face pairs above and below take physics 8
+// too (the periodic and the wall pair; fhat [2][4][5][cell]).
+int exahype_aderdg_ck_predictor_volume_2d_f32(const float* u, float* out, float* faces,
+                                              const float* dt_ptr, double dt_val,
+                                              const double* ops, const double* dx, int order,
+                                              int physics, const double* params, long long g0,
+                                              long long g1, long long g2, void* stream) {
+  return ck_predictor_volume_2d<float>(u, out, faces, dt_ptr, dt_val, ops, dx, order, physics,
+                                       params, g0, g1, g2, stream);
+}
+
+int exahype_aderdg_ck_predictor_volume_2d_f64(const double* u, double* out, double* faces,
+                                              const double* dt_ptr, double dt_val,
+                                              const double* ops, const double* dx, int order,
+                                              int physics, const double* params, long long g0,
+                                              long long g1, long long g2, void* stream) {
+  return ck_predictor_volume_2d<double>(u, out, faces, dt_ptr, dt_val, ops, dx, order, physics,
+                                        params, g0, g1, g2, stream);
+}
+
 int exahype_aderdg_face_flux_2d_f32(const float* faces, float* fhat, const double* ops,
                                     const double* dx, int order, int physics,
                                     const double* params, long long g0, long long g1,
                                     long long g2, void* stream) {
   return face_flux_2d<float, false>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2,
-                                    Walls2D<float, 4>{}, stream);
+                                    WallArgs2D{}, stream);
 }
 
 int exahype_aderdg_face_flux_2d_f64(const double* faces, double* fhat, const double* ops,
@@ -926,7 +1027,7 @@ int exahype_aderdg_face_flux_2d_f64(const double* faces, double* fhat, const dou
                                     const double* params, long long g0, long long g1,
                                     long long g2, void* stream) {
   return face_flux_2d<double, false>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2,
-                                     Walls2D<double, 4>{}, stream);
+                                    WallArgs2D{}, stream);
 }
 
 int exahype_aderdg_surface_update_2d_f32(float* state, const float* fhat, const float* dt_ptr,
@@ -935,7 +1036,7 @@ int exahype_aderdg_surface_update_2d_f32(float* state, const float* fhat, const 
                                          long long g0, long long g1, long long g2,
                                          void* stream) {
   return surface_update_2d<float, false>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics,
-                                         params, g0, g1, g2, Walls2D<float, 4>{}, stream);
+                                         params, g0, g1, g2, WallArgs2D{}, stream);
 }
 
 int exahype_aderdg_surface_update_2d_f64(double* state, const double* fhat,
@@ -944,7 +1045,7 @@ int exahype_aderdg_surface_update_2d_f64(double* state, const double* fhat,
                                          int physics, const double* params, long long g0,
                                          long long g1, long long g2, void* stream) {
   return surface_update_2d<double, false>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics,
-                                          params, g0, g1, g2, Walls2D<double, 4>{}, stream);
+                                          params, g0, g1, g2, WallArgs2D{}, stream);
 }
 
 int exahype_aderdg_face_flux_walls_2d_f32(const float* faces, float* fhat, const double* ops,

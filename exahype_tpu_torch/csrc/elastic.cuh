@@ -1,6 +1,9 @@
-// 3-D heterogeneous linear elasticity for the port's kernels: 12 variables
-// [v_x, v_y, v_z, σ_xx, σ_yy, σ_zz, σ_yz, σ_xz, σ_xy, ρ, λ, μ] (Voigt stress
-// order), the materials frozen per node.
+// Linear elasticity for the port's kernels.  The 3-D heterogeneous system:
+// 12 variables [v_x, v_y, v_z, σ_xx, σ_yy, σ_zz, σ_yz, σ_xz, σ_xy, ρ, λ, μ]
+// (Voigt stress order), the materials frozen per node.  The homogeneous
+// systems, ρ, λ and μ constants of the kernel (Elastic3D: the 9 variables
+// without the materials; Elastic2D: [v_x, v_y, σ_xx, σ_yy, σ_xy]), at the
+// end.
 //
 // Operation order of exahype_tpu/models/elastic.py (elastic3d_het_flux,
 // elastic3d_het_eigenvalue) and of exahype_tpu_torch/models/elastic.py,
@@ -10,6 +13,8 @@
 // -0.  The flux takes 1/ρ, λ and μ from the caller, so a kernel computes
 // them once per node and keeps them in registers.
 #pragma once
+
+#include <cmath>
 
 #include "device_math.cuh"
 
@@ -50,3 +55,105 @@ template <typename T>
 __device__ __forceinline__ T elastic3d_het_eigenvalue(T rho, T lam, T mu) {
   return dsqrt((lam + T(2) * mu) / rho);
 }
+
+// The homogeneous 3-D flux (exahype_tpu/models/elastic.py::elastic3d_flux)
+// along axis n: the velocity rows −σ_in / ρ, a division as the reference
+// takes it, and the stress rows in its order, its 0·v_x and + 0 terms
+// included (so the rows that do not involve the normal are −(0·v_x)).
+template <typename T>
+__device__ __forceinline__ void elastic3d_flux(const T* q, T rho, T lam, T mu, int n, T* f) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) f[i] = -q[elastic_sig(i, n)] / rho;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = i; j < 3; ++j) {
+      T val = i == j ? lam * q[n] : T(0) * q[0];
+      if (i == n) {
+        val = val + mu * q[j];
+        val = val + (j == n ? mu * q[j] : T(0));
+      } else if (j == n) {
+        val = val + mu * q[i];
+      }
+      f[elastic_sig(i, j)] = -val;
+    }
+  }
+}
+
+// The 2-D flux (exahype_tpu/models/elastic.py::elastic_flux) along axis n
+// of [v_x, v_y, σ_xx, σ_yy, σ_xy]: −σ/ρ on the velocity rows, and on the
+// stress rows the negated constants nl2m = −(λ + 2μ), nlam = −λ, nmu = −μ,
+// which the reference forms in float64 before they meet the state.
+template <typename T>
+__device__ __forceinline__ void elastic2d_flux(const T* q, T rho, T nl2m, T nlam, T nmu, int n,
+                                               T* f) {
+  if (n == 0) {
+    f[0] = -q[2] / rho;
+    f[1] = -q[4] / rho;
+    f[2] = nl2m * q[0];
+    f[3] = nlam * q[0];
+    f[4] = nmu * q[1];
+  } else {
+    f[0] = -q[4] / rho;
+    f[1] = -q[3] / rho;
+    f[2] = nlam * q[1];
+    f[3] = nl2m * q[1];
+    f[4] = nmu * q[0];
+  }
+}
+
+// The homogeneous systems as the kernels take a physics: V variables, all
+// of them with flux and with the Rusanov jump unmasked; params = {ρ, λ, μ}
+// (float64); the wave speed is c_p = √((λ + 2μ)/ρ) on every axis, computed
+// in float64 as the reference's _speeds and then cast.  flux(q, d, f) is
+// the flux along axis d, d a compile-time constant once unrolled;
+// flux_along(q, d, f) the same for a thread-dependent d (a wall's ghost
+// flux), dispatched to compile-time axes.
+template <typename T>
+struct Elastic3D {
+  static constexpr int V = 9;
+  static constexpr int kFluxRows = V;
+  static constexpr bool kMasked = false;
+  static constexpr bool kViscous = false;
+  T rho, lam, mu, cp;
+  static Elastic3D make(const double* p) {
+    return {static_cast<T>(p[0]), static_cast<T>(p[1]), static_cast<T>(p[2]),
+            static_cast<T>(std::sqrt((p[1] + 2.0 * p[2]) / p[0]))};
+  }
+  __device__ __forceinline__ T max_eigenvalue(const T*, int) const { return cp; }
+  __device__ __forceinline__ void flux(const T* q, int d, T* f) const {
+    elastic3d_flux<T>(q, rho, lam, mu, d, f);
+  }
+  __device__ __forceinline__ void flux_along(const T* q, int d, T* f) const {
+#pragma unroll
+    for (int dd = 0; dd < 3; ++dd) {
+      if (dd == d) elastic3d_flux<T>(q, rho, lam, mu, dd, f);
+    }
+  }
+  static __device__ __forceinline__ T dissipation(int) { return T(1); }
+};
+
+template <typename T>
+struct Elastic2D {
+  static constexpr int V = 5;
+  static constexpr int kFluxRows = V;
+  static constexpr bool kMasked = false;
+  static constexpr bool kViscous = false;
+  T rho, nl2m, nlam, nmu, cp;
+  static Elastic2D make(const double* p) {
+    return {static_cast<T>(p[0]), static_cast<T>(-(p[1] + 2.0 * p[2])), static_cast<T>(-p[1]),
+            static_cast<T>(-p[2]), static_cast<T>(std::sqrt((p[1] + 2.0 * p[2]) / p[0]))};
+  }
+  __device__ __forceinline__ T max_eigenvalue(const T*, int) const { return cp; }
+  __device__ __forceinline__ void flux(const T* q, int d, T* f) const {
+    elastic2d_flux<T>(q, rho, nl2m, nlam, nmu, d, f);
+  }
+  __device__ __forceinline__ void flux_along(const T* q, int d, T* f) const {
+    if (d == 0) {
+      elastic2d_flux<T>(q, rho, nl2m, nlam, nmu, 0, f);
+    } else {
+      elastic2d_flux<T>(q, rho, nl2m, nlam, nmu, 1, f);
+    }
+  }
+  static __device__ __forceinline__ T dissipation(int) { return T(1); }
+};

@@ -17,7 +17,16 @@ all of ``csrc/aderdg_2d.cu``; the grid goes to them as (g0, g1, 1)), and
 periodic for compressible Navier–Stokes (``examples/viscous_shock.py``'s
 and ``examples/navier_stokes_vortex.py``'s solver:
 ``aderdg_predictor_volume_visc_2d`` and the periodic face pair's
-Navier–Stokes instance, the same names; 2-D viscous walls raise).  At
+Navier–Stokes instance, the same names; 2-D viscous walls raise).  K2 b,
+the homogeneous elasticity on the CK predictor (``models/elastic.py``'s
+``elastic`` and ``elastic3d``, ρ, λ, μ compiled in as parameters): in 2-D at
+order 3, periodic or walled (``examples/seismic_point_source.py --ck``:
+``aderdg_ck_predictor_volume_2d``, the CK predictor of
+``csrc/aderdg_ck_nodes.cuh``, a thread a space node, and the 2-D face pairs'
+``Elastic2D`` instances), and in 3-D at order 2, periodic
+(``aderdg_ck_predictor_volume_p2`` and the face stage's n = 3 instances
+``aderdg_face_flux_p2`` + ``aderdg_surface_update_p2``); their other orders,
+the 3-D walls and a sponge raise, naming ROADMAP.md Queue 2 K2 b (K2 a).  At
 order 3 in 3-D the physics are: compressible Euler on the Picard predictor (``bench.py::main``),
 compressible Navier–Stokes on the Picard predictor with its viscous terms
 (``models/navier_stokes.py``) and heterogeneous elasticity on the
@@ -130,6 +139,8 @@ INSTANTIATED = {
     ("navier_stokes", 2, 3): "picard",
     ("navier_stokes", 3, 3): "picard",
     ("elastic3d_het", 3, 3): "ck",
+    ("elastic3d", 3, 2): "ck",
+    ("elastic", 2, 3): "ck",
     ("z4", 3, 2): "picard",
     ("z4_shift", 3, 2): "picard",
     ("z4_matter", 3, 2): "picard",
@@ -144,7 +155,9 @@ def _n_vars(name: str, dim: int) -> int:
     if name in _Z4:
         return {"z4": Z4_VARS, "z4_shift": N_VARS_SHIFT, "z4_matter": N_VARS_MATTER,
                 "z4_grmhd": N_VARS_GRMHD}[name]
-    return dim + 2 if name in ("euler", "navier_stokes") else elastic.N_VARS_3D_HET
+    if name in ("euler", "navier_stokes"):
+        return dim + 2
+    return {"elastic": 5, "elastic3d": elastic.N_VARS_3D}.get(name, elastic.N_VARS_3D_HET)
 
 
 #: The wall modes of the C interface (``csrc/aderdg.cu``): a sign table
@@ -166,7 +179,12 @@ _PHYSICS = {
     "z4_shift": {"id": 4, "ck_material_slots": None, "dissipation_mask": None},
     "z4_matter": {"id": 5, "ck_material_slots": None, "dissipation_mask": None},
     "z4_grmhd": {"id": 6, "ck_material_slots": None, "dissipation_mask": None},
+    "elastic3d": {"id": 7, "ck_material_slots": None, "dissipation_mask": None},
+    "elastic": {"id": 8, "ck_material_slots": None, "dissipation_mask": None},
 }
+#: The homogeneous elastic systems of K2 b (their ROADMAP item names what is
+#: still to port of them).
+_ELASTIC = ("elastic", "elastic3d")
 
 
 def _kernel_params(tag, solver) -> tuple:
@@ -176,8 +194,8 @@ def _kernel_params(tag, solver) -> tuple:
     the plain solver computes it; Z4's (slicing id, f, m, κ₁, κ₂) as K5
     takes them, the shifted system's followed by (shift id, f_b, η), the
     Z4+GRHD system's by (Γ, con2prim's Newton iterations), the Z4+GRMHD
-    system's by (Γ, Newton iterations, c_h, GLM κ); none for the
-    elasticity."""
+    system's by (Γ, Newton iterations, c_h, GLM κ); the homogeneous
+    elasticity's (ρ, λ, μ); none for the heterogeneous one."""
     if tag.name in ("z4", "z4_matter", "z4_grmhd"):
         slicing, *rest = tag.params
         return (SLICINGS[slicing], *rest)
@@ -280,7 +298,10 @@ class CudaADERDG:
     #: instances; 22-26 of physics 0: the 2-D Euler step's,
     #: ``csrc/aderdg_2d.cu``, the wall pair last; 27 of physics 2: the 2-D
     #: viscous predictor of the same file, whose face pair is 23-24 of
-    #: physics 2).
+    #: physics 2; 29-31 of physics 7: K2 b's 3-D homogeneous elasticity at
+    #: order 2, the CK predictor of ``csrc/aderdg_ck_nodes.cuh`` and the face
+    #: stage's n = 3 instances; 32 of physics 8: K2 b's 2-D CK predictor,
+    #: whose face pairs are 23-26 of physics 8).
     KERNELS = (
         "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
         "aderdg_surface_update", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
@@ -294,6 +315,8 @@ class CudaADERDG:
         "aderdg_predictor_volume_2d", "aderdg_face_flux_2d", "aderdg_surface_update_2d",
         "aderdg_face_flux_walls_2d", "aderdg_surface_update_walls_2d",
         "aderdg_predictor_volume_visc_2d", "aderdg_ck_predictor_volume_sponge",
+        "aderdg_ck_predictor_volume_p2", "aderdg_face_flux_p2", "aderdg_surface_update_p2",
+        "aderdg_ck_predictor_volume_2d",
     )
 
     def __init__(self, solver: ADERDGSolver):
@@ -325,11 +348,12 @@ class CudaADERDG:
         if tag is None or tag.name not in _PHYSICS or (
                 tag.dim != solver.dim and tag.name not in _Z4):
             raise LoweringError(
-                "the CUDA kernels compile in Euler, Navier–Stokes, "
-                "heterogeneous-elastic, vacuum Z4, Z4+GRHD or Z4+GRMHD physics: build the "
-                "solver with exahype_tpu_torch.models.aderdg.euler_physics, "
-                "models.navier_stokes.navier_stokes, "
-                "models.elastic.elastic3d_heterogeneous, models.z4.make_z4_solver / "
+                "the CUDA kernels compile in Euler, Navier–Stokes, elastic (homogeneous "
+                "2-D and 3-D, heterogeneous 3-D), vacuum Z4, Z4+GRHD or Z4+GRMHD physics: "
+                "build the solver with exahype_tpu_torch.models.aderdg.euler_physics, "
+                "models.navier_stokes.navier_stokes, models.elastic.elastic, "
+                "models.elastic.elastic3d, models.elastic.elastic3d_heterogeneous, "
+                "models.z4.make_z4_solver / "
                 "make_z4_shift_solver, models.z4_matter.make_z4_matter_solver or "
                 "models.z4_grmhd.make_z4_grmhd_solver"
             )
@@ -341,10 +365,11 @@ class CudaADERDG:
             )
         key = (tag.name, solver.dim, solver.order)
         if key not in INSTANTIATED:
+            item = "Queue 2 K2 b" if tag.name in _ELASTIC else "Queue 1 item 4"
             raise LoweringError(
                 f"no CUDA kernel instantiated for {tag.name}, dim={solver.dim}, "
                 f"order={solver.order} (have {sorted(INSTANTIATED)}); see ROADMAP.md, "
-                "Queue 1 item 4"
+                f"{item}"
             )
         mode = INSTANTIATED[key]
         if solver.predictor_mode != mode:
@@ -366,9 +391,17 @@ class CudaADERDG:
                 f"{solver.boundary!r}: NCP walls on the card are still to port, see "
                 "ROADMAP.md, Queue 2 K1 d (the plain solver runs them)"
             )
-        # Order 5 (Euler) has kernels of its own, named with the order; its face
-        # stage is the periodic pair only.
+        # Orders 5 (Euler) and 2 (the 3-D homogeneous elasticity) have kernels
+        # of their own, named with the order; their face stage is the periodic
+        # pair only.
         order_suffix = "" if solver.order == 3 or ncp else f"_p{solver.order}"
+        if order_suffix and walled and tag.name == "elastic3d":
+            raise LoweringError(
+                f"the CUDA face stage of the 3-D homogeneous elasticity at order "
+                f"{solver.order} is periodic only, and boundary={solver.boundary!r}: its walls "
+                "on the card are still to port, see ROADMAP.md, Queue 2 K2 b (the plain "
+                "solver runs them)"
+            )
         if order_suffix and walled:
             raise LoweringError(
                 f"the CUDA face stage at order {solver.order} is periodic only, and "

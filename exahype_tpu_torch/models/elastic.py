@@ -1,19 +1,28 @@
-"""3-D heterogeneous linear elasticity in the SoA-P layout (PyTorch).
+"""Linear elasticity (velocity–stress form) in the SoA-P layout (PyTorch).
 
-Port of the 12-variable system of ``exahype_tpu/models/elastic.py``
-(``_SIG``/``_sig_idx``, ``N_VARS_3D_HET``, ``elastic3d_het_flux``,
-``elastic3d_het_eigenvalue``, ``elastic3d_heterogeneous``,
-``elastic3d_free_surface_het``), the production
+Port of three systems of ``exahype_tpu/models/elastic.py``: the 2-D
+homogeneous system (``elastic_flux``, ``elastic_eigenvalue``, ``elastic``,
+``plane_p_wave``, ``elastic_free_surface``; ``Q = [v_x, v_y, σ_xx, σ_yy,
+σ_xy]``, ``examples/seismic_point_source.py``'s), the 3-D homogeneous
+system (``N_VARS_3D``, ``elastic3d_flux``, ``elastic3d_eigenvalue``,
+``elastic3d``, ``elastic3d_free_surface``, ``plane_p_wave_3d``,
+``plane_s_wave_3d``; 9 variables), whose constant materials ρ, λ, μ ride in
+the pairs' :class:`~exahype_tpu_torch.models.aderdg.PhysicsTag`, and the
+12-variable heterogeneous 3-D system (``_SIG``/``_sig_idx``,
+``N_VARS_3D_HET``, ``elastic3d_het_flux``, ``elastic3d_het_eigenvalue``,
+``elastic3d_heterogeneous``, ``elastic3d_free_surface_het``), the production
 ExaSeis shape: ``Q = [v_x, v_y, v_z, σ_xx, σ_yy, σ_zz, σ_yz, σ_xz, σ_xy, ρ,
 λ, μ]`` (Voigt stress ordering) with per-cell materials as frozen variables.
 The JAX pair is var-last and reaches the solver through ``wrap_var_last``;
 here the pair takes ``(Q, axis, var_axis)`` directly, as
 :func:`~exahype_tpu_torch.models.aderdg.euler_physics` does.  The operation
-order is the JAX package's, ``-0.0`` included: the stress rows that do not
-involve the normal are ``-z`` for a zero ``z``.  The CUDA kernels'
+order is the JAX package's, ``-0.0`` included: the het stress rows that do not
+involve the normal are ``-z`` for a zero ``z``, the homogeneous ones
+``-(0.0 * v_x)``, and the homogeneous velocity rows divide by ρ where the
+het ones multiply by 1/ρ.  The CUDA kernels'
 ``__device__`` version is ``csrc/elastic.cuh``.
 
-Also a NumPy copy of ``plane_p_wave_3d`` and ``_speeds`` (the JAX module
+Also NumPy copies of the plane waves and ``_speeds`` (the JAX module
 loads JAX), the initial state of ``bench.py::bench_ck``, and the absorbing
 sponge ``sponge_source`` (``examples/seismic3d_layered.py``'s edges), whose
 tag (:class:`SpongeTag`) the CUDA CK predictor reads.
@@ -51,6 +60,142 @@ def _speeds(rho: float, lam: float, mu: float) -> tuple[float, float]:
 
 def _v(Q, k: int, va: int):
     return Q[(slice(None),) * va + (k,)]
+
+
+# --------------------------------------------------- 2-D homogeneous system
+
+
+def elastic_flux(Q, normal, var_axis, *, rho: float = 1.0, lam: float = 2.0,
+                 mu: float = 1.0):
+    """The 2-D flux along ``normal`` (the JAX ``elastic_flux``), stacked on
+    the var axis."""
+    va = var_axis
+    vx, vy = _v(Q, 0, va), _v(Q, 1, va)
+    sxx, syy, sxy = _v(Q, 2, va), _v(Q, 3, va), _v(Q, 4, va)
+    if int(normal) == 0:
+        comps = [-sxx / rho, -sxy / rho, -(lam + 2 * mu) * vx, -lam * vx, -mu * vy]
+    else:
+        comps = [-sxy / rho, -syy / rho, -lam * vy, -(lam + 2 * mu) * vy, -mu * vx]
+    return torch.stack(comps, dim=va)
+
+
+def elastic_eigenvalue(Q, normal, var_axis, *, rho: float = 1.0, lam: float = 2.0,
+                       mu: float = 1.0):
+    """The P-wave speed c_p on every point (the var axis reduced away)."""
+    cp, _ = _speeds(rho, lam, mu)
+    shape = Q.shape[:var_axis] + Q.shape[var_axis + 1:]
+    return torch.full(shape, cp, dtype=Q.dtype, device=Q.device)
+
+
+def _tagged(flux_fn, eig_fn, name: str, dim: int, n_vars: int, rho, lam, mu):
+    params = (float(rho), float(lam), float(mu))
+
+    def flux(Q, axis, var_axis):
+        return flux_fn(Q, axis, var_axis, rho=params[0], lam=params[1], mu=params[2])
+
+    def eig(Q, axis, var_axis):
+        return eig_fn(Q, axis, var_axis, rho=params[0], lam=params[1], mu=params[2])
+
+    tag = PhysicsTag(name, dim, n_vars, params)
+    flux.physics = tag
+    eig.physics = tag
+    return flux, eig
+
+
+def elastic(rho: float = 1.0, lam: float = 2.0, mu: float = 1.0):
+    """(flux_fn, max_eigenvalue_fn) for 2-D elasticity, each tagged
+    ``.physics = PhysicsTag("elastic", 2, 5, (ρ, λ, μ))``."""
+    return _tagged(elastic_flux, elastic_eigenvalue, "elastic", 2, 5, rho, lam, mu)
+
+
+def plane_p_wave(x, y, t, *, rho: float = 1.0, lam: float = 2.0, mu: float = 1.0,
+                 k: float = 2 * np.pi, amplitude: float = 1e-3):
+    """Exact P wave travelling in +x, v_x = A sin(k(x − c_p t)): the
+    5-variable state on the coordinate arrays (variable axis last, float64
+    NumPy)."""
+    cp, _ = _speeds(rho, lam, mu)
+    vx = amplitude * np.sin(k * (x - cp * t))
+    z = np.zeros_like(vx)
+    return np.stack([vx, z, -(lam + 2 * mu) / cp * vx, -lam / cp * vx, z], axis=-1)
+
+
+def elastic_free_surface():
+    """Traction-free wall hooks ``(reflect_fn, reflect_flux_fn)`` for the
+    2-D system (the JAX ``elastic_free_surface``): the state ghost negates
+    σ·n (axis 0: σ_xx, σ_xy; axis 1: σ_yy, σ_xy), the flux ghost the two
+    velocity (traction) rows.  Sign tables, which the CUDA face stage
+    compiles in."""
+    state_signs = [[1.0, 1.0, -1.0, 1.0, -1.0], [1.0, 1.0, 1.0, -1.0, -1.0]]
+    flux_signs = [[-1.0, -1.0, 1.0, 1.0, 1.0], [-1.0, -1.0, 1.0, 1.0, 1.0]]
+    return sign_reflect(state_signs), sign_reflect(flux_signs)
+
+
+# --------------------------------------------------- 3-D homogeneous system
+
+N_VARS_3D = 9
+
+
+def elastic3d_flux(Q, normal, var_axis, *, rho: float = 1.0, lam: float = 2.0,
+                   mu: float = 1.0):
+    """The 3-D flux along ``normal`` (the JAX ``elastic3d_flux``), stacked
+    on the var axis: the velocity rows −σ_in/ρ, the stress rows in the
+    reference's order, ``0.0 * v_x`` terms included."""
+    n = int(normal)
+    va = var_axis
+    v = [_v(Q, i, va) for i in range(3)]
+    comps = [None] * N_VARS_3D
+    for i in range(3):
+        comps[i] = -_v(Q, _sig_idx(i, n), va) / rho
+    for i in range(3):
+        for j in range(i, 3):
+            val = lam * v[n] if i == j else 0.0 * v[0]
+            if i == n:
+                val = val + mu * v[j] + (mu * v[j] if j == n else 0.0)
+            elif j == n:
+                val = val + mu * v[i]
+            comps[_sig_idx(i, j)] = -val
+    return torch.stack(comps, dim=va)
+
+
+def elastic3d_eigenvalue(Q, normal, var_axis, *, rho: float = 1.0, lam: float = 2.0,
+                         mu: float = 1.0):
+    """The P-wave speed c_p on every point (the var axis reduced away)."""
+    return elastic_eigenvalue(Q, normal, var_axis, rho=rho, lam=lam, mu=mu)
+
+
+def elastic3d(rho: float = 1.0, lam: float = 2.0, mu: float = 1.0):
+    """(flux_fn, max_eigenvalue_fn) for 3-D elasticity, each tagged
+    ``.physics = PhysicsTag("elastic3d", 3, 9, (ρ, λ, μ))``."""
+    return _tagged(elastic3d_flux, elastic3d_eigenvalue, "elastic3d", 3, N_VARS_3D,
+                   rho, lam, mu)
+
+
+def elastic3d_free_surface():
+    """Traction-free wall hooks for the 9-variable system (the JAX
+    ``elastic3d_free_surface``): per wall axis n the state ghost negates
+    the three σ_in rows, the flux ghost the three velocity rows."""
+    state_signs = []
+    for n in range(3):
+        s = [1.0] * N_VARS_3D
+        for i in range(3):
+            s[_sig_idx(i, n)] = -1.0
+        state_signs.append(s)
+    flux_signs = [[-1.0] * 3 + [1.0] * 6 for _ in range(3)]
+    return sign_reflect(state_signs), sign_reflect(flux_signs)
+
+
+def plane_s_wave_3d(x, t, *, rho: float = 1.0, lam: float = 2.0,
+                    mu: float = 1.0, k: float = 2 * np.pi,
+                    amplitude: float = 1e-3):
+    """Exact S wave travelling in +x, polarized in y (v_y, σ_xy only): the
+    9-variable state on ``x`` (variable axis last, float64 NumPy)."""
+    _, cs = _speeds(rho, lam, mu)
+    vy = amplitude * np.sin(k * (x - cs * t))
+    z = np.zeros_like(vy)
+    return np.stack([z, vy, z, z, z, z, z, z, -mu / cs * vy], axis=-1)
+
+
+# ------------------------------------------------ 3-D heterogeneous system
 
 
 def elastic3d_het_flux(Q, normal, var_axis):

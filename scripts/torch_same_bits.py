@@ -52,8 +52,8 @@ type, the first integer template argument, which is the node count of the
 ADER-DG kernels of ``csrc/aderdg.cu``, and for the Z4 step's kernels the
 system, ``Z4Vacuum``, ``Z4Shift``, ``Z4Matter`` or ``Z4Grmhd``, whatever
 template arguments were added since; K2 a, the CK predictor's
-``SpongeSource`` instance, by that argument), ignoring addresses and
-encodings;
+``SpongeSource`` instance, and K2 b's ``Elastic3D``/``Elastic2D`` instances
+by that argument), ignoring addresses and encodings;
 kernels of the Z4+GRMHD system and of the order-5 Euler step (the face
 stage at n = 6 and ``aderdg_predictor_volume_st``) and of the 2-D Euler
 step (``csrc/aderdg_2d.cu``, periodic and walled) and the 2-D kernels'
@@ -86,18 +86,22 @@ SASS_KERNELS = (
     "rhs_all_z4", "rhs_all_z4_shift", "rhs_all_z4_matter", "rhs_all_z4_grmhd",
     "aderdg_predictor_volume_st", "aderdg_predictor_volume_2d", "aderdg_face_flux_2d",
     "aderdg_surface_update_2d", "subcell_row_sweep", "subcell_row_sweep_ncp",
-    "aderdg_ck_predictor_volume",
+    "aderdg_ck_predictor_volume", "aderdg_ck_predictor_nodes",
 )
-#: The Z4 step kernels' systems, the 2-D Navier–Stokes physics and the CK
-#: predictor's sponge (a template argument of each instance).
-SYSTEMS = ("Z4Vacuum", "Z4Shift", "Z4Matter", "Z4Grmhd", "NavierStokes2D", "SpongeSource")
+#: The Z4 step kernels' systems, the 2-D Navier–Stokes physics, the CK
+#: predictor's sponge and K2 b's homogeneous elasticity (a template argument
+#: of each instance).
+SYSTEMS = ("Z4Vacuum", "Z4Shift", "Z4Matter", "Z4Grmhd", "NavierStokes2D", "SpongeSource",
+           "Elastic3D", "Elastic2D")
 #: What only this checkout may have: the Z4+GRMHD system's kernels, the
 #: order-5 Euler step's (its predictor, and the face stage's kernels whose
-#: node count is ``NEW_NODES``) and the 2-D Euler step's.
+#: node count is ``NEW_NODES``), the 2-D Euler step's and K2 b's (the CK
+#: predictor a thread a node, the face stages over the homogeneous
+#: elasticity).
 NEW = ("Z4Grmhd", "rhs_all_z4_grmhd", "Z4+GRMHD", "aderdg_predictor_volume_st",
        "aderdg_predictor_volume_2d", "aderdg_face_flux_2d", "aderdg_surface_update_2d",
        "NavierStokes2D", "subcell_row_sweep_ncp", "K3 a Z4+GRHD", "SpongeSource",
-       "CK sponge")
+       "CK sponge", "Elastic3D", "Elastic2D", "aderdg_ck_predictor_nodes")
 NEW_NODES = "6"
 _KERNEL_NAME = re.compile(r"(\d+)(" + "|".join(sorted(SASS_KERNELS, key=len, reverse=True))
                           + r")I([fd])(?:Li(\d+)E)?")

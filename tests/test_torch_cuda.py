@@ -26,7 +26,10 @@ GLM scalar and the same noise); the 2-D Euler p3 step (K1 c,
 step with walls (gathered rows in 3-D, the whole grid in 2-D); the 2-D
 Navier–Stokes p3 step (the viscous predictor and the penalised face pair
 of the same file) and the limited step over viscous solvers in 2-D (the
-MUSCL fallback) and 3-D.
+MUSCL fallback) and 3-D; K2 b, the homogeneous elasticity on the CK
+predictor of ``csrc/aderdg_ck_nodes.cuh`` (3-D ``elastic3d`` at order 2 with
+the face stage's n = 3 instances, 2-D ``elastic`` at order 3 with the 2-D
+face pairs over ``Elastic2D``, periodic and with the free surface).
 
 Every test here is marked ``cuda`` and skips without a card (the decision
 is made inside each test, never at import).  This file imports no JAX, so
@@ -300,6 +303,115 @@ def test_ck_sponge_step_kernels_match_plain_and_repeat_bitwise(dtype, grid):
     assert cu.launches == {name: 6 for name in cu.kernels}
     info = cu.kernel_info(cu.kernels[0], dtype)
     assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, info
+
+
+# ------------------------------------------ K2 b: the homogeneous elasticity
+
+#: ρ, λ, μ whose products round (the examples' 1, 2, 1 would hide a
+#: misplaced constant behind exact arithmetic).
+K2B_MATERIALS = dict(rho=1.3, lam=2.5, mu=0.7)
+
+
+def _k2b_setup(dim, grid, dtype, walls=False):
+    """A K2 b solver on the card (3-D ``elastic3d`` at order 2, periodic;
+    2-D ``elastic`` at order 3, periodic or with the free surface on both
+    axes), its ``CudaADERDG`` and a seeded state of ~1e-3 in every row."""
+    from exahype_tpu_torch.models import elastic
+
+    dev = _card()
+    if dim == 3:
+        flux, eig = elastic.elastic3d(**K2B_MATERIALS)
+        sol = ADERDGSolver(3, 2, 9, grid, flux, eig, dx=1.0 / grid[0], device=dev,
+                           dtype=dtype, predictor_mode="ck")
+    else:
+        hooks = {}
+        if walls:
+            reflect, reflect_flux = elastic.elastic_free_surface()
+            hooks = dict(boundary="reflective", reflect_fn=reflect, reflect_flux_fn=reflect_flux)
+        flux, eig = elastic.elastic(**K2B_MATERIALS)
+        sol = ADERDGSolver(2, 3, 5, grid, flux, eig, dx=1.0 / grid[0], device=dev, dtype=dtype,
+                           predictor_mode="ck", **hooks)
+    q = 1e-3 * np.random.default_rng(sum(grid)).standard_normal(sol.state_shape)
+    return sol, CudaADERDG(sol), torch.from_numpy(q).to(dev, dtype).contiguous()
+
+
+K2B_CASES = [
+    (3, torch.float64, (4, 4, 8), False),
+    (3, torch.float64, (3, 5, 7), False),  # ragged last blocks, odd wraps
+    (3, torch.float32, (16, 8, 64), False),
+    (2, torch.float64, (9, 9), False),
+    (2, torch.float64, (9, 9), True),
+    (2, torch.float64, (5, 7), True),
+    (2, torch.float32, (64, 48), True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,dtype,grid,walls", K2B_CASES)
+def test_k2b_kernels_match_plain(dim, dtype, grid, walls):
+    """K2 b's three kernels launch by launch against the plain solver (the
+    CK predictor's new state and faces, F̂ and with walls the side tensor,
+    the update), the stage with its face fluxes, and 3 steps (dt by value
+    and by pointer, bitwise equal; 3 launches a step)."""
+    sol, cu, u = _k2b_setup(dim, grid, dtype, walls)
+    dt = 0.5 * float(sol.cfl_dt(u))
+
+    def close(got, ref, rounds=1):
+        assert _err(got, ref) <= rounds * _bound(ref, dtype)
+
+    new_k, faces_k, _ = cu.predictor_volume(u, dt)
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    close(new_k, new_p)
+    close(faces_k, faces_p)
+    fhat, fwall = cu.face_flux(faces_p)
+    fshape = sol.face_flux_shape
+    plain, side = [], {}
+    for d in range(dim):
+        q_lo, q_hi, f_lo, f_hi = (faces_p[d, k].reshape(fshape) for k in range(4))
+        plain.append(sol.interface_flux(q_lo, q_hi, f_lo, f_hi, d))
+        close(fhat[d].view(fshape), plain[d])
+        if walls:
+            side[d] = sol.low_wall_flux(q_lo, f_lo, d)
+            close(cu.wall_fluxes(fwall)[d], side[d])
+    assert (fwall is None) != walls
+    flat = torch.cat([side[d].reshape(-1) for d in sorted(side)]) if walls else None
+    upd = cu.surface_update(new_p.clone(), torch.stack(plain).view(fhat.shape), dt, flat)
+    ref = new_p
+    for d in range(dim):
+        ref = sol.surface_term(ref, plain[d], d, dt, side.get(d))
+    close(upd, ref)
+    stage, fl_k = cu.face_surface(new_p.clone(), faces_p, dt, return_face_fluxes=True)
+    stage_p, fl_p = sol.face_surface(new_p, faces_p, dt, return_face_fluxes=True)
+    close(stage, stage_p)
+    for a, b in zip(fl_k, fl_p):
+        close(a, b)
+    cu.reset_launches()
+    by_value = cu.run(u, 3, dt)
+    by_pointer = cu.run(u, 3, torch.tensor(dt, dtype=dtype, device=u.device))
+    torch.cuda.synchronize()
+    close(by_value, sol.run(u, 3, dt), 1 if dtype == torch.float64 else 3)
+    assert torch.equal(by_value, by_pointer)
+    assert cu.launches == {name: 6 for name in cu.kernels}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,walls", [(3, False), (2, False), (2, True)])
+def test_k2b_kernel_info_and_names(dim, walls):
+    grid = (2, 2, 3) if dim == 3 else (3, 3)
+    sol, cu, _ = _k2b_setup(dim, grid, torch.float32, walls)
+    suffix = ("_walls_2d" if walls else "_2d") if dim == 2 else "_p2"
+    assert cu.kernels == (f"aderdg_ck_predictor_volume{'_2d' if dim == 2 else '_p2'}",
+                          f"aderdg_face_flux{suffix}", f"aderdg_surface_update{suffix}")
+    for kernel in cu.kernels:
+        for dtype in (torch.float32, torch.float64):
+            info = cu.kernel_info(kernel, dtype)
+            assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, (kernel, info)
+            # No local memory, but for the 3-D predictor in float32, which
+            # its 3 blocks an SM hold to 80 registers and 24 B of spill.
+            spill = 32 if (dim, dtype, kernel) == (3, torch.float32, cu.kernels[0]) else 0
+            assert info["local"] <= spill, (kernel, info)
+    # A thread a space node: 8 cells of 27 nodes (3-D), 16 cells of 16 (2-D).
+    assert cu.kernel_info(cu.kernels[0], torch.float32)["threads"] == (216 if dim == 3 else 256)
 
 
 # ------------------------------------------------ the kernels' tiling at its edges
