@@ -557,6 +557,66 @@ EL2_SYM = 1e-5
 EL2_ARRIVAL = 0.5
 #: Seeded noise of the K2 b kernel checks.
 EL_NOISE = 1e-3
+#: K2 b.1, frozen slots and the dissipation mask on the CK node kernel.
+#: ``examples/seismic_topography.py``'s configuration: the 2-D elasticity
+#: (ρ, λ, μ = 1, 2, 1) lifted onto the hill mapping of height 0.04
+#: (``:49-58``), order 3, periodic, the example's chip grid (96, 96) in
+#: float32, its vertical Ricker force (f0 = 8 at (0.5, 0.35)) and four
+#: receivers at y = 0.6 sampled after each forced step, dt 1e-4; run for
+#: ``TOPO_STEPS`` steps to t = 0.35, past the kinematic P arrival at every
+#: receiver (c_p = 2: the Ricker's centre, 1/f0 = 0.125, reaches the nearest
+#: at t ≈ 0.26).  The example's own 400 steps end at t = 0.04, before the
+#: wavelet has left the source: a reading (``TOPO_EXAMPLE_STEPS``).  Its
+#: gates (``:140-164``): the flat limit (height 0) against the Cartesian 2-D
+#: CK step (K2 b's ``elastic`` instance) within ``TOPO_FLAT`` of the field
+#: maximum, the metric slots frozen, the hill moving the seismogram by more
+#: than ``TOPO_EFFECT`` of it; here also the seismogram's maximum at each
+#: receiver after the P travel time r/c_p plus half the wavelet's period.
+TOPO_MATERIALS = (1.0, 2.0, 1.0)
+TOPO_HEIGHT = 0.04
+TOPO_GRID = (96, 96)
+TOPO_DT = 1e-4
+TOPO_STEPS = 3500
+TOPO_EXAMPLE_STEPS = 400
+TOPO_SOURCE = (0.5, 0.35)
+TOPO_RX = (0.3, 0.4, 0.6, 0.7)
+TOPO_RX_Y = 0.6
+TOPO_F0 = 8.0
+TOPO_FLAT = 1e-5
+TOPO_EFFECT = 1e-3
+TOPO_PLAIN_STEPS = 10
+TOPO_REPEAT_STEPS = 500  # the hill run's first steps, run twice: bitwise equal
+#: Float64 parity grids of the 2-D systems (one ragged in both tilings) and
+#: of the 3-D one; the forced curvilinear step and the 2-D heterogeneous
+#: step timed at ``K2B1_TIME_GRID`` (16.8 M nodes, 10 and 8 variables).
+K2B1_CUTS = ((9, 9), (5, 7))
+K2B1_TIME_GRID = (1024, 1024)
+K2B1_TIME_WARMUP = 20
+#: The 12-variable heterogeneous elasticity at order 2 (``tests/test_ck.py:
+#: 317``'s system) at CK's 3-D grid (84.9 M values), the two-layer
+#: materials and the plane P wave of ``two_layer_state``, dt = ``cfl_dt`` at
+#: cfl 0.15 (ROADMAP Queue 3: the default diverges in 3-D).
+HET3_GRID = (256, 8, 128)
+HET3_CUTS = ((4, 4, 8), (3, 5, 7))
+HET3_CFL = 0.15
+HET3_STEPS = 10
+#: ``tests/test_ck.py:139``'s constant materials: the 2-D heterogeneous
+#: step's wave rows against K2 b's homogeneous ``elastic`` instance.
+HET2_MATERIALS = (1.2, 2.1, 0.9)
+HET2_STEPS = 5
+#: Flops of one flux along an axis (``csrc/elastic.cuh``): the curvilinear
+#: lift, 5 divisions by J, two ``Elastic2D`` fluxes of 5 and the 5 rows'
+#: J·a^k_0 F_0 + J·a^k_1 F_1 (3 each); the 2-D heterogeneous one, 2 products
+#: by 1/ρ, λ + 2μ (2), and 3 products (1/ρ once a node, counted by
+#: ``ck_predictor_ops``).  The curvilinear wave speed: 2 divisions, the norm
+#: (3), the root and the product by c_p; the heterogeneous one is
+#: ``ELASTIC_EIG_OPS``.
+CURV_FLUX_OPS = 5 + 2 * 5 + 3 * 5
+HET2_FLUX_OPS = 7
+CURV_EIG_OPS = 7
+#: State rows the curvilinear face flux along axis k needs a side: the 5
+#: wave rows, J, J·a^k_0 and J·a^k_1.
+CURV_READ = 5 + 1 + 2
 #: Flops of one homogeneous elastic flux (``csrc/elastic.cuh``): 3-D, 3
 #: divisions, 5 for the normal stress, 2 for the other normal stresses, 7
 #: for the two shear rows with the normal (their 0·v_x products and + 0
@@ -808,6 +868,12 @@ def bench_state(solver, torch, device, dtype):
     return torch.from_numpy(q).to(device=device, dtype=dtype).contiguous()
 
 
+def evolved_dofs(sol, rows: int) -> int:
+    """Degrees of freedom a step updates: cells · nodes · the ``rows`` that
+    evolve (the frozen rows, materials or metric, not counted)."""
+    return sol.dofs() // sol.n_vars * rows
+
+
 def max_err(torch, a, b) -> float:
     return (a.double() - b.double()).abs().max().item()
 
@@ -1000,6 +1066,14 @@ def ck_bytes(state_bytes: int, face_bytes: int) -> int:
     return 2 * state_bytes + face_bytes
 
 
+def ck_face_bytes(order: int, ncell: int, itemsize: int, dim: int, read: int, rows: int) -> int:
+    """Bytes of the face tensor a CK predictor with frozen rows must write:
+    per face node of each axis and side, the ``read`` state rows that the
+    face flux reads there and the ``rows`` flux rows (the frozen rows' f_lo
+    and f_hi, exact zeros that no kernel reads, are not counted)."""
+    return dim * (order + 1) ** (dim - 1) * ncell * itemsize * 2 * (read + rows)
+
+
 def face_surface_ops(order: int, ncell: int, dim=3, nvar=5, eig_ops=EIG_OPS,
                      masked=False) -> float:
     """Flops of the face stage: one Rusanov flux (two wave speeds, 6 flops
@@ -1042,8 +1116,10 @@ def face_fhat_bytes(face_bytes: int, state_bytes: int, fhat_bytes: int) -> int:
 
 def face_flux_bytes(order: int, ncell: int, itemsize: int, dim=3, nvar=5, rows=5) -> int:
     """Bytes of ``aderdg_face_flux``: per interface, both sides' face state
-    (all ``nvar`` rows, which the wave speeds read) and face flux (the
-    ``rows`` that can be nonzero) read, the ``rows`` of F̂ written."""
+    (the ``nvar`` rows that the flux and the wave speeds read: all of them,
+    but for the curvilinear lift, whose axis k reads its wave rows, J and
+    J·a^k) and face flux (the ``rows`` that can be nonzero) read, the
+    ``rows`` of F̂ written."""
     faces = dim * (order + 1) ** (dim - 1) * ncell
     return faces * itemsize * (2 * nvar + 3 * rows)
 
@@ -2503,6 +2579,546 @@ def elastic_k2b_path(torch, dev, card) -> list[dict]:
         lines.append(kernel_line(f"{name} (Elastic2D)", replaces, launches2[name], errs2[name],
                                  *times2[name], bnd, source="exahype_tpu_torch/csrc/aderdg_2d.cu"))
     del sol, cu, u, u0, new, faces, fhat, fwall, walls
+    return lines
+
+
+def topo_setup(torch, dev, grid, dtype, height=None):
+    """``examples/seismic_topography.py``'s run (``:61-101``) at ``grid``:
+    the curvilinear CK elastic solver over the hill of ``height`` (None: the
+    Cartesian 2-D ``elastic`` solver of the flat-limit gate), ``CudaADERDG``
+    over it, the state at rest (densitized in float64, then cast), the
+    Ricker force, the receivers and the probe of the first two rows."""
+    import numpy as np
+
+    from exahype_tpu_torch.models import curvilinear as cv
+    from exahype_tpu_torch.models.aderdg import ADERDGSolver
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.elastic import elastic
+    from exahype_tpu_torch.models.point_source import PointSources, ricker
+    from exahype_tpu_torch.models.tracers import TracerAdvector
+
+    pair = elastic(*TOPO_MATERIALS)
+    if height is None:
+        sol = ADERDGSolver(2, ORDER, 5, grid, *pair, dx=1.0 / grid[0], device=dev, dtype=dtype,
+                           predictor_mode="ck")
+        u0 = torch.zeros(sol.state_shape, dtype=dtype, device=dev)
+    else:
+        sol = ADERDGSolver(2, ORDER, 10, grid, *cv.curvilinear_physics(*pair, dim=2, n_wave=5),
+                           dx=1.0 / grid[0], device=dev, dtype=dtype, predictor_mode="ck",
+                           ck_material_slots=cv.curvilinear_material_slots(5, 2),
+                           dissipation_mask=cv.curvilinear_dissipation_mask(5, 2))
+        metric, _ = cv.metric_fields(sol, cv.hill_mapping(height))
+        zeros = torch.zeros(sol.state_shape[:2] + (5,) + sol.state_shape[3:],
+                            dtype=torch.float64, device=dev)
+        u0 = cv.densitize(zeros, metric, 2).to(dtype).contiguous()
+    amp = np.zeros((1, sol.n_vars))
+    amp[0, 1] = 1.0  # the vertical force
+    src = PointSources(sol, [list(TOPO_SOURCE)], amp, wavelet=ricker(TOPO_F0))
+    rx = np.asarray(TOPO_RX)
+    rec = torch.as_tensor(np.stack([rx, np.full_like(rx, TOPO_RX_Y)], -1), dtype=dtype,
+                          device=dev)
+    probe = TracerAdvector(sol, lambda v: v[:, :2])
+    return sol, CudaADERDG(sol), u0, src, rec, probe
+
+
+def parity_k2b1(torch, sol, cu, u, dt, label: str) -> dict:
+    """The K2 b.1 kernels against their plain versions on ``u``
+    (:func:`stages_2d`), each tensor's moving rows and its frozen rows
+    (materials or metric; their face fluxes zero) against bounds of their
+    own largest values: float64 within ``F64_ATOL`` of max(1, that value),
+    float32 within ``F32_ULPS`` spacings of it; a step keeps the frozen rows
+    of ``u``.  ``[k2b1 parity]`` lines; fails on a disagreement; returns the
+    largest error of each kernel."""
+    rows = cu._flux_rows
+    # The var axis of each compared tensor: the state's, the face tensor's,
+    # F̂'s, a face row's (fwall[d], face fluxes[d]).
+    axes = {"new": sol.dim, "faces": 3, "fhat": 2}
+    f64 = u.dtype == torch.float64
+    errs = {}
+    for name, what, got, ref in stages_2d(torch, sol, cu, u, dt):
+        va = axes.get(what, sol.dim - 1)
+        parts = [(got, ref)] if what == "fhat" else [
+            (got.narrow(va, 0, rows), ref.narrow(va, 0, rows)),
+            (got.narrow(va, rows, sol.n_vars - rows), ref.narrow(va, rows, sol.n_vars - rows))]
+        err = limit = 0.0
+        ok = True
+        for g, r in parts:
+            e = max_err(torch, g, r)
+            lim = F64_ATOL * max(1.0, r.abs().max().item()) if f64 else f32_bound(torch, r)
+            ok &= e <= lim
+            err, limit = max(err, e), max(limit, lim)
+        say(f"[k2b1 parity] {label}: {name} ({what}) {str(u.dtype)[6:]} {sol.grid_shape}: "
+            f"max_abs_err {err:.3e} limit {limit:.3e} (moving and frozen rows each against "
+            f"their own largest value) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the K2 b.1 {name} ({what}) disagrees with its plain version ({label})")
+        errs[name] = max(errs.get(name, 0.0), err)
+    va = sol.var_axis
+    out = cu.step(u, dt)
+    if not torch.equal(out.narrow(va, rows, sol.n_vars - rows),
+                       u.narrow(va, rows, sol.n_vars - rows)):
+        fail(f"the K2 b.1 step moved its frozen rows ({label})")
+    return errs
+
+
+def k2b1_state(torch, sol, dev, dtype, first: int, seed: int):
+    """Seeded normal wave rows and materials from slot ``first`` constant in
+    each cell (ρ in [1, 2), λ in [1, 3), μ in [0.5, 1.5)), made in float64
+    on the device from a seeded generator and cast."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(sol.state_shape, generator=gen, device=dev, dtype=torch.float64)
+    for k, (lo, span) in enumerate(((1.0, 1.0), (1.0, 2.0), (0.5, 1.0))):
+        q.select(sol.var_axis, first + k)[...] = lo + span * torch.rand(
+            tuple(sol.grid_shape), generator=gen, device=dev, dtype=torch.float64)
+    return q.to(dtype).contiguous()
+
+
+def topo_noisy(torch, sol, u0, seed: int):
+    """``u0`` (the state at rest over the metric) with seeded normal wave
+    rows densitized by its J."""
+    gen = torch.Generator(device=u0.device).manual_seed(seed)
+    noise = torch.randn(u0[:, :, :5].shape, generator=gen, device=u0.device, dtype=u0.dtype)
+    return torch.cat([noise * u0[:, :, 5:6], u0[:, :, 5:]], dim=2).contiguous()
+
+
+def topo_arrivals(torch, seis, dt: float, height: float) -> list:
+    """For each receiver: ``(r/c_p, the time of the seismogram's maximum,
+    the time its magnitude first passes 1 % of that)``, r the physical
+    distance from the source through the hill's mapping."""
+    import numpy as np
+
+    from exahype_tpu_torch.models.curvilinear import hill_mapping
+
+    mp = hill_mapping(height)
+    x = lambda p: np.asarray([float(c) for c in mp(torch.tensor(p, dtype=torch.float64))])  # noqa: E731
+    cp = math.sqrt((TOPO_MATERIALS[1] + 2 * TOPO_MATERIALS[2]) / TOPO_MATERIALS[0])
+    s = seis[..., :2].double().abs().amax(dim=-1).cpu().numpy()  # [n, receivers]
+    out = []
+    for r, rx in enumerate(TOPO_RX):
+        dist = float(np.linalg.norm(x((rx, TOPO_RX_Y)) - x(TOPO_SOURCE)))
+        k = int(np.argmax(s[:, r]))
+        onset = int(np.argmax(s[:, r] > 0.01 * s[k, r]))
+        out.append((dist / cp, (k + 1) * dt, (onset + 1) * dt))
+    return out
+
+
+def k2b1_path(torch, dev, card) -> list[dict]:
+    """K2 b.1, frozen slots and the dissipation mask on the CK node kernel:
+    ``examples/seismic_topography.py`` on the card (the curvilinear
+    elasticity), the 12-variable heterogeneous elasticity at order 2 and the
+    8-variable 2-D one; returns the kernel JSON lines of their kernels."""
+    import numpy as np
+
+    from exahype_tpu_torch.models import elastic as el
+    from exahype_tpu_torch.models.aderdg import ADERDGSolver
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+
+    f32, f64 = torch.float32, torch.float64
+    gib = 2.0**-30
+    errs = {}
+    sections, t_sec = {}, time.perf_counter()
+
+    def keep(system, found):
+        for name, e in found.items():
+            errs[(system, name)] = max(errs.get((system, name), 0.0), e)
+
+    def het3(grid, dtype):
+        sol = ADERDGSolver(3, EL3_ORDER, 12, grid, *el.elastic3d_heterogeneous(),
+                           dx=1.0 / grid[0], device=dev, dtype=dtype, predictor_mode="ck",
+                           ck_material_slots=el.MATERIAL_SLOTS,
+                           dissipation_mask=el.DISSIPATION_MASK)
+        return sol, CudaADERDG(sol)
+
+    def het2(grid, dtype, walled=False):
+        hooks = {}
+        if walled:
+            reflect, reflect_flux = el.elastic_free_surface_het()
+            hooks = dict(boundary="reflective", reflect_fn=reflect, reflect_flux_fn=reflect_flux)
+        sol = ADERDGSolver(2, ORDER, 8, grid, *el.elastic_heterogeneous(), dx=1.0 / grid[0],
+                           device=dev, dtype=dtype, predictor_mode="ck",
+                           ck_material_slots=el.MATERIAL_SLOTS_HET,
+                           dissipation_mask=el.DISSIPATION_MASK_HET, **hooks)
+        return sol, CudaADERDG(sol)
+
+    # ------------------------------------------ 1. float64 at the cut grids
+    for grid in K2B1_CUTS:
+        sol, cu, u0, *_ = topo_setup(torch, dev, grid, f64, TOPO_HEIGHT)
+        u = topo_noisy(torch, sol, u0, seed=grid[1])
+        keep("curvilinear", parity_k2b1(torch, sol, cu, u, 0.5 * float(sol.cfl_dt(u)),
+                                        "curvilinear, hill, periodic"))
+        for walled in (False, True):
+            sol, cu = het2(grid, f64, walled)
+            u = k2b1_state(torch, sol, dev, f64, 5, seed=grid[0] + walled)
+            keep("het2d_walls" if walled else "het2d", parity_k2b1(
+                torch, sol, cu, u, 0.5 * float(sol.cfl_dt(u)),
+                "2-D heterogeneous, " + ("free surface" if walled else "periodic")))
+    for grid in HET3_CUTS:
+        sol, cu = het3(grid, f64)
+        u = k2b1_state(torch, sol, dev, f64, 9, seed=sum(grid))
+        keep("het3d", parity_k2b1(torch, sol, cu, u, 0.5 * float(sol.cfl_dt(u, cfl=HET3_CFL)),
+                                  "3-D heterogeneous p2, periodic"))
+    del sol, cu, u, u0
+
+    # ----------------------- 2. examples/seismic_topography.py past the arrival
+    sections["parity at the cut grids"] = time.perf_counter() - t_sec
+    t_sec = time.perf_counter()
+    grid, dt = TOPO_GRID, TOPO_DT
+    t0 = torch.zeros((), dtype=f32, device=dev)
+    runs = {}
+    for label, height in (("flat", 0.0), ("Cartesian", None), ("hill", TOPO_HEIGHT)):
+        sol, cu, u0, src, rec, probe = topo_setup(torch, dev, grid, f32, height)
+        cu.reset_launches()
+        t1 = time.perf_counter()
+        # The first TOPO_REPEAT_STEPS apart: the repeat runs them again.
+        u1, t, s1 = forced_run(torch, src, cu.step, probe, rec, u0, t0, dt, TOPO_REPEAT_STEPS)
+        u, t, s2 = forced_run(torch, src, cu.step, probe, rec, u1, t, dt,
+                              TOPO_STEPS - TOPO_REPEAT_STEPS)
+        torch.cuda.synchronize()
+        runs[label] = dict(sol=sol, cu=cu, u0=u0, src=src, rec=rec, probe=probe, u=u, t=t,
+                           u_repeat=u1, seis=torch.cat([s1, s2]), launches=dict(cu.launches),
+                           secs=time.perf_counter() - t1)
+    hill = runs["hill"]
+    cu, sol = hill["cu"], hill["sol"]
+    launches_topo = hill["launches"]
+    say(f"[topo] examples/seismic_topography.py at {grid} f32, dt = {dt}, {TOPO_STEPS} forced "
+        f"steps to t = {float(hill['t'])!r} (the example: {TOPO_EXAMPLE_STEPS}); kernels "
+        f"{cu.kernels}; seconds per run (host clock, the receivers sampled each step): " +
+        ", ".join(f"{k} {v['secs']:.2f}" for k, v in runs.items()))
+    for label, r in runs.items():
+        if r["launches"] != {k: TOPO_STEPS for k in r["cu"].kernels}:
+            fail(f"the {label} topography run launched {r['launches']} in {TOPO_STEPS} steps")
+    s_flat, s_cart, s_hill = (runs[k]["seis"][..., :2].double() for k in
+                              ("flat", "Cartesian", "hill"))
+    scale = max(s_cart.abs().max().item(), 1e-30)
+    flat_err = (s_flat - s_cart).abs().max().item()
+    effect = (s_hill - s_flat).abs().max().item()
+    frozen = torch.equal(hill["u"][:, :, 5:], hill["u0"][:, :, 5:])
+    finite = all(bool(torch.isfinite(r["u"]).all()) for r in runs.values())
+    say(f"[topo gates] finite {finite}; flat limit vs the Cartesian CK step: max seismogram "
+        f"diff {flat_err!r} of the field max {scale!r} (gate {TOPO_FLAT} of it); metric slots "
+        f"frozen {frozen}; topography effect {effect!r} ({effect / scale!r} of the field max, "
+        f"gate > {TOPO_EFFECT})")
+    if not (finite and flat_err < TOPO_FLAT * scale and frozen and effect > TOPO_EFFECT * scale):
+        fail("the topography run misses the example's gates")
+    t_end = float(hill["t"])
+    for label, height in (("flat", 0.0), ("hill", TOPO_HEIGHT)):
+        arr = topo_arrivals(torch, runs[label]["seis"], dt, height)
+        say(f"[topo arrival] {label}: per receiver x = {TOPO_RX}: P travel time r/c_p, the "
+            "seismogram's maximum at t, its 1 % onset at t: " + "; ".join(
+                f"{a!r}, {b!r}, {c!r}" for a, b, c in arr) + f" (run ends at t = {t_end!r}; "
+            f"gate: maximum after r/c_p + 1/(2 f0), before the end)")
+        if not all(a + 0.5 / TOPO_F0 < b < t_end - dt and c > a for a, b, c in arr):
+            fail(f"the {label} topography run's maximum does not come after the P arrival")
+    again = forced_run(torch, hill["src"], cu.step, hill["probe"], hill["rec"], hill["u0"], t0,
+                       dt, TOPO_REPEAT_STEPS)
+    if not (torch.equal(again[0], hill["u_repeat"])
+            and torch.equal(again[2], hill["seis"][:TOPO_REPEAT_STEPS])):
+        fail("two topography runs from rest differ")
+    del again
+    n_cmp = TOPO_PLAIN_STEPS
+    args = (hill["probe"], hill["rec"], hill["u"], hill["t"], dt, n_cmp)
+    uk, _, sk = forced_run(torch, hill["src"], cu.step, *args)
+    up, _, sp = forced_run(torch, hill["src"], sol.step, *args)
+    e_state, l_state = max_err(torch, uk[:, :, :5], up[:, :, :5]), n_cmp * f32_bound(
+        torch, up[:, :, :5])
+    e_seis, l_seis = max_err(torch, sk[..., :2], sp[..., :2]), n_cmp * f32_bound(
+        torch, sp[..., :2])
+    say(f"[topo main] {grid}: launches {launches_topo} (3 a step); the first "
+        f"{TOPO_REPEAT_STEPS} steps run twice bitwise equal; "
+        f"{n_cmp} forced steps on from step {TOPO_STEPS}, kernel path vs plain path: wave rows "
+        f"max_abs_err {e_state:.3e} limit {l_state:.3e}, seismogram {e_seis:.3e} limit "
+        f"{l_seis:.3e} ({n_cmp} x {F32_ULPS} f32 spacings); metric rows equal "
+        f"{torch.equal(uk[:, :, 5:], up[:, :, 5:])}")
+    if not (e_state <= l_state and e_seis <= l_seis and torch.equal(uk[:, :, 5:], up[:, :, 5:])):
+        fail("the topography kernel path disagrees with the plain path")
+    del uk, up, sk, sp
+    # The example's own run is the first TOPO_EXAMPLE_STEPS steps of these.
+    ex = {label: r["seis"][:TOPO_EXAMPLE_STEPS, :, :2].double() for label, r in runs.items()}
+    ex_scale = max(ex["Cartesian"].abs().max().item(), 1e-30)
+    say(f"[topo reading] the example as written, its {TOPO_EXAMPLE_STEPS} steps (the runs' "
+        f"first; t = {TOPO_EXAMPLE_STEPS * dt!r}, before the P wave leaves the source): field max "
+        f"{ex_scale!r} (the source's amplitude is 1); flat vs Cartesian "
+        f"{(ex['flat'] - ex['Cartesian']).abs().max().item()!r}; topography effect "
+        f"{(ex['hill'] - ex['flat']).abs().max().item()!r}")
+    del runs, ex, hill
+
+    # --------------------------- 3. the curvilinear step at (1024, 1024) f32
+    sections["the topography run"] = time.perf_counter() - t_sec
+    t_sec = time.perf_counter()
+    grid = K2B1_TIME_GRID
+    ncell = math.prod(grid)
+    sol, cu, u0, src, rec, probe = topo_setup(torch, dev, grid, f32, TOPO_HEIGHT)
+    un = topo_noisy(torch, sol, u0, seed=3)
+    dt = 0.5 * float(sol.cfl_dt(un))
+    say(f"[topo] {grid} f32: {sol.dofs()} DOF, state {u0.nbytes} B; full-width parity on seeded "
+        f"noise at dt = {dt!r}")
+    keep("curvilinear", parity_k2b1(torch, sol, cu, un, dt, "curvilinear, hill, seeded noise"))
+    del un
+    dt = TOPO_DT
+    u, t, _ = forced_run(torch, src, cu.step, probe, rec, u0, t0, dt, K2B1_TIME_WARMUP)
+    forced = lambda n: forced_run(torch, src, cu.step, probe, rec, u, t, dt, n)  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    win = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        forced(20)
+        torch.cuda.synchronize()
+        win.append(1e3 * (time.perf_counter() - t1) / 20)
+    peak = torch.cuda.max_memory_allocated()
+    step_win = [1e3 * w for w in windows(torch, cu, u, dt, steps=20)]
+    plain_win = [1e3 * w for w in windows(torch, sol, u, dt, steps=2, n_windows=1)]
+    idle, busy, wall = idle_share(torch, lambda: forced(20))
+    new, faces, _ = cu.predictor_volume(u, dt)
+    fhat, _ = cu.face_flux(faces)
+    times = {
+        "curvilinear": {
+            cu.kernels[0]: (event_ms(torch, lambda: cu.predictor_volume(u, dt), 20),
+                            event_ms(torch, lambda: sol.predictor_volume(u, dt), 3)),
+            cu.kernels[1]: (event_ms(torch, lambda: cu.face_flux(faces), 20),
+                            event_ms(torch, lambda: plain_face_flux(torch, sol, faces), 3)),
+            cu.kernels[2]: (event_ms(torch, lambda: cu.surface_update(new, fhat, dt), 20),
+                            event_ms(torch, lambda: plain_surface_update(sol, new, fhat, dt),
+                                     3)),
+        }
+    }
+    say(f"[topo time] {grid} f32: forced step + sample (host clock, 3 windows of 20) ms {win!r}, "
+        f"median {statistics.median(win)!r}; CudaADERDG.step alone {step_win!r}, median "
+        f"{statistics.median(step_win)!r} ms, "
+        f"{evolved_dofs(sol, 5) / statistics.median(step_win) * 1e3!r} evolved-DOF-updates/s "
+        f"({evolved_dofs(sol, 5)} evolved DOF per step); plain step "
+        f"{plain_win!r} ms; kernels (CUDA events) " + ", ".join(
+            f"{k} {v[0]!r} ms (plain {v[1]!r} ms)" for k, v in times["curvilinear"].items())
+        + f" ({card})")
+    say(f"[topo idle] {grid}, 20 forced steps + samples under torch.profiler: device busy "
+        f"{busy!r} ms of wall {wall!r} ms; idle share {idle!r}; peak memory of the forced steps "
+        f"{peak * gib:.4f} GiB allocated ({card})")
+    itemsize = u.element_size()
+    kw2 = dict(dim=2)
+    work = {
+        "curvilinear": {
+            cu.kernels[0]: (ck_bytes(u.nbytes, ck_face_bytes(ORDER, ncell, itemsize, read=CURV_READ,
+                                                             rows=5, **kw2)),
+                            ck_predictor_ops(ORDER, ncell, nvar=10, evolved=5,
+                                             flux_ops=CURV_FLUX_OPS, **kw2)),
+            cu.kernels[1]: (face_flux_bytes(ORDER, ncell, itemsize, nvar=CURV_READ, rows=5,
+                                            **kw2),
+                            face_flux_ops(ORDER, ncell, nvar=5, eig_ops=CURV_EIG_OPS,
+                                          masked=True, **kw2)),
+            cu.kernels[2]: (surface_update_bytes(ORDER, ncell, itemsize, rows=5, **kw2),
+                            surface_update_ops(ORDER, ncell, nvar=5, **kw2)),
+        }
+    }
+    kernels = {"curvilinear": (cu, launches_topo, "(K2 b.1, curvilinear elastic p3, periodic)",
+                               grid)}
+    del sol, u0, u, new, faces, fhat, src, probe
+    torch.cuda.empty_cache()
+
+    # ------------------------------ 4. the 3-D heterogeneous elasticity at p2
+    sections["the curvilinear step at full width"] = time.perf_counter() - t_sec
+    t_sec = time.perf_counter()
+    grid = HET3_GRID
+    ncell = math.prod(grid)
+    sol, cu3 = het3(grid, f32)
+    q, _ = el.two_layer_state(sol)
+    u0 = torch.from_numpy(q).to(dev, f32).contiguous()
+    dt = float(sol.cfl_dt(u0, cfl=HET3_CFL))
+    say(f"[het3] elastic3d_het p2 {grid} f32: {sol.dofs()} DOF, state {u0.nbytes} B; two-layer "
+        f"materials and the plane P wave; dt = cfl_dt(cfl={HET3_CFL}) = {dt!r}; kernels "
+        f"{cu3.kernels}")
+    keep("het3d", parity_k2b1(torch, sol, cu3, k2b1_state(torch, sol, dev, f32, 9, seed=7),
+                              dt, "3-D heterogeneous p2, seeded noise"))
+    cu3.reset_launches()
+    u = cu3.run(u0, HET3_STEPS, dt)
+    torch.cuda.synchronize()
+    launches3 = dict(cu3.launches)
+    again = cu3.run(u0, HET3_STEPS, dt)
+    plain = sol.run(u0, HET3_STEPS, dt)
+    torch.cuda.synchronize()
+    err = max_err(torch, u[:, :, :, :9], plain[:, :, :, :9])
+    limit = HET3_STEPS * f32_bound(torch, plain[:, :, :, :9])
+    frozen = torch.equal(u[:, :, :, 9:], u0[:, :, :, 9:])
+    say(f"[het3 main] {HET3_STEPS} steps, {grid} f32, through CudaADERDG: launches {launches3}; "
+        f"two runs bitwise equal {torch.equal(u, again)}; the wave rows vs the plain path "
+        f"max_abs_err {err:.3e} limit {limit:.3e} ({HET3_STEPS} x {F32_ULPS} f32 spacings of "
+        f"their largest value); materials frozen {frozen}; finite "
+        f"{bool(torch.isfinite(u).all())}")
+    if launches3 != {k: HET3_STEPS for k in cu3.kernels}:
+        fail(f"the heterogeneous p2 step launched {launches3} in {HET3_STEPS} steps")
+    if not (torch.equal(u, again) and err <= limit and frozen and torch.isfinite(u).all()):
+        fail("the heterogeneous p2 step is not repeatable, misses the plain path or moved its "
+             "materials")
+    del again, plain
+    new, faces, _ = cu3.predictor_volume(u, dt)
+    fhat, _ = cu3.face_flux(faces)
+    times["het3d"] = {
+        cu3.kernels[0]: (event_ms(torch, lambda: cu3.predictor_volume(u, dt), 20),
+                         event_ms(torch, lambda: sol.predictor_volume(u, dt), 3)),
+        cu3.kernels[1]: (event_ms(torch, lambda: cu3.face_flux(faces), 20),
+                         event_ms(torch, lambda: plain_face_flux(torch, sol, faces), 3)),
+        cu3.kernels[2]: (event_ms(torch, lambda: cu3.surface_update(new, fhat, dt), 20),
+                         event_ms(torch, lambda: plain_surface_update(sol, new, fhat, dt), 3)),
+    }
+    win = [1e3 * w for w in windows(torch, cu3, u, dt, steps=10)]
+    plain_win = [1e3 * w for w in windows(torch, sol, u, dt, steps=2, n_windows=1)]
+    idle, busy, wall = idle_share(torch, lambda: cu3.run(u, 10, dt))
+    say(f"[het3 time] {grid} f32: step ms per window {win!r}, median {statistics.median(win)!r} "
+        f"ms, {evolved_dofs(sol, 9) / statistics.median(win) * 1e3!r} evolved-DOF-updates/s "
+        f"({evolved_dofs(sol, 9)} evolved DOF per step); plain step {plain_win!r} ms; kernels "
+        f"(CUDA events) " + ", ".join(
+            f"{k} {v[0]!r} ms (plain {v[1]!r} ms)" for k, v in times["het3d"].items())
+        + f"; 10 steps under torch.profiler: device busy {busy!r} ms of wall {wall!r} ms, idle "
+        f"share {idle!r} ({card})")
+    itemsize = u.element_size()
+    kw3 = dict(dim=3)
+    work["het3d"] = {
+        cu3.kernels[0]: (ck_bytes(u.nbytes, ck_face_bytes(EL3_ORDER, ncell, itemsize, read=12,
+                                                          rows=9, **kw3)),
+                         ck_predictor_ops(EL3_ORDER, ncell, nvar=12, evolved=9, **kw3)),
+        cu3.kernels[1]: (face_flux_bytes(EL3_ORDER, ncell, itemsize, nvar=12, rows=9, **kw3),
+                         face_flux_ops(EL3_ORDER, ncell, nvar=9, eig_ops=ELASTIC_EIG_OPS,
+                                       masked=True, **kw3)),
+        cu3.kernels[2]: (surface_update_bytes(EL3_ORDER, ncell, itemsize, rows=9, **kw3),
+                         surface_update_ops(EL3_ORDER, ncell, nvar=9, **kw3)),
+    }
+    kernels["het3d"] = (cu3, launches3, "(K2 b.1, elastic3d_het p2, periodic)", grid)
+    del sol, u0, u, new, faces, fhat
+    torch.cuda.empty_cache()
+
+    # ------------------------------ 5. the 2-D heterogeneous elasticity at p3
+    sections["the 3-D heterogeneous step"] = time.perf_counter() - t_sec
+    t_sec = time.perf_counter()
+    grid = K2B1_TIME_GRID
+    ncell = math.prod(grid)
+    rho, lam, mu = HET2_MATERIALS
+    sol, cu2 = het2(grid, f32)
+    hom = ADERDGSolver(2, ORDER, 5, grid, *el.elastic(rho, lam, mu), dx=1.0 / grid[0],
+                       device=dev, dtype=f32, predictor_mode="ck")
+    cu_hom = CudaADERDG(hom)
+    va = 2
+    no_var = hom.state_shape[:va] + hom.state_shape[va + 1:]
+    X, Y = (np.broadcast_to(np.squeeze(c, va), no_var) for c in hom.nodes_meshgrid())
+    wave = np.moveaxis(el.plane_p_wave(X, Y, 0.0, rho=rho, lam=lam, mu=mu), -1, va)
+    mats = np.stack([np.full(X.shape, v) for v in HET2_MATERIALS], axis=va)
+    u0 = torch.from_numpy(np.concatenate([wave, mats], axis=va)).to(dev, f32).contiguous()
+    w0 = torch.from_numpy(np.ascontiguousarray(wave)).to(dev, f32)
+    dt = float(hom.cfl_dt(w0))
+    keep("het2d", parity_k2b1(torch, sol, cu2, k2b1_state(torch, sol, dev, f32, 5, seed=9),
+                              dt, "2-D heterogeneous, seeded noise"))
+    cu2.reset_launches()
+    u = cu2.run(u0, HET2_STEPS, dt)
+    w = cu_hom.run(w0, HET2_STEPS, dt)
+    torch.cuda.synchronize()
+    launches2 = dict(cu2.launches)
+    err, limit = max_err(torch, u[:, :, :5], w), HET2_STEPS * f32_bound(torch, w)
+    frozen = torch.equal(u[:, :, 5:], u0[:, :, 5:])
+    say(f"[het2 main] tests/test_ck.py:139's property at {grid} f32: constant materials "
+        f"{HET2_MATERIALS}, the plane P wave, {HET2_STEPS} steps of dt = {dt!r} through "
+        f"CudaADERDG (launches {launches2}) against K2 b's homogeneous instance "
+        f"{cu_hom.kernels[0]}: wave rows max_abs_err {err:.3e} limit {limit:.3e} "
+        f"({HET2_STEPS} x {F32_ULPS} f32 spacings); materials frozen {frozen}")
+    if launches2 != {k: HET2_STEPS for k in cu2.kernels}:
+        fail(f"the 2-D heterogeneous step launched {launches2} in {HET2_STEPS} steps")
+    if not (err <= limit and frozen):
+        fail("the 2-D heterogeneous step with constant materials misses the homogeneous one")
+    del w, w0, cu_hom, hom
+    new, faces, _ = cu2.predictor_volume(u, dt)
+    fhat, _ = cu2.face_flux(faces)
+    times["het2d"] = {
+        cu2.kernels[0]: (event_ms(torch, lambda: cu2.predictor_volume(u, dt), 20),
+                         event_ms(torch, lambda: sol.predictor_volume(u, dt), 3)),
+        cu2.kernels[1]: (event_ms(torch, lambda: cu2.face_flux(faces), 20),
+                         event_ms(torch, lambda: plain_face_flux(torch, sol, faces), 3)),
+        cu2.kernels[2]: (event_ms(torch, lambda: cu2.surface_update(new, fhat, dt), 20),
+                         event_ms(torch, lambda: plain_surface_update(sol, new, fhat, dt), 3)),
+    }
+    win = [1e3 * w for w in windows(torch, cu2, u, dt, steps=10)]
+    itemsize = u.element_size()
+    work["het2d"] = {
+        cu2.kernels[0]: (ck_bytes(u.nbytes, ck_face_bytes(ORDER, ncell, itemsize, read=8, rows=5,
+                                                          **kw2)),
+                         ck_predictor_ops(ORDER, ncell, nvar=8, evolved=5,
+                                          flux_ops=HET2_FLUX_OPS, **kw2)),
+        cu2.kernels[1]: (face_flux_bytes(ORDER, ncell, itemsize, nvar=8, rows=5, **kw2),
+                         face_flux_ops(ORDER, ncell, nvar=5, eig_ops=ELASTIC_EIG_OPS,
+                                       masked=True, **kw2)),
+        cu2.kernels[2]: (surface_update_bytes(ORDER, ncell, itemsize, rows=5, **kw2),
+                         surface_update_ops(ORDER, ncell, nvar=5, **kw2)),
+    }
+    kernels["het2d"] = (cu2, launches2, "(K2 b.1, 2-D elastic_het p3, periodic)", grid)
+    del new, faces, fhat
+    solw, cuw = het2(grid, f32, walled=True)
+    keep("het2d_walls", parity_k2b1(torch, solw, cuw, k2b1_state(torch, solw, dev, f32, 5,
+                                                                  seed=10),
+                                    dt, "2-D heterogeneous, free surface, seeded noise"))
+    cuw.reset_launches()
+    uw = cuw.run(u0, HET2_STEPS, dt)
+    torch.cuda.synchronize()
+    launchesw = {k: v for k, v in cuw.launches.items() if k != cuw.kernels[0]}
+    pw = solw.run(u0, HET2_STEPS, dt)
+    err, limit = max_err(torch, uw[:, :, :5], pw[:, :, :5]), HET2_STEPS * f32_bound(
+        torch, pw[:, :, :5])
+    say(f"[het2 walls] {grid} f32, free surface on both axes, {HET2_STEPS} steps: launches "
+        f"{dict(cuw.launches)}; wave rows vs the plain path max_abs_err {err:.3e} limit "
+        f"{limit:.3e}; materials frozen {torch.equal(uw[:, :, 5:], u0[:, :, 5:])}")
+    if not (err <= limit and torch.equal(uw[:, :, 5:], u0[:, :, 5:])
+            and launchesw == {k: HET2_STEPS for k in cuw.kernels[1:]}):
+        fail("the walled 2-D heterogeneous step misses the plain path or its launches")
+    new, faces, _ = cuw.predictor_volume(uw, dt)
+    fhat, fwall = cuw.face_flux(faces)
+    walls = cuw.wall_fluxes(fwall)
+    times["het2d_walls"] = {
+        cuw.kernels[1]: (event_ms(torch, lambda: cuw.face_flux(faces), 20),
+                         event_ms(torch, lambda: plain_face_flux(torch, solw, faces), 3)),
+        cuw.kernels[2]: (event_ms(torch, lambda: cuw.surface_update(new, fhat, dt, fwall), 20),
+                         event_ms(torch, lambda: plain_surface_update(solw, new, fhat, dt,
+                                                                      walls), 3)),
+    }
+    wall_win = [1e3 * w for w in windows(torch, cuw, uw, dt, steps=10)]
+    side = cuw.walls["size"] * itemsize
+    low = cuw.walls["size"] // solw.n_vars  # low-wall solves
+    work["het2d_walls"] = {
+        cuw.kernels[1]: (face_flux_bytes(ORDER, ncell, itemsize, nvar=8, rows=5, **kw2) + side,
+                         face_flux_ops(ORDER, ncell, nvar=5, eig_ops=ELASTIC_EIG_OPS,
+                                       masked=True, **kw2) + low * 7 * 5),
+        cuw.kernels[2]: (surface_update_bytes(ORDER, ncell, itemsize, rows=5, **kw2) + side,
+                         surface_update_ops(ORDER, ncell, nvar=5, **kw2)),
+    }
+    kernels["het2d_walls"] = (cuw, launchesw, "(K2 b.1, 2-D elastic_het p3, free surface)",
+                              grid)
+    say(f"[het2 time] {grid} f32: step ms per window periodic {win!r} (median "
+        f"{evolved_dofs(sol, 5) / statistics.median(win) * 1e3!r} evolved-DOF-updates/s, "
+        f"{evolved_dofs(sol, 5)} evolved DOF per step), free surface "
+        f"{wall_win!r}; kernels (CUDA events) " + ", ".join(
+            f"{k} {v[0]!r} ms (plain {v[1]!r} ms)"
+            for sysname in ("het2d", "het2d_walls") for k, v in times[sysname].items())
+        + f" ({card})")
+    del new, faces, fhat, fwall, walls, u, uw, pw, u0
+
+    # ------------------------------------------------------- 6. the lines
+    sections["the 2-D heterogeneous step"] = time.perf_counter() - t_sec
+    say("[k2b1 time] seconds per section (host clock): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sections.items()))
+    systems = {"curvilinear": "CurvilinearElastic", "het3d": "ElasticHetPhysics",
+               "het2d": "ElasticHet2D", "het2d_walls": "ElasticHet2D"}
+    lines = []
+    for system, (kcu, launches, where, kgrid) in kernels.items():
+        for name, (n_bytes, n_ops) in work[system].items():
+            bnd = kernel_report(kcu, name, f32, f"{where} {kgrid} f32", times[system][name][0],
+                                n_bytes, n_ops, card)
+            replaces = ("exahype_tpu/models/aderdg_pallas.py:377"
+                        if name.startswith("aderdg_ck_") else
+                        "exahype_tpu/models/aderdg_pallas.py:156")
+            source = ("exahype_tpu_torch/csrc/aderdg.cu" if system == "het3d"
+                      else "exahype_tpu_torch/csrc/aderdg_2d.cu")
+            if name.startswith("aderdg_ck_"):
+                source = "exahype_tpu_torch/csrc/aderdg_ck_nodes.cuh"
+            lines.append(kernel_line(f"{name} ({systems[system]})", replaces, launches[name],
+                                     errs[(system, name)], *times[system][name], bnd,
+                                     source=source))
+    del kernels, cu, cu2, cu3, cuw, sol, solw
+    torch.cuda.empty_cache()
     return lines
 
 
@@ -6065,8 +6681,8 @@ def parity_2d(torch, sol, cu, u, dt, label: str, tag: str) -> dict:
 def stages_2d(torch, sol, cu, u, dt):
     """Each 2-D kernel and the stage and step against its plain version on
     ``u``: ``[(name, what, got, ref)]`` (the predictor's new state and
-    faces, F̂ and with walls the side tensor, the update, the stage with its
-    face fluxes, a step)."""
+    faces, F̂'s rows with flux and with walls the side tensor, the update,
+    the stage with its face fluxes, a step)."""
     new_k, faces_k, _ = cu.predictor_volume(u, dt)
     new_p, faces_p, _ = sol.predictor_volume(u, dt)
     fhat_k, fwall_k = cu.face_flux(faces_p)
@@ -6085,8 +6701,9 @@ def stages_2d(torch, sol, cu, u, dt):
     stage_p, fl_p = sol.face_surface(new_p, faces_p, dt, True)
     step_k, step_p = cu.step(u, dt), sol.step(u, dt)
     torch.cuda.synchronize()
+    rows = cu._flux_rows  # F̂'s frozen rows after them are left unwritten
     out = [(cu.kernels[0], "new", new_k, new_p), (cu.kernels[0], "faces", faces_k, faces_p),
-           (cu.kernels[1], "fhat", fhat_k, fhat_p)]
+           (cu.kernels[1], "fhat", fhat_k[:, :, :rows], fhat_p[:, :, :rows])]
     out += [(cu.kernels[1], f"fwall[{d}]", cu.wall_fluxes(fwall_k)[d], walls[d]) for d in walls]
     out += [(cu.kernels[2], "new", upd_k, upd_p), ("face stage", "new", stage_k, stage_p)]
     out += [("face stage", f"face fluxes[{d}]", a, b) for d, (a, b) in enumerate(zip(fl_k, fl_p))]
@@ -6690,6 +7307,7 @@ def main():
         "CK": lambda: ck_path(torch, dev, card),
         "seismic": lambda: seismic_path(torch, dev, card),
         "elastic K2 b": lambda: elastic_k2b_path(torch, dev, card),
+        "curvilinear and heterogeneous K2 b.1": lambda: k2b1_path(torch, dev, card),
         "walls": lambda: walls_path(torch, dev, card),
         "viscous": lambda: viscous_path(torch, dev, card),
         "FV": lambda: [fv_path(torch, dev, card, spec_printers)],

@@ -23,6 +23,7 @@ from exahype_tpu_torch.models.aderdg import (
     euler_reflect,
     euler_reflect_flux,
 )
+from exahype_tpu_torch.models.curvilinear import curvilinear_physics, n_vars_curvilinear
 from exahype_tpu_torch.models.elastic import (
     elastic,
     elastic3d,
@@ -30,6 +31,8 @@ from exahype_tpu_torch.models.elastic import (
     elastic3d_free_surface_het,
     elastic3d_heterogeneous,
     elastic_free_surface,
+    elastic_free_surface_het,
+    elastic_heterogeneous,
     sponge_source,
 )
 from exahype_tpu_torch.models.navier_stokes import (
@@ -44,8 +47,19 @@ from exahype_tpu_torch.utils.errors import SemanticError
 _CALLBACKS = ("flux_fn", "max_eigenvalue_fn", *VISCOUS_OPTIONS)
 
 
-#: The homogeneous elastic systems: (dimension, variables, the pair's maker).
-_ELASTIC = {"elastic": (2, 5, elastic), "elastic3d": (3, 9, elastic3d)}
+#: The elastic systems whose constants the caller names (the homogeneous
+#: ones and the curvilinear lift of the 2-D one): (dimension, variables,
+#: the pair's maker).
+_ELASTIC = {
+    "elastic": (2, 5, elastic),
+    "elastic3d": (3, 9, elastic3d),
+    "curvilinear_elastic": (2, n_vars_curvilinear(5, 2),
+                            lambda **mat: curvilinear_physics(*elastic(**mat), dim=2, n_wave=5)),
+}
+#: The heterogeneous elastic systems: their materials ride in the state.
+_ELASTIC_HET = {"elastic3d_het": elastic3d_heterogeneous, "elastic_het": elastic_heterogeneous}
+_PHYSICS_NAMES = ("'euler', 'navier_stokes', 'elastic', 'elastic3d', 'curvilinear_elastic', "
+                  "'elastic_het', 'elastic3d_het'")
 
 
 def _physics_callbacks(physics, gamma, mu, prandtl, dim: int, n_vars: int,
@@ -67,11 +81,12 @@ def _physics_callbacks(physics, gamma, mu, prandtl, dim: int, n_vars: int,
             )
         return dict(zip(_CALLBACKS, make(rho=rho, lam=lam, mu=mu)))
     if rho is not None or lam is not None:
-        raise SemanticError("rho and lam apply to physics='elastic' and 'elastic3d' only")
+        raise SemanticError("rho and lam apply to physics='elastic', 'elastic3d' and "
+                            "'curvilinear_elastic' only")
     if (mu is not None or prandtl is not None) and physics != "navier_stokes":
         raise SemanticError(
             "mu and prandtl apply to physics='navier_stokes' only (mu also to "
-            "'elastic' and 'elastic3d', as the Lamé constant)"
+            "'elastic', 'elastic3d' and 'curvilinear_elastic', as the Lamé constant)"
         )
     if physics in ("euler", "navier_stokes"):
         if gamma is None:
@@ -88,13 +103,97 @@ def _physics_callbacks(physics, gamma, mu, prandtl, dim: int, n_vars: int,
         raise SemanticError("gamma applies to physics='euler' and 'navier_stokes' only")
     if isinstance(physics, tuple) and len(physics) in (2, 4):
         return dict(zip(_CALLBACKS, physics))
-    if physics == "elastic3d_het":
-        return dict(zip(_CALLBACKS, elastic3d_heterogeneous()))
+    if isinstance(physics, str) and physics in _ELASTIC_HET:
+        pair = _ELASTIC_HET[physics]()
+        tag = pair[0].physics
+        if (dim, n_vars) != (tag.dim, tag.n_real):
+            raise SemanticError(
+                f"physics={physics!r} is the {tag.dim}-D system of {tag.n_real} "
+                f"variables, got dim={dim}, n_vars={n_vars}"
+            )
+        return dict(zip(_CALLBACKS, pair))
     raise SemanticError(
-        "physics must be 'euler', 'navier_stokes', 'elastic', 'elastic3d', "
-        "'elastic3d_het', a (flux_fn, max_eigenvalue_fn) pair or a (flux_fn, max_eigenvalue_fn, visc_flux_fn, "
-        f"visc_eigenvalue_fn) 4-tuple, got {physics!r}"
+        f"physics must be {_PHYSICS_NAMES}, a (flux_fn, max_eigenvalue_fn) pair or a (flux_fn, "
+        f"max_eigenvalue_fn, visc_flux_fn, visc_eigenvalue_fn) 4-tuple, got {physics!r}"
     )
+
+
+def _probe(name, dim: int, n_vars: int, var_axis: int):
+    """A seeded float64 probe state that the physics ``name`` admits, in a
+    layout of ``dim`` node axes, the var axis at ``var_axis`` and ``dim``
+    grid axes (2 nodes and 3 cells an axis): positive density and pressure
+    for Euler and Navier–Stokes, positive materials for the heterogeneous
+    elasticity, J > 0 for a curvilinear lift (its J·a^k_i near J δ_ki);
+    seeded normal values otherwise."""
+    rng = np.random.default_rng(12)
+    lead = (2,) * dim + (3,) * dim
+    rows = [rng.standard_normal(lead) for _ in range(n_vars)]
+    if name in ("euler", "navier_stokes") and n_vars >= dim + 2:
+        rho = 1.0 + 0.5 * rng.random(lead)
+        mom = [0.5 * rng.standard_normal(lead) for _ in range(dim)]
+        kinetic = 0.5 * sum(m * m for m in mom) / rho
+        rows[:dim + 2] = [rho, *mom, kinetic + 2.5 * (1.0 + rng.random(lead))]
+    elif name in _ELASTIC_HET:
+        first = n_vars - 3
+        rows[first:] = [1.0 + rng.random(lead), 1.0 + 2.0 * rng.random(lead),
+                        0.5 + rng.random(lead)]
+    elif isinstance(name, str) and name.startswith("curvilinear_"):
+        first = n_vars - 1 - dim * dim
+        J = 0.8 + 0.4 * rng.random(lead)
+        rows[first] = J
+        for k in range(dim):
+            for i in range(dim):
+                rows[first + 1 + k * dim + i] = (J if k == i else 0.0) + 0.2 * rng.standard_normal(
+                    lead)
+    q = np.stack(rows, axis=0)
+    return np.ascontiguousarray(np.moveaxis(q, 0, var_axis))
+
+
+def _check_against_jax(what: str, fn_jax, fn_port, args_np, args_port, physics):
+    """Raise ``SemanticError`` unless the port's ``fn_port(*args_port)`` and
+    the JAX ``fn_jax(*args_np)`` agree to a few roundings of the larger of 1
+    and the JAX value's largest magnitude (in the JAX value's precision)."""
+    want = np.asarray(fn_jax(*args_np))
+    got = fn_port(*args_port)
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    err = float("inf")
+    if want.shape == got.shape:
+        err = float(np.max(np.abs(got.astype(np.float64) - want.astype(np.float64)), initial=0.0))
+    eps = np.finfo(want.dtype if np.issubdtype(want.dtype, np.floating) else np.float64).eps
+    if not err <= 16 * eps * max(1.0, float(np.max(np.abs(want), initial=0.0))):
+        name = physics if isinstance(physics, str) else "the port pair"
+        raise SemanticError(
+            f"physics={name!r} does not reproduce the JAX solver's {what} on a probe "
+            f"state (max difference {err!r}; shapes {got.shape} and {want.shape}): name the "
+            "constants the JAX callbacks were built with"
+        )
+
+
+def _check_callbacks(jax_solver, callbacks: dict, physics, reflect=None):
+    """Evaluate the JAX solver's callbacks and the port's on one probe state
+    (:func:`_probe`) for every axis's normal, in float64: the flux and the
+    wave speed, the viscous pair where the JAX solver carries one, and the
+    named reflect pair ``reflect`` against the JAX ``reflect_fn`` and
+    ``reflect_flux_fn``."""
+    dim, va = jax_solver.dim, jax_solver.var_axis
+    tag = getattr(callbacks["flux_fn"], "physics", None)
+    name = tag.name if tag is not None else physics
+    probe = _probe(name, dim, jax_solver.n_vars, va)
+    grads = tuple(np.random.default_rng(13 + e).standard_normal(probe.shape) for e in range(dim))
+    tp, tg = torch.from_numpy(probe), tuple(torch.from_numpy(g) for g in grads)
+    pairs = [("flux_fn", (probe,), (tp,)), ("max_eigenvalue_fn", (probe,), (tp,))]
+    if getattr(jax_solver, "visc_flux_fn", None) is not None:
+        pairs += [("visc_flux_fn", (probe, grads), (tp, tg)),
+                  ("visc_eigenvalue_fn", (probe,), (tp,))]
+    for option, args_np, args_port in pairs:
+        for d in range(dim):
+            _check_against_jax(f"{option} along axis {d}", getattr(jax_solver, option),
+                               callbacks[option], args_np + (d, va), args_port + (d, va), physics)
+    if reflect is not None:
+        for option, fn in zip(("reflect_fn", "reflect_flux_fn"), reflect):
+            for d in range(dim):
+                _check_against_jax(f"{option} along axis {d}", getattr(jax_solver, option), fn,
+                                   (probe, d, va), (tp, d, va), physics)
 
 
 def _reflect_pair(walls, n_vars: int, dim: int):
@@ -105,6 +204,8 @@ def _reflect_pair(walls, n_vars: int, dim: int):
         return elastic3d_free_surface_het()
     if walls == "elastic_free_surface":
         return elastic_free_surface()
+    if walls == "elastic_free_surface_het":
+        return elastic_free_surface_het()
     if walls == "elastic3d_free_surface":
         return elastic3d_free_surface()
     if walls == "noslip":
@@ -112,8 +213,9 @@ def _reflect_pair(walls, n_vars: int, dim: int):
     if isinstance(walls, tuple) and len(walls) == 2:
         return walls
     raise SemanticError(
-        "walls must be 'euler', 'elastic_free_surface', 'elastic3d_free_surface', "
-        "'elastic3d_het_free_surface', 'noslip' or a (reflect_fn, reflect_flux_fn) "
+        "walls must be 'euler', 'elastic_free_surface', 'elastic_free_surface_het', "
+        "'elastic3d_free_surface', 'elastic3d_het_free_surface', 'noslip' or a (reflect_fn, "
+        "reflect_flux_fn) "
         f"pair of the port's, got {walls!r}"
     )
 
@@ -158,7 +260,7 @@ def _options_from_jax(jax_solver, walls):
             raise SemanticError(
                 "the JAX solver's reflect_fn/reflect_flux_fn are JAX functions the "
                 "port cannot call: name the port's pair with walls='euler', "
-                "'elastic_free_surface', 'elastic3d_free_surface', "
+                "'elastic_free_surface', 'elastic_free_surface_het', 'elastic3d_free_surface', "
                 "'elastic3d_het_free_surface', 'noslip' or (reflect_fn, reflect_flux_fn)"
             )
         options["reflect_fn"], options["reflect_flux_fn"] = _reflect_pair(
@@ -216,10 +318,22 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
     callbacks of a viscous solver), ``"elastic"`` or ``"elastic3d"`` with
     the material constants ``rho``, ``lam`` and ``mu`` (the homogeneous 2-D
     and 3-D systems, :func:`~exahype_tpu_torch.models.elastic.elastic` and
-    :func:`~exahype_tpu_torch.models.elastic.elastic3d`), ``"elastic3d_het"``
-    (:func:`~exahype_tpu_torch.models.elastic.elastic3d_heterogeneous`), or
-    a (flux_fn, max_eigenvalue_fn) pair or (…, visc_flux_fn,
-    visc_eigenvalue_fn) 4-tuple of the port's.  A JAX solver with
+    :func:`~exahype_tpu_torch.models.elastic.elastic3d`),
+    ``"curvilinear_elastic"`` with ``rho``, ``lam``, ``mu`` (the curvilinear
+    lift of the 2-D ``elastic`` pair over its 5 wave rows,
+    :func:`~exahype_tpu_torch.models.curvilinear.curvilinear_physics`, 10
+    variables), ``"elastic_het"`` and ``"elastic3d_het"`` (the 2-D and 3-D
+    heterogeneous systems, whose materials ride in the state), or a
+    (flux_fn, max_eigenvalue_fn) pair or (…, visc_flux_fn,
+    visc_eigenvalue_fn) 4-tuple of the port's.
+
+    The named pair is checked against the JAX solver's: both evaluate one
+    seeded float64 probe state that the physics admits (positive density
+    and pressure, positive materials, J > 0) along every axis's normal, the
+    flux and the wave speed, the viscous pair where the JAX solver has one,
+    and a reflective solver's named reflect pair against its ``reflect_fn``
+    and ``reflect_flux_fn``; a difference beyond a few roundings (a wrong
+    constant, another system) raises ``SemanticError``.  A JAX solver with
     ``source_fn``, ``ncp_fn`` or ``rhs_all_fn`` set raises ``SemanticError``
     (those are JAX functions; the Z4 systems cross through
     :func:`z4_solver_from_jax`, :func:`z4_shift_solver_from_jax`,
@@ -234,7 +348,8 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
     (:func:`~exahype_tpu_torch.models.aderdg.euler_reflect` and
     ``euler_reflect_flux``), ``"elastic_free_surface"``,
     ``"elastic3d_free_surface"``, ``"elastic3d_het_free_surface"`` (the
-    traction-free walls of :mod:`~exahype_tpu_torch.models.elastic`),
+    traction-free walls of :mod:`~exahype_tpu_torch.models.elastic`;
+    ``"elastic_free_surface_het"``, the 8-variable system's),
     ``"noslip"`` (:func:`~exahype_tpu_torch.models.navier_stokes.noslip_reflect`
     and ``noslip_reflect_flux``) or a (reflect_fn, reflect_flux_fn) pair of
     the port's.
@@ -251,7 +366,8 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
 
         return CudaADERDG(aderdg_from_jax(
             jax_solver.solver, gamma=gamma, physics=physics, walls=walls, mu=mu,
-            prandtl=prandtl, sponge=sponge, rho=rho, lam=lam, device=device, dtype=dtype))
+            prandtl=prandtl, sponge=sponge, rho=rho, lam=lam, device=device,
+            dtype=dtype))
     callbacks = _physics_callbacks(physics, gamma, mu, prandtl, jax_solver.dim,
                                    jax_solver.n_vars, rho, lam)
     if sponge is not None and jax_solver.source_fn is None:
@@ -273,6 +389,10 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
             "prandtl, gamma) or a port 4-tuple, and only a viscous one does (see "
             "ROADMAP.md, Queue 1, done: item 3, the viscous fluxes)"
         )
+    options = _options_from_jax(jax_solver, walls)
+    reflect = options.get("reflect_fn"), options.get("reflect_flux_fn")
+    _check_callbacks(jax_solver, callbacks, physics,
+                     reflect if jax_solver.boundary == "reflective" else None)
     solver = ADERDGSolver(
         dim=jax_solver.dim,
         order=jax_solver.order,
@@ -284,7 +404,7 @@ def aderdg_from_jax(jax_solver, *, gamma: float | None = None,
         basis=jax_solver.basis,
         device=device,
         dtype=dtype,
-        **_options_from_jax(jax_solver, walls),
+        **options,
     )
     if sponge is not None:
         solver.source_fn = _sponge_from_jax(jax_solver, solver, sponge)

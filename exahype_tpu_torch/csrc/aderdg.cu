@@ -144,7 +144,13 @@
 // aderdg_ck_predictor_volume_p2, and the face stage's NN = 3 instances
 // (aderdg_face_flux_p2, aderdg_surface_update_p2: the Rusanov flux with no
 // mask on all 9 rows), tiled by 3 face nodes and 9 space nodes a block
-// (FaceTiling), where NN = 4 and 6 keep 4 and 8.
+// (FaceTiling), where NN = 4 and 6 keep 4 and 8.  K2 b.1: the same three
+// entries take the 12-variable heterogeneous elasticity (physics 1,
+// ElasticHetPhysics of csrc/elastic.cuh, tests/test_ck.py:317's system):
+// the node kernel holds the materials at u's values through the recursion
+// and forms the 9 evolved rows' fluxes only, the face stage's n = 3
+// instances solve the 9 rows with the mask, so slots 9-11 leave the step
+// bitwise unchanged.
 //
 // Walls (the face stage's wall variant: two kernels of their own beside the
 // periodic pair, which is unchanged).  On a wall axis the TPU
@@ -227,34 +233,6 @@ namespace {
 // order-3 instances (the face stage also has order-5 Euler instances, for
 // csrc/aderdg_st.cuh's predictor).
 constexpr int kNN = 4;
-
-// The 12-variable heterogeneous elasticity of csrc/elastic.cuh with its CK
-// configuration compiled in: materials in slots 9-11 (kRho..kMu), the
-// dissipation mask (1,)*9 + (0, 0, 0).
-template <typename T>
-struct ElasticHetPhysics {
-  static constexpr int V = 12;
-  static constexpr int kEvolved = 9;
-  static constexpr int kFluxRows = kEvolved;
-  static constexpr int kRho = 9, kLam = 10, kMu = 11;
-  static constexpr bool kMasked = true;
-  static constexpr bool kViscous = false;
-  static ElasticHetPhysics make(const double*) { return {}; }
-  __device__ __forceinline__ T max_eigenvalue(const T* q, int) const {
-    return elastic3d_het_eigenvalue<T>(q[kRho], q[kLam], q[kMu]);
-  }
-  // The flux of the evolved rows along axis d (a wall's ghost flux).
-  __device__ __forceinline__ void flux_along(const T* q, int d, T* f) const {
-    const T inv_rho = T(1) / q[kRho];
-#pragma unroll
-    for (int dd = 0; dd < kDim; ++dd) {
-      if (dd == d) elastic3d_het_flux<T>(q, inv_rho, q[kLam], q[kMu], dd, f);
-    }
-  }
-  static __device__ __forceinline__ T dissipation(int v) {
-    return v < kEvolved ? T(1) : T(0);
-  }
-};
 
 // Wall modes of the C interface: the ghost is my own face times a sign
 // table (mirror; outflow is the all-ones table), the constant farfield
@@ -1385,32 +1363,56 @@ int surface_update_p5(T* state, const T* fhat, const T* dt_ptr, double dt_val,
 // K2 b's 3-D step: the homogeneous elasticity (physics 7, Elastic3D,
 // params = {ρ, λ, μ}) at order 2 (NN = 3), periodic: csrc/aderdg_ck_nodes.cuh's
 // CK predictor, a thread a space node, 8 cells a block (216 threads), and
-// the face stage's NN = 3 instances.
+// the face stage's NN = 3 instances.  K2 b.1: the same entries over the
+// 12-variable heterogeneous elasticity (physics 1, ElasticHetPhysics: the
+// materials frozen in slots 9-11, the mask on the face solves).
 constexpr int kNNp2 = 3;
 constexpr int kCellsP2 = 8;
 
-template <typename T>
-using CkP2Params = Params<T, kNNp2, Elastic3D<T>>;
+template <typename T, typename Phys>
+using CkP2Params = Params<T, kNNp2, Phys>;
+
+template <typename T, typename Phys>
+int ck_predictor_volume_p2_of(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
+                              const double* ops, const double* dx, int order,
+                              const double* params, long long g0, long long g1, long long g2,
+                              void* stream) {
+  if (bad_grid<kNNp2>(order, g0, g1, g2)) return cudaErrorInvalidValue;
+  const auto P = make_params<T, kNNp2, Phys>(ops, dx, 0, params, g0, g1, g2);
+  return launch_ck_nodes<T, kDim, kNNp2, kCellsP2, Phys, CkP2Params<T, Phys>>(
+      u, out, faces, dt_ptr, dt_val, P, stream);
+}
 
 template <typename T>
 int ck_predictor_volume_p2(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
                            const double* ops, const double* dx, int order, int physics,
                            const double* params, long long g0, long long g1, long long g2,
                            void* stream) {
-  if (physics != kElastic3D || bad_grid<kNNp2>(order, g0, g1, g2)) return cudaErrorInvalidValue;
-  const auto P = make_params<T, kNNp2, Elastic3D<T>>(ops, dx, 0, params, g0, g1, g2);
-  return launch_ck_nodes<T, kDim, kNNp2, kCellsP2, Elastic3D<T>, CkP2Params<T>>(
-      u, out, faces, dt_ptr, dt_val, P, stream);
+  if (physics == kElastic3D)
+    return ck_predictor_volume_p2_of<T, Elastic3D<T>>(u, out, faces, dt_ptr, dt_val, ops, dx,
+                                                      order, params, g0, g1, g2, stream);
+  if (physics == kElasticHet)
+    return ck_predictor_volume_p2_of<T, ElasticHetPhysics<T>>(u, out, faces, dt_ptr, dt_val,
+                                                              ops, dx, order, params, g0, g1,
+                                                              g2, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
 int face_flux_p2(const T* faces, T* fhat, const double* ops, const double* dx, int order,
                  int physics, const double* params, long long g0, long long g1, long long g2,
                  void* stream) {
-  if (physics != kElastic3D) return cudaErrorInvalidValue;
-  const WallParams<T, Elastic3D<T>::V> W{};
-  return launch_face_flux<T, Elastic3D<T>, false, kNNp2>(faces, fhat, ops, dx, order, params, g0,
-                                                        g1, g2, W, stream);
+  if (physics == kElastic3D) {
+    const WallParams<T, Elastic3D<T>::V> W{};
+    return launch_face_flux<T, Elastic3D<T>, false, kNNp2>(faces, fhat, ops, dx, order, params,
+                                                          g0, g1, g2, W, stream);
+  }
+  if (physics == kElasticHet) {
+    const WallParams<T, ElasticHetPhysics<T>::V> W{};
+    return launch_face_flux<T, ElasticHetPhysics<T>, false, kNNp2>(
+        faces, fhat, ops, dx, order, params, g0, g1, g2, W, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -1418,10 +1420,25 @@ int surface_update_p2(T* state, const T* fhat, const T* dt_ptr, double dt_val,
                       const double* ops, const double* dx, int order, int physics,
                       const double* params, long long g0, long long g1, long long g2,
                       void* stream) {
-  if (physics != kElastic3D) return cudaErrorInvalidValue;
-  const WallParams<T, Elastic3D<T>::V> W{};
-  return launch_surface_update<T, Elastic3D<T>, false, kNNp2>(
-      state, fhat, dt_ptr, dt_val, ops, dx, order, params, g0, g1, g2, W, stream);
+  if (physics == kElastic3D) {
+    const WallParams<T, Elastic3D<T>::V> W{};
+    return launch_surface_update<T, Elastic3D<T>, false, kNNp2>(
+        state, fhat, dt_ptr, dt_val, ops, dx, order, params, g0, g1, g2, W, stream);
+  }
+  if (physics == kElasticHet) {
+    const WallParams<T, ElasticHetPhysics<T>::V> W{};
+    return launch_surface_update<T, ElasticHetPhysics<T>, false, kNNp2>(
+        state, fhat, dt_ptr, dt_val, ops, dx, order, params, g0, g1, g2, W, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The shapes of K2 b's 3-D step over `Phys` (kernel 29-31).
+template <typename T, typename Phys>
+int p2_info(int kernel, int* out) {
+  if (kernel == 30) return shape_info(face_flux_shape<T, Phys, false, kNNp2>(), out);
+  if (kernel == 31) return shape_info(surface_update_shape<T, Phys, false, kNNp2>(), out);
+  return shape_info(ck_nodes_shape<T, kDim, kNNp2, kCellsP2, Phys, CkP2Params<T, Phys>>(), out);
 }
 
 template <typename T>
@@ -1432,11 +1449,9 @@ int kernel_info(int kernel, int physics, int* out) {
     return info ? info(kernel == 32 ? 6 : kernel - 22, physics, out) : cudaErrorInvalidValue;
   }
   if (kernel >= 29 && kernel <= 31) {  // K2 b's 3-D step, 29-31
-    using H = Elastic3D<T>;
-    if (physics != kElastic3D) return cudaErrorInvalidValue;
-    if (kernel == 30) return shape_info(face_flux_shape<T, H, false, kNNp2>(), out);
-    if (kernel == 31) return shape_info(surface_update_shape<T, H, false, kNNp2>(), out);
-    return shape_info(ck_nodes_shape<T, kDim, kNNp2, kCellsP2, H, CkP2Params<T>>(), out);
+    if (physics == kElastic3D) return p2_info<T, Elastic3D<T>>(kernel, out);
+    if (physics == kElasticHet) return p2_info<T, ElasticHetPhysics<T>>(kernel, out);
+    return cudaErrorInvalidValue;
   }
   if (kernel >= 19 && kernel <= 21) {  // the order-5 Euler step's, 19-21
     if (!euler) return cudaErrorInvalidValue;
@@ -1805,9 +1820,11 @@ int exahype_aderdg_surface_update_p2_f64(double* state, const double* fhat,
 // face_flux_walls_2d, 26 = surface_update_walls_2d (physics 8, the 2-D
 // elasticity: 23-26 its face stage, 32 = ck_predictor_volume_2d); physics 1:
 // 28 = ck_predictor_volume_sponge (K2 a, the CK predictor with the sponge);
-// physics 7 (the 3-D homogeneous elasticity at order 2): 29 =
-// ck_predictor_volume_p2, 30 = face_flux_p2, 31 = surface_update_p2; f64 =
-// 0 or 1.
+// physics 7 (the 3-D homogeneous elasticity at order 2) and physics 1 (the
+// heterogeneous one at order 2, K2 b.1): 29 = ck_predictor_volume_p2, 30 =
+// face_flux_p2, 31 = surface_update_p2; physics 9 and 10 (the 2-D
+// heterogeneous and curvilinear elasticity, K2 b.1): 32 and 23-24, and for
+// physics 9 also 25-26; f64 = 0 or 1.
 int exahype_aderdg_kernel_info(int kernel, int f64, int physics, int* out) {
   return f64 ? kernel_info<double>(kernel, physics, out)
              : kernel_info<float>(kernel, physics, out);

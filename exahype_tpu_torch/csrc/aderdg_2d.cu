@@ -5,8 +5,14 @@
 // examples/seismic_point_source.py --ck), periodic or walled, on the CK
 // predictor of csrc/aderdg_ck_nodes.cuh (entry
 // aderdg_ck_predictor_volume_2d) and this file's face pairs over
-// Elastic2D (csrc/elastic.cuh), which take their variable count from the
-// physics.  The shared helpers (the parameter bank's row
+// Elastic2D (csrc/elastic.cuh), which take their variable count, their flux
+// rows (kFluxRows) and their dissipation mask (kMasked) from the physics.
+// K2 b.1, the same entries over the systems with frozen last rows: the
+// 8-variable heterogeneous elasticity (ElasticHet2D, physics 9), periodic or
+// walled, and the 10-variable curvilinear lift of the elasticity
+// (CurvilinearElastic, physics 10: examples/seismic_topography.py), periodic;
+// their face pairs solve and update the wave rows only, the masked jump on
+// each, so the frozen rows leave the step bitwise unchanged.  The shared helpers (the parameter bank's row
 // selection, the occupancy query, the shared-memory opt-in) are
 // csrc/aderdg_common.cuh's; the dimension is this file's own: the 3-D
 // sources keep theirs (kDim = 3), so their kernels are untouched.  The
@@ -108,6 +114,8 @@ constexpr int kFace2DThreads = 128;
 template <typename T>
 struct Euler2D {
   static constexpr int V = kDim2 + 2;
+  static constexpr int kFluxRows = V;
+  static constexpr bool kMasked = false;
   static constexpr bool kViscous = false;
   T gm1;  // gamma - 1
   T gamma;
@@ -534,18 +542,27 @@ aderdg_predictor_volume_2d(const T* __restrict__ u, T* __restrict__ out,
 // ------------------------------------------------------------ face stage
 
 // The ghost of wall (axis d, side) at face node m, plane index p, from my
-// own face state q and flux f: its state gq and flux gf.
+// own face state q and flux f: its state gq (all V rows) and flux gf (the
+// kFluxRows rows).
 template <typename T, typename Phys>
 __device__ __forceinline__ void wall_ghost_2d(const Walls2D<T, Phys::V>& W, const Phys& phys,
                                               int d, int side, int m, long long plane,
                                               long long p, const T* q, const T* f, T* gq,
                                               T* gf) {
   constexpr int V = Phys::V;
+  constexpr int R = Phys::kFluxRows;
   if (W.mode == kMirror) {
+    if constexpr (R == V) {
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      gq[v] = (d == 0 ? W.sq[0][v] : W.sq[1][v]) * q[v];
-      gf[v] = (d == 0 ? W.sf[0][v] : W.sf[1][v]) * f[v];
+      for (int v = 0; v < V; ++v) {
+        gq[v] = (d == 0 ? W.sq[0][v] : W.sq[1][v]) * q[v];
+        gf[v] = (d == 0 ? W.sf[0][v] : W.sf[1][v]) * f[v];
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) gq[v] = (d == 0 ? W.sq[0][v] : W.sq[1][v]) * q[v];
+#pragma unroll
+      for (int v = 0; v < R; ++v) gf[v] = (d == 0 ? W.sf[0][v] : W.sf[1][v]) * f[v];
     }
     return;
   }
@@ -563,8 +580,10 @@ __device__ __forceinline__ void wall_ghost_2d(const Walls2D<T, Phys::V>& W, cons
 
 // The face stage, first launch: one thread per (cell, axis d, face node m)
 // solves the interface between the cell's high face and its +d
-// neighbour's low face, F̂ = ½(f_hi + f_lo⁺) − ½ s (q_lo⁺ − q_hi), s the
-// larger wave speed, into fhat[d][m][v][cell].  kWalls: on a wall axis the
+// neighbour's low face, F̂ = ½(f_hi + f_lo⁺) − ½ s m_v (q_lo⁺ − q_hi), s the
+// larger wave speed, m_v the physics' dissipation weight of row v (kMasked),
+// into fhat[d][m][v][cell], rows 0..kFluxRows-1 (the frozen rows after them
+// are neither read as fluxes nor written: their F̂ is zero).  kWalls: on a wall axis the
 // last row's right state is the ghost of its own high face, and the first
 // row also solves its low wall, ½(g_f + f_lo) − ½ s_w (q_lo − g_q), into
 // W.fwall.  A viscous Phys (Navier–Stokes, periodic only) adds the Gassner
@@ -575,6 +594,8 @@ aderdg_face_flux_2d(const T* __restrict__ faces, T* __restrict__ fhat,
                     const Params2D<T, NN, Phys> P, const Walls2D<T, Phys::V> W) {
   constexpr int NF = NN;
   constexpr int V = Phys::V;
+  constexpr int R = Phys::kFluxRows;
+  static_assert(Phys::kMasked || R == V, "frozen rows go with a dissipation mask");
   const long long ncell = P.ncell;
   const long long c = static_cast<long long>(blockIdx.x) * kFace2DThreads + threadIdx.x;
   if (c >= ncell) return;
@@ -585,42 +606,75 @@ aderdg_face_flux_2d(const T* __restrict__ faces, T* __restrict__ fhat,
   // faces[d][which][m][v][cell], which = q_lo, q_hi, f_lo, f_hi.
   const T* base = faces + static_cast<long long>(d * 4 * NF + m) * V * ncell;
   const long long wstride = static_cast<long long>(NF * V) * ncell;
-  T qa[V], qb[V], fa[V], fb[V];  // a: my high face, b: the neighbour's low face or my ghost
+  T qa[V], qb[V], fa[R], fb[R];  // a: my high face, b: the neighbour's low face or my ghost
+  if constexpr (R == V) {
 #pragma unroll
-  for (int v = 0; v < V; ++v) {
-    qa[v] = base[wstride + v * ncell + c];
-    fa[v] = base[3 * wstride + v * ncell + c];
+    for (int v = 0; v < V; ++v) {
+      qa[v] = base[wstride + v * ncell + c];
+      fa[v] = base[3 * wstride + v * ncell + c];
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) qa[v] = base[wstride + v * ncell + c];
+#pragma unroll
+    for (int v = 0; v < R; ++v) fa[v] = base[3 * wstride + v * ncell + c];
   }
   if (wall && tc.at(d) == tc.extent(d) - 1) {  // the high wall
     wall_ghost_2d<T, Phys>(W, P.phys, d, 1, m, tc.plane(d), tc.plane_index(d), qa, fa, qb, fb);
   } else {
     const long long plus = tc.neighbour(d, 1);
+    if constexpr (R == V) {
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      qb[v] = base[v * ncell + plus];
-      fb[v] = base[2 * wstride + v * ncell + plus];
+      for (int v = 0; v < V; ++v) {
+        qb[v] = base[v * ncell + plus];
+        fb[v] = base[2 * wstride + v * ncell + plus];
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) qb[v] = base[v * ncell + plus];
+#pragma unroll
+      for (int v = 0; v < R; ++v) fb[v] = base[2 * wstride + v * ncell + plus];
     }
   }
   if (wall && tc.at(d) == 0) {  // the low wall
     const long long plane = tc.plane(d);
     const long long p = tc.plane_index(d);
-    T ql[V], fl[V], gq[V], gf[V];
+    T ql[V], fl[R], gq[V], gf[R];
+    if constexpr (R == V) {
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      ql[v] = base[v * ncell + c];
-      fl[v] = base[2 * wstride + v * ncell + c];
+      for (int v = 0; v < V; ++v) {
+        ql[v] = base[v * ncell + c];
+        fl[v] = base[2 * wstride + v * ncell + c];
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) ql[v] = base[v * ncell + c];
+#pragma unroll
+      for (int v = 0; v < R; ++v) fl[v] = base[2 * wstride + v * ncell + c];
     }
     wall_ghost_2d<T, Phys>(W, P.phys, d, 0, m, plane, p, ql, fl, gq, gf);
     const T sw = dmax(P.phys.max_eigenvalue(ql, d), P.phys.max_eigenvalue(gq, d));
     T* w = W.fwall + (d == 0 ? W.off[0] : W.off[1]) + static_cast<long long>(m) * V * plane + p;
+    if constexpr (Phys::kMasked) {
 #pragma unroll
-    for (int v = 0; v < V; ++v) w[v * plane] = T(0.5) * (gf[v] + fl[v]) - T(0.5) * sw * (ql[v] - gq[v]);
+      for (int v = 0; v < R; ++v)
+        w[v * plane] = T(0.5) * (gf[v] + fl[v]) - T(0.5) * sw * ((ql[v] - gq[v]) * Phys::dissipation(v));
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) w[v * plane] = T(0.5) * (gf[v] + fl[v]) - T(0.5) * sw * (ql[v] - gq[v]);
+    }
   }
   T s = dmax(P.phys.max_eigenvalue(qa, d), P.phys.max_eigenvalue(qb, d));
   if constexpr (Phys::kViscous) s = s + P.phys.penalty(qa, qb, d);
   T* out = fhat + static_cast<long long>(d * NF + m) * V * ncell + c;
+  if constexpr (Phys::kMasked) {  // the jump weighted by each row's dissipation
 #pragma unroll
-  for (int v = 0; v < V; ++v) out[v * ncell] = T(0.5) * (fa[v] + fb[v]) - T(0.5) * s * (qb[v] - qa[v]);
+    for (int v = 0; v < R; ++v)
+      out[v * ncell] = T(0.5) * (fa[v] + fb[v]) - T(0.5) * s * ((qb[v] - qa[v]) * Phys::dissipation(v));
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) out[v * ncell] = T(0.5) * (fa[v] + fb[v]) - T(0.5) * s * (qb[v] - qa[v]);
+  }
 }
 
 // The face stage, second launch: one thread per (cell, space node) updates
@@ -628,7 +682,8 @@ aderdg_face_flux_2d(const T* __restrict__ faces, T* __restrict__ fhat,
 // ℓ_i(0)/w_i F̂_lo) of each axis, F̂_hi the cell's own entry of fhat and
 // F̂_lo its −d neighbour's, or (kWalls, the first row of a wall axis) the
 // low-wall flux of W.fwall.  It reads no physics: Phys gives the variable
-// count only (Euler2D for Euler and Navier–Stokes, Elastic2D).
+// count and the rows that move, kFluxRows (Euler2D for Euler and
+// Navier–Stokes, Elastic2D, ElasticHet2D, CurvilinearElastic).
 template <typename T, int NN, bool kWalls, typename Phys = Euler2D<T>>
 __global__ void __launch_bounds__(kFace2DThreads)
 aderdg_surface_update_2d(T* __restrict__ state, const T* __restrict__ fhat,
@@ -636,6 +691,7 @@ aderdg_surface_update_2d(T* __restrict__ state, const T* __restrict__ fhat,
                          const Walls2D<T, Phys::V> W) {
   constexpr int NF = NN;
   constexpr int V = Phys::V;
+  constexpr int R = Phys::kFluxRows;
   const long long ncell = P.ncell;
   const long long c = static_cast<long long>(blockIdx.x) * kFace2DThreads + threadIdx.x;
   if (c >= ncell) return;
@@ -665,7 +721,7 @@ aderdg_surface_update_2d(T* __restrict__ state, const T* __restrict__ fhat,
     }
   }
 #pragma unroll
-  for (int v = 0; v < V; ++v) {
+  for (int v = 0; v < R; ++v) {
     const long long o = static_cast<long long>(node * V + v) * ncell + c;
     T x = state[o];
 #pragma unroll
@@ -705,11 +761,12 @@ Walls2D<T, V> make_walls_2d(int mask, int mode, const double* table, const T* ro
 }
 
 // A launch this file's instances can take: Euler, Navier–Stokes or the
-// elasticity, order 3, a 2-D grid (g2 is 1) whose cells and coordinates fit
-// a 32-bit int.
+// elasticity (homogeneous, heterogeneous, curvilinear), order 3, a 2-D grid
+// (g2 is 1) whose cells and coordinates fit a 32-bit int.
 bool bad_2d(int physics, int order, long long g0, long long g1, long long g2) {
   constexpr long long kMax = 0x7fffffffLL;
-  return (physics != kEuler && physics != kNavierStokes && physics != kElastic2D) ||
+  return (physics != kEuler && physics != kNavierStokes && physics != kElastic2D &&
+          physics != kElasticHet2D && physics != kCurvilinearElastic) ||
          order != kNN2 - 1 || g0 <= 0 || g1 <= 0 || g2 != 1 || g0 * g1 > kMax;
 }
 
@@ -738,14 +795,24 @@ Shape surface_update_2d_shape() {
           dim3(kFace2DThreads), 0};
 }
 
-// K2 b's 2-D instance: the CK predictor of csrc/aderdg_ck_nodes.cuh over
-// Elastic2D, a thread a space node, kCells2D cells a block.
-template <typename T>
-using CkParams2D = Params2D<T, kNN2, Elastic2D<T>>;
+// K2 b's 2-D instances: the CK predictor of csrc/aderdg_ck_nodes.cuh over
+// Elastic2D and (K2 b.1) ElasticHet2D and CurvilinearElastic, a thread a
+// space node, kCells2D cells a block.
+template <typename T, typename Phys = Elastic2D<T>>
+using CkParams2D = Params2D<T, kNN2, Phys>;
 
-template <typename T>
+template <typename T, typename Phys = Elastic2D<T>>
 Shape ck_predictor_2d_shape() {
-  return ck_nodes_shape<T, kDim2, kNN2, kCells2D, Elastic2D<T>, CkParams2D<T>>();
+  return ck_nodes_shape<T, kDim2, kNN2, kCells2D, Phys, CkParams2D<T, Phys>>();
+}
+
+template <typename T, typename Phys>
+int ck_predictor_volume_2d_of(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
+                              const double* ops, const double* dx, const double* params,
+                              long long g0, long long g1, void* stream) {
+  const auto P = make_params_2d<T, kNN2, Phys>(ops, dx, 0, params, g0, g1);
+  return launch_ck_nodes<T, kDim2, kNN2, kCells2D, Phys, CkParams2D<T, Phys>>(
+      u, out, faces, dt_ptr, dt_val, P, stream);
 }
 
 template <typename T>
@@ -753,10 +820,17 @@ int ck_predictor_volume_2d(const T* u, T* out, T* faces, const T* dt_ptr, double
                            const double* ops, const double* dx, int order, int physics,
                            const double* params, long long g0, long long g1, long long g2,
                            void* stream) {
-  if (bad_2d(physics, order, g0, g1, g2) || physics != kElastic2D) return cudaErrorInvalidValue;
-  const auto P = make_params_2d<T, kNN2, Elastic2D<T>>(ops, dx, 0, params, g0, g1);
-  return launch_ck_nodes<T, kDim2, kNN2, kCells2D, Elastic2D<T>, CkParams2D<T>>(
-      u, out, faces, dt_ptr, dt_val, P, stream);
+  if (bad_2d(physics, order, g0, g1, g2)) return cudaErrorInvalidValue;
+  if (physics == kElastic2D)
+    return ck_predictor_volume_2d_of<T, Elastic2D<T>>(u, out, faces, dt_ptr, dt_val, ops, dx,
+                                                      params, g0, g1, stream);
+  if (physics == kElasticHet2D)
+    return ck_predictor_volume_2d_of<T, ElasticHet2D<T>>(u, out, faces, dt_ptr, dt_val, ops,
+                                                         dx, params, g0, g1, stream);
+  if (physics == kCurvilinearElastic)
+    return ck_predictor_volume_2d_of<T, CurvilinearElastic<T>>(u, out, faces, dt_ptr, dt_val,
+                                                               ops, dx, params, g0, g1, stream);
+  return cudaErrorInvalidValue;
 }
 
 // The Euler predictor for physics 0, the viscous one for physics 2.
@@ -807,7 +881,8 @@ int launch_face_flux_2d(const T* faces, T* fhat, const double* ops, const double
   return cudaGetLastError();
 }
 
-// Euler and the elasticity, periodic or walled; Navier–Stokes periodic only.
+// Euler and the elasticity (homogeneous and heterogeneous), periodic or
+// walled; Navier–Stokes and the curvilinear elasticity periodic only.
 template <typename T, bool kWalls>
 int face_flux_2d(const T* faces, T* fhat, const double* ops, const double* dx, int order,
                  int physics, const double* params, long long g0, long long g1, long long g2,
@@ -819,7 +894,13 @@ int face_flux_2d(const T* faces, T* fhat, const double* ops, const double* dx, i
   if (physics == kElastic2D)
     return launch_face_flux_2d<T, kWalls, Elastic2D<T>>(faces, fhat, ops, dx, params, g0, g1, A,
                                                          stream);
+  if (physics == kElasticHet2D)
+    return launch_face_flux_2d<T, kWalls, ElasticHet2D<T>>(faces, fhat, ops, dx, params, g0, g1,
+                                                            A, stream);
   if (kWalls) return cudaErrorInvalidValue;
+  if (physics == kCurvilinearElastic)
+    return launch_face_flux_2d<T, false, CurvilinearElastic<T>>(faces, fhat, ops, dx, params, g0,
+                                                                 g1, A, stream);
   return launch_face_flux_2d<T, false, NavierStokes2D<T>>(faces, fhat, ops, dx, params, g0, g1,
                                                            A, stream);
 }
@@ -841,7 +922,9 @@ int launch_surface_update_2d(T* state, const T* fhat, const T* dt_ptr, double dt
 }
 
 // The update reads no physics: one instance for Euler and Navier–Stokes,
-// one for the elasticity's 5 rows.
+// one for the elasticity's 5 rows, and one each for the systems with frozen
+// rows (their variable count: the heterogeneous elasticity, periodic or
+// walled, and the curvilinear one, periodic).
 template <typename T, bool kWalls>
 int surface_update_2d(T* state, const T* fhat, const T* dt_ptr, double dt_val,
                       const double* ops, const double* dx, int order, int physics,
@@ -851,6 +934,15 @@ int surface_update_2d(T* state, const T* fhat, const T* dt_ptr, double dt_val,
   if (physics == kElastic2D)
     return launch_surface_update_2d<T, kWalls, Elastic2D<T>>(state, fhat, dt_ptr, dt_val, ops,
                                                              dx, params, g0, g1, A, stream);
+  if (physics == kElasticHet2D)
+    return launch_surface_update_2d<T, kWalls, ElasticHet2D<T>>(state, fhat, dt_ptr, dt_val,
+                                                                ops, dx, params, g0, g1, A,
+                                                                stream);
+  if (physics == kCurvilinearElastic) {
+    if (kWalls) return cudaErrorInvalidValue;
+    return launch_surface_update_2d<T, false, CurvilinearElastic<T>>(
+        state, fhat, dt_ptr, dt_val, ops, dx, params, g0, g1, A, stream);
+  }
   return launch_surface_update_2d<T, kWalls, Euler2D<T>>(state, fhat, dt_ptr, dt_val, ops, dx,
                                                          params, g0, g1, A, stream);
 }
@@ -883,29 +975,39 @@ int surface_update_walls_2d(T* state, const T* fhat, const T* dt_ptr, double dt_
                                     params, g0, g1, g2, A, stream);
 }
 
+// The shapes of the elastic steps' kernels over `H` (which 1-4 and 6; the
+// wall pair, 3 and 4, only where kWalls is instantiated).
+template <typename T, typename H, bool kWalls>
+int elastic_info_2d(int which, int* out) {
+  switch (which) {
+    case 1:
+      return shape_info(face_flux_2d_shape<T, false, H>(), out);
+    case 2:
+      return shape_info(surface_update_2d_shape<T, false, H>(), out);
+    case 3:
+      if constexpr (kWalls) return shape_info(face_flux_2d_shape<T, true, H>(), out);
+      return cudaErrorInvalidValue;
+    case 4:
+      if constexpr (kWalls) return shape_info(surface_update_2d_shape<T, true, H>(), out);
+      return cudaErrorInvalidValue;
+    case 6:
+      return shape_info(ck_predictor_2d_shape<T, H>(), out);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 // which: 0 predictor, 1 face flux, 2 update, 3 face flux (walls), 4 update
 // (walls), 5 the viscous predictor, 6 the CK predictor; physics 2
 // (Navier–Stokes) has 1, 2 and 5, its own face flux and Euler's update;
-// physics 8 (the elasticity) 1-4 and 6.
+// physics 8 and 9 (the elasticity, homogeneous and heterogeneous) 1-4 and
+// 6; physics 10 (the curvilinear elasticity) 1, 2 and 6.
 template <typename T>
 int kernel_info_2d(int which, int physics, int* out) {
-  if (physics == kElastic2D) {
-    using H = Elastic2D<T>;
-    switch (which) {
-      case 1:
-        return shape_info(face_flux_2d_shape<T, false, H>(), out);
-      case 2:
-        return shape_info(surface_update_2d_shape<T, false, H>(), out);
-      case 3:
-        return shape_info(face_flux_2d_shape<T, true, H>(), out);
-      case 4:
-        return shape_info(surface_update_2d_shape<T, true, H>(), out);
-      case 6:
-        return shape_info(ck_predictor_2d_shape<T>(), out);
-      default:
-        return cudaErrorInvalidValue;
-    }
-  }
+  if (physics == kElastic2D) return elastic_info_2d<T, Elastic2D<T>, true>(which, out);
+  if (physics == kElasticHet2D) return elastic_info_2d<T, ElasticHet2D<T>, true>(which, out);
+  if (physics == kCurvilinearElastic)
+    return elastic_info_2d<T, CurvilinearElastic<T>, false>(which, out);
   if (physics == kNavierStokes) {
     switch (which) {
       case 1:

@@ -21,7 +21,7 @@ constexpr int kDim = 3;
 // Physics ids of the C interface.
 enum PhysicsId : int {
   kEuler = 0, kElasticHet = 1, kNavierStokes = 2, kZ4 = 3, kZ4Shift = 4, kZ4Matter = 5,
-  kZ4Grmhd = 6, kElastic3D = 7, kElastic2D = 8
+  kZ4Grmhd = 6, kElastic3D = 7, kElastic2D = 8, kElasticHet2D = 9, kCurvilinearElastic = 10
 };
 
 template <typename T>

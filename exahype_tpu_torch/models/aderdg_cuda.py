@@ -26,7 +26,16 @@ order 3, periodic or walled (``examples/seismic_point_source.py --ck``:
 ``Elastic2D`` instances), and in 3-D at order 2, periodic
 (``aderdg_ck_predictor_volume_p2`` and the face stage's n = 3 instances
 ``aderdg_face_flux_p2`` + ``aderdg_surface_update_p2``); their other orders,
-the 3-D walls and a sponge raise, naming ROADMAP.md Queue 2 K2 b (K2 a).  At
+the 3-D walls and a sponge raise, naming ROADMAP.md Queue 2 K2 b (K2 a).
+K2 b.1, the node kernel with frozen slots and the dissipation mask (the
+rows from the first frozen slot on carry no flux, keep u's values through
+the step and get no jump term): the 12-variable heterogeneous elasticity
+at order 2 in 3-D, periodic (``elastic3d_het`` through the ``_p2`` entries,
+``tests/test_ck.py:317``'s system), the 8-variable 2-D heterogeneous system
+at order 3, periodic or walled (``elastic_het``), and the 10-variable
+curvilinear lift of the 2-D elasticity at order 3, periodic
+(``curvilinear_elastic``, ``examples/seismic_topography.py``: J and the four
+J·a^k_i ride as frozen slots) through the 2-D entries.  At
 order 3 in 3-D the physics are: compressible Euler on the Picard predictor (``bench.py::main``),
 compressible Navier–Stokes on the Picard predictor with its viscous terms
 (``models/navier_stokes.py``) and heterogeneous elasticity on the
@@ -123,6 +132,11 @@ import torch
 from exahype_tpu_torch import _build
 from exahype_tpu_torch.models import elastic
 from exahype_tpu_torch.models.aderdg import CALLBACK_OPTIONS, VISCOUS_OPTIONS, ADERDGSolver
+from exahype_tpu_torch.models.curvilinear import (
+    curvilinear_dissipation_mask,
+    curvilinear_material_slots,
+    n_vars_curvilinear,
+)
 from exahype_tpu_torch.models.rhs_cuda import CudaRHS
 from exahype_tpu_torch.models.z4 import N_VARS as Z4_VARS
 from exahype_tpu_torch.models.z4 import N_VARS_SHIFT, SHIFTS, SLICINGS
@@ -139,8 +153,11 @@ INSTANTIATED = {
     ("navier_stokes", 2, 3): "picard",
     ("navier_stokes", 3, 3): "picard",
     ("elastic3d_het", 3, 3): "ck",
+    ("elastic3d_het", 3, 2): "ck",
     ("elastic3d", 3, 2): "ck",
     ("elastic", 2, 3): "ck",
+    ("elastic_het", 2, 3): "ck",
+    ("curvilinear_elastic", 2, 3): "ck",
     ("z4", 3, 2): "picard",
     ("z4_shift", 3, 2): "picard",
     ("z4_matter", 3, 2): "picard",
@@ -157,7 +174,8 @@ def _n_vars(name: str, dim: int) -> int:
                 "z4_grmhd": N_VARS_GRMHD}[name]
     if name in ("euler", "navier_stokes"):
         return dim + 2
-    return {"elastic": 5, "elastic3d": elastic.N_VARS_3D}.get(name, elastic.N_VARS_3D_HET)
+    return {"elastic": 5, "elastic3d": elastic.N_VARS_3D, "elastic_het": elastic.N_VARS_HET,
+            "curvilinear_elastic": n_vars_curvilinear(5, 2)}.get(name, elastic.N_VARS_3D_HET)
 
 
 #: The wall modes of the C interface (``csrc/aderdg.cu``): a sign table
@@ -181,10 +199,20 @@ _PHYSICS = {
     "z4_grmhd": {"id": 6, "ck_material_slots": None, "dissipation_mask": None},
     "elastic3d": {"id": 7, "ck_material_slots": None, "dissipation_mask": None},
     "elastic": {"id": 8, "ck_material_slots": None, "dissipation_mask": None},
+    "elastic_het": {
+        "id": 9,
+        "ck_material_slots": elastic.MATERIAL_SLOTS_HET,
+        "dissipation_mask": elastic.DISSIPATION_MASK_HET,
+    },
+    "curvilinear_elastic": {
+        "id": 10,
+        "ck_material_slots": curvilinear_material_slots(5, 2),
+        "dissipation_mask": curvilinear_dissipation_mask(5, 2),
+    },
 }
-#: The homogeneous elastic systems of K2 b (their ROADMAP item names what is
-#: still to port of them).
-_ELASTIC = ("elastic", "elastic3d")
+#: The elastic systems: a configuration of theirs without kernels raises
+#: naming ROADMAP.md, Queue 2 K2 b, which lists what is still to port.
+_ELASTIC = ("elastic", "elastic3d", "elastic3d_het", "elastic_het", "curvilinear_elastic")
 
 
 def _kernel_params(tag, solver) -> tuple:
@@ -300,8 +328,11 @@ class CudaADERDG:
     #: viscous predictor of the same file, whose face pair is 23-24 of
     #: physics 2; 29-31 of physics 7: K2 b's 3-D homogeneous elasticity at
     #: order 2, the CK predictor of ``csrc/aderdg_ck_nodes.cuh`` and the face
-    #: stage's n = 3 instances; 32 of physics 8: K2 b's 2-D CK predictor,
-    #: whose face pairs are 23-26 of physics 8).
+    #: stage's n = 3 instances, and of physics 1 the same over the
+    #: heterogeneous elasticity (K2 b.1); 32 of physics 8: K2 b's 2-D CK
+    #: predictor, whose face pairs are 23-26 of physics 8, and the same
+    #: indices of physics 9 and 10, the 2-D heterogeneous and curvilinear
+    #: elasticity (K2 b.1)).
     KERNELS = (
         "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
         "aderdg_surface_update", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
@@ -343,16 +374,25 @@ class CudaADERDG:
                 "visc_eigenvalue_fn (models.navier_stokes.navier_stokes gives all "
                 "four callbacks)"
             )
+        if tag is not None and tag.name.startswith("curvilinear_") and tag.name not in _PHYSICS:
+            raise LoweringError(
+                f"the CUDA kernels compile in the curvilinear lift of the 2-D elasticity "
+                f"only (curvilinear_elastic), got {tag.name}: the curvilinear Euler is still "
+                "to port, see ROADMAP.md, Queue 1 item 12 (the plain solver runs it)"
+            )
         # (The Z4 systems are 3-D; on a 2-D grid their tags keep dim 3, and
         # the instantiation check below names the missing (dim, order).)
         if tag is None or tag.name not in _PHYSICS or (
                 tag.dim != solver.dim and tag.name not in _Z4):
             raise LoweringError(
                 "the CUDA kernels compile in Euler, Navier–Stokes, elastic (homogeneous "
-                "2-D and 3-D, heterogeneous 3-D), vacuum Z4, Z4+GRHD or Z4+GRMHD physics: "
+                "2-D and 3-D, heterogeneous 2-D and 3-D, the 2-D system lifted onto a "
+                "curvilinear mesh), vacuum Z4, Z4+GRHD or Z4+GRMHD physics: "
                 "build the solver with exahype_tpu_torch.models.aderdg.euler_physics, "
                 "models.navier_stokes.navier_stokes, models.elastic.elastic, "
-                "models.elastic.elastic3d, models.elastic.elastic3d_heterogeneous, "
+                "models.elastic.elastic3d, models.elastic.elastic_heterogeneous, "
+                "models.elastic.elastic3d_heterogeneous, "
+                "models.curvilinear.curvilinear_physics(*models.elastic.elastic(...), 2, 5), "
                 "models.z4.make_z4_solver / "
                 "make_z4_shift_solver, models.z4_matter.make_z4_matter_solver or "
                 "models.z4_grmhd.make_z4_grmhd_solver"
@@ -395,9 +435,9 @@ class CudaADERDG:
         # of their own, named with the order; their face stage is the periodic
         # pair only.
         order_suffix = "" if solver.order == 3 or ncp else f"_p{solver.order}"
-        if order_suffix and walled and tag.name == "elastic3d":
+        if order_suffix and walled and tag.name in _ELASTIC:
             raise LoweringError(
-                f"the CUDA face stage of the 3-D homogeneous elasticity at order "
+                f"the CUDA face stage of the 3-D elasticity ({tag.name}) at order "
                 f"{solver.order} is periodic only, and boundary={solver.boundary!r}: its walls "
                 "on the card are still to port, see ROADMAP.md, Queue 2 K2 b (the plain "
                 "solver runs them)"
@@ -407,6 +447,12 @@ class CudaADERDG:
                 f"the CUDA face stage at order {solver.order} is periodic only, and "
                 f"boundary={solver.boundary!r}: walls at that order are still to port, see "
                 "ROADMAP.md, Queue 1 item 4 (the plain solver runs them)"
+            )
+        if walled and tag.name == "curvilinear_elastic":
+            raise LoweringError(
+                f"the CUDA face stage of the curvilinear elasticity is periodic only, and "
+                f"boundary={solver.boundary!r}: its walls on the card are still to port, see "
+                "ROADMAP.md, Queue 2 K2 b (the plain solver runs them)"
             )
         # The 2-D steps have kernels of their own (csrc/aderdg_2d.cu), named
         # with the dimension; they take the grid as (g0, g1, 1).  Navier–Stokes

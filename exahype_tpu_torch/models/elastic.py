@@ -1,9 +1,12 @@
 """Linear elasticity (velocity–stress form) in the SoA-P layout (PyTorch).
 
-Port of three systems of ``exahype_tpu/models/elastic.py``: the 2-D
+Port of four systems of ``exahype_tpu/models/elastic.py``: the 2-D
 homogeneous system (``elastic_flux``, ``elastic_eigenvalue``, ``elastic``,
 ``plane_p_wave``, ``elastic_free_surface``; ``Q = [v_x, v_y, σ_xx, σ_yy,
-σ_xy]``, ``examples/seismic_point_source.py``'s), the 3-D homogeneous
+σ_xy]``, ``examples/seismic_point_source.py``'s), the 2-D heterogeneous
+system (``N_VARS_HET``, ``elastic_het_flux``, ``elastic_het_eigenvalue``,
+``elastic_heterogeneous``, ``elastic_free_surface_het``; the 5 wave rows
+and ρ, λ, μ per point, frozen), the 3-D homogeneous
 system (``N_VARS_3D``, ``elastic3d_flux``, ``elastic3d_eigenvalue``,
 ``elastic3d``, ``elastic3d_free_surface``, ``plane_p_wave_3d``,
 ``plane_s_wave_3d``; 9 variables), whose constant materials ρ, λ, μ ride in
@@ -127,6 +130,69 @@ def elastic_free_surface():
     compiles in."""
     state_signs = [[1.0, 1.0, -1.0, 1.0, -1.0], [1.0, 1.0, 1.0, -1.0, -1.0]]
     flux_signs = [[-1.0, -1.0, 1.0, 1.0, 1.0], [-1.0, -1.0, 1.0, 1.0, 1.0]]
+    return sign_reflect(state_signs), sign_reflect(flux_signs)
+
+
+# ------------------------------------------------ 2-D heterogeneous system
+
+#: The 2-D system with per-cell materials: ``Q = [v_x, v_y, σ_xx, σ_yy,
+#: σ_xy, ρ, λ, μ]``, the materials frozen (their flux rows are zero).
+N_VARS_HET = 8
+#: Its CK configuration (``tests/test_ck.py:139``): the frozen material
+#: slots and the dissipation mask.
+MATERIAL_SLOTS_HET = (5, 6, 7)
+DISSIPATION_MASK_HET = (1.0,) * 5 + (0.0,) * 3
+
+
+def elastic_het_flux(Q, normal, var_axis):
+    """The 2-D flux along ``normal`` with the materials read per point
+    (the JAX ``elastic_het_flux``, its operation order), stacked on the var
+    axis; the material rows are zero."""
+    va = var_axis
+    vx, vy = _v(Q, 0, va), _v(Q, 1, va)
+    sxx, syy, sxy = _v(Q, 2, va), _v(Q, 3, va), _v(Q, 4, va)
+    rho, lam, mu = _v(Q, 5, va), _v(Q, 6, va), _v(Q, 7, va)
+    inv_rho = 1.0 / rho
+    z = torch.zeros_like(vx)
+    if int(normal) == 0:
+        comps = [-sxx * inv_rho, -sxy * inv_rho, -(lam + 2 * mu) * vx, -lam * vx, -mu * vy]
+    else:
+        comps = [-sxy * inv_rho, -syy * inv_rho, -lam * vy, -(lam + 2 * mu) * vy, -mu * vx]
+    return torch.stack(comps + [z, z, z], dim=va)
+
+
+def elastic_het_eigenvalue(Q, normal, var_axis):
+    """The P-wave speed √((λ + 2μ)/ρ) of each point (the var axis reduced
+    away)."""
+    rho, lam, mu = _v(Q, 5, var_axis), _v(Q, 6, var_axis), _v(Q, 7, var_axis)
+    return torch.sqrt((lam + 2 * mu) / rho)
+
+
+def elastic_heterogeneous():
+    """(flux_fn, max_eigenvalue_fn) for 2-D elasticity with per-cell
+    materials (the JAX ``elastic_heterogeneous``), each tagged
+    ``.physics = PhysicsTag("elastic_het", 2, 8)``."""
+
+    def flux(Q, axis, var_axis):
+        return elastic_het_flux(Q, axis, var_axis)
+
+    def eig(Q, axis, var_axis):
+        return elastic_het_eigenvalue(Q, axis, var_axis)
+
+    tag = PhysicsTag("elastic_het", 2, N_VARS_HET)
+    flux.physics = tag
+    eig.physics = tag
+    return flux, eig
+
+
+def elastic_free_surface_het():
+    """Traction-free wall hooks for the 8-variable system (the JAX
+    ``elastic_free_surface_het``): the traction rows as in
+    :func:`elastic_free_surface`, the frozen materials mirrored evenly in
+    state and flux.  Sign tables, which the CUDA face stage compiles in."""
+    even3 = [1.0, 1.0, 1.0]
+    state_signs = [[1.0, 1.0, -1.0, 1.0, -1.0] + even3, [1.0, 1.0, 1.0, -1.0, -1.0] + even3]
+    flux_signs = [[-1.0, -1.0, 1.0, 1.0, 1.0] + even3] * 2
     return sign_reflect(state_signs), sign_reflect(flux_signs)
 
 

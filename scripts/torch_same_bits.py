@@ -39,6 +39,11 @@ compares their outputs bit for bit:
   sponge of ``examples/seismic3d_layered.py`` (K2 a,
   ``aderdg_ck_predictor_volume_sponge``), reported as new against a
   checkout without it;
+- where the checkout has them, K2 b.1's instances (the 2-D heterogeneous
+  and curvilinear elasticity, the 12-variable heterogeneous one at order 2)
+  on seeded states at a float64 and a float32 grid each: the predictor's
+  ``new`` and ``faces`` and three chained steps, reported as new against a
+  checkout without them;
 - the limiter's subcell sweep K3 (``subcell_row_sweep``, 3-D p3 Euler) on
   a seeded gathered batch ``[7, 7, 7, 5, 8, 16]`` with 5 of 8 slots active,
   each direction, in float64 and float32, and where the checkout has it K3
@@ -52,8 +57,11 @@ type, the first integer template argument, which is the node count of the
 ADER-DG kernels of ``csrc/aderdg.cu``, and for the Z4 step's kernels the
 system, ``Z4Vacuum``, ``Z4Shift``, ``Z4Matter`` or ``Z4Grmhd``, whatever
 template arguments were added since; K2 a, the CK predictor's
-``SpongeSource`` instance, and K2 b's ``Elastic3D``/``Elastic2D`` instances
-by that argument), ignoring addresses and encodings;
+``SpongeSource`` instance, K2 b's ``Elastic3D``/``Elastic2D`` instances and
+the heterogeneous elasticity's ``ElasticHetPhysics`` instances by that
+argument), ignoring addresses and encodings; K2 b.1's instances (over
+``ElasticHet2D`` and ``CurvilinearElastic``, and over
+``ElasticHetPhysics`` at n = 3) are listed as new, and so are the
 kernels of the Z4+GRMHD system and of the order-5 Euler step (the face
 stage at n = 6 and ``aderdg_predictor_volume_st``) and of the 2-D Euler
 step (``csrc/aderdg_2d.cu``, periodic and walled) and the 2-D kernels'
@@ -92,7 +100,7 @@ SASS_KERNELS = (
 #: predictor's sponge and K2 b's homogeneous elasticity (a template argument
 #: of each instance).
 SYSTEMS = ("Z4Vacuum", "Z4Shift", "Z4Matter", "Z4Grmhd", "NavierStokes2D", "SpongeSource",
-           "Elastic3D", "Elastic2D")
+           "Elastic3D", "Elastic2D", "ElasticHetPhysics", "ElasticHet2D", "CurvilinearElastic")
 #: What only this checkout may have: the Z4+GRMHD system's kernels, the
 #: order-5 Euler step's (its predictor, and the face stage's kernels whose
 #: node count is ``NEW_NODES``), the 2-D Euler step's and K2 b's (the CK
@@ -101,8 +109,14 @@ SYSTEMS = ("Z4Vacuum", "Z4Shift", "Z4Matter", "Z4Grmhd", "NavierStokes2D", "Spon
 NEW = ("Z4Grmhd", "rhs_all_z4_grmhd", "Z4+GRMHD", "aderdg_predictor_volume_st",
        "aderdg_predictor_volume_2d", "aderdg_face_flux_2d", "aderdg_surface_update_2d",
        "NavierStokes2D", "subcell_row_sweep_ncp", "K3 a Z4+GRHD", "SpongeSource",
-       "CK sponge", "Elastic3D", "Elastic2D", "aderdg_ck_predictor_nodes")
+       "CK sponge", "Elastic3D", "Elastic2D", "aderdg_ck_predictor_nodes", "ElasticHet2D",
+       "CurvilinearElastic", "K2 b.1")
 NEW_NODES = "6"
+#: K2 b.1's instances over the 12-variable heterogeneous elasticity at n = 3
+#: (the node kernel and the face stage; its n = 4 instances are compared):
+#: (kernel, system, first integer template argument).
+NEW_INSTANCES = {(name, "ElasticHetPhysics", "3") for name in (
+    "aderdg_ck_predictor_nodes", "aderdg_face_flux", "aderdg_surface_update")}
 _KERNEL_NAME = re.compile(r"(\d+)(" + "|".join(sorted(SASS_KERNELS, key=len, reverse=True))
                           + r")I([fd])(?:Li(\d+)E)?")
 
@@ -173,6 +187,47 @@ for grid, dtype in CK_CASES:
         results[key + " predictor new"] = new.cpu()
         results[key + " predictor faces"] = faces.cpu()
         results[key + " 3 steps"] = cu.run(u, 3, 2e-4).cpu()
+if hasattr(elastic, "elastic_heterogeneous"):  # K2 b.1, frozen slots on the node kernel
+    from exahype_tpu_torch.models import curvilinear as cv
+    for label, grid, dtype in (("het2d", (9, 9), "float64"), ("het2d", (64, 48), "float32"),
+                               ("curvilinear", (9, 9), "float64"),
+                               ("curvilinear", (64, 48), "float32"),
+                               ("het3d p2", (4, 4, 8), "float64"),
+                               ("het3d p2", (16, 8, 64), "float32")):
+        dtype = getattr(torch, dtype)
+        rng = np.random.default_rng(sum(grid))
+        if label == "curvilinear":
+            pair = cv.curvilinear_physics(*elastic.elastic(1.3, 2.5, 0.7), 2, 5)
+            sol = ADERDGSolver(2, 3, 10, grid, *pair, dx=1.0 / grid[0], device="cuda",
+                               dtype=dtype, predictor_mode="ck",
+                               ck_material_slots=cv.curvilinear_material_slots(5, 2),
+                               dissipation_mask=cv.curvilinear_dissipation_mask(5, 2))
+            metric, _ = cv.metric_fields(sol, cv.hill_mapping(0.04))
+            q = cv.densitize(torch.from_numpy(rng.standard_normal(
+                sol.state_shape[:2] + (5,) + sol.state_shape[3:])), metric, 2).numpy()
+        else:
+            het3 = label == "het3d p2"
+            sol = ADERDGSolver(
+                3 if het3 else 2, 2 if het3 else 3, 12 if het3 else 8, grid,
+                *(elastic.elastic3d_heterogeneous() if het3 else elastic.elastic_heterogeneous()),
+                dx=1.0 / grid[0], device="cuda", dtype=dtype, predictor_mode="ck",
+                ck_material_slots=elastic.MATERIAL_SLOTS if het3 else elastic.MATERIAL_SLOTS_HET,
+                dissipation_mask=(elastic.DISSIPATION_MASK if het3
+                                  else elastic.DISSIPATION_MASK_HET))
+            q = rng.standard_normal(sol.state_shape)
+            first = 9 if het3 else 5
+            for k, lo in enumerate((1.0, 1.0, 0.5)):
+                idx = [slice(None)] * q.ndim
+                idx[sol.var_axis] = first + k
+                q[tuple(idx)] = lo + rng.random(tuple(grid))
+        cu = CudaADERDG(sol)
+        u = torch.from_numpy(q).to("cuda", dtype).contiguous()
+        dt = 0.5 * float(sol.cfl_dt(u, cfl=0.15))
+        new, faces = cu.predictor_volume(u, dt)[:2]
+        key = f"K2 b.1 {label} {grid} {dtype}"
+        results[key + " predictor new"] = new.cpu()
+        results[key + " predictor faces"] = faces.cpu()
+        results[key + " 3 steps"] = cu.run(u, 3, dt).cpu()
 def matter_state(sol):
     # The perturbed FLRW slice of chip_smoke.py's matter path (rho0 0.02,
     # eps0 0.4; slots 38 and 42 times 1 + 0.05 sin along axis 2).
@@ -340,6 +395,7 @@ def main():
                  f"{', ' + key[2] if key[2] else ''}{', ' + key[3] if key[3] else ''}, "
                  f"instance {key[4]})")
         new_nodes = key[3] == NEW_NODES and key[0] in ("aderdg_face_flux", "aderdg_surface_update")
+        new_nodes |= (key[0], key[2], key[3]) in NEW_INSTANCES
         if b is None and (new_nodes or any(n in key[0] or n == key[2] for n in NEW)):
             print(f"[same sass] {label}: {len(a)} instructions, new in this checkout")
             continue

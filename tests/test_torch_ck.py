@@ -272,7 +272,10 @@ def test_ck_configuration_errors(options, match):
         (lambda: port_ck_solver(3, (2, 2, 2), dissipation_mask=None), "dissipation_mask"),
         (lambda: port_ck_solver(3, (2, 2, 2), dissipation_mask=(1,) * 12),
          "dissipation_mask"),
-        (lambda: port_ck_solver(2, (2, 2, 2)), "order=2"),
+        (lambda: port_ck_solver(2, (2, 2, 2), boundary="reflective", wall_axes=(2,),
+                                reflect_fn=elastic.elastic3d_free_surface_het()[0],
+                                reflect_flux_fn=elastic.elastic3d_free_surface_het()[1]),
+         "at order 2 is periodic only"),
         (lambda: ADERDGSolver(3, 3, 5, (2, 2, 2), *euler_physics(3), device="cpu",
                               predictor_mode="ck"), "predictor_mode='picard'"),
         (lambda: ADERDGSolver(3, 3, 5, (2, 2, 2), *euler_physics(3), device="cpu",

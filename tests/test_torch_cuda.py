@@ -29,7 +29,11 @@ of the same file) and the limited step over viscous solvers in 2-D (the
 MUSCL fallback) and 3-D; K2 b, the homogeneous elasticity on the CK
 predictor of ``csrc/aderdg_ck_nodes.cuh`` (3-D ``elastic3d`` at order 2 with
 the face stage's n = 3 instances, 2-D ``elastic`` at order 3 with the 2-D
-face pairs over ``Elastic2D``, periodic and with the free surface).
+face pairs over ``Elastic2D``, periodic and with the free surface); K2 b.1,
+the same kernels over the systems with frozen slots (the 12-variable
+heterogeneous elasticity at order 2, the 8-variable 2-D one periodic and
+walled, the curvilinear lift of the 2-D elasticity), the frozen rows held
+unchanged.
 
 Every test here is marked ``cuda`` and skips without a card (the decision
 is made inside each test, never at import).  This file imports no JAX, so
@@ -412,6 +416,147 @@ def test_k2b_kernel_info_and_names(dim, walls):
             assert info["local"] <= spill, (kernel, info)
     # A thread a space node: 8 cells of 27 nodes (3-D), 16 cells of 16 (2-D).
     assert cu.kernel_info(cu.kernels[0], torch.float32)["threads"] == (216 if dim == 3 else 256)
+
+
+# --------------------------- K2 b.1: frozen slots and the mask on the node kernel
+
+
+def _k2b1_setup(system, grid, dtype, walls=False):
+    """A K2 b.1 solver on the card: ``"het3d"`` (the 12-variable
+    heterogeneous elasticity at order 2, periodic), ``"het2d"`` (the
+    8-variable 2-D one at order 3, periodic or with the free surface on both
+    axes) or ``"curvilinear"`` (the curvilinear lift of the 2-D elasticity
+    over a hill of height 0.04, periodic); its ``CudaADERDG``, a state with
+    seeded wave rows of ~1 and the frozen rows (materials constant per cell,
+    or the metric), and the number of rows with flux."""
+    from exahype_tpu_torch.models import curvilinear, elastic
+
+    dev = _card()
+    rng = np.random.default_rng(sum(grid))
+    if system == "curvilinear":
+        flux, eig = curvilinear.curvilinear_physics(*elastic.elastic(**K2B_MATERIALS), 2, 5)
+        sol = ADERDGSolver(2, 3, 10, grid, flux, eig, dx=1.0 / grid[0], device=dev,
+                           dtype=dtype, predictor_mode="ck",
+                           ck_material_slots=curvilinear.curvilinear_material_slots(5, 2),
+                           dissipation_mask=curvilinear.curvilinear_dissipation_mask(5, 2))
+        metric, _ = curvilinear.metric_fields(sol, curvilinear.hill_mapping(0.04))
+        wave = rng.standard_normal(sol.state_shape[:2] + (5,) + sol.state_shape[3:])
+        u = curvilinear.densitize(torch.from_numpy(wave), metric, 2)
+        return sol, CudaADERDG(sol), u.to(dev, dtype).contiguous(), 5
+    dim, first = (3, 9) if system == "het3d" else (2, 5)
+    hooks = {}
+    if walls:
+        reflect, reflect_flux = elastic.elastic_free_surface_het()
+        hooks = dict(boundary="reflective", reflect_fn=reflect, reflect_flux_fn=reflect_flux)
+    if dim == 3:
+        pair, slots, mask = (elastic.elastic3d_heterogeneous(), elastic.MATERIAL_SLOTS,
+                             elastic.DISSIPATION_MASK)
+    else:
+        pair, slots, mask = (elastic.elastic_heterogeneous(), elastic.MATERIAL_SLOTS_HET,
+                             elastic.DISSIPATION_MASK_HET)
+    sol = ADERDGSolver(dim, 5 - dim, first + 3, grid, *pair, dx=1.0 / grid[0], device=dev,
+                       dtype=dtype, predictor_mode="ck", ck_material_slots=slots,
+                       dissipation_mask=mask, **hooks)
+    q = rng.standard_normal(sol.state_shape)
+    va = sol.var_axis
+    for k, (lo, span) in enumerate(((1.0, 1.0), (1.0, 2.0), (0.5, 1.0))):
+        idx = [slice(None)] * q.ndim
+        idx[va] = first + k
+        q[tuple(idx)] = lo + span * rng.random(tuple(grid))  # constant in each cell
+    return sol, CudaADERDG(sol), torch.from_numpy(q).to(dev, dtype).contiguous(), first
+
+
+K2B1_CASES = [
+    ("het3d", torch.float64, (4, 4, 8), False),
+    ("het3d", torch.float64, (3, 5, 7), False),  # ragged last blocks, odd wraps
+    ("het3d", torch.float32, (16, 8, 64), False),
+    ("het2d", torch.float64, (9, 9), False),
+    ("het2d", torch.float64, (5, 7), True),
+    ("het2d", torch.float32, (64, 48), True),
+    ("curvilinear", torch.float64, (9, 9), False),
+    ("curvilinear", torch.float64, (5, 7), False),
+    ("curvilinear", torch.float32, (64, 48), False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("system,dtype,grid,walls", K2B1_CASES)
+def test_k2b1_kernels_match_plain_and_keep_the_frozen_rows(system, dtype, grid, walls):
+    """K2 b.1's three kernels launch by launch against the plain solver (the
+    CK predictor's new state and faces, F̂'s rows with flux and with walls
+    the side tensor, the update), the stage, and 3 steps (3 launches a step,
+    bitwise repeatable); the frozen rows leave the step unchanged."""
+    sol, cu, u, rows = _k2b1_setup(system, grid, dtype, walls)
+    dt = 0.5 * float(sol.cfl_dt(u))
+
+    def close(got, ref, rounds=1):
+        assert _err(got, ref) <= rounds * _bound(ref, dtype)
+
+    new_k, faces_k, _ = cu.predictor_volume(u, dt)
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    close(new_k, new_p)
+    close(faces_k, faces_p)
+    va = sol.var_axis
+    assert torch.equal(new_k.narrow(va, rows, sol.n_vars - rows), u.narrow(va, rows,
+                                                                          sol.n_vars - rows))
+    fhat, fwall = cu.face_flux(faces_p)
+    fshape = sol.face_flux_shape
+    plain, side = [], {}
+    for d in range(sol.dim):
+        q_lo, q_hi, f_lo, f_hi = (faces_p[d, k].reshape(fshape) for k in range(4))
+        plain.append(sol.interface_flux(q_lo, q_hi, f_lo, f_hi, d))
+        close(fhat[d, :, :rows], plain[d].reshape(fhat[d].shape)[:, :rows])
+        if walls:
+            side[d] = sol.low_wall_flux(q_lo, f_lo, d)
+            close(cu.wall_fluxes(fwall)[d], side[d])
+    flat = torch.cat([side[d].reshape(-1) for d in sorted(side)]) if walls else None
+    upd = cu.surface_update(new_p.clone(), torch.stack(plain).view(fhat.shape), dt, flat)
+    ref = new_p
+    for d in range(sol.dim):
+        ref = sol.surface_term(ref, plain[d], d, dt, side.get(d))
+    close(upd, ref)
+    stage, fl_k = cu.face_surface(new_p.clone(), faces_p, dt, return_face_fluxes=True)
+    stage_p, fl_p = sol.face_surface(new_p, faces_p, dt, return_face_fluxes=True)
+    close(stage, stage_p)
+    for a, b in zip(fl_k, fl_p):
+        close(a, b)
+    cu.reset_launches()
+    out = cu.run(u, 3, dt)
+    again = cu.run(u, 3, dt)
+    torch.cuda.synchronize()
+    close(out, sol.run(u, 3, dt), 1 if dtype == torch.float64 else 3)
+    assert torch.equal(out, again)
+    assert torch.equal(out.narrow(va, rows, sol.n_vars - rows),
+                       u.narrow(va, rows, sol.n_vars - rows))
+    assert cu.launches == {name: 6 for name in cu.kernels}
+
+
+#: Bytes of local memory a thread of the float32 node kernel spills.
+K2B1_F32_SPILL = {"het3d": 16, "het2d": 8, "curvilinear": 56}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("system,walls", [("het3d", False), ("het2d", False), ("het2d", True),
+                                          ("curvilinear", False)])
+def test_k2b1_kernel_info_and_names(system, walls):
+    grid = (2, 2, 3) if system == "het3d" else (3, 3)
+    sol, cu, _, _ = _k2b1_setup(system, grid, torch.float32, walls)
+    suffix = "_p2" if system == "het3d" else ("_walls_2d" if walls else "_2d")
+    assert cu.kernels == (
+        f"aderdg_ck_predictor_volume{'_p2' if system == 'het3d' else '_2d'}",
+        f"aderdg_face_flux{suffix}", f"aderdg_surface_update{suffix}")
+    for kernel in cu.kernels:
+        for dtype in (torch.float32, torch.float64):
+            info = cu.kernel_info(kernel, dtype)
+            assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, (kernel, info)
+            # No local memory, but for the node kernel in float32, which its
+            # 3 blocks an SM hold to 80 registers: the spill as ptxas gave it
+            # for the 12, 8 and 10 rows.
+            spill = K2B1_F32_SPILL[system] if (dtype, kernel) == (
+                torch.float32, cu.kernels[0]) else 0
+            assert info["local"] <= spill, (kernel, info)
+    assert cu.kernel_info(cu.kernels[0], torch.float32)["threads"] == (
+        216 if system == "het3d" else 256)
 
 
 # ------------------------------------------------ the kernels' tiling at its edges

@@ -109,8 +109,8 @@ def test_free_surface_and_plane_wave_match_jax_bitwise(va):
                                       jel.plane_p_wave(x, y, t, **ODD))
 
 
-def jax_solver(cells, walls, predictor_mode="ck"):
-    flux, eig = jel.elastic(**MAT)
+def jax_solver(cells, walls, predictor_mode="ck", mat=MAT):
+    flux, eig = jel.elastic(**mat)
     hooks = {}
     if walls:
         reflect, reflect_flux = jel.elastic_free_surface()
@@ -330,9 +330,15 @@ def _with_sponge(sol):
 
 
 def test_convert_takes_the_material_constants():
-    js = jax_solver((3, 3), walls=False)
-    ts = aderdg_from_jax(js, physics="elastic", device="cpu", rho=1.5, lam=3.0, mu=0.5)
+    """The constants the caller names are the JAX solver's: a JAX solver
+    built with (1.5, 3.0, 0.5) crosses with them, and crossing it with the
+    example's (1, 2, 1) raises (the probe of the two flux pairs)."""
+    mat = dict(rho=1.5, lam=3.0, mu=0.5)
+    js = jax_solver((3, 3), walls=False, mat=mat)
+    ts = aderdg_from_jax(js, physics="elastic", device="cpu", **mat)
     assert ts.flux_fn.physics.params == (1.5, 3.0, 0.5)
+    with pytest.raises(SemanticError, match="does not reproduce the JAX solver's flux_fn"):
+        aderdg_from_jax(js, physics="elastic", device="cpu", **MAT)
     for kw, match in ((dict(rho=1.0, lam=2.0), "rho, lam and mu"),
                       (dict(rho=1.0, lam=2.0, mu=1.0, gamma=1.4), "no gamma"),
                       (dict(), "rho, lam and mu")):

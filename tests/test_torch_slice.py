@@ -145,6 +145,7 @@ PORT_MODULES = ["exahype_tpu_torch"] + sorted(
 SYMPY_FREE = (
     "exahype_tpu_torch.models.aderdg",
     "exahype_tpu_torch.models.elastic",
+    "exahype_tpu_torch.models.curvilinear",
     "exahype_tpu_torch.models.z4",
     "exahype_tpu_torch.models.srhd",
     "exahype_tpu_torch.models.rmhd",
