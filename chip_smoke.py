@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one card, nvcc
 
-It drives eighteen paths, each through ``exahype_tpu_torch``'s entry points
+It drives nineteen paths, each through ``exahype_tpu_torch``'s entry points
 with its kernels' launch counters set to 0 just before and read just
 after (the two forms of the main path, ADER-DG and FV, and the order-5,
 limited, limited with walls, limited 2-D blast with walls, viscous shock,
 2-D vortex, CK, layered seismic, homogeneous elastic, walls, viscous,
 dynamic-GR, shifted
-dynamic-GR, Z4+GRHD, limited Z4+GRHD and Z4+GRMHD slices), in this order:
+dynamic-GR, Z4+GRHD, limited Z4+GRHD and Z4+GRMHD slices, and the sharded
+steps of the multichip phase), in this order:
 
 - **ADER-DG**: ``bench.py::main``'s step — order 3, 3-D compressible
   Euler, a ``(256, 8, 128)`` periodic cell grid in float32, ``bench.py``'s
@@ -266,6 +267,27 @@ dynamic-GR, Z4+GRHD, limited Z4+GRHD and Z4+GRMHD slices), in this order:
   its gates add admissibility (``z4_grmhd_admissible``), ∫D̃ dV and each
   ∫B̃^i dV conserved within ``Z4G_DRIFT``, and with B̃ = φ̃ = 0 one float64
   kernel step against the Z4+GRHD kernels' (``Z4G_ZERO_FIELD_TOL``).
+- **multichip**: the sharded steps of ``exahype_tpu_torch/parallel/shard.py``
+  (the twin of the JAX package's ``shard_map`` steps, ``__graft_entry__.py::
+  dryrun_multichip``'s configurations at the bench's widths).  K1 e
+  (``aderdg_face_flux_exchanged`` + the walled update) against its plain
+  version (``shard.exchanged_face_surface``) in float64 at ``MC_CUT`` in
+  every wall mode, each axis cut into 1 and 2 windows with the walls on the
+  windows owning them, and bitwise the unsharded face stage on every window;
+  in float32 at ``GRID``; K5 b (``rhs_all_z4_2d``) on every call of a step
+  of the 2-D gauge wave, float64 at ``MC_Z4_CUT`` and float32 at
+  ``MC_Z4_GRID``.  Then, at world size 1 over NCCL in this process (meshes
+  ``(1,)`` and ``(1, 1)``) and with ``MC_RANKS`` spawned ranks sharing the
+  card over gloo (meshes ``(4,)`` and ``(2, 2)``): ``bench.py::main``'s
+  ADER-DG step at ``cfl_dt`` periodic, reflective on axis 0 and outflow on
+  axes 0 and 1 (``MC_DG_CASES``, ``MC_DG_STEPS`` steps), the FV step at
+  ``MC_FV_GRID`` with the global dt (its MIN all-reduce) on both meshes, and
+  the 2-D Z4 step through K5 b (``MC_Z4_STEPS``), each gathered on rank 0
+  and bitwise the unsharded step, with the launches per step counted on
+  every rank.  Readings at world size 1: the sharded step's host windows
+  beside ``CudaADERDG.step``'s, K1 e's flux and pair and the pack and
+  exchange (CUDA events), ``[kernel]`` lines.  The 4-rank run prints no
+  time (the ranks share one card: no scaling figure).
 
 Phases:
 
@@ -7228,6 +7250,375 @@ def vortex2d_path(torch, dev, card) -> list[dict]:
     return []
 
 
+#: The multichip phase: the sharded steps of ``parallel/shard.py``.
+#: K1 e's f64 parity grid, and the windows each axis is cut into there.
+MC_CUT = (8, 4, 8)
+#: The wall configurations of K1 e's parity (``euler_walls``; "periodic"
+#: has none).
+MC_WALLS = ("periodic", "reflective box", "outflow (0,)", "farfield (0,)", "dirichlet box",
+            "reflective (1, 2)")
+#: The sharded ADER-DG runs at full width: (label, walls, 2-axis mesh).
+MC_DG_CASES = (
+    ("periodic", {}, False),
+    ("reflective on axis 0", dict(boundary="reflective", wall_axes=(0,)), False),
+    ("outflow on axes 0 and 1", dict(boundary="outflow", wall_axes=(0, 1)), True),
+)
+MC_DG_STEPS = 10
+MC_FV_GRID = FV_GRIDS[1]
+MC_FV_STEPS = 5
+#: The 2-D gauge wave of the Z4 runs (``__graft_entry__.py:476-529``'s
+#: fused dynamic-GR check, at the bench's width): 38 variables, p2.
+MC_Z4_GRID = (256, 128)
+MC_Z4_DT = 1e-4
+MC_Z4_STEPS = 2
+MC_Z4_CUT = (8, 6)
+#: Ranks sharing the card over gloo (each a spawned process).
+MC_RANKS = 4
+
+
+def mc_dg_solver(torch, dev, grid, dtype, walls: dict):
+    from exahype_tpu_torch.models.aderdg import (
+        ADERDGSolver,
+        euler_physics,
+        euler_reflect,
+        euler_reflect_flux,
+    )
+
+    walls = dict(walls)
+    if walls.get("boundary") == "reflective":
+        walls.update(reflect_fn=euler_reflect(3), reflect_flux_fn=euler_reflect_flux(3))
+    return ADERDGSolver(3, ORDER, 5, grid, *euler_physics(3, n_real=5), dx=DX, device=dev,
+                        dtype=dtype, **walls)
+
+
+def mc_z4(torch, dev, grid, dtype):
+    """The 2-D vacuum Z4 solver (p2, κ₁ = 0.5, κ₂ = 0.1 as the JAX dryrun),
+    plain and through K5 b, and the gauge wave with seeded noise."""
+    import numpy as np
+
+    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+    from exahype_tpu_torch.models.z4 import gauge_wave_state, make_z4_solver
+
+    plain = make_z4_solver(2, 2, grid, dx=1.0 / grid[0], kappa1=0.5, kappa2=0.1, impl="soa",
+                           fused_rhs="soa", device=dev, dtype=dtype)
+    rng = np.random.default_rng(7)
+    u = gauge_wave_state(plain, amplitude=Z4_AMPLITUDE) + torch.as_tensor(
+        1e-4 * rng.standard_normal(plain.state_shape), dtype=dtype, device=dev)
+    return plain, with_cuda_rhs(plain), u.contiguous()
+
+
+def mc_fv(torch, dev, mesh=None):
+    from exahype_tpu_torch.models import euler
+    from exahype_tpu_torch.models.fv import build_fv_rusanov_kernel
+    from exahype_tpu_torch.parallel.grid import TpuPatchGrid
+    from exahype_tpu_torch.parallel.solver import GridSolver
+
+    kb = build_fv_rusanov_kernel(**FV_WIDTH, n_patches=math.prod(MC_FV_GRID))
+    grid = TpuPatchGrid(kb.config, MC_FV_GRID)
+    sol = GridSolver(grid, kb, dx=1.0 / (4 * MC_FV_GRID[0]), cfl=FV_CFL,
+                     eigenvalue_fn=euler.wave_speed_fn(3), kernel_dt="lambda", device=dev,
+                     dtype=torch.float32, mesh=mesh)
+    return sol, kb
+
+
+def mc_runs(torch, dev, mesh1, mesh2, rank: int) -> dict:
+    """The sharded main path on this rank: each ADER-DG case, the FV step
+    with its global dt on both meshes and the Z4 step through K5 b, the
+    launch counters set to 0 just before each and read just after, each
+    gathered on rank 0 and held there against the unsharded step bit for
+    bit.  Returns ``{case: {"bitwise": ..., "launches": {...}, "steps": n}}``
+    (the comparison on rank 0 only)."""
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.parallel import shard
+
+    out = {}
+    for label, walls, two in MC_DG_CASES:
+        sol = mc_dg_solver(torch, dev, GRID, torch.float32, walls)
+        u0 = bench_state(sol, torch, dev, torch.float32)
+        dt = float(sol.cfl_dt(u0))
+        mesh = mesh2 if two else mesh1
+        make = shard.make_sharded_aderdg_step_2axis if two else shard.make_sharded_aderdg_step
+        step, sh = make(sol, mesh, mesh.axis_names if two else mesh.axis_names[0])
+        u = sh.shard(u0)
+        step.accelerator.reset_launches()
+        for _ in range(MC_DG_STEPS):
+            u = step(u, dt)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in step.accelerator.launches.items() if v}
+        got = sh.gather(u, dst=0)
+        res = {"launches": launches, "steps": MC_DG_STEPS, "modes": step.side_modes}
+        if rank == 0:
+            ref = CudaADERDG(sol).run(u0, MC_DG_STEPS, dt)
+            res.update(bitwise=bool(torch.equal(got, ref)), err=max_err(torch, got, ref),
+                       finite=bool(torch.isfinite(got).all()))
+        out[f"ADER-DG {label}"] = res
+        del sol, u0, u, got, step
+        torch.cuda.empty_cache()
+    for two in (False, True):
+        mesh = mesh2 if two else mesh1
+        whole, kb = mc_fv(torch, dev)
+        sharded, _ = mc_fv(torch, dev, mesh)
+        Q0 = fv_state(torch, MC_FV_GRID, dev, torch.float32)
+        make = shard.make_sharded_cuda_step_2axis if two else shard.make_sharded_cuda_step
+        axis = mesh.axis_names if two else mesh.axis_names[0]
+        step, sh = make(kb, whole.grid, mesh, axis)
+        q = sh.shard(Q0)
+        step.kernel_fn.launches = 0
+        for _ in range(MC_FV_STEPS):
+            q = step(q, sharded.compute_dt(q) / whole.dx)
+        torch.cuda.synchronize()
+        res = {"launches": {"K4 (fv spec)": step.kernel_fn.launches}, "steps": MC_FV_STEPS}
+        got = sh.gather(q, dst=0)
+        if rank == 0:
+            ref, _ = whole.run(Q0, MC_FV_STEPS)
+            res.update(bitwise=bool(torch.equal(got, ref)), err=max_err(torch, got, ref),
+                       finite=bool(torch.isfinite(got).all()))
+        out[f"FV {'2-axis' if two else '1-axis'} with the global dt"] = res
+        del whole, sharded, Q0, q, got, step
+        torch.cuda.empty_cache()
+    plain, kern, u0 = mc_z4(torch, dev, MC_Z4_GRID, torch.float32)
+    step, sh = shard.make_sharded_xla_aderdg_step(kern, mesh1, mesh1.axis_names[0])
+    k5 = step.local_solver.rhs_all_fn
+    u = sh.shard(u0)
+    k5.reset_launches()
+    for _ in range(MC_Z4_STEPS):
+        u = step(u, MC_Z4_DT)
+    torch.cuda.synchronize()
+    res = {"launches": {k5.kernel: k5.launches}, "steps": MC_Z4_STEPS}
+    got = sh.gather(u, dst=0)
+    if rank == 0:
+        ref = kern.run(u0, MC_Z4_STEPS, MC_Z4_DT)
+        res.update(bitwise=bool(torch.equal(got, ref)), err=max_err(torch, got, ref),
+                   finite=bool(torch.isfinite(got).all()))
+    out["Z4 2-D through K5 b"] = res
+    return out
+
+
+def multichip_rank(rank: int, world: int) -> dict:
+    """One of the ranks that share the card over gloo (spawned by
+    ``run_ranks``): :func:`mc_runs` on the meshes ``(world,)`` and
+    ``(world // 2, 2)``."""
+    import torch
+
+    from exahype_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    mesh1 = make_mesh(world, device=dev)
+    mesh2 = make_mesh(shape=(world // 2, 2), axis_names=("ici", "dcn"), device=dev)
+    return mc_runs(torch, dev, mesh1, mesh2, rank)
+
+
+def mc_report(runs: dict, where: str):
+    """Print each sharded run's line and fail on a disagreement or on a
+    kernel of the path launched no time."""
+    for case, res in runs.items():
+        per_step = {k: v / res["steps"] for k, v in res["launches"].items()}
+        say(f"[mc main] {where}: {case}: {res['steps']} steps, gathered on rank 0: bitwise "
+            f"{res['bitwise']} against the unsharded step (max_abs_err {res['err']:.3e}), "
+            f"launches per step on rank 0 {per_step}"
+            + (f", side modes {res['modes']}" if "modes" in res else ""))
+        if not (res["bitwise"] and res["finite"]):
+            fail(f"the sharded {case} ({where}) is not the unsharded step bit for bit")
+        if not res["launches"] or min(res["launches"].values()) < res["steps"]:
+            fail(f"a kernel of the sharded {case} ({where}) launched less than once a step: "
+                 f"{res['launches']}")
+
+
+def multichip_path(torch, dev, card) -> list[dict]:
+    """The multichip phase: K1 e and K5 b against their plain versions, the
+    sharded steps at full width at world size 1 over NCCL (in this process)
+    and with 4 ranks sharing the card over gloo (spawned), the readings at
+    world size 1."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.parallel import shard
+    from exahype_tpu_torch.parallel.mesh import init_group, make_mesh, run_ranks
+
+    # ------------------------------------------- K1 e vs plain, every mode
+    k1e_err, f64 = 0.0, torch.float64
+    for name in MC_WALLS:
+        walls = {} if name == "periodic" else euler_walls(name, MC_CUT)
+        sol = mc_dg_solver(torch, dev, MC_CUT, f64, walls)
+        cu = CudaADERDG(sol)
+        u = bench_state(sol, torch, dev, f64)
+        new, faces, _ = cu.predictor_volume(u, 1e-4)
+        whole = cu.face_surface(new.clone(), faces, 1e-4)
+        worst, same = 0.0, True
+        for d in range(3):
+            for parts in (1, 2):
+                for p in range(parts):
+                    local, lf, ln, modes, planes = shard.window_faces(sol, faces, new, d, parts, p)
+                    lcu = CudaADERDG(local)
+                    fhat, fside = lcu.face_flux_exchanged(lf, modes, planes)
+                    got = lcu.surface_update_exchanged(ln.clone(), fhat, 1e-4, fside, modes)
+                    ref = shard.exchanged_face_surface(local, ln, lf, 1e-4, modes, planes)
+                    n = MC_CUT[d] // parts
+                    same = same and bool(torch.equal(
+                        got, whole.narrow(sol.grid_axis(d), p * n, n)))
+                    worst = max(worst, max_err(torch, got, ref) / max(1.0, ref.abs().max().item()))
+        say(f"[mc parity] aderdg_face_flux_exchanged + aderdg_surface_update_walls, {name}, "
+            f"float64 {MC_CUT}, each axis in 1 and 2 windows (walls on the windows owning "
+            f"them): max_abs_err / max(1, max|plain|) {worst:.3e} limit {F64_ATOL:.1e}; bitwise "
+            f"the unsharded kernels' face stage on every window: {same}")
+        if not (worst <= F64_ATOL and same):
+            fail(f"K1 e disagrees with its plain version or the unsharded stage ({name})")
+        k1e_err = max(k1e_err, worst)
+
+    # f32 at full width, axis 0 in 2 windows.
+    sol = mc_dg_solver(torch, dev, GRID, torch.float32, {})
+    cu = CudaADERDG(sol)
+    u0 = bench_state(sol, torch, dev, torch.float32)
+    dt = float(cu.cfl_dt(u0))
+    new, faces, _ = cu.predictor_volume(u0, dt)
+    f32_err = 0.0
+    for p in range(2):
+        local, lf, ln, modes, planes = shard.window_faces(sol, faces, new, 0, 2, p)
+        lcu = CudaADERDG(local)
+        fhat, fside = lcu.face_flux_exchanged(lf, modes, planes)
+        got = lcu.surface_update_exchanged(ln.clone(), fhat, dt, fside, modes)
+        ref = shard.exchanged_face_surface(local, ln, lf, dt, modes, planes)
+        err, limit = max_err(torch, got, ref), f32_bound(torch, ref)
+        say(f"[mc parity] K1 e float32 {GRID}, window {p} of 2 along axis 0: max_abs_err "
+            f"{err:.3e} limit {limit:.3e} ({F32_ULPS} f32 spacings of max|plain|)")
+        if not err <= limit:
+            fail("K1 e disagrees with its plain version at full width (float32)")
+        f32_err = max(f32_err, err)
+    del local, lf, ln, planes, fhat, fside, got, ref
+
+    # ------------------------------------------- K5 b vs plain
+    k5b_err = 0.0
+    for grid, dtype in ((MC_Z4_CUT, f64), (MC_Z4_GRID, torch.float32)):
+        plain, kern, u = mc_z4(torch, dev, grid, dtype)
+        calls = z4_rhs_calls(plain, u, MC_Z4_DT)
+        for i, (Q, grads, va) in enumerate(calls):
+            got, ref = kern.rhs_all_fn(Q, grads, va), plain.rhs_all_fn(Q, grads, va)
+            err = max_err(torch, got, ref)
+            limit = (Z4_F64_RTOL * max(1.0, ref.abs().max().item()) if dtype == f64
+                     else f32_bound(torch, ref))
+            say(f"[mc parity] rhs_all_z4_2d {str(dtype)[6:]} {grid} call {i} "
+                f"{tuple(Q.shape)}: max_abs_err {err:.3e} limit {limit:.3e}")
+            if not err <= limit:
+                fail(f"K5 b disagrees with its plain version ({dtype}, {grid}, call {i})")
+            if dtype == torch.float32:
+                k5b_err = max(k5b_err, err)
+    pic = calls[0]
+
+    # ------------------------------------------- world size 1, NCCL
+    with tempfile.TemporaryDirectory() as tmp:
+        init_group(0, 1, "file://" + tmp + "/rendezvous", backend="nccl", device=dev)
+        try:
+            mesh1 = make_mesh(1, device=dev)
+            mesh2 = make_mesh(shape=(1, 1), axis_names=("ici", "dcn"), device=dev)
+            runs = mc_runs(torch, dev, mesh1, mesh2, 0)
+            mc_report(runs, "world size 1, NCCL")
+
+            # Readings: the sharded step's host windows against CudaADERDG's
+            # in the same run, the exchanged pair, the pack and exchange.
+            step, sh = shard.make_sharded_aderdg_step(sol, mesh1)
+
+            class Sharded:
+                def run(self, u, n, dt):
+                    for _ in range(n):
+                        u = step(u, dt)
+                    return u
+
+            s_win = windows(torch, Sharded(), u0, dt, steps=20)
+            c_win = windows(torch, cu, u0, dt, steps=20)
+            s_win2 = windows(torch, Sharded(), u0, dt, steps=20)
+            for label, win in (("sharded step (mesh (1,), K1 e)", s_win),
+                               ("CudaADERDG.step", c_win), ("sharded step, again", s_win2)):
+                ms = [1e3 * s for s in win]
+                say(f"[mc time] world size 1, NCCL: {label} {GRID} f32: step ms per window "
+                    f"{ms!r}; median {statistics.median(ms)!r} ms ({card})")
+            acc = step.accelerator
+            modes = step.side_modes
+            planes = step.exchange_planes(faces)
+            fhat, fside = acc.face_flux_exchanged(faces, modes, planes)
+            t_flux = event_ms(torch, lambda: acc.face_flux_exchanged(faces, modes, planes), 20)
+            def pair():
+                fh, fs = acc.face_flux_exchanged(faces, modes, planes)
+                return acc.surface_update_exchanged(new.clone(), fh, dt, fs, modes)
+
+            t_pair = event_ms(torch, pair, 20)
+            t_clone = event_ms(torch, lambda: new.clone(), 20)
+            t_walls = event_ms(torch, lambda: cu.face_surface(new.clone(), faces, dt), 20)
+            t_pack = event_ms(torch, lambda: step.exchange_planes(faces), 20)
+            t_plain = event_ms(torch, lambda: shard.exchanged_face_surface(
+                sol, new, faces, dt, modes, planes), 3)
+            say(f"[mc time] world size 1, NCCL, {GRID} f32 (CUDA events): "
+                f"aderdg_face_flux_exchanged {t_flux!r} ms; the exchanged pair "
+                f"{t_pair - t_clone!r} ms (a clone of new, {t_clone!r} ms, taken out); the "
+                f"unsharded periodic pair on the same faces {t_walls - t_clone!r} ms; the pack "
+                f"and exchange of axis 0's edge rows (local copy) {t_pack!r} ms; the plain "
+                f"pair {t_plain!r} ms ({card})")
+        finally:
+            dist.destroy_process_group()
+
+    # ------------------------------------------- 4 ranks on the card, gloo
+    t0 = time.perf_counter()
+    ranks = run_ranks(multichip_rank, MC_RANKS, backend="gloo", device=dev, join_timeout=480.0)
+    say(f"[mc main] {MC_RANKS} ranks sharing the card over gloo (the planes staged through "
+        f"host memory): spawned and joined in {time.perf_counter() - t0:.1f} s (not a scaling "
+        "figure: the ranks share one card)")
+    mc_report(ranks[0], f"{MC_RANKS} ranks, gloo, meshes ({MC_RANKS},) and "
+              f"({MC_RANKS // 2}, 2)")
+    for r, res in enumerate(ranks[1:], 1):
+        for case in res:
+            if res[case]["launches"] != ranks[0][case]["launches"]:
+                fail(f"rank {r} launched {res[case]['launches']} in {case}, rank 0 "
+                     f"{ranks[0][case]['launches']}")
+
+    # ------------------------------------------- bounds and kernel lines
+    ncell = math.prod(GRID)
+    itemsize = u0.element_size()
+    nf, plane_cells = (ORDER + 1) ** 2, GRID[1] * GRID[2]
+    plane_bytes = 2 * 2 * nf * 5 * plane_cells * itemsize  # two planes, q and f
+    side_bytes = nf * 5 * plane_cells * itemsize           # fside written, then read
+    flux_work = (face_flux_bytes(ORDER, ncell, itemsize) + plane_bytes + side_bytes,
+                 face_flux_ops(ORDER, ncell) + nf * plane_cells * (2 * EIG_OPS + 6 * 5))
+    pair_work = (face_stage_bytes(ORDER, ncell, itemsize) + plane_bytes, flux_work[1]
+                 + surface_update_ops(ORDER, ncell))
+    b_flux = kernel_report(acc, "aderdg_face_flux_exchanged", torch.float32,
+                           f"(Euler, axis 0 exchanged, world size 1) {GRID} f32", t_flux,
+                           *flux_work, card)
+    b_pair = kernel_report(None, "aderdg_face_flux_exchanged + aderdg_surface_update_walls",
+                           torch.float32, f"(K1 e's pair) {GRID} f32", t_pair - t_clone,
+                           *pair_work, card)
+    k5 = kern.rhs_all_fn
+    t_k5 = event_ms(torch, lambda: k5(*pic), 20)
+    t_k5_plain = event_ms(torch, lambda: plain.rhs_all_fn(*pic), 2)
+    q_slots, grad_slots = z4_slots_read(torch, plain.rhs_all_fn)
+    Q = pic[0]
+    points = Q.numel() // Q.shape[pic[2]]
+    # The 2-D algebra reads two of the three gradient directions.
+    k5_bytes = itemsize * points * (q_slots + 2 * grad_slots // 3 + Q.shape[pic[2]])
+    k5_ops = z4_value_ops(torch, plain.rhs_all_fn, (0, 1)) * points
+    b_k5 = bound(k5_bytes, k5_ops)
+    say(f"[bound] rhs_all_z4_2d a Picard call {tuple(Q.shape)} f32: {k5_bytes} B ({q_slots} "
+        f"state slots and two directions' {2 * grad_slots // 3} gradient slots read, "
+        f"{Q.shape[pic[2]]} written), {k5_ops} operations (z4_value_ops with two gradient "
+        f"axes): bound {b_k5['bound_ms']!r} ms by {b_k5['bound_by']}; kernel {t_k5!r} ms "
+        f"({t_k5 / b_k5['bound_ms']:.2f}x), plain {t_k5_plain!r} ms (CUDA events; {card})")
+    replaces = "exahype_tpu/models/aderdg_pallas.py:156"
+    flux_launches = runs["ADER-DG periodic"]["launches"]["aderdg_face_flux_exchanged"]
+    return [
+        # (The plain ms of the flux alone is its pair's: the plain version
+        # forms the fluxes inside the surface update.)
+        kernel_line("aderdg_face_flux_exchanged (K1 e)", replaces, flux_launches, f32_err,
+                    t_flux, t_plain, b_flux),
+        kernel_line("aderdg_face_flux_exchanged + aderdg_surface_update_walls (K1 e's pair)",
+                    replaces, flux_launches, f32_err, t_pair - t_clone, t_plain, b_pair),
+        kernel_line("rhs_all_z4_2d (K5 b)", "exahype_tpu/models/rhs_pallas.py:104",
+                    runs["Z4 2-D through K5 b"]["launches"]["rhs_all_z4_2d"], k5b_err, t_k5,
+                    t_k5_plain, b_k5, "exahype_tpu_torch/csrc/rhs.cu"),
+    ]
+
+
 def main():
     import torch
 
@@ -7316,6 +7707,7 @@ def main():
         "Z4+GRHD": lambda: z4_matter_path(torch, dev, card),
         "limited Z4+GRHD": lambda: limited_z4_matter_path(torch, dev, card),
         "Z4+GRMHD": lambda: z4_grmhd_path(torch, dev, card),
+        "multichip": lambda: multichip_path(torch, dev, card),
     }
     kernels, seconds = [], {"build": time.perf_counter() - t0}
     for name, run in paths.items():

@@ -73,6 +73,10 @@ _FACE_FLUX_WALLS = _FACE_FLUX[:-1] + (_INT, _INT, _P, _P, _P, _P, _LL, _P, _P)
 # mask 0 and null pointers without walls).
 _PREDICTOR_VOLUME_VISC = _PREDICTOR_VOLUME[:-1] + (_INT, _P, _P, _LL, _P)
 _SURFACE_UPDATE_WALLS = _SURFACE_UPDATE[:-1] + (_INT, _P, _P, _P)
+# K1 e, the sharded face flux: the wall variant's arguments without fwall
+# (wall_mask, wall_mode, wall_table, wall_rows, wall_off, wall_side), then
+# modes, planes, fside, side_off and the stream.
+_FACE_FLUX_EXCHANGED = _FACE_FLUX[:-1] + (_INT, _INT, _P, _P, _P, _LL, _P, _P, _P, _P, _P)
 # The Z4 face stages (csrc/aderdg_z4*.cu): the periodic entries' arguments
 # with the NCP half-fluctuations fhalf after fhat.
 _FACE_FLUX_Z4 = _FACE_FLUX[:2] + (_P,) + _FACE_FLUX[2:]
@@ -96,6 +100,8 @@ _RHS_ALL = (
     _P, _P, _P, _P, _P, _LL, _INT, _LL, _INT, ctypes.c_double, ctypes.c_double,
     ctypes.c_double, ctypes.c_double, _P,
 )
+# K5 b, the 2-D instance: the same without g2.
+_RHS_ALL_2D = _RHS_ALL[:3] + _RHS_ALL[4:]
 # The shifted instance: the same, then before the stream shift, f_b, eta.
 _RHS_ALL_SHIFT = _RHS_ALL[:-1] + (_INT, ctypes.c_double, ctypes.c_double, _P)
 # The Z4+GRHD instance: the same, then before the stream gamma, iters.
@@ -118,6 +124,7 @@ _SIGNATURES = {
         ("aderdg_surface_update", _SURFACE_UPDATE),
         ("aderdg_face_flux_walls", _FACE_FLUX_WALLS),
         ("aderdg_surface_update_walls", _SURFACE_UPDATE_WALLS),
+        ("aderdg_face_flux_exchanged", _FACE_FLUX_EXCHANGED),
         ("aderdg_predictor_volume_z4", _PREDICTOR_VOLUME),
         ("aderdg_face_flux_z4", _FACE_FLUX_Z4),
         ("aderdg_surface_update_z4", _SURFACE_UPDATE_Z4),
@@ -142,6 +149,7 @@ _SIGNATURES = {
         ("subcell_row_sweep", _ROW_SWEEP),
         ("subcell_row_sweep_z4_matter", _ROW_SWEEP_Z4_MATTER),
         ("rhs_all_z4", _RHS_ALL),
+        ("rhs_all_z4_2d", _RHS_ALL_2D),
         ("rhs_all_z4_shift", _RHS_ALL_SHIFT),
         ("rhs_all_z4_matter", _RHS_ALL_MATTER),
         ("rhs_all_z4_grmhd", _RHS_ALL_GRMHD),

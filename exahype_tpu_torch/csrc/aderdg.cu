@@ -37,6 +37,12 @@
 //                            F̂ and its lower neighbours'.
 //   aderdg_face_flux_walls, aderdg_surface_update_walls
 //                            the face stage on a grid with domain walls.
+//   aderdg_face_flux_exchanged
+//                            K1 e: the face flux of a rank's window of a
+//                            grid split over ranks (parallel/shard.py), each
+//                            side of each axis periodic, a wall, or a face
+//                            row received from the neighbour rank; the
+//                            update is aderdg_surface_update_walls.
 //
 // What bounds them on the H100.  The predictor is compute-bound: ~3e5 flops
 // per cell per step (4 Picard iterations of flux evaluations and 4-point
@@ -1048,6 +1054,152 @@ aderdg_surface_update_walls(T* __restrict__ state, const T* __restrict__ fhat,
   }
 }
 
+// K1 e: the face stage of a rank's window of a grid whose axes are split
+// over ranks (exahype_tpu_torch/parallel/shard.py), the counterpart of the
+// TPU kernel's epilogue_axes.  Each side of each axis is periodic, a
+// domain wall this rank owns, or exchanged: the neighbour's face row is a
+// plane the rank received.  aderdg_face_flux_exchanged solves every face
+// of the window once, as aderdg_face_flux_walls does, except that on an
+// exchanged side the last row's right state is the +d neighbour's first
+// row's (q_lo, f_lo) and the first row solves its low interface itself,
+// the −d neighbour's last row's (q_hi, f_hi) on the left and its own low
+// face on the right, into X.fside.  That flux is the same expression on
+// the same operands as the neighbour's own high face, so the step matches
+// the unsharded one bit for bit; the update is aderdg_surface_update_walls
+// with F̂_lo read from X.fside on every axis whose low side is not periodic.
+enum SideMode : int { kPeriodicSide = 0, kWallSide = 1, kExchangedSide = 2 };
+
+template <typename T>
+struct ExchangeParams {
+  int mode[kDim][2];        // SideMode of (axis, side): side 0 low, 1 high
+  const T* plane[kDim][2];  // kExchangedSide: the received row [2 (q, f)][n²][V][plane]
+  T* fside;                 // the first row's low fluxes [axis][n²][V][plane]
+  long long off[kDim];      // element offset of axis d's block in fside
+};
+
+// X.mode[d][side] and X.plane[d][side] for a thread-dependent d (see
+// select_row).
+template <typename T>
+__device__ __forceinline__ int side_mode(const ExchangeParams<T>& X, int d, int side) {
+  int out = X.mode[0][side];
+#pragma unroll
+  for (int i = 1; i < kDim; ++i) {
+    if (i == d) out = X.mode[i][side];
+  }
+  return out;
+}
+
+template <typename T>
+__device__ __forceinline__ const T* side_plane(const ExchangeParams<T>& X, int d, int side) {
+  const T* out = X.plane[0][side];
+#pragma unroll
+  for (int i = 1; i < kDim; ++i) {
+    if (i == d) out = X.plane[i][side];
+  }
+  return out;
+}
+
+template <typename T>
+__device__ __forceinline__ long long side_offset(const ExchangeParams<T>& X, int d) {
+  long long out = X.off[0];
+#pragma unroll
+  for (int i = 1; i < kDim; ++i) {
+    if (i == d) out = X.off[i];
+  }
+  return out;
+}
+
+// The Rusanov flux between left state (qa, fa) and right state (qb, fb)
+// along d, rows 0..R-1, to out[v * stride]: the expression of
+// aderdg_face_flux, operand for operand.
+template <typename T, typename Phys>
+__device__ __forceinline__ void rusanov(const Phys& phys, const T* qa, const T* qb,
+                                        const T* fa, const T* fb, int d, T* out,
+                                        long long stride) {
+  T s = dmax(phys.max_eigenvalue(qa, d), phys.max_eigenvalue(qb, d));
+  if constexpr (Phys::kViscous) s = s + phys.penalty(qa, qb, d);
+#pragma unroll
+  for (int v = 0; v < Phys::kFluxRows; ++v) {
+    T dq = qb[v] - qa[v];
+    if constexpr (Phys::kMasked) dq = dq * Phys::dissipation(v);
+    out[v * stride] = T(0.5) * (fa[v] + fb[v]) - T(0.5) * s * dq;
+  }
+}
+
+template <typename T, int NN, typename Phys>
+__global__ void __launch_bounds__(kTile * kFluxNodes)
+aderdg_face_flux_exchanged(const T* __restrict__ faces, T* __restrict__ fhat,
+                           const Params<T, NN, Phys> P, const WallParams<T, Phys::V> W,
+                           const ExchangeParams<T> X) {
+  constexpr int NF = NN * NN;
+  constexpr int V = Phys::V;
+  constexpr int R = Phys::kFluxRows;
+  const TileCell tc(blockIdx.x, P.g);
+  if (!tc.inside) return;  // no barrier here
+  const int d = blockIdx.y / (NF / kFluxNodes);
+  const int m = (blockIdx.y % (NF / kFluxNodes)) * kFluxNodes + threadIdx.y;
+  const long long ncell = P.ncell;
+  const long long cell = tc.cell;
+  const int lo_mode = side_mode(X, d, 0);
+  const int hi_mode = side_mode(X, d, 1);
+  const T* base = faces + static_cast<long long>(d * 4 * NF + m) * V * ncell;
+  const long long wstride = static_cast<long long>(NF * V) * ncell;
+  T qa[V], qb[V], fa[R], fb[R];  // a: my high face, b: the right state
+#pragma unroll
+  for (int v = 0; v < V; ++v) qa[v] = base[wstride + v * ncell + cell];
+#pragma unroll
+  for (int v = 0; v < R; ++v) fa[v] = base[3 * wstride + v * ncell + cell];
+  const bool last = tc.at(d) == tc.extent(d) - 1;
+  if (last && hi_mode == kWallSide) {  // the high wall
+    wall_ghost<T, Phys>(W, P.phys, d, 1, m, tc.plane(d), tc.plane_index(d), qa, fa, qb, fb);
+  } else if (last && hi_mode == kExchangedSide) {  // the +d neighbour's first row
+    const long long plane = tc.plane(d);
+    const T* row = side_plane(X, d, 1) + static_cast<long long>(m) * V * plane + tc.plane_index(d);
+    const long long fstride = static_cast<long long>(NF * V) * plane;
+#pragma unroll
+    for (int v = 0; v < V; ++v) qb[v] = row[v * plane];
+#pragma unroll
+    for (int v = 0; v < R; ++v) fb[v] = row[fstride + v * plane];
+  } else {
+    const long long plus = tc.neighbour(d, 1);
+#pragma unroll
+    for (int v = 0; v < V; ++v) qb[v] = base[v * ncell + plus];
+#pragma unroll
+    for (int v = 0; v < R; ++v) fb[v] = base[2 * wstride + v * ncell + plus];
+  }
+  if (tc.at(d) == 0 && lo_mode != kPeriodicSide) {  // the first row's low face
+    const long long plane = tc.plane(d);
+    const long long p = tc.plane_index(d);
+    T* w = X.fside + side_offset(X, d) + static_cast<long long>(m) * V * plane + p;
+    T ql[V], fl[R], gq[V], gf[R];  // my low face; the left state
+#pragma unroll
+    for (int v = 0; v < V; ++v) ql[v] = base[v * ncell + cell];
+#pragma unroll
+    for (int v = 0; v < R; ++v) fl[v] = base[2 * wstride + v * ncell + cell];
+    if (lo_mode == kWallSide) {  // aderdg_face_flux_walls's low wall, operand for operand
+      wall_ghost<T, Phys>(W, P.phys, d, 0, m, plane, p, ql, fl, gq, gf);
+      T sw = dmax(P.phys.max_eigenvalue(ql, d), P.phys.max_eigenvalue(gq, d));
+      if constexpr (Phys::kViscous) sw = sw + P.phys.penalty(ql, gq, d);
+#pragma unroll
+      for (int v = 0; v < R; ++v) {
+        T dq = ql[v] - gq[v];
+        if constexpr (Phys::kMasked) dq = dq * Phys::dissipation(v);
+        w[v * plane] = T(0.5) * (gf[v] + fl[v]) - T(0.5) * sw * dq;
+      }
+    } else {  // the −d neighbour's last row's high face on the left
+      const T* row = side_plane(X, d, 0) + static_cast<long long>(m) * V * plane + p;
+      const long long fstride = static_cast<long long>(NF * V) * plane;
+#pragma unroll
+      for (int v = 0; v < V; ++v) gq[v] = row[v * plane];
+#pragma unroll
+      for (int v = 0; v < R; ++v) gf[v] = row[fstride + v * plane];
+      rusanov<T, Phys>(P.phys, gq, ql, gf, fl, d, w, plane);
+    }
+  }
+  rusanov<T, Phys>(P.phys, qa, qb, fa, fb, d,
+                   fhat + static_cast<long long>(d * NF + m) * V * ncell + cell, ncell);
+}
+
 // Host side ---------------------------------------------------------------
 
 // The face stage's wall description from the C interface's arguments (see
@@ -1335,6 +1487,59 @@ int surface_update(T* state, const T* fhat, const T* dt_ptr, double dt_val, cons
   }
 }
 
+// K1 e's launch: the walled pair's grid and block (order 3 only).
+template <typename T, typename Phys>
+Shape face_flux_exchanged_shape() {
+  return {reinterpret_cast<const void*>(aderdg_face_flux_exchanged<T, kNN, Phys>),
+          dim3(kTile, kFluxNodes), 0};
+}
+
+// K1 e's arguments (see the C interface): a known mode for each side; a
+// wall side only on a walled axis, and a walled axis's sides walls or
+// exchanged; a plane for each exchanged side; fside and its offsets when a
+// low side is not periodic; the ghost tables for the walls.
+template <typename T, typename Phys>
+int face_flux_exchanged_of(const T* faces, T* fhat, const double* ops, const double* dx,
+                           int order, const double* params, long long g0, long long g1,
+                           long long g2, int wall_mask, int wall_mode, const double* wall_table,
+                           const T* wall_rows, const long long* wall_off, long long wall_side,
+                           const int* modes, const T* const* planes, T* fside,
+                           const long long* side_off, void* stream) {
+  if (modes == nullptr || planes == nullptr || wall_mask < 0 || wall_mask > 7 ||
+      bad_ghosts(wall_mask, wall_mode, wall_table, wall_rows) ||
+      (wall_mask != 0 && wall_off == nullptr))
+    return cudaErrorInvalidValue;
+  ExchangeParams<T> X{};
+  bool any_lo = false;
+  for (int d = 0; d < kDim; ++d) {
+    const bool walled = (wall_mask >> d) & 1;
+    for (int side = 0; side < 2; ++side) {
+      const int mode = modes[2 * d + side];
+      if (mode != kPeriodicSide && mode != kWallSide && mode != kExchangedSide)
+        return cudaErrorInvalidValue;
+      if ((mode == kWallSide) != walled && !(walled && mode == kExchangedSide))
+        return cudaErrorInvalidValue;
+      if (mode == kExchangedSide && planes[2 * d + side] == nullptr) return cudaErrorInvalidValue;
+      X.mode[d][side] = mode;
+      X.plane[d][side] = planes[2 * d + side];
+    }
+    any_lo = any_lo || X.mode[d][0] != kPeriodicSide;
+  }
+  if (any_lo && (fside == nullptr || side_off == nullptr)) return cudaErrorInvalidValue;
+  X.fside = fside;
+  for (int d = 0; d < kDim; ++d) X.off[d] = side_off == nullptr ? 0 : side_off[d];
+  const long long tiles = face_tiles<kNN>(order, g0, g1, g2);
+  if (tiles == 0) return cudaErrorInvalidValue;
+  const auto W = make_walls<T, Phys::V>(wall_mask, wall_mode, wall_table, wall_rows, nullptr,
+                                        wall_off, wall_side);
+  const auto P = make_params<T, kNN, Phys>(ops, dx, 0, params, g0, g1, g2);
+  const Shape sh = face_flux_exchanged_shape<T, Phys>();
+  const dim3 grid(static_cast<unsigned>(tiles), kDim * kNN * kNN / kFluxNodes);
+  aderdg_face_flux_exchanged<T, kNN, Phys>
+      <<<grid, sh.block, 0, static_cast<cudaStream_t>(stream)>>>(faces, fhat, P, W, X);
+  return cudaGetLastError();
+}
+
 // The order-5 Euler face stage (NN = 6), periodic: the second and third
 // launches of a step on csrc/aderdg_st.cuh's predictor.
 constexpr int kNN5 = 6;
@@ -1523,6 +1728,8 @@ int kernel_info(int kernel, int physics, int* out) {
       return shape_info(euler ? surface_update_shape<T, E, true>()
                               : surface_update_shape<T, H, true>(),
                         out);
+    case 33:
+      return euler ? shape_info(face_flux_exchanged_shape<T, E>(), out) : cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
@@ -1711,6 +1918,43 @@ int exahype_aderdg_surface_update_walls_f64(double* state, const double* fhat,
                                 g0, g1, g2, wall_mask, fwall, wall_off, stream);
 }
 
+// K1 e, the face flux of a rank's window of a sharded grid (physics 0, 3-D
+// Euler, at order 3 only): face_flux_walls's arguments but fwall, then
+// modes (int [3][2]: 0 periodic, 1 a wall this rank owns, 2 exchanged, of
+// each axis's low and high side), planes (pointers [3][2]: for an
+// exchanged side the received face row [2 (q, f)][n²][n_vars][plane], the
+// low side's from the −d neighbour's last row's high faces, the high
+// side's from the +d neighbour's first row's low faces; null elsewhere),
+// fside (the first row's low-face fluxes of each axis whose low side is
+// not periodic, [axis][n²][n_vars][plane], axis d's block at element
+// side_off[d]).  wall_mask marks the solver's walled axes (0: none), whose
+// sides are walls or exchanged.  surface_update_walls with wall_mask = the
+// axes whose low side is not periodic, fwall = fside and wall_off =
+// side_off completes the step.
+int exahype_aderdg_face_flux_exchanged_f32(
+    const float* faces, float* fhat, const double* ops, const double* dx, int order,
+    int physics, const double* params, long long g0, long long g1, long long g2, int wall_mask,
+    int wall_mode, const double* wall_table, const float* wall_rows, const long long* wall_off,
+    long long wall_side, const int* modes, const float* const* planes, float* fside,
+    const long long* side_off, void* stream) {
+  if (physics != kEuler) return cudaErrorInvalidValue;
+  return face_flux_exchanged_of<float, EulerPhysics<float>>(
+      faces, fhat, ops, dx, order, params, g0, g1, g2, wall_mask, wall_mode, wall_table,
+      wall_rows, wall_off, wall_side, modes, planes, fside, side_off, stream);
+}
+
+int exahype_aderdg_face_flux_exchanged_f64(
+    const double* faces, double* fhat, const double* ops, const double* dx, int order,
+    int physics, const double* params, long long g0, long long g1, long long g2, int wall_mask,
+    int wall_mode, const double* wall_table, const double* wall_rows, const long long* wall_off,
+    long long wall_side, const int* modes, const double* const* planes, double* fside,
+    const long long* side_off, void* stream) {
+  if (physics != kEuler) return cudaErrorInvalidValue;
+  return face_flux_exchanged_of<double, EulerPhysics<double>>(
+      faces, fhat, ops, dx, order, params, g0, g1, g2, wall_mask, wall_mode, wall_table,
+      wall_rows, wall_off, wall_side, modes, planes, fside, side_off, stream);
+}
+
 // The order-5 Euler face stage (physics 0 only; order must be 5): the
 // periodic entries' arguments and layouts at n = 6, for the predictor of
 // csrc/aderdg_p5.cu.
@@ -1824,7 +2068,8 @@ int exahype_aderdg_surface_update_p2_f64(double* state, const double* fhat,
 // heterogeneous one at order 2, K2 b.1): 29 = ck_predictor_volume_p2, 30 =
 // face_flux_p2, 31 = surface_update_p2; physics 9 and 10 (the 2-D
 // heterogeneous and curvilinear elasticity, K2 b.1): 32 and 23-24, and for
-// physics 9 also 25-26; f64 = 0 or 1.
+// physics 9 also 25-26; physics 0: 33 = face_flux_exchanged (K1 e, the
+// sharded face stage, whose update is 5); f64 = 0 or 1.
 int exahype_aderdg_kernel_info(int kernel, int f64, int physics, int* out) {
   return f64 ? kernel_info<double>(kernel, physics, out)
              : kernel_info<float>(kernel, physics, out);

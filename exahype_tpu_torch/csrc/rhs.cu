@@ -7,6 +7,9 @@
 // 47-variable coupled Z4+GRMHD one (rhs_all_z4_grmhd, K5 e: the
 // field-aligned con2prim Newton of csrc/rmhd.cuh inside the kernel).
 //
+// K5 b, rhs_all_z4_2d, is the 38-variable instance on a 2-D grid: two
+// gradient arrays, the third axis's derivatives a run-time zero.
+//
 // Replaces the TPU kernel exahype_tpu/models/rhs_pallas.py::PallasRHS._build
 // (its pallas_call) on those instances.  The numbers to match are those of
 // exahype_tpu/models/z4.py::z4_rhs_soa and ::z4_shift_rhs_soa and
@@ -127,6 +130,28 @@ rhs_all_z4_grmhd(const T* __restrict__ q, const T* __restrict__ g0, const T* __r
   z4gm::rhs<T>(load_q, load_dq, p, store);
 }
 
+// K5 b: the 38-variable instance on a 2-D grid, two gradient arrays.  The
+// algebra is 3-D; the derivatives along the absent third axis are zero, as
+// the plain version zero-fills them (models/z4.py::_rhs_all_of).  The zero
+// comes in at run time (`zero`, which the launcher sets to 0): a zero the
+// compiler saw would fold the products it enters, and f32 would then round
+// the terms the plain version keeps (x·0 = 0 exactly, its sums unchanged)
+// otherwise than it; with it, the instance is rhs_all_z4's code.
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+rhs_all_z4_2d(const T* __restrict__ q, const T* __restrict__ g0, const T* __restrict__ g1,
+              T* __restrict__ out, long long n_points, long long G, z4::Params p, T zero) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  if (idx >= n_points) return;
+  const long long b = idx / G;
+  const long long base = b * z4::kVars * G + (idx - b * G);
+  const T* const grads[2] = {g0, g1};
+  auto load_q = [&](int s) { return q[base + s * G]; };
+  auto load_dq = [&](int k, int s) { return k == 2 ? zero : grads[k][base + s * G]; };
+  auto store = [&](int s, T v) { out[base + s * G] = v; };
+  z4::rhs<T>(load_q, load_dq, p, store);
+}
+
 template <typename T>
 int launch(const T* q, const T* g0, const T* g1, const T* g2, T* out, long long n_lead,
            int n_vars, long long n_grid, int slicing, double f, double m, double kappa1,
@@ -139,6 +164,22 @@ int launch(const T* q, const T* g0, const T* g1, const T* g2, T* out, long long 
   const z4::Params p{slicing, f, m, kappa1, kappa2};
   rhs_all_z4<T><<<static_cast<unsigned>(blocks), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       q, g0, g1, g2, out, n_points, n_grid, p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_2d(const T* q, const T* g0, const T* g1, T* out, long long n_lead, int n_vars,
+              long long n_grid, int slicing, double f, double m, double kappa1, double kappa2,
+              void* stream) {
+  if (n_vars != z4::kVars || n_lead <= 0 || n_grid <= 0 || (slicing != 0 && slicing != 1)) {
+    return cudaErrorInvalidValue;
+  }
+  const long long n_points = n_lead * n_grid;
+  const long long blocks = (n_points + kBlock - 1) / kBlock;
+  const z4::Params p{slicing, f, m, kappa1, kappa2};
+  rhs_all_z4_2d<T><<<static_cast<unsigned>(blocks), kBlock, 0,
+                     static_cast<cudaStream_t>(stream)>>>(q, g0, g1, out, n_points, n_grid, p,
+                                                          T(0));
   return cudaGetLastError();
 }
 
@@ -216,6 +257,23 @@ int exahype_rhs_all_z4_f64(const double* q, const double* g0, const double* g1,
                            double kappa2, void* stream) {
   return launch<double>(q, g0, g1, g2, out, n_lead, n_vars, n_grid, slicing, f, m, kappa1,
                         kappa2, stream);
+}
+
+// K5 b, the 38-variable instance on a 2-D grid: the same without g2 (the
+// third axis's derivatives are zero).
+
+int exahype_rhs_all_z4_2d_f32(const float* q, const float* g0, const float* g1, float* out,
+                              long long n_lead, int n_vars, long long n_grid, int slicing,
+                              double f, double m, double kappa1, double kappa2, void* stream) {
+  return launch_2d<float>(q, g0, g1, out, n_lead, n_vars, n_grid, slicing, f, m, kappa1, kappa2,
+                          stream);
+}
+
+int exahype_rhs_all_z4_2d_f64(const double* q, const double* g0, const double* g1, double* out,
+                              long long n_lead, int n_vars, long long n_grid, int slicing,
+                              double f, double m, double kappa1, double kappa2, void* stream) {
+  return launch_2d<double>(q, g0, g1, out, n_lead, n_vars, n_grid, slicing, f, m, kappa1,
+                           kappa2, stream);
 }
 
 // The shifted instance: the same, n_vars = 53, and after kappa2 the shift

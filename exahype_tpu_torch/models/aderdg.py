@@ -64,6 +64,14 @@ def _project(vec, x, axis):
     return torch.tensordot(vec.to(x.dtype), x, dims=([0], [axis]))
 
 
+def _shift(shift, x, sh, axis):
+    """``x`` shifted by ``sh`` along ``axis``: the periodic ``torch.roll``,
+    or the caller's ``shift(x, sh, axis)`` (a rank's edge exchange)."""
+    if shift is None:
+        return torch.roll(x, sh, axis)
+    return shift(x, sh, axis)
+
+
 def _replace_row(x, row, axis, pos):
     """``x`` with its index ``pos`` along ``axis`` replaced by ``row`` (a
     size-1 slice), out of place."""
@@ -768,7 +776,7 @@ class ADERDGSolver(nn.Module):
         return new, faces, fvwall
 
     def face_surface(self, new, faces, dt, return_face_fluxes: bool = False,
-                     fvwall=None):
+                     fvwall=None, shifts=None):
         """Neighbour half of the step (the plain version of the face stage,
         ``aderdg_face_flux`` + ``aderdg_surface_update``): the Rusanov flux
         of every face and the surface update, axis by axis.  Returns the
@@ -776,13 +784,17 @@ class ADERDGSolver(nn.Module):
         ``return_face_fluxes`` also each axis's high-face fluxes (see
         :meth:`face_update`).  ``fvwall``: the viscous-only wall fluxes of
         :meth:`predictor_volume`, which a solver that
-        :attr:`splits_wall_viscosity` needs and no other takes."""
+        :attr:`splits_wall_viscosity` needs and no other takes.
+        ``shifts``: ``{d: (shift, holds_lo_wall, holds_hi_wall)}`` for the
+        grid axes whose neighbours lie on other ranks (see
+        :meth:`face_update`; the sharded steps of ``parallel/shard.py``)."""
         if (fvwall is not None) != self.splits_wall_viscosity:
             raise SemanticError(
                 "fvwall (the viscous-only wall fluxes of predictor_volume) goes "
                 "with a viscous solver with walls, and only with one"
             )
         visc_rows = self.visc_wall_rows(fvwall) if fvwall is not None else {}
+        shifts = shifts or {}
         fshape = self.face_flux_shape
         fluxes = []
         for d in range(self.dim):
@@ -790,27 +802,41 @@ class ADERDGSolver(nn.Module):
                 faces[d, k].reshape(fshape) for k in range(4)
             )
             fv_lo, fv_hi = visc_rows.get(d, (None, None))
+            shift, holds_lo, holds_hi = shifts.get(d, (None, True, True))
             new, fhat_hi = self.face_update(new, q_lo, q_hi, f_lo, f_hi, d, dt,
-                                            fv_lo=fv_lo, fv_hi=fv_hi)
+                                            fv_lo=fv_lo, fv_hi=fv_hi, shift=shift,
+                                            holds_lo_wall=holds_lo, holds_hi_wall=holds_hi)
             fluxes.append(fhat_hi)
         if return_face_fluxes:
             return new, fluxes
         return new
 
-    def step(self, u, dt, return_face_fluxes: bool = False):
+    def step(self, u, dt, return_face_fluxes: bool = False, axis0_shift=None,
+             axis0_wall_gates=None):
         """One ADER-DG time step (predictor + volume + Riemann + corrector).
 
         ``return_face_fluxes=True`` also returns the per-direction high-face
         Rusanov fluxes ``fhat_hi`` (:attr:`face_flux_shape` each), as the
         JAX solver does, for the limiter's interface matching.
 
+        ``axis0_shift`` / ``axis0_wall_gates``: the multi-rank hooks of the
+        JAX solver (``parallel/shard.py::make_sharded_xla_aderdg_step``).
+        When the grid's axis 0 is split over ranks, every stage of the step
+        is rank-local except the axis-0 neighbour access of the face stage:
+        pass the edge-exchange shift and whether this rank holds the low and
+        the high domain wall, ``(holds_lo, holds_hi)``.
+
         The JAX solver interleaves each axis's volume and surface terms;
         here all volume terms come first, as in the kernels, which moves
         the sum's rounding only."""
         new, faces, fvwall = self.predictor_volume(u, dt)
-        return self.face_surface(new, faces, dt, return_face_fluxes, fvwall)
+        shifts = None
+        if axis0_shift is not None:
+            shifts = {0: (axis0_shift, *(axis0_wall_gates or (True, True)))}
+        return self.face_surface(new, faces, dt, return_face_fluxes, fvwall, shifts)
 
-    def face_update(self, new, q_lo, q_hi, f_lo, f_hi, d, dt, fv_lo=None, fv_hi=None):
+    def face_update(self, new, q_lo, q_hi, f_lo, f_hi, d, dt, fv_lo=None, fv_hi=None,
+                    shift=None, holds_lo_wall=True, holds_hi_wall=True):
         """Riemann solve + surface (and NCP-fluctuation) corrector update
         for direction ``d`` from face-extrapolated time-averaged state/flux
         (periodic neighbours, or the wall ghosts on a wall axis).  Returns
@@ -819,37 +845,46 @@ class ADERDGSolver(nn.Module):
         (:attr:`face_flux_shape`; on a wall axis its last row is the
         high-wall flux).  ``fv_lo`` / ``fv_hi`` (a viscous solver's wall
         axis): the viscous-only flux of the first row's low faces and the
-        last row's high faces, one face row each."""
-        fhat_hi = self.interface_flux(q_lo, q_hi, f_lo, f_hi, d, fv_hi)
-        fhat_wall = self.low_wall_flux(q_lo, f_lo, d, fv_lo)
-        new = self.surface_term(new, fhat_hi, d, dt, fhat_wall)
+        last row's high faces, one face row each.
+
+        ``shift(x, sh, axis)`` is the neighbour access along ``d`` (the
+        periodic ``torch.roll`` when None; the sharded steps pass a local
+        roll whose edge row comes from the neighbouring rank).
+        ``holds_lo_wall`` / ``holds_hi_wall``: whether this rank owns the
+        low and the high domain wall of a wall axis; where it does not, the
+        first row's low flux and the last row's right state are the
+        exchanged ones (the JAX solver's ``_gate``)."""
+        fhat_hi = self.interface_flux(q_lo, q_hi, f_lo, f_hi, d, fv_hi, shift, holds_hi_wall)
+        fhat_wall = self.low_wall_flux(q_lo, f_lo, d, fv_lo) if holds_lo_wall else None
+        new = self.surface_term(new, fhat_hi, d, dt, fhat_wall, shift)
         if self.ncp_fn is not None:
             # Path-conservative face fluctuations: the central parts
             # ½·B(q̃)·Δq at the segment midpoint q̃ go one to each side (the
             # ±½sΔq dissipation is already in the Rusanov f̂).  At a high
             # wall q_plus is the ghost; the low wall has its own.
-            half = self.ncp_half(q_lo, q_hi, f_lo, f_hi, d)
+            half = self.ncp_half(q_lo, q_hi, f_lo, f_hi, d, shift, holds_hi_wall)
             half_w = None
-            if self.is_wall(d):
+            if self.is_wall(d) and holds_lo_wall:
                 face_grid_ax = self.grid_axis(d) - 1
                 face_va = self.var_axis - 1
                 first = q_lo.narrow(face_grid_ax, 0, 1)
                 ghost = self._wall_ghost(first, d, 0, face_va)
                 half_w = 0.5 * self.ncp_fn(0.5 * (ghost + first), first - ghost, d, face_va)
-            new = self.ncp_term(new, half, d, dt, half_w)
+            new = self.ncp_term(new, half, d, dt, half_w, shift)
         return new, fhat_hi
 
-    def ncp_half(self, q_lo, q_hi, f_lo, f_hi, d):
+    def ncp_half(self, q_lo, q_hi, f_lo, f_hi, d, shift=None, holds_hi_wall=True):
         """The NCP half-fluctuation ``½·B(q̃)·(q⁺ − q_hi)`` at each cell's
         high face along ``d``, q̃ = ½(q_hi + q⁺) (:attr:`face_flux_shape`;
         q⁺ as :meth:`_plus` gives it): the plain version of the Z4 face flux
         kernel's second output."""
         face_va = self.var_axis - 1
-        q_plus, _ = self._plus(q_lo, q_hi, f_lo, f_hi, d)
+        q_plus, _ = self._plus(q_lo, q_hi, f_lo, f_hi, d, shift=shift,
+                               holds_hi_wall=holds_hi_wall)
         mid = 0.5 * (q_hi + q_plus)
         return 0.5 * self.ncp_fn(mid, q_plus - q_hi, d, face_va)
 
-    def ncp_term(self, new, half, d, dt, half_wall=None):
+    def ncp_term(self, new, half, d, dt, half_wall=None, shift=None):
         """``new − λ(ℓ_i(1)/w_i h_hi + ℓ_i(0)/w_i h_lo)`` along ``d``, h_hi
         the high-face ``half`` (:meth:`ncp_half`), h_lo the −d neighbour's,
         or in the first row ``half_wall`` where given (the plain version of
@@ -857,7 +892,7 @@ class ADERDGSolver(nn.Module):
         lam = dt / self._dxs[d]
         node_ax = self.node_axis(d)
         face_grid_ax = self.grid_axis(d) - 1
-        half_lo = torch.roll(half, 1, face_grid_ax)
+        half_lo = _shift(shift, half, 1, face_grid_ax)
         if half_wall is not None:
             half_lo = _replace_row(half_lo, half_wall, face_grid_ax, 0)
         phi1_w, phi0_w = self._surface_weights(new, d)
@@ -866,16 +901,17 @@ class ADERDGSolver(nn.Module):
             + phi0_w * half_lo.unsqueeze(node_ax)
         )
 
-    def _plus(self, q_lo, q_hi, f_lo, f_hi, d, fv_hi=None):
+    def _plus(self, q_lo, q_hi, f_lo, f_hi, d, fv_hi=None, shift=None, holds_hi_wall=True):
         """The right state and flux of each cell's high face: the +d
-        neighbour's low face (periodic), and on a wall axis the high-wall
-        ghost of my own high face in the last row (with ``fv_hi``, the
-        ghost flux hook on the advective part only, the viscous part the
-        interior one-sided value)."""
+        neighbour's low face (periodic, or through ``shift``), and on a wall
+        axis the high-wall ghost of my own high face in the last row (with
+        ``fv_hi``, the ghost flux hook on the advective part only, the
+        viscous part the interior one-sided value) where this rank
+        ``holds_hi_wall``."""
         face_grid_ax = self.grid_axis(d) - 1
-        q_plus = torch.roll(q_lo, -1, face_grid_ax)
-        f_plus = torch.roll(f_lo, -1, face_grid_ax)
-        if self.is_wall(d):
+        q_plus = _shift(shift, q_lo, -1, face_grid_ax)
+        f_plus = _shift(shift, f_lo, -1, face_grid_ax)
+        if self.is_wall(d) and holds_hi_wall:
             face_va = self.var_axis - 1
             g = q_hi.shape[face_grid_ax]
             last = q_hi.narrow(face_grid_ax, g - 1, 1)
@@ -907,16 +943,23 @@ class ADERDGSolver(nn.Module):
             s = s + 2.0 * (2 * self.order + 1) / self._dxs[d] * kappa
         return s.unsqueeze(face_va)
 
-    def interface_flux(self, q_lo, q_hi, f_lo, f_hi, d, fv_hi=None):
+    def interface_flux(self, q_lo, q_hi, f_lo, f_hi, d, fv_hi=None, shift=None,
+                       holds_hi_wall=True):
         """The Rusanov flux through each cell's high face along ``d``
         (:attr:`face_flux_shape`; the plain version of the
         ``aderdg_face_flux`` kernel, one axis): left state my high face,
         right state the +d neighbour's low face, or the high-wall ghost
-        (``fv_hi``: see :meth:`_plus`)."""
-        q_plus, f_plus = self._plus(q_lo, q_hi, f_lo, f_hi, d, fv_hi)
-        s_hi = self._speed(q_hi, q_plus, d)
-        dq = self._masked(q_plus - q_hi)
-        return 0.5 * (f_hi + f_plus) - 0.5 * s_hi * dq
+        (``fv_hi``, ``shift``, ``holds_hi_wall``: see :meth:`_plus`)."""
+        q_plus, f_plus = self._plus(q_lo, q_hi, f_lo, f_hi, d, fv_hi, shift, holds_hi_wall)
+        return self.rusanov(q_hi, q_plus, f_hi, f_plus, d)
+
+    def rusanov(self, q_left, q_right, f_left, f_right, d):
+        """The Rusanov flux along ``d`` of faces with the left state and
+        flux ``q_left``, ``f_left`` and the right ``q_right``, ``f_right``
+        (face layout, the jump masked)."""
+        s = self._speed(q_left, q_right, d)
+        dq = self._masked(q_right - q_left)
+        return 0.5 * (f_left + f_right) - 0.5 * s * dq
 
     def low_wall_flux(self, q_lo, f_lo, d, fv_lo=None):
         """The Rusanov flux through the low wall of axis ``d`` (the first
@@ -941,15 +984,16 @@ class ADERDGSolver(nn.Module):
             wall_gf = self._wall_ghost_flux(f_first, d, 0, face_va)
         return 0.5 * (wall_gf + f_first) - 0.5 * s_w * dq_w
 
-    def surface_term(self, new, fhat_hi, d, dt, fhat_wall=None):
+    def surface_term(self, new, fhat_hi, d, dt, fhat_wall=None, shift=None):
         """``new − (λ/w_i)(ℓ_i(1) F̂_hi − ℓ_i(0) F̂_lo)`` along ``d``, F̂_lo
-        being the −d neighbour's F̂_hi, or in the first row ``fhat_wall``
+        being the −d neighbour's F̂_hi (periodic, or through ``shift``), or
+        in the first row ``fhat_wall``
         (:meth:`low_wall_flux`) where given (the plain version of the
         ``aderdg_surface_update`` kernel, one axis)."""
         lam = dt / self._dxs[d]
         node_ax = self.node_axis(d)
         face_grid_ax = self.grid_axis(d) - 1
-        fhat_lo = torch.roll(fhat_hi, 1, face_grid_ax)
+        fhat_lo = _shift(shift, fhat_hi, 1, face_grid_ax)
         if fhat_wall is not None:
             fhat_lo = _replace_row(fhat_lo, fhat_wall, face_grid_ax, 0)
         phi1_w, phi0_w = self._surface_weights(new, d)

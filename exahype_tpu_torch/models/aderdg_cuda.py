@@ -125,6 +125,7 @@ each kernel's launches in :attr:`CudaADERDG.launches`.  The Pallas kernel's TPU 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -182,6 +183,8 @@ def _n_vars(name: str, dim: int) -> int:
 #: times my own face (reflective hooks with ``.signs``; outflow, whose hooks
 #: are the all-ones table), the farfield state, the Dirichlet rows.
 _WALL_MODES = {"reflective": 0, "outflow": 0, "farfield": 1, "dirichlet": 2}
+#: K1 e's side modes (``csrc/aderdg.cu``'s ``SideMode``).
+_SIDE_MODES = {"periodic": 0, "wall": 1, "exchanged": 2}
 
 #: What each physics compiles into the kernels: its id in the C interface,
 #: and the CK material slots and dissipation mask a solver must carry.
@@ -332,7 +335,8 @@ class CudaADERDG:
     #: heterogeneous elasticity (K2 b.1); 32 of physics 8: K2 b's 2-D CK
     #: predictor, whose face pairs are 23-26 of physics 8, and the same
     #: indices of physics 9 and 10, the 2-D heterogeneous and curvilinear
-    #: elasticity (K2 b.1)).
+    #: elasticity (K2 b.1); 33 of physics 0: K1 e, the sharded face flux,
+    #: whose update is 5).
     KERNELS = (
         "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
         "aderdg_surface_update", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
@@ -347,7 +351,7 @@ class CudaADERDG:
         "aderdg_face_flux_walls_2d", "aderdg_surface_update_walls_2d",
         "aderdg_predictor_volume_visc_2d", "aderdg_ck_predictor_volume_sponge",
         "aderdg_ck_predictor_volume_p2", "aderdg_face_flux_p2", "aderdg_surface_update_p2",
-        "aderdg_ck_predictor_volume_2d",
+        "aderdg_ck_predictor_volume_2d", "aderdg_face_flux_exchanged",
     )
 
     def __init__(self, solver: ADERDGSolver):
@@ -481,6 +485,7 @@ class CudaADERDG:
         #: The walls as the face kernels take them (None: periodic).
         self.walls = self._wall_description(solver) if walled else None
         self._rows = {}  # the Dirichlet rows by dtype
+        self._side_layouts = {}  # K1 e's side tensor layouts by modes
         #: The kernels of this solver's step: its predictor and the face
         #: stage (its wall variant on a grid with walls).
         suffix = "" if self.walls is None else "_walls"
@@ -759,6 +764,117 @@ class CudaADERDG:
             err = getattr(lib, f"exahype_{name}_{_SUFFIX[new.dtype]}")(*args, stream)
         _build.check(lib, err, name)
         self.launches[name] += 1
+        return new
+
+    # ------------------------------------------------- K1 e: sharded faces
+
+    def _side_layout(self, modes) -> tuple:
+        """``(mask, off, size)`` of K1 e's side tensor for ``modes``: the
+        axes whose low side is not periodic, each axis's block offset
+        (int64) and the elements in all."""
+        key = tuple(tuple(m) for m in modes)
+        if key not in self._side_layouts:
+            sol = self.solver
+            off, size, mask = np.zeros(3, dtype=np.int64), 0, 0
+            for d, (lo, _) in enumerate(key):
+                if lo != "periodic":
+                    mask |= 1 << d
+                    off[d] = size
+                    size += sol.n_nodes ** (sol.dim - 1) * sol.n_vars * math.prod(
+                        g for e, g in enumerate(sol.grid_shape) if e != d)
+            self._side_layouts[key] = (mask, off, size)
+        return self._side_layouts[key]
+
+    def face_flux_exchanged(self, faces, modes, planes):
+        """K1 e, the face flux of a rank's window of a sharded grid (CUDA
+        tensors only; ``parallel/shard.py``): ``modes[d] = (low, high)``,
+        each ``"periodic"``, ``"wall"`` (a domain wall this rank owns; the
+        solver's ghosts) or ``"exchanged"``, and ``planes[(d, side)]`` the
+        received face row of each exchanged side, ``[2 (q, f), n^(dim-1),
+        n_vars, *plane]`` (side 0: the −d neighbour's last row's high faces;
+        side 1: the +d neighbour's first row's low faces).  Returns ``(fhat,
+        fside)``: every face's Rusanov flux as :meth:`face_flux` gives it,
+        and the first row's low-face fluxes of each axis whose low side is
+        not periodic (wall or exchanged), which
+        :meth:`surface_update_exchanged` reads.  Its plain version is
+        ``ADERDGSolver.face_update`` with ``shift`` and the wall gates."""
+        sol = self.solver
+        if not faces.is_cuda:
+            raise LoweringError("face_flux_exchanged launches a CUDA kernel: faces must be on "
+                                "the card")
+        if self._physics_id != _PHYSICS["euler"]["id"] or sol.dim != 3 or sol.order != 3:
+            raise LoweringError(
+                "K1 e (aderdg_face_flux_exchanged) is compiled for 3-D Euler at order 3; see "
+                "ROADMAP.md, Queue 2 K1 e")
+        self._check(faces, sol.face_shape, "faces")
+        codes = np.zeros(6, dtype=np.int32)
+        ptrs = (ctypes.c_void_p * 6)()
+        for d in range(sol.dim):
+            for side in (0, 1):
+                mode = modes[d][side]
+                codes[2 * d + side] = _SIDE_MODES[mode]
+                if mode != "exchanged":
+                    continue
+                x = planes[(d, side)]
+                shape = (2, sol.n_nodes ** (sol.dim - 1), sol.n_vars) + tuple(
+                    1 if e == d else g for e, g in enumerate(sol.grid_shape))
+                if x.is_contiguous() and x.numel() == math.prod(shape):
+                    x = x.view(shape)  # e.g. face_flux_shape's separate node axes
+                self._check(x, shape, f"planes[{d}, {side}]")
+                if x.dtype != faces.dtype or x.device != faces.device:
+                    raise LoweringError("the planes must match faces' dtype and device")
+                ptrs[2 * d + side] = x.data_ptr()
+        mask, off, size = self._side_layout(modes)
+        fhat = torch.empty(
+            (sol.dim, sol.n_nodes ** (sol.dim - 1), sol.n_vars) + sol.grid_shape,
+            dtype=faces.dtype, device=faces.device,
+        )
+        fside = torch.empty(max(size, 1), dtype=faces.dtype, device=faces.device)
+        walls = (0, 0, None, None, None, 0) if self.walls is None else self._wall_args(faces)
+        name = "aderdg_face_flux_exchanged"
+        lib = _build.library()
+        with torch.cuda.device(faces.device):
+            stream = torch.cuda.current_stream(faces.device).cuda_stream
+            err = getattr(lib, f"exahype_{name}_{_SUFFIX[faces.dtype]}")(
+                faces.data_ptr(), fhat.data_ptr(), self._ops.ctypes.data, self._dx.ctypes.data,
+                sol.order, self._physics_id, self._params.ctypes.data, *self._grid, *walls,
+                codes.ctypes.data, ctypes.addressof(ptrs), fside.data_ptr(), off.ctypes.data,
+                stream,
+            )
+        _build.check(lib, err, name)
+        self.launches[name] = self.launches.get(name, 0) + 1
+        return fhat, fside[:size]
+
+    def surface_update_exchanged(self, new, fhat, dt, fside, modes):
+        """The update after :meth:`face_flux_exchanged` (CUDA tensors
+        only): ``aderdg_surface_update_walls`` with F̂_lo of the first row
+        read from ``fside`` on every axis whose low side is not periodic,
+        in place; returns ``new``."""
+        sol = self.solver
+        mask, off, size = self._side_layout(modes)
+        if not new.is_cuda:
+            raise LoweringError("surface_update_exchanged launches a CUDA kernel: new must be "
+                                "on the card")
+        self._check(new, sol.state_shape, "new")
+        self._check(fhat, (sol.dim, sol.n_nodes ** (sol.dim - 1), sol.n_vars) + sol.grid_shape,
+                    "fhat")
+        self._check(fside, (size,), "fside")
+        for name, x in (("fhat", fhat), ("fside", fside)):
+            if x.dtype != new.dtype or x.device != new.device:
+                raise LoweringError(f"{name} must match new's dtype and device")
+        dt_dev, dt_ptr, dt_val = self._dt_args(dt, new)
+        args = (new.data_ptr(), fhat.data_ptr(), dt_ptr, dt_val, self._ops.ctypes.data,
+                self._dx.ctypes.data, sol.order, self._physics_id, self._params.ctypes.data,
+                *self._grid)
+        name = "aderdg_surface_update" if mask == 0 else "aderdg_surface_update_walls"
+        if mask:
+            args += (mask, fside.data_ptr(), off.ctypes.data)
+        lib = _build.library()
+        with torch.cuda.device(new.device):
+            stream = torch.cuda.current_stream(new.device).cuda_stream
+            err = getattr(lib, f"exahype_{name}_{_SUFFIX[new.dtype]}")(*args, stream)
+        _build.check(lib, err, name)
+        self.launches[name] = self.launches.get(name, 0) + 1
         return new
 
     def kernel_info(self, name: str, dtype) -> dict:

@@ -193,6 +193,13 @@ class LimitedADERDG(nn.Module):
             raise ValueError(f"unknown fallback_slope {fallback_slope!r}")
         if accelerator is not None and accelerator.solver is not solver:
             raise ValueError("accelerator must wrap the limiter's own base solver")
+        if getattr(accelerator, "mesh", None) is not None:
+            raise SemanticError(
+                "LimitedADERDG over a sharded accelerator (parallel/shard.py "
+                "ShardedCudaADERDG) is not ported to exahype_tpu_torch yet: each of the "
+                "limiter's neighbour reads needs its own exchange; see ROADMAP.md, Queue 1 "
+                "item 5.b"
+            )
         if troubled_granularity not in ("cell", "row"):
             raise ValueError(f"unknown troubled_granularity {troubled_granularity!r}")
         if overflow_fallback not in ("means", "candidate"):

@@ -70,28 +70,41 @@ class TpuPatchGrid:
     def halo_fill(self, Q):
         """Fill every patch's halo padding from its grid neighbours, in
         place; returns ``Q``."""
-        cfg = self.config
-        h, P = cfg.halo_size, cfg.patch_size
-        if h == 0:
+        if self.config.halo_size == 0:
             return Q
-        nd = Q.dim()
-        for d in range(cfg.dim):
-            s, g = d, cfg.dim + 1 + d  # spatial axis, grid axis
-            hi_src = Q[_axis_slice(nd, {s: (P, P + h)})]   # → the next patch's low halo
-            lo_src = Q[_axis_slice(nd, {s: (h, 2 * h)})]   # → the previous one's high halo
-            if P < h:
-                hi_src, lo_src = hi_src.clone(), lo_src.clone()
-            n = Q.shape[g]
-            lo_halo = Q[_axis_slice(nd, {s: (0, h)})]
-            hi_halo = Q[_axis_slice(nd, {s: (P + h, P + 2 * h)})]
-            # Periodic roll by +1 (low halos) and -1 (high halos) along g.
-            lo_halo[_axis_slice(nd, {g: (1, n)})].copy_(hi_src[_axis_slice(nd, {g: (0, n - 1)})])
-            lo_halo[_axis_slice(nd, {g: (0, 1)})].copy_(hi_src[_axis_slice(nd, {g: (n - 1, n)})])
-            hi_halo[_axis_slice(nd, {g: (0, n - 1)})].copy_(lo_src[_axis_slice(nd, {g: (1, n)})])
-            hi_halo[_axis_slice(nd, {g: (n - 1, n)})].copy_(lo_src[_axis_slice(nd, {g: (0, 1)})])
+        for d in range(self.config.dim):
+            self._roll_axis(Q, d)
             if self.boundary == "reflective":
                 self._reflect(Q, d)
         return Q
+
+    def _roll_axis(self, Q, d: int) -> None:
+        """The halos of grid axis ``d`` from the neighbouring patches along
+        it, periodic, in place (the sharded halo fill, ``parallel/shard.py``,
+        then repairs the shard-boundary rows)."""
+        cfg = self.config
+        h, P = cfg.halo_size, cfg.patch_size
+        nd = Q.dim()
+        s, g = d, cfg.dim + 1 + d  # spatial axis, grid axis
+        hi_src = Q[_axis_slice(nd, {s: (P, P + h)})]   # → the next patch's low halo
+        lo_src = Q[_axis_slice(nd, {s: (h, 2 * h)})]   # → the previous one's high halo
+        if P < h:
+            hi_src, lo_src = hi_src.clone(), lo_src.clone()
+        n = Q.shape[g]
+        lo_halo = Q[_axis_slice(nd, {s: (0, h)})]
+        hi_halo = Q[_axis_slice(nd, {s: (P + h, P + 2 * h)})]
+        # Periodic roll by +1 (low halos) and -1 (high halos) along g.
+        lo_halo[_axis_slice(nd, {g: (1, n)})].copy_(hi_src[_axis_slice(nd, {g: (0, n - 1)})])
+        lo_halo[_axis_slice(nd, {g: (0, 1)})].copy_(hi_src[_axis_slice(nd, {g: (n - 1, n)})])
+        hi_halo[_axis_slice(nd, {g: (0, n - 1)})].copy_(lo_src[_axis_slice(nd, {g: (1, n)})])
+        hi_halo[_axis_slice(nd, {g: (n - 1, n)})].copy_(lo_src[_axis_slice(nd, {g: (0, 1)})])
+
+    @staticmethod
+    def _mirror_slab(slab, spat_ax: int):
+        """The ghost slab of a wall: the interior edge slab ``slab`` flipped
+        along its spatial axis (a copy).  The sharded halo fill
+        (``parallel/shard.py``) applies it on the ranks that own a wall."""
+        return slab.flip(spat_ax)
 
     def _reflect(self, Q, d: int) -> None:
         """Mirror the interior into the outer faces of the domain boundary
@@ -101,7 +114,7 @@ class TpuPatchGrid:
         nd = Q.dim()
         s, g = d, cfg.dim + 1 + d
         n_g = self.grid_shape[d]
-        interior_lo = Q[_axis_slice(nd, {g: (0, 1), s: (h, 2 * h)})].flip(s)
-        interior_hi = Q[_axis_slice(nd, {g: (n_g - 1, n_g), s: (P, P + h)})].flip(s)
+        interior_lo = self._mirror_slab(Q[_axis_slice(nd, {g: (0, 1), s: (h, 2 * h)})], s)
+        interior_hi = self._mirror_slab(Q[_axis_slice(nd, {g: (n_g - 1, n_g), s: (P, P + h)})], s)
         Q[_axis_slice(nd, {g: (0, 1), s: (0, h)})].copy_(interior_lo)
         Q[_axis_slice(nd, {g: (n_g - 1, n_g), s: (P + h, P + 2 * h)})].copy_(interior_hi)

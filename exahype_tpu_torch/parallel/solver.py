@@ -49,6 +49,7 @@ class GridSolver:
         *,
         device=None,
         dtype: torch.dtype = torch.float64,
+        mesh=None,
     ):
         if not isinstance(grid, TpuPatchGrid):
             raise SemanticError("GridSolver requires a TpuPatchGrid")
@@ -68,6 +69,7 @@ class GridSolver:
         self.kernel_dt = kernel_dt
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.mesh = mesh
         #: The patch-update callable (a ``CudaSpecKernel``); its
         #: ``launches`` counts kernel launches, its ``plain`` is the plain
         #: version.
@@ -106,11 +108,15 @@ class GridSolver:
 
     def compute_dt(self, Q):
         """CFL time step from the global maximum wave speed, as a 0-d
-        tensor on the state's device."""
+        tensor on the state's device.  With a :attr:`mesh`, ``Q`` is this
+        rank's window and the step is the minimum over the ranks (a MIN
+        all-reduce, which GSPMD inserts for the JAX solver): the same bits
+        as from the whole state, division being monotone."""
         if self.eigenvalue_fn is None:
             raise ValueError("GridSolver needs eigenvalue_fn for adaptive dt")
         lam = torch.max(self.eigenvalue_fn(self._interior(Q)))
-        return self.cfl * self.dx / lam
+        dt = self.cfl * self.dx / lam
+        return dt if self.mesh is None else self.mesh.all_min(dt)
 
     def run(self, Q, n_steps: int, dt=None):
         """Integrate ``n_steps`` from a copy of ``Q``; returns ``(state, t)``.

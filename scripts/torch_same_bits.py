@@ -44,6 +44,12 @@ compares their outputs bit for bit:
   on seeded states at a float64 and a float32 grid each: the predictor's
   ``new`` and ``faces`` and three chained steps, reported as new against a
   checkout without them;
+- where the checkout has them, K1 e (``aderdg_face_flux_exchanged``, the
+  sharded face flux, on the Euler cases' faces in two windows along axis 0:
+  F̂ and the updated state) and K5 b (``rhs_all_z4_2d``, the first Picard
+  call on the 2-D gauge wave with the same noise at ``(8, 6)`` in float64
+  and ``(64, 32)`` in float32), reported as new against a checkout without
+  them;
 - the limiter's subcell sweep K3 (``subcell_row_sweep``, 3-D p3 Euler) on
   a seeded gathered batch ``[7, 7, 7, 5, 8, 16]`` with 5 of 8 slots active,
   each direction, in float64 and float32, and where the checkout has it K3
@@ -94,7 +100,8 @@ SASS_KERNELS = (
     "rhs_all_z4", "rhs_all_z4_shift", "rhs_all_z4_matter", "rhs_all_z4_grmhd",
     "aderdg_predictor_volume_st", "aderdg_predictor_volume_2d", "aderdg_face_flux_2d",
     "aderdg_surface_update_2d", "subcell_row_sweep", "subcell_row_sweep_ncp",
-    "aderdg_ck_predictor_volume", "aderdg_ck_predictor_nodes",
+    "aderdg_ck_predictor_volume", "aderdg_ck_predictor_nodes", "aderdg_face_flux_exchanged",
+    "rhs_all_z4_2d",
 )
 #: The Z4 step kernels' systems, the 2-D Navier–Stokes physics, the CK
 #: predictor's sponge and K2 b's homogeneous elasticity (a template argument
@@ -110,7 +117,8 @@ NEW = ("Z4Grmhd", "rhs_all_z4_grmhd", "Z4+GRMHD", "aderdg_predictor_volume_st",
        "aderdg_predictor_volume_2d", "aderdg_face_flux_2d", "aderdg_surface_update_2d",
        "NavierStokes2D", "subcell_row_sweep_ncp", "K3 a Z4+GRHD", "SpongeSource",
        "CK sponge", "Elastic3D", "Elastic2D", "aderdg_ck_predictor_nodes", "ElasticHet2D",
-       "CurvilinearElastic", "K2 b.1")
+       "CurvilinearElastic", "K2 b.1", "aderdg_face_flux_exchanged", "K1 e",
+       "rhs_all_z4_2d", "K5 b")
 NEW_NODES = "6"
 #: K2 b.1's instances over the 12-variable heterogeneous elasticity at n = 3
 #: (the node kernel and the face stage; its n = 4 instances are compared):
@@ -161,6 +169,15 @@ for grid, dtype in CASES:
     results[key + " face_surface new"] = surf.cpu()
     results[key + " face fluxes"] = torch.stack(fl).cpu()
     results[key + " 3 steps"] = cu.run(u, 3, DT).cpu()
+    if hasattr(cu, "face_flux_exchanged"):  # K1 e, the sharded face flux
+        from exahype_tpu_torch.parallel import shard
+        for p in range(2):
+            local, lf, ln, modes, planes = shard.window_faces(sol, faces, new, 0, 2, p)
+            lcu = CudaADERDG(local)
+            fhat, fside = lcu.face_flux_exchanged(lf, modes, planes)
+            results[key + f" K1 e window {p} fhat"] = fhat.cpu()
+            results[key + f" K1 e window {p} new"] = lcu.surface_update_exchanged(
+                ln.clone(), fhat, DT, fside, modes).cpu()
 from exahype_tpu_torch.models import elastic
 for grid, dtype in CK_CASES:
     dtype = getattr(torch, dtype)
@@ -280,6 +297,23 @@ for (grid, dtype), (system, make, state) in (
     rec.rhs_all_fn = first
     rec.predictor_volume(u, 1e-4)
     results[key + f" {k5.kernel} Picard call 1"] = calls[0].cpu()
+if "exahype_rhs_all_z4_2d_f64" in _build._SIGNATURES:  # K5 b, the 2-D vacuum Z4 instance
+    for grid, dtype in (((8, 6), torch.float64), ((64, 32), torch.float32)):
+        sol = make_z4_solver(2, 2, grid, dx=1.0 / grid[0], kappa1=0.5, kappa2=0.1,
+                             impl="soa", fused_rhs="soa", device="cuda", dtype=dtype)
+        k5 = with_cuda_rhs(sol).rhs_all_fn
+        u = gauge_wave_state(sol, amplitude=0.1)
+        noise = torch.from_numpy(np.random.default_rng(5).standard_normal(u.shape)).to(u)
+        u = (u + 1e-3 * noise).contiguous()
+        calls = []
+        rec = with_cuda_rhs(sol)
+        def first(Q, grads, va):
+            if not calls:
+                calls.append(k5(Q, grads, va))
+            return sol.rhs_all_fn(Q, grads, va)
+        rec.rhs_all_fn = first
+        rec.predictor_volume(u, 1e-4)
+        results[f"K5 b {grid} {dtype} {k5.kernel} Picard call 1"] = calls[0].cpu()
 from exahype_tpu_torch.models import subcell_cuda
 from exahype_tpu_torch.models.limiter import LimitedADERDG
 def batch(shape, seed, nvar):

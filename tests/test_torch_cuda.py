@@ -55,6 +55,7 @@ import torch
 
 from exahype_tpu_torch.models.aderdg import ADERDGSolver, euler_physics
 from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+from exahype_tpu_torch.parallel import shard
 from exahype_tpu_torch.utils.errors import LoweringError
 from torch_z4m_batch import z4m_gathered_batch
 
@@ -2365,3 +2366,85 @@ def test_z4_grmhd_kernel_info_and_refusals():
         cu.surface_update(new, fhat, 1e-4)
     with pytest.raises(LoweringError, match="shape"):
         cu.predictor_volume(u[:, :, :, :43].contiguous(), 1e-4)
+
+
+# ------------------------------------------------------------ K1 e and K5 b
+
+
+K1E_CASES = [
+    (torch.float64, (8, 4, 8)),
+    (torch.float32, (8, 4, 8)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", K1E_CASES)
+@pytest.mark.parametrize("name", ["periodic"] + WALL_NAMES)
+def test_k1e_exchanged_pair_matches_plain(name, dtype, grid):
+    """K1 e, the face pair with exchanged sides: each window of two along
+    each axis, walls gated to the window that owns them, against its plain
+    version (``shard.exchanged_face_surface``) on the same inputs, and bit
+    for bit the unsharded kernels' face stage on that window; with one
+    window (every exchange a local copy) the unsharded stage itself."""
+    walls = {} if name == "periodic" else _euler_walls(name, grid)
+    sol, cu, u = _setup(grid, dtype, **walls)
+    new, faces, _ = sol.predictor_volume(u, DT)
+    whole = cu.face_surface(new.clone(), faces, DT)
+    for d in range(3):
+        for parts in (1, 2):
+            for p in range(parts):
+                local, lf, ln, modes, planes = shard.window_faces(sol, faces, new, d, parts, p)
+                lcu = CudaADERDG(local)
+                fhat, fside = lcu.face_flux_exchanged(lf, modes, planes)
+                got = lcu.surface_update_exchanged(ln.clone(), fhat, DT, fside, modes)
+                ref = shard.exchanged_face_surface(local, ln, lf, DT, modes, planes)
+                length = grid[d] // parts
+                torch.cuda.synchronize()
+                assert _err(got, ref) <= _bound(ref, dtype), (d, p, modes)
+                assert torch.equal(got, whole.narrow(sol.grid_axis(d), p * length, length)), (
+                    d, p, modes)
+                assert lcu.launches["aderdg_face_flux_exchanged"] == 1
+
+
+@pytest.mark.cuda
+def test_k1e_kernel_info_and_refusals():
+    sol, cu, u = _setup((2, 2, 4), torch.float64)
+    info = cu.kernel_info("aderdg_face_flux_exchanged", torch.float64)
+    assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, info
+    new, faces, _ = cu.predictor_volume(u, DT)
+    modes = (("exchanged", "exchanged"), ("periodic", "periodic"), ("periodic", "periodic"))
+    with pytest.raises(KeyError):
+        cu.face_flux_exchanged(faces, modes, {})
+    with pytest.raises(LoweringError, match="faces must be on the card"):
+        cu.face_flux_exchanged(faces.cpu(), modes, {})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", [(torch.float64, (8, 6)), (torch.float32, (16, 8)),
+                                        (torch.float64, (5, 3))])
+def test_k5b_rhs_kernel_matches_plain(dtype, grid):
+    """K5 b, the 2-D vacuum Z4 right-hand side, on every call of one step of
+    the 2-D gauge wave with seeded noise on every slot."""
+    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+    from exahype_tpu_torch.models.z4 import gauge_wave_state, make_z4_solver
+
+    dev = _card()
+    plain = make_z4_solver(2, 2, grid, dx=1.0 / grid[0], impl="soa", fused_rhs="soa",
+                           kappa1=0.5, kappa2=0.1, device=dev, dtype=dtype)
+    kern = with_cuda_rhs(plain)
+    k5 = kern.rhs_all_fn
+    assert k5.kernel == "rhs_all_z4_2d"
+    rng = np.random.default_rng(7)
+    u = gauge_wave_state(plain, amplitude=0.1) + torch.as_tensor(
+        1e-3 * rng.standard_normal(plain.state_shape), dtype=dtype, device=dev)
+    calls = _rhs_calls(plain, u)
+    for Q, grads, va in calls:
+        got = k5(Q, grads, va)
+        ref = plain.rhs_all_fn(Q, grads, va)
+        torch.cuda.synchronize()
+        assert _err(got, ref) <= _z4_bound(ref, dtype)
+        assert torch.equal(got, k5(Q, grads, va))
+    step = kern.step(u, 1e-4)
+    ref = plain.step(u, 1e-4)
+    torch.cuda.synchronize()
+    assert _err(step, ref) <= _z4_bound(ref, dtype)
