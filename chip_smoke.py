@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one card, nvcc
 
-It drives nineteen paths, each through ``exahype_tpu_torch``'s entry points
+It drives twenty paths, each through ``exahype_tpu_torch``'s entry points
 with its kernels' launch counters set to 0 just before and read just
-after (the two forms of the main path, ADER-DG and FV, and the order-5,
+after (the two forms of the main path, ADER-DG and FV, and the order-4, -5
+and -7,
 limited, limited with walls, limited 2-D blast with walls, viscous shock,
 2-D vortex, CK, layered seismic, homogeneous elastic, walls, viscous,
 dynamic-GR, shifted
@@ -22,20 +23,27 @@ steps of the multichip phase), in this order:
   (``tests/test_torch_slice.py::test_bench_dt_blows_up_in_both_packages``);
   the script records the step at which the port overflows at the bench
   grid.
-- **ADER-DG p5**: ``examples/high_order_p5.py``'s step — order 5, 3-D
-  compressible Euler, periodic, dx = 1/g0, dt = 2e-5, from the example's
-  exact density wave (γ = 1.4, p0 = 2, velocity (1, 0.5, 0.25); made
-  periodic along axis 1, see ``P5_GRIDS``) — through ``CudaADERDG`` (K1 c:
-  ``aderdg_predictor_volume_p5``, the space-time predictor of
-  ``csrc/aderdg_st.cuh``, and the face stage's n = 6 instances
-  ``aderdg_face_flux_p5`` + ``aderdg_surface_update_p5``), three launches a
-  step: each kernel against its plain version in float64 at ``(4, 2, 8)``
-  (at the example's dt and at half the cut state's ``cfl_dt``, within 1e-12
-  of max(1, max|plain|)) and in float32 at ``(32, 4, 128)``, the example's
-  chip grid, and ``(64, 8, 128)``; 10 steps at each with the example's
-  gates (error against the exact wave below 5e-3, mass drift below 1e-5),
-  bitwise repeatable and against the plain path; times and ``[kernel]``
-  lines at both.
+- **ADER-DG p4, p5, p7**: 3-D compressible Euler at orders 4, 5 and 7
+  (``ST_ORDERS``' note) — order 5 ``examples/high_order_p5.py``'s step
+  (periodic, dx = 1/g0, dt = 2e-5, from the example's exact density wave, γ
+  = 1.4, p0 = 2, velocity (1, 0.5, 0.25), made periodic along the short
+  axes), orders 4 and 7 the same wave at ``cfl_dt`` — through
+  ``CudaADERDG`` (K1 c: ``aderdg_predictor_volume_pN``, the space-time
+  predictor of ``csrc/aderdg_st.cuh``, and the face stage's n = 5, 6, 8
+  instances ``aderdg_face_flux_pN`` + ``aderdg_surface_update_pN``, or with
+  walls ``aderdg_face_flux_walls_pN`` + ``aderdg_surface_update_walls_pN``),
+  three launches a step: each kernel against its plain version in float64
+  on a cut grid (at two dt, within 1e-12 of max(1, max|plain|), periodic and
+  in every wall mode) and in float32 at full width (``ST_GRIDS``: order 4
+  ``(128, 8, 128)``, order 5 the example's ``(32, 4, 128)`` and ``(64, 8,
+  128)``, order 7 ``(32, 8, 128)`` and ``scripts/mxu_probe.py``'s ``(16, 4,
+  32)``); 10 steps at each with the example's gates (error against the
+  exact wave below 5e-3, mass drift below 1e-5), bitwise repeatable and
+  against the plain path; at each order's first grid a reflective box
+  (mass and energy within 1e-5, momentum moved), an outflow and a farfield
+  channel on axis 0; times and ``[kernel]`` lines; and the order anchor:
+  the exact wave in float64 through the kernels of orders 3, 4, 5 and 7 on
+  one cut grid, the error falling from order to order.
 - **limited**: ``bench.py::bench_limited``'s production step — the same
   solver, grid and dtype, ``LimitedADERDG(admissible=euler_admissible(3),
   troubled_capacity=128, troubled_granularity="row", dmp_delta0=5e-4,
@@ -292,8 +300,9 @@ steps of the multichip phase), in this order:
 Phases:
 
 1. card: name, and ``nvidia-smi``'s name and power limit;
-2. build: ``csrc/aderdg.cu``, ``csrc/aderdg_2d.cu``, ``csrc/aderdg_p5.cu`` (float32) and
-   ``csrc/aderdg_p5_f64.cu``, ``csrc/aderdg_visc.cu`` and
+2. build: ``csrc/aderdg.cu``, ``csrc/aderdg_2d.cu``, ``csrc/aderdg_p4.cu``,
+   ``csrc/aderdg_p5.cu`` and ``csrc/aderdg_p7.cu`` (float32) and their
+   ``_f64`` twins, ``csrc/aderdg_visc.cu`` and
    ``csrc/aderdg_visc_f64.cu``, ``csrc/aderdg_z4.cu`` and
    ``csrc/aderdg_z4_f64.cu``, ``csrc/aderdg_z4_shift.cu`` and
    ``csrc/aderdg_z4_shift_f64.cu``, ``csrc/aderdg_z4_matter.cu`` and
@@ -471,28 +480,57 @@ FV_WIDTH = dict(dim=3, patch_size=4, halo_size=1, n_real=5, n_aux=0)
 FV_GRIDS = ((8, 8, 128), (32, 16, 128))
 FV_CFL = 0.45
 
-#: The order-5 path (``examples/high_order_p5.py``): 3-D compressible Euler
-#: at order 5 (6 Picard iterations), periodic, dx = 1/g0, dt = 2e-5 (``:77``),
-#: the exact density wave of ``:61-76`` (γ = 1.4, p0 = 2, velocity (1, 0.5,
-#: 0.25)) at the example's chip grid and at 4x its cells (the DOF scale of
-#: ``bench.py``'s p3 grid), 10 steps.  The example's wave sin(2π(x + y + z))
-#: has a unit period along every axis, and axis 1 of both grids is 0.125
-#: long: there it is not periodic, and its seam, not the scheme, sets the
-#: error (0.0202 at (32, 4, 32) after the 10 steps on the plain path, which
-#: equals JAX's to 1e-12).  So the gated wave takes, along an axis shorter
-#: than the unit, the shortest wave that is periodic on it (one period over
-#: its extent: sin(2π(x + 8y + z)) on both grids), still an exact solution
-#: (a density profile carried by a uniform flow at uniform pressure); the
-#: example's wave as written is run too, as a reading.
-P5_ORDER = 5
-P5_GRIDS = ((32, 4, 128), (64, 8, 128))
-P5_CUT = (4, 2, 8)
-P5_DT = 2e-5
-P5_GAMMA, P5_P0, P5_VEL = 1.4, 2.0, (1.0, 0.5, 0.25)
-P5_ERR_GATE = 5e-3   # examples/high_order_p5.py:97-98
-P5_MASS_GATE = 1e-5  # :99, the absolute drift of the mass
+#: The order-generic 3-D Euler path (K1 c: the space-time predictor of
+#: ``csrc/aderdg_st.cuh`` and the face stage at n = 5, 6, 8, periodic and
+#: walled), orders 4, 5 and 7, keyed by order.  Order 5 is
+#: ``examples/high_order_p5.py``'s step: 3-D compressible Euler (6 Picard
+#: iterations), periodic, dx = 1/g0, dt = 2e-5 (``:77``), the exact density
+#: wave of ``:61-76`` (γ = 1.4, p0 = 2, velocity (1, 0.5, 0.25)) at the
+#: example's chip grid and at 4x its cells (the DOF scale of ``bench.py``'s
+#: p3 grid), 10 steps.  The example's wave sin(2π(x + y + z)) has a unit
+#: period along every axis, and axis 1 of both grids is 0.125 long: there it
+#: is not periodic, and its seam, not the scheme, sets the error (0.0202 at
+#: (32, 4, 32) after the 10 steps on the plain path, which equals JAX's to
+#: 1e-12).  So the gated wave takes, along an axis shorter than the unit,
+#: the shortest wave that is periodic on it (one period over its extent:
+#: sin(2π(x + 8y + z)) on both grids), still an exact solution (a density
+#: profile carried by a uniform flow at uniform pressure); the example's
+#: wave as written is run too, as a reading.  Orders 4 and 7 run the same
+#: wave at ``cfl_dt`` (``None`` in ``ST_DT``; its factor min(0.4,
+#: 1.5/(N+2)) holds in both packages, ``tests/test_torch_aderdg_orders.py``)
+#: at about the main path's DOF count (81.9 M and 83.9 M), order 7 also at
+#: ``scripts/mxu_probe.py:73``'s ``(16, 4, 32)``.  The first grid of each
+#: order carries its kernel JSON lines and its walls: a reflective box
+#: (mass and energy within ``MASS_RTOL``, momentum moved), an outflow
+#: channel on axis 0 and the farfield state's uniform flow in a farfield
+#: channel on axis 0 (steady), each 10 steps; every wall mode against the
+#: plain path in float64 on the cut grid.  The plain path runs
+#: ``ST_PLAIN_STEPS`` steps for the comparison, one window for its time.
+ST_ORDERS = (4, 5, 7)
+ST_GRIDS = {4: ((128, 8, 128),), 5: ((32, 4, 128), (64, 8, 128)),
+            7: ((32, 8, 128), (16, 4, 32))}
+ST_CUTS = {4: (4, 2, 8), 5: (4, 2, 8), 7: (2, 2, 4)}
+ST_DT = {4: None, 5: 2e-5, 7: None}
+WAVE_GAMMA, WAVE_P0, WAVE_VEL = 1.4, 2.0, (1.0, 0.5, 0.25)
+#: The example's gates (``examples/high_order_p5.py:97-99``: the error
+#: against the exact wave, the absolute drift of the mass), at every order.
+ST_ERR_GATE = 5e-3
+ST_MASS_GATE = 1e-5
+ST_PLAIN_STEPS = 2
+ST_WALLS = ("reflective box", "outflow (0,)", "farfield (0,)", "dirichlet box",
+            "reflective (1, 2)")
 #: f64 kernel-vs-plain bound, relative to max(1, max|plain|).
-P5_F64_RTOL = 1e-12
+ST_F64_RTOL = 1e-12
+#: The order anchor: the exact wave on ``ST_ANCHOR_GRID`` (dx = 1/4, periodic
+#: on every axis) to t = ``ST_ANCHOR_T`` in ``ST_ANCHOR_STEPS`` steps, float64,
+#: through the kernels of each order (3 through ``csrc/aderdg.cu``'s order-3
+#: instances): the error against the exact wave must fall from order to
+#: order, or be under ``ST_ANCHOR_FLOOR``.
+ST_ANCHOR_ORDERS = (3, 4, 5, 7)
+ST_ANCHOR_GRID = (4, 4, 4)
+ST_ANCHOR_T = 0.05
+ST_ANCHOR_STEPS = 80
+ST_ANCHOR_FLOOR = 1e-10
 
 #: The CK path (``bench.py:151-294``).
 CK_GRIDS = ((64, 4, 32), (256, 8, 128))
@@ -954,14 +992,16 @@ def idle_share(torch, fn) -> tuple[float, float, float]:
     Busy is the union of the device intervals of every kernel, copy and
     set that ``torch.profiler`` records (overlaps counted once; no nested
     rows are summed); wall is the host clock from the synchronize before
-    ``fn`` to the synchronize after.  The profiler's own launch overhead
-    falls into the wall time, so the share is an upper bound.  Returns
-    NaNs if the profiler saw no device activity."""
+    ``fn`` to the synchronize after.  The profiler records the device's
+    activity only, not the host's operators (an eager Z4 step has ~2e5 of
+    them, whose events took longer to gather than the step); its own launch
+    overhead still falls into the wall time, so the share is an upper
+    bound.  Returns NaNs if the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3498,10 +3538,10 @@ def aderdg_path(torch, dev, card) -> list[dict]:
     return kernels
 
 
-def p5_wave(torch, sol, t: float, dtype, periodic: bool = True):
+def density_wave(torch, sol, t: float, dtype, periodic: bool = True):
     """``examples/high_order_p5.py:61-76``'s density wave at time ``t``
     (var axis 3): with ``periodic``, each axis shorter than the unit wave
-    carries one period over its extent instead (``P5_GRIDS``' note)."""
+    carries one period over its extent instead (``ST_ORDERS``' note)."""
     import numpy as np
 
     coords = sol.nodes_meshgrid()
@@ -3511,188 +3551,357 @@ def p5_wave(torch, sol, t: float, dtype, periodic: bool = True):
         scale.append(1.0 / ext if periodic and ext < 1.0 else 1.0)
         if periodic and abs(ext * scale[-1] - round(ext * scale[-1])) > 1e-9:
             fail(f"no periodic wave of the example's kind on an axis of extent {ext}")
-    phase = sum(k * (np.asarray(c) - v * t) for k, c, v in zip(scale, coords, P5_VEL))
+    phase = sum(k * (np.asarray(c) - v * t) for k, c, v in zip(scale, coords, WAVE_VEL))
     no_var = sol.state_shape[:3] + sol.state_shape[4:]
     rho = np.broadcast_to(np.squeeze(1.0 + 0.2 * np.sin(2 * np.pi * phase), 3), no_var)
-    e = P5_P0 / (P5_GAMMA - 1.0) + 0.5 * rho * sum(v * v for v in P5_VEL)
-    q = np.stack([rho] + [rho * v for v in P5_VEL] + [e], axis=3)
+    e = WAVE_P0 / (WAVE_GAMMA - 1.0) + 0.5 * rho * sum(v * v for v in WAVE_VEL)
+    q = np.stack([rho] + [rho * v for v in WAVE_VEL] + [e], axis=3)
     return torch.from_numpy(q).to(device=sol.weights.device, dtype=dtype).contiguous()
 
 
-def p5_path(torch, dev, card) -> list[dict]:
-    """The order-5 path: ``examples/high_order_p5.py``'s step through
-    ``CudaADERDG`` (K1 c: ``aderdg_predictor_volume_p5``, the space-time
-    predictor of ``csrc/aderdg_st.cuh``, and the face stage at n = 6);
-    returns the kernel JSON lines of its three kernels at the example's
-    grid."""
+def walled_face_work(sol, cu, order: int, ncell: int, itemsize: int, nvar: int, rows: int,
+                     eig_ops: int, masked: bool) -> dict:
+    """Bytes and flops of the walled face stage and its launches: those of
+    the periodic stage, plus the side tensor (written by the flux kernel,
+    read by the update) and any Dirichlet rows read, and one more Rusanov
+    flux a low-wall face node."""
+    side = cu.walls["size"] * itemsize
+    dirichlet = 2 * side if sol.boundary == "dirichlet" else 0
+    low = cu.walls["size"] // nvar
+    extra_ops = low * (2 * eig_ops + (7 if masked else 6) * nvar)
+    em = dict(nvar=nvar, eig_ops=eig_ops, masked=masked)
+    return {
+        cu.kernels[1]: (
+            face_flux_bytes(order, ncell, itemsize, nvar=nvar, rows=rows) + side + dirichlet,
+            face_flux_ops(order, ncell, **em) + extra_ops),
+        cu.kernels[2]: (
+            surface_update_bytes(order, ncell, itemsize, rows=rows) + side,
+            surface_update_ops(order, ncell, nvar=rows)),
+        "face stage": (
+            face_stage_bytes(order, ncell, itemsize, nvar=nvar, rows=rows) + side
+            + dirichlet, face_surface_ops(order, ncell, **em) + extra_ops),
+    }
+
+
+def st_kernel_stages(torch, sol, cu, u, dt):
+    """Each kernel of a periodic order-generic step and the step against
+    its plain version on ``u``: ``[(name, what, got, ref)]``."""
+    new_k, faces_k, _ = cu.predictor_volume(u, dt)
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    fhat_k, fhat_p = cu.face_flux(faces_p)[0], plain_face_flux(torch, sol, faces_p)
+    upd_k = cu.surface_update(new_p.clone(), fhat_p, dt)
+    upd_p = plain_surface_update(sol, new_p, fhat_p, dt)
+    surf_k = cu.face_surface(new_p.clone(), faces_p, dt)
+    surf_p = sol.face_surface(new_p, faces_p, dt)
+    step_k, step_p = cu.step(u, dt), sol.step(u, dt)
+    torch.cuda.synchronize()
+    return [
+        (cu.kernels[0], "new", new_k, new_p),
+        (cu.kernels[0], "faces", faces_k, faces_p),
+        (cu.kernels[1], "fhat", fhat_k, fhat_p),
+        (cu.kernels[2], "new", upd_k, upd_p),
+        ("face stage", "new", surf_k, surf_p),
+        ("step", "new", step_k, step_p),
+    ]
+
+
+def st_orders_path(torch, dev, card) -> list[dict]:
+    """The order-generic Euler path (``ST_ORDERS``' note): at orders 4, 5
+    and 7 ``CudaADERDG``'s space-time predictor (``csrc/aderdg_st.cuh``)
+    and the face stage at n = 5, 6, 8, periodic and walled; then the order
+    anchor.  Returns the kernel JSON lines of each order's five kernels at
+    its first grid."""
     import numpy as np
 
     from exahype_tpu_torch.models.aderdg import ADERDGSolver, euler_physics
     from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
 
-    flux, eig = euler_physics(3, n_real=5, gamma=P5_GAMMA)
+    flux, eig = euler_physics(3, n_real=5, gamma=WAVE_GAMMA)
+    replaces = "exahype_tpu/models/aderdg_pallas.py:156"
+    t_path = time.perf_counter()
 
-    def make(grid, dtype):
-        sol = ADERDGSolver(3, P5_ORDER, 5, grid, flux, eig, dx=1.0 / grid[0],
-                           device=dev, dtype=dtype)
+    def make(order, grid, dtype, walls=None):
+        sol = ADERDGSolver(3, order, 5, grid, flux, eig, dx=1.0 / grid[0], device=dev,
+                           dtype=dtype, **(walls or {}))
         return sol, CudaADERDG(sol)
 
-    def kernel_stages(sol, cu, u, dt):
-        """Each kernel and the step against its plain version on ``u``:
-        ``[(name, what, got, ref)]``."""
-        new_k, faces_k, _ = cu.predictor_volume(u, dt)
-        new_p, faces_p, _ = sol.predictor_volume(u, dt)
-        fhat_k, fhat_p = cu.face_flux(faces_p)[0], plain_face_flux(torch, sol, faces_p)
-        upd_k = cu.surface_update(new_p.clone(), fhat_p, dt)
-        upd_p = plain_surface_update(sol, new_p, fhat_p, dt)
-        surf_k = cu.face_surface(new_p.clone(), faces_p, dt)
-        surf_p = sol.face_surface(new_p, faces_p, dt)
-        step_k, step_p = cu.step(u, dt), sol.step(u, dt)
-        torch.cuda.synchronize()
-        return [
-            (cu.kernels[0], "new", new_k, new_p),
-            (cu.kernels[0], "faces", faces_k, faces_p),
-            (cu.kernels[1], "fhat", fhat_k, fhat_p),
-            (cu.kernels[2], "new", upd_k, upd_p),
-            ("face stage", "new", surf_k, surf_p),
-            ("step", "new", step_k, step_p),
-        ]
+    def walls_of(name, order, grid):
+        return euler_walls(name, grid, order=order, dx=1.0 / grid[0])
 
-    # --------------------------------------- f64 parity on the cut grid
-    sol, cu = make(P5_CUT, torch.float64)
-    rng = np.random.default_rng(0)
-    u = p5_wave(torch, sol, 0.0, torch.float64)
-    u[:, :, :, 0] *= 1.0 + 0.05 * torch.from_numpy(rng.standard_normal(u[:, :, :, 0].shape)).to(u)
-    cut_cfl = float(cu.cfl_dt(u))
-    for dt in (P5_DT, 0.5 * cut_cfl):
-        for name, what, got, ref in kernel_stages(sol, cu, u, dt):
-            err = max_err(torch, got, ref)
-            limit = P5_F64_RTOL * max(1.0, ref.abs().max().item())
-            ok = err <= limit
-            say(f"[p5 parity] {name} ({what}) float64 {P5_CUT} dt {dt!r}: max_abs_err "
-                f"{err:.3e} limit {limit:.3e} (1e-12 of max(1, max|plain|)) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"{name} disagrees with its plain version (float64, {P5_CUT})")
-    del sol, cu, u
+    def phase(what):
+        say(f"[st] {what}: {time.perf_counter() - t_path:.1f} s into the path (host clock)")
 
     lines, gib = [], 2.0**-30
-    for grid in P5_GRIDS:
-        sol, cu = make(grid, torch.float32)
-        u0 = p5_wave(torch, sol, 0.0, torch.float32)
-        dt = P5_DT
-        cfl = float(cu.cfl_dt(u0))
-        say(f"[p5 main] {grid} f32, {sol.dofs()} DOF: dt = {dt!r} "
-            f"(examples/high_order_p5.py:77), cfl_dt {cfl!r}")
-        if not dt < cfl:
-            fail(f"dt {dt} is not below cfl_dt {cfl} at {grid}")
+    for order in ST_ORDERS:
+        tag = f"p{order}"
+        # --------------------------------- f64 parity on the cut grid
+        cut = ST_CUTS[order]
+        sol, cu = make(order, cut, torch.float64)
+        rng = np.random.default_rng(order)
+        u = density_wave(torch, sol, 0.0, torch.float64)
+        u[:, :, :, 0] *= 1.0 + 0.05 * torch.from_numpy(
+            rng.standard_normal(u[:, :, :, 0].shape)).to(u)
+        cut_cfl = float(cu.cfl_dt(u))
+        for dt in (ST_DT[order] or 0.25 * cut_cfl, 0.5 * cut_cfl):
+            for name, what, got, ref in st_kernel_stages(torch, sol, cu, u, dt):
+                err = max_err(torch, got, ref)
+                limit = ST_F64_RTOL * max(1.0, ref.abs().max().item())
+                ok = err <= limit
+                say(f"[{tag} parity] {name} ({what}) float64 {cut} dt {dt!r}: max_abs_err "
+                    f"{err:.3e} limit {limit:.3e} (1e-12 of max(1, max|plain|)) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"{name} disagrees with its plain version (float64, {cut})")
+        for mode in ST_WALLS:
+            wsol, wcu = make(order, cut, torch.float64, walls_of(mode, order, cut))
+            walls_parity(torch, wsol, wcu, u, 0.5 * cut_cfl, f"Euler p{order} {mode}", 5,
+                         [(0, 5)])
+        del sol, cu, wsol, wcu, u
+        phase(f"order {order}: the float64 parity, periodic and every wall mode")
 
-        # ------------------------------ each kernel against plain, f32
-        errs = {}
-        for name, what, got, ref in kernel_stages(sol, cu, u0, dt):
-            err, limit = max_err(torch, got, ref), f32_bound(torch, ref)
-            ok = err <= limit
-            say(f"[p5 parity] {name} ({what}) float32 {grid}: max_abs_err {err:.3e} limit "
-                f"{limit:.3e} ({F32_ULPS} f32 spacings of max|plain|) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"{name} disagrees with its plain version (float32, {grid})")
-            errs[name] = max(errs.get(name, 0.0), err)
+        for grid in ST_GRIDS[order]:
+            first = grid == ST_GRIDS[order][0]
+            sol, cu = make(order, grid, torch.float32)
+            u0 = density_wave(torch, sol, 0.0, torch.float32)
+            cfl = float(cu.cfl_dt(u0))
+            dt = ST_DT[order] or cfl
+            say(f"[{tag} main] {grid} f32, {sol.dofs()} DOF: dt = {dt!r} ("
+                + ("examples/high_order_p5.py:77" if ST_DT[order] else "cfl_dt")
+                + f"), cfl_dt {cfl!r}")
+            if not dt <= cfl:
+                fail(f"dt {dt} is above cfl_dt {cfl} at {grid}")
 
-        # ------------------------------------------------- main path
-        torch.cuda.synchronize()
+            # ------------------------------ each kernel against plain, f32
+            errs = {}
+            for name, what, got, ref in st_kernel_stages(torch, sol, cu, u0, dt):
+                err, limit = max_err(torch, got, ref), f32_bound(torch, ref)
+                ok = err <= limit
+                say(f"[{tag} parity] {name} ({what}) float32 {grid}: max_abs_err {err:.3e} "
+                    f"limit {limit:.3e} ({F32_ULPS} f32 spacings of max|plain|) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"{name} disagrees with its plain version (float32, {grid})")
+                errs[name] = max(errs.get(name, 0.0), err)
+
+            # ------------------------------------------------- main path
+            torch.cuda.synchronize()
+            cu.reset_launches()
+            u = cu.run(u0, STEPS, dt)
+            torch.cuda.synchronize()
+            launches = dict(cu.launches)
+            say(f"[{tag} main] {STEPS} steps of {grid} f32 through CudaADERDG: launches "
+                f"{launches}")
+            if launches != {name: STEPS for name in cu.kernels}:
+                fail(f"the order-{order} step launched {launches} in {STEPS} steps")
+            if tuple(u.shape) != sol.state_shape or not torch.isfinite(u).all():
+                fail(f"the order-{order} state is not finite or has the wrong shape")
+            exact = density_wave(torch, sol, STEPS * dt, torch.float64)
+            err = max_err(torch, u, exact)
+            m0, m1 = (float(cu.total_mass(x.double())[0]) for x in (u0, u))
+            say(f"[{tag} main] {grid}: max error against the exact wave at t = "
+                f"{STEPS * dt!r}: {err:.3e} (gate {ST_ERR_GATE}); mass drift "
+                f"{abs(m1 - m0):.3e} (gate {ST_MASS_GATE}, mass {m0!r})")
+            if not (err < ST_ERR_GATE and abs(m1 - m0) < ST_MASS_GATE):
+                fail(f"the order-{order} step misses the example's error or mass gate at "
+                     f"{grid}")
+            if not torch.equal(u, cu.run(u0, STEPS, dt)):
+                fail(f"two order-{order} runs from the same state differ")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            plain_u = sol.run(u0, ST_PLAIN_STEPS, dt)
+            torch.cuda.synchronize()
+            say(f"[{tag} mem] plain path {grid}, {ST_PLAIN_STEPS} steps: peak "
+                f"{torch.cuda.max_memory_allocated() * gib:.4f} GiB allocated ({held * gib:.4f} "
+                f"GiB held before) of "
+                f"{torch.cuda.get_device_properties(0).total_memory * gib:.1f} GiB ({card})")
+            u_n = cu.run(u0, ST_PLAIN_STEPS, dt)
+            run_err = max_err(torch, u_n, plain_u)
+            run_bound = ST_PLAIN_STEPS * f32_bound(torch, plain_u)
+            say(f"[{tag} main] two runs bitwise equal; {ST_PLAIN_STEPS}-step kernel path vs "
+                f"plain path: max_abs_err {run_err:.3e} limit {run_bound:.3e}")
+            if not run_err <= run_bound:
+                fail(f"the order-{order} kernel path disagrees with the plain path")
+            del plain_u, u_n
+            seam = density_wave(torch, sol, 0.0, torch.float32, periodic=False)
+            seam_u = cu.run(seam, STEPS, dt)
+            seam_err = max_err(torch, seam_u, density_wave(torch, sol, STEPS * dt, torch.float64,
+                                                      periodic=False))
+            say(f"[{tag} reading] {grid}: the example's wave as written (the axes shorter "
+                f"than 1 not periodic for it): error against the formula after {STEPS} steps "
+                f"{seam_err:.3e}")
+            del seam, seam_u, exact, u
+
+            # ------------------------------------------------------ times
+            dofs = cu.dofs()
+            k_win = windows(torch, cu, u0, dt, steps=20)
+            p_win = windows(torch, sol, u0, dt, steps=1, n_windows=1)
+            for label, win in (("kernel path", k_win), ("plain path", p_win)):
+                ms = [1e3 * w for w in win]
+                say(f"[{tag} time] {grid} {label}: step ms per window {ms!r}; median "
+                    f"{statistics.median(ms)!r} ms, {dofs / statistics.median(win)!r} "
+                    f"DOF-updates/s ({card})")
+            new, faces, _ = cu.predictor_volume(u0, dt)
+            fhat, _ = cu.face_flux(faces)
+            times = {
+                cu.kernels[0]: (event_ms(torch, lambda: cu.predictor_volume(u0, dt), 20),
+                                once_ms(torch, lambda: sol.predictor_volume(u0, dt))),
+                cu.kernels[1]: (event_ms(torch, lambda: cu.face_flux(faces), 20),
+                                once_ms(torch, lambda: plain_face_flux(torch, sol, faces))),
+                cu.kernels[2]: (event_ms(torch, lambda: cu.surface_update(new, fhat, dt), 20),
+                                once_ms(torch, lambda: plain_surface_update(sol, new, fhat,
+                                                                            dt))),
+            }
+            for name, (ms, plain_ms) in times.items():
+                say(f"[{tag} time] {grid} {name}: kernel {ms!r} ms, plain {plain_ms!r} ms "
+                    f"(CUDA events; {card})")
+            del new, fhat
+            idle, busy, wall = idle_share(torch, lambda: cu.run(u0, 20, dt))
+            say(f"[{tag} idle] {grid} kernel path, 20 steps under torch.profiler: device busy "
+                f"{busy!r} ms of wall {wall!r} ms; idle share {idle!r} ({card})")
+            ncell = math.prod(grid)
+            itemsize = u0.element_size()
+            face_bytes = torch.empty(sol.face_shape, dtype=u0.dtype, device="meta").nbytes
+            work = {
+                cu.kernels[0]: (2 * u0.nbytes + face_bytes,
+                                predictor_ops(order, sol.picard_iters, ncell)),
+                cu.kernels[1]: (face_flux_bytes(order, ncell, itemsize),
+                                face_flux_ops(order, ncell)),
+                cu.kernels[2]: (surface_update_bytes(order, ncell, itemsize),
+                                surface_update_ops(order, ncell)),
+            }
+            for name in cu.kernels:
+                bnd = kernel_report(cu, name, torch.float32, f"(Euler p{order}) {grid} f32",
+                                    times[name][0], *work[name], card)
+                if first:
+                    source = ("exahype_tpu_torch/csrc/aderdg_st.cuh" if name == cu.kernels[0]
+                              else "exahype_tpu_torch/csrc/aderdg.cu")
+                    lines.append(kernel_line(name, replaces, launches[name], errs[name],
+                                             *times[name], bnd, source=source))
+            phase(f"order {order} {grid}: parity, main path, times")
+            if first:
+                lines += st_walls_full(torch, card, order, grid, sol, cu, make, walls_of,
+                                       faces, u0, dt)
+                phase(f"order {order} {grid}: walls")
+            del sol, cu, u0, faces
+            torch.cuda.empty_cache()
+
+    # ------------------------------------------------ the order anchor
+    errors = {}
+    for order in ST_ANCHOR_ORDERS:
+        sol, cu = make(order, ST_ANCHOR_GRID, torch.float64)
+        u0 = density_wave(torch, sol, 0.0, torch.float64)
+        dt = ST_ANCHOR_T / ST_ANCHOR_STEPS
+        if not dt <= float(cu.cfl_dt(u0)):
+            fail(f"the anchor's dt {dt} is above cfl_dt at order {order}")
         cu.reset_launches()
-        u = cu.run(u0, STEPS, dt)
+        u = cu.run(u0, ST_ANCHOR_STEPS, dt)
         torch.cuda.synchronize()
-        launches = dict(cu.launches)
-        say(f"[p5 main] {STEPS} steps of {grid} f32 through CudaADERDG: launches {launches}")
-        if launches != {name: STEPS for name in cu.kernels}:
-            fail(f"the order-5 step launched {launches} in {STEPS} steps")
-        if tuple(u.shape) != sol.state_shape or not torch.isfinite(u).all():
-            fail("the order-5 state is not finite or has the wrong shape")
-        exact = p5_wave(torch, sol, STEPS * dt, torch.float64)
-        err = max_err(torch, u, exact)
-        m0, m1 = (float(cu.total_mass(x.double())[0]) for x in (u0, u))
-        say(f"[p5 main] {grid}: max error against the exact wave at t = {STEPS * dt!r}: "
-            f"{err:.3e} (gate {P5_ERR_GATE}); mass drift {abs(m1 - m0):.3e} (gate "
-            f"{P5_MASS_GATE}, mass {m0!r})")
-        if not (err < P5_ERR_GATE and abs(m1 - m0) < P5_MASS_GATE):
-            fail(f"the order-5 step misses the example's error or mass gate at {grid}")
-        if not torch.equal(u, cu.run(u0, STEPS, dt)):
-            fail("two order-5 runs from the same state differ")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        plain_u = sol.run(u0, STEPS, dt)
-        torch.cuda.synchronize()
-        say(f"[p5 mem] plain path {grid}, {STEPS} steps: peak "
-            f"{torch.cuda.max_memory_allocated() * gib:.4f} GiB allocated ({held * gib:.4f} "
-            f"GiB held before) of {torch.cuda.get_device_properties(0).total_memory * gib:.1f} "
-            f"GiB ({card})")
-        run_err, run_bound = max_err(torch, u, plain_u), STEPS * f32_bound(torch, plain_u)
-        say(f"[p5 main] two runs bitwise equal; {STEPS}-step kernel path vs plain path: "
-            f"max_abs_err {run_err:.3e} limit {run_bound:.3e}; plain error against the exact "
-            f"wave {max_err(torch, plain_u, exact):.3e}")
-        if not run_err <= run_bound:
-            fail("the order-5 kernel path disagrees with the plain path")
-        del plain_u
-        seam = p5_wave(torch, sol, 0.0, torch.float32, periodic=False)
-        seam_u = cu.run(seam, STEPS, dt)
-        seam_err = max_err(torch, seam_u, p5_wave(torch, sol, STEPS * dt, torch.float64,
-                                                  periodic=False))
-        say(f"[p5 reading] {grid}: the example's wave as written (axis 1 is "
-            f"{grid[1] / grid[0]!r} long, the wave not periodic on it): error against the "
-            f"formula after {STEPS} steps {seam_err:.3e}")
-        del seam, seam_u, exact
-
-        # ------------------------------------------------------ times
-        dofs = cu.dofs()
-        k_win = windows(torch, cu, u0, dt, steps=20)
-        p_win = windows(torch, sol, u0, dt, steps=2)
-        for label, win in (("kernel path", k_win), ("plain path", p_win)):
-            ms = [1e3 * w for w in win]
-            say(f"[p5 time] {grid} {label}: step ms per window {ms!r}; median "
-                f"{statistics.median(ms)!r} ms, {dofs / statistics.median(win)!r} "
-                f"DOF-updates/s ({card})")
-        new, faces, _ = cu.predictor_volume(u0, dt)
-        fhat, _ = cu.face_flux(faces)
-        times = {
-            cu.kernels[0]: (event_ms(torch, lambda: cu.predictor_volume(u0, dt), 20),
-                            event_ms(torch, lambda: sol.predictor_volume(u0, dt), 2)),
-            cu.kernels[1]: (event_ms(torch, lambda: cu.face_flux(faces), 20),
-                            event_ms(torch, lambda: plain_face_flux(torch, sol, faces), 2)),
-            cu.kernels[2]: (event_ms(torch, lambda: cu.surface_update(new, fhat, dt), 20),
-                            event_ms(torch, lambda: plain_surface_update(sol, new, fhat, dt), 2)),
-        }
-        for name, (ms, plain_ms) in times.items():
-            say(f"[p5 time] {grid} {name}: kernel {ms!r} ms, plain {plain_ms!r} ms (CUDA "
-                f"events; {card})")
-        del new, faces, fhat
-        idle, busy, wall = idle_share(torch, lambda: cu.run(u0, 20, dt))
-        say(f"[p5 idle] {grid} kernel path, 20 steps under torch.profiler: device busy "
-            f"{busy!r} ms of wall {wall!r} ms; idle share {idle!r} ({card})")
-        ncell = math.prod(grid)
-        itemsize = u0.element_size()
-        face_bytes = torch.empty(sol.face_shape, dtype=u0.dtype, device="meta").nbytes
-        work = {
-            cu.kernels[0]: (2 * u0.nbytes + face_bytes,
-                            predictor_ops(P5_ORDER, sol.picard_iters, ncell)),
-            cu.kernels[1]: (face_flux_bytes(P5_ORDER, ncell, itemsize),
-                            face_flux_ops(P5_ORDER, ncell)),
-            cu.kernels[2]: (surface_update_bytes(P5_ORDER, ncell, itemsize),
-                            surface_update_ops(P5_ORDER, ncell)),
-        }
-        for name in cu.kernels:
-            bnd = kernel_report(cu, name, torch.float32, f"(Euler p5) {grid} f32",
-                                times[name][0], *work[name], card)
-            if grid == P5_GRIDS[0]:
-                source = ("exahype_tpu_torch/csrc/aderdg_st.cuh" if name == cu.kernels[0]
-                          else "exahype_tpu_torch/csrc/aderdg.cu")
-                lines.append(kernel_line(name, "exahype_tpu/models/aderdg_pallas.py:156",
-                                         launches[name], errs[name], *times[name], bnd,
-                                         source=source))
-        del sol, cu, u0, u
-        torch.cuda.empty_cache()
+        if dict(cu.launches) != {name: ST_ANCHOR_STEPS for name in cu.kernels}:
+            fail(f"the anchor at order {order} launched {dict(cu.launches)}")
+        errors[order] = max_err(torch, u, density_wave(torch, sol, ST_ANCHOR_T, torch.float64))
+    say(f"[st anchor] the exact wave on {ST_ANCHOR_GRID} (dx = 1/4) at t = {ST_ANCHOR_T} in "
+        f"{ST_ANCHOR_STEPS} steps, float64 through the kernels: max error by order {errors!r}")
+    for lo, hi in zip(ST_ANCHOR_ORDERS, ST_ANCHOR_ORDERS[1:]):
+        if not (errors[hi] < errors[lo] or errors[hi] < ST_ANCHOR_FLOOR):
+            fail(f"the error did not fall from order {lo} to order {hi}: {errors}")
+    phase("the order anchor")
     return lines
+
+
+def st_walls_full(torch, card, order, grid, psol, pcu, make, walls_of, pfaces, u0, dt):
+    """The walled modes of an order-generic step at full width in float32
+    (``ST_ORDERS``' note): the walled pair against plain launch by launch,
+    the reflective box's 10 steps with its gates (the main path's launches of
+    the walled pair), the outflow and farfield channels, and the walled pair
+    timed beside the periodic one on the same faces.  Returns the JSON lines
+    of the walled pair."""
+    tag = f"p{order}"
+    sol, cu = make(order, grid, torch.float32, walls_of("reflective box", order, grid))
+    errs = walls_parity(torch, sol, cu, u0, dt, f"Euler p{order} reflective box", 5, [(0, 5)])
+    cu.reset_launches()
+    u = cu.run(u0, STEPS, dt)
+    torch.cuda.synchronize()
+    launches = dict(cu.launches)
+    say(f"[{tag} walls] {STEPS} steps of the reflective box {grid} f32 through CudaADERDG "
+        f"(dt = {dt!r}): launches {launches}")
+    if launches != {name: STEPS for name in cu.kernels}:
+        fail(f"the walled order-{order} step launched {launches} in {STEPS} steps")
+    if tuple(u.shape) != sol.state_shape or not torch.isfinite(u).all():
+        fail(f"the order-{order} reflective box's state is not finite or has the wrong shape")
+    m0, m1 = cu.total_mass(u0.double()), cu.total_mass(u.double())
+    rel = ((m1 - m0).abs() / m0.abs()).tolist()
+    say(f"[{tag} walls] relative change over {STEPS} steps: mass {rel[0]:.3e}, energy "
+        f"{rel[4]:.3e} (limit {MASS_RTOL:.1e}); momentum {rel[1]:.3e}, {rel[2]:.3e}, "
+        f"{rel[3]:.3e} (the walls' pressure acts: must exceed {MASS_RTOL:.1e})")
+    if not (rel[0] <= MASS_RTOL and rel[4] <= MASS_RTOL):
+        fail(f"the order-{order} reflective box leaks mass or energy")
+    if not min(rel[1:4]) > MASS_RTOL:
+        fail(f"the order-{order} reflective walls did not change the momentum")
+    if not torch.equal(u, cu.run(u0, STEPS, dt)):
+        fail(f"two runs of the order-{order} reflective box differ")
+    plain_u = sol.run(u0, ST_PLAIN_STEPS, dt)
+    run_err = max_err(torch, cu.run(u0, ST_PLAIN_STEPS, dt), plain_u)
+    run_bound = ST_PLAIN_STEPS * f32_bound(torch, plain_u)
+    say(f"[{tag} walls] two runs bitwise equal; {ST_PLAIN_STEPS}-step kernel path vs plain "
+        f"path: max_abs_err {run_err:.3e} limit {run_bound:.3e}")
+    if not run_err <= run_bound:
+        fail(f"the order-{order} reflective box disagrees with the plain path")
+    del plain_u, u
+    for mode in ("outflow (0,)", "farfield (0,)"):
+        osol, ocu = make(order, grid, torch.float32, walls_of(mode, order, grid))
+        start = u0
+        if mode == "farfield (0,)":  # the farfield state everywhere: steady
+            shape = [1] * len(osol.state_shape)
+            shape[osol.var_axis] = 5
+            start = torch.tensor(FARFIELD, dtype=torch.float32, device=u0.device).reshape(
+                shape).expand(osol.state_shape).contiguous()
+        odt = min(dt, float(ocu.cfl_dt(start)))
+        ocu.reset_launches()
+        u = ocu.run(start, STEPS, odt)
+        torch.cuda.synchronize()
+        ok = bool(torch.isfinite(u).all()) and dict(ocu.launches) == {
+            name: STEPS for name in ocu.kernels}
+        drift = max_err(torch, u, start)
+        limit = STEPS * f32_bound(torch, start)
+        steady = mode != "farfield (0,)" or drift <= limit
+        say(f"[{tag} walls] {mode} {grid} f32, {STEPS} steps at dt {odt!r}: launches "
+            f"{dict(ocu.launches)}; finite {bool(torch.isfinite(u).all())}"
+            + (f"; the uniform farfield flow: max |u - u0| {drift:.3e} limit {limit:.3e}"
+               if mode == "farfield (0,)" else ""))
+        if not (ok and steady):
+            fail(f"the order-{order} {mode} step is not finite, launched wrongly or did not "
+                 "stay steady")
+        del osol, ocu, u, start
+    new, faces, _ = cu.predictor_volume(u0, dt)
+    fhat, fwall = cu.face_flux(faces)
+    walls = cu.wall_fluxes(fwall)
+    pnew, _, _ = pcu.predictor_volume(u0, dt)
+    pfhat, _ = pcu.face_flux(pfaces)
+    times = {
+        cu.kernels[1]: (event_ms(torch, lambda: cu.face_flux(faces), 20),
+                        once_ms(torch, lambda: plain_face_flux(torch, sol, faces))),
+        cu.kernels[2]: (event_ms(torch, lambda: cu.surface_update(new, fhat, dt, fwall), 20),
+                        once_ms(torch, lambda: plain_surface_update(sol, new, fhat, dt, walls))),
+    }
+    periodic = {
+        cu.kernels[1]: event_ms(torch, lambda: pcu.face_flux(pfaces), 20),
+        cu.kernels[2]: event_ms(torch, lambda: pcu.surface_update(pnew, pfhat, dt), 20),
+    }
+    ncell = math.prod(grid)
+    work = walled_face_work(sol, cu, order, ncell, u0.element_size(), 5, 5, EIG_OPS, False)
+    out = []
+    for name in cu.kernels[1:]:
+        ms, plain_ms = times[name]
+        say(f"[{tag} walls time] {grid} {name}: kernel {ms!r} ms, plain {plain_ms!r} ms; "
+            f"the periodic kernel on the same faces {periodic[name]!r} ms (CUDA events; {card})")
+        bnd = kernel_report(cu, name, torch.float32, f"(Euler p{order} reflective box) {grid} "
+                            "f32", ms, *work[name], card)
+        out.append(kernel_line(name, "exahype_tpu/models/aderdg_pallas.py:156",
+                               launches[name], errs[name], ms, plain_ms, bnd))
+    del sol, cu, new, faces, fhat, fwall, pnew, pfhat
+    torch.cuda.empty_cache()
+    return out
 
 
 def dirichlet_state(*x):
@@ -3709,8 +3918,9 @@ def dirichlet_state(*x):
     return np.stack([rho] + [rho * v for v in vel] + [e], axis=-1)
 
 
-def euler_walls(name: str, grid) -> dict:
-    """The wall options of each Euler mode of the walls path."""
+def euler_walls(name: str, grid, order: int = ORDER, dx: float = DX) -> dict:
+    """The wall options of each Euler mode of the walls path (the Dirichlet
+    rows at ``order`` on ``grid`` at ``dx``)."""
     from exahype_tpu_torch.models.aderdg import (
         euler_reflect,
         euler_reflect_flux,
@@ -3723,7 +3933,7 @@ def euler_walls(name: str, grid) -> dict:
         "outflow (0,)": dict(boundary="outflow", wall_axes=(0,)),
         "farfield (0,)": dict(boundary="farfield", farfield_state=FARFIELD, wall_axes=(0,)),
         "dirichlet box": dict(boundary="dirichlet", dirichlet_fn=make_dirichlet_fn(
-            dirichlet_state, dim=3, order=ORDER, grid_shape=grid, dx=DX)),
+            dirichlet_state, dim=3, order=order, grid_shape=grid, dx=dx)),
         "reflective (1, 2)": dict(boundary="reflective", wall_axes=(1, 2), **mirror),
     }[name]
 
@@ -3847,28 +4057,6 @@ def walls_path(torch, dev, card) -> list[dict]:
     ncell = math.prod(GRID)
     n_nodes = ORDER + 1
 
-    def face_work(sol, cu, itemsize, nvar, rows, eig_ops, masked):
-        """Bytes and flops of the walled face stage and its launches:
-        those of the periodic stage, plus the side tensor (written by the
-        flux kernel, read by the update) and any Dirichlet rows read, and
-        one more Rusanov flux a low-wall face node."""
-        side = cu.walls["size"] * itemsize
-        dirichlet = 2 * side if sol.boundary == "dirichlet" else 0
-        low = cu.walls["size"] // nvar
-        extra_ops = low * (2 * eig_ops + (7 if masked else 6) * nvar)
-        em = dict(nvar=nvar, eig_ops=eig_ops, masked=masked)
-        return {
-            cu.kernels[1]: (
-                face_flux_bytes(ORDER, ncell, itemsize, nvar=nvar, rows=rows) + side + dirichlet,
-                face_flux_ops(ORDER, ncell, **em) + extra_ops),
-            cu.kernels[2]: (
-                surface_update_bytes(ORDER, ncell, itemsize, rows=rows) + side,
-                surface_update_ops(ORDER, ncell, nvar=rows)),
-            "face stage": (
-                face_stage_bytes(ORDER, ncell, itemsize, nvar=nvar, rows=rows) + side
-                + dirichlet, face_surface_ops(ORDER, ncell, **em) + extra_ops),
-        }
-
     def face_times(sol, cu, u, dt):
         new, faces, _ = cu.predictor_volume(u, dt)
         fhat, fwall = cu.face_flux(faces)
@@ -3940,7 +4128,7 @@ def walls_path(torch, dev, card) -> list[dict]:
     idle, busy, wall = idle_share(torch, lambda: cu.run(u0, 20, dt))
     say(f"[walls idle] reflective box, 20 steps under torch.profiler: device busy {busy!r} "
         f"ms of wall {wall!r} ms; idle share {idle!r} ({card})")
-    work = face_work(sol, cu, u0.element_size(), 5, 5, EIG_OPS, False)
+    work = walled_face_work(sol, cu, ORDER, ncell, u0.element_size(), 5, 5, EIG_OPS, False)
     replaces = "exahype_tpu/models/aderdg_pallas.py:156"
     for name in (*cu.kernels[1:], "face stage"):
         bnd = kernel_report(None if name == "face stage" else cu, name, torch.float32,
@@ -4008,7 +4196,8 @@ def walls_path(torch, dev, card) -> list[dict]:
     for name, (t, plain_t) in times.items():
         say(f"[walls time] {name} (CK free surface): kernel {t!r} ms, plain {plain_t!r} ms "
             f"(CUDA events; {card})")
-    work = face_work(sol, cu, u0.element_size(), N_VARS_3D_HET, E, ELASTIC_EIG_OPS, True)
+    work = walled_face_work(sol, cu, ORDER, ncell, u0.element_size(), N_VARS_3D_HET, E,
+                            ELASTIC_EIG_OPS, True)
     for name in (*cu.kernels[1:], "face stage"):
         bnd = kernel_report(None if name == "face stage" else cu, name, torch.float32,
                             f"(walls, CK free surface) {GRID} f32", times[name][0],
@@ -5273,13 +5462,13 @@ def z4_shift_path(torch, dev, card) -> list[dict]:
         "face stage": (event_ms(torch, lambda: cu.face_surface(new, faces, Z4_DT), 20),
                        once_ms(torch, lambda: plain.face_surface(new, faces, Z4_DT))),
         "step": (event_ms(torch, lambda: cu.step(u0, Z4_DT), 20),
-                 once_ms(torch, lambda: plain.step(u0, Z4_DT))),
+                 1e3 * p_win[0]),  # the plain step's host window above
     }
     u1 = cu.step(u0, Z4_DT)
     stepped = event_ms(torch, lambda: cu.predictor_volume(u1, Z4_DT), 20)
     for name, (ms, plain_ms) in d_times.items():
         say(f"[z4s time] K1 d shifted {name}: kernel {ms!r} ms, plain {plain_ms!r} ms (CUDA "
-            f"events; {card})")
+            f"events; the plain step's: its host window; {card})")
     say(f"[z4s time] K1 d shifted {pred} on the state after one step: {stepped!r} ms ({card})")
     k5_ms = {
         "Picard": event_ms(torch, lambda: k5(*pic), 20),
@@ -5293,6 +5482,7 @@ def z4_shift_path(torch, dev, card) -> list[dict]:
         f"{tuple(pic[0].shape)} {k5_ms['Picard']!r} ms, corrector shape {tuple(cor[0].shape)} "
         f"{k5_ms['corrector']!r} ms; plain rhs_all_fn {k5_plain_ms['Picard']!r} / "
         f"{k5_plain_ms['corrector']!r} ms ({card})")
+    phase("the times before the idle shares")
     idle, busy, wall = idle_share(torch, lambda: cu.run(u0, 20, Z4_DT))
     say(f"[z4s idle] CudaADERDG path, 20 steps under torch.profiler: device busy {busy!r} ms of "
         f"wall {wall!r} ms; idle share {idle!r} ({card})")
@@ -6298,11 +6488,11 @@ def z4_grmhd_path(torch, dev, card) -> list[dict]:
         "face stage": (event_ms(torch, lambda: cu.face_surface(new, faces, Z4_DT), 20),
                        once_ms(torch, lambda: plain.face_surface(new, faces, Z4_DT))),
         "step": (event_ms(torch, lambda: cu.step(u0, Z4_DT), 20),
-                 once_ms(torch, lambda: plain.step(u0, Z4_DT))),
+                 1e3 * p_win[0]),  # the plain step's host window above
     }
     for name, (ms, plain_ms) in d_times.items():
         say(f"[z4g time] K1 d GRMHD {name}: kernel {ms!r} ms, plain {plain_ms!r} ms (CUDA "
-            f"events; {card})")
+            f"events; the plain step's: its host window; {card})")
     calls = z4_rhs_calls(plain, u0, Z4_DT)
     pic, cor = calls[0], calls[iters]
     del calls
@@ -6318,6 +6508,7 @@ def z4_grmhd_path(torch, dev, card) -> list[dict]:
         f"{tuple(pic[0].shape)} {k5_ms['Picard']!r} ms, corrector shape {tuple(cor[0].shape)} "
         f"{k5_ms['corrector']!r} ms; plain rhs_all_fn {k5_plain_ms['Picard']!r} / "
         f"{k5_plain_ms['corrector']!r} ms ({card})")
+    phase("the times before the idle shares")
     idle, busy, wall = idle_share(torch, lambda: cu.run(u0, 20, Z4_DT))
     say(f"[z4g idle] CudaADERDG path, 20 steps under torch.profiler: device busy {busy!r} ms of "
         f"wall {wall!r} ms; idle share {idle!r} ({card})")
@@ -7689,7 +7880,7 @@ def main():
 
     paths = {
         "ADER-DG": lambda: aderdg_path(torch, dev, card),
-        "ADER-DG p5": lambda: p5_path(torch, dev, card),
+        "ADER-DG p4, p5, p7": lambda: st_orders_path(torch, dev, card),
         "limited": lambda: limited_path(torch, dev, card),
         "limited walls": lambda: limited_walls_path(torch, dev, card),
         "limited blast walls": lambda: blast_walls_path(torch, dev, card),

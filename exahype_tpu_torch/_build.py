@@ -137,9 +137,11 @@ _SIGNATURES = {
         ("aderdg_predictor_volume_z4_grmhd", _PREDICTOR_VOLUME),
         ("aderdg_face_flux_z4_grmhd", _FACE_FLUX_Z4),
         ("aderdg_surface_update_z4_grmhd", _SURFACE_UPDATE_Z4),
-        ("aderdg_predictor_volume_p5", _PREDICTOR_VOLUME),
-        ("aderdg_face_flux_p5", _FACE_FLUX),
-        ("aderdg_surface_update_p5", _SURFACE_UPDATE),
+        *((f"aderdg_{kernel}_p{order}", argtypes) for order in (4, 5, 7)
+          for kernel, argtypes in (
+              ("predictor_volume", _PREDICTOR_VOLUME), ("face_flux", _FACE_FLUX),
+              ("surface_update", _SURFACE_UPDATE), ("face_flux_walls", _FACE_FLUX_WALLS),
+              ("surface_update_walls", _SURFACE_UPDATE_WALLS))),
         ("aderdg_predictor_volume_2d", _PREDICTOR_VOLUME),
         ("aderdg_predictor_volume_visc_2d", _PREDICTOR_VOLUME),
         ("aderdg_face_flux_2d", _FACE_FLUX),

@@ -6,9 +6,11 @@
 // predictor is csrc/aderdg_ck_nodes.cuh's, K2 b).  The definitions both sources share are in
 // csrc/aderdg_common.cuh.  The Z4 steps (physics 3 to 6) have their own
 // three kernels each, csrc/aderdg_z4.cuh; this file's occupancy query
-// reports them.  At order 5 the Euler predictor is csrc/aderdg_st.cuh's
-// (built by csrc/aderdg_p5.cu and aderdg_p5_f64.cu), and this file
-// instantiates the periodic face stage at n = 6 for it (the _p5 entries).
+// reports them.  At orders 4, 5 and 7 the Euler predictor is
+// csrc/aderdg_st.cuh's (built by csrc/aderdg_p4.cu, aderdg_p5.cu,
+// aderdg_p7.cu and their _f64 twins), and this file instantiates the face
+// stage, periodic and walled, at n = 5, 6 and 8 for it (the _p4, _p5 and
+// _p7 entries).
 //
 // Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
 // PallasADERDG.build (its pallas_call and the XLA face epilogue around it)
@@ -223,10 +225,15 @@ int z4_matter_kernel_info_f64(int which, int* out) __attribute__((weak));
 // aderdg_z4_grmhd_f64.cu; weak too), the same `which`.
 int z4_grmhd_kernel_info_f32(int which, int* out) __attribute__((weak));
 int z4_grmhd_kernel_info_f64(int which, int* out) __attribute__((weak));
-// The order-5 space-time predictor's occupancy (csrc/aderdg_p5.cu and
-// aderdg_p5_f64.cu; weak too).
+// The space-time predictor's occupancy at orders 5, 4 and 7
+// (csrc/aderdg_p5.cu, aderdg_p4.cu, aderdg_p7.cu and their _f64 twins; weak
+// too).
 int st_predictor_info_f32(int* out) __attribute__((weak));
 int st_predictor_info_f64(int* out) __attribute__((weak));
+int st_predictor_p4_info_f32(int* out) __attribute__((weak));
+int st_predictor_p4_info_f64(int* out) __attribute__((weak));
+int st_predictor_p7_info_f32(int* out) __attribute__((weak));
+int st_predictor_p7_info_f64(int* out) __attribute__((weak));
 // The 2-D steps' occupancy (csrc/aderdg_2d.cu; weak too): `which` 0
 // predictor, 1 face flux, 2 update, 3 and 4 the wall pair, 5 the viscous
 // predictor, of `physics` (0 Euler; 2 Navier–Stokes: 1, 2 and 5).
@@ -236,8 +243,8 @@ int aderdg_2d_kernel_info_f64(int which, int physics, int* out) __attribute__((w
 namespace {
 
 // Order 3: the node count of this file's predictors and of its face stage's
-// order-3 instances (the face stage also has order-5 Euler instances, for
-// csrc/aderdg_st.cuh's predictor).
+// order-3 instances (the face stage also has Euler instances at orders 4,
+// 5 and 7, for csrc/aderdg_st.cuh's predictor).
 constexpr int kNN = 4;
 
 // Wall modes of the C interface: the ghost is my own face times a sign
@@ -771,16 +778,21 @@ aderdg_ck_predictor_volume(const T* __restrict__ u, T* __restrict__ out,
 // blocks of aderdg_face_flux take kFluxNodes face nodes of one axis, blocks
 // of aderdg_surface_update kUpdateNodes space nodes.  At NN = 3 (9 face
 // nodes an axis, 27 space nodes a cell, K2 b's elasticity at order 2) those
-// do not divide: there a block takes 3 face nodes and 9 space nodes
-// (FaceTiling; the instances at NN = 4 and 6 keep kFluxNodes and
-// kUpdateNodes).
+// do not divide: there a block takes 3 face nodes and 9 space nodes; at NN
+// = 5 (25 face nodes, 125 space nodes, Euler at order 4) 5 of each
+// (FaceTiling; the instances at NN = 4, 6 and 8 keep kFluxNodes and
+// kUpdateNodes).  The walled update asks for as many resident threads an SM
+// as at NN = 4 (kWallUpdateThreads: 6 blocks of 256), which holds its
+// registers at 40.
 constexpr int kFluxNodes = 4;
 constexpr int kUpdateNodes = 8;
+constexpr int kWallUpdateThreads = 6 * kTile * kUpdateNodes;
 
 template <int NN>
 struct FaceTiling {
-  static constexpr int kFlux = NN == 3 ? 3 : kFluxNodes;
-  static constexpr int kUpdate = NN == 3 ? 9 : kUpdateNodes;
+  static constexpr int kFlux = NN == 3 ? 3 : (NN == 5 ? 5 : kFluxNodes);
+  static constexpr int kUpdate = NN == 3 ? 9 : (NN == 5 ? 5 : kUpdateNodes);
+  static constexpr int kWallUpdateBlocks = kWallUpdateThreads / (kTile * kUpdate);
 };
 
 // The face stage, first launch: one thread per (cell, axis d, face node m)
@@ -941,16 +953,17 @@ __device__ __forceinline__ void wall_ghost(const WallParams<T, Phys::V>& W, cons
 // also solves its low wall, ghost on the left and its own low face on the
 // right, ½(g_f + f_lo) − ½ s_w m (q_lo − g_q), into W.fwall.
 template <typename T, int NN, typename Phys>
-__global__ void __launch_bounds__(kTile * kFluxNodes)
+__global__ void __launch_bounds__(kTile * FaceTiling<NN>::kFlux)
 aderdg_face_flux_walls(const T* __restrict__ faces, T* __restrict__ fhat,
                        const Params<T, NN, Phys> P, const WallParams<T, Phys::V> W) {
   constexpr int NF = NN * NN;
   constexpr int V = Phys::V;
   constexpr int R = Phys::kFluxRows;
+  constexpr int FN = FaceTiling<NN>::kFlux;
   const TileCell tc(blockIdx.x, P.g);
   if (!tc.inside) return;  // no barrier here
-  const int d = blockIdx.y / (NF / kFluxNodes);
-  const int m = (blockIdx.y % (NF / kFluxNodes)) * kFluxNodes + threadIdx.y;
+  const int d = blockIdx.y / (NF / FN);
+  const int m = (blockIdx.y % (NF / FN)) * FN + threadIdx.y;
   const long long ncell = P.ncell;
   const long long cell = tc.cell;
   const bool wall = (W.mask >> d) & 1;
@@ -1003,20 +1016,23 @@ aderdg_face_flux_walls(const T* __restrict__ faces, T* __restrict__ fhat,
 // The face stage's wall variant, second launch: aderdg_surface_update,
 // with F̂_lo read from W.fwall in the first row of a wall axis.  The
 // per-thread choice of F̂_lo's row stride costs registers: the kernel is
-// held to the periodic update's 6 resident blocks of 256 threads an SM.
+// held to the periodic update's 6 resident blocks of 256 threads an SM (at
+// NN = 5, 9 blocks of 160).
 template <typename T, int NN, typename Phys>
-__global__ void __launch_bounds__(kTile * kUpdateNodes, 6)
+__global__ void __launch_bounds__(kTile * FaceTiling<NN>::kUpdate,
+                                  FaceTiling<NN>::kWallUpdateBlocks)
 aderdg_surface_update_walls(T* __restrict__ state, const T* __restrict__ fhat,
                             const T* __restrict__ dt_ptr, T dt_val,
                             const Params<T, NN, Phys> P, const WallParams<T, Phys::V> W) {
   constexpr int NF = NN * NN;
-  constexpr int NG = NN * NF / kUpdateNodes;
+  constexpr int UN = FaceTiling<NN>::kUpdate;
+  constexpr int NG = NN * NF / UN;
   constexpr int V = Phys::V;
   constexpr int R = Phys::kFluxRows;
   const int tile_index = blockIdx.x / NG;
   const TileCell tc(tile_index, P.g);
   if (!tc.inside) return;
-  const int node = (blockIdx.x - tile_index * NG) * kUpdateNodes + threadIdx.y;
+  const int node = (blockIdx.x - tile_index * NG) * UN + threadIdx.y;
   const long long ncell = P.ncell;
   const long long cell = tc.cell;
   const T dtv = dt_ptr != nullptr ? *dt_ptr : dt_val;
@@ -1273,11 +1289,10 @@ Shape ck_predictor_shape() {
 }
 
 // The face stage's shapes and launchers take the instance's node count NN:
-// the periodic pair is instantiated at order 3 (every physics) and at order
-// 5 (Euler), the wall pair at order 3 only.
+// both pairs are instantiated at order 3 and, for Euler, at orders 4, 5 and
+// 7; the periodic pair also at order 2 (K2 b's elasticity).
 template <typename T, typename Phys, bool kWalls, int NN = kNN>
 Shape face_flux_shape() {
-  static_assert(!kWalls || NN == kNN, "the wall pair is instantiated at order 3 only");
   const void* fn;
   if constexpr (kWalls) {
     fn = reinterpret_cast<const void*>(aderdg_face_flux_walls<T, NN, Phys>);
@@ -1289,7 +1304,6 @@ Shape face_flux_shape() {
 
 template <typename T, typename Phys, bool kWalls, int NN = kNN>
 Shape surface_update_shape() {
-  static_assert(!kWalls || NN == kNN, "the wall pair is instantiated at order 3 only");
   const void* fn;
   if constexpr (kWalls) {
     fn = reinterpret_cast<const void*>(aderdg_surface_update_walls<T, NN, Phys>);
@@ -1405,7 +1419,7 @@ int ck_predictor_volume(const T* u, T* out, T* faces, const T* dt_ptr, double dt
                                                params, g0, g1, g2, sigma, stream);
 }
 
-template <typename T, typename Phys>
+template <typename T, typename Phys, int NN = kNN>
 int face_flux_of(const T* faces, T* fhat, const double* ops, const double* dx, int order,
                  const double* params, long long g0, long long g1, long long g2, int wall_mask,
                  int wall_mode, const double* wall_table, const T* wall_rows, T* fwall,
@@ -1420,10 +1434,10 @@ int face_flux_of(const T* faces, T* fhat, const double* ops, const double* dx, i
   const auto W = make_walls<T, Phys::V>(wall_mask, wall_mode, wall_table, wall_rows, fwall,
                                         wall_off, wall_side, visc_rows);
   if (wall_mask == 0)
-    return launch_face_flux<T, Phys, false>(faces, fhat, ops, dx, order, params, g0, g1, g2, W,
-                                            stream);
-  return launch_face_flux<T, Phys, true>(faces, fhat, ops, dx, order, params, g0, g1, g2, W,
-                                         stream);
+    return launch_face_flux<T, Phys, false, NN>(faces, fhat, ops, dx, order, params, g0, g1, g2,
+                                                W, stream);
+  return launch_face_flux<T, Phys, true, NN>(faces, fhat, ops, dx, order, params, g0, g1, g2, W,
+                                             stream);
 }
 
 template <typename T>
@@ -1452,7 +1466,7 @@ int face_flux(const T* faces, T* fhat, const double* ops, const double* dx,
   }
 }
 
-template <typename T, typename Phys>
+template <typename T, typename Phys, int NN = kNN>
 int surface_update_of(T* state, const T* fhat, const T* dt_ptr, double dt_val,
                       const double* ops, const double* dx, int order, const double* params,
                       long long g0, long long g1, long long g2, int wall_mask, const T* fwall,
@@ -1461,10 +1475,10 @@ int surface_update_of(T* state, const T* fhat, const T* dt_ptr, double dt_val,
   const auto W = make_walls<T, Phys::V>(wall_mask, kMirror, nullptr, nullptr,
                                         const_cast<T*>(fwall), wall_off, 0);
   if (wall_mask == 0)
-    return launch_surface_update<T, Phys, false>(state, fhat, dt_ptr, dt_val, ops, dx, order,
-                                                 params, g0, g1, g2, W, stream);
-  return launch_surface_update<T, Phys, true>(state, fhat, dt_ptr, dt_val, ops, dx, order,
-                                              params, g0, g1, g2, W, stream);
+    return launch_surface_update<T, Phys, false, NN>(state, fhat, dt_ptr, dt_val, ops, dx,
+                                                     order, params, g0, g1, g2, W, stream);
+  return launch_surface_update<T, Phys, true, NN>(state, fhat, dt_ptr, dt_val, ops, dx, order,
+                                                  params, g0, g1, g2, W, stream);
 }
 
 template <typename T>
@@ -1540,29 +1554,57 @@ int face_flux_exchanged_of(const T* faces, T* fhat, const double* ops, const dou
   return cudaGetLastError();
 }
 
-// The order-5 Euler face stage (NN = 6), periodic: the second and third
-// launches of a step on csrc/aderdg_st.cuh's predictor.
+// The Euler face stage at orders 4, 5 and 7 (NN = 5, 6, 8), periodic or
+// walled: the second and third launches of a step on csrc/aderdg_st.cuh's
+// predictor.  The periodic entries pass no walls (mask 0); the walled ones
+// take walls only, in every mode (the Euler physics has no viscous planes).
+constexpr int kNN4 = 5;
 constexpr int kNN5 = 6;
+constexpr int kNN7 = 8;
 
-template <typename T>
-int face_flux_p5(const T* faces, T* fhat, const double* ops, const double* dx, int order,
+template <typename T, int NN>
+int st_face_flux(const T* faces, T* fhat, const double* ops, const double* dx, int order,
                  int physics, const double* params, long long g0, long long g1, long long g2,
+                 int wall_mask, int wall_mode, const double* wall_table, const T* wall_rows,
+                 T* fwall, const long long* wall_off, long long wall_side, const T* visc_rows,
                  void* stream) {
   if (physics != kEuler) return cudaErrorInvalidValue;
-  const WallParams<T, EulerPhysics<T>::V> W{};
-  return launch_face_flux<T, EulerPhysics<T>, false, kNN5>(faces, fhat, ops, dx, order, params,
-                                                           g0, g1, g2, W, stream);
+  return face_flux_of<T, EulerPhysics<T>, NN>(faces, fhat, ops, dx, order, params, g0, g1, g2,
+                                              wall_mask, wall_mode, wall_table, wall_rows,
+                                              fwall, wall_off, wall_side, visc_rows, stream);
 }
 
-template <typename T>
-int surface_update_p5(T* state, const T* fhat, const T* dt_ptr, double dt_val,
+template <typename T, int NN>
+int st_surface_update(T* state, const T* fhat, const T* dt_ptr, double dt_val,
                       const double* ops, const double* dx, int order, int physics,
                       const double* params, long long g0, long long g1, long long g2,
-                      void* stream) {
+                      int wall_mask, const T* fwall, const long long* wall_off, void* stream) {
   if (physics != kEuler) return cudaErrorInvalidValue;
-  const WallParams<T, EulerPhysics<T>::V> W{};
-  return launch_surface_update<T, EulerPhysics<T>, false, kNN5>(
-      state, fhat, dt_ptr, dt_val, ops, dx, order, params, g0, g1, g2, W, stream);
+  return surface_update_of<T, EulerPhysics<T>, NN>(state, fhat, dt_ptr, dt_val, ops, dx, order,
+                                                   params, g0, g1, g2, wall_mask, fwall,
+                                                   wall_off, stream);
+}
+
+// The shapes of the Euler step at NN nodes an axis: `which` 0 the
+// predictor (its source's weak query, `info`), 1 the face flux, 2 the
+// update, 3 and 4 the walled pair.
+template <typename T, int NN>
+int st_info(int which, int (*info)(int*), int* out) {
+  using E = EulerPhysics<T>;
+  switch (which) {
+    case 0:
+      return info ? info(out) : cudaErrorInvalidValue;
+    case 1:
+      return shape_info(face_flux_shape<T, E, false, NN>(), out);
+    case 2:
+      return shape_info(surface_update_shape<T, E, false, NN>(), out);
+    case 3:
+      return shape_info(face_flux_shape<T, E, true, NN>(), out);
+    case 4:
+      return shape_info(surface_update_shape<T, E, true, NN>(), out);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // K2 b's 3-D step: the homogeneous elasticity (physics 7, Elastic3D,
@@ -1658,13 +1700,19 @@ int kernel_info(int kernel, int physics, int* out) {
     if (physics == kElasticHet) return p2_info<T, ElasticHetPhysics<T>>(kernel, out);
     return cudaErrorInvalidValue;
   }
-  if (kernel >= 19 && kernel <= 21) {  // the order-5 Euler step's, 19-21
+  const bool f64 = sizeof(T) == 8;
+  if (kernel >= 19 && kernel <= 21)  // the order-5 Euler step's, 19-21
+    return euler ? st_info<T, kNN5>(kernel - 19, f64 ? st_predictor_info_f64
+                                                     : st_predictor_info_f32, out)
+                 : cudaErrorInvalidValue;
+  if (kernel >= 34 && kernel <= 45) {  // its walled pair, 34-35; orders 4 (36-40), 7 (41-45)
     if (!euler) return cudaErrorInvalidValue;
-    using E = EulerPhysics<T>;
-    if (kernel == 20) return shape_info(face_flux_shape<T, E, false, kNN5>(), out);
-    if (kernel == 21) return shape_info(surface_update_shape<T, E, false, kNN5>(), out);
-    auto* info = sizeof(T) == 8 ? st_predictor_info_f64 : st_predictor_info_f32;
-    return info ? info(out) : cudaErrorInvalidValue;
+    if (kernel <= 35) return st_info<T, kNN5>(kernel - 31, nullptr, out);
+    if (kernel <= 40)
+      return st_info<T, kNN4>(kernel - 36, f64 ? st_predictor_p4_info_f64
+                                               : st_predictor_p4_info_f32, out);
+    return st_info<T, kNN7>(kernel - 41, f64 ? st_predictor_p7_info_f64
+                                             : st_predictor_p7_info_f32, out);
   }
   if (physics == kZ4) {  // the Z4 step's own three kernels, 7-9
     auto* info = sizeof(T) == 8 ? z4_kernel_info_f64 : z4_kernel_info_f32;
@@ -1748,7 +1796,8 @@ extern "C" {
 // fhat: [dim, n^(dim-1), n_vars, *grid], the interface fluxes; face_flux
 // leaves the rows that are zero by construction (the elasticity's
 // materials) unwritten.  These entries are the order-3 instances; the
-// order-5 Euler face stage has entries of its own (_p5, below).
+// Euler face stage at orders 4, 5 and 7 has entries of its own (_p4, _p5,
+// _p7, below).
 //
 // The face stage's wall variant, face_flux_walls then surface_update_walls
 // (the periodic entries' arguments, then these): bit d of wall_mask (not
@@ -1955,40 +2004,52 @@ int exahype_aderdg_face_flux_exchanged_f64(
       wall_rows, wall_off, wall_side, modes, planes, fside, side_off, stream);
 }
 
-// The order-5 Euler face stage (physics 0 only; order must be 5): the
-// periodic entries' arguments and layouts at n = 6, for the predictor of
-// csrc/aderdg_p5.cu.
-int exahype_aderdg_face_flux_p5_f32(const float* faces, float* fhat, const double* ops,
-                                    const double* dx, int order, int physics,
-                                    const double* params, long long g0, long long g1,
-                                    long long g2, void* stream) {
-  return face_flux_p5<float>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, stream);
-}
+// The Euler face stage at orders 4, 5 and 7 (physics 0 only; order must
+// be the entry's): the periodic entries' arguments and layouts at n = 5, 6
+// and 8 (face_flux_pN, surface_update_pN), and the wall variant's
+// (face_flux_walls_pN, surface_update_walls_pN; visc_rows must be null),
+// for the predictor of csrc/aderdg_pN.cu.
+#define EXAHYPE_ST_FACE_ENTRIES(ORDER, NN, T, S)                                               \
+  int exahype_aderdg_face_flux_##ORDER##_##S(                                                  \
+      const T* faces, T* fhat, const double* ops, const double* dx, int order, int physics,   \
+      const double* params, long long g0, long long g1, long long g2, void* stream) {         \
+    return st_face_flux<T, NN>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, 0,  \
+                               0, nullptr, nullptr, nullptr, nullptr, 0, nullptr, stream);   \
+  }                                                                                            \
+  int exahype_aderdg_surface_update_##ORDER##_##S(                                             \
+      T* state, const T* fhat, const T* dt_ptr, double dt_val, const double* ops,             \
+      const double* dx, int order, int physics, const double* params, long long g0,           \
+      long long g1, long long g2, void* stream) {                                             \
+    return st_surface_update<T, NN>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics,    \
+                                    params, g0, g1, g2, 0, nullptr, nullptr, stream);         \
+  }                                                                                            \
+  int exahype_aderdg_face_flux_walls_##ORDER##_##S(                                            \
+      const T* faces, T* fhat, const double* ops, const double* dx, int order, int physics,   \
+      const double* params, long long g0, long long g1, long long g2, int wall_mask,          \
+      int wall_mode, const double* wall_table, const T* wall_rows, T* fwall,                  \
+      const long long* wall_off, long long wall_side, const T* visc_rows, void* stream) {     \
+    if (no_walls(wall_mask)) return cudaErrorInvalidValue;                                    \
+    return st_face_flux<T, NN>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2,     \
+                               wall_mask, wall_mode, wall_table, wall_rows, fwall, wall_off, \
+                               wall_side, visc_rows, stream);                                 \
+  }                                                                                            \
+  int exahype_aderdg_surface_update_walls_##ORDER##_##S(                                       \
+      T* state, const T* fhat, const T* dt_ptr, double dt_val, const double* ops,             \
+      const double* dx, int order, int physics, const double* params, long long g0,           \
+      long long g1, long long g2, int wall_mask, const T* fwall, const long long* wall_off,   \
+      void* stream) {                                                                          \
+    if (no_walls(wall_mask)) return cudaErrorInvalidValue;                                    \
+    return st_surface_update<T, NN>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics,    \
+                                    params, g0, g1, g2, wall_mask, fwall, wall_off, stream);  \
+  }
 
-int exahype_aderdg_face_flux_p5_f64(const double* faces, double* fhat, const double* ops,
-                                    const double* dx, int order, int physics,
-                                    const double* params, long long g0, long long g1,
-                                    long long g2, void* stream) {
-  return face_flux_p5<double>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, stream);
-}
-
-int exahype_aderdg_surface_update_p5_f32(float* state, const float* fhat, const float* dt_ptr,
-                                         double dt_val, const double* ops, const double* dx,
-                                         int order, int physics, const double* params,
-                                         long long g0, long long g1, long long g2,
-                                         void* stream) {
-  return surface_update_p5<float>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics, params,
-                                  g0, g1, g2, stream);
-}
-
-int exahype_aderdg_surface_update_p5_f64(double* state, const double* fhat,
-                                         const double* dt_ptr, double dt_val,
-                                         const double* ops, const double* dx, int order,
-                                         int physics, const double* params, long long g0,
-                                         long long g1, long long g2, void* stream) {
-  return surface_update_p5<double>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics, params,
-                                   g0, g1, g2, stream);
-}
+EXAHYPE_ST_FACE_ENTRIES(p4, kNN4, float, f32)
+EXAHYPE_ST_FACE_ENTRIES(p4, kNN4, double, f64)
+EXAHYPE_ST_FACE_ENTRIES(p5, kNN5, float, f32)
+EXAHYPE_ST_FACE_ENTRIES(p5, kNN5, double, f64)
+EXAHYPE_ST_FACE_ENTRIES(p7, kNN7, float, f32)
+EXAHYPE_ST_FACE_ENTRIES(p7, kNN7, double, f64)
+#undef EXAHYPE_ST_FACE_ENTRIES
 
 // K2 b, the 3-D homogeneous elasticity at order 2 (physics 7, params = {ρ,
 // λ, μ}; order must be 2), periodic: the CK predictor (the CK entries'
@@ -2059,7 +2120,11 @@ int exahype_aderdg_surface_update_p2_f64(double* state, const double* fhat,
 // csrc/aderdg_z4_grmhd.cu): 16 = predictor_volume_z4_grmhd, 17 =
 // face_flux_z4_grmhd, 18 = surface_update_z4_grmhd; physics 0 at order 5:
 // 19 = predictor_volume_p5 (csrc/aderdg_p5.cu), 20 = face_flux_p5, 21 =
-// surface_update_p5; physics 0 in 2-D (csrc/aderdg_2d.cu): 22 =
+// surface_update_p5, 34 = face_flux_walls_p5, 35 = surface_update_walls_p5;
+// physics 0 at order 4 (csrc/aderdg_p4.cu): 36 = predictor_volume_p4, 37 =
+// face_flux_p4, 38 = surface_update_p4, 39 = face_flux_walls_p4, 40 =
+// surface_update_walls_p4; at order 7 (csrc/aderdg_p7.cu) the same, 41-45;
+// physics 0 in 2-D (csrc/aderdg_2d.cu): 22 =
 // predictor_volume_2d, 23 = face_flux_2d, 24 = surface_update_2d, 25 =
 // face_flux_walls_2d, 26 = surface_update_walls_2d (physics 8, the 2-D
 // elasticity: 23-26 its face stage, 32 = ck_predictor_volume_2d); physics 1:

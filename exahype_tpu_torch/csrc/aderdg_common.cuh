@@ -1,8 +1,9 @@
 // Definitions shared by the ADER-DG kernels of csrc/aderdg.cu (the Euler
 // and elastic predictors, the face stage), csrc/aderdg_visc.cu (the
 // viscous predictor), csrc/aderdg_z4*.cu (the Z4 steps: vacuum, shifted
-// and coupled to matter, magnetized or not) and csrc/aderdg_p5*.cu (the
-// order-5 space-time predictor, csrc/aderdg_st.cuh): the physics the Picard
+// and coupled to matter, magnetized or not) and csrc/aderdg_p4*.cu,
+// aderdg_p5*.cu and aderdg_p7*.cu (the space-time predictor at orders 4, 5
+// and 7, csrc/aderdg_st.cuh): the physics the Picard
 // predictors and the face stage compile in, the kernels' parameter bank,
 // the predictors' shared-memory layouts, the face stage's tiling, and the
 // host-side helpers of their launchers.  Each source compiles its own copy

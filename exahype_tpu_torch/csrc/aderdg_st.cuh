@@ -1,14 +1,15 @@
 // The ADER-DG space-time predictor for orders whose cell does not fit the
 // order-3 predictor's thread shape, for Hopper (sm_90a): 3-D, Picard, flux
 // form, templated on the node count NN and the physics.  Instantiated for
-// compressible Euler at order 5 (NN = 6): float32 in csrc/aderdg_p5.cu,
-// float64 in csrc/aderdg_p5_f64.cu, so that nvcc compiles them in parallel.
-// The face stage of that step is csrc/aderdg.cu's, instantiated at n = 6
-// (its _p5 entries).
+// compressible Euler at orders 4, 5 and 7 (NN = 5, 6, 8): float32 in
+// csrc/aderdg_p4.cu, aderdg_p5.cu and aderdg_p7.cu, float64 in the _f64
+// sources beside them, so that nvcc compiles them in parallel.  The face
+// stage of those steps is csrc/aderdg.cu's, instantiated at n = 5, 6 and 8
+// (its _p4, _p5 and _p7 entries, periodic and walled).
 //
 // Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
-// PallasADERDG.build (K1 c, its order-generic instances) on the periodic
-// Euler path at order 5: the Picard branch of its body, q̄ and F̄_d, the
+// PallasADERDG.build (K1 c, its order-generic instances) on the Euler path
+// at orders 4, 5 and 7: the Picard branch of its body, q̄ and F̄_d, the
 // Kvol volume integral and the face projections.  The numbers to match are
 // those of exahype_tpu/models/aderdg.py::ADERDGSolver.step; the plain
 // PyTorch version is exahype_tpu_torch/models/aderdg.py::
@@ -27,7 +28,9 @@
 // cell (6 Picard iterations of 3 fluxes and three 6-point D contractions a
 // space-time point, and K1inv; chip_smoke.py::predictor_ops) against 17.3
 // KB of device memory a cell in float32 (u read, new and the faces
-// written), ~160 operations a byte: operations bound it, not bytes.
+// written), ~160 operations a byte: operations bound it, not bytes.  The
+// operations a node grow as NN^3 (NN iterations of NN slices of NN-point
+// contractions): at order 7 2.1x order 5's a degree of freedom.
 //
 // Why the order-3 design does not carry over.  At order 3 a thread holds a
 // pencil of a cell along the last node axis (4 nodes x 4 slices x 5
@@ -38,8 +41,9 @@
 // right-hand sides, more than 255 registers; and xor shuffles need groups
 // of a power of two.
 //
-// Design.  A thread a space node, CB cells a block (kStCells: 2, 432
-// threads).  The contractions mix time slices only through K1inv and
+// Design.  A thread a space node, CB cells a block (st_cells: 2 at orders
+// 4 and 5, 250 and 432 threads; 1 at order 7, 512 threads).  The
+// contractions mix time slices only through K1inv and
 // the weights, and space nodes only through D on the fluxes, so a thread
 // keeps its node's q for every slice in registers (NN x V values; a slice's
 // right-hand side replaces its q once the slice's fluxes are taken, as at
@@ -55,7 +59,10 @@
 // the I/O mapping, straight from shared memory to device memory.  Device
 // memory is read and written in runs of the block's consecutive cells (the
 // cell index fastest in the I/O mapping), u staged through shared memory,
-// where it stays for the right-hand sides and the volume integral.
+// where it stays for the right-hand sides and the volume integral.  At
+// order 4 a cell's 125 nodes are not a multiple of 32: warps straddle the
+// block's two cells, which changes nothing of the above (a thread reads
+// its own cell's lines by offsets, whatever its lane).
 //
 // The contractions take one shared-memory load a multiply-add, and the SM
 // issues one warp-wide shared load a clock against four FMA instructions,
@@ -65,6 +72,13 @@
 // buffers: 7 V NN^3 CB values and Kvol, 60,624 B in float32 and 121,248 B
 // in float64 at order 5 (opt-in above 48 KB); two blocks an SM in float32, one
 // in float64.
+//
+// Order 7 (NN = 8).  512 space nodes a cell, so a block is one cell of 512
+// threads, at most 128 registers a thread, one block an SM (71,936 B of
+// shared memory in float32, 143,872 B in float64).  In float32 q (40
+// values) and D's three rows (24) fit in registers; in float64 they take the
+// 128 registers alone, so ptxas spills (the [kernel] line of chip_smoke.py
+// gives the bytes).
 //
 // Not carried over from the TPU kernel: picard_loop and slice_loop (Mosaic
 // code-size workarounds: here the Picard loop is a run-time loop and the
@@ -81,17 +95,22 @@
 
 namespace {
 
-// Cells a block: 2, so that a block is 432 threads (13.5 warps) at order 5
+// Cells a block.  Order 5: 2, so that a block is 432 threads (13.5 warps)
 // and the block's runs of cells are 8 bytes in float32, 16 in float64.  The
 // f32 kernel asks for 2 blocks an SM (at most 72 registers a thread: ptxas
 // spills 28 B), the f64 kernel for one.  Of the shapes tried at order 5 in
 // float32 (1, 2 or 4 cells a block, one block an SM without spill) this
 // one ran fastest on an H100 80GB HBM3 at 700 W (scripts/torch_p5_ab.py;
-// PERF.md).
-constexpr int kStCells = 2;
+// PERF.md).  Order 4: 2 (250 threads), 3 blocks an SM in float32 (at most
+// 80 registers a thread), 2 in float64.  Order 7: 1 (512 threads), one
+// block an SM.
+template <int NN>
+__host__ __device__ constexpr int st_cells() { return NN >= 8 ? 1 : 2; }
 
-template <typename T>
-constexpr int st_min_blocks() { return sizeof(T) == 4 ? 2 : 1; }
+template <typename T, int NN>
+__host__ __device__ constexpr int st_min_blocks() {
+  return NN >= 8 ? 1 : (NN == 5 ? (sizeof(T) == 4 ? 3 : 2) : (sizeof(T) == 4 ? 2 : 1));
+}
 
 // Shared memory of a block, in values of T: u [V][NP], the double-buffered
 // fluxes [2][kDim][V][NP] (the epilogue's q̄ [V][NP] and F̄ [kDim][V][NP]
@@ -109,7 +128,8 @@ struct StSmem {
 
 template <typename T, int NN, int V>
 constexpr size_t st_predictor_smem() {
-  return static_cast<size_t>(StSmem<NN, kStCells, V>::kTotal) * sizeof(T);
+  return static_cast<size_t>(StSmem<NN, st_cells<NN>(), V>::kTotal) *
+         sizeof(T);
 }
 
 // The node stride of axis d within a cell (node = (i0 NN + i1) NN + i2), and
@@ -122,7 +142,7 @@ __device__ __forceinline__ int st_digit(int node, int d) {
 }
 
 template <typename T, int NN, int CB, typename Phys>
-__global__ void __launch_bounds__(CB * NN * NN * NN, st_min_blocks<T>())
+__global__ void __launch_bounds__(CB * NN * NN * NN, (st_min_blocks<T, NN>()))
 aderdg_predictor_volume_st(const T* __restrict__ u, T* __restrict__ out,
                            T* __restrict__ faces, const T* __restrict__ dt_ptr, T dt_val,
                            const Params<T, NN, Phys> P) {
@@ -327,20 +347,22 @@ aderdg_predictor_volume_st(const T* __restrict__ u, T* __restrict__ out,
 
 template <typename T, int NN, typename Phys>
 Shape st_predictor_shape() {
-  constexpr int CB = kStCells;
+  constexpr int CB = st_cells<NN>();
   return {reinterpret_cast<const void*>(aderdg_predictor_volume_st<T, NN, CB, Phys>),
           dim3(CB * NN * NN * NN), st_predictor_smem<T, NN, Phys::V>()};
 }
 
 // The launcher of the instance with NN nodes an axis (physics 0, Euler;
 // order NN - 1): exahype_aderdg_predictor_volume_*'s arguments (csrc/aderdg.cu).
+// The block's shared memory (Kvol included) is
+// opted in above 48 KB and checked against the card's limit at the launch.
 template <typename T, int NN>
 int st_predictor_volume(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
                         const double* ops, const double* dx, int order, int picard_iters,
                         int physics, const double* params, long long g0, long long g1,
                         long long g2, void* stream) {
   using Phys = EulerPhysics<T>;
-  constexpr int CB = kStCells;
+  constexpr int CB = st_cells<NN>();
   if (physics != kEuler || bad_grid<NN>(order, g0, g1, g2) || picard_iters < 0)
     return cudaErrorInvalidValue;
   const auto P = make_params<T, NN, Phys>(ops, dx, picard_iters, params, g0, g1, g2);

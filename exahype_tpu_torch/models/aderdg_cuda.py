@@ -2,13 +2,17 @@
 
 Port of ``exahype_tpu/models/aderdg_pallas.py::PallasADERDG`` on the
 flux-form path at order 3 in 3-D, periodic or with domain walls, for three
-physics, and at order 5 in 3-D, periodic, for compressible Euler
-(``examples/high_order_p5.py``'s step: ``aderdg_predictor_volume_p5``, the
-space-time predictor of ``csrc/aderdg_st.cuh`` built by
-``csrc/aderdg_p5.cu``, with a thread a space node and each time slice's
-fluxes through shared memory, then ``aderdg_face_flux_p5`` and
-``aderdg_surface_update_p5``, the face stage's n = 6 instances; walls and
-the other physics raise at order 5), and at order 3 in 2-D, periodic or
+physics, and at orders 4, 5 and 7 in 3-D, periodic or with domain walls,
+for compressible Euler (``examples/high_order_p5.py``'s step at order 5:
+``aderdg_predictor_volume_p5``, the space-time predictor of
+``csrc/aderdg_st.cuh`` built by ``csrc/aderdg_p5.cu``, with a thread a space
+node and each time slice's fluxes through shared memory, then
+``aderdg_face_flux_p5`` and ``aderdg_surface_update_p5``, the face stage's
+n = 6 instances, or with walls ``aderdg_face_flux_walls_p5`` and
+``aderdg_surface_update_walls_p5``; the same names with ``_p4`` and ``_p7``
+at orders 4 and 7, ``csrc/aderdg_p4.cu`` and ``csrc/aderdg_p7.cu`` with the
+face stage at n = 5 and 8; the other physics raise at those orders, and
+Euler at order 6), and at order 3 in 2-D, periodic or
 with walls, for compressible Euler (``examples/limited_blast_walls.py``'s
 solver: ``aderdg_predictor_volume_2d``, a thread a space node, and the
 face pair ``aderdg_face_flux_2d`` + ``aderdg_surface_update_2d`` or its wall
@@ -150,7 +154,9 @@ from exahype_tpu_torch.utils.errors import LoweringError
 INSTANTIATED = {
     ("euler", 2, 3): "picard",
     ("euler", 3, 3): "picard",
+    ("euler", 3, 4): "picard",
     ("euler", 3, 5): "picard",
+    ("euler", 3, 7): "picard",
     ("navier_stokes", 2, 3): "picard",
     ("navier_stokes", 3, 3): "picard",
     ("elastic3d_het", 3, 3): "ck",
@@ -336,7 +342,10 @@ class CudaADERDG:
     #: predictor, whose face pairs are 23-26 of physics 8, and the same
     #: indices of physics 9 and 10, the 2-D heterogeneous and curvilinear
     #: elasticity (K2 b.1); 33 of physics 0: K1 e, the sharded face flux,
-    #: whose update is 5).
+    #: whose update is 5; 34-35 of physics 0: the order-5 walled pair; 36-40
+    #: and 41-45 of physics 0: the order-4 and order-7 Euler steps,
+    #: ``csrc/aderdg_p4.cu`` and ``csrc/aderdg_p7.cu`` with the face stage's
+    #: n = 5 and n = 8 instances, predictor, pair, walled pair).
     KERNELS = (
         "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
         "aderdg_surface_update", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
@@ -352,6 +361,10 @@ class CudaADERDG:
         "aderdg_predictor_volume_visc_2d", "aderdg_ck_predictor_volume_sponge",
         "aderdg_ck_predictor_volume_p2", "aderdg_face_flux_p2", "aderdg_surface_update_p2",
         "aderdg_ck_predictor_volume_2d", "aderdg_face_flux_exchanged",
+        "aderdg_face_flux_walls_p5", "aderdg_surface_update_walls_p5",
+        *(f"aderdg_{kernel}_p{order}" for order in (4, 7) for kernel in (
+            "predictor_volume", "face_flux", "surface_update", "face_flux_walls",
+            "surface_update_walls")),
     )
 
     def __init__(self, solver: ADERDGSolver):
@@ -435,9 +448,9 @@ class CudaADERDG:
                 f"{solver.boundary!r}: NCP walls on the card are still to port, see "
                 "ROADMAP.md, Queue 2 K1 d (the plain solver runs them)"
             )
-        # Orders 5 (Euler) and 2 (the 3-D homogeneous elasticity) have kernels
-        # of their own, named with the order; their face stage is the periodic
-        # pair only.
+        # Orders 4, 5 and 7 (Euler) and 2 (the 3-D elasticity) have kernels
+        # of their own, named with the order; Euler's face stage has its wall
+        # pair at each of them, the elasticity's is periodic only.
         order_suffix = "" if solver.order == 3 or ncp else f"_p{solver.order}"
         if order_suffix and walled and tag.name in _ELASTIC:
             raise LoweringError(
@@ -445,12 +458,6 @@ class CudaADERDG:
                 f"{solver.order} is periodic only, and boundary={solver.boundary!r}: its walls "
                 "on the card are still to port, see ROADMAP.md, Queue 2 K2 b (the plain "
                 "solver runs them)"
-            )
-        if order_suffix and walled:
-            raise LoweringError(
-                f"the CUDA face stage at order {solver.order} is periodic only, and "
-                f"boundary={solver.boundary!r}: walls at that order are still to port, see "
-                "ROADMAP.md, Queue 1 item 4 (the plain solver runs them)"
             )
         if walled and tag.name == "curvilinear_elastic":
             raise LoweringError(

@@ -91,15 +91,15 @@ def main():
                           capture_output=True, text=True).stdout.strip()
     print(f"[ab] card: {card}")
     dev = torch.device("cuda")
-    flux, eig = euler_physics(3, n_real=5, gamma=cs.P5_GAMMA)
+    flux, eig = euler_physics(3, n_real=5, gamma=cs.WAVE_GAMMA)
 
     for text in args.grids.split(";"):
         grid = tuple(int(g) for g in text.split(","))
-        sol = ADERDGSolver(3, cs.P5_ORDER, 5, grid, flux, eig, dx=1.0 / grid[0], device=dev,
+        sol = ADERDGSolver(3, 5, 5, grid, flux, eig, dx=1.0 / grid[0], device=dev,
                            dtype=torch.float32)
         cu = CudaADERDG(sol)
-        u = cs.p5_wave(torch, sol, 0.0, torch.float32)
-        dt = cs.P5_DT
+        u = cs.density_wave(torch, sol, 0.0, torch.float32)
+        dt = cs.ST_DT[5]
         ref = sol.predictor_volume(u, dt)
 
         def launch(lib):

@@ -12,7 +12,15 @@ compares their outputs bit for bit:
 - the Euler kernels: ``bench.py``'s state recipe at ``(8, 4, 32)`` in
   float64 and float32 and at ``(256, 8, 128)`` in float32, dt under the CFL
   limit: ``aderdg_predictor_volume``'s ``new`` and ``faces``, the face
-  stage's ``new`` with its face fluxes, and three chained steps;
+  stage's ``new`` with its face fluxes, and three chained steps, periodic
+  and, with the order-3 wall pair, in a reflective box and a farfield
+  channel on axis 0;
+- K1 c's order-generic Euler instances (``csrc/aderdg_st.cuh`` and the face
+  stage at n = 5, 6, 8) on the noisy density wave of ``tests/
+  test_torch_cuda.py::_st_setup`` at a float64 and a float32 grid: the
+  predictor's ``new`` and ``faces`` and three chained steps, periodic and
+  in a reflective box; order 5 periodic is compared, orders 4 and 7 and
+  the walled pairs are reported as new against a checkout without them;
 - the 38-variable Z4 kernels (``aderdg_*_z4`` and K5's ``rhs_all_z4``):
   the gauge wave of amplitude 0.1 with seeded noise of 1e-3 on every slot
   at ``(8, 4, 16)`` in float64 and float32 and at ``(16, 16, 128)`` in
@@ -68,8 +76,9 @@ the heterogeneous elasticity's ``ElasticHetPhysics`` instances by that
 argument), ignoring addresses and encodings; K2 b.1's instances (over
 ``ElasticHet2D`` and ``CurvilinearElastic``, and over
 ``ElasticHetPhysics`` at n = 3) are listed as new, and so are the
-kernels of the Z4+GRMHD system and of the order-5 Euler step (the face
-stage at n = 6 and ``aderdg_predictor_volume_st``) and of the 2-D Euler
+kernels of the Z4+GRMHD system and of the order-4, -5 and -7 Euler steps
+(the face stage at n = 5, 6 and 8, periodic and walled, and
+``aderdg_predictor_volume_st``) and of the 2-D Euler
 step (``csrc/aderdg_2d.cu``, periodic and walled) and the 2-D kernels'
 ``NavierStokes2D`` instances (the viscous predictor, the face flux) that
 only this checkout has are listed as new.  Prints one line per output and per kernel
@@ -101,7 +110,7 @@ SASS_KERNELS = (
     "aderdg_predictor_volume_st", "aderdg_predictor_volume_2d", "aderdg_face_flux_2d",
     "aderdg_surface_update_2d", "subcell_row_sweep", "subcell_row_sweep_ncp",
     "aderdg_ck_predictor_volume", "aderdg_ck_predictor_nodes", "aderdg_face_flux_exchanged",
-    "rhs_all_z4_2d",
+    "rhs_all_z4_2d", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
 )
 #: The Z4 step kernels' systems, the 2-D Navier–Stokes physics, the CK
 #: predictor's sponge and K2 b's homogeneous elasticity (a template argument
@@ -118,8 +127,10 @@ NEW = ("Z4Grmhd", "rhs_all_z4_grmhd", "Z4+GRMHD", "aderdg_predictor_volume_st",
        "NavierStokes2D", "subcell_row_sweep_ncp", "K3 a Z4+GRHD", "SpongeSource",
        "CK sponge", "Elastic3D", "Elastic2D", "aderdg_ck_predictor_nodes", "ElasticHet2D",
        "CurvilinearElastic", "K2 b.1", "aderdg_face_flux_exchanged", "K1 e",
-       "rhs_all_z4_2d", "K5 b")
-NEW_NODES = "6"
+       "rhs_all_z4_2d", "K5 b", "K1 c order 4", "K1 c order 7", "K1 c walled")
+#: The node counts of the face stage's Euler-only instances (orders 4, 5,
+#: 7); the walled pair was instantiated at order 3 only before.
+NEW_NODES = ("5", "6", "8")
 #: K2 b.1's instances over the 12-variable heterogeneous elasticity at n = 3
 #: (the node kernel and the face stage; its n = 4 instances are compared):
 #: (kernel, system, first integer template argument).
@@ -135,7 +146,12 @@ sys.path.insert(0, root)
 import numpy as np
 import torch
 from exahype_tpu_torch import _build
-from exahype_tpu_torch.models.aderdg import ADERDGSolver, euler_physics
+from exahype_tpu_torch.models.aderdg import (
+    ADERDGSolver,
+    euler_physics,
+    euler_reflect,
+    euler_reflect_flux,
+)
 from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
 from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
 from exahype_tpu_torch.models.z4 import (
@@ -169,6 +185,14 @@ for grid, dtype in CASES:
     results[key + " face_surface new"] = surf.cpu()
     results[key + " face fluxes"] = torch.stack(fl).cpu()
     results[key + " 3 steps"] = cu.run(u, 3, DT).cpu()
+    for label, walls in (("reflective box", dict(
+            boundary="reflective", reflect_fn=euler_reflect(3),
+            reflect_flux_fn=euler_reflect_flux(3))), ("farfield (0,)", dict(
+            boundary="farfield", farfield_state=(1.0, 2.0, 0.0, 0.0, 1.0 / 0.4 + 2.0),
+            wall_axes=(0,)))):
+        wcu = CudaADERDG(ADERDGSolver(3, 3, 5, grid, flux, eig, dx=1.0 / 256, device="cuda",
+                                      dtype=dtype, **walls))
+        results[key + f" walls {label} 3 steps"] = wcu.run(u, 3, DT).cpu()
     if hasattr(cu, "face_flux_exchanged"):  # K1 e, the sharded face flux
         from exahype_tpu_torch.parallel import shard
         for p in range(2):
@@ -178,6 +202,33 @@ for grid, dtype in CASES:
             results[key + f" K1 e window {p} fhat"] = fhat.cpu()
             results[key + f" K1 e window {p} new"] = lcu.surface_update_exchanged(
                 ln.clone(), fhat, DT, fside, modes).cpu()
+from exahype_tpu_torch.models.aderdg_cuda import INSTANTIATED
+for order, grid, dtype in ((5, (4, 2, 8), "float64"), (5, (8, 4, 32), "float32"),
+                           (4, (4, 2, 8), "float64"), (4, (8, 4, 32), "float32"),
+                           (7, (2, 2, 3), "float64"), (7, (4, 2, 16), "float32")):
+    if ("euler", 3, order) not in INSTANTIATED:
+        continue
+    dtype = getattr(torch, dtype)
+    for label, walls in (("periodic", {}), ("reflective box", dict(
+            boundary="reflective", reflect_fn=euler_reflect(3),
+            reflect_flux_fn=euler_reflect_flux(3)))):
+        if walls and f"exahype_aderdg_face_flux_walls_p{order}_f64" not in _build._SIGNATURES:
+            continue  # a checkout without the walled pair at this order
+        sol = ADERDGSolver(3, order, 5, grid, *euler_physics(3), dx=1.0 / grid[0],
+                           device="cuda", dtype=dtype, **walls)
+        cu = CudaADERDG(sol)
+        phase = sum(np.asarray(c) for c in sol.nodes_meshgrid())
+        no_var = sol.state_shape[:3] + sol.state_shape[4:]
+        rho = np.broadcast_to(np.squeeze(1.0 + 0.2 * np.sin(2 * np.pi * phase), 3), no_var)
+        rho = rho * (1.0 + 0.05 * np.random.default_rng(order).standard_normal(no_var))
+        e = 2.0 / 0.4 + 0.5 * rho * (1.0 + 0.25 + 0.0625)
+        q = np.stack([rho, rho, 0.5 * rho, 0.25 * rho, e], axis=3)
+        u = torch.from_numpy(q).to("cuda", dtype).contiguous()
+        key = f"K1 c {'walled ' if walls else ''}order {order} {label} {grid} {dtype}"
+        new, faces = cu.predictor_volume(u, 2e-4)[:2]
+        results[key + " predictor new"] = new.cpu()
+        results[key + " predictor faces"] = faces.cpu()
+        results[key + " 3 steps"] = cu.run(u, 3, 2e-4).cpu()
 from exahype_tpu_torch.models import elastic
 for grid, dtype in CK_CASES:
     dtype = getattr(torch, dtype)
@@ -428,7 +479,9 @@ def main():
         label = (f"{key[0]} ({'float' if key[1] == 'f' else 'double'}"
                  f"{', ' + key[2] if key[2] else ''}{', ' + key[3] if key[3] else ''}, "
                  f"instance {key[4]})")
-        new_nodes = key[3] == NEW_NODES and key[0] in ("aderdg_face_flux", "aderdg_surface_update")
+        new_nodes = key[3] in NEW_NODES and key[0] in (
+            "aderdg_face_flux", "aderdg_surface_update", "aderdg_face_flux_walls",
+            "aderdg_surface_update_walls")
         new_nodes |= (key[0], key[2], key[3]) in NEW_INSTANCES
         if b is None and (new_nodes or any(n in key[0] or n == key[2] for n in NEW)):
             print(f"[same sass] {label}: {len(a)} instructions, new in this checkout")

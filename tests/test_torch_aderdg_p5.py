@@ -110,20 +110,52 @@ def test_cuda_aderdg_takes_order_5_euler(pair):
     assert fvwall is None
 
 
-@pytest.mark.parametrize("case", ["order4", "dim2", "walls", "navier_stokes"])
-def test_cuda_aderdg_refuses_what_order_5_does_not_instantiate(case):
+@pytest.mark.parametrize("case", ["order4", "order7", "walls"])
+def test_cuda_aderdg_takes_orders_4_and_7_and_walls_at_order_5(case):
+    """What order 5 alone had before: 3-D Euler at orders 4 and 7, and the
+    walled face pair at order 5 (in every mode: ``tests/
+    test_torch_walls_orders.py``)."""
     f3, e3 = euler_physics(3)
-    if case == "order4":
-        sol = ADERDGSolver(3, 4, 5, (2, 2, 2), f3, e3, device="cpu")
+    if case == "walls":
+        sol = ADERDGSolver(3, 5, 5, (2, 2, 2), f3, e3, device="cpu", boundary="reflective",
+                           reflect_fn=euler_reflect(3), reflect_flux_fn=euler_reflect_flux(3))
+        names = ("aderdg_predictor_volume_p5", "aderdg_face_flux_walls_p5",
+                 "aderdg_surface_update_walls_p5")
+    else:
+        order = int(case[-1])
+        sol = ADERDGSolver(3, order, 5, (2, 2, 2), f3, e3, device="cpu")
+        names = tuple(f"aderdg_{k}_p{order}" for k in ("predictor_volume", "face_flux",
+                                                       "surface_update"))
+    cu = CudaADERDG(sol)
+    assert cu.kernels == names
+    assert (cu.walls is not None) == (case == "walls")
+
+
+@pytest.mark.parametrize("case", ["order6", "dim2", "navier_stokes", "ns_order4", "ns_order7",
+                                  "k1e_order5"])
+def test_cuda_aderdg_refuses_what_order_5_does_not_instantiate(case):
+    """Still refused, each naming its ROADMAP item: Euler at order 6, the
+    2-D Euler step at order 5, Navier–Stokes at orders 4, 5 and 7, and K1 e
+    (the sharded face pair) at order 5."""
+    from exahype_tpu_torch.parallel import shard
+    from exahype_tpu_torch.parallel.mesh import Mesh
+
+    f3, e3 = euler_physics(3)
+    if case == "order6":
+        sol = ADERDGSolver(3, 6, 5, (2, 2, 2), f3, e3, device="cpu")
     elif case == "dim2":
         f2, e2 = euler_physics(2, n_real=4)
         sol = ADERDGSolver(2, 5, 4, (2, 2), f2, e2, device="cpu")
-    elif case == "walls":
-        sol = ADERDGSolver(3, 5, 5, (2, 2, 2), f3, e3, device="cpu", boundary="reflective",
-                           reflect_fn=euler_reflect(3), reflect_flux_fn=euler_reflect_flux(3))
+    elif case == "k1e_order5":
+        sol = ADERDGSolver(3, 5, 5, (2, 2, 2), f3, e3, device="cpu")
+        mesh = Mesh((2,), ("patches",), 0, torch.device("cpu"), "gloo")
+        with pytest.raises(LoweringError, match="Queue 2 K1 e"):
+            shard.make_sharded_aderdg_step(sol, mesh)
+        return
     else:
+        order = {"navier_stokes": 5, "ns_order4": 4, "ns_order7": 7}[case]
         flux, eig, visc, visc_eig = navier_stokes(3, mu=0.02, prandtl=0.7, gamma=GAMMA)
-        sol = ADERDGSolver(3, 5, 5, (2, 2, 2), flux, eig, device="cpu", visc_flux_fn=visc,
+        sol = ADERDGSolver(3, order, 5, (2, 2, 2), flux, eig, device="cpu", visc_flux_fn=visc,
                            visc_eigenvalue_fn=visc_eig)
     with pytest.raises(LoweringError, match="Queue 1 item 4"):
         CudaADERDG(sol)

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 Picard predictor and the two-launch face stage of ``csrc/aderdg.cu`` (with
 its face-flux output), the order-5 Euler step (K1 c: the space-time
-predictor of ``csrc/aderdg_st.cuh`` and the face stage at n = 6), the CK
+predictor of ``csrc/aderdg_st.cuh`` and the face stage at n = 6) and the
+order-4 and order-7 ones (n = 5, 8), with the walled pair at n = 5, 6 and 8
+in every mode, the CK
 predictor (K2) and the face stage's elastic
 variant, both at the edges of their tilings, the CK predictor's sponge
 instance (K2 a) under the walled CK step, the face stage's wall variant
@@ -838,6 +840,163 @@ def test_walled_kernel_info_and_refusals(name):
     fhat, fwall = cu.face_flux(faces)
     with pytest.raises(LoweringError, match="fwall"):
         cu.surface_update(new, fhat, DT)
+
+
+# ------------------- orders 4 and 7, and walls at 4, 5 and 7: K1 c's other instances
+
+
+def _st_setup(order, grid, dtype, **walls):
+    """``_p5_setup``'s solver and noisy density wave at ``order`` (4, 5 or
+    7), with ``walls``."""
+    dev = _card()
+    flux, eig = euler_physics(3)
+    sol = ADERDGSolver(3, order, 5, grid, flux, eig, dx=1.0 / grid[0], device=dev,
+                       dtype=dtype, **walls)
+    phase = sum(np.asarray(c) for c in sol.nodes_meshgrid())
+    no_var = sol.state_shape[:3] + sol.state_shape[4:]
+    rho = np.broadcast_to(np.squeeze(1.0 + 0.2 * np.sin(2 * np.pi * phase), 3), no_var)
+    rho = rho * (1.0 + 0.05 * np.random.default_rng(order).standard_normal(no_var))
+    vel = (1.0, 0.5, 0.25)
+    e = 2.0 / 0.4 + 0.5 * rho * sum(v * v for v in vel)
+    q = np.stack([rho] + [rho * v for v in vel] + [e], axis=3)
+    return sol, CudaADERDG(sol), torch.from_numpy(q).to(dev, dtype).contiguous()
+
+
+#: Order 4: 2 cells of 125 nodes a block, so (3, 1, 5)'s 15 cells leave a
+#: ragged last block; order 7: a cell a block.  Axis 2 below the 32-cell
+#: tile in each.
+ST_CASES = [
+    (4, torch.float64, (4, 2, 8)),
+    (4, torch.float64, (3, 1, 5)),
+    (4, torch.float32, (4, 2, 8)),
+    (7, torch.float64, (2, 2, 3)),
+    (7, torch.float64, (3, 1, 2)),
+    (7, torch.float32, (2, 2, 3)),
+]
+
+
+def _st_names(order, walled=False):
+    w = "_walls" if walled else ""
+    return (f"aderdg_predictor_volume_p{order}", f"aderdg_face_flux{w}_p{order}",
+            f"aderdg_surface_update{w}_p{order}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order,dtype,grid", ST_CASES)
+def test_st_orders_predictor_kernel_matches_plain(order, dtype, grid):
+    sol, cu, u = _st_setup(order, grid, dtype)
+    u0 = u.clone()
+    new_k, faces_k, fv = cu.predictor_volume(u, P5_DT)
+    new_p, faces_p, _ = sol.predictor_volume(u, P5_DT)
+    torch.cuda.synchronize()
+    assert torch.equal(u, u0) and fv is None
+    assert _err(new_k, new_p) <= _bound(new_p, dtype)
+    assert _err(faces_k, faces_p) <= _bound(faces_p, dtype)
+    assert cu.kernels == _st_names(order) and cu.launches[cu.kernels[0]] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order,dtype,grid", ST_CASES)
+def test_st_orders_face_stage_matches_plain(order, dtype, grid):
+    sol, cu, u = _st_setup(order, grid, dtype)
+    new, faces, _ = sol.predictor_volume(u, P5_DT)
+    fhat_k, side = cu.face_flux(faces)
+    fshape = sol.face_flux_shape
+    fhat_p = torch.stack([
+        sol.interface_flux(*(faces[d, k].reshape(fshape) for k in range(4)), d)
+        for d in range(3)]).reshape(fhat_k.shape)
+    upd_k = cu.surface_update(new.clone(), fhat_p, P5_DT)
+    upd_p = new
+    for d in range(3):
+        upd_p = sol.surface_term(upd_p, fhat_p[d].view(fshape), d, P5_DT)
+    out_k = cu.face_surface(new.clone(), faces, P5_DT)
+    out_p = sol.face_surface(new, faces, P5_DT)
+    torch.cuda.synchronize()
+    assert side is None
+    assert _err(fhat_k, fhat_p) <= _bound(fhat_p, dtype)
+    assert _err(upd_k, upd_p) <= _bound(upd_p, dtype)
+    assert _err(out_k, out_p) <= _bound(out_p, dtype)
+    names = _st_names(order)
+    assert cu.launches == {names[0]: 0, names[1]: 2, names[2]: 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order,dtype,grid", ST_CASES)
+def test_st_orders_step_kernels_match_plain_and_repeat_bitwise(order, dtype, grid):
+    sol, cu, u = _st_setup(order, grid, dtype)
+    ref = sol.step(u, P5_DT)
+    by_value = cu.step(u, P5_DT)
+    by_pointer = cu.step(u, torch.tensor(P5_DT, dtype=dtype, device=u.device))
+    torch.cuda.synchronize()
+    assert _err(by_value, ref) <= _bound(ref, dtype)
+    assert torch.equal(by_value, by_pointer)
+    assert torch.equal(cu.run(u, 3, P5_DT), cu.run(u, 3, P5_DT))
+    assert cu.launches == {name: 8 for name in _st_names(order)}
+
+
+@pytest.mark.cuda
+def test_st_orders_kernel_info_reports_the_shapes():
+    # (order, dtype): threads a block, shared memory (u, two flux buffers,
+    # Kvol), face tiles.
+    for order, dtype, threads, smem, tiles in (
+            (4, torch.float32, 250, (7 * 5 * 250 + 25) * 4, (160, 160)),
+            (4, torch.float64, 250, (7 * 5 * 250 + 25) * 8, (160, 160)),
+            (7, torch.float32, 512, (7 * 5 * 512 + 64) * 4, (128, 256)),
+            (7, torch.float64, 512, (7 * 5 * 512 + 64) * 8, (128, 256))):
+        _, cu, _ = _st_setup(order, (2, 2, 4), dtype)
+        pred, flux, update = (cu.kernel_info(name, dtype) for name in cu.kernels)
+        assert pred["threads"] == threads and pred["smem"] == smem, (order, dtype, pred)
+        assert pred["registers"] > 0 and pred["blocks_per_sm"] >= 1, pred
+        assert (flux["threads"], update["threads"]) == tiles
+        assert flux["smem"] == update["smem"] == 0
+
+
+def _st_walls(name, order, grid):
+    """Each wall mode of ``_euler_walls`` at ``order`` (its Dirichlet rows
+    from ``make_dirichlet_fn`` at that order)."""
+    from exahype_tpu_torch.models.aderdg import make_dirichlet_fn
+
+    if name != "dirichlet":
+        return _euler_walls(name, grid)
+    return dict(boundary="dirichlet", dirichlet_fn=make_dirichlet_fn(
+        _smooth_euler, dim=3, order=order, grid_shape=grid, dx=1.0 / grid[0]))
+
+
+#: (order, dtype, grid): float64 at a grid whose axis 2 is below the tile
+#: and whose axis 0 has odd extent, float32 at one.
+ST_WALL_CASES = [
+    (4, torch.float64, (3, 2, 5)),
+    (4, torch.float32, (3, 2, 5)),
+    (5, torch.float64, (3, 2, 5)),
+    (5, torch.float32, (3, 2, 5)),
+    (7, torch.float64, (3, 2, 2)),
+    (7, torch.float32, (3, 2, 2)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order,dtype,grid", ST_WALL_CASES)
+@pytest.mark.parametrize("name", WALL_NAMES)
+def test_st_orders_walled_face_stage_matches_plain(name, order, dtype, grid):
+    """The walled pair at n = 5, 6 and 8, launch by launch, as a stage and
+    in 3 steps, in every mode, against the plain solver's ``face_update``."""
+    sol, cu, u = _st_setup(order, grid, dtype, **_st_walls(name, order, grid))
+    assert cu.kernels == _st_names(order, walled=True)
+
+    def close(got, ref):
+        assert _err(got, ref) <= _bound(ref, dtype)
+
+    _walled_face_stage_close(sol, cu, u, P5_DT, dtype, close)
+    ref = sol.run(u, 3, P5_DT)
+    by_value = cu.run(u, 3, P5_DT)
+    by_pointer = cu.run(u, 3, torch.tensor(P5_DT, dtype=dtype, device=u.device))
+    torch.cuda.synchronize()
+    assert _err(by_value, ref) <= (1 if dtype == torch.float64 else 3) * _bound(ref, dtype)
+    assert torch.equal(by_value, by_pointer)
+    assert cu.launches[cu.kernels[0]] == 6
+    for kernel in cu.kernels[1:]:
+        info = cu.kernel_info(kernel, dtype)
+        assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, (kernel, info)
 
 
 # ------------------------------------------------ the viscous step (K1 b)
