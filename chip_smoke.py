@@ -221,8 +221,8 @@ steps of the multichip phase), in this order:
   a step) and through ``with_cuda_rhs`` (K5 c, ``rhs_all_z4_shift``).  Its
   kernels are held to their plain versions on states with seeded noise
   on every slot (``Z4S_NOISE``: on the exact moving wave b = B = 0), in
-  float64 at ``(8, 4, 16)`` for the frozen shift and two Gamma-driver
-  families (``Z4S_FAMILIES``) and in float32 at full width; its readings
+  float64 at ``(8, 4, 16)`` for a Gamma-driver family with 1+log slicing
+  (``Z4S_FAMILIES``) and in float32 at full width; its readings
   add max|β − v| and max|b| (the Gamma-driver must move both).
 - **Z4+GRHD**: ``scripts/z4_probe.py --matter --large --pallas``'s system —
   the 43-variable coupled Z4 + general-relativistic hydro system (geodesic
@@ -236,8 +236,8 @@ steps of the multichip phase), in this order:
   and through ``with_cuda_rhs`` (K5 d, ``rhs_all_z4_matter``, con2prim in
   the kernel).  Its kernels are held to their plain versions on a fluid
   with a velocity field and seeded noise on every Z4 slot (``Z4M_NOISE``)
-  in float64 at ``(8, 4, 16)`` in two families (``Z4M_FAMILIES``) and in
-  float32 at full width; its gates add admissibility
+  in float64 at ``(8, 4, 16)`` in the kernels' other branches
+  (``Z4M_FAMILIES``) and in float32 at full width; its gates add admissibility
   (``z4_matter_admissible``), ∫D̃ dV conserved within ``Z4M_DRIFT``, and the
   exact homogeneous FLRW universe after 10 steps against the Friedmann
   reference (``flrw_reference``: a², D̃, |Θ|, |Z|).
@@ -271,10 +271,29 @@ steps of the multichip phase), in this order:
   field-aligned con2prim in the kernel) for ``Z4_EAGER_STEPS``.  Its
   kernels are held to their plain versions on a magnetized fluid with
   seeded noise on every Z4 slot (``Z4G_NOISE``) in float64 at ``(8, 4,
-  16)`` in two families (``Z4G_FAMILIES``) and in float32 at full width;
+  16)`` in the kernels' other branches (``Z4G_FAMILIES``) and in float32
+  at full width;
   its gates add admissibility (``z4_grmhd_admissible``), ∫D̃ dV and each
   ∫B̃^i dV conserved within ``Z4G_DRIFT``, and with B̃ = φ̃ = 0 one float64
   kernel step against the Z4+GRHD kernels' (``Z4G_ZERO_FIELD_TOL``).
+- **Z4 per-axis and 2-D**: the vacuum Z4 system as the JAX package builds
+  it by default (``make_z4_solver(..., fused_rhs=False)``, the per-axis
+  NCP: ``tests/test_z4.py:497-529``, ``__graft_entry__.py:483-503``) and in
+  2-D — through ``CudaADERDG``: K1 d's per-axis predictor on the 3-D cell
+  (``csrc/aderdg_z4_per_axis.cu``) with the fused step's face pair on
+  ``Z4_GRID``, and the 2-D steps at orders 2 and 3, fused and per-axis
+  (``csrc/aderdg_z4_2d.cu``, ``aderdg_z4_2d_p3.cu``) on ``Z4F_GRID``, 3
+  launches a step, on the gauge wave of amplitude 0.1 with seeded noise
+  (``Z4F_NOISE``), dt = 1e-4, float32.  Each kernel is held to its plain
+  version in float64 on ``Z4F_CUT`` (3-D: ``Z4_CUT``) and in float32 at
+  full width; the steps repeat bitwise; the 3-D per-axis step is timed
+  beside the fused one and the 2-D fused step beside one eager step of K5
+  b's ``with_cuda_rhs`` route on the same state.  ``examples/
+  z4_gauge_wave.py`` (order 3, per-axis) runs on its chip grid ``(64, 2)``
+  for 256 steps in float64 against its chip gates and in float32 as a
+  reading (over the gates in both packages: ROADMAP.md Queue 3), and in
+  its CPU configuration (8 cells, 32 steps, float64) against its CPU
+  gates, each one step against the plain path.
 - **multichip**: the sharded steps of ``exahype_tpu_torch/parallel/shard.py``
   (the twin of the JAX package's ``shard_map`` steps, ``__graft_entry__.py::
   dryrun_multichip``'s configurations at the bench's widths).  K1 e
@@ -348,7 +367,7 @@ Phases:
    its edge fluxes bitwise equal to the ordinary step; Z4: through
    ``CudaADERDG`` 3 launches a step over 10 steps, through
    ``with_cuda_rhs`` K5's (picard_iters + 2) over ``Z4_EAGER_STEPS``, both
-   routes bitwise repeatable and against the plain path after 1 and
+   routes bitwise repeatable and against the plain path after
    ``Z4_EAGER_STEPS`` steps, with the error against the exact gauge wave and
    the ADM constraints of every path as readings);
 5. times: step ms over 3 host-clock windows, DOF-updates/s, per-kernel (and
@@ -755,12 +774,11 @@ Z4_F64_RTOL = 1e-12
 #: moving gauge wave (v = 0.2, amplitude 0.1) on ``Z4_GRID``, dt = 1e-4.
 Z4S_PARAMS = dict(shift="gamma_driver", f_b=0.75, eta=1.0)
 Z4S_V = 0.2
-#: The f64 kernel-vs-plain families at ``Z4_CUT``: the frozen shift, the
-#: Gamma-driver with κ₁ damping and η ≠ 1, the Gamma-driver with 1+log
-#: slicing, f_b ≠ 0.75 and m ≠ 2 (``tests/test_z4.py:936-940``).
+#: The f64 kernel-vs-plain family at ``Z4_CUT``: the Gamma-driver with
+#: 1+log slicing, f_b ≠ 0.75 and m ≠ 2 (``tests/test_z4.py:936-940``; the
+#: frozen shift and the κ₁-damped driver are the card tests', and the path's
+#: own parameters are held in float32 at full width).
 Z4S_FAMILIES = (
-    dict(shift="frozen"),
-    dict(shift="gamma_driver", kappa1=0.2, eta=0.7),
     dict(shift="gamma_driver", slicing="1+log", f_b=0.5, m=1.5),
 )
 #: Seeded noise on every slot of the states that hold the shifted kernels
@@ -779,11 +797,10 @@ Z4M_RHO0 = 0.02
 Z4M_EPS0 = 0.4
 Z4M_PERT = 0.05
 Z4M_WARMUP = 5
-#: The f64 kernel-vs-plain families at ``Z4_CUT``: the path's own, and the
-#: kernels' other branches (1+log slicing, m ≠ 2, κ damping, Γ = 4/3, 7
-#: Newton trips).
+#: The f64 kernel-vs-plain family at ``Z4_CUT``: the kernels' other
+#: branches (1+log slicing, m ≠ 2, κ damping, Γ = 4/3, 7 Newton trips; the
+#: path's own parameters are held in float32 at full width).
 Z4M_FAMILIES = (
-    Z4M_PARAMS,
     dict(slicing="1+log", m=1.5, kappa1=0.1, kappa2=0.3, gamma=4.0 / 3.0, iters=7),
 )
 #: The parity states: ``pack_matter`` of the FLRW metric with seeded noise
@@ -831,11 +848,10 @@ Z4G_PARAMS = dict(slicing="harmonic", f=0.0, gamma=5.0 / 3.0, iters=20, c_h=1.0,
 Z4G_B0 = 0.05
 Z4G_AMP = 0.05
 Z4G_WARMUP = 5
-#: The f64 kernel-vs-plain families at ``Z4_CUT``: the path's own, and the
-#: kernels' other branches (f = 1, κ₁ damping, a cleaning speed under the
-#: cone, strong GLM damping).
+#: The f64 kernel-vs-plain family at ``Z4_CUT``: the kernels' other
+#: branches (f = 1, κ₁ damping, a cleaning speed under the cone, strong GLM
+#: damping; the path's own parameters are held in float32 at full width).
 Z4G_FAMILIES = (
-    Z4G_PARAMS,
     dict(Z4G_PARAMS, f=1.0, kappa1=0.1, c_h=0.8, glm_kappa=2.0),
 )
 #: The parity states: ``pack_matter_mhd`` of flat space with seeded noise of
@@ -856,8 +872,8 @@ Z4G_DRIFT = 1e-5
 #: Steps of the Z4 paths' eager routes at full width (``with_cuda_rhs`` and
 #: the plain path: 0.4 s to ≳1 s a step, most of it PyTorch calls; the
 #: Z4+GRMHD flux's vector Newton is the slowest); the kernel path is held to
-#: the plain path after 1 and after these, and runs its own ``STEPS``.
-Z4_EAGER_STEPS = 2
+#: the plain path after these, and runs its own ``STEPS``.
+Z4_EAGER_STEPS = 1
 Z4G_ZERO_FIELD_TOL = (1e-7, 1e-9)
 Z4G_ZERO_FIELD_CH = 0.5
 #: Flops of the matter flux of the three axes at a point beside the recovery
@@ -869,6 +885,35 @@ Z4G_FLUX_OPS = 3 * (1 + 2 + 6 + 3 + (3 + 3 * 7 + 2) + (3 * 4 + 2))
 #: The Rusanov bound's operations (``csrc/z4_grmhd.cuh::wave_speed``): the
 #: vacuum cone's 23 and the max with c_h.
 Z4G_EIG_OPS = 24
+#: The vacuum Z4 system on K1 d's per-axis branch and 2-D kernels: the JAX
+#: package's default build (``make_z4_solver(..., fused_rhs=False)``, the
+#: per-axis NCP) and its 2-D forms at orders 2 (``tests/test_z4.py:497-529``,
+#: the dryrun's ``__graft_entry__.py:483-503``) and 3
+#: (``examples/z4_gauge_wave.py:43-51``), per-axis and fused, at
+#: ``Z4F_GRID`` (22.4 M and 39.8 M DOF, the order of the 3-D cell's 33.6
+#: M), dx = 1/256, and the 3-D per-axis step on ``Z4_GRID``: the gauge wave
+#: of amplitude 0.1 with seeded noise of ``Z4F_NOISE`` on every slot (the
+#: exact wave's zero slots would hide a dropped term), dt = 1e-4.
+Z4F_FORMS = ((2, 2, False), (2, 2, "soa"), (2, 3, False), (2, 3, "soa"), (3, 2, False))
+Z4F_GRID = (256, 256)
+Z4F_CUT = (8, 6)  # f64 parity (MC_Z4_CUT), dx = 1/64; the 3-D form's Z4_CUT
+Z4F_CUT_DX = 1.0 / 64
+Z4F_NOISE = 1e-3
+Z4F_STEPS = 5
+#: The example on its chip grid and in its CPU configuration
+#: (``examples/z4_gauge_wave.py:40-76``): order 3, per-axis, harmonic f = 1,
+#: amplitude 0.01, (cells, 2) at dx = 1/cells, 4 cells steps to t = 0.1; its
+#: gates (error against the exact wave, largest ADM constraint) by grid: the
+#: chip's at 64 cells, the CPU's at 8.  In float32 its chip run fails them
+#: in both packages (ROADMAP.md Queue 3: a mode seeded by float32 rounding
+#: grows ~8 % a step, the constraint from ~1e-5 at step 32 to ~20 at 256),
+#: so the chip grid is gated in float64 and its float32 run is a reading.
+Z4X_CASES = ((64, "float32"), (64, "float64"), (8, "float64"))
+Z4X_GATES = {64: (5e-4, 1e-3), 8: (5e-5, 1e-10)}
+Z4X_T = 0.1
+Z4X_AMPLITUDE = 0.01
+#: Steps of the plain path beside the kernels on the example's grids.
+Z4X_PLAIN_STEPS = 1
 #: K5's float32 bound is ``F32_ULPS`` spacings of max|plain|, as for the
 #: other kernels: on this state the plain float32 evaluation of each of a
 #: step's five calls is within 1.2-2.3 spacings of max|plain| of the float64
@@ -4406,16 +4451,22 @@ def decay_rate(torch, cu, u0, component: int, t_end: float) -> tuple[float, int]
     return math.log(rms(u0) / rms(u)) / (n * dt), n
 
 
-def once_ms(torch, fn) -> float:
-    """Device time of one call of ``fn`` (CUDA events; no warm-up: for the
-    plain path, whose first call here is not its first)."""
+def timed_once(torch, fn):
+    """``(fn(), ms)``: one call of ``fn`` and its device time (CUDA events;
+    no warm-up: for the plain path, whose first call here is not its
+    first)."""
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    fn()
+    out = fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop)
+    return out, start.elapsed_time(stop)
+
+
+def once_ms(torch, fn) -> float:
+    """Device time of one call of ``fn`` (:func:`timed_once`)."""
+    return timed_once(torch, fn)[1]
 
 
 def viscous_path(torch, dev, card) -> list[dict]:
@@ -4799,7 +4850,8 @@ def z4_ncp_ops(torch, rhs_all, axis: int) -> int:
 
 def z4_kernel_work(order: int, picard_iters: int, ncell: int, itemsize: int, full: int,
                    zero: int, one_axis: int, v: int = 38, gs: int = 31, eig_ops: int = 23,
-                   suffix: str = "z4", hydro: int = 0, flux_ops: int = 0) -> dict:
+                   suffix: str = "z4", hydro: int = 0, flux_ops: int = 0, dim: int = 3,
+                   ncp: int | None = None, names: tuple | None = None) -> dict:
     """``{kernel: (bytes, operations)}`` of the Z4 step's three kernels
     (``csrc/aderdg_z4.cuh``; ``suffix`` "z4", "z4_shift", "z4_matter" or
     "z4_grmhd"), from the
@@ -4832,52 +4884,70 @@ def z4_kernel_work(order: int, picard_iters: int, ncell: int, itemsize: int, ful
     axis); in the epilogue the flux at every point, F̄ (5 a row, axis and
     node), the volume term (a contraction, λ and the sum: 8) and F̄'s face
     projections (2 x 5); in the face flux kernel ½(f_hi + f⁺) (2 more a
-    hydro row) and those rows of both faces read."""
+    hydro row) and those rows of both faces read.
+
+    On a ``dim``-dimensional cell the counts are its own (n^(dim+1) points,
+    n^dim nodes, dim n^(dim-1) face nodes, dim gradient axes).  The per-axis
+    branch (``ncp``: the operations of the dim NCP products B_d·Δq at a
+    point together, :func:`z4_ncp_ops`) evaluates, per iteration and point,
+    the source (``zero``) and each axis's product in place of one full
+    evaluation, and per node the products for the NCP volume term in place
+    of the fused pair; its right-hand sides cost 3 dim + 2 a slot, its new
+    state 3 a slot and axis more.  ``names``: the three kernels' names, if
+    not the suffix's."""
     n = order + 1
-    pts, nodes, fn = n**4, n**3, 3 * n**2
-    pred_ops = (picard_iters * (pts * full + pts * 3 * gs * 6 + pts * v * 3 + nodes * v * n * 5)
-                + pts * zero + nodes * (full + zero) + nodes * v * 20 + nodes * 3 * gs * 6
+    pts, nodes, fn = n ** (dim + 1), n**dim, dim * n ** (dim - 1)
+    point = full if ncp is None else zero + ncp
+    rhs = 3 if ncp is None else 3 * dim + 2
+    volume = full + zero if ncp is None else ncp
+    new_ops = 20 if ncp is None else 15 + 3 * dim
+    pred_ops = (picard_iters * (pts * point + pts * dim * gs * 6 + pts * v * rhs
+                                + nodes * v * n * 5)
+                + pts * zero + nodes * volume + nodes * v * new_ops + nodes * dim * gs * 6
                 + fn * v * 2 * 5)
     pred_ops += (picard_iters * pts * (flux_ops + hydro * 3 * 7) + pts * flux_ops
                  + nodes * hydro * 3 * (5 + 8) + fn * hydro * 2 * 5)
     flux_ops = fn * (2 * eig_ops + 1 + v * 7 + zero + one_axis + 2 * hydro)
-    update_ops = nodes * v * 3 * 10
-    return {
-        f"aderdg_predictor_volume_{suffix}": (ncell * itemsize * (2 * nodes * v + 4 * fn * v),
-                                              ncell * pred_ops),
-        f"aderdg_face_flux_{suffix}": (ncell * itemsize * fn * (4 * v + 2 * hydro),
-                                       ncell * flux_ops),
-        f"aderdg_surface_update_{suffix}": (ncell * itemsize * (2 * nodes * v + 2 * fn * v),
-                                            ncell * update_ops),
-    }
+    update_ops = nodes * v * dim * 10
+    names = names or tuple(f"aderdg_{k}_{suffix}"
+                           for k in ("predictor_volume", "face_flux", "surface_update"))
+    return dict(zip(names, (
+        (ncell * itemsize * (2 * nodes * v + 4 * fn * v), ncell * pred_ops),
+        (ncell * itemsize * fn * (4 * v + 2 * hydro), ncell * flux_ops),
+        (ncell * itemsize * (2 * nodes * v + 2 * fn * v), ncell * update_ops))))
 
 
 def z4_plain_face_flux(torch, sol, faces):
     """The plain versions of the Z4 face flux kernel's two outputs, ``fhat``
     (``interface_flux``) and ``fhalf`` (``ncp_half``), in its layout
-    ``[3, 9, V, *grid]``."""
+    ``[dim, n^(dim-1), V, *grid]``."""
     fs = sol.face_flux_shape
-    parts = [[faces[d, k].reshape(fs) for k in range(4)] for d in range(3)]
-    shape = (3, -1) + tuple(fs[-4:])
-    return (torch.stack([sol.interface_flux(*parts[d], d) for d in range(3)]).reshape(shape),
-            torch.stack([sol.ncp_half(*parts[d], d) for d in range(3)]).reshape(shape))
+    dim = sol.dim
+    parts = [[faces[d, k].reshape(fs) for k in range(4)] for d in range(dim)]
+    shape = (dim, -1) + tuple(fs[-1 - dim:])
+    return (torch.stack([sol.interface_flux(*parts[d], d) for d in range(dim)]).reshape(shape),
+            torch.stack([sol.ncp_half(*parts[d], d) for d in range(dim)]).reshape(shape))
 
 
 def z4_plain_update(sol, new, fhat, fhalf, dt):
     """The plain version of the Z4 update kernel (a new tensor): each axis's
     surface term, then its NCP term."""
     fs = sol.face_flux_shape
-    for d in range(3):
+    for d in range(sol.dim):
         new = sol.surface_term(new, fhat[d].view(fs), d, dt)
         new = sol.ncp_term(new, fhalf[d].view(fs), d, dt)
     return new
 
 
-def z4_kernel_parity(torch, sol, cu, u, dt, label: str, sol64=None, tag: str = "z4") -> dict:
+def z4_kernel_parity(torch, sol, cu, u, dt, label: str, sol64=None, tag: str = "z4",
+                     plain_ms=None) -> dict:
     """The Z4 step's three kernels against their plain versions on ``u``:
     the predictor's new state and faces; the face flux kernel's F̂ and NCP
     halves from the plain faces; the update from the plain fluxes; the face
-    stage and the step.  float64: 1e-12 of max(1, max|plain|); float32:
+    stage and the step (the plain step is the plain predictor's and face
+    stage's results, which are its two halves).  With ``plain_ms`` (a dict)
+    it also times each plain version as it runs (CUDA events, one call) into
+    it, by the kernel's name.  float64: 1e-12 of max(1, max|plain|); float32:
     ``F32_ULPS`` spacings of max|plain|, but the NCP halves, a difference of
     two evaluations of the algebra (~25 each) that cancels to ~1e-2, against
     the plain path in float64 from the same faces (``sol64``, the solver in
@@ -4887,15 +4957,22 @@ def z4_kernel_parity(torch, sol, cu, u, dt, label: str, sol64=None, tag: str = "
     error of each kernel.  ``tag`` prefixes the printed lines."""
     f64 = u.dtype == torch.float64
     pred, flux, update = cu.kernels
+    times = {} if plain_ms is None else plain_ms
+
+    def plain(name, fn):
+        out, times[name] = timed_once(torch, fn)
+        return out
+
     new_k, faces_k, _ = cu.predictor_volume(u, dt)
-    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    new_p, faces_p, _ = plain(pred, lambda: sol.predictor_volume(u, dt))
     fhat_k, fhalf_k = cu.face_flux(faces_p)
-    fhat_p, fhalf_p = z4_plain_face_flux(torch, sol, faces_p)
+    fhat_p, fhalf_p = plain(flux, lambda: z4_plain_face_flux(torch, sol, faces_p))
+    fhat_p, fhalf_p = fhat_p.contiguous(), fhalf_p.contiguous()
     upd_k = cu.surface_update(new_p.clone(), fhat_p, dt, fhalf=fhalf_p)
-    upd_p = z4_plain_update(sol, new_p, fhat_p, fhalf_p, dt)
+    upd_p = plain(update, lambda: z4_plain_update(sol, new_p, fhat_p, fhalf_p, dt))
     stage_k = cu.face_surface(new_p.clone(), faces_p, dt)
     stage_p = sol.face_surface(new_p, faces_p, dt)
-    step_k, step_p = cu.step(u, dt), sol.step(u, dt)
+    step_k, step_p = cu.step(u, dt), stage_p
     torch.cuda.synchronize()
     # The F̄ rows are zero but on the coupled systems' matter rows (38 on).
     coupled = sol.n_vars in (43, 47)
@@ -6574,6 +6651,199 @@ def z4_grmhd_path(torch, dev, card) -> list[dict]:
     }]
 
 
+def z4_forms_path(torch, dev, card) -> list[dict]:
+    """The vacuum Z4 step as the JAX package builds it by default (the
+    per-axis NCP, ``fused_rhs=False``) and in 2-D, through ``CudaADERDG``:
+    K1 d's per-axis predictor on the 3-D cell (``csrc/aderdg_z4_per_axis.cu``,
+    with the fused step's face pair) and the 2-D steps at orders 2 and 3,
+    fused and per-axis (``csrc/aderdg_z4_2d.cu``, ``aderdg_z4_2d_p3.cu``);
+    ``examples/z4_gauge_wave.py`` on its chip grid and in its CPU
+    configuration.  Returns their lines of the kernel JSON."""
+    import numpy as np
+
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+    from exahype_tpu_torch.models.z4 import gauge_wave_state, make_z4_solver, solver_constraints
+
+    def make(form, grid, dtype, dx):
+        dim, order, fused = form
+        return make_z4_solver(dim, order, grid, dx=dx, impl="soa", fused_rhs=fused, device=dev,
+                              dtype=dtype)
+
+    def noisy(sol, seed):
+        u = gauge_wave_state(sol, amplitude=Z4_AMPLITUDE)
+        noise = np.random.default_rng(seed).standard_normal(tuple(u.shape))
+        return (u + Z4F_NOISE * torch.from_numpy(noise).to(u)).contiguous()
+
+    def label(form):
+        dim, order, fused = form
+        return f"{dim}-D p{order} {'fused' if fused else 'per-axis'}"
+
+    # ------------------------------------------- kernels vs plain, float64, cut grids
+    for i, form in enumerate(Z4F_FORMS):
+        grid, dx = (Z4F_CUT, Z4F_CUT_DX) if form[0] == 2 else (Z4_CUT, Z4_DX)
+        sol64 = make(form, grid, torch.float64, dx)
+        z4_kernel_parity(torch, sol64, CudaADERDG(sol64), noisy(sol64, 10 + i), Z4_DT,
+                         label(form), tag="z4f")
+        del sol64
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- float32 at full width: parity,
+    # the main path (3 launches a step, repeatable), times
+    gib = 2.0**-30
+    launches, errs, plain_ms, ms, work, info, counts = {}, {}, {}, {}, {}, {}, {}
+    for i, form in enumerate(Z4F_FORMS):
+        dim, order, fused = form
+        grid, dx = (Z4F_GRID, 1.0 / Z4F_GRID[0]) if dim == 2 else (Z4_GRID, Z4_DX)
+        sol = make(form, grid, torch.float32, dx)
+        cu = CudaADERDG(sol)
+        u0 = noisy(sol, 20 + i)
+        sol64 = make(form, grid, torch.float64, dx)
+        times = {}
+        for name, err in z4_kernel_parity(torch, sol, cu, u0, Z4_DT, f"{label(form)}, full width",
+                                          sol64, tag="z4f", plain_ms=times).items():
+            errs[name] = max(errs.get(name, 0.0), err)
+        for name, t in times.items():
+            plain_ms.setdefault(name, t)
+        del sol64
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cu.reset_launches()
+        u = cu.run(u0, Z4F_STEPS, Z4_DT)
+        torch.cuda.synchronize()
+        got = dict(cu.launches)
+        say(f"[z4f main] {label(form)} {grid} f32 ({sol.dofs()} DOF): {Z4F_STEPS} steps through "
+            f"CudaADERDG: launches {got} (expected {Z4F_STEPS} of each: 3 a step); peak "
+            f"{torch.cuda.max_memory_allocated() * gib:.4f} GiB allocated ({card})")
+        if got != {name: Z4F_STEPS for name in cu.kernels}:
+            fail(f"the {label(form)} Z4 step launched {got} in {Z4F_STEPS} steps, expected 3 a "
+                 "step")
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        if tuple(u.shape) != sol.state_shape or not torch.isfinite(u).all():
+            fail(f"the {label(form)} Z4 state is not finite or has the wrong shape")
+        if not torch.equal(u, cu.run(u0, Z4F_STEPS, Z4_DT)):
+            fail(f"two {label(form)} Z4 runs from the same state differ")
+        win = [1e3 * w for w in windows(torch, cu, u0, Z4_DT, steps=Z4F_STEPS)]
+        say(f"[z4f time] {label(form)} {grid} f32 step: ms per window {win!r}; median "
+            f"{statistics.median(win)!r} ms, {sol.dofs() / statistics.median(win) * 1e3!r} "
+            f"DOF-updates/s; runs bitwise equal ({card})")
+        new, faces, _ = cu.predictor_volume(u0, Z4_DT)
+        fhat, fhalf = cu.face_flux(faces)
+        pred, flux, update = cu.kernels
+        ms[pred] = event_ms(torch, lambda: cu.predictor_volume(u0, Z4_DT), 10)
+        if dim == 2 and flux not in ms:  # each 2-D pair once (the 3-D pair is the Z4 path's)
+            ms[flux] = event_ms(torch, lambda: cu.face_flux(faces), 20)
+            ms[update] = event_ms(
+                torch, lambda: cu.surface_update(new, fhat, Z4_DT, fhalf=fhalf), 20)
+        say(f"[z4f time] {label(form)} kernels (CUDA events): " + ", ".join(
+            f"{name} {ms[name]!r} ms (plain {plain_ms[name]!r} ms)" for name in cu.kernels
+            if name in ms) + f" ({card})")
+        if dim == 3:  # the fused step on the same state
+            fcu = CudaADERDG(make((3, 2, "soa"), grid, torch.float32, dx))
+            fwin = [1e3 * w for w in windows(torch, fcu, u0, Z4_DT, steps=Z4F_STEPS)]
+            fpred = event_ms(torch, lambda: fcu.predictor_volume(u0, Z4_DT), 10)
+            say(f"[z4f time] 3-D p2 on the same state: per-axis step median "
+                f"{statistics.median(win)!r} ms, predictor {ms[pred]!r} ms; fused step "
+                f"{statistics.median(fwin)!r} ms (windows {fwin!r}), predictor {fpred!r} ms "
+                f"({card})")
+            del fcu
+        if form == (2, 2, "soa"):  # K5 b's with_cuda_rhs route on the same state
+            kern = with_cuda_rhs(sol)
+            k5 = kern.rhs_all_fn
+            k5.reset_launches()
+            eager, eager_ms = timed_once(torch, lambda: kern.step(u0, Z4_DT))
+            ref = cu.step(u0, Z4_DT)
+            say(f"[z4f time] 2-D p2 fused {grid}: one eager step of the with_cuda_rhs route "
+                f"(K5 b, {k5.launches} launches) {eager_ms!r} ms against CudaADERDG's "
+                f"{statistics.median(win)!r} ms; max |difference| {max_err(torch, eager, ref)!r} "
+                f"(f32 bound {f32_bound(torch, ref)!r}) ({card})")
+            del kern, k5, eager, ref
+        # Bounds: the algebra's operations (on the fused solver's hook, the
+        # same algebra; they depend on the dimension only) and the cell's
+        # counts.
+        if dim not in counts:
+            hook = make((dim, order, "soa"), (1,) * dim, torch.float64, dx).rhs_all_fn
+            axes = tuple(range(dim))
+            counts[dim] = (z4_value_ops(torch, hook, axes), z4_value_ops(torch, hook, ()),
+                           sum(z4_value_ops(torch, hook, (k,)) for k in axes) / dim,
+                           sum(z4_ncp_ops(torch, hook, k) for k in axes))
+            say(f"[bound] {dim}-D: the algebra's operations at a point (z4_value_ops): every "
+                f"axis {counts[dim][0]}, none {counts[dim][1]}, one {counts[dim][2]!r}; the "
+                f"{dim} NCP products together (z4_ncp_ops) {counts[dim][3]}")
+        full, zero, one_axis, ncp = counts[dim]
+        w = z4_kernel_work(order, sol.picard_iters, math.prod(grid), 4, full, zero, one_axis,
+                           dim=dim, ncp=None if fused else ncp, names=cu.kernels)
+        for name in cu.kernels:
+            if name in ms and name not in work:
+                work[name] = w[name]
+                info[name] = (cu, f"{label(form)} {grid} f32")
+        del sol, cu, u0, u, new, faces, fhat, fhalf
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------- examples/z4_gauge_wave.py
+    for cells, dtype_name in Z4X_CASES:
+        dtype = getattr(torch, dtype_name)
+        err_gate, c_gate = Z4X_GATES[cells]
+        gated = (cells, dtype_name) != (64, "float32")  # the Queue 3 caveat
+        grid, steps = (cells, 2), 4 * cells
+        dt = Z4X_T / steps
+        sol = make((2, 3, False), grid, dtype, 1.0 / cells)
+        sol64 = make((2, 3, False), grid, torch.float64, 1.0 / cells)
+        cu = CudaADERDG(sol)
+        u0 = gauge_wave_state(sol, amplitude=Z4X_AMPLITUDE)
+        cu.reset_launches()
+        u, trail = u0, []
+        for k in range(8):  # the run in eighths, reading the constraint after each
+            u = cu.run(u, steps // 8, dt)
+            H, M = solver_constraints(sol64, u.double())
+            trail.append(max(H.abs().max().item(), M.abs().max().item()))
+        torch.cuda.synchronize()
+        got = dict(cu.launches)
+        if got != {name: steps for name in cu.kernels}:
+            fail(f"the example's run launched {got} in {steps} steps, expected 3 a step")
+        if dtype == torch.float32:
+            for name, n in got.items():
+                launches[name] = launches.get(name, 0) + n
+        exact = gauge_wave_state(sol64, t=Z4X_T, amplitude=Z4X_AMPLITUDE)
+        err = (u.double() - exact).pow(2).mean().sqrt().item()
+        cmax = trail[-1]
+        ok = err < err_gate and cmax < c_gate and bool(torch.isfinite(u).all())
+        verdict = ("ok" if ok else "FAIL") if gated else (
+            "a reading: over the gates in both packages, ROADMAP.md Queue 3" if not ok
+            else "within the gates")
+        say(f"[z4f example] examples/z4_gauge_wave.py, order 3 per-axis, {grid} {dtype_name}, "
+            f"{steps} steps to t = {Z4X_T} through CudaADERDG ({got}): L2 error against the "
+            f"exact wave {err!r} (gate {err_gate}), max ADM constraint {cmax!r} (gate {c_gate}; "
+            f"after each eighth of the run {trail!r}) {verdict}")
+        if gated and not ok:
+            fail(f"the example's gates fail on the kernels ({grid}, {dtype_name})")
+        a = cu.run(u0, Z4X_PLAIN_STEPS, dt)
+        b = sol.run(u0, Z4X_PLAIN_STEPS, dt)
+        limit = (Z4_F64_RTOL * max(1.0, b.abs().max().item()) if dtype == torch.float64
+                 else Z4X_PLAIN_STEPS * f32_bound(torch, b))
+        say(f"[z4f example] {grid} {dtype_name}, {Z4X_PLAIN_STEPS} steps, kernel path vs plain "
+            f"path: max_abs_err {max_err(torch, a, b):.3e} limit {limit:.3e}")
+        if not max_err(torch, a, b) <= limit:
+            fail(f"the example's kernel path disagrees with the plain path ({grid})")
+        del sol, sol64, cu, u0, u, exact, H, M, a, b
+
+    # ------------------------------------------- reports and the JSON lines
+    lines = []
+    for name, (n_bytes, n_ops) in work.items():
+        cu, where = info[name]
+        bnd = kernel_report(cu, name, torch.float32, where, ms[name], n_bytes, n_ops, card)
+        lines.append(kernel_line(f"{name} (vacuum Z4, K1 d)",
+                                 "exahype_tpu/models/aderdg_pallas.py:156", launches[name],
+                                 errs[name], ms[name], plain_ms[name], bnd,
+                                 "exahype_tpu_torch/csrc/aderdg_z4.cuh"))
+    missing = [name for name in work if not launches.get(name)]
+    if missing:
+        fail(f"kernels of the per-axis and 2-D Z4 path never launched: {missing}")
+    return lines
+
+
 def flowing_sod_state(solver, torch, device, dtype, ux=WALLS_UX):
     """:func:`sod_state` with a uniform flow ``ux`` along axis 0 added: the
     momentum ρ u_x and the kinetic energy ½ ρ u_x² (the pressures stay)."""
@@ -7898,6 +8168,7 @@ def main():
         "Z4+GRHD": lambda: z4_matter_path(torch, dev, card),
         "limited Z4+GRHD": lambda: limited_z4_matter_path(torch, dev, card),
         "Z4+GRMHD": lambda: z4_grmhd_path(torch, dev, card),
+        "Z4 per-axis and 2-D": lambda: z4_forms_path(torch, dev, card),
         "multichip": lambda: multichip_path(torch, dev, card),
     }
     kernels, seconds = [], {"build": time.perf_counter() - t0}

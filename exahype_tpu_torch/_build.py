@@ -137,6 +137,14 @@ _SIGNATURES = {
         ("aderdg_predictor_volume_z4_grmhd", _PREDICTOR_VOLUME),
         ("aderdg_face_flux_z4_grmhd", _FACE_FLUX_Z4),
         ("aderdg_surface_update_z4_grmhd", _SURFACE_UPDATE_Z4),
+        # The vacuum system's per-axis predictor (3-D) and its 2-D steps at
+        # orders 2 and 3 (csrc/aderdg_z4_per_axis*.cu, aderdg_z4_2d*.cu).
+        ("aderdg_predictor_volume_per_axis_z4", _PREDICTOR_VOLUME),
+        *((f"aderdg_{kernel}{order}_2d_z4", argtypes) for order in ("", "_p3")
+          for kernel, argtypes in (
+              ("predictor_volume", _PREDICTOR_VOLUME),
+              ("predictor_volume_per_axis", _PREDICTOR_VOLUME),
+              ("face_flux", _FACE_FLUX_Z4), ("surface_update", _SURFACE_UPDATE_Z4))),
         *((f"aderdg_{kernel}_p{order}", argtypes) for order in (4, 5, 7)
           for kernel, argtypes in (
               ("predictor_volume", _PREDICTOR_VOLUME), ("face_flux", _FACE_FLUX),

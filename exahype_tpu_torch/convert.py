@@ -612,9 +612,10 @@ def z4_solver_from_jax(jax_solver, *, slicing: str = "harmonic", f: float = 1.0,
     the per-axis NCP; the port's callbacks are the ``impl="soa"`` ones.  A
     ``PallasRHS`` hook (``with_pallas_rhs``) maps to
     :func:`~exahype_tpu_torch.models.rhs_cuda.with_cuda_rhs`.  A JAX
-    ``PallasADERDG`` over a fused Z4 solver maps to
+    ``PallasADERDG`` over a Z4 solver maps to
     :class:`~exahype_tpu_torch.models.aderdg_cuda.CudaADERDG` over the port's
-    solver for the one it wraps (its step's kernels compile the algebra in).
+    solver for the one it wraps (its step's kernels compile the algebra in):
+    fused or per-axis in 3-D at order 2, and in 2-D at orders 2 and 3.
     A 53-variable (shifted), 43-variable (Z4+GRHD) or 47-variable (Z4+GRMHD)
     solver raises ``SemanticError``: it crosses through
     :func:`z4_shift_solver_from_jax`, :func:`z4_matter_solver_from_jax` or

@@ -225,6 +225,17 @@ int z4_matter_kernel_info_f64(int which, int* out) __attribute__((weak));
 // aderdg_z4_grmhd_f64.cu; weak too), the same `which`.
 int z4_grmhd_kernel_info_f32(int which, int* out) __attribute__((weak));
 int z4_grmhd_kernel_info_f64(int which, int* out) __attribute__((weak));
+// The vacuum Z4 system's per-axis predictor on the 3-D cell
+// (csrc/aderdg_z4_per_axis.cu and _f64.cu; weak too), and its 2-D kernels at
+// orders 2 and 3 (csrc/aderdg_z4_2d.cu, aderdg_z4_2d_p3.cu and their _f64
+// twins): `which` 0 the fused predictor, 1 face flux, 2 update, 3 the
+// per-axis predictor.
+int z4_per_axis_info_f32(int* out) __attribute__((weak));
+int z4_per_axis_info_f64(int* out) __attribute__((weak));
+int z4_2d_info_f32(int which, int* out) __attribute__((weak));
+int z4_2d_info_f64(int which, int* out) __attribute__((weak));
+int z4_2d_p3_info_f32(int which, int* out) __attribute__((weak));
+int z4_2d_p3_info_f64(int which, int* out) __attribute__((weak));
 // The space-time predictor's occupancy at orders 5, 4 and 7
 // (csrc/aderdg_p5.cu, aderdg_p4.cu, aderdg_p7.cu and their _f64 twins; weak
 // too).
@@ -1713,6 +1724,16 @@ int kernel_info(int kernel, int physics, int* out) {
                                                : st_predictor_p4_info_f32, out);
     return st_info<T, kNN7>(kernel - 41, f64 ? st_predictor_p7_info_f64
                                              : st_predictor_p7_info_f32, out);
+  }
+  if (kernel >= 46 && kernel <= 54) {  // the vacuum Z4 per-axis and 2-D kernels, 46-54
+    if (physics != kZ4) return cudaErrorInvalidValue;
+    if (kernel == 46) {
+      auto* info = f64 ? z4_per_axis_info_f64 : z4_per_axis_info_f32;
+      return info ? info(out) : cudaErrorInvalidValue;
+    }
+    auto* info = kernel <= 50 ? (f64 ? z4_2d_info_f64 : z4_2d_info_f32)
+                              : (f64 ? z4_2d_p3_info_f64 : z4_2d_p3_info_f32);
+    return info ? info((kernel - 47) % 4, out) : cudaErrorInvalidValue;
   }
   if (physics == kZ4) {  // the Z4 step's own three kernels, 7-9
     auto* info = sizeof(T) == 8 ? z4_kernel_info_f64 : z4_kernel_info_f32;

@@ -7,18 +7,29 @@
 // csrc/z4_grmhd.cuh), the same flux branch on its fluid, field and cleaning
 // rows.  The float32 instances and C interface are csrc/aderdg_z4.cu,
 // csrc/aderdg_z4_shift.cu, csrc/aderdg_z4_matter.cu and
-// csrc/aderdg_z4_grmhd.cu, the float64 ones the same names with _f64: eight
-// sources that nvcc compiles in parallel.
+// csrc/aderdg_z4_grmhd.cu, the float64 ones the same names with _f64.  The
+// vacuum system also has the per-axis NCP branch (kPerAxis: the solver
+// without rhs_all_fn, make_z4_solver's default) on the 3-D cell,
+// csrc/aderdg_z4_per_axis.cu, and its steps on 2-D cells (Z4Cell) at orders
+// 2 and 3, fused and per-axis, csrc/aderdg_z4_2d.cu and aderdg_z4_2d_p3.cu;
+// each again with an _f64 twin: fourteen sources that nvcc compiles in
+// parallel.
 //
 // Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
 // PallasADERDG.build on a pure-NCP solver with the fused rhs_all_fn: its
 // Picard body with rhs_all_fn (:446-463), the source average (:714-719), the
 // fused strong-form NCP volume term in the epilogue (:734-743), and the NCP
-// face half-fluctuations of the Riemann stage (:286-298).  (On the TPU this
+// face half-fluctuations of the Riemann stage (:286-298); on a solver with
+// ncp_fn and source_fn but no rhs_all_fn, the per-axis branch of the Picard
+// body (r −= λ_d W_s ncp(q_s, D q_s, d), then + dt W_s source(q_s),
+// :441-463) and of the epilogue (−λ_d ncp(q̄, D q̄, d) after the source
+// average, :744-752); its kernel body works for any dimension (lam_axes,
+// :161).  (On the TPU this
 // build never compiled: Mosaic could not take the ~4k-op algebra inside
 // the predictor, so the JAX package ran the same evaluations under XLA
 // around K5.)  The numbers to match are those of exahype_tpu/models/
-// aderdg.py::ADERDGSolver.step on make_z4_solver(..., fused_rhs="soa");
+// aderdg.py::ADERDGSolver.step on make_z4_solver(..., fused_rhs="soa") and,
+// per-axis, fused_rhs=False, in 3-D and 2-D;
 // the plain PyTorch version is exahype_tpu_torch/models/aderdg.py::
 // ADERDGSolver.{predictor_volume, face_surface} on the port's fused Z4
 // solver (the face stage's halves: interface_flux, ncp_half, surface_term,
@@ -52,6 +63,25 @@
 //                            φ0/w F̂_lo), then new −= λ (φ1/w h_hi + φ0/w
 //                            h_lo), the _lo values the −d neighbour's
 //                            high-face ones, in place.
+//
+// The per-axis branch (kPerAxis, the vacuum system).  Per Picard iteration
+// each thread evaluates the algebra G::kAxes + 1 times at its point in one
+// code copy, the gradient chosen at run time: the source rhs(q, 0), then
+// rhs(q, e_d D_d q) for each axis d, D_d q unscaled as the plain version
+// hands it to ncp_fn, so that each ncp_d = rhs(q, 0) − rhs(q, e_d D_d q)
+// cancels its gradient-free terms exactly; two more rows [slot][point] of
+// shared memory hold the source and the running sum φ0 u − Σ_d λ_d w ncp_d,
+// and the last pass writes the sum + dt w source in place of q.  The
+// epilogue's G::kAxes + 1 evaluations at q̄ go to the slices' threads in
+// turn (E_0 = rhs(q̄, 0), E_{d+1} = rhs(q̄, e_d D_d q̄)), and new = u + dt s̄
+// − Σ_d λ_d (E_0 − E_{d+1}).  A step is the same three launches: the face
+// stage does not depend on how the predictor splits the algebra.
+//
+// The 2-D cells.  The same kernels over Z4Cell<2, N>: a cell's N² nodes and
+// N³ points, the gradients of two axes (the algebra's third is a
+// compile-time zero), the face stage tiled over the grid (1, g0, g1), and as
+// many cells a block as the shared memory and the register file take
+// (z4_cells_per_block).
 //
 // What bounds them on the H100.  One evaluation of the 38-variable algebra
 // is ~3,900 arithmetic operations (chip_smoke.py::z4_point_ops; the shifted
@@ -141,15 +171,73 @@
 
 namespace {
 
-constexpr int kZ4N = 3;                            // order 2: nodes an axis
-constexpr int kZ4Faces = kZ4N * kZ4N;              // face nodes of an axis
-constexpr int kZ4Nodes = kZ4N * kZ4N * kZ4N;       // space nodes of a cell
-constexpr int kZ4Points = kZ4N * kZ4Nodes;         // space-time points of a cell
-// Face-stage blocks: one tile of kTile cells of one (axis, face node); the
-// update's blocks take kZ4UpdateNodes space nodes of one tile.
-constexpr int kZ4UpdateNodes = 9;
+constexpr int kZ4N = 3;  // order 2: nodes an axis of the 3-D cell
 // The shared memory a block may take (227 KB on an H100).
 constexpr size_t kZ4SmemLimit = 232448;
+
+// The cell a kernel instance takes: DIM axes of N nodes (order N − 1), its
+// nodes and face nodes numbered row-major as the solver numbers them.  The
+// 3-D order-2 cell (Z4Cell3) is every system's; the 2-D cells at orders 2
+// and 3 are the vacuum system's.  The face stage tiles the grid's last axis
+// (csrc/aderdg_common.cuh::TileCell), so a 2-D grid (g0, g1) goes to it as
+// the 3-D grid (1, g0, g1): grid axis d is the tiling's axis kAxis0 + d.
+// The algebra stays 3-D: a 2-D cell's third gradient is a compile-time zero.
+template <int DIM, int N>
+struct Z4Cell {
+  static constexpr int kAxes = DIM;
+  static constexpr int kN = N;
+  static constexpr int kFaces = DIM == 3 ? N * N : N;  // face nodes of an axis
+  static constexpr int kNodes = N * kFaces;            // space nodes of a cell
+  static constexpr int kPoints = N * kNodes;           // space-time points of a cell
+  static constexpr int kAxis0 = 3 - DIM;
+  // Face-stage blocks: one tile of kTile cells of one (axis, face node); the
+  // update's blocks take kUpdateNodes space nodes of one tile.
+  static constexpr int kUpdateNodes = DIM == 3 ? 9 : kNodes;
+  // The node stride of axis k within a cell's nodes, and a node's digit.
+  static __device__ __forceinline__ int stride(int k) {
+    if constexpr (DIM == 3) {
+      return k == 0 ? N * N : (k == 1 ? N : 1);
+    } else {
+      return k == 0 ? N : 1;
+    }
+  }
+  static __device__ __forceinline__ int digit(int node, int k) {
+    if constexpr (DIM == 3) {
+      return k == 0 ? node / (N * N) : (k == 1 ? (node / N) % N : node % N);
+    } else {
+      return k == 0 ? node / N : node % N;
+    }
+  }
+  // The first node (digit 0 along d) of the row along d through face node
+  // fm, whose digits are the other axes' in order.
+  static __device__ __forceinline__ int face_base(int d, int fm) {
+    if constexpr (DIM == 3) {
+      return d == 0 ? fm : (d == 1 ? (fm / N) * (N * N) + fm % N : fm * N);
+    } else {
+      return d == 0 ? fm : fm * N;
+    }
+  }
+  // The face node of axis d's faces on which the node of digits ix lies.
+  static __device__ __forceinline__ int face_node(const int (&ix)[DIM], int d) {
+    if constexpr (DIM == 3) {
+      return d == 0 ? ix[1] * N + ix[2] : (d == 1 ? ix[0] * N + ix[2] : ix[0] * N + ix[1]);
+    } else {
+      return d == 0 ? ix[1] : ix[0];
+    }
+  }
+};
+using Z4Cell3 = Z4Cell<3, kZ4N>;
+
+// x[k] of a per-axis array, k a thread-dependent axis (a chain of selects,
+// no dynamic index into registers).
+template <typename T, int A>
+__device__ __forceinline__ T z4_axis_value(const T (&x)[A], int k) {
+  if constexpr (A == 3) {
+    return k == 0 ? x[0] : (k == 1 ? x[1] : x[2]);
+  } else {
+    return k == 0 ? x[0] : x[1];
+  }
+}
 
 // A system the kernels compile in: its variable count kVars, its physics id
 // in the C interface, the slots whose gradients its algebra reads (rows
@@ -324,8 +412,8 @@ struct Z4Physics {
   static Z4Physics make(const double* params) { return {Sys::make(params)}; }
 };
 
-template <typename T, typename Sys>
-using Z4Params = Params<T, kZ4N, Z4Physics<T, Sys>>;
+template <typename T, typename Sys, int N = kZ4N>
+using Z4Params = Params<T, N, Z4Physics<T, Sys>>;
 
 // The predictor's shared memory, in values of T: u [slot][node], q (its
 // right-hand sides in place) [slot][point], and the gradient rows
@@ -333,43 +421,82 @@ using Z4Params = Params<T, kZ4N, Z4Physics<T, Sys>>;
 // ∇q̄ [axis][row of slot][node] and the NCP terms' two evaluations
 // [slot][node] each; with a flux (Sys::kFlux), then its rows [axis][hydro
 // row][point], which the epilogue reuses for F̄ (at the points of slice 0).
+// The per-axis branch (kPerAxis) adds two rows [slot][point] after the
+// gradient rows, the source and the running sum of a Picard iteration; its
+// epilogue keeps its G::kAxes + 1 evaluations [evaluation][slot][node] from
+// the fused pair's place on, into them.
 
-template <int CB, typename Sys>
+template <int CB, typename Sys, typename G = Z4Cell3, bool kPerAxis = false>
 struct Z4Smem {
   static constexpr int V = Sys::kVars;
   static constexpr int GS = Sys::kGradSlots;
-  static constexpr int kPts = CB * kZ4Points;
-  static constexpr int kNodes = CB * kZ4Nodes;
+  static constexpr int kPts = CB * G::kPoints;
+  static constexpr int kNodes = CB * G::kNodes;
   static constexpr int kU = V * kNodes;
   static constexpr int kQ = V * kPts;
-  static constexpr int kG = kDim * GS * kPts;
+  static constexpr int kG = G::kAxes * GS * kPts;
   static constexpr int kQbar = 0;                                    // offsets in G
   static constexpr int kGbar = kQbar + V * kNodes;
-  static constexpr int kNcpA = kGbar + kDim * GS * kNodes;
+  static constexpr int kNcpA = kGbar + G::kAxes * GS * kNodes;
   static constexpr int kNcpB = kNcpA + V * kNodes;
-  static_assert(kNcpB + V * kNodes <= kG, "the epilogue fits the gradient rows");
-  static constexpr int kF = kDim * Sys::kHydro * kPts;
-  static constexpr int kTotal = kU + kQ + kG + kF;
+  static constexpr int kF = G::kAxes * Sys::kHydro * kPts;
+  static constexpr int kX = kPerAxis ? 2 * V * kPts : 0;  // after G (and F, none here)
+  static_assert(kPerAxis || kNcpB + V * kNodes <= kG, "the epilogue fits the gradient rows");
+  static_assert(!kPerAxis || (kF == 0 && kNcpA + (G::kAxes + 1) * V * kNodes <= kG + kX),
+                "the per-axis epilogue fits the gradient and per-axis rows");
+  static constexpr int kTotal = kU + kQ + kG + kF + kX;
 };
 
 // Cells a predictor block, the block the only one on its SM: as many as
-// the shared memory admits.  38 variables: 46,548 B a cell in float32 and
-// 93,096 in float64, so 4 and 2; at 4 (324 threads) ptxas fits the float32
-// algebra in 168 registers without spills, and the kernel ran 6 % faster
-// than at 3 cells and 204 registers (H100 80GB HBM3, 700 W; PERF.md).
-// Shifted: 64,692 B and 129,384 B, so 3 and 1.  Z4+GRHD: 48,708 B a cell
-// and the 15 flux rows, 4,860 B: 53,568 B in float32 and 107,136 B in
+// the shared memory admits, and at most 384 threads in float32 (256 in
+// float64), so that ptxas may give the algebra 168 registers (255) a thread;
+// no 3-D fused instance reaches that cap.  38 variables: 46,548 B a cell in
+// float32 and 93,096 in float64, so 4 and 2; at 4 (324 threads) ptxas fits
+// the float32 algebra in 168 registers without spills, and the kernel ran 6
+// % faster than at 3 cells and 204 registers (H100 80GB HBM3, 700 W;
+// PERF.md).  Shifted: 64,692 B and 129,384 B, so 3 and 1.  Z4+GRHD: 48,708 B
+// a cell and the 15 flux rows, 4,860 B: 53,568 B in float32 and 107,136 B in
 // float64, so 4 and 2.  Z4+GRMHD: 47 variables and 27 flux rows, 14,796
 // values a cell: 59,184 B in float32 and 118,368 B in float64, so 3 (243
-// threads) and 1.
-template <typename T, typename Sys>
+// threads) and 1.  The 3-D per-axis branch: 71,172 B a cell in float32, so
+// 3, and 1 in float64.  2-D, order 2 (27 points a cell): 14 cells (378
+// threads) and 9, per-axis 11 and 5; order 3 (64 points): 6 and 4, per-axis
+// 4 and 2.
+template <typename T, typename Sys, typename G = Z4Cell3, bool kPerAxis = false>
 constexpr int z4_cells_per_block() {
-  return static_cast<int>(kZ4SmemLimit / (Z4Smem<1, Sys>::kTotal * sizeof(T)));
+  constexpr int smem =
+      static_cast<int>(kZ4SmemLimit / (Z4Smem<1, Sys, G, kPerAxis>::kTotal * sizeof(T)));
+  constexpr int threads = (sizeof(T) == 8 ? 256 : 384) / G::kPoints;
+  return smem < threads ? smem : threads;
 }
 
-template <typename T, typename Sys>
+template <typename T, typename Sys, typename G = Z4Cell3, bool kPerAxis = false>
 constexpr size_t z4_predictor_smem() {
-  return static_cast<size_t>(Z4Smem<z4_cells_per_block<T, Sys>(), Sys>::kTotal) * sizeof(T);
+  return static_cast<size_t>(
+             Z4Smem<z4_cells_per_block<T, Sys, G, kPerAxis>(), Sys, G, kPerAxis>::kTotal) *
+         sizeof(T);
+}
+
+// Σ_j m_j x_j along a row of nodes stride `st` apart, x pointing at the
+// node whose digit is ik, the sum started from the first term: D·F (the
+// flux's derivative in reference coordinates), D·q (the per-axis NCP's
+// gradient), Kvol·F̄, the face projections of F̄ and, with ik = 0, the
+// 2-D cells' time averages (st the slice stride).
+//
+// Here and below, the 3-D cell (N = 3) keeps the expressions it had before
+// the cell was a template parameter: a loop over N, equal in value, changes
+// the fused instances' machine code (their outputs keep their bits).
+template <typename T, int N>
+__device__ __forceinline__ T z4_contract(const T (&mrow)[N], const T* x, int ik, int st) {
+  const T* x0 = x - ik * st;
+  if constexpr (N == 3) {
+    return mrow[0] * x0[0] + mrow[1] * x0[st] + mrow[2] * x0[2 * st];
+  } else {
+    T s = mrow[0] * x0[0];
+#pragma unroll
+    for (int j = 1; j < N; ++j) s = s + mrow[j] * x0[j * st];
+    return s;
+  }
 }
 
 // The physical gradient along axis k at a node (its digit ik along k) of a
@@ -381,36 +508,28 @@ constexpr size_t z4_predictor_smem() {
 // % on the exact gauge wave, whose zero slots send it down its slow path
 // (H100 80GB HBM3, 700 W; PERF.md, scripts/torch_z4_ab.py).  inv_dx is
 // T(1) / dx_k.
-template <typename T>
-__device__ __forceinline__ T z4_gradient(const T (&drow)[kZ4N], const T* x, int ik, int st,
+template <typename T, int N>
+__device__ __forceinline__ T z4_gradient(const T (&drow)[N], const T* x, int ik, int st,
                                          T inv_dx) {
-  const T* x0 = x - ik * st;
-  return (drow[0] * x0[0] + drow[1] * x0[st] + drow[2] * x0[2 * st]) * inv_dx;
+  if constexpr (N == 3) {
+    const T* x0 = x - ik * st;
+    return (drow[0] * x0[0] + drow[1] * x0[st] + drow[2] * x0[2 * st]) * inv_dx;
+  } else {
+    return z4_contract<T, N>(drow, x, ik, st) * inv_dx;
+  }
 }
 
-// Σ_j m_j x_j along a row of nodes stride `st` apart, x pointing at the
-// node whose digit is ik: D·F (the flux's derivative in reference
-// coordinates), Kvol·F̄ and the face projections of F̄.
-template <typename T>
-__device__ __forceinline__ T z4_contract(const T (&mrow)[kZ4N], const T* x, int ik, int st) {
-  const T* x0 = x - ik * st;
-  return mrow[0] * x0[0] + mrow[1] * x0[st] + mrow[2] * x0[2 * st];
-}
-
-// The node stride of axis k within a cell's 27 nodes, and the node's digit.
-__device__ __forceinline__ int z4_stride(int k) { return k == 0 ? 9 : (k == 1 ? 3 : 1); }
-__device__ __forceinline__ int z4_digit(int node, int k) {
-  return k == 0 ? node / 9 : (k == 1 ? (node / 3) % 3 : node % 3);
-}
-
-template <typename T, int CB, typename Sys>
-__global__ void __launch_bounds__(CB * kZ4Points, 1)
+template <typename T, int CB, typename Sys, typename G = Z4Cell3, bool kPerAxis = false>
+__global__ void __launch_bounds__(CB * G::kPoints, 1)
 aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __restrict__ faces,
-                           const T* __restrict__ dt_ptr, T dt_val, const Z4Params<T, Sys> P) {
-  using S = Z4Smem<CB, Sys>;
+                           const T* __restrict__ dt_ptr, T dt_val,
+                           const Z4Params<T, Sys, G::kN> P) {
+  using S = Z4Smem<CB, Sys, G, kPerAxis>;
   constexpr int V = Sys::kVars;
   constexpr int GS = Sys::kGradSlots;
-  constexpr int NT = CB * kZ4Points;
+  constexpr int N = G::kN;
+  constexpr int NT = CB * G::kPoints;
+  static_assert(!kPerAxis || !Sys::kFlux, "the per-axis branch is the fluxless systems'");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sU = reinterpret_cast<T*>(smem_raw);
   T* sQ = sU + S::kU;
@@ -442,10 +561,10 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
       if (e < S::kU) {
         const int c = e % CB, r = e / CB;
         const int node = r / V, v = r - node * V;
-        sU[v * S::kNodes + c * kZ4Nodes + node] = x[i];
+        sU[v * S::kNodes + c * G::kNodes + node] = x[i];
 #pragma unroll
-        for (int s = 0; s < kZ4N; ++s) {
-          sQ[v * S::kPts + c * kZ4Points + s * kZ4Nodes + node] = x[i];
+        for (int s = 0; s < N; ++s) {
+          sQ[v * S::kPts + c * G::kPoints + s * G::kNodes + node] = x[i];
         }
       }
     }
@@ -453,32 +572,39 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
 
   // My point: cell c, time slice s, space node `node`.
   const int pt = threadIdx.x;
-  const int c = pt / kZ4Points;
-  const int s = (pt - c * kZ4Points) / kZ4Nodes;
-  const int node = pt - c * kZ4Points - s * kZ4Nodes;
-  const int cn = c * kZ4Nodes + node;  // my node among the block's nodes
-  T drow[kDim][kZ4N];                  // D's row of my digit along each axis
+  const int c = pt / G::kPoints;
+  const int s = (pt - c * G::kPoints) / G::kNodes;
+  const int node = pt - c * G::kPoints - s * G::kNodes;
+  const int cn = c * G::kNodes + node;  // my node among the block's nodes
+  T drow[G::kAxes][N];                  // D's row of my digit along each axis
 #pragma unroll
-  for (int k = 0; k < kDim; ++k) select_row<T, kZ4N>(P.D, z4_digit(node, k), drow[k]);
-  T inv_dx[kDim];
+  for (int k = 0; k < G::kAxes; ++k) select_row<T, N>(P.D, G::digit(node, k), drow[k]);
+  T inv_dx[G::kAxes];
 #pragma unroll
-  for (int k = 0; k < kDim; ++k) inv_dx[k] = T(1) / P.dx[k];
-  const T phi0_s = select<T, kZ4N>(P.PHI0, s);
-  const T dtw = dtv * select<T, kZ4N>(P.W, s);
+  for (int k = 0; k < G::kAxes; ++k) inv_dx[k] = T(1) / P.dx[k];
+  const T phi0_s = select<T, N>(P.PHI0, s);
+  const T dtw = dtv * select<T, N>(P.W, s);
   const typename Sys::P zp = P.phys.p;
   __syncthreads();
 
-  // Picard: q ← K1inv (φ0 u + dt w rhs(q, ∇q)).
+  // Picard: q ← K1inv (φ0 u + dt w rhs(q, ∇q)); per-axis, q ← K1inv (φ0 u −
+  // Σ_d λ_d w ncp_d(q, D_d q) + dt w source(q)).
   for (int it = 0; it < P.picard_iters; ++it) {
-    // (1) the gradients of my point.
+    // (1) the gradients of my point (per-axis: D·q unscaled, as the plain
+    // version hands them to ncp_fn; λ_d scales the product).
 #pragma unroll
-    for (int k = 0; k < kDim; ++k) {
-      const int ik = z4_digit(node, k), st = z4_stride(k);
+    for (int k = 0; k < G::kAxes; ++k) {
+      const int ik = G::digit(node, k), st = G::stride(k);
 #pragma unroll 1
       for (int v = Sys::kGradFirst; v < V; ++v) {
         if (!Sys::reads_grad(v)) continue;
-        sG[(k * GS + v - Sys::row_offset(v)) * S::kPts + pt] =
-            z4_gradient<T>(drow[k], sQ + v * S::kPts + pt, ik, st, inv_dx[k]);
+        if constexpr (kPerAxis) {
+          sG[(k * GS + v - Sys::row_offset(v)) * S::kPts + pt] =
+              z4_contract<T>(drow[k], sQ + v * S::kPts + pt, ik, st);
+        } else {
+          sG[(k * GS + v - Sys::row_offset(v)) * S::kPts + pt] =
+              z4_gradient<T>(drow[k], sQ + v * S::kPts + pt, ik, st, inv_dx[k]);
+        }
       }
     }
     __syncthreads();
@@ -491,13 +617,13 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
       const auto rec = Sys::template recover<T>(load_q, zp);
       T* sF = sG + S::kG;
 #pragma unroll
-      for (int d = 0; d < kDim; ++d)
+      for (int d = 0; d < G::kAxes; ++d)
 #pragma unroll
         for (int r = 0; r < Sys::kHydro; ++r)
           sF[(d * Sys::kHydro + r) * S::kPts + pt] = Sys::template flux<T>(rec, d, r);
-      T lamw[kDim];  // λ_d w_s, λ_d = dt / dx_d
+      T lamw[G::kAxes];  // λ_d w_s, λ_d = dt / dx_d
 #pragma unroll
-      for (int d = 0; d < kDim; ++d) lamw[d] = dtv / P.dx[d] * select<T, kZ4N>(P.W, s);
+      for (int d = 0; d < G::kAxes; ++d) lamw[d] = dtv / P.dx[d] * select<T, N>(P.W, s);
       __syncthreads();
       auto load_dq = [&](int k, int v) {
         return sG[(k * GS + v - Sys::row_offset(v)) * S::kPts + pt];
@@ -506,18 +632,56 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
         T x = phi0_s * sU[v * S::kNodes + cn];
         if (v >= Sys::kFluxFirst) {
 #pragma unroll
-          for (int d = 0; d < kDim; ++d) {
+          for (int d = 0; d < G::kAxes; ++d) {
             const T* f = sF + (d * Sys::kHydro + v - Sys::kFluxFirst) * S::kPts + pt;
-            x = x - lamw[d] * z4_contract<T>(drow[d], f, z4_digit(node, d), z4_stride(d));
+            x = x - lamw[d] * z4_contract<T>(drow[d], f, G::digit(node, d), G::stride(d));
           }
         }
         sQ[v * S::kPts + pt] = x + dtw * r;
       };
       Sys::template rhs<T>(load_q, load_dq, zp, rec, store);
+    } else if constexpr (kPerAxis) {
+      // Pass 0 the source rhs(q, 0), pass d + 1 rhs(q, e_d D_d q), all one
+      // code copy (the gradient selected at run time), so that each
+      // ncp_d = rhs(q, 0) − rhs(q, e_d D_d q) cancels the gradient-free
+      // terms exactly, as the plain version's does; the source waits in its
+      // row, the sum φ0 u − Σ_d λ_d w ncp_d in the other, and the last pass
+      // writes the sum + dt w source in place of q, in the plain order.
+      T* sSrc = sG + S::kG + S::kF;
+      T* sAcc = sSrc + V * S::kPts;
+      T lamw[G::kAxes];  // λ_d w_s, λ_d = dt / dx_d
+#pragma unroll
+      for (int d = 0; d < G::kAxes; ++d) lamw[d] = dtv / P.dx[d] * select<T, N>(P.W, s);
+      auto load_q = [&](int v) { return sQ[v * S::kPts + pt]; };
+#pragma unroll 1
+      for (int pass = 0; pass <= G::kAxes; ++pass) {
+        const int axis = pass - 1;
+        const T lw = z4_axis_value<T, G::kAxes>(lamw, axis);
+        auto load_dq = [&](int k, int v) {
+          return k < G::kAxes && k == axis
+                     ? sG[(k * GS + v - Sys::row_offset(v)) * S::kPts + pt]
+                     : T(0);
+        };
+        auto store = [&](int v, T r) {
+          T* src = sSrc + v * S::kPts + pt;
+          if (pass == 0) {
+            *src = r;
+            return;
+          }
+          T* acc = sAcc + v * S::kPts + pt;
+          const T x = (pass == 1 ? phi0_s * sU[v * S::kNodes + cn] : *acc) - lw * (*src - r);
+          if (pass < G::kAxes) {
+            *acc = x;
+          } else {
+            sQ[v * S::kPts + pt] = x + dtw * *src;
+          }
+        };
+        Sys::template rhs<T>(load_q, load_dq, zp, store);
+      }
     } else {
       auto load_q = [&](int v) { return sQ[v * S::kPts + pt]; };
       auto load_dq = [&](int k, int v) {
-        return sG[(k * GS + v - Sys::row_offset(v)) * S::kPts + pt];
+        return k < G::kAxes ? sG[(k * GS + v - Sys::row_offset(v)) * S::kPts + pt] : T(0);
       };
       auto store = [&](int v, T r) {
         sQ[v * S::kPts + pt] = phi0_s * sU[v * S::kNodes + cn] + dtw * r;
@@ -528,12 +692,25 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
     // (3) q ← K1inv rhs over the time slices, one (node, slot) a thread.
     for (int e = threadIdx.x; e < S::kU; e += NT) {
       const int v = e / S::kNodes, m = e - v * S::kNodes;
-      const int cc = m / kZ4Nodes;
-      T* q = sQ + v * S::kPts + cc * kZ4Points + (m - cc * kZ4Nodes);
-      const T r0 = q[0], r1 = q[kZ4Nodes], r2 = q[2 * kZ4Nodes];
+      const int cc = m / G::kNodes;
+      T* q = sQ + v * S::kPts + cc * G::kPoints + (m - cc * G::kNodes);
+      if constexpr (N == 3) {
+        const T r0 = q[0], r1 = q[G::kNodes], r2 = q[2 * G::kNodes];
 #pragma unroll
-      for (int t = 0; t < kZ4N; ++t) {
-        q[t * kZ4Nodes] = P.K1inv[t][0] * r0 + P.K1inv[t][1] * r1 + P.K1inv[t][2] * r2;
+        for (int t = 0; t < N; ++t) {
+          q[t * G::kNodes] = P.K1inv[t][0] * r0 + P.K1inv[t][1] * r1 + P.K1inv[t][2] * r2;
+        }
+      } else {
+        T r[N];
+#pragma unroll
+        for (int j = 0; j < N; ++j) r[j] = q[j * G::kNodes];
+#pragma unroll
+        for (int t = 0; t < N; ++t) {
+          T x = P.K1inv[t][0] * r[0];
+#pragma unroll
+          for (int j = 1; j < N; ++j) x = x + P.K1inv[t][j] * r[j];
+          q[t * G::kNodes] = x;
+        }
       }
     }
     __syncthreads();
@@ -546,23 +723,31 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
   T* sB = sG + S::kNcpB;
   for (int e = threadIdx.x; e < S::kU; e += NT) {
     const int v = e / S::kNodes, m = e - v * S::kNodes;
-    const int cc = m / kZ4Nodes;
-    const T* q = sQ + v * S::kPts + cc * kZ4Points + (m - cc * kZ4Nodes);
-    sQbar[e] = P.W[0] * q[0] + P.W[1] * q[kZ4Nodes] + P.W[2] * q[2 * kZ4Nodes];
+    const int cc = m / G::kNodes;
+    const T* q = sQ + v * S::kPts + cc * G::kPoints + (m - cc * G::kNodes);
+    if constexpr (N == 3) {
+      sQbar[e] = P.W[0] * q[0] + P.W[1] * q[G::kNodes] + P.W[2] * q[2 * G::kNodes];
+    } else {
+      sQbar[e] = z4_contract<T>(P.W, q, 0, G::kNodes);
+    }
   }
   __syncthreads();
-  // ∇q̄, one (axis, gradient row, node) a thread.
-  for (int e = threadIdx.x; e < kDim * GS * S::kNodes; e += NT) {
+  // ∇q̄ (per-axis: D·q̄ unscaled), one (axis, gradient row, node) a thread.
+  for (int e = threadIdx.x; e < G::kAxes * GS * S::kNodes; e += NT) {
     const int row = e / S::kNodes, m = e - row * S::kNodes;
     const int k = row / GS;
     int v = Sys::kGradFirst + row - k * GS;
     v += Sys::slot_skip(v);
-    const int nd = m % kZ4Nodes;
-    const int ik = z4_digit(nd, k);
-    T dr[kZ4N];
-    select_row<T, kZ4N>(P.D, ik, dr);
-    const T idx = k == 0 ? inv_dx[0] : (k == 1 ? inv_dx[1] : inv_dx[2]);
-    sGbar[e] = z4_gradient<T>(dr, sQbar + v * S::kNodes + m, ik, z4_stride(k), idx);
+    const int nd = m % G::kNodes;
+    const int ik = G::digit(nd, k);
+    T dr[N];
+    select_row<T, N>(P.D, ik, dr);
+    if constexpr (kPerAxis) {
+      sGbar[e] = z4_contract<T>(dr, sQbar + v * S::kNodes + m, ik, G::stride(k));
+    } else {
+      const T idx = z4_axis_value<T, G::kAxes>(inv_dx, k);
+      sGbar[e] = z4_gradient<T>(dr, sQbar + v * S::kNodes + m, ik, G::stride(k), idx);
+    }
   }
   __syncthreads();
 
@@ -573,7 +758,7 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
     const auto rec = Sys::template recover<T>(load_q, zp);
     T* sF = sG + S::kG;
 #pragma unroll
-    for (int d = 0; d < kDim; ++d)
+    for (int d = 0; d < G::kAxes; ++d)
 #pragma unroll
       for (int r = 0; r < Sys::kHydro; ++r)
         sF[(d * Sys::kHydro + r) * S::kPts + pt] = Sys::template flux<T>(rec, d, r);
@@ -586,15 +771,35 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
     auto store = [&](int v, T r) { sQ[v * S::kPts + pt] = r; };
     Sys::template rhs<T>(load_q, zero, zp, store);
   }
-  // rhs(q̄, ∇q̄) of my node on the slice-0 threads, rhs(q̄, 0) on the
-  // slice-1 ones: one code copy with the gradient zeroed at run time, so the
-  // two evaluations round their gradient-free terms alike and their
-  // difference cancels them exactly, as the plain version's does.
-  if (s < 2) {
+  if constexpr (kPerAxis) {
+    // The NCP volume term's evaluations at my node: E_0 = rhs(q̄, 0) and
+    // E_{d+1} = rhs(q̄, e_d D_d q̄), evaluation e on the threads of slice e
+    // (and e − N), one code copy with the gradient selected at run time, so
+    // that each difference E_0 − E_{d+1} cancels the gradient-free terms
+    // exactly, as the plain version's does.
+#pragma unroll 1
+    for (int e = s; e <= G::kAxes; e += N) {
+      const int axis = e - 1;
+      auto load_q = [&](int v) { return sQbar[v * S::kNodes + cn]; };
+      auto load_dq = [&](int k, int v) {
+        return k < G::kAxes && k == axis
+                   ? sGbar[(k * GS + v - Sys::row_offset(v)) * S::kNodes + cn]
+                   : T(0);
+      };
+      T* dst = sA + e * V * S::kNodes;
+      auto store = [&](int v, T r) { dst[v * S::kNodes + cn] = r; };
+      Sys::template rhs<T>(load_q, load_dq, zp, store);
+    }
+  } else if (s < 2) {
+    // rhs(q̄, ∇q̄) of my node on the slice-0 threads, rhs(q̄, 0) on the
+    // slice-1 ones: one code copy with the gradient zeroed at run time, so
+    // the two evaluations round their gradient-free terms alike and their
+    // difference cancels them exactly, as the plain version's does.
     const bool grad = s == 0;
     auto load_q = [&](int v) { return sQbar[v * S::kNodes + cn]; };
     auto load_dq = [&](int k, int v) {
-      return grad ? sGbar[(k * GS + v - Sys::row_offset(v)) * S::kNodes + cn] : T(0);
+      return grad && k < G::kAxes ? sGbar[(k * GS + v - Sys::row_offset(v)) * S::kNodes + cn]
+                                  : T(0);
     };
     T* dst = grad ? sA : sB;
     auto store = [&](int v, T r) { dst[v * S::kNodes + cn] = r; };
@@ -611,60 +816,92 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
     // F̄_d = Σ_s w_s F_d(q_s), in place at the points of slice 0, one
     // (axis, hydro row, node) a thread.
     T* sF = sG + S::kG;
-    for (int e = threadIdx.x; e < kDim * Sys::kHydro * S::kNodes; e += NT) {
+    for (int e = threadIdx.x; e < G::kAxes * Sys::kHydro * S::kNodes; e += NT) {
       const int row = e / S::kNodes, m = e - row * S::kNodes;
-      const int cc = m / kZ4Nodes;
-      T* f = sF + row * S::kPts + cc * kZ4Points + (m - cc * kZ4Nodes);
-      f[0] = P.W[0] * f[0] + P.W[1] * f[kZ4Nodes] + P.W[2] * f[2 * kZ4Nodes];
+      const int cc = m / G::kNodes;
+      T* f = sF + row * S::kPts + cc * G::kPoints + (m - cc * G::kNodes);
+      if constexpr (N == 3) {
+        f[0] = P.W[0] * f[0] + P.W[1] * f[G::kNodes] + P.W[2] * f[2 * G::kNodes];
+      } else {
+        f[0] = z4_contract<T>(P.W, f, 0, G::kNodes);
+      }
     }
     __syncthreads();
   }
 
-  // new = u + dt s̄ + dt (rhs(q̄, ∇q̄) − rhs(q̄, 0)), the block's cells fastest.
+  // new = u + dt s̄ + dt (rhs(q̄, ∇q̄) − rhs(q̄, 0)); per-axis, new = u +
+  // dt s̄ − Σ_d λ_d (E_0 − E_{d+1}) in the plain order; the block's cells
+  // fastest.
   for (int e = threadIdx.x; e < S::kU; e += NT) {
     const int cc = e % CB, r = e / CB;  // r = node * V + v
     const int nd = r / V, v = r - nd * V;
     if (cell0 + cc >= ncell) continue;
-    const int m = cc * kZ4Nodes + nd;
-    const T* src = sQ + v * S::kPts + cc * kZ4Points + nd;
-    const T sbar = P.W[0] * src[0] + P.W[1] * src[kZ4Nodes] + P.W[2] * src[2 * kZ4Nodes];
+    const int m = cc * G::kNodes + nd;
+    const T* src = sQ + v * S::kPts + cc * G::kPoints + nd;
+    T sbar;
+    if constexpr (N == 3) {
+      sbar = P.W[0] * src[0] + P.W[1] * src[G::kNodes] + P.W[2] * src[2 * G::kNodes];
+    } else {
+      sbar = z4_contract<T>(P.W, src, 0, G::kNodes);
+    }
     T nv = sU[v * S::kNodes + m] + dtv * sbar;
-    nv = nv + dtv * (sA[v * S::kNodes + m] - sB[v * S::kNodes + m]);
+    if constexpr (kPerAxis) {
+      const T e0 = sA[v * S::kNodes + m];
+#pragma unroll
+      for (int d = 0; d < G::kAxes; ++d) {
+        nv = nv - dtv / P.dx[d] * (e0 - sA[((d + 1) * V + v) * S::kNodes + m]);
+      }
+    } else {
+      nv = nv + dtv * (sA[v * S::kNodes + m] - sB[v * S::kNodes + m]);
+    }
     if constexpr (Sys::kFlux) {
       // The volume integral of the hydro rows: + λ_d Kvol·F̄_d along each axis.
       if (v >= Sys::kFluxFirst) {
         const T* sF = sG + S::kG;
 #pragma unroll
-        for (int d = 0; d < kDim; ++d) {
-          const int ik = z4_digit(nd, d);
-          T krow[kZ4N];
-          select_row<T, kZ4N>(P.Kvol, ik, krow);
+        for (int d = 0; d < G::kAxes; ++d) {
+          const int ik = G::digit(nd, d);
+          T krow[N];
+          select_row<T, N>(P.Kvol, ik, krow);
           const T* f = sF + (d * Sys::kHydro + v - Sys::kFluxFirst) * S::kPts +
-                       cc * kZ4Points + nd;
-          nv = nv + dtv / P.dx[d] * z4_contract<T>(krow, f, ik, z4_stride(d));
+                       cc * G::kPoints + nd;
+          nv = nv + dtv / P.dx[d] * z4_contract<T>(krow, f, ik, G::stride(d));
         }
       }
     }
     out[static_cast<long long>(r) * ncell + cell0 + cc] = nv;
   }
 
-  // Face projections of q̄: faces[d][w][fm][v][cell], face node fm the two
-  // other node digits in order, w = 0 (q_lo) and 1 (q_hi) here; a block's
-  // rows are CB cells long.
-  const long long wstride = static_cast<long long>(kZ4Faces * V) * ncell;
-  for (int e = threadIdx.x; e < kDim * kZ4Faces * V * CB; e += NT) {
-    const int cc = e % CB, r = e / CB;  // r = (d * 9 + fm) * V + v
+  // Face projections of q̄: faces[d][w][fm][v][cell], face node fm the other
+  // node digits in order, w = 0 (q_lo) and 1 (q_hi) here; a block's rows
+  // are CB cells long.
+  const long long wstride = static_cast<long long>(G::kFaces * V) * ncell;
+  for (int e = threadIdx.x; e < G::kAxes * G::kFaces * V * CB; e += NT) {
+    const int cc = e % CB, r = e / CB;  // r = (d * kFaces + fm) * V + v
     const int v = r % V, df = r / V;
-    const int d = df / kZ4Faces, fm = df - d * kZ4Faces;
+    const int d = df / G::kFaces, fm = df - d * G::kFaces;
     if (cell0 + cc >= ncell) continue;
-    const int base = d == 0 ? fm : (d == 1 ? (fm / kZ4N) * 9 + fm % kZ4N : fm * kZ4N);
-    const int st = z4_stride(d);
-    const T* x = sQbar + v * S::kNodes + cc * kZ4Nodes + base;
-    const T q0 = x[0], q1 = x[st], q2 = x[2 * st];
-    const T qlo = P.PHI0[0] * q0 + P.PHI0[1] * q1 + P.PHI0[2] * q2;
-    const T qhi = P.PHI1[0] * q0 + P.PHI1[1] * q1 + P.PHI1[2] * q2;
+    const int base = G::face_base(d, fm);
+    const int st = G::stride(d);
+    const T* x = sQbar + v * S::kNodes + cc * G::kNodes + base;
+    T qlo, qhi;
+    if constexpr (N == 3) {
+      const T q0 = x[0], q1 = x[st], q2 = x[2 * st];
+      qlo = P.PHI0[0] * q0 + P.PHI0[1] * q1 + P.PHI0[2] * q2;
+      qhi = P.PHI1[0] * q0 + P.PHI1[1] * q1 + P.PHI1[2] * q2;
+    } else {
+      T qx[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) qx[j] = x[j * st];
+      qlo = P.PHI0[0] * qx[0];
+#pragma unroll
+      for (int j = 1; j < N; ++j) qlo = qlo + P.PHI0[j] * qx[j];
+      qhi = P.PHI1[0] * qx[0];
+#pragma unroll
+      for (int j = 1; j < N; ++j) qhi = qhi + P.PHI1[j] * qx[j];
+    }
     const long long o =
-        (static_cast<long long>(d * 4 * kZ4Faces + fm) * V + v) * ncell + cell0 + cc;
+        (static_cast<long long>(d * 4 * G::kFaces + fm) * V + v) * ncell + cell0 + cc;
     faces[o] = qlo;
     faces[o + wstride] = qhi;
     if constexpr (Sys::kFlux) {
@@ -673,7 +910,7 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
       T flo = T(0), fhi = T(0);
       if (v >= Sys::kFluxFirst) {
         const T* f = sG + S::kG + (d * Sys::kHydro + v - Sys::kFluxFirst) * S::kPts +
-                     cc * kZ4Points + base;
+                     cc * G::kPoints + base;
         flo = z4_contract<T>(P.PHI0, f, 0, st);
         fhi = z4_contract<T>(P.PHI1, f, 0, st);
       }
@@ -687,11 +924,11 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
   // blocks split each slab into consecutive runs of 2 wstride / ncell x CB
   // values, the block's share, written as full lines (its own cells' rows
   // are CB values long).
-  constexpr int kRun = 2 * kZ4Faces * V * CB;
+  constexpr int kRun = 2 * G::kFaces * V * CB;
   const long long lo = static_cast<long long>(blockIdx.x) * kRun;
   const long long n = 2 * wstride - lo < kRun ? 2 * wstride - lo : kRun;
 #pragma unroll
-  for (int d = 0; d < kDim; ++d) {
+  for (int d = 0; d < G::kAxes; ++d) {
     T* slab = faces + (static_cast<long long>(d) * 4 + 2) * wstride + lo;
     for (int e = threadIdx.x; e < n; e += NT) slab[e] = T(0);
   }
@@ -746,10 +983,10 @@ __device__ __forceinline__ void z4_face_half(const typename Sys::P& zp, const T*
 // solves the interface between the cell's high face and its +d neighbour's
 // low face once: F̂ into fhat[d][fm][v][cell] and the NCP half-fluctuation
 // into fhalf (the same layout).
-template <typename T, typename Sys>
+template <typename T, typename Sys, typename G = Z4Cell3>
 __global__ void __launch_bounds__(kTile, 8)
 aderdg_face_flux_z4(const T* __restrict__ faces, T* __restrict__ fhat, T* __restrict__ fhalf,
-                    const Z4Params<T, Sys> P) {
+                    const Z4Params<T, Sys, G::kN> P) {
   constexpr int V = Sys::kVars;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sMid = reinterpret_cast<T*>(smem_raw) + threadIdx.x;
@@ -757,15 +994,15 @@ aderdg_face_flux_z4(const T* __restrict__ faces, T* __restrict__ fhat, T* __rest
   T* sR = sDq + V * kTile;
   const TileCell tc(blockIdx.x, P.g);
   if (!tc.inside) return;  // no barrier here
-  const int d = blockIdx.y / kZ4Faces;
-  const int fm = blockIdx.y - d * kZ4Faces;
+  const int d = blockIdx.y / G::kFaces;
+  const int fm = blockIdx.y - d * G::kFaces;
   const long long ncell = P.ncell;
   const long long cell = tc.cell;
-  const long long plus = tc.neighbour(d, 1);
+  const long long plus = tc.neighbour(G::kAxis0 + d, 1);
   // faces[d][w][fm][v][cell], w = q_lo, q_hi, f_lo, f_hi (the f rows are
   // zero for a fluxless system and are not read; with a flux, its rows).
-  const T* base = faces + static_cast<long long>(d * 4 * kZ4Faces + fm) * V * ncell;
-  const long long wstride = static_cast<long long>(kZ4Faces * V) * ncell;
+  const T* base = faces + static_cast<long long>(d * 4 * G::kFaces + fm) * V * ncell;
+  const long long wstride = static_cast<long long>(G::kFaces * V) * ncell;
   T qa[V], qb[V];  // a: my high face, b: the neighbour's low face
 #pragma unroll
   for (int v = 0; v < V; ++v) {
@@ -774,7 +1011,7 @@ aderdg_face_flux_z4(const T* __restrict__ faces, T* __restrict__ fhat, T* __rest
   }
   const T s = dmax(Sys::template wave_speed<T>(qa, d, P.phys.p),
                    Sys::template wave_speed<T>(qb, d, P.phys.p));
-  const long long o = static_cast<long long>(d * kZ4Faces + fm) * V * ncell + cell;
+  const long long o = static_cast<long long>(d * G::kFaces + fm) * V * ncell + cell;
   if constexpr (Sys::kFlux) {
     // F̂ = ½ (f_hi + f⁺) − ½ s (q⁺ − q_hi): the f rows of my high face
     // (w = 3) and the neighbour's low face (w = 2) on the hydro rows; the
@@ -803,12 +1040,20 @@ aderdg_face_flux_z4(const T* __restrict__ faces, T* __restrict__ fhat, T* __rest
     }
   }
   const typename Sys::P zp = P.phys.p;
-  if (d == 0) {
-    z4_face_half<T, Sys, 0>(zp, sMid, sDq, sR, fhalf + o, ncell);
-  } else if (d == 1) {
-    z4_face_half<T, Sys, 1>(zp, sMid, sDq, sR, fhalf + o, ncell);
+  if constexpr (G::kAxes == 3) {
+    if (d == 0) {
+      z4_face_half<T, Sys, 0>(zp, sMid, sDq, sR, fhalf + o, ncell);
+    } else if (d == 1) {
+      z4_face_half<T, Sys, 1>(zp, sMid, sDq, sR, fhalf + o, ncell);
+    } else {
+      z4_face_half<T, Sys, 2>(zp, sMid, sDq, sR, fhalf + o, ncell);
+    }
   } else {
-    z4_face_half<T, Sys, 2>(zp, sMid, sDq, sR, fhalf + o, ncell);
+    if (d == 0) {
+      z4_face_half<T, Sys, 0>(zp, sMid, sDq, sR, fhalf + o, ncell);
+    } else {
+      z4_face_half<T, Sys, 1>(zp, sMid, sDq, sR, fhalf + o, ncell);
+    }
   }
 }
 
@@ -817,39 +1062,41 @@ aderdg_face_flux_z4(const T* __restrict__ faces, T* __restrict__ fhat, T* __rest
 // −λ_d (ℓ_i(1)/w_i F̂_hi − ℓ_i(0)/w_i F̂_lo), then the NCP term
 // −λ_d (ℓ_i(1)/w_i h_hi + ℓ_i(0)/w_i h_lo), the _hi values the cell's own
 // entries of fhat and fhalf, the _lo ones its −d neighbour's.
-template <typename T, typename Sys>
-__global__ void __launch_bounds__(kTile * kZ4UpdateNodes)
+template <typename T, typename Sys, typename G = Z4Cell3>
+__global__ void __launch_bounds__(kTile * G::kUpdateNodes)
 aderdg_surface_update_z4(T* __restrict__ state, const T* __restrict__ fhat,
                          const T* __restrict__ fhalf, const T* __restrict__ dt_ptr, T dt_val,
-                         const Z4Params<T, Sys> P) {
+                         const Z4Params<T, Sys, G::kN> P) {
   constexpr int V = Sys::kVars;
-  constexpr int NG = kZ4Nodes / kZ4UpdateNodes;
+  constexpr int N = G::kN;
+  constexpr int NG = G::kNodes / G::kUpdateNodes;
   const int tile_index = blockIdx.x / NG;
   const TileCell tc(tile_index, P.g);
   if (!tc.inside) return;
-  const int node = (blockIdx.x - tile_index * NG) * kZ4UpdateNodes + threadIdx.y;
+  const int node = (blockIdx.x - tile_index * NG) * G::kUpdateNodes + threadIdx.y;
   const long long ncell = P.ncell;
   const long long cell = tc.cell;
   const T dtv = dt_ptr != nullptr ? *dt_ptr : dt_val;
-  const int ix[kDim] = {node / 9, (node / 3) % 3, node % 3};
-  const int mf[kDim] = {ix[1] * kZ4N + ix[2], ix[0] * kZ4N + ix[2], ix[0] * kZ4N + ix[1]};
-  T lam[kDim], p1w[kDim], p0w[kDim];
-  long long hi[kDim], lo[kDim];  // offsets of the _hi and _lo entries of row 0
+  int ix[G::kAxes];
 #pragma unroll
-  for (int d = 0; d < kDim; ++d) {
+  for (int k = 0; k < G::kAxes; ++k) ix[k] = G::digit(node, k);
+  T lam[G::kAxes], p1w[G::kAxes], p0w[G::kAxes];
+  long long hi[G::kAxes], lo[G::kAxes];  // offsets of the _hi and _lo entries of row 0
+#pragma unroll
+  for (int d = 0; d < G::kAxes; ++d) {
     lam[d] = dtv / P.dx[d];
-    p1w[d] = select<T, kZ4N>(P.PHI1W, ix[d]);
-    p0w[d] = select<T, kZ4N>(P.PHI0W, ix[d]);
-    const long long row0 = static_cast<long long>(d * kZ4Faces + mf[d]) * V * ncell;
+    p1w[d] = select<T, N>(P.PHI1W, ix[d]);
+    p0w[d] = select<T, N>(P.PHI0W, ix[d]);
+    const long long row0 = static_cast<long long>(d * G::kFaces + G::face_node(ix, d)) * V * ncell;
     hi[d] = row0 + cell;
-    lo[d] = row0 + tc.neighbour(d, -1);
+    lo[d] = row0 + tc.neighbour(G::kAxis0 + d, -1);
   }
 #pragma unroll 2
   for (int v = 0; v < V; ++v) {
     const long long o = static_cast<long long>(node * V + v) * ncell + cell;
     T x = state[o];
 #pragma unroll
-    for (int d = 0; d < kDim; ++d) {
+    for (int d = 0; d < G::kAxes; ++d) {
       const long long w = v * ncell;
       x = x - lam[d] * (p1w[d] * fhat[hi[d] + w] - p0w[d] * fhat[lo[d] + w]);
       x = x - lam[d] * (p1w[d] * fhalf[hi[d] + w] + p0w[d] * fhalf[lo[d] + w]);
@@ -866,14 +1113,16 @@ constexpr size_t z4_face_smem() {
   return static_cast<size_t>(3 * Sys::kVars * kTile) * sizeof(T);
 }
 
-// Tiles of the face stage, or 0 if the order is not 2, the grid is empty or
-// a block index would not fit a 32-bit int.
+// Tiles of the face stage, or 0 if the order is not the cell's, the grid is
+// empty or a block index would not fit a 32-bit int.
+template <typename G = Z4Cell3>
 long long z4_face_tiles(int order, long long g0, long long g1, long long g2) {
   constexpr long long kMax = 0x7fffffffLL;
-  if (order != kZ4N - 1 || g0 <= 0 || g1 <= 0 || g2 <= 0 || g0 > kMax || g1 > kMax || g2 > kMax)
+  if (order != G::kN - 1 || g0 <= 0 || g1 <= 0 || g2 <= 0 || g0 > kMax || g1 > kMax ||
+      g2 > kMax)
     return 0;
   const long long tiles = g0 * g1 * ((g2 + kTile - 1) / kTile);
-  return tiles * (kZ4Nodes / kZ4UpdateNodes) > kMax ? 0 : tiles;
+  return tiles * (G::kNodes / G::kUpdateNodes) > kMax ? 0 : tiles;
 }
 
 template <typename Sys>
@@ -881,72 +1130,74 @@ bool z4_bad_args(int physics, const double* params) {
   return physics != Sys::kPhysics || params == nullptr || Sys::bad(params);
 }
 
-template <typename T, typename Sys>
+template <typename T, typename Sys, typename G = Z4Cell3, bool kPerAxis = false>
 Shape z4_predictor_shape() {
-  constexpr int CB = z4_cells_per_block<T, Sys>();
-  return {reinterpret_cast<const void*>(aderdg_predictor_volume_z4<T, CB, Sys>),
-          dim3(CB * kZ4Points), z4_predictor_smem<T, Sys>()};
+  constexpr int CB = z4_cells_per_block<T, Sys, G, kPerAxis>();
+  return {reinterpret_cast<const void*>(aderdg_predictor_volume_z4<T, CB, Sys, G, kPerAxis>),
+          dim3(CB * G::kPoints), z4_predictor_smem<T, Sys, G, kPerAxis>()};
 }
 
-template <typename T, typename Sys>
+template <typename T, typename Sys, typename G = Z4Cell3>
 Shape z4_face_flux_shape() {
-  return {reinterpret_cast<const void*>(aderdg_face_flux_z4<T, Sys>), dim3(kTile),
+  return {reinterpret_cast<const void*>(aderdg_face_flux_z4<T, Sys, G>), dim3(kTile),
           z4_face_smem<T, Sys>()};
 }
 
-template <typename T, typename Sys>
+template <typename T, typename Sys, typename G = Z4Cell3>
 Shape z4_surface_update_shape() {
-  return {reinterpret_cast<const void*>(aderdg_surface_update_z4<T, Sys>),
-          dim3(kTile, kZ4UpdateNodes), 0};
+  return {reinterpret_cast<const void*>(aderdg_surface_update_z4<T, Sys, G>),
+          dim3(kTile, G::kUpdateNodes), 0};
 }
 
-template <typename T, typename Sys>
+// The launchers take the grid as the face stage tiles it ((1, g0, g1) for a
+// 2-D cell, see Z4Cell).
+template <typename T, typename Sys, typename G = Z4Cell3, bool kPerAxis = false>
 int z4_predictor_volume(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
                         const double* ops, const double* dx, int order, int picard_iters,
                         int physics, const double* params, long long g0, long long g1,
                         long long g2, void* stream) {
-  constexpr int CB = z4_cells_per_block<T, Sys>();
+  constexpr int CB = z4_cells_per_block<T, Sys, G, kPerAxis>();
   static_assert(CB >= 1, "a cell's shared memory fits a block");
-  if (z4_bad_args<Sys>(physics, params) || z4_face_tiles(order, g0, g1, g2) == 0 ||
+  if (z4_bad_args<Sys>(physics, params) || z4_face_tiles<G>(order, g0, g1, g2) == 0 ||
       picard_iters < 0)
     return cudaErrorInvalidValue;
-  const auto P = make_params<T, kZ4N, Z4Physics<T, Sys>>(ops, dx, picard_iters, params, g0, g1,
-                                                          g2);
-  const Shape sh = z4_predictor_shape<T, Sys>();
-  const cudaError_t attr = allow_smem(aderdg_predictor_volume_z4<T, CB, Sys>, sh.smem);
+  const auto P = make_params<T, G::kN, Z4Physics<T, Sys>>(ops, dx, picard_iters, params, g0, g1,
+                                                           g2);
+  const Shape sh = z4_predictor_shape<T, Sys, G, kPerAxis>();
+  const cudaError_t attr = allow_smem(aderdg_predictor_volume_z4<T, CB, Sys, G, kPerAxis>, sh.smem);
   if (attr != cudaSuccess) return attr;
   const long long blocks = (P.ncell + CB - 1) / CB;
-  aderdg_predictor_volume_z4<T, CB, Sys>
+  aderdg_predictor_volume_z4<T, CB, Sys, G, kPerAxis>
       <<<static_cast<unsigned>(blocks), sh.block, sh.smem, static_cast<cudaStream_t>(stream)>>>(
           u, out, faces, dt_ptr, static_cast<T>(dt_val), P);
   return cudaGetLastError();
 }
 
-template <typename T, typename Sys>
+template <typename T, typename Sys, typename G = Z4Cell3>
 int z4_face_flux(const T* faces, T* fhat, T* fhalf, const double* ops, const double* dx,
                  int order, int physics, const double* params, long long g0, long long g1,
                  long long g2, void* stream) {
-  const long long tiles = z4_face_tiles(order, g0, g1, g2);
+  const long long tiles = z4_face_tiles<G>(order, g0, g1, g2);
   if (z4_bad_args<Sys>(physics, params) || tiles == 0) return cudaErrorInvalidValue;
-  const auto P = make_params<T, kZ4N, Z4Physics<T, Sys>>(ops, dx, 0, params, g0, g1, g2);
-  const Shape sh = z4_face_flux_shape<T, Sys>();
-  const dim3 grid(static_cast<unsigned>(tiles), kDim * kZ4Faces);
-  aderdg_face_flux_z4<T, Sys><<<grid, sh.block, sh.smem, static_cast<cudaStream_t>(stream)>>>(
+  const auto P = make_params<T, G::kN, Z4Physics<T, Sys>>(ops, dx, 0, params, g0, g1, g2);
+  const Shape sh = z4_face_flux_shape<T, Sys, G>();
+  const dim3 grid(static_cast<unsigned>(tiles), G::kAxes * G::kFaces);
+  aderdg_face_flux_z4<T, Sys, G><<<grid, sh.block, sh.smem, static_cast<cudaStream_t>(stream)>>>(
       faces, fhat, fhalf, P);
   return cudaGetLastError();
 }
 
-template <typename T, typename Sys>
+template <typename T, typename Sys, typename G = Z4Cell3>
 int z4_surface_update(T* state, const T* fhat, const T* fhalf, const T* dt_ptr, double dt_val,
                       const double* ops, const double* dx, int order, int physics,
                       const double* params, long long g0, long long g1, long long g2,
                       void* stream) {
-  const long long tiles = z4_face_tiles(order, g0, g1, g2);
+  const long long tiles = z4_face_tiles<G>(order, g0, g1, g2);
   if (z4_bad_args<Sys>(physics, params) || tiles == 0) return cudaErrorInvalidValue;
-  const auto P = make_params<T, kZ4N, Z4Physics<T, Sys>>(ops, dx, 0, params, g0, g1, g2);
-  const Shape sh = z4_surface_update_shape<T, Sys>();
-  const long long blocks = tiles * (kZ4Nodes / kZ4UpdateNodes);
-  aderdg_surface_update_z4<T, Sys>
+  const auto P = make_params<T, G::kN, Z4Physics<T, Sys>>(ops, dx, 0, params, g0, g1, g2);
+  const Shape sh = z4_surface_update_shape<T, Sys, G>();
+  const long long blocks = tiles * (G::kNodes / G::kUpdateNodes);
+  aderdg_surface_update_z4<T, Sys, G>
       <<<static_cast<unsigned>(blocks), sh.block, 0, static_cast<cudaStream_t>(stream)>>>(
           state, fhat, fhalf, dt_ptr, static_cast<T>(dt_val), P);
   return cudaGetLastError();
@@ -963,6 +1214,59 @@ int z4_info(int which, int* out) {
       return shape_info(z4_face_flux_shape<T, Sys>(), out);
     case 2:
       return shape_info(z4_surface_update_shape<T, Sys>(), out);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The vacuum system on a 2-D cell of N nodes an axis (csrc/aderdg_z4_2d*.cu):
+// the C interface's grid (g0, g1, 1) goes to the kernels as (1, g0, g1).
+using Z4Cell2P2 = Z4Cell<2, 3>;
+using Z4Cell2P3 = Z4Cell<2, 4>;
+
+template <typename T, typename G, bool kPerAxis>
+int z4_2d_predictor_volume(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
+                           const double* ops, const double* dx, int order, int picard_iters,
+                           int physics, const double* params, long long g0, long long g1,
+                           long long g2, void* stream) {
+  if (g2 != 1) return cudaErrorInvalidValue;
+  return z4_predictor_volume<T, Z4Vacuum, G, kPerAxis>(u, out, faces, dt_ptr, dt_val, ops, dx,
+                                                       order, picard_iters, physics, params, 1,
+                                                       g0, g1, stream);
+}
+
+template <typename T, typename G>
+int z4_2d_face_flux(const T* faces, T* fhat, T* fhalf, const double* ops, const double* dx,
+                    int order, int physics, const double* params, long long g0, long long g1,
+                    long long g2, void* stream) {
+  if (g2 != 1) return cudaErrorInvalidValue;
+  return z4_face_flux<T, Z4Vacuum, G>(faces, fhat, fhalf, ops, dx, order, physics, params, 1, g0,
+                                      g1, stream);
+}
+
+template <typename T, typename G>
+int z4_2d_surface_update(T* state, const T* fhat, const T* fhalf, const T* dt_ptr,
+                         double dt_val, const double* ops, const double* dx, int order,
+                         int physics, const double* params, long long g0, long long g1,
+                         long long g2, void* stream) {
+  if (g2 != 1) return cudaErrorInvalidValue;
+  return z4_surface_update<T, Z4Vacuum, G>(state, fhat, fhalf, dt_ptr, dt_val, ops, dx, order,
+                                           physics, params, 1, g0, g1, stream);
+}
+
+// Occupancy of the vacuum system's kernels on cell G: `which` 0 the fused
+// predictor, 1 face flux, 2 update, 3 the per-axis predictor.
+template <typename T, typename G>
+int z4_form_info(int which, int* out) {
+  switch (which) {
+    case 0:
+      return shape_info(z4_predictor_shape<T, Z4Vacuum, G, false>(), out);
+    case 1:
+      return shape_info(z4_face_flux_shape<T, Z4Vacuum, G>(), out);
+    case 2:
+      return shape_info(z4_surface_update_shape<T, Z4Vacuum, G>(), out);
+    case 3:
+      return shape_info(z4_predictor_shape<T, Z4Vacuum, G, true>(), out);
     default:
       return cudaErrorInvalidValue;
   }

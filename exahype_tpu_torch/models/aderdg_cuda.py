@@ -57,7 +57,11 @@ Gamma-driver, ``scripts/z4_probe.py --shift``); and on the same path with a
 conservative flux beside the NCP for the 43-variable coupled Z4+GRHD system
 (``models/z4_matter.py::make_z4_matter_solver(..., fused_rhs="soa")``,
 ``scripts/z4_probe.py --matter``) and the 47-variable coupled Z4+GRMHD one
-(``models/z4_grmhd.py::make_z4_grmhd_solver(..., fused_rhs="soa")``).  The
+(``models/z4_grmhd.py::make_z4_grmhd_solver(..., fused_rhs="soa")``); for the
+vacuum system also on its per-axis NCP path (``make_z4_solver(...,
+fused_rhs=False)``, the JAX package's default: ``ncp_fn`` and ``source_fn``
+without ``rhs_all_fn``) in 3-D at order 2, and in 2-D at orders 2 and 3,
+fused or per-axis (``examples/z4_gauge_wave.py``).  The
 step is three launches of kernels from ``csrc/aderdg.cu``,
 ``csrc/aderdg_visc.cu``, ``csrc/aderdg_z4.cu``, ``csrc/aderdg_z4_shift.cu``,
 ``csrc/aderdg_z4_matter.cu`` and ``csrc/aderdg_z4_grmhd.cu`` (see the notes
@@ -78,7 +82,12 @@ there for the design):
   2(2N+1)/dx_d·max(κ⁻, κ⁺) to the dissipation speed.
 
 Z4 (``aderdg_predictor_volume_z4``, ``aderdg_face_flux_z4``,
-``aderdg_surface_update_z4``; shifted, the same names with ``_shift``;
+``aderdg_surface_update_z4``; the per-axis predictor
+``aderdg_predictor_volume_per_axis_z4``, with the same face pair; in 2-D
+``aderdg_predictor_volume_2d_z4``, ``aderdg_predictor_volume_per_axis_2d_z4``,
+``aderdg_face_flux_2d_z4`` and ``aderdg_surface_update_2d_z4`` at order 2,
+the same with ``_p3_2d_z4`` at order 3, ``csrc/aderdg_z4_per_axis.cu``,
+``aderdg_z4_2d.cu`` and ``aderdg_z4_2d_p3.cu``; shifted, the same names with ``_shift``;
 Z4+GRHD with ``_matter``, whose predictor also carries the hydro flux's D·F
 term, its volume integral and its face projections, and whose face flux
 the Rusanov flux's ½(f_hi + f⁺) on the hydro rows; Z4+GRMHD with
@@ -92,9 +101,10 @@ writes each interface's NCP half-fluctuation into a second tensor,
 and :meth:`CudaADERDG.surface_update` takes.  A solver qualifies when its
 flux, wave speed, ``source_fn``, ``ncp_fn`` and ``rhs_all_fn`` all carry one
 ``PhysicsTag("z4", ...)`` (or ``"z4_shift"``, ``"z4_matter"``,
-``"z4_grmhd"``); any other
+``"z4_grmhd"``), ``rhs_all_fn`` unset only on the vacuum system; any other
 ``source_fn``/``ncp_fn``/``rhs_all_fn`` raises :class:`LoweringError`, and so
-do a Z4 solver without the fused hook (the per-axis NCP branch), a Z4
+do the other systems without the fused hook (their per-axis NCP branch), a
+Z4 solver with ``source_fn`` alone, their 2-D steps, a Z4
 solver with walls, and a solver whose ``rhs_all_fn`` is already on K5
 (``models.rhs_cuda.with_cuda_rhs``: these kernels compile the algebra in and
 would bypass it; build ``CudaADERDG`` on the plain solver).  On the CK
@@ -166,6 +176,8 @@ INSTANTIATED = {
     ("elastic_het", 2, 3): "ck",
     ("curvilinear_elastic", 2, 3): "ck",
     ("z4", 3, 2): "picard",
+    ("z4", 2, 2): "picard",
+    ("z4", 2, 3): "picard",
     ("z4_shift", 3, 2): "picard",
     ("z4_matter", 3, 2): "picard",
     ("z4_grmhd", 3, 2): "picard",
@@ -282,8 +294,10 @@ def _ck_sponge(solver):
 
 def _z4_refusal(solver) -> None:
     """Raise unless the solver's ``source_fn``/``ncp_fn``/``rhs_all_fn`` are
-    a fused Z4 system the kernels compile in, zero-shift, shifted or coupled
-    to matter, magnetized or not (called when any is set)."""
+    a Z4 system the kernels compile in: fused (all three set), zero-shift,
+    shifted or coupled to matter, magnetized or not, or the vacuum system's
+    per-axis NCP branch (``source_fn`` and ``ncp_fn`` without ``rhs_all_fn``)
+    (called when any is set)."""
     if isinstance(solver.rhs_all_fn, CudaRHS):
         raise LoweringError(
             "the rhs_all_fn is on K5 (models.rhs_cuda.with_cuda_rhs): the CUDA step "
@@ -297,13 +311,22 @@ def _z4_refusal(solver) -> None:
     tag = tags.pop() if len(tags) == 1 else None
     if tag is not None and tag.name in _Z4:
         missing = [name for name in CALLBACK_OPTIONS if getattr(solver, name) is None]
+        if tag.name == "z4" and missing == ["rhs_all_fn"]:
+            return  # the per-axis NCP branch (make_z4_solver(..., fused_rhs=False))
+        if "ncp_fn" in missing and solver.source_fn is not None:
+            raise LoweringError(
+                f"a {tag.name} solver with source_fn and without ncp_fn: the source_fn-only "
+                "branch of the CUDA kernels is still to port, see ROADMAP.md, Queue 2 K1 d "
+                "(the plain solver runs it)"
+            )
         if missing:
             raise LoweringError(
                 f"a {tag.name} solver without {', '.join(missing)}: the CUDA kernels carry "
-                "the fused right-hand side only (make_z4_solver, make_z4_shift_solver, "
-                "make_z4_matter_solver or make_z4_grmhd_solver(..., fused_rhs='soa')); the "
-                "per-axis NCP branch is still to port, see ROADMAP.md, Queue 2 K1 d (the "
-                "plain solver runs it)"
+                "the fused right-hand side (make_z4_solver, make_z4_shift_solver, "
+                "make_z4_matter_solver or make_z4_grmhd_solver(..., fused_rhs='soa')) and, "
+                "for the vacuum system only, the per-axis NCP branch (make_z4_solver(..., "
+                "fused_rhs=False)); the other systems' per-axis NCP branch is still to port, "
+                "see ROADMAP.md, Queue 2 K1 d (the plain solver runs it)"
             )
         return
     options = ", ".join(name for name in CALLBACK_OPTIONS if getattr(solver, name) is not None)
@@ -345,7 +368,11 @@ class CudaADERDG:
     #: whose update is 5; 34-35 of physics 0: the order-5 walled pair; 36-40
     #: and 41-45 of physics 0: the order-4 and order-7 Euler steps,
     #: ``csrc/aderdg_p4.cu`` and ``csrc/aderdg_p7.cu`` with the face stage's
-    #: n = 5 and n = 8 instances, predictor, pair, walled pair).
+    #: n = 5 and n = 8 instances, predictor, pair, walled pair; 46 of
+    #: physics 3: the vacuum Z4 system's per-axis predictor,
+    #: ``csrc/aderdg_z4_per_axis.cu``, and 47-50 and 51-54 its 2-D steps at
+    #: orders 2 and 3, ``csrc/aderdg_z4_2d.cu`` and ``aderdg_z4_2d_p3.cu``,
+    #: the fused predictor, the pair, the per-axis predictor).
     KERNELS = (
         "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
         "aderdg_surface_update", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
@@ -365,6 +392,9 @@ class CudaADERDG:
         *(f"aderdg_{kernel}_p{order}" for order in (4, 7) for kernel in (
             "predictor_volume", "face_flux", "surface_update", "face_flux_walls",
             "surface_update_walls")),
+        "aderdg_predictor_volume_per_axis_z4",
+        *(f"aderdg_{kernel}{order}_2d_z4" for order in ("", "_p3") for kernel in (
+            "predictor_volume", "face_flux", "surface_update", "predictor_volume_per_axis")),
     )
 
     def __init__(self, solver: ADERDGSolver):
@@ -375,7 +405,7 @@ class CudaADERDG:
             _z4_refusal(solver)
         viscous = any(getattr(solver, option) is not None for option in VISCOUS_OPTIONS)
         names = (("flux_fn", "max_eigenvalue_fn") + (VISCOUS_OPTIONS if viscous else ())
-                 + (CALLBACK_OPTIONS if ncp else ()))
+                 + tuple(o for o in CALLBACK_OPTIONS if ncp and getattr(solver, o) is not None))
         tags = {getattr(getattr(solver, name), "physics", None) for name in names}
         tag = tags.pop() if len(tags) == 1 else None
         if viscous and (tag is None or tag.name != "navier_stokes"):
@@ -399,6 +429,7 @@ class CudaADERDG:
             )
         # (The Z4 systems are 3-D; on a 2-D grid their tags keep dim 3, and
         # the instantiation check below names the missing (dim, order).)
+        per_axis = ncp and solver.rhs_all_fn is None
         if tag is None or tag.name not in _PHYSICS or (
                 tag.dim != solver.dim and tag.name not in _Z4):
             raise LoweringError(
@@ -423,6 +454,8 @@ class CudaADERDG:
         key = (tag.name, solver.dim, solver.order)
         if key not in INSTANTIATED:
             item = "Queue 2 K2 b" if tag.name in _ELASTIC else "Queue 1 item 4"
+            if tag.name in _Z4 and tag.name != "z4" and solver.dim == 2:
+                item += " (this system's 2-D step: Queue 2 K1 d)"
             raise LoweringError(
                 f"no CUDA kernel instantiated for {tag.name}, dim={solver.dim}, "
                 f"order={solver.order} (have {sorted(INSTANTIATED)}); see ROADMAP.md, "
@@ -450,8 +483,10 @@ class CudaADERDG:
             )
         # Orders 4, 5 and 7 (Euler) and 2 (the 3-D elasticity) have kernels
         # of their own, named with the order; Euler's face stage has its wall
-        # pair at each of them, the elasticity's is periodic only.
-        order_suffix = "" if solver.order == 3 or ncp else f"_p{solver.order}"
+        # pair at each of them, the elasticity's is periodic only.  The Z4
+        # kernels' own order is 2; the 2-D vacuum step's order 3 has its own.
+        default_order = 2 if ncp else 3
+        order_suffix = "" if solver.order == default_order else f"_p{solver.order}"
         if order_suffix and walled and tag.name in _ELASTIC:
             raise LoweringError(
                 f"the CUDA face stage of the 3-D elasticity ({tag.name}) at order "
@@ -480,6 +515,9 @@ class CudaADERDG:
         #: Whether the step carries the fused NCP right-hand side (Z4): the
         #: face flux kernel then also returns the NCP half-fluctuations.
         self.ncp = ncp
+        #: Whether the NCP is the per-axis branch (the vacuum Z4 system without
+        #: ``rhs_all_fn``: its own predictor, the same face stage).
+        self.per_axis = per_axis
         #: The sponge the CK predictor compiles in (K2 a), or None; its σ
         #: goes to the kernel per cell, by dtype and device in ``_sigma``.
         self.sponge = sponge
@@ -499,6 +537,8 @@ class CudaADERDG:
         predictor = "aderdg_ck_predictor_volume" if mode == "ck" else "aderdg_predictor_volume"
         if sponge is not None:
             predictor += "_sponge"
+        if per_axis:
+            predictor += "_per_axis"
         self.kernels = (
             predictor + ("_visc" if viscous else "") + order_suffix + dim_suffix,
             f"aderdg_face_flux{suffix}{order_suffix}{dim_suffix}",
@@ -513,7 +553,9 @@ class CudaADERDG:
             ops.D.ravel(), ops.K1inv.ravel(), ops.Kvol.ravel(), ops.weights,
             ops.phi0, ops.phi1, ops.phi0 / ops.weights, ops.phi1 / ops.weights,
         ]), dtype=np.float64)
-        self._dx = np.ascontiguousarray(solver._dxs, dtype=np.float64)
+        # Three entries: the kernels' parameter bank has dx of three axes.
+        self._dx = np.ascontiguousarray(
+            tuple(solver._dxs) + (1.0,) * (3 - solver.dim), dtype=np.float64)
 
     def _wall_description(self, sol) -> dict:
         """``mask`` (bit d: axis d walled), ``mode``, ``table`` (float64

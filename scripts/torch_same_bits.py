@@ -58,6 +58,12 @@ compares their outputs bit for bit:
   call on the 2-D gauge wave with the same noise at ``(8, 6)`` in float64
   and ``(64, 32)`` in float32), reported as new against a checkout without
   them;
+- where the checkout has them, K1 d's per-axis predictor (3-D p2) and the
+  2-D vacuum Z4 steps at orders 2 and 3, fused and per-axis (``K1 d
+  forms``: the noisy gauge wave at ``(8, 4, 16)`` and ``(8, 6)`` in float64
+  and ``(16, 16, 128)`` and ``(64, 32)`` in float32: the predictor's
+  ``new`` and ``faces``, the face flux's F̂ and NCP halves, three chained
+  steps), reported as new against a checkout without them;
 - the limiter's subcell sweep K3 (``subcell_row_sweep``, 3-D p3 Euler) on
   a seeded gathered batch ``[7, 7, 7, 5, 8, 16]`` with 5 of 8 slots active,
   each direction, in float64 and float32, and where the checkout has it K3
@@ -69,8 +75,10 @@ Then it disassembles both libraries (``cuobjdump -sass``) and compares the
 instructions of every kernel the two have in common (matched by name, value
 type, the first integer template argument, which is the node count of the
 ADER-DG kernels of ``csrc/aderdg.cu``, and for the Z4 step's kernels the
-system, ``Z4Vacuum``, ``Z4Shift``, ``Z4Matter`` or ``Z4Grmhd``, whatever
-template arguments were added since; K2 a, the CK predictor's
+system, ``Z4Vacuum``, ``Z4Shift``, ``Z4Matter`` or ``Z4Grmhd``, and their
+cell and branch where it is not the 3-D fused one (``Z4Cell<2, N>``, the
+per-axis predictor: those are new), whatever template arguments were added
+since; K2 a, the CK predictor's
 ``SpongeSource`` instance, K2 b's ``Elastic3D``/``Elastic2D`` instances and
 the heterogeneous elasticity's ``ElasticHetPhysics`` instances by that
 argument), ignoring addresses and encodings; K2 b.1's instances (over
@@ -127,7 +135,8 @@ NEW = ("Z4Grmhd", "rhs_all_z4_grmhd", "Z4+GRMHD", "aderdg_predictor_volume_st",
        "NavierStokes2D", "subcell_row_sweep_ncp", "K3 a Z4+GRHD", "SpongeSource",
        "CK sponge", "Elastic3D", "Elastic2D", "aderdg_ck_predictor_nodes", "ElasticHet2D",
        "CurvilinearElastic", "K2 b.1", "aderdg_face_flux_exchanged", "K1 e",
-       "rhs_all_z4_2d", "K5 b", "K1 c order 4", "K1 c order 7", "K1 c walled")
+       "rhs_all_z4_2d", "K5 b", "K1 c order 4", "K1 c order 7", "K1 c walled",
+       "K1 d forms")
 #: The node counts of the face stage's Euler-only instances (orders 4, 5,
 #: 7); the walled pair was instantiated at order 3 only before.
 NEW_NODES = ("5", "6", "8")
@@ -136,6 +145,9 @@ NEW_NODES = ("5", "6", "8")
 #: (kernel, system, first integer template argument).
 NEW_INSTANCES = {(name, "ElasticHetPhysics", "3") for name in (
     "aderdg_ck_predictor_nodes", "aderdg_face_flux", "aderdg_surface_update")}
+#: The cell and branch of a Z4 step kernel (``csrc/aderdg_z4.cuh``'s ``Z4Cell<DIM,
+#: N>`` and the predictor's ``kPerAxis``), where its name carries them.
+_Z4_FORM = re.compile(r"Z4CellILi(\d+)ELi(\d+)EEE(Lb1E)?")
 _KERNEL_NAME = re.compile(r"(\d+)(" + "|".join(sorted(SASS_KERNELS, key=len, reverse=True))
                           + r")I([fd])(?:Li(\d+)E)?")
 
@@ -365,6 +377,26 @@ if "exahype_rhs_all_z4_2d_f64" in _build._SIGNATURES:  # K5 b, the 2-D vacuum Z4
         rec.rhs_all_fn = first
         rec.predictor_volume(u, 1e-4)
         results[f"K5 b {grid} {dtype} {k5.kernel} Picard call 1"] = calls[0].cpu()
+from exahype_tpu_torch.models.aderdg_cuda import INSTANTIATED
+if ("z4", 2, 2) in INSTANTIATED:  # K1 d's per-axis branch and the 2-D vacuum steps
+    for dim, order, fused, grid, dtype in (
+            (3, 2, False, (8, 4, 16), torch.float64), (3, 2, False, (16, 16, 128), torch.float32),
+            *((2, order, fused, grid, dtype) for order in (2, 3) for fused in (False, "soa")
+              for grid, dtype in (((8, 6), torch.float64), ((64, 32), torch.float32)))):
+        sol = make_z4_solver(dim, order, grid, dx=1.0 / 128, impl="soa", fused_rhs=fused,
+                             device="cuda", dtype=dtype)
+        cu = CudaADERDG(sol)
+        u = gauge_wave_state(sol, amplitude=0.1)
+        noise = torch.from_numpy(np.random.default_rng(5).standard_normal(u.shape)).to(u)
+        u = (u + 1e-3 * noise).contiguous()
+        new, faces = cu.predictor_volume(u, 1e-4)[:2]
+        fhat, fhalf = cu.face_flux(faces)
+        key = f"K1 d forms {dim}-D p{order} fused_rhs={fused} {grid} {dtype}"
+        results[key + " predictor new"] = new.cpu()
+        results[key + " predictor faces"] = faces.cpu()
+        results[key + " face flux fhat"] = fhat.cpu()
+        results[key + " face flux fhalf"] = fhalf.cpu()
+        results[key + " 3 steps"] = cu.run(u, 3, 1e-4).cpu()
 from exahype_tpu_torch.models import subcell_cuda
 from exahype_tpu_torch.models.limiter import LimitedADERDG
 def batch(shape, seed, nvar):
@@ -415,12 +447,13 @@ def run(root: pathlib.Path, out: pathlib.Path) -> dict:
 
 def sass(library: str) -> dict:
     """``{(kernel, value type, system, first integer template argument,
-    k): [instruction, ...]}`` of the kernels of :data:`SASS_KERNELS` in
+    form, k): [instruction, ...]}`` of the kernels of :data:`SASS_KERNELS` in
     ``library`` (system: the Z4 step kernels' :data:`SYSTEMS` template
-    argument, else ""; the integer "" if there is none; k numbers the
-    instances of one kernel, value type, system and integer in the order of
-    their mangled names): each instruction's text without its address and
-    encoding."""
+    argument, else ""; the integer "" if there is none; form: a Z4 step
+    kernel's cell and branch other than the 3-D fused one, else ""; k
+    numbers the instances of one kernel, value type, system, integer and
+    form in the order of their mangled names): each instruction's text
+    without its address and encoding."""
     sys.path.insert(0, str(HERE))
     from exahype_tpu_torch import _build
 
@@ -435,7 +468,11 @@ def sass(library: str) -> dict:
             code = None
             if m and m.group(1).endswith(str(len(m.group(2)))):
                 system = next((s for s in SYSTEMS if s in fn), "")
-                key = (m.group(2), m.group(3), system, m.group(4) or "")
+                form = _Z4_FORM.search(fn)
+                form = "" if form is None or form.groups() == ("3", "3", None) else (
+                    f"{form.group(1)}-D n={form.group(2)}"
+                    + (" per-axis" if form.group(3) else ""))
+                key = (m.group(2), m.group(3), system, m.group(4) or "", form)
                 code = found.setdefault(key, {}).setdefault(fn, [])
             continue
         if code is None or "/*" not in line or ";" not in line:
@@ -477,12 +514,13 @@ def main():
     for key in sorted(set(code_mine) | set(code_theirs)):
         a, b = code_mine.get(key), code_theirs.get(key)
         label = (f"{key[0]} ({'float' if key[1] == 'f' else 'double'}"
-                 f"{', ' + key[2] if key[2] else ''}{', ' + key[3] if key[3] else ''}, "
-                 f"instance {key[4]})")
+                 f"{', ' + key[2] if key[2] else ''}{', ' + key[3] if key[3] else ''}"
+                 f"{', ' + key[4] if key[4] else ''}, instance {key[5]})")
         new_nodes = key[3] in NEW_NODES and key[0] in (
             "aderdg_face_flux", "aderdg_surface_update", "aderdg_face_flux_walls",
             "aderdg_surface_update_walls")
         new_nodes |= (key[0], key[2], key[3]) in NEW_INSTANCES
+        new_nodes |= bool(key[4])  # a Z4 cell or branch beside the 3-D fused one
         if b is None and (new_nodes or any(n in key[0] or n == key[2] for n in NEW)):
             print(f"[same sass] {label}: {len(a)} instructions, new in this checkout")
             continue

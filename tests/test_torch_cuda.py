@@ -2072,6 +2072,126 @@ def test_z4_kernel_info_and_refusals():
                              fhalf=torch.zeros(1, device=u.device))
 
 
+# ---------------- K1 d's per-axis branch (3-D p2) and the 2-D vacuum steps (p2, p3)
+
+
+#: (dim, order, fused_rhs) of the vacuum forms on the per-axis and 2-D kernels.
+Z4_FORMS = [(3, 2, False), (2, 2, False), (2, 2, "soa"), (2, 3, False), (2, 3, "soa")]
+Z4_FORM_IDS = ["3d_p2_per_axis", "2d_p2_per_axis", "2d_p2_fused", "2d_p3_per_axis",
+               "2d_p3_fused"]
+
+
+def _z4_form_setup(dim, order, fused, dtype, grid=None):
+    """The vacuum Z4 solver of one form on the card (dx = 1/64), its
+    ``CudaADERDG`` and the gauge wave of amplitude 0.1 with seeded noise of
+    1e-3; the grid ragged in the last predictor block and face tile by
+    default."""
+    from exahype_tpu_torch.models.z4 import gauge_wave_state, make_z4_solver
+
+    dev = _card()
+    grid = grid or ((3, 5, 7) if dim == 3 else (7, 37))
+    sol = make_z4_solver(dim, order, grid, dx=1.0 / 64, impl="soa", fused_rhs=fused, device=dev,
+                         dtype=dtype)
+    u = gauge_wave_state(sol, amplitude=0.1)
+    noise = np.random.default_rng(7).standard_normal(u.shape)
+    return sol, CudaADERDG(sol), (u + 1e-3 * torch.from_numpy(noise).to(u)).contiguous()
+
+
+def _z4_form_halves(sol, faces):
+    """The plain face flux kernel's two outputs, ``[dim, n^(dim-1), 38, *grid]``."""
+    fs = sol.face_flux_shape
+    parts = [[faces[d, k].reshape(fs) for k in range(4)] for d in range(sol.dim)]
+    shape = (sol.dim, sol.n_nodes ** (sol.dim - 1), sol.n_vars) + sol.grid_shape
+    return (torch.stack([sol.interface_flux(*parts[d], d) for d in range(sol.dim)]).reshape(shape),
+            torch.stack([sol.ncp_half(*parts[d], d) for d in range(sol.dim)]).reshape(shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("dim,order,fused", Z4_FORMS, ids=Z4_FORM_IDS)
+def test_z4_form_kernels_match_plain(dim, order, fused, dtype):
+    """Each kernel of the per-axis and 2-D forms against its plain version,
+    fed the plain inputs (float32 NCP halves against plain float64 from the
+    same faces, as ``test_z4_kernels_match_plain`` holds them)."""
+    from exahype_tpu_torch.models.z4 import make_z4_solver
+
+    sol, cu, u = _z4_form_setup(dim, order, fused, dtype)
+    dt = 1e-4
+    new_k, faces_k, _ = cu.predictor_volume(u, dt)
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    fhat_k, fhalf_k = cu.face_flux(faces_p)
+    fhat_p, fhalf_p = _z4_form_halves(sol, faces_p)
+    upd_k = cu.surface_update(new_p.clone(), fhat_p.contiguous(), dt,
+                              fhalf=fhalf_p.contiguous())
+    upd_p = new_p
+    for d in range(dim):
+        upd_p = sol.surface_term(upd_p, fhat_p[d].view(sol.face_flux_shape), d, dt)
+        upd_p = sol.ncp_term(upd_p, fhalf_p[d].view(sol.face_flux_shape), d, dt)
+    torch.cuda.synchronize()
+    for a, b in ((new_k, new_p), (faces_k, faces_p), (fhat_k, fhat_p), (upd_k, upd_p)):
+        assert _err(a, b) <= _z4_bound(b, dtype)
+    if dtype == torch.float64:
+        assert _err(fhalf_k, fhalf_p) <= _z4_bound(fhalf_p, dtype)
+    else:
+        sol64 = make_z4_solver(dim, order, sol.grid_shape, dx=sol._dxs[0], impl="soa",
+                               fused_rhs=fused, device=u.device, dtype=torch.float64)
+        ref64 = _z4_form_halves(sol64, faces_p.double())[1]
+        limit = max(4 * _err(fhalf_p, ref64), _bound(ref64, torch.float32))
+        assert limit < 0.1 * ref64.abs().max().item()
+        assert _err(fhalf_k, ref64) <= limit
+    assert not faces_k[:, 2:].any()
+    assert cu.launches == {name: 1 for name in cu.kernels}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,order,fused", Z4_FORMS, ids=Z4_FORM_IDS)
+def test_z4_form_steps_launch_three_kernels(dim, order, fused):
+    """Two steps: 3 launches a step, bitwise repeatable, within the bar of
+    the plain steps; the occupancy query answers for each kernel."""
+    sol, cu, u = _z4_form_setup(dim, order, fused, torch.float64)
+    cu.reset_launches()
+    got = cu.run(u, 2, 1e-4)
+    assert cu.launches == {name: 2 for name in cu.kernels}
+    assert torch.equal(got, cu.run(u, 2, 1e-4))
+    ref = sol.run(u, 2, 1e-4)
+    assert _err(got, ref) <= _z4_bound(ref, torch.float64)
+    for dtype in (torch.float32, torch.float64):
+        for name in cu.kernels:
+            info = cu.kernel_info(name, dtype)
+            assert info["blocks_per_sm"] >= 1 and info["registers"] > 0, (name, dtype, info)
+
+
+@pytest.mark.cuda
+def test_z4_example_chip_run_fails_in_float32():
+    """``examples/z4_gauge_wave.py``'s chip configuration ((64, 2) cells,
+    order 3, per-axis, 256 steps to t = 0.1) on the kernels: in float64
+    within its chip gates, in float32 over them, as in the JAX package and
+    the port's plain path (ROADMAP.md Queue 3: a mode seeded by float32
+    rounding grows ~8 % a step); the float32 kernel path two steps from the
+    plain one within the float32 bar."""
+    from exahype_tpu_torch.models.z4 import gauge_wave_state, make_z4_solver, solver_constraints
+
+    dev = _card()
+    sol64 = make_z4_solver(2, 3, (64, 2), dx=1.0 / 64, device=dev, dtype=torch.float64)
+    readings = {}
+    for dtype in (torch.float64, torch.float32):
+        sol = make_z4_solver(2, 3, (64, 2), dx=1.0 / 64, device=dev, dtype=dtype)
+        cu = CudaADERDG(sol)
+        u0 = gauge_wave_state(sol, amplitude=0.01)
+        u = cu.run(u0, 256, 0.1 / 256)
+        exact = gauge_wave_state(sol64, t=0.1, amplitude=0.01)
+        H, M = solver_constraints(sol64, u.double())
+        readings[dtype] = ((u.double() - exact).pow(2).mean().sqrt().item(),
+                           max(H.abs().max().item(), M.abs().max().item()))
+        if dtype == torch.float32:
+            ref = sol.run(u0, 2, 0.1 / 256)
+            assert _err(cu.run(u0, 2, 0.1 / 256), ref) <= 2 * _bound(ref, dtype)
+    err64, c64 = readings[torch.float64]
+    err32, c32 = readings[torch.float32]
+    assert err64 < 5e-4 and c64 < 1e-3, readings
+    assert c32 > 1e-3, readings
+
+
 # ------------------------- the shifted system: K5 c and K1 d's 53-variable instance
 
 

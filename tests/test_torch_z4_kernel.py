@@ -197,8 +197,10 @@ def test_pallas_aderdg_crosses_to_cuda_aderdg(jax_run):
 
 
 def test_refuses_the_per_axis_ncp_branch():
+    """The per-axis NCP branch is on the card for the vacuum system only
+    (``tests/test_torch_z4_2d.py``); the shifted system's still raises."""
     with pytest.raises(LoweringError, match="per-axis NCP branch.*Queue 2 K1 d"):
-        CudaADERDG(tz.make_z4_solver(3, 2, (2, 2, 2), dx=DX, impl="soa", device="cpu"))
+        CudaADERDG(tz.make_z4_shift_solver(3, 2, (2, 2, 2), dx=DX, impl="soa", device="cpu"))
 
 
 def test_refuses_a_solver_already_on_k5():
@@ -216,12 +218,23 @@ def test_refuses_walls():
         CudaADERDG(sol)
 
 
-@pytest.mark.parametrize("dim,order", [(3, 3), (2, 2)])
+@pytest.mark.parametrize("dim,order", [(3, 3), (2, 4)])
 def test_refuses_other_dims_and_orders(dim, order):
     sol = tz.make_z4_solver(dim, order, (2,) * dim, dx=DX, impl="soa", fused_rhs="soa",
                             device="cpu")
     with pytest.raises(LoweringError, match=f"z4, dim={dim}, order={order}.*Queue 1 item 4"):
         CudaADERDG(sol)
+
+
+@pytest.mark.parametrize("order", [2, 3])
+def test_accepts_the_2d_orders(order):
+    """The fused 2-D solver at orders 2 and 3 has kernels of its own
+    (``csrc/aderdg_z4_2d.cu``, ``aderdg_z4_2d_p3.cu``)."""
+    cu = CudaADERDG(tz.make_z4_solver(2, order, (2, 2), dx=DX, impl="soa", fused_rhs="soa",
+                                      device="cpu"))
+    suffix = "" if order == 2 else "_p3"
+    assert cu.kernels == tuple(f"aderdg_{k}{suffix}_2d_z4" for k in (
+        "predictor_volume", "face_flux", "surface_update")) and not cu.per_axis
 
 
 def _swap(sol, **callbacks):
