@@ -294,6 +294,25 @@ steps of the multichip phase), in this order:
   reading (over the gates in both packages: ROADMAP.md Queue 3), and in
   its CPU configuration (8 cells, 32 steps, float64) against its CPU
   gates, each one step against the plain path.
+- **Z4+GRHD per-axis and 2-D**: the coupled system as the JAX package
+  builds it by default (``make_z4_matter_solver(..., fused_rhs=False)``,
+  ``exahype_tpu/models/z4_matter.py:305-357``) in 3-D and 2-D, and its fused
+  2-D step, order 2, geodesic slicing — through ``CudaADERDG``: K1 d's
+  per-axis predictor with the hydro flux on the 3-D cell
+  (``csrc/aderdg_z4_matter_per_axis.cu``) with the fused Z4+GRHD step's
+  face pair on ``Z4_GRID``, and the 2-D step, fused and per-axis
+  (``csrc/aderdg_z4_matter_2d.cu``) on ``Z4F_GRID``, 3 launches a step, 5
+  steps from the perturbed FLRW slice, dt = 1e-4, float32; and K5 b's
+  Z4+GRHD instance (``rhs_all_z4_matter_2d``) under the 2-D fused
+  solver's ``with_cuda_rhs`` route.  Each kernel is held to its plain
+  version on a moving fluid with seeded noise on every Z4 slot in float64
+  on ``Z4F_CUT`` (3-D: ``Z4_CUT``) in ``Z4M_FAMILIES`` and in float32 at
+  full width; the steps repeat bitwise; the 3-D per-axis step is timed
+  beside the fused one and the 2-D fused step beside one eager K5 b step
+  on the same state.  ``examples/flrw_cosmology.py`` (2-D, per-axis, its
+  FLRW universe, 100 steps to t = 0.5) runs on its ``(4, 4)`` and on ``(256,
+  256)`` at its dx and dt, its bars (``Z4MX_BARS``) gated in float64 and
+  read in float32, each one step against the plain path.
 - **multichip**: the sharded steps of ``exahype_tpu_torch/parallel/shard.py``
   (the twin of the JAX package's ``shard_map`` steps, ``__graft_entry__.py::
   dryrun_multichip``'s configurations at the bench's widths).  K1 e
@@ -914,6 +933,29 @@ Z4X_T = 0.1
 Z4X_AMPLITUDE = 0.01
 #: Steps of the plain path beside the kernels on the example's grids.
 Z4X_PLAIN_STEPS = 1
+#: The Z4+GRHD system on K1 d's per-axis branch with its flux and on the 2-D
+#: kernels: the JAX package's default build (``make_z4_matter_solver(...,
+#: fused_rhs=False)``, ``exahype_tpu/models/z4_matter.py:305-357``) in 3-D
+#: and 2-D, and its fused 2-D step, at order 2, in the matter path's gauge
+#: (``Z4M_PARAMS``: geodesic slicing, Γ = 5/3, 10 Newton trips); the 3-D
+#: per-axis step on ``Z4_GRID`` at dx = 1/128, the 2-D steps on ``Z4F_GRID``
+#: at dx = 1/256; held to the plain stages on ``z4m_noisy`` states (f64 on
+#: ``Z4_CUT`` and ``Z4F_CUT`` in ``Z4M_FAMILIES``, f32 at full width),
+#: run and timed from the perturbed FLRW slice (``z4m_flrw``, the sine along
+#: the last grid axis), dt = ``Z4_DT``, ``Z4F_STEPS`` steps a form.
+Z4MF_FORMS = ((3, False), (2, False), (2, "soa"))
+#: ``examples/flrw_cosmology.py`` (``:36-50, 66-68``): 2-D, order 2,
+#: per-axis, geodesic slicing, Γ = 5/3, the homogeneous FLRW universe (ρ₀ =
+#: 0.02, ε₀ = 0.4, a = 1) at dx = 0.25, 100 steps to t = 0.5, on its own (4,
+#: 4) cells and on the chip grid (256, 256) (the same dx and dt, so the
+#: homogeneous universe keeps its CFL); its bars (a² = γ_xx against the
+#: Friedmann reference, D̃ against ρ₀, |Θ|, |Z|), gated in float64, read in
+#: float32.
+Z4MX_GRIDS = ((4, 4), (256, 256))
+Z4MX_DX = 0.25
+Z4MX_T = 0.5
+Z4MX_STEPS = 100
+Z4MX_BARS = dict(a2=1e-7, Dt=1e-9, theta=1e-9, Z=1e-9)
 #: K5's float32 bound is ``F32_ULPS`` spacings of max|plain|, as for the
 #: other kernels: on this state the plain float32 evaluation of each of a
 #: step's five calls is within 1.2-2.3 spacings of max|plain| of the float64
@@ -4878,7 +4920,7 @@ def z4_kernel_work(order: int, picard_iters: int, ncell: int, itemsize: int, ful
       Bytes: the state read and written, F̂ and the halves read.
 
     With a conservative flux on ``hydro`` rows (Z4+GRHD: 5, Z4+GRMHD: 9;
-    their three axes' rows cost ``flux_ops`` at a point beside the recovery
+    their ``dim`` axes' rows cost ``flux_ops`` at a point beside the recovery
     the algebra's count holds): per iteration and point the flux and its D·F terms (a
     3-point contraction, the λ w product and the difference: 7 a row and
     axis); in the epilogue the flux at every point, F̄ (5 a row, axis and
@@ -4905,8 +4947,8 @@ def z4_kernel_work(order: int, picard_iters: int, ncell: int, itemsize: int, ful
                                 + nodes * v * n * 5)
                 + pts * zero + nodes * volume + nodes * v * new_ops + nodes * dim * gs * 6
                 + fn * v * 2 * 5)
-    pred_ops += (picard_iters * pts * (flux_ops + hydro * 3 * 7) + pts * flux_ops
-                 + nodes * hydro * 3 * (5 + 8) + fn * hydro * 2 * 5)
+    pred_ops += (picard_iters * pts * (flux_ops + hydro * dim * 7) + pts * flux_ops
+                 + nodes * hydro * dim * (5 + 8) + fn * hydro * 2 * 5)
     flux_ops = fn * (2 * eig_ops + 1 + v * 7 + zero + one_axis + 2 * hydro)
     update_ops = nodes * v * dim * 10
     names = names or tuple(f"aderdg_{k}_{suffix}"
@@ -5563,9 +5605,6 @@ def z4_shift_path(torch, dev, card) -> list[dict]:
     idle, busy, wall = idle_share(torch, lambda: cu.run(u0, 20, Z4_DT))
     say(f"[z4s idle] CudaADERDG path, 20 steps under torch.profiler: device busy {busy!r} ms of "
         f"wall {wall!r} ms; idle share {idle!r} ({card})")
-    idle, busy, wall = idle_share(torch, lambda: kern.step(u0, Z4_DT))
-    say(f"[z4s idle] with_cuda_rhs path, 1 step under torch.profiler: device busy {busy!r} ms "
-        f"of wall {wall!r} ms; idle share {idle!r} ({card})")
     say(f"[z4s mem] peak allocated over {STEPS} steps: CudaADERDG path {d_peak * gib:.4f} GiB, "
         f"with_cuda_rhs path {peak * gib:.4f} GiB, plain path {plain_peak * gib:.4f} GiB "
         f"({card})")
@@ -5637,13 +5676,14 @@ def z4m_integral(torch, sol, u, slot: int) -> float:
 def z4m_flrw(torch, sol, rho0=Z4M_RHO0, eps0=Z4M_EPS0, perturb=True):
     """``examples/flrw_cosmology.py``'s FLRW slice at a = 1 on ``sol`` (its
     dtype and device), with ``scripts/z4_probe.py --matter``'s perturbation
-    of D̃ and τ̃ along grid axis 2 where ``perturb``; and ȧ."""
+    of D̃ and τ̃ along the last grid axis (axis 2 in 3-D) where
+    ``perturb``; and ȧ."""
     from exahype_tpu_torch.models.z4_matter import flrw_state
 
     adot = math.sqrt(8.0 * math.pi * rho0 * (1.0 + eps0) / 3.0)
     u = flrw_state(sol, 1.0, adot, rho0=rho0, eps0=eps0)
     if perturb:
-        g2 = sol.grid_shape[2]
+        g2 = sol.grid_shape[-1]
         pert = 1.0 + Z4M_PERT * torch.sin(
             2.0 * math.pi * torch.arange(g2, dtype=torch.float64) / g2)
         for slot in (38, 42):
@@ -5938,9 +5978,6 @@ def z4_matter_path(torch, dev, card) -> list[dict]:
     idle, busy, wall = idle_share(torch, lambda: cu.run(u0, 20, Z4_DT))
     say(f"[z4m idle] CudaADERDG path, 20 steps under torch.profiler: device busy {busy!r} ms of "
         f"wall {wall!r} ms; idle share {idle!r} ({card})")
-    idle, busy, wall = idle_share(torch, lambda: kern.step(u0, Z4_DT))
-    say(f"[z4m idle] with_cuda_rhs path, 1 step under torch.profiler: device busy {busy!r} ms "
-        f"of wall {wall!r} ms; idle share {idle!r} ({card})")
     say(f"[z4m mem] peak allocated over {STEPS} steps: CudaADERDG path {d_peak * gib:.4f} GiB, "
         f"with_cuda_rhs path {peak * gib:.4f} GiB, plain path {plain_peak * gib:.4f} GiB "
         f"({card})")
@@ -6589,9 +6626,6 @@ def z4_grmhd_path(torch, dev, card) -> list[dict]:
     idle, busy, wall = idle_share(torch, lambda: cu.run(u0, 20, Z4_DT))
     say(f"[z4g idle] CudaADERDG path, 20 steps under torch.profiler: device busy {busy!r} ms of "
         f"wall {wall!r} ms; idle share {idle!r} ({card})")
-    idle, busy, wall = idle_share(torch, lambda: kern.step(u0, Z4_DT))
-    say(f"[z4g idle] with_cuda_rhs path, 1 step under torch.profiler: device busy {busy!r} ms "
-        f"of wall {wall!r} ms; idle share {idle!r} ({card})")
     say(f"[z4g mem] peak allocated: CudaADERDG path over {STEPS} steps {d_peak * gib:.4f} GiB, "
         f"with_cuda_rhs path over {Z4_EAGER_STEPS} {peak * gib:.4f} GiB, plain path over "
         f"{Z4_EAGER_STEPS} {plain_peak * gib:.4f} GiB ({card})")
@@ -6842,6 +6876,277 @@ def z4_forms_path(torch, dev, card) -> list[dict]:
     if missing:
         fail(f"kernels of the per-axis and 2-D Z4 path never launched: {missing}")
     return lines
+
+
+def z4m_forms_path(torch, dev, card) -> list[dict]:
+    """The Z4+GRHD step as the JAX package builds it by default (the
+    per-axis NCP, ``fused_rhs=False``) in 3-D and 2-D, and its fused 2-D
+    step, through ``CudaADERDG``: K1 d's per-axis predictor with the flux on
+    the 3-D cell (``csrc/aderdg_z4_matter_per_axis.cu``, with the fused
+    Z4+GRHD step's face pair) and the 2-D step at order 2, fused and
+    per-axis (``csrc/aderdg_z4_matter_2d.cu``); K5 b's Z4+GRHD instance
+    (``rhs_all_z4_matter_2d``) under the 2-D fused solver's ``with_cuda_rhs``
+    route; ``examples/flrw_cosmology.py`` in its configuration and on its
+    chip grid.  Returns their lines of the kernel JSON."""
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+    from exahype_tpu_torch.models.z4_matter import (
+        flrw_reference,
+        flrw_state,
+        make_z4_matter_solver,
+    )
+
+    def make(form, grid, dtype, dx, params=Z4M_PARAMS):
+        dim, fused = form
+        return make_z4_matter_solver(dim, Z4_ORDER, grid, dx=dx, fused_rhs=fused, device=dev,
+                                     dtype=dtype, **params)
+
+    def label(form):
+        dim, fused = form
+        return f"Z4+GRHD {dim}-D p2 {'fused' if fused else 'per-axis'}"
+
+    t0 = time.perf_counter()
+
+    def phase(what):
+        say(f"[z4mf] {what}: {time.perf_counter() - t0:.1f} s into the path (host clock)")
+
+    # ------------------------------------------- kernels vs plain, float64, cut grids
+    k5_err = 0.0
+    for params in Z4M_FAMILIES:  # the path's own parameters: float32 at full width below
+        for form in Z4MF_FORMS:
+            grid, dx = (Z4F_CUT, Z4F_CUT_DX) if form[0] == 2 else (Z4_CUT, Z4_DX)
+            sol64 = make(form, grid, torch.float64, dx, params)
+            u = z4m_noisy(torch, sol64)
+            z4_kernel_parity(torch, sol64, CudaADERDG(sol64), u, Z4_DT, f"{label(form)} {params}",
+                             tag="z4mf")
+            if form == (2, "soa"):  # K5 b on every call of a step
+                k5 = with_cuda_rhs(sol64).rhs_all_fn
+                for i, (Q, grads, va) in enumerate(z4_rhs_calls(sol64, u, Z4_DT)):
+                    got, again = k5(Q, grads, va), k5(Q, grads, va)
+                    ref = sol64.rhs_all_fn(Q, grads, va)
+                    torch.cuda.synchronize()
+                    err = max_err(torch, got, ref)
+                    limit = Z4_F64_RTOL * max(1.0, ref.abs().max().item())
+                    ok = err <= limit and torch.equal(got, again)
+                    say(f"[z4mf parity] {k5.kernel} float64 {grid} {params} "
+                        f"{z4_call_name(i, sol64.picard_iters)} {tuple(Q.shape)}: max_abs_err "
+                        f"{err:.3e} limit {limit:.3e}; repeat bitwise {torch.equal(got, again)} "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        fail(f"K5 b's Z4+GRHD instance disagrees with its plain version "
+                             f"(float64, {z4_call_name(i, sol64.picard_iters)})")
+                del k5, got, again, ref
+            del sol64, u
+    torch.cuda.empty_cache()
+    phase("the float64 parity")
+
+    # ------------------------------------------- float32 at full width: parity,
+    # the main path (3 launches a step, repeatable), times
+    launches, errs, plain_ms, ms, work, info, counts = {}, {}, {}, {}, {}, {}, {}
+    for form in Z4MF_FORMS:
+        dim, fused = form
+        grid, dx = (Z4F_GRID, 1.0 / Z4F_GRID[0]) if dim == 2 else (Z4_GRID, Z4_DX)
+        sol = make(form, grid, torch.float32, dx)
+        cu = CudaADERDG(sol)
+        sol64 = make(form, grid, torch.float64, dx)
+        un = z4m_noisy(torch, sol)
+        times = {}
+        for name, err in z4_kernel_parity(torch, sol, cu, un, Z4_DT, f"{label(form)}, full width",
+                                          sol64, tag="z4mf", plain_ms=times).items():
+            errs[name] = max(errs.get(name, 0.0), err)
+        for name, t in times.items():
+            plain_ms.setdefault(name, t)
+        del sol64
+        u0, _ = z4m_flrw(torch, sol)
+        cfl = float(sol.cfl_dt(u0))
+        if Z4_DT > cfl:
+            fail(f"dt = {Z4_DT} is over the {label(form)} state's CFL limit {cfl}")
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        cu.reset_launches()
+        u = cu.run(u0, Z4F_STEPS, Z4_DT)
+        torch.cuda.synchronize()
+        got = dict(cu.launches)
+        say(f"[z4mf main] {label(form)} {grid} f32 ({sol.dofs()} DOF), the perturbed FLRW slice, "
+            f"dt = {Z4_DT} (cfl_dt {cfl!r}): {Z4F_STEPS} steps through CudaADERDG: launches "
+            f"{got} (expected {Z4F_STEPS} of each: 3 a step) ({card})")
+        if got != {name: Z4F_STEPS for name in cu.kernels}:
+            fail(f"the {label(form)} step launched {got} in {Z4F_STEPS} steps, expected 3 a step")
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        if tuple(u.shape) != sol.state_shape or not torch.isfinite(u).all():
+            fail(f"the {label(form)} state is not finite or has the wrong shape")
+        if not torch.equal(u, cu.run(u0, Z4F_STEPS, Z4_DT)):
+            fail(f"two {label(form)} runs from the same state differ")
+        win = [1e3 * w for w in windows(torch, cu, u0, Z4_DT, steps=Z4F_STEPS)]
+        say(f"[z4mf time] {label(form)} {grid} f32 step: ms per window {win!r}; median "
+            f"{statistics.median(win)!r} ms, {sol.dofs() / statistics.median(win) * 1e3!r} "
+            f"DOF-updates/s; runs bitwise equal ({card})")
+        new, faces, _ = cu.predictor_volume(u0, Z4_DT)
+        fhat, fhalf = cu.face_flux(faces)
+        pred, flux, update = cu.kernels
+        ms[pred] = event_ms(torch, lambda: cu.predictor_volume(u0, Z4_DT), 10)
+        if dim == 2 and flux not in ms:  # the 2-D pair once (the 3-D pair is the Z4+GRHD path's)
+            ms[flux] = event_ms(torch, lambda: cu.face_flux(faces), 20)
+            ms[update] = event_ms(
+                torch, lambda: cu.surface_update(new, fhat, Z4_DT, fhalf=fhalf), 20)
+        say(f"[z4mf time] {label(form)} kernels (CUDA events): " + ", ".join(
+            f"{name} {ms[name]!r} ms (plain {plain_ms[name]!r} ms)" for name in cu.kernels
+            if name in ms) + f" ({card})")
+        if dim == 3:  # the fused step on the same state
+            fcu = CudaADERDG(make((3, "soa"), grid, torch.float32, dx))
+            fwin = [1e3 * w for w in windows(torch, fcu, u0, Z4_DT, steps=Z4F_STEPS)]
+            fpred = event_ms(torch, lambda: fcu.predictor_volume(u0, Z4_DT), 10)
+            say(f"[z4mf time] Z4+GRHD 3-D p2 on the same state: per-axis step median "
+                f"{statistics.median(win)!r} ms, predictor {ms[pred]!r} ms; fused step "
+                f"{statistics.median(fwin)!r} ms (windows {fwin!r}), predictor {fpred!r} ms "
+                f"({ms[pred] / fpred:.3f}x) ({card})")
+            del fcu
+        if form == (2, "soa"):  # K5 b's with_cuda_rhs route on the same state
+            kern = with_cuda_rhs(sol)
+            k5 = kern.rhs_all_fn
+            iters = sol.picard_iters
+            calls = z4_rhs_calls(sol, un, Z4_DT)
+            for i in (0, iters):  # the Picard shape, the corrector's
+                Q, grads, va = calls[i]
+                got_k, ref = k5(Q, grads, va), sol.rhs_all_fn(Q, grads, va)
+                ref64 = sol.rhs_all_fn(Q.double(), tuple(g.double() for g in grads), va)
+                torch.cuda.synchronize()
+                err, limit = max_err(torch, got_k, ref), f32_bound(torch, ref)
+                say(f"[z4mf parity] {k5.kernel} float32 {grid} {z4_call_name(i, iters)} "
+                    f"{tuple(Q.shape)}: max_abs_err {err:.3e} limit {limit:.3e} ({F32_ULPS} f32 "
+                    f"spacings of max|plain| = {ref.abs().max().item():.4g}) "
+                    f"{'ok' if err <= limit else 'FAIL'}; against the float64 plain result: "
+                    f"kernel {max_err(torch, got_k, ref64):.3e}, plain float32 "
+                    f"{max_err(torch, ref, ref64):.3e}")
+                if not err <= limit:
+                    fail(f"K5 b's Z4+GRHD instance (float32, {z4_call_name(i, iters)}) disagrees "
+                         "with its plain version")
+                k5_err = max(k5_err, err)
+                del got_k, ref, ref64
+            pic = calls[0]
+            del calls
+            k5.reset_launches()
+            eager, eager_ms = timed_once(torch, lambda: kern.step(u0, Z4_DT))
+            k5_launches = k5.launches
+            ref = cu.step(u0, Z4_DT)
+            if k5_launches != iters + 2:
+                fail(f"the with_cuda_rhs step launched K5 b {k5_launches} times, expected "
+                     f"{iters + 2}")
+            say(f"[z4mf time] Z4+GRHD 2-D p2 fused {grid}: one eager step of the with_cuda_rhs "
+                f"route (K5 b, {k5_launches} launches) {eager_ms!r} ms against CudaADERDG's "
+                f"{statistics.median(win)!r} ms; max |difference| {max_err(torch, eager, ref)!r} "
+                f"(f32 bound {f32_bound(torch, ref)!r}) ({card})")
+            k5_ms = event_ms(torch, lambda: k5(*pic), 20)
+            k5_plain_ms = event_ms(torch, lambda: sol.rhs_all_fn(*pic), 2)
+            q_slots, grad_slots = z4_slots_read(torch, sol.rhs_all_fn)
+            Q = pic[0]
+            points = Q.numel() // Q.shape[pic[2]]
+            # The 2-D algebra reads two of the three gradient directions.
+            k5_bytes = Q.element_size() * points * (q_slots + 2 * grad_slots // 3
+                                                    + Q.shape[pic[2]])
+            k5_ops = z4_value_ops(torch, sol.rhs_all_fn, (0, 1)) * points
+            b_k5 = bound(k5_bytes, k5_ops)
+            say(f"[bound] {k5.kernel} a Picard call {tuple(Q.shape)} f32: {k5_bytes} B "
+                f"({q_slots} state slots and two directions' {2 * grad_slots // 3} gradient "
+                f"slots read, {Q.shape[pic[2]]} written), {k5_ops} operations (z4_value_ops "
+                f"with two gradient axes, the recovery's Newton trips included): bound "
+                f"{b_k5['bound_ms']!r} ms by {b_k5['bound_by']}; kernel {k5_ms!r} ms "
+                f"({k5_ms / b_k5['bound_ms']:.2f}x), plain {k5_plain_ms!r} ms (CUDA events; "
+                f"{card})")
+            k5_line = kernel_line(f"{k5.kernel} (Z4+GRHD, K5 b)",
+                                  "exahype_tpu/models/rhs_pallas.py:104", k5_launches, k5_err,
+                                  k5_ms, k5_plain_ms, b_k5, "exahype_tpu_torch/csrc/rhs.cu")
+            del kern, k5, eager, ref, pic, Q
+        # Bounds: the algebra's operations (on the fused solver's hook, the
+        # same algebra) and the cell's counts.
+        if dim not in counts:
+            hook = make((dim, "soa"), (1,) * dim, torch.float64, dx).rhs_all_fn
+            axes = tuple(range(dim))
+            counts[dim] = (z4_value_ops(torch, hook, axes), z4_value_ops(torch, hook, ()),
+                           sum(z4_value_ops(torch, hook, (k,)) for k in axes) / dim,
+                           sum(z4_ncp_ops(torch, hook, k) for k in axes),
+                           z4_slots_read(torch, hook)[1] // 3)
+            say(f"[bound] Z4+GRHD {dim}-D: the algebra's operations at a point (z4_value_ops, "
+                f"the recovery included): every axis {counts[dim][0]}, none {counts[dim][1]}, "
+                f"one {counts[dim][2]!r}; the {dim} NCP products together (z4_ncp_ops) "
+                f"{counts[dim][3]}; gradient slots read an axis {counts[dim][4]}")
+        full, zero, one_axis, ncp, gs = counts[dim]
+        flux_ops = 1 + dim * (Z4M_FLUX_OPS - 1) // 3  # √γ p, then each axis's rows
+        w = z4_kernel_work(Z4_ORDER, sol.picard_iters, math.prod(grid), 4, full, zero,
+                           one_axis, v=sol.n_vars, gs=gs, hydro=5, flux_ops=flux_ops, dim=dim,
+                           ncp=None if fused else ncp, names=cu.kernels)
+        for name in cu.kernels:
+            if name in ms and name not in work:
+                work[name] = w[name]
+                info[name] = (cu, f"{label(form)} {grid} f32")
+        del sol, cu, un, u0, u, new, faces, fhat, fhalf
+        torch.cuda.empty_cache()
+    phase("the float32 forms at full width")
+
+    # ------------------------------------------- examples/flrw_cosmology.py
+    a_ref, adot_ref = flrw_reference(Z4MX_T, rho0=Z4M_RHO0, eps0=Z4M_EPS0, gamma=5.0 / 3.0)
+    dt = Z4MX_T / Z4MX_STEPS
+    for grid in Z4MX_GRIDS:
+        for dtype in (torch.float64, torch.float32):
+            sol = make((2, False), grid, dtype, Z4MX_DX, dict(Z4M_PARAMS, gamma=5.0 / 3.0))
+            cu = CudaADERDG(sol)
+            adot = math.sqrt(8.0 * math.pi * Z4M_RHO0 * (1.0 + Z4M_EPS0) / 3.0)
+            u0 = flrw_state(sol, 1.0, adot, rho0=Z4M_RHO0, eps0=Z4M_EPS0)
+            cu.reset_launches()
+            u = cu.run(u0, Z4MX_STEPS, dt)
+            torch.cuda.synchronize()
+            got = dict(cu.launches)
+            if got != {name: Z4MX_STEPS for name in cu.kernels}:
+                fail(f"the example's run launched {got} in {Z4MX_STEPS} steps, expected 3 a step")
+            if dtype == torch.float32:
+                for name, n in got.items():
+                    launches[name] = launches.get(name, 0) + n
+            q = torch.movedim(u, sol.var_axis, -1).double()
+            gxx, Dt = q[..., 1], q[..., 38]
+            read = {
+                "a2": (gxx - a_ref**2).abs().max().item() / a_ref**2,
+                "Dt": (Dt - Z4M_RHO0).abs().max().item() / Z4M_RHO0,
+                "theta": q[..., 13].abs().max().item(),
+                "Z": q[..., 14:17].abs().max().item(),
+            }
+            kxx = (q[..., 7] + a_ref * adot_ref).abs().max().item() / abs(a_ref * adot_ref)
+            ok = all(read[k] < Z4MX_BARS[k] for k in read) and bool(torch.isfinite(u).all())
+            gated = dtype == torch.float64
+            verdict = ("ok" if ok else "FAIL") if gated else (
+                "a reading (gated in float64)" + (", within the bars" if ok else ", over them"))
+            say(f"[z4mf example] examples/flrw_cosmology.py, 2-D p2 per-axis, {grid} at dx = "
+                f"{Z4MX_DX} {str(dtype)[6:]}, {Z4MX_STEPS} steps to t = {Z4MX_T} through "
+                f"CudaADERDG ({got}): largest relative a² error {read['a2']!r} (bar "
+                f"{Z4MX_BARS['a2']}), K_xx {kxx!r}, D̃ drift {read['Dt']!r} (bar "
+                f"{Z4MX_BARS['Dt']}), |Θ| {read['theta']!r}, |Z| {read['Z']!r} (bars "
+                f"{Z4MX_BARS['theta']}) {verdict} ({card})")
+            if gated and not ok:
+                fail(f"the example's bars fail on the kernels ({grid}, {dtype})")
+            a = cu.run(u0, Z4X_PLAIN_STEPS, dt)
+            b = sol.run(u0, Z4X_PLAIN_STEPS, dt)
+            limit = (Z4_F64_RTOL * max(1.0, b.abs().max().item()) if gated
+                     else Z4X_PLAIN_STEPS * f32_bound(torch, b))
+            say(f"[z4mf example] {grid} {str(dtype)[6:]}, {Z4X_PLAIN_STEPS} step, kernel path vs "
+                f"plain path: max_abs_err {max_err(torch, a, b):.3e} limit {limit:.3e}")
+            if not max_err(torch, a, b) <= limit:
+                fail(f"the example's kernel path disagrees with the plain path ({grid})")
+            del sol, cu, u0, u, q, a, b
+    phase("the example")
+
+    # ------------------------------------------- reports and the JSON lines
+    lines = []
+    for name, (n_bytes, n_ops) in work.items():
+        cu, where = info[name]
+        bnd = kernel_report(cu, name, torch.float32, where, ms[name], n_bytes, n_ops, card)
+        lines.append(kernel_line(f"{name} (Z4+GRHD, K1 d)",
+                                 "exahype_tpu/models/aderdg_pallas.py:156", launches[name],
+                                 errs[name], ms[name], plain_ms[name], bnd,
+                                 "exahype_tpu_torch/csrc/aderdg_z4.cuh"))
+    missing = [name for name in work if not launches.get(name)]
+    if missing:
+        fail(f"kernels of the Z4+GRHD per-axis and 2-D path never launched: {missing}")
+    return lines + [k5_line]
 
 
 def flowing_sod_state(solver, torch, device, dtype, ux=WALLS_UX):
@@ -8169,6 +8474,7 @@ def main():
         "limited Z4+GRHD": lambda: limited_z4_matter_path(torch, dev, card),
         "Z4+GRMHD": lambda: z4_grmhd_path(torch, dev, card),
         "Z4 per-axis and 2-D": lambda: z4_forms_path(torch, dev, card),
+        "Z4+GRHD per-axis and 2-D": lambda: z4m_forms_path(torch, dev, card),
         "multichip": lambda: multichip_path(torch, dev, card),
     }
     kernels, seconds = [], {"build": time.perf_counter() - t0}

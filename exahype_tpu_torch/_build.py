@@ -106,6 +106,8 @@ _RHS_ALL_2D = _RHS_ALL[:3] + _RHS_ALL[4:]
 _RHS_ALL_SHIFT = _RHS_ALL[:-1] + (_INT, ctypes.c_double, ctypes.c_double, _P)
 # The Z4+GRHD instance: the same, then before the stream gamma, iters.
 _RHS_ALL_MATTER = _RHS_ALL[:-1] + (ctypes.c_double, _INT, _P)
+# K5 b's 2-D Z4+GRHD instance: the Z4+GRHD instance's arguments without g2.
+_RHS_ALL_MATTER_2D = _RHS_ALL_MATTER[:3] + _RHS_ALL_MATTER[4:]
 # The Z4+GRMHD instance: the same, then before the stream gamma, iters, c_h,
 # glm_kappa.
 _RHS_ALL_GRMHD = _RHS_ALL[:-1] + (ctypes.c_double, _INT, ctypes.c_double, ctypes.c_double, _P)
@@ -145,6 +147,13 @@ _SIGNATURES = {
               ("predictor_volume", _PREDICTOR_VOLUME),
               ("predictor_volume_per_axis", _PREDICTOR_VOLUME),
               ("face_flux", _FACE_FLUX_Z4), ("surface_update", _SURFACE_UPDATE_Z4))),
+        # The Z4+GRHD system's per-axis predictor (3-D) and its 2-D step at
+        # order 2 (csrc/aderdg_z4_matter_per_axis*.cu, aderdg_z4_matter_2d*.cu).
+        ("aderdg_predictor_volume_per_axis_z4_matter", _PREDICTOR_VOLUME),
+        *((f"aderdg_{kernel}_2d_z4_matter", argtypes) for kernel, argtypes in (
+            ("predictor_volume", _PREDICTOR_VOLUME),
+            ("predictor_volume_per_axis", _PREDICTOR_VOLUME),
+            ("face_flux", _FACE_FLUX_Z4), ("surface_update", _SURFACE_UPDATE_Z4))),
         *((f"aderdg_{kernel}_p{order}", argtypes) for order in (4, 5, 7)
           for kernel, argtypes in (
               ("predictor_volume", _PREDICTOR_VOLUME), ("face_flux", _FACE_FLUX),
@@ -162,6 +171,7 @@ _SIGNATURES = {
         ("rhs_all_z4_2d", _RHS_ALL_2D),
         ("rhs_all_z4_shift", _RHS_ALL_SHIFT),
         ("rhs_all_z4_matter", _RHS_ALL_MATTER),
+        ("rhs_all_z4_matter_2d", _RHS_ALL_MATTER_2D),
         ("rhs_all_z4_grmhd", _RHS_ALL_GRMHD),
     )
     for suffix in ("f32", "f64")

@@ -658,9 +658,12 @@ def z4_matter_solver_from_jax(jax_solver, *, gamma: float = 5.0 / 3.0, iters: in
     """The port's coupled Z4+GRHD solver for a JAX ``make_z4_matter_solver``
     solver (43 variables): as :func:`z4_solver_from_jax`, the caller naming
     the system's parameters, the fluid's (``gamma``, ``iters``) with them.
-    ``with_pallas_rhs`` of it maps to ``with_cuda_rhs`` (K5 d),
-    ``PallasADERDG`` of it to ``CudaADERDG`` (K1 d's conservative-flux
-    variant).  A solver of another variable count raises ``SemanticError``:
+    ``with_pallas_rhs`` of it maps to ``with_cuda_rhs`` (K5 d; K5 b's
+    ``rhs_all_z4_matter_2d`` in 2-D), ``PallasADERDG`` of it to
+    ``CudaADERDG`` (K1 d's conservative-flux variant): fused or per-axis in
+    3-D and in 2-D at order 2, so the JAX package's default build
+    (``fused_rhs=False``, no ``rhs_all_fn``) gives a ``CudaADERDG`` with
+    ``per_axis`` true.  A solver of another variable count raises ``SemanticError``:
     38 crosses through :func:`z4_solver_from_jax`, 53 through
     :func:`z4_shift_solver_from_jax`, 47 through
     :func:`z4_grmhd_solver_from_jax`."""

@@ -236,6 +236,14 @@ int z4_2d_info_f32(int which, int* out) __attribute__((weak));
 int z4_2d_info_f64(int which, int* out) __attribute__((weak));
 int z4_2d_p3_info_f32(int which, int* out) __attribute__((weak));
 int z4_2d_p3_info_f64(int which, int* out) __attribute__((weak));
+// The Z4+GRHD system's per-axis predictor on the 3-D cell
+// (csrc/aderdg_z4_matter_per_axis.cu and _f64.cu; weak too) and its 2-D
+// kernels at order 2 (csrc/aderdg_z4_matter_2d.cu and _f64.cu), the same
+// `which`.
+int z4_matter_per_axis_info_f32(int* out) __attribute__((weak));
+int z4_matter_per_axis_info_f64(int* out) __attribute__((weak));
+int z4_matter_2d_info_f32(int which, int* out) __attribute__((weak));
+int z4_matter_2d_info_f64(int which, int* out) __attribute__((weak));
 // The space-time predictor's occupancy at orders 5, 4 and 7
 // (csrc/aderdg_p5.cu, aderdg_p4.cu, aderdg_p7.cu and their _f64 twins; weak
 // too).
@@ -1735,6 +1743,15 @@ int kernel_info(int kernel, int physics, int* out) {
                               : (f64 ? z4_2d_p3_info_f64 : z4_2d_p3_info_f32);
     return info ? info((kernel - 47) % 4, out) : cudaErrorInvalidValue;
   }
+  if (kernel >= 55 && kernel <= 59) {  // the Z4+GRHD per-axis and 2-D kernels, 55-59
+    if (physics != kZ4Matter) return cudaErrorInvalidValue;
+    if (kernel == 55) {
+      auto* info = f64 ? z4_matter_per_axis_info_f64 : z4_matter_per_axis_info_f32;
+      return info ? info(out) : cudaErrorInvalidValue;
+    }
+    auto* info = f64 ? z4_matter_2d_info_f64 : z4_matter_2d_info_f32;
+    return info ? info(kernel - 56, out) : cudaErrorInvalidValue;
+  }
   if (physics == kZ4) {  // the Z4 step's own three kernels, 7-9
     auto* info = sizeof(T) == 8 ? z4_kernel_info_f64 : z4_kernel_info_f32;
     return info && kernel >= 7 && kernel <= 9 ? info(kernel - 7, out) : cudaErrorInvalidValue;
@@ -2155,7 +2172,12 @@ int exahype_aderdg_surface_update_p2_f64(double* state, const double* fhat,
 // face_flux_p2, 31 = surface_update_p2; physics 9 and 10 (the 2-D
 // heterogeneous and curvilinear elasticity, K2 b.1): 32 and 23-24, and for
 // physics 9 also 25-26; physics 0: 33 = face_flux_exchanged (K1 e, the
-// sharded face stage, whose update is 5); f64 = 0 or 1.
+// sharded face stage, whose update is 5); physics 3: 46 =
+// predictor_volume_per_axis_z4, 47-50 and 51-54 the 2-D steps at orders 2
+// and 3 (predictor_volume, face_flux, surface_update,
+// predictor_volume_per_axis); physics 5: 55 =
+// predictor_volume_per_axis_z4_matter, 56-59 the 2-D step at order 2 in the
+// same order; f64 = 0 or 1.
 int exahype_aderdg_kernel_info(int kernel, int f64, int physics, int* out) {
   return f64 ? kernel_info<double>(kernel, physics, out)
              : kernel_info<float>(kernel, physics, out);

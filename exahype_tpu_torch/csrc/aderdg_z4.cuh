@@ -12,8 +12,11 @@
 // without rhs_all_fn, make_z4_solver's default) on the 3-D cell,
 // csrc/aderdg_z4_per_axis.cu, and its steps on 2-D cells (Z4Cell) at orders
 // 2 and 3, fused and per-axis, csrc/aderdg_z4_2d.cu and aderdg_z4_2d_p3.cu;
-// each again with an _f64 twin: fourteen sources that nvcc compiles in
-// parallel.
+// the Z4+GRHD system the per-axis branch with its flux on the 3-D cell,
+// csrc/aderdg_z4_matter_per_axis.cu (make_z4_matter_solver's default), and
+// its order-2 steps on the 2-D cell, fused and per-axis,
+// csrc/aderdg_z4_matter_2d.cu; each again with an _f64 twin: eighteen
+// sources that nvcc compiles in parallel.
 //
 // Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
 // PallasADERDG.build on a pure-NCP solver with the fused rhs_all_fn: its
@@ -64,18 +67,26 @@
 //                            h_lo), the _lo values the −d neighbour's
 //                            high-face ones, in place.
 //
-// The per-axis branch (kPerAxis, the vacuum system).  Per Picard iteration
-// each thread evaluates the algebra G::kAxes + 1 times at its point in one
-// code copy, the gradient chosen at run time: the source rhs(q, 0), then
-// rhs(q, e_d D_d q) for each axis d, D_d q unscaled as the plain version
-// hands it to ncp_fn, so that each ncp_d = rhs(q, 0) − rhs(q, e_d D_d q)
+// The per-axis branch (kPerAxis; the vacuum and Z4+GRHD systems).  Per
+// Picard iteration each thread evaluates the algebra G::kAxes + 1 times at
+// its point in one code copy, the gradient chosen at run time: the source
+// rhs(q, 0), then rhs(q, e_d D_d q) for each axis d, D_d q unscaled as the
+// plain version hands it to ncp_fn, so that each ncp_d = rhs(q, 0) − rhs(q, e_d D_d q)
 // cancels its gradient-free terms exactly; two more rows [slot][point] of
 // shared memory hold the source and the running sum φ0 u − Σ_d λ_d w ncp_d,
 // and the last pass writes the sum + dt w source in place of q.  The
 // epilogue's G::kAxes + 1 evaluations at q̄ go to the slices' threads in
 // turn (E_0 = rhs(q̄, 0), E_{d+1} = rhs(q̄, e_d D_d q̄)), and new = u + dt s̄
 // − Σ_d λ_d (E_0 − E_{d+1}).  A step is the same three launches: the face
-// stage does not depend on how the predictor splits the algebra.
+// stage does not depend on how the predictor splits the algebra.  With a
+// flux (Z4+GRHD) the branch keeps the flux rows of the fused variant below
+// (rows [axis][hydro row][point] after the per-axis rows): each point
+// recovers its primitives once an iteration (Z4Eval), writes its flux rows
+// and, after a barrier, runs its G::kAxes + 1 evaluations on that one
+// recovery, pass d + 1 subtracting λ_d w_s (D·F_d) on the hydro rows before
+// the axis's NCP term as the plain version orders them; the epilogue's
+// evaluations at q̄ share one recovery a thread, and new gains each axis's
+// volume integral λ_d Kvol·F̄_d before its NCP term.
 //
 // The 2-D cells.  The same kernels over Z4Cell<2, N>: a cell's N² nodes and
 // N³ points, the gradients of two axes (the algebra's third is a
@@ -178,9 +189,10 @@ constexpr size_t kZ4SmemLimit = 232448;
 // The cell a kernel instance takes: DIM axes of N nodes (order N − 1), its
 // nodes and face nodes numbered row-major as the solver numbers them.  The
 // 3-D order-2 cell (Z4Cell3) is every system's; the 2-D cells at orders 2
-// and 3 are the vacuum system's.  The face stage tiles the grid's last axis
-// (csrc/aderdg_common.cuh::TileCell), so a 2-D grid (g0, g1) goes to it as
-// the 3-D grid (1, g0, g1): grid axis d is the tiling's axis kAxis0 + d.
+// and 3 are the vacuum system's, and at order 2 also Z4+GRHD's.  The face
+// stage tiles the grid's last axis (csrc/aderdg_common.cuh::TileCell), so a
+// 2-D grid (g0, g1) goes to it as the 3-D grid (1, g0, g1): grid axis d is
+// the tiling's axis kAxis0 + d.
 // The algebra stays 3-D: a 2-D cell's third gradient is a compile-time zero.
 template <int DIM, int N>
 struct Z4Cell {
@@ -419,12 +431,15 @@ using Z4Params = Params<T, N, Z4Physics<T, Sys>>;
 // right-hand sides in place) [slot][point], and the gradient rows
 // [axis][row of slot][point], which the epilogue reuses for q̄ [slot][node],
 // ∇q̄ [axis][row of slot][node] and the NCP terms' two evaluations
-// [slot][node] each; with a flux (Sys::kFlux), then its rows [axis][hydro
-// row][point], which the epilogue reuses for F̄ (at the points of slice 0).
-// The per-axis branch (kPerAxis) adds two rows [slot][point] after the
-// gradient rows, the source and the running sum of a Picard iteration; its
-// epilogue keeps its G::kAxes + 1 evaluations [evaluation][slot][node] from
-// the fused pair's place on, into them.
+// [slot][node] each; then the rows X; with a flux (Sys::kFlux), then its
+// rows [axis][hydro row][point] (from kFOff), which the epilogue reuses for
+// F̄ (at the points of slice 0).  The per-axis branch (kPerAxis) takes two
+// rows [slot][point] as X, the source and the running sum of a Picard
+// iteration; its epilogue keeps its G::kAxes + 1 evaluations
+// [evaluation][slot][node] from the fused pair's place on, into them.  The
+// fused branch has no X unless its epilogue overruns the gradient rows
+// (the 2-D Z4+GRHD cell: 43 slots against 31 gradient rows an axis), and
+// then X is the overrun.
 
 template <int CB, typename Sys, typename G = Z4Cell3, bool kPerAxis = false>
 struct Z4Smem {
@@ -440,11 +455,13 @@ struct Z4Smem {
   static constexpr int kNcpA = kGbar + G::kAxes * GS * kNodes;
   static constexpr int kNcpB = kNcpA + V * kNodes;
   static constexpr int kF = G::kAxes * Sys::kHydro * kPts;
-  static constexpr int kX = kPerAxis ? 2 * V * kPts : 0;  // after G (and F, none here)
-  static_assert(kPerAxis || kNcpB + V * kNodes <= kG, "the epilogue fits the gradient rows");
-  static_assert(!kPerAxis || (kF == 0 && kNcpA + (G::kAxes + 1) * V * kNodes <= kG + kX),
-                "the per-axis epilogue fits the gradient and per-axis rows");
-  static constexpr int kTotal = kU + kQ + kG + kF + kX;
+  static constexpr int kEpilogue = kNcpA + (kPerAxis ? G::kAxes + 1 : 2) * V * kNodes;
+  static constexpr int kOverrun = kEpilogue > kG ? kEpilogue - kG : 0;
+  static constexpr int kX =
+      kPerAxis ? (2 * V * kPts > kOverrun ? 2 * V * kPts : kOverrun) : kOverrun;  // after G
+  static constexpr int kFOff = kG + kX;  // the flux rows, after X
+  static_assert(kEpilogue <= kG + kX, "the epilogue fits the gradient rows and X");
+  static constexpr int kTotal = kU + kQ + kG + kX + kF;
 };
 
 // Cells a predictor block, the block the only one on its SM: as many as
@@ -459,9 +476,12 @@ struct Z4Smem {
 // float64, so 4 and 2.  Z4+GRMHD: 47 variables and 27 flux rows, 14,796
 // values a cell: 59,184 B in float32 and 118,368 B in float64, so 3 (243
 // threads) and 1.  The 3-D per-axis branch: 71,172 B a cell in float32, so
-// 3, and 1 in float64.  2-D, order 2 (27 points a cell): 14 cells (378
+// 3, and 1 in float64; Z4+GRHD's, with the flux rows, 81,432 B, so 2 (162
+// threads), and 1 in float64.  2-D, order 2 (27 points a cell): 14 cells (378
 // threads) and 9, per-axis 11 and 5; order 3 (64 points): 6 and 4, per-axis
-// 4 and 2.
+// 4 and 2.  2-D Z4+GRHD, order 2: 14,148 B a cell (X the epilogue's
+// overrun, 45 values), so 14 (378 threads) and 8; per-axis 23,256 B, so 9
+// (243 threads) and 4.
 template <typename T, typename Sys, typename G = Z4Cell3, bool kPerAxis = false>
 constexpr int z4_cells_per_block() {
   constexpr int smem =
@@ -519,6 +539,47 @@ __device__ __forceinline__ T z4_gradient(const T (&drow)[N], const T* x, int ik,
   }
 }
 
+// One point's evaluations of the algebra: a flux system's share the
+// recovery made when the object is built (Sys::recover, the con2prim Newton
+// in it, once a point: the evaluations of a cancelling pair then see the
+// same matter terms, and they cancel exactly); a fluxless system has none.
+template <typename T, typename Sys, bool = Sys::kFlux>
+struct Z4Eval {
+  template <typename LoadQ>
+  __device__ __forceinline__ Z4Eval(const LoadQ&, const typename Sys::P&) {}
+  template <typename LoadQ, typename LoadDQ, typename Store>
+  __device__ __forceinline__ void rhs(const LoadQ& q, const LoadDQ& dq, const typename Sys::P& p,
+                                      const Store& out) const {
+    Sys::template rhs<T>(q, dq, p, out);
+  }
+};
+
+template <typename T, typename Sys>
+struct Z4Eval<T, Sys, true> {
+  typename Sys::template Rec<T> rec;
+  template <typename LoadQ>
+  __device__ __forceinline__ Z4Eval(const LoadQ& q, const typename Sys::P& p)
+      : rec(Sys::template recover<T>(q, p)) {}
+  template <typename LoadQ, typename LoadDQ, typename Store>
+  __device__ __forceinline__ void rhs(const LoadQ& q, const LoadDQ& dq, const typename Sys::P& p,
+                                      const Store& out) const {
+    Sys::template rhs<T>(q, dq, p, rec, out);
+  }
+};
+
+// Row k of a per-axis array of rows, k a thread-dependent axis.
+template <typename T, int A, int N>
+__device__ __forceinline__ void z4_axis_row(const T (&rows)[A][N], int k, T (&out)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if constexpr (A == 3) {
+      out[j] = k == 0 ? rows[0][j] : (k == 1 ? rows[1][j] : rows[2][j]);
+    } else {
+      out[j] = k == 0 ? rows[0][j] : rows[1][j];
+    }
+  }
+}
+
 template <typename T, int CB, typename Sys, typename G = Z4Cell3, bool kPerAxis = false>
 __global__ void __launch_bounds__(CB * G::kPoints, 1)
 aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __restrict__ faces,
@@ -529,7 +590,6 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
   constexpr int GS = Sys::kGradSlots;
   constexpr int N = G::kN;
   constexpr int NT = CB * G::kPoints;
-  static_assert(!kPerAxis || !Sys::kFlux, "the per-axis branch is the fluxless systems'");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sU = reinterpret_cast<T*>(smem_raw);
   T* sQ = sU + S::kU;
@@ -609,13 +669,13 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
     }
     __syncthreads();
     // (2) the right-hand side of my point, in place of its q.
-    if constexpr (Sys::kFlux) {
+    if constexpr (Sys::kFlux && !kPerAxis) {
       // (2a) my point's recovery and its flux rows; (2b), once every point's
       // are in, the right-hand side, the hydro rows φ0 u − Σ_d λ_d w_s
       // (D·F_d) + dt w_s rhs along my pencils, in the plain version's order.
       auto load_q = [&](int v) { return sQ[v * S::kPts + pt]; };
       const auto rec = Sys::template recover<T>(load_q, zp);
-      T* sF = sG + S::kG;
+      T* sF = sG + S::kFOff;
 #pragma unroll
       for (int d = 0; d < G::kAxes; ++d)
 #pragma unroll
@@ -626,7 +686,11 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
       for (int d = 0; d < G::kAxes; ++d) lamw[d] = dtv / P.dx[d] * select<T, N>(P.W, s);
       __syncthreads();
       auto load_dq = [&](int k, int v) {
-        return sG[(k * GS + v - Sys::row_offset(v)) * S::kPts + pt];
+        if constexpr (G::kAxes == 3) {
+          return sG[(k * GS + v - Sys::row_offset(v)) * S::kPts + pt];
+        } else {  // the 2-D cell: the algebra's third gradient is zero
+          return k < G::kAxes ? sG[(k * GS + v - Sys::row_offset(v)) * S::kPts + pt] : T(0);
+        }
       };
       auto store = [&](int v, T r) {
         T x = phi0_s * sU[v * S::kNodes + cn];
@@ -647,12 +711,26 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
       // terms exactly, as the plain version's does; the source waits in its
       // row, the sum φ0 u − Σ_d λ_d w ncp_d in the other, and the last pass
       // writes the sum + dt w source in place of q, in the plain order.
-      T* sSrc = sG + S::kG + S::kF;
+      // With a flux (Sys::kFlux), my point's recovery is made once (ev) for
+      // its flux rows and the G::kAxes + 1 evaluations; once every point's
+      // flux rows are in, pass d + 1 subtracts λ_d w_s (D·F_d) on the hydro
+      // rows before the axis's NCP term, as the plain version orders them.
+      T* sSrc = sG + S::kG;
       T* sAcc = sSrc + V * S::kPts;
       T lamw[G::kAxes];  // λ_d w_s, λ_d = dt / dx_d
 #pragma unroll
       for (int d = 0; d < G::kAxes; ++d) lamw[d] = dtv / P.dx[d] * select<T, N>(P.W, s);
       auto load_q = [&](int v) { return sQ[v * S::kPts + pt]; };
+      const Z4Eval<T, Sys> ev(load_q, zp);
+      if constexpr (Sys::kFlux) {
+        T* sF = sG + S::kFOff;
+#pragma unroll
+        for (int d = 0; d < G::kAxes; ++d)
+#pragma unroll
+          for (int r = 0; r < Sys::kHydro; ++r)
+            sF[(d * Sys::kHydro + r) * S::kPts + pt] = Sys::template flux<T>(ev.rec, d, r);
+        __syncthreads();
+      }
 #pragma unroll 1
       for (int pass = 0; pass <= G::kAxes; ++pass) {
         const int axis = pass - 1;
@@ -669,14 +747,24 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
             return;
           }
           T* acc = sAcc + v * S::kPts + pt;
-          const T x = (pass == 1 ? phi0_s * sU[v * S::kNodes + cn] : *acc) - lw * (*src - r);
+          T x = pass == 1 ? phi0_s * sU[v * S::kNodes + cn] : *acc;
+          if constexpr (Sys::kFlux) {
+            if (v >= Sys::kFluxFirst) {
+              T dk[N];
+              z4_axis_row<T, G::kAxes, N>(drow, axis, dk);
+              const T* f =
+                  sG + S::kFOff + (axis * Sys::kHydro + v - Sys::kFluxFirst) * S::kPts + pt;
+              x = x - lw * z4_contract<T>(dk, f, G::digit(node, axis), G::stride(axis));
+            }
+          }
+          x = x - lw * (*src - r);
           if (pass < G::kAxes) {
             *acc = x;
           } else {
             sQ[v * S::kPts + pt] = x + dtw * *src;
           }
         };
-        Sys::template rhs<T>(load_q, load_dq, zp, store);
+        ev.rhs(load_q, load_dq, zp, store);
       }
     } else {
       auto load_q = [&](int v) { return sQ[v * S::kPts + pt]; };
@@ -756,7 +844,7 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
   if constexpr (Sys::kFlux) {
     auto load_q = [&](int v) { return sQ[v * S::kPts + pt]; };
     const auto rec = Sys::template recover<T>(load_q, zp);
-    T* sF = sG + S::kG;
+    T* sF = sG + S::kFOff;
 #pragma unroll
     for (int d = 0; d < G::kAxes; ++d)
 #pragma unroll
@@ -776,7 +864,10 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
     // E_{d+1} = rhs(q̄, e_d D_d q̄), evaluation e on the threads of slice e
     // (and e − N), one code copy with the gradient selected at run time, so
     // that each difference E_0 − E_{d+1} cancels the gradient-free terms
-    // exactly, as the plain version's does.
+    // exactly, as the plain version's does (with a flux, all of them from
+    // one recovery at q̄).
+    auto load_qbar = [&](int v) { return sQbar[v * S::kNodes + cn]; };
+    const Z4Eval<T, Sys> ev(load_qbar, zp);
 #pragma unroll 1
     for (int e = s; e <= G::kAxes; e += N) {
       const int axis = e - 1;
@@ -788,7 +879,7 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
       };
       T* dst = sA + e * V * S::kNodes;
       auto store = [&](int v, T r) { dst[v * S::kNodes + cn] = r; };
-      Sys::template rhs<T>(load_q, load_dq, zp, store);
+      ev.rhs(load_q, load_dq, zp, store);
     }
   } else if (s < 2) {
     // rhs(q̄, ∇q̄) of my node on the slice-0 threads, rhs(q̄, 0) on the
@@ -815,7 +906,7 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
   if constexpr (Sys::kFlux) {
     // F̄_d = Σ_s w_s F_d(q_s), in place at the points of slice 0, one
     // (axis, hydro row, node) a thread.
-    T* sF = sG + S::kG;
+    T* sF = sG + S::kFOff;
     for (int e = threadIdx.x; e < G::kAxes * Sys::kHydro * S::kNodes; e += NT) {
       const int row = e / S::kNodes, m = e - row * S::kNodes;
       const int cc = m / G::kNodes;
@@ -830,7 +921,8 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
   }
 
   // new = u + dt s̄ + dt (rhs(q̄, ∇q̄) − rhs(q̄, 0)); per-axis, new = u +
-  // dt s̄ − Σ_d λ_d (E_0 − E_{d+1}) in the plain order; the block's cells
+  // dt s̄ − Σ_d λ_d (E_0 − E_{d+1}) in the plain order (with a flux, each
+  // axis's volume integral before its NCP term); the block's cells
   // fastest.
   for (int e = threadIdx.x; e < S::kU; e += NT) {
     const int cc = e % CB, r = e / CB;  // r = node * V + v
@@ -849,15 +941,25 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
       const T e0 = sA[v * S::kNodes + m];
 #pragma unroll
       for (int d = 0; d < G::kAxes; ++d) {
+        if constexpr (Sys::kFlux) {
+          if (v >= Sys::kFluxFirst) {  // + λ_d Kvol·F̄_d
+            const int ik = G::digit(nd, d);
+            T krow[N];
+            select_row<T, N>(P.Kvol, ik, krow);
+            const T* f = sG + S::kFOff + (d * Sys::kHydro + v - Sys::kFluxFirst) * S::kPts +
+                         cc * G::kPoints + nd;
+            nv = nv + dtv / P.dx[d] * z4_contract<T>(krow, f, ik, G::stride(d));
+          }
+        }
         nv = nv - dtv / P.dx[d] * (e0 - sA[((d + 1) * V + v) * S::kNodes + m]);
       }
     } else {
       nv = nv + dtv * (sA[v * S::kNodes + m] - sB[v * S::kNodes + m]);
     }
-    if constexpr (Sys::kFlux) {
+    if constexpr (Sys::kFlux && !kPerAxis) {
       // The volume integral of the hydro rows: + λ_d Kvol·F̄_d along each axis.
       if (v >= Sys::kFluxFirst) {
-        const T* sF = sG + S::kG;
+        const T* sF = sG + S::kFOff;
 #pragma unroll
         for (int d = 0; d < G::kAxes; ++d) {
           const int ik = G::digit(nd, d);
@@ -909,7 +1011,7 @@ aderdg_predictor_volume_z4(const T* __restrict__ u, T* __restrict__ out, T* __re
       // others.
       T flo = T(0), fhi = T(0);
       if (v >= Sys::kFluxFirst) {
-        const T* f = sG + S::kG + (d * Sys::kHydro + v - Sys::kFluxFirst) * S::kPts +
+        const T* f = sG + S::kFOff + (d * Sys::kHydro + v - Sys::kFluxFirst) * S::kPts +
                      cc * G::kPoints + base;
         flo = z4_contract<T>(P.PHI0, f, 0, st);
         fhi = z4_contract<T>(P.PHI1, f, 0, st);
@@ -1219,54 +1321,55 @@ int z4_info(int which, int* out) {
   }
 }
 
-// The vacuum system on a 2-D cell of N nodes an axis (csrc/aderdg_z4_2d*.cu):
-// the C interface's grid (g0, g1, 1) goes to the kernels as (1, g0, g1).
+// A system on a 2-D cell of N nodes an axis (csrc/aderdg_z4_2d*.cu, the
+// vacuum system; csrc/aderdg_z4_matter_2d*.cu, Z4+GRHD): the C interface's
+// grid (g0, g1, 1) goes to the kernels as (1, g0, g1).
 using Z4Cell2P2 = Z4Cell<2, 3>;
 using Z4Cell2P3 = Z4Cell<2, 4>;
 
-template <typename T, typename G, bool kPerAxis>
+template <typename T, typename G, bool kPerAxis, typename Sys = Z4Vacuum>
 int z4_2d_predictor_volume(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
                            const double* ops, const double* dx, int order, int picard_iters,
                            int physics, const double* params, long long g0, long long g1,
                            long long g2, void* stream) {
   if (g2 != 1) return cudaErrorInvalidValue;
-  return z4_predictor_volume<T, Z4Vacuum, G, kPerAxis>(u, out, faces, dt_ptr, dt_val, ops, dx,
-                                                       order, picard_iters, physics, params, 1,
-                                                       g0, g1, stream);
+  return z4_predictor_volume<T, Sys, G, kPerAxis>(u, out, faces, dt_ptr, dt_val, ops, dx, order,
+                                                  picard_iters, physics, params, 1, g0, g1,
+                                                  stream);
 }
 
-template <typename T, typename G>
+template <typename T, typename G, typename Sys = Z4Vacuum>
 int z4_2d_face_flux(const T* faces, T* fhat, T* fhalf, const double* ops, const double* dx,
                     int order, int physics, const double* params, long long g0, long long g1,
                     long long g2, void* stream) {
   if (g2 != 1) return cudaErrorInvalidValue;
-  return z4_face_flux<T, Z4Vacuum, G>(faces, fhat, fhalf, ops, dx, order, physics, params, 1, g0,
-                                      g1, stream);
+  return z4_face_flux<T, Sys, G>(faces, fhat, fhalf, ops, dx, order, physics, params, 1, g0, g1,
+                                 stream);
 }
 
-template <typename T, typename G>
+template <typename T, typename G, typename Sys = Z4Vacuum>
 int z4_2d_surface_update(T* state, const T* fhat, const T* fhalf, const T* dt_ptr,
                          double dt_val, const double* ops, const double* dx, int order,
                          int physics, const double* params, long long g0, long long g1,
                          long long g2, void* stream) {
   if (g2 != 1) return cudaErrorInvalidValue;
-  return z4_surface_update<T, Z4Vacuum, G>(state, fhat, fhalf, dt_ptr, dt_val, ops, dx, order,
-                                           physics, params, 1, g0, g1, stream);
+  return z4_surface_update<T, Sys, G>(state, fhat, fhalf, dt_ptr, dt_val, ops, dx, order, physics,
+                                      params, 1, g0, g1, stream);
 }
 
-// Occupancy of the vacuum system's kernels on cell G: `which` 0 the fused
-// predictor, 1 face flux, 2 update, 3 the per-axis predictor.
-template <typename T, typename G>
+// Occupancy of a system's kernels on cell G: `which` 0 the fused predictor,
+// 1 face flux, 2 update, 3 the per-axis predictor.
+template <typename T, typename G, typename Sys = Z4Vacuum>
 int z4_form_info(int which, int* out) {
   switch (which) {
     case 0:
-      return shape_info(z4_predictor_shape<T, Z4Vacuum, G, false>(), out);
+      return shape_info(z4_predictor_shape<T, Sys, G, false>(), out);
     case 1:
-      return shape_info(z4_face_flux_shape<T, Z4Vacuum, G>(), out);
+      return shape_info(z4_face_flux_shape<T, Sys, G>(), out);
     case 2:
-      return shape_info(z4_surface_update_shape<T, Z4Vacuum, G>(), out);
+      return shape_info(z4_surface_update_shape<T, Sys, G>(), out);
     case 3:
-      return shape_info(z4_predictor_shape<T, Z4Vacuum, G, true>(), out);
+      return shape_info(z4_predictor_shape<T, Sys, G, true>(), out);
     default:
       return cudaErrorInvalidValue;
   }

@@ -61,7 +61,10 @@ conservative flux beside the NCP for the 43-variable coupled Z4+GRHD system
 vacuum system also on its per-axis NCP path (``make_z4_solver(...,
 fused_rhs=False)``, the JAX package's default: ``ncp_fn`` and ``source_fn``
 without ``rhs_all_fn``) in 3-D at order 2, and in 2-D at orders 2 and 3,
-fused or per-axis (``examples/z4_gauge_wave.py``).  The
+fused or per-axis (``examples/z4_gauge_wave.py``); for the Z4+GRHD system
+on its per-axis NCP path with its flux (``make_z4_matter_solver(...,
+fused_rhs=False)``, the JAX package's default) in 3-D at order 2, and in 2-D
+at order 2, fused or per-axis (``examples/flrw_cosmology.py``).  The
 step is three launches of kernels from ``csrc/aderdg.cu``,
 ``csrc/aderdg_visc.cu``, ``csrc/aderdg_z4.cu``, ``csrc/aderdg_z4_shift.cu``,
 ``csrc/aderdg_z4_matter.cu`` and ``csrc/aderdg_z4_grmhd.cu`` (see the notes
@@ -90,7 +93,10 @@ the same with ``_p3_2d_z4`` at order 3, ``csrc/aderdg_z4_per_axis.cu``,
 ``aderdg_z4_2d.cu`` and ``aderdg_z4_2d_p3.cu``; shifted, the same names with ``_shift``;
 Z4+GRHD with ``_matter``, whose predictor also carries the hydro flux's D·F
 term, its volume integral and its face projections, and whose face flux
-the Rusanov flux's ½(f_hi + f⁺) on the hydro rows; Z4+GRMHD with
+the Rusanov flux's ½(f_hi + f⁺) on the hydro rows (its per-axis predictor
+``aderdg_predictor_volume_per_axis_z4_matter``,
+``csrc/aderdg_z4_matter_per_axis.cu``, and its 2-D step at order 2,
+``csrc/aderdg_z4_matter_2d.cu``, the vacuum 2-D names with ``_matter``); Z4+GRMHD with
 ``_grmhd``, the same on its fluid, field and cleaning rows): the
 predictor evaluates the algebra of ``csrc/z4.cuh`` (shifted:
 ``csrc/z4_shift.cuh``; coupled: ``csrc/z4_matter.cuh``,
@@ -101,10 +107,11 @@ writes each interface's NCP half-fluctuation into a second tensor,
 and :meth:`CudaADERDG.surface_update` takes.  A solver qualifies when its
 flux, wave speed, ``source_fn``, ``ncp_fn`` and ``rhs_all_fn`` all carry one
 ``PhysicsTag("z4", ...)`` (or ``"z4_shift"``, ``"z4_matter"``,
-``"z4_grmhd"``), ``rhs_all_fn`` unset only on the vacuum system; any other
-``source_fn``/``ncp_fn``/``rhs_all_fn`` raises :class:`LoweringError`, and so
-do the other systems without the fused hook (their per-axis NCP branch), a
-Z4 solver with ``source_fn`` alone, their 2-D steps, a Z4
+``"z4_grmhd"``), ``rhs_all_fn`` unset only on the vacuum and Z4+GRHD
+systems; any other ``source_fn``/``ncp_fn``/``rhs_all_fn`` raises
+:class:`LoweringError`, and so do the shifted and Z4+GRMHD systems without
+the fused hook (their per-axis NCP branch), a Z4 solver with ``source_fn``
+alone, the shifted and Z4+GRMHD 2-D steps, a Z4
 solver with walls, and a solver whose ``rhs_all_fn`` is already on K5
 (``models.rhs_cuda.with_cuda_rhs``: these kernels compile the algebra in and
 would bypass it; build ``CudaADERDG`` on the plain solver).  On the CK
@@ -180,10 +187,13 @@ INSTANTIATED = {
     ("z4", 2, 3): "picard",
     ("z4_shift", 3, 2): "picard",
     ("z4_matter", 3, 2): "picard",
+    ("z4_matter", 2, 2): "picard",
     ("z4_grmhd", 3, 2): "picard",
 }
 #: The Z4 systems, whose step is the fused-NCP kernels' (K1 d).
 _Z4 = ("z4", "z4_shift", "z4_matter", "z4_grmhd")
+#: The Z4 systems with kernels of the per-axis NCP branch and a 2-D step.
+_Z4_FORMS = ("z4", "z4_matter")
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -295,9 +305,9 @@ def _ck_sponge(solver):
 def _z4_refusal(solver) -> None:
     """Raise unless the solver's ``source_fn``/``ncp_fn``/``rhs_all_fn`` are
     a Z4 system the kernels compile in: fused (all three set), zero-shift,
-    shifted or coupled to matter, magnetized or not, or the vacuum system's
-    per-axis NCP branch (``source_fn`` and ``ncp_fn`` without ``rhs_all_fn``)
-    (called when any is set)."""
+    shifted or coupled to matter, magnetized or not, or the vacuum or
+    Z4+GRHD system's per-axis NCP branch (``source_fn`` and ``ncp_fn``
+    without ``rhs_all_fn``) (called when any is set)."""
     if isinstance(solver.rhs_all_fn, CudaRHS):
         raise LoweringError(
             "the rhs_all_fn is on K5 (models.rhs_cuda.with_cuda_rhs): the CUDA step "
@@ -311,7 +321,7 @@ def _z4_refusal(solver) -> None:
     tag = tags.pop() if len(tags) == 1 else None
     if tag is not None and tag.name in _Z4:
         missing = [name for name in CALLBACK_OPTIONS if getattr(solver, name) is None]
-        if tag.name == "z4" and missing == ["rhs_all_fn"]:
+        if tag.name in _Z4_FORMS and missing == ["rhs_all_fn"]:
             return  # the per-axis NCP branch (make_z4_solver(..., fused_rhs=False))
         if "ncp_fn" in missing and solver.source_fn is not None:
             raise LoweringError(
@@ -324,9 +334,10 @@ def _z4_refusal(solver) -> None:
                 f"a {tag.name} solver without {', '.join(missing)}: the CUDA kernels carry "
                 "the fused right-hand side (make_z4_solver, make_z4_shift_solver, "
                 "make_z4_matter_solver or make_z4_grmhd_solver(..., fused_rhs='soa')) and, "
-                "for the vacuum system only, the per-axis NCP branch (make_z4_solver(..., "
-                "fused_rhs=False)); the other systems' per-axis NCP branch is still to port, "
-                "see ROADMAP.md, Queue 2 K1 d (the plain solver runs it)"
+                "for the vacuum and Z4+GRHD systems only, the per-axis NCP branch "
+                "(make_z4_solver or make_z4_matter_solver(..., fused_rhs=False)); the shifted "
+                "and Z4+GRMHD systems' per-axis NCP branch is still to port, see ROADMAP.md, "
+                "Queue 2 K1 d (the plain solver runs it)"
             )
         return
     options = ", ".join(name for name in CALLBACK_OPTIONS if getattr(solver, name) is not None)
@@ -372,7 +383,10 @@ class CudaADERDG:
     #: physics 3: the vacuum Z4 system's per-axis predictor,
     #: ``csrc/aderdg_z4_per_axis.cu``, and 47-50 and 51-54 its 2-D steps at
     #: orders 2 and 3, ``csrc/aderdg_z4_2d.cu`` and ``aderdg_z4_2d_p3.cu``,
-    #: the fused predictor, the pair, the per-axis predictor).
+    #: the fused predictor, the pair, the per-axis predictor; 55 of physics 5:
+    #: the Z4+GRHD system's per-axis predictor,
+    #: ``csrc/aderdg_z4_matter_per_axis.cu``, and 56-59 its 2-D step at order
+    #: 2, ``csrc/aderdg_z4_matter_2d.cu``, in the same order).
     KERNELS = (
         "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
         "aderdg_surface_update", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
@@ -394,6 +408,9 @@ class CudaADERDG:
             "surface_update_walls")),
         "aderdg_predictor_volume_per_axis_z4",
         *(f"aderdg_{kernel}{order}_2d_z4" for order in ("", "_p3") for kernel in (
+            "predictor_volume", "face_flux", "surface_update", "predictor_volume_per_axis")),
+        "aderdg_predictor_volume_per_axis_z4_matter",
+        *(f"aderdg_{kernel}_2d_z4_matter" for kernel in (
             "predictor_volume", "face_flux", "surface_update", "predictor_volume_per_axis")),
     )
 
@@ -454,7 +471,7 @@ class CudaADERDG:
         key = (tag.name, solver.dim, solver.order)
         if key not in INSTANTIATED:
             item = "Queue 2 K2 b" if tag.name in _ELASTIC else "Queue 1 item 4"
-            if tag.name in _Z4 and tag.name != "z4" and solver.dim == 2:
+            if tag.name in _Z4 and tag.name not in _Z4_FORMS and solver.dim == 2:
                 item += " (this system's 2-D step: Queue 2 K1 d)"
             raise LoweringError(
                 f"no CUDA kernel instantiated for {tag.name}, dim={solver.dim}, "
@@ -515,8 +532,8 @@ class CudaADERDG:
         #: Whether the step carries the fused NCP right-hand side (Z4): the
         #: face flux kernel then also returns the NCP half-fluctuations.
         self.ncp = ncp
-        #: Whether the NCP is the per-axis branch (the vacuum Z4 system without
-        #: ``rhs_all_fn``: its own predictor, the same face stage).
+        #: Whether the NCP is the per-axis branch (the vacuum or Z4+GRHD system
+        #: without ``rhs_all_fn``: its own predictor, the same face stage).
         self.per_axis = per_axis
         #: The sponge the CK predictor compiles in (K2 a), or None; its σ
         #: goes to the kernel per cell, by dtype and device in ``_sigma``.

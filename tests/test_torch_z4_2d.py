@@ -182,10 +182,16 @@ def test_z4_solver_from_jax_crosses_the_3d_per_axis_solver():
 @pytest.mark.parametrize("make", [tz.make_z4_shift_solver, make_z4_matter_solver,
                                   make_z4_grmhd_solver], ids=["shift", "matter", "grmhd"])
 def test_other_systems_per_axis_and_2d_forms_still_raise(make):
-    """The shifted, Z4+GRHD and Z4+GRMHD systems keep their fused 3-D
-    kernels only: their per-axis NCP and their 2-D steps raise, naming
-    Queue 2 K1 d."""
+    """The shifted and Z4+GRMHD systems keep their fused 3-D kernels only:
+    their per-axis NCP and their 2-D steps raise, naming Queue 2 K1 d.  The
+    Z4+GRHD system has the per-axis and 2-D order-2 kernels
+    (``tests/test_torch_z4_matter_2d.py``): its forms are accepted."""
     name = make.__name__[len("make_"):-len("_solver")]
+    if name == "z4_matter":
+        for grid, fused in (((2, 2, 2), False), ((4, 2), False), ((4, 2), "soa")):
+            cu = CudaADERDG(make(len(grid), 2, grid, dx=DX, fused_rhs=fused, device="cpu"))
+            assert cu.per_axis == (fused is False) and cu.kernels[0].endswith("_z4_matter")
+        return
     for grid in ((2, 2, 2), (4, 2)):
         with pytest.raises(LoweringError, match=f"{name} solver without.*Queue 2 K1 d"):
             CudaADERDG(make(len(grid), 2, grid, dx=DX, fused_rhs=False, device="cpu"))
