@@ -312,7 +312,26 @@ steps of the multichip phase), in this order:
   on the same state.  ``examples/flrw_cosmology.py`` (2-D, per-axis, its
   FLRW universe, 100 steps to t = 0.5) runs on its ``(4, 4)`` and on ``(256,
   256)`` at its dx and dt, its bars (``Z4MX_BARS``) gated in float64 and
-  read in float32, each one step against the plain path.
+  read in float32, the float64 runs one step against the plain path.
+- **Z4+GRMHD per-axis and 2-D**: the magnetized system as the JAX package
+  builds it by default (``make_z4_grmhd_solver(..., fused_rhs=False)``,
+  the solver of every Z4+GRMHD test there) in 3-D and 2-D, and its fused
+  2-D step, order 2, the Z4+GRMHD path's gauge and cleaning — through
+  ``CudaADERDG``: K1 d's per-axis predictor with the matter flux on the
+  3-D cell (``csrc/aderdg_z4_grmhd_per_axis.cu``) with the fused Z4+GRMHD
+  step's face pair on ``Z4_GRID``, and the 2-D step, fused and per-axis
+  (``csrc/aderdg_z4_grmhd_2d.cu``) on ``Z4F_GRID``, 3 launches a step, 5
+  steps from the magnetized wave (a field nowhere zero), dt = 1e-4,
+  float32, gated on finiteness, admissibility at every node and the drift
+  of ∫D̃ and each ∫B̃^i dV; and K5 b's Z4+GRMHD instance
+  (``rhs_all_z4_grmhd_2d``) under the 2-D fused solver's ``with_cuda_rhs``
+  route.  Each kernel is held to its plain version on a magnetized fluid
+  with seeded noise on every Z4 slot in float64 on ``Z4F_CUT`` (3-D:
+  ``Z4_CUT``) in ``Z4G_FAMILIES`` and in float32 at full width; with B̃ =
+  φ̃ = 0 each form's float64 step is the Z4+GRHD kernels' (the float32
+  recovery is NaN at a zero field in both packages); the steps repeat
+  bitwise; the 3-D per-axis step is timed beside the fused one and the
+  2-D fused step beside one eager K5 b step on the same state.
 - **multichip**: the sharded steps of ``exahype_tpu_torch/parallel/shard.py``
   (the twin of the JAX package's ``shard_map`` steps, ``__graft_entry__.py::
   dryrun_multichip``'s configurations at the bench's widths).  K1 e
@@ -345,7 +364,9 @@ Phases:
    ``csrc/aderdg_z4_f64.cu``, ``csrc/aderdg_z4_shift.cu`` and
    ``csrc/aderdg_z4_shift_f64.cu``, ``csrc/aderdg_z4_matter.cu`` and
    ``csrc/aderdg_z4_matter_f64.cu``, ``csrc/aderdg_z4_grmhd.cu`` and
-   ``csrc/aderdg_z4_grmhd_f64.cu``, ``csrc/subcell.cu``, ``csrc/rhs.cu`` and the
+   ``csrc/aderdg_z4_grmhd_f64.cu``, the Z4 systems' per-axis and 2-D sources
+   (``csrc/aderdg_z4*_per_axis*.cu``, ``csrc/aderdg_z4*_2d*.cu``),
+   ``csrc/subcell.cu``, ``csrc/rhs.cu`` and the
    K4 sources of the ``fv`` and the canonical ``rusanov`` spec, one
    ``nvcc`` each, all started together (time, source hash, nvcc seconds
    per source, and ptxas's registers/shared memory/spills);
@@ -389,7 +410,9 @@ Phases:
    routes bitwise repeatable and against the plain path after
    ``Z4_EAGER_STEPS`` steps, with the error against the exact gauge wave and
    the ADM constraints of every path as readings);
-5. times: step ms over 3 host-clock windows, DOF-updates/s, per-kernel (and
+5. times: step ms over 3 host-clock windows (the eager ``with_cuda_rhs``
+   routes: one window of one step; the limited Z4+GRHD and viscous-shock
+   paths: windows and profiled runs of ``TIME_STEPS``), DOF-updates/s, per-kernel (and
    for FV ``halo_fill`` / ``compute_dt``, for the limited step the rest of
    the step, for Z4 the eager stages) times with CUDA events, device idle
    share, peak memory, host synchronisations per limited step, the plain
@@ -429,6 +452,10 @@ GRID = (256, 8, 128)   # bench.py:43
 ORDER = 3
 DX = 1.0 / GRID[0]     # bench.py:55
 STEPS = 10
+#: Steps a timing window and a profiled run take in the limited Z4+GRHD and
+#: viscous-shock paths, whose eager steps last 0.13 and 0.43 s (their gates
+#: run over ``STEPS``).
+TIME_STEPS = 3
 #: float32 kernel-vs-plain bound, in units of the float32 spacing (2⁻²³
 #: relative) at the largest magnitude of the compared array.  The kernel
 #: and the plain version are two float32 evaluation orders of the same
@@ -772,11 +799,11 @@ Z4_DT = 1e-4
 Z4_AMPLITUDE = 0.1
 #: The f64 kernel-vs-plain grid (same dx and amplitude).
 Z4_CUT = (8, 4, 16)
-#: The parameters of K5's f64 checks: the path's own, then the kernel's
-#: other branches, 1+log slicing (g = 2/α, d(αg)/dα = 0) and harmonic
-#: slicing with f ≠ 1, each with m ≠ 2 and both κ damping terms.
+#: The parameters of K5's f64 checks: the kernel's other branches, 1+log
+#: slicing (g = 2/α, d(αg)/dα = 0) and harmonic slicing with f ≠ 1, each
+#: with m ≠ 2 and both κ damping terms (the path's own parameters are held
+#: in float32 at full width).
 Z4_PARAMS = (
-    {},
     dict(slicing="1+log", f=0.7, m=1.5, kappa1=0.1, kappa2=0.3),
     dict(f=0.7, m=1.5, kappa1=0.1, kappa2=0.3),
 )
@@ -956,6 +983,20 @@ Z4MX_DX = 0.25
 Z4MX_T = 0.5
 Z4MX_STEPS = 100
 Z4MX_BARS = dict(a2=1e-7, Dt=1e-9, theta=1e-9, Z=1e-9)
+#: The Z4+GRMHD system on K1 d's per-axis branch with its flux and on the
+#: 2-D kernels: the JAX package's default build (``make_z4_grmhd_solver(...,
+#: fused_rhs=False)``, ``exahype_tpu/models/z4_grmhd.py:361-415``, the solver
+#: of every Z4+GRMHD test there, ``tests/test_z4_grmhd.py:493-639``, and of
+#: the dryrun's GSPMD check) in 3-D and 2-D, and its fused 2-D step, at
+#: order 2, in the Z4+GRMHD path's gauge and cleaning (``Z4G_PARAMS``); the
+#: 3-D per-axis step on ``Z4_GRID`` at dx = 1/128, the 2-D steps on
+#: ``Z4F_GRID`` at dx = 1/256; held to the plain stages on ``z4g_noisy``
+#: states (f64 on ``Z4_CUT`` and ``Z4F_CUT`` in ``Z4G_FAMILIES``, f32 at full
+#: width), run and timed from the magnetized wave (one period along grid
+#: axis 0, a field nowhere zero), dt = ``Z4_DT``, ``Z4F_STEPS`` steps a form,
+#: gated as the Z4+GRMHD path (finite, admissible, ``Z4G_DRIFT``); the
+#: zero-field cross-check of each form in f64 on the cut grids.
+Z4GF_FORMS = ((3, False), (2, False), (2, "soa"))
 #: K5's float32 bound is ``F32_ULPS`` spacings of max|plain|, as for the
 #: other kernels: on this state the plain float32 evaluation of each of a
 #: step's five calls is within 1.2-2.3 spacings of max|plain| of the float64
@@ -4989,14 +5030,14 @@ def z4_kernel_parity(torch, sol, cu, u, dt, label: str, sol64=None, tag: str = "
     stage and the step (the plain step is the plain predictor's and face
     stage's results, which are its two halves).  With ``plain_ms`` (a dict)
     it also times each plain version as it runs (CUDA events, one call) into
-    it, by the kernel's name.  float64: 1e-12 of max(1, max|plain|); float32:
-    ``F32_ULPS`` spacings of max|plain|, but the NCP halves, a difference of
-    two evaluations of the algebra (~25 each) that cancels to ~1e-2, against
-    the plain path in float64 from the same faces (``sol64``, the solver in
-    float64), to
-    ``FVWALL_F32_FACTOR`` times the plain float32 halves' own distance, as
-    the viscous wall planes.  Fails on a disagreement; returns the largest
-    error of each kernel.  ``tag`` prefixes the printed lines."""
+    it, by the kernel's name (and the plain face stage as "face stage").
+    float64: 1e-12 of max(1, max|plain|); float32: ``F32_ULPS`` spacings of
+    max|plain|, but the NCP halves, a difference of two evaluations of the
+    algebra (~25 each) that cancels to ~1e-2, against the plain path in float64
+    from the same faces (``sol64``, the solver in float64), to
+    ``FVWALL_F32_FACTOR`` times the plain float32 halves' own distance, as the
+    viscous wall planes. Fails on a disagreement; returns the largest error of
+    each kernel. ``tag`` prefixes the printed lines."""
     f64 = u.dtype == torch.float64
     pred, flux, update = cu.kernels
     times = {} if plain_ms is None else plain_ms
@@ -5013,7 +5054,7 @@ def z4_kernel_parity(torch, sol, cu, u, dt, label: str, sol64=None, tag: str = "
     upd_k = cu.surface_update(new_p.clone(), fhat_p, dt, fhalf=fhalf_p)
     upd_p = plain(update, lambda: z4_plain_update(sol, new_p, fhat_p, fhalf_p, dt))
     stage_k = cu.face_surface(new_p.clone(), faces_p, dt)
-    stage_p = sol.face_surface(new_p, faces_p, dt)
+    stage_p = plain("face stage", lambda: sol.face_surface(new_p, faces_p, dt))
     step_k, step_p = cu.step(u, dt), stage_p
     torch.cuda.synchronize()
     # The F̄ rows are zero but on the coupled systems' matter rows (38 on).
@@ -5168,7 +5209,9 @@ def z4_path(torch, dev, card) -> list[dict]:
     pic, cor = calls[0], calls[iters]
     del calls
     sol64, _ = make(Z4_GRID, torch.float64)
-    k1d_errs = z4_kernel_parity(torch, plain, cu, u0, Z4_DT, "K1 d, the path's own", sol64)
+    plain_times = {}  # the plain stages' times, as the parity call runs them
+    k1d_errs = z4_kernel_parity(torch, plain, cu, u0, Z4_DT, "K1 d, the path's own", sol64,
+                                plain_ms=plain_times)
     torch.cuda.empty_cache()
 
     # ------------------------------------------- the main path: CudaADERDG
@@ -5219,7 +5262,8 @@ def z4_path(torch, dev, card) -> list[dict]:
     del again
     # The plain path over the eager depth; the kernel paths after 1 and
     # after as many steps, within that many f32 bounds.
-    d1, k1 = cu.step(u0, Z4_DT), kern.step(u0, Z4_DT)
+    d1 = cu.step(u0, Z4_DT)
+    k1 = u if Z4_EAGER_STEPS == 1 else kern.step(u0, Z4_DT)  # that eager run
     torch.cuda.reset_peak_memory_stats()
     p1 = plain.step(u0, Z4_DT)
     pn = plain.run(p1, Z4_EAGER_STEPS - 1, Z4_DT)
@@ -5251,7 +5295,7 @@ def z4_path(torch, dev, card) -> list[dict]:
 
     # ------------------------------------------- times
     d_win = windows(torch, cu, u0, Z4_DT, steps=10)
-    k_win = windows(torch, kern, u0, Z4_DT, steps=2)  # short: ~0.4 s an eager step
+    k_win = windows(torch, kern, u0, Z4_DT, steps=1, n_windows=1)  # ~0.5 s an eager step
     p_win = windows(torch, plain, u0, Z4_DT, steps=1, n_windows=1)
     for label, win in (("CudaADERDG path", d_win), ("with_cuda_rhs path", k_win),
                        ("plain path", p_win)):
@@ -5261,21 +5305,19 @@ def z4_path(torch, dev, card) -> list[dict]:
     new, faces, _ = cu.predictor_volume(u0, Z4_DT)
     fhat, fhalf = cu.face_flux(faces)
     pred, flux, update = cu.kernels
-    d_times = {
-        pred: (event_ms(torch, lambda: cu.predictor_volume(u0, Z4_DT), 20),
-               once_ms(torch, lambda: plain.predictor_volume(u0, Z4_DT))),
-        flux: (event_ms(torch, lambda: cu.face_flux(faces), 20),
-               once_ms(torch, lambda: z4_plain_face_flux(torch, plain, faces))),
+    d_times = {  # the plain stages' times: their full-width parity call's
+        pred: (event_ms(torch, lambda: cu.predictor_volume(u0, Z4_DT), 20), plain_times[pred]),
+        flux: (event_ms(torch, lambda: cu.face_flux(faces), 20), plain_times[flux]),
         update: (event_ms(torch, lambda: cu.surface_update(new, fhat, Z4_DT, fhalf=fhalf), 20),
-                 once_ms(torch, lambda: z4_plain_update(plain, new, fhat, fhalf, Z4_DT))),
+                 plain_times[update]),
         "face stage": (event_ms(torch, lambda: cu.face_surface(new, faces, Z4_DT), 20),
-                       once_ms(torch, lambda: plain.face_surface(new, faces, Z4_DT))),
+                       plain_times["face stage"]),
         "step": (event_ms(torch, lambda: cu.step(u0, Z4_DT), 20),
-                 once_ms(torch, lambda: plain.step(u0, Z4_DT))),
+                 1e3 * p_win[0]),  # the plain step's host window above
     }
     for name, (ms, plain_ms) in d_times.items():
         say(f"[z4 time] K1 d {name}: kernel {ms!r} ms, plain {plain_ms!r} ms (CUDA events; "
-            f"{card})")
+            f"the plain step's: its host window; {card})")
     q_st = pic[0]
     k5_ms = {
         "Picard": event_ms(torch, lambda: k5(*pic), 20),
@@ -5286,12 +5328,12 @@ def z4_path(torch, dev, card) -> list[dict]:
         "corrector": event_ms(torch, lambda: plain.rhs_all_fn(*cor), 2),
     }
     parts = {
-        "step": event_ms(torch, lambda: kern.step(u0, Z4_DT), 2),
-        "predictor_volume": event_ms(torch, lambda: kern.predictor_volume(u0, Z4_DT), 2),
+        "step": event_ms(torch, lambda: kern.step(u0, Z4_DT), 1),
+        "predictor_volume": event_ms(torch, lambda: kern.predictor_volume(u0, Z4_DT), 1),
         "face_surface (6 ncp_fn evaluations, 6 wave speeds)": event_ms(
-            torch, lambda: kern.face_surface(new, faces, Z4_DT), 2),
+            torch, lambda: kern.face_surface(new, faces, Z4_DT), 1),
         "source_fn on the space-time array (s̄)": event_ms(
-            torch, lambda: kern.source_fn(q_st, pic[2]), 2),
+            torch, lambda: kern.source_fn(q_st, pic[2]), 1),
         "one Picard gradient triple (tensordot, /dx, contiguous)": event_ms(
             torch, lambda: kern._grads(q_st, 1), 3),
     }
@@ -5307,9 +5349,6 @@ def z4_path(torch, dev, card) -> list[dict]:
     idle, busy, wall = idle_share(torch, lambda: cu.run(u0, 20, Z4_DT))
     say(f"[z4 idle] CudaADERDG path, 20 steps under torch.profiler: device busy {busy!r} ms of "
         f"wall {wall!r} ms; idle share {idle!r} ({card})")
-    idle, busy, wall = idle_share(torch, lambda: kern.step(u0, Z4_DT))
-    say(f"[z4 idle] with_cuda_rhs path, 1 step under torch.profiler: device busy {busy!r} ms "
-        f"of wall {wall!r} ms; idle share {idle!r} ({card})")
     say(f"[z4 mem] peak allocated over {STEPS} steps: CudaADERDG path {d_peak * gib:.4f} GiB, "
         f"with_cuda_rhs path {peak * gib:.4f} GiB, plain path {plain_peak * gib:.4f} GiB "
         f"({card})")
@@ -5468,8 +5507,9 @@ def z4_shift_path(torch, dev, card) -> list[dict]:
         del got, ref, ref64
     pic, cor = calls[0], calls[iters]
     del calls
+    plain_times = {}  # the plain stages' times, as the parity call runs them
     k1d_errs = z4_kernel_parity(torch, plain, cu, un, Z4_DT, "K1 d shifted, the path's own",
-                                sol64, tag="z4s")
+                                sol64, tag="z4s", plain_ms=plain_times)
     del un
     torch.cuda.empty_cache()
     phase("the float32 parity at full width")
@@ -5513,7 +5553,8 @@ def z4_shift_path(torch, dev, card) -> list[dict]:
              f"{want}")
     if tuple(u_k.shape) != plain.state_shape or not torch.isfinite(u_k).all():
         fail("the shifted Z4 state through with_cuda_rhs is not finite or has the wrong shape")
-    d1, k1 = cu.step(u0, Z4_DT), kern.step(u0, Z4_DT)
+    d1 = cu.step(u0, Z4_DT)
+    k1 = u_k if Z4_EAGER_STEPS == 1 else kern.step(u0, Z4_DT)  # that eager run
     torch.cuda.reset_peak_memory_stats()
     p1 = plain.step(u0, Z4_DT)
     pn = plain.run(p1, Z4_EAGER_STEPS - 1, Z4_DT)
@@ -5561,7 +5602,7 @@ def z4_shift_path(torch, dev, card) -> list[dict]:
 
     # ------------------------------------------- times
     d_win = windows(torch, cu, u0, Z4_DT, steps=10)
-    k_win = windows(torch, kern, u0, Z4_DT, steps=1)
+    k_win = windows(torch, kern, u0, Z4_DT, steps=1, n_windows=1)
     p_win = windows(torch, plain, u0, Z4_DT, steps=1, n_windows=1)
     for label, win in (("CudaADERDG path", d_win), ("with_cuda_rhs path", k_win),
                        ("plain path", p_win)):
@@ -5571,15 +5612,13 @@ def z4_shift_path(torch, dev, card) -> list[dict]:
     new, faces, _ = cu.predictor_volume(u0, Z4_DT)
     fhat, fhalf = cu.face_flux(faces)
     pred, flux, update = cu.kernels
-    d_times = {
-        pred: (event_ms(torch, lambda: cu.predictor_volume(u0, Z4_DT), 20),
-               once_ms(torch, lambda: plain.predictor_volume(u0, Z4_DT))),
-        flux: (event_ms(torch, lambda: cu.face_flux(faces), 20),
-               once_ms(torch, lambda: z4_plain_face_flux(torch, plain, faces))),
+    d_times = {  # the plain stages' times: their full-width parity call's
+        pred: (event_ms(torch, lambda: cu.predictor_volume(u0, Z4_DT), 20), plain_times[pred]),
+        flux: (event_ms(torch, lambda: cu.face_flux(faces), 20), plain_times[flux]),
         update: (event_ms(torch, lambda: cu.surface_update(new, fhat, Z4_DT, fhalf=fhalf), 20),
-                 once_ms(torch, lambda: z4_plain_update(plain, new, fhat, fhalf, Z4_DT))),
+                 plain_times[update]),
         "face stage": (event_ms(torch, lambda: cu.face_surface(new, faces, Z4_DT), 20),
-                       once_ms(torch, lambda: plain.face_surface(new, faces, Z4_DT))),
+                       plain_times["face stage"]),
         "step": (event_ms(torch, lambda: cu.step(u0, Z4_DT), 20),
                  1e3 * p_win[0]),  # the plain step's host window above
     }
@@ -5663,14 +5702,22 @@ def z4_shift_path(torch, dev, card) -> list[dict]:
     }]
 
 
+def node_weights(torch, sol, u):
+    """The Gauss weights of a cell's nodes, the product over ``sol``'s axes
+    (float64, on ``u``'s device), shaped to broadcast over ``u``."""
+    w = sol.weights.to(device=u.device, dtype=torch.float64)
+    if sol.dim == 3:
+        wn = w[:, None, None] * w[None, :, None] * w[None, None, :]
+    else:
+        wn = w[:, None] * w[None, :]
+    return wn.reshape((sol.n_nodes,) * sol.dim + (1,) * (u.dim() - sol.dim))
+
+
 def z4m_integral(torch, sol, u, slot: int) -> float:
     """∫ Q_slot dV over the grid: the nodal values times the Gauss weights
     of each cell's nodes and the cell volume, summed in float64."""
-    w = sol.weights.to(device=u.device, dtype=torch.float64)
-    w3 = (w[:, None, None] * w[None, :, None] * w[None, None, :]).reshape(
-        (sol.n_nodes,) * 3 + (1,) * (u.dim() - 3))
     q = u.narrow(sol.var_axis, slot, 1).double()
-    return float((q * w3).sum()) * math.prod(sol._dxs)
+    return float((q * node_weights(torch, sol, u)).sum()) * math.prod(sol._dxs)
 
 
 def z4m_flrw(torch, sol, rho0=Z4M_RHO0, eps0=Z4M_EPS0, perturb=True):
@@ -5813,8 +5860,9 @@ def z4_matter_path(torch, dev, card) -> list[dict]:
         k5_err = max(k5_err, err)
         del got, ref, ref64
     del calls
+    plain_times = {}  # the plain stages' times, as the parity call runs them
     k1d_errs = z4_kernel_parity(torch, plain, cu, un, Z4_DT, "K1 d matter, the path's own",
-                                sol64, tag="z4m")
+                                sol64, tag="z4m", plain_ms=plain_times)
     del un
     torch.cuda.empty_cache()
     phase("the float32 parity at full width")
@@ -5870,7 +5918,8 @@ def z4_matter_path(torch, dev, card) -> list[dict]:
         fail("the Z4+GRHD state through with_cuda_rhs is not finite or has the wrong shape")
     if not bool(admissible(u_k, va).all()):
         fail("the Z4+GRHD state through with_cuda_rhs is not admissible")
-    d1, k1 = cu.step(uw, Z4_DT), kern.step(uw, Z4_DT)
+    d1 = cu.step(uw, Z4_DT)
+    k1 = u_k if Z4_EAGER_STEPS == 1 else kern.step(uw, Z4_DT)  # that eager run
     torch.cuda.reset_peak_memory_stats()
     p1 = plain.step(uw, Z4_DT)
     pn = plain.run(p1, Z4_EAGER_STEPS - 1, Z4_DT)
@@ -5905,15 +5954,15 @@ def z4_matter_path(torch, dev, card) -> list[dict]:
     del pn, u_k, u_d
 
     # The exact homogeneous FLRW universe: 10 steps to t = 1e-3 through
-    # CudaADERDG in float32 against the Friedmann reference (RK4), and the
-    # plain path in float64 on a cut grid (every cell alike) beside it.
+    # CudaADERDG in float32 against the Friedmann reference (RK4), and in
+    # float64 on a cut grid (every cell alike) beside it.
     t_end = STEPS * Z4_DT
     a_ref, adot_ref = (float(x) for x in flrw_reference(t_end, rho0=Z4M_RHO0, eps0=Z4M_EPS0))
     uh, _ = z4m_flrw(torch, plain, perturb=False)
     flat64, _ = make((2, 2, 2), torch.float64, **Z4M_PARAMS)
     uh64, _ = z4m_flrw(torch, flat64, perturb=False)
     for label, sol, x in (("CudaADERDG f32 " + str(Z4_GRID), cu, uh),
-                          ("plain f64 (2, 2, 2)", flat64, uh64)):
+                          ("CudaADERDG f64 (2, 2, 2)", CudaADERDG(flat64), uh64)):
         y = sol.run(x, STEPS, Z4_DT)
         a2 = y.narrow(va, 1, 1).double()
         a2_err = (a2 - a_ref**2).abs().max().item() / a_ref**2
@@ -5935,7 +5984,7 @@ def z4_matter_path(torch, dev, card) -> list[dict]:
 
     # ------------------------------------------- times
     d_win = windows(torch, cu, u0, Z4_DT, steps=10)
-    k_win = windows(torch, kern, u0, Z4_DT, steps=1)
+    k_win = windows(torch, kern, u0, Z4_DT, steps=1, n_windows=1)
     p_win = windows(torch, plain, u0, Z4_DT, steps=1, n_windows=1)
     for label, win in (("CudaADERDG path", d_win), ("with_cuda_rhs path", k_win),
                        ("plain path", p_win)):
@@ -5945,21 +5994,19 @@ def z4_matter_path(torch, dev, card) -> list[dict]:
     new, faces, _ = cu.predictor_volume(u0, Z4_DT)
     fhat, fhalf = cu.face_flux(faces)
     pred, flux, update = cu.kernels
-    d_times = {
-        pred: (event_ms(torch, lambda: cu.predictor_volume(u0, Z4_DT), 20),
-               once_ms(torch, lambda: plain.predictor_volume(u0, Z4_DT))),
-        flux: (event_ms(torch, lambda: cu.face_flux(faces), 20),
-               once_ms(torch, lambda: z4_plain_face_flux(torch, plain, faces))),
+    d_times = {  # the plain stages' times: their full-width parity call's
+        pred: (event_ms(torch, lambda: cu.predictor_volume(u0, Z4_DT), 20), plain_times[pred]),
+        flux: (event_ms(torch, lambda: cu.face_flux(faces), 20), plain_times[flux]),
         update: (event_ms(torch, lambda: cu.surface_update(new, fhat, Z4_DT, fhalf=fhalf), 20),
-                 once_ms(torch, lambda: z4_plain_update(plain, new, fhat, fhalf, Z4_DT))),
+                 plain_times[update]),
         "face stage": (event_ms(torch, lambda: cu.face_surface(new, faces, Z4_DT), 20),
-                       once_ms(torch, lambda: plain.face_surface(new, faces, Z4_DT))),
+                       plain_times["face stage"]),
         "step": (event_ms(torch, lambda: cu.step(u0, Z4_DT), 20),
-                 once_ms(torch, lambda: plain.step(u0, Z4_DT))),
+                 1e3 * p_win[0]),  # the plain step's host window above
     }
     for name, (ms, plain_ms) in d_times.items():
         say(f"[z4m time] K1 d matter {name}: kernel {ms!r} ms, plain {plain_ms!r} ms (CUDA "
-            f"events; {card})")
+            f"events; the plain step's: its host window; {card})")
     calls = z4_rhs_calls(plain, u0, Z4_DT)
     pic, cor = calls[0], calls[iters]
     del calls
@@ -6189,7 +6236,7 @@ def limited_z4_matter_path(torch, dev, card) -> list[dict]:
     mask_p = plain.troubled_mask(u, sol.step(u, Z4_DT))
     step_k = lim.step(u, Z4_DT)
     torch.cuda.reset_peak_memory_stats()
-    step_p = plain.step(u, Z4_DT)
+    step_p, plain_step_ms = timed_once(torch, lambda: plain.step(u, Z4_DT))
     torch.cuda.synchronize()
     plain_peak = torch.cuda.max_memory_allocated()
     err, limit = max_err(torch, step_k, step_p), f32_bound(torch, step_p)
@@ -6238,12 +6285,11 @@ def limited_z4_matter_path(torch, dev, card) -> list[dict]:
 
     # ------------------------------------------- times
     dofs = sol.dofs()
-    k_win = windows(torch, lim, uw, Z4_DT, steps=STEPS)
+    k_win = windows(torch, lim, uw, Z4_DT, steps=TIME_STEPS)
     ms = [1e3 * w for w in k_win]
-    plain_step_ms = once_ms(torch, lambda: plain.step(uw, Z4_DT))
     say(f"[z4l time] kernel path: step ms per window {ms!r}; median {statistics.median(ms)!r} "
         f"ms, {dofs / statistics.median(k_win)!r} DOF-updates/s ({dofs} DOF per step); plain "
-        f"path one step {plain_step_ms!r} ms ({card})")
+        f"path one step {plain_step_ms!r} ms (the main path's, CUDA events; {card})")
     cand, dg_fl = cu.step(uw, Z4_DT, return_face_fluxes=True)
     raw = lim.troubled_mask(uw, cand)
     tab = lim._gather_tables_row(raw)
@@ -6272,8 +6318,8 @@ def limited_z4_matter_path(torch, dev, card) -> list[dict]:
         f"source (plain source_fn on the batch {sweep_shape}) {source_ms!r} ms; whole step "
         f"{step_ms!r} ms ({card})")
     del cand, dg_fl, raw, tab, R, g, fv, matched, merged
-    idle, busy, wall = idle_share(torch, lambda: lim.run(uw, STEPS, Z4_DT))
-    say(f"[z4l idle] kernel path, {STEPS} steps under torch.profiler: device busy {busy!r} ms "
+    idle, busy, wall = idle_share(torch, lambda: lim.run(uw, TIME_STEPS, Z4_DT))
+    say(f"[z4l idle] kernel path, {TIME_STEPS} steps under torch.profiler: device busy {busy!r} ms "
         f"of wall {wall!r} ms; idle share {idle!r} ({card})")
     say(f"[z4l mem] peak allocated over {STEPS} steps: kernel path {peak * gib:.4f} GiB, "
         f"plain step {plain_peak * gib:.4f} GiB ({card})")
@@ -6346,11 +6392,8 @@ def z4g_totals(torch, sol, u) -> tuple[list[float], float]:
     (:func:`z4m_integral`; |B̃| the Euclidean norm of the three slots)."""
     va = sol.var_axis
     totals = [z4m_integral(torch, sol, u, slot) for slot in (38, 43, 44, 45)]
-    w = sol.weights.to(device=u.device, dtype=torch.float64)
-    w3 = (w[:, None, None] * w[None, :, None] * w[None, None, :]).reshape(
-        (sol.n_nodes,) * 3 + (1,) * (u.dim() - 3))
     norm = u.narrow(va, 43, 3).double().norm(dim=va, keepdim=True)
-    return totals, float((norm * w3).sum()) * math.prod(sol._dxs)
+    return totals, float((norm * node_weights(torch, sol, u)).sum()) * math.prod(sol._dxs)
 
 
 def z4_grmhd_path(torch, dev, card) -> list[dict]:
@@ -6483,8 +6526,9 @@ def z4_grmhd_path(torch, dev, card) -> list[dict]:
         k5_err = max(k5_err, err)
         del got, ref, ref64
     del calls
+    plain_times = {}  # the plain stages' times, as the parity call runs them
     k1d_errs = z4_kernel_parity(torch, plain, cu, un, Z4_DT, "K1 d GRMHD, the path's own",
-                                sol64, tag="z4g")
+                                sol64, tag="z4g", plain_ms=plain_times)
     del un, sol64
     torch.cuda.empty_cache()
     phase("the float32 parity at full width")
@@ -6582,7 +6626,7 @@ def z4_grmhd_path(torch, dev, card) -> list[dict]:
 
     # ------------------------------------------- times
     d_win = windows(torch, cu, u0, Z4_DT, steps=10)
-    k_win = windows(torch, kern, u0, Z4_DT, steps=1)
+    k_win = windows(torch, kern, u0, Z4_DT, steps=1, n_windows=1)
     p_win = windows(torch, plain, u0, Z4_DT, steps=1, n_windows=1)
     for label, win in (("CudaADERDG path", d_win), ("with_cuda_rhs path", k_win),
                        ("plain path", p_win)):
@@ -6592,15 +6636,13 @@ def z4_grmhd_path(torch, dev, card) -> list[dict]:
     new, faces, _ = cu.predictor_volume(u0, Z4_DT)
     fhat, fhalf = cu.face_flux(faces)
     pred, flux, update = cu.kernels
-    d_times = {
-        pred: (event_ms(torch, lambda: cu.predictor_volume(u0, Z4_DT), 20),
-               once_ms(torch, lambda: plain.predictor_volume(u0, Z4_DT))),
-        flux: (event_ms(torch, lambda: cu.face_flux(faces), 20),
-               once_ms(torch, lambda: z4_plain_face_flux(torch, plain, faces))),
+    d_times = {  # the plain stages' times: their full-width parity call's
+        pred: (event_ms(torch, lambda: cu.predictor_volume(u0, Z4_DT), 20), plain_times[pred]),
+        flux: (event_ms(torch, lambda: cu.face_flux(faces), 20), plain_times[flux]),
         update: (event_ms(torch, lambda: cu.surface_update(new, fhat, Z4_DT, fhalf=fhalf), 20),
-                 once_ms(torch, lambda: z4_plain_update(plain, new, fhat, fhalf, Z4_DT))),
+                 plain_times[update]),
         "face stage": (event_ms(torch, lambda: cu.face_surface(new, faces, Z4_DT), 20),
-                       once_ms(torch, lambda: plain.face_surface(new, faces, Z4_DT))),
+                       plain_times["face stage"]),
         "step": (event_ms(torch, lambda: cu.step(u0, Z4_DT), 20),
                  1e3 * p_win[0]),  # the plain step's host window above
     }
@@ -7121,12 +7163,14 @@ def z4m_forms_path(torch, dev, card) -> list[dict]:
                 f"{Z4MX_BARS['a2']}), K_xx {kxx!r}, D̃ drift {read['Dt']!r} (bar "
                 f"{Z4MX_BARS['Dt']}), |Θ| {read['theta']!r}, |Z| {read['Z']!r} (bars "
                 f"{Z4MX_BARS['theta']}) {verdict} ({card})")
-            if gated and not ok:
+            if not gated:  # the float32 run is a reading; the plain path is checked in float64
+                del sol, cu, u0, u, q
+                continue
+            if not ok:
                 fail(f"the example's bars fail on the kernels ({grid}, {dtype})")
             a = cu.run(u0, Z4X_PLAIN_STEPS, dt)
             b = sol.run(u0, Z4X_PLAIN_STEPS, dt)
-            limit = (Z4_F64_RTOL * max(1.0, b.abs().max().item()) if gated
-                     else Z4X_PLAIN_STEPS * f32_bound(torch, b))
+            limit = Z4_F64_RTOL * max(1.0, b.abs().max().item())
             say(f"[z4mf example] {grid} {str(dtype)[6:]}, {Z4X_PLAIN_STEPS} step, kernel path vs "
                 f"plain path: max_abs_err {max_err(torch, a, b):.3e} limit {limit:.3e}")
             if not max_err(torch, a, b) <= limit:
@@ -7146,6 +7190,282 @@ def z4m_forms_path(torch, dev, card) -> list[dict]:
     missing = [name for name in work if not launches.get(name)]
     if missing:
         fail(f"kernels of the Z4+GRHD per-axis and 2-D path never launched: {missing}")
+    return lines + [k5_line]
+
+
+def z4g_forms_path(torch, dev, card) -> list[dict]:
+    """The Z4+GRMHD step as the JAX package builds it by default (the
+    per-axis NCP, ``fused_rhs=False``) in 3-D and 2-D, and its fused 2-D
+    step, through ``CudaADERDG``: K1 d's per-axis predictor with the matter
+    flux on the 3-D cell (``csrc/aderdg_z4_grmhd_per_axis.cu``, with the
+    fused Z4+GRMHD step's face pair) and the 2-D step at order 2, fused and
+    per-axis (``csrc/aderdg_z4_grmhd_2d.cu``); K5 b's Z4+GRMHD instance
+    (``rhs_all_z4_grmhd_2d``) under the 2-D fused solver's ``with_cuda_rhs``
+    route.  Returns their lines of the kernel JSON."""
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+    from exahype_tpu_torch.models.z4_grmhd import (
+        magnetized_wave_state,
+        make_z4_grmhd_solver,
+        z4_grmhd_admissible,
+    )
+    from exahype_tpu_torch.models.z4_matter import make_z4_matter_solver
+
+    def make(form, grid, dtype, dx, params=Z4G_PARAMS):
+        dim, fused = form
+        return make_z4_grmhd_solver(dim, Z4_ORDER, grid, dx=dx, fused_rhs=fused, device=dev,
+                                    dtype=dtype, **params)
+
+    def label(form):
+        dim, fused = form
+        return f"Z4+GRMHD {dim}-D p2 {'fused' if fused else 'per-axis'}"
+
+    def cut(form):
+        return (Z4F_CUT, Z4F_CUT_DX) if form[0] == 2 else (Z4_CUT, Z4_DX)
+
+    admissible = z4_grmhd_admissible(gamma=Z4G_PARAMS["gamma"], iters=Z4G_PARAMS["iters"])
+    t0 = time.perf_counter()
+
+    def phase(what):
+        say(f"[z4gf] {what}: {time.perf_counter() - t0:.1f} s into the path (host clock)")
+
+    # ------------------------------------------- kernels vs plain, float64, cut grids
+    k5_err = 0.0
+    for params in Z4G_FAMILIES:  # the path's own parameters: float32 at full width below
+        for form in Z4GF_FORMS:
+            grid, dx = cut(form)
+            sol64 = make(form, grid, torch.float64, dx, params)
+            u = z4g_noisy(torch, sol64)
+            if not bool(admissible(u, sol64.var_axis).all()):
+                fail(f"the {label(form)} parity state is not admissible")
+            z4_kernel_parity(torch, sol64, CudaADERDG(sol64), u, Z4_DT, f"{label(form)} {params}",
+                             tag="z4gf")
+            if form == (2, "soa"):  # K5 b on every call of a step
+                k5 = with_cuda_rhs(sol64).rhs_all_fn
+                for i, (Q, grads, va) in enumerate(z4_rhs_calls(sol64, u, Z4_DT)):
+                    got, again = k5(Q, grads, va), k5(Q, grads, va)
+                    ref = sol64.rhs_all_fn(Q, grads, va)
+                    torch.cuda.synchronize()
+                    err = max_err(torch, got, ref)
+                    limit = Z4_F64_RTOL * max(1.0, ref.abs().max().item())
+                    ok = err <= limit and torch.equal(got, again)
+                    say(f"[z4gf parity] {k5.kernel} float64 {grid} {params} "
+                        f"{z4_call_name(i, sol64.picard_iters)} {tuple(Q.shape)}: max_abs_err "
+                        f"{err:.3e} limit {limit:.3e}; repeat bitwise {torch.equal(got, again)} "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        fail(f"K5 b's Z4+GRMHD instance disagrees with its plain version "
+                             f"(float64, {z4_call_name(i, sol64.picard_iters)})")
+                del k5, got, again, ref
+            del sol64, u
+    torch.cuda.empty_cache()
+    phase("the float64 parity")
+
+    # ------------------------------------------- the zero-field cross-check, float64
+    # B̃ = φ̃ = 0 on a Z4+GRHD state: the first 43 rows of one kernel step of
+    # each form are the Z4+GRHD kernels' step of the same form, to the
+    # recoveries' convergence (the float32 recovery is NaN at a zero field in
+    # both packages, ROADMAP.md Queue 3, so this runs in float64 only).
+    rtol, atol = Z4G_ZERO_FIELD_TOL
+    for form in Z4GF_FORMS:
+        dim, fused = form
+        grid, dx = cut(form)
+        g64 = make(form, grid, torch.float64, dx, dict(Z4G_PARAMS, c_h=Z4G_ZERO_FIELD_CH))
+        m64 = make_z4_matter_solver(dim, Z4_ORDER, grid, dx=dx, fused_rhs=fused, device=dev,
+                                    dtype=torch.float64, **Z4M_PARAMS)
+        va = m64.var_axis
+        um = z4m_noisy(torch, m64)
+        ug = torch.cat([um, torch.zeros_like(um.narrow(va, 0, 4))], dim=va).contiguous()
+        cug, cum = CudaADERDG(g64), CudaADERDG(m64)
+        sg, sm = cug.step(ug, Z4_DT), cum.step(um, Z4_DT)
+        torch.cuda.synchronize()
+        head = sg.narrow(va, 0, 43)
+        err = max_err(torch, head, sm)
+        excess = ((head - sm).abs() - rtol * sm.abs()).max().item()
+        field = sg.narrow(va, 43, 4).abs().max().item()
+        ok = excess <= atol and field == 0.0
+        say(f"[z4gf zero field] {label(form)} float64 {grid}, B̃ = φ̃ = 0 on the Z4+GRHD parity "
+            f"state, c_h = {Z4G_ZERO_FIELD_CH}: one step through CudaADERDG(Z4+GRMHD) vs "
+            f"CudaADERDG(Z4+GRHD), rows 0-42: max_abs_err {err:.3e}, max(|a − b| − {rtol:g}|b|) "
+            f"{excess:.3e} (limit {atol:g}); max|B̃, φ̃| after the step {field!r}; launches "
+            f"{cug.launches} and {cum.launches} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"with B̃ = φ̃ = 0 the {label(form)} kernel step is not the Z4+GRHD one")
+        del g64, m64, um, ug, cug, cum, sg, sm, head
+    phase("the zero-field cross-check")
+
+    # ------------------------------------------- float32 at full width: parity,
+    # the main path (3 launches a step, repeatable, gated), times
+    launches, errs, plain_ms, ms, work, info, counts = {}, {}, {}, {}, {}, {}, {}
+    for form in Z4GF_FORMS:
+        dim, fused = form
+        grid, dx = (Z4F_GRID, 1.0 / Z4F_GRID[0]) if dim == 2 else (Z4_GRID, Z4_DX)
+        sol = make(form, grid, torch.float32, dx)
+        cu = CudaADERDG(sol)
+        sol64 = make(form, grid, torch.float64, dx)
+        un = z4g_noisy(torch, sol)
+        times = {}
+        for name, err in z4_kernel_parity(torch, sol, cu, un, Z4_DT, f"{label(form)}, full width",
+                                          sol64, tag="z4gf", plain_ms=times).items():
+            errs[name] = max(errs.get(name, 0.0), err)
+        for name, t in times.items():
+            plain_ms.setdefault(name, t)
+        del sol64
+        va = sol.var_axis
+        u0 = magnetized_wave_state(sol, B0=Z4G_B0, amp=Z4G_AMP).contiguous()
+        cfl = float(sol.cfl_dt(u0))
+        if Z4_DT > cfl:
+            fail(f"dt = {Z4_DT} is over the {label(form)} state's CFL limit {cfl}")
+        if not bool(admissible(u0, va).all()):
+            fail(f"the magnetized wave is not admissible ({label(form)})")
+        totals0, field0 = z4g_totals(torch, sol, u0)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        cu.reset_launches()
+        u = cu.run(u0, Z4F_STEPS, Z4_DT)
+        torch.cuda.synchronize()
+        got = dict(cu.launches)
+        say(f"[z4gf main] {label(form)} {grid} f32 ({sol.dofs()} DOF), the magnetized wave (B0 = "
+            f"{Z4G_B0}, amplitude {Z4G_AMP}, one period along axis 0), dt = {Z4_DT} (cfl_dt "
+            f"{cfl!r}): {Z4F_STEPS} steps through CudaADERDG: launches {got} (expected "
+            f"{Z4F_STEPS} of each: 3 a step) ({card})")
+        if got != {name: Z4F_STEPS for name in cu.kernels}:
+            fail(f"the {label(form)} step launched {got} in {Z4F_STEPS} steps, expected 3 a step")
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        if tuple(u.shape) != sol.state_shape or not torch.isfinite(u).all():
+            fail(f"the {label(form)} state is not finite or has the wrong shape")
+        if not bool(admissible(u, va).all()):
+            fail(f"the {label(form)} state is not admissible")
+        totals1, _ = z4g_totals(torch, sol, u)
+        drifts = [abs(totals1[0] - totals0[0]) / abs(totals0[0])]
+        drifts += [abs(b - a) / field0 for a, b in zip(totals0[1:], totals1[1:])]
+        say(f"[z4gf main] {label(form)} over {Z4F_STEPS} steps: ∫D̃ dV {totals0[0]!r} -> "
+            f"{totals1[0]!r}, drift {drifts[0]!r}; ∫B̃^i dV {totals0[1:]!r} -> {totals1[1:]!r}, "
+            f"drift against ∫|B̃| dV = {field0!r}: {drifts[1:]!r} (gate {Z4G_DRIFT}); admissible "
+            "(z4_grmhd_admissible) at every node")
+        if not max(drifts) <= Z4G_DRIFT:
+            fail(f"∫D̃ or ∫B̃^i dV drifted by {drifts} over {Z4F_STEPS} {label(form)} steps")
+        if not torch.equal(u, cu.run(u0, Z4F_STEPS, Z4_DT)):
+            fail(f"two {label(form)} runs from the same state differ")
+        win = [1e3 * w for w in windows(torch, cu, u0, Z4_DT, steps=Z4F_STEPS)]
+        say(f"[z4gf time] {label(form)} {grid} f32 step: ms per window {win!r}; median "
+            f"{statistics.median(win)!r} ms, {sol.dofs() / statistics.median(win) * 1e3!r} "
+            f"DOF-updates/s; runs bitwise equal ({card})")
+        new, faces, _ = cu.predictor_volume(u0, Z4_DT)
+        fhat, fhalf = cu.face_flux(faces)
+        pred, flux, update = cu.kernels
+        ms[pred] = event_ms(torch, lambda: cu.predictor_volume(u0, Z4_DT), 10)
+        if dim == 2 and flux not in ms:  # the 2-D pair once (the 3-D pair is the Z4+GRMHD path's)
+            ms[flux] = event_ms(torch, lambda: cu.face_flux(faces), 20)
+            ms[update] = event_ms(
+                torch, lambda: cu.surface_update(new, fhat, Z4_DT, fhalf=fhalf), 20)
+        say(f"[z4gf time] {label(form)} kernels (CUDA events): " + ", ".join(
+            f"{name} {ms[name]!r} ms (plain {plain_ms[name]!r} ms)" for name in cu.kernels
+            if name in ms) + f" ({card})")
+        if dim == 3:  # the fused step on the same state
+            fcu = CudaADERDG(make((3, "soa"), grid, torch.float32, dx))
+            fwin = [1e3 * w for w in windows(torch, fcu, u0, Z4_DT, steps=Z4F_STEPS)]
+            fpred = event_ms(torch, lambda: fcu.predictor_volume(u0, Z4_DT), 10)
+            say(f"[z4gf time] Z4+GRMHD 3-D p2 on the same state: per-axis step median "
+                f"{statistics.median(win)!r} ms, predictor {ms[pred]!r} ms; fused step "
+                f"{statistics.median(fwin)!r} ms (windows {fwin!r}), predictor {fpred!r} ms "
+                f"({ms[pred] / fpred:.3f}x) ({card})")
+            del fcu
+        if form == (2, "soa"):  # K5 b's with_cuda_rhs route on the same state
+            kern = with_cuda_rhs(sol)
+            k5 = kern.rhs_all_fn
+            iters = sol.picard_iters
+            calls = z4_rhs_calls(sol, un, Z4_DT)
+            for i in (0, iters):  # the Picard shape, the corrector's
+                Q, grads, va_ = calls[i]
+                got_k, ref = k5(Q, grads, va_), sol.rhs_all_fn(Q, grads, va_)
+                ref64 = sol.rhs_all_fn(Q.double(), tuple(g.double() for g in grads), va_)
+                torch.cuda.synchronize()
+                err, limit = max_err(torch, got_k, ref), f32_bound(torch, ref)
+                say(f"[z4gf parity] {k5.kernel} float32 {grid} {z4_call_name(i, iters)} "
+                    f"{tuple(Q.shape)}: max_abs_err {err:.3e} limit {limit:.3e} ({F32_ULPS} f32 "
+                    f"spacings of max|plain| = {ref.abs().max().item():.4g}) "
+                    f"{'ok' if err <= limit else 'FAIL'}; against the float64 plain result: "
+                    f"kernel {max_err(torch, got_k, ref64):.3e}, plain float32 "
+                    f"{max_err(torch, ref, ref64):.3e}")
+                if not err <= limit:
+                    fail(f"K5 b's Z4+GRMHD instance (float32, {z4_call_name(i, iters)}) "
+                         "disagrees with its plain version")
+                k5_err = max(k5_err, err)
+                del got_k, ref, ref64
+            pic = calls[0]
+            del calls
+            k5.reset_launches()
+            eager, eager_ms = timed_once(torch, lambda: kern.step(u0, Z4_DT))
+            k5_launches = k5.launches
+            ref = cu.step(u0, Z4_DT)
+            if k5_launches != iters + 2:
+                fail(f"the with_cuda_rhs step launched K5 b {k5_launches} times, expected "
+                     f"{iters + 2}")
+            say(f"[z4gf time] Z4+GRMHD 2-D p2 fused {grid}: one eager step of the with_cuda_rhs "
+                f"route (K5 b, {k5_launches} launches) {eager_ms!r} ms against CudaADERDG's "
+                f"{statistics.median(win)!r} ms; max |difference| {max_err(torch, eager, ref)!r} "
+                f"(f32 bound {f32_bound(torch, ref)!r}) ({card})")
+            k5_ms = event_ms(torch, lambda: k5(*pic), 20)
+            k5_plain_ms = event_ms(torch, lambda: sol.rhs_all_fn(*pic), 2)
+            q_slots, grad_slots = z4_slots_read(torch, sol.rhs_all_fn)
+            Q = pic[0]
+            points = Q.numel() // Q.shape[pic[2]]
+            # The 2-D algebra reads two of the three gradient directions.
+            k5_bytes = Q.element_size() * points * (q_slots + 2 * grad_slots // 3
+                                                    + Q.shape[pic[2]])
+            k5_ops = z4_value_ops(torch, sol.rhs_all_fn, (0, 1)) * points
+            b_k5 = bound(k5_bytes, k5_ops)
+            say(f"[bound] {k5.kernel} a Picard call {tuple(Q.shape)} f32: {k5_bytes} B "
+                f"({q_slots} state slots and two directions' {2 * grad_slots // 3} gradient "
+                f"slots read, {Q.shape[pic[2]]} written), {k5_ops} operations (z4_value_ops "
+                f"with two gradient axes, the recovery's Newton trips included): bound "
+                f"{b_k5['bound_ms']!r} ms by {b_k5['bound_by']}; kernel {k5_ms!r} ms "
+                f"({k5_ms / b_k5['bound_ms']:.2f}x), plain {k5_plain_ms!r} ms (CUDA events; "
+                f"{card})")
+            k5_line = kernel_line(f"{k5.kernel} (Z4+GRMHD, K5 b)",
+                                  "exahype_tpu/models/rhs_pallas.py:104", k5_launches, k5_err,
+                                  k5_ms, k5_plain_ms, b_k5, "exahype_tpu_torch/csrc/rhs.cu")
+            del kern, k5, eager, ref, pic, Q
+        # Bounds: the algebra's operations (on the fused solver's hook, the
+        # same algebra) and the cell's counts.
+        if dim not in counts:
+            hook = make((dim, "soa"), (1,) * dim, torch.float64, dx).rhs_all_fn
+            axes = tuple(range(dim))
+            counts[dim] = (z4_value_ops(torch, hook, axes), z4_value_ops(torch, hook, ()),
+                           sum(z4_value_ops(torch, hook, (k,)) for k in axes) / dim,
+                           sum(z4_ncp_ops(torch, hook, k) for k in axes),
+                           z4_slots_read(torch, hook)[1] // 3)
+            say(f"[bound] Z4+GRMHD {dim}-D: the algebra's operations at a point (z4_value_ops, "
+                f"the recovery included): every axis {counts[dim][0]}, none {counts[dim][1]}, "
+                f"one {counts[dim][2]!r}; the {dim} NCP products together (z4_ncp_ops) "
+                f"{counts[dim][3]}; gradient slots read an axis {counts[dim][4]}")
+        full, zero, one_axis, ncp, gs = counts[dim]
+        w = z4_kernel_work(Z4_ORDER, sol.picard_iters, math.prod(grid), 4, full, zero,
+                           one_axis, v=sol.n_vars, gs=gs, eig_ops=Z4G_EIG_OPS, hydro=9,
+                           flux_ops=dim * Z4G_FLUX_OPS // 3, dim=dim,
+                           ncp=None if fused else ncp, names=cu.kernels)
+        for name in cu.kernels:
+            if name in ms and name not in work:
+                work[name] = w[name]
+                info[name] = (cu, f"{label(form)} {grid} f32")
+        del sol, cu, un, u0, u, new, faces, fhat, fhalf
+        torch.cuda.empty_cache()
+    phase("the float32 forms at full width")
+
+    # ------------------------------------------- reports and the JSON lines
+    lines = []
+    for name, (n_bytes, n_ops) in work.items():
+        cu, where = info[name]
+        bnd = kernel_report(cu, name, torch.float32, where, ms[name], n_bytes, n_ops, card)
+        lines.append(kernel_line(f"{name} (Z4+GRMHD, K1 d)",
+                                 "exahype_tpu/models/aderdg_pallas.py:156", launches[name],
+                                 errs[name], ms[name], plain_ms[name], bnd,
+                                 "exahype_tpu_torch/csrc/aderdg_z4.cuh"))
+    missing = [name for name in work if not launches.get(name)]
+    if missing:
+        fail(f"kernels of the Z4+GRMHD per-axis and 2-D path never launched: {missing}")
     return lines + [k5_line]
 
 
@@ -7881,8 +8201,8 @@ def viscous_shock_path(torch, dev, card) -> list[dict]:
     # ------------------------------ times
     dofs = sol.dofs()
     step_ms = {}
-    for label, solver, n_steps, n_win in (("kernel path", lim, STEPS, 3),
-                                          ("plain path", plain, 2, 1)):
+    for label, solver, n_steps, n_win in (("kernel path", lim, TIME_STEPS, 3),
+                                          ("plain path", plain, 1, 1)):
         win = windows(torch, solver, u0, dt, steps=n_steps, n_windows=n_win)
         ms = [1e3 * w for w in win]
         step_ms[label] = statistics.median(ms)
@@ -7920,8 +8240,8 @@ def viscous_shock_path(torch, dev, card) -> list[dict]:
         f"{k} {v!r} ms" for k, v in stage_ms.items()) + "; the kernels alone: " + ", ".join(
         f"{k} {v[0]!r} ms (plain {v[1]!r} ms)" for k, v in times.items()) + f" ({card})")
     del cand, dg_fl, mask, fb, fv, matched
-    idle, busy, wall = idle_share(torch, lambda: lim.run(u0, STEPS, dt))
-    say(f"[shock idle] {grid} kernel path, {STEPS} steps under torch.profiler: device busy "
+    idle, busy, wall = idle_share(torch, lambda: lim.run(u0, TIME_STEPS, dt))
+    say(f"[shock idle] {grid} kernel path, {TIME_STEPS} steps under torch.profiler: device busy "
         f"{busy!r} ms of wall {wall!r} ms; idle share {idle!r} ({card})")
 
     # ------------------------------ bounds
@@ -8475,6 +8795,7 @@ def main():
         "Z4+GRMHD": lambda: z4_grmhd_path(torch, dev, card),
         "Z4 per-axis and 2-D": lambda: z4_forms_path(torch, dev, card),
         "Z4+GRHD per-axis and 2-D": lambda: z4m_forms_path(torch, dev, card),
+        "Z4+GRMHD per-axis and 2-D": lambda: z4g_forms_path(torch, dev, card),
         "multichip": lambda: multichip_path(torch, dev, card),
     }
     kernels, seconds = [], {"build": time.perf_counter() - t0}

@@ -111,6 +111,8 @@ _RHS_ALL_MATTER_2D = _RHS_ALL_MATTER[:3] + _RHS_ALL_MATTER[4:]
 # The Z4+GRMHD instance: the same, then before the stream gamma, iters, c_h,
 # glm_kappa.
 _RHS_ALL_GRMHD = _RHS_ALL[:-1] + (ctypes.c_double, _INT, ctypes.c_double, ctypes.c_double, _P)
+# K5 b's 2-D Z4+GRMHD instance: the Z4+GRMHD instance's arguments without g2.
+_RHS_ALL_GRMHD_2D = _RHS_ALL_GRMHD[:3] + _RHS_ALL_GRMHD[4:]
 _SIGNATURES = {
     f"exahype_{kernel}_{suffix}": argtypes
     for kernel, argtypes in (
@@ -154,6 +156,13 @@ _SIGNATURES = {
             ("predictor_volume", _PREDICTOR_VOLUME),
             ("predictor_volume_per_axis", _PREDICTOR_VOLUME),
             ("face_flux", _FACE_FLUX_Z4), ("surface_update", _SURFACE_UPDATE_Z4))),
+        # The Z4+GRMHD system's, the same (csrc/aderdg_z4_grmhd_per_axis*.cu,
+        # aderdg_z4_grmhd_2d*.cu).
+        ("aderdg_predictor_volume_per_axis_z4_grmhd", _PREDICTOR_VOLUME),
+        *((f"aderdg_{kernel}_2d_z4_grmhd", argtypes) for kernel, argtypes in (
+            ("predictor_volume", _PREDICTOR_VOLUME),
+            ("predictor_volume_per_axis", _PREDICTOR_VOLUME),
+            ("face_flux", _FACE_FLUX_Z4), ("surface_update", _SURFACE_UPDATE_Z4))),
         *((f"aderdg_{kernel}_p{order}", argtypes) for order in (4, 5, 7)
           for kernel, argtypes in (
               ("predictor_volume", _PREDICTOR_VOLUME), ("face_flux", _FACE_FLUX),
@@ -173,6 +182,7 @@ _SIGNATURES = {
         ("rhs_all_z4_matter", _RHS_ALL_MATTER),
         ("rhs_all_z4_matter_2d", _RHS_ALL_MATTER_2D),
         ("rhs_all_z4_grmhd", _RHS_ALL_GRMHD),
+        ("rhs_all_z4_grmhd_2d", _RHS_ALL_GRMHD_2D),
     )
     for suffix in ("f32", "f64")
 }

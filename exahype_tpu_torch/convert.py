@@ -149,10 +149,14 @@ def _probe(name, dim: int, n_vars: int, var_axis: int):
     return np.ascontiguousarray(np.moveaxis(q, 0, var_axis))
 
 
-def _check_against_jax(what: str, fn_jax, fn_port, args_np, args_port, physics):
+def _check_against_jax(what: str, fn_jax, fn_port, args_np, args_port, physics, *,
+                       bar: float | None = None,
+                       hint: str = "name the constants the JAX callbacks were built with"):
     """Raise ``SemanticError`` unless the port's ``fn_port(*args_port)`` and
-    the JAX ``fn_jax(*args_np)`` agree to a few roundings of the larger of 1
-    and the JAX value's largest magnitude (in the JAX value's precision)."""
+    the JAX ``fn_jax(*args_np)`` agree to ``bar`` (by default a few
+    roundings in the JAX value's precision) times the larger of 1 and the
+    JAX value's largest magnitude; the error names ``physics`` and says
+    ``hint``."""
     want = np.asarray(fn_jax(*args_np))
     got = fn_port(*args_port)
     got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
@@ -160,12 +164,12 @@ def _check_against_jax(what: str, fn_jax, fn_port, args_np, args_port, physics):
     if want.shape == got.shape:
         err = float(np.max(np.abs(got.astype(np.float64) - want.astype(np.float64)), initial=0.0))
     eps = np.finfo(want.dtype if np.issubdtype(want.dtype, np.floating) else np.float64).eps
-    if not err <= 16 * eps * max(1.0, float(np.max(np.abs(want), initial=0.0))):
+    bar = 16 * eps if bar is None else max(bar, 16 * eps)
+    if not err <= bar * max(1.0, float(np.max(np.abs(want), initial=0.0))):
         name = physics if isinstance(physics, str) else "the port pair"
         raise SemanticError(
             f"physics={name!r} does not reproduce the JAX solver's {what} on a probe "
-            f"state (max difference {err!r}; shapes {got.shape} and {want.shape}): name the "
-            "constants the JAX callbacks were built with"
+            f"state (max difference {err!r}; shapes {got.shape} and {want.shape}): {hint}"
         )
 
 
@@ -194,6 +198,80 @@ def _check_callbacks(jax_solver, callbacks: dict, physics, reflect=None):
             for d in range(dim):
                 _check_against_jax(f"{option} along axis {d}", getattr(jax_solver, option), fn,
                                    (probe, d, va), (tp, d, va), physics)
+
+
+#: The Z4 check's bar, relative to max(1, max|JAX|) in float64.  The port's
+#: solver takes the ``impl="soa"`` callbacks whatever the JAX solver's
+#: ``impl``, and the einsum and soa algebras agree to ~1e-13, not to a few
+#: roundings (ROADMAP.md, Queue 3's converter caveat), so the bar of
+#: :func:`_check_against_jax` is too tight here; a mis-named parameter moves
+#: the probe's values by 1e-3 or more.
+_Z4_BAR = 1e-12
+
+
+def _z4_probe(n_vars: int, dim: int, var_axis: int):
+    """A seeded float64 probe state of a Z4 system of ``n_vars`` variables
+    and one seeded gradient an axis, in :func:`_probe`'s layout: the lapse
+    off 1 (0.7 to 1.3), the metric δ_ij plus noise (positive definite),
+    Θ, Z_i and every other Z4 slot (and the shifted system's β, B, b)
+    noise; over it an admissible fluid (ρ, p > 0, v subluminal) and, for
+    Z4+GRMHD, a field that is nowhere zero and ψ ≠ 0, so that each of the
+    system's parameters moves the callbacks' values."""
+    from exahype_tpu_torch.models.z4 import N_VARS as N_Z4
+    from exahype_tpu_torch.models.z4_grmhd import N_VARS as N_GRMHD
+    from exahype_tpu_torch.models.z4_grmhd import pack_matter_mhd
+    from exahype_tpu_torch.models.z4_matter import N_VARS as N_GRHD
+    from exahype_tpu_torch.models.z4_matter import pack_matter
+
+    rng = np.random.default_rng(14)
+    lead = (2,) * dim + (3,) * dim
+    q = 0.1 * rng.standard_normal(lead + (n_vars,))
+    q[..., 0] = 1.0 + 0.3 * rng.uniform(-1.0, 1.0, lead)
+    q[..., [1, 4, 6]] += 1.0
+    if n_vars in (N_GRHD, N_GRMHD):
+        z4 = torch.from_numpy(q[..., :N_Z4])
+        rho = torch.from_numpy(0.5 + 0.5 * rng.random(lead))
+        p = torch.from_numpy(0.2 + 0.3 * rng.random(lead))
+        v = torch.from_numpy(0.1 * rng.standard_normal(lead + (3,)))
+        if n_vars == N_GRHD:
+            q = pack_matter(z4, rho, v, p).numpy()
+        else:
+            sign = np.where(rng.random(lead + (4,)) < 0.5, -1.0, 1.0)
+            mag = sign * (0.2 + 0.3 * rng.random(lead + (4,)))
+            q = pack_matter_mhd(z4, rho, v, p, torch.from_numpy(mag[..., :3]),
+                                psi_glm=torch.from_numpy(mag[..., 3])).numpy()
+    grads = [0.1 * rng.standard_normal(lead + (n_vars,)) for _ in range(dim)]
+    return tuple(np.ascontiguousarray(np.moveaxis(x, -1, var_axis)) for x in (q, *grads))
+
+
+def _check_z4(jax_solver, solver, name: str, params: dict):
+    """Evaluate the JAX Z4 solver's callbacks and the port's ``solver``'s
+    on one probe state (:func:`_z4_probe`), in float64, to ``_Z4_BAR``:
+    ``source_fn``, each axis's ``ncp_fn`` at a seeded gradient, flux and
+    wave speed, and ``rhs_all_fn`` where the JAX solver sets one (the
+    function a ``PallasRHS`` wraps); a mismatch raises ``SemanticError``
+    naming ``params``."""
+    dim, va = jax_solver.dim, jax_solver.var_axis
+    q, *grads = _z4_probe(jax_solver.n_vars, dim, va)
+    tq, tg = torch.from_numpy(q), [torch.from_numpy(g) for g in grads]
+    checks = [("source_fn", jax_solver.source_fn, solver.source_fn, (q, va), (tq, va))]
+    for d in range(dim):
+        checks += [
+            (f"ncp_fn along axis {d}", jax_solver.ncp_fn, solver.ncp_fn, (q, grads[d], d, va),
+             (tq, tg[d], d, va)),
+            *((f"{option} along axis {d}", getattr(jax_solver, option), getattr(solver, option),
+               (q, d, va), (tq, d, va)) for option in ("flux_fn", "max_eigenvalue_fn")),
+        ]
+    rhs = jax_solver.rhs_all_fn
+    if rhs is not None:
+        rhs = rhs.inner if type(rhs).__name__ == "PallasRHS" else rhs
+        checks.append(("rhs_all_fn", rhs, solver.rhs_all_fn, (q, tuple(grads), va),
+                       (tq, tuple(tg), va)))
+    named = ", ".join(f"{key}={value!r}" for key, value in params.items())
+    for what, fn_jax, fn_port, args_np, args_port in checks:
+        _check_against_jax(what, fn_jax, fn_port, args_np, args_port, name, bar=_Z4_BAR,
+                           hint=f"the parameters named ({named}) are not the JAX solver's: "
+                                "name the ones it was built with")
 
 
 def _reflect_pair(walls, n_vars: int, dim: int):
@@ -512,7 +590,11 @@ def grid_solver_from_jax(jax_solver, *, spec: str, gamma: float, device=None,
     The JAX physics callbacks are opaque, so the caller names the spec
     (``"rusanov"``: :func:`build_rusanov_kernel`, ``"fv"``:
     :func:`build_fv_rusanov_kernel`) and γ; a JAX ``eigenvalue_fn`` becomes
-    the port's Euler wave speed.  The JAX solver must use the SoA-P
+    the port's Euler wave speed.  Both are checked: the JAX kernel's
+    ``Flux`` and ``maxEigenvalue`` and its ``eigenvalue_fn`` are evaluated
+    beside the port's on one seeded admissible float64 probe state along
+    every normal, and a difference beyond a few roundings (another γ, a
+    custom ``flux_impl``) raises ``SemanticError``.  The JAX solver must use the SoA-P
     ``TpuPatchGrid`` layout (``backend="pallas"``), the port's only one, so
     states cross unchanged through :func:`state_from_numpy`.
 
@@ -548,6 +630,21 @@ def grid_solver_from_jax(jax_solver, *, spec: str, gamma: float, device=None,
     eigenvalue_fn = None
     if jax_solver.eigenvalue_fn is not None:
         eigenvalue_fn = euler.wave_speed_fn(dim=cfg.dim, gamma=gamma)
+    # The JAX kernel's physics is opaque: probe its Flux and maxEigenvalue
+    # (the SoA-P ``tpu_impl`` a TpuPatchGrid solver runs) and its
+    # eigenvalue_fn against the port's Euler ones at γ, along every normal.
+    probe = _probe("euler", cfg.dim, cfg.n_real + cfg.n_aux, cfg.dim)
+    tp = torch.from_numpy(probe)
+    checks = [(f"{fn} along axis {d}", jax_solver.kernel.functions[fn].tpu_impl,
+               kb.functions[fn].torch_impl, (probe, d), (tp, d))
+              for fn in ("Flux", "maxEigenvalue") for d in range(cfg.dim)]
+    if eigenvalue_fn is not None:
+        checks.append(("eigenvalue_fn", jax_solver.eigenvalue_fn, eigenvalue_fn, (probe,), (tp,)))
+    for what, fn_jax, fn_port, args_np, args_port in checks:
+        _check_against_jax(what, fn_jax, fn_port, args_np, args_port, f"euler, gamma={gamma!r}",
+                           hint="the port's FV kernel is Euler's: name the gamma the JAX "
+                                "kernel was built with (a custom flux_impl or eigenvalue_fn "
+                                "is not ported)")
     return GridSolver(
         grid, kb, dx=jax_solver.dx, cfl=jax_solver.cfl,
         eigenvalue_fn=eigenvalue_fn, kernel_dt=jax_solver.kernel_dt,
@@ -593,6 +690,7 @@ def _z4_from_jax(jax_solver, make, name: str, n_vars: int, other: str, params: d
         dtype=dtype,
         **options,
     )
+    _check_z4(jax_solver, solver, name, params)
     if type(rhs).__name__ == "PallasRHS":
         solver = with_cuda_rhs(solver)
     return solver
@@ -607,7 +705,15 @@ def z4_solver_from_jax(jax_solver, *, slicing: str = "harmonic", f: float = 1.0,
     options (an option the port does not carry yet raises
     ``SemanticError``).  The JAX Z4 callbacks are closures, so the caller
     names the system's parameters (``slicing``, ``f``, ``m``, ``kappa1``,
-    ``kappa2``).  The hooks cross as they are set: a JAX solver with
+    ``kappa2``), and they are checked: the port's ``source_fn``, each
+    axis's ``ncp_fn`` at a seeded gradient, flux, wave speed and, where the
+    JAX solver sets one, ``rhs_all_fn`` are evaluated beside the JAX
+    solver's on one seeded float64 probe state (the lapse off 1, noise in
+    Θ, Z_i and every other slot; an admissible fluid, and a field nowhere
+    zero with ψ ≠ 0, for the matter systems), and a difference beyond
+    1e-12·max(1, max|JAX|) raises ``SemanticError`` (the same holds for
+    the other Z4 converters and their own parameters; it wants the JAX
+    package in float64).  The hooks cross as they are set: a JAX solver with
     ``rhs_all_fn`` gets the port's ``fused_rhs="soa"`` hook, one without it
     the per-axis NCP; the port's callbacks are the ``impl="soa"`` ones.  A
     ``PallasRHS`` hook (``with_pallas_rhs``) maps to
@@ -637,7 +743,8 @@ def z4_shift_solver_from_jax(jax_solver, *, slicing: str = "harmonic", f: float 
     """The port's shifted vacuum Z4 solver for a JAX ``make_z4_shift_solver``
     solver (53 variables): as :func:`z4_solver_from_jax`, the caller naming
     the system's parameters, the shift condition with them (``shift``,
-    ``f_b``, ``eta``).  ``with_pallas_rhs`` of it maps to ``with_cuda_rhs``,
+    ``f_b``, ``eta``), each checked against the JAX callbacks on the probe
+    state.  ``with_pallas_rhs`` of it maps to ``with_cuda_rhs``,
     ``PallasADERDG`` of it to ``CudaADERDG``.  A solver of another variable
     count raises ``SemanticError``: 38 crosses through
     :func:`z4_solver_from_jax`, 43 through :func:`z4_matter_solver_from_jax`,
@@ -657,7 +764,9 @@ def z4_matter_solver_from_jax(jax_solver, *, gamma: float = 5.0 / 3.0, iters: in
                               dtype: torch.dtype = torch.float64):
     """The port's coupled Z4+GRHD solver for a JAX ``make_z4_matter_solver``
     solver (43 variables): as :func:`z4_solver_from_jax`, the caller naming
-    the system's parameters, the fluid's (``gamma``, ``iters``) with them.
+    the system's parameters, the fluid's (``gamma``, ``iters``) with them,
+    each checked against the JAX callbacks on the probe state (so
+    ``limited_from_jax(..., physics="z4_matter")`` is checked too).
     ``with_pallas_rhs`` of it maps to ``with_cuda_rhs`` (K5 d; K5 b's
     ``rhs_all_z4_matter_2d`` in 2-D), ``PallasADERDG`` of it to
     ``CudaADERDG`` (K1 d's conservative-flux variant): fused or per-axis in
@@ -684,10 +793,14 @@ def z4_grmhd_solver_from_jax(jax_solver, *, gamma: float = 5.0 / 3.0, iters: int
     """The port's coupled Z4+GRMHD solver for a JAX ``make_z4_grmhd_solver``
     solver (47 variables): as :func:`z4_solver_from_jax`, the caller naming
     the system's parameters, the fluid's (``gamma``, ``iters``) and the
-    cleaning's (``c_h``, ``glm_kappa``) with them.  ``with_pallas_rhs`` of
-    it maps to ``with_cuda_rhs`` (K5 e), ``PallasADERDG`` of it to
-    ``CudaADERDG`` (K1 d's conservative-flux variant over the 47-variable
-    system).  A solver of another variable count raises ``SemanticError``:
+    cleaning's (``c_h``, ``glm_kappa``) with them, each checked against
+    the JAX callbacks on the probe state.  ``with_pallas_rhs`` of it maps
+    to ``with_cuda_rhs`` (K5 e; K5 b's ``rhs_all_z4_grmhd_2d`` in 2-D),
+    ``PallasADERDG`` of it to ``CudaADERDG`` (K1 d's conservative-flux
+    variant over the 47-variable system): fused or per-axis in 3-D and in
+    2-D at order 2, so the JAX package's default build (``fused_rhs=False``,
+    no ``rhs_all_fn``) gives a ``CudaADERDG`` with ``per_axis`` true.  A
+    solver of another variable count raises ``SemanticError``:
     38 crosses through :func:`z4_solver_from_jax`, 53 through
     :func:`z4_shift_solver_from_jax`, 43 through
     :func:`z4_matter_solver_from_jax`."""

@@ -15,7 +15,9 @@
 // the Z4+GRHD system the per-axis branch with its flux on the 3-D cell,
 // csrc/aderdg_z4_matter_per_axis.cu (make_z4_matter_solver's default), and
 // its order-2 steps on the 2-D cell, fused and per-axis,
-// csrc/aderdg_z4_matter_2d.cu; each again with an _f64 twin: eighteen
+// csrc/aderdg_z4_matter_2d.cu; the Z4+GRMHD system the same,
+// csrc/aderdg_z4_grmhd_per_axis.cu (make_z4_grmhd_solver's default) and
+// csrc/aderdg_z4_grmhd_2d.cu; each again with an _f64 twin: twenty-two
 // sources that nvcc compiles in parallel.
 //
 // Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
@@ -67,7 +69,7 @@
 //                            h_lo), the _lo values the −d neighbour's
 //                            high-face ones, in place.
 //
-// The per-axis branch (kPerAxis; the vacuum and Z4+GRHD systems).  Per
+// The per-axis branch (kPerAxis; the vacuum, Z4+GRHD and Z4+GRMHD systems).  Per
 // Picard iteration each thread evaluates the algebra G::kAxes + 1 times at
 // its point in one code copy, the gradient chosen at run time: the source
 // rhs(q, 0), then rhs(q, e_d D_d q) for each axis d, D_d q unscaled as the
@@ -79,7 +81,7 @@
 // turn (E_0 = rhs(q̄, 0), E_{d+1} = rhs(q̄, e_d D_d q̄)), and new = u + dt s̄
 // − Σ_d λ_d (E_0 − E_{d+1}).  A step is the same three launches: the face
 // stage does not depend on how the predictor splits the algebra.  With a
-// flux (Z4+GRHD) the branch keeps the flux rows of the fused variant below
+// flux (Z4+GRHD, Z4+GRMHD) the branch keeps the flux rows of the fused variant below
 // (rows [axis][hydro row][point] after the per-axis rows): each point
 // recovers its primitives once an iteration (Z4Eval), writes its flux rows
 // and, after a barrier, runs its G::kAxes + 1 evaluations on that one
@@ -189,7 +191,8 @@ constexpr size_t kZ4SmemLimit = 232448;
 // The cell a kernel instance takes: DIM axes of N nodes (order N − 1), its
 // nodes and face nodes numbered row-major as the solver numbers them.  The
 // 3-D order-2 cell (Z4Cell3) is every system's; the 2-D cells at orders 2
-// and 3 are the vacuum system's, and at order 2 also Z4+GRHD's.  The face
+// and 3 are the vacuum system's, and at order 2 also Z4+GRHD's and
+// Z4+GRMHD's.  The face
 // stage tiles the grid's last axis (csrc/aderdg_common.cuh::TileCell), so a
 // 2-D grid (g0, g1) goes to it as the 3-D grid (1, g0, g1): grid axis d is
 // the tiling's axis kAxis0 + d.
@@ -481,7 +484,10 @@ struct Z4Smem {
 // threads) and 9, per-axis 11 and 5; order 3 (64 points): 6 and 4, per-axis
 // 4 and 2.  2-D Z4+GRHD, order 2: 14,148 B a cell (X the epilogue's
 // overrun, 45 values), so 14 (378 threads) and 8; per-axis 23,256 B, so 9
-// (243 threads) and 4.
+// (243 threads) and 4.  Z4+GRMHD per-axis on the 3-D cell: 89,640 B a cell
+// in float32, so 2 (162 threads), and 1 in float64; on the 2-D cell, order
+// 2: 16,020 B (X the overrun, 153 values), so 14 and 7; per-axis 25,560 B,
+// so 9 and 4.
 template <typename T, typename Sys, typename G = Z4Cell3, bool kPerAxis = false>
 constexpr int z4_cells_per_block() {
   constexpr int smem =
@@ -1322,8 +1328,9 @@ int z4_info(int which, int* out) {
 }
 
 // A system on a 2-D cell of N nodes an axis (csrc/aderdg_z4_2d*.cu, the
-// vacuum system; csrc/aderdg_z4_matter_2d*.cu, Z4+GRHD): the C interface's
-// grid (g0, g1, 1) goes to the kernels as (1, g0, g1).
+// vacuum system; csrc/aderdg_z4_matter_2d*.cu, Z4+GRHD;
+// csrc/aderdg_z4_grmhd_2d*.cu, Z4+GRMHD): the C interface's grid (g0, g1,
+// 1) goes to the kernels as (1, g0, g1).
 using Z4Cell2P2 = Z4Cell<2, 3>;
 using Z4Cell2P3 = Z4Cell<2, 4>;
 

@@ -1,0 +1,34 @@
+// K1 d's per-axis NCP branch with a conservative flux on the 3-D order-2 cell
+// (csrc/aderdg_z4.cuh's predictor with kPerAxis over the Z4+GRMHD system):
+// its float64 instance and its C interface.  Its face stage is the fused
+// step's (csrc/aderdg_z4_grmhd.cu's exahype_aderdg_face_flux_z4_grmhd_f64
+// and exahype_aderdg_surface_update_z4_grmhd_f64): the Rusanov flux and the
+// NCP halves do not depend on how the predictor splits the algebra.
+
+#include "aderdg_z4.cuh"
+
+extern "C" {
+
+// The predictor of a make_z4_grmhd_solver(..., fused_rhs=False) solver, the
+// JAX package's default build: per Picard iteration and point the 9 matter
+// flux rows and their D·F terms, the source rhs(q, 0) and one evaluation
+// rhs(q, e_d D_d q) an axis, on one recovery (the field-aligned con2prim
+// Newton once a point); then the source average, the volume integral and the
+// per-axis NCP volume term;
+// exahype_aderdg_predictor_volume_z4_grmhd_f64's arguments and outputs.
+int exahype_aderdg_predictor_volume_per_axis_z4_grmhd_f64(
+    const double* u, double* out, double* faces, const double* dt_ptr, double dt_val,
+    const double* ops, const double* dx, int order, int picard_iters, int physics,
+    const double* params, long long g0, long long g1, long long g2, void* stream) {
+  return z4_predictor_volume<double, Z4Grmhd, Z4Cell3, true>(u, out, faces, dt_ptr, dt_val, ops,
+                                                           dx, order, picard_iters, physics,
+                                                           params, g0, g1, g2, stream);
+}
+
+}  // extern "C"
+
+// Its occupancy, for exahype_aderdg_kernel_info (kernel 60 of physics 6,
+// csrc/aderdg.cu).
+int z4_grmhd_per_axis_info_f64(int* out) {
+  return shape_info(z4_predictor_shape<double, Z4Grmhd, Z4Cell3, true>(), out);
+}

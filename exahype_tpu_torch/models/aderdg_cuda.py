@@ -64,7 +64,9 @@ without ``rhs_all_fn``) in 3-D at order 2, and in 2-D at orders 2 and 3,
 fused or per-axis (``examples/z4_gauge_wave.py``); for the Z4+GRHD system
 on its per-axis NCP path with its flux (``make_z4_matter_solver(...,
 fused_rhs=False)``, the JAX package's default) in 3-D at order 2, and in 2-D
-at order 2, fused or per-axis (``examples/flrw_cosmology.py``).  The
+at order 2, fused or per-axis (``examples/flrw_cosmology.py``); and for the
+Z4+GRMHD system the same (``make_z4_grmhd_solver(..., fused_rhs=False)``,
+the solver every Z4+GRMHD test of the JAX package builds).  The
 step is three launches of kernels from ``csrc/aderdg.cu``,
 ``csrc/aderdg_visc.cu``, ``csrc/aderdg_z4.cu``, ``csrc/aderdg_z4_shift.cu``,
 ``csrc/aderdg_z4_matter.cu`` and ``csrc/aderdg_z4_grmhd.cu`` (see the notes
@@ -97,7 +99,9 @@ the Rusanov flux's ½(f_hi + f⁺) on the hydro rows (its per-axis predictor
 ``aderdg_predictor_volume_per_axis_z4_matter``,
 ``csrc/aderdg_z4_matter_per_axis.cu``, and its 2-D step at order 2,
 ``csrc/aderdg_z4_matter_2d.cu``, the vacuum 2-D names with ``_matter``); Z4+GRMHD with
-``_grmhd``, the same on its fluid, field and cleaning rows): the
+``_grmhd``, the same on its fluid, field and cleaning rows (its per-axis
+predictor and 2-D step in ``csrc/aderdg_z4_grmhd_per_axis.cu`` and
+``csrc/aderdg_z4_grmhd_2d.cu``)): the
 predictor evaluates the algebra of ``csrc/z4.cuh`` (shifted:
 ``csrc/z4_shift.cuh``; coupled: ``csrc/z4_matter.cuh``,
 ``csrc/z4_grmhd.cuh``) in every Picard iteration, for the source average
@@ -107,11 +111,11 @@ writes each interface's NCP half-fluctuation into a second tensor,
 and :meth:`CudaADERDG.surface_update` takes.  A solver qualifies when its
 flux, wave speed, ``source_fn``, ``ncp_fn`` and ``rhs_all_fn`` all carry one
 ``PhysicsTag("z4", ...)`` (or ``"z4_shift"``, ``"z4_matter"``,
-``"z4_grmhd"``), ``rhs_all_fn`` unset only on the vacuum and Z4+GRHD
-systems; any other ``source_fn``/``ncp_fn``/``rhs_all_fn`` raises
-:class:`LoweringError`, and so do the shifted and Z4+GRMHD systems without
-the fused hook (their per-axis NCP branch), a Z4 solver with ``source_fn``
-alone, the shifted and Z4+GRMHD 2-D steps, a Z4
+``"z4_grmhd"``), ``rhs_all_fn`` unset only on the vacuum, Z4+GRHD and
+Z4+GRMHD systems; any other ``source_fn``/``ncp_fn``/``rhs_all_fn`` raises
+:class:`LoweringError`, and so do the shifted system without the fused
+hook (its per-axis NCP branch), a Z4 solver with ``source_fn`` alone, the
+shifted system's 2-D step, a Z4
 solver with walls, and a solver whose ``rhs_all_fn`` is already on K5
 (``models.rhs_cuda.with_cuda_rhs``: these kernels compile the algebra in and
 would bypass it; build ``CudaADERDG`` on the plain solver).  On the CK
@@ -189,11 +193,12 @@ INSTANTIATED = {
     ("z4_matter", 3, 2): "picard",
     ("z4_matter", 2, 2): "picard",
     ("z4_grmhd", 3, 2): "picard",
+    ("z4_grmhd", 2, 2): "picard",
 }
 #: The Z4 systems, whose step is the fused-NCP kernels' (K1 d).
 _Z4 = ("z4", "z4_shift", "z4_matter", "z4_grmhd")
 #: The Z4 systems with kernels of the per-axis NCP branch and a 2-D step.
-_Z4_FORMS = ("z4", "z4_matter")
+_Z4_FORMS = ("z4", "z4_matter", "z4_grmhd")
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -305,9 +310,9 @@ def _ck_sponge(solver):
 def _z4_refusal(solver) -> None:
     """Raise unless the solver's ``source_fn``/``ncp_fn``/``rhs_all_fn`` are
     a Z4 system the kernels compile in: fused (all three set), zero-shift,
-    shifted or coupled to matter, magnetized or not, or the vacuum or
-    Z4+GRHD system's per-axis NCP branch (``source_fn`` and ``ncp_fn``
-    without ``rhs_all_fn``) (called when any is set)."""
+    shifted or coupled to matter, magnetized or not, or the per-axis NCP
+    branch (``source_fn`` and ``ncp_fn`` without ``rhs_all_fn``) of any but
+    the shifted system (called when any is set)."""
     if isinstance(solver.rhs_all_fn, CudaRHS):
         raise LoweringError(
             "the rhs_all_fn is on K5 (models.rhs_cuda.with_cuda_rhs): the CUDA step "
@@ -334,10 +339,10 @@ def _z4_refusal(solver) -> None:
                 f"a {tag.name} solver without {', '.join(missing)}: the CUDA kernels carry "
                 "the fused right-hand side (make_z4_solver, make_z4_shift_solver, "
                 "make_z4_matter_solver or make_z4_grmhd_solver(..., fused_rhs='soa')) and, "
-                "for the vacuum and Z4+GRHD systems only, the per-axis NCP branch "
-                "(make_z4_solver or make_z4_matter_solver(..., fused_rhs=False)); the shifted "
-                "and Z4+GRMHD systems' per-axis NCP branch is still to port, see ROADMAP.md, "
-                "Queue 2 K1 d (the plain solver runs it)"
+                "for the vacuum, Z4+GRHD and Z4+GRMHD systems, the per-axis NCP branch "
+                "(make_z4_solver, make_z4_matter_solver or make_z4_grmhd_solver(..., "
+                "fused_rhs=False)); the shifted system's per-axis NCP branch is still to "
+                "port, see ROADMAP.md, Queue 2 K1 d.2 (the plain solver runs it)"
             )
         return
     options = ", ".join(name for name in CALLBACK_OPTIONS if getattr(solver, name) is not None)
@@ -386,7 +391,9 @@ class CudaADERDG:
     #: the fused predictor, the pair, the per-axis predictor; 55 of physics 5:
     #: the Z4+GRHD system's per-axis predictor,
     #: ``csrc/aderdg_z4_matter_per_axis.cu``, and 56-59 its 2-D step at order
-    #: 2, ``csrc/aderdg_z4_matter_2d.cu``, in the same order).
+    #: 2, ``csrc/aderdg_z4_matter_2d.cu``, in the same order; 60-64 of
+    #: physics 6: the Z4+GRMHD system's, ``csrc/aderdg_z4_grmhd_per_axis.cu``
+    #: and ``csrc/aderdg_z4_grmhd_2d.cu``, the same).
     KERNELS = (
         "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
         "aderdg_surface_update", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
@@ -409,9 +416,11 @@ class CudaADERDG:
         "aderdg_predictor_volume_per_axis_z4",
         *(f"aderdg_{kernel}{order}_2d_z4" for order in ("", "_p3") for kernel in (
             "predictor_volume", "face_flux", "surface_update", "predictor_volume_per_axis")),
-        "aderdg_predictor_volume_per_axis_z4_matter",
-        *(f"aderdg_{kernel}_2d_z4_matter" for kernel in (
-            "predictor_volume", "face_flux", "surface_update", "predictor_volume_per_axis")),
+        *(name for system in ("matter", "grmhd") for name in (
+            f"aderdg_predictor_volume_per_axis_z4_{system}",
+            *(f"aderdg_{kernel}_2d_z4_{system}" for kernel in (
+                "predictor_volume", "face_flux", "surface_update",
+                "predictor_volume_per_axis")))),
     )
 
     def __init__(self, solver: ADERDGSolver):
@@ -472,7 +481,7 @@ class CudaADERDG:
         if key not in INSTANTIATED:
             item = "Queue 2 K2 b" if tag.name in _ELASTIC else "Queue 1 item 4"
             if tag.name in _Z4 and tag.name not in _Z4_FORMS and solver.dim == 2:
-                item += " (this system's 2-D step: Queue 2 K1 d)"
+                item += " (this system's 2-D step: Queue 2 K1 d.2)"
             raise LoweringError(
                 f"no CUDA kernel instantiated for {tag.name}, dim={solver.dim}, "
                 f"order={solver.order} (have {sorted(INSTANTIATED)}); see ROADMAP.md, "
@@ -532,8 +541,9 @@ class CudaADERDG:
         #: Whether the step carries the fused NCP right-hand side (Z4): the
         #: face flux kernel then also returns the NCP half-fluctuations.
         self.ncp = ncp
-        #: Whether the NCP is the per-axis branch (the vacuum or Z4+GRHD system
-        #: without ``rhs_all_fn``: its own predictor, the same face stage).
+        #: Whether the NCP is the per-axis branch (a Z4 system other than the
+        #: shifted one without ``rhs_all_fn``: its own predictor, the same
+        #: face stage).
         self.per_axis = per_axis
         #: The sponge the CK predictor compiles in (K2 a), or None; its σ
         #: goes to the kernel per cell, by dtype and device in ``_sigma``.

@@ -182,15 +182,16 @@ def test_z4_solver_from_jax_crosses_the_3d_per_axis_solver():
 @pytest.mark.parametrize("make", [tz.make_z4_shift_solver, make_z4_matter_solver,
                                   make_z4_grmhd_solver], ids=["shift", "matter", "grmhd"])
 def test_other_systems_per_axis_and_2d_forms_still_raise(make):
-    """The shifted and Z4+GRMHD systems keep their fused 3-D kernels only:
-    their per-axis NCP and their 2-D steps raise, naming Queue 2 K1 d.  The
-    Z4+GRHD system has the per-axis and 2-D order-2 kernels
-    (``tests/test_torch_z4_matter_2d.py``): its forms are accepted."""
+    """The shifted system keeps its fused 3-D kernels only: its per-axis NCP
+    and its 2-D step raise, naming Queue 2 K1 d (d.2).  The Z4+GRHD and
+    Z4+GRMHD systems have the per-axis and 2-D order-2 kernels
+    (``tests/test_torch_z4_matter_2d.py``, ``tests/test_torch_z4_grmhd_2d.py``):
+    their forms are accepted."""
     name = make.__name__[len("make_"):-len("_solver")]
-    if name == "z4_matter":
+    if name in ("z4_matter", "z4_grmhd"):
         for grid, fused in (((2, 2, 2), False), ((4, 2), False), ((4, 2), "soa")):
             cu = CudaADERDG(make(len(grid), 2, grid, dx=DX, fused_rhs=fused, device="cpu"))
-            assert cu.per_axis == (fused is False) and cu.kernels[0].endswith("_z4_matter")
+            assert cu.per_axis == (fused is False) and cu.kernels[0].endswith(f"_{name}")
         return
     for grid in ((2, 2, 2), (4, 2)):
         with pytest.raises(LoweringError, match=f"{name} solver without.*Queue 2 K1 d"):

@@ -578,23 +578,24 @@ def test_refusals_name_their_roadmap_items():
         tg.z4_grmhd_system(impl="einsum")
     with pytest.raises(SemanticError, match="fused_rhs=True.*Queue 1 item 7.4"):
         _port(fused_rhs=True)
-    with pytest.raises(LoweringError, match="z4_grmhd solver without.*per-axis NCP branch.*"
-                                            "Queue 2 K1 d"):
-        CudaADERDG(_port(fused_rhs=False, grid=(2, 2, 2)))
+    # The per-axis NCP branch and the 2-D order-2 step are ported (K1 d.1,
+    # tests/test_torch_z4_grmhd_per_axis.py and test_torch_z4_grmhd_2d.py).
+    cu = CudaADERDG(_port(fused_rhs=False, grid=(2, 2, 2)))
+    assert cu.per_axis and cu.kernels[0] == "aderdg_predictor_volume_per_axis_z4_grmhd"
     sol = _port(grid=(2, 2, 2), boundary="outflow", wall_axes=(0,))
     with pytest.raises(LoweringError, match="periodic only.*Queue 2 K1 d"):
         CudaADERDG(sol)
     with pytest.raises(LoweringError, match="with_cuda_rhs.*make_z4_grmhd_solver"):
         CudaADERDG(with_cuda_rhs(_port(grid=(2, 2, 2))))
-    for dim, order in ((3, 3), (2, 2)):
+    for dim, order in ((3, 3), (2, 3)):
         sol = tg.make_z4_grmhd_solver(dim, order, (2,) * dim, dx=DX, fused_rhs="soa",
                                       device="cpu")
         with pytest.raises(LoweringError,
                            match=f"z4_grmhd, dim={dim}, order={order}.*Queue 1 item 4"):
             CudaADERDG(sol)
-    with pytest.raises(LoweringError, match="dim=2"):
-        with_cuda_rhs(tg.make_z4_grmhd_solver(2, 2, (4, 2), dx=DX, fused_rhs="soa",
-                                              device="cpu"))
+    sol = tg.make_z4_grmhd_solver(2, 2, (4, 2), dx=DX, fused_rhs="soa", device="cpu")
+    assert CudaADERDG(sol).kernels[0] == "aderdg_predictor_volume_2d_z4_grmhd"
+    assert with_cuda_rhs(sol).rhs_all_fn.kernel == "rhs_all_z4_grmhd_2d"  # K5 b
     with pytest.raises(LoweringError, match="47 z4_grmhd variables, got dim=3, n_vars=43"):
         CudaRHS(_port(grid=(2, 2, 2)).rhs_all_fn, 3, 43)
     with pytest.raises(LoweringError, match="47-variable Z4\\+GRMHD"):
