@@ -332,6 +332,28 @@ steps of the multichip phase), in this order:
   recovery is NaN at a zero field in both packages); the steps repeat
   bitwise; the 3-D per-axis step is timed beside the fused one and the
   2-D fused step beside one eager K5 b step on the same state.
+- **Z4 shifted per-axis and 2-D**: the 53-variable shifted system as the
+  JAX package builds it by default (``make_z4_shift_solver(...,
+  fused_rhs=False)``, the per-axis NCP: the solver of every shifted test
+  there and of ``scripts/z4_probe.py --shift --large``'s per-axis runs) in
+  3-D and 2-D, and its fused 2-D step, order 2, the Gamma-driver of the
+  shifted path — through ``CudaADERDG``: K1 d's per-axis predictor over the
+  shifted system on the 3-D cell (``csrc/aderdg_z4_shift_per_axis.cu``)
+  with the fused shifted step's face pair on ``Z4_GRID``, and the 2-D step,
+  fused and per-axis (``csrc/aderdg_z4_shift_2d.cu``) on ``Z4F_GRID``, 3
+  launches a step, 5 steps from the moving gauge wave (v = 0.2, amplitude
+  0.1) with seeded noise on every slot, dt = 1e-4, float32, gated on
+  finiteness and a bitwise rerun; and K5 b's shifted instance
+  (``rhs_all_z4_shift_2d``) under the 2-D fused solver's ``with_cuda_rhs``
+  route.  Each kernel is held to its plain version on that noisy wave in
+  float64 on ``Z4F_CUT`` (3-D: ``Z4_CUT``) in ``Z4S_FAMILIES`` and in
+  float32 at full width; the JAX package's three
+  shifted anchors (``tests/test_z4.py:802-860``: flat space with a constant
+  shift stationary to 1e-13 in both modes, the moving wave's convergence
+  rate above 2.5, the Gamma-driver's noise bounded below 1e-4 after 40
+  steps) run in float64 through the 2-D per-axis kernels; the 3-D
+  per-axis step is timed beside the fused one and the 2-D fused step
+  beside one eager K5 b step on the same state.
 - **multichip**: the sharded steps of ``exahype_tpu_torch/parallel/shard.py``
   (the twin of the JAX package's ``shard_map`` steps, ``__graft_entry__.py::
   dryrun_multichip``'s configurations at the bench's widths).  K1 e
@@ -678,6 +700,7 @@ EL2_CUTS = ((9, 9), (5, 7))
 EL2_TIME_GRID = (1024, 1024)
 EL2_TIME_WARMUP = 50
 EL2_PLAIN_STEPS = 10
+EL2_REPEAT_STEPS = 300  # the run's first steps, run twice: bitwise equal
 EL2_SYM = 1e-5
 EL2_ARRIVAL = 0.5
 #: Seeded noise of the K2 b kernel checks.
@@ -688,9 +711,9 @@ EL_NOISE = 1e-3
 #: (``:49-58``), order 3, periodic, the example's chip grid (96, 96) in
 #: float32, its vertical Ricker force (f0 = 8 at (0.5, 0.35)) and four
 #: receivers at y = 0.6 sampled after each forced step, dt 1e-4; run for
-#: ``TOPO_STEPS`` steps to t = 0.35, past the kinematic P arrival at every
+#: ``TOPO_STEPS`` steps to t = 0.3, past the kinematic P arrival at every
 #: receiver (c_p = 2: the Ricker's centre, 1/f0 = 0.125, reaches the nearest
-#: at t ≈ 0.26).  The example's own 400 steps end at t = 0.04, before the
+#: at t ≈ 0.26; the seismograms' maxima come at t ≈ 0.245-0.275).  The example's own 400 steps end at t = 0.04, before the
 #: wavelet has left the source: a reading (``TOPO_EXAMPLE_STEPS``).  Its
 #: gates (``:140-164``): the flat limit (height 0) against the Cartesian 2-D
 #: CK step (K2 b's ``elastic`` instance) within ``TOPO_FLAT`` of the field
@@ -701,7 +724,7 @@ TOPO_MATERIALS = (1.0, 2.0, 1.0)
 TOPO_HEIGHT = 0.04
 TOPO_GRID = (96, 96)
 TOPO_DT = 1e-4
-TOPO_STEPS = 3500
+TOPO_STEPS = 3000
 TOPO_EXAMPLE_STEPS = 400
 TOPO_SOURCE = (0.5, 0.35)
 TOPO_RX = (0.3, 0.4, 0.6, 0.7)
@@ -710,7 +733,7 @@ TOPO_F0 = 8.0
 TOPO_FLAT = 1e-5
 TOPO_EFFECT = 1e-3
 TOPO_PLAIN_STEPS = 10
-TOPO_REPEAT_STEPS = 500  # the hill run's first steps, run twice: bitwise equal
+TOPO_REPEAT_STEPS = 200  # the hill run's first steps, run twice: bitwise equal
 #: Float64 parity grids of the 2-D systems (one ragged in both tilings) and
 #: of the 3-D one; the forced curvilinear step and the 2-D heterogeneous
 #: step timed at ``K2B1_TIME_GRID`` (16.8 M nodes, 10 and 8 variables).
@@ -997,6 +1020,34 @@ Z4MX_BARS = dict(a2=1e-7, Dt=1e-9, theta=1e-9, Z=1e-9)
 #: gated as the Z4+GRMHD path (finite, admissible, ``Z4G_DRIFT``); the
 #: zero-field cross-check of each form in f64 on the cut grids.
 Z4GF_FORMS = ((3, False), (2, False), (2, "soa"))
+#: The shifted system on K1 d's per-axis branch and on the 2-D kernels: the
+#: JAX package's default build (``make_z4_shift_solver(...,
+#: fused_rhs=False)``, ``exahype_tpu/models/z4.py:511-563``, the solver of
+#: every shifted test there, ``tests/test_z4.py:802-897``, and of
+#: ``scripts/z4_probe.py --shift --large``'s per-axis runs, ``:76-82,
+#: 166-171``) in 3-D and 2-D, and its fused 2-D step, at order 2, in the
+#: shifted path's gauge (``Z4S_PARAMS``: the Gamma-driver, f_b = 0.75, η = 1);
+#: the 3-D per-axis step on ``Z4_GRID`` at dx = 1/128, the 2-D steps on
+#: ``Z4F_GRID`` at dx = 1/256; held to the plain stages on the moving gauge
+#: wave (v = ``Z4S_V``, amplitude 0.1) with ``Z4S_NOISE`` on every slot (f64
+#: on ``Z4_CUT`` and ``Z4F_CUT`` in ``Z4S_FAMILIES``, f32 at full width; the
+#: frozen shift is the anchors' and the card tests'), run and timed from the
+#: noisy wave, dt = ``Z4_DT``, ``Z4F_STEPS`` steps a form.
+Z4SF_FORMS = ((3, False), (2, False), (2, "soa"))
+#: The JAX package's shifted anchors, in float64 through the 2-D per-axis
+#: kernels on their own grids (``tests/test_z4.py:802-860``): Minkowski with
+#: the constant shift ``Z4SX_BETA`` on (4, 2) cells at dx = 0.25 stationary
+#: to ``Z4SX_STATIONARY`` over 10 steps of 5e-3 in both shift modes; the
+#: frozen moving gauge wave (v = 0.2, the default amplitude 0.01) on (4, 2)
+#: and (8, 2) cells at dx = 1/cells, 4 cells steps to t = 0.08, its L2
+#: errors converging at a rate above ``Z4SX_RATE``; flat space with seeded
+#: noise of 1e-6 (NumPy seed 1) under the Gamma-driver (κ₁ = 0.5, η = 2) on
+#: (4, 4) cells at dx = 0.25 within ``Z4SX_DRIVER`` of itself after 40 steps
+#: of 2e-3.
+Z4SX_BETA = (0.3, -0.2, 0.1)
+Z4SX_STATIONARY = 1e-13
+Z4SX_RATE = 2.5
+Z4SX_DRIVER = 1e-4
 #: K5's float32 bound is ``F32_ULPS`` spacings of max|plain|, as for the
 #: other kernels: on this state the plain float32 evaluation of each of a
 #: step's five calls is within 1.2-2.3 spacings of max|plain| of the float64
@@ -2678,27 +2729,32 @@ def elastic_k2b_path(torch, dev, card) -> list[dict]:
         f"x = 0.5 is a cell centre): dt = cfl_dt(ones) = {dt!r}; {EL2_STEPS} forced steps to "
         f"t = {EL2_STEPS * dt!r}; kernels {cu.kernels}")
     cu.reset_launches()
-    u, t, seis = forced_run(torch, src, cu.step, probe, rec, u0, t0, dt, EL2_STEPS)
+    # The first EL2_REPEAT_STEPS apart: the repeat runs them again.
+    u1, t, s1 = forced_run(torch, src, cu.step, probe, rec, u0, t0, dt, EL2_REPEAT_STEPS)
+    u, t, s2 = forced_run(torch, src, cu.step, probe, rec, u1, t, dt,
+                          EL2_STEPS - EL2_REPEAT_STEPS)
+    seis = torch.cat([s1, s2])
     torch.cuda.synchronize()
     launches2 = dict(cu.launches)
     if launches2 != {k: EL2_STEPS for k in cu.kernels}:
         fail(f"the point-source run launched {launches2} in {EL2_STEPS} steps")
     point_source_gates(f"{EL2_GRID} f32, {EL2_STEPS} steps", seis, float(t), dt, gate=True)
-    u_b, _, s_b = forced_run(torch, src, cu.step, probe, rec, u0, t0, dt, EL2_STEPS)
-    if not (torch.equal(u_b, u) and torch.equal(s_b, seis)):
+    u_b, _, s_b = forced_run(torch, src, cu.step, probe, rec, u0, t0, dt, EL2_REPEAT_STEPS)
+    if not (torch.equal(u_b, u1) and torch.equal(s_b, s1)):
         fail("two point-source runs from rest differ")
     n_cmp = EL2_PLAIN_STEPS
     uk, _, sk = forced_run(torch, src, cu.step, probe, rec, u, t, dt, n_cmp)
     up, _, sp = forced_run(torch, src, sol.step, probe, rec, u, t, dt, n_cmp)
     e_state, l_state = max_err(torch, uk, up), n_cmp * f32_bound(torch, up)
     e_seis, l_seis = max_err(torch, sk, sp), n_cmp * f32_bound(torch, sp)
-    say(f"[ps main] {EL2_GRID}: launches {launches2} (3 a step); two runs bitwise equal; "
+    say(f"[ps main] {EL2_GRID}: launches {launches2} (3 a step); the first {EL2_REPEAT_STEPS} "
+        f"steps run twice bitwise equal; "
         f"{n_cmp} forced steps on from step {EL2_STEPS}, kernel path vs plain path: state "
         f"max_abs_err {e_state:.3e} limit {l_state:.3e}, seismogram {e_seis:.3e} limit "
         f"{l_seis:.3e} ({n_cmp} x {F32_ULPS} f32 spacings)")
     if not (e_state <= l_state and e_seis <= l_seis):
         fail("the point-source kernel path disagrees with the plain path")
-    del u_b, s_b, uk, up, sk, sp
+    del u_b, s_b, u1, s1, s2, uk, up, sk, sp
     grid_ex, steps_ex = EL2_EXAMPLE
     sol_e, cu_e, u0_e, src_e, rec_e, probe_e, dt_e = point_source_setup(torch, dev, grid_ex, f32)
     _, t_e, s_e = forced_run(torch, src_e, cu_e.step, probe_e, rec_e, u0_e,
@@ -7469,6 +7525,307 @@ def z4g_forms_path(torch, dev, card) -> list[dict]:
     return lines + [k5_line]
 
 
+def z4s_forms_path(torch, dev, card) -> list[dict]:
+    """The shifted Z4 step as the JAX package builds it by default (the
+    per-axis NCP, ``fused_rhs=False``) in 3-D and 2-D, and its fused 2-D
+    step, through ``CudaADERDG``: K1 d's per-axis predictor over the shifted
+    system on the 3-D cell (``csrc/aderdg_z4_shift_per_axis.cu``, with the
+    fused shifted step's face pair) and the 2-D step at order 2, fused and
+    per-axis (``csrc/aderdg_z4_shift_2d.cu``); K5 b's shifted instance
+    (``rhs_all_z4_shift_2d``) under the 2-D fused solver's ``with_cuda_rhs``
+    route; the JAX package's shifted anchors through the 2-D per-axis
+    kernels.  Returns their lines of the kernel JSON."""
+    import numpy as np
+
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+    from exahype_tpu_torch.models.z4 import (
+        flat_state_values,
+        make_z4_shift_solver,
+        moving_gauge_wave_state,
+    )
+
+    f64 = torch.float64
+
+    def make(form, grid, dtype, dx, params=Z4S_PARAMS):
+        dim, fused = form
+        return make_z4_shift_solver(dim, Z4_ORDER, grid, dx=dx, fused_rhs=fused, device=dev,
+                                    dtype=dtype, **params)
+
+    def label(form):
+        dim, fused = form
+        return f"shifted {dim}-D p2 {'fused' if fused else 'per-axis'}"
+
+    def cut(form):
+        return (Z4F_CUT, Z4F_CUT_DX) if form[0] == 2 else (Z4_CUT, Z4_DX)
+
+    def noisy(sol, seed=5):
+        u = moving_gauge_wave_state(sol, v=Z4S_V, amplitude=Z4_AMPLITUDE)
+        noise = torch.from_numpy(np.random.default_rng(seed).standard_normal(tuple(u.shape)))
+        return (u + Z4S_NOISE * noise.to(u)).contiguous()
+
+    t0 = time.perf_counter()
+
+    def phase(what):
+        say(f"[z4sf] {what}: {time.perf_counter() - t0:.1f} s into the path (host clock)")
+
+    # ------------------------------------------- kernels vs plain, float64, cut grids
+    k5_err = 0.0
+    for params in Z4S_FAMILIES:  # the path's own parameters: float32 at full width below
+        for form in Z4SF_FORMS:
+            grid, dx = cut(form)
+            sol64 = make(form, grid, f64, dx, params)
+            u = noisy(sol64)
+            z4_kernel_parity(torch, sol64, CudaADERDG(sol64), u, Z4_DT, f"{label(form)} {params}",
+                             tag="z4sf")
+            if form == (2, "soa"):  # K5 b on every call of a step
+                k5 = with_cuda_rhs(sol64).rhs_all_fn
+                for i, (Q, grads, va) in enumerate(z4_rhs_calls(sol64, u, Z4_DT)):
+                    got, again = k5(Q, grads, va), k5(Q, grads, va)
+                    ref = sol64.rhs_all_fn(Q, grads, va)
+                    torch.cuda.synchronize()
+                    err = max_err(torch, got, ref)
+                    limit = Z4_F64_RTOL * max(1.0, ref.abs().max().item())
+                    ok = err <= limit and torch.equal(got, again)
+                    say(f"[z4sf parity] {k5.kernel} float64 {grid} {params} "
+                        f"{z4_call_name(i, sol64.picard_iters)} {tuple(Q.shape)}: max_abs_err "
+                        f"{err:.3e} limit {limit:.3e}; repeat bitwise {torch.equal(got, again)} "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        fail(f"K5 b's shifted instance disagrees with its plain version "
+                             f"(float64, {params}, {z4_call_name(i, sol64.picard_iters)})")
+                del k5, got, again, ref
+            del sol64, u
+    torch.cuda.empty_cache()
+    phase("the float64 parity")
+
+    # ------------------------------------------- the JAX package's anchors, float64,
+    # through the 2-D per-axis kernels (3 launches a step each)
+    def per_axis_2d(grid, dx, **params):
+        sol = make_z4_shift_solver(2, Z4_ORDER, grid, dx=dx, fused_rhs=False, device=dev,
+                                   dtype=f64, **params)
+        return sol, CudaADERDG(sol)
+
+    def constant(sol, values):
+        va = sol.var_axis
+        shape = sol.state_shape[:va] + sol.state_shape[va + 1:]
+        arr = np.moveaxis(np.broadcast_to(values, shape + (sol.n_vars,)), -1, va)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev, f64)
+
+    def run_counted(cu, q0, n, dt):
+        cu.reset_launches()
+        out = cu.run(q0, n, dt)
+        torch.cuda.synchronize()
+        if cu.launches != {name: n for name in cu.kernels}:
+            fail(f"an anchor run launched {cu.launches} in {n} steps, expected 3 a step")
+        return out
+
+    flat = np.concatenate([flat_state_values(), Z4SX_BETA, np.zeros(12)])
+    for mode in ("frozen", "gamma_driver"):
+        sol, cu = per_axis_2d((4, 2), 0.25, shift=mode)
+        q0 = constant(sol, flat)
+        err = max_err(torch, run_counted(cu, q0, 10, 5e-3), q0)
+        ok = err <= Z4SX_STATIONARY
+        say(f"[z4sf anchor] Minkowski with the constant shift β = {Z4SX_BETA}, {mode}, (4, 2) "
+            f"at dx = 0.25, 10 steps of 5e-3 through {cu.kernels[0]} float64: max |Q − Q0| "
+            f"{err!r} (gate {Z4SX_STATIONARY}; tests/test_z4.py:802) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"shifted flat space is not stationary on the kernels ({mode})")
+    errors = []
+    for cells in (4, 8):
+        sol, cu = per_axis_2d((cells, 2), 1.0 / cells, shift="frozen")
+        n = 4 * cells
+        q = run_counted(cu, moving_gauge_wave_state(sol, t=0.0, v=Z4S_V), n, 0.08 / n)
+        exact = moving_gauge_wave_state(sol, t=0.08, v=Z4S_V)
+        err2 = ((q - exact) ** 2 * node_weights(torch, sol, q)).sum().item()
+        errors.append(math.sqrt(err2 * math.prod(sol._dxs)))
+    rate = math.log2(errors[0] / errors[1])
+    say(f"[z4sf anchor] the frozen moving gauge wave (v = {Z4S_V}, amplitude 0.01) to t = 0.08 "
+        f"on (4, 2) and (8, 2) cells through the 2-D per-axis kernels, float64: L2 errors "
+        f"{errors!r}, rate {rate!r} (gate > {Z4SX_RATE}; tests/test_z4.py:829) "
+        f"{'ok' if rate > Z4SX_RATE else 'FAIL'}")
+    if not rate > Z4SX_RATE:
+        fail(f"the moving gauge wave converges at rate {rate} on the kernels")
+    sol, cu = per_axis_2d((4, 4), 0.25, shift="gamma_driver", kappa1=0.5, eta=2.0)
+    base = constant(sol, np.concatenate([flat_state_values(), np.zeros(15)]))
+    noise = np.random.default_rng(1).standard_normal(sol.state_shape)
+    q = run_counted(cu, base + 1e-6 * torch.from_numpy(noise).to(base), 40, 2e-3)
+    drift = max_err(torch, q, base)
+    ok = bool(torch.isfinite(q).all()) and drift < Z4SX_DRIVER
+    say(f"[z4sf anchor] flat space with noise of 1e-6 under the Gamma-driver (κ₁ = 0.5, η = 2), "
+        f"(4, 4) at dx = 0.25, 40 steps of 2e-3 through the 2-D per-axis kernels, float64: "
+        f"max |Q − flat| {drift!r} (gate < {Z4SX_DRIVER}; tests/test_z4.py:849) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the Gamma-driver run on the kernels did not stay bounded")
+    del sol, cu, q, q0, base, exact
+    phase("the JAX package's anchors")
+
+    # ------------------------------------------- float32 at full width: parity,
+    # the main path (3 launches a step, repeatable, finite), times
+    launches, errs, plain_ms, ms, work, info, counts = {}, {}, {}, {}, {}, {}, {}
+    for form in Z4SF_FORMS:
+        dim, fused = form
+        grid, dx = (Z4F_GRID, 1.0 / Z4F_GRID[0]) if dim == 2 else (Z4_GRID, Z4_DX)
+        sol = make(form, grid, torch.float32, dx)
+        cu = CudaADERDG(sol)
+        sol64 = make(form, grid, f64, dx)
+        u0 = noisy(sol)
+        times = {}
+        for name, err in z4_kernel_parity(torch, sol, cu, u0, Z4_DT, f"{label(form)}, full width",
+                                          sol64, tag="z4sf", plain_ms=times).items():
+            errs[name] = max(errs.get(name, 0.0), err)
+        for name, t in times.items():
+            plain_ms.setdefault(name, t)
+        del sol64
+        va = sol.var_axis
+        cfl = float(sol.cfl_dt(u0))
+        if Z4_DT > cfl:
+            fail(f"dt = {Z4_DT} is over the {label(form)} state's CFL limit {cfl}")
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        cu.reset_launches()
+        u = cu.run(u0, Z4F_STEPS, Z4_DT)
+        torch.cuda.synchronize()
+        got = dict(cu.launches)
+        say(f"[z4sf main] {label(form)} {grid} f32 ({sol.dofs()} DOF), the moving gauge wave (v = "
+            f"{Z4S_V}, amplitude {Z4_AMPLITUDE}) with noise of {Z4S_NOISE} on every slot, "
+            f"{Z4S_PARAMS}, dt = {Z4_DT} (cfl_dt {cfl!r}): {Z4F_STEPS} steps through "
+            f"CudaADERDG: launches {got} (expected {Z4F_STEPS} of each: 3 a step) ({card})")
+        if got != {name: Z4F_STEPS for name in cu.kernels}:
+            fail(f"the {label(form)} step launched {got} in {Z4F_STEPS} steps, expected 3 a step")
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        if tuple(u.shape) != sol.state_shape or not torch.isfinite(u).all():
+            fail(f"the {label(form)} state is not finite or has the wrong shape")
+        beta = u.narrow(va, 38, 3) - torch.tensor(
+            (Z4S_V, 0.0, 0.0), dtype=u.dtype, device=u.device).reshape(
+                (3,) + (1,) * (u.dim() - va - 1))
+        say(f"[z4sf reading] {label(form)} after {Z4F_STEPS} steps: max|β − (v, 0, 0)| "
+            f"{beta.abs().max().item()!r}, max|b| {u.narrow(va, 41, 3).abs().max().item()!r}, "
+            f"max|B| {u.narrow(va, 44, 9).abs().max().item()!r} (the Gamma-driver moves the "
+            "gauge sector); finite")
+        if not torch.equal(u, cu.run(u0, Z4F_STEPS, Z4_DT)):
+            fail(f"two {label(form)} runs from the same state differ")
+        win = [1e3 * w for w in windows(torch, cu, u0, Z4_DT, steps=Z4F_STEPS)]
+        say(f"[z4sf time] {label(form)} {grid} f32 step: ms per window {win!r}; median "
+            f"{statistics.median(win)!r} ms, {sol.dofs() / statistics.median(win) * 1e3!r} "
+            f"DOF-updates/s; runs bitwise equal ({card})")
+        new, faces, _ = cu.predictor_volume(u0, Z4_DT)
+        fhat, fhalf = cu.face_flux(faces)
+        pred, flux, update = cu.kernels
+        ms[pred] = event_ms(torch, lambda: cu.predictor_volume(u0, Z4_DT), 10)
+        if dim == 2 and flux not in ms:  # the 2-D pair once (the 3-D pair is the shifted path's)
+            ms[flux] = event_ms(torch, lambda: cu.face_flux(faces), 20)
+            ms[update] = event_ms(
+                torch, lambda: cu.surface_update(new, fhat, Z4_DT, fhalf=fhalf), 20)
+        say(f"[z4sf time] {label(form)} kernels (CUDA events): " + ", ".join(
+            f"{name} {ms[name]!r} ms (plain {plain_ms[name]!r} ms)" for name in cu.kernels
+            if name in ms) + f" ({card})")
+        if dim == 3:  # the fused step on the same state
+            fcu = CudaADERDG(make((3, "soa"), grid, torch.float32, dx))
+            fwin = [1e3 * w for w in windows(torch, fcu, u0, Z4_DT, steps=Z4F_STEPS)]
+            fpred = event_ms(torch, lambda: fcu.predictor_volume(u0, Z4_DT), 10)
+            say(f"[z4sf time] shifted 3-D p2 on the same state: per-axis step median "
+                f"{statistics.median(win)!r} ms, predictor {ms[pred]!r} ms; fused step "
+                f"{statistics.median(fwin)!r} ms (windows {fwin!r}), predictor {fpred!r} ms "
+                f"({ms[pred] / fpred:.3f}x) ({card})")
+            del fcu
+        if form == (2, "soa"):  # K5 b's with_cuda_rhs route on the same state
+            kern = with_cuda_rhs(sol)
+            k5 = kern.rhs_all_fn
+            iters = sol.picard_iters
+            calls = z4_rhs_calls(sol, u0, Z4_DT)
+            for i in (0, iters):  # the Picard shape, the corrector's
+                Q, grads, va_ = calls[i]
+                got_k, ref = k5(Q, grads, va_), sol.rhs_all_fn(Q, grads, va_)
+                ref64 = sol.rhs_all_fn(Q.double(), tuple(g.double() for g in grads), va_)
+                torch.cuda.synchronize()
+                err, limit = max_err(torch, got_k, ref), f32_bound(torch, ref)
+                say(f"[z4sf parity] {k5.kernel} float32 {grid} {z4_call_name(i, iters)} "
+                    f"{tuple(Q.shape)}: max_abs_err {err:.3e} limit {limit:.3e} ({F32_ULPS} f32 "
+                    f"spacings of max|plain| = {ref.abs().max().item():.4g}) "
+                    f"{'ok' if err <= limit else 'FAIL'}; against the float64 plain result: "
+                    f"kernel {max_err(torch, got_k, ref64):.3e}, plain float32 "
+                    f"{max_err(torch, ref, ref64):.3e}")
+                if not err <= limit:
+                    fail(f"K5 b's shifted instance (float32, {z4_call_name(i, iters)}) "
+                         "disagrees with its plain version")
+                k5_err = max(k5_err, err)
+                del got_k, ref, ref64
+            pic = calls[0]
+            del calls
+            k5.reset_launches()
+            eager, eager_ms = timed_once(torch, lambda: kern.step(u0, Z4_DT))
+            k5_launches = k5.launches
+            ref = cu.step(u0, Z4_DT)
+            if k5_launches != iters + 2:
+                fail(f"the with_cuda_rhs step launched K5 b {k5_launches} times, expected "
+                     f"{iters + 2}")
+            say(f"[z4sf time] shifted 2-D p2 fused {grid}: one eager step of the with_cuda_rhs "
+                f"route (K5 b, {k5_launches} launches) {eager_ms!r} ms against CudaADERDG's "
+                f"{statistics.median(win)!r} ms; max |difference| {max_err(torch, eager, ref)!r} "
+                f"(f32 bound {f32_bound(torch, ref)!r}) ({card})")
+            k5_ms = event_ms(torch, lambda: k5(*pic), 20)
+            k5_plain_ms = event_ms(torch, lambda: sol.rhs_all_fn(*pic), 2)
+            q_slots, grad_slots = z4_slots_read(torch, sol.rhs_all_fn)
+            Q = pic[0]
+            points = Q.numel() // Q.shape[pic[2]]
+            # The 2-D algebra reads two of the three gradient directions.
+            k5_bytes = Q.element_size() * points * (q_slots + 2 * grad_slots // 3
+                                                    + Q.shape[pic[2]])
+            k5_ops = z4_value_ops(torch, sol.rhs_all_fn, (0, 1)) * points
+            b_k5 = bound(k5_bytes, k5_ops)
+            say(f"[bound] {k5.kernel} a Picard call {tuple(Q.shape)} f32: {k5_bytes} B "
+                f"({q_slots} state slots and two directions' {2 * grad_slots // 3} gradient "
+                f"slots read, {Q.shape[pic[2]]} written), {k5_ops} operations (z4_value_ops "
+                f"with two gradient axes): bound {b_k5['bound_ms']!r} ms by "
+                f"{b_k5['bound_by']}; kernel {k5_ms!r} ms ({k5_ms / b_k5['bound_ms']:.2f}x), "
+                f"plain {k5_plain_ms!r} ms (CUDA events; {card})")
+            k5_line = kernel_line(f"{k5.kernel} (shifted, K5 b)",
+                                  "exahype_tpu/models/rhs_pallas.py:104", k5_launches, k5_err,
+                                  k5_ms, k5_plain_ms, b_k5, "exahype_tpu_torch/csrc/rhs.cu")
+            del kern, k5, eager, ref, pic, Q
+        # Bounds: the algebra's operations (on the fused solver's hook, the
+        # same algebra) and the cell's counts.
+        if dim not in counts:
+            hook = make((dim, "soa"), (1,) * dim, f64, dx).rhs_all_fn
+            axes = tuple(range(dim))
+            counts[dim] = (z4_value_ops(torch, hook, axes), z4_value_ops(torch, hook, ()),
+                           sum(z4_value_ops(torch, hook, (k,)) for k in axes) / dim,
+                           sum(z4_ncp_ops(torch, hook, k) for k in axes),
+                           z4_slots_read(torch, hook)[1] // 3)
+            say(f"[bound] shifted {dim}-D: the algebra's operations at a point (z4_value_ops): "
+                f"every axis {counts[dim][0]}, none {counts[dim][1]}, one {counts[dim][2]!r}; "
+                f"the {dim} NCP products together (z4_ncp_ops) {counts[dim][3]}; gradient "
+                f"slots read an axis {counts[dim][4]}")
+        full, zero, one_axis, ncp, gs = counts[dim]
+        w = z4_kernel_work(Z4_ORDER, sol.picard_iters, math.prod(grid), 4, full, zero,
+                           one_axis, v=sol.n_vars, gs=gs, eig_ops=25, dim=dim,
+                           ncp=None if fused else ncp, names=cu.kernels)
+        for name in cu.kernels:
+            if name in ms and name not in work:
+                work[name] = w[name]
+                info[name] = (cu, f"{label(form)} {grid} f32")
+        del sol, cu, u0, u, new, faces, fhat, fhalf
+        torch.cuda.empty_cache()
+    phase("the float32 forms at full width")
+
+    # ------------------------------------------- reports and the JSON lines
+    lines = []
+    for name, (n_bytes, n_ops) in work.items():
+        cu, where = info[name]
+        bnd = kernel_report(cu, name, torch.float32, where, ms[name], n_bytes, n_ops, card)
+        lines.append(kernel_line(f"{name} (shifted, K1 d)",
+                                 "exahype_tpu/models/aderdg_pallas.py:156", launches[name],
+                                 errs[name], ms[name], plain_ms[name], bnd,
+                                 "exahype_tpu_torch/csrc/aderdg_z4.cuh"))
+    missing = [name for name in work if not launches.get(name)]
+    if missing:
+        fail(f"kernels of the shifted per-axis and 2-D path never launched: {missing}")
+    return lines + [k5_line]
+
+
 def flowing_sod_state(solver, torch, device, dtype, ux=WALLS_UX):
     """:func:`sod_state` with a uniform flow ``ux`` along axis 0 added: the
     momentum ρ u_x and the kinetic energy ½ ρ u_x² (the pressures stay)."""
@@ -8162,7 +8519,9 @@ def viscous_shock_path(torch, dev, card) -> list[dict]:
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     cu.reset_launches()
-    u = lim.run(u0, STEPS, dt)
+    # The first TIME_STEPS steps apart: the repeat runs them again.
+    u_first = lim.run(u0, TIME_STEPS, dt)
+    u = lim.run(u_first, STEPS - TIME_STEPS, dt)
     torch.cuda.synchronize()
     launches = dict(cu.launches)
     peak = torch.cuda.max_memory_allocated()
@@ -8179,7 +8538,7 @@ def viscous_shock_path(torch, dev, card) -> list[dict]:
         f"{rel[3]:.3e} (limit {MASS_RTOL:.0e} in f32)")
     if not (finite and admissible and frac > 0 and rel[0] < MASS_RTOL and rel[3] < MASS_RTOL):
         fail(f"the viscous shock misses its gates at {grid}")
-    if not torch.equal(u, lim.run(u0, STEPS, dt)):
+    if not torch.equal(u_first, lim.run(u0, TIME_STEPS, dt)):
         fail("two viscous shock runs from the same state differ")
     mask_k = lim.troubled_mask(u, cu.step(u, dt))
     mask_p = plain.troubled_mask(u, sol.step(u, dt))
@@ -8190,13 +8549,14 @@ def viscous_shock_path(torch, dev, card) -> list[dict]:
     torch.cuda.synchronize()
     plain_peak = torch.cuda.max_memory_allocated()
     err, limit = max_err(torch, step_k, step_p), f32_bound(torch, step_p)
-    say(f"[shock main] two runs bitwise equal; one step from the final state, kernel path vs "
+    say(f"[shock main] the first {TIME_STEPS} steps run twice bitwise equal; one step from the "
+        f"final state, kernel path vs "
         f"plain path: troubled cells {int(mask_k.sum())} / {int(mask_p.sum())}, masks equal "
         f"{torch.equal(mask_k, mask_p)}; state max_abs_err {err:.3e} limit {limit:.3e}; peak of "
         f"the plain step {plain_peak * gib:.4f} GiB")
     if not (torch.equal(mask_k, mask_p) and err <= limit):
         fail("the 2-D viscous limited kernel path disagrees with the plain path")
-    del mask_k, mask_p, step_k, step_p, u
+    del mask_k, mask_p, step_k, step_p, u, u_first
 
     # ------------------------------ times
     dofs = sol.dofs()
@@ -8349,7 +8709,7 @@ MC_DG_CASES = (
     ("reflective on axis 0", dict(boundary="reflective", wall_axes=(0,)), False),
     ("outflow on axes 0 and 1", dict(boundary="outflow", wall_axes=(0, 1)), True),
 )
-MC_DG_STEPS = 10
+MC_DG_STEPS = 4
 MC_FV_GRID = FV_GRIDS[1]
 MC_FV_STEPS = 5
 #: The 2-D gauge wave of the Z4 runs (``__graft_entry__.py:476-529``'s
@@ -8796,6 +9156,7 @@ def main():
         "Z4 per-axis and 2-D": lambda: z4_forms_path(torch, dev, card),
         "Z4+GRHD per-axis and 2-D": lambda: z4m_forms_path(torch, dev, card),
         "Z4+GRMHD per-axis and 2-D": lambda: z4g_forms_path(torch, dev, card),
+        "Z4 shifted per-axis and 2-D": lambda: z4s_forms_path(torch, dev, card),
         "multichip": lambda: multichip_path(torch, dev, card),
     }
     kernels, seconds = [], {"build": time.perf_counter() - t0}

@@ -104,6 +104,8 @@ _RHS_ALL = (
 _RHS_ALL_2D = _RHS_ALL[:3] + _RHS_ALL[4:]
 # The shifted instance: the same, then before the stream shift, f_b, eta.
 _RHS_ALL_SHIFT = _RHS_ALL[:-1] + (_INT, ctypes.c_double, ctypes.c_double, _P)
+# K5 b's 2-D shifted instance: the shifted instance's arguments without g2.
+_RHS_ALL_SHIFT_2D = _RHS_ALL_SHIFT[:3] + _RHS_ALL_SHIFT[4:]
 # The Z4+GRHD instance: the same, then before the stream gamma, iters.
 _RHS_ALL_MATTER = _RHS_ALL[:-1] + (ctypes.c_double, _INT, _P)
 # K5 b's 2-D Z4+GRHD instance: the Z4+GRHD instance's arguments without g2.
@@ -156,13 +158,15 @@ _SIGNATURES = {
             ("predictor_volume", _PREDICTOR_VOLUME),
             ("predictor_volume_per_axis", _PREDICTOR_VOLUME),
             ("face_flux", _FACE_FLUX_Z4), ("surface_update", _SURFACE_UPDATE_Z4))),
-        # The Z4+GRMHD system's, the same (csrc/aderdg_z4_grmhd_per_axis*.cu,
-        # aderdg_z4_grmhd_2d*.cu).
-        ("aderdg_predictor_volume_per_axis_z4_grmhd", _PREDICTOR_VOLUME),
-        *((f"aderdg_{kernel}_2d_z4_grmhd", argtypes) for kernel, argtypes in (
-            ("predictor_volume", _PREDICTOR_VOLUME),
-            ("predictor_volume_per_axis", _PREDICTOR_VOLUME),
-            ("face_flux", _FACE_FLUX_Z4), ("surface_update", _SURFACE_UPDATE_Z4))),
+        # The Z4+GRMHD and shifted systems', the same
+        # (csrc/aderdg_z4_grmhd_per_axis*.cu, aderdg_z4_grmhd_2d*.cu,
+        # aderdg_z4_shift_per_axis*.cu, aderdg_z4_shift_2d*.cu).
+        *(entry for system in ("grmhd", "shift") for entry in (
+            (f"aderdg_predictor_volume_per_axis_z4_{system}", _PREDICTOR_VOLUME),
+            *((f"aderdg_{kernel}_2d_z4_{system}", argtypes) for kernel, argtypes in (
+                ("predictor_volume", _PREDICTOR_VOLUME),
+                ("predictor_volume_per_axis", _PREDICTOR_VOLUME),
+                ("face_flux", _FACE_FLUX_Z4), ("surface_update", _SURFACE_UPDATE_Z4))))),
         *((f"aderdg_{kernel}_p{order}", argtypes) for order in (4, 5, 7)
           for kernel, argtypes in (
               ("predictor_volume", _PREDICTOR_VOLUME), ("face_flux", _FACE_FLUX),
@@ -179,6 +183,7 @@ _SIGNATURES = {
         ("rhs_all_z4", _RHS_ALL),
         ("rhs_all_z4_2d", _RHS_ALL_2D),
         ("rhs_all_z4_shift", _RHS_ALL_SHIFT),
+        ("rhs_all_z4_shift_2d", _RHS_ALL_SHIFT_2D),
         ("rhs_all_z4_matter", _RHS_ALL_MATTER),
         ("rhs_all_z4_matter_2d", _RHS_ALL_MATTER_2D),
         ("rhs_all_z4_grmhd", _RHS_ALL_GRMHD),

@@ -744,8 +744,12 @@ def z4_shift_solver_from_jax(jax_solver, *, slicing: str = "harmonic", f: float 
     solver (53 variables): as :func:`z4_solver_from_jax`, the caller naming
     the system's parameters, the shift condition with them (``shift``,
     ``f_b``, ``eta``), each checked against the JAX callbacks on the probe
-    state.  ``with_pallas_rhs`` of it maps to ``with_cuda_rhs``,
-    ``PallasADERDG`` of it to ``CudaADERDG``.  A solver of another variable
+    state.  ``with_pallas_rhs`` of it maps to ``with_cuda_rhs`` (K5 c; K5 b's
+    ``rhs_all_z4_shift_2d`` in 2-D), ``PallasADERDG`` of it to
+    ``CudaADERDG`` (K1 d over the 53-variable system): fused or per-axis in
+    3-D and in 2-D at order 2, so the JAX package's default build
+    (``fused_rhs=False``, no ``rhs_all_fn``) gives a ``CudaADERDG`` with
+    ``per_axis`` true.  A solver of another variable
     count raises ``SemanticError``: 38 crosses through
     :func:`z4_solver_from_jax`, 43 through :func:`z4_matter_solver_from_jax`,
     47 through :func:`z4_grmhd_solver_from_jax`."""

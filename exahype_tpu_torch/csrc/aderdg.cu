@@ -250,6 +250,12 @@ int z4_grmhd_per_axis_info_f32(int* out) __attribute__((weak));
 int z4_grmhd_per_axis_info_f64(int* out) __attribute__((weak));
 int z4_grmhd_2d_info_f32(int which, int* out) __attribute__((weak));
 int z4_grmhd_2d_info_f64(int which, int* out) __attribute__((weak));
+// The shifted system's, the same (csrc/aderdg_z4_shift_per_axis.cu,
+// aderdg_z4_shift_2d.cu and their _f64 twins; weak too).
+int z4_shift_per_axis_info_f32(int* out) __attribute__((weak));
+int z4_shift_per_axis_info_f64(int* out) __attribute__((weak));
+int z4_shift_2d_info_f32(int which, int* out) __attribute__((weak));
+int z4_shift_2d_info_f64(int which, int* out) __attribute__((weak));
 // The space-time predictor's occupancy at orders 5, 4 and 7
 // (csrc/aderdg_p5.cu, aderdg_p4.cu, aderdg_p7.cu and their _f64 twins; weak
 // too).
@@ -1767,6 +1773,15 @@ int kernel_info(int kernel, int physics, int* out) {
     auto* info = f64 ? z4_grmhd_2d_info_f64 : z4_grmhd_2d_info_f32;
     return info ? info(kernel - 61, out) : cudaErrorInvalidValue;
   }
+  if (kernel >= 65 && kernel <= 69) {  // the shifted per-axis and 2-D kernels, 65-69
+    if (physics != kZ4Shift) return cudaErrorInvalidValue;
+    if (kernel == 65) {
+      auto* info = f64 ? z4_shift_per_axis_info_f64 : z4_shift_per_axis_info_f32;
+      return info ? info(out) : cudaErrorInvalidValue;
+    }
+    auto* info = f64 ? z4_shift_2d_info_f64 : z4_shift_2d_info_f32;
+    return info ? info(kernel - 66, out) : cudaErrorInvalidValue;
+  }
   if (physics == kZ4) {  // the Z4 step's own three kernels, 7-9
     auto* info = sizeof(T) == 8 ? z4_kernel_info_f64 : z4_kernel_info_f32;
     return info && kernel >= 7 && kernel <= 9 ? info(kernel - 7, out) : cudaErrorInvalidValue;
@@ -2193,7 +2208,8 @@ int exahype_aderdg_surface_update_p2_f64(double* state, const double* fhat,
 // predictor_volume_per_axis); physics 5: 55 =
 // predictor_volume_per_axis_z4_matter, 56-59 the 2-D step at order 2 in the
 // same order; physics 6: 60 = predictor_volume_per_axis_z4_grmhd, 61-64 the
-// same; f64 = 0 or 1.
+// same; physics 4: 65 = predictor_volume_per_axis_z4_shift, 66-69 the same;
+// f64 = 0 or 1.
 int exahype_aderdg_kernel_info(int kernel, int f64, int physics, int* out) {
   return f64 ? kernel_info<double>(kernel, physics, out)
              : kernel_info<float>(kernel, physics, out);

@@ -17,7 +17,9 @@
 // its order-2 steps on the 2-D cell, fused and per-axis,
 // csrc/aderdg_z4_matter_2d.cu; the Z4+GRMHD system the same,
 // csrc/aderdg_z4_grmhd_per_axis.cu (make_z4_grmhd_solver's default) and
-// csrc/aderdg_z4_grmhd_2d.cu; each again with an _f64 twin: twenty-two
+// csrc/aderdg_z4_grmhd_2d.cu; the shifted system the same,
+// csrc/aderdg_z4_shift_per_axis.cu (make_z4_shift_solver's default) and
+// csrc/aderdg_z4_shift_2d.cu; each again with an _f64 twin: twenty-six
 // sources that nvcc compiles in parallel.
 //
 // Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
@@ -69,7 +71,7 @@
 //                            h_lo), the _lo values the −d neighbour's
 //                            high-face ones, in place.
 //
-// The per-axis branch (kPerAxis; the vacuum, Z4+GRHD and Z4+GRMHD systems).  Per
+// The per-axis branch (kPerAxis; every system).  Per
 // Picard iteration each thread evaluates the algebra G::kAxes + 1 times at
 // its point in one code copy, the gradient chosen at run time: the source
 // rhs(q, 0), then rhs(q, e_d D_d q) for each axis d, D_d q unscaled as the
@@ -88,7 +90,10 @@
 // recovery, pass d + 1 subtracting λ_d w_s (D·F_d) on the hydro rows before
 // the axis's NCP term as the plain version orders them; the epilogue's
 // evaluations at q̄ share one recovery a thread, and new gains each axis's
-// volume integral λ_d Kvol·F̄_d before its NCP term.
+// volume integral λ_d Kvol·F̄_d before its NCP term.  The shifted system's
+// gradient rows skip β's slots (Sys::row_offset, Sys::slot_skip), so each
+// pass reads D_d q of the slots the algebra reads through the same maps as
+// the fused branch.
 //
 // The 2-D cells.  The same kernels over Z4Cell<2, N>: a cell's N² nodes and
 // N³ points, the gradients of two axes (the algebra's third is a
@@ -191,8 +196,8 @@ constexpr size_t kZ4SmemLimit = 232448;
 // The cell a kernel instance takes: DIM axes of N nodes (order N − 1), its
 // nodes and face nodes numbered row-major as the solver numbers them.  The
 // 3-D order-2 cell (Z4Cell3) is every system's; the 2-D cells at orders 2
-// and 3 are the vacuum system's, and at order 2 also Z4+GRHD's and
-// Z4+GRMHD's.  The face
+// and 3 are the vacuum system's, and at order 2 also every other
+// system's.  The face
 // stage tiles the grid's last axis (csrc/aderdg_common.cuh::TileCell), so a
 // 2-D grid (g0, g1) goes to it as the 3-D grid (1, g0, g1): grid axis d is
 // the tiling's axis kAxis0 + d.
@@ -487,7 +492,10 @@ struct Z4Smem {
 // (243 threads) and 4.  Z4+GRMHD per-axis on the 3-D cell: 89,640 B a cell
 // in float32, so 2 (162 threads), and 1 in float64; on the 2-D cell, order
 // 2: 16,020 B (X the overrun, 153 values), so 14 and 7; per-axis 25,560 B,
-// so 9 and 4.
+// so 9 and 4.  Shifted per-axis on the 3-D cell: 99,036 B a cell in float32
+// (X the two rows, 8,586 values), so 2 (162 threads), and 1 in float64; on
+// the 2-D cell, order 2: 16,920 B (no overrun), so 13 (351 threads) and 6;
+// per-axis 28,368 B, so 8 (216 threads) and 4.
 template <typename T, typename Sys, typename G = Z4Cell3, bool kPerAxis = false>
 constexpr int z4_cells_per_block() {
   constexpr int smem =
@@ -1329,8 +1337,9 @@ int z4_info(int which, int* out) {
 
 // A system on a 2-D cell of N nodes an axis (csrc/aderdg_z4_2d*.cu, the
 // vacuum system; csrc/aderdg_z4_matter_2d*.cu, Z4+GRHD;
-// csrc/aderdg_z4_grmhd_2d*.cu, Z4+GRMHD): the C interface's grid (g0, g1,
-// 1) goes to the kernels as (1, g0, g1).
+// csrc/aderdg_z4_grmhd_2d*.cu, Z4+GRMHD; csrc/aderdg_z4_shift_2d*.cu, the
+// shifted one): the C interface's grid (g0, g1, 1) goes to the kernels as
+// (1, g0, g1).
 using Z4Cell2P2 = Z4Cell<2, 3>;
 using Z4Cell2P3 = Z4Cell<2, 4>;
 

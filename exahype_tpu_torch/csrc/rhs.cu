@@ -9,8 +9,9 @@
 //
 // K5 b, rhs_all_z4_2d, is the 38-variable instance on a 2-D grid: two
 // gradient arrays, the third axis's derivatives a run-time zero;
-// rhs_all_z4_matter_2d is the 43-variable Z4+GRHD one and
-// rhs_all_z4_grmhd_2d the 47-variable Z4+GRMHD one.
+// rhs_all_z4_shift_2d is the 53-variable shifted one,
+// rhs_all_z4_matter_2d the 43-variable Z4+GRHD one and rhs_all_z4_grmhd_2d
+// the 47-variable Z4+GRMHD one.
 //
 // Replaces the TPU kernel exahype_tpu/models/rhs_pallas.py::PallasRHS._build
 // (its pallas_call) on those instances.  The numbers to match are those of
@@ -154,6 +155,24 @@ rhs_all_z4_2d(const T* __restrict__ q, const T* __restrict__ g0, const T* __rest
   z4::rhs<T>(load_q, load_dq, p, store);
 }
 
+// K5 b's shifted instance: rhs_all_z4_shift's algebra on a 2-D grid, two
+// gradient arrays and the third a run-time zero, as in rhs_all_z4_2d.
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+rhs_all_z4_shift_2d(const T* __restrict__ q, const T* __restrict__ g0,
+                    const T* __restrict__ g1, T* __restrict__ out, long long n_points,
+                    long long G, z4s::Params p, T zero) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  if (idx >= n_points) return;
+  const long long b = idx / G;
+  const long long base = b * z4s::kVars * G + (idx - b * G);
+  const T* const grads[2] = {g0, g1};
+  auto load_q = [&](int s) { return q[base + s * G]; };
+  auto load_dq = [&](int k, int s) { return k == 2 ? zero : grads[k][base + s * G]; };
+  auto store = [&](int s, T v) { out[base + s * G] = v; };
+  z4s::rhs<T>(load_q, load_dq, p, store);
+}
+
 // K5 b's Z4+GRHD instance: rhs_all_z4_matter's algebra on a 2-D grid, two
 // gradient arrays and the third a run-time zero, as in rhs_all_z4_2d.
 template <typename T>
@@ -235,6 +254,23 @@ int launch_shift(const T* q, const T* g0, const T* g1, const T* g2, T* out, long
   rhs_all_z4_shift<T>
       <<<static_cast<unsigned>(blocks), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
           q, g0, g1, g2, out, n_points, n_grid, p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_shift_2d(const T* q, const T* g0, const T* g1, T* out, long long n_lead, int n_vars,
+                    long long n_grid, int slicing, double f, double m, double kappa1,
+                    double kappa2, int shift, double f_b, double eta, void* stream) {
+  if (n_vars != z4s::kVars || n_lead <= 0 || n_grid <= 0 || (slicing != 0 && slicing != 1) ||
+      (shift != 0 && shift != 1)) {
+    return cudaErrorInvalidValue;
+  }
+  const long long n_points = n_lead * n_grid;
+  const long long blocks = (n_points + kBlock - 1) / kBlock;
+  const z4s::Params p{{slicing, f, m, kappa1, kappa2}, shift, f_b, eta};
+  rhs_all_z4_shift_2d<T>
+      <<<static_cast<unsigned>(blocks), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+          q, g0, g1, out, n_points, n_grid, p, T(0));
   return cudaGetLastError();
 }
 
@@ -449,6 +485,27 @@ int exahype_rhs_all_z4_grmhd_2d_f64(const double* q, const double* g0, const dou
                                     double glm_kappa, void* stream) {
   return launch_grmhd_2d<double>(q, g0, g1, out, n_lead, n_vars, n_grid, slicing, f, m,
                                  kappa1, kappa2, gamma, iters, c_h, glm_kappa, stream);
+}
+
+// K5 b's shifted instance on a 2-D grid: the shifted instance's arguments
+// without g2.
+
+int exahype_rhs_all_z4_shift_2d_f32(const float* q, const float* g0, const float* g1,
+                                    float* out, long long n_lead, int n_vars, long long n_grid,
+                                    int slicing, double f, double m, double kappa1,
+                                    double kappa2, int shift, double f_b, double eta,
+                                    void* stream) {
+  return launch_shift_2d<float>(q, g0, g1, out, n_lead, n_vars, n_grid, slicing, f, m, kappa1,
+                                kappa2, shift, f_b, eta, stream);
+}
+
+int exahype_rhs_all_z4_shift_2d_f64(const double* q, const double* g0, const double* g1,
+                                    double* out, long long n_lead, int n_vars, long long n_grid,
+                                    int slicing, double f, double m, double kappa1,
+                                    double kappa2, int shift, double f_b, double eta,
+                                    void* stream) {
+  return launch_shift_2d<double>(q, g0, g1, out, n_lead, n_vars, n_grid, slicing, f, m, kappa1,
+                                 kappa2, shift, f_b, eta, stream);
 }
 
 }  // extern "C"

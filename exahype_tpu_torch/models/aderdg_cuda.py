@@ -66,7 +66,10 @@ on its per-axis NCP path with its flux (``make_z4_matter_solver(...,
 fused_rhs=False)``, the JAX package's default) in 3-D at order 2, and in 2-D
 at order 2, fused or per-axis (``examples/flrw_cosmology.py``); and for the
 Z4+GRMHD system the same (``make_z4_grmhd_solver(..., fused_rhs=False)``,
-the solver every Z4+GRMHD test of the JAX package builds).  The
+the solver every Z4+GRMHD test of the JAX package builds), and for the
+shifted system the same (``make_z4_shift_solver(..., fused_rhs=False)``,
+frozen shift or Gamma-driver, the solver every shifted test of the JAX
+package builds and ``scripts/z4_probe.py --shift`` runs).  The
 step is three launches of kernels from ``csrc/aderdg.cu``,
 ``csrc/aderdg_visc.cu``, ``csrc/aderdg_z4.cu``, ``csrc/aderdg_z4_shift.cu``,
 ``csrc/aderdg_z4_matter.cu`` and ``csrc/aderdg_z4_grmhd.cu`` (see the notes
@@ -101,7 +104,8 @@ the Rusanov flux's ½(f_hi + f⁺) on the hydro rows (its per-axis predictor
 ``csrc/aderdg_z4_matter_2d.cu``, the vacuum 2-D names with ``_matter``); Z4+GRMHD with
 ``_grmhd``, the same on its fluid, field and cleaning rows (its per-axis
 predictor and 2-D step in ``csrc/aderdg_z4_grmhd_per_axis.cu`` and
-``csrc/aderdg_z4_grmhd_2d.cu``)): the
+``csrc/aderdg_z4_grmhd_2d.cu``; the shifted system's in
+``csrc/aderdg_z4_shift_per_axis.cu`` and ``csrc/aderdg_z4_shift_2d.cu``)): the
 predictor evaluates the algebra of ``csrc/z4.cuh`` (shifted:
 ``csrc/z4_shift.cuh``; coupled: ``csrc/z4_matter.cuh``,
 ``csrc/z4_grmhd.cuh``) in every Picard iteration, for the source average
@@ -111,11 +115,9 @@ writes each interface's NCP half-fluctuation into a second tensor,
 and :meth:`CudaADERDG.surface_update` takes.  A solver qualifies when its
 flux, wave speed, ``source_fn``, ``ncp_fn`` and ``rhs_all_fn`` all carry one
 ``PhysicsTag("z4", ...)`` (or ``"z4_shift"``, ``"z4_matter"``,
-``"z4_grmhd"``), ``rhs_all_fn`` unset only on the vacuum, Z4+GRHD and
-Z4+GRMHD systems; any other ``source_fn``/``ncp_fn``/``rhs_all_fn`` raises
-:class:`LoweringError`, and so do the shifted system without the fused
-hook (its per-axis NCP branch), a Z4 solver with ``source_fn`` alone, the
-shifted system's 2-D step, a Z4
+``"z4_grmhd"``), or all but ``rhs_all_fn`` (the per-axis NCP branch); any
+other ``source_fn``/``ncp_fn``/``rhs_all_fn`` raises
+:class:`LoweringError`, and so do a Z4 solver with ``source_fn`` alone, a Z4
 solver with walls, and a solver whose ``rhs_all_fn`` is already on K5
 (``models.rhs_cuda.with_cuda_rhs``: these kernels compile the algebra in and
 would bypass it; build ``CudaADERDG`` on the plain solver).  On the CK
@@ -190,15 +192,15 @@ INSTANTIATED = {
     ("z4", 2, 2): "picard",
     ("z4", 2, 3): "picard",
     ("z4_shift", 3, 2): "picard",
+    ("z4_shift", 2, 2): "picard",
     ("z4_matter", 3, 2): "picard",
     ("z4_matter", 2, 2): "picard",
     ("z4_grmhd", 3, 2): "picard",
     ("z4_grmhd", 2, 2): "picard",
 }
-#: The Z4 systems, whose step is the fused-NCP kernels' (K1 d).
+#: The Z4 systems, whose step is the fused-NCP kernels' (K1 d), each also
+#: with the per-axis NCP branch and a 2-D step.
 _Z4 = ("z4", "z4_shift", "z4_matter", "z4_grmhd")
-#: The Z4 systems with kernels of the per-axis NCP branch and a 2-D step.
-_Z4_FORMS = ("z4", "z4_matter", "z4_grmhd")
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -311,8 +313,8 @@ def _z4_refusal(solver) -> None:
     """Raise unless the solver's ``source_fn``/``ncp_fn``/``rhs_all_fn`` are
     a Z4 system the kernels compile in: fused (all three set), zero-shift,
     shifted or coupled to matter, magnetized or not, or the per-axis NCP
-    branch (``source_fn`` and ``ncp_fn`` without ``rhs_all_fn``) of any but
-    the shifted system (called when any is set)."""
+    branch (``source_fn`` and ``ncp_fn`` without ``rhs_all_fn``) of any of
+    them (called when any is set)."""
     if isinstance(solver.rhs_all_fn, CudaRHS):
         raise LoweringError(
             "the rhs_all_fn is on K5 (models.rhs_cuda.with_cuda_rhs): the CUDA step "
@@ -326,7 +328,7 @@ def _z4_refusal(solver) -> None:
     tag = tags.pop() if len(tags) == 1 else None
     if tag is not None and tag.name in _Z4:
         missing = [name for name in CALLBACK_OPTIONS if getattr(solver, name) is None]
-        if tag.name in _Z4_FORMS and missing == ["rhs_all_fn"]:
+        if missing == ["rhs_all_fn"]:
             return  # the per-axis NCP branch (make_z4_solver(..., fused_rhs=False))
         if "ncp_fn" in missing and solver.source_fn is not None:
             raise LoweringError(
@@ -338,11 +340,10 @@ def _z4_refusal(solver) -> None:
             raise LoweringError(
                 f"a {tag.name} solver without {', '.join(missing)}: the CUDA kernels carry "
                 "the fused right-hand side (make_z4_solver, make_z4_shift_solver, "
-                "make_z4_matter_solver or make_z4_grmhd_solver(..., fused_rhs='soa')) and, "
-                "for the vacuum, Z4+GRHD and Z4+GRMHD systems, the per-axis NCP branch "
-                "(make_z4_solver, make_z4_matter_solver or make_z4_grmhd_solver(..., "
-                "fused_rhs=False)); the shifted system's per-axis NCP branch is still to "
-                "port, see ROADMAP.md, Queue 2 K1 d.2 (the plain solver runs it)"
+                "make_z4_matter_solver or make_z4_grmhd_solver(..., fused_rhs='soa')) and "
+                "the per-axis NCP branch (the same with fused_rhs=False), each with "
+                "source_fn and ncp_fn; other combinations are still to port, see ROADMAP.md, "
+                "Queue 2 K1 d (the plain solver runs them)"
             )
         return
     options = ", ".join(name for name in CALLBACK_OPTIONS if getattr(solver, name) is not None)
@@ -393,7 +394,9 @@ class CudaADERDG:
     #: ``csrc/aderdg_z4_matter_per_axis.cu``, and 56-59 its 2-D step at order
     #: 2, ``csrc/aderdg_z4_matter_2d.cu``, in the same order; 60-64 of
     #: physics 6: the Z4+GRMHD system's, ``csrc/aderdg_z4_grmhd_per_axis.cu``
-    #: and ``csrc/aderdg_z4_grmhd_2d.cu``, the same).
+    #: and ``csrc/aderdg_z4_grmhd_2d.cu``, the same; 65-69 of physics 4: the
+    #: shifted system's, ``csrc/aderdg_z4_shift_per_axis.cu`` and
+    #: ``csrc/aderdg_z4_shift_2d.cu``, the same).
     KERNELS = (
         "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
         "aderdg_surface_update", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
@@ -416,7 +419,7 @@ class CudaADERDG:
         "aderdg_predictor_volume_per_axis_z4",
         *(f"aderdg_{kernel}{order}_2d_z4" for order in ("", "_p3") for kernel in (
             "predictor_volume", "face_flux", "surface_update", "predictor_volume_per_axis")),
-        *(name for system in ("matter", "grmhd") for name in (
+        *(name for system in ("matter", "grmhd", "shift") for name in (
             f"aderdg_predictor_volume_per_axis_z4_{system}",
             *(f"aderdg_{kernel}_2d_z4_{system}" for kernel in (
                 "predictor_volume", "face_flux", "surface_update",
@@ -480,8 +483,6 @@ class CudaADERDG:
         key = (tag.name, solver.dim, solver.order)
         if key not in INSTANTIATED:
             item = "Queue 2 K2 b" if tag.name in _ELASTIC else "Queue 1 item 4"
-            if tag.name in _Z4 and tag.name not in _Z4_FORMS and solver.dim == 2:
-                item += " (this system's 2-D step: Queue 2 K1 d.2)"
             raise LoweringError(
                 f"no CUDA kernel instantiated for {tag.name}, dim={solver.dim}, "
                 f"order={solver.order} (have {sorted(INSTANTIATED)}); see ROADMAP.md, "
@@ -541,9 +542,8 @@ class CudaADERDG:
         #: Whether the step carries the fused NCP right-hand side (Z4): the
         #: face flux kernel then also returns the NCP half-fluctuations.
         self.ncp = ncp
-        #: Whether the NCP is the per-axis branch (a Z4 system other than the
-        #: shifted one without ``rhs_all_fn``: its own predictor, the same
-        #: face stage).
+        #: Whether the NCP is the per-axis branch (a Z4 system without
+        #: ``rhs_all_fn``: its own predictor, the same face stage).
         self.per_axis = per_axis
         #: The sponge the CK predictor compiles in (K2 a), or None; its σ
         #: goes to the kernel per cell, by dtype and device in ``_sigma``.

@@ -11,11 +11,11 @@ kernel ``rhs_all_z4`` (38 variables, algebra ``csrc/z4.cuh``),
 ``csrc/z4_matter.cuh``, its con2prim Newton in the kernel) or
 ``rhs_all_z4_grmhd`` (K5 e: the 47-variable coupled Z4+GRMHD system,
 ``csrc/z4_grmhd.cuh``, its field-aligned con2prim Newton in the kernel) of
-``csrc/rhs.cu`` (see the note there for the design); on a 2-D grid the
-38-variable system's ``rhs_all_z4_2d``, the Z4+GRHD system's
-``rhs_all_z4_matter_2d`` and the Z4+GRMHD system's ``rhs_all_z4_grmhd_2d``
-(K5 b: two gradient arrays, the third axis's derivatives zero as the plain
-version zero-fills them).
+``csrc/rhs.cu`` (see the note there for the design); on a 2-D grid each
+system's instance with ``_2d`` (K5 b: ``rhs_all_z4_2d``,
+``rhs_all_z4_shift_2d``, ``rhs_all_z4_matter_2d`` and
+``rhs_all_z4_grmhd_2d``, two gradient arrays, the third axis's derivatives
+zero as the plain version zero-fills them).
 
 :class:`CudaRHS` wraps a tagged Z4 ``rhs_all_fn`` (``make_z4_solver(...,
 impl="soa", fused_rhs="soa")`` or ``make_z4_shift_solver(...,
@@ -68,10 +68,9 @@ class CudaRHS:
     parameters become the kernel's arguments.  :attr:`kernel` names the
     instance, ``launches`` counts its launches."""
 
-    #: The instance of each system: (kernel, variables).  At ``dim = 2`` the
-    #: vacuum, Z4+GRHD and Z4+GRMHD systems' are ``rhs_all_z4_2d``,
-    #: ``rhs_all_z4_matter_2d`` and ``rhs_all_z4_grmhd_2d`` (K5 b), two
-    #: gradient arrays.
+    #: The instance of each system: (kernel, variables).  At ``dim = 2``
+    #: each system's is the same name with ``_2d`` (K5 b), two gradient
+    #: arrays.
     INSTANCES = {
         "z4": ("rhs_all_z4", N_VARS),
         "z4_shift": ("rhs_all_z4_shift", N_VARS_SHIFT),
@@ -92,19 +91,12 @@ class CudaRHS:
                 f"got an rhs_all_fn tagged {tag!r}"
             )
         self.kernel, vars_ = self.INSTANCES[tag.name]
-        if dim == 2 and tag.name != "z4_shift" and n_vars == vars_:
+        if dim == 2 and n_vars == vars_:
             self.kernel += "_2d"  # K5 b
-        elif dim == 2 and n_vars == vars_:
-            raise LoweringError(
-                f"K5 has 2-D instances for the vacuum Z4, Z4+GRHD and Z4+GRMHD systems only "
-                f"(K5 b), got {tag.name} at dim=2: the shifted system's 2-D instance is still "
-                "to port, see ROADMAP.md, Queue 2 K5 b (the plain solver runs it)"
-            )
         elif dim != 3 or n_vars != vars_:
             raise LoweringError(
                 f"K5 takes 3 gradient arrays of the {vars_} {tag.name} variables, got "
-                f"dim={dim}, n_vars={n_vars} (2 arrays at dim=2 for the vacuum, Z4+GRHD and "
-                "Z4+GRMHD systems)"
+                f"dim={dim}, n_vars={n_vars} (2 arrays at dim=2)"
             )
         slicing, f, m, kappa1, kappa2, *rest = tag.params
         self.inner = rhs_all_fn

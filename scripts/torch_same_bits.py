@@ -79,6 +79,13 @@ compares their outputs bit for bit:
   (``rhs_all_z4_grmhd_2d``, ``K5 b grmhd``: the first Picard call of the
   2-D fused step on that state), reported as new against a checkout
   without them;
+- where the checkout has them, the shifted system's per-axis predictor
+  (3-D p2) and its 2-D step at order 2, fused and per-axis (``K1 d shift
+  forms``: the state of ``tests/test_torch_cuda.py::_z4s_form_setup``, the
+  Gamma-driver, at the same grids, the same outputs), and K5 b's shifted
+  instance (``rhs_all_z4_shift_2d``, ``K5 b shift``: the first Picard call
+  of the 2-D fused step on that state), reported as new against a checkout
+  without them;
 - the limiter's subcell sweep K3 (``subcell_row_sweep``, 3-D p3 Euler) on
   a seeded gathered batch ``[7, 7, 7, 5, 8, 16]`` with 5 of 8 slots active,
   each direction, in float64 and float32, and where the checkout has it K3
@@ -134,7 +141,7 @@ SASS_KERNELS = (
     "aderdg_surface_update_2d", "subcell_row_sweep", "subcell_row_sweep_ncp",
     "aderdg_ck_predictor_volume", "aderdg_ck_predictor_nodes", "aderdg_face_flux_exchanged",
     "rhs_all_z4_2d", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
-    "rhs_all_z4_matter_2d", "rhs_all_z4_grmhd_2d",
+    "rhs_all_z4_matter_2d", "rhs_all_z4_grmhd_2d", "rhs_all_z4_shift_2d",
 )
 #: The Z4 step kernels' systems, the 2-D Navier–Stokes physics, the CK
 #: predictor's sponge and K2 b's homogeneous elasticity (a template argument
@@ -153,7 +160,8 @@ NEW = ("Z4Grmhd", "rhs_all_z4_grmhd", "Z4+GRMHD", "aderdg_predictor_volume_st",
        "CurvilinearElastic", "K2 b.1", "aderdg_face_flux_exchanged", "K1 e",
        "rhs_all_z4_2d", "K5 b", "K1 c order 4", "K1 c order 7", "K1 c walled",
        "K1 d forms", "rhs_all_z4_matter_2d", "K1 d matter forms", "K5 b matter",
-       "rhs_all_z4_grmhd_2d", "K1 d grmhd forms", "K5 b grmhd")
+       "rhs_all_z4_grmhd_2d", "K1 d grmhd forms", "K5 b grmhd", "rhs_all_z4_shift_2d",
+       "K1 d shift forms", "K5 b shift")
 #: The node counts of the face stage's Euler-only instances (orders 4, 5,
 #: 7); the walled pair was instantiated at order 3 only before.
 NEW_NODES = ("5", "6", "8")
@@ -500,6 +508,37 @@ if ("z4_grmhd", 2, 2) in INSTANTIATED:  # the Z4+GRMHD per-axis branch and 2-D s
             rec.rhs_all_fn = first
             rec.predictor_volume(u, 1e-4)
             results[f"K5 b grmhd {grid} {dtype} {k5.kernel} Picard call 1"] = calls[0].cpu()
+if ("z4_shift", 2, 2) in INSTANTIATED:  # the shifted per-axis branch and 2-D step, K5 b
+    for dim, fused, grid, dtype in (
+            (3, False, (8, 4, 16), torch.float64), (3, False, (16, 16, 128), torch.float32),
+            *((2, fused, grid, dtype) for fused in (False, "soa")
+              for grid, dtype in (((8, 6), torch.float64), ((64, 32), torch.float32)))):
+        sol = make_z4_shift_solver(dim, 2, grid, dx=1.0 / 128, fused_rhs=fused,
+                                   shift="gamma_driver", device="cuda", dtype=dtype)
+        cu = CudaADERDG(sol)
+        # tests/test_torch_cuda.py::_z4s_form_setup's state.
+        u = moving_gauge_wave_state(sol, v=0.2, amplitude=0.1)
+        noise = np.random.default_rng(5).standard_normal(u.shape)
+        u = (u + 1e-3 * torch.from_numpy(noise).to(u)).contiguous()
+        new, faces = cu.predictor_volume(u, 1e-4)[:2]
+        fhat, fhalf = cu.face_flux(faces)
+        key = f"K1 d shift forms {dim}-D p2 fused_rhs={fused} {grid} {dtype}"
+        results[key + " predictor new"] = new.cpu()
+        results[key + " predictor faces"] = faces.cpu()
+        results[key + " face flux fhat"] = fhat.cpu()
+        results[key + " face flux fhalf"] = fhalf.cpu()
+        results[key + " 3 steps"] = cu.run(u, 3, 1e-4).cpu()
+        if dim == 2 and fused:
+            calls = []
+            rec = with_cuda_rhs(sol)
+            k5 = rec.rhs_all_fn
+            def first(Q, grads, va):
+                if not calls:
+                    calls.append(k5(Q, grads, va))
+                return sol.rhs_all_fn(Q, grads, va)
+            rec.rhs_all_fn = first
+            rec.predictor_volume(u, 1e-4)
+            results[f"K5 b shift {grid} {dtype} {k5.kernel} Picard call 1"] = calls[0].cpu()
 from exahype_tpu_torch.models import subcell_cuda
 from exahype_tpu_torch.models.limiter import LimitedADERDG
 def batch(shape, seed, nvar):

@@ -27,7 +27,9 @@ and fused, ``csrc/aderdg_z4_matter_per_axis.cu`` and
 same variant over ``csrc/aderdg_z4_grmhd.cu``, on a magnetized fluid with a
 GLM scalar and the same noise; its per-axis branch in 3-D and its 2-D step,
 per-axis and fused, ``csrc/aderdg_z4_grmhd_per_axis.cu`` and
-``aderdg_z4_grmhd_2d.cu``, with K5 b's 2-D instance); the 2-D Euler p3 step (K1 c,
+``aderdg_z4_grmhd_2d.cu``, with K5 b's 2-D instance) and the shifted one's
+(``aderdg_z4_shift_per_axis.cu``, ``aderdg_z4_shift_2d.cu``, with K5 b's 2-D
+instance); the 2-D Euler p3 step (K1 c,
 ``csrc/aderdg_2d.cu``) periodic and in every wall mode, and the limited
 step with walls (gathered rows in 3-D, the whole grid in 2-D); the 2-D
 Navier–Stokes p3 step (the viscous predictor and the penalised face pair
@@ -2916,6 +2918,136 @@ def test_k5b_grmhd_rhs_kernel_matches_plain(dtype, grid):
         torch.cuda.synchronize()
         assert _err(got, ref) <= _z4_bound(ref, dtype)
         assert torch.equal(got, k5(Q, grads, va))  # bitwise repeatable
+    k5.reset_launches()
+    step = kern.step(u, 1e-4)
+    ref = plain.step(u, 1e-4)
+    torch.cuda.synchronize()
+    assert _err(step, ref) <= _z4_bound(ref, dtype)
+    assert k5.launches == plain.picard_iters + 2
+
+
+#: Each shifted form's predictor launch: (threads, dynamic shared memory) in
+#: float32 and float64 (csrc/aderdg_z4.cuh::z4_cells_per_block: 2 and 1
+#: cells of 99,036 B; 8 and 4 of 28,368 B; 13 and 6 of 16,920 B).
+Z4S_FORM_BLOCKS = {
+    (3, False): ((162, 198072), (81, 198072)),
+    (2, False): ((216, 226944), (108, 226944)),
+    (2, "soa"): ((351, 219960), (162, 203040)),
+}
+
+
+def _z4s_form_setup(dim, fused, dtype, grid=None, **params):
+    """The shifted solver of one form on the card (dx = 1/128), its
+    ``CudaADERDG`` and the moving gauge wave (v = 0.2, amplitude 0.1) with
+    seeded noise of 1e-3 on every slot (on the exact wave b = B = ∂b = ∂B =
+    0, and the kernels' gradient rows skip β's slots 38-40); the grid ragged
+    in the last predictor block and face tile by default."""
+    from exahype_tpu_torch.models.z4 import make_z4_shift_solver, moving_gauge_wave_state
+
+    dev = _card()
+    grid = grid or ((3, 5, 7) if dim == 3 else (7, 37))
+    sol = make_z4_shift_solver(dim, 2, grid, dx=1.0 / 128, fused_rhs=fused, device=dev,
+                               dtype=dtype, **params)
+    u = moving_gauge_wave_state(sol, v=0.2, amplitude=0.1)
+    noise = np.random.default_rng(5).standard_normal(u.shape)
+    return sol, CudaADERDG(sol), (u + 1e-3 * torch.from_numpy(noise).to(u)).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", Z4S_PARAMS, ids=Z4S_IDS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("dim,fused", Z4M_FORMS, ids=Z4M_FORM_IDS)
+def test_z4_shift_form_kernels_match_plain(dim, fused, dtype, params):
+    """Each kernel of the shifted per-axis and 2-D forms against its plain
+    version, fed the plain inputs (float32 NCP halves against plain float64
+    from the same faces, as ``test_z4_kernels_match_plain`` holds them); the
+    face tensor's f rows are zeros."""
+    from exahype_tpu_torch.models.z4 import make_z4_shift_solver
+
+    sol, cu, u = _z4s_form_setup(dim, fused, dtype, **params)
+    dt = 1e-4
+    new_k, faces_k, _ = cu.predictor_volume(u, dt)
+    new_p, faces_p, _ = sol.predictor_volume(u, dt)
+    fhat_k, fhalf_k = cu.face_flux(faces_p)
+    fhat_p, fhalf_p = _z4_form_halves(sol, faces_p)
+    upd_k = cu.surface_update(new_p.clone(), fhat_p.contiguous(), dt,
+                              fhalf=fhalf_p.contiguous())
+    upd_p = new_p
+    for d in range(dim):
+        upd_p = sol.surface_term(upd_p, fhat_p[d].view(sol.face_flux_shape), d, dt)
+        upd_p = sol.ncp_term(upd_p, fhalf_p[d].view(sol.face_flux_shape), d, dt)
+    torch.cuda.synchronize()
+    for a, b in ((new_k, new_p), (faces_k, faces_p), (fhat_k, fhat_p), (upd_k, upd_p)):
+        assert _err(a, b) <= _z4_bound(b, dtype)
+    if dtype == torch.float64:
+        assert _err(fhalf_k, fhalf_p) <= _z4_bound(fhalf_p, dtype)
+    else:
+        sol64 = make_z4_shift_solver(dim, 2, sol.grid_shape, dx=sol._dxs[0], fused_rhs=fused,
+                                     device=u.device, dtype=torch.float64, **params)
+        ref64 = _z4_form_halves(sol64, faces_p.double())[1]
+        limit = max(4 * _err(fhalf_p, ref64), _bound(ref64, torch.float32))
+        assert limit < 0.1 * ref64.abs().max().item()
+        assert _err(fhalf_k, ref64) <= limit
+    assert not faces_k[:, 2:].any()  # the F̄ rows are written as zeros
+    assert cu.launches == {name: 1 for name in cu.kernels}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", Z4S_PARAMS[:2], ids=Z4S_IDS[:2])
+@pytest.mark.parametrize("dim,fused", Z4M_FORMS, ids=Z4M_FORM_IDS)
+def test_z4_shift_form_steps_launch_three_kernels(dim, fused, params):
+    """Two steps in each shift mode: 3 launches a step, bitwise repeatable,
+    within the bar of the plain steps, the gauge sector moving under the
+    Gamma-driver (frozen, it moves by the face stage's dissipation only);
+    the occupancy query answers for each kernel, and the
+    predictor launches as many cells a block as the shared memory admits."""
+    sol, cu, u = _z4s_form_setup(dim, fused, torch.float64, **params)
+    name = "aderdg_predictor_volume" + ("_per_axis" if fused is False else "")
+    assert cu.kernels == (f"{name}{'_2d' if dim == 2 else ''}_z4_shift",
+                          f"aderdg_face_flux{'_2d' if dim == 2 else ''}_z4_shift",
+                          f"aderdg_surface_update{'_2d' if dim == 2 else ''}_z4_shift")
+    cu.reset_launches()
+    got = cu.run(u, 2, 1e-4)
+    assert cu.launches == {name: 2 for name in cu.kernels}
+    assert torch.equal(got, cu.run(u, 2, 1e-4))
+    ref = sol.run(u, 2, 1e-4)
+    assert _err(got, ref) <= _z4_bound(ref, torch.float64)
+    if params["shift"] == "gamma_driver":
+        assert (got - u).narrow(sol.var_axis, 38, 15).abs().max().item() > 0
+    for dtype in (torch.float32, torch.float64):
+        for kernel in cu.kernels:
+            info = cu.kernel_info(kernel, dtype)
+            assert info["blocks_per_sm"] >= 1 and info["registers"] > 0, (kernel, dtype, info)
+    for dtype, (threads, smem) in zip((torch.float32, torch.float64),
+                                      Z4S_FORM_BLOCKS[(dim, fused)]):
+        info = cu.kernel_info(cu.kernels[0], dtype)
+        assert (info["threads"], info["smem"]) == (threads, smem), (dtype, info)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", Z4S_PARAMS, ids=Z4S_IDS)
+@pytest.mark.parametrize("dtype,grid", [(torch.float64, (8, 6)), (torch.float32, (16, 8)),
+                                        (torch.float64, (5, 3))])
+def test_k5b_shift_rhs_kernel_matches_plain(dtype, grid, params):
+    """K5 b's shifted instance (``rhs_all_z4_shift_2d``) on every call of
+    one step of the 2-D fused solver, and the step through it."""
+    from exahype_tpu_torch.models.rhs_cuda import with_cuda_rhs
+
+    plain, _, u = _z4s_form_setup(2, "soa", dtype, grid=grid, **params)
+    kern = with_cuda_rhs(plain)
+    k5 = kern.rhs_all_fn
+    assert k5.kernel == "rhs_all_z4_shift_2d"
+    calls = _rhs_calls(plain, u)
+    assert len(calls) == plain.picard_iters + 2
+    for Q, grads, va in calls:
+        assert len(grads) == 2
+        got = k5(Q, grads, va)
+        ref = plain.rhs_all_fn(Q, grads, va)
+        torch.cuda.synchronize()
+        assert _err(got, ref) <= _z4_bound(ref, dtype)
+        assert torch.equal(got, k5(Q, grads, va))  # bitwise repeatable
+        if params["shift"] == "frozen":
+            assert not got.narrow(va, 38, 15).any()
     k5.reset_launches()
     step = kern.step(u, 1e-4)
     ref = plain.step(u, 1e-4)

@@ -182,22 +182,18 @@ def test_z4_solver_from_jax_crosses_the_3d_per_axis_solver():
 @pytest.mark.parametrize("make", [tz.make_z4_shift_solver, make_z4_matter_solver,
                                   make_z4_grmhd_solver], ids=["shift", "matter", "grmhd"])
 def test_other_systems_per_axis_and_2d_forms_still_raise(make):
-    """The shifted system keeps its fused 3-D kernels only: its per-axis NCP
-    and its 2-D step raise, naming Queue 2 K1 d (d.2).  The Z4+GRHD and
-    Z4+GRMHD systems have the per-axis and 2-D order-2 kernels
-    (``tests/test_torch_z4_matter_2d.py``, ``tests/test_torch_z4_grmhd_2d.py``):
-    their forms are accepted."""
+    """The shifted, Z4+GRHD and Z4+GRMHD systems have the per-axis and 2-D
+    order-2 kernels (``tests/test_torch_z4_shift_2d.py``,
+    ``tests/test_torch_z4_matter_2d.py``, ``tests/test_torch_z4_grmhd_2d.py``):
+    their forms, once refused, are accepted with their kernels' names."""
     name = make.__name__[len("make_"):-len("_solver")]
-    if name in ("z4_matter", "z4_grmhd"):
-        for grid, fused in (((2, 2, 2), False), ((4, 2), False), ((4, 2), "soa")):
-            cu = CudaADERDG(make(len(grid), 2, grid, dx=DX, fused_rhs=fused, device="cpu"))
-            assert cu.per_axis == (fused is False) and cu.kernels[0].endswith(f"_{name}")
-        return
-    for grid in ((2, 2, 2), (4, 2)):
-        with pytest.raises(LoweringError, match=f"{name} solver without.*Queue 2 K1 d"):
-            CudaADERDG(make(len(grid), 2, grid, dx=DX, fused_rhs=False, device="cpu"))
-    with pytest.raises(LoweringError, match=f"{name}, dim=2, order=2.*Queue 2 K1 d"):
-        CudaADERDG(make(2, 2, (4, 2), dx=DX, fused_rhs="soa", device="cpu"))
+    for grid, fused in (((2, 2, 2), False), ((4, 2), False), ((4, 2), "soa")):
+        cu = CudaADERDG(make(len(grid), 2, grid, dx=DX, fused_rhs=fused, device="cpu"))
+        predictor = "aderdg_predictor_volume" + ("_per_axis" if fused is False else "")
+        dim = "_2d" if len(grid) == 2 else ""
+        assert cu.per_axis == (fused is False)
+        assert cu.kernels == (f"{predictor}{dim}_{name}", f"aderdg_face_flux{dim}_{name}",
+                              f"aderdg_surface_update{dim}_{name}")
 
 
 def test_what_else_still_raises():

@@ -197,10 +197,13 @@ def test_pallas_aderdg_crosses_to_cuda_aderdg(jax_run):
 
 
 def test_refuses_the_per_axis_ncp_branch():
-    """The per-axis NCP branch is on the card for the vacuum system only
-    (``tests/test_torch_z4_2d.py``); the shifted system's still raises."""
-    with pytest.raises(LoweringError, match="per-axis NCP branch.*Queue 2 K1 d"):
-        CudaADERDG(tz.make_z4_shift_solver(3, 2, (2, 2, 2), dx=DX, impl="soa", device="cpu"))
+    """The per-axis NCP branch was refused for the shifted system until its
+    kernel existed; it is now accepted with that kernel
+    (``tests/test_torch_z4_shift_per_axis.py``)."""
+    cu = CudaADERDG(tz.make_z4_shift_solver(3, 2, (2, 2, 2), dx=DX, impl="soa", device="cpu"))
+    assert cu.per_axis and cu.kernels == (
+        "aderdg_predictor_volume_per_axis_z4_shift", "aderdg_face_flux_z4_shift",
+        "aderdg_surface_update_z4_shift")
 
 
 def test_refuses_a_solver_already_on_k5():

@@ -360,23 +360,25 @@ def test_refusals_name_their_roadmap_items():
         tz.make_z4_solver(3, 2, GRID, dx=DX, impl="einsum", device="cpu")
     with pytest.raises(ValueError, match="shift mode"):
         _port(shift="harmonic")
-    with pytest.raises(LoweringError, match="z4_shift solver without.*per-axis NCP branch.*"
-                                            "Queue 2 K1 d"):
-        CudaADERDG(_port(fused_rhs=False, grid=(2, 2, 2)))
+    # The per-axis NCP branch, refused until its kernel existed, is accepted.
+    assert CudaADERDG(_port(fused_rhs=False, grid=(2, 2, 2))).kernels[0] == (
+        "aderdg_predictor_volume_per_axis_z4_shift")
     sol = _port(grid=(2, 2, 2), boundary="outflow", wall_axes=(0,))
     with pytest.raises(LoweringError, match="periodic only.*Queue 2 K1 d"):
         CudaADERDG(sol)
     with pytest.raises(LoweringError, match="with_cuda_rhs"):
         CudaADERDG(with_cuda_rhs(_port(grid=(2, 2, 2))))
-    for dim, order in ((3, 3), (2, 2)):
+    for dim, order in ((3, 3), (2, 3)):
         sol = tz.make_z4_shift_solver(dim, order, (2,) * dim, dx=DX, fused_rhs="soa",
                                       device="cpu")
         with pytest.raises(LoweringError,
                            match=f"z4_shift, dim={dim}, order={order}.*Queue 1 item 4"):
             CudaADERDG(sol)
-    with pytest.raises(LoweringError, match="dim=2"):
-        with_cuda_rhs(tz.make_z4_shift_solver(2, 2, (4, 2), dx=DX, fused_rhs="soa",
-                                              device="cpu"))
+    # The 2-D order-2 step and K5 b's 2-D instance, refused until their
+    # kernels existed, are accepted.
+    sol2 = tz.make_z4_shift_solver(2, 2, (4, 2), dx=DX, fused_rhs="soa", device="cpu")
+    assert CudaADERDG(sol2).kernels[0] == "aderdg_predictor_volume_2d_z4_shift"
+    assert with_cuda_rhs(sol2).rhs_all_fn.kernel == "rhs_all_z4_shift_2d"
     z4 = tz.make_z4_solver(3, 2, (2, 2, 2), dx=DX, fused_rhs="soa", device="cpu")
     with pytest.raises(LoweringError, match="53 z4_shift variables, got dim=3, n_vars=38"):
         CudaRHS(_port(grid=(2, 2, 2)).rhs_all_fn, 3, 38)

@@ -193,17 +193,17 @@ def test_refusals():
     with pytest.raises(LoweringError, match="rhs_all_fn set"):
         with_cuda_rhs(_port(fused_rhs=False))
     # K5 b: the 38-variable system at dim=2 is accepted (two gradient
-    # arrays; on the CPU the plain route); the other systems' 2-D instances
-    # wait on Queue 2 K5 b.
+    # arrays; on the CPU the plain route), and so is the shifted one, which
+    # was refused until its 2-D instance existed.
     sol2 = tz.make_z4_solver(2, 2, (4, 2), dx=DX, impl="soa", fused_rhs="soa", device="cpu")
     k5b = with_cuda_rhs(sol2)
     assert k5b.rhs_all_fn.kernel == "rhs_all_z4_2d"
     u2 = tz.gauge_wave_state(sol2, amplitude=0.1)
     assert torch.equal(k5b.step(u2, 1e-4), sol2.step(u2, 1e-4))
     assert k5b.rhs_all_fn.launches == 0  # CPU tensors take the plain route
-    with pytest.raises(LoweringError, match=r"ROADMAP.md, Queue 2 K5 b"):
-        with_cuda_rhs(tz.make_z4_shift_solver(2, 2, (4, 2), dx=DX, fused_rhs="soa",
-                                              device="cpu"))
+    shifted = with_cuda_rhs(tz.make_z4_shift_solver(2, 2, (4, 2), dx=DX, fused_rhs="soa",
+                                                    device="cpu"))
+    assert shifted.rhs_all_fn.kernel == "rhs_all_z4_shift_2d"
     flux, eig = euler_physics(3)
     for rhs_all in (lambda q, g, va: q, flux):  # untagged; tagged Euler
         with pytest.raises(LoweringError, match="38-variable vacuum Z4"):
