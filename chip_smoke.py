@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one card, nvcc
 
-It drives twenty paths, each through ``exahype_tpu_torch``'s entry points
+It drives twenty-five paths, each through ``exahype_tpu_torch``'s entry points
 with its kernels' launch counters set to 0 just before and read just
 after (the two forms of the main path, ADER-DG and FV, and the order-4, -5
 and -7,
 limited, limited with walls, limited 2-D blast with walls, viscous shock,
-2-D vortex, CK, layered seismic, homogeneous elastic, walls, viscous,
+2-D vortex, 2-D Navier–Stokes walls and order 2, CK, layered seismic, homogeneous elastic, walls, viscous,
 dynamic-GR, shifted
 dynamic-GR, Z4+GRHD, limited Z4+GRHD and Z4+GRMHD slices, and the sharded
 steps of the multichip phase), in this order:
@@ -108,6 +108,24 @@ steps of the multichip phase), in this order:
   the example's ``(32, 32)`` over T = 0.25 (the kinetic energy's decay
   rate within 2e-2 of 4ν(2π)², drift below 1e-11) and ``(1024, 1024)`` over
   10 steps at ``cfl_dt`` (the decay against 1 − exp(−4ν(2π)²t)), timed.
+- **2-D Navier–Stokes walls and order 2**: the solvers of the JAX
+  package's viscous-wall tests (``tests/test_navier_stokes.py:387-503``) and
+  Pallas Navier–Stokes tests (``:237-268``, ``tests/test_parallel.py:888-928``)
+  through ``CudaADERDG`` (``csrc/aderdg_2d.cu``: the viscous predictor with
+  the wall planes and the walled face pair with the advective/viscous wall
+  split at order 3, and the order-2 instances ``*_p2_2d``, periodic and
+  walled; three launches a step): every new kernel against its plain
+  version launch by launch on ``NS2W_CUT`` in every wall mode (float64 at
+  atol 1e-12, float32 for the periodic solver and the no-slip box at both
+  orders, 3-step reruns bitwise); the JAX tests' anchors
+  on the kernels in float64 (the no-slip channel's decay at ν π² within 2e-2
+  at ``(8, 8)`` and ``(16, 16)``, the order-2 box's mass to 1e-12 and kinetic
+  energy below 0.8 after 160 steps, outflow walls equal to the periodic run
+  to 1e-12 over 3 steps); ``NS2W_RUNS`` at ``(1024, 1024)`` in float32 (the
+  order-3 periodic step beside the no-slip channel, outflow and no-slip box
+  at order 3 and the periodic and no-slip box at order 2: launches, finite,
+  bitwise reruns, step and predictor times; the kernels of the last three
+  against plain in float32 on the timed state) and ``[kernel]`` lines.
 - **CK**: ``bench.py::bench_ck``'s step — order 3, 3-D heterogeneous
   elasticity (12 variables: velocity–stress and frozen per-node ρ, λ, μ),
   ``predictor_mode="ck"``, ``ck_material_slots=(9, 10, 11)``,
@@ -557,10 +575,49 @@ VORTEX_DRIFT = 1e-11
 #: ``csrc/navier_stokes.cuh``'s 2-D form shares its terms (1/ρ 1, the
 #: velocity 2, q² 3, T 4; per gradient axis ∂v 6, v·∂m 3, ∂T 8; ∇·v 1; per
 #: flux axis τ 6, its 2 signs, the energy row 6) and its 6 sums into the
-#: Euler flux; one node's 2-D gradients: 8 four-point contractions (7 each)
-#: and 8 products by 1/dx.
+#: Euler flux (one node's 2-D gradients: :func:`visc_predictor_ops_2d`).
 VISC_FLUX_OPS_2D = 1 + 2 + 3 + 4 + 2 * (6 + 3 + 8) + 1 + 2 * (6 + 2 + 6) + 6
-GRAD_OPS_2D = 8 * 7 + 8
+#: The 2-D Navier–Stokes walls and order-2 phase (``ns2d_walls_path``): the
+#: solvers of the JAX package's viscous-wall tests (``tests/
+#: test_navier_stokes.py:387-503``) and Pallas Navier–Stokes tests (``:237-268``,
+#: ``tests/test_parallel.py:888-928``).  Kernel against plain on
+#: ``NS2W_CUT`` (dx_1 = 0.7/g1: unequal axes), a ragged last predictor block
+#: at both orders, in every wall mode at order 3 and order 2 and periodic at
+#: order 2, float64 at ``F64_ATOL`` and float32 (64 spacings of the largest
+#: plain value; the wall planes against the plain float64 planes, as the 3-D
+#: viscous path holds them).
+NS2W_CUT = (5, 7)
+NS2W_MU = 0.02
+NS2W_MODES = ("noslip_box", "noslip_1", "outflow_0", "farfield_0", "dirichlet")
+NS2W_F32_MODES = ("periodic", "noslip_box")
+NS2W_MASS_RTOL = 1e-12
+#: The JAX tests' anchors on the kernels in float64: the no-slip channel
+#: (order 3, μ = 0.01, walls on axis 0, v_y = 1e-3 sin πx) decays at ν π²
+#: within 2e-2 over t ≈ 1 at the JAX test's (8, 8) and at (16, 16); the
+#: closed order-2 box (μ = 0.05, the Taylor–Green velocity of 1e-3) keeps its
+#: mass to 1e-12 over 160 steps at cfl_dt and its kinetic energy falls below
+#: 0.8 of its start; outflow walls on axis 0 (order 3, μ = 5e-3, (16, 8), the
+#: density bump) give the periodic answer to 1e-12 over 3 steps of 5e-4.
+NS2W_CHANNEL_GRIDS = ((8, 8), (16, 16))
+NS2W_CHANNEL_MU = 0.01
+NS2W_RATE_RTOL = 2e-2
+NS2W_BOX_STEPS = 160
+NS2W_BOX_KE = 0.8
+NS2W_OUTFLOW_GRID = (16, 8)
+#: The timed runs, float32 at the viscous-shock phase's (1024, 1024):
+#: (label, order, wall mode, state), each ``TIME_STEPS`` steps at cfl_dt on
+#: the main path, then 3 windows of ``TIME_STEPS``; the runs of the kernel
+#: lines (the p3 no-slip channel, the p2 periodic solver and box) also hold
+#: their kernels against plain in float32 on the timed state.
+NS2W_GRID = (1024, 1024)
+NS2W_RUNS = (
+    ("p3 periodic", 3, "periodic", "vortex"),
+    ("p3 no-slip channel", 3, "noslip_0", "channel"),
+    ("p3 outflow", 3, "outflow_0", "bump"),
+    ("p3 no-slip box", 3, "noslip_box", "box"),
+    ("p2 periodic", 2, "periodic", "smooth"),
+    ("p2 no-slip box", 2, "noslip_box", "box"),
+)
 
 #: The FV path (``__graft_entry__.py:16-36``): 3-D Euler, patch 4, halo 1.
 FV_WIDTH = dict(dim=3, patch_size=4, halo_size=1, n_real=5, n_aux=0)
@@ -1263,14 +1320,18 @@ def visc_predictor_ops(order: int, picard_iters: int, ncell: int, split: bool = 
     return predictor_ops(order, picard_iters, ncell) + per_node * n**3 * ncell
 
 
-def visc_predictor_ops_2d(order: int, picard_iters: int, ncell: int) -> float:
+def visc_predictor_ops_2d(order: int, picard_iters: int, ncell: int,
+                          split: bool = False) -> float:
     """Flops of ``aderdg_predictor_volume_visc_2d`` (``csrc/aderdg_2d.cu``):
     the 2-D Euler predictor's (:func:`predictor_ops` in 2-D), plus per
     (cell, node) and time slice of every Picard iteration and of the time
-    averages the gradients and the viscous flux."""
+    averages the gradients (8 n-point contractions, 2n - 1 flops each, and
+    8 products by 1/dx: 64 at order 3) and the viscous flux; with the
+    wall planes the averages of the viscous-only flux (2 flops each of 8
+    values a slice)."""
     n = order + 1
-    visc = GRAD_OPS_2D + VISC_FLUX_OPS_2D
-    per_node = picard_iters * n * visc + n * visc
+    visc = 8 * (2 * n - 1) + 8 + VISC_FLUX_OPS_2D
+    per_node = picard_iters * n * visc + n * (visc + (16 if split else 0))
     euler = predictor_ops(order, picard_iters, ncell, dim=2, nvar=4, flux_ops=FLUX_OPS_2D)
     return euler + per_node * n**2 * ncell
 
@@ -5084,9 +5145,13 @@ def z4_kernel_parity(torch, sol, cu, u, dt, label: str, sol64=None, tag: str = "
     the predictor's new state and faces; the face flux kernel's F̂ and NCP
     halves from the plain faces; the update from the plain fluxes; the face
     stage and the step (the plain step is the plain predictor's and face
-    stage's results, which are its two halves).  With ``plain_ms`` (a dict)
-    it also times each plain version as it runs (CUDA events, one call) into
-    it, by the kernel's name (and the plain face stage as "face stage").
+    stage's results, which are its two halves; the plain face stage is
+    ``ADERDGSolver.face_surface`` in float64, and in float32, at full width,
+    the plain face flux's and update's results, the same interface fluxes,
+    NCP halves and terms axis by axis).  With ``plain_ms`` (a dict) it also
+    times each plain version as it runs (CUDA events, one call) into it, by
+    the kernel's name (and the plain face stage as "face stage": in float32
+    the flux's and the update's times).
     float64: 1e-12 of max(1, max|plain|); float32: ``F32_ULPS`` spacings of
     max|plain|, but the NCP halves, a difference of two evaluations of the
     algebra (~25 each) that cancels to ~1e-2, against the plain path in float64
@@ -5110,7 +5175,10 @@ def z4_kernel_parity(torch, sol, cu, u, dt, label: str, sol64=None, tag: str = "
     upd_k = cu.surface_update(new_p.clone(), fhat_p, dt, fhalf=fhalf_p)
     upd_p = plain(update, lambda: z4_plain_update(sol, new_p, fhat_p, fhalf_p, dt))
     stage_k = cu.face_surface(new_p.clone(), faces_p, dt)
-    stage_p = plain("face stage", lambda: sol.face_surface(new_p, faces_p, dt))
+    if f64:  # the cut grids: the solver's own face stage, an independent reference
+        stage_p = plain("face stage", lambda: sol.face_surface(new_p, faces_p, dt))
+    else:
+        stage_p, times["face stage"] = upd_p, times[flux] + times[update]
     step_k, step_p = cu.step(u, dt), stage_p
     torch.cuda.synchronize()
     # The F̄ rows are zero but on the coupled systems' matter rows (38 on).
@@ -8123,20 +8191,38 @@ def blast_state(torch, solver, dtype):
     return torch.from_numpy(np.ascontiguousarray(q)).to(solver.weights.device, dtype)
 
 
-def parity_2d(torch, sol, cu, u, dt, label: str, tag: str) -> dict:
+def parity_2d(torch, sol, cu, u, dt, label: str, tag: str, fv64=None,
+              faces64=None) -> dict:
     """The 2-D kernels against their plain versions on ``u``
-    (:func:`stages_2d`): float64 at ``F64_ATOL``, float32 within
-    ``F32_ULPS`` spacings of the largest plain value; ``[{tag} parity]``
-    lines.  Fails on a disagreement; returns the largest error of each
-    kernel."""
+    (:func:`stages_2d`): float64 at ``F64_ATOL``, float32 within ``F32_ULPS``
+    spacings of the largest plain value; a viscous solver's float32 wall
+    planes against ``fv64``, the plain float64 planes
+    (:func:`fvwall_f32_check`), or without ``fv64`` only printed (a state
+    whose planes float32 cannot resolve); with ``faces64``, the plain
+    float64 faces, the float32 predictor's faces against them within
+    ``FVWALL_F32_FACTOR`` times the plain float32 faces' own distance (or
+    ``F32_ULPS`` spacings of max|faces64|); ``[{tag} parity]`` lines.  Fails
+    on a disagreement; returns the largest error of each kernel."""
     f64 = u.dtype == torch.float64
     errs = {}
     for name, what, got, ref in stages_2d(torch, sol, cu, u, dt):
         err = max_err(torch, got, ref)
-        limit = F64_ATOL if f64 else f32_bound(torch, ref)
+        limit, why = (F64_ATOL if f64 else f32_bound(torch, ref)), ""
+        if what == "faces" and not f64 and faces64 is not None:
+            plain = max_err(torch, ref, faces64)
+            err = max_err(torch, got, faces64)
+            limit = max(FVWALL_F32_FACTOR * plain, f32_bound(torch, faces64))
+            why = f" (against plain float64; {FVWALL_F32_FACTOR}x plain float32's {plain:.3e})"
+        if what == "fvwall" and not f64 and fv64 is None:
+            say(f"[{tag} parity] {label}: {name} ({what}) float32 {sol.grid_shape}: "
+                f"max_abs_err {err:.3e} against plain float32, max|plain| "
+                f"{ref.abs().max().item():.3e}: not held here")
+            continue
+        if what == "fvwall" and not f64:
+            err, limit, _ = fvwall_f32_check(torch, sol, got, ref, fv64)
         ok = err <= limit
         say(f"[{tag} parity] {label}: {name} ({what}) {str(u.dtype)[6:]} {sol.grid_shape}: "
-            f"max_abs_err {err:.3e} limit {limit:.3e} {'ok' if ok else 'FAIL'}")
+            f"max_abs_err {err:.3e} limit {limit:.3e}{why} {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"the 2-D {name} ({what}) disagrees with its plain version ({label})")
         errs[name] = max(errs.get(name, 0.0), err)
@@ -8146,29 +8232,33 @@ def parity_2d(torch, sol, cu, u, dt, label: str, tag: str) -> dict:
 def stages_2d(torch, sol, cu, u, dt):
     """Each 2-D kernel and the stage and step against its plain version on
     ``u``: ``[(name, what, got, ref)]`` (the predictor's new state and
-    faces, F̂'s rows with flux and with walls the side tensor, the update,
-    the stage with its face fluxes, a step)."""
-    new_k, faces_k, _ = cu.predictor_volume(u, dt)
-    new_p, faces_p, _ = sol.predictor_volume(u, dt)
-    fhat_k, fwall_k = cu.face_flux(faces_p)
+    faces, and a walled viscous solver's wall planes, F̂'s rows with flux
+    and with walls the side tensor, the update, the stage with its face
+    fluxes, a step)."""
+    new_k, faces_k, fv_k = cu.predictor_volume(u, dt)
+    new_p, faces_p, fv_p = sol.predictor_volume(u, dt)
+    fhat_k, fwall_k = cu.face_flux(faces_p, fv_p)
     fshape = sol.face_flux_shape
+    rows = sol.visc_wall_rows(fv_p) if fv_p is not None else {}
     fhat_p, walls = [], {}
     for d in range(sol.dim):
         q_lo, q_hi, f_lo, f_hi = (faces_p[d, k].reshape(fshape) for k in range(4))
-        fhat_p.append(sol.interface_flux(q_lo, q_hi, f_lo, f_hi, d))
+        fv_lo, fv_hi = rows.get(d, (None, None))
+        fhat_p.append(sol.interface_flux(q_lo, q_hi, f_lo, f_hi, d, fv_hi))
         if sol.is_wall(d):
-            walls[d] = sol.low_wall_flux(q_lo, f_lo, d)
+            walls[d] = sol.low_wall_flux(q_lo, f_lo, d, fv_lo)
     fhat_p = torch.stack(fhat_p).view(fhat_k.shape)
     side = torch.cat([walls[d].reshape(-1) for d in sorted(walls)]) if walls else None
     upd_k = cu.surface_update(new_p.clone(), fhat_p, dt, side)
     upd_p = plain_surface_update(sol, new_p, fhat_p, dt, walls)
-    stage_k, fl_k = cu.face_surface(new_p.clone(), faces_p, dt, True)
-    stage_p, fl_p = sol.face_surface(new_p, faces_p, dt, True)
+    stage_k, fl_k = cu.face_surface(new_p.clone(), faces_p, dt, True, fv_p)
+    stage_p, fl_p = sol.face_surface(new_p, faces_p, dt, True, fv_p)
     step_k, step_p = cu.step(u, dt), sol.step(u, dt)
     torch.cuda.synchronize()
     rows = cu._flux_rows  # F̂'s frozen rows after them are left unwritten
-    out = [(cu.kernels[0], "new", new_k, new_p), (cu.kernels[0], "faces", faces_k, faces_p),
-           (cu.kernels[1], "fhat", fhat_k[:, :, :rows], fhat_p[:, :, :rows])]
+    out = [(cu.kernels[0], "new", new_k, new_p), (cu.kernels[0], "faces", faces_k, faces_p)]
+    out += [(cu.kernels[0], "fvwall", fv_k, fv_p)] if fv_p is not None else []
+    out += [(cu.kernels[1], "fhat", fhat_k[:, :, :rows], fhat_p[:, :, :rows])]
     out += [(cu.kernels[1], f"fwall[{d}]", cu.wall_fluxes(fwall_k)[d], walls[d]) for d in walls]
     out += [(cu.kernels[2], "new", upd_k, upd_p), ("face stage", "new", stage_k, stage_p)]
     out += [("face stage", f"face fluxes[{d}]", a, b) for d, (a, b) in enumerate(zip(fl_k, fl_p))]
@@ -8696,6 +8786,280 @@ def vortex2d_path(torch, dev, card) -> list[dict]:
     return []
 
 
+def ns2w_solver(torch, dev, grid, dtype, order, mode, mu=NS2W_MU, dx=None):
+    """A 2-D Navier–Stokes solver (Pr 0.7) at ``order`` on the card in wall
+    mode ``mode`` (``periodic``; ``noslip_box``, ``noslip_0``, ``noslip_1``:
+    the no-slip hooks on both axes, axis 0, axis 1; ``outflow_0``,
+    ``farfield_0`` on axis 0; ``dirichlet`` on both, a smooth flow's rows)
+    and its ``CudaADERDG``; dx = 1/g0 on both axes unless given."""
+    import numpy as np
+
+    from exahype_tpu_torch.models.aderdg import ADERDGSolver, make_dirichlet_fn
+    from exahype_tpu_torch.models.aderdg_cuda import CudaADERDG
+    from exahype_tpu_torch.models.navier_stokes import (
+        navier_stokes,
+        noslip_reflect,
+        noslip_reflect_flux,
+    )
+
+    def held(*x):
+        rho = 1.0 + 0.2 * np.sin(2 * np.pi * x[0]) * np.cos(np.pi * x[1])
+        vel = (0.3 + 0.1 * np.cos(2 * np.pi * x[1]), -0.2 + 0.1 * np.sin(np.pi * x[0]))
+        e = (2.0 + 0.1 * np.sin(np.pi * x[1])) / 0.4 + 0.5 * rho * sum(v * v for v in vel)
+        return np.stack([rho, rho * vel[0], rho * vel[1], e], axis=-1)
+
+    dx = dx or (1.0 / grid[0],) * 2
+    noslip = dict(boundary="reflective", reflect_fn=noslip_reflect(2),
+                  reflect_flux_fn=noslip_reflect_flux(2))
+    walls = {
+        "periodic": {},
+        "noslip_box": noslip,
+        "noslip_0": dict(noslip, wall_axes=(0,)),
+        "noslip_1": dict(noslip, wall_axes=(1,)),
+        "outflow_0": dict(boundary="outflow", wall_axes=(0,)),
+        "farfield_0": dict(boundary="farfield", farfield_state=(1.0, 0.3, 0.0, 2.6),
+                           wall_axes=(0,)),
+        "dirichlet": dict(boundary="dirichlet", dirichlet_fn=make_dirichlet_fn(
+            held, dim=2, order=order, grid_shape=grid, dx=dx)),
+    }[mode]
+    flux, eig, visc, visc_eig = navier_stokes(2, mu=mu, prandtl=SHOCK_PRANDTL)
+    sol = ADERDGSolver(2, order, 4, grid, flux, eig, dx=dx, visc_flux_fn=visc,
+                       visc_eigenvalue_fn=visc_eig, device=dev, dtype=dtype, **walls)
+    return sol, CudaADERDG(sol)
+
+
+def ns2w_faces_f64(torch, sol, u, dt, order, mode, mu, rows: int = 128):
+    """The plain float64 faces of ``sol``'s predictor on ``u``.  The
+    predictor is cell-local, so solvers on bands of ``rows`` cell rows of
+    axis 0 (the same dx, order and wall mode) give them at a band's
+    memory."""
+    g0, g1 = sol.grid_shape
+    parts = []
+    for r in range(0, g0, rows):
+        band, _ = ns2w_solver(torch, u.device, (min(rows, g0 - r), g1), torch.float64, order,
+                              mode, mu=mu, dx=tuple(sol.dx))
+        part = u.narrow(sol.grid_axis(0), r, band.grid_shape[0]).double()
+        parts.append(band.predictor_volume(part, dt)[1])
+    return torch.cat(parts, dim=-2)
+
+
+def ns2w_state(torch, sol, kind: str, dtype, seed: int = 0):
+    """A state of ``sol`` made on the card in float64: ``noise`` (random ρ,
+    velocity and p at every node, seeded: every gradient of order 1/dx),
+    or the JAX tests' ``channel`` (v_y = 1e-3 sin πx), ``box`` (the
+    Taylor–Green velocity of 1e-3 in the unit box), ``bump`` (a density
+    bump of 0.2 at x = 0.5 at rest), ``smooth`` (the Pallas parity test's
+    state) and the 2-D vortex phase's periodic ``vortex``, ρ and p 1 unless
+    said."""
+    import numpy as np
+
+    dev, va = sol.weights.device, sol.var_axis
+    if kind == "noise":
+        rng = np.random.default_rng(seed)
+        shape = (sol.n_nodes,) * 2 + tuple(sol.grid_shape)
+        rho = 1.0 + 0.3 * rng.random(shape)
+        vel = [0.3 * rng.standard_normal(shape) for _ in range(2)]
+        e = (1.0 + 0.3 * rng.random(shape)) / 0.4 + 0.5 * rho * (vel[0] ** 2 + vel[1] ** 2)
+        q = np.stack([rho, rho * vel[0], rho * vel[1], e], axis=va)
+        return torch.from_numpy(q).to(dev, dtype).contiguous()
+    x, y = (torch.from_numpy(np.squeeze(c, va)).to(dev) for c in sol.nodes_meshgrid())
+    one = torch.ones_like(x + y)
+    pi = math.pi
+    rho, mx, my, p = one, 0.0 * one, 0.0 * one, one
+    if kind == "channel":
+        my = 1e-3 * torch.sin(pi * x) * one
+    elif kind == "box":
+        mx = 1e-3 * torch.sin(pi * x) * torch.cos(pi * y)
+        my = -1e-3 * torch.cos(pi * x) * torch.sin(pi * y)
+    elif kind == "bump":
+        rho = (1.0 + 0.2 * torch.exp(-(((x - 0.5) / 0.05) ** 2))) * one
+    elif kind == "smooth":
+        rho = 1.0 + 0.2 * torch.sin(2 * pi * (x + y))
+        mx = 0.2 * torch.cos(2 * pi * x) * one
+        my = -0.1 * torch.sin(2 * pi * y) * one
+        p = 1.0 + 0.2 * torch.cos(2 * pi * y) * one
+    else:  # "vortex"
+        mx = VORTEX_V0 * torch.sin(2 * pi * x) * torch.cos(2 * pi * y)
+        my = -VORTEX_V0 * torch.cos(2 * pi * x) * torch.sin(2 * pi * y)
+    e = p / 0.4 + 0.5 * (mx * mx + my * my) / rho
+    return torch.stack([rho, mx, my, e], dim=va).to(dtype).contiguous()
+
+
+def ns2w_title(cu, name: str) -> str:
+    """A kernel's title in this phase's lines: the walled viscous predictor
+    is the periodic one's name with the wall planes, the order-3 face pairs
+    share their names with the 2-D Euler ones."""
+    if name == cu.kernels[0]:
+        return name + (" (with the wall planes)" if cu.walls is not None else "")
+    return name if "_p2_" in name else f"{name} (2-D Navier–Stokes)"
+
+
+def ns2d_walls_path(torch, dev, card) -> list[dict]:
+    """2-D compressible Navier–Stokes with walls and at order 2 on the card
+    (the solvers of the JAX package's viscous-wall and Pallas Navier–Stokes
+    tests): the new kernels against plain on ``NS2W_CUT``, the JAX tests'
+    three anchors on the kernels in float64, and the timed main runs of
+    ``NS2W_RUNS`` at ``NS2W_GRID`` in float32; returns the kernel JSON lines
+    of the walled order-3 kernels and of the order-2 ones."""
+    f32, f64 = torch.float32, torch.float64
+    g0, g1 = NS2W_CUT
+
+    # ------------------------------ kernels against plain on the cut grid
+    errs = {}
+    cases = [(3, m) for m in NS2W_MODES] + [(2, "periodic")] + [(2, m) for m in NS2W_MODES]
+    for order, mode in cases:
+        make = dict(order=order, mode=mode, dx=(1.0 / g0, 0.7 / g1))
+        sol, cu = ns2w_solver(torch, dev, NS2W_CUT, f64, **make)
+        u = ns2w_state(torch, sol, "noise", f64, seed=order)
+        dt = 0.5 * float(sol.cfl_dt(u))
+        label = f"p{order} {mode}"
+        for name, err in parity_2d(torch, sol, cu, u, dt, label, "ns2w").items():
+            if name in cu.kernels:
+                title = ns2w_title(cu, name)
+                errs[title] = max(errs.get(title, 0.0), err)
+        if not torch.equal(cu.run(u, 3, dt), cu.run(u, 3, dt)):
+            fail(f"two 3-step runs of the 2-D Navier–Stokes kernels ({label}) differ")
+        if mode in NS2W_F32_MODES:
+            fv = sol.predictor_volume(u, dt)[2]
+            fv64 = None if fv is None else sol.visc_wall_rows(fv)
+            s32, c32 = ns2w_solver(torch, dev, NS2W_CUT, f32, **make)
+            parity_2d(torch, s32, c32, u.float(), dt, label, "ns2w", fv64=fv64)
+    say(f"[ns2w parity] {len(cases)} solvers at {NS2W_CUT} in float64 (atol {F64_ATOL:.0e}; "
+        f"largest error of each kernel {errs}), {NS2W_F32_MODES} at both orders in float32 "
+        f"({F32_ULPS} spacings of max|plain|; the wall planes against plain float64); 3-step "
+        "reruns bitwise equal")
+
+    # ------------------------------ the JAX tests' anchors, float64
+    def vy_rms(q):
+        return float(torch.sqrt(torch.mean((q[:, :, 2] / q[:, :, 0]) ** 2)))
+
+    exact = NS2W_CHANNEL_MU * math.pi**2
+    for grid in NS2W_CHANNEL_GRIDS:
+        sol, cu = ns2w_solver(torch, dev, grid, f64, 3, "noslip_0", mu=NS2W_CHANNEL_MU)
+        u0 = ns2w_state(torch, sol, "channel", f64)
+        dt = float(cu.cfl_dt(u0))
+        n = max(1, round(1.0 / dt))
+        cu.reset_launches()
+        u = cu.run(u0, n, dt)
+        torch.cuda.synchronize()
+        rate = math.log(vy_rms(u0) / vy_rms(u)) / (n * dt)
+        rel = abs(rate - exact) / exact
+        say(f"[ns2w anchor] no-slip channel {grid} p3 f64 through {cu.kernels}: dt = cfl_dt = "
+            f"{dt!r}, {n} steps, launches {dict(cu.launches)}; v_y decay rate {rate!r} against "
+            f"ν π² = {exact!r}, relative {rel:.3e} (limit {NS2W_RATE_RTOL})")
+        if cu.launches != {name: n for name in cu.kernels} or not rel < NS2W_RATE_RTOL:
+            fail(f"the no-slip channel at {grid} misses the JAX test's decay rate")
+    sol, cu = ns2w_solver(torch, dev, (8, 8), f64, 2, "noslip_box", mu=0.05)
+    u0 = ns2w_state(torch, sol, "box", f64)
+    dt = float(cu.cfl_dt(u0))
+    u = cu.run(u0, NS2W_BOX_STEPS, dt)
+    m0, m1 = float(sol.total_mass(u0)[0]), float(sol.total_mass(u)[0])
+
+    def ke(q):
+        return float((0.5 * (q[:, :, 1] ** 2 + q[:, :, 2] ** 2) / q[:, :, 0]).mean())
+
+    ratio = ke(u) / ke(u0)
+    say(f"[ns2w anchor] no-slip box (8, 8) p2 f64, μ = 0.05, through {cu.kernels}: "
+        f"{NS2W_BOX_STEPS} steps of cfl_dt = {dt!r}; mass drift {abs(m1 - m0):.3e} (limit "
+        f"{NS2W_MASS_RTOL:.0e} of {m0!r}); kinetic energy ratio {ratio!r} (limit {NS2W_BOX_KE})")
+    if not (torch.isfinite(u).all() and abs(m1 - m0) <= NS2W_MASS_RTOL * m0 + 1e-14
+            and ratio < NS2W_BOX_KE):
+        fail("the no-slip box misses the JAX test's mass or kinetic-energy gate")
+    out_sol, out_cu = ns2w_solver(torch, dev, NS2W_OUTFLOW_GRID, f64, 3, "outflow_0", mu=5e-3)
+    per_sol, per_cu = ns2w_solver(torch, dev, NS2W_OUTFLOW_GRID, f64, 3, "periodic", mu=5e-3)
+    u0 = ns2w_state(torch, out_sol, "bump", f64)
+    diff = max_err(torch, out_cu.run(u0, 3, 5e-4), per_cu.run(u0, 3, 5e-4))
+    say(f"[ns2w anchor] outflow walls {NS2W_OUTFLOW_GRID} p3 f64 through {out_cu.kernels}: 3 "
+        f"steps of 5e-4 against the periodic kernels, max_abs_err {diff:.3e} (limit "
+        f"{F64_ATOL:.0e})")
+    if not diff <= F64_ATOL:
+        fail("the outflow walls do not give the periodic answer before the bump arrives")
+    del sol, cu, out_sol, out_cu, per_sol, per_cu, u0, u
+
+    # ------------------------------ main runs and times, float32
+    lines, step_ms = [], {}
+    kernel_runs = ("p3 no-slip channel", "p2 periodic", "p2 no-slip box")
+    for label, order, mode, kind in NS2W_RUNS:
+        sol, cu = ns2w_solver(torch, dev, NS2W_GRID, f32, order, mode, mu=NS2W_CHANNEL_MU)
+        u0 = ns2w_state(torch, sol, kind, f32)
+        dt = float(cu.cfl_dt(u0))
+        cu.reset_launches()
+        u = cu.run(u0, TIME_STEPS, dt)
+        torch.cuda.synchronize()
+        launches = dict(cu.launches)
+        if launches != {name: TIME_STEPS for name in cu.kernels}:
+            fail(f"the 2-D Navier–Stokes {label} run launched {launches} in {TIME_STEPS} steps")
+        if not (torch.isfinite(u).all() and torch.equal(u, cu.run(u0, TIME_STEPS, dt))):
+            fail(f"the 2-D Navier–Stokes {label} run is not finite or not repeatable")
+        win = [1e3 * w for w in windows(torch, cu, u0, dt, steps=TIME_STEPS)]
+        step_ms[label] = statistics.median(win)
+        pred_ms = event_ms(torch, lambda: cu.predictor_volume(u0, dt), 10)
+        say(f"[ns2w time] {label} {NS2W_GRID} f32, {sol.dofs()} DOF, {cu.kernels}, launches "
+            f"{launches} over {TIME_STEPS} steps, finite, rerun bitwise: step ms per window "
+            f"{win!r}, median {step_ms[label]!r} ({step_ms[label] / step_ms['p3 periodic']!r}x "
+            f"the p3 periodic step), {sol.dofs() / step_ms[label] * 1e3!r} DOF-updates/s; "
+            f"predictor {pred_ms!r} ms ({pred_ms / step_ms[label]:.3f} of the step) ({card})")
+        if label not in kernel_runs:
+            del sol, cu, u0, u
+            continue
+        new, faces, fv = cu.predictor_volume(u0, dt)
+        fhat, fwall = cu.face_flux(faces, fv)
+        walls = cu.wall_fluxes(fwall) if fwall is not None else None
+        rows = sol.visc_wall_rows(fv) if fv is not None else {}
+
+        def plain_flux():
+            fshape = sol.face_flux_shape
+            for d in range(2):
+                q_lo, q_hi, f_lo, f_hi = (faces[d, k].reshape(fshape) for k in range(4))
+                fv_lo, fv_hi = rows.get(d, (None, None))
+                sol.interface_flux(q_lo, q_hi, f_lo, f_hi, d, fv_hi)
+                if sol.is_wall(d):
+                    sol.low_wall_flux(q_lo, f_lo, d, fv_lo)
+
+        times = {
+            cu.kernels[0]: (pred_ms, event_ms(torch, lambda: sol.predictor_volume(u0, dt), 1)),
+            cu.kernels[1]: (event_ms(torch, lambda: cu.face_flux(faces, fv), 10),
+                            event_ms(torch, plain_flux, 1)),
+            cu.kernels[2]: (event_ms(torch, lambda: cu.surface_update(new, fhat, dt, fwall), 10),
+                            event_ms(torch, lambda: plain_surface_update(
+                                sol, new, fhat, dt, walls), 1)),
+        }
+        # The kernels against plain on this run's state.  Float32 rounds the
+        # heat flux κ∂T (from E ≈ 2.5 over dx = 1/1024) at ~1e-5 on the plain
+        # path too, so the predictor's faces are held against plain float64.
+        # Its wall planes are only printed: at velocities of 1e-3 their
+        # largest value, τ ≈ μπ·1e-3, lies below that rounding, so no limit
+        # tells a kernel that drops them; the cut grid holds them.
+        faces64 = ns2w_faces_f64(torch, sol, u0, dt, order, mode, NS2W_CHANNEL_MU)
+        full = parity_2d(torch, sol, cu, u0, dt, f"{label}, the timed state", "ns2w",
+                         faces64=faces64)
+        del faces64
+        ncell, itemsize, n = math.prod(NS2W_GRID), u0.element_size(), order + 1
+        side = cu.walls["size"] * itemsize if cu.walls is not None else 0
+        low = cu.walls["size"] // 4 if cu.walls is not None else 0
+        kw = dict(dim=2, nvar=4)
+        work = {
+            cu.kernels[0]: (2 * u0.nbytes + faces.nbytes + 2 * side,
+                            visc_predictor_ops_2d(order, sol.picard_iters, ncell, bool(side))),
+            cu.kernels[1]: (face_flux_bytes(order, ncell, itemsize, rows=4, **kw) + 3 * side,
+                            face_flux_ops(order, ncell, eig_ops=EIG_OPS_2D, **kw)
+                            + (ncell * 2 * n + low) * NS_PENALTY_OPS
+                            + low * (2 * EIG_OPS_2D + 6 * 4)),
+            cu.kernels[2]: (surface_update_bytes(order, ncell, itemsize, dim=2, rows=4) + side,
+                            surface_update_ops(order, ncell, **kw)),
+        }
+        for name, (n_bytes, n_ops) in work.items():
+            title = ns2w_title(cu, name)
+            bnd = kernel_report(cu, name, f32, f"(2-D Navier–Stokes, {label}) {NS2W_GRID} f32",
+                                times[name][0], n_bytes, n_ops, card)
+            lines.append(kernel_line(title, "exahype_tpu/models/aderdg_pallas.py:156",
+                                     launches[name], full[name], *times[name], bnd,
+                                     source="exahype_tpu_torch/csrc/aderdg_2d.cu"))
+        del sol, cu, u0, u, new, faces, fv, fhat, fwall, walls, rows, full
+        torch.cuda.empty_cache()
+    return lines
+
+
 #: The multichip phase: the sharded steps of ``parallel/shard.py``.
 #: K1 e's f64 parity grid, and the windows each axis is cut into there.
 MC_CUT = (8, 4, 8)
@@ -9141,6 +9505,7 @@ def main():
         "limited blast walls": lambda: blast_walls_path(torch, dev, card),
         "viscous shock": lambda: viscous_shock_path(torch, dev, card),
         "2-D vortex": lambda: vortex2d_path(torch, dev, card),
+        "2-D Navier–Stokes walls and order 2": lambda: ns2d_walls_path(torch, dev, card),
         "CK": lambda: ck_path(torch, dev, card),
         "seismic": lambda: seismic_path(torch, dev, card),
         "elastic K2 b": lambda: elastic_k2b_path(torch, dev, card),

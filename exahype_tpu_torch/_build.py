@@ -173,11 +173,14 @@ _SIGNATURES = {
               ("surface_update", _SURFACE_UPDATE), ("face_flux_walls", _FACE_FLUX_WALLS),
               ("surface_update_walls", _SURFACE_UPDATE_WALLS))),
         ("aderdg_predictor_volume_2d", _PREDICTOR_VOLUME),
-        ("aderdg_predictor_volume_visc_2d", _PREDICTOR_VOLUME),
-        ("aderdg_face_flux_2d", _FACE_FLUX),
-        ("aderdg_surface_update_2d", _SURFACE_UPDATE),
-        ("aderdg_face_flux_walls_2d", _FACE_FLUX_WALLS),
-        ("aderdg_surface_update_walls_2d", _SURFACE_UPDATE_WALLS),
+        # The 2-D viscous predictors take the wall planes as the 3-D one does;
+        # the 2-D Navier–Stokes step at order 2 has entries of its own
+        # (csrc/aderdg_2d.cu).
+        *((f"aderdg_{kernel}{order}_2d", argtypes) for order in ("", "_p2")
+          for kernel, argtypes in (
+              ("predictor_volume_visc", _PREDICTOR_VOLUME_VISC), ("face_flux", _FACE_FLUX),
+              ("surface_update", _SURFACE_UPDATE), ("face_flux_walls", _FACE_FLUX_WALLS),
+              ("surface_update_walls", _SURFACE_UPDATE_WALLS))),
         ("subcell_row_sweep", _ROW_SWEEP),
         ("subcell_row_sweep_z4_matter", _ROW_SWEEP_Z4_MATTER),
         ("rhs_all_z4", _RHS_ALL),

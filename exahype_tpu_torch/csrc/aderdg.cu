@@ -1722,9 +1722,16 @@ int p2_info(int kernel, int* out) {
 template <typename T>
 int kernel_info(int kernel, int physics, int* out) {
   const bool euler = physics == kEuler;
-  if ((kernel >= 22 && kernel <= 27) || kernel == 32) {  // the 2-D steps', 22-27 and 32
+  // The 2-D steps', 22-27 and 32; the 2-D Navier–Stokes order-2 step's,
+  // 70-74 (predictor, pair, walled pair), and the viscous predictors with
+  // the wall planes, 75 (order 3) and 76 (order 2).
+  if ((kernel >= 22 && kernel <= 27) || kernel == 32 || (kernel >= 70 && kernel <= 76)) {
     auto* info = sizeof(T) == 8 ? aderdg_2d_kernel_info_f64 : aderdg_2d_kernel_info_f32;
-    return info ? info(kernel == 32 ? 6 : kernel - 22, physics, out) : cudaErrorInvalidValue;
+    const int which = kernel == 32   ? 6
+                      : kernel < 70  ? kernel - 22
+                      : kernel <= 74 ? kernel - 62
+                                     : (kernel == 75 ? 7 : 13);
+    return info ? info(which, physics, out) : cudaErrorInvalidValue;
   }
   if (kernel >= 29 && kernel <= 31) {  // K2 b's 3-D step, 29-31
     if (physics == kElastic3D) return p2_info<T, Elastic3D<T>>(kernel, out);

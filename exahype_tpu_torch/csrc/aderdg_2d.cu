@@ -1,7 +1,8 @@
 // ADER-DG step on a 2-D grid for Hopper (sm_90a) at order 3 (NN = 4), three
 // launches a step, float32 and float64: compressible Euler (4 variables),
 // periodic or closed by domain walls, compressible Navier–Stokes (4
-// variables), periodic, and the elasticity (5 variables, K2 b:
+// variables), periodic or walled, also at order 2 (NN = 3, the _p2_2d
+// entries), and the elasticity (5 variables, K2 b:
 // examples/seismic_point_source.py --ck), periodic or walled, on the CK
 // predictor of csrc/aderdg_ck_nodes.cuh (entry
 // aderdg_ck_predictor_volume_2d) and this file's face pairs over
@@ -21,10 +22,13 @@
 // compile to the code they had without them.
 //
 // Replaces the TPU kernel exahype_tpu/models/aderdg_pallas.py::
-// PallasADERDG.build (K1 c, its 2-D Euler and Navier–Stokes p3 instances;
-// pallas_call at :917; the viscous terms of its Picard body :324-336 and
-// the Gassner penalty of rusanov_speed :238-250) and, on a grid with walls,
-// the XLA face_update it routes every axis through (:52-55, 198-212).  The
+// PallasADERDG.build (K1 c, its 2-D Euler p3 and Navier–Stokes p3 and p2
+// instances; pallas_call at :917; the viscous terms of its Picard body
+// :324-336 and the Gassner penalty of rusanov_speed :238-250; the
+// viscous-only wall fluxes of visc_wall_axes :216-228, 556-597, 837-845,
+// 900-903) and, on a grid with walls, the XLA face_update it routes every
+// axis through (:52-55, 198-212; the advective/viscous wall split of
+// exahype_tpu/models/aderdg.py::ADERDGSolver.face_update :795-840).  The
 // numbers to match are those of
 // exahype_tpu/models/aderdg.py::ADERDGSolver.step; the plain PyTorch
 // version is exahype_tpu_torch/models/aderdg.py::ADERDGSolver.
@@ -41,7 +45,11 @@
 //                            exahype_aderdg_predictor_volume_visc_2d):
 //                            F_d + F_v,d at every node and slice, F_v,d
 //                            from the physical gradients of the slice's q
-//                            (csrc/navier_stokes.cuh's 2-D form).
+//                            (csrc/navier_stokes.cuh's 2-D form); with
+//                            walls (NavierStokesWalls2D) also the
+//                            viscous-only F̄v_d of each wall axis projected
+//                            to its wall planes, a side tensor in the
+//                            Dirichlet rows' layout.
 //   aderdg_face_flux_2d      the face stage, first launch: the Rusanov flux
 //                            of every interface, once, into fhat[d][m][v]
 //                            [cell] (each cell's high-face fluxes: the
@@ -62,7 +70,15 @@
 //                            ghosts: a sign table times my face (mirror;
 //                            outflow is the all-ones table), the farfield
 //                            state or the Dirichlet row, with F(ghost) for
-//                            the last two, as csrc/aderdg.cu's 3-D wall pair.
+//                            the last two, as csrc/aderdg.cu's 3-D wall pair;
+//                            for Navier–Stokes the ghost flux of the
+//                            advective part plus the interior viscous
+//                            wall plane, and the penalty in s_w.
+//
+// At order 2 (NN = 3) the Navier–Stokes instances are the same templates:
+// the predictor takes 32 cells of 9 nodes a block (288 threads, 9 whole
+// warps; cells_2d), the face pair a thread per (cell, face node) and per
+// (cell, node) as at order 3.
 //
 // Design.  At order 3 in 2-D a cell has 16 space nodes and 4 time slices,
 // 256 values of q (and as many right-hand sides): the 3-D predictor's
@@ -179,7 +195,63 @@ struct NavierStokes2D : Euler2D<T> {
       for (int v = 1; v < 4; ++v) f[d][v] = f[d][v] + fv[d][v];
     }
   }
+  // The same, and the viscous part fv alone (its mass row zero).  A body
+  // of its own: the three-argument form as a call of this one gives the
+  // periodic predictor another register allocation (other SASS, the same
+  // results).
+  __device__ __forceinline__ void fluxes(const T* q, const T (&g)[kDim2][4], T (&f)[kDim2][4],
+                                         T (&fv)[kDim2][4]) const {
+    Euler2D<T>::fluxes(q, f);
+    navier_stokes_viscous_fluxes_2d<T>(q, g, this->gm1, mu, kappa_T, fv);
+#pragma unroll
+    for (int d = 0; d < kDim2; ++d) {
+      fv[d][0] = T(0);
+#pragma unroll
+      for (int v = 1; v < 4; ++v) f[d][v] = f[d][v] + fv[d][v];
+    }
+  }
 };
+
+// The viscous-only wall planes of a walled viscous step (the predictor
+// writes them, the wall face flux reads them): the time-averaged viscous
+// flux F̄v_d of each wall axis d projected to the first row's low faces
+// (side 0) and the last row's high faces (side 1), in the side tensor's
+// layout [side][wall axis][m][v][plane], the Dirichlet rows' and fwall's.
+template <typename T>
+struct ViscPlanes2D {
+  int mask;              // bit d: grid axis d carries walls
+  T* planes;
+  long long off[kDim2];  // element offset of axis d's block within a side
+  long long side;        // elements of one side
+};
+
+// Navier–Stokes on a grid with walls: NavierStokes2D and the wall planes
+// of the advective/viscous wall split (SplitsWallViscosity).
+template <typename T>
+struct NavierStokesWalls2D : NavierStokes2D<T> {
+  ViscPlanes2D<T> fv;
+  static NavierStokesWalls2D make(const double* params) {
+    return {NavierStokes2D<T>::make(params), {}};
+  }
+};
+
+// Whether a physics carries the wall planes: the walled Navier–Stokes
+// instances only, so that the other instances compile to the code they had.
+template <typename Phys>
+struct SplitsWallViscosity {
+  static constexpr bool value = false;
+};
+template <typename T>
+struct SplitsWallViscosity<NavierStokesWalls2D<T>> {
+  static constexpr bool value = true;
+};
+
+// Cells a predictor block at NN nodes an axis: 16 cells of 16 nodes (256
+// threads) at order 3, 32 of 9 (288 threads, 9 whole warps) at order 2.
+template <int NN>
+constexpr int cells_2d() {
+  return NN == 3 ? 32 : kCells2D;
+}
 
 template <typename T, int NN, typename Phys = Euler2D<T>>
 struct Params2D {
@@ -274,7 +346,8 @@ struct Cell2D {
 // double-buffered fluxes [2][kDim2][V][NP] (the epilogue's q̄ [V][NP] and
 // F̄ [kDim2][V][NP] over them; a viscous physics keeps the slice's q [V][NP]
 // at the first buffer's start and its fluxes after it, one buffer), and
-// Kvol [NN][NN].  NP = CB NN²: the block's space nodes, cell by cell.
+// Kvol [NN][NN]; with the wall planes, F̄v [kDim2][V][NP] after them.
+// NP = CB NN²: the block's space nodes, cell by cell.
 template <int NN, int CB, int V>
 struct Smem2D {
   static constexpr int kNodes = NN * NN;
@@ -285,9 +358,10 @@ struct Smem2D {
   static constexpr int kTotal = kK + NN * NN;
 };
 
-template <typename T, int NN, int V>
+template <typename T, int NN, int V, int CB = kCells2D, bool kSplit = false>
 constexpr size_t predictor_2d_smem() {
-  return static_cast<size_t>(Smem2D<NN, kCells2D, V>::kTotal) * sizeof(T);
+  using S = Smem2D<NN, CB, V>;
+  return static_cast<size_t>(S::kTotal + (kSplit ? S::kFluxes : 0)) * sizeof(T);
 }
 
 // The predictor (Euler) and, with a viscous Phys (Navier–Stokes), the
@@ -297,7 +371,10 @@ constexpr size_t predictor_2d_smem() {
 // at its node and goes on as the Euler body does, two barriers a slice; the
 // time averages take the gradients of the final q, as the plain version
 // does.  The viscous code sits in `if constexpr` branches, so the Euler
-// instance compiles to the code it had.
+// instance compiles to the code it had.  With the wall planes
+// (NavierStokesWalls2D) the time averages also sum the viscous part F̄v_d,
+// and a cell of a wall axis's first or last row projects it to its wall
+// face (ViscPlanes2D); the other instances compile without that code.
 template <typename T, int NN, int CB, typename Phys>
 __global__ void __launch_bounds__(CB * NN * NN)
 aderdg_predictor_volume_2d(const T* __restrict__ u, T* __restrict__ out,
@@ -305,6 +382,7 @@ aderdg_predictor_volume_2d(const T* __restrict__ u, T* __restrict__ out,
                            const Params2D<T, NN, Phys> P) {
   constexpr int V = Phys::V;
   constexpr int NF = NN;  // face nodes of an axis
+  constexpr bool kSplit = SplitsWallViscosity<Phys>::value;
   using S = Smem2D<NN, CB, V>;
   constexpr int NC = S::kNodes;  // space nodes of a cell
   constexpr int NP = S::kNP;     // of the block: its thread count
@@ -363,21 +441,24 @@ aderdg_predictor_volume_2d(const T* __restrict__ u, T* __restrict__ out,
   // `qs` from it (the gradients first, each line contracted with my row of
   // D).
   T* sQ = sF;
+  auto gradients = [&](T (&g)[kDim2][V]) {
+#pragma unroll
+    for (int d = 0; d < kDim2; ++d) {
+      const T inv_dx = T(1) / P.dx[d];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const T* x = sQ + v * NP + pt - id[d] * st[d];
+        T acc = Dr[d][0] * x[0];
+#pragma unroll
+        for (int j = 1; j < NN; ++j) acc = acc + Dr[d][j] * x[j * st[d]];
+        g[d][v] = acc * inv_dx;
+      }
+    }
+  };
   auto visc_fluxes = [&](const T* qs, T (&f)[kDim2][V]) {
     if constexpr (Phys::kViscous) {
       T g[kDim2][V];
-#pragma unroll
-      for (int d = 0; d < kDim2; ++d) {
-        const T inv_dx = T(1) / P.dx[d];
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          const T* x = sQ + v * NP + pt - id[d] * st[d];
-          T acc = Dr[d][0] * x[0];
-#pragma unroll
-          for (int j = 1; j < NN; ++j) acc = acc + Dr[d][j] * x[j * st[d]];
-          g[d][v] = acc * inv_dx;
-        }
-      }
+      gradients(g);
       P.phys.fluxes(qs, g, f);
     }
   };
@@ -452,8 +533,9 @@ aderdg_predictor_volume_2d(const T* __restrict__ u, T* __restrict__ out,
     }
   }
 
-  // Time averages of the final q and of its fluxes at my node.
-  T qb[V], fb[kDim2][V];
+  // Time averages of the final q and of its fluxes at my node (with the
+  // wall planes, of the viscous part of the fluxes too).
+  T qb[V], fb[kDim2][V], fvb[kDim2][V];
 #pragma unroll
   for (int s = 0; s < NN; ++s) {
     const T w = P.W[s];
@@ -463,7 +545,19 @@ aderdg_predictor_volume_2d(const T* __restrict__ u, T* __restrict__ out,
 #pragma unroll
       for (int v = 0; v < V; ++v) sQ[v * NP + pt] = q[s][v];
       __syncthreads();  // slice s's q is in
-      visc_fluxes(q[s], f);
+      if constexpr (kSplit) {
+        T g[kDim2][V], fv[kDim2][V];
+        gradients(g);
+        P.phys.fluxes(q[s], g, f, fv);
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+#pragma unroll
+          for (int d = 0; d < kDim2; ++d)
+            fvb[d][v] = s == 0 ? w * fv[d][v] : fvb[d][v] + w * fv[d][v];
+        }
+      } else {
+        visc_fluxes(q[s], f);
+      }
     } else {
       P.phys.fluxes(q[s], f);
     }
@@ -476,12 +570,17 @@ aderdg_predictor_volume_2d(const T* __restrict__ u, T* __restrict__ out,
   }
   T* sQb = sF;           // q̄ [v][point]
   T* sFb = sF + V * NP;  // F̄ [d][v][point]
+  T* sFvb = sU + S::kTotal;  // F̄v [d][v][point] (kSplit)
   __syncthreads();       // the last slice's contractions are done with the buffers
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     sQb[v * NP + pt] = qb[v];
 #pragma unroll
     for (int d = 0; d < kDim2; ++d) sFb[(d * V + v) * NP + pt] = fb[d][v];
+    if constexpr (kSplit) {
+#pragma unroll
+      for (int d = 0; d < kDim2; ++d) sFvb[(d * V + v) * NP + pt] = fvb[d][v];
+    }
   }
   __syncthreads();
 
@@ -537,13 +636,50 @@ aderdg_predictor_volume_2d(const T* __restrict__ u, T* __restrict__ out,
     faces[o + 2 * stride_w] = flo;
     faces[o + 3 * stride_w] = fhi;
   }
+
+  if constexpr (kSplit) {
+    // The viscous-only wall planes, element e as above: on a wall axis d a
+    // cell of the first row projects F̄v_d with φ(0) to its low face (side
+    // 0), a cell of the last row with φ(1) to its high face (side 1), into
+    // [m][v][plane] of the axis's block (plane: the other axis's index).
+    const ViscPlanes2D<T>& W = P.phys.fv;
+    for (int e = static_cast<int>(threadIdx.x); e < kDim2 * NF * V * CB; e += NP) {
+      const int c = e % CB, r = e / CB;
+      const long long cell = cell0 + c;
+      if (cell >= ncell) continue;
+      const int v = r % V, dm = r / V;
+      const int d = dm / NF, m = dm - d * NF;
+      if (!((W.mask >> d) & 1)) continue;
+      const long long i0 = cell / P.g[1], i1 = cell - i0 * P.g[1];
+      const long long at = d == 0 ? i0 : i1;
+      const bool lo = at == 0, hi = at == (d == 0 ? P.g[0] : P.g[1]) - 1;
+      if (!lo && !hi) continue;
+      const long long plane = d == 0 ? P.g[1] : P.g[0];
+      const int base = d == 0 ? m : m * NN;
+      const int sd = d == 0 ? NN : 1;
+      const T* x = sFvb + (d * V + v) * NP + c * NC + base;
+      T flo = P.PHI0[0] * x[0], fhi = P.PHI1[0] * x[0];
+#pragma unroll
+      for (int j = 1; j < NN; ++j) {
+        flo = flo + P.PHI0[j] * x[j * sd];
+        fhi = fhi + P.PHI1[j] * x[j * sd];
+      }
+      T* o = W.planes + (d == 0 ? W.off[0] : W.off[1]) +
+             (static_cast<long long>(m) * V + v) * plane + (d == 0 ? i1 : i0);
+      if (lo) o[0] = flo;
+      if (hi) o[W.side] = fhi;
+    }
+  }
 }
 
 // ------------------------------------------------------------ face stage
 
 // The ghost of wall (axis d, side) at face node m, plane index p, from my
 // own face state q and flux f: its state gq (all V rows) and flux gf (the
-// kFluxRows rows).
+// kFluxRows rows).  With the wall planes (NavierStokesWalls2D) the flux is
+// split: the ghost flux of the advective part f - fv (the mirror's sign
+// table, or F(ghost)) plus the interior one-sided viscous part fv, my
+// cell's own projection of F̄v_d to the wall.
 template <typename T, typename Phys>
 __device__ __forceinline__ void wall_ghost_2d(const Walls2D<T, Phys::V>& W, const Phys& phys,
                                               int d, int side, int m, long long plane,
@@ -551,6 +687,22 @@ __device__ __forceinline__ void wall_ghost_2d(const Walls2D<T, Phys::V>& W, cons
                                               T* gf) {
   constexpr int V = Phys::V;
   constexpr int R = Phys::kFluxRows;
+  constexpr bool kSplit = SplitsWallViscosity<Phys>::value;
+  const T* fv = nullptr;  // kSplit: my cell's viscous wall plane, [v * plane]
+  T fa[R];                // kSplit: the advective part f - fv
+  if constexpr (kSplit) {
+    fv = phys.fv.planes + side * phys.fv.side + (d == 0 ? phys.fv.off[0] : phys.fv.off[1]) +
+         static_cast<long long>(m) * V * plane + p;
+#pragma unroll
+    for (int v = 0; v < R; ++v) fa[v] = f[v] - fv[v * plane];
+    f = fa;
+  }
+  auto add_viscous = [&] {
+    if constexpr (kSplit) {
+#pragma unroll
+      for (int v = 0; v < R; ++v) gf[v] = gf[v] + fv[v * plane];
+    }
+  };
   if (W.mode == kMirror) {
     if constexpr (R == V) {
 #pragma unroll
@@ -564,6 +716,7 @@ __device__ __forceinline__ void wall_ghost_2d(const Walls2D<T, Phys::V>& W, cons
 #pragma unroll
       for (int v = 0; v < R; ++v) gf[v] = (d == 0 ? W.sf[0][v] : W.sf[1][v]) * f[v];
     }
+    add_viscous();
     return;
   }
   if (W.mode == kFarfield) {
@@ -576,6 +729,7 @@ __device__ __forceinline__ void wall_ghost_2d(const Walls2D<T, Phys::V>& W, cons
     for (int v = 0; v < V; ++v) gq[v] = row[v * plane];
   }
   phys.flux_along(gq, d, gf);
+  add_viscous();
 }
 
 // The face stage, first launch: one thread per (cell, axis d, face node m)
@@ -586,8 +740,9 @@ __device__ __forceinline__ void wall_ghost_2d(const Walls2D<T, Phys::V>& W, cons
 // are neither read as fluxes nor written: their F̂ is zero).  kWalls: on a wall axis the
 // last row's right state is the ghost of its own high face, and the first
 // row also solves its low wall, ½(g_f + f_lo) − ½ s_w (q_lo − g_q), into
-// W.fwall.  A viscous Phys (Navier–Stokes, periodic only) adds the Gassner
-// penalty to s.
+// W.fwall.  A viscous Phys (Navier–Stokes) adds the Gassner penalty to s
+// and to s_w; with walls (NavierStokesWalls2D) the ghost flux hook acts on
+// the advective part only (wall_ghost_2d).
 template <typename T, int NN, bool kWalls, typename Phys>
 __global__ void __launch_bounds__(kFace2DThreads)
 aderdg_face_flux_2d(const T* __restrict__ faces, T* __restrict__ fhat,
@@ -653,7 +808,8 @@ aderdg_face_flux_2d(const T* __restrict__ faces, T* __restrict__ fhat,
       for (int v = 0; v < R; ++v) fl[v] = base[2 * wstride + v * ncell + c];
     }
     wall_ghost_2d<T, Phys>(W, P.phys, d, 0, m, plane, p, ql, fl, gq, gf);
-    const T sw = dmax(P.phys.max_eigenvalue(ql, d), P.phys.max_eigenvalue(gq, d));
+    T sw = dmax(P.phys.max_eigenvalue(ql, d), P.phys.max_eigenvalue(gq, d));
+    if constexpr (Phys::kViscous) sw = sw + P.phys.penalty(ql, gq, d);
     T* w = W.fwall + (d == 0 ? W.off[0] : W.off[1]) + static_cast<long long>(m) * V * plane + p;
     if constexpr (Phys::kMasked) {
 #pragma unroll
@@ -761,13 +917,15 @@ Walls2D<T, V> make_walls_2d(int mask, int mode, const double* table, const T* ro
 }
 
 // A launch this file's instances can take: Euler, Navier–Stokes or the
-// elasticity (homogeneous, heterogeneous, curvilinear), order 3, a 2-D grid
-// (g2 is 1) whose cells and coordinates fit a 32-bit int.
+// elasticity (homogeneous, heterogeneous, curvilinear), order NN - 1 (3;
+// the order-2 instances take Navier–Stokes only, their launchers' check),
+// a 2-D grid (g2 is 1) whose cells and coordinates fit a 32-bit int.
+template <int NN = kNN2>
 bool bad_2d(int physics, int order, long long g0, long long g1, long long g2) {
   constexpr long long kMax = 0x7fffffffLL;
   return (physics != kEuler && physics != kNavierStokes && physics != kElastic2D &&
           physics != kElasticHet2D && physics != kCurvilinearElastic) ||
-         order != kNN2 - 1 || g0 <= 0 || g1 <= 0 || g2 != 1 || g0 * g1 > kMax;
+         order != NN - 1 || g0 <= 0 || g1 <= 0 || g2 != 1 || g0 * g1 > kMax;
 }
 
 // The wall arguments: a mask of the 2 axes with the side tensor and its
@@ -777,21 +935,23 @@ bool bad_walls_2d(int mask, const void* fwall, const long long* off) {
   return mask <= 0 || mask > 3 || fwall == nullptr || off == nullptr;
 }
 
-template <typename T, typename Phys = Euler2D<T>>
+template <typename T, typename Phys = Euler2D<T>, int NN = kNN2>
 Shape predictor_2d_shape() {
-  return {reinterpret_cast<const void*>(aderdg_predictor_volume_2d<T, kNN2, kCells2D, Phys>),
-          dim3(kCells2D * kNN2 * kNN2), predictor_2d_smem<T, kNN2, Phys::V>()};
+  constexpr int CB = cells_2d<NN>();
+  return {reinterpret_cast<const void*>(aderdg_predictor_volume_2d<T, NN, CB, Phys>),
+          dim3(CB * NN * NN),
+          predictor_2d_smem<T, NN, Phys::V, CB, SplitsWallViscosity<Phys>::value>()};
 }
 
-template <typename T, bool kWalls, typename Phys = Euler2D<T>>
+template <typename T, bool kWalls, typename Phys = Euler2D<T>, int NN = kNN2>
 Shape face_flux_2d_shape() {
-  return {reinterpret_cast<const void*>(aderdg_face_flux_2d<T, kNN2, kWalls, Phys>),
+  return {reinterpret_cast<const void*>(aderdg_face_flux_2d<T, NN, kWalls, Phys>),
           dim3(kFace2DThreads), 0};
 }
 
-template <typename T, bool kWalls, typename Phys = Euler2D<T>>
+template <typename T, bool kWalls, typename Phys = Euler2D<T>, int NN = kNN2>
 Shape surface_update_2d_shape() {
-  return {reinterpret_cast<const void*>(aderdg_surface_update_2d<T, kNN2, kWalls, Phys>),
+  return {reinterpret_cast<const void*>(aderdg_surface_update_2d<T, NN, kWalls, Phys>),
           dim3(kFace2DThreads), 0};
 }
 
@@ -833,25 +993,55 @@ int ck_predictor_volume_2d(const T* u, T* out, T* faces, const T* dt_ptr, double
   return cudaErrorInvalidValue;
 }
 
-// The Euler predictor for physics 0, the viscous one for physics 2.
-template <typename T, typename Phys>
+template <typename T, int NN, typename Phys>
+int launch_predictor_2d(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
+                        const Params2D<T, NN, Phys>& P, void* stream) {
+  constexpr int CB = cells_2d<NN>();
+  const Shape sh = predictor_2d_shape<T, Phys, NN>();
+  const cudaError_t attr = allow_smem(aderdg_predictor_volume_2d<T, NN, CB, Phys>, sh.smem);
+  if (attr != cudaSuccess) return attr;
+  const long long blocks = (P.ncell + CB - 1) / CB;
+  aderdg_predictor_volume_2d<T, NN, CB, Phys>
+      <<<static_cast<unsigned>(blocks), sh.block, sh.smem, static_cast<cudaStream_t>(stream)>>>(
+          u, out, faces, dt_ptr, static_cast<T>(dt_val), P);
+  return cudaGetLastError();
+}
+
+// The Euler predictor (physics 0, order 3).
+template <typename T>
 int predictor_volume_2d(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
                         const double* ops, const double* dx, int order, int picard_iters,
                         int physics, const double* params, long long g0, long long g1,
                         long long g2, void* stream) {
-  const int own = Phys::kViscous ? kNavierStokes : kEuler;
-  if (bad_2d(physics, order, g0, g1, g2) || physics != own || picard_iters < 0)
+  if (bad_2d(physics, order, g0, g1, g2) || physics != kEuler || picard_iters < 0)
     return cudaErrorInvalidValue;
-  const auto P = make_params_2d<T, kNN2, Phys>(ops, dx, picard_iters, params, g0, g1);
-  const Shape sh = predictor_2d_shape<T, Phys>();
-  const cudaError_t attr =
-      allow_smem(aderdg_predictor_volume_2d<T, kNN2, kCells2D, Phys>, sh.smem);
-  if (attr != cudaSuccess) return attr;
-  const long long blocks = (P.ncell + kCells2D - 1) / kCells2D;
-  aderdg_predictor_volume_2d<T, kNN2, kCells2D, Phys>
-      <<<static_cast<unsigned>(blocks), sh.block, sh.smem, static_cast<cudaStream_t>(stream)>>>(
-          u, out, faces, dt_ptr, static_cast<T>(dt_val), P);
-  return cudaGetLastError();
+  const auto P = make_params_2d<T, kNN2, Euler2D<T>>(ops, dx, picard_iters, params, g0, g1);
+  return launch_predictor_2d<T, kNN2, Euler2D<T>>(u, out, faces, dt_ptr, dt_val, P, stream);
+}
+
+// The viscous predictor (physics 2) at NN nodes an axis (order NN - 1); with
+// walls (wall_mask, bit d: axis d) it also writes the viscous-only wall
+// planes into `planes`, in the side tensor's layout (wall_off, wall_side).
+template <typename T, int NN>
+int predictor_volume_visc_2d(const T* u, T* out, T* faces, const T* dt_ptr, double dt_val,
+                             const double* ops, const double* dx, int order, int picard_iters,
+                             int physics, const double* params, long long g0, long long g1,
+                             long long g2, int wall_mask, T* planes, const long long* wall_off,
+                             long long wall_side, void* stream) {
+  if (bad_2d<NN>(physics, order, g0, g1, g2) || physics != kNavierStokes || picard_iters < 0 ||
+      wall_mask < 0 || wall_mask > 3 ||
+      (wall_mask != 0 && (planes == nullptr || wall_off == nullptr || wall_side <= 0)))
+    return cudaErrorInvalidValue;
+  if (wall_mask == 0) {
+    const auto P = make_params_2d<T, NN, NavierStokes2D<T>>(ops, dx, picard_iters, params, g0,
+                                                            g1);
+    return launch_predictor_2d<T, NN, NavierStokes2D<T>>(u, out, faces, dt_ptr, dt_val, P,
+                                                         stream);
+  }
+  auto P = make_params_2d<T, NN, NavierStokesWalls2D<T>>(ops, dx, picard_iters, params, g0, g1);
+  P.phys.fv = {wall_mask, planes, {wall_off[0], wall_off[1]}, wall_side};
+  return launch_predictor_2d<T, NN, NavierStokesWalls2D<T>>(u, out, faces, dt_ptr, dt_val, P,
+                                                            stream);
 }
 
 // The wall arguments of a launch (all zero and null without walls).
@@ -863,9 +1053,10 @@ struct WallArgs2D {
   void* fwall;
   const long long* off;
   long long side;
+  const void* visc_rows;  // Navier–Stokes: the predictor's wall planes
 };
 
-template <typename T, bool kWalls, typename Phys>
+template <typename T, bool kWalls, typename Phys, int NN = kNN2>
 int launch_face_flux_2d(const T* faces, T* fhat, const double* ops, const double* dx,
                         const double* params, long long g0, long long g1, const WallArgs2D& A,
                         void* stream) {
@@ -873,64 +1064,87 @@ int launch_face_flux_2d(const T* faces, T* fhat, const double* ops, const double
                                                     static_cast<const T*>(A.rows),
                                                     static_cast<T*>(A.fwall), A.off, A.side)
                         : Walls2D<T, Phys::V>{};
-  const auto P = make_params_2d<T, kNN2, Phys>(ops, dx, 0, params, g0, g1);
+  auto P = make_params_2d<T, NN, Phys>(ops, dx, 0, params, g0, g1);
+  if constexpr (SplitsWallViscosity<Phys>::value)
+    P.phys.fv = {A.mask, static_cast<T*>(const_cast<void*>(A.visc_rows)), {A.off[0], A.off[1]},
+                 A.side};
   const dim3 grid(static_cast<unsigned>((P.ncell + kFace2DThreads - 1) / kFace2DThreads),
-                  kDim2 * kNN2);
-  aderdg_face_flux_2d<T, kNN2, kWalls, Phys>
+                  kDim2 * NN);
+  aderdg_face_flux_2d<T, NN, kWalls, Phys>
       <<<grid, dim3(kFace2DThreads), 0, static_cast<cudaStream_t>(stream)>>>(faces, fhat, P, W);
   return cudaGetLastError();
 }
 
-// Euler and the elasticity (homogeneous and heterogeneous), periodic or
-// walled; Navier–Stokes and the curvilinear elasticity periodic only.
-template <typename T, bool kWalls>
+// Navier–Stokes, periodic or walled (with the viscous wall split: the
+// predictor's wall planes in A.visc_rows, required there and refused
+// elsewhere), at order 3 and (NN = 3) at order 2; at order 3 also Euler and
+// the elasticity (homogeneous and heterogeneous), periodic or walled, and
+// the curvilinear elasticity, periodic only.
+template <typename T, bool kWalls, int NN = kNN2>
 int face_flux_2d(const T* faces, T* fhat, const double* ops, const double* dx, int order,
                  int physics, const double* params, long long g0, long long g1, long long g2,
                  const WallArgs2D& A, void* stream) {
-  if (bad_2d(physics, order, g0, g1, g2)) return cudaErrorInvalidValue;
-  if (physics == kEuler)
-    return launch_face_flux_2d<T, kWalls, Euler2D<T>>(faces, fhat, ops, dx, params, g0, g1, A,
-                                                       stream);
-  if (physics == kElastic2D)
-    return launch_face_flux_2d<T, kWalls, Elastic2D<T>>(faces, fhat, ops, dx, params, g0, g1, A,
+  if (bad_2d<NN>(physics, order, g0, g1, g2) ||
+      (A.visc_rows != nullptr) != (kWalls && physics == kNavierStokes))
+    return cudaErrorInvalidValue;
+  if (physics == kNavierStokes) {
+    if constexpr (kWalls)
+      return launch_face_flux_2d<T, true, NavierStokesWalls2D<T>, NN>(faces, fhat, ops, dx,
+                                                                      params, g0, g1, A, stream);
+    else
+      return launch_face_flux_2d<T, false, NavierStokes2D<T>, NN>(faces, fhat, ops, dx, params,
+                                                                  g0, g1, A, stream);
+  }
+  if constexpr (NN != kNN2) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (physics == kEuler)
+      return launch_face_flux_2d<T, kWalls, Euler2D<T>>(faces, fhat, ops, dx, params, g0, g1, A,
                                                          stream);
-  if (physics == kElasticHet2D)
-    return launch_face_flux_2d<T, kWalls, ElasticHet2D<T>>(faces, fhat, ops, dx, params, g0, g1,
-                                                            A, stream);
-  if (kWalls) return cudaErrorInvalidValue;
-  if (physics == kCurvilinearElastic)
-    return launch_face_flux_2d<T, false, CurvilinearElastic<T>>(faces, fhat, ops, dx, params, g0,
-                                                                 g1, A, stream);
-  return launch_face_flux_2d<T, false, NavierStokes2D<T>>(faces, fhat, ops, dx, params, g0, g1,
+    if (physics == kElastic2D)
+      return launch_face_flux_2d<T, kWalls, Elastic2D<T>>(faces, fhat, ops, dx, params, g0, g1,
                                                            A, stream);
+    if (physics == kElasticHet2D)
+      return launch_face_flux_2d<T, kWalls, ElasticHet2D<T>>(faces, fhat, ops, dx, params, g0,
+                                                              g1, A, stream);
+    if (kWalls) return cudaErrorInvalidValue;
+    return launch_face_flux_2d<T, false, CurvilinearElastic<T>>(faces, fhat, ops, dx, params,
+                                                                 g0, g1, A, stream);
+  }
 }
 
-template <typename T, bool kWalls, typename Phys>
+template <typename T, bool kWalls, typename Phys, int NN = kNN2>
 int launch_surface_update_2d(T* state, const T* fhat, const T* dt_ptr, double dt_val,
                              const double* ops, const double* dx, const double* params,
                              long long g0, long long g1, const WallArgs2D& A, void* stream) {
   const auto W = kWalls ? make_walls_2d<T, Phys::V>(A.mask, kMirror, nullptr, nullptr,
                                                     static_cast<T*>(A.fwall), A.off, 0)
                         : Walls2D<T, Phys::V>{};
-  const auto P = make_params_2d<T, kNN2>(ops, dx, 0, params, g0, g1);
+  const auto P = make_params_2d<T, NN>(ops, dx, 0, params, g0, g1);
   const dim3 grid(static_cast<unsigned>((P.ncell + kFace2DThreads - 1) / kFace2DThreads),
-                  kNN2 * kNN2);
-  aderdg_surface_update_2d<T, kNN2, kWalls, Phys>
+                  NN * NN);
+  aderdg_surface_update_2d<T, NN, kWalls, Phys>
       <<<grid, dim3(kFace2DThreads), 0, static_cast<cudaStream_t>(stream)>>>(
           state, fhat, dt_ptr, static_cast<T>(dt_val), P, W);
   return cudaGetLastError();
 }
 
-// The update reads no physics: one instance for Euler and Navier–Stokes,
-// one for the elasticity's 5 rows, and one each for the systems with frozen
-// rows (their variable count: the heterogeneous elasticity, periodic or
-// walled, and the curvilinear one, periodic).
-template <typename T, bool kWalls>
+// The update reads no physics: one instance for Euler and Navier–Stokes
+// (at order 2 for Navier–Stokes only), one for the elasticity's 5 rows, and
+// one each for the systems with frozen rows (their variable count: the
+// heterogeneous elasticity, periodic or walled, and the curvilinear one,
+// periodic).
+template <typename T, bool kWalls, int NN = kNN2>
 int surface_update_2d(T* state, const T* fhat, const T* dt_ptr, double dt_val,
                       const double* ops, const double* dx, int order, int physics,
                       const double* params, long long g0, long long g1, long long g2,
                       const WallArgs2D& A, void* stream) {
-  if (bad_2d(physics, order, g0, g1, g2)) return cudaErrorInvalidValue;
+  if (bad_2d<NN>(physics, order, g0, g1, g2)) return cudaErrorInvalidValue;
+  if constexpr (NN != kNN2) {
+    if (physics != kNavierStokes) return cudaErrorInvalidValue;
+    return launch_surface_update_2d<T, kWalls, Euler2D<T>, NN>(state, fhat, dt_ptr, dt_val, ops,
+                                                               dx, params, g0, g1, A, stream);
+  }
   if (physics == kElastic2D)
     return launch_surface_update_2d<T, kWalls, Elastic2D<T>>(state, fhat, dt_ptr, dt_val, ops,
                                                              dx, params, g0, g1, A, stream);
@@ -947,32 +1161,33 @@ int surface_update_2d(T* state, const T* fhat, const T* dt_ptr, double dt_val,
                                                          params, g0, g1, A, stream);
 }
 
-template <typename T>
+template <typename T, int NN = kNN2>
 int face_flux_walls_2d(const T* faces, T* fhat, const double* ops, const double* dx, int order,
                        int physics, const double* params, long long g0, long long g1,
                        long long g2, int wall_mask, int wall_mode, const double* wall_table,
                        const T* wall_rows, T* fwall, const long long* wall_off,
                        long long wall_side, const T* visc_rows, void* stream) {
   if (bad_walls_2d(wall_mask, fwall, wall_off) || wall_table == nullptr ||
-      visc_rows != nullptr || (wall_mode != kMirror && wall_mode != kFarfield &&
-                               wall_mode != kDirichlet) ||
+      (wall_mode != kMirror && wall_mode != kFarfield && wall_mode != kDirichlet) ||
       (wall_mode == kDirichlet && wall_rows == nullptr))
     return cudaErrorInvalidValue;
-  const WallArgs2D A{wall_mask, wall_mode, wall_table, wall_rows, fwall, wall_off, wall_side};
-  return face_flux_2d<T, true>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, A,
-                               stream);
+  const WallArgs2D A{wall_mask, wall_mode, wall_table, wall_rows, fwall, wall_off, wall_side,
+                     visc_rows};
+  return face_flux_2d<T, true, NN>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2, A,
+                                   stream);
 }
 
-template <typename T>
+template <typename T, int NN = kNN2>
 int surface_update_walls_2d(T* state, const T* fhat, const T* dt_ptr, double dt_val,
                             const double* ops, const double* dx, int order, int physics,
                             const double* params, long long g0, long long g1, long long g2,
                             int wall_mask, const T* fwall, const long long* wall_off,
                             void* stream) {
   if (bad_walls_2d(wall_mask, fwall, wall_off)) return cudaErrorInvalidValue;
-  const WallArgs2D A{wall_mask, kMirror, nullptr, nullptr, const_cast<T*>(fwall), wall_off, 0};
-  return surface_update_2d<T, true>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics,
-                                    params, g0, g1, g2, A, stream);
+  const WallArgs2D A{wall_mask, kMirror, nullptr, nullptr, const_cast<T*>(fwall), wall_off, 0,
+                     nullptr};
+  return surface_update_2d<T, true, NN>(state, fhat, dt_ptr, dt_val, ops, dx, order, physics,
+                                        params, g0, g1, g2, A, stream);
 }
 
 // The shapes of the elastic steps' kernels over `H` (which 1-4 and 6; the
@@ -998,10 +1213,12 @@ int elastic_info_2d(int which, int* out) {
 }
 
 // which: 0 predictor, 1 face flux, 2 update, 3 face flux (walls), 4 update
-// (walls), 5 the viscous predictor, 6 the CK predictor; physics 2
-// (Navier–Stokes) has 1, 2 and 5, its own face flux and Euler's update;
-// physics 8 and 9 (the elasticity, homogeneous and heterogeneous) 1-4 and
-// 6; physics 10 (the curvilinear elasticity) 1, 2 and 6.
+// (walls), 5 the viscous predictor, 6 the CK predictor, 7 the viscous
+// predictor with the wall planes; 8-13 the order-2 instances of 5, 1, 2, 3,
+// 4 and 7.  Physics 2 (Navier–Stokes) has 1-5 and 7-13, its own face flux
+// and Euler's update; physics 8 and 9 (the elasticity, homogeneous and
+// heterogeneous) 1-4 and 6; physics 10 (the curvilinear elasticity) 1, 2
+// and 6.
 template <typename T>
 int kernel_info_2d(int which, int physics, int* out) {
   if (physics == kElastic2D) return elastic_info_2d<T, Elastic2D<T>, true>(which, out);
@@ -1009,13 +1226,34 @@ int kernel_info_2d(int which, int physics, int* out) {
   if (physics == kCurvilinearElastic)
     return elastic_info_2d<T, CurvilinearElastic<T>, false>(which, out);
   if (physics == kNavierStokes) {
+    using N = NavierStokes2D<T>;
+    using NW = NavierStokesWalls2D<T>;
+    using E = Euler2D<T>;
     switch (which) {
       case 1:
-        return shape_info(face_flux_2d_shape<T, false, NavierStokes2D<T>>(), out);
+        return shape_info(face_flux_2d_shape<T, false, N>(), out);
       case 2:
         return shape_info(surface_update_2d_shape<T, false>(), out);
+      case 3:
+        return shape_info(face_flux_2d_shape<T, true, NW>(), out);
+      case 4:
+        return shape_info(surface_update_2d_shape<T, true>(), out);
       case 5:
-        return shape_info(predictor_2d_shape<T, NavierStokes2D<T>>(), out);
+        return shape_info(predictor_2d_shape<T, N>(), out);
+      case 7:
+        return shape_info(predictor_2d_shape<T, NW>(), out);
+      case 8:
+        return shape_info(predictor_2d_shape<T, N, 3>(), out);
+      case 9:
+        return shape_info(face_flux_2d_shape<T, false, N, 3>(), out);
+      case 10:
+        return shape_info(surface_update_2d_shape<T, false, E, 3>(), out);
+      case 11:
+        return shape_info(face_flux_2d_shape<T, true, NW, 3>(), out);
+      case 12:
+        return shape_info(surface_update_2d_shape<T, true, E, 3>(), out);
+      case 13:
+        return shape_info(predictor_2d_shape<T, NW, 3>(), out);
       default:
         return cudaErrorInvalidValue;
     }
@@ -1043,12 +1281,13 @@ extern "C" {
 
 // The launchers take csrc/aderdg.cu's entries' arguments and layouts, with
 // the grid (g0, g1, 1), order 3: physics 0 (Euler, params = {gamma}) for
-// the Euler predictor and the wall pair, 2 (Navier–Stokes, params as
-// NavierStokes2D::make reads them) for the viscous predictor, either for
-// the periodic pair.  faces: [2][4][4][4][cell]; fhat: [2][4][4][cell].
-// The wall pair's wall_table is S_q [2][4], S_f [2][4], the farfield state
-// [4] (float64), wall_mask a mask of the 2 axes, visc_rows null.  Each
-// returns the launch's cudaError_t.
+// the Euler predictor, 2 (Navier–Stokes, params as NavierStokes2D::make
+// reads them) for the viscous predictor, either for the periodic pair and
+// the wall pair.  faces: [2][4][4][4][cell]; fhat: [2][4][4][cell].  The
+// wall pair's wall_table is S_q [2][4], S_f [2][4], the farfield state [4]
+// (float64), wall_mask a mask of the 2 axes; visc_rows, for physics 2 only
+// and then required, the viscous predictor's wall planes (in wall_rows'
+// layout).  Each returns the launch's cudaError_t.
 
 int exahype_aderdg_predictor_volume_2d_f32(const float* u, float* out, float* faces,
                                            const float* dt_ptr, double dt_val,
@@ -1056,9 +1295,8 @@ int exahype_aderdg_predictor_volume_2d_f32(const float* u, float* out, float* fa
                                            int picard_iters, int physics, const double* params,
                                            long long g0, long long g1, long long g2,
                                            void* stream) {
-  return predictor_volume_2d<float, Euler2D<float>>(u, out, faces, dt_ptr, dt_val, ops, dx,
-                                                    order, picard_iters, physics, params, g0,
-                                                    g1, g2, stream);
+  return predictor_volume_2d<float>(u, out, faces, dt_ptr, dt_val, ops, dx, order, picard_iters,
+                                    physics, params, g0, g1, g2, stream);
 }
 
 int exahype_aderdg_predictor_volume_2d_f64(const double* u, double* out, double* faces,
@@ -1067,20 +1305,25 @@ int exahype_aderdg_predictor_volume_2d_f64(const double* u, double* out, double*
                                            int picard_iters, int physics, const double* params,
                                            long long g0, long long g1, long long g2,
                                            void* stream) {
-  return predictor_volume_2d<double, Euler2D<double>>(u, out, faces, dt_ptr, dt_val, ops, dx,
-                                                      order, picard_iters, physics, params, g0,
-                                                      g1, g2, stream);
+  return predictor_volume_2d<double>(u, out, faces, dt_ptr, dt_val, ops, dx, order,
+                                     picard_iters, physics, params, g0, g1, g2, stream);
 }
 
+// The viscous predictor (physics 2): the Picard predictor's arguments, then
+// the wall planes of the viscous split as csrc/aderdg_visc.cu's entry takes
+// them (wall_mask, planes, wall_off, wall_side; mask 0 and null without
+// walls); _p2_2d: order 2.
 int exahype_aderdg_predictor_volume_visc_2d_f32(const float* u, float* out, float* faces,
                                                 const float* dt_ptr, double dt_val,
                                                 const double* ops, const double* dx, int order,
                                                 int picard_iters, int physics,
                                                 const double* params, long long g0,
-                                                long long g1, long long g2, void* stream) {
-  return predictor_volume_2d<float, NavierStokes2D<float>>(
-      u, out, faces, dt_ptr, dt_val, ops, dx, order, picard_iters, physics, params, g0, g1, g2,
-      stream);
+                                                long long g1, long long g2, int wall_mask,
+                                                float* planes, const long long* wall_off,
+                                                long long wall_side, void* stream) {
+  return predictor_volume_visc_2d<float, kNN2>(u, out, faces, dt_ptr, dt_val, ops, dx, order,
+                                               picard_iters, physics, params, g0, g1, g2,
+                                               wall_mask, planes, wall_off, wall_side, stream);
 }
 
 int exahype_aderdg_predictor_volume_visc_2d_f64(const double* u, double* out, double* faces,
@@ -1088,10 +1331,38 @@ int exahype_aderdg_predictor_volume_visc_2d_f64(const double* u, double* out, do
                                                 const double* ops, const double* dx, int order,
                                                 int picard_iters, int physics,
                                                 const double* params, long long g0,
-                                                long long g1, long long g2, void* stream) {
-  return predictor_volume_2d<double, NavierStokes2D<double>>(
-      u, out, faces, dt_ptr, dt_val, ops, dx, order, picard_iters, physics, params, g0, g1, g2,
-      stream);
+                                                long long g1, long long g2, int wall_mask,
+                                                double* planes, const long long* wall_off,
+                                                long long wall_side, void* stream) {
+  return predictor_volume_visc_2d<double, kNN2>(u, out, faces, dt_ptr, dt_val, ops, dx, order,
+                                                picard_iters, physics, params, g0, g1, g2,
+                                                wall_mask, planes, wall_off, wall_side, stream);
+}
+
+int exahype_aderdg_predictor_volume_visc_p2_2d_f32(const float* u, float* out, float* faces,
+                                                   const float* dt_ptr, double dt_val,
+                                                   const double* ops, const double* dx,
+                                                   int order, int picard_iters, int physics,
+                                                   const double* params, long long g0,
+                                                   long long g1, long long g2, int wall_mask,
+                                                   float* planes, const long long* wall_off,
+                                                   long long wall_side, void* stream) {
+  return predictor_volume_visc_2d<float, 3>(u, out, faces, dt_ptr, dt_val, ops, dx, order,
+                                            picard_iters, physics, params, g0, g1, g2,
+                                            wall_mask, planes, wall_off, wall_side, stream);
+}
+
+int exahype_aderdg_predictor_volume_visc_p2_2d_f64(const double* u, double* out, double* faces,
+                                                   const double* dt_ptr, double dt_val,
+                                                   const double* ops, const double* dx,
+                                                   int order, int picard_iters, int physics,
+                                                   const double* params, long long g0,
+                                                   long long g1, long long g2, int wall_mask,
+                                                   double* planes, const long long* wall_off,
+                                                   long long wall_side, void* stream) {
+  return predictor_volume_visc_2d<double, 3>(u, out, faces, dt_ptr, dt_val, ops, dx, order,
+                                             picard_iters, physics, params, g0, g1, g2,
+                                             wall_mask, planes, wall_off, wall_side, stream);
 }
 
 // K2 b's 2-D CK predictor (physics 8, the elasticity, params = {ρ, λ, μ}):
@@ -1198,11 +1469,97 @@ int exahype_aderdg_surface_update_walls_2d_f64(double* state, const double* fhat
                                          params, g0, g1, g2, wall_mask, fwall, wall_off, stream);
 }
 
+// The order-2 Navier–Stokes face pairs (physics 2 only): the order-3
+// entries' arguments and layouts at 3 nodes an axis (faces: [2][4][3][4]
+// [cell]; fhat: [2][3][4][cell]).
+int exahype_aderdg_face_flux_p2_2d_f32(const float* faces, float* fhat, const double* ops,
+                                       const double* dx, int order, int physics,
+                                       const double* params, long long g0, long long g1,
+                                       long long g2, void* stream) {
+  return face_flux_2d<float, false, 3>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2,
+                                       WallArgs2D{}, stream);
+}
+
+int exahype_aderdg_face_flux_p2_2d_f64(const double* faces, double* fhat, const double* ops,
+                                       const double* dx, int order, int physics,
+                                       const double* params, long long g0, long long g1,
+                                       long long g2, void* stream) {
+  return face_flux_2d<double, false, 3>(faces, fhat, ops, dx, order, physics, params, g0, g1,
+                                        g2, WallArgs2D{}, stream);
+}
+
+int exahype_aderdg_surface_update_p2_2d_f32(float* state, const float* fhat,
+                                            const float* dt_ptr, double dt_val,
+                                            const double* ops, const double* dx, int order,
+                                            int physics, const double* params, long long g0,
+                                            long long g1, long long g2, void* stream) {
+  return surface_update_2d<float, false, 3>(state, fhat, dt_ptr, dt_val, ops, dx, order,
+                                            physics, params, g0, g1, g2, WallArgs2D{}, stream);
+}
+
+int exahype_aderdg_surface_update_p2_2d_f64(double* state, const double* fhat,
+                                            const double* dt_ptr, double dt_val,
+                                            const double* ops, const double* dx, int order,
+                                            int physics, const double* params, long long g0,
+                                            long long g1, long long g2, void* stream) {
+  return surface_update_2d<double, false, 3>(state, fhat, dt_ptr, dt_val, ops, dx, order,
+                                             physics, params, g0, g1, g2, WallArgs2D{}, stream);
+}
+
+int exahype_aderdg_face_flux_walls_p2_2d_f32(const float* faces, float* fhat,
+                                             const double* ops, const double* dx, int order,
+                                             int physics, const double* params, long long g0,
+                                             long long g1, long long g2, int wall_mask,
+                                             int wall_mode, const double* wall_table,
+                                             const float* wall_rows, float* fwall,
+                                             const long long* wall_off, long long wall_side,
+                                             const float* visc_rows, void* stream) {
+  return face_flux_walls_2d<float, 3>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2,
+                                      wall_mask, wall_mode, wall_table, wall_rows, fwall,
+                                      wall_off, wall_side, visc_rows, stream);
+}
+
+int exahype_aderdg_face_flux_walls_p2_2d_f64(const double* faces, double* fhat,
+                                             const double* ops, const double* dx, int order,
+                                             int physics, const double* params, long long g0,
+                                             long long g1, long long g2, int wall_mask,
+                                             int wall_mode, const double* wall_table,
+                                             const double* wall_rows, double* fwall,
+                                             const long long* wall_off, long long wall_side,
+                                             const double* visc_rows, void* stream) {
+  return face_flux_walls_2d<double, 3>(faces, fhat, ops, dx, order, physics, params, g0, g1, g2,
+                                       wall_mask, wall_mode, wall_table, wall_rows, fwall,
+                                       wall_off, wall_side, visc_rows, stream);
+}
+
+int exahype_aderdg_surface_update_walls_p2_2d_f32(float* state, const float* fhat,
+                                                  const float* dt_ptr, double dt_val,
+                                                  const double* ops, const double* dx,
+                                                  int order, int physics, const double* params,
+                                                  long long g0, long long g1, long long g2,
+                                                  int wall_mask, const float* fwall,
+                                                  const long long* wall_off, void* stream) {
+  return surface_update_walls_2d<float, 3>(state, fhat, dt_ptr, dt_val, ops, dx, order,
+                                           physics, params, g0, g1, g2, wall_mask, fwall,
+                                           wall_off, stream);
+}
+
+int exahype_aderdg_surface_update_walls_p2_2d_f64(double* state, const double* fhat,
+                                                  const double* dt_ptr, double dt_val,
+                                                  const double* ops, const double* dx,
+                                                  int order, int physics, const double* params,
+                                                  long long g0, long long g1, long long g2,
+                                                  int wall_mask, const double* fwall,
+                                                  const long long* wall_off, void* stream) {
+  return surface_update_walls_2d<double, 3>(state, fhat, dt_ptr, dt_val, ops, dx, order,
+                                            physics, params, g0, g1, g2, wall_mask, fwall,
+                                            wall_off, stream);
+}
+
 }  // extern "C"
 
 // The 2-D kernels' occupancy, for exahype_aderdg_kernel_info (kernels 22-27,
-// csrc/aderdg.cu): `which` 0 predictor, 1 face flux, 2 update, 3 and 4 the
-// wall pair (physics 0); 1, 2 and 5, the viscous predictor (physics 2).
+// 32 and 70-76, csrc/aderdg.cu): `which` as kernel_info_2d reads it.
 int aderdg_2d_kernel_info_f32(int which, int physics, int* out) {
   return kernel_info_2d<float>(which, physics, out);
 }

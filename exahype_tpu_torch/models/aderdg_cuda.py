@@ -18,10 +18,18 @@ solver: ``aderdg_predictor_volume_2d``, a thread a space node, and the
 face pair ``aderdg_face_flux_2d`` + ``aderdg_surface_update_2d`` or its wall
 variant ``aderdg_face_flux_walls_2d`` + ``aderdg_surface_update_walls_2d``,
 all of ``csrc/aderdg_2d.cu``; the grid goes to them as (g0, g1, 1)), and
-periodic for compressible Navier–Stokes (``examples/viscous_shock.py``'s
-and ``examples/navier_stokes_vortex.py``'s solver:
-``aderdg_predictor_volume_visc_2d`` and the periodic face pair's
-Navier–Stokes instance, the same names; 2-D viscous walls raise).  K2 b,
+for compressible Navier–Stokes, periodic or with walls in every mode
+(``examples/viscous_shock.py``'s and ``examples/navier_stokes_vortex.py``'s
+solver, and the no-slip channels and boxes of the JAX package's viscous-wall
+tests: ``aderdg_predictor_volume_visc_2d``, on a walled grid its instance
+that also writes the viscous-only wall planes, and the face pairs'
+Navier–Stokes instances, the same names, the wall pair with the
+advective/viscous wall split), also at order 2 (the JAX package's
+``PallasADERDG`` Navier–Stokes tests: the same kernels at three nodes an
+axis, ``aderdg_predictor_volume_visc_p2_2d``, ``aderdg_face_flux_p2_2d`` +
+``aderdg_surface_update_p2_2d``, walled ``aderdg_face_flux_walls_p2_2d`` +
+``aderdg_surface_update_walls_p2_2d``; 2-D Euler at order 2 and
+Navier–Stokes at order 4 raise).  K2 b,
 the homogeneous elasticity on the CK predictor (``models/elastic.py``'s
 ``elastic`` and ``elastic3d``, ρ, λ, μ compiled in as parameters): in 2-D at
 order 3, periodic or walled (``examples/seismic_point_source.py --ck``:
@@ -180,6 +188,7 @@ INSTANTIATED = {
     ("euler", 3, 4): "picard",
     ("euler", 3, 5): "picard",
     ("euler", 3, 7): "picard",
+    ("navier_stokes", 2, 2): "picard",
     ("navier_stokes", 2, 3): "picard",
     ("navier_stokes", 3, 3): "picard",
     ("elastic3d_het", 3, 3): "ck",
@@ -396,7 +405,11 @@ class CudaADERDG:
     #: physics 6: the Z4+GRMHD system's, ``csrc/aderdg_z4_grmhd_per_axis.cu``
     #: and ``csrc/aderdg_z4_grmhd_2d.cu``, the same; 65-69 of physics 4: the
     #: shifted system's, ``csrc/aderdg_z4_shift_per_axis.cu`` and
-    #: ``csrc/aderdg_z4_shift_2d.cu``, the same).
+    #: ``csrc/aderdg_z4_shift_2d.cu``, the same; 70-74 of physics 2: the 2-D
+    #: Navier–Stokes step at order 2, ``csrc/aderdg_2d.cu``'s order-2
+    #: instances, predictor, pair, walled pair; the 2-D viscous predictors
+    #: with the wall planes are 75 and 76 of physics 2, orders 3 and 2,
+    #: ``_WALLED_PREDICTOR_INFO``).
     KERNELS = (
         "aderdg_predictor_volume", "aderdg_ck_predictor_volume", "aderdg_face_flux",
         "aderdg_surface_update", "aderdg_face_flux_walls", "aderdg_surface_update_walls",
@@ -424,7 +437,15 @@ class CudaADERDG:
             *(f"aderdg_{kernel}_2d_z4_{system}" for kernel in (
                 "predictor_volume", "face_flux", "surface_update",
                 "predictor_volume_per_axis")))),
+        *(f"aderdg_{kernel}_p2_2d" for kernel in (
+            "predictor_volume_visc", "face_flux", "surface_update", "face_flux_walls",
+            "surface_update_walls")),
     )
+    #: The occupancy index of a viscous predictor's walled instance (the one
+    #: that also writes the viscous-only wall planes).
+    _WALLED_PREDICTOR_INFO = {"aderdg_predictor_volume_visc": 7,
+                              "aderdg_predictor_volume_visc_2d": 75,
+                              "aderdg_predictor_volume_visc_p2_2d": 76}
 
     def __init__(self, solver: ADERDGSolver):
         sponge = _ck_sponge(solver)
@@ -508,10 +529,11 @@ class CudaADERDG:
                 f"{solver.boundary!r}: NCP walls on the card are still to port, see "
                 "ROADMAP.md, Queue 2 K1 d (the plain solver runs them)"
             )
-        # Orders 4, 5 and 7 (Euler) and 2 (the 3-D elasticity) have kernels
-        # of their own, named with the order; Euler's face stage has its wall
-        # pair at each of them, the elasticity's is periodic only.  The Z4
-        # kernels' own order is 2; the 2-D vacuum step's order 3 has its own.
+        # Orders 4, 5 and 7 (Euler), 2 (the 3-D elasticity, 2-D Navier–Stokes)
+        # have kernels of their own, named with the order; Euler's face stage
+        # has its wall pair at each of them, and so has 2-D Navier–Stokes at
+        # order 2, the elasticity's is periodic only.  The Z4 kernels' own
+        # order is 2; the 2-D vacuum step's order 3 has its own.
         default_order = 2 if ncp else 3
         order_suffix = "" if solver.order == default_order else f"_p{solver.order}"
         if order_suffix and walled and tag.name in _ELASTIC:
@@ -528,15 +550,8 @@ class CudaADERDG:
                 "ROADMAP.md, Queue 2 K2 b (the plain solver runs them)"
             )
         # The 2-D steps have kernels of their own (csrc/aderdg_2d.cu), named
-        # with the dimension; they take the grid as (g0, g1, 1).  Navier–Stokes
-        # there is periodic only.
+        # with the dimension; they take the grid as (g0, g1, 1).
         dim_suffix = "_2d" if solver.dim == 2 else ""
-        if dim_suffix and viscous and walled:
-            raise LoweringError(
-                f"the CUDA 2-D Navier–Stokes step is periodic only, and boundary="
-                f"{solver.boundary!r}: 2-D viscous walls on the card are still to port, see "
-                "ROADMAP.md, Queue 1 item 4 (the plain solver runs them)"
-            )
         self._grid = tuple(solver.grid_shape) + (1,) * (3 - solver.dim)
         self.solver = solver
         #: Whether the step carries the fused NCP right-hand side (Z4): the
@@ -694,10 +709,10 @@ class CudaADERDG:
         # The Picard launchers take the iteration count; the CK ones have none.
         ck = name.startswith("aderdg_ck_predictor_volume")
         iters = () if ck else (sol.picard_iters,)
-        # The viscous launcher takes the wall planes of the viscous split
+        # The viscous launchers take the wall planes of the viscous split
         # (mask 0: none).
         fvwall, planes = None, ()
-        if name == "aderdg_predictor_volume_visc":
+        if name in self._WALLED_PREDICTOR_INFO:
             if sol.splits_wall_viscosity:
                 w = self.walls
                 fvwall = torch.empty(2 * w["size"], dtype=u.dtype, device=u.device)
@@ -960,8 +975,8 @@ class CudaADERDG:
         bytes and ``local`` (spill) bytes per thread."""
         out = (ctypes.c_int * 5)()
         index = self.KERNELS.index(name)
-        if name == "aderdg_predictor_volume_visc" and self.walls is not None:
-            index += 1
+        if name in self._WALLED_PREDICTOR_INFO and self.walls is not None:
+            index = self._WALLED_PREDICTOR_INFO[name]
         lib = _build.library()
         err = lib.exahype_aderdg_kernel_info(
             index, int(dtype == torch.float64), self._physics_id, out)

@@ -110,8 +110,10 @@ kernels of the Z4+GRMHD system and of the order-4, -5 and -7 Euler steps
 (the face stage at n = 5, 6 and 8, periodic and walled, and
 ``aderdg_predictor_volume_st``) and of the 2-D Euler
 step (``csrc/aderdg_2d.cu``, periodic and walled) and the 2-D kernels'
-``NavierStokes2D`` instances (the viscous predictor, the face flux) that
-only this checkout has are listed as new.  Prints one line per output and per kernel
+``NavierStokes2D`` instances (the viscous predictor, the face flux; at
+order 2, n = 3, with the update) and ``NavierStokesWalls2D`` instances (the
+walled viscous predictor and face flux) that only this checkout has are
+listed as new.  Prints one line per output and per kernel
 and exits non-zero if any differs.  Needs a CUDA card and nvcc; imports no
 JAX.
 """
@@ -147,7 +149,8 @@ SASS_KERNELS = (
 #: predictor's sponge and K2 b's homogeneous elasticity (a template argument
 #: of each instance).
 SYSTEMS = ("Z4Vacuum", "Z4Shift", "Z4Matter", "Z4Grmhd", "NavierStokes2D", "SpongeSource",
-           "Elastic3D", "Elastic2D", "ElasticHetPhysics", "ElasticHet2D", "CurvilinearElastic")
+           "Elastic3D", "Elastic2D", "ElasticHetPhysics", "ElasticHet2D", "CurvilinearElastic",
+           "NavierStokesWalls2D")
 #: What only this checkout may have: the Z4+GRMHD system's kernels, the
 #: order-5 Euler step's (its predictor, and the face stage's kernels whose
 #: node count is ``NEW_NODES``), the 2-D Euler step's and K2 b's (the CK
@@ -161,7 +164,7 @@ NEW = ("Z4Grmhd", "rhs_all_z4_grmhd", "Z4+GRMHD", "aderdg_predictor_volume_st",
        "rhs_all_z4_2d", "K5 b", "K1 c order 4", "K1 c order 7", "K1 c walled",
        "K1 d forms", "rhs_all_z4_matter_2d", "K1 d matter forms", "K5 b matter",
        "rhs_all_z4_grmhd_2d", "K1 d grmhd forms", "K5 b grmhd", "rhs_all_z4_shift_2d",
-       "K1 d shift forms", "K5 b shift")
+       "K1 d shift forms", "K5 b shift", "NavierStokesWalls2D")
 #: The node counts of the face stage's Euler-only instances (orders 4, 5,
 #: 7); the walled pair was instantiated at order 3 only before.
 NEW_NODES = ("5", "6", "8")

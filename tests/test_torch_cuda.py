@@ -32,8 +32,10 @@ per-axis and fused, ``csrc/aderdg_z4_grmhd_per_axis.cu`` and
 instance); the 2-D Euler p3 step (K1 c,
 ``csrc/aderdg_2d.cu``) periodic and in every wall mode, and the limited
 step with walls (gathered rows in 3-D, the whole grid in 2-D); the 2-D
-Navier–Stokes p3 step (the viscous predictor and the penalised face pair
-of the same file) and the limited step over viscous solvers in 2-D (the
+Navier–Stokes step at orders 3 and 2, periodic and in every wall mode (the
+viscous predictor, with the wall planes on a walled grid, and the
+penalised face pairs with the advective/viscous wall split, of the same
+file) and the limited step over viscous solvers in 2-D (the
 MUSCL fallback) and 3-D; K2 b, the homogeneous elasticity on the CK
 predictor of ``csrc/aderdg_ck_nodes.cuh`` (3-D ``elastic3d`` at order 2 with
 the face stage's n = 3 instances, 2-D ``elastic`` at order 3 with the 2-D
@@ -1558,18 +1560,44 @@ def test_walled_limited_steps_match_plain():
 # ------------------------------------- the 2-D Navier–Stokes step (K1 c)
 
 
-def _setup_2d_ns(grid, dtype, mu=0.02):
-    """A periodic 2-D p3 Navier–Stokes solver on the card (dx_0 = 1/g0,
-    dx_1 = 0.7/g1), its ``CudaADERDG`` and a state with seeded noise on
-    every node (every gradient of order 1/dx)."""
-    from exahype_tpu_torch.models.navier_stokes import navier_stokes
+def _setup_2d_ns(grid, dtype, mu=0.02, order=3, name="periodic"):
+    """A 2-D Navier–Stokes solver on the card at ``order`` (dx_0 = 1/g0,
+    dx_1 = 0.7/g1) in wall mode ``name`` (``NS_NAMES_2D``), its
+    ``CudaADERDG`` and a state with seeded noise on every node (every
+    gradient of order 1/dx)."""
+    from exahype_tpu_torch.models.aderdg import make_dirichlet_fn
+    from exahype_tpu_torch.models.navier_stokes import (
+        navier_stokes,
+        noslip_reflect,
+        noslip_reflect_flux,
+    )
 
     dev = _card()
+
+    def held(*x):
+        rho = 1.0 + 0.2 * np.sin(2 * np.pi * x[0]) * np.cos(np.pi * x[1])
+        vel = (0.3 + 0.1 * np.cos(2 * np.pi * x[1]), -0.2 + 0.1 * np.sin(np.pi * x[0]))
+        e = (2.0 + 0.1 * np.sin(np.pi * x[1])) / 0.4 + 0.5 * rho * sum(v * v for v in vel)
+        return np.stack([rho, rho * vel[0], rho * vel[1], e], axis=-1)
+
+    dx = (1.0 / grid[0], 0.7 / grid[1])
+    noslip = dict(boundary="reflective", reflect_fn=noslip_reflect(2),
+                  reflect_flux_fn=noslip_reflect_flux(2))
+    walls = {
+        "periodic": {},
+        "noslip_box": noslip,
+        "noslip_1": dict(noslip, wall_axes=(1,)),
+        "outflow_0": dict(boundary="outflow", wall_axes=(0,)),
+        "farfield_0": dict(boundary="farfield", farfield_state=(1.0, 0.3, 0.0, 2.6),
+                           wall_axes=(0,)),
+        "dirichlet": dict(boundary="dirichlet", dirichlet_fn=make_dirichlet_fn(
+            held, dim=2, order=order, grid_shape=grid, dx=dx)),
+    }[name]
     flux, eig, visc, visc_eig = navier_stokes(2, mu=mu, prandtl=0.7)
-    sol = ADERDGSolver(2, 3, 4, grid, flux, eig, dx=(1.0 / grid[0], 0.7 / grid[1]),
-                       visc_flux_fn=visc, visc_eigenvalue_fn=visc_eig, device=dev, dtype=dtype)
+    sol = ADERDGSolver(2, order, 4, grid, flux, eig, dx=dx, visc_flux_fn=visc,
+                       visc_eigenvalue_fn=visc_eig, device=dev, dtype=dtype, **walls)
     rng = np.random.default_rng(5)
-    shape = (4, 4) + grid
+    shape = (order + 1, order + 1) + grid
     rho = 1.0 + 0.3 * rng.random(shape)
     vel = [0.3 * rng.standard_normal(shape) for _ in range(2)]
     p = 1.0 + 0.3 * rng.random(shape)
@@ -1624,27 +1652,118 @@ def test_2d_ns_kernels_match_plain(dtype, grid):
     assert cu.launches == dict(zip(cu.kernels, (7, 8, 8)))
 
 
+#: The 2-D Navier–Stokes wall modes: periodic, the no-slip box and the
+#: no-slip walls on axis 1, outflow and farfield on axis 0, Dirichlet on both.
+NS_NAMES_2D = ["periodic", "noslip_box", "noslip_1", "outflow_0", "farfield_0", "dirichlet"]
+
+
+#: (wall mode, order) of the new 2-D Navier–Stokes instances: every wall
+#: mode at order 3 (the periodic order-3 kernels: test_2d_ns_kernels_match_plain)
+#: and every mode, periodic included, at order 2.
+NS_CASES_2D = [(name, order) for order in (3, 2) for name in NS_NAMES_2D
+               if (name, order) != ("periodic", 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,grid", CASES_2D)
+@pytest.mark.parametrize("name,order", NS_CASES_2D)
+def test_2d_ns_walls_and_p2_kernels_match_plain(name, order, dtype, grid):
+    """The walled 2-D Navier–Stokes kernels (the viscous predictor with the
+    wall planes, the face pair with the advective/viscous wall split) in
+    every wall mode, and the order-2 instances periodic and walled, launch
+    by launch against the plain solver: the predictor's new state, faces
+    and wall planes, F̂ and the low-wall fluxes, the update, the stage with
+    its face fluxes, and 3 steps (dt by value and by pointer, bitwise
+    equal)."""
+    sol, cu, u = _setup_2d_ns(grid, dtype, order=order, name=name)
+    dt = 0.5 * float(sol.cfl_dt(u))
+
+    def close(got, ref, rounds=1):
+        assert got.shape == ref.shape
+        assert _err(got, ref) <= rounds * _bound(ref, dtype)
+
+    got = cu.predictor_volume(u, dt)
+    ref = sol.predictor_volume(u, dt)
+    assert (got[2] is None) == (ref[2] is None) == (name == "periodic")
+    for a, b in zip(got, ref):
+        if b is not None:
+            close(a, b)
+    new_p, faces_p, fv_p = ref
+    fhat, fwall = cu.face_flux(faces_p, fv_p)
+    fshape = sol.face_flux_shape
+    rows = sol.visc_wall_rows(fv_p) if fv_p is not None else {}
+    plain, walls = [], {}
+    for d in range(2):
+        q_lo, q_hi, f_lo, f_hi = (faces_p[d, k].reshape(fshape) for k in range(4))
+        fv_lo, fv_hi = rows.get(d, (None, None))
+        plain.append(sol.interface_flux(q_lo, q_hi, f_lo, f_hi, d, fv_hi))
+        close(fhat[d].view(fshape), plain[d])
+        if sol.is_wall(d):
+            walls[d] = sol.low_wall_flux(q_lo, f_lo, d, fv_lo)
+            close(cu.wall_fluxes(fwall)[d], walls[d])
+    side = None if fwall is None else torch.cat([walls[d].reshape(-1) for d in sorted(walls)])
+    upd = cu.surface_update(new_p.clone(), torch.stack(plain).view(fhat.shape), dt, side)
+    want = new_p
+    for d in range(2):
+        want = sol.surface_term(want, plain[d], d, dt, walls.get(d))
+    close(upd, want)
+    stage, fl_k = cu.face_surface(new_p.clone(), faces_p, dt, return_face_fluxes=True,
+                                  fvwall=fv_p)
+    stage_p, fl_p = sol.face_surface(new_p, faces_p, dt, return_face_fluxes=True, fvwall=fv_p)
+    close(stage, stage_p)
+    for a, b in zip(fl_k, fl_p):
+        close(a, b)
+    by_value = cu.run(u, 3, dt)
+    by_pointer = cu.run(u, 3, torch.tensor(dt, dtype=dtype, device=u.device))
+    torch.cuda.synchronize()
+    close(by_value, sol.run(u, 3, dt), 1 if dtype == torch.float64 else 3)
+    assert torch.equal(by_value, by_pointer)
+    assert cu.launches == dict(zip(cu.kernels, (7, 8, 8)))
+
+
 @pytest.mark.cuda
 def test_2d_ns_kernel_info_and_refusals():
     """The 2-D viscous kernels' occupancy (index 27 and the face pair of
-    physics 2); the launchers refuse Euler's predictor for Navier–Stokes
-    and the viscous one for Euler."""
+    physics 2; the walled predictor 75 and the walled pair; the order-2
+    step's 70-74 and its walled predictor 76); the launchers refuse Euler's
+    predictor for Navier–Stokes and the viscous one for Euler, the order-2
+    entries for Euler, and a walled Navier–Stokes face flux without the
+    wall planes (an Euler one with them)."""
     from exahype_tpu_torch import _build
 
     sol, cu, u = _setup_2d_ns((4, 4), torch.float32)
-    for kernel in cu.kernels:
-        for dtype in (torch.float32, torch.float64):
-            info = cu.kernel_info(kernel, dtype)
-            assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, (kernel, info)
-    assert cu.kernel_info(cu.kernels[0], torch.float32)["threads"] == 256
+    for order, name, threads, smem in ((3, "periodic", 256, 20544), (3, "noslip_box", 256, 28736),
+                                       (2, "periodic", 288, 23076), (2, "noslip_box", 288, 32292)):
+        _, c, _ = _setup_2d_ns((4, 4), torch.float32, order=order, name=name)
+        for kernel in c.kernels:
+            for dtype in (torch.float32, torch.float64):
+                info = c.kernel_info(kernel, dtype)
+                assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, (kernel, info)
+        info = c.kernel_info(c.kernels[0], torch.float32)
+        assert (info["threads"], info["smem"]) == (threads, smem), (order, name, info)
+        assert c.kernel_info(c.kernels[0], torch.float64)["smem"] == 2 * smem
     esol, ecu, _ = _setup_2d((4, 4), torch.float32)
     lib = _build.library()
     new, faces = torch.empty_like(u), torch.empty(sol.face_shape, dtype=u.dtype, device=u.device)
-    for name, c in (("aderdg_predictor_volume_2d", cu), ("aderdg_predictor_volume_visc_2d", ecu)):
+    for name, c in (("aderdg_predictor_volume_2d", cu), ("aderdg_predictor_volume_visc_2d", ecu),
+                    ("aderdg_predictor_volume_visc_p2_2d", ecu)):
+        planes = (0, None, None, 0) if "visc" in name else ()
         err = getattr(lib, f"exahype_{name}_f32")(
             u.data_ptr(), new.data_ptr(), faces.data_ptr(), None, 1e-4, c._ops.ctypes.data,
-            c._dx.ctypes.data, 3, 2, c._physics_id, c._params.ctypes.data, *c._grid, None)
+            c._dx.ctypes.data, 2 if "p2" in name else 3, 2, c._physics_id, c._params.ctypes.data,
+            *c._grid, *planes, None)
         assert err != 0, name
+    _, wcu, wu = _setup_2d_ns((4, 4), torch.float32, name="noslip_box")
+    efaces = wcu.predictor_volume(wu, 1e-4)[1]
+    with pytest.raises(RuntimeError, match="CUDA error"):  # the planes withheld
+        mask, mode, table, rows, off, side = wcu._wall_args(efaces)
+        fhat = torch.empty((2, 4, 4, 4, 4), dtype=wu.dtype, device=wu.device)
+        fw = torch.empty(wcu.walls["size"], dtype=wu.dtype, device=wu.device)
+        err = lib.exahype_aderdg_face_flux_walls_2d_f32(
+            efaces.data_ptr(), fhat.data_ptr(), wcu._ops.ctypes.data, wcu._dx.ctypes.data, 3,
+            wcu._physics_id, wcu._params.ctypes.data, *wcu._grid, mask, mode, table, rows,
+            fw.data_ptr(), off, side, None, None)
+        _build.check(lib, err, "aderdg_face_flux_walls_2d")
 
 
 @pytest.mark.cuda

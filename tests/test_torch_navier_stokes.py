@@ -488,8 +488,8 @@ def test_cuda_wrapper_takes_the_tagged_physics_only():
         with pytest.raises(LoweringError, match=match):
             CudaADERDG(s)
         s.step(u, DT)  # the plain solver runs it
-    # 2-D at order 3 has kernels of its own (periodic); 2-D walls and other
-    # orders are refused.
+    # 2-D at orders 3 and 2 has kernels of its own, periodic and walled;
+    # other orders are refused.
     flux2, eig2, visc2, visc_eig2 = ns.navier_stokes(2)
     s2 = ADERDGSolver(2, 3, 4, (4, 4), flux2, eig2, visc_flux_fn=visc2,
                       visc_eigenvalue_fn=visc_eig2, **kw)
@@ -497,9 +497,14 @@ def test_cuda_wrapper_takes_the_tagged_physics_only():
                                       "aderdg_face_flux_2d", "aderdg_surface_update_2d")
     w2 = ADERDGSolver(2, 3, 4, (4, 4), flux2, eig2, visc_flux_fn=visc2,
                       visc_eigenvalue_fn=visc_eig2, boundary="outflow", **kw)
-    with pytest.raises(LoweringError, match=r"2-D Navier–Stokes.*Queue 1 item 4"):
-        CudaADERDG(w2)
+    assert CudaADERDG(w2).kernels == ("aderdg_predictor_volume_visc_2d",
+                                      "aderdg_face_flux_walls_2d",
+                                      "aderdg_surface_update_walls_2d")
     o2 = ADERDGSolver(2, 2, 4, (4, 4), flux2, eig2, visc_flux_fn=visc2,
                       visc_eigenvalue_fn=visc_eig2, **kw)
-    with pytest.raises(LoweringError, match="no CUDA kernel instantiated"):
-        CudaADERDG(o2)
+    assert CudaADERDG(o2).kernels == ("aderdg_predictor_volume_visc_p2_2d",
+                                      "aderdg_face_flux_p2_2d", "aderdg_surface_update_p2_2d")
+    o4 = ADERDGSolver(2, 4, 4, (4, 4), flux2, eig2, visc_flux_fn=visc2,
+                      visc_eigenvalue_fn=visc_eig2, **kw)
+    with pytest.raises(LoweringError, match="no CUDA kernel instantiated.*Queue 1 item 4"):
+        CudaADERDG(o4)
